@@ -1,0 +1,72 @@
+"""Build an engine from the config: model, parameters, tokenizer,
+``TorchExecutor`` and ``InferenceEngine`` (counterpart of the ``jax``
+branch of ``llmq_tpu/engine/builder.py``)."""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Optional
+
+import torch
+
+from llmq_tpu_torch.core.config import Config, resolve_device
+from llmq_tpu_torch.core.types import Priority
+from llmq_tpu_torch.engine.engine import InferenceEngine
+from llmq_tpu_torch.engine.executor import TorchExecutor
+from llmq_tpu_torch.engine.tokenizer import get_tokenizer
+from llmq_tpu_torch.models.llama import get_config, init_params
+
+log = logging.getLogger("llmq_tpu_torch.builder")
+
+
+def build_engine(cfg: Config, *, name: str = "engine0",
+                 params=None, device: Optional[str] = None,
+                 model_dtype: Optional[torch.dtype] = None
+                 ) -> InferenceEngine:
+    """Engine for ``cfg.model`` / ``cfg.executor`` on ``device`` (default
+    ``cfg.device``). ``params`` (a parameter tree in the JAX layout) is
+    used as given; otherwise weights are random-initialised on the
+    device from seed 0 (the JAX package's ``PRNGKey(0)`` counterpart).
+    ``model_dtype`` overrides the model's bf16 (tests run f32)."""
+    ex = cfg.executor
+    dev = resolve_device(device or cfg.device)
+    tokenizer = get_tokenizer()
+    kw = {"max_seq_len": cfg.model.max_seq_len}
+    if cfg.model.vocab_size:
+        kw["vocab_size"] = cfg.model.vocab_size
+    if model_dtype is not None:
+        kw["dtype"] = model_dtype
+    mcfg = get_config(cfg.model.name, **kw)
+    if tokenizer.vocab_size > mcfg.vocab_size:
+        raise ValueError(
+            f"tokenizer vocab ({tokenizer.vocab_size}) exceeds model "
+            f"vocab ({mcfg.vocab_size}): ids would be out of range and "
+            f"EOS could never be sampled; set model.vocab_size")
+    t0 = time.perf_counter()
+    if params is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params = init_params(mcfg, gen, dev)
+    executor = TorchExecutor(
+        mcfg, params,
+        batch_size=ex.max_batch_size,
+        page_size=ex.page_size,
+        num_pages=ex.kv_pages,
+        prefill_buckets=list(ex.prefill_buckets),
+        eos_id=tokenizer.eos_id,
+        chunk_size=ex.decode_chunk,
+        device=str(dev))
+    tier_max_wait = {Priority(lvl.priority): lvl.max_wait_time
+                     for lvl in cfg.queue.levels}
+    engine = InferenceEngine(
+        executor, tokenizer, name=name,
+        max_decode_steps=ex.max_decode_steps,
+        preemption=ex.preemption,
+        kv_pin_ttl=ex.kv_pin_ttl,
+        tier_max_wait=tier_max_wait)
+    log.info("built %s engine %s on %s in %.1fs (slots=%d pages=%d "
+             "page_size=%d chunk=%d)", mcfg.name, name, dev,
+             time.perf_counter() - t0, ex.max_batch_size, ex.kv_pages,
+             ex.page_size, ex.decode_chunk)
+    return engine

@@ -1,0 +1,1 @@
+"""Model layer of the port (Llama-3 family)."""

@@ -1,0 +1,316 @@
+"""Llama-3 family in PyTorch over the paged KV pool (counterpart of
+``llmq_tpu/models/llama.py``).
+
+The parameter tree keeps the JAX package's layout and shapes with no
+transposes: stacked layers (leading dim L), weights ``(in, out)`` applied
+as ``h @ W``. :func:`params_from_jax` carries a JAX tree across key for
+key, so the two packages can be held against each other on the same
+weights. Layers run unrolled; the pools are updated in place by the
+attention routes (the port's counterpart of JAX's donation). Plain
+large matmuls stay ``torch.matmul``, as the JAX package leaves them to
+XLA; the paged attention and KV writes go through ``ops/attention.py``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from llmq_tpu_torch.ops.attention import (dispatch_prefill_attention,
+                                          paged_decode_step,
+                                          paged_kv_write_prefill)
+from llmq_tpu_torch.ops.norms import rms_norm
+from llmq_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+
+Params = Dict[str, Any]
+KVCache = Dict[str, torch.Tensor]
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    name: str = "llama3-tiny"
+    vocab_size: int = 512
+    dim: int = 128
+    n_layers: int = 2
+    n_heads: int = 4
+    n_kv_heads: int = 2
+    ffn_dim: int = 256
+    max_seq_len: int = 2048
+    rope_theta: float = 500000.0
+    norm_eps: float = 1e-5
+    dtype: torch.dtype = torch.bfloat16
+    tie_embeddings: bool = False
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.n_heads
+
+
+def llama3_tiny(**kw) -> LlamaConfig:
+    return replace(LlamaConfig(), **kw)
+
+
+def llama3_1b(**kw) -> LlamaConfig:
+    # Public Llama-3.2-1B architecture constants.
+    return replace(LlamaConfig(
+        name="llama3-1b", vocab_size=128256, dim=2048, n_layers=16,
+        n_heads=32, n_kv_heads=8, ffn_dim=8192, max_seq_len=8192,
+        rope_theta=500000.0, tie_embeddings=True), **kw)
+
+
+def llama3_8b(**kw) -> LlamaConfig:
+    # Public Llama-3-8B architecture constants.
+    return replace(LlamaConfig(
+        name="llama3-8b", vocab_size=128256, dim=4096, n_layers=32,
+        n_heads=32, n_kv_heads=8, ffn_dim=14336, max_seq_len=8192,
+        rope_theta=500000.0), **kw)
+
+
+def llama3_70b(**kw) -> LlamaConfig:
+    # Public Llama-3-70B architecture constants.
+    return replace(LlamaConfig(
+        name="llama3-70b", vocab_size=128256, dim=8192, n_layers=80,
+        n_heads=64, n_kv_heads=8, ffn_dim=28672, max_seq_len=8192,
+        rope_theta=500000.0), **kw)
+
+
+MODEL_CONFIGS = {
+    "llama3-tiny": llama3_tiny,
+    "llama3-1b": llama3_1b,
+    "llama3-8b": llama3_8b,
+    "llama3-70b": llama3_70b,
+}
+
+
+def get_config(name: str, **kw) -> LlamaConfig:
+    try:
+        return MODEL_CONFIGS[name](**kw)
+    except KeyError:
+        raise ValueError(
+            f"unknown model {name!r}; known: {sorted(MODEL_CONFIGS)}"
+        ) from None
+
+
+# -- parameters ---------------------------------------------------------------
+
+def init_params(cfg: LlamaConfig, generator: torch.Generator,
+                device: torch.device | str) -> Params:
+    """Random-init parameter tree (stacked layers: leading dim L), drawn
+    from ``generator`` (which must live on ``device``) leaf by leaf, so
+    the f32 transient never exceeds one leaf. Normal(0, 1/fan_in)
+    weights, unit norm gains — the JAX package's init, not its numbers."""
+    L, D, H, HKV, Fd, V = (cfg.n_layers, cfg.dim, cfg.n_heads,
+                           cfg.n_kv_heads, cfg.ffn_dim, cfg.vocab_size)
+    hd = cfg.head_dim
+
+    def norm_init(shape, fan_in):
+        w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return (w * fan_in ** -0.5).to(cfg.dtype)
+
+    def ones(shape):
+        return torch.ones(shape, dtype=cfg.dtype, device=device)
+
+    params: Params = {
+        "embed": norm_init((V, D), D),
+        "layers": {
+            "wq": norm_init((L, D, H * hd), D),
+            "wk": norm_init((L, D, HKV * hd), D),
+            "wv": norm_init((L, D, HKV * hd), D),
+            "wo": norm_init((L, H * hd, D), H * hd),
+            "w_gate": norm_init((L, D, Fd), D),
+            "w_up": norm_init((L, D, Fd), D),
+            "w_down": norm_init((L, Fd, D), Fd),
+            "attn_norm": ones((L, D)),
+            "mlp_norm": ones((L, D)),
+        },
+        "final_norm": ones((D,)),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = norm_init((D, V), D)
+    return params
+
+
+def _leaf_to_torch(arr: Any, device) -> torch.Tensor:
+    a = np.array(arr)      # a writable host copy (JAX exports read-only)
+    if a.dtype.name == "bfloat16":
+        # ml_dtypes' bfloat16 arrays are rejected by torch.from_numpy:
+        # carry the bits across as uint16 and reinterpret them.
+        return torch.from_numpy(a.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def params_from_jax(tree: Any, device: torch.device | str = "cuda") -> Params:
+    """The weight bridge: a JAX parameter tree (dicts of arrays; leaves
+    anything ``np.asarray`` accepts) → the port's tensors, key for key,
+    same shapes, no transposes."""
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, device) for k, v in tree.items()}
+    return _leaf_to_torch(tree, device)
+
+
+def init_kv_pages(cfg: LlamaConfig, num_pages: int, page_size: int,
+                  device: torch.device | str,
+                  dtype: Optional[torch.dtype] = None) -> KVCache:
+    """Paged KV pool: flat ``(L, P, page_size, H_kv·head_dim)`` per K/V.
+    Page 0 is reserved as the null/padding page."""
+    shape = (cfg.n_layers, num_pages, page_size,
+             cfg.n_kv_heads * cfg.head_dim)
+    dt = dtype or cfg.dtype
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+# -- forward ------------------------------------------------------------------
+
+def _mlp(h: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+         w_down: torch.Tensor) -> torch.Tensor:
+    """SwiGLU, the activation in f32."""
+    g = h @ w_gate
+    u = h @ w_up
+    return (F.silu(g.float()).to(h.dtype) * u) @ w_down
+
+
+def _logits(params: Params, h: torch.Tensor) -> torch.Tensor:
+    """Final projection → f32 logits (tied head: ``h @ embed.T``)."""
+    head = params.get("lm_head")
+    if head is not None:
+        return (h @ head).float()
+    return (h @ params["embed"].T).float()
+
+
+def forward_prefill(params: Params, cfg: LlamaConfig,
+                    tokens: torch.Tensor, positions: torch.Tensor,
+                    lengths: torch.Tensor, kv_cache: KVCache,
+                    block_tables: torch.Tensor) -> torch.Tensor:
+    """Prefill up to T tokens per row, writing their K/V into the pool
+    in place. tokens/positions (B, T) right-padded, lengths (B,),
+    block_tables (B, max_pages) padded with page 0. Returns logits
+    (B, T, V) f32.
+
+    Each row of ``positions`` must be contiguous from ``positions[b, 0]``
+    (the attention kernel derives every query position from it); rows
+    past ``lengths`` are padding, not written, and their logits are
+    meaningless. Continuation chunks (turn 2+) attend to earlier pages
+    through the same block tables."""
+    B, T = tokens.shape
+    lp = params["layers"]
+    h = params["embed"][tokens.long()].to(cfg.dtype)           # (B, T, D)
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    # Host copies for the per-row write/attention launches: two reads
+    # per forward instead of two per layer.
+    starts = [int(x) for x in positions[:, 0].tolist()]
+    counts = [int(x) for x in lengths.tolist()]
+    k_pool, v_pool = kv_cache["k"], kv_cache["v"]
+    for layer in range(cfg.n_layers):
+        hn = rms_norm(h, lp["attn_norm"][layer], cfg.norm_eps)
+        q = (hn @ lp["wq"][layer]).reshape(B, T, cfg.n_heads, cfg.head_dim)
+        k = (hn @ lp["wk"][layer]).reshape(B, T, cfg.n_kv_heads,
+                                           cfg.head_dim)
+        v = (hn @ lp["wv"][layer]).reshape(B, T, cfg.n_kv_heads,
+                                           cfg.head_dim)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        paged_kv_write_prefill(k_pool, v_pool, k, v,
+                               block_tables, starts, counts, layer)
+        attn = dispatch_prefill_attention(q, k_pool, v_pool, block_tables,
+                                          starts, layer)
+        h = h + attn.reshape(B, T, -1) @ lp["wo"][layer]
+        hn2 = rms_norm(h, lp["mlp_norm"][layer], cfg.norm_eps)
+        h = h + _mlp(hn2, lp["w_gate"][layer], lp["w_up"][layer],
+                     lp["w_down"][layer])
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return _logits(params, h)
+
+
+def forward_decode(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
+                   positions: torch.Tensor, kv_cache: KVCache,
+                   block_tables: torch.Tensor,
+                   active: Optional[torch.Tensor] = None, *,
+                   fused: bool = True) -> torch.Tensor:
+    """One decode step for every row: tokens/positions (B,), the token's
+    K/V written at its position in place. Rows with ``active == False``
+    write to reserved page 0 instead; their logits are discarded by the
+    caller. ``fused`` picks the decode route (ops/attention.py
+    ``paged_decode_step``). Returns logits (B, V) f32."""
+    B = tokens.shape[0]
+    page_sz = kv_cache["k"].shape[2]
+    max_pages = block_tables.shape[1]
+    lp = params["layers"]
+    h = params["embed"][tokens.long()].to(cfg.dtype)           # (B, D)
+    cos, sin = rope_cos_sin(positions[:, None], cfg.head_dim, cfg.rope_theta)
+    rows = torch.arange(B, device=tokens.device)
+    page_idx = (positions // page_sz).clamp(max=max_pages - 1).long()
+    page_of = block_tables[rows, page_idx]
+    if active is not None:
+        page_of = torch.where(active, page_of, torch.zeros_like(page_of))
+    page_of = page_of.to(torch.int32)
+    slot_of = (positions % page_sz).to(torch.int32)
+    seq_lens = (positions + 1).to(torch.int32)
+    k_pool, v_pool = kv_cache["k"], kv_cache["v"]
+    for layer in range(cfg.n_layers):
+        hn = rms_norm(h, lp["attn_norm"][layer], cfg.norm_eps)
+        q = (hn @ lp["wq"][layer]).reshape(B, 1, cfg.n_heads, cfg.head_dim)
+        k = (hn @ lp["wk"][layer]).reshape(B, 1, cfg.n_kv_heads,
+                                           cfg.head_dim)
+        v = (hn @ lp["wv"][layer]).reshape(B, 1, cfg.n_kv_heads,
+                                           cfg.head_dim)
+        q = apply_rope(q, cos, sin)[:, 0]                      # (B, H, D)
+        k = apply_rope(k, cos, sin)[:, 0]                      # (B, H_kv, D)
+        v = v[:, 0].contiguous()
+        attn = paged_decode_step(q, k, v, k_pool, v_pool, block_tables,
+                                 seq_lens, page_of, slot_of, layer,
+                                 fused=fused)
+        h = h + attn.reshape(B, -1) @ lp["wo"][layer]
+        hn2 = rms_norm(h, lp["mlp_norm"][layer], cfg.norm_eps)
+        h = h + _mlp(hn2, lp["w_gate"][layer], lp["w_up"][layer],
+                     lp["w_down"][layer])
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return _logits(params, h)
+
+
+class Llama(nn.Module):
+    """The model as a module: holds the parameter tree (JAX layout) as
+    non-trainable parameters and exposes the two forwards."""
+
+    def __init__(self, cfg: LlamaConfig, params: Params) -> None:
+        super().__init__()
+        self.cfg = cfg
+        self.embed = nn.Parameter(params["embed"], requires_grad=False)
+        self.final_norm = nn.Parameter(params["final_norm"],
+                                       requires_grad=False)
+        self.lm_head = (nn.Parameter(params["lm_head"], requires_grad=False)
+                        if "lm_head" in params else None)
+        self.layers = nn.ParameterDict({
+            k: nn.Parameter(v, requires_grad=False)
+            for k, v in params["layers"].items()})
+
+    @property
+    def params(self) -> Params:
+        p: Params = {"embed": self.embed, "final_norm": self.final_norm,
+                     "layers": dict(self.layers.items())}
+        if self.lm_head is not None:
+            p["lm_head"] = self.lm_head
+        return p
+
+    def forward_prefill(self, tokens, positions, lengths, kv_cache,
+                        block_tables) -> torch.Tensor:
+        return forward_prefill(self.params, self.cfg, tokens, positions,
+                               lengths, kv_cache, block_tables)
+
+    def forward_decode(self, tokens, positions, kv_cache, block_tables,
+                       active=None, *, fused: bool = True) -> torch.Tensor:
+        return forward_decode(self.params, self.cfg, tokens, positions,
+                              kv_cache, block_tables, active, fused=fused)
+
+    def forward(self, tokens, positions, kv_cache, block_tables,
+                active=None) -> torch.Tensor:
+        return self.forward_decode(tokens, positions, kv_cache,
+                                   block_tables, active)
+

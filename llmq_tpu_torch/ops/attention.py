@@ -1,0 +1,208 @@
+"""Attention ops over the paged KV pool (counterpart of
+``llmq_tpu/ops/attention.py``), in the JAX package's layouts.
+
+Plain routes (the semantics the kernels are held to):
+:func:`causal_prefill_attention`, :func:`_gqa_attend`,
+:func:`paged_decode_attention_pooled`, the scatter write
+:func:`paged_kv_write` and the online-softmax
+:func:`blockwise_prefill_attention`.
+
+Routes that choose a kernel or its plain twin:
+:func:`paged_kv_write_prefill`, :func:`dispatch_prefill_attention` and
+:func:`paged_decode_step`. The choice is the tensors' device and nothing
+else: a CUDA tensor launches the hand-written kernel
+(``ops/kernels.py``), a CPU tensor takes the kernel's plain twin.
+
+Pools are flat ``(L, P, page_size, H_kv·D)``; page 0 is the null page.
+Writes update the pools in place — the port's counterpart of JAX's
+buffer donation.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+
+from llmq_tpu_torch.ops import kernels
+
+NEG_INF = -1e30
+
+
+def causal_prefill_attention(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *,
+                             q_offset=0) -> torch.Tensor:
+    """Causal self-attention for prefill. q (B, T, H, D); k, v
+    (B, S, H_kv, D) with S ≥ T; ``q_offset`` is the absolute position of
+    q's first token (int or (B,)). GQA by grouping query heads, softmax
+    in f32. Returns (B, T, H, D)."""
+    B, T, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    n_rep = H // Hkv
+    scale = D ** -0.5
+    qg = q.reshape(B, T, Hkv, n_rep, D)
+    logits = torch.einsum("btgrd,bsgd->bgrts", qg.float(), k.float()) * scale
+    offset = torch.as_tensor(q_offset, device=q.device).reshape(-1, 1, 1)
+    q_pos = torch.arange(T, device=q.device)[:, None] + offset  # (B|1,T,1)
+    kv_pos = torch.arange(S, device=q.device)[None, None, :]
+    mask = (kv_pos <= q_pos)[:, None, None, :, :]
+    logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bgrts,bsgd->btgrd", probs.to(v.dtype).float(),
+                       v.float())
+    return out.reshape(B, T, H, D).to(q.dtype)
+
+
+def _gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                seq_lens: torch.Tensor) -> torch.Tensor:
+    """Decode attention: q (B, H, D) against gathered history k/v
+    (B, S, H_kv, D), masked at and beyond ``seq_lens``. Returns
+    (B, H, D)."""
+    B, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    n_rep = H // Hkv
+    scale = D ** -0.5
+    qg = q.reshape(B, Hkv, n_rep, D)
+    logits = torch.einsum("bgrd,bsgd->bgrs", qg.float(), k.float()) * scale
+    mask = torch.arange(S, device=q.device)[None, :] < seq_lens[:, None]
+    logits = torch.where(mask[:, None, None, :], logits,
+                         torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bgrs,bsgd->bgrd", probs.to(v.dtype).float(),
+                       v.float())
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+def paged_decode_attention_pooled(q: torch.Tensor, k_pool: torch.Tensor,
+                                  v_pool: torch.Tensor,
+                                  block_tables: torch.Tensor,
+                                  seq_lens: torch.Tensor,
+                                  layer: int) -> torch.Tensor:
+    """Decode attention reading layer ``layer`` of the flat pool through
+    ``block_tables`` (B, max_pages). Returns (B, H, D)."""
+    B, H, D = q.shape
+    page_size = k_pool.shape[2]
+    S = block_tables.shape[1] * page_size
+    Hkv = k_pool.shape[3] // D
+    bt = block_tables.long()
+    k = k_pool[layer][bt].reshape(B, S, Hkv, D)
+    v = v_pool[layer][bt].reshape(B, S, Hkv, D)
+    return _gqa_attend(q, k, v, seq_lens)
+
+
+def paged_kv_write(k_pool: torch.Tensor, v_pool: torch.Tensor,
+                   k_new: torch.Tensor, v_new: torch.Tensor,
+                   page_of: torch.Tensor, slot_of: torch.Tensor,
+                   layer: int) -> None:
+    """Scatter N token rows (k_new/v_new (N, H_kv, D) or (N, GD)) into
+    layer ``layer`` of the pools, in place."""
+    N = k_new.shape[0]
+    page = page_of.long()
+    slot = slot_of.long()
+    k_pool[layer, page, slot] = k_new.reshape(N, -1).to(k_pool.dtype)
+    v_pool[layer, page, slot] = v_new.reshape(N, -1).to(v_pool.dtype)
+
+
+def blockwise_prefill_attention(q: torch.Tensor, k_hist: torch.Tensor,
+                                v_hist: torch.Tensor,
+                                positions: torch.Tensor,
+                                seq_lens: torch.Tensor, *,
+                                block_size: int = 512) -> torch.Tensor:
+    """Prefill attention with an online softmax over KV chunks.
+
+    q (B, T, H, D); k_hist, v_hist (B, S, H_kv, D); ``positions`` (B, T)
+    absolute query positions; ``seq_lens`` (B,) visible history. Mask:
+    kv_pos <= q_pos and kv_pos < seq_len. Peak memory is
+    O(B·H·T·block_size) f32 instead of O(B·H·T·S)."""
+    B, T, H, D = q.shape
+    S, Hkv = k_hist.shape[1], k_hist.shape[2]
+    n_rep = H // Hkv
+    Sb = min(block_size, S)
+    while S % Sb:
+        Sb -= 1
+    scale = D ** -0.5
+    qg = q.reshape(B, T, Hkv, n_rep, D).float()
+    dev = q.device
+    m = torch.full((B, T, Hkv, n_rep, 1), NEG_INF, dtype=torch.float32,
+                   device=dev)
+    l_sum = torch.zeros((B, T, Hkv, n_rep, 1), dtype=torch.float32,
+                        device=dev)
+    acc = torch.zeros((B, T, Hkv, n_rep, D), dtype=torch.float32,
+                      device=dev)
+    for i in range(S // Sb):
+        k_b = k_hist[:, i * Sb:(i + 1) * Sb]
+        v_b = v_hist[:, i * Sb:(i + 1) * Sb]
+        logits = torch.einsum("btgrd,bsgd->btgrs", qg, k_b.float()) * scale
+        kv_pos = i * Sb + torch.arange(Sb, device=dev)[None, :]     # (1, Sb)
+        mask = ((kv_pos[:, None, :] <= positions[:, :, None])
+                & (kv_pos[:, None, :] < seq_lens[:, None, None]))  # (B,T,Sb)
+        mask = mask[:, :, None, None, :]
+        logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+        m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        # Explicit zero for masked entries: a fully masked chunk keeps
+        # m_new at NEG_INF and exp(logits - m_new) would be exp(0) = 1.
+        p = torch.where(mask, torch.exp(logits - m_new),
+                        torch.zeros_like(logits))
+        l_sum = alpha * l_sum + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum(
+            "btgrs,bsgd->btgrd", p.to(v_b.dtype).float(), v_b.float())
+        m = m_new
+    out = acc / torch.clamp(l_sum, min=1e-30)
+    return out.reshape(B, T, H, D).to(q.dtype)
+
+
+# -- routes: kernel on CUDA, plain twin on CPU --------------------------------
+
+def paged_kv_write_prefill(k_pool: torch.Tensor, v_pool: torch.Tensor,
+                           k: torch.Tensor, v: torch.Tensor,
+                           block_tables: torch.Tensor, starts: List[int],
+                           lengths: List[int], layer: int) -> None:
+    """Write a prefill chunk's K/V (k, v (B, T, H_kv, D)) into layer
+    ``layer`` in place, one prefill-write launch per row: row b's first
+    ``lengths[b]`` tokens land at positions ``starts[b] + t``; the rest
+    are padding and are not written. ``starts``/``lengths`` are host
+    ints, so the per-layer calls never wait on the device."""
+    B, T = k.shape[0], k.shape[1]
+    GD = k_pool.shape[3]
+    for b in range(B):
+        kernels.kv_prefill_write(k_pool, v_pool, k[b].reshape(T, GD),
+                                 v[b].reshape(T, GD), block_tables[b],
+                                 starts[b], lengths[b], layer)
+
+
+def dispatch_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                               v_pool: torch.Tensor,
+                               block_tables: torch.Tensor,
+                               starts: List[int], layer: int) -> torch.Tensor:
+    """Prefill-chunk attention over the pool, one launch per row;
+    q (B, T, H, D). Row b's queries sit at positions ``starts[b] + t``
+    (contiguous chunks; padding rows produce values the caller
+    discards). Returns (B, T, H, D)."""
+    outs = [kernels.prefill_attention(q[b], k_pool, v_pool,
+                                      block_tables[b], starts[b], layer)
+            for b in range(q.shape[0])]
+    return torch.stack(outs)
+
+
+def paged_decode_step(q: torch.Tensor, k_new: torch.Tensor,
+                      v_new: torch.Tensor, k_pool: torch.Tensor,
+                      v_pool: torch.Tensor, block_tables: torch.Tensor,
+                      seq_lens: torch.Tensor, page_of: torch.Tensor,
+                      slot_of: torch.Tensor, layer: int, *,
+                      fused: bool = True) -> torch.Tensor:
+    """One decode layer's KV write + attention; pools update in place.
+
+    ``fused=True``: the fused write+attention kernel. ``fused=False``:
+    the split route, the row-write kernel then pooled attention. Both
+    routes give the same attention for live rows (an inactive row has
+    ``page_of == 0`` and its output is discarded). Returns (B, H, D).
+    """
+    if fused:
+        return kernels.fused_decode(q, k_new, v_new, k_pool, v_pool,
+                                    block_tables, seq_lens, page_of, layer)
+    N = k_new.shape[0]
+    kernels.kv_cache_write(k_pool, v_pool, k_new.reshape(N, -1),
+                           v_new.reshape(N, -1), page_of, slot_of, layer)
+    return paged_decode_attention_pooled(q, k_pool, v_pool, block_tables,
+                                         seq_lens, layer)

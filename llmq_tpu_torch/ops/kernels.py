@@ -1,0 +1,445 @@
+"""The port's hand-written Hopper kernels: build, load, wrappers, twins.
+
+Four CUDA C++ kernels (``llmq_tpu_torch/csrc/*.cu``) replace the four
+Pallas kernels on the serving path of ``llmq_tpu``:
+
+=====================  =================================================
+wrapper                replaces (``llmq_tpu/ops/pallas/``)
+=====================  =================================================
+:func:`fused_decode`       ``fused_decode.py`` fused_decode_attention_pallas
+:func:`kv_prefill_write`   ``kv_write.py`` kv_prefill_write_pallas
+:func:`prefill_attention`  ``prefill_attention.py`` paged_prefill_attention_pallas
+:func:`kv_cache_write`     ``kv_write.py`` kv_cache_write_pallas
+=====================  =================================================
+
+Each source compiles with its own ``nvcc`` (all started together) into a
+shared library with a plain C interface, loaded with ``ctypes``, at the
+first launch — nothing is built at import. Libraries go to
+``llmq_tpu_torch/_build/``, named by a hash of source and flags.
+
+Each wrapper takes its kernel's plain PyTorch twin (``*_plain``, beside
+it) only when its tensors lie on the CPU. On a CUDA tensor it checks
+device, dtype, shape and contiguity, launches on the current stream,
+raises if the launch failed, and adds one to :data:`LAUNCHES`.
+Pools are flat ``(L, P, page_size, GD)`` with ``GD = H_kv * head_dim``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+#: Library name → source file; one nvcc process per source.
+SOURCES = {
+    "fused_decode": "fused_decode.cu",
+    "kv_write": "kv_write.cu",
+    "prefill_attention": "prefill_attention.cu",
+}
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+#: Library → C function → argtypes (every pointer and the stream is a
+#: c_void_p; each function returns cudaGetLastError() as an int).
+_SIGNATURES = {
+    "kv_write": {
+        "llmq_kv_cache_write": [_P] * 6 + [_I] * 5 + [_P],
+        "llmq_kv_prefill_write": [_P] * 5 + [_I] * 6 + [_P],
+    },
+    "fused_decode": {
+        "llmq_fused_decode": [_P] * 9 + [_I] * 8 + [_F, _P],
+    },
+    "prefill_attention": {
+        "llmq_prefill_attention": [_P] * 5 + [_I] * 9 + [_F, _P],
+    },
+}
+
+#: Launches per kernel, counted by the wrappers where they launch and
+#: nowhere else. ``reset_launches()`` zeroes them.
+LAUNCHES: Dict[str, int] = {"fused_decode": 0, "kv_prefill_write": 0,
+                            "prefill_attention": 0, "kv_cache_write": 0}
+
+#: nvcc's stderr per library from the last build (ptxas register and
+#: shared-memory report).
+BUILD_LOGS: Dict[str, str] = {}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_BUILD_LOCK = threading.Lock()
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([str(Path(home) / "bin" / "nvcc")] if home else []) + [
+            shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]:
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC_DIR / SOURCES[name]).read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def _load(name: str, path: Path) -> None:
+    lib = ctypes.CDLL(str(path))
+    for fn_name, argtypes in _SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _LIBS[name] = lib
+
+
+def build(names: Optional[Iterable[str]] = None) -> None:
+    """Compile (if not already built) and load the named libraries, all
+    sources at once with one nvcc each. Raises with nvcc's output if any
+    compile fails; every nvcc started has exited when this returns."""
+    with _BUILD_LOCK:
+        jobs = []
+        for name in (list(names) if names is not None else list(SOURCES)):
+            if name in _LIBS:
+                continue
+            out = _lib_path(name)
+            if out.exists():
+                _load(name, out)
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC_DIR / SOURCES[name])]
+            jobs.append((name, out, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        failures = []
+        for name, out, tmp, proc in jobs:
+            stdout, stderr = proc.communicate()
+            BUILD_LOGS[name] = stdout + stderr
+            if proc.returncode != 0:
+                failures.append(f"nvcc failed for {SOURCES[name]} "
+                                f"(exit {proc.returncode}):\n{stderr}")
+                continue
+            os.replace(tmp, out)
+            _load(name, out)
+        if failures:
+            raise RuntimeError("\n".join(failures))
+
+
+def _fn(lib: str, fn_name: str):
+    if lib not in _LIBS:
+        build()
+    return getattr(_LIBS[lib], fn_name)
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on the CPU (take the plain twin);
+    False when every one lies on the current CUDA device (launch)."""
+    dev = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"tensors on mixed devices: {dev} and "
+                             f"{t.device}")
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    if dev.index is not None and dev.index != torch.cuda.current_device():
+        raise ValueError(f"tensors on {dev} but the current CUDA device "
+                         f"is {torch.cuda.current_device()}")
+    return False
+
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype,
+           shape: Optional[tuple] = None, align: int = 0) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, need {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, need {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if align and t.data_ptr() % align:
+        raise ValueError(f"{name} must be {align}-byte aligned")
+
+
+def _check_pools(k_pool: torch.Tensor, v_pool: torch.Tensor,
+                 layer: int) -> None:
+    if k_pool.dim() != 4:
+        raise ValueError(f"pool must be (L, P, page_size, GD), got "
+                         f"{tuple(k_pool.shape)}")
+    _check(k_pool, "k_pool", torch.bfloat16, align=16)
+    _check(v_pool, "v_pool", torch.bfloat16, tuple(k_pool.shape), align=16)
+    if k_pool.shape[3] % 8:
+        raise ValueError(f"GD={k_pool.shape[3]} must be a multiple of 8")
+    if not 0 <= layer < k_pool.shape[0]:
+        raise ValueError(f"layer {layer} out of range [0, "
+                         f"{k_pool.shape[0]})")
+
+
+def _check_heads(H: int, Hkv: int, D: int) -> None:
+    if D not in (64, 128) or H % Hkv or H // Hkv not in (2, 4, 8):
+        raise ValueError(f"no kernel instantiation for H={H} H_kv={Hkv} "
+                         f"D={D} (need D in 64/128, H/H_kv in 2/4/8)")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _raise_on(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {rc}")
+
+
+# -- kernel 1: fused decode write + attention --------------------------------
+
+def fused_decode(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                 k_pool: torch.Tensor, v_pool: torch.Tensor,
+                 block_tables: torch.Tensor, seq_lens: torch.Tensor,
+                 write_page: torch.Tensor, layer: int) -> torch.Tensor:
+    """One decode layer: write each row's current K/V into slot
+    ``(seq_len-1) % page_size`` of ``write_page[b]`` (in place; 0 for an
+    inactive row), then GQA attention of q (B, H, D) over positions
+    ``[0, seq_len)`` through ``block_tables`` (B, MP), the new token
+    included. A row with ``seq_len == 0`` returns zeros.
+
+    Replaces ``fused_decode_attention_pallas``
+    (llmq_tpu/ops/pallas/fused_decode.py). Bound on the H100 by bytes:
+    each cached K/V byte is read once for all n_rep query heads of its
+    group (see csrc/fused_decode.cu)."""
+    if _on_cpu(q, k_new, v_new, k_pool, v_pool, block_tables, seq_lens,
+               write_page):
+        return fused_decode_plain(q, k_new, v_new, k_pool, v_pool,
+                                  block_tables, seq_lens, write_page, layer)
+    B, H, D = q.shape
+    _check_pools(k_pool, v_pool, layer)
+    L, P, ps, GD = k_pool.shape
+    Hkv = GD // D
+    _check_heads(H, Hkv, D)
+    if Hkv * D != GD:
+        raise ValueError(f"pool GD={GD} != H_kv*D for D={D}")
+    MP = block_tables.shape[1] if block_tables.dim() == 2 else -1
+    _check(q, "q", torch.bfloat16, (B, H, D), align=8)
+    _check(k_new, "k_new", torch.bfloat16, align=8)
+    _check(v_new, "v_new", torch.bfloat16, align=8)
+    if k_new.numel() != B * GD or v_new.numel() != B * GD:
+        raise ValueError(f"k_new/v_new must hold (B, GD) = ({B}, {GD})")
+    _check(block_tables, "block_tables", torch.int32, (B, MP))
+    _check(seq_lens, "seq_lens", torch.int32, (B,))
+    _check(write_page, "write_page", torch.int32, (B,))
+    out = torch.empty_like(q)
+    rc = _fn("fused_decode", "llmq_fused_decode")(
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+        k_pool.data_ptr(), v_pool.data_ptr(), block_tables.data_ptr(),
+        seq_lens.data_ptr(), write_page.data_ptr(), out.data_ptr(),
+        B, H, Hkv, D, layer, P, ps, MP, D ** -0.5, _stream(q))
+    _raise_on(rc, "fused_decode")
+    LAUNCHES["fused_decode"] += 1
+    return out
+
+
+def fused_decode_plain(q: torch.Tensor, k_new: torch.Tensor,
+                       v_new: torch.Tensor, k_pool: torch.Tensor,
+                       v_pool: torch.Tensor, block_tables: torch.Tensor,
+                       seq_lens: torch.Tensor, write_page: torch.Tensor,
+                       layer: int) -> torch.Tensor:
+    """Plain twin of :func:`fused_decode`: scatter-write, gather the
+    history, attend (the JAX package's fallback math); position
+    ``seq_len-1`` is taken from k_new/v_new as the kernel does."""
+    from llmq_tpu_torch.ops.attention import _gqa_attend, paged_kv_write
+
+    B, H, D = q.shape
+    ps, GD = k_pool.shape[2], k_pool.shape[3]
+    Hkv = GD // D
+    S = block_tables.shape[1] * ps
+    live = seq_lens > 0
+    last = (seq_lens.long() - 1).clamp(min=0)
+    paged_kv_write(k_pool, v_pool, k_new.reshape(B, GD)[live],
+                   v_new.reshape(B, GD)[live], write_page[live],
+                   (last % ps)[live], layer)
+    bt = block_tables.long()
+    k = k_pool[layer][bt].reshape(B, S, Hkv, D)
+    v = v_pool[layer][bt].reshape(B, S, Hkv, D)
+    rows = torch.nonzero(live & (last < S)).flatten()
+    k[rows, last[rows]] = k_new.reshape(B, Hkv, D)[rows].to(k.dtype)
+    v[rows, last[rows]] = v_new.reshape(B, Hkv, D)[rows].to(v.dtype)
+    out = _gqa_attend(q, k, v, seq_lens.clamp(max=S))
+    return torch.where(live[:, None, None], out, torch.zeros_like(out))
+
+
+# -- kernel 2: prefill chunk write --------------------------------------------
+
+def kv_prefill_write(k_pool: torch.Tensor, v_pool: torch.Tensor,
+                     k_rows: torch.Tensor, v_rows: torch.Tensor,
+                     block_table: torch.Tensor, start_pos: int,
+                     n_tokens: int, layer: int) -> None:
+    """Write the first ``n_tokens`` of a chunk's K/V rows (T, GD) at
+    absolute positions ``[start_pos, start_pos + n_tokens)`` through one
+    sequence's ``block_table`` (MP,), in place. Padding rows past
+    ``n_tokens`` are not written.
+
+    Replaces ``kv_prefill_write_pallas`` (llmq_tpu/ops/pallas/
+    kv_write.py), without its page-aligned pre-shifted buffer. Bound by
+    bytes: each row is read and written once (csrc/kv_write.cu)."""
+    if _on_cpu(k_pool, v_pool, k_rows, v_rows, block_table):
+        kv_prefill_write_plain(k_pool, v_pool, k_rows, v_rows, block_table,
+                               start_pos, n_tokens, layer)
+        return
+    _check_pools(k_pool, v_pool, layer)
+    L, P, ps, GD = k_pool.shape
+    T = k_rows.shape[0]
+    _check(k_rows, "k_rows", torch.bfloat16, (T, GD), align=16)
+    _check(v_rows, "v_rows", torch.bfloat16, (T, GD), align=16)
+    MP = block_table.shape[0]
+    _check(block_table, "block_table", torch.int32, (MP,))
+    if not 0 <= n_tokens <= T or start_pos < 0:
+        raise ValueError(f"bad chunk: start_pos={start_pos} "
+                         f"n_tokens={n_tokens} T={T}")
+    if start_pos + n_tokens > MP * ps:
+        raise ValueError(f"chunk end {start_pos + n_tokens} exceeds the "
+                         f"block table's {MP * ps} positions")
+    if n_tokens == 0:
+        return
+    rc = _fn("kv_write", "llmq_kv_prefill_write")(
+        k_pool.data_ptr(), v_pool.data_ptr(), k_rows.data_ptr(),
+        v_rows.data_ptr(), block_table.data_ptr(), start_pos, n_tokens,
+        layer, P, ps, GD, _stream(k_pool))
+    _raise_on(rc, "kv_prefill_write")
+    LAUNCHES["kv_prefill_write"] += 1
+
+
+def kv_prefill_write_plain(k_pool: torch.Tensor, v_pool: torch.Tensor,
+                           k_rows: torch.Tensor, v_rows: torch.Tensor,
+                           block_table: torch.Tensor, start_pos: int,
+                           n_tokens: int, layer: int) -> None:
+    """Plain twin of :func:`kv_prefill_write`: a scatter."""
+    from llmq_tpu_torch.ops.attention import paged_kv_write
+
+    ps = k_pool.shape[2]
+    pos = torch.arange(start_pos, start_pos + n_tokens,
+                       device=k_pool.device)
+    page = block_table.long()[pos // ps]
+    paged_kv_write(k_pool, v_pool, k_rows[:n_tokens], v_rows[:n_tokens],
+                   page, pos % ps, layer)
+
+
+# -- kernel 3: paged causal prefill attention ---------------------------------
+
+def prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                      v_pool: torch.Tensor, block_table: torch.Tensor,
+                      start_pos: int, layer: int) -> torch.Tensor:
+    """Causal attention for one sequence's chunk q (T, H, D) whose row t
+    sits at absolute position ``start_pos + t``, over the sequence's
+    pages (its fresh K/V and any cached history); visibility is
+    ``kv_pos <= q_pos``. Returns (T, H, D).
+
+    Replaces ``paged_prefill_attention_pallas`` (llmq_tpu/ops/pallas/
+    prefill_attention.py). Its bound moves between bytes (a fresh
+    chunk) and operations (a long history); the design streams each K/V
+    tile once for 64 query rows (csrc/prefill_attention.cu)."""
+    if _on_cpu(q, k_pool, v_pool, block_table):
+        return prefill_attention_plain(q, k_pool, v_pool, block_table,
+                                       start_pos, layer)
+    T, H, D = q.shape
+    _check_pools(k_pool, v_pool, layer)
+    L, P, ps, GD = k_pool.shape
+    Hkv = GD // D
+    _check_heads(H, Hkv, D)
+    if Hkv * D != GD:
+        raise ValueError(f"pool GD={GD} != H_kv*D for D={D}")
+    _check(q, "q", torch.bfloat16, (T, H, D))
+    MP = block_table.shape[0]
+    _check(block_table, "block_table", torch.int32, (MP,))
+    if start_pos < 0:
+        raise ValueError(f"start_pos={start_pos} < 0")
+    out = torch.empty_like(q)
+    rc = _fn("prefill_attention", "llmq_prefill_attention")(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        block_table.data_ptr(), out.data_ptr(), T, H, Hkv, D, start_pos,
+        layer, P, ps, MP, D ** -0.5, _stream(q))
+    _raise_on(rc, "prefill_attention")
+    LAUNCHES["prefill_attention"] += 1
+    return out
+
+
+def prefill_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
+                            v_pool: torch.Tensor, block_table: torch.Tensor,
+                            start_pos: int, layer: int) -> torch.Tensor:
+    """Plain twin of :func:`prefill_attention`: gather the sequence's
+    pages, then the blockwise online-softmax attention."""
+    from llmq_tpu_torch.ops.attention import blockwise_prefill_attention
+
+    T, H, D = q.shape
+    ps, GD = k_pool.shape[2], k_pool.shape[3]
+    Hkv = GD // D
+    S = block_table.shape[0] * ps
+    bt = block_table.long()
+    k_hist = k_pool[layer][bt].reshape(1, S, Hkv, D)
+    v_hist = v_pool[layer][bt].reshape(1, S, Hkv, D)
+    positions = (start_pos + torch.arange(T, device=q.device))[None]
+    seq_lens = torch.tensor([min(start_pos + T, S)], device=q.device)
+    return blockwise_prefill_attention(q[None], k_hist, v_hist, positions,
+                                       seq_lens)[0]
+
+
+# -- kernel 4: decode row write -----------------------------------------------
+
+def kv_cache_write(k_pool: torch.Tensor, v_pool: torch.Tensor,
+                   k_new: torch.Tensor, v_new: torch.Tensor,
+                   page_of: torch.Tensor, slot_of: torch.Tensor,
+                   layer: int) -> None:
+    """Write N token rows (N, GD) to ``(page_of[n], slot_of[n])`` of
+    layer ``layer``, in place.
+
+    Replaces ``kv_cache_write_pallas`` (llmq_tpu/ops/pallas/
+    kv_write.py), the write half of the split decode route. Bound by
+    bytes: each row is read and written once (csrc/kv_write.cu)."""
+    if _on_cpu(k_pool, v_pool, k_new, v_new, page_of, slot_of):
+        kv_cache_write_plain(k_pool, v_pool, k_new, v_new, page_of,
+                             slot_of, layer)
+        return
+    _check_pools(k_pool, v_pool, layer)
+    L, P, ps, GD = k_pool.shape
+    N = k_new.shape[0]
+    _check(k_new, "k_new", torch.bfloat16, (N, GD), align=16)
+    _check(v_new, "v_new", torch.bfloat16, (N, GD), align=16)
+    _check(page_of, "page_of", torch.int32, (N,))
+    _check(slot_of, "slot_of", torch.int32, (N,))
+    if N == 0:
+        return
+    rc = _fn("kv_write", "llmq_kv_cache_write")(
+        k_pool.data_ptr(), v_pool.data_ptr(), k_new.data_ptr(),
+        v_new.data_ptr(), page_of.data_ptr(), slot_of.data_ptr(), N, layer,
+        P, ps, GD, _stream(k_pool))
+    _raise_on(rc, "kv_cache_write")
+    LAUNCHES["kv_cache_write"] += 1
+
+
+def kv_cache_write_plain(k_pool: torch.Tensor, v_pool: torch.Tensor,
+                         k_new: torch.Tensor, v_new: torch.Tensor,
+                         page_of: torch.Tensor, slot_of: torch.Tensor,
+                         layer: int) -> None:
+    """Plain twin of :func:`kv_cache_write`: a scatter."""
+    from llmq_tpu_torch.ops.attention import paged_kv_write
+
+    paged_kv_write(k_pool, v_pool, k_new, v_new, page_of, slot_of, layer)
+

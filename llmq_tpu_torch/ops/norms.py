@@ -1,0 +1,15 @@
+"""Normalisation ops (counterpart of ``llmq_tpu/ops/norms.py``)."""
+
+from __future__ import annotations
+
+import torch
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm (Llama-style). The variance accumulates in f32 whatever
+    the activation dtype, then the result casts back."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    normed = xf * torch.rsqrt(var + eps)
+    return (normed * weight.float()).to(x.dtype)

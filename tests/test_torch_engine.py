@@ -1,0 +1,294 @@
+"""The port's engine + TorchExecutor (CPU, plain twins) against the JAX
+package's InferenceEngine + JaxExecutor on the same f32 weights.
+
+Workload: prompts across all four priorities, a prompt longer than the
+largest prefill bucket (chunked prefill), a two-turn conversation, and
+one keep-pages preemption (four LOW requests decoding in four slots,
+then a REALTIME arrival). The JAX engine runs with mixed batching, the
+prefix cache and the async pipeline off and one-prompt prefill waves.
+Greedy token streams must be identical (f32, exact), and so must the
+turn-2 ``cached_tokens`` and every ``finish_reason``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from llmq_tpu.core.types import Priority as JPriority  # noqa: E402
+from llmq_tpu.engine.engine import GenRequest as JGenRequest  # noqa: E402
+from llmq_tpu.engine.engine import InferenceEngine as JEngine  # noqa: E402
+from llmq_tpu.engine.executor import JaxExecutor  # noqa: E402
+from llmq_tpu.engine.tokenizer import ByteTokenizer as JTok  # noqa: E402
+from llmq_tpu.models import llama as J  # noqa: E402
+
+from llmq_tpu_torch.core.types import Priority  # noqa: E402
+from llmq_tpu_torch.engine.engine import GenRequest, InferenceEngine  # noqa: E402
+from llmq_tpu_torch.engine.executor import TorchExecutor  # noqa: E402
+from llmq_tpu_torch.engine.tokenizer import ByteTokenizer  # noqa: E402
+from llmq_tpu_torch.models import llama as T  # noqa: E402
+
+KW = dict(dim=256, n_heads=4, n_kv_heads=2, vocab_size=512)
+
+# The suite runs in several xdist workers on shared cores: one intra-op
+# thread per worker avoids oversubscribing them (and runs faster here).
+torch.set_num_threads(1)
+GEOM = dict(batch_size=4, page_size=16, num_pages=128,
+            prefill_buckets=[16, 32], eos_id=2, chunk_size=4)
+MAX_STEPS = 12
+
+PRIOS = ["realtime", "high", "normal", "low"]
+PROMPTS = ["Queue the realtime one.", "High priority text here!",
+           "normal: a middle-sized prompt", "low and slow"]
+LONG = ("This prompt is deliberately longer than the largest prefill "
+        "bucket, so it streams through in several chunks.")
+
+
+def _workload(make_req, submit, step, run_until_idle, prio_of):
+    """Drive one engine through the workload; returns {id: result}."""
+    handles = {}
+    for i, (p, text) in enumerate(zip(PRIOS, PROMPTS)):
+        handles[f"p{i}"] = submit(make_req(f"p{i}", text, prio_of(p)))
+    handles["long"] = submit(make_req("long", LONG, prio_of("low"),
+                                      max_new_tokens=6))
+    run_until_idle()
+    handles["t1"] = submit(make_req("t1", "Hello there, conversation.",
+                                    prio_of("high"), conversation_id="c1",
+                                    max_new_tokens=6))
+    run_until_idle()
+    handles["t2"] = submit(make_req("t2", " And a second turn.",
+                                    prio_of("high"), conversation_id="c1",
+                                    max_new_tokens=6))
+    run_until_idle()
+    # Keep-pages preemption: fill every slot with decoding LOW work,
+    # then a REALTIME arrival must displace one of them.
+    lows = [f"low{i}" for i in range(4)]
+    for i, rid in enumerate(lows):
+        handles[rid] = submit(make_req(rid, f"background job {i}",
+                                       prio_of("low"), max_new_tokens=40))
+    for _ in range(200):
+        if all("prefill_done" in handles[r].marks for r in lows):
+            break
+        step()
+    handles["rt"] = submit(make_req("rt", "urgent!", prio_of("realtime"),
+                                    max_new_tokens=8))
+    run_until_idle()
+    return {rid: h.result for rid, h in handles.items()}
+
+
+@pytest.fixture(scope="module")
+def results():
+    jcfg = J.get_config("llama3-tiny", dtype=jnp.float32, **KW)
+    jparams = J.init_params(jax.random.PRNGKey(0), jcfg)
+    tcfg = T.get_config("llama3-tiny", dtype=torch.float32, **KW)
+    tparams = T.params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
+
+    jex = JaxExecutor(jcfg, jparams, prefill_batch=1,
+                      mixed_prefill_slices=0, **GEOM)
+    jeng = JEngine(jex, JTok(), enable_metrics=False,
+                   max_decode_steps=MAX_STEPS)
+    jpre = []
+    orig = jeng._preempt
+    jeng._preempt = lambda victim, release_pages: (
+        jpre.append((victim.req.id, release_pages)),
+        orig(victim, release_pages))[1]
+
+    def jreq(rid, text, prio, conversation_id="", max_new_tokens=0):
+        return JGenRequest(id=rid, prompt=text, priority=prio,
+                           conversation_id=conversation_id,
+                           max_new_tokens=max_new_tokens)
+
+    jres = _workload(jreq, jeng.submit, jeng.step, jeng.run_until_idle,
+                     lambda p: JPriority.from_name(p))
+
+    tex = TorchExecutor(tcfg, tparams, device="cpu", **GEOM)
+    teng = InferenceEngine(tex, ByteTokenizer(), max_decode_steps=MAX_STEPS)
+    tpre = []
+    torig = teng._preempt
+    teng._preempt = lambda victim: (tpre.append(victim.req.id),
+                                    torig(victim))[1]
+
+    def treq(rid, text, prio, conversation_id="", max_new_tokens=0):
+        return GenRequest(id=rid, prompt=text, priority=prio,
+                          conversation_id=conversation_id,
+                          max_new_tokens=max_new_tokens)
+
+    tres = _workload(treq, teng.submit, teng.step, teng.run_until_idle,
+                     lambda p: Priority.from_name(p))
+    return {"jax": jres, "torch": tres, "jax_preempt": jpre,
+            "torch_preempt": tpre, "torch_engine": teng}
+
+
+def test_greedy_streams_identical(results):
+    j, t = results["jax"], results["torch"]
+    assert set(j) == set(t)
+    for rid in j:
+        assert t[rid].tokens == j[rid].tokens, rid
+        assert t[rid].text == j[rid].text, rid
+        assert t[rid].prompt_tokens == j[rid].prompt_tokens, rid
+
+
+def test_finish_reasons_match(results):
+    j, t = results["jax"], results["torch"]
+    for rid in j:
+        assert t[rid].finish_reason == j[rid].finish_reason, rid
+        assert t[rid].finish_reason in ("eos", "length"), rid
+
+
+def test_turn_two_reuses_cached_kv(results):
+    j, t = results["jax"], results["torch"]
+    assert t["t1"].cached_tokens == j["t1"].cached_tokens == 0
+    assert t["t2"].cached_tokens == j["t2"].cached_tokens > 0
+    for rid in j:
+        assert t[rid].cached_tokens == j[rid].cached_tokens, rid
+
+
+def test_chunked_prefill_prompt_served(results):
+    t = results["torch"]
+    assert t["long"].prompt_tokens > GEOM["prefill_buckets"][-1] * 2
+    assert len(t["long"].tokens) == 6 or t["long"].finish_reason == "eos"
+
+
+def test_keep_pages_preemption_in_both(results):
+    """A LOW slot holder was displaced by the REALTIME arrival, kept its
+    pages (JAX: release_pages False), and still finished its stream."""
+    jpre, tpre = results["jax_preempt"], results["torch_preempt"]
+    assert jpre and all(not rel for _, rel in jpre)
+    assert tpre and all(v.startswith("low") for v in tpre)
+    assert {v for v, _ in jpre} == set(tpre)
+    t = results["torch"]
+    for rid in tpre:
+        assert t[rid].finish_reason in ("eos", "length")
+
+
+def test_engine_leaves_pool_clean(results):
+    """After the workload only the conversation's pinned pages remain."""
+    eng = results["torch_engine"]
+    assert eng.cached_conversations() == ["c1"]
+    assert eng.allocator.used() == eng.allocator.pinned_pages() > 0
+    eng.drop_conversation("c1")
+    assert eng.allocator.used() == 0
+
+
+def _pressure_workload(make_req, submit, run_until_idle, prio_of):
+    """Two pinned conversations, then a prompt that only fits once the
+    least recently used pin is reclaimed, then both second turns."""
+    out = {}
+    for rid, conv, text in (("a1", "ca", "alpha conversation, first turn"),
+                            ("b1", "cb", "bravo conversation, first turn")):
+        out[rid] = submit(make_req(rid, text, prio_of("high"),
+                                   conversation_id=conv, max_new_tokens=6))
+        run_until_idle()
+    out["big"] = submit(make_req("big", "x" * 120, prio_of("normal"),
+                                 max_new_tokens=6))
+    run_until_idle()
+    for rid, conv, text in (("a2", "ca", " alpha again"),
+                            ("b2", "cb", " bravo again")):
+        out[rid] = submit(make_req(rid, text, prio_of("high"),
+                                   conversation_id=conv, max_new_tokens=6))
+        run_until_idle()
+    return {rid: h.result for rid, h in out.items()}
+
+
+def test_pool_pressure_reclaims_lru_pin_like_jax():
+    """11 usable pages of 16: the 120-token prompt needs 8, so the older
+    pin (conversation ca) is reclaimed and its second turn starts from
+    scratch, while cb's second turn still reuses its KV. Both engines
+    agree on every stream and cached count."""
+    geom = dict(GEOM, num_pages=12)
+    jcfg = J.get_config("llama3-tiny", dtype=jnp.float32, **KW)
+    jparams = J.init_params(jax.random.PRNGKey(0), jcfg)
+    tparams = T.params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
+    jeng = JEngine(JaxExecutor(jcfg, jparams, prefill_batch=1,
+                               mixed_prefill_slices=0, **geom),
+                   JTok(), enable_metrics=False, max_decode_steps=MAX_STEPS)
+    teng = InferenceEngine(
+        TorchExecutor(T.get_config("llama3-tiny", dtype=torch.float32, **KW),
+                      tparams, device="cpu", **geom),
+        ByteTokenizer(), max_decode_steps=MAX_STEPS)
+    j = _pressure_workload(
+        lambda rid, text, prio, conversation_id="", max_new_tokens=0:
+        JGenRequest(id=rid, prompt=text, priority=prio,
+                    conversation_id=conversation_id,
+                    max_new_tokens=max_new_tokens),
+        jeng.submit, jeng.run_until_idle, JPriority.from_name)
+    t = _pressure_workload(
+        lambda rid, text, prio, conversation_id="", max_new_tokens=0:
+        GenRequest(id=rid, prompt=text, priority=prio,
+                   conversation_id=conversation_id,
+                   max_new_tokens=max_new_tokens),
+        teng.submit, teng.run_until_idle, Priority.from_name)
+    assert t["a2"].cached_tokens == j["a2"].cached_tokens == 0
+    assert t["b2"].cached_tokens == j["b2"].cached_tokens > 0
+    for rid in j:
+        assert t[rid].tokens == j[rid].tokens, rid
+        assert t[rid].finish_reason == j[rid].finish_reason, rid
+
+
+def _tiny_engine(**kw):
+    cfg = T.get_config("llama3-tiny", dtype=torch.float32)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    geom = dict(GEOM, num_pages=kw.pop("num_pages", GEOM["num_pages"]),
+                batch_size=kw.pop("batch_size", GEOM["batch_size"]))
+    return InferenceEngine(TorchExecutor(cfg, params, device="cpu", **geom),
+                           ByteTokenizer(), **kw)
+
+
+def test_pin_ttl_expiry_frees_the_conversation():
+    import time
+
+    eng = _tiny_engine(kv_pin_ttl=0.05, max_decode_steps=4)
+    h = eng.submit(GenRequest(id="c", prompt="pin me", conversation_id="c"))
+    eng.run_until_idle()
+    assert h.result.finish_reason == "length"
+    assert eng.cached_conversations() == ["c"] and eng.allocator.used() > 0
+    time.sleep(0.1)
+    eng.step()
+    assert eng.cached_conversations() == []
+    assert eng.allocator.used() == 0
+
+
+def test_decode_without_pages_fails_the_request_not_truncates():
+    """5 usable pages, two 30-token prompts growing toward 70 positions:
+    the row that cannot get its next page finishes with an error (page
+    release and rebuild are not ported); the other completes."""
+    eng = _tiny_engine(num_pages=6, batch_size=2, max_decode_steps=40)
+    hs = [eng.submit(GenRequest(id=f"r{i}", prompt=f"{i}" * 30,
+                                max_new_tokens=40)) for i in range(2)]
+    eng.run_until_idle()
+    reasons = sorted(h.result.finish_reason for h in hs)
+    assert reasons == ["error", "length"], reasons
+    err = next(h.result for h in hs if h.result.finish_reason == "error")
+    assert "KV pool exhausted" in err.error
+    assert eng.allocator.used() == 0
+
+
+@pytest.mark.parametrize("step_ms,cap", [(None, 2), (1.0, 16), (4.0, 12),
+                                         (39.0, 2)])
+def test_realtime_admission_cap_follows_measured_step_time(step_ms, cap):
+    """A waiting REALTIME request caps the decode chunk at about 50 ms of
+    the executor's measured steps (at least 2, at most 16); before any
+    step is timed the cap is the shortest chunk."""
+    eng = _tiny_engine()
+    eng.executor.step_ms = step_ms
+    eng.submit(GenRequest(id="rt", prompt="urgent",
+                          priority=Priority.REALTIME))
+    eng._ingest()
+    assert eng._admission_cap() == cap
+
+
+def test_executor_times_decode_steps_after_the_first_call():
+    """The first decode call (kernel build, allocator growth) is not
+    timed; later calls feed a positive per-step moving average."""
+    ex = _tiny_engine().executor
+    B, MP = ex.spec.batch_size, ex.spec.max_pages_per_seq
+    args = (np.zeros(B, np.int32), np.zeros(B, np.int32),
+            np.zeros((B, MP), np.int32), np.zeros(B, np.float32))
+    ex.decode(*args)
+    assert ex.step_ms is None
+    ex.decode_chunk(*args, np.full(B, 2, np.int32))
+    assert ex.step_ms is not None and ex.step_ms > 0

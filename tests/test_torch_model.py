@@ -1,0 +1,158 @@
+"""The port's Llama forwards against the JAX package's, on the same
+weights carried across by ``params_from_jax``.
+
+f32 ``llama3-tiny`` at dim=256, 4 query / 2 KV heads: prefill logits
+(including a continuation chunk over cached history) and a decode
+sequence agree within atol 1e-4. bf16: within 0.15 on the f32 logits
+(two bf16 layers, activations rounded at 2**-8 relative, different
+matmul reduction orders).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from llmq_tpu.models import llama as J  # noqa: E402
+
+from llmq_tpu_torch.models import llama as T  # noqa: E402
+
+KW = dict(dim=256, n_heads=4, n_kv_heads=2, vocab_size=512)
+
+# The suite runs in several xdist workers on shared cores: one intra-op
+# thread per worker avoids oversubscribing them (and runs faster here).
+torch.set_num_threads(1)
+PS, P, MP = 16, 32, 8
+
+
+def _models(jdtype, tdtype):
+    jcfg = J.get_config("llama3-tiny", dtype=jdtype, **KW)
+    jparams = J.init_params(jax.random.PRNGKey(0), jcfg)
+    tcfg = T.get_config("llama3-tiny", dtype=tdtype, **KW)
+    tparams = T.params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
+    return jcfg, jparams, tcfg, tparams
+
+
+def _run_both(jdtype, tdtype):
+    """Prefill (B=2, ragged lengths), a continuation chunk, then 5 greedy
+    decode steps, in both packages. Returns lists of paired logits."""
+    jcfg, jparams, tcfg, tparams = _models(jdtype, tdtype)
+    jc = J.init_kv_pages(jcfg, P, PS)
+    tc = T.init_kv_pages(tcfg, P, PS, "cpu")
+    rng = np.random.default_rng(0)
+    B, Tn = 2, 24
+    bt = np.zeros((B, MP), np.int32)
+    bt[0, :5] = [3, 9, 1, 14, 6]
+    bt[1, :5] = [2, 11, 7, 20, 5]
+    pairs = []
+
+    def prefill(toks, pos, lens):
+        nonlocal jc
+        jl, jc = J.forward_prefill(jparams, jcfg, jnp.asarray(toks),
+                                   jnp.asarray(pos), jnp.asarray(lens), jc,
+                                   jnp.asarray(bt))
+        tl = T.forward_prefill(tparams, tcfg, torch.tensor(toks),
+                               torch.tensor(pos), torch.tensor(lens), tc,
+                               torch.tensor(bt))
+        for b in range(B):
+            pairs.append((np.asarray(jl, np.float32)[b, :lens[b]],
+                          tl[b, :lens[b]].float().numpy()))
+
+    lens = np.array([24, 13], np.int32)
+    toks = rng.integers(3, 500, (B, Tn)).astype(np.int32)
+    pos = np.minimum(np.arange(Tn)[None], lens[:, None] - 1).astype(np.int32)
+    prefill(toks, pos, lens)
+    # Continuation: starts mid-page on top of the cached history.
+    lens2 = np.array([16, 9], np.int32)
+    toks2 = rng.integers(3, 500, (B, 16)).astype(np.int32)
+    pos2 = np.minimum(lens[:, None] + np.arange(16)[None],
+                      lens[:, None] + lens2[:, None] - 1).astype(np.int32)
+    prefill(toks2, pos2, lens2)
+    p = lens + lens2
+    tok = pairs[-1][0][-1:].argmax(-1).repeat(B).astype(np.int32)
+    for _ in range(5):
+        jd, jc = J.forward_decode(jparams, jcfg, jnp.asarray(tok),
+                                  jnp.asarray(p), jc, jnp.asarray(bt))
+        td = T.forward_decode(tparams, tcfg, torch.tensor(tok),
+                              torch.tensor(p), tc, torch.tensor(bt))
+        pairs.append((np.asarray(jd, np.float32), td.float().numpy()))
+        tok = np.asarray(jd).argmax(-1).astype(np.int32)
+        p = p + 1
+    return pairs
+
+
+def test_f32_forwards_match_jax():
+    for j, t in _run_both(jnp.float32, torch.float32):
+        assert t.shape == j.shape
+        np.testing.assert_allclose(t, j, atol=1e-4)
+
+
+def test_bf16_forwards_match_jax():
+    for j, t in _run_both(jnp.bfloat16, torch.bfloat16):
+        assert np.isfinite(t).all()
+        np.testing.assert_allclose(t, j, atol=0.15)
+
+
+def test_bridge_carries_bf16_leaves_bit_for_bit():
+    jcfg = J.get_config("llama3-tiny", **KW)          # bf16 by default
+    jparams = J.init_params(jax.random.PRNGKey(1), jcfg)
+    host = jax.tree_util.tree_map(np.asarray, jparams)
+    assert host["embed"].dtype.name == "bfloat16"
+    tparams = T.params_from_jax(host, device="cpu")
+    assert tparams["layers"]["wq"].dtype == torch.bfloat16
+    assert tuple(tparams["layers"]["wq"].shape) == host["layers"]["wq"].shape
+    np.testing.assert_array_equal(
+        tparams["layers"]["wq"].view(torch.int16).numpy(),
+        host["layers"]["wq"].view(np.int16))
+    assert set(tparams) == set(host)
+    assert set(tparams["layers"]) == set(host["layers"])
+
+
+def test_tied_head_and_module_wrapper():
+    """A tied-embedding config (no lm_head) runs through the Llama
+    module; the module's forwards equal the functional ones."""
+    cfg = T.get_config("llama3-tiny", dtype=torch.float32,
+                       tie_embeddings=True, **KW)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert "lm_head" not in params
+    model = T.Llama(cfg, params)
+    assert not any(p.requires_grad for p in model.parameters())
+    bt = torch.zeros((1, MP), dtype=torch.int32)
+    bt[0, :2] = torch.tensor([4, 7])
+    toks = torch.arange(3, 13, dtype=torch.int32)[None]
+    pos = torch.arange(10, dtype=torch.int32)[None]
+    c1 = T.init_kv_pages(cfg, P, PS, "cpu")
+    c2 = T.init_kv_pages(cfg, P, PS, "cpu")
+    a = model.forward_prefill(toks, pos, torch.tensor([10]), c1, bt)
+    b = T.forward_prefill(params, cfg, toks, pos, torch.tensor([10]), c2, bt)
+    assert torch.equal(a, b) and a.shape == (1, 10, cfg.vocab_size)
+    d1 = model(torch.tensor([5], dtype=torch.int32),
+               torch.tensor([10], dtype=torch.int32), c1, bt)
+    d2 = T.forward_decode(params, cfg, torch.tensor([5], dtype=torch.int32),
+                          torch.tensor([10], dtype=torch.int32), c2, bt)
+    assert torch.equal(d1, d2)
+
+
+def test_init_matches_preset_shapes_and_pool_layout():
+    cfg = T.get_config("llama3-tiny", **KW)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    jcfg = J.get_config("llama3-tiny", **KW)
+    jshapes = jax.eval_shape(lambda: J.init_params(jax.random.PRNGKey(0),
+                                                   jcfg))
+    flat_t = {k: tuple(v.shape) for k, v in params["layers"].items()}
+    flat_j = {k: tuple(v.shape) for k, v in jshapes["layers"].items()}
+    assert flat_t == flat_j
+    assert tuple(params["embed"].shape) == tuple(jshapes["embed"].shape)
+    cache = T.init_kv_pages(cfg, P, PS, "cpu")
+    assert tuple(cache["k"].shape) == (cfg.n_layers, P, PS,
+                                       cfg.n_kv_heads * cfg.head_dim)
+    for name in ("llama3-1b", "llama3-8b", "llama3-70b"):
+        a, b = T.get_config(name), J.get_config(name)
+        for f in ("vocab_size", "dim", "n_layers", "n_heads", "n_kv_heads",
+                  "ffn_dim", "max_seq_len", "rope_theta", "tie_embeddings"):
+            assert getattr(a, f) == getattr(b, f), (name, f)
+    with pytest.raises(ValueError, match="unknown model"):
+        T.get_config("llama3-404b")
