@@ -12,23 +12,33 @@ shows where it happened):
                the card's name and power limit (repeated beside every number).
 2. build    — compiles the kernels from ``llmq_tpu_torch/csrc`` with nvcc
                (one process per source, all at once) and prints the seconds.
-3. kernels  — each of the four kernels against its plain PyTorch twin on the
+3. kernels  — each of the six kernels against its plain PyTorch twin on the
                card at llama3-8b's per-layer shapes (H=32, H_kv=8, D=128,
-               page_size=16, B=8, max_pages=128): attention within
-               ``ATOL``, pools bit-exact; kernel, plain, library times and
-               the bound.
+               page_size=16, B=8, max_pages=128; kernel 6 with slices of
+               100 and 37 tokens, the second over history, packed into
+               N=144): attention within ``ATOL``, pools bit-exact;
+               kernel, plain, library times and the bound.
 4. split    — one decode step through ``paged_decode_step(fused=False)``
-               against ``fused=True``: same attention within ``ATOL``,
-               identical pools.
+               (row-write kernel + decode-attention kernel) against
+               ``fused=True``: same attention within ``ATOL``, identical
+               pools.
 5. model    — a small bf16 model with the same head geometry: logits of
-               prefill (incl. a continuation chunk) and decode on the card
+               prefill (incl. a continuation chunk), decode,
+               ``forward_mixed`` and ``forward_mixed_ragged`` on the card
                against the same model on the CPU (plain twins).
 6. serve    — llama3-8b bf16 at full width and depth, random weights from a
-               seed, served by the port's REST server: messages across all
-               four priorities and a two-turn conversation; every request
-               completes, turn 2 reports cached tokens, and the kernels'
-               launch counts grow during the phase. Then TTFT and decode
-               tok/s, and one request through the split decode route.
+               seed, served by the port's REST server with mixed batching
+               on (the default): messages across all four priorities, a
+               two-turn conversation, and four ~600-token prompts posted
+               while two requests decode (mixed steps must run); every
+               request completes, turn 2 reports cached tokens, and the
+               kernels' launch counts grow during the phase. Then TTFT and
+               decode tok/s, one request through the split decode route,
+               and a mixed chunk timed against a prefill plus a decode
+               chunk. Then a second engine on the same weights with
+               ragged attention on serves the same mix: the ragged kernel
+               and the prefill write launch, the bucket prefill attention
+               does not. No ``*_plain`` twin may be called while serving.
 
 Exits non-zero on any failure. On success the last lines are the kernel
 table as JSON, the card's name and power limit, and
@@ -182,6 +192,43 @@ def _decode_inputs(gen, dev, zero_row: bool):
             live_lens)
 
 
+def _sdpa_decode(gen, dev, q, sl, S):
+    """Library yardstick for decode attention: SDPA over dense K/V of the
+    H_kv heads the kernel reads, each group's n_rep query heads riding as
+    n_rep query rows of one KV head (no K/V expanded to H heads). A dense
+    call pads every row to the longest seq_len S. Returns a callable."""
+    import torch
+    import torch.nn.functional as F
+
+    Bq = q.shape[0]
+    kd = torch.randn((Bq, HKV, S, D), generator=gen, device=dev).to(torch.bfloat16)
+    vd = torch.randn((Bq, HKV, S, D), generator=gen, device=dev).to(torch.bfloat16)
+    mask = (torch.arange(S, device=dev)[None, :]
+            < sl[:, None].to(torch.long))[:, None, None, :]
+    mask[sl == 0] = True                 # SDPA needs a visible key per row
+    q4 = q.reshape(Bq, HKV, H // HKV, D)
+    return lambda: F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask)
+
+
+def _sdpa_prefill(gen, dev, qp, start):
+    """Library yardstick for causal prefill attention with history: SDPA
+    over dense K/V of the H_kv heads; query head h = g * n_rep + r of
+    token t becomes row t * n_rep + r of KV head g. Returns a callable."""
+    import torch
+    import torch.nn.functional as F
+
+    T = qp.shape[0]
+    S = start + T
+    n_rep = H // HKV
+    kh = torch.randn((1, HKV, S, D), generator=gen, device=dev).to(torch.bfloat16)
+    vh = torch.randn((1, HKV, S, D), generator=gen, device=dev).to(torch.bfloat16)
+    qpos = (start + torch.arange(T, device=dev)).repeat_interleave(n_rep)
+    amask = torch.arange(S, device=dev)[None, :] <= qpos[:, None]
+    qh = (qp.reshape(T, HKV, n_rep, D).permute(1, 0, 2, 3)
+          .reshape(1, HKV, T * n_rep, D).contiguous())
+    return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=amask)
+
+
 def _record(state, name, source, replaces, err, ms, plain_ms, bound_ms,
             bound_by, library_ms):
     from llmq_tpu_torch.ops import kernels
@@ -200,7 +247,6 @@ def _record(state, name, source, replaces, err, ms, plain_ms, bound_ms,
 
 def phase_kernels(state) -> None:
     import torch
-    import torch.nn.functional as F
 
     from llmq_tpu_torch.ops import kernels
 
@@ -233,20 +279,8 @@ def phase_kernels(state) -> None:
         q, kn, vn, kp1, vp1, bt, sl, wp, i % L_POOL))
     plain_ms = device_ms(lambda i: kernels.fused_decode_plain(
         q, kn, vn, kp1, vp1, bt, sl, wp, i % L_POOL), iters=5, warmup=1)
-    # Library yardstick: SDPA over dense K/V of the H_kv heads the kernel
-    # reads. A group's n_rep query heads share its keys and mask, so they
-    # ride as n_rep query rows of one KV head: no K/V is expanded to H
-    # heads. A dense call still pads every row to the longest seq_len.
-    S = max(live_lens)
-    n_rep = H // HKV
-    kv_len = torch.arange(S, device=dev)
-    kd = torch.randn((B, HKV, S, D), generator=gen, device=dev).to(torch.bfloat16)
-    vd = torch.randn((B, HKV, S, D), generator=gen, device=dev).to(torch.bfloat16)
-    mask = (kv_len[None, :] < sl[:, None].to(torch.long))[:, None, None, :]
-    mask[7] = True                       # SDPA needs a visible key per row
-    q4 = q.reshape(B, HKV, n_rep, D)
-    lib_ms = device_ms(lambda i: F.scaled_dot_product_attention(
-        q4, kd, vd, attn_mask=mask))
+    sdpa_dec = _sdpa_decode(gen, dev, q, sl, max(live_lens))
+    lib_ms = device_ms(lambda i: sdpa_dec())
     n_pos = sum(live_lens) + 5
     bytes_moved = (2 * B * H * D * 2 + 2 * B * GD * 2 + B * MP * 4 + 2 * B * 4
                    + (n_pos - 7) * GD * 2 * 2 + 7 * GD * 2 * 2)
@@ -255,7 +289,6 @@ def phase_kernels(state) -> None:
     _record(state, "fused_decode", "llmq_tpu_torch/csrc/fused_decode.cu",
             "llmq_tpu/ops/pallas/fused_decode.py:370", err, ms, plain_ms,
             bms, by, lib_ms)
-    del kd, vd
 
     # -- kernel 3: prefill attention, kernel 2: prefill write ----------------
     for T, start in ((128, 0), (128, 37), (512, 0), (512, 37)):
@@ -302,18 +335,10 @@ def phase_kernels(state) -> None:
             qp, kp1, vp1, btab, start, i % L_POOL))
         plain_a = device_ms(lambda i: kernels.prefill_attention_plain(
             qp, kp1, vp1, btab, start, i % L_POOL), iters=5, warmup=1)
-        # Library yardstick over the H_kv heads the kernel reads: query
-        # head h = g * n_rep + r becomes row t * n_rep + r of KV head g.
         S = start + T
-        n_rep = H // HKV
-        kh = torch.randn((1, HKV, S, D), generator=gen, device=dev).to(torch.bfloat16)
-        vh = torch.randn((1, HKV, S, D), generator=gen, device=dev).to(torch.bfloat16)
-        qpos = (start + torch.arange(T, device=dev)).repeat_interleave(n_rep)
-        amask = (torch.arange(S, device=dev)[None, :] <= qpos[:, None])
-        qh = (qp.reshape(T, HKV, n_rep, D).permute(1, 0, 2, 3)
-              .reshape(1, HKV, T * n_rep, D).contiguous())
-        lib_a = device_ms(lambda i: F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=amask))
+        sdpa_pf = _sdpa_prefill(gen, dev, qp, start)
+        lib_a = device_ms(lambda i: sdpa_pf())
+        del sdpa_pf
         pairs = sum(start + t + 1 for t in range(T))
         bms, by = bound(2 * T * H * D * 2 + S * GD * 2 * 2 + MP * 4,
                         pairs * H * 4 * D)
@@ -321,7 +346,6 @@ def phase_kernels(state) -> None:
                 "llmq_tpu_torch/csrc/prefill_attention.cu",
                 "llmq_tpu/ops/pallas/prefill_attention.py:167", a_err, ms_a,
                 plain_a, bms, by, lib_a)
-        del kh, vh
         ms_w = device_ms(lambda i: kernels.kv_prefill_write(
             kp1, vp1, rows_k, rows_v, btab, start, n_tok, i % L_POOL))
         plain_w = device_ms(lambda i: kernels.kv_prefill_write_plain(
@@ -368,9 +392,129 @@ def phase_kernels(state) -> None:
     _record(state, "kv_cache_write", "llmq_tpu_torch/csrc/kv_write.cu",
             "llmq_tpu/ops/pallas/kv_write.py:126", 0.0, ms4, plain4, bms, by,
             lib4_ms)
-    del kp1, vp1, k_pool, v_pool
+    del kp1, vp1
+    _kernel_paged_decode(state, gen, k_pool, v_pool)
+    _kernel_ragged(state, gen, k_pool, v_pool)
+    del k_pool, v_pool
     torch.cuda.empty_cache()
     _long_context_timings()
+
+
+def _kernel_paged_decode(state, gen, k_pool, v_pool) -> None:
+    """Kernel 8 on kernel 1's decode rows (layer 4 of the served pool):
+    every position, the newest included, is read from the pool."""
+    import torch
+
+    from llmq_tpu_torch.ops import kernels
+
+    dev = k_pool.device
+    q, _kn, _vn, bt, sl, _wp, live_lens = _decode_inputs(gen, dev, True)
+    layer = 4
+    out_k = kernels.paged_decode_attention(q, k_pool, v_pool, bt, sl, layer)
+    out_p = kernels.paged_decode_attention_plain(q, k_pool, v_pool, bt, sl,
+                                                 layer)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out_k).all():
+        raise AssertionError("paged_decode_attention: non-finite output")
+    err = (out_k[:7].float() - out_p[:7].float()).abs().max().item()
+    if err > ATOL:
+        raise AssertionError(f"paged_decode_attention: max err {err} > {ATOL}")
+    if out_k[7].abs().max().item() != 0.0:
+        raise AssertionError("paged_decode_attention: empty row is not 0")
+    ms = device_ms(lambda i: kernels.paged_decode_attention(
+        q, k_pool, v_pool, bt, sl, i % L_POOL))
+    plain_ms = device_ms(lambda i: kernels.paged_decode_attention_plain(
+        q, k_pool, v_pool, bt, sl, i % L_POOL), iters=5, warmup=1)
+    sdpa_dec = _sdpa_decode(gen, dev, q, sl, max(live_lens))
+    lib_ms = device_ms(lambda i: sdpa_dec())
+    n_pos = sum(live_lens) + 5           # + the inactive row's 5 positions
+    bms, by = bound(2 * B * H * D * 2 + n_pos * GD * 2 * 2 + B * MP * 4
+                    + B * 4, n_pos * H * 4 * D)
+    _record(state, "paged_decode_attention",
+            "llmq_tpu_torch/csrc/paged_decode.cu",
+            "llmq_tpu/ops/pallas/paged_attention.py:193", err, ms, plain_ms,
+            bms, by, lib_ms)
+
+
+def _kernel_ragged(state, gen, k_pool, v_pool) -> None:
+    """Kernel 6 at a served mixed step's shapes: kernel 1's 8 decode rows
+    (one inactive, one empty) and slices of 100 and 37 tokens starting at
+    positions 0 and 300 (the second over history in the pool), plus one
+    unused slice row, packed into N=144 (segments on q-blocks of 8);
+    layer 4 of the served pool."""
+    import torch
+
+    from llmq_tpu_torch.ops import kernels
+
+    dev = k_pool.device
+    q, kn, vn, bt, sl, wp, live_lens = _decode_inputs(gen, dev, True)
+    layer = 4
+    perm = torch.randperm(P_POOL - 1,
+                          generator=torch.Generator().manual_seed(1)) + 1
+    nxt = sum(-(-n // PS) for n in live_lens)     # after the decode rows
+    slices = [(0, 100, 0), (300, 37, 104), (0, 0, 0)]  # qstart, qlen, qoff
+    N = 144
+    pf_bt = torch.zeros((len(slices), MP), dtype=torch.int32)
+    for s, (st, n, _off) in enumerate(slices):
+        pages = -(-(st + n) // PS)
+        pf_bt[s, :pages] = perm[nxt:nxt + pages].to(torch.int32)
+        nxt += pages
+    bt_all = torch.cat([bt, pf_bt.to(dev)]).contiguous()
+    sl_all = torch.cat([sl, torch.tensor([st + n for st, n, _ in slices],
+                                         dtype=torch.int32, device=dev)])
+    qoff, qlen, qstart = (torch.tensor(v, dtype=torch.int32, device=dev)
+                          for v in ([o for *_, o in slices],
+                                    [n for _, n, _ in slices],
+                                    [st for st, _, _ in slices]))
+    q_pf = torch.randn((N, H, D), generator=gen, device=dev).to(torch.bfloat16)
+    args = (bt_all, sl_all, wp, qoff, qlen, qstart)
+    kp1, vp1 = k_pool.clone(), v_pool.clone()
+    kp2, vp2 = k_pool.clone(), v_pool.clone()
+    d_k, p_k = kernels.ragged_mixed_attention(q, kn, vn, q_pf, kp1, vp1,
+                                              *args, layer)
+    torch.cuda.synchronize()
+    d_p, p_p = kernels.ragged_mixed_attention_plain(q, kn, vn, q_pf, kp2,
+                                                    vp2, *args, layer)
+    live = torch.zeros(N, dtype=torch.bool, device=dev)
+    live[0:100] = True
+    live[104:141] = True
+    if not (torch.isfinite(d_k).all() and torch.isfinite(p_k).all()):
+        raise AssertionError("ragged_mixed_attention: non-finite output")
+    err = max((d_k[:7].float() - d_p[:7].float()).abs().max().item(),
+              (p_k[live].float() - p_p[live].float()).abs().max().item())
+    if err > ATOL:
+        raise AssertionError(f"ragged_mixed_attention: max err {err} > {ATOL}")
+    if d_k[7].abs().max().item() != 0.0 or \
+            p_k[~live].abs().max().item() != 0.0:
+        raise AssertionError("ragged_mixed_attention: empty decode row or "
+                             "rows outside the slices are not 0")
+    if not (torch.equal(kp1, kp2) and torch.equal(vp1, vp2)):
+        raise AssertionError("ragged_mixed_attention: pools differ from "
+                             "the twin")
+    del kp2, vp2
+    ms = device_ms(lambda i: kernels.ragged_mixed_attention(
+        q, kn, vn, q_pf, kp1, vp1, *args, i % L_POOL))
+    plain_ms = device_ms(lambda i: kernels.ragged_mixed_attention_plain(
+        q, kn, vn, q_pf, kp1, vp1, *args, i % L_POOL), iters=5, warmup=1)
+    # Library yardstick: the decode call of kernels 1 and 8 plus one
+    # causal SDPA call per slice on that slice's dense K/V of the 8 KV
+    # heads, summed.
+    calls = [_sdpa_decode(gen, dev, q, sl, max(live_lens))] + [
+        _sdpa_prefill(gen, dev, q_pf[off:off + n], st)
+        for st, n, off in slices if n]
+    lib_ms = device_ms(lambda i: [c() for c in calls])
+    del calls, kp1, vp1
+    n_pos = sum(live_lens) + 5
+    pf_pos = sum(st + n for st, n, _ in slices)
+    pairs = sum(st + t + 1 for st, n, _ in slices for t in range(n))
+    bytes_moved = (2 * B * H * D * 2 + 2 * B * GD * 2 + (n_pos - 7) * GD * 4
+                   + 7 * GD * 4 + 2 * N * H * D * 2 + pf_pos * GD * 2 * 2
+                   + (B + 3) * MP * 4 + (2 * B + 3 * 4) * 4)
+    bms, by = bound(bytes_moved, (n_pos + pairs) * H * 4 * D)
+    _record(state, "ragged_mixed_attention",
+            "llmq_tpu_torch/csrc/ragged_attention.cu",
+            "llmq_tpu/ops/pallas/ragged_paged_attention.py:474", err, ms,
+            plain_ms, bms, by, lib_ms)
 
 
 def _long_context_timings() -> None:
@@ -412,6 +556,7 @@ def _long_context_timings() -> None:
 def phase_split(state) -> None:
     import torch
 
+    from llmq_tpu_torch.ops import kernels
     from llmq_tpu_torch.ops.attention import paged_decode_step
 
     dev = torch.device("cuda")
@@ -420,6 +565,7 @@ def phase_split(state) -> None:
     q, kn, vn, bt, sl, wp, live_lens = _decode_inputs(gen, dev, False)
     slot_of = ((sl - 1) % PS).to(torch.int32)
     kp2, vp2 = k_pool.clone(), v_pool.clone()
+    before = dict(kernels.LAUNCHES)
     a_f = paged_decode_step(q, kn, vn, k_pool, v_pool, bt, sl, wp, slot_of,
                             4, fused=True)
     a_s = paged_decode_step(q, kn, vn, kp2, vp2, bt, sl, wp, slot_of, 4,
@@ -431,8 +577,11 @@ def phase_split(state) -> None:
         raise AssertionError(f"split route: max err {err} > {ATOL}")
     if not (torch.equal(k_pool, kp2) and torch.equal(v_pool, vp2)):
         raise AssertionError("split route: pools differ from fused route")
-    log(f"[split] fused vs split: attention max_abs_err {err:.3g}, pools "
-        f"identical")
+    for name in ("kv_cache_write", "paged_decode_attention"):
+        if kernels.LAUNCHES[name] <= before[name]:
+            raise AssertionError(f"split route did not launch {name}")
+    log(f"[split] fused vs split (kv_cache_write + paged_decode_attention): "
+        f"attention max_abs_err {err:.3g}, pools identical")
     del k_pool, v_pool, kp2, vp2
     torch.cuda.empty_cache()
 
@@ -442,6 +591,8 @@ def phase_model(state) -> None:
     import torch
 
     from llmq_tpu_torch.models.llama import (forward_decode,
+                                             forward_mixed,
+                                             forward_mixed_ragged,
                                              forward_prefill, get_config,
                                              init_kv_pages, init_params)
 
@@ -489,9 +640,55 @@ def phase_model(state) -> None:
         worst = max(worst, (res["cuda"] - res["cpu"]).abs().max().item())
         tok = int(res["cpu"][0].argmax())
         pos += 1
+    # Mixed steps: the decoding row plus two prompts on their own pages,
+    # first bucket-style (forward_mixed: slices of 20 and 9 fresh
+    # tokens), then ragged (forward_mixed_ragged: both prompts continue,
+    # packed at q-block offsets 0 and 16, with an unused slice row).
+    pf_bt = np.zeros((3, 16), np.int32)
+    pf_bt[0, :2], pf_bt[1, :1] = [2, 5], [6]
+    steps = (
+        ("mixed", [(0, rng.integers(3, 500, 20)), (0, rng.integers(3, 500, 9))]),
+        ("ragged", [(20, rng.integers(3, 500, 11)),
+                    (9, rng.integers(3, 500, 5))]))
+    for kind, slices in steps:
+        res = {}
+        for dev, params in (("cpu", params_c), ("cuda", params_g)):
+            t = lambda a, dt=torch.int32: torch.as_tensor(  # noqa: E731
+                np.asarray(a), dtype=dt, device=dev)
+            dec = (t([tok]), t([pos]), caches[dev], t(bt))
+            if kind == "mixed":
+                W = max(len(x) for _, x in slices)
+                toks = np.zeros((2, W), np.int32)
+                poss = np.zeros((2, W), np.int32)
+                for i, (st, x) in enumerate(slices):
+                    toks[i, :len(x)] = x
+                    poss[i] = np.minimum(np.arange(W) + st, st + len(x) - 1)
+                d, p = forward_mixed(params, cfg, *dec, t(toks), t(poss),
+                                     t([len(x) for _, x in slices]),
+                                     t(pf_bt[:2]))
+                p = torch.stack([p[i, len(x) - 1]
+                                 for i, (_, x) in enumerate(slices)])
+            else:
+                toks = np.zeros(32, np.int32)
+                poss = np.zeros(32, np.int32)
+                for off, (st, x) in zip((0, 16), slices):
+                    toks[off:off + len(x)] = x
+                    poss[off:off + len(x)] = st + np.arange(len(x))
+                d, p = forward_mixed_ragged(
+                    params, cfg, *dec, t(toks), t(poss), t([0, 16, 0]),
+                    t([len(x) for _, x in slices] + [0]), t(pf_bt))
+                p = p[:2]
+            res[dev] = (d.float().cpu(), p.float().cpu())
+        for a, b in zip(res["cuda"], res["cpu"]):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"model: non-finite {kind} logits")
+            worst = max(worst, (a - b).abs().max().item())
+        tok = int(res["cpu"][0][0].argmax())
+        pos += 1
     if worst > MODEL_ATOL:
         raise AssertionError(f"model: card vs CPU logits differ by {worst}")
-    log(f"[model] bf16 tiny model (D=128, n_rep=2): card vs CPU logits "
+    log(f"[model] bf16 tiny model (D=128, n_rep=2): prefill, decode, "
+        f"forward_mixed and forward_mixed_ragged card vs CPU logits "
         f"max_abs_err {worst:.3g} (tolerance {MODEL_ATOL})")
 
 
@@ -513,21 +710,107 @@ def _poll(base, mid, timeout=600.0):
     raise AssertionError(f"message {mid} did not finish in {timeout} s")
 
 
+def _count_plain_calls():
+    """Wrap every ``*_plain`` twin of ``ops/kernels.py`` in a call
+    counter (the wrappers look their twins up by name, so a twin reached
+    from a wrapper counts too). Returns (counts, restore)."""
+    from llmq_tpu_torch.ops import kernels
+
+    counts = {}
+    originals = {n: getattr(kernels, n) for n in dir(kernels)
+                 if n.endswith("_plain")}
+
+    def wrap(name, fn):
+        def counted(*args, **kwargs):
+            counts[name] = counts.get(name, 0) + 1
+            return fn(*args, **kwargs)
+        return counted
+
+    for name, fn in originals.items():
+        setattr(kernels, name, wrap(name, fn))
+
+    def restore():
+        for name, fn in originals.items():
+            setattr(kernels, name, fn)
+    return counts, restore
+
+
+def _decoding_rows(engine) -> int:
+    return sum(1 for s in engine._slots if s is not None and s.prefilled)
+
+
+def _coexisting_mix(base, engine, tag: str) -> list:
+    """Two requests decoding 64 tokens, then four ~600-token prompts
+    posted while they decode, so prefill and decode coexist. Returns the
+    finished messages."""
+    mids = []
+    for i in range(2):
+        status, r = _http("POST", f"{base}/api/v1/messages", {
+            "content": f"{tag} decoder {i}: write a long story.",
+            "priority": "normal", "metadata": {"max_new_tokens": 64}})
+        assert status == 202, r
+        mids.append(r["message_id"])
+    deadline = time.time() + 120
+    while _decoding_rows(engine) < 2 and time.time() < deadline:
+        time.sleep(0.005)
+    if _decoding_rows(engine) < 2:
+        raise AssertionError(f"{tag}: the two decoders never decoded")
+    for i in range(4):
+        text = (f"{tag} long prompt {i}. " + "The queue holds requests of "
+                "four priorities and serves them in order. " * 12)[:600]
+        status, r = _http("POST", f"{base}/api/v1/messages", {
+            "content": text, "priority": ("low", "high")[i % 2],
+            "metadata": {"max_new_tokens": 16}})
+        assert status == 202, r
+        mids.append(r["message_id"])
+    return [_poll(base, m) for m in mids]
+
+
+def _check_completed(results, what: str) -> int:
+    for m in results:
+        u = m["metadata"].get("usage", {})
+        if m["status"] != "completed" or \
+                u.get("finish_reason") not in ("eos", "length"):
+            raise AssertionError(f"{what}: request did not complete: {m}")
+    return sum(m["metadata"]["usage"]["completion_tokens"] for m in results)
+
+
+def _b1_rates(engine):
+    """TTFT and decode rate of one request alone (90-token prompt, 32
+    new tokens)."""
+    from llmq_tpu_torch.engine.engine import GenRequest
+
+    prompt = "The quick brown fox jumps over the lazy dog. " * 2
+    h = engine.submit(GenRequest(id=f"ttft-{time.time()}", prompt=prompt,
+                                 max_new_tokens=32))
+    assert h.wait(120), "ttft request timed out"
+    ttft = h.marks["first_token"] - h.submitted_at
+    rate = (len(h.result.tokens) - 1) / (h.finished_at
+                                         - h.marks["first_token"])
+    return ttft, rate, h.result.prompt_tokens
+
+
 def phase_serve(state) -> None:
+    counts, restore = _count_plain_calls()
+    try:
+        _serve_ragged(state, _serve_default(state))
+    finally:
+        restore()
+    if counts:
+        raise AssertionError(f"serving called plain twins: {counts}")
+    log("[serve] no *_plain twin was called while serving")
+
+
+def _serve_default(state):
     import torch
 
     from llmq_tpu_torch.__main__ import App
-    from llmq_tpu_torch.core.config import Config
     from llmq_tpu_torch.engine.builder import build_engine
     from llmq_tpu_torch.engine.engine import (GenRequest,
                                               realtime_admission_cap)
     from llmq_tpu_torch.ops import kernels
 
-    cfg = Config()
-    cfg.model.name = "llama3-8b"
-    cfg.model.max_seq_len = 2048
-    cfg.executor.max_decode_steps = 32
-    cfg.device = "cuda"
+    cfg = _serve_cfg()
     t0 = time.perf_counter()
     engine = build_engine(cfg)
     torch.cuda.synchronize()
@@ -566,35 +849,31 @@ def phase_serve(state) -> None:
             assert status == 202, r
             turns.append(_poll(base, r["message_id"]))
         results = [_poll(base, m) for m in mids] + turns
+        mixed0 = engine.mixed_steps
+        results += _coexisting_mix(base, engine, "bucket")
         torch.cuda.synchronize()
         rest_s = time.perf_counter() - t_rest
         launches = dict(kernels.LAUNCHES)
-        for m in results:
-            u = m["metadata"].get("usage", {})
-            if m["status"] != "completed" or \
-                    u.get("finish_reason") not in ("eos", "length"):
-                raise AssertionError(f"request did not complete: {m}")
+        tokens = _check_completed(results, "REST")
         cached = turns[1]["metadata"]["usage"]["cached_tokens"]
         if cached <= 0:
             raise AssertionError(f"turn 2 reports cached_tokens={cached}")
+        if engine.mixed_steps <= mixed0:
+            raise AssertionError("prefill and decode coexisted but no mixed "
+                                 "step ran")
         for name in ("fused_decode", "kv_prefill_write", "prefill_attention"):
             if launches[name] <= 0:
                 raise AssertionError(f"serving never launched {name}")
             state["kernels"][name]["launches"] = launches[name]
-        tokens = sum(m["metadata"]["usage"]["completion_tokens"]
-                     for m in results)
         log(f"[serve] {len(results)} REST requests completed in "
             f"{rest_s:.2f} s, {tokens} tokens; turn 2 cached_tokens "
-            f"{cached}; launches {launches} ({CARD})")
+            f"{cached}; mixed steps {engine.mixed_steps} "
+            f"({engine.mixed_prefill_tokens_total} prefill tokens); "
+            f"launches {launches} ({CARD})")
 
         # -- latency and rate, straight through the engine -----------------
+        ttft, rate1, prompt_tokens = _b1_rates(engine)
         prompt = "The quick brown fox jumps over the lazy dog. " * 2
-        h = engine.submit(GenRequest(id="ttft", prompt=prompt,
-                                     max_new_tokens=32))
-        assert h.wait(120), "ttft request timed out"
-        ttft = h.marks["first_token"] - h.submitted_at
-        n = len(h.result.tokens)
-        rate1 = (n - 1) / (h.finished_at - h.marks["first_token"])
         hs = [engine.submit(GenRequest(id=f"b{i}", prompt=f"{i}: " + prompt,
                                        max_new_tokens=32)) for i in range(8)]
         for x in hs:
@@ -616,11 +895,11 @@ def phase_serve(state) -> None:
                           "tok_s_b8_e2e": ntok / (t_last - t_first),
                           "decode_tok_s_per_req_b8":
                               sum(per_req) / len(per_req),
-                          "prompt_tokens_b1": h.result.prompt_tokens,
+                          "prompt_tokens_b1": prompt_tokens,
                           "executor_step_ms": step_ms,
                           "realtime_admission_cap_steps": cap}
         log(f"[serve] llama3-8b bf16: TTFT {ttft * 1e3:.1f} ms (B=1, "
-            f"{h.result.prompt_tokens}-token prompt); decode {rate1:.1f} "
+            f"{prompt_tokens}-token prompt); decode {rate1:.1f} "
             f"tok/s (B=1); 8 concurrent: {ntok / (t_last - t_first):.1f} "
             f"tok/s end to end, {sum(per_req) / len(per_req):.1f} tok/s per "
             f"request after its first token ({CARD})")
@@ -636,17 +915,166 @@ def phase_serve(state) -> None:
         engine.executor.fused_decode = True
         split = dict(kernels.LAUNCHES)
         if m["status"] != "completed" or split["kv_cache_write"] <= 0 \
+                or split["paged_decode_attention"] <= 0 \
                 or split["fused_decode"] != 0:
             raise AssertionError(f"split route not taken: {m} {split}")
-        state["kernels"]["kv_cache_write"]["launches"] = \
-            split["kv_cache_write"]
+        for name in ("kv_cache_write", "paged_decode_attention"):
+            state["kernels"][name]["launches"] = split[name]
         log(f"[serve] split decode route request completed; launches "
             f"{split}")
         _decode_breakdown(engine, state)
+        _mixed_timing(engine, state, "bucket")
         log(f"[serve] peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({CARD})")
     finally:
         app.stop()
+    return engine.executor.model.params
+
+
+def _serve_cfg():
+    from llmq_tpu_torch.core.config import Config
+
+    cfg = Config()
+    cfg.model.name = "llama3-8b"
+    cfg.model.max_seq_len = 2048
+    cfg.executor.max_decode_steps = 32
+    cfg.device = "cuda"
+    return cfg
+
+
+def _serve_ragged(state, params) -> None:
+    """The slice's path: a second engine on the same weights (its own
+    pool) with ragged attention on, serving the same REST mix. Every
+    prefill, continuation included, runs through the ragged step."""
+    import torch
+
+    from llmq_tpu_torch.__main__ import App
+    from llmq_tpu_torch.engine.builder import build_engine
+    from llmq_tpu_torch.ops import kernels
+
+    cfg = _serve_cfg()
+    cfg.executor.ragged_attention.enabled = True
+    engine = build_engine(cfg, params=params)
+    ex = engine.executor
+    log(f"[serve-ragged] engine on the same weights: ragged capacity "
+        f"{ex.mixed_slice_tokens} tokens x {ex.mixed_prefill_slices} slices, "
+        f"packed buffer {ex.ragged_buffer} rows")
+    app = App(cfg, engine=engine)
+    port = app.start(host="127.0.0.1", port=0)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        engine.generate("warm up the ragged path", max_new_tokens=4)
+        torch.cuda.synchronize()
+        # -- this slice's path: REST -> engine -> ragged mixed steps -------
+        kernels.reset_launches()
+        t_rest = time.perf_counter()
+        mids = []
+        for i, prio in enumerate(["realtime", "high", "normal", "low"]):
+            status, r = _http("POST", f"{base}/api/v1/messages", {
+                "content": f"Ragged request {i} at {prio} priority: summarise "
+                           f"the state of the queue in one line.",
+                "priority": prio, "metadata": {"max_new_tokens": 32}})
+            assert status == 202, r
+            mids.append(r["message_id"])
+        results = _coexisting_mix(base, engine, "ragged")
+        turns = []
+        for text in ("Hello! Tell me about ragged attention, please.",
+                     " And now say it again, but shorter."):
+            status, r = _http("POST", f"{base}/api/v1/messages", {
+                "content": text, "conversation_id": "ragged-conv",
+                "priority": "high", "metadata": {"max_new_tokens": 32}})
+            assert status == 202, r
+            turns.append(_poll(base, r["message_id"]))
+        results += [_poll(base, m) for m in mids] + turns
+        torch.cuda.synchronize()
+        rest_s = time.perf_counter() - t_rest
+        launches = dict(kernels.LAUNCHES)
+        tokens = _check_completed(results, "ragged REST")
+        cached = turns[1]["metadata"]["usage"]["cached_tokens"]
+        if cached <= 0:
+            raise AssertionError(f"ragged turn 2 reports cached_tokens="
+                                 f"{cached}")
+        if engine.mixed_steps <= 0:
+            raise AssertionError("ragged serving took no mixed step")
+        for name in ("ragged_mixed_attention", "kv_prefill_write",
+                     "fused_decode"):
+            if launches[name] <= 0:
+                raise AssertionError(f"ragged serving never launched {name}")
+        if launches["prefill_attention"] != 0:
+            raise AssertionError("ragged serving ran the bucket prefill "
+                                 "attention kernel")
+        state["kernels"]["ragged_mixed_attention"]["launches"] = \
+            launches["ragged_mixed_attention"]
+        log(f"[serve-ragged] {len(results)} REST requests completed in "
+            f"{rest_s:.2f} s, {tokens} tokens; turn 2 cached_tokens "
+            f"{cached}; mixed steps {engine.mixed_steps} "
+            f"({engine.mixed_prefill_tokens_total} prefill tokens); "
+            f"launches {launches} ({CARD})")
+        ttft, rate1, n_prompt = _b1_rates(engine)
+        state["serve"].update({"ragged_ttft_ms_b1": ttft * 1e3,
+                               "ragged_decode_tok_s_b1": rate1,
+                               "ragged_mixed_steps": engine.mixed_steps})
+        log(f"[serve-ragged] llama3-8b bf16: TTFT {ttft * 1e3:.1f} ms (B=1, "
+            f"{n_prompt}-token prompt, ragged prefill); decode {rate1:.1f} "
+            f"tok/s (B=1) ({CARD})")
+        _mixed_timing(engine, state, "ragged")
+    finally:
+        app.stop()
+
+
+def _mixed_timing(engine, state, tag: str) -> None:
+    """Wall and device-busy time per step of one mixed chunk (B=8 decode
+    rows at 64 positions, K=16 steps, two 64-token prompt slices in step
+    0), against the unfused order the engine used before mixed batching:
+    the same 128 prompt tokens as one prefill call, then a plain decode
+    chunk."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    ex = engine.executor
+    B, K, MPs = ex.spec.batch_size, ex.chunk_size, ex.spec.max_pages_per_seq
+    pages = engine.allocator.alloc(B * 8 + 8 + 4)      # idle engine
+    bt = np.zeros((B, MPs), np.int32)
+    bt[:, :8] = np.asarray(pages[:B * 8]).reshape(B, 8)
+    args = (np.full(B, 100, np.int32), np.full(B, 64, np.int32), bt,
+            np.zeros(B, np.float32), np.full(B, K, np.int32))
+    # Slice 0's table also backs the unfused 128-token prefill.
+    pf_bt = np.zeros((2, MPs), np.int32)
+    pf_bt[0, :8] = pages[B * 8:B * 8 + 8]
+    pf_bt[1, :4] = pages[B * 8 + 8:]
+    rng = np.random.default_rng(0)
+    pf = [(0, list(rng.integers(3, 250, 64)), 0, pf_bt[i], 0.0)
+          for i in range(2)]
+
+    def timed(fn):
+        fn()                                          # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return wall, _device_us(prof) / 1e3
+
+    mixed_wall, mixed_busy = timed(lambda: ex.mixed_chunk(*args, pf))
+    unfused_wall, unfused_busy = timed(lambda: (
+        ex.prefill(pf[0][1] + pf[1][1], 0, pf_bt[0], 0.0, 0),
+        ex.decode_chunk(*args)))
+    engine.allocator.free(pages)
+    state["serve"].update({
+        f"{tag}_mixed_chunk_wall_ms_per_step": mixed_wall / K,
+        f"{tag}_mixed_chunk_device_ms_per_step": mixed_busy / K,
+        f"{tag}_prefill128_then_decode_chunk_wall_ms": unfused_wall,
+        f"{tag}_prefill128_then_decode_chunk_device_ms": unfused_busy})
+    log(f"[serve-{tag}] mixed chunk (B={B}, K={K}, 2 x 64 prompt tokens): "
+        f"{mixed_wall / K:.2f} ms/step wall, {mixed_busy / K:.2f} ms/step "
+        f"device busy, {mixed_wall:.1f} ms in all; unfused (prefill of the "
+        f"128 tokens, then a decode chunk): {unfused_wall:.1f} ms wall, "
+        f"{unfused_busy:.1f} ms device busy ({CARD})")
 
 
 def _decode_breakdown(engine, state) -> None:

@@ -67,6 +67,63 @@ class ModelConfig:
 
 
 @dataclass
+class MixedBatchConfig:
+    """Token-budget mixed prefill+decode batching. While decode rows are
+    active, the engine fuses up to ``prefill_token_budget`` tokens of
+    pending prefill slices into the first step of the decode chunk, so
+    a decode row waits for at most that many prefill tokens instead of
+    a whole prefill bucket. ``enabled: false`` keeps the unfused
+    scheduling (a prefill bucket, then a decode chunk)."""
+    enabled: bool = True
+    #: Max prefill tokens fused into one mixed step, across all slices.
+    prefill_token_budget: int = 128
+    #: Prefill sequences whose next slice can ride one mixed step; each
+    #: slice is ``prefill_token_budget // max_slices`` tokens wide.
+    max_slices: int = 2
+
+    def __post_init__(self) -> None:
+        if self.prefill_token_budget < 8:
+            raise ValueError(
+                "mixed_batch.prefill_token_budget must be >= 8 "
+                f"(got {self.prefill_token_budget})")
+        if not 1 <= self.max_slices <= 16:
+            raise ValueError(
+                f"mixed_batch.max_slices must be in [1, 16] "
+                f"(got {self.max_slices})")
+
+    @property
+    def slice_tokens(self) -> int:
+        """Width of one slice in bucket mode."""
+        return max(1, self.prefill_token_budget // self.max_slices)
+
+
+@dataclass
+class RaggedAttentionConfig:
+    """Ragged mixed attention. When enabled, the mixed step packs its
+    prefill slices into ONE token buffer with per-slice (offset,
+    length, start) descriptors, and each layer's attention for the
+    decode rows and every packed slice token is one kernel launch. All
+    prefill then runs through that ragged step (no bucket program
+    runs), and slices pack against the token budget alone. ``enabled:
+    false`` keeps the bucket path."""
+    enabled: bool = False
+    #: Packed prefill-token capacity of one ragged step (one slice may
+    #: take all of it). 0 → ``mixed_batch.prefill_token_budget``.
+    prefill_token_capacity: int = 0
+    #: Max slices per ragged step. 0 → ``mixed_batch.max_slices``.
+    max_slices: int = 0
+
+    def __post_init__(self) -> None:
+        if self.prefill_token_capacity < 0:
+            raise ValueError(
+                "ragged_attention.prefill_token_capacity must be >= 0")
+        if not 0 <= self.max_slices <= 16:
+            raise ValueError(
+                f"ragged_attention.max_slices must be in [0, 16] "
+                f"(got {self.max_slices})")
+
+
+@dataclass
 class ExecutorConfig:
     max_batch_size: int = 8             # decode slots
     page_size: int = 16                 # tokens per KV page
@@ -77,6 +134,9 @@ class ExecutorConfig:
     max_decode_steps: int = 256
     preemption: bool = True
     kv_pin_ttl: float = 600.0           # per-conversation KV pin TTL
+    mixed_batch: MixedBatchConfig = field(default_factory=MixedBatchConfig)
+    ragged_attention: RaggedAttentionConfig = field(
+        default_factory=RaggedAttentionConfig)
 
 
 @dataclass

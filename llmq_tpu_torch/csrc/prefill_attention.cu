@@ -223,7 +223,7 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
 
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
 // for a head geometry without an instantiation (D in {64, 128},
-// n_rep in {2, 4, 8}).
+// n_rep in {1, 2, 4, 8}).
 extern "C" int llmq_prefill_attention(const void* q, const void* k_pool,
                                       const void* v_pool,
                                       const void* block_table, void* out,
@@ -240,8 +240,8 @@ extern "C" int llmq_prefill_attention(const void* q, const void* k_pool,
     return launch<DD, RR>(q, k_pool, v_pool, block_table, out, T,           \
                           start_pos, layer, num_pages, page_size, max_pages, \
                           n_kv_heads, scale, s);
-  LLMQ_CASE(128, 2) LLMQ_CASE(128, 4) LLMQ_CASE(128, 8)
-  LLMQ_CASE(64, 2) LLMQ_CASE(64, 4) LLMQ_CASE(64, 8)
+  LLMQ_CASE(128, 1) LLMQ_CASE(128, 2) LLMQ_CASE(128, 4) LLMQ_CASE(128, 8)
+  LLMQ_CASE(64, 1) LLMQ_CASE(64, 2) LLMQ_CASE(64, 4) LLMQ_CASE(64, 8)
 #undef LLMQ_CASE
   return (int)cudaErrorInvalidValue;
 }

@@ -1,0 +1,322 @@
+// Ragged mixed attention for Hopper (sm_90a): ONE launch per layer for a
+// mixed prefill+decode step.
+//
+// Replaces ragged_mixed_attention_pallas (_ragged_kernel) of
+// llmq_tpu/ops/pallas/ragged_paged_attention.py. Inputs: B decode rows
+// (one query token each, their new K/V not yet in the pool) and S prefill
+// slices packed back to back into one (N, H, D) query buffer, segment s
+// at rows [qoff[s], qoff[s] + qlen[s]), each segment starting on a
+// multiple of kQBlock = 8 (RAGGED_Q_BLOCK in ops/attention.py). Slice s's
+// K/V is already in its pages (kv_prefill_write runs first, on the same
+// stream), so the launch only reads for the slices.
+//
+// The grid is one dimension with two ranges of blocks:
+//  - decode blocks, one per (decode row b, KV head g): exactly kernel 1
+//    (decode_attend() of decode_attention.cuh): write the row's new K/V
+//    at (write_page[b], (seq_len - 1) % ps), attend over [0, seq_len)
+//    reading position seq_len - 1 from k_new / v_new; an inactive row
+//    writes page 0, an empty row (seq_len == 0) returns zeros;
+//  - prefill blocks, one per (8-token q-block, KV head g): the block
+//    finds the slice that owns its first token by scanning the S
+//    descriptors (the TPU kernel's scalar-prefetched owner table; no
+//    owner means a dead block, which writes zeros and loads nothing).
+//    Query t of slice s sits at absolute position qstart[s] + t - qoff[s]
+//    and sees keys at kv_pos <= q_pos, its slice's fresh K/V and any
+//    history from earlier turns alike. Rows of a live block past qlen
+//    come out as zeros.
+//
+// Why one launch is safe: a sequence is either decoding or mid-prefill,
+// never both, so decode blocks write only pages that no prefill block
+// reads. Inactive decode rows write the null page 0, which no live slice
+// reads (a slice reads only positions below its last query's, all
+// backed by its own pages).
+//
+// What bounds it: a decode block is bound by bytes as kernel 1 is. A
+// prefill block does 4 * H * D flops per visible (query, key) pair on
+// 2 * GD * 2 bytes per key read; for a fresh slice bytes dominate, for a
+// slice over a long history operations do. This first version runs the
+// arithmetic on the f32 CUDA cores (wgmma tiles are later work). A
+// prefill block keeps everything on chip: each of its 8 warps owns one
+// query token and its group's NREP heads, the group's K/V streams in
+// 32-key tiles through shared memory once for all 8 * NREP rows, and
+// tiles past the block's last query position are never loaded. The
+// TPU's block-diagonal q, chunk plan and VMEM budget are not carried
+// over.
+
+#include "decode_attention.cuh"
+
+namespace {
+
+constexpr int kWarps = 8;
+constexpr int kQBlock = 8;   // packed tokens per q-block: one per warp
+constexpr int kKeys = 32;    // keys per tile: one per lane
+
+template <int D, int NREP>
+constexpr int prefill_smem_floats() {
+  return kQBlock * NREP * D        // Qs: the block's query rows, pre-scaled
+         + kKeys * (D + 1)         // Ks: padded rows, conflict-free reads
+         + kKeys * D               // Vs
+         + kWarps * NREP * kKeys;  // Ps: each warp's softmax weights
+}
+
+template <int D, int NREP>
+constexpr int smem_floats() {
+  constexpr int a = prefill_smem_floats<D, NREP>();
+  constexpr int b = llmq::decode_smem_floats<D, NREP, kWarps>();
+  return a > b ? a : b;
+}
+
+template <int D, int NREP>
+__device__ void prefill_block(const __nv_bfloat16* __restrict__ q_pf,
+                              const __nv_bfloat16* __restrict__ k_pool,
+                              const __nv_bfloat16* __restrict__ v_pool,
+                              const int* __restrict__ block_tables,
+                              const int* __restrict__ pf_qoff,
+                              const int* __restrict__ pf_qlen,
+                              const int* __restrict__ pf_qstart,
+                              __nv_bfloat16* __restrict__ out_pf, int qb,
+                              int g, int batch, int n_slices, int layer,
+                              int num_pages, int page_size, int max_pages,
+                              int n_kv_heads, float scale, float* smem) {
+  constexpr int DPL = D / 32;
+  constexpr int KSTRIDE = D + 1;
+  const int H = n_kv_heads * NREP;
+  const int gd = n_kv_heads * D;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int blk0 = qb * kQBlock;
+
+  int own = -1;
+  for (int s = 0; s < n_slices; ++s) {
+    if (blk0 >= pf_qoff[s] && blk0 < pf_qoff[s] + pf_qlen[s]) {
+      own = s;
+      break;
+    }
+  }
+  if (own < 0) {  // dead block: zeros, nothing loaded
+    for (int idx = tid; idx < kQBlock * NREP * D; idx += blockDim.x) {
+      const int t = idx / (NREP * D);
+      const int rd = idx % (NREP * D);
+      out_pf[((size_t)(blk0 + t) * H + g * NREP) * D + rd] =
+          __float2bfloat16(0.f);
+    }
+    return;
+  }
+  const int n_live = min(pf_qoff[own] + pf_qlen[own] - blk0, kQBlock);
+  const int pos0 = pf_qstart[own] + blk0 - pf_qoff[own];
+  const int* bt = block_tables + (size_t)(batch + own) * max_pages;
+  const size_t layer_row0 = (size_t)layer * num_pages * page_size;
+
+  float* Qs = smem;                      // kQBlock * NREP rows x D
+  float* Ks = Qs + kQBlock * NREP * D;   // kKeys x (D + 1)
+  float* Vs = Ks + kKeys * KSTRIDE;      // kKeys x D
+  float* P = Vs + kKeys * D + warp * NREP * kKeys;  // this warp's NREP x kKeys
+
+  // Row R = t * NREP + r: token blk0 + t, head g * NREP + r.
+  for (int idx = tid; idx < kQBlock * NREP * D; idx += blockDim.x) {
+    const int t = idx / (NREP * D);
+    const int rd = idx % (NREP * D);
+    float v = 0.f;
+    if (t < n_live)
+      v = __bfloat162float(q_pf[((size_t)(blk0 + t) * H + g * NREP) * D + rd]) *
+          scale;
+    Qs[idx] = v;
+  }
+  const int kv_end = min(pos0 + n_live, max_pages * page_size);
+  const bool live_row = warp < n_live;
+  const int q_pos = pos0 + warp;
+
+  float m[NREP], l[NREP], acc[NREP][DPL];
+#pragma unroll
+  for (int r = 0; r < NREP; ++r) {
+    m[r] = -1e30f;
+    l[r] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) acc[r][i] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < kv_end; k0 += kKeys) {
+    __syncthreads();  // Q written / previous tile consumed
+    for (int idx = tid; idx < kKeys * D; idx += blockDim.x) {
+      const int j = idx / D;
+      const int d = idx % D;
+      const int p = k0 + j;
+      float kv = 0.f, vv = 0.f;
+      if (p < kv_end) {
+        const int page = bt[p / page_size];
+        if (page >= 0 && page < num_pages) {
+          const size_t off =
+              (layer_row0 + (size_t)page * page_size + p % page_size) * gd +
+              g * D + d;
+          kv = __bfloat162float(k_pool[off]);
+          vv = __bfloat162float(v_pool[off]);
+        }
+      }
+      Ks[j * KSTRIDE + d] = kv;
+      Vs[j * D + d] = vv;
+    }
+    __syncthreads();
+
+    // Scores: lane j scores key k0 + j against the warp's NREP rows.
+    float s[NREP];
+#pragma unroll
+    for (int r = 0; r < NREP; ++r) s[r] = 0.f;
+    const float* krow = Ks + lane * KSTRIDE;
+    const float* qrow = Qs + warp * NREP * D;
+    for (int d = 0; d < D; d += 4) {
+      const float k0f = krow[d], k1f = krow[d + 1];
+      const float k2f = krow[d + 2], k3f = krow[d + 3];
+#pragma unroll
+      for (int r = 0; r < NREP; ++r) {
+        const float4 q4 = *reinterpret_cast<const float4*>(qrow + r * D + d);
+        s[r] += q4.x * k0f + q4.y * k1f + q4.z * k2f + q4.w * k3f;
+      }
+    }
+    const int p = k0 + lane;
+    const bool ok = live_row && p < kv_end && p <= q_pos;
+#pragma unroll
+    for (int r = 0; r < NREP; ++r) {
+      const float sv = ok ? s[r] : -1e30f;
+      const float m_new = fmaxf(m[r], llmq::warp_max(sv));
+      const float alpha = __expf(m[r] - m_new);
+      const float pe = ok ? __expf(sv - m_new) : 0.f;
+      l[r] = l[r] * alpha + llmq::warp_sum(pe);
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) acc[r][i] *= alpha;
+      m[r] = m_new;
+      P[r * kKeys + lane] = pe;
+    }
+    __syncwarp();
+
+    // P @ V: lane owns dims [lane * DPL, lane * DPL + DPL).
+    for (int j = 0; j < kKeys; ++j) {
+      float vf[DPL];
+      if constexpr (DPL == 4) {
+        const float4 v4 = *reinterpret_cast<const float4*>(Vs + j * D + lane * 4);
+        vf[0] = v4.x; vf[1] = v4.y; vf[2] = v4.z; vf[3] = v4.w;
+      } else {
+        const float2 v2 = *reinterpret_cast<const float2*>(Vs + j * D + lane * 2);
+        vf[0] = v2.x; vf[1] = v2.y;
+      }
+#pragma unroll
+      for (int r = 0; r < NREP; ++r) {
+        const float pj = P[r * kKeys + j];
+#pragma unroll
+        for (int i = 0; i < DPL; ++i) acc[r][i] += pj * vf[i];
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < NREP; ++r) {
+    const float inv = live_row ? 1.f / fmaxf(l[r], 1e-30f) : 0.f;
+    __nv_bfloat16* o =
+        out_pf + ((size_t)(blk0 + warp) * H + g * NREP + r) * D + lane * DPL;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) o[i] = __float2bfloat16(acc[r][i] * inv);
+  }
+}
+
+template <int D, int NREP>
+__global__ void __launch_bounds__(kWarps * 32)
+ragged_kernel(const __nv_bfloat16* __restrict__ q_dec,   // (B, H, D)
+              const __nv_bfloat16* __restrict__ k_new,   // (B, GD)
+              const __nv_bfloat16* __restrict__ v_new,   // (B, GD)
+              const __nv_bfloat16* __restrict__ q_pf,    // (N, H, D)
+              __nv_bfloat16* k_pool,                     // (L, P, ps, GD)
+              __nv_bfloat16* v_pool,
+              const int* __restrict__ block_tables,      // (B + S, MP)
+              const int* __restrict__ seq_lens,          // (B + S,)
+              const int* __restrict__ write_page,        // (B,)
+              const int* __restrict__ pf_qoff,           // (S,)
+              const int* __restrict__ pf_qlen,           // (S,)
+              const int* __restrict__ pf_qstart,         // (S,)
+              __nv_bfloat16* __restrict__ out_dec,       // (B, H, D)
+              __nv_bfloat16* __restrict__ out_pf,        // (N, H, D)
+              int batch, int n_slices, int layer, int num_pages,
+              int page_size, int max_pages, int n_kv_heads, float scale) {
+  extern __shared__ float smem[];
+  const int n_dec = batch * n_kv_heads;
+  const int bx = blockIdx.x;
+  if (bx < n_dec) {
+    const int b = bx / n_kv_heads;
+    const int g = bx % n_kv_heads;
+    const int gd = n_kv_heads * D;
+    const size_t hd = (size_t)n_kv_heads * NREP * D;
+    llmq::decode_attend<D, NREP, kWarps>(
+        q_dec + b * hd, k_new + (size_t)b * gd + g * D,
+        v_new + (size_t)b * gd + g * D, k_pool, v_pool,
+        block_tables + (size_t)b * max_pages, seq_lens[b], write_page[b],
+        out_dec + b * hd, g, layer, num_pages, page_size, max_pages, gd,
+        scale, smem);
+    return;
+  }
+  const int i = bx - n_dec;
+  prefill_block<D, NREP>(q_pf, k_pool, v_pool, block_tables, pf_qoff, pf_qlen,
+                         pf_qstart, out_pf, i / n_kv_heads, i % n_kv_heads,
+                         batch, n_slices, layer, num_pages, page_size,
+                         max_pages, n_kv_heads, scale, smem);
+}
+
+template <int D, int NREP>
+int launch(const void* q_dec, const void* k_new, const void* v_new,
+           const void* q_pf, void* k_pool, void* v_pool,
+           const void* block_tables, const void* seq_lens,
+           const void* write_page, const void* pf_qoff, const void* pf_qlen,
+           const void* pf_qstart, void* out_dec, void* out_pf, int batch,
+           int n_slices, int n_tokens, int layer, int num_pages,
+           int page_size, int max_pages, int n_kv_heads, float scale,
+           cudaStream_t stream) {
+  constexpr size_t smem = sizeof(float) * smem_floats<D, NREP>();
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        ragged_kernel<D, NREP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  const int blocks = (batch + n_tokens / kQBlock) * n_kv_heads;
+  if (blocks == 0) return (int)cudaGetLastError();
+  ragged_kernel<D, NREP><<<blocks, kWarps * 32, smem, stream>>>(
+      (const __nv_bfloat16*)q_dec, (const __nv_bfloat16*)k_new,
+      (const __nv_bfloat16*)v_new, (const __nv_bfloat16*)q_pf,
+      (__nv_bfloat16*)k_pool, (__nv_bfloat16*)v_pool,
+      (const int*)block_tables, (const int*)seq_lens,
+      (const int*)write_page, (const int*)pf_qoff, (const int*)pf_qlen,
+      (const int*)pf_qstart, (__nv_bfloat16*)out_dec, (__nv_bfloat16*)out_pf,
+      batch, n_slices, layer, num_pages, page_size, max_pages, n_kv_heads,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// n_tokens (the packed buffer's N) must be a multiple of 8. Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
+// head geometry without an instantiation (D in {64, 128}, n_rep in
+// {1, 2, 4, 8}).
+extern "C" int llmq_ragged_mixed_attention(
+    const void* q_dec, const void* k_new, const void* v_new, const void* q_pf,
+    void* k_pool, void* v_pool, const void* block_tables,
+    const void* seq_lens, const void* write_page, const void* pf_qoff,
+    const void* pf_qlen, const void* pf_qstart, void* out_dec, void* out_pf,
+    int batch, int n_slices, int n_tokens, int n_heads, int n_kv_heads,
+    int head_dim, int layer, int num_pages, int page_size, int max_pages,
+    float scale, void* stream) {
+  if (n_tokens % kQBlock) return (int)cudaErrorInvalidValue;
+  const int n_rep = n_heads / n_kv_heads;
+  cudaStream_t s = (cudaStream_t)stream;
+#define LLMQ_CASE(DD, RR)                                                    \
+  if (head_dim == DD && n_rep == RR)                                         \
+    return launch<DD, RR>(q_dec, k_new, v_new, q_pf, k_pool, v_pool,         \
+                          block_tables, seq_lens, write_page, pf_qoff,       \
+                          pf_qlen, pf_qstart, out_dec, out_pf, batch,        \
+                          n_slices, n_tokens, layer, num_pages, page_size,   \
+                          max_pages, n_kv_heads, scale, s);
+  LLMQ_CASE(128, 1) LLMQ_CASE(128, 2) LLMQ_CASE(128, 4) LLMQ_CASE(128, 8)
+  LLMQ_CASE(64, 1) LLMQ_CASE(64, 2) LLMQ_CASE(64, 4) LLMQ_CASE(64, 8)
+#undef LLMQ_CASE
+  return (int)cudaErrorInvalidValue;
+}

@@ -43,6 +43,7 @@ def build_engine(cfg: Config, *, name: str = "engine0",
             f"tokenizer vocab ({tokenizer.vocab_size}) exceeds model "
             f"vocab ({mcfg.vocab_size}): ids would be out of range and "
             f"EOS could never be sampled; set model.vocab_size")
+    mixed, ragged = ex.mixed_batch, ex.ragged_attention
     t0 = time.perf_counter()
     if params is None:
         gen = torch.Generator(device=dev)
@@ -56,6 +57,15 @@ def build_engine(cfg: Config, *, name: str = "engine0",
         prefill_buckets=list(ex.prefill_buckets),
         eos_id=tokenizer.eos_id,
         chunk_size=ex.decode_chunk,
+        # Mixed geometry: bucket mode S slices of budget // S tokens; the
+        # executor turns it into S slices sharing one packed capacity
+        # when ragged attention is on.
+        mixed_prefill_slices=mixed.max_slices if mixed.enabled else 0,
+        mixed_slice_tokens=mixed.slice_tokens if mixed.enabled else 0,
+        ragged_attention=ragged.enabled,
+        ragged_token_capacity=(ragged.prefill_token_capacity
+                               or mixed.prefill_token_budget),
+        ragged_max_slices=ragged.max_slices,
         device=str(dev))
     tier_max_wait = {Priority(lvl.priority): lvl.max_wait_time
                      for lvl in cfg.queue.levels}
@@ -64,9 +74,16 @@ def build_engine(cfg: Config, *, name: str = "engine0",
         max_decode_steps=ex.max_decode_steps,
         preemption=ex.preemption,
         kv_pin_ttl=ex.kv_pin_ttl,
-        tier_max_wait=tier_max_wait)
+        tier_max_wait=tier_max_wait,
+        mixed_batch=mixed)
     log.info("built %s engine %s on %s in %.1fs (slots=%d pages=%d "
-             "page_size=%d chunk=%d)", mcfg.name, name, dev,
-             time.perf_counter() - t0, ex.max_batch_size, ex.kv_pages,
-             ex.page_size, ex.decode_chunk)
+             "page_size=%d chunk=%d mixed_batch=%s ragged_attention=%s)",
+             mcfg.name, name, dev, time.perf_counter() - t0,
+             ex.max_batch_size, ex.kv_pages, ex.page_size, ex.decode_chunk,
+             (f"on(budget={mixed.prefill_token_budget}"
+              f"x{executor.mixed_prefill_slices})" if mixed.enabled
+              else "off"),
+             (f"on(cap={executor.mixed_slice_tokens}"
+              f"x{executor.mixed_prefill_slices})" if ragged.enabled
+              else "off"))
     return engine

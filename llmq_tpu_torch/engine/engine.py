@@ -21,10 +21,14 @@ active sequence by a chunk of tokens per device program.
 - **Incremental prefill.** An admitted sequence runs one prefill bucket
   per engine step, so a long prompt never stalls decoding rows for its
   whole length.
+- **Token-budget mixed batching** (``mixed_batch``). While decode rows
+  are active, pending prefill runs as budgeted slices inside the first
+  step of the decode chunk (executor ``mixed_chunk``), so a decode row
+  waits for at most ``prefill_token_budget`` prefill tokens a chunk.
 
-Left to later work (``ROADMAP.md``): mixed prefill+decode batching, the
-async pipeline, batched prefill waves, the prefix cache, preemption with
-page release, metrics, tenancy, tiering and speculation.
+Left to later work (``ROADMAP.md``): the async pipeline, batched
+prefill waves, the prefix cache, preemption with page release, metrics,
+tenancy, tiering and speculation.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ import logging
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -50,6 +54,23 @@ log = logging.getLogger("llmq_tpu_torch.engine")
 #: chunk is capped to about this many milliseconds of the executor's
 #: measured steps.
 REALTIME_ADMISSION_MS = 50.0
+
+
+def _pack_prefill_slices(cands, S: int, T: int,
+                         budget: int) -> List[Tuple["_Sequence", List[int]]]:
+    """Pack prefill candidates (most urgent first) into at most S slices
+    of at most T tokens each, at most ``budget`` tokens in all. Returns
+    ``[(seq, token_ids)]``."""
+    pf_plan = []
+    packed = 0
+    for seq in cands:
+        if packed >= budget or len(pf_plan) >= S:
+            break
+        sl = seq.todo_ids[:min(T, budget - packed)]
+        if sl:
+            pf_plan.append((seq, sl))
+            packed += len(sl)
+    return pf_plan
 
 
 def realtime_admission_cap(step_ms: Optional[float]) -> int:
@@ -193,8 +214,8 @@ class InferenceEngine:
                  tokenizer: Optional[ByteTokenizer] = None, *,
                  name: str = "engine0", max_decode_steps: int = 256,
                  preemption: bool = True, kv_pin_ttl: float = 600.0,
-                 tier_max_wait: Optional[Dict[Priority, float]] = None
-                 ) -> None:
+                 tier_max_wait: Optional[Dict[Priority, float]] = None,
+                 mixed_batch=None) -> None:
         self.executor = executor
         self.spec = executor.spec
         self.tokenizer = tokenizer or ByteTokenizer()
@@ -207,6 +228,14 @@ class InferenceEngine:
         self.tier_max_wait = dict(tier_max_wait or {})
         self.allocator = PageAllocator(self.spec.num_pages,
                                        self.spec.page_size)
+        #: Token-budget mixed batching: a ``MixedBatchConfig`` (or
+        #: anything with its fields). None or disabled keeps the unfused
+        #: scheduling exactly.
+        self._mixed_cfg = (mixed_batch if mixed_batch is not None
+                           and getattr(mixed_batch, "enabled", False)
+                           else None)
+        self.mixed_steps = 0
+        self.mixed_prefill_tokens_total = 0
         self._slots: List[Optional[_Sequence]] = [None] * self.spec.batch_size
         self._pending: List = []           # heap of (prio, order, _Sequence)
         self._inbox: List[_Sequence] = []  # submitted, not yet in heap
@@ -327,13 +356,18 @@ class InferenceEngine:
 
     def step(self) -> bool:
         """One scheduling round: ingest, expire pins, admit, run one
-        prefill bucket, run one decode chunk. Returns True if any work
-        happened. One stepper at a time."""
+        prefill bucket (unless mixed batching owns prefill), then one
+        chunk: mixed when decode rows and pending prefill coexist, else
+        plain decode. Returns True if any work happened. One stepper at
+        a time."""
         self._ingest()
         self._expire_pins()
         admitted = self._admit()
         prefilled = self._advance_prefill()
-        stepped = self._decode_once()
+        if self._mixed_applicable():
+            stepped = self._mixed_once()
+        else:
+            stepped = self._decode_once()
         return admitted or prefilled or stepped
 
     def run_until_idle(self, max_steps: int = 100000) -> None:
@@ -577,6 +611,12 @@ class InferenceEngine:
                 reaped = True
         if not cands:
             return reaped
+        if self._mixed_on() and any(s is not None and s.prefilled
+                                    for s in self._slots):
+            # Mixed mode owns prefill while decode rows are hot: the next
+            # mixed chunk runs these sequences' slices inside the decode
+            # program (budget-bounded) instead of a whole bucket first.
+            return reaped
         seq = min(cands, key=lambda s: s.sort_key())
         seq.handle.marks.setdefault("prefill_start", time.perf_counter())
         chunk_len = self.executor.prefill_buckets[-1]
@@ -588,10 +628,98 @@ class InferenceEngine:
         seq.pos = seq.todo_pos
         seq.written_ids.extend(chunk)
         if not seq.todo_ids:
-            seq.prefilled = True
-            seq.handle.marks.setdefault("prefill_done", time.perf_counter())
-            self._commit_token(seq, first)
+            self._complete_prefill(seq, first)
         return True
+
+    def _complete_prefill(self, seq: _Sequence, first: int) -> None:
+        """Admission completes after the final prefill chunk: ``first``
+        is the token sampled at its last position."""
+        seq.prefilled = True
+        seq.handle.marks.setdefault("prefill_done", time.perf_counter())
+        self._commit_token(seq, first)
+
+    # -- mixed prefill+decode batching ---------------------------------------
+
+    def _mixed_on(self) -> bool:
+        """Mixed batching configured AND the executor has a mixed
+        geometry."""
+        return (self._mixed_cfg is not None
+                and int(getattr(self.executor, "mixed_prefill_slices", 0)) > 0
+                and int(getattr(self.executor, "mixed_slice_tokens", 0)) > 0
+                and getattr(self.executor, "mixed_chunk", None) is not None)
+
+    def _mixed_applicable(self) -> bool:
+        """Run a mixed chunk this round: mixed batching is on, decode rows
+        are active, and a mid-prefill slot has tokens left."""
+        if not self._mixed_on():
+            return False
+        if not any(s is not None and s.prefilled for s in self._slots):
+            return False
+        return any(s is not None and not s.prefilled and s.todo_ids
+                   for s in self._slots)
+
+    def _mixed_once(self) -> bool:
+        """One mixed chunk: the active decode rows' chunk plus up to
+        ``prefill_token_budget`` tokens of pending prefill slices in its
+        first step. Streams are those of the unfused path: slices write
+        the same K/V at the same positions, a prompt's final slice
+        samples the same first token, and decode rows never read another
+        sequence's pages."""
+        chunk = min(max(1, self.executor.chunk_size), self._admission_cap())
+        S = int(self.executor.mixed_prefill_slices)
+        T = int(self.executor.mixed_slice_tokens)
+        # Bucket mode packs S slices of T tokens. In ragged mode T is the
+        # packed buffer's whole capacity and one slice may take it all.
+        budget = int(self._mixed_cfg.prefill_token_budget)
+        if getattr(self.executor, "ragged_attention", False):
+            budget = min(budget, T)
+        else:
+            budget = min(budget, S * T)
+        budgets_by_order = self._budget_chunk_rows(chunk)
+        active = [s for s in self._slots if s is not None and s.prefilled]
+        # Slices are packed after decode budgeting, which may have
+        # finished rows and freed pages.
+        cands = [s for s in self._slots
+                 if s is not None and not s.prefilled and s.todo_ids]
+        for s in list(cands):
+            if s.handle.cancelled:
+                self._finish_active(s, "cancelled")
+                cands.remove(s)
+        cands.sort(key=lambda s: s.sort_key())
+        pf_plan = _pack_prefill_slices(cands, S, T, budget)
+        if not pf_plan:
+            return self._decode_once()
+        tokens, positions, block_tables, temps, budgets = \
+            self._chunk_arrays(active, budgets_by_order)
+        pf = []
+        for seq, sl in pf_plan:
+            seq.handle.marks.setdefault("prefill_start", time.perf_counter())
+            pf.append((seq.slot, sl, seq.todo_pos, seq.block_table,
+                       seq.req.temperature))
+            seq.todo_ids = seq.todo_ids[len(sl):]
+            seq.todo_pos += len(sl)
+            seq.pos = seq.todo_pos
+            seq.written_ids.extend(sl)
+        out, pf_first = self.executor.mixed_chunk(
+            tokens, positions, block_tables, temps, budgets, pf)
+        self.mixed_steps += 1
+        self.mixed_prefill_tokens_total += sum(len(sl) for _, sl in pf_plan)
+        for seq in active:
+            if seq.slot is not None:
+                self._commit_row(seq, out[seq.slot], int(budgets[seq.slot]))
+        self._finish_mixed_prefills(pf_plan, pf_first)
+        return True
+
+    def _finish_mixed_prefills(self, pf_plan, pf_first) -> None:
+        """Complete the admissions whose final slice ran in this mixed
+        chunk: their first token is ``pf_first[i]``."""
+        for i, (seq, _sl) in enumerate(pf_plan):
+            if seq.slot is None or seq.prefilled:
+                continue
+            if seq.handle.cancelled:
+                self._finish_active(seq, "cancelled")
+            elif not seq.todo_ids:
+                self._complete_prefill(seq, int(pf_first[i]))
 
     # -- decode --------------------------------------------------------------
 
@@ -627,9 +755,11 @@ class InferenceEngine:
         return realtime_admission_cap(getattr(self.executor, "step_ms",
                                               None))
 
-    def _decode_once(self) -> bool:
-        B = self.spec.batch_size
-        chunk = min(max(1, self.executor.chunk_size), self._admission_cap())
+    def _budget_chunk_rows(self, chunk: int) -> Dict[int, int]:
+        """Eligibility and budgets of the decode rows of the next chunk
+        (shared by the plain and the mixed chunk): finish cancelled and
+        full rows, back each survivor's budget with pages. Returns
+        ``seq.order → budget``."""
         budgets_by_order: Dict[int, int] = {}
         for seq in [s for s in self._slots if s is not None and s.prefilled]:
             if seq.handle.cancelled:
@@ -647,9 +777,13 @@ class InferenceEngine:
                                     "KV pool exhausted during decode")
                 continue
             budgets_by_order[seq.order] = budget
-        active = [s for s in self._slots if s is not None and s.prefilled]
-        if not active:
-            return False
+        return budgets_by_order
+
+    def _chunk_arrays(self, active: List[_Sequence],
+                      budgets_by_order: Dict[int, int]):
+        """Full-batch (tokens, positions, block_tables, temperatures,
+        budgets) of a chunk; empty slots stay zero (budget 0)."""
+        B = self.spec.batch_size
         tokens = np.zeros(B, np.int32)
         positions = np.zeros(B, np.int32)
         block_tables = np.zeros((B, self.spec.max_pages_per_seq), np.int32)
@@ -662,6 +796,16 @@ class InferenceEngine:
             block_tables[i] = seq.block_table
             temps[i] = seq.req.temperature
             budgets[i] = budgets_by_order[seq.order]
+        return tokens, positions, block_tables, temps, budgets
+
+    def _decode_once(self) -> bool:
+        chunk = min(max(1, self.executor.chunk_size), self._admission_cap())
+        budgets_by_order = self._budget_chunk_rows(chunk)
+        active = [s for s in self._slots if s is not None and s.prefilled]
+        if not active:
+            return False
+        tokens, positions, block_tables, temps, budgets = \
+            self._chunk_arrays(active, budgets_by_order)
         if chunk > 1:
             out = self.executor.decode_chunk(tokens, positions, block_tables,
                                              temps, budgets)

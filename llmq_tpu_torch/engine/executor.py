@@ -6,7 +6,15 @@ The engine schedules against :class:`ExecutorSpec` and calls the
 :class:`Executor` protocol: ``prefill`` (bucketed chunks over one block
 table), ``decode`` (one step for every slot), ``decode_chunk`` (up to
 ``chunk_size`` steps with sampling, EOS and budget latches kept on the
-device), ``release_slot`` and ``resume``.
+device), ``release_slot`` and ``resume``; with a mixed geometry also
+``mixed_chunk`` (a decode chunk whose first step carries budgeted
+prefill slices).
+
+Mixed geometry: ``mixed_prefill_slices`` (S) slices of up to
+``mixed_slice_tokens`` (T) tokens each. With ``ragged_attention`` the
+slices pack into one token buffer instead (T is then the buffer's live
+capacity, which one slice may take whole), and ALL prefill, ``prefill``
+included, runs through that ragged step with the decode rows frozen.
 
 The KV pool is one ``(L, P, page_size, GD)`` tensor pair updated **in
 place** by every program — the port's counterpart of JAX's buffer
@@ -24,6 +32,7 @@ import torch
 
 from llmq_tpu_torch.core.config import resolve_device
 from llmq_tpu_torch.models.llama import Llama, LlamaConfig, init_kv_pages
+from llmq_tpu_torch.ops.attention import RAGGED_Q_BLOCK
 from llmq_tpu_torch.ops.sampling import sample_token
 
 
@@ -91,6 +100,9 @@ class TorchExecutor:
                  top_k: int = 0, top_p: float = 1.0, eos_id: int = 2,
                  seed: int = 0, chunk_size: int = 16,
                  fused_decode: bool = True,
+                 mixed_prefill_slices: int = 0, mixed_slice_tokens: int = 0,
+                 ragged_attention: bool = False,
+                 ragged_token_capacity: int = 0, ragged_max_slices: int = 0,
                  device: str = "cuda") -> None:
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
@@ -103,8 +115,27 @@ class TorchExecutor:
         self._top_k = top_k
         self._top_p = top_p
         #: Decode route: fused write+attention kernel, or the split
-        #: write kernel + pooled attention (ops/attention.py).
+        #: row-write kernel + decode-attention kernel (ops/attention.py).
         self.fused_decode = fused_decode
+        #: Mixed geometry: S slices × T tokens (0 → no mixed_chunk).
+        self.mixed_prefill_slices = max(0, mixed_prefill_slices)
+        self.mixed_slice_tokens = max(0, mixed_slice_tokens)
+        if self.mixed_prefill_slices == 0 or self.mixed_slice_tokens == 0:
+            self.mixed_prefill_slices = self.mixed_slice_tokens = 0
+        #: Ragged mode: the engine packs against (S slices, T = capacity
+        #: tokens in all); the packed buffer holds the capacity plus one
+        #: partial q-block per slice, rounded up to the q-block.
+        self.ragged_attention = bool(ragged_attention)
+        self.ragged_buffer = 0
+        if self.ragged_attention:
+            S = max(1, ragged_max_slices or self.mixed_prefill_slices or 2)
+            cap = max(RAGGED_Q_BLOCK, ragged_token_capacity
+                      or self.mixed_prefill_slices * self.mixed_slice_tokens
+                      or 128)
+            self.mixed_prefill_slices = S
+            self.mixed_slice_tokens = cap
+            need = cap + S * (RAGGED_Q_BLOCK - 1)
+            self.ragged_buffer = -(-need // RAGGED_Q_BLOCK) * RAGGED_Q_BLOCK
         self.cache = init_kv_pages(model_cfg, num_pages, page_size,
                                    self.device)
         self._gen = torch.Generator(device=self.device)
@@ -163,6 +194,9 @@ class TorchExecutor:
     def prefill(self, tokens: List[int], start_pos: int,
                 block_table: np.ndarray, temperature: float,
                 slot: int) -> int:
+        if self.ragged_attention:
+            return self._ragged_prefill(tokens, start_pos, block_table,
+                                        temperature)
         bt = self._t(block_table, torch.int32).reshape(1, -1)
         pos = start_pos
         remaining = list(tokens)
@@ -203,37 +237,187 @@ class TorchExecutor:
         step that can run has every row inactive (writes go to page 0,
         outputs stay EOS)."""
         t0 = time.perf_counter()
-        K = self.chunk_size
-        eos = self.spec.eos_id
+        st = self._chunk_state(tokens, positions, block_tables,
+                               temperatures, budgets)
+        steps = min(self.chunk_size,
+                    int(np.max(budgets)) if len(budgets) else 0)
+        ran = self._decode_steps(st, 0, steps, None)
+        result = st["out"].cpu().numpy()
+        self._time_steps(t0, ran)
+        return result
+
+    @torch.inference_mode()
+    def mixed_chunk(self, tokens: np.ndarray, positions: np.ndarray,
+                    block_tables: np.ndarray, temperatures: np.ndarray,
+                    budgets: np.ndarray, pf: List) -> tuple:
+        """A decode chunk whose step 0 also runs prefill slices: the
+        mixed forward (bucket: ``forward_mixed``; ragged:
+        ``forward_mixed_ragged``) advances the decode rows one token and
+        writes each slice's K/V, then steps 1..K-1 are ``decode_chunk``'s
+        body with its latch semantics. ``pf``: ``(slot, tokens,
+        start_pos, block_table, temperature)`` per slice, at most
+        ``mixed_prefill_slices`` of them, each at most
+        ``mixed_slice_tokens`` tokens (ragged: all of them together).
+        Returns ``(out (B, K), pf_first (len(pf),))``; ``pf_first[i]``
+        is sampled at slice i's last token, the first generated token
+        when the slice ends its prompt."""
+        if self.mixed_prefill_slices <= 0:
+            raise RuntimeError("mixed batching disabled for this executor")
+        t0 = time.perf_counter()
+        st = self._chunk_state(tokens, positions, block_tables,
+                               temperatures, budgets)
+        active = st["budgets"] > 0
+        dec_logits, pf_logits = self._mixed_forward(
+            st["tok"], st["pos"], st["bt"], active, pf)
+        pf_first = self._sample(pf_logits, [p[4] for p in pf])
+        self._advance(st, 0, active, dec_logits)
+        steps = min(self.chunk_size,
+                    int(np.max(budgets)) if len(budgets) else 0)
+        left = ((~st["frozen"]) & (1 < st["budgets"])).any()
+        ran = 1 + self._decode_steps(st, 1, steps, left)
+        result = st["out"].cpu().numpy(), pf_first.cpu().numpy()
+        self._time_steps(t0, ran)
+        return result
+
+    # -- chunk internals -----------------------------------------------------
+
+    def _chunk_state(self, tokens, positions, block_tables, temperatures,
+                     budgets) -> dict:
+        """A chunk's device carry: the inputs, the EOS-padded output and
+        the EOS latch."""
         B = len(tokens)
-        tok = self._t(tokens, torch.int32)
-        pos = self._t(positions, torch.int32)
-        bt = self._t(block_tables, torch.int32)
-        temps = self._t(temperatures, torch.float32)
-        budgets_t = self._t(budgets, torch.int32)
-        out = torch.full((B, K), eos, dtype=torch.int32, device=self.device)
-        frozen = torch.zeros(B, dtype=torch.bool, device=self.device)
-        steps = min(K, int(np.max(budgets)) if len(budgets) else 0)
-        left_prev = None
+        return {"tok": self._t(tokens, torch.int32),
+                "pos": self._t(positions, torch.int32),
+                "bt": self._t(block_tables, torch.int32),
+                "temps": self._t(temperatures, torch.float32),
+                "budgets": self._t(budgets, torch.int32),
+                "out": torch.full((B, self.chunk_size), self.spec.eos_id,
+                                  dtype=torch.int32, device=self.device),
+                "frozen": torch.zeros(B, dtype=torch.bool,
+                                      device=self.device)}
+
+    def _advance(self, st: dict, j: int, active: torch.Tensor,
+                 logits: torch.Tensor) -> None:
+        """Sample step j and update the carry: inactive rows emit EOS and
+        keep their token; an EOS latches its row."""
+        eos = self.spec.eos_id
+        nxt = sample_token(logits, self._gen, temperature=st["temps"],
+                           top_k=self._top_k, top_p=self._top_p)
+        st["out"][:, j] = torch.where(active, nxt, torch.full_like(nxt, eos))
+        st["tok"] = torch.where(active, nxt, st["tok"])
+        st["pos"] = st["pos"] + active.to(torch.int32)
+        st["frozen"] = st["frozen"] | (active & (nxt == eos))
+
+    def _decode_steps(self, st: dict, first: int, steps: int,
+                      left_prev) -> int:
+        """Decode steps ``first..steps-1``; returns how many ran. The exit
+        test reads the previous step's "any row left" flag after the
+        next step is queued (``left_prev``: that flag for step
+        ``first``, None to run it unconditionally)."""
         ran = 0
-        for j in range(steps):
-            active = (~frozen) & (j < budgets_t)
+        for j in range(first, steps):
+            active = (~st["frozen"]) & (j < st["budgets"])
             logits = self.model.forward_decode(
-                tok, pos, self.cache, bt, active, fused=self.fused_decode)
-            nxt = sample_token(logits, self._gen, temperature=temps,
-                               top_k=self._top_k, top_p=self._top_p)
-            out[:, j] = torch.where(active, nxt, torch.full_like(nxt, eos))
-            tok = torch.where(active, nxt, tok)
-            pos = pos + active.to(torch.int32)
-            frozen = frozen | (active & (nxt == eos))
+                st["tok"], st["pos"], self.cache, st["bt"], active,
+                fused=self.fused_decode)
+            self._advance(st, j, active, logits)
             ran += 1
-            left = ((~frozen) & (j + 1 < budgets_t)).any()
+            left = ((~st["frozen"]) & (j + 1 < st["budgets"])).any()
             if left_prev is not None and not bool(left_prev):
                 break
             left_prev = left
-        result = out.cpu().numpy()
-        self._time_steps(t0, ran)
-        return result
+        return ran
+
+    def _mixed_forward(self, tok, pos, bt, active, pf: List):
+        """Step 0 of a mixed chunk: (dec_logits (B, V), slice logits at
+        each slice's last token (len(pf), V))."""
+        S, T = self.mixed_prefill_slices, self.mixed_slice_tokens
+        if not 0 < len(pf) <= S:
+            raise ValueError(f"{len(pf)} slices for a geometry of {S}")
+        if self.ragged_attention:
+            if sum(len(p[1]) for p in pf) > T:
+                raise ValueError(f"ragged pack exceeds the capacity {T}")
+            return self._ragged_forward(tok, pos, bt, active, pf)
+        if any(not 0 < len(p[1]) <= T for p in pf):
+            raise ValueError(f"a slice is empty or wider than {T}")
+        n = len(pf)
+        width = max(len(p[1]) for p in pf)
+        toks = np.zeros((n, width), np.int32)
+        poss = np.zeros((n, width), np.int32)
+        lens = np.zeros(n, np.int32)
+        bts = np.zeros((n, self.spec.max_pages_per_seq), np.int32)
+        for i, (_slot, t, sp, slice_bt, _temp) in enumerate(pf):
+            toks[i, :len(t)] = t
+            poss[i] = np.minimum(np.arange(width) + sp, sp + len(t) - 1)
+            lens[i] = len(t)
+            bts[i] = slice_bt
+        dec_logits, pf_logits = self.model.forward_mixed(
+            tok, pos, self.cache, bt, self._t(toks, torch.int32),
+            self._t(poss, torch.int32), self._t(lens, torch.int32),
+            self._t(bts, torch.int32), active, fused=self.fused_decode)
+        last = self._t(lens - 1, torch.int64)
+        return dec_logits, pf_logits[torch.arange(n, device=self.device),
+                                     last]
+
+    def _ragged_forward(self, tok, pos, bt, active, pf: List):
+        """Pack the slices into the (N,) buffer, each segment starting on
+        a q-block boundary, and run ``forward_mixed_ragged``."""
+        N, qblk = self.ragged_buffer, RAGGED_Q_BLOCK
+        n = len(pf)
+        toks = np.zeros(N, np.int32)
+        poss = np.zeros(N, np.int32)
+        qoff = np.zeros(n, np.int32)
+        qlen = np.zeros(n, np.int32)
+        bts = np.zeros((n, self.spec.max_pages_per_seq), np.int32)
+        off = 0
+        for i, (_slot, t, sp, slice_bt, _temp) in enumerate(pf):
+            L = len(t)
+            if L == 0 or off + L > N:
+                raise ValueError(f"slices do not pack into {N} rows")
+            toks[off:off + L] = t
+            poss[off:off + L] = np.arange(L) + sp
+            qoff[i], qlen[i] = off, L
+            bts[i] = slice_bt
+            off += -(-L // qblk) * qblk
+        return self.model.forward_mixed_ragged(
+            tok, pos, self.cache, bt, self._t(toks, torch.int32),
+            self._t(poss, torch.int32), self._t(qoff, torch.int32),
+            self._t(qlen, torch.int32), self._t(bts, torch.int32), active)
+
+    @torch.inference_mode()
+    def _ragged_prefill(self, tokens: List[int], start_pos: int,
+                        block_table: np.ndarray, temperature: float) -> int:
+        """Prefill through the ragged step with every decode row frozen
+        (no bucket program runs in ragged mode). The prompt is cut into
+        pieces of at most the capacity; consecutive pieces share a step
+        while they fit (all slice writes of a layer precede its attention
+        launch, so a later piece sees an earlier one's K/V). Returns the
+        token sampled after the last piece."""
+        cap, S = self.mixed_slice_tokens, self.mixed_prefill_slices
+        qblk, N = RAGGED_Q_BLOCK, self.ragged_buffer
+        B, MP = self.spec.batch_size, self.spec.max_pages_per_seq
+        pieces = [(list(tokens[o:o + cap]), start_pos + o)
+                  for o in range(0, len(tokens), cap)]
+        if not pieces:
+            return self.spec.eos_id
+        zeros = self._t(np.zeros(B, np.int32), torch.int32)
+        zbt = self._t(np.zeros((B, MP), np.int32), torch.int32)
+        frozen = torch.zeros(B, dtype=torch.bool, device=self.device)
+        i = 0
+        while i < len(pieces):
+            group, live, padded = [], 0, 0
+            while i < len(pieces) and len(group) < S:
+                n = len(pieces[i][0])
+                pad = -(-n // qblk) * qblk
+                if group and (live + n > cap or padded + pad > N):
+                    break
+                group.append(pieces[i])
+                live, padded, i = live + n, padded + pad, i + 1
+            pf = [(0, chunk, sp, block_table, temperature)
+                  for chunk, sp in group]
+            _dec, pf_logits = self._ragged_forward(zeros, zeros, zbt, frozen,
+                                                   pf)
+        return int(self._sample(pf_logits[-1:], [temperature]).item())
 
     def release_slot(self, slot: int) -> None:
         pass  # no per-slot state: block tables carry everything

@@ -23,7 +23,8 @@ import torch.nn.functional as F
 
 from llmq_tpu_torch.ops.attention import (dispatch_prefill_attention,
                                           paged_decode_step,
-                                          paged_kv_write_prefill)
+                                          paged_kv_write_prefill,
+                                          ragged_mixed_step, ragged_slices)
 from llmq_tpu_torch.ops.norms import rms_norm
 from llmq_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 
@@ -185,6 +186,68 @@ def _logits(params: Params, h: torch.Tensor) -> torch.Tensor:
     return (h @ params["embed"].T).float()
 
 
+def _qkv(h: torch.Tensor, lp: Params, layer: int, cfg: LlamaConfig,
+         cos: torch.Tensor, sin: torch.Tensor):
+    """Attention inputs of (B, T) token rows h (B, T, dim): q (B, T, H,
+    D) and k (B, T, H_kv, D) with rope applied, v (B, T, H_kv, D)."""
+    B, T = h.shape[0], h.shape[1]
+    hn = rms_norm(h, lp["attn_norm"][layer], cfg.norm_eps)
+    q = (hn @ lp["wq"][layer]).reshape(B, T, cfg.n_heads, cfg.head_dim)
+    k = (hn @ lp["wk"][layer]).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    v = (hn @ lp["wv"][layer]).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def _attn_out_mlp(h: torch.Tensor, attn: torch.Tensor, lp: Params,
+                  layer: int, cfg: LlamaConfig) -> torch.Tensor:
+    """Residual after attention (``attn`` flattened to h's shape) and
+    after the MLP."""
+    h = h + attn.reshape(*h.shape[:-1], -1) @ lp["wo"][layer]
+    hn2 = rms_norm(h, lp["mlp_norm"][layer], cfg.norm_eps)
+    return h + _mlp(hn2, lp["w_gate"][layer], lp["w_up"][layer],
+                    lp["w_down"][layer])
+
+
+def _prefill_layer(h: torch.Tensor, lp: Params, layer: int,
+                   cfg: LlamaConfig, cos, sin, kv_cache: KVCache,
+                   block_tables: torch.Tensor, starts, counts) -> torch.Tensor:
+    """One layer for right-padded chunk rows h (B, T, dim): write their
+    K/V, attend over each row's pages, MLP."""
+    q, k, v = _qkv(h, lp, layer, cfg, cos, sin)
+    k_pool, v_pool = kv_cache["k"], kv_cache["v"]
+    paged_kv_write_prefill(k_pool, v_pool, k, v, block_tables, starts,
+                           counts, layer)
+    attn = dispatch_prefill_attention(q, k_pool, v_pool, block_tables,
+                                      starts, layer)
+    return _attn_out_mlp(h, attn, lp, layer, cfg)
+
+
+def _decode_rows(positions: torch.Tensor, block_tables: torch.Tensor,
+                 page_size: int, active: Optional[torch.Tensor]):
+    """Decode rows' write page, slot and seq_len; rows with ``active ==
+    False`` write to reserved page 0."""
+    B = positions.shape[0]
+    rows = torch.arange(B, device=positions.device)
+    page_idx = (positions // page_size).clamp(
+        max=block_tables.shape[1] - 1).long()
+    page_of = block_tables[rows, page_idx]
+    if active is not None:
+        page_of = torch.where(active, page_of, torch.zeros_like(page_of))
+    return (page_of.to(torch.int32), (positions % page_size).to(torch.int32),
+            (positions + 1).to(torch.int32))
+
+
+def _decode_layer(h: torch.Tensor, lp: Params, layer: int, cfg: LlamaConfig,
+                  cos, sin, kv_cache: KVCache, block_tables: torch.Tensor,
+                  seq_lens, page_of, slot_of, fused: bool) -> torch.Tensor:
+    """One decode layer for rows h (B, dim)."""
+    q, k, v = _qkv(h[:, None], lp, layer, cfg, cos, sin)
+    attn = paged_decode_step(q[:, 0], k[:, 0], v[:, 0].contiguous(),
+                             kv_cache["k"], kv_cache["v"], block_tables,
+                             seq_lens, page_of, slot_of, layer, fused=fused)
+    return _attn_out_mlp(h, attn, lp, layer, cfg)
+
+
 def forward_prefill(params: Params, cfg: LlamaConfig,
                     tokens: torch.Tensor, positions: torch.Tensor,
                     lengths: torch.Tensor, kv_cache: KVCache,
@@ -199,7 +262,6 @@ def forward_prefill(params: Params, cfg: LlamaConfig,
     past ``lengths`` are padding, not written, and their logits are
     meaningless. Continuation chunks (turn 2+) attend to earlier pages
     through the same block tables."""
-    B, T = tokens.shape
     lp = params["layers"]
     h = params["embed"][tokens.long()].to(cfg.dtype)           # (B, T, D)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
@@ -207,24 +269,9 @@ def forward_prefill(params: Params, cfg: LlamaConfig,
     # per forward instead of two per layer.
     starts = [int(x) for x in positions[:, 0].tolist()]
     counts = [int(x) for x in lengths.tolist()]
-    k_pool, v_pool = kv_cache["k"], kv_cache["v"]
     for layer in range(cfg.n_layers):
-        hn = rms_norm(h, lp["attn_norm"][layer], cfg.norm_eps)
-        q = (hn @ lp["wq"][layer]).reshape(B, T, cfg.n_heads, cfg.head_dim)
-        k = (hn @ lp["wk"][layer]).reshape(B, T, cfg.n_kv_heads,
-                                           cfg.head_dim)
-        v = (hn @ lp["wv"][layer]).reshape(B, T, cfg.n_kv_heads,
-                                           cfg.head_dim)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-        paged_kv_write_prefill(k_pool, v_pool, k, v,
-                               block_tables, starts, counts, layer)
-        attn = dispatch_prefill_attention(q, k_pool, v_pool, block_tables,
-                                          starts, layer)
-        h = h + attn.reshape(B, T, -1) @ lp["wo"][layer]
-        hn2 = rms_norm(h, lp["mlp_norm"][layer], cfg.norm_eps)
-        h = h + _mlp(hn2, lp["w_gate"][layer], lp["w_up"][layer],
-                     lp["w_down"][layer])
+        h = _prefill_layer(h, lp, layer, cfg, cos, sin, kv_cache,
+                           block_tables, starts, counts)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _logits(params, h)
 
@@ -239,45 +286,106 @@ def forward_decode(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
     write to reserved page 0 instead; their logits are discarded by the
     caller. ``fused`` picks the decode route (ops/attention.py
     ``paged_decode_step``). Returns logits (B, V) f32."""
-    B = tokens.shape[0]
-    page_sz = kv_cache["k"].shape[2]
-    max_pages = block_tables.shape[1]
     lp = params["layers"]
     h = params["embed"][tokens.long()].to(cfg.dtype)           # (B, D)
     cos, sin = rope_cos_sin(positions[:, None], cfg.head_dim, cfg.rope_theta)
-    rows = torch.arange(B, device=tokens.device)
-    page_idx = (positions // page_sz).clamp(max=max_pages - 1).long()
-    page_of = block_tables[rows, page_idx]
-    if active is not None:
-        page_of = torch.where(active, page_of, torch.zeros_like(page_of))
-    page_of = page_of.to(torch.int32)
-    slot_of = (positions % page_sz).to(torch.int32)
-    seq_lens = (positions + 1).to(torch.int32)
-    k_pool, v_pool = kv_cache["k"], kv_cache["v"]
+    page_of, slot_of, seq_lens = _decode_rows(
+        positions, block_tables, kv_cache["k"].shape[2], active)
     for layer in range(cfg.n_layers):
-        hn = rms_norm(h, lp["attn_norm"][layer], cfg.norm_eps)
-        q = (hn @ lp["wq"][layer]).reshape(B, 1, cfg.n_heads, cfg.head_dim)
-        k = (hn @ lp["wk"][layer]).reshape(B, 1, cfg.n_kv_heads,
-                                           cfg.head_dim)
-        v = (hn @ lp["wv"][layer]).reshape(B, 1, cfg.n_kv_heads,
-                                           cfg.head_dim)
-        q = apply_rope(q, cos, sin)[:, 0]                      # (B, H, D)
-        k = apply_rope(k, cos, sin)[:, 0]                      # (B, H_kv, D)
-        v = v[:, 0].contiguous()
-        attn = paged_decode_step(q, k, v, k_pool, v_pool, block_tables,
-                                 seq_lens, page_of, slot_of, layer,
-                                 fused=fused)
-        h = h + attn.reshape(B, -1) @ lp["wo"][layer]
-        hn2 = rms_norm(h, lp["mlp_norm"][layer], cfg.norm_eps)
-        h = h + _mlp(hn2, lp["w_gate"][layer], lp["w_up"][layer],
-                     lp["w_down"][layer])
+        h = _decode_layer(h, lp, layer, cfg, cos, sin, kv_cache,
+                          block_tables, seq_lens, page_of, slot_of, fused)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _logits(params, h)
 
 
+def forward_mixed(params: Params, cfg: LlamaConfig,
+                  dec_tokens: torch.Tensor, dec_positions: torch.Tensor,
+                  kv_cache: KVCache, dec_block_tables: torch.Tensor,
+                  pf_tokens: torch.Tensor, pf_positions: torch.Tensor,
+                  pf_lengths: torch.Tensor, pf_block_tables: torch.Tensor,
+                  dec_active: Optional[torch.Tensor] = None, *,
+                  fused: bool = True):
+    """Mixed step (token-budget mixed batching): advance B decode rows
+    one token AND write S prefill slices (up to T tokens each, (S, T)
+    right-padded, contiguous positions per row) into the shared pool,
+    in one pass over the layers. Per layer the slice rows go first
+    (:func:`forward_prefill`'s ops), then the decode rows
+    (:func:`forward_decode`'s; ``dec_active`` sends inactive rows'
+    writes to page 0), each with its own matmuls. A sequence is either
+    decoding or mid-prefill, so their pages are disjoint. Returns
+    ``(dec_logits (B, V), pf_logits (S, T, V))`` f32."""
+    lp = params["layers"]
+    h_d = params["embed"][dec_tokens.long()].to(cfg.dtype)     # (B, D)
+    cos_d, sin_d = rope_cos_sin(dec_positions[:, None], cfg.head_dim,
+                                cfg.rope_theta)
+    page_of, slot_of, seq_lens = _decode_rows(
+        dec_positions, dec_block_tables, kv_cache["k"].shape[2], dec_active)
+    h_p = params["embed"][pf_tokens.long()].to(cfg.dtype)      # (S, T, D)
+    cos_p, sin_p = rope_cos_sin(pf_positions, cfg.head_dim, cfg.rope_theta)
+    starts = [int(x) for x in pf_positions[:, 0].tolist()]
+    counts = [int(x) for x in pf_lengths.tolist()]
+    for layer in range(cfg.n_layers):
+        h_p = _prefill_layer(h_p, lp, layer, cfg, cos_p, sin_p, kv_cache,
+                             pf_block_tables, starts, counts)
+        h_d = _decode_layer(h_d, lp, layer, cfg, cos_d, sin_d, kv_cache,
+                            dec_block_tables, seq_lens, page_of, slot_of,
+                            fused)
+    h_d = rms_norm(h_d, params["final_norm"], cfg.norm_eps)
+    h_p = rms_norm(h_p, params["final_norm"], cfg.norm_eps)
+    return _logits(params, h_d), _logits(params, h_p)
+
+
+def forward_mixed_ragged(params: Params, cfg: LlamaConfig,
+                         dec_tokens: torch.Tensor,
+                         dec_positions: torch.Tensor, kv_cache: KVCache,
+                         dec_block_tables: torch.Tensor,
+                         pf_tokens: torch.Tensor, pf_positions: torch.Tensor,
+                         pf_qoff: torch.Tensor, pf_qlen: torch.Tensor,
+                         pf_block_tables: torch.Tensor,
+                         dec_active: Optional[torch.Tensor] = None):
+    """:func:`forward_mixed` with the slices PACKED: pf_tokens /
+    pf_positions (N,) hold slice s at rows ``[pf_qoff[s], pf_qoff[s] +
+    pf_qlen[s])`` (offsets multiples of ``RAGGED_Q_BLOCK``; rows between
+    segments are padding; a slice with qlen 0 is unused), positions
+    contiguous per segment. The dense math runs over the N packed rows
+    as one sequence; per layer the attention of the decode rows and of
+    every packed token is one :func:`ragged_mixed_step`. The descriptors
+    are read to the host once per forward and uploaded once for all
+    layers. Returns ``(dec_logits (B, V), pf_last_logits (S, V))``, the
+    slice logits at each slice's last live token."""
+    lp = params["layers"]
+    N = pf_tokens.shape[0]
+    h_d = params["embed"][dec_tokens.long()].to(cfg.dtype)     # (B, D)
+    cos_d, sin_d = rope_cos_sin(dec_positions[:, None], cfg.head_dim,
+                                cfg.rope_theta)
+    page_of, _slot_of, seq_lens = _decode_rows(
+        dec_positions, dec_block_tables, kv_cache["k"].shape[2], dec_active)
+    first = pf_qoff.long().clamp(0, N - 1)
+    qoff, qlen, qstart = torch.stack(
+        [pf_qoff.long(), pf_qlen.long(), pf_positions.long()[first]]).tolist()
+    slices = ragged_slices(dec_block_tables, seq_lens, pf_block_tables,
+                           qoff, qlen, qstart)
+    h_p = params["embed"][pf_tokens.long()].to(cfg.dtype)[None]  # (1, N, D)
+    cos_p, sin_p = rope_cos_sin(pf_positions[None], cfg.head_dim,
+                                cfg.rope_theta)
+    for layer in range(cfg.n_layers):
+        q_p, k_p, v_p = _qkv(h_p, lp, layer, cfg, cos_p, sin_p)
+        q_d, k_d, v_d = _qkv(h_d[:, None], lp, layer, cfg, cos_d, sin_d)
+        attn_d, attn_p = ragged_mixed_step(
+            q_d[:, 0], k_d[:, 0], v_d[:, 0].contiguous(), q_p[0], k_p[0],
+            v_p[0], kv_cache["k"], kv_cache["v"], page_of, slices, layer)
+        h_p = _attn_out_mlp(h_p, attn_p, lp, layer, cfg)
+        h_d = _attn_out_mlp(h_d, attn_d, lp, layer, cfg)
+    last = torch.tensor([min(max(o + max(n, 1) - 1, 0), N - 1)
+                         for o, n in zip(qoff, qlen)], device=h_p.device)
+    h_d = rms_norm(h_d, params["final_norm"], cfg.norm_eps)
+    h_last = rms_norm(h_p[0, last], params["final_norm"], cfg.norm_eps)
+    return _logits(params, h_d), _logits(params, h_last)
+
+
 class Llama(nn.Module):
     """The model as a module: holds the parameter tree (JAX layout) as
-    non-trainable parameters and exposes the two forwards."""
+    non-trainable parameters and exposes the forwards."""
 
     def __init__(self, cfg: LlamaConfig, params: Params) -> None:
         super().__init__()
@@ -308,6 +416,25 @@ class Llama(nn.Module):
                        active=None, *, fused: bool = True) -> torch.Tensor:
         return forward_decode(self.params, self.cfg, tokens, positions,
                               kv_cache, block_tables, active, fused=fused)
+
+    def forward_mixed(self, dec_tokens, dec_positions, kv_cache,
+                      dec_block_tables, pf_tokens, pf_positions, pf_lengths,
+                      pf_block_tables, dec_active=None, *,
+                      fused: bool = True):
+        return forward_mixed(self.params, self.cfg, dec_tokens,
+                             dec_positions, kv_cache, dec_block_tables,
+                             pf_tokens, pf_positions, pf_lengths,
+                             pf_block_tables, dec_active, fused=fused)
+
+    def forward_mixed_ragged(self, dec_tokens, dec_positions, kv_cache,
+                             dec_block_tables, pf_tokens, pf_positions,
+                             pf_qoff, pf_qlen, pf_block_tables,
+                             dec_active=None):
+        return forward_mixed_ragged(self.params, self.cfg, dec_tokens,
+                                    dec_positions, kv_cache,
+                                    dec_block_tables, pf_tokens,
+                                    pf_positions, pf_qoff, pf_qlen,
+                                    pf_block_tables, dec_active)
 
     def forward(self, tokens, positions, kv_cache, block_tables,
                 active=None) -> torch.Tensor:

@@ -8,10 +8,11 @@ Plain routes (the semantics the kernels are held to):
 :func:`blockwise_prefill_attention`.
 
 Routes that choose a kernel or its plain twin:
-:func:`paged_kv_write_prefill`, :func:`dispatch_prefill_attention` and
-:func:`paged_decode_step`. The choice is the tensors' device and nothing
-else: a CUDA tensor launches the hand-written kernel
-(``ops/kernels.py``), a CPU tensor takes the kernel's plain twin.
+:func:`paged_kv_write_prefill`, :func:`dispatch_prefill_attention`,
+:func:`paged_decode_step` and :func:`ragged_mixed_step`. The choice is
+the tensors' device and nothing else: a CUDA tensor launches the
+hand-written kernel (``ops/kernels.py``), a CPU tensor takes the
+kernel's plain twin.
 
 Pools are flat ``(L, P, page_size, H_kv·D)``; page 0 is the null page.
 Writes update the pools in place — the port's counterpart of JAX's
@@ -20,7 +21,8 @@ buffer donation.
 
 from __future__ import annotations
 
-from typing import List
+from dataclasses import dataclass
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -99,8 +101,9 @@ def paged_kv_write(k_pool: torch.Tensor, v_pool: torch.Tensor,
     N = k_new.shape[0]
     page = page_of.long()
     slot = slot_of.long()
-    k_pool[layer, page, slot] = k_new.reshape(N, -1).to(k_pool.dtype)
-    v_pool[layer, page, slot] = v_new.reshape(N, -1).to(v_pool.dtype)
+    GD = k_pool.shape[-1]
+    k_pool[layer, page, slot] = k_new.reshape(N, GD).to(k_pool.dtype)
+    v_pool[layer, page, slot] = v_new.reshape(N, GD).to(v_pool.dtype)
 
 
 def blockwise_prefill_attention(q: torch.Tensor, k_hist: torch.Tensor,
@@ -194,9 +197,10 @@ def paged_decode_step(q: torch.Tensor, k_new: torch.Tensor,
     """One decode layer's KV write + attention; pools update in place.
 
     ``fused=True``: the fused write+attention kernel. ``fused=False``:
-    the split route, the row-write kernel then pooled attention. Both
-    routes give the same attention for live rows (an inactive row has
-    ``page_of == 0`` and its output is discarded). Returns (B, H, D).
+    the split route, the row-write kernel then the decode-attention
+    kernel. Both routes give the same attention for live rows (an
+    inactive row has ``page_of == 0`` and its output is discarded).
+    Returns (B, H, D).
     """
     if fused:
         return kernels.fused_decode(q, k_new, v_new, k_pool, v_pool,
@@ -204,5 +208,82 @@ def paged_decode_step(q: torch.Tensor, k_new: torch.Tensor,
     N = k_new.shape[0]
     kernels.kv_cache_write(k_pool, v_pool, k_new.reshape(N, -1),
                            v_new.reshape(N, -1), page_of, slot_of, layer)
-    return paged_decode_attention_pooled(q, k_pool, v_pool, block_tables,
-                                         seq_lens, layer)
+    return kernels.paged_decode_attention(q, k_pool, v_pool, block_tables,
+                                          seq_lens, layer)
+
+
+# -- ragged mixed prefill+decode ----------------------------------------------
+#
+# One attention launch per layer for a whole mixed step: B decode rows
+# and up to S prefill slices of variable length packed into one token
+# buffer, each slice's segment starting on a multiple of RAGGED_Q_BLOCK
+# so that every q-block of the kernel has one owner.
+
+#: Packed slice tokens per q-block of the ragged kernel; segments start
+#: on multiples of it.
+RAGGED_Q_BLOCK = 8
+
+
+@dataclass(frozen=True)
+class RaggedSlices:
+    """The slice descriptors of one ragged dispatch, built once and read
+    by every layer: host ints for the per-slice write launches, and the
+    same descriptors on the device for the attention kernel."""
+
+    qoff: List[int]              # packed row of each slice's first token
+    qlen: List[int]              # live tokens per slice (0: unused row)
+    qstart: List[int]            # absolute position of the first token
+    block_tables: torch.Tensor   # (B+S, MP) int32: decode rows, slices
+    seq_lens: torch.Tensor       # (B+S,) int32: pos+1, then qstart+qlen
+    meta: torch.Tensor           # (3, S) int32: qoff, qlen, qstart
+
+
+def ragged_slices(dec_block_tables: torch.Tensor,
+                  dec_seq_lens: torch.Tensor,
+                  pf_block_tables: torch.Tensor, qoff: Sequence[int],
+                  qlen: Sequence[int],
+                  qstart: Sequence[int]) -> RaggedSlices:
+    """Descriptors for :func:`ragged_mixed_step`: one upload of the
+    (3, S) host descriptors, and the decode rows' and slices' block
+    tables and lengths concatenated on the device."""
+    qoff, qlen, qstart = ([int(x) for x in v] for v in (qoff, qlen, qstart))
+    dev = dec_block_tables.device
+    meta = torch.tensor([qoff, qlen, qstart], dtype=torch.int32, device=dev)
+    bt = torch.cat([dec_block_tables.to(torch.int32),
+                    pf_block_tables.to(torch.int32)])
+    sl = torch.cat([dec_seq_lens.to(torch.int32), meta[2] + meta[1]])
+    return RaggedSlices(qoff, qlen, qstart, bt.contiguous(), sl.contiguous(),
+                        meta)
+
+
+def ragged_mixed_step(q_dec: torch.Tensor, k_new: torch.Tensor,
+                      v_new: torch.Tensor, q_pf: torch.Tensor,
+                      k_pf: torch.Tensor, v_pf: torch.Tensor,
+                      k_pool: torch.Tensor, v_pool: torch.Tensor,
+                      page_of: torch.Tensor, slices: RaggedSlices,
+                      layer: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One mixed layer, ragged: write each live slice's K/V straight from
+    its packed rows (one prefill-write launch per slice; the rows
+    ``k_pf[qoff:qoff+qlen]`` are a contiguous view of the (N, GD)
+    buffer), then ONE ragged attention launch for the decode rows (their
+    K/V written in place at ``page_of``) and every packed slice token.
+    An unused slice row (qlen 0) writes nothing. The writes precede the
+    attention on the stream, so a slice sees its own fresh K/V and that
+    of an earlier piece of the same prompt in the same step. Returns
+    ``(attn_dec (B, H, D), attn_pf (N, H, D))``; pools update in
+    place."""
+    B = q_dec.shape[0]
+    N = q_pf.shape[0]
+    GD = k_pool.shape[3]
+    k_rows, v_rows = k_pf.reshape(N, GD), v_pf.reshape(N, GD)
+    for s, (off, n, start) in enumerate(zip(slices.qoff, slices.qlen,
+                                            slices.qstart)):
+        if n > 0:
+            kernels.kv_prefill_write(k_pool, v_pool, k_rows[off:off + n],
+                                     v_rows[off:off + n],
+                                     slices.block_tables[B + s], start, n,
+                                     layer)
+    return kernels.ragged_mixed_attention(
+        q_dec, k_new, v_new, q_pf, k_pool, v_pool, slices.block_tables,
+        slices.seq_lens, page_of, slices.meta[0], slices.meta[1],
+        slices.meta[2], layer)

@@ -1,16 +1,18 @@
 """The port's hand-written Hopper kernels: build, load, wrappers, twins.
 
-Four CUDA C++ kernels (``llmq_tpu_torch/csrc/*.cu``) replace the four
-Pallas kernels on the serving path of ``llmq_tpu``:
+Six CUDA C++ kernels (``llmq_tpu_torch/csrc/*.cu``) replace six
+Pallas kernels of ``llmq_tpu``:
 
-=====================  =================================================
-wrapper                replaces (``llmq_tpu/ops/pallas/``)
-=====================  =================================================
-:func:`fused_decode`       ``fused_decode.py`` fused_decode_attention_pallas
-:func:`kv_prefill_write`   ``kv_write.py`` kv_prefill_write_pallas
-:func:`prefill_attention`  ``prefill_attention.py`` paged_prefill_attention_pallas
-:func:`kv_cache_write`     ``kv_write.py`` kv_cache_write_pallas
-=====================  =================================================
+=============================  =========================================
+wrapper                        replaces (``llmq_tpu/ops/pallas/``)
+=============================  =========================================
+:func:`fused_decode`           ``fused_decode.py`` fused_decode_attention_pallas
+:func:`kv_prefill_write`       ``kv_write.py`` kv_prefill_write_pallas
+:func:`prefill_attention`      ``prefill_attention.py`` paged_prefill_attention_pallas
+:func:`kv_cache_write`         ``kv_write.py`` kv_cache_write_pallas
+:func:`ragged_mixed_attention` ``ragged_paged_attention.py`` ragged_mixed_attention_pallas
+:func:`paged_decode_attention` ``paged_attention.py`` paged_decode_attention_pallas
+=============================  =========================================
 
 Each source compiles with its own ``nvcc`` (all started together) into a
 shared library with a plain C interface, loaded with ``ctypes``, at the
@@ -46,6 +48,8 @@ SOURCES = {
     "fused_decode": "fused_decode.cu",
     "kv_write": "kv_write.cu",
     "prefill_attention": "prefill_attention.cu",
+    "paged_decode": "paged_decode.cu",
+    "ragged_attention": "ragged_attention.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -67,12 +71,20 @@ _SIGNATURES = {
     "prefill_attention": {
         "llmq_prefill_attention": [_P] * 5 + [_I] * 9 + [_F, _P],
     },
+    "paged_decode": {
+        "llmq_paged_decode": [_P] * 6 + [_I] * 8 + [_F, _P],
+    },
+    "ragged_attention": {
+        "llmq_ragged_mixed_attention": [_P] * 14 + [_I] * 10 + [_F, _P],
+    },
 }
 
 #: Launches per kernel, counted by the wrappers where they launch and
 #: nowhere else. ``reset_launches()`` zeroes them.
 LAUNCHES: Dict[str, int] = {"fused_decode": 0, "kv_prefill_write": 0,
-                            "prefill_attention": 0, "kv_cache_write": 0}
+                            "prefill_attention": 0, "kv_cache_write": 0,
+                            "ragged_mixed_attention": 0,
+                            "paged_decode_attention": 0}
 
 #: nvcc's stderr per library from the last build (ptxas register and
 #: shared-memory report).
@@ -98,7 +110,10 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC_DIR / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    # The shared headers count too: a header edit rebuilds every source.
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -196,9 +211,9 @@ def _check_pools(k_pool: torch.Tensor, v_pool: torch.Tensor,
 
 
 def _check_heads(H: int, Hkv: int, D: int) -> None:
-    if D not in (64, 128) or H % Hkv or H // Hkv not in (2, 4, 8):
+    if D not in (64, 128) or H % Hkv or H // Hkv not in (1, 2, 4, 8):
         raise ValueError(f"no kernel instantiation for H={H} H_kv={Hkv} "
-                         f"D={D} (need D in 64/128, H/H_kv in 2/4/8)")
+                         f"D={D} (need D in 64/128, H/H_kv in 1/2/4/8)")
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -443,3 +458,157 @@ def kv_cache_write_plain(k_pool: torch.Tensor, v_pool: torch.Tensor,
 
     paged_kv_write(k_pool, v_pool, k_new, v_new, page_of, slot_of, layer)
 
+
+
+# -- kernel 6: ragged mixed attention -----------------------------------------
+
+def ragged_mixed_attention(q_dec: torch.Tensor, k_new: torch.Tensor,
+                           v_new: torch.Tensor, q_pf: torch.Tensor,
+                           k_pool: torch.Tensor, v_pool: torch.Tensor,
+                           block_tables: torch.Tensor, seq_lens: torch.Tensor,
+                           write_page: torch.Tensor, pf_qoff: torch.Tensor,
+                           pf_qlen: torch.Tensor, pf_qstart: torch.Tensor,
+                           layer: int):
+    """One launch for a mixed step's attention: the B decode rows as
+    :func:`fused_decode` does them (their K/V written in place at
+    ``write_page``), AND causal paged attention for every token of the
+    S prefill slices packed into q_pf (N, H, D). Slice s occupies rows
+    ``[pf_qoff[s], pf_qoff[s] + pf_qlen[s])`` (offsets multiples of 8,
+    N a multiple of 8), its first token at absolute position
+    ``pf_qstart[s]``; its K/V must already be in its pages.
+    ``block_tables`` (B+S, MP) and ``seq_lens`` (B+S,) hold the decode
+    rows, then the slices. Returns ``(out_dec (B, H, D), out_pf (N, H,
+    D))``; packed rows outside every slice come out as zeros.
+
+    Replaces ``ragged_mixed_attention_pallas`` (llmq_tpu/ops/pallas/
+    ragged_paged_attention.py). Decode blocks are bound by bytes, slice
+    blocks by bytes or operations with the history's length
+    (csrc/ragged_attention.cu)."""
+    if _on_cpu(q_dec, k_new, v_new, q_pf, k_pool, v_pool, block_tables,
+               seq_lens, write_page, pf_qoff, pf_qlen, pf_qstart):
+        return ragged_mixed_attention_plain(
+            q_dec, k_new, v_new, q_pf, k_pool, v_pool, block_tables,
+            seq_lens, write_page, pf_qoff, pf_qlen, pf_qstart, layer)
+    B, H, D = q_dec.shape
+    N = q_pf.shape[0]
+    S = pf_qoff.shape[0]
+    _check_pools(k_pool, v_pool, layer)
+    L, P, ps, GD = k_pool.shape
+    Hkv = GD // D
+    _check_heads(H, Hkv, D)
+    if Hkv * D != GD:
+        raise ValueError(f"pool GD={GD} != H_kv*D for D={D}")
+    if N % 8:
+        raise ValueError(f"packed buffer N={N} must be a multiple of 8")
+    MP = block_tables.shape[1] if block_tables.dim() == 2 else -1
+    _check(q_dec, "q_dec", torch.bfloat16, (B, H, D), align=8)
+    _check(q_pf, "q_pf", torch.bfloat16, (N, H, D))
+    _check(k_new, "k_new", torch.bfloat16, align=8)
+    _check(v_new, "v_new", torch.bfloat16, align=8)
+    if k_new.numel() != B * GD or v_new.numel() != B * GD:
+        raise ValueError(f"k_new/v_new must hold (B, GD) = ({B}, {GD})")
+    _check(block_tables, "block_tables", torch.int32, (B + S, MP))
+    _check(seq_lens, "seq_lens", torch.int32, (B + S,))
+    _check(write_page, "write_page", torch.int32, (B,))
+    for t, name in ((pf_qoff, "pf_qoff"), (pf_qlen, "pf_qlen"),
+                    (pf_qstart, "pf_qstart")):
+        _check(t, name, torch.int32, (S,))
+    out_dec = torch.empty_like(q_dec)
+    out_pf = torch.empty_like(q_pf)
+    rc = _fn("ragged_attention", "llmq_ragged_mixed_attention")(
+        q_dec.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+        q_pf.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        block_tables.data_ptr(), seq_lens.data_ptr(), write_page.data_ptr(),
+        pf_qoff.data_ptr(), pf_qlen.data_ptr(), pf_qstart.data_ptr(),
+        out_dec.data_ptr(), out_pf.data_ptr(), B, S, N, H, Hkv, D, layer, P,
+        ps, MP, D ** -0.5, _stream(q_dec))
+    _raise_on(rc, "ragged_mixed_attention")
+    LAUNCHES["ragged_mixed_attention"] += 1
+    return out_dec, out_pf
+
+
+def ragged_mixed_attention_plain(q_dec: torch.Tensor, k_new: torch.Tensor,
+                                 v_new: torch.Tensor, q_pf: torch.Tensor,
+                                 k_pool: torch.Tensor, v_pool: torch.Tensor,
+                                 block_tables: torch.Tensor,
+                                 seq_lens: torch.Tensor,
+                                 write_page: torch.Tensor,
+                                 pf_qoff: torch.Tensor, pf_qlen: torch.Tensor,
+                                 pf_qstart: torch.Tensor, layer: int):
+    """Plain twin of :func:`ragged_mixed_attention`: the decode half as
+    :func:`fused_decode_plain`, then each live slice's causal attention
+    over its gathered pages (:func:`prefill_attention_plain`); packed
+    rows outside every slice are zeros."""
+    B = q_dec.shape[0]
+    out_dec = fused_decode_plain(q_dec, k_new, v_new, k_pool, v_pool,
+                                 block_tables[:B], seq_lens[:B], write_page,
+                                 layer)
+    out_pf = torch.zeros_like(q_pf)
+    for s, (off, n, start) in enumerate(zip(pf_qoff.tolist(),
+                                            pf_qlen.tolist(),
+                                            pf_qstart.tolist())):
+        if n > 0:
+            out_pf[off:off + n] = prefill_attention_plain(
+                q_pf[off:off + n], k_pool, v_pool, block_tables[B + s],
+                start, layer)
+    return out_dec, out_pf
+
+
+# -- kernel 8: paged decode attention -----------------------------------------
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, block_tables: torch.Tensor,
+                           seq_lens: torch.Tensor,
+                           layer: int = 0) -> torch.Tensor:
+    """Decode attention without a write: q (B, H, D) over positions
+    ``[0, seq_lens[b])`` of layer ``layer`` read through ``block_tables``
+    (B, MP). Pools are ``(L, P, ps, GD)``, or one layer ``(P, ps, GD)``.
+    A row with ``seq_len == 0`` returns zeros. Returns (B, H, D).
+
+    Replaces ``paged_decode_attention_pallas`` (llmq_tpu/ops/pallas/
+    paged_attention.py), the attention half of the split decode route.
+    Bound by bytes: each cached K/V byte is read once for all n_rep
+    query heads of its group (csrc/paged_decode.cu)."""
+    if k_pool.dim() == 3:
+        k_pool, v_pool = k_pool[None], v_pool[None]
+    if _on_cpu(q, k_pool, v_pool, block_tables, seq_lens):
+        return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
+                                            seq_lens, layer)
+    B, H, D = q.shape
+    _check_pools(k_pool, v_pool, layer)
+    L, P, ps, GD = k_pool.shape
+    Hkv = GD // D
+    _check_heads(H, Hkv, D)
+    if Hkv * D != GD:
+        raise ValueError(f"pool GD={GD} != H_kv*D for D={D}")
+    MP = block_tables.shape[1] if block_tables.dim() == 2 else -1
+    _check(q, "q", torch.bfloat16, (B, H, D), align=8)
+    _check(block_tables, "block_tables", torch.int32, (B, MP))
+    _check(seq_lens, "seq_lens", torch.int32, (B,))
+    out = torch.empty_like(q)
+    rc = _fn("paged_decode", "llmq_paged_decode")(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), B, H,
+        Hkv, D, layer, P, ps, MP, D ** -0.5, _stream(q))
+    _raise_on(rc, "paged_decode_attention")
+    LAUNCHES["paged_decode_attention"] += 1
+    return out
+
+
+def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
+                                 v_pool: torch.Tensor,
+                                 block_tables: torch.Tensor,
+                                 seq_lens: torch.Tensor,
+                                 layer: int = 0) -> torch.Tensor:
+    """Plain twin of :func:`paged_decode_attention`: the pooled gather
+    and softmax (``ops/attention.paged_decode_attention_pooled``), with
+    zeros for an empty row as the kernel gives."""
+    from llmq_tpu_torch.ops.attention import paged_decode_attention_pooled
+
+    if k_pool.dim() == 3:
+        k_pool, v_pool = k_pool[None], v_pool[None]
+    S = block_tables.shape[1] * k_pool.shape[2]
+    out = paged_decode_attention_pooled(q, k_pool, v_pool, block_tables,
+                                        seq_lens.clamp(max=S), layer)
+    return torch.where((seq_lens > 0)[:, None, None], out,
+                       torch.zeros_like(out))

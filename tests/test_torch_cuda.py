@@ -109,3 +109,140 @@ def test_wrappers_reject_bad_inputs_on_cuda():
     q = _rand((4, 6, 64), gen)                       # n_rep 3: no kernel
     with pytest.raises(ValueError):
         kernels.prefill_attention(q, kp, vp, idx.int(), 0, 0)
+
+
+def _ragged_case(gen, H_=H, D_=D):
+    """Decode rows (live across page edges, one inactive writing page 0,
+    one empty) and three slices: a fresh one, one over 37 positions of
+    history that crosses pages, and an unused row; packed into N=48."""
+    hkv = HKV
+    gd = hkv * D_
+    kp, vp = _rand((L, P, PS, gd), gen), _rand((L, P, PS, gd), gen)
+    dec_lens = [1, 17, 40, 5, 0]
+    B = len(dec_lens)
+    slices = [(0, 13), (37, 20), (0, 0)]          # (qstart, qlen)
+    bt = torch.zeros((B + len(slices), MP), dtype=torch.int32)
+    nxt = 1
+    for b, n in enumerate(dec_lens[:3]):
+        pages = -(-n // PS)
+        bt[b, :pages] = torch.arange(nxt, nxt + pages, dtype=torch.int32)
+        nxt += pages
+    for s, (st, n) in enumerate(slices):
+        pages = -(-(st + n) // PS)
+        bt[B + s, :pages] = torch.arange(nxt, nxt + pages, dtype=torch.int32)
+        nxt += pages
+    sl = torch.tensor(dec_lens + [st + n for st, n in slices],
+                      dtype=torch.int32)
+    wp = torch.zeros(B, dtype=torch.int32)
+    for b in range(3):
+        wp[b] = bt[b, (dec_lens[b] - 1) // PS]
+    qoff = torch.tensor([0, 16, 0], dtype=torch.int32)
+    qlen = torch.tensor([n for _, n in slices], dtype=torch.int32)
+    qstart = torch.tensor([st for st, _ in slices], dtype=torch.int32)
+    N = 48
+    q_dec = _rand((B, H_, D_), gen)
+    kn, vn = _rand((B, hkv, D_), gen), _rand((B, hkv, D_), gen)
+    q_pf = _rand((N, H_, D_), gen)
+    dev = [t.cuda() for t in (bt, sl, wp, qoff, qlen, qstart)]
+    return (q_dec, kn, vn, q_pf, kp, vp, *dev), B
+
+
+@needs_cuda
+def test_ragged_mixed_attention_matches_twin():
+    """Kernel 6: decode rows and packed slices in one launch against the
+    twin; pools bit-exact, rows outside the slices zero."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    (q_dec, kn, vn, q_pf, kp, vp, bt, sl, wp, qoff, qlen,
+     qstart), B = _ragged_case(gen)
+    k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    before = kernels.LAUNCHES["ragged_mixed_attention"]
+    a_d, a_p = kernels.ragged_mixed_attention(
+        q_dec, kn, vn, q_pf, k1, v1, bt, sl, wp, qoff, qlen, qstart, 1)
+    b_d, b_p = kernels.ragged_mixed_attention_plain(
+        q_dec, kn, vn, q_pf, k2, v2, bt, sl, wp, qoff, qlen, qstart, 1)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ragged_mixed_attention"] == before + 1
+    assert torch.isfinite(a_d).all() and torch.isfinite(a_p).all()
+    assert (a_d[:4].float() - b_d[:4].float()).abs().max().item() <= ATOL
+    assert torch.all(a_d[4] == 0)
+    live = torch.zeros(q_pf.shape[0], dtype=torch.bool, device="cuda")
+    live[0:13] = True
+    live[16:36] = True
+    assert (a_p[live].float() - b_p[live].float()).abs().max().item() <= ATOL
+    assert torch.all(a_p[~live] == 0)
+    assert torch.equal(k1, k2) and torch.equal(v1, v2)
+
+
+@needs_cuda
+def test_paged_decode_attention_matches_twin():
+    """Kernel 8 on the stacked pool and on the one-layer form; an empty
+    row returns zeros."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    (q_dec, _kn, _vn, _q, kp, vp, bt, sl, _wp, *_), B = _ragged_case(gen)
+    bt, sl = bt[:B].contiguous(), sl[:B].contiguous()
+    before = kernels.LAUNCHES["paged_decode_attention"]
+    a = kernels.paged_decode_attention(q_dec, kp, vp, bt, sl, 1)
+    b = kernels.paged_decode_attention_plain(q_dec, kp, vp, bt, sl, 1)
+    c = kernels.paged_decode_attention(q_dec, kp[1], vp[1], bt, sl)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["paged_decode_attention"] == before + 2
+    assert (a[:4].float() - b[:4].float()).abs().max().item() <= ATOL
+    assert torch.all(a[4] == 0) and torch.equal(a, c)
+
+
+@needs_cuda
+def test_split_route_runs_both_kernels():
+    """paged_decode_step(fused=False) on the card: the row-write kernel
+    and the decode-attention kernel, agreeing with the fused route."""
+    from llmq_tpu_torch.ops.attention import paged_decode_step
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    (q_dec, kn, vn, _q, kp, vp, bt, sl, wp, *_), B = _ragged_case(gen)
+    bt, sl = bt[:B].contiguous(), sl[:B].contiguous()
+    slot = ((sl - 1).clamp(min=0) % PS).to(torch.int32)
+    k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    before = dict(kernels.LAUNCHES)
+    a = paged_decode_step(q_dec[:4], kn[:4], vn[:4], k1, v1, bt[:4], sl[:4],
+                          wp[:4], slot[:4], 0, fused=True)
+    b = paged_decode_step(q_dec[:4], kn[:4], vn[:4], k2, v2, bt[:4], sl[:4],
+                          wp[:4], slot[:4], 0, fused=False)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["paged_decode_attention"] == \
+        before["paged_decode_attention"] + 1
+    assert kernels.LAUNCHES["kv_cache_write"] == before["kv_cache_write"] + 1
+    assert (a[:3].float() - b[:3].float()).abs().max().item() <= ATOL
+    assert torch.equal(k1, k2) and torch.equal(v1, v2)
+
+
+@needs_cuda
+def test_one_query_head_per_kv_head():
+    """n_rep = 1 (H == H_kv) is instantiated: kernel 6 against its twin."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    (q_dec, kn, vn, q_pf, kp, vp, bt, sl, wp, qoff, qlen,
+     qstart), B = _ragged_case(gen, H_=HKV)
+    k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    a_d, a_p = kernels.ragged_mixed_attention(
+        q_dec, kn, vn, q_pf, k1, v1, bt, sl, wp, qoff, qlen, qstart, 0)
+    b_d, b_p = kernels.ragged_mixed_attention_plain(
+        q_dec, kn, vn, q_pf, k2, v2, bt, sl, wp, qoff, qlen, qstart, 0)
+    torch.cuda.synchronize()
+    assert (a_d[:4].float() - b_d[:4].float()).abs().max().item() <= ATOL
+    assert (a_p.float() - b_p.float()).abs().max().item() <= ATOL
+    assert torch.equal(k1, k2) and torch.equal(v1, v2)
+
+
+@needs_cuda
+def test_new_wrappers_raise_on_uninstantiated_geometry():
+    """D=32 has no instantiation: both new wrappers raise on the card
+    (nothing falls back to a twin) and count no launch."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    (q_dec, kn, vn, q_pf, kp, vp, bt, sl, wp, qoff, qlen,
+     qstart), B = _ragged_case(gen, H_=2 * HKV * 4, D_=32)
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="no kernel instantiation"):
+        kernels.ragged_mixed_attention(q_dec, kn, vn, q_pf, kp, vp, bt, sl,
+                                       wp, qoff, qlen, qstart, 0)
+    with pytest.raises(ValueError, match="no kernel instantiation"):
+        kernels.paged_decode_attention(q_dec, kp, vp, bt[:B].contiguous(),
+                                       sl[:B].contiguous(), 0)
+    assert kernels.LAUNCHES == before

@@ -8,6 +8,11 @@ then a REALTIME arrival). The JAX engine runs with mixed batching, the
 prefix cache and the async pipeline off and one-prompt prefill waves.
 Greedy token streams must be identical (f32, exact), and so must the
 turn-2 ``cached_tokens`` and every ``finish_reason``.
+
+A second workload runs with token-budget mixed batching on, in bucket
+mode and in ragged mode, against JAX engines with the same settings:
+arrivals while others decode, a prompt of ~10 ragged capacities and a
+two-turn conversation; streams must match JAX and each other.
 """
 
 import numpy as np
@@ -292,3 +297,134 @@ def test_executor_times_decode_steps_after_the_first_call():
     assert ex.step_ms is None
     ex.decode_chunk(*args, np.full(B, 2, np.int32))
     assert ex.step_ms is not None and ex.step_ms > 0
+
+
+# -- token-budget mixed batching, bucket and ragged ----------------------------
+
+MIXED_GEOM = dict(batch_size=3, page_size=16, num_pages=96,
+                  prefill_buckets=[16, 64], eos_id=2, chunk_size=4,
+                  mixed_prefill_slices=2, mixed_slice_tokens=8,
+                  ragged_token_capacity=16, ragged_max_slices=2)
+MIXED_WAVE = [("hello world this is a long prompt " * 3, "normal"),
+              ("short", "realtime"),
+              ("medium sized prompt here", "low"),
+              ("another quite long prompt for slicing " * 2, "high"),
+              ("fifth request", "normal"),
+              ("x" * 150, "low")]     # ~10x the ragged capacity of 16
+
+
+def _mixed_workload(submit, step, run_until_idle, make_req):
+    """Arrivals while earlier requests decode (two engine steps apart),
+    a prompt far beyond the ragged capacity, then a two-turn
+    conversation whose second turn is a continuation prefill."""
+    handles = {}
+    for i, (text, prio) in enumerate(MIXED_WAVE):
+        handles[f"w{i}"] = submit(make_req(f"w{i}", text, prio))
+        step()
+        step()
+    run_until_idle()
+    for turn, text in enumerate(("Hello there, conversation.",
+                                 " And a second turn, a little longer.")):
+        handles[f"t{turn}"] = submit(make_req(f"t{turn}", text, "high",
+                                              conversation_id="c1"))
+        run_until_idle()
+    return {rid: h.result for rid, h in handles.items()}
+
+
+def _jax_mixed(ragged: bool):
+    from llmq_tpu.core.config import MixedBatchConfig as JMixed
+
+    jcfg = J.get_config("llama3-tiny", dtype=jnp.float32, **KW)
+    jparams = J.init_params(jax.random.PRNGKey(0), jcfg)
+    jex = JaxExecutor(jcfg, jparams, ragged_attention=ragged, **MIXED_GEOM)
+    jeng = JEngine(jex, JTok(), enable_metrics=False,
+                   max_decode_steps=MAX_STEPS,
+                   mixed_batch=JMixed(enabled=True, prefill_token_budget=16,
+                                      max_slices=2))
+    res = _mixed_workload(
+        jeng.submit, jeng.step, jeng.run_until_idle,
+        lambda rid, text, prio, conversation_id="": JGenRequest(
+            id=rid, prompt=text, priority=JPriority.from_name(prio),
+            conversation_id=conversation_id, max_new_tokens=10))
+    return res, jeng.mixed_steps
+
+
+def _torch_mixed(ragged: bool, mixed: bool = True):
+    from llmq_tpu_torch.core.config import MixedBatchConfig
+
+    jcfg = J.get_config("llama3-tiny", dtype=jnp.float32, **KW)
+    tparams = T.params_from_jax(jax.tree_util.tree_map(
+        np.asarray, J.init_params(jax.random.PRNGKey(0), jcfg)), device="cpu")
+    tcfg = T.get_config("llama3-tiny", dtype=torch.float32, **KW)
+    geom = dict(MIXED_GEOM)
+    if not (mixed or ragged):
+        geom.update(mixed_prefill_slices=0, mixed_slice_tokens=0)
+    teng = InferenceEngine(
+        TorchExecutor(tcfg, tparams, device="cpu", ragged_attention=ragged,
+                      **geom),
+        ByteTokenizer(), max_decode_steps=MAX_STEPS,
+        mixed_batch=MixedBatchConfig(enabled=mixed, prefill_token_budget=16,
+                                     max_slices=2))
+    res = _mixed_workload(
+        teng.submit, teng.step, teng.run_until_idle,
+        lambda rid, text, prio, conversation_id="": GenRequest(
+            id=rid, prompt=text, priority=Priority.from_name(prio),
+            conversation_id=conversation_id, max_new_tokens=10))
+    return res, teng
+
+
+@pytest.fixture(scope="module")
+def mixed_runs():
+    return {"unfused": _torch_mixed(ragged=False, mixed=False)[0],
+            "bucket": _torch_mixed(ragged=False),
+            "ragged": _torch_mixed(ragged=True)}
+
+
+def _same_streams(a, b):
+    assert set(a) == set(b)
+    for rid in a:
+        assert a[rid].tokens == b[rid].tokens, rid
+        assert a[rid].finish_reason == b[rid].finish_reason, rid
+        assert a[rid].cached_tokens == b[rid].cached_tokens, rid
+
+
+@pytest.mark.parametrize("mode", ["bucket", "ragged"])
+def test_mixed_engine_streams_match_jax(mixed_runs, mode):
+    """Greedy streams token for token against the JAX engine built with
+    the same mixed_batch / ragged_attention settings (JAX's ragged
+    program takes its plain route on the CPU); both engines took mixed
+    steps, and turn 2 reused the conversation's KV."""
+    jres, jsteps = _jax_mixed(ragged=(mode == "ragged"))
+    tres, teng = mixed_runs[mode]
+    assert jsteps > 0 and teng.mixed_steps > 0
+    assert teng.mixed_prefill_tokens_total > 0
+    _same_streams(tres, jres)
+    assert tres["t1"].cached_tokens > 0
+    assert tres["w5"].prompt_tokens >= 150
+
+
+def test_ragged_on_equals_off_and_unfused(mixed_runs):
+    """In the port, ragged on, ragged off (bucket mixed) and mixed
+    batching off give identical streams, with mixed steps taken in both
+    mixed modes; the engine leaves only the conversation's pages."""
+    ragged, r_eng = mixed_runs["ragged"]
+    bucket, b_eng = mixed_runs["bucket"]
+    assert r_eng.mixed_steps > 0 and b_eng.mixed_steps > 0
+    _same_streams(ragged, bucket)
+    _same_streams(ragged, mixed_runs["unfused"])
+    for eng in (r_eng, b_eng):
+        assert eng.allocator.used() == eng.allocator.pinned_pages()
+
+
+def test_ragged_prefill_runs_no_bucket_program(monkeypatch):
+    """In ragged mode every prefill, the one with no decode row active
+    included, goes through the ragged step: forward_prefill never runs,
+    and a prompt of several capacities streams through."""
+    _res, eng = _torch_mixed(ragged=True)
+    calls = []
+    monkeypatch.setattr(eng.executor.model, "forward_prefill",
+                        lambda *a, **k: calls.append(a))
+    h = eng.submit(GenRequest(id="long", prompt="y" * 70, max_new_tokens=3))
+    eng.run_until_idle()
+    assert h.result.finish_reason in ("eos", "length") and not calls
+    assert h.result.prompt_tokens >= 70

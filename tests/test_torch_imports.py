@@ -37,6 +37,23 @@ _BLOCKED_IMPORT_SCRIPT = textwrap.dedent("""
                                               "llmq_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
+    # This slice's entry points: both kernels with their twins, their
+    # sources, the mixed forwards and the two config blocks.
+    from llmq_tpu_torch.ops import kernels
+    for fn in ("ragged_mixed_attention", "paged_decode_attention"):
+        assert callable(getattr(kernels, fn))
+        assert callable(getattr(kernels, fn + "_plain"))
+        assert fn in kernels.LAUNCHES
+    assert all((kernels.CSRC_DIR / src).is_file()
+               for src in kernels.SOURCES.values())
+    assert (kernels.CSRC_DIR / "decode_attention.cuh").is_file()
+    from llmq_tpu_torch.models.llama import (forward_mixed,
+                                             forward_mixed_ragged)
+    from llmq_tpu_torch.ops.attention import ragged_mixed_step
+    from llmq_tpu_torch.core.config import (MixedBatchConfig,
+                                            RaggedAttentionConfig)
+    from llmq_tpu_torch.engine.executor import TorchExecutor
+    assert hasattr(TorchExecutor, "mixed_chunk")
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", sys.argv[1] + "/chip_smoke.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -47,7 +64,8 @@ _BLOCKED_IMPORT_SCRIPT = textwrap.dedent("""
 
 
 def test_port_imports_without_jax_or_reference_package():
-    """Tolerance: none — every module must import."""
+    """Tolerance: none — every module must import, the mixed and ragged
+    entry points included."""
     res = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT_SCRIPT,
                           REPO], capture_output=True, text=True,
                          timeout=120, cwd=REPO)

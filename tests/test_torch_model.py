@@ -2,10 +2,11 @@
 weights carried across by ``params_from_jax``.
 
 f32 ``llama3-tiny`` at dim=256, 4 query / 2 KV heads: prefill logits
-(including a continuation chunk over cached history) and a decode
-sequence agree within atol 1e-4. bf16: within 0.15 on the f32 logits
-(two bf16 layers, activations rounded at 2**-8 relative, different
-matmul reduction orders).
+(including a continuation chunk over cached history), a decode
+sequence, and the bucket and ragged mixed steps (decode rows plus
+prompt slices) agree within atol 1e-4, their pools within 1e-5. bf16:
+within 0.15 on the f32 logits (two bf16 layers, activations rounded at
+2**-8 relative, different matmul reduction orders).
 """
 
 import numpy as np
@@ -156,3 +157,102 @@ def test_init_matches_preset_shapes_and_pool_layout():
             assert getattr(a, f) == getattr(b, f), (name, f)
     with pytest.raises(ValueError, match="unknown model"):
         T.get_config("llama3-404b")
+
+
+def _mixed_setup():
+    """History for two decode rows and one continuing prompt, written by
+    forward_prefill in both packages. Returns the models, both caches and
+    the block tables: rows 0-1 decode (row 1 inactive in the mixed
+    step), slice 0 continues its prompt at position 13, slice 1 is a
+    fresh 7-token prompt."""
+    jcfg, jparams, tcfg, tparams = _models(jnp.float32, torch.float32)
+    jc = J.init_kv_pages(jcfg, P, PS)
+    tc = T.init_kv_pages(tcfg, P, PS, "cpu")
+    rng = np.random.default_rng(3)
+    bt = np.zeros((3, MP), np.int32)
+    bt[0, :3], bt[1, :2], bt[2, :3] = [3, 9, 1], [2, 11], [7, 20, 5]
+    lens = np.array([21, 17, 13], np.int32)
+    toks = rng.integers(3, 500, (3, 24)).astype(np.int32)
+    pos = np.minimum(np.arange(24)[None], lens[:, None] - 1).astype(np.int32)
+    _, jc = J.forward_prefill(jparams, jcfg, jnp.asarray(toks),
+                              jnp.asarray(pos), jnp.asarray(lens), jc,
+                              jnp.asarray(bt))
+    T.forward_prefill(tparams, tcfg, torch.tensor(toks), torch.tensor(pos),
+                      torch.tensor(lens), tc, torch.tensor(bt))
+    pf_bt = np.zeros((2, MP), np.int32)
+    pf_bt[0], pf_bt[1, :1] = bt[2], [14]
+    dec = dict(tokens=np.array([17, 42], np.int32),
+               positions=np.array([21, 17], np.int32), bt=bt[:2],
+               active=np.array([True, False]))
+    slices = dict(start=[13, 0], toks=[rng.integers(3, 500, 10),
+                                       rng.integers(3, 500, 7)],
+                  bt=pf_bt)
+    return jcfg, jparams, tcfg, tparams, jc, tc, dec, slices
+
+
+def _pools_match(jc, tc):
+    # Page 0 is the null page: JAX's plain routes write padding there.
+    for key in ("k", "v"):
+        np.testing.assert_allclose(tc[key].numpy()[:, 1:],
+                                   np.asarray(jc[key])[:, 1:], atol=1e-5)
+
+
+def test_forward_mixed_matches_jax():
+    """Bucket mixed step (f32): decode logits of the active row, slice
+    logits at every valid position, and the pools within 1e-4."""
+    jcfg, jparams, tcfg, tparams, jc, tc, dec, sl = _mixed_setup()
+    Tw = 10
+    toks = np.zeros((2, Tw), np.int32)
+    pos = np.zeros((2, Tw), np.int32)
+    lens = np.array([len(t) for t in sl["toks"]], np.int32)
+    for i, (st, t) in enumerate(zip(sl["start"], sl["toks"])):
+        toks[i, :len(t)] = t
+        pos[i] = np.minimum(np.arange(Tw) + st, st + len(t) - 1)
+    jd, jp, jc = J.forward_mixed(
+        jparams, jcfg, jnp.asarray(dec["tokens"]),
+        jnp.asarray(dec["positions"]), jc, jnp.asarray(dec["bt"]),
+        jnp.asarray(toks), jnp.asarray(pos), jnp.asarray(lens),
+        jnp.asarray(sl["bt"]), dec_active=jnp.asarray(dec["active"]))
+    td, tp = T.forward_mixed(
+        tparams, tcfg, torch.tensor(dec["tokens"]),
+        torch.tensor(dec["positions"]), tc, torch.tensor(dec["bt"]),
+        torch.tensor(toks), torch.tensor(pos), torch.tensor(lens),
+        torch.tensor(sl["bt"]), torch.tensor(dec["active"]))
+    np.testing.assert_allclose(td.numpy()[:1], np.asarray(jd)[:1], atol=1e-4)
+    for i, n in enumerate(lens):
+        np.testing.assert_allclose(tp.numpy()[i, :n], np.asarray(jp)[i, :n],
+                                   atol=1e-4)
+    _pools_match(jc, tc)
+
+
+def test_forward_mixed_ragged_matches_jax():
+    """Ragged mixed step (f32), the same work packed at q-block offsets
+    plus an unused slice row: decode logits, the slices' last-token
+    logits and the pools within 1e-4; the module method gives the
+    functional result."""
+    jcfg, jparams, tcfg, tparams, jc, tc, dec, sl = _mixed_setup()
+    N = 32
+    toks = np.zeros(N, np.int32)
+    pos = np.zeros(N, np.int32)
+    qoff = np.array([0, 16, 0], np.int32)
+    qlen = np.array([10, 7, 0], np.int32)
+    pf_bt = np.concatenate([sl["bt"], np.zeros((1, MP), np.int32)])
+    for off, st, t in zip(qoff, sl["start"], sl["toks"]):
+        toks[off:off + len(t)] = t
+        pos[off:off + len(t)] = st + np.arange(len(t))
+    jd, jp, jc = J.forward_mixed_ragged(
+        jparams, jcfg, jnp.asarray(dec["tokens"]),
+        jnp.asarray(dec["positions"]), jc, jnp.asarray(dec["bt"]),
+        jnp.asarray(toks), jnp.asarray(pos), jnp.asarray(qoff),
+        jnp.asarray(qlen), jnp.asarray(pf_bt),
+        dec_active=jnp.asarray(dec["active"]))
+    args = (torch.tensor(dec["tokens"]), torch.tensor(dec["positions"]), tc,
+            torch.tensor(dec["bt"]), torch.tensor(toks), torch.tensor(pos),
+            torch.tensor(qoff), torch.tensor(qlen), torch.tensor(pf_bt),
+            torch.tensor(dec["active"]))
+    td, tp = T.forward_mixed_ragged(tparams, tcfg, *args)
+    np.testing.assert_allclose(td.numpy()[:1], np.asarray(jd)[:1], atol=1e-4)
+    np.testing.assert_allclose(tp.numpy()[:2], np.asarray(jp)[:2], atol=1e-4)
+    _pools_match(jc, tc)
+    md, mp = T.Llama(tcfg, tparams).forward_mixed_ragged(*args)
+    assert torch.equal(md, td) and torch.equal(mp, tp)

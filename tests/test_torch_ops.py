@@ -380,7 +380,8 @@ def test_decode_routes_agree_on_cpu():
 
 
 def test_wrappers_count_no_launch_on_cpu():
-    """CPU tensors take the plain twins: no kernel launch is counted."""
+    """CPU tensors take the plain twins: no kernel launch is counted
+    (kernel 4, and kernels 6 and 8 on a mixed geometry)."""
     rng = np.random.default_rng(14)
     kp, vp = _pools(rng, P=8)
     before = dict(kernels.LAUNCHES)
@@ -388,4 +389,243 @@ def test_wrappers_count_no_launch_on_cpu():
     kernels.kv_cache_write(_t(kp), _t(vp), rows, rows,
                            _t(np.array([1, 2, 3, 4], np.int32)),
                            _t(np.array([0, 1, 2, 3], np.int32)), 0)
+    g = _Ragged(**RAGGED_GEOMETRIES["mixed_decode_and_slices"])
+    g.port(torch.float32)
+    kernels.paged_decode_attention(_t(g.q_dec), _t(g.kp), _t(g.vp),
+                                   _t(g.bt[:g.B]), _t(g.dec_lens), 0)
     assert kernels.LAUNCHES == before
+
+
+# -- kernel 6 (ragged mixed attention) and kernel 8 (decode attention) --------
+
+class _Ragged:
+    """One mixed geometry, as ``tests/test_ragged_attention.py`` builds
+    it: decode rows of the given lengths (an empty row writes nothing)
+    and slices ``(qstart, qlen)`` packed at q-block-aligned offsets, every
+    row and slice on its own pages of a random pool."""
+
+    def __init__(self, dec_lens, slices, *, h=H, hkv=HKV, mp=4, layers=1,
+                 layer=0, seed=0, P=64):
+        rng = np.random.default_rng(seed)
+        qblk = tattn.RAGGED_Q_BLOCK
+        self.h, self.gd, self.layer = h, hkv * D, layer
+        self.kp = rng.standard_normal((layers, P, PS, self.gd)).astype(np.float32)
+        self.vp = rng.standard_normal((layers, P, PS, self.gd)).astype(np.float32)
+        B, S = len(dec_lens), len(slices)
+        self.B = B
+        self.dec_lens = np.asarray(dec_lens, np.int32)
+        bt = np.zeros((B + S, mp), np.int32)
+        used = 1
+        for b in range(B):
+            n = -(-max(1, dec_lens[b]) // PS)
+            bt[b, :n] = np.arange(used, used + n)
+            used += n
+        for s, (st, n) in enumerate(slices):
+            k = -(-(st + n) // PS)
+            bt[B + s, :k] = np.arange(used, used + k)
+            used += k
+        assert used <= P
+        self.bt = bt
+        self.wp = np.array([bt[b, (l - 1) // PS] if l > 0 else 0
+                            for b, l in enumerate(dec_lens)], np.int32)
+        self.qstart = np.array([st for st, _ in slices], np.int32)
+        self.qlen = np.array([n for _, n in slices], np.int32)
+        self.qoff = np.zeros(S, np.int32)
+        off = 0
+        for s, (_st, n) in enumerate(slices):
+            self.qoff[s] = off
+            off += -(-n // qblk) * qblk
+        self.N = max(qblk, off)
+        self.seq = np.concatenate([self.dec_lens, self.qstart + self.qlen])
+        self.q_dec = rng.standard_normal((B, h, D)).astype(np.float32)
+        self.kn = rng.standard_normal((B, hkv, D)).astype(np.float32)
+        self.vn = rng.standard_normal((B, hkv, D)).astype(np.float32)
+        self.q_pf = rng.standard_normal((self.N, h, D)).astype(np.float32)
+
+    def pallas(self, dtype):
+        from llmq_tpu.ops.pallas.ragged_paged_attention import (
+            ragged_mixed_attention_pallas)
+
+        c = lambda a: jnp.asarray(a, dtype)                 # noqa: E731
+        return ragged_mixed_attention_pallas(
+            c(self.q_dec), c(self.kn), c(self.vn), c(self.q_pf), c(self.kp),
+            c(self.vp), jnp.asarray(self.bt), jnp.asarray(self.seq),
+            jnp.asarray(self.wp), jnp.asarray(self.qoff),
+            jnp.asarray(self.qlen), jnp.asarray(self.qstart), self.layer,
+            interpret=True)
+
+    def port(self, dtype):
+        c = lambda a: _t(a).to(dtype)                       # noqa: E731
+        kp, vp = c(self.kp), c(self.vp)
+        d, p = kernels.ragged_mixed_attention(
+            c(self.q_dec), c(self.kn), c(self.vn), c(self.q_pf), kp, vp,
+            _t(self.bt), _t(self.seq), _t(self.wp), _t(self.qoff),
+            _t(self.qlen), _t(self.qstart), self.layer)
+        return d, p, kp, vp
+
+
+RAGGED_GEOMETRIES = {
+    # tests/test_ragged_attention.py:214-262, at page size 16.
+    "mixed_decode_and_slices": dict(dec_lens=[1, 7, 13, 25],
+                                    slices=[(5, 10), (0, 3)]),
+    "decode_only": dict(dec_lens=[1, 2, 3, 8, 9, 16, 17, 31],
+                        slices=[(0, 0)]),
+    "prefill_only_frozen_rows": dict(dec_lens=[0, 0, 0, 0],
+                                     slices=[(0, 12), (0, 7), (3, 5)]),
+    "slice_crossing_pages_with_history": dict(dec_lens=[5, 1, 9, 2],
+                                              slices=[(11, 30), (0, 1)],
+                                              mp=6),
+    "gqa_groups": dict(dec_lens=[3, 30, 12, 1], slices=[(2, 9)], h=16),
+    "nonzero_layer": dict(dec_lens=[4, 6, 2, 10], slices=[(0, 5)], mp=2,
+                          layers=3, layer=2),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RAGGED_GEOMETRIES))
+def test_ragged_mixed_attention_twin_matches_pallas(name):
+    """Kernel 6, f32: decode rows and packed slice rows within 1e-5 of
+    the Pallas kernel; empty decode rows and packed rows outside every
+    slice are zero in both; whole pools bit-exact (empty rows write
+    nothing)."""
+    g = _Ragged(seed=len(name), **RAGGED_GEOMETRIES[name])
+    j_d, j_p, (jk, jv) = g.pallas(jnp.float32)
+    t_d, t_p, tk, tv = g.port(torch.float32)
+    np.testing.assert_allclose(_np(t_d), np.asarray(j_d), atol=F32_ATOL)
+    np.testing.assert_allclose(_np(t_p), np.asarray(j_p), atol=F32_ATOL)
+    live = np.zeros(g.N, bool)
+    for off, n in zip(g.qoff, g.qlen):
+        live[off:off + n] = True
+    assert np.all(_np(t_p)[~live] == 0)
+    assert np.all(_np(t_d)[g.dec_lens == 0] == 0)
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+def test_ragged_mixed_attention_twin_bf16_matches_pallas():
+    """Kernel 6 on bf16: attention within 2e-2 (probabilities rounded to
+    bf16 before P @ V in the twin), pools bit-exact."""
+    g = _Ragged(seed=99, **RAGGED_GEOMETRIES["mixed_decode_and_slices"])
+    j_d, j_p, (jk, jv) = g.pallas(jnp.bfloat16)
+    t_d, t_p, tk, tv = g.port(torch.bfloat16)
+    np.testing.assert_allclose(_np(t_d), np.asarray(j_d, np.float32),
+                               atol=2e-2)
+    np.testing.assert_allclose(_np(t_p), np.asarray(j_p, np.float32),
+                               atol=2e-2)
+    np.testing.assert_array_equal(tk.view(torch.int16).numpy(),
+                                  np.asarray(jk).view(np.int16))
+    np.testing.assert_array_equal(tv.view(torch.int16).numpy(),
+                                  np.asarray(jv).view(np.int16))
+
+
+@pytest.mark.parametrize("single_layer", [False, True])
+def test_paged_decode_attention_twin_matches_pallas(single_layer):
+    """Kernel 8, f32 within 1e-5 of the Pallas kernel, on the stacked
+    pool (layer 1) and on the one-layer (P, ps, GD) form; an empty row
+    is zero in both."""
+    from llmq_tpu.ops.pallas.paged_attention import (
+        paged_decode_attention_pallas)
+
+    rng = np.random.default_rng(15)
+    kp, vp = _pools(rng, P=40)
+    q, _kn, _vn, bt, sl, _wp = _decode_case(rng, [1, 16, 17, 0, 96])
+    layer = 1
+    if single_layer:
+        kp, vp, layer = kp[1], vp[1], 0
+    j = paged_decode_attention_pallas(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(bt),
+        jnp.asarray(sl), layer, pages_per_chunk=2, interpret=True)
+    t = kernels.paged_decode_attention(_t(q), _t(kp), _t(vp), _t(bt),
+                                       _t(sl), layer)
+    np.testing.assert_allclose(_np(t), np.asarray(j), atol=F32_ATOL)
+    assert np.all(np.asarray(j)[3] == 0) and torch.all(t[3] == 0)
+
+
+def test_ragged_mixed_step_matches_jax():
+    """ops/attention.ragged_mixed_step against the JAX package's on the
+    CPU (f32): the slices' K/V written from the packed rows, then decode
+    and slice attention. Live rows within 1e-5; pools equal except page
+    0 (JAX's plain route writes one token of an unused slice row there,
+    the port writes nothing)."""
+    rng = np.random.default_rng(16)
+    kp, vp = _pools(rng, L=2, P=40)
+    B, MP, N = 3, 6, 48
+    dec_bt = np.zeros((B, MP), np.int32)
+    dec_bt[0, :2], dec_bt[1, :3], dec_bt[2, :1] = [1, 2], [3, 4, 5], [6]
+    pos = np.array([20, 33, 4], np.int32)
+    page_of = dec_bt[np.arange(B), pos // PS].copy()
+    page_of[2] = 0                                   # an inactive row
+    slot_of = (pos % PS).astype(np.int32)
+    # Slice 0 fresh (13 tokens), slice 1 over 37 positions of history
+    # (20 tokens, crossing pages), slice 2 unused.
+    pf_bt = np.zeros((3, MP), np.int32)
+    pf_bt[0, :1], pf_bt[1, :4] = [7], [8, 9, 10, 11]
+    qoff = np.array([0, 16, 0], np.int32)
+    qlen = np.array([13, 20, 0], np.int32)
+    qstart = np.array([0, 37, 0], np.int32)
+    pf_pos = np.zeros(N, np.int32)
+    pf_pos[0:13] = np.arange(13)
+    pf_pos[16:36] = 37 + np.arange(20)
+    q_dec = rng.standard_normal((B, H, D)).astype(np.float32)
+    kd, vd = (rng.standard_normal((B, HKV, D)).astype(np.float32)
+              for _ in range(2))
+    q_pf = rng.standard_normal((N, H, D)).astype(np.float32)
+    kpf, vpf = (rng.standard_normal((N, HKV, D)).astype(np.float32)
+                for _ in range(2))
+    j_d, j_p, jk, jv = jattn.ragged_mixed_step(
+        *(jnp.asarray(a) for a in (q_dec, kd, vd, q_pf, kpf, vpf, kp, vp,
+                                   dec_bt, pos + 1, page_of, slot_of, pf_bt,
+                                   pf_pos, qoff, qlen)), 1)
+    tk, tv = _t(kp), _t(vp)
+    slices = tattn.ragged_slices(_t(dec_bt), _t(pos + 1), _t(pf_bt), qoff,
+                                 qlen, qstart)
+    t_d, t_p = tattn.ragged_mixed_step(_t(q_dec), _t(kd), _t(vd), _t(q_pf),
+                                       _t(kpf), _t(vpf), tk, tv,
+                                       _t(page_of), slices, 1)
+    np.testing.assert_allclose(_np(t_d)[:2], np.asarray(j_d)[:2],
+                               atol=F32_ATOL)
+    live = np.r_[0:13, 16:36]
+    np.testing.assert_allclose(_np(t_p)[live], np.asarray(j_p)[live],
+                               atol=F32_ATOL)
+    np.testing.assert_array_equal(tk.numpy()[:, 1:], np.asarray(jk)[:, 1:])
+    np.testing.assert_array_equal(tv.numpy()[:, 1:], np.asarray(jv)[:, 1:])
+
+
+def test_ragged_step_two_pieces_of_one_prompt():
+    """Two consecutive pieces of one prompt in ONE ragged step (same
+    block table, piece 2 starting where piece 1 ends): every write of
+    the step precedes its attention, so piece 2 sees piece 1's fresh
+    K/V, and the step equals one slice holding both pieces."""
+    rng = np.random.default_rng(17)
+    kp, vp = _pools(rng, L=1, P=16)
+    B, MP = 1, 4
+    dec_bt = np.array([[1, 0, 0, 0]], np.int32)
+    pos = np.array([3], np.int32)
+    bt = np.array([5, 6, 0, 0], np.int32)
+    q_dec = rng.standard_normal((B, H, D)).astype(np.float32)
+    kd, vd = (rng.standard_normal((B, HKV, D)).astype(np.float32)
+              for _ in range(2))
+    q, k, v = (rng.standard_normal((22, h, D)).astype(np.float32)
+               for h in (H, HKV, HKV))
+
+    def run(qoff, qlen, qstart, rows):
+        N = 32
+        qp, kpk, vpk = (np.zeros((N,) + a.shape[1:], np.float32)
+                        for a in (q, k, v))
+        for off, (a, b) in zip(qoff, rows):
+            qp[off:off + b - a], kpk[off:off + b - a] = q[a:b], k[a:b]
+            vpk[off:off + b - a] = v[a:b]
+        tk, tv = _t(kp), _t(vp)
+        slices = tattn.ragged_slices(_t(dec_bt), _t(pos + 1),
+                                     _t(np.stack([bt] * len(qoff))), qoff,
+                                     qlen, qstart)
+        _d, p = tattn.ragged_mixed_step(
+            _t(q_dec), _t(kd), _t(vd), _t(qp), _t(kpk), _t(vpk), tk, tv,
+            _t(dec_bt[:, 0]), slices, 0)
+        return _np(p), tk
+
+    two, k2 = run([0, 16], [12, 10], [0, 12], [(0, 12), (12, 22)])
+    one, k1 = run([0], [22], [0], [(0, 22)])
+    np.testing.assert_allclose(two[16:26], one[12:22], atol=F32_ATOL)
+    np.testing.assert_allclose(two[0:12], one[0:12], atol=F32_ATOL)
+    assert torch.equal(k1, k2)
+

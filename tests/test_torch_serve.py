@@ -188,3 +188,81 @@ def test_config_env_overrides_and_defaults():
     assert d.model.max_seq_len == 2048 and d.device == "cuda"
     assert [lvl.name for lvl in d.queue.levels] == [
         "realtime", "high", "normal", "low"]
+
+
+def test_mixed_and_ragged_config_blocks_from_env():
+    """executor.mixed_batch (on by default) and executor.ragged_attention
+    (off by default) are nested blocks that LLMQ_* variables reach."""
+    from llmq_tpu_torch.core.config import (MixedBatchConfig,
+                                            RaggedAttentionConfig)
+
+    d = Config().executor
+    assert (d.mixed_batch.enabled, d.mixed_batch.prefill_token_budget,
+            d.mixed_batch.max_slices, d.mixed_batch.slice_tokens) == (
+                True, 128, 2, 64)
+    assert (d.ragged_attention.enabled,
+            d.ragged_attention.prefill_token_capacity,
+            d.ragged_attention.max_slices) == (False, 0, 0)
+    cfg = load_config(environ={
+        "LLMQ_EXECUTOR_RAGGED_ATTENTION_ENABLED": "true",
+        "LLMQ_EXECUTOR_RAGGED_ATTENTION_MAX_SLICES": "3",
+        "LLMQ_EXECUTOR_MIXED_BATCH_PREFILL_TOKEN_BUDGET": "96",
+        "LLMQ_EXECUTOR_MIXED_BATCH_ENABLED": "false"})
+    ex = cfg.executor
+    assert ex.ragged_attention.enabled and ex.ragged_attention.max_slices == 3
+    assert ex.mixed_batch.prefill_token_budget == 96
+    assert not ex.mixed_batch.enabled
+    with pytest.raises(ValueError, match="prefill_token_budget"):
+        MixedBatchConfig(prefill_token_budget=4)
+    with pytest.raises(ValueError, match="max_slices"):
+        RaggedAttentionConfig(max_slices=17)
+
+
+@pytest.mark.parametrize("mixed,ragged,geometry", [
+    (True, False, (2, 64, False, 0)),
+    (True, True, (2, 128, True, 144)),
+    (False, True, (2, 128, True, 144)),
+    (False, False, (0, 0, False, 0)),
+])
+def test_builder_derives_mixed_geometry(mixed, ragged, geometry):
+    """build_engine turns the two config blocks into the executor's
+    (slices, slice tokens, ragged, packed buffer) and hands mixed_batch
+    to the engine: a 128-token capacity over 2 slices packs into 144
+    rows (128 + 2 x 7, on q-blocks of 8)."""
+    from llmq_tpu_torch.engine.builder import build_engine
+
+    cfg = _tiny_cfg()
+    cfg.executor.mixed_batch.enabled = mixed
+    cfg.executor.ragged_attention.enabled = ragged
+    eng = build_engine(cfg)
+    ex = eng.executor
+    assert (ex.mixed_prefill_slices, ex.mixed_slice_tokens,
+            ex.ragged_attention, ex.ragged_buffer) == geometry
+    assert (eng._mixed_cfg is not None) == mixed
+
+
+def test_ragged_serving_over_rest():
+    """The REST path with ragged attention on: concurrent messages and a
+    two-turn conversation complete; turn 2 is a continuation prefill
+    through the ragged step and reports cached tokens."""
+    cfg = _tiny_cfg()
+    cfg.executor.ragged_attention.enabled = True
+    app = App(cfg)
+    port = app.start(host="127.0.0.1", port=0)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        mids = [_http("POST", f"{base}/api/v1/messages",
+                      {"content": f"message {i} " * (i + 1),
+                       "priority": p})[1]["message_id"]
+                for i, p in enumerate(("low", "normal", "high", "realtime"))]
+        usages = []
+        for text in ("first turn of the chat", " second turn"):
+            status, r = _http("POST", f"{base}/api/v1/messages",
+                              {"content": text, "conversation_id": "rg"})
+            usages.append(_poll(base, r["message_id"])["metadata"]["usage"])
+        for mid in mids:
+            assert _poll(base, mid)["status"] == "completed"
+        assert usages[1]["cached_tokens"] > 0
+        assert app.engine.executor.ragged_attention
+    finally:
+        app.stop()
