@@ -8,37 +8,51 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, in order (each ends in ``torch.cuda.synchronize()`` so a fault
 shows where it happened):
 
-1. env      — torch/CUDA versions, ``nvcc --version``, compute capability,
-               the card's name and power limit (repeated beside every number).
-2. build    — compiles the kernels from ``llmq_tpu_torch/csrc`` with nvcc
-               (one process per source, all at once) and prints the seconds.
-3. kernels  — each of the six kernels against its plain PyTorch twin on the
-               card at llama3-8b's per-layer shapes (H=32, H_kv=8, D=128,
-               page_size=16, B=8, max_pages=128; kernel 6 with slices of
-               100 and 37 tokens, the second over history, packed into
-               N=144): attention within ``ATOL``, pools bit-exact;
-               kernel, plain, library times and the bound.
-4. split    — one decode step through ``paged_decode_step(fused=False)``
-               (row-write kernel + decode-attention kernel) against
-               ``fused=True``: same attention within ``ATOL``, identical
-               pools.
-5. model    — a small bf16 model with the same head geometry: logits of
-               prefill (incl. a continuation chunk), decode,
-               ``forward_mixed`` and ``forward_mixed_ragged`` on the card
-               against the same model on the CPU (plain twins).
-6. serve    — llama3-8b bf16 at full width and depth, random weights from a
-               seed, served by the port's REST server with mixed batching
-               on (the default): messages across all four priorities, a
-               two-turn conversation, and four ~600-token prompts posted
-               while two requests decode (mixed steps must run); every
-               request completes, turn 2 reports cached tokens, and the
-               kernels' launch counts grow during the phase. Then TTFT and
-               decode tok/s, one request through the split decode route,
-               and a mixed chunk timed against a prefill plus a decode
-               chunk. Then a second engine on the same weights with
-               ragged attention on serves the same mix: the ragged kernel
-               and the prefill write launch, the bucket prefill attention
-               does not. No ``*_plain`` twin may be called while serving.
+1. env        — torch/CUDA versions, ``nvcc --version``, compute
+                 capability, the card's name and power limit (repeated
+                 beside every number).
+2. build      — compiles the kernels from ``llmq_tpu_torch/csrc`` with nvcc
+                 (one process per source, all at once) and prints the
+                 seconds.
+3. kernels    — each of the eight kernels against its plain PyTorch twin on
+                 the card at llama3-8b's per-layer shapes (H=32, H_kv=8,
+                 D=128, page_size=16, B=8, max_pages=128; kernels 6 and 7
+                 with slices of 100 and 37 tokens, the second over history,
+                 packed into N=144): attention within ``ATOL`` (``Q8_ATOL``
+                 over int8 pools), pools and scale pools bit-exact; kernel,
+                 plain, library times and the bound. Then cuBLAS's int8
+                 GEMM with the weight row and column major.
+4. split      — one decode step through ``paged_decode_step(fused=False)``
+                 (row-write kernel + decode-attention kernel) against
+                 ``fused=True``: same attention within ``ATOL``, identical
+                 pools.
+5. model      — a small model with the same head geometry, bf16 and then
+                 int8 weights with int8 KV: logits of prefill (incl. a
+                 continuation chunk), decode, ``forward_mixed`` and
+                 ``forward_mixed_ragged`` on the card against the same
+                 model on the CPU (plain twins).
+6. serve      — llama3-8b bf16 at full width and depth, random weights
+                 from a seed, served by the port's REST server with mixed
+                 batching on (the default): messages across all four
+                 priorities, a two-turn conversation, and four ~600-token
+                 prompts posted while two requests decode (mixed steps
+                 must run); every request completes, turn 2 reports cached
+                 tokens, and the kernels' launch counts grow during the
+                 phase. Then TTFT and decode tok/s, one request through
+                 the split decode route, and a mixed chunk timed against a
+                 prefill plus a decode chunk. Then a second engine on the
+                 same weights with ragged attention on serves the same
+                 mix: the ragged kernel and the prefill write launch, the
+                 bucket prefill attention does not.
+7. serve-int8 — llama3-8b with int8 weights and int8 KV at full width and
+                 depth (``LLMQ_MODEL_QUANTIZATION=int8
+                 LLMQ_MODEL_KV_QUANTIZATION=int8``), the same REST mix:
+                 kernel 5 launches and no bf16-pool kernel does; then a
+                 second engine on the same weights with ragged attention
+                 on: kernel 7 launches. Rates, the decode breakdown,
+                 weight bytes and peak memory.
+
+No ``*_plain`` twin may be called while serving.
 
 Exits non-zero on any failure. On success the last lines are the kernel
 table as JSON, the card's name and power limit, and
@@ -59,8 +73,17 @@ import urllib.request
 # softmax weights in f32 where the plain twins round them to bf16 before
 # P @ V (the JAX package's order), and bf16 rounds at 2**-8 near 1.
 ATOL = 2e-2
+# int8 K/V (kernels 5 and 7): the kernels scale the logits and the
+# probabilities in f32 where the twins round the dequantized K/V to bf16;
+# the JAX package's own int8 kernel-vs-plain tolerance.
+Q8_ATOL = 3e-2
 # Tiny-model logits after several bf16 layers (f32 logits, unit scale).
 MODEL_ATOL = 1e-1
+# The same with int8 weights and int8 KV: a value one bf16 rounding apart
+# between card and CPU can quantize to the neighbouring int8 value, and
+# int8 activations pass that on (the CPU tests see 0.04 on f32 logits
+# between the two packages for one such flip).
+MODEL_Q8_ATOL = 3e-1
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
 
@@ -69,10 +92,12 @@ GD = HKV * D
 L_POOL, P_POOL = 32, 512        # the served pool: 32 layers x 512 pages
 
 CARD = ""
+T0 = time.perf_counter()
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One line, prefixed with the seconds since the script started."""
+    print(f"{time.perf_counter() - T0:7.1f}s {msg}", flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -108,6 +133,22 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
             fn(i)
         torch.cuda.synchronize()
     return _device_us(prof) / 1e3 / iters
+
+
+def _device_trace(fn):
+    """Run ``fn()`` once under torch.profiler recording device activity
+    only (host-op events of whole served steps would cost the trace more
+    than the steps) and return the profile; raises if it holds no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    if _device_us(prof) <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    return prof
 
 
 def _device_us(prof) -> float:
@@ -397,6 +438,12 @@ def phase_kernels(state) -> None:
     _kernel_ragged(state, gen, k_pool, v_pool)
     del k_pool, v_pool
     torch.cuda.empty_cache()
+    pools = _q8_pools(gen, dev)
+    _kernel_fused_decode_q8(state, gen, pools)
+    _kernel_ragged_q8(state, gen, pools)
+    del pools
+    torch.cuda.empty_cache()
+    _int_mm_layouts(state)
     _long_context_timings()
 
 
@@ -436,6 +483,42 @@ def _kernel_paged_decode(state, gen, k_pool, v_pool) -> None:
             bms, by, lib_ms)
 
 
+#: The smoke's ragged slices (qstart, qlen, qoff): 100 fresh tokens, 37
+#: tokens over 300 positions of history, an unused slice row; packed
+#: into RAGGED_N rows on q-blocks of 8.
+RAGGED_SLICES = [(0, 100, 0), (300, 37, 104), (0, 0, 0)]
+RAGGED_N = 144
+
+
+def _ragged_inputs(gen, dev):
+    """Kernel 1's decode rows and the RAGGED_SLICES on pages of their own:
+    (q, k_new, v_new, q_pf, (block_tables, seq_lens, write_page, qoff,
+    qlen, qstart), live packed rows, live decode lengths)."""
+    import torch
+
+    q, kn, vn, bt, sl, wp, live_lens = _decode_inputs(gen, dev, True)
+    perm = torch.randperm(P_POOL - 1,
+                          generator=torch.Generator().manual_seed(1)) + 1
+    nxt = sum(-(-n // PS) for n in live_lens)     # after the decode rows
+    pf_bt = torch.zeros((len(RAGGED_SLICES), MP), dtype=torch.int32)
+    live = torch.zeros(RAGGED_N, dtype=torch.bool, device=dev)
+    for s, (st, n, off) in enumerate(RAGGED_SLICES):
+        pages = -(-(st + n) // PS)
+        pf_bt[s, :pages] = perm[nxt:nxt + pages].to(torch.int32)
+        nxt += pages
+        live[off:off + n] = True
+    bt_all = torch.cat([bt, pf_bt.to(dev)]).contiguous()
+    sl_all = torch.cat([sl, torch.tensor([st + n for st, n, _ in RAGGED_SLICES],
+                                         dtype=torch.int32, device=dev)])
+    qoff, qlen, qstart = (torch.tensor(v, dtype=torch.int32, device=dev)
+                          for v in zip(*((o, n, st)
+                                         for st, n, o in RAGGED_SLICES)))
+    q_pf = torch.randn((RAGGED_N, H, D), generator=gen,
+                       device=dev).to(torch.bfloat16)
+    return (q, kn, vn, q_pf, (bt_all, sl_all, wp, qoff, qlen, qstart), live,
+            live_lens)
+
+
 def _kernel_ragged(state, gen, k_pool, v_pool) -> None:
     """Kernel 6 at a served mixed step's shapes: kernel 1's 8 decode rows
     (one inactive, one empty) and slices of 100 and 37 tokens starting at
@@ -447,27 +530,8 @@ def _kernel_ragged(state, gen, k_pool, v_pool) -> None:
     from llmq_tpu_torch.ops import kernels
 
     dev = k_pool.device
-    q, kn, vn, bt, sl, wp, live_lens = _decode_inputs(gen, dev, True)
+    q, kn, vn, q_pf, args, live, live_lens = _ragged_inputs(gen, dev)
     layer = 4
-    perm = torch.randperm(P_POOL - 1,
-                          generator=torch.Generator().manual_seed(1)) + 1
-    nxt = sum(-(-n // PS) for n in live_lens)     # after the decode rows
-    slices = [(0, 100, 0), (300, 37, 104), (0, 0, 0)]  # qstart, qlen, qoff
-    N = 144
-    pf_bt = torch.zeros((len(slices), MP), dtype=torch.int32)
-    for s, (st, n, _off) in enumerate(slices):
-        pages = -(-(st + n) // PS)
-        pf_bt[s, :pages] = perm[nxt:nxt + pages].to(torch.int32)
-        nxt += pages
-    bt_all = torch.cat([bt, pf_bt.to(dev)]).contiguous()
-    sl_all = torch.cat([sl, torch.tensor([st + n for st, n, _ in slices],
-                                         dtype=torch.int32, device=dev)])
-    qoff, qlen, qstart = (torch.tensor(v, dtype=torch.int32, device=dev)
-                          for v in ([o for *_, o in slices],
-                                    [n for _, n, _ in slices],
-                                    [st for st, _, _ in slices]))
-    q_pf = torch.randn((N, H, D), generator=gen, device=dev).to(torch.bfloat16)
-    args = (bt_all, sl_all, wp, qoff, qlen, qstart)
     kp1, vp1 = k_pool.clone(), v_pool.clone()
     kp2, vp2 = k_pool.clone(), v_pool.clone()
     d_k, p_k = kernels.ragged_mixed_attention(q, kn, vn, q_pf, kp1, vp1,
@@ -475,9 +539,6 @@ def _kernel_ragged(state, gen, k_pool, v_pool) -> None:
     torch.cuda.synchronize()
     d_p, p_p = kernels.ragged_mixed_attention_plain(q, kn, vn, q_pf, kp2,
                                                     vp2, *args, layer)
-    live = torch.zeros(N, dtype=torch.bool, device=dev)
-    live[0:100] = True
-    live[104:141] = True
     if not (torch.isfinite(d_k).all() and torch.isfinite(p_k).all()):
         raise AssertionError("ragged_mixed_attention: non-finite output")
     err = max((d_k[:7].float() - d_p[:7].float()).abs().max().item(),
@@ -499,14 +560,15 @@ def _kernel_ragged(state, gen, k_pool, v_pool) -> None:
     # Library yardstick: the decode call of kernels 1 and 8 plus one
     # causal SDPA call per slice on that slice's dense K/V of the 8 KV
     # heads, summed.
-    calls = [_sdpa_decode(gen, dev, q, sl, max(live_lens))] + [
+    calls = [_sdpa_decode(gen, dev, q, args[1][:B], max(live_lens))] + [
         _sdpa_prefill(gen, dev, q_pf[off:off + n], st)
-        for st, n, off in slices if n]
+        for st, n, off in RAGGED_SLICES if n]
     lib_ms = device_ms(lambda i: [c() for c in calls])
     del calls, kp1, vp1
     n_pos = sum(live_lens) + 5
-    pf_pos = sum(st + n for st, n, _ in slices)
-    pairs = sum(st + t + 1 for st, n, _ in slices for t in range(n))
+    N = RAGGED_N
+    pf_pos = sum(st + n for st, n, _ in RAGGED_SLICES)
+    pairs = sum(st + t + 1 for st, n, _ in RAGGED_SLICES for t in range(n))
     bytes_moved = (2 * B * H * D * 2 + 2 * B * GD * 2 + (n_pos - 7) * GD * 4
                    + 7 * GD * 4 + 2 * N * H * D * 2 + pf_pos * GD * 2 * 2
                    + (B + 3) * MP * 4 + (2 * B + 3 * 4) * 4)
@@ -515,6 +577,224 @@ def _kernel_ragged(state, gen, k_pool, v_pool) -> None:
             "llmq_tpu_torch/csrc/ragged_attention.cu",
             "llmq_tpu/ops/pallas/ragged_paged_attention.py:474", err, ms,
             plain_ms, bms, by, lib_ms)
+
+
+def _q8_pools(gen, dev):
+    """The served int8 pools (32 layers x 512 pages) and their (L, P,
+    H_kv, ps) bf16 scale pools, filled with unit-scale values quantized
+    per (row, head) by the port's own quantize_kv_rows."""
+    import torch
+
+    from llmq_tpu_torch.ops.quant import quantize_kv_rows
+
+    out = []
+    for _ in range(2):
+        x = torch.randn((L_POOL, P_POOL, PS, HKV, D), generator=gen,
+                        device=dev)
+        q, sc = quantize_kv_rows(x)
+        del x
+        out.append((q.reshape(L_POOL, P_POOL, PS, GD),
+                    sc.transpose(2, 3).contiguous()))
+    (kq, ks), (vq, vs) = out
+    return [kq, vq, ks, vs]
+
+
+def _q8_rows(x):
+    """bf16 rows (B, H_kv, D) → int8 rows and (B, H_kv) bf16 scales."""
+    from llmq_tpu_torch.ops.quant import quantize_kv_rows
+
+    q, sc = quantize_kv_rows(x)
+    return q.contiguous(), sc.contiguous()
+
+
+def _sdpa_q8(gen, dev, q_rows, S, mask):
+    """Library yardstick over int8 K/V: two calls, one elementwise
+    dequantize of the gathered dense K and V window (int8 times its bf16
+    scales, K and V stacked) and the SDPA call of rows 1 and 3 on the
+    result; ``q_rows`` (Bq, H_kv, rows, D), the window (Bq, H_kv, S, D).
+    Returns a callable."""
+    import torch
+    import torch.nn.functional as F
+
+    Bq = q_rows.shape[0]
+    kv = torch.randint(-127, 128, (2, Bq, HKV, S, D), generator=gen,
+                       device=dev, dtype=torch.int8)
+    sc = (torch.rand((2, Bq, HKV, S, 1), generator=gen, device=dev)
+          * 0.02).to(torch.bfloat16)
+
+    def call():
+        d = kv * sc                                   # int8 x bf16 → bf16
+        return F.scaled_dot_product_attention(q_rows, d[0], d[1],
+                                              attn_mask=mask)
+    return call
+
+
+def _q8_decode_bytes(n_pos: int, n_new: int) -> int:
+    """Bytes of a decode step over int8 pools: q and the output, the new
+    rows and scales read and written, ``n_pos - n_new`` cached positions
+    of int8 K/V and their scales, the tables."""
+    per_pos = 2 * GD + 2 * HKV * 2
+    return (2 * B * H * D * 2 + 2 * (2 * B * GD + 2 * B * HKV * 2)
+            + (n_pos - n_new) * per_pos + B * MP * 4 + 2 * B * 4)
+
+
+def _kernel_fused_decode_q8(state, gen, pools) -> None:
+    """Kernel 5 on kernel 1's decode rows (six live across page edges,
+    one inactive, one empty) over the served int8 pools, layer 3; the
+    new rows quantized by the port's quantize_kv_rows as the route
+    does."""
+    import torch
+
+    from llmq_tpu_torch.ops import kernels
+
+    dev = pools[0].device
+    q, kn, vn, bt, sl, wp, live_lens = _decode_inputs(gen, dev, True)
+    (kq, ks), (vq, vs) = _q8_rows(kn), _q8_rows(vn)
+    layer = 3
+    p1 = [t.clone() for t in pools]
+    p2 = [t.clone() for t in pools]
+    out_k = kernels.fused_decode_q8(q, kq, ks, vq, vs, *p1, bt, sl, wp,
+                                    layer)
+    torch.cuda.synchronize()
+    out_p = kernels.fused_decode_q8_plain(q, kq, ks, vq, vs, *p2, bt, sl, wp,
+                                          layer)
+    nl = len(live_lens)
+    if not torch.isfinite(out_k).all():
+        raise AssertionError("fused_decode_q8: non-finite output")
+    err = (out_k[:nl].float() - out_p[:nl].float()).abs().max().item()
+    if err > Q8_ATOL:
+        raise AssertionError(f"fused_decode_q8: max err {err} > {Q8_ATOL}")
+    if out_k[7].abs().max().item() != 0.0:
+        raise AssertionError("fused_decode_q8: zero-length row is not 0")
+    if not all(torch.equal(a, b) for a, b in zip(p1, p2)):
+        raise AssertionError("fused_decode_q8: pools or scale pools differ "
+                             "from the twin")
+    del p2
+    ms = device_ms(lambda i: kernels.fused_decode_q8(
+        q, kq, ks, vq, vs, *p1, bt, sl, wp, i % L_POOL))
+    plain_ms = device_ms(lambda i: kernels.fused_decode_q8_plain(
+        q, kq, ks, vq, vs, *p1, bt, sl, wp, i % L_POOL), iters=5, warmup=1)
+    S = max(live_lens)
+    mask = (torch.arange(S, device=dev)[None, :]
+            < sl[:, None].to(torch.long))[:, None, None, :]
+    mask[sl == 0] = True                 # SDPA needs a visible key per row
+    lib = _sdpa_q8(gen, dev, q.reshape(B, HKV, H // HKV, D), S, mask)
+    lib_ms = device_ms(lambda i: lib())
+    del p1, lib
+    n_pos = sum(live_lens) + 5
+    bms, by = bound(_q8_decode_bytes(n_pos, 7), n_pos * H * 4 * D)
+    _record(state, "fused_decode_q8", "llmq_tpu_torch/csrc/fused_decode.cu",
+            "llmq_tpu/ops/pallas/fused_decode.py:774", err, ms, plain_ms,
+            bms, by, lib_ms)
+
+
+def _kernel_ragged_q8(state, gen, pools) -> None:
+    """Kernel 7 at kernel 6's mixed shapes (the 8 decode rows, slices of
+    100 and 37 tokens at positions 0 and 300, an unused slice row, N=144)
+    over the served int8 pools, layer 4; the slices' int8 K/V and scales
+    are the pool's own."""
+    import torch
+
+    from llmq_tpu_torch.ops import kernels
+
+    dev = pools[0].device
+    q, kn, vn, q_pf, args, live, live_lens = _ragged_inputs(gen, dev)
+    (kq, ks), (vq, vs) = _q8_rows(kn), _q8_rows(vn)
+    layer = 4
+    p1 = [t.clone() for t in pools]
+    p2 = [t.clone() for t in pools]
+    d_k, p_k = kernels.ragged_mixed_attention_q8(q, kq, ks, vq, vs, q_pf,
+                                                 *p1, *args, layer)
+    torch.cuda.synchronize()
+    d_p, p_p = kernels.ragged_mixed_attention_q8_plain(q, kq, ks, vq, vs,
+                                                       q_pf, *p2, *args,
+                                                       layer)
+    if not (torch.isfinite(d_k).all() and torch.isfinite(p_k).all()):
+        raise AssertionError("ragged_mixed_attention_q8: non-finite output")
+    err = max((d_k[:7].float() - d_p[:7].float()).abs().max().item(),
+              (p_k[live].float() - p_p[live].float()).abs().max().item())
+    if err > Q8_ATOL:
+        raise AssertionError(f"ragged_mixed_attention_q8: max err {err} > "
+                             f"{Q8_ATOL}")
+    if d_k[7].abs().max().item() != 0.0 or \
+            p_k[~live].abs().max().item() != 0.0:
+        raise AssertionError("ragged_mixed_attention_q8: empty decode row "
+                             "or rows outside the slices are not 0")
+    if not all(torch.equal(a, b) for a, b in zip(p1, p2)):
+        raise AssertionError("ragged_mixed_attention_q8: pools or scale "
+                             "pools differ from the twin")
+    del p2
+    ms = device_ms(lambda i: kernels.ragged_mixed_attention_q8(
+        q, kq, ks, vq, vs, q_pf, *p1, *args, i % L_POOL))
+    plain_ms = device_ms(lambda i: kernels.ragged_mixed_attention_q8_plain(
+        q, kq, ks, vq, vs, q_pf, *p1, *args, i % L_POOL), iters=5, warmup=1)
+    # Library yardstick: kernel 5's two calls for the decode rows, plus
+    # the two calls (dequantize, causal SDPA) per live slice.
+    S, sl = max(live_lens), args[1][:B]
+    mask = (torch.arange(S, device=dev)[None, :]
+            < sl[:, None].to(torch.long))[:, None, None, :]
+    mask[sl == 0] = True
+    calls = [_sdpa_q8(gen, dev, q.reshape(B, HKV, H // HKV, D), S, mask)]
+    n_rep = H // HKV
+    for st, n, off in RAGGED_SLICES:
+        if not n:
+            continue
+        qpos = (st + torch.arange(n, device=dev)).repeat_interleave(n_rep)
+        amask = torch.arange(st + n, device=dev)[None, :] <= qpos[:, None]
+        qh = (q_pf[off:off + n].reshape(n, HKV, n_rep, D).permute(1, 0, 2, 3)
+              .reshape(1, HKV, n * n_rep, D).contiguous())
+        calls.append(_sdpa_q8(gen, dev, qh, st + n, amask))
+    lib_ms = device_ms(lambda i: [c() for c in calls])
+    del calls, p1
+    n_pos = sum(live_lens) + 5
+    pf_pos = sum(st + n for st, n, _ in RAGGED_SLICES)
+    pairs = sum(st + t + 1 for st, n, _ in RAGGED_SLICES for t in range(n))
+    bytes_moved = (_q8_decode_bytes(n_pos, 7) + 2 * RAGGED_N * H * D * 2
+                   + pf_pos * (2 * GD + 2 * HKV * 2)
+                   + 3 * MP * 4 + 3 * 4 * 4)
+    bms, by = bound(bytes_moved, (n_pos + pairs) * H * 4 * D)
+    _record(state, "ragged_mixed_attention_q8",
+            "llmq_tpu_torch/csrc/ragged_attention.cu",
+            "llmq_tpu/ops/pallas/ragged_paged_attention.py:1042", err, ms,
+            plain_ms, bms, by, lib_ms)
+
+
+def _int_mm_layouts(state) -> None:
+    """The int8 GEMM behind ``qdot``: cuBLAS (``torch._int_mm``) at
+    decode's rows (8, padded to 32 by ``ops/quant._int_mm``) and a
+    mixed step's (144), llama3-8b's wq (4096 x 4096) and w_up (4096 x
+    14336), with the weight row major and column major (the layout
+    ``quantize_weight`` stores). Device time per call (CUDA events over
+    50 calls)."""
+    import torch
+
+    from llmq_tpu_torch.ops.quant import _int_mm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    res = {}
+    for n_out in (4096, 14336):
+        w = torch.randint(-127, 128, (4096, n_out), generator=gen,
+                          device=dev, dtype=torch.int8)
+        layouts = {"row": w, "col": w.t().contiguous().t()}
+        for m in (8, 144):
+            a = torch.randint(-127, 128, (m, 4096), generator=gen,
+                              device=dev, dtype=torch.int8)
+            for name, wl in layouts.items():
+                for _ in range(3):
+                    _int_mm(a, wl)
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                for _ in range(50):
+                    _int_mm(a, wl)
+                e1.record()
+                torch.cuda.synchronize()
+                res[f"m{m}_n{n_out}_{name}_ms"] = e0.elapsed_time(e1) / 50
+        del w, layouts
+    state["int_mm"] = res
+    log("[kernels] _int_mm (rows x 4096) x (4096 x N), ms per call: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in res.items()) + f" ({CARD})")
 
 
 def _long_context_timings() -> None:
@@ -587,6 +867,38 @@ def phase_split(state) -> None:
 
 
 def phase_model(state) -> None:
+    from llmq_tpu_torch.ops import kernels
+
+    for q8, tol in ((False, MODEL_ATOL), (True, MODEL_Q8_ATOL)):
+        kernels.reset_launches()
+        worst = _model_card_vs_cpu(q8)
+        if worst > tol:
+            raise AssertionError(f"model ({'int8' if q8 else 'bf16'}): card "
+                                 f"vs CPU logits differ by {worst}")
+        want = ("fused_decode_q8", "ragged_mixed_attention_q8") if q8 else (
+            "fused_decode", "prefill_attention", "ragged_mixed_attention")
+        for name in want:
+            if kernels.LAUNCHES[name] <= 0:
+                raise AssertionError(f"model: {name} did not launch")
+        log(f"[model] {'int8 weights + int8 KV' if q8 else 'bf16'} tiny "
+            f"model (D=128, n_rep=2): prefill, decode, forward_mixed and "
+            f"forward_mixed_ragged card vs CPU logits max_abs_err "
+            f"{worst:.3g} (tolerance {tol})")
+
+
+def _to_cuda(tree):
+    """A parameter tree on the card, each leaf's strides kept."""
+    if isinstance(tree, dict):
+        return {k: _to_cuda(v) for k, v in tree.items()}
+    return tree.cuda()
+
+
+def _model_card_vs_cpu(q8: bool) -> float:
+    """A 2-layer model with the card's head geometry (D=128, n_rep=2),
+    random weights from seed 0, run on the card and on the CPU (plain
+    twins): prefill with a continuation chunk, four decode steps, a
+    bucket mixed step and a ragged mixed step. ``q8``: int8 weights and
+    int8 KV pools. Returns the largest logit difference."""
     import numpy as np
     import torch
 
@@ -594,17 +906,19 @@ def phase_model(state) -> None:
                                              forward_mixed,
                                              forward_mixed_ragged,
                                              forward_prefill, get_config,
-                                             init_kv_pages, init_params)
+                                             init_kv_pages, init_params,
+                                             init_params_quantized)
 
     cfg = get_config("llama3-tiny", dim=512, n_heads=4, n_kv_heads=2,
                      n_layers=2, vocab_size=512, max_seq_len=256)
-    params_c = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    params_g = {k: ({kk: vv.cuda() for kk, vv in v.items()}
-                    if isinstance(v, dict) else v.cuda())
-                for k, v in params_c.items()}
+    init = init_params_quantized if q8 else init_params
+    params_c = init(cfg, torch.Generator().manual_seed(0), "cpu")
+    params_g = _to_cuda(params_c)
     rng = np.random.default_rng(0)
     worst = 0.0
-    caches = {d: init_kv_pages(cfg, 24, PS, d) for d in ("cpu", "cuda")}
+    caches = {d: init_kv_pages(cfg, 24, PS, d,
+                               dtype=torch.int8 if q8 else None)
+              for d in ("cpu", "cuda")}
     bt = np.zeros((1, 16), np.int32)
     bt[0, :6] = [3, 7, 1, 9, 4, 12]
 
@@ -685,11 +999,7 @@ def phase_model(state) -> None:
             worst = max(worst, (a - b).abs().max().item())
         tok = int(res["cpu"][0][0].argmax())
         pos += 1
-    if worst > MODEL_ATOL:
-        raise AssertionError(f"model: card vs CPU logits differ by {worst}")
-    log(f"[model] bf16 tiny model (D=128, n_rep=2): prefill, decode, "
-        f"forward_mixed and forward_mixed_ragged card vs CPU logits "
-        f"max_abs_err {worst:.3g} (tolerance {MODEL_ATOL})")
+    return worst
 
 
 def _http(method, url, body=None):
@@ -698,6 +1008,20 @@ def _http(method, url, body=None):
                                  headers={"Content-Type": "application/json"})
     with urllib.request.urlopen(req, timeout=30) as resp:
         return resp.status, json.loads(resp.read())
+
+
+#: Deadline of every smoke message: the smoke checks that requests
+#: complete; latency is measured separately (the 30 s default is a
+#: latency bound, which an eager int8 step on a slow host can miss).
+MESSAGE_TIMEOUT_S = 600.0
+
+
+def _post(base, body) -> str:
+    """POST one message (with MESSAGE_TIMEOUT_S); returns its id."""
+    status, r = _http("POST", f"{base}/api/v1/messages",
+                      {**body, "timeout": MESSAGE_TIMEOUT_S})
+    assert status == 202, r
+    return r["message_id"]
 
 
 def _poll(base, mid, timeout=600.0):
@@ -745,11 +1069,9 @@ def _coexisting_mix(base, engine, tag: str) -> list:
     finished messages."""
     mids = []
     for i in range(2):
-        status, r = _http("POST", f"{base}/api/v1/messages", {
+        mids.append(_post(base, {
             "content": f"{tag} decoder {i}: write a long story.",
-            "priority": "normal", "metadata": {"max_new_tokens": 64}})
-        assert status == 202, r
-        mids.append(r["message_id"])
+            "priority": "normal", "metadata": {"max_new_tokens": 64}}))
     deadline = time.time() + 120
     while _decoding_rows(engine) < 2 and time.time() < deadline:
         time.sleep(0.005)
@@ -758,11 +1080,9 @@ def _coexisting_mix(base, engine, tag: str) -> list:
     for i in range(4):
         text = (f"{tag} long prompt {i}. " + "The queue holds requests of "
                 "four priorities and serves them in order. " * 12)[:600]
-        status, r = _http("POST", f"{base}/api/v1/messages", {
+        mids.append(_post(base, {
             "content": text, "priority": ("low", "high")[i % 2],
-            "metadata": {"max_new_tokens": 16}})
-        assert status == 202, r
-        mids.append(r["message_id"])
+            "metadata": {"max_new_tokens": 16}}))
     return [_poll(base, m) for m in mids]
 
 
@@ -806,8 +1126,6 @@ def _serve_default(state):
 
     from llmq_tpu_torch.__main__ import App
     from llmq_tpu_torch.engine.builder import build_engine
-    from llmq_tpu_torch.engine.engine import (GenRequest,
-                                              realtime_admission_cap)
     from llmq_tpu_torch.ops import kernels
 
     cfg = _serve_cfg()
@@ -834,20 +1152,16 @@ def _serve_default(state):
         mids = []
         for i, prio in enumerate(["realtime", "high", "normal", "low",
                                   "normal", "high"]):
-            status, r = _http("POST", f"{base}/api/v1/messages", {
+            mids.append(_post(base, {
                 "content": f"Request {i} at {prio} priority: summarise the "
                            f"state of the queue in one line.",
-                "priority": prio, "metadata": {"max_new_tokens": 32}})
-            assert status == 202, r
-            mids.append(r["message_id"])
+                "priority": prio, "metadata": {"max_new_tokens": 32}}))
         turns = []
         for text in ("Hello! Tell me about paged attention, please.",
                      " And now say it again, but shorter."):
-            status, r = _http("POST", f"{base}/api/v1/messages", {
+            turns.append(_poll(base, _post(base, {
                 "content": text, "conversation_id": "smoke-conv",
-                "priority": "high", "metadata": {"max_new_tokens": 32}})
-            assert status == 202, r
-            turns.append(_poll(base, r["message_id"]))
+                "priority": "high", "metadata": {"max_new_tokens": 32}})))
         results = [_poll(base, m) for m in mids] + turns
         mixed0 = engine.mixed_steps
         results += _coexisting_mix(base, engine, "bucket")
@@ -872,45 +1186,14 @@ def _serve_default(state):
             f"launches {launches} ({CARD})")
 
         # -- latency and rate, straight through the engine -----------------
-        ttft, rate1, prompt_tokens = _b1_rates(engine)
-        prompt = "The quick brown fox jumps over the lazy dog. " * 2
-        hs = [engine.submit(GenRequest(id=f"b{i}", prompt=f"{i}: " + prompt,
-                                       max_new_tokens=32)) for i in range(8)]
-        for x in hs:
-            assert x.wait(300), "batch request timed out"
-        t_first = min(x.submitted_at for x in hs)
-        t_last = max(x.finished_at for x in hs)
-        ntok = sum(len(x.result.tokens) for x in hs)
-        per_req = [(len(x.result.tokens) - 1)
-                   / (x.finished_at - x.marks["first_token"]) for x in hs]
-        # The realtime admission cap comes from the executor's measured
-        # step time: show both, as a waiting REALTIME request sees them.
-        step_ms = engine.executor.step_ms
-        if not step_ms or step_ms <= 0:
-            raise AssertionError(f"executor step time not measured: {step_ms}")
-        cap = realtime_admission_cap(step_ms)
-        log(f"[serve] executor step time {step_ms:.2f} ms (moving average); "
-            f"realtime admission cap {cap} steps ({CARD})")
-        state["serve"] = {"ttft_ms_b1": ttft * 1e3, "decode_tok_s_b1": rate1,
-                          "tok_s_b8_e2e": ntok / (t_last - t_first),
-                          "decode_tok_s_per_req_b8":
-                              sum(per_req) / len(per_req),
-                          "prompt_tokens_b1": prompt_tokens,
-                          "executor_step_ms": step_ms,
-                          "realtime_admission_cap_steps": cap}
-        log(f"[serve] llama3-8b bf16: TTFT {ttft * 1e3:.1f} ms (B=1, "
-            f"{prompt_tokens}-token prompt); decode {rate1:.1f} "
-            f"tok/s (B=1); 8 concurrent: {ntok / (t_last - t_first):.1f} "
-            f"tok/s end to end, {sum(per_req) / len(per_req):.1f} tok/s per "
-            f"request after its first token ({CARD})")
+        state["serve"] = _rates(engine, "serve", "bf16")
 
         # -- the split decode route, driven through REST -------------------
         engine.executor.fused_decode = False
         kernels.reset_launches()
-        status, r = _http("POST", f"{base}/api/v1/messages", {
+        m = _poll(base, _post(base, {
             "content": "Split route check.", "priority": "normal",
-            "metadata": {"max_new_tokens": 16}})
-        m = _poll(base, r["message_id"])
+            "metadata": {"max_new_tokens": 16}}))
         torch.cuda.synchronize()
         engine.executor.fused_decode = True
         split = dict(kernels.LAUNCHES)
@@ -922,13 +1205,50 @@ def _serve_default(state):
             state["kernels"][name]["launches"] = split[name]
         log(f"[serve] split decode route request completed; launches "
             f"{split}")
-        _decode_breakdown(engine, state)
-        _mixed_timing(engine, state, "bucket")
+        _decode_breakdown(engine, state["serve"])
+        _mixed_timing(engine, state["serve"], "bucket")
         log(f"[serve] peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({CARD})")
     finally:
         app.stop()
     return engine.executor.model.params
+
+
+def _rates(engine, tag: str, what: str) -> dict:
+    """TTFT and decode rate at B=1, the rate of 8 concurrent requests (90
+    prompt tokens, 32 new each), and the executor's measured step time
+    with the realtime admission cap it sets."""
+    from llmq_tpu_torch.engine.engine import GenRequest, realtime_admission_cap
+
+    ttft, rate1, prompt_tokens = _b1_rates(engine)
+    prompt = "The quick brown fox jumps over the lazy dog. " * 2
+    hs = [engine.submit(GenRequest(id=f"{tag}-b{i}", prompt=f"{i}: " + prompt,
+                                   max_new_tokens=32)) for i in range(8)]
+    for x in hs:
+        assert x.wait(300), "batch request timed out"
+    t_first = min(x.submitted_at for x in hs)
+    t_last = max(x.finished_at for x in hs)
+    ntok = sum(len(x.result.tokens) for x in hs)
+    per_req = [(len(x.result.tokens) - 1)
+               / (x.finished_at - x.marks["first_token"]) for x in hs]
+    # The realtime admission cap comes from the executor's measured step
+    # time: show both, as a waiting REALTIME request sees them.
+    step_ms = engine.executor.step_ms
+    if not step_ms or step_ms <= 0:
+        raise AssertionError(f"executor step time not measured: {step_ms}")
+    cap = realtime_admission_cap(step_ms)
+    log(f"[{tag}] executor step time {step_ms:.2f} ms (moving average); "
+        f"realtime admission cap {cap} steps ({CARD})")
+    log(f"[{tag}] llama3-8b {what}: TTFT {ttft * 1e3:.1f} ms (B=1, "
+        f"{prompt_tokens}-token prompt); decode {rate1:.1f} tok/s (B=1); 8 "
+        f"concurrent: {ntok / (t_last - t_first):.1f} tok/s end to end, "
+        f"{sum(per_req) / len(per_req):.1f} tok/s per request after its "
+        f"first token ({CARD})")
+    return {"ttft_ms_b1": ttft * 1e3, "decode_tok_s_b1": rate1,
+            "tok_s_b8_e2e": ntok / (t_last - t_first),
+            "decode_tok_s_per_req_b8": sum(per_req) / len(per_req),
+            "prompt_tokens_b1": prompt_tokens, "executor_step_ms": step_ms,
+            "realtime_admission_cap_steps": cap}
 
 
 def _serve_cfg():
@@ -970,21 +1290,17 @@ def _serve_ragged(state, params) -> None:
         t_rest = time.perf_counter()
         mids = []
         for i, prio in enumerate(["realtime", "high", "normal", "low"]):
-            status, r = _http("POST", f"{base}/api/v1/messages", {
+            mids.append(_post(base, {
                 "content": f"Ragged request {i} at {prio} priority: summarise "
                            f"the state of the queue in one line.",
-                "priority": prio, "metadata": {"max_new_tokens": 32}})
-            assert status == 202, r
-            mids.append(r["message_id"])
+                "priority": prio, "metadata": {"max_new_tokens": 32}}))
         results = _coexisting_mix(base, engine, "ragged")
         turns = []
         for text in ("Hello! Tell me about ragged attention, please.",
                      " And now say it again, but shorter."):
-            status, r = _http("POST", f"{base}/api/v1/messages", {
+            turns.append(_poll(base, _post(base, {
                 "content": text, "conversation_id": "ragged-conv",
-                "priority": "high", "metadata": {"max_new_tokens": 32}})
-            assert status == 202, r
-            turns.append(_poll(base, r["message_id"]))
+                "priority": "high", "metadata": {"max_new_tokens": 32}})))
         results += [_poll(base, m) for m in mids] + turns
         torch.cuda.synchronize()
         rest_s = time.perf_counter() - t_rest
@@ -1017,12 +1333,12 @@ def _serve_ragged(state, params) -> None:
         log(f"[serve-ragged] llama3-8b bf16: TTFT {ttft * 1e3:.1f} ms (B=1, "
             f"{n_prompt}-token prompt, ragged prefill); decode {rate1:.1f} "
             f"tok/s (B=1) ({CARD})")
-        _mixed_timing(engine, state, "ragged")
+        _mixed_timing(engine, state["serve"], "ragged")
     finally:
         app.stop()
 
 
-def _mixed_timing(engine, state, tag: str) -> None:
+def _mixed_timing(engine, out: dict, tag: str) -> None:
     """Wall and device-busy time per step of one mixed chunk (B=8 decode
     rows at 64 positions, K=16 steps, two 64-token prompt slices in step
     0), against the unfused order the engine used before mixed batching:
@@ -1030,7 +1346,6 @@ def _mixed_timing(engine, state, tag: str) -> None:
     chunk."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     ex = engine.executor
     B, K, MPs = ex.spec.batch_size, ex.chunk_size, ex.spec.max_pages_per_seq
@@ -1054,18 +1369,14 @@ def _mixed_timing(engine, state, tag: str) -> None:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        return wall, _device_us(prof) / 1e3
+        return wall, _device_us(_device_trace(fn)) / 1e3
 
     mixed_wall, mixed_busy = timed(lambda: ex.mixed_chunk(*args, pf))
     unfused_wall, unfused_busy = timed(lambda: (
         ex.prefill(pf[0][1] + pf[1][1], 0, pf_bt[0], 0.0, 0),
         ex.decode_chunk(*args)))
     engine.allocator.free(pages)
-    state["serve"].update({
+    out.update({
         f"{tag}_mixed_chunk_wall_ms_per_step": mixed_wall / K,
         f"{tag}_mixed_chunk_device_ms_per_step": mixed_busy / K,
         f"{tag}_prefill128_then_decode_chunk_wall_ms": unfused_wall,
@@ -1077,13 +1388,12 @@ def _mixed_timing(engine, state, tag: str) -> None:
         f"{unfused_busy:.1f} ms device busy ({CARD})")
 
 
-def _decode_breakdown(engine, state) -> None:
+def _decode_breakdown(engine, out: dict, tag: str = "serve") -> None:
     """Where one B=8, 16-step decode chunk of the served model spends its
     time: host wall per step, device busy per step (sum of the kernels'
     device time in a torch.profiler trace) and the top kernels."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     ex = engine.executor
     B, K = ex.spec.batch_size, ex.chunk_size
@@ -1099,29 +1409,169 @@ def _decode_breakdown(engine, state) -> None:
     ex.decode_chunk(*args)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / K
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        ex.decode_chunk(*args)
-        torch.cuda.synchronize()
+    prof = _device_trace(lambda: ex.decode_chunk(*args))
     engine.allocator.free(pages)
     rows = sorted(((e.self_device_time_total, e.key, e.count)
                    for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA),
                   reverse=True)
     busy_ms = _device_us(prof) / 1e3 / K
-    state["serve"].update({"decode_step_wall_ms_b8": wall_ms,
-                           "decode_step_device_busy_ms_b8": busy_ms})
-    log(f"[serve] decode chunk B={B} K={K}: {wall_ms:.2f} ms/step wall, "
+    n_kernels = sum(count for _us, _key, count in rows) / K
+    out.update({"decode_step_wall_ms_b8": wall_ms,
+                "decode_step_device_busy_ms_b8": busy_ms,
+                "decode_step_kernel_launches_b8": n_kernels})
+    log(f"[{tag}] decode chunk B={B} K={K}: {wall_ms:.2f} ms/step wall, "
         f"{busy_ms:.2f} ms/step device busy "
-        f"({100 * busy_ms / wall_ms:.0f}% busy) ({CARD})")
+        f"({100 * busy_ms / wall_ms:.0f}% busy), {n_kernels:.0f} kernel "
+        f"launches a step ({CARD})")
     for dev_us, key, count in rows[:10]:
-        log(f"[serve]   {dev_us / 1e3 / K:8.3f} ms/step  {count // K:5d} "
+        log(f"[{tag}]   {dev_us / 1e3 / K:8.3f} ms/step  {count // K:5d} "
             f"calls/step  {key[:90]}")
+
+
+#: Kernels that must not launch in an int8-KV engine: the bf16 pools'
+#: kernels. The int8 prefill write and attention are plain scatters and
+#: dequantize-and-attend, as in the JAX package.
+BF16_ONLY = ("fused_decode", "kv_prefill_write", "prefill_attention",
+             "kv_cache_write", "ragged_mixed_attention",
+             "paged_decode_attention")
+
+
+def phase_serve_int8(state) -> None:
+    """llama3-8b with int8 weights (random, from seed 0, quantized leaf by
+    leaf) and int8 KV pools at full width and depth: the default engine
+    (mixed batching, bucket steps) and then a second engine on the same
+    weights with ragged attention on, each serving the REST mix of the
+    bf16 engines. No ``*_plain`` twin may be called."""
+    import gc
+
+    import torch
+
+    gc.collect()                      # the bf16 engines are gone: free
+    torch.cuda.empty_cache()          # their weights before the int8 ones
+    torch.cuda.reset_peak_memory_stats()
+    state["serve_int8"] = {}
+    counts, restore = _count_plain_calls()
+    try:
+        params = _serve_int8(state, ragged=False, params=None)
+        _serve_int8(state, ragged=True, params=params)
+    finally:
+        restore()
+    state["serve_int8"]["plain_twin_calls"] = sum(counts.values())
+    if counts:
+        raise AssertionError(f"int8 serving called plain twins: {counts}")
+    peak = torch.cuda.max_memory_allocated()
+    state["serve_int8"]["peak_memory_gib"] = peak / 2**30
+    log(f"[serve-int8] no *_plain twin was called; peak memory "
+        f"{peak / 2**30:.2f} GiB over both int8 engines ({CARD})")
+
+
+def _serve_int8(state, *, ragged: bool, params):
+    """One int8 engine through REST: build, warm up, then (launch counts
+    zeroed) the six-message mix, a two-turn conversation and the
+    coexisting-prompt mix; every request must complete, turn 2 report
+    cached tokens and mixed steps run; kernel 5 (and with ragged on,
+    kernel 7) must launch and no bf16 kernel may. Then rates and (bucket
+    engine) the decode breakdown. Returns the weights."""
+    import torch
+
+    from llmq_tpu_torch.__main__ import App
+    from llmq_tpu_torch.engine.builder import build_engine
+    from llmq_tpu_torch.ops import kernels
+    from llmq_tpu_torch.ops.quant import params_bytes
+
+    tag = "serve-int8-ragged" if ragged else "serve-int8"
+    out = state["serve_int8"]
+    pre = "ragged_" if ragged else ""
+    cfg = _serve_cfg()
+    cfg.model.quantization = "int8"
+    cfg.model.kv_quantization = "int8"
+    cfg.executor.ragged_attention.enabled = ragged
+    t0 = time.perf_counter()
+    engine = build_engine(cfg, params=params)
+    torch.cuda.synchronize()
+    ex = engine.executor
+    weights = params_bytes(ex.model.params)
+    pool = sum(t.numel() * t.element_size() for t in ex.cache.values())
+    out[pre + "build_s"] = time.perf_counter() - t0
+    out["weight_bytes"] = weights
+    out["kv_pool_bytes"] = pool
+    log(f"[{tag}] built llama3-8b int8 weights + int8 KV in "
+        f"{time.perf_counter() - t0:.1f} s: weights {weights / 1e9:.3f} GB, "
+        f"pools {pool / 1e9:.3f} GB (int8 K/V + bf16 scales); memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB ({CARD})")
+    app = App(cfg, engine=engine)
+    port = app.start(host="127.0.0.1", port=0)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        engine.generate("warm up the int8 path", max_new_tokens=4)
+        torch.cuda.synchronize()
+        # -- the int8 path: REST -> queue -> worker -> engine -> kernels ---
+        kernels.reset_launches()
+        t_rest = time.perf_counter()
+        mids = []
+        for i, prio in enumerate(["realtime", "high", "normal", "low",
+                                  "normal", "high"]):
+            mids.append(_post(base, {
+                "content": f"int8 request {i} at {prio} priority: summarise "
+                           f"the state of the queue in one line.",
+                "priority": prio, "metadata": {"max_new_tokens": 32}}))
+        turns = []
+        for text in ("Hello! Tell me about int8 caches, please.",
+                     " And now say it again, but shorter."):
+            turns.append(_poll(base, _post(base, {
+                "content": text, "conversation_id": f"{tag}-conv",
+                "priority": "high", "metadata": {"max_new_tokens": 32}})))
+        results = [_poll(base, m) for m in mids] + turns
+        mixed0 = engine.mixed_steps
+        results += _coexisting_mix(base, engine, tag)
+        torch.cuda.synchronize()
+        rest_s = time.perf_counter() - t_rest
+        launches = dict(kernels.LAUNCHES)
+        tokens = _check_completed(results, tag)
+        cached = turns[1]["metadata"]["usage"]["cached_tokens"]
+        if cached <= 0:
+            raise AssertionError(f"{tag}: turn 2 reports cached_tokens="
+                                 f"{cached}")
+        if engine.mixed_steps <= mixed0:
+            raise AssertionError(f"{tag}: prefill and decode coexisted but "
+                                 f"no mixed step ran")
+        want = ["fused_decode_q8"] + (["ragged_mixed_attention_q8"]
+                                      if ragged else [])
+        for name in want:
+            if launches[name] <= 0:
+                raise AssertionError(f"{tag}: serving never launched {name}")
+        wrong = {n: launches[n] for n in BF16_ONLY if launches[n]}
+        if not ragged and launches["ragged_mixed_attention_q8"]:
+            wrong["ragged_mixed_attention_q8"] = \
+                launches["ragged_mixed_attention_q8"]
+        if wrong:
+            raise AssertionError(f"{tag}: bf16-pool kernels launched: {wrong}")
+        name = "ragged_mixed_attention_q8" if ragged else "fused_decode_q8"
+        state["kernels"][name]["launches"] = launches[name]
+        out[pre + "rest_requests"] = len(results)
+        out[pre + "rest_s"] = rest_s
+        out[pre + "mixed_steps"] = engine.mixed_steps
+        out[pre + "launches"] = {k: v for k, v in launches.items() if v}
+        log(f"[{tag}] {len(results)} REST requests completed in "
+            f"{rest_s:.2f} s, {tokens} tokens; turn 2 cached_tokens "
+            f"{cached}; mixed steps {engine.mixed_steps} "
+            f"({engine.mixed_prefill_tokens_total} prefill tokens); "
+            f"launches {out[pre + 'launches']} ({CARD})")
+        rates = _rates(engine, tag, "int8 weights + int8 KV"
+                       + (", ragged" if ragged else ""))
+        out.update({pre + k: v for k, v in rates.items()})
+        if not ragged:
+            _decode_breakdown(engine, out, tag)
+    finally:
+        app.stop()
+    return ex.model.params
 
 
 PHASES = [("env", phase_env), ("build", phase_build),
           ("kernels", phase_kernels), ("split", phase_split),
-          ("model", phase_model), ("serve", phase_serve)]
+          ("model", phase_model), ("serve", phase_serve),
+          ("serve-int8", phase_serve_int8)]
 
 
 def main() -> int:
@@ -1155,7 +1605,9 @@ def main() -> int:
         log(f"[{name}] done in {time.perf_counter() - t0:.1f} s")
     log(f"[all] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": list(state["kernels"].values()),
-                      "serve": state["serve"]}))
+                      "serve": state["serve"],
+                      "serve_int8": state["serve_int8"],
+                      "int_mm": state["int_mm"]}))
     print(CARD)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

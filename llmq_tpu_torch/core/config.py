@@ -64,6 +64,10 @@ class ModelConfig:
     name: str = "llama3-8b"      # llama3-tiny | llama3-1b | llama3-8b | llama3-70b
     max_seq_len: int = 2048
     vocab_size: int = 0          # 0 → model default
+    #: "" | "int8": w8a8 weights (per-channel int8, per-row activations).
+    quantization: str = ""
+    #: "" | "int8": int8 KV pools with per-(token, KV head) bf16 scales.
+    kv_quantization: str = ""
 
 
 @dataclass

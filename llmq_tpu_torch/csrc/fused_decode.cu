@@ -1,20 +1,30 @@
-// Fused decode step for Hopper (sm_90a): paged-KV write + GQA attention.
+// Fused decode step for Hopper (sm_90a): paged-KV write + GQA attention,
+// over bf16 pools (kernel 1) or int8 pools with bf16 scale pools
+// (kernel 5).
 //
-// Replaces fused_decode_attention_pallas (_fused_kernel) of
+// Replaces fused_decode_attention_pallas (_fused_kernel) and
+// fused_decode_attention_q8_pallas (_fused_kernel_q8) of
 // llmq_tpu/ops/pallas/fused_decode.py. For each decode row b it writes the
 // current token's K/V into slot (seq_len - 1) % page_size of
 // write_page[b] (in place; write_page == 0 marks an inactive row, whose
 // write lands in the reserved null page), then returns attention of the
 // row's H query heads over positions [0, seq_len) read through its block
-// table, the new token included.
+// table, the new token included. Over int8 pools the row arrives already
+// quantized (int8 K/V per (row, KV head) with one bf16 scale each, as the
+// JAX package quantizes it outside its kernel); the kernel writes the row
+// and its scales and dequantizes in registers: K scales multiply the
+// logits, V scales fold into the probabilities.
 //
 // One block per (row, KV head) runs decode_attend() (decode_attention.cuh,
 // shared with csrc/paged_decode.cu and csrc/ragged_attention.cu), which
 // also holds what bounds the kernel (bytes) and what the design does
 // about it. The write-then-read hazard: a block writes only its own
-// head's slice of the row and takes position seq_len - 1 from k_new /
-// v_new, never from the pool, so no block waits on another's write. A
-// row with seq_len == 0 attends to nothing and returns zeros.
+// head's slice of the row (and its scales) and takes position
+// seq_len - 1 from the new row, never from the pool, so no block waits on
+// another's write. A row with seq_len == 0 attends to nothing and returns
+// zeros. None of the TPU kernel's page DMA, pre-broadcast scale pages or
+// block-diagonal q is carried over, and no page-size or head-count limit
+// of Mosaic applies: any page size, D in {64, 128}, n_rep in {1, 2, 4, 8}.
 
 #include "decode_attention.cuh"
 
@@ -22,13 +32,18 @@ namespace {
 
 constexpr int kWarps = 8;
 
-template <int D, int NREP>
+// kns / vns and the scale pools are nullptr for bf16 pools.
+template <int D, int NREP, typename T>
 __global__ void __launch_bounds__(kWarps * 32)
 fused_decode_kernel(const __nv_bfloat16* __restrict__ q,      // (B, H, D)
-                    const __nv_bfloat16* __restrict__ k_new,  // (B, GD)
-                    const __nv_bfloat16* __restrict__ v_new,  // (B, GD)
-                    __nv_bfloat16* k_pool,                    // (L, P, ps, GD)
-                    __nv_bfloat16* v_pool,
+                    const T* __restrict__ k_new,              // (B, GD)
+                    const T* __restrict__ v_new,              // (B, GD)
+                    const __nv_bfloat16* __restrict__ k_new_scale,  // (B, H_kv)
+                    const __nv_bfloat16* __restrict__ v_new_scale,
+                    T* k_pool,                                // (L, P, ps, GD)
+                    T* v_pool,
+                    __nv_bfloat16* ks_pool,                   // (L, P, H_kv, ps)
+                    __nv_bfloat16* vs_pool,
                     const int* __restrict__ block_tables,     // (B, MP)
                     const int* __restrict__ seq_lens,         // (B,)
                     const int* __restrict__ write_page,       // (B,)
@@ -40,34 +55,66 @@ fused_decode_kernel(const __nv_bfloat16* __restrict__ q,      // (B, H, D)
   const int g = blockIdx.y;
   const int gd = n_kv_heads * D;
   const size_t hd = (size_t)n_kv_heads * NREP * D;
-  llmq::decode_attend<D, NREP, kWarps>(
+  const size_t si = (size_t)b * n_kv_heads + g;
+  llmq::decode_attend<D, NREP, kWarps, T>(
       q + b * hd, k_new + (size_t)b * gd + g * D,
-      v_new + (size_t)b * gd + g * D, k_pool, v_pool,
-      block_tables + (size_t)b * max_pages, seq_lens[b], write_page[b],
-      out + b * hd, g, layer, num_pages, page_size, max_pages, gd, scale,
-      smem);
+      v_new + (size_t)b * gd + g * D,
+      k_new_scale ? k_new_scale + si : nullptr,
+      v_new_scale ? v_new_scale + si : nullptr, k_pool, v_pool, ks_pool,
+      vs_pool, block_tables + (size_t)b * max_pages, seq_lens[b],
+      write_page[b], out + b * hd, g, layer, num_pages, page_size, max_pages,
+      gd, scale, smem);
 }
 
-template <int D, int NREP>
+template <int D, int NREP, typename T>
 void launch(const void* q, const void* k_new, const void* v_new,
-            void* k_pool, void* v_pool, const void* block_tables,
-            const void* seq_lens, const void* write_page, void* out,
-            int batch, int layer, int num_pages, int page_size,
-            int max_pages, int n_kv_heads, float scale, cudaStream_t stream) {
-  fused_decode_kernel<D, NREP><<<dim3(batch, n_kv_heads), kWarps * 32, 0,
-                                 stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_new,
-      (const __nv_bfloat16*)v_new, (__nv_bfloat16*)k_pool,
-      (__nv_bfloat16*)v_pool, (const int*)block_tables,
+            const void* k_new_scale, const void* v_new_scale, void* k_pool,
+            void* v_pool, void* ks_pool, void* vs_pool,
+            const void* block_tables, const void* seq_lens,
+            const void* write_page, void* out, int batch, int layer,
+            int num_pages, int page_size, int max_pages, int n_kv_heads,
+            float scale, cudaStream_t stream) {
+  fused_decode_kernel<D, NREP, T><<<dim3(batch, n_kv_heads), kWarps * 32, 0,
+                                    stream>>>(
+      (const __nv_bfloat16*)q, (const T*)k_new, (const T*)v_new,
+      (const __nv_bfloat16*)k_new_scale, (const __nv_bfloat16*)v_new_scale,
+      (T*)k_pool, (T*)v_pool, (__nv_bfloat16*)ks_pool,
+      (__nv_bfloat16*)vs_pool, (const int*)block_tables,
       (const int*)seq_lens, (const int*)write_page, (__nv_bfloat16*)out,
       layer, num_pages, page_size, max_pages, n_kv_heads, scale);
 }
 
+// Dispatch on the head geometry; cudaErrorInvalidValue for one without
+// an instantiation (D in {64, 128}, n_rep in {1, 2, 4, 8}).
+template <typename T>
+int dispatch(const void* q, const void* k_new, const void* v_new,
+             const void* k_new_scale, const void* v_new_scale, void* k_pool,
+             void* v_pool, void* ks_pool, void* vs_pool,
+             const void* block_tables, const void* seq_lens,
+             const void* write_page, void* out, int batch, int n_heads,
+             int n_kv_heads, int head_dim, int layer, int num_pages,
+             int page_size, int max_pages, float scale, void* stream) {
+  if (batch <= 0) return (int)cudaGetLastError();
+  const int n_rep = n_heads / n_kv_heads;
+  cudaStream_t s = (cudaStream_t)stream;
+#define LLMQ_CASE(DD, RR)                                                    \
+  if (head_dim == DD && n_rep == RR) {                                       \
+    launch<DD, RR, T>(q, k_new, v_new, k_new_scale, v_new_scale, k_pool,     \
+                      v_pool, ks_pool, vs_pool, block_tables, seq_lens,      \
+                      write_page, out, batch, layer, num_pages, page_size,   \
+                      max_pages, n_kv_heads, scale, s);                      \
+    return (int)cudaGetLastError();                                          \
+  }
+  LLMQ_CASE(128, 1) LLMQ_CASE(128, 2) LLMQ_CASE(128, 4) LLMQ_CASE(128, 8)
+  LLMQ_CASE(64, 1) LLMQ_CASE(64, 2) LLMQ_CASE(64, 4) LLMQ_CASE(64, 8)
+#undef LLMQ_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
-// for a head geometry without an instantiation (D in {64, 128},
-// n_rep in {1, 2, 4, 8}).
+// Kernel 1, bf16 pools. Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a head geometry without an instantiation.
 extern "C" int llmq_fused_decode(const void* q, const void* k_new,
                                  const void* v_new, void* k_pool,
                                  void* v_pool, const void* block_tables,
@@ -76,18 +123,24 @@ extern "C" int llmq_fused_decode(const void* q, const void* k_new,
                                  int n_kv_heads, int head_dim, int layer,
                                  int num_pages, int page_size, int max_pages,
                                  float scale, void* stream) {
-  if (batch <= 0) return (int)cudaGetLastError();
-  const int n_rep = n_heads / n_kv_heads;
-  cudaStream_t s = (cudaStream_t)stream;
-#define LLMQ_CASE(DD, RR)                                                    \
-  if (head_dim == DD && n_rep == RR) {                                       \
-    launch<DD, RR>(q, k_new, v_new, k_pool, v_pool, block_tables, seq_lens,  \
-                   write_page, out, batch, layer, num_pages, page_size,      \
-                   max_pages, n_kv_heads, scale, s);                         \
-    return (int)cudaGetLastError();                                          \
-  }
-  LLMQ_CASE(128, 1) LLMQ_CASE(128, 2) LLMQ_CASE(128, 4) LLMQ_CASE(128, 8)
-  LLMQ_CASE(64, 1) LLMQ_CASE(64, 2) LLMQ_CASE(64, 4) LLMQ_CASE(64, 8)
-#undef LLMQ_CASE
-  return (int)cudaErrorInvalidValue;
+  return dispatch<__nv_bfloat16>(
+      q, k_new, v_new, nullptr, nullptr, k_pool, v_pool, nullptr, nullptr,
+      block_tables, seq_lens, write_page, out, batch, n_heads, n_kv_heads,
+      head_dim, layer, num_pages, page_size, max_pages, scale, stream);
+}
+
+// Kernel 5, int8 pools: k_new_q / v_new_q (B, H_kv, D) int8 with scales
+// (B, H_kv) bf16; scale pools (L, P, H_kv, page_size) bf16.
+extern "C" int llmq_fused_decode_q8(
+    const void* q, const void* k_new_q, const void* k_new_scale,
+    const void* v_new_q, const void* v_new_scale, void* k_pool, void* v_pool,
+    void* ks_pool, void* vs_pool, const void* block_tables,
+    const void* seq_lens, const void* write_page, void* out, int batch,
+    int n_heads, int n_kv_heads, int head_dim, int layer, int num_pages,
+    int page_size, int max_pages, float scale, void* stream) {
+  return dispatch<int8_t>(
+      q, k_new_q, v_new_q, k_new_scale, v_new_scale, k_pool, v_pool, ks_pool,
+      vs_pool, block_tables, seq_lens, write_page, out, batch, n_heads,
+      n_kv_heads, head_dim, layer, num_pages, page_size, max_pages, scale,
+      stream);
 }

@@ -37,10 +37,10 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,    // (B, H, D)
   const size_t hd = (size_t)n_kv_heads * NREP * D;
   // No new token: decode_attend() neither writes nor reads kn / vn, so
   // the pools are passed through unchanged.
-  llmq::decode_attend<D, NREP, kWarps>(
-      q + b * hd, nullptr, nullptr, const_cast<__nv_bfloat16*>(k_pool),
-      const_cast<__nv_bfloat16*>(v_pool),
-      block_tables + (size_t)b * max_pages, seq_lens[b], -1, out + b * hd,
+  llmq::decode_attend<D, NREP, kWarps, __nv_bfloat16>(
+      q + b * hd, nullptr, nullptr, nullptr, nullptr,
+      const_cast<__nv_bfloat16*>(k_pool), const_cast<__nv_bfloat16*>(v_pool),
+      nullptr, nullptr, block_tables + (size_t)b * max_pages, seq_lens[b], -1, out + b * hd,
       g, layer, num_pages, page_size, max_pages, n_kv_heads * D, scale,
       smem);
 }

@@ -1,14 +1,23 @@
 // Ragged mixed attention for Hopper (sm_90a): ONE launch per layer for a
-// mixed prefill+decode step.
+// mixed prefill+decode step, over bf16 pools (kernel 6) or int8 pools
+// with bf16 scale pools (kernel 7).
 //
-// Replaces ragged_mixed_attention_pallas (_ragged_kernel) of
+// Replaces ragged_mixed_attention_pallas (_ragged_kernel) and
+// ragged_mixed_attention_q8_pallas (_ragged_kernel_q8) of
 // llmq_tpu/ops/pallas/ragged_paged_attention.py. Inputs: B decode rows
 // (one query token each, their new K/V not yet in the pool) and S prefill
 // slices packed back to back into one (N, H, D) query buffer, segment s
 // at rows [qoff[s], qoff[s] + qlen[s]), each segment starting on a
 // multiple of kQBlock = 8 (RAGGED_Q_BLOCK in ops/attention.py). Slice s's
-// K/V is already in its pages (kv_prefill_write runs first, on the same
-// stream), so the launch only reads for the slices.
+// K/V is already in its pages (kv_prefill_write, or the int8 scatter of
+// rows and scales, runs first on the same stream), so the launch only
+// reads for the slices.
+//
+// int8 pools: decode blocks are kernel 5's (pre-quantized rows and their
+// scales written, in-register dequant); slice blocks stage each int8 K/V
+// tile with its 2 x 32 scale entries in shared memory, then apply the K
+// scales to the logits and the V scales to the probabilities. Nothing
+// dequantized goes back to device memory.
 //
 // The grid is one dimension with two ranges of blocks:
 //  - decode blocks, one per (decode row b, KV head g): exactly kernel 1
@@ -56,7 +65,8 @@ constexpr int prefill_smem_floats() {
   return kQBlock * NREP * D        // Qs: the block's query rows, pre-scaled
          + kKeys * (D + 1)         // Ks: padded rows, conflict-free reads
          + kKeys * D               // Vs
-         + kWarps * NREP * kKeys;  // Ps: each warp's softmax weights
+         + kWarps * NREP * kKeys   // Ps: each warp's softmax weights
+         + 2 * kKeys;              // Ss: the tile's K and V scales (int8)
 }
 
 template <int D, int NREP>
@@ -66,10 +76,12 @@ constexpr int smem_floats() {
   return a > b ? a : b;
 }
 
-template <int D, int NREP>
+template <int D, int NREP, typename T>
 __device__ void prefill_block(const __nv_bfloat16* __restrict__ q_pf,
-                              const __nv_bfloat16* __restrict__ k_pool,
-                              const __nv_bfloat16* __restrict__ v_pool,
+                              const T* __restrict__ k_pool,
+                              const T* __restrict__ v_pool,
+                              const __nv_bfloat16* __restrict__ ks_pool,
+                              const __nv_bfloat16* __restrict__ vs_pool,
                               const int* __restrict__ block_tables,
                               const int* __restrict__ pf_qoff,
                               const int* __restrict__ pf_qlen,
@@ -78,6 +90,7 @@ __device__ void prefill_block(const __nv_bfloat16* __restrict__ q_pf,
                               int g, int batch, int n_slices, int layer,
                               int num_pages, int page_size, int max_pages,
                               int n_kv_heads, float scale, float* smem) {
+  constexpr bool Q8 = llmq::is_int8<T>::value;
   constexpr int DPL = D / 32;
   constexpr int KSTRIDE = D + 1;
   const int H = n_kv_heads * NREP;
@@ -112,6 +125,8 @@ __device__ void prefill_block(const __nv_bfloat16* __restrict__ q_pf,
   float* Ks = Qs + kQBlock * NREP * D;   // kKeys x (D + 1)
   float* Vs = Ks + kKeys * KSTRIDE;      // kKeys x D
   float* P = Vs + kKeys * D + warp * NREP * kKeys;  // this warp's NREP x kKeys
+  float* Sk = Vs + kKeys * D + kWarps * NREP * kKeys;  // kKeys K scales
+  float* Sv = Sk + kKeys;                              // kKeys V scales
 
   // Row R = t * NREP + r: token blk0 + t, head g * NREP + r.
   for (int idx = tid; idx < kQBlock * NREP * D; idx += blockDim.x) {
@@ -149,12 +164,30 @@ __device__ void prefill_block(const __nv_bfloat16* __restrict__ q_pf,
           const size_t off =
               (layer_row0 + (size_t)page * page_size + p % page_size) * gd +
               g * D + d;
-          kv = __bfloat162float(k_pool[off]);
-          vv = __bfloat162float(v_pool[off]);
+          kv = llmq::to_f32(k_pool[off]);
+          vv = llmq::to_f32(v_pool[off]);
         }
       }
       Ks[j * KSTRIDE + d] = kv;
       Vs[j * D + d] = vv;
+    }
+    if constexpr (Q8) {
+      for (int j = tid; j < kKeys; j += blockDim.x) {
+        const int p = k0 + j;
+        float ks = 0.f, vs = 0.f;
+        if (p < kv_end) {
+          const int page = bt[p / page_size];
+          if (page >= 0 && page < num_pages) {
+            const size_t si = llmq::scale_index(layer, page, g, p % page_size,
+                                                num_pages, n_kv_heads,
+                                                page_size);
+            ks = __bfloat162float(ks_pool[si]);
+            vs = __bfloat162float(vs_pool[si]);
+          }
+        }
+        Sk[j] = ks;
+        Sv[j] = vs;
+      }
     }
     __syncthreads();
 
@@ -175,6 +208,10 @@ __device__ void prefill_block(const __nv_bfloat16* __restrict__ q_pf,
     }
     const int p = k0 + lane;
     const bool ok = live_row && p < kv_end && p <= q_pos;
+    if constexpr (Q8) {
+#pragma unroll
+      for (int r = 0; r < NREP; ++r) s[r] *= Sk[lane];
+    }
 #pragma unroll
     for (int r = 0; r < NREP; ++r) {
       const float sv = ok ? s[r] : -1e30f;
@@ -185,7 +222,7 @@ __device__ void prefill_block(const __nv_bfloat16* __restrict__ q_pf,
 #pragma unroll
       for (int i = 0; i < DPL; ++i) acc[r][i] *= alpha;
       m[r] = m_new;
-      P[r * kKeys + lane] = pe;
+      P[r * kKeys + lane] = Q8 ? pe * Sv[lane] : pe;
     }
     __syncwarp();
 
@@ -218,14 +255,19 @@ __device__ void prefill_block(const __nv_bfloat16* __restrict__ q_pf,
   }
 }
 
-template <int D, int NREP>
+// k_new_scale / v_new_scale and the scale pools are nullptr for bf16.
+template <int D, int NREP, typename T>
 __global__ void __launch_bounds__(kWarps * 32)
 ragged_kernel(const __nv_bfloat16* __restrict__ q_dec,   // (B, H, D)
-              const __nv_bfloat16* __restrict__ k_new,   // (B, GD)
-              const __nv_bfloat16* __restrict__ v_new,   // (B, GD)
+              const T* __restrict__ k_new,               // (B, GD)
+              const T* __restrict__ v_new,               // (B, GD)
+              const __nv_bfloat16* __restrict__ k_new_scale,  // (B, H_kv)
+              const __nv_bfloat16* __restrict__ v_new_scale,
               const __nv_bfloat16* __restrict__ q_pf,    // (N, H, D)
-              __nv_bfloat16* k_pool,                     // (L, P, ps, GD)
-              __nv_bfloat16* v_pool,
+              T* k_pool,                                 // (L, P, ps, GD)
+              T* v_pool,
+              __nv_bfloat16* ks_pool,                    // (L, P, H_kv, ps)
+              __nv_bfloat16* vs_pool,
               const int* __restrict__ block_tables,      // (B + S, MP)
               const int* __restrict__ seq_lens,          // (B + S,)
               const int* __restrict__ write_page,        // (B,)
@@ -244,25 +286,30 @@ ragged_kernel(const __nv_bfloat16* __restrict__ q_dec,   // (B, H, D)
     const int g = bx % n_kv_heads;
     const int gd = n_kv_heads * D;
     const size_t hd = (size_t)n_kv_heads * NREP * D;
-    llmq::decode_attend<D, NREP, kWarps>(
+    const size_t si = (size_t)b * n_kv_heads + g;
+    llmq::decode_attend<D, NREP, kWarps, T>(
         q_dec + b * hd, k_new + (size_t)b * gd + g * D,
-        v_new + (size_t)b * gd + g * D, k_pool, v_pool,
-        block_tables + (size_t)b * max_pages, seq_lens[b], write_page[b],
-        out_dec + b * hd, g, layer, num_pages, page_size, max_pages, gd,
-        scale, smem);
+        v_new + (size_t)b * gd + g * D,
+        k_new_scale ? k_new_scale + si : nullptr,
+        v_new_scale ? v_new_scale + si : nullptr, k_pool, v_pool, ks_pool,
+        vs_pool, block_tables + (size_t)b * max_pages, seq_lens[b],
+        write_page[b], out_dec + b * hd, g, layer, num_pages, page_size,
+        max_pages, gd, scale, smem);
     return;
   }
   const int i = bx - n_dec;
-  prefill_block<D, NREP>(q_pf, k_pool, v_pool, block_tables, pf_qoff, pf_qlen,
-                         pf_qstart, out_pf, i / n_kv_heads, i % n_kv_heads,
-                         batch, n_slices, layer, num_pages, page_size,
-                         max_pages, n_kv_heads, scale, smem);
+  prefill_block<D, NREP, T>(q_pf, k_pool, v_pool, ks_pool, vs_pool,
+                            block_tables, pf_qoff, pf_qlen, pf_qstart, out_pf,
+                            i / n_kv_heads, i % n_kv_heads, batch, n_slices,
+                            layer, num_pages, page_size, max_pages,
+                            n_kv_heads, scale, smem);
 }
 
-template <int D, int NREP>
+template <int D, int NREP, typename T>
 int launch(const void* q_dec, const void* k_new, const void* v_new,
-           const void* q_pf, void* k_pool, void* v_pool,
-           const void* block_tables, const void* seq_lens,
+           const void* k_new_scale, const void* v_new_scale,
+           const void* q_pf, void* k_pool, void* v_pool, void* ks_pool,
+           void* vs_pool, const void* block_tables, const void* seq_lens,
            const void* write_page, const void* pf_qoff, const void* pf_qlen,
            const void* pf_qstart, void* out_dec, void* out_pf, int batch,
            int n_slices, int n_tokens, int layer, int num_pages,
@@ -272,17 +319,18 @@ int launch(const void* q_dec, const void* k_new, const void* v_new,
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        ragged_kernel<D, NREP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        ragged_kernel<D, NREP, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   const int blocks = (batch + n_tokens / kQBlock) * n_kv_heads;
   if (blocks == 0) return (int)cudaGetLastError();
-  ragged_kernel<D, NREP><<<blocks, kWarps * 32, smem, stream>>>(
-      (const __nv_bfloat16*)q_dec, (const __nv_bfloat16*)k_new,
-      (const __nv_bfloat16*)v_new, (const __nv_bfloat16*)q_pf,
-      (__nv_bfloat16*)k_pool, (__nv_bfloat16*)v_pool,
+  ragged_kernel<D, NREP, T><<<blocks, kWarps * 32, smem, stream>>>(
+      (const __nv_bfloat16*)q_dec, (const T*)k_new, (const T*)v_new,
+      (const __nv_bfloat16*)k_new_scale, (const __nv_bfloat16*)v_new_scale,
+      (const __nv_bfloat16*)q_pf, (T*)k_pool, (T*)v_pool,
+      (__nv_bfloat16*)ks_pool, (__nv_bfloat16*)vs_pool,
       (const int*)block_tables, (const int*)seq_lens,
       (const int*)write_page, (const int*)pf_qoff, (const int*)pf_qlen,
       (const int*)pf_qstart, (__nv_bfloat16*)out_dec, (__nv_bfloat16*)out_pf,
@@ -291,12 +339,41 @@ int launch(const void* q_dec, const void* k_new, const void* v_new,
   return (int)cudaGetLastError();
 }
 
+// Dispatch on the head geometry; cudaErrorInvalidValue for one without
+// an instantiation (D in {64, 128}, n_rep in {1, 2, 4, 8}) or for a
+// packed buffer that is not a multiple of 8 rows.
+template <typename T>
+int dispatch(const void* q_dec, const void* k_new, const void* v_new,
+             const void* k_new_scale, const void* v_new_scale,
+             const void* q_pf, void* k_pool, void* v_pool, void* ks_pool,
+             void* vs_pool, const void* block_tables, const void* seq_lens,
+             const void* write_page, const void* pf_qoff,
+             const void* pf_qlen, const void* pf_qstart, void* out_dec,
+             void* out_pf, int batch, int n_slices, int n_tokens,
+             int n_heads, int n_kv_heads, int head_dim, int layer,
+             int num_pages, int page_size, int max_pages, float scale,
+             void* stream) {
+  if (n_tokens % kQBlock) return (int)cudaErrorInvalidValue;
+  const int n_rep = n_heads / n_kv_heads;
+  cudaStream_t s = (cudaStream_t)stream;
+#define LLMQ_CASE(DD, RR)                                                    \
+  if (head_dim == DD && n_rep == RR)                                         \
+    return launch<DD, RR, T>(q_dec, k_new, v_new, k_new_scale, v_new_scale,  \
+                             q_pf, k_pool, v_pool, ks_pool, vs_pool,         \
+                             block_tables, seq_lens, write_page, pf_qoff,    \
+                             pf_qlen, pf_qstart, out_dec, out_pf, batch,     \
+                             n_slices, n_tokens, layer, num_pages,           \
+                             page_size, max_pages, n_kv_heads, scale, s);
+  LLMQ_CASE(128, 1) LLMQ_CASE(128, 2) LLMQ_CASE(128, 4) LLMQ_CASE(128, 8)
+  LLMQ_CASE(64, 1) LLMQ_CASE(64, 2) LLMQ_CASE(64, 4) LLMQ_CASE(64, 8)
+#undef LLMQ_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// n_tokens (the packed buffer's N) must be a multiple of 8. Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
-// head geometry without an instantiation (D in {64, 128}, n_rep in
-// {1, 2, 4, 8}).
+// Kernel 6, bf16 pools. n_tokens (the packed buffer's N) must be a
+// multiple of 8. Returns cudaGetLastError() after the launch.
 extern "C" int llmq_ragged_mixed_attention(
     const void* q_dec, const void* k_new, const void* v_new, const void* q_pf,
     void* k_pool, void* v_pool, const void* block_tables,
@@ -305,18 +382,30 @@ extern "C" int llmq_ragged_mixed_attention(
     int batch, int n_slices, int n_tokens, int n_heads, int n_kv_heads,
     int head_dim, int layer, int num_pages, int page_size, int max_pages,
     float scale, void* stream) {
-  if (n_tokens % kQBlock) return (int)cudaErrorInvalidValue;
-  const int n_rep = n_heads / n_kv_heads;
-  cudaStream_t s = (cudaStream_t)stream;
-#define LLMQ_CASE(DD, RR)                                                    \
-  if (head_dim == DD && n_rep == RR)                                         \
-    return launch<DD, RR>(q_dec, k_new, v_new, q_pf, k_pool, v_pool,         \
-                          block_tables, seq_lens, write_page, pf_qoff,       \
-                          pf_qlen, pf_qstart, out_dec, out_pf, batch,        \
-                          n_slices, n_tokens, layer, num_pages, page_size,   \
-                          max_pages, n_kv_heads, scale, s);
-  LLMQ_CASE(128, 1) LLMQ_CASE(128, 2) LLMQ_CASE(128, 4) LLMQ_CASE(128, 8)
-  LLMQ_CASE(64, 1) LLMQ_CASE(64, 2) LLMQ_CASE(64, 4) LLMQ_CASE(64, 8)
-#undef LLMQ_CASE
-  return (int)cudaErrorInvalidValue;
+  return dispatch<__nv_bfloat16>(
+      q_dec, k_new, v_new, nullptr, nullptr, q_pf, k_pool, v_pool, nullptr,
+      nullptr, block_tables, seq_lens, write_page, pf_qoff, pf_qlen,
+      pf_qstart, out_dec, out_pf, batch, n_slices, n_tokens, n_heads,
+      n_kv_heads, head_dim, layer, num_pages, page_size, max_pages, scale,
+      stream);
+}
+
+// Kernel 7, int8 pools: k_new_q / v_new_q (B, H_kv, D) int8 with scales
+// (B, H_kv) bf16; scale pools (L, P, H_kv, page_size) bf16. The slices'
+// int8 K/V and scales must already be in their pages.
+extern "C" int llmq_ragged_mixed_attention_q8(
+    const void* q_dec, const void* k_new_q, const void* k_new_scale,
+    const void* v_new_q, const void* v_new_scale, const void* q_pf,
+    void* k_pool, void* v_pool, void* ks_pool, void* vs_pool,
+    const void* block_tables, const void* seq_lens, const void* write_page,
+    const void* pf_qoff, const void* pf_qlen, const void* pf_qstart,
+    void* out_dec, void* out_pf, int batch, int n_slices, int n_tokens,
+    int n_heads, int n_kv_heads, int head_dim, int layer, int num_pages,
+    int page_size, int max_pages, float scale, void* stream) {
+  return dispatch<int8_t>(
+      q_dec, k_new_q, v_new_q, k_new_scale, v_new_scale, q_pf, k_pool,
+      v_pool, ks_pool, vs_pool, block_tables, seq_lens, write_page, pf_qoff,
+      pf_qlen, pf_qstart, out_dec, out_pf, batch, n_slices, n_tokens,
+      n_heads, n_kv_heads, head_dim, layer, num_pages, page_size, max_pages,
+      scale, stream);
 }

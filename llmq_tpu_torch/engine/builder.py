@@ -1,6 +1,8 @@
 """Build an engine from the config: model, parameters, tokenizer,
 ``TorchExecutor`` and ``InferenceEngine`` (counterpart of the ``jax``
-branch of ``llmq_tpu/engine/builder.py``)."""
+branch of ``llmq_tpu/engine/builder.py``), in bf16 or with int8 weights
+(``model.quantization``) and/or int8 KV pools (``model.kv_quantization``),
+the two switches independent as in the JAX package."""
 
 from __future__ import annotations
 
@@ -15,7 +17,9 @@ from llmq_tpu_torch.core.types import Priority
 from llmq_tpu_torch.engine.engine import InferenceEngine
 from llmq_tpu_torch.engine.executor import TorchExecutor
 from llmq_tpu_torch.engine.tokenizer import get_tokenizer
-from llmq_tpu_torch.models.llama import get_config, init_params
+from llmq_tpu_torch.models.llama import (get_config, init_params,
+                                         init_params_quantized)
+from llmq_tpu_torch.ops.quant import params_bytes, quantize_params
 
 log = logging.getLogger("llmq_tpu_torch.builder")
 
@@ -26,8 +30,10 @@ def build_engine(cfg: Config, *, name: str = "engine0",
                  ) -> InferenceEngine:
     """Engine for ``cfg.model`` / ``cfg.executor`` on ``device`` (default
     ``cfg.device``). ``params`` (a parameter tree in the JAX layout) is
-    used as given; otherwise weights are random-initialised on the
-    device from seed 0 (the JAX package's ``PRNGKey(0)`` counterpart).
+    used as given (quantized first if ``model.quantization`` asks for it
+    and it is not already); otherwise weights are random-initialised on
+    the device from seed 0 (the JAX package's ``PRNGKey(0)``
+    counterpart), leaf by leaf straight into int8 when quantized.
     ``model_dtype`` overrides the model's bf16 (tests run f32)."""
     ex = cfg.executor
     dev = resolve_device(device or cfg.device)
@@ -43,12 +49,23 @@ def build_engine(cfg: Config, *, name: str = "engine0",
             f"tokenizer vocab ({tokenizer.vocab_size}) exceeds model "
             f"vocab ({mcfg.vocab_size}): ids would be out of range and "
             f"EOS could never be sampled; set model.vocab_size")
+    quant = cfg.model.quantization
+    if quant not in ("", "int8"):
+        raise ValueError(f"unknown model.quantization {quant!r} "
+                         f"(supported: 'int8')")
+    kv_quant = cfg.model.kv_quantization
+    if kv_quant not in ("", "int8"):
+        raise ValueError(f"unknown model.kv_quantization {kv_quant!r} "
+                         f"(supported: 'int8')")
     mixed, ragged = ex.mixed_batch, ex.ragged_attention
     t0 = time.perf_counter()
     if params is None:
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
-        params = init_params(mcfg, gen, dev)
+        init = init_params_quantized if quant == "int8" else init_params
+        params = init(mcfg, gen, dev)
+    if quant == "int8":
+        params = quantize_params(params)      # idempotent
     executor = TorchExecutor(
         mcfg, params,
         batch_size=ex.max_batch_size,
@@ -66,6 +83,7 @@ def build_engine(cfg: Config, *, name: str = "engine0",
         ragged_token_capacity=(ragged.prefill_token_capacity
                                or mixed.prefill_token_budget),
         ragged_max_slices=ragged.max_slices,
+        cache_dtype=torch.int8 if kv_quant == "int8" else None,
         device=str(dev))
     tier_max_wait = {Priority(lvl.priority): lvl.max_wait_time
                      for lvl in cfg.queue.levels}
@@ -77,9 +95,11 @@ def build_engine(cfg: Config, *, name: str = "engine0",
         tier_max_wait=tier_max_wait,
         mixed_batch=mixed)
     log.info("built %s engine %s on %s in %.1fs (slots=%d pages=%d "
-             "page_size=%d chunk=%d mixed_batch=%s ragged_attention=%s)",
+             "page_size=%d chunk=%d quantization=%s kv_quantization=%s "
+             "weights=%.2f GB mixed_batch=%s ragged_attention=%s)",
              mcfg.name, name, dev, time.perf_counter() - t0,
              ex.max_batch_size, ex.kv_pages, ex.page_size, ex.decode_chunk,
+             quant or "bf16", kv_quant or "bf16", params_bytes(params) / 1e9,
              (f"on(budget={mixed.prefill_token_budget}"
               f"x{executor.mixed_prefill_slices})" if mixed.enabled
               else "off"),

@@ -19,6 +19,10 @@ included, runs through that ragged step with the decode rows frozen.
 The KV pool is one ``(L, P, page_size, GD)`` tensor pair updated **in
 place** by every program — the port's counterpart of JAX's buffer
 donation: the working set stays one pool plus transient activations.
+With ``cache_dtype=torch.int8`` the pair is int8 and two bf16 scale
+pools ``(L, P, H_kv, page_size)`` ride beside it through every program
+(the int8 routes of ``ops/attention.py``); weights may be w8a8 leaves
+(``ops/quant.py``) either way.
 """
 
 from __future__ import annotations
@@ -103,7 +107,12 @@ class TorchExecutor:
                  mixed_prefill_slices: int = 0, mixed_slice_tokens: int = 0,
                  ragged_attention: bool = False,
                  ragged_token_capacity: int = 0, ragged_max_slices: int = 0,
+                 cache_dtype: Optional[torch.dtype] = None,
                  device: str = "cuda") -> None:
+        if cache_dtype == torch.int8 and not fused_decode:
+            # The JAX package's int8-KV decode step has no split route.
+            raise ValueError("fused_decode=False has no int8-KV route: the "
+                             "int8 decode step is the fused kernel only")
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.model = Llama(model_cfg, params)
@@ -137,7 +146,7 @@ class TorchExecutor:
             need = cap + S * (RAGGED_Q_BLOCK - 1)
             self.ragged_buffer = -(-need // RAGGED_Q_BLOCK) * RAGGED_Q_BLOCK
         self.cache = init_kv_pages(model_cfg, num_pages, page_size,
-                                   self.device)
+                                   self.device, dtype=cache_dtype)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         #: Wall milliseconds per decode step, host loop and readback

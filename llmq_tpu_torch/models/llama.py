@@ -9,6 +9,11 @@ weights. Layers run unrolled; the pools are updated in place by the
 attention routes (the port's counterpart of JAX's donation). Plain
 large matmuls stay ``torch.matmul``, as the JAX package leaves them to
 XLA; the paged attention and KV writes go through ``ops/attention.py``.
+
+int8 serving: weights may be w8a8 leaves ``{"q", "s"}`` (``ops/quant.py``;
+every matmul goes through ``linear``), and a cache made with
+``dtype=torch.int8`` carries ``k_scale`` / ``v_scale`` pools, which send
+every forward through the int8 attention routes.
 """
 
 from __future__ import annotations
@@ -22,10 +27,19 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from llmq_tpu_torch.ops.attention import (dispatch_prefill_attention,
+                                          dispatch_prefill_attention_q8,
                                           paged_decode_step,
+                                          paged_decode_step_q8,
                                           paged_kv_write_prefill,
-                                          ragged_mixed_step, ragged_slices)
+                                          paged_kv_write_prefill_q8,
+                                          ragged_mixed_step,
+                                          ragged_mixed_step_q8,
+                                          ragged_slice_rows, ragged_slices)
 from llmq_tpu_torch.ops.norms import rms_norm
+from llmq_tpu_torch.ops.quant import (embed_lookup, is_quantized,
+                                      layer_slice, linear, linears,
+                                      quantize_embedding, quantize_weight,
+                                      tied_head_logits)
 from llmq_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 
 Params = Dict[str, Any]
@@ -99,12 +113,11 @@ def get_config(name: str, **kw) -> LlamaConfig:
 
 # -- parameters ---------------------------------------------------------------
 
-def init_params(cfg: LlamaConfig, generator: torch.Generator,
-                device: torch.device | str) -> Params:
-    """Random-init parameter tree (stacked layers: leading dim L), drawn
-    from ``generator`` (which must live on ``device``) leaf by leaf, so
-    the f32 transient never exceeds one leaf. Normal(0, 1/fan_in)
-    weights, unit norm gains — the JAX package's init, not its numbers."""
+def _init_tree(cfg: LlamaConfig, generator: torch.Generator,
+               device: torch.device | str, matmul, embedding) -> Params:
+    """The random-init tree, each weight drawn from ``generator`` in a
+    fixed order and handed to ``matmul`` (or ``embedding``) before the
+    next is drawn."""
     L, D, H, HKV, Fd, V = (cfg.n_layers, cfg.dim, cfg.n_heads,
                            cfg.n_kv_heads, cfg.ffn_dim, cfg.vocab_size)
     hd = cfg.head_dim
@@ -118,23 +131,45 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
         return torch.ones(shape, dtype=cfg.dtype, device=device)
 
     params: Params = {
-        "embed": norm_init((V, D), D),
+        "embed": embedding(norm_init((V, D), D)),
         "layers": {
-            "wq": norm_init((L, D, H * hd), D),
-            "wk": norm_init((L, D, HKV * hd), D),
-            "wv": norm_init((L, D, HKV * hd), D),
-            "wo": norm_init((L, H * hd, D), H * hd),
-            "w_gate": norm_init((L, D, Fd), D),
-            "w_up": norm_init((L, D, Fd), D),
-            "w_down": norm_init((L, Fd, D), Fd),
+            "wq": matmul(norm_init((L, D, H * hd), D)),
+            "wk": matmul(norm_init((L, D, HKV * hd), D)),
+            "wv": matmul(norm_init((L, D, HKV * hd), D)),
+            "wo": matmul(norm_init((L, H * hd, D), H * hd)),
+            "w_gate": matmul(norm_init((L, D, Fd), D)),
+            "w_up": matmul(norm_init((L, D, Fd), D)),
+            "w_down": matmul(norm_init((L, Fd, D), Fd)),
             "attn_norm": ones((L, D)),
             "mlp_norm": ones((L, D)),
         },
         "final_norm": ones((D,)),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = norm_init((D, V), D)
+        params["lm_head"] = matmul(norm_init((D, V), D))
     return params
+
+
+def init_params(cfg: LlamaConfig, generator: torch.Generator,
+                device: torch.device | str) -> Params:
+    """Random-init parameter tree (stacked layers: leading dim L), drawn
+    from ``generator`` (which must live on ``device``) leaf by leaf, so
+    the f32 transient never exceeds one leaf. Normal(0, 1/fan_in)
+    weights, unit norm gains — the JAX package's init, not its numbers."""
+    def same(w):
+        return w
+    return _init_tree(cfg, generator, device, same, same)
+
+
+def init_params_quantized(cfg: LlamaConfig, generator: torch.Generator,
+                          device: torch.device | str) -> Params:
+    """:func:`init_params` quantized leaf by leaf (``ops/quant.py``
+    layout): each weight is drawn and quantized before the next, so no
+    full bf16 tree is ever resident (llama3-8b: 16 GB). Equals
+    ``quantize_params(init_params(...))`` for the same generator state."""
+    return _init_tree(cfg, generator, device,
+                      lambda w: quantize_weight(w, axis=-2),
+                      quantize_embedding)
 
 
 def _leaf_to_torch(arr: Any, device) -> torch.Tensor:
@@ -150,7 +185,8 @@ def _leaf_to_torch(arr: Any, device) -> torch.Tensor:
 def params_from_jax(tree: Any, device: torch.device | str = "cuda") -> Params:
     """The weight bridge: a JAX parameter tree (dicts of arrays; leaves
     anything ``np.asarray`` accepts) → the port's tensors, key for key,
-    same shapes, no transposes."""
+    same shapes and dtypes (int8 and f32 leaves of a quantized tree too),
+    no transposes."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     return _leaf_to_torch(tree, device)
@@ -160,30 +196,49 @@ def init_kv_pages(cfg: LlamaConfig, num_pages: int, page_size: int,
                   device: torch.device | str,
                   dtype: Optional[torch.dtype] = None) -> KVCache:
     """Paged KV pool: flat ``(L, P, page_size, H_kv·head_dim)`` per K/V.
-    Page 0 is reserved as the null/padding page."""
+    Page 0 is reserved as the null/padding page. ``dtype=torch.int8``
+    adds per-(token, KV head) bf16 scale pools ``k_scale`` / ``v_scale``
+    shaped ``(L, P, H_kv, page_size)``, the JAX package's layout."""
     shape = (cfg.n_layers, num_pages, page_size,
              cfg.n_kv_heads * cfg.head_dim)
     dt = dtype or cfg.dtype
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device)}
+    cache = {"k": torch.zeros(shape, dtype=dt, device=device),
+             "v": torch.zeros(shape, dtype=dt, device=device)}
+    if dt == torch.int8:
+        sshape = (cfg.n_layers, num_pages, cfg.n_kv_heads, page_size)
+        cache["k_scale"] = torch.zeros(sshape, dtype=torch.bfloat16,
+                                       device=device)
+        cache["v_scale"] = torch.zeros(sshape, dtype=torch.bfloat16,
+                                       device=device)
+    return cache
+
+
+def _q8_pools(kv_cache: KVCache):
+    """The int8 cache's (k, v, k_scale, v_scale), or None for bf16."""
+    if "k_scale" not in kv_cache:
+        return None
+    return (kv_cache["k"], kv_cache["v"], kv_cache["k_scale"],
+            kv_cache["v_scale"])
 
 
 # -- forward ------------------------------------------------------------------
 
-def _mlp(h: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-         w_down: torch.Tensor) -> torch.Tensor:
-    """SwiGLU, the activation in f32."""
-    g = h @ w_gate
-    u = h @ w_up
-    return (F.silu(g.float()).to(h.dtype) * u) @ w_down
+def _mlp(h: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
+    """SwiGLU, the activation in f32; bf16 or int8 weights."""
+    g, u = linears(h, w_gate, w_up)
+    return linear(F.silu(g.float()).to(h.dtype) * u, w_down)
 
 
 def _logits(params: Params, h: torch.Tensor) -> torch.Tensor:
-    """Final projection → f32 logits (tied head: ``h @ embed.T``)."""
+    """Final projection → f32 logits (tied head: ``h @ embed.T``), for
+    bf16 or int8 heads."""
     head = params.get("lm_head")
     if head is not None:
-        return (h @ head).float()
-    return (h @ params["embed"].T).float()
+        return linear(h, head).float()
+    embed = params["embed"]
+    if is_quantized(embed):
+        return tied_head_logits(embed, h)
+    return (h @ embed.T).float()
 
 
 def _qkv(h: torch.Tensor, lp: Params, layer: int, cfg: LlamaConfig,
@@ -192,9 +247,11 @@ def _qkv(h: torch.Tensor, lp: Params, layer: int, cfg: LlamaConfig,
     D) and k (B, T, H_kv, D) with rope applied, v (B, T, H_kv, D)."""
     B, T = h.shape[0], h.shape[1]
     hn = rms_norm(h, lp["attn_norm"][layer], cfg.norm_eps)
-    q = (hn @ lp["wq"][layer]).reshape(B, T, cfg.n_heads, cfg.head_dim)
-    k = (hn @ lp["wk"][layer]).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
-    v = (hn @ lp["wv"][layer]).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    q, k, v = linears(hn, *(layer_slice(lp[n], layer)
+                            for n in ("wq", "wk", "wv")))
+    q = q.reshape(B, T, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
@@ -202,23 +259,63 @@ def _attn_out_mlp(h: torch.Tensor, attn: torch.Tensor, lp: Params,
                   layer: int, cfg: LlamaConfig) -> torch.Tensor:
     """Residual after attention (``attn`` flattened to h's shape) and
     after the MLP."""
-    h = h + attn.reshape(*h.shape[:-1], -1) @ lp["wo"][layer]
+    h = h + linear(attn.reshape(*h.shape[:-1], -1),
+                   layer_slice(lp["wo"], layer))
     hn2 = rms_norm(h, lp["mlp_norm"][layer], cfg.norm_eps)
-    return h + _mlp(hn2, lp["w_gate"][layer], lp["w_up"][layer],
-                    lp["w_down"][layer])
+    return h + _mlp(hn2, layer_slice(lp["w_gate"], layer),
+                    layer_slice(lp["w_up"], layer),
+                    layer_slice(lp["w_down"], layer))
+
+
+@dataclass(frozen=True)
+class _Chunk:
+    """Right-padded prefill rows (B, T): host starts and counts for the
+    bf16 routes' per-row launches; positions, lengths and the visible
+    history ``seq_lens`` (last valid position + 1) as tensors for the
+    int8 routes' scatters."""
+
+    starts: Optional[list]
+    counts: Optional[list]
+    positions: torch.Tensor
+    lengths: torch.Tensor
+    seq_lens: Optional[torch.Tensor]
+
+
+def _chunk(positions: torch.Tensor, lengths: torch.Tensor,
+           q8: bool) -> _Chunk:
+    if q8:
+        T = positions.shape[1]
+        valid = (torch.arange(T, device=positions.device)[None, :]
+                 < lengths[:, None])
+        last = torch.where(valid, positions,
+                           torch.full_like(positions, -1)).amax(dim=1)
+        return _Chunk(None, None, positions, lengths, last + 1)
+    # Host copies for the per-row write/attention launches: two reads
+    # per forward instead of two per layer.
+    return _Chunk([int(x) for x in positions[:, 0].tolist()],
+                  [int(x) for x in lengths.tolist()], positions, lengths,
+                  None)
 
 
 def _prefill_layer(h: torch.Tensor, lp: Params, layer: int,
                    cfg: LlamaConfig, cos, sin, kv_cache: KVCache,
-                   block_tables: torch.Tensor, starts, counts) -> torch.Tensor:
+                   block_tables: torch.Tensor, chunk: _Chunk) -> torch.Tensor:
     """One layer for right-padded chunk rows h (B, T, dim): write their
     K/V, attend over each row's pages, MLP."""
     q, k, v = _qkv(h, lp, layer, cfg, cos, sin)
+    pools = _q8_pools(kv_cache)
+    if pools is not None:
+        paged_kv_write_prefill_q8(pools, k, v, block_tables, chunk.positions,
+                                  chunk.lengths, layer)
+        attn = dispatch_prefill_attention_q8(q, pools, block_tables,
+                                             chunk.positions, chunk.seq_lens,
+                                             layer)
+        return _attn_out_mlp(h, attn, lp, layer, cfg)
     k_pool, v_pool = kv_cache["k"], kv_cache["v"]
-    paged_kv_write_prefill(k_pool, v_pool, k, v, block_tables, starts,
-                           counts, layer)
+    paged_kv_write_prefill(k_pool, v_pool, k, v, block_tables, chunk.starts,
+                           chunk.counts, layer)
     attn = dispatch_prefill_attention(q, k_pool, v_pool, block_tables,
-                                      starts, layer)
+                                      chunk.starts, layer)
     return _attn_out_mlp(h, attn, lp, layer, cfg)
 
 
@@ -240,11 +337,20 @@ def _decode_rows(positions: torch.Tensor, block_tables: torch.Tensor,
 def _decode_layer(h: torch.Tensor, lp: Params, layer: int, cfg: LlamaConfig,
                   cos, sin, kv_cache: KVCache, block_tables: torch.Tensor,
                   seq_lens, page_of, slot_of, fused: bool) -> torch.Tensor:
-    """One decode layer for rows h (B, dim)."""
+    """One decode layer for rows h (B, dim). The int8 cache has only the
+    fused route, as in the JAX package."""
     q, k, v = _qkv(h[:, None], lp, layer, cfg, cos, sin)
-    attn = paged_decode_step(q[:, 0], k[:, 0], v[:, 0].contiguous(),
-                             kv_cache["k"], kv_cache["v"], block_tables,
-                             seq_lens, page_of, slot_of, layer, fused=fused)
+    pools = _q8_pools(kv_cache)
+    if pools is not None:
+        if not fused:
+            raise ValueError("the int8-KV decode step has no split route")
+        attn = paged_decode_step_q8(q[:, 0], k[:, 0], v[:, 0], pools,
+                                    block_tables, seq_lens, page_of, layer)
+    else:
+        attn = paged_decode_step(q[:, 0], k[:, 0], v[:, 0].contiguous(),
+                                 kv_cache["k"], kv_cache["v"], block_tables,
+                                 seq_lens, page_of, slot_of, layer,
+                                 fused=fused)
     return _attn_out_mlp(h, attn, lp, layer, cfg)
 
 
@@ -263,15 +369,12 @@ def forward_prefill(params: Params, cfg: LlamaConfig,
     meaningless. Continuation chunks (turn 2+) attend to earlier pages
     through the same block tables."""
     lp = params["layers"]
-    h = params["embed"][tokens.long()].to(cfg.dtype)           # (B, T, D)
+    h = embed_lookup(params["embed"], tokens, cfg.dtype)       # (B, T, D)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
-    # Host copies for the per-row write/attention launches: two reads
-    # per forward instead of two per layer.
-    starts = [int(x) for x in positions[:, 0].tolist()]
-    counts = [int(x) for x in lengths.tolist()]
+    chunk = _chunk(positions, lengths, "k_scale" in kv_cache)
     for layer in range(cfg.n_layers):
         h = _prefill_layer(h, lp, layer, cfg, cos, sin, kv_cache,
-                           block_tables, starts, counts)
+                           block_tables, chunk)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _logits(params, h)
 
@@ -287,7 +390,7 @@ def forward_decode(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
     caller. ``fused`` picks the decode route (ops/attention.py
     ``paged_decode_step``). Returns logits (B, V) f32."""
     lp = params["layers"]
-    h = params["embed"][tokens.long()].to(cfg.dtype)           # (B, D)
+    h = embed_lookup(params["embed"], tokens, cfg.dtype)       # (B, D)
     cos, sin = rope_cos_sin(positions[:, None], cfg.head_dim, cfg.rope_theta)
     page_of, slot_of, seq_lens = _decode_rows(
         positions, block_tables, kv_cache["k"].shape[2], active)
@@ -315,18 +418,17 @@ def forward_mixed(params: Params, cfg: LlamaConfig,
     decoding or mid-prefill, so their pages are disjoint. Returns
     ``(dec_logits (B, V), pf_logits (S, T, V))`` f32."""
     lp = params["layers"]
-    h_d = params["embed"][dec_tokens.long()].to(cfg.dtype)     # (B, D)
+    h_d = embed_lookup(params["embed"], dec_tokens, cfg.dtype)  # (B, D)
     cos_d, sin_d = rope_cos_sin(dec_positions[:, None], cfg.head_dim,
                                 cfg.rope_theta)
     page_of, slot_of, seq_lens = _decode_rows(
         dec_positions, dec_block_tables, kv_cache["k"].shape[2], dec_active)
-    h_p = params["embed"][pf_tokens.long()].to(cfg.dtype)      # (S, T, D)
+    h_p = embed_lookup(params["embed"], pf_tokens, cfg.dtype)  # (S, T, D)
     cos_p, sin_p = rope_cos_sin(pf_positions, cfg.head_dim, cfg.rope_theta)
-    starts = [int(x) for x in pf_positions[:, 0].tolist()]
-    counts = [int(x) for x in pf_lengths.tolist()]
+    chunk = _chunk(pf_positions, pf_lengths, "k_scale" in kv_cache)
     for layer in range(cfg.n_layers):
         h_p = _prefill_layer(h_p, lp, layer, cfg, cos_p, sin_p, kv_cache,
-                             pf_block_tables, starts, counts)
+                             pf_block_tables, chunk)
         h_d = _decode_layer(h_d, lp, layer, cfg, cos_d, sin_d, kv_cache,
                             dec_block_tables, seq_lens, page_of, slot_of,
                             fused)
@@ -351,11 +453,14 @@ def forward_mixed_ragged(params: Params, cfg: LlamaConfig,
     as one sequence; per layer the attention of the decode rows and of
     every packed token is one :func:`ragged_mixed_step`. The descriptors
     are read to the host once per forward and uploaded once for all
-    layers. Returns ``(dec_logits (B, V), pf_last_logits (S, V))``, the
-    slice logits at each slice's last live token."""
+    layers (with an int8 cache, also the live packed rows' pages and
+    slots, :func:`ragged_slice_rows`). Returns ``(dec_logits (B, V),
+    pf_last_logits (S, V))``, the slice logits at each slice's last live
+    token."""
     lp = params["layers"]
     N = pf_tokens.shape[0]
-    h_d = params["embed"][dec_tokens.long()].to(cfg.dtype)     # (B, D)
+    pools = _q8_pools(kv_cache)
+    h_d = embed_lookup(params["embed"], dec_tokens, cfg.dtype)  # (B, D)
     cos_d, sin_d = rope_cos_sin(dec_positions[:, None], cfg.head_dim,
                                 cfg.rope_theta)
     page_of, _slot_of, seq_lens = _decode_rows(
@@ -365,15 +470,23 @@ def forward_mixed_ragged(params: Params, cfg: LlamaConfig,
         [pf_qoff.long(), pf_qlen.long(), pf_positions.long()[first]]).tolist()
     slices = ragged_slices(dec_block_tables, seq_lens, pf_block_tables,
                            qoff, qlen, qstart)
-    h_p = params["embed"][pf_tokens.long()].to(cfg.dtype)[None]  # (1, N, D)
+    if pools is not None:
+        rows = ragged_slice_rows(slices, kv_cache["k"].shape[2])
+    h_p = embed_lookup(params["embed"], pf_tokens, cfg.dtype)[None]  # (1,N,D)
     cos_p, sin_p = rope_cos_sin(pf_positions[None], cfg.head_dim,
                                 cfg.rope_theta)
     for layer in range(cfg.n_layers):
         q_p, k_p, v_p = _qkv(h_p, lp, layer, cfg, cos_p, sin_p)
         q_d, k_d, v_d = _qkv(h_d[:, None], lp, layer, cfg, cos_d, sin_d)
-        attn_d, attn_p = ragged_mixed_step(
-            q_d[:, 0], k_d[:, 0], v_d[:, 0].contiguous(), q_p[0], k_p[0],
-            v_p[0], kv_cache["k"], kv_cache["v"], page_of, slices, layer)
+        if pools is not None:
+            attn_d, attn_p = ragged_mixed_step_q8(
+                q_d[:, 0], k_d[:, 0], v_d[:, 0], q_p[0], k_p[0], v_p[0],
+                pools, page_of, slices, rows, layer)
+        else:
+            attn_d, attn_p = ragged_mixed_step(
+                q_d[:, 0], k_d[:, 0], v_d[:, 0].contiguous(), q_p[0],
+                k_p[0], v_p[0], kv_cache["k"], kv_cache["v"], page_of,
+                slices, layer)
         h_p = _attn_out_mlp(h_p, attn_p, lp, layer, cfg)
         h_d = _attn_out_mlp(h_d, attn_d, lp, layer, cfg)
     last = torch.tensor([min(max(o + max(n, 1) - 1, 0), N - 1)
@@ -383,29 +496,49 @@ def forward_mixed_ragged(params: Params, cfg: LlamaConfig,
     return _logits(params, h_d), _logits(params, h_last)
 
 
+#: Joins a leaf's path in the parameter tree into one parameter name
+#: (a name may not hold "."): ``layers__wq__q``.
+_SEP = "__"
+
+
+def _flatten(tree: Params, prefix: str = "") -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, prefix + k + _SEP))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _unflatten(flat) -> Params:
+    tree: Params = {}
+    for name, v in flat.items():
+        *path, leaf = name.split(_SEP)
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return tree
+
+
 class Llama(nn.Module):
-    """The model as a module: holds the parameter tree (JAX layout) as
-    non-trainable parameters and exposes the forwards."""
+    """The model as a module: holds every leaf of the parameter tree (JAX
+    layout; int8 weights and their scales as leaves of their own) as a
+    non-trainable parameter named by its path, and exposes the
+    forwards."""
 
     def __init__(self, cfg: LlamaConfig, params: Params) -> None:
         super().__init__()
         self.cfg = cfg
-        self.embed = nn.Parameter(params["embed"], requires_grad=False)
-        self.final_norm = nn.Parameter(params["final_norm"],
-                                       requires_grad=False)
-        self.lm_head = (nn.Parameter(params["lm_head"], requires_grad=False)
-                        if "lm_head" in params else None)
-        self.layers = nn.ParameterDict({
-            k: nn.Parameter(v, requires_grad=False)
-            for k, v in params["layers"].items()})
+        self.weights = nn.ParameterDict({
+            name: nn.Parameter(t, requires_grad=False)
+            for name, t in _flatten(params).items()})
 
     @property
     def params(self) -> Params:
-        p: Params = {"embed": self.embed, "final_norm": self.final_norm,
-                     "layers": dict(self.layers.items())}
-        if self.lm_head is not None:
-            p["lm_head"] = self.lm_head
-        return p
+        """The parameter tree in the JAX layout."""
+        return _unflatten(dict(self.weights.items()))
 
     def forward_prefill(self, tokens, positions, lengths, kv_cache,
                         block_tables) -> torch.Tensor:

@@ -9,10 +9,14 @@ Plain routes (the semantics the kernels are held to):
 
 Routes that choose a kernel or its plain twin:
 :func:`paged_kv_write_prefill`, :func:`dispatch_prefill_attention`,
-:func:`paged_decode_step` and :func:`ragged_mixed_step`. The choice is
-the tensors' device and nothing else: a CUDA tensor launches the
-hand-written kernel (``ops/kernels.py``), a CPU tensor takes the
-kernel's plain twin.
+:func:`paged_decode_step` and :func:`ragged_mixed_step`, and over the
+int8 pools :func:`paged_decode_step_q8` and :func:`ragged_mixed_step_q8`.
+The choice is the tensors' device and nothing else: a CUDA tensor
+launches the hand-written kernel (``ops/kernels.py``), a CPU tensor
+takes the kernel's plain twin. The int8 prefill write and attention
+(:func:`paged_kv_write_prefill_q8`, :func:`dispatch_prefill_attention_q8`)
+are plain ops on both devices, as in the JAX package, where they are
+pure JAX.
 
 Pools are flat ``(L, P, page_size, H_kv·D)``; page 0 is the null page.
 Writes update the pools in place — the port's counterpart of JAX's
@@ -27,6 +31,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from llmq_tpu_torch.ops import kernels
+from llmq_tpu_torch.ops.quant import quantize_kv_rows
 
 NEG_INF = -1e30
 
@@ -285,5 +290,148 @@ def ragged_mixed_step(q_dec: torch.Tensor, k_new: torch.Tensor,
                                      layer)
     return kernels.ragged_mixed_attention(
         q_dec, k_new, v_new, q_pf, k_pool, v_pool, slices.block_tables,
+        slices.seq_lens, page_of, slices.meta[0], slices.meta[1],
+        slices.meta[2], layer)
+
+
+# -- int8 KV cache ---------------------------------------------------------------
+#
+# Data pools stay flat (L, P, page_size, H_kv·D) in int8; scale pools are
+# (L, P, H_kv, page_size) bf16, one scale per (token, KV head). ``pools``
+# is the 4-tuple (k_pool, v_pool, k_scale, v_scale); every write is in
+# place.
+
+Q8Pools = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _scale_scatter(scale_pool: torch.Tensor, layer: int,
+                   page_of: torch.Tensor, slot_of: torch.Tensor,
+                   scales: torch.Tensor) -> None:
+    """Write per-(row, head) scales (N, H_kv) at ``[layer, page_of[n], :,
+    slot_of[n]]``, in place."""
+    heads = torch.arange(scale_pool.shape[2], device=scale_pool.device)
+    scale_pool[layer, page_of.long()[:, None], heads[None, :],
+               slot_of.long()[:, None]] = scales.to(scale_pool.dtype)
+
+
+def _dequant_window(pool: torch.Tensor, scale_pool: torch.Tensor,
+                    layer: int, block_tables: torch.Tensor,
+                    D: int) -> torch.Tensor:
+    """Gather and dequantize one layer's pages for a batch of block
+    tables (B, n_pages): returns (B, n_pages·page_size, H_kv, D) bf16."""
+    B, n_pages = block_tables.shape
+    ps = pool.shape[2]
+    Hkv = pool.shape[3] // D
+    bt = block_tables.long()
+    qv = pool[layer][bt].reshape(B, n_pages, ps, Hkv, D)
+    sc = scale_pool[layer][bt].transpose(2, 3)      # (B, n_pages, ps, Hkv)
+    x = qv.float() * sc.float()[..., None]
+    return x.reshape(B, n_pages * ps, Hkv, D).to(torch.bfloat16)
+
+
+def paged_decode_step_q8(q: torch.Tensor, k_new: torch.Tensor,
+                         v_new: torch.Tensor, pools: Q8Pools,
+                         block_tables: torch.Tensor, seq_lens: torch.Tensor,
+                         page_of: torch.Tensor, layer: int) -> torch.Tensor:
+    """One decode layer over the int8 pools: quantize the current token's
+    K/V per (row, head) (plain, as the JAX package does outside its
+    kernel), then the int8 fused write + attention kernel, which writes
+    each row and its scales at slot ``(seq_len-1) % page_size`` of
+    ``page_of`` and attends with in-kernel dequant. There is no split
+    route. Returns (B, H, D); pools update in place."""
+    kq, ks = quantize_kv_rows(k_new)
+    vq, vs = quantize_kv_rows(v_new)
+    return kernels.fused_decode_q8(q, kq, ks, vq, vs, *pools, block_tables,
+                                   seq_lens, page_of, layer)
+
+
+def paged_kv_write_prefill_q8(pools: Q8Pools, k: torch.Tensor,
+                              v: torch.Tensor, block_tables: torch.Tensor,
+                              positions: torch.Tensor, lengths: torch.Tensor,
+                              layer: int) -> None:
+    """A prefill chunk's write into the int8 pools (k, v (B, T, H_kv,
+    D)): quantize every (token, head) row and scatter rows and scales,
+    in place. Padding rows (past ``lengths``) go to the null page's slot
+    0, as in the JAX package's scatter."""
+    k_pool, v_pool, ks_pool, vs_pool = pools
+    B, T = k.shape[0], k.shape[1]
+    ps, GD = k_pool.shape[2], k_pool.shape[3]
+    kq, kscale = quantize_kv_rows(k)
+    vq, vscale = quantize_kv_rows(v)
+    valid = (torch.arange(T, device=k.device)[None, :]
+             < lengths[:, None]).reshape(-1)
+    pos = positions.reshape(-1).long()
+    rows = torch.arange(B, device=k.device).repeat_interleave(T)
+    zero = torch.zeros_like(pos)
+    page_of = torch.where(valid, block_tables.long()[rows, pos // ps], zero)
+    slot_of = torch.where(valid, pos % ps, zero)
+    k_pool[layer, page_of, slot_of] = kq.reshape(-1, GD)
+    v_pool[layer, page_of, slot_of] = vq.reshape(-1, GD)
+    _scale_scatter(ks_pool, layer, page_of, slot_of, kscale.reshape(B * T, -1))
+    _scale_scatter(vs_pool, layer, page_of, slot_of, vscale.reshape(B * T, -1))
+
+
+def dispatch_prefill_attention_q8(q: torch.Tensor, pools: Q8Pools,
+                                  block_tables: torch.Tensor,
+                                  positions: torch.Tensor,
+                                  seq_lens: torch.Tensor,
+                                  layer: int) -> torch.Tensor:
+    """Prefill-chunk attention over the int8 pools, q (B, T, H, D):
+    gather and dequantize the window, then the blockwise online-softmax
+    attention. Returns (B, T, H, D)."""
+    k_pool, v_pool, ks_pool, vs_pool = pools
+    D = q.shape[3]
+    k_hist = _dequant_window(k_pool, ks_pool, layer, block_tables, D)
+    v_hist = _dequant_window(v_pool, vs_pool, layer, block_tables, D)
+    return blockwise_prefill_attention(q, k_hist, v_hist, positions,
+                                       seq_lens)
+
+
+def ragged_slice_rows(slices: RaggedSlices, page_size: int):
+    """The live packed rows of a ragged dispatch and where each lands:
+    ``(rows, page_of, slot_of)`` (M,) int64 on the device, built once per
+    forward (one upload and one block-table gather) for every layer's
+    int8 slice write."""
+    B = slices.block_tables.shape[0] - len(slices.qoff)
+    rows, pos, owner = [], [], []
+    for s, (off, n, start) in enumerate(zip(slices.qoff, slices.qlen,
+                                            slices.qstart)):
+        rows += range(off, off + n)
+        pos += range(start, start + n)
+        owner += [B + s] * n
+    t = torch.tensor([rows, pos, owner], dtype=torch.long,
+                     device=slices.block_tables.device)
+    page_of = slices.block_tables.long()[t[2], t[1] // page_size]
+    return t[0], page_of, t[1] % page_size
+
+
+def ragged_mixed_step_q8(q_dec: torch.Tensor, k_new: torch.Tensor,
+                         v_new: torch.Tensor, q_pf: torch.Tensor,
+                         k_pf: torch.Tensor, v_pf: torch.Tensor,
+                         pools: Q8Pools, page_of: torch.Tensor,
+                         slices: RaggedSlices, rows, layer: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`ragged_mixed_step` over the int8 pools: quantize the live
+    packed slice rows and scatter them with their scales straight from
+    the packed buffer (``rows`` from :func:`ragged_slice_rows`; no dense
+    view), then quantize the decode rows and make ONE int8 ragged
+    attention launch, which writes the decode rows and their scales and
+    dequantizes in the kernel. Returns ``(attn_dec (B, H, D), attn_pf
+    (N, H, D))``; pools update in place."""
+    k_pool, v_pool, ks_pool, vs_pool = pools
+    N, H, D = q_pf.shape
+    GD = k_pool.shape[3]
+    idx, pf_page, pf_slot = rows
+    if idx.numel():
+        kq, ks = quantize_kv_rows(k_pf.reshape(N, GD // D, D)[idx])
+        vq, vs = quantize_kv_rows(v_pf.reshape(N, GD // D, D)[idx])
+        k_pool[layer, pf_page, pf_slot] = kq.reshape(-1, GD)
+        v_pool[layer, pf_page, pf_slot] = vq.reshape(-1, GD)
+        _scale_scatter(ks_pool, layer, pf_page, pf_slot, ks)
+        _scale_scatter(vs_pool, layer, pf_page, pf_slot, vs)
+    kq, ks = quantize_kv_rows(k_new)
+    vq, vs = quantize_kv_rows(v_new)
+    return kernels.ragged_mixed_attention_q8(
+        q_dec, kq, ks, vq, vs, q_pf, *pools, slices.block_tables,
         slices.seq_lens, page_of, slices.meta[0], slices.meta[1],
         slices.meta[2], layer)

@@ -1,18 +1,20 @@
 """The port's hand-written Hopper kernels: build, load, wrappers, twins.
 
-Six CUDA C++ kernels (``llmq_tpu_torch/csrc/*.cu``) replace six
+Eight CUDA C++ kernels (``llmq_tpu_torch/csrc/*.cu``) replace the eight
 Pallas kernels of ``llmq_tpu``:
 
-=============================  =========================================
-wrapper                        replaces (``llmq_tpu/ops/pallas/``)
-=============================  =========================================
-:func:`fused_decode`           ``fused_decode.py`` fused_decode_attention_pallas
-:func:`kv_prefill_write`       ``kv_write.py`` kv_prefill_write_pallas
-:func:`prefill_attention`      ``prefill_attention.py`` paged_prefill_attention_pallas
-:func:`kv_cache_write`         ``kv_write.py`` kv_cache_write_pallas
-:func:`ragged_mixed_attention` ``ragged_paged_attention.py`` ragged_mixed_attention_pallas
-:func:`paged_decode_attention` ``paged_attention.py`` paged_decode_attention_pallas
-=============================  =========================================
+================================  ==========================================
+wrapper                           replaces (``llmq_tpu/ops/pallas/``)
+================================  ==========================================
+:func:`fused_decode`              ``fused_decode.py`` fused_decode_attention_pallas
+:func:`kv_prefill_write`          ``kv_write.py`` kv_prefill_write_pallas
+:func:`prefill_attention`         ``prefill_attention.py`` paged_prefill_attention_pallas
+:func:`kv_cache_write`            ``kv_write.py`` kv_cache_write_pallas
+:func:`fused_decode_q8`           ``fused_decode.py`` fused_decode_attention_q8_pallas
+:func:`ragged_mixed_attention`    ``ragged_paged_attention.py`` ragged_mixed_attention_pallas
+:func:`ragged_mixed_attention_q8` ``ragged_paged_attention.py`` ragged_mixed_attention_q8_pallas
+:func:`paged_decode_attention`    ``paged_attention.py`` paged_decode_attention_pallas
+================================  ==========================================
 
 Each source compiles with its own ``nvcc`` (all started together) into a
 shared library with a plain C interface, loaded with ``ctypes``, at the
@@ -23,7 +25,8 @@ Each wrapper takes its kernel's plain PyTorch twin (``*_plain``, beside
 it) only when its tensors lie on the CPU. On a CUDA tensor it checks
 device, dtype, shape and contiguity, launches on the current stream,
 raises if the launch failed, and adds one to :data:`LAUNCHES`.
-Pools are flat ``(L, P, page_size, GD)`` with ``GD = H_kv * head_dim``.
+Pools are flat ``(L, P, page_size, GD)`` with ``GD = H_kv * head_dim``;
+int8 pools come with bf16 scale pools ``(L, P, H_kv, page_size)``.
 """
 
 from __future__ import annotations
@@ -67,6 +70,7 @@ _SIGNATURES = {
     },
     "fused_decode": {
         "llmq_fused_decode": [_P] * 9 + [_I] * 8 + [_F, _P],
+        "llmq_fused_decode_q8": [_P] * 13 + [_I] * 8 + [_F, _P],
     },
     "prefill_attention": {
         "llmq_prefill_attention": [_P] * 5 + [_I] * 9 + [_F, _P],
@@ -76,6 +80,7 @@ _SIGNATURES = {
     },
     "ragged_attention": {
         "llmq_ragged_mixed_attention": [_P] * 14 + [_I] * 10 + [_F, _P],
+        "llmq_ragged_mixed_attention_q8": [_P] * 18 + [_I] * 10 + [_F, _P],
     },
 }
 
@@ -83,7 +88,9 @@ _SIGNATURES = {
 #: nowhere else. ``reset_launches()`` zeroes them.
 LAUNCHES: Dict[str, int] = {"fused_decode": 0, "kv_prefill_write": 0,
                             "prefill_attention": 0, "kv_cache_write": 0,
+                            "fused_decode_q8": 0,
                             "ragged_mixed_attention": 0,
+                            "ragged_mixed_attention_q8": 0,
                             "paged_decode_attention": 0}
 
 #: nvcc's stderr per library from the last build (ptxas register and
@@ -208,6 +215,42 @@ def _check_pools(k_pool: torch.Tensor, v_pool: torch.Tensor,
     if not 0 <= layer < k_pool.shape[0]:
         raise ValueError(f"layer {layer} out of range [0, "
                          f"{k_pool.shape[0]})")
+
+
+def _check_q8_pools(k_pool: torch.Tensor, v_pool: torch.Tensor,
+                    ks_pool: torch.Tensor, vs_pool: torch.Tensor, layer: int,
+                    D: int) -> None:
+    """int8 data pools (L, P, ps, GD) and their bf16 scale pools
+    (L, P, H_kv, ps)."""
+    if k_pool.dim() != 4:
+        raise ValueError(f"pool must be (L, P, page_size, GD), got "
+                         f"{tuple(k_pool.shape)}")
+    L, P, ps, GD = k_pool.shape
+    _check(k_pool, "k_pool", torch.int8, align=16)
+    _check(v_pool, "v_pool", torch.int8, tuple(k_pool.shape), align=16)
+    if GD % D:
+        raise ValueError(f"pool GD={GD} is not a multiple of D={D}")
+    sshape = (L, P, GD // D, ps)
+    _check(ks_pool, "k_scale_pool", torch.bfloat16, sshape)
+    _check(vs_pool, "v_scale_pool", torch.bfloat16, sshape)
+    if not 0 <= layer < L:
+        raise ValueError(f"layer {layer} out of range [0, {L})")
+
+
+def _check_new_q8(B: int, Hkv: int, D: int, kq: torch.Tensor,
+                  ks: torch.Tensor, vq: torch.Tensor,
+                  vs: torch.Tensor) -> None:
+    """Pre-quantized decode rows: int8 (B, H_kv, D), bf16 scales
+    (B, H_kv)."""
+    for t, name in ((kq, "k_new_q"), (vq, "v_new_q")):
+        _check(t, name, torch.int8, align=4)
+        if t.numel() != B * Hkv * D:
+            raise ValueError(f"{name} must hold (B, H_kv, D) = "
+                             f"({B}, {Hkv}, {D})")
+    for t, name in ((ks, "k_new_scale"), (vs, "v_new_scale")):
+        _check(t, name, torch.bfloat16)
+        if t.numel() != B * Hkv:
+            raise ValueError(f"{name} must hold (B, H_kv) = ({B}, {Hkv})")
 
 
 def _check_heads(H: int, Hkv: int, D: int) -> None:
@@ -459,6 +502,97 @@ def kv_cache_write_plain(k_pool: torch.Tensor, v_pool: torch.Tensor,
     paged_kv_write(k_pool, v_pool, k_new, v_new, page_of, slot_of, layer)
 
 
+# -- kernel 5: int8 fused decode write + attention ----------------------------
+
+def fused_decode_q8(q: torch.Tensor, k_new_q: torch.Tensor,
+                    k_new_scale: torch.Tensor, v_new_q: torch.Tensor,
+                    v_new_scale: torch.Tensor, k_pool: torch.Tensor,
+                    v_pool: torch.Tensor, k_scale_pool: torch.Tensor,
+                    v_scale_pool: torch.Tensor, block_tables: torch.Tensor,
+                    seq_lens: torch.Tensor, write_page: torch.Tensor,
+                    layer: int) -> torch.Tensor:
+    """:func:`fused_decode` over int8 pools: write each row's
+    pre-quantized K/V (B, H_kv, D) int8 and its per-head bf16 scales
+    (B, H_kv) at slot ``(seq_len-1) % page_size`` of ``write_page[b]`` (in
+    place, scales into the (L, P, H_kv, ps) scale pools), then GQA
+    attention over ``[0, seq_len)`` with in-kernel dequant: K scales
+    multiply the logits, V scales fold into the probabilities. A row
+    with ``seq_len == 0`` returns zeros.
+
+    Replaces ``fused_decode_attention_q8_pallas`` (llmq_tpu/ops/pallas/
+    fused_decode.py). Bound by bytes: half kernel 1's K/V bytes plus 4
+    bytes of scales per cached (position, head) (csrc/fused_decode.cu)."""
+    if _on_cpu(q, k_new_q, k_new_scale, v_new_q, v_new_scale, k_pool,
+               v_pool, k_scale_pool, v_scale_pool, block_tables, seq_lens,
+               write_page):
+        return fused_decode_q8_plain(q, k_new_q, k_new_scale, v_new_q,
+                                     v_new_scale, k_pool, v_pool,
+                                     k_scale_pool, v_scale_pool,
+                                     block_tables, seq_lens, write_page,
+                                     layer)
+    B, H, D = q.shape
+    _check_q8_pools(k_pool, v_pool, k_scale_pool, v_scale_pool, layer, D)
+    L, P, ps, GD = k_pool.shape
+    Hkv = GD // D
+    _check_heads(H, Hkv, D)
+    MP = block_tables.shape[1] if block_tables.dim() == 2 else -1
+    _check(q, "q", torch.bfloat16, (B, H, D), align=8)
+    _check_new_q8(B, Hkv, D, k_new_q, k_new_scale, v_new_q, v_new_scale)
+    _check(block_tables, "block_tables", torch.int32, (B, MP))
+    _check(seq_lens, "seq_lens", torch.int32, (B,))
+    _check(write_page, "write_page", torch.int32, (B,))
+    out = torch.empty_like(q)
+    rc = _fn("fused_decode", "llmq_fused_decode_q8")(
+        q.data_ptr(), k_new_q.data_ptr(), k_new_scale.data_ptr(),
+        v_new_q.data_ptr(), v_new_scale.data_ptr(), k_pool.data_ptr(),
+        v_pool.data_ptr(), k_scale_pool.data_ptr(), v_scale_pool.data_ptr(),
+        block_tables.data_ptr(), seq_lens.data_ptr(), write_page.data_ptr(),
+        out.data_ptr(), B, H, Hkv, D, layer, P, ps, MP, D ** -0.5,
+        _stream(q))
+    _raise_on(rc, "fused_decode_q8")
+    LAUNCHES["fused_decode_q8"] += 1
+    return out
+
+
+def fused_decode_q8_plain(q: torch.Tensor, k_new_q: torch.Tensor,
+                          k_new_scale: torch.Tensor, v_new_q: torch.Tensor,
+                          v_new_scale: torch.Tensor, k_pool: torch.Tensor,
+                          v_pool: torch.Tensor, k_scale_pool: torch.Tensor,
+                          v_scale_pool: torch.Tensor,
+                          block_tables: torch.Tensor, seq_lens: torch.Tensor,
+                          write_page: torch.Tensor,
+                          layer: int) -> torch.Tensor:
+    """Plain twin of :func:`fused_decode_q8`, the JAX package's plain
+    route: scatter the rows and scales, gather and dequantize the window
+    to bf16, attend; position ``seq_len-1`` is taken from the new row as
+    the kernel does."""
+    from llmq_tpu_torch.ops.attention import (_dequant_window, _gqa_attend,
+                                              _scale_scatter)
+    from llmq_tpu_torch.ops.quant import dequantize_kv
+
+    B, H, D = q.shape
+    ps, GD = k_pool.shape[2], k_pool.shape[3]
+    Hkv = GD // D
+    S = block_tables.shape[1] * ps
+    live = seq_lens > 0
+    last = (seq_lens.long() - 1).clamp(min=0)
+    page, slot = write_page.long()[live], (last % ps)[live]
+    k_pool[layer, page, slot] = k_new_q.reshape(B, GD)[live]
+    v_pool[layer, page, slot] = v_new_q.reshape(B, GD)[live]
+    _scale_scatter(k_scale_pool, layer, page, slot,
+                   k_new_scale.reshape(B, Hkv)[live])
+    _scale_scatter(v_scale_pool, layer, page, slot,
+                   v_new_scale.reshape(B, Hkv)[live])
+    k = _dequant_window(k_pool, k_scale_pool, layer, block_tables, D)
+    v = _dequant_window(v_pool, v_scale_pool, layer, block_tables, D)
+    rows = torch.nonzero(live & (last < S)).flatten()
+    k[rows, last[rows]] = dequantize_kv(
+        k_new_q.reshape(B, Hkv, D)[rows], k_new_scale.reshape(B, Hkv)[rows])
+    v[rows, last[rows]] = dequantize_kv(
+        v_new_q.reshape(B, Hkv, D)[rows], v_new_scale.reshape(B, Hkv)[rows])
+    out = _gqa_attend(q, k, v, seq_lens.clamp(max=S))
+    return torch.where(live[:, None, None], out, torch.zeros_like(out))
+
 
 # -- kernel 6: ragged mixed attention -----------------------------------------
 
@@ -551,6 +685,115 @@ def ragged_mixed_attention_plain(q_dec: torch.Tensor, k_new: torch.Tensor,
             out_pf[off:off + n] = prefill_attention_plain(
                 q_pf[off:off + n], k_pool, v_pool, block_tables[B + s],
                 start, layer)
+    return out_dec, out_pf
+
+
+# -- kernel 7: int8 ragged mixed attention -----------------------------------
+
+def ragged_mixed_attention_q8(q_dec: torch.Tensor, k_new_q: torch.Tensor,
+                              k_new_scale: torch.Tensor,
+                              v_new_q: torch.Tensor,
+                              v_new_scale: torch.Tensor, q_pf: torch.Tensor,
+                              k_pool: torch.Tensor, v_pool: torch.Tensor,
+                              k_scale_pool: torch.Tensor,
+                              v_scale_pool: torch.Tensor,
+                              block_tables: torch.Tensor,
+                              seq_lens: torch.Tensor,
+                              write_page: torch.Tensor,
+                              pf_qoff: torch.Tensor, pf_qlen: torch.Tensor,
+                              pf_qstart: torch.Tensor, layer: int):
+    """:func:`ragged_mixed_attention` over int8 pools: the B decode rows
+    as :func:`fused_decode_q8` does them (pre-quantized rows and scales
+    written in place), AND causal paged attention for every token of the
+    S packed prefill slices, whose int8 K/V and scales must already be in
+    their pages; slice blocks dequantize in the kernel. Descriptors and
+    the packed layout are :func:`ragged_mixed_attention`'s. Returns
+    ``(out_dec (B, H, D), out_pf (N, H, D))``; packed rows outside every
+    slice are zeros.
+
+    Replaces ``ragged_mixed_attention_q8_pallas`` (llmq_tpu/ops/pallas/
+    ragged_paged_attention.py). Decode blocks are bound by bytes, slice
+    blocks by bytes or operations with the history's length
+    (csrc/ragged_attention.cu)."""
+    if _on_cpu(q_dec, k_new_q, k_new_scale, v_new_q, v_new_scale, q_pf,
+               k_pool, v_pool, k_scale_pool, v_scale_pool, block_tables,
+               seq_lens, write_page, pf_qoff, pf_qlen, pf_qstart):
+        return ragged_mixed_attention_q8_plain(
+            q_dec, k_new_q, k_new_scale, v_new_q, v_new_scale, q_pf, k_pool,
+            v_pool, k_scale_pool, v_scale_pool, block_tables, seq_lens,
+            write_page, pf_qoff, pf_qlen, pf_qstart, layer)
+    B, H, D = q_dec.shape
+    N = q_pf.shape[0]
+    S = pf_qoff.shape[0]
+    _check_q8_pools(k_pool, v_pool, k_scale_pool, v_scale_pool, layer, D)
+    L, P, ps, GD = k_pool.shape
+    Hkv = GD // D
+    _check_heads(H, Hkv, D)
+    if N % 8:
+        raise ValueError(f"packed buffer N={N} must be a multiple of 8")
+    MP = block_tables.shape[1] if block_tables.dim() == 2 else -1
+    _check(q_dec, "q_dec", torch.bfloat16, (B, H, D), align=8)
+    _check(q_pf, "q_pf", torch.bfloat16, (N, H, D))
+    _check_new_q8(B, Hkv, D, k_new_q, k_new_scale, v_new_q, v_new_scale)
+    _check(block_tables, "block_tables", torch.int32, (B + S, MP))
+    _check(seq_lens, "seq_lens", torch.int32, (B + S,))
+    _check(write_page, "write_page", torch.int32, (B,))
+    for t, name in ((pf_qoff, "pf_qoff"), (pf_qlen, "pf_qlen"),
+                    (pf_qstart, "pf_qstart")):
+        _check(t, name, torch.int32, (S,))
+    out_dec = torch.empty_like(q_dec)
+    out_pf = torch.empty_like(q_pf)
+    rc = _fn("ragged_attention", "llmq_ragged_mixed_attention_q8")(
+        q_dec.data_ptr(), k_new_q.data_ptr(), k_new_scale.data_ptr(),
+        v_new_q.data_ptr(), v_new_scale.data_ptr(), q_pf.data_ptr(),
+        k_pool.data_ptr(), v_pool.data_ptr(), k_scale_pool.data_ptr(),
+        v_scale_pool.data_ptr(), block_tables.data_ptr(),
+        seq_lens.data_ptr(), write_page.data_ptr(), pf_qoff.data_ptr(),
+        pf_qlen.data_ptr(), pf_qstart.data_ptr(), out_dec.data_ptr(),
+        out_pf.data_ptr(), B, S, N, H, Hkv, D, layer, P, ps, MP, D ** -0.5,
+        _stream(q_dec))
+    _raise_on(rc, "ragged_mixed_attention_q8")
+    LAUNCHES["ragged_mixed_attention_q8"] += 1
+    return out_dec, out_pf
+
+
+def ragged_mixed_attention_q8_plain(q_dec: torch.Tensor,
+                                    k_new_q: torch.Tensor,
+                                    k_new_scale: torch.Tensor,
+                                    v_new_q: torch.Tensor,
+                                    v_new_scale: torch.Tensor,
+                                    q_pf: torch.Tensor, k_pool: torch.Tensor,
+                                    v_pool: torch.Tensor,
+                                    k_scale_pool: torch.Tensor,
+                                    v_scale_pool: torch.Tensor,
+                                    block_tables: torch.Tensor,
+                                    seq_lens: torch.Tensor,
+                                    write_page: torch.Tensor,
+                                    pf_qoff: torch.Tensor,
+                                    pf_qlen: torch.Tensor,
+                                    pf_qstart: torch.Tensor, layer: int):
+    """Plain twin of :func:`ragged_mixed_attention_q8`, the JAX package's
+    plain route: the decode half as :func:`fused_decode_q8_plain`, then
+    each live slice's causal attention over its dequantized window
+    (``ops/attention.dispatch_prefill_attention_q8``); packed rows outside
+    every slice are zeros."""
+    from llmq_tpu_torch.ops.attention import dispatch_prefill_attention_q8
+
+    B = q_dec.shape[0]
+    pools = (k_pool, v_pool, k_scale_pool, v_scale_pool)
+    out_dec = fused_decode_q8_plain(q_dec, k_new_q, k_new_scale, v_new_q,
+                                    v_new_scale, *pools, block_tables[:B],
+                                    seq_lens[:B], write_page, layer)
+    out_pf = torch.zeros_like(q_pf)
+    dev = q_pf.device
+    for s, (off, n, start) in enumerate(zip(pf_qoff.tolist(),
+                                            pf_qlen.tolist(),
+                                            pf_qstart.tolist())):
+        if n > 0:
+            pos = (start + torch.arange(n, device=dev))[None]
+            out_pf[off:off + n] = dispatch_prefill_attention_q8(
+                q_pf[None, off:off + n], pools, block_tables[B + s][None],
+                pos, torch.tensor([start + n], device=dev), layer)[0]
     return out_dec, out_pf
 
 

@@ -246,3 +246,103 @@ def test_new_wrappers_raise_on_uninstantiated_geometry():
         kernels.paged_decode_attention(q_dec, kp, vp, bt[:B].contiguous(),
                                        sl[:B].contiguous(), 0)
     assert kernels.LAUNCHES == before
+
+
+# -- int8 serving: kernels 5 and 7, and the int8 GEMM ---------------------------
+
+Q8_ATOL = 3e-2   # the JAX package's int8 kernel-vs-plain tolerance
+
+
+def _q8(x):
+    """bf16 (..., GD) rows → int8 rows (..., GD) and per-head bf16 scales
+    (..., H_kv), through the port's own row quantization."""
+    from llmq_tpu_torch.ops.quant import quantize_kv_rows
+
+    q, s = quantize_kv_rows(x.reshape(*x.shape[:-1], -1, D))
+    return q.reshape(x.shape).contiguous(), s.contiguous()
+
+
+def _q8_pools(kp, vp):
+    """bf16 pools (L, P, ps, GD) → int8 pools and (L, P, H_kv, ps) scale
+    pools."""
+    (kq, ks), (vq, vs) = _q8(kp), _q8(vp)
+    return (kq, vq, ks.transpose(2, 3).contiguous(),
+            vs.transpose(2, 3).contiguous())
+
+
+@needs_cuda
+def test_fused_decode_q8_matches_twin():
+    """Kernel 5: live rows within 3e-2 of the twin, the empty row zero,
+    int8 pools and scale pools bit-exact."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    (q_dec, kn, vn, _q, kp, vp, bt, sl, wp, *_), B = _ragged_case(gen)
+    bt, sl = bt[:B].contiguous(), sl[:B].contiguous()
+    pools = _q8_pools(kp, vp)
+    (kq, ks), (vq, vs) = _q8(kn.reshape(B, -1)), _q8(vn.reshape(B, -1))
+    p1 = [t.clone() for t in pools]
+    p2 = [t.clone() for t in pools]
+    before = kernels.LAUNCHES["fused_decode_q8"]
+    a = kernels.fused_decode_q8(q_dec, kq, ks, vq, vs, *p1, bt, sl, wp, 1)
+    b = kernels.fused_decode_q8_plain(q_dec, kq, ks, vq, vs, *p2, bt, sl, wp,
+                                      1)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fused_decode_q8"] == before + 1
+    assert torch.isfinite(a).all()
+    assert (a[:4].float() - b[:4].float()).abs().max().item() <= Q8_ATOL
+    assert torch.all(a[4] == 0)
+    for x, y in zip(p1, p2):
+        assert torch.equal(x, y)
+
+
+@needs_cuda
+@pytest.mark.parametrize("h", [H, HKV])
+def test_ragged_mixed_attention_q8_matches_twin(h):
+    """Kernel 7 (n_rep 4 and 1): decode rows and packed slices within
+    3e-2 of the twin, rows outside the slices zero, the four pools
+    bit-exact."""
+    gen = torch.Generator(device="cuda").manual_seed(11 + h)
+    (q_dec, kn, vn, q_pf, kp, vp, bt, sl, wp, qoff, qlen,
+     qstart), B = _ragged_case(gen, H_=h)
+    pools = _q8_pools(kp, vp)
+    (kq, ks), (vq, vs) = _q8(kn.reshape(B, -1)), _q8(vn.reshape(B, -1))
+    p1 = [t.clone() for t in pools]
+    p2 = [t.clone() for t in pools]
+    args = (bt, sl, wp, qoff, qlen, qstart, 1)
+    before = kernels.LAUNCHES["ragged_mixed_attention_q8"]
+    a_d, a_p = kernels.ragged_mixed_attention_q8(q_dec, kq, ks, vq, vs, q_pf,
+                                                 *p1, *args)
+    b_d, b_p = kernels.ragged_mixed_attention_q8_plain(q_dec, kq, ks, vq, vs,
+                                                       q_pf, *p2, *args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ragged_mixed_attention_q8"] == before + 1
+    assert torch.isfinite(a_d).all() and torch.isfinite(a_p).all()
+    assert (a_d[:4].float() - b_d[:4].float()).abs().max().item() <= Q8_ATOL
+    assert torch.all(a_d[4] == 0)
+    live = torch.zeros(q_pf.shape[0], dtype=torch.bool, device="cuda")
+    live[0:13] = True
+    live[16:36] = True
+    assert (a_p[live].float() - b_p[live].float()).abs().max().item() \
+        <= Q8_ATOL
+    assert torch.all(a_p[~live] == 0)
+    for x, y in zip(p1, p2):
+        assert torch.equal(x, y)
+
+
+@needs_cuda
+@pytest.mark.parametrize("rows", [1, 8, 16, 17, 40])
+def test_qdot_and_tied_head_on_the_card(rows):
+    """The int8 GEMM at decode's row counts (cuBLAS refuses 16 rows or
+    fewer unpadded): ``qdot`` and ``tied_head_logits`` on the card equal
+    the CPU's within 1e-5 relative (f32 activations; the int32 product is
+    exact on both)."""
+    from llmq_tpu_torch.ops.quant import (qdot, quantize_embedding,
+                                          quantize_weight, tied_head_logits)
+
+    gen = torch.Generator().manual_seed(rows)
+    x = torch.randn((rows, 256), generator=gen)
+    w = quantize_weight(torch.randn((256, 512), generator=gen))
+    e = quantize_embedding(torch.randn((384, 256), generator=gen))
+    for fn, arg in ((qdot, w), (lambda h, t: tied_head_logits(t, h), e)):
+        cpu = fn(x, arg)
+        dev = fn(x.cuda(), {k: v.cuda() for k, v in arg.items()}).cpu()
+        torch.testing.assert_close(dev, cpu, rtol=1e-5, atol=1e-5)

@@ -428,3 +428,155 @@ def test_ragged_prefill_runs_no_bucket_program(monkeypatch):
     eng.run_until_idle()
     assert h.result.finish_reason in ("eos", "length") and not calls
     assert h.result.prompt_tokens >= 70
+
+
+# -- int8 serving: w8a8 weights and int8 KV pools -------------------------------
+#
+# With both switches on, a K/V value one f32 ulp apart before quantization
+# can round to the neighbouring int8 value in one package and not the
+# other, and int8 activations downstream amplify that to ~0.04 on the
+# logits (tests/test_torch_model.py, INT8_KV_ATOL). A greedy stream can
+# then part at a near-tie. So the streams are compared token for token,
+# and where one parts from the JAX engine's, the parting is checked by
+# teacher forcing: both packages' models, fed the same context (the
+# JAX stream up to that token), must rank the two tokens within
+# INT8_KV_ATOL of each other. The int8-weights-only and int8-KV-only
+# engines must give the JAX streams exactly.
+
+INT8_KV_ATOL = 0.1
+
+
+def _int8_params(quant=True):
+    """The f32 tiny model, quantized by the JAX package when ``quant``,
+    and the same tree carried across (int8 and f32 leaves)."""
+    from llmq_tpu.ops.quant import quantize_params as jquantize
+
+    jcfg = J.get_config("llama3-tiny", dtype=jnp.float32, **KW)
+    jparams = J.init_params(jax.random.PRNGKey(0), jcfg)
+    if quant:
+        jparams = jquantize(jparams)
+    tparams = T.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
+                                device="cpu")
+    return jcfg, jparams, tparams
+
+
+def _int8_engines(quant, kv, ragged):
+    """Both engines on the mixed workload; returns (jax results, torch
+    results, torch executor, models)."""
+    from llmq_tpu.core.config import MixedBatchConfig as JMixed
+    from llmq_tpu_torch.core.config import MixedBatchConfig
+
+    jcfg, jparams, tparams = _int8_params(quant)
+    jeng = JEngine(JaxExecutor(jcfg, jparams, ragged_attention=ragged,
+                               cache_dtype=jnp.int8 if kv else None,
+                               **MIXED_GEOM),
+                   JTok(), enable_metrics=False, max_decode_steps=MAX_STEPS,
+                   mixed_batch=JMixed(enabled=True, prefill_token_budget=16,
+                                      max_slices=2))
+    jres = _mixed_workload(
+        jeng.submit, jeng.step, jeng.run_until_idle,
+        lambda rid, text, prio, conversation_id="": JGenRequest(
+            id=rid, prompt=text, priority=JPriority.from_name(prio),
+            conversation_id=conversation_id, max_new_tokens=10))
+    tcfg = T.get_config("llama3-tiny", dtype=torch.float32, **KW)
+    tex = TorchExecutor(tcfg, tparams, device="cpu", ragged_attention=ragged,
+                        cache_dtype=torch.int8 if kv else None, **MIXED_GEOM)
+    teng = InferenceEngine(tex, ByteTokenizer(), max_decode_steps=MAX_STEPS,
+                           mixed_batch=MixedBatchConfig(
+                               enabled=True, prefill_token_budget=16,
+                               max_slices=2))
+    tres = _mixed_workload(
+        teng.submit, teng.step, teng.run_until_idle,
+        lambda rid, text, prio, conversation_id="": GenRequest(
+            id=rid, prompt=text, priority=Priority.from_name(prio),
+            conversation_id=conversation_id, max_new_tokens=10))
+    assert jeng.mixed_steps > 0 and teng.mixed_steps > 0
+    return jres, tres, tex, (jcfg, jparams, tcfg, tparams)
+
+
+def _teacher_forced_last_logits(models, context):
+    """Both packages' f32 logits after ``context`` (one prefill chunk on
+    fresh int8 pools): the next-token distributions at that point."""
+    jcfg, jparams, tcfg, tparams = models
+    n = len(context)
+    pages = -(-(n + 1) // 16)
+    bt = np.zeros((1, 8), np.int32)
+    bt[0, :pages] = np.arange(1, pages + 1)
+    toks = np.asarray([context], np.int32)
+    pos = np.arange(n, dtype=np.int32)[None]
+    lens = np.asarray([n], np.int32)
+    jl, _ = J.forward_prefill(jparams, jcfg, jnp.asarray(toks),
+                              jnp.asarray(pos), jnp.asarray(lens),
+                              J.init_kv_pages(jcfg, 16, 16, dtype=jnp.int8),
+                              jnp.asarray(bt))
+    tl = T.forward_prefill(tparams, tcfg, torch.tensor(toks),
+                           torch.tensor(pos), torch.tensor(lens),
+                           T.init_kv_pages(tcfg, 16, 16, "cpu",
+                                           dtype=torch.int8),
+                           torch.tensor(bt))
+    return np.asarray(jl)[0, -1], tl[0, -1].numpy()
+
+
+def _contexts():
+    """Each request's context before its first generated token, as the
+    engine builds it (turn 2: turn 1's prompt and stream, then its own
+    prompt)."""
+    tok = ByteTokenizer()
+    ctx = {f"w{i}": tok.encode(text) for i, (text, _) in enumerate(MIXED_WAVE)}
+    ctx["t0"] = tok.encode("Hello there, conversation.")
+    return ctx, tok.encode(" And a second turn, a little longer.")
+
+
+@pytest.mark.parametrize("mode", ["bucket", "ragged"])
+def test_int8_engine_streams_match_jax(mode):
+    """int8 weights and int8 KV, mixed batching on, ragged off then on,
+    on the mixed workload (arrivals while others decode, a prompt of ~10
+    ragged capacities, a two-turn conversation). Every stream equals the
+    JAX engine's token for token up to where it parts at a near-tie
+    (checked by teacher forcing, see above), finish reasons and cached
+    counts too; both engines took mixed steps and the pools carry
+    scales."""
+    jres, tres, tex, models = _int8_engines(True, True, mode == "ragged")
+    assert set(tex.cache) == {"k", "v", "k_scale", "v_scale"}
+    assert tex.cache["k"].dtype == torch.int8
+    assert tres["t1"].cached_tokens > 0
+    ctx, t1_prompt = _contexts()
+    ctx["t1"] = ctx["t0"] + jres["t0"].tokens + t1_prompt
+    assert set(tres) == set(jres)
+    parted = []
+    for rid, j in jres.items():
+        t = tres[rid]
+        i = next((k for k, (a, b) in enumerate(zip(j.tokens, t.tokens))
+                  if a != b), None)
+        if i is None:
+            assert t.tokens == j.tokens, rid
+            assert t.finish_reason == j.finish_reason, rid
+            assert t.cached_tokens == j.cached_tokens, rid
+            continue
+        parted.append(rid)
+        jl, tl = _teacher_forced_last_logits(models, ctx[rid] + j.tokens[:i])
+        a, b = j.tokens[i], t.tokens[i]
+        for logits in (jl, tl):
+            assert abs(logits[a] - logits[b]) <= INT8_KV_ATOL, (rid, i)
+            assert logits.max() - max(logits[a], logits[b]) <= INT8_KV_ATOL
+    assert len(parted) <= len(jres) // 2, parted
+
+
+@pytest.mark.parametrize("quant,kv", [(True, False), (False, True)])
+def test_int8_weights_or_kv_alone_streams_equal_jax(quant, kv):
+    """One switch on at a time (they are independent, as in JAX), ragged
+    on: the port's greedy streams equal the JAX engine's exactly."""
+    jres, tres, tex, _models = _int8_engines(quant, kv, ragged=True)
+    assert ("k_scale" in tex.cache) == kv
+    _same_streams(tres, jres)
+
+
+def test_int8_kv_has_no_split_decode_route():
+    """As in the JAX package, the int8-KV decode step is the fused kernel
+    only: asking for the split route with an int8 cache raises at
+    construction."""
+    cfg = T.get_config("llama3-tiny", dtype=torch.float32)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(ValueError, match="no int8-KV route"):
+        TorchExecutor(cfg, params, device="cpu", fused_decode=False,
+                      cache_dtype=torch.int8, **GEOM)

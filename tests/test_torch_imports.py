@@ -37,10 +37,13 @@ _BLOCKED_IMPORT_SCRIPT = textwrap.dedent("""
                                               "llmq_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
-    # This slice's entry points: both kernels with their twins, their
-    # sources, the mixed forwards and the two config blocks.
+    # The slices' entry points: every kernel with its twin, their
+    # sources, the mixed forwards, the int8 ops and routes, and the
+    # config blocks and switches.
     from llmq_tpu_torch.ops import kernels
-    for fn in ("ragged_mixed_attention", "paged_decode_attention"):
+    for fn in ("fused_decode", "kv_prefill_write", "prefill_attention",
+               "kv_cache_write", "fused_decode_q8", "ragged_mixed_attention",
+               "ragged_mixed_attention_q8", "paged_decode_attention"):
         assert callable(getattr(kernels, fn))
         assert callable(getattr(kernels, fn + "_plain"))
         assert fn in kernels.LAUNCHES
@@ -54,6 +57,18 @@ _BLOCKED_IMPORT_SCRIPT = textwrap.dedent("""
                                             RaggedAttentionConfig)
     from llmq_tpu_torch.engine.executor import TorchExecutor
     assert hasattr(TorchExecutor, "mixed_chunk")
+    from llmq_tpu_torch.ops import quant
+    for fn in ("is_quantized", "quantize_weight", "dequantize_weight",
+               "quantize_act", "qdot", "linear", "layer_slice",
+               "quantize_embedding", "embed_lookup", "tied_head_logits",
+               "quantize_params", "params_bytes", "quantize_kv_rows",
+               "dequantize_kv"):
+        assert callable(getattr(quant, fn)), fn
+    from llmq_tpu_torch.ops.attention import (paged_decode_step_q8,
+                                              ragged_mixed_step_q8)
+    from llmq_tpu_torch.models.llama import init_params_quantized
+    from llmq_tpu_torch.core.config import ModelConfig
+    assert ModelConfig().quantization == ModelConfig().kv_quantization == ""
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", sys.argv[1] + "/chip_smoke.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))

@@ -17,6 +17,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from llmq_tpu.models import llama as J  # noqa: E402
+from llmq_tpu.ops import quant as jquant  # noqa: E402
 
 from llmq_tpu_torch.models import llama as T  # noqa: E402
 
@@ -28,21 +29,32 @@ torch.set_num_threads(1)
 PS, P, MP = 16, 32, 8
 
 
-def _models(jdtype, tdtype):
+def _models(jdtype, tdtype, quant=False):
+    """Both packages' models on the same weights; ``quant``: the JAX tree
+    is quantized (w8a8) first and carried across as int8 and f32
+    leaves."""
     jcfg = J.get_config("llama3-tiny", dtype=jdtype, **KW)
     jparams = J.init_params(jax.random.PRNGKey(0), jcfg)
+    if quant:
+        jparams = jquant.quantize_params(jparams)
     tcfg = T.get_config("llama3-tiny", dtype=tdtype, **KW)
     tparams = T.params_from_jax(
         jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
     return jcfg, jparams, tcfg, tparams
 
 
-def _run_both(jdtype, tdtype):
+def _caches(jcfg, tcfg, kv=False):
+    """Empty pools in both packages; ``kv``: int8 pools with scales."""
+    return (J.init_kv_pages(jcfg, P, PS, dtype=jnp.int8 if kv else None),
+            T.init_kv_pages(tcfg, P, PS, "cpu",
+                            dtype=torch.int8 if kv else None))
+
+
+def _run_both(jdtype, tdtype, quant=False, kv=False):
     """Prefill (B=2, ragged lengths), a continuation chunk, then 5 greedy
     decode steps, in both packages. Returns lists of paired logits."""
-    jcfg, jparams, tcfg, tparams = _models(jdtype, tdtype)
-    jc = J.init_kv_pages(jcfg, P, PS)
-    tc = T.init_kv_pages(tcfg, P, PS, "cpu")
+    jcfg, jparams, tcfg, tparams = _models(jdtype, tdtype, quant)
+    jc, tc = _caches(jcfg, tcfg, kv)
     rng = np.random.default_rng(0)
     B, Tn = 2, 24
     bt = np.zeros((B, MP), np.int32)
@@ -159,15 +171,14 @@ def test_init_matches_preset_shapes_and_pool_layout():
         T.get_config("llama3-404b")
 
 
-def _mixed_setup():
+def _mixed_setup(quant=False, kv=False):
     """History for two decode rows and one continuing prompt, written by
     forward_prefill in both packages. Returns the models, both caches and
     the block tables: rows 0-1 decode (row 1 inactive in the mixed
     step), slice 0 continues its prompt at position 13, slice 1 is a
     fresh 7-token prompt."""
-    jcfg, jparams, tcfg, tparams = _models(jnp.float32, torch.float32)
-    jc = J.init_kv_pages(jcfg, P, PS)
-    tc = T.init_kv_pages(tcfg, P, PS, "cpu")
+    jcfg, jparams, tcfg, tparams = _models(jnp.float32, torch.float32, quant)
+    jc, tc = _caches(jcfg, tcfg, kv)
     rng = np.random.default_rng(3)
     bt = np.zeros((3, MP), np.int32)
     bt[0, :3], bt[1, :2], bt[2, :3] = [3, 9, 1], [2, 11], [7, 20, 5]
@@ -192,15 +203,40 @@ def _mixed_setup():
 
 def _pools_match(jc, tc):
     # Page 0 is the null page: JAX's plain routes write padding there.
-    for key in ("k", "v"):
-        np.testing.assert_allclose(tc[key].numpy()[:, 1:],
-                                   np.asarray(jc[key])[:, 1:], atol=1e-5)
+    assert set(jc) == set(tc)
+    if "k_scale" in jc:
+        _q8_pools_match(jc, tc)
+        return
+    for key in jc:
+        np.testing.assert_allclose(tc[key].float().numpy()[:, 1:],
+                                   np.asarray(jc[key], np.float32)[:, 1:],
+                                   atol=1e-5)
+
+
+def _q8_pools_match(jc, tc):
+    """int8 pools: a K/V value one f32 ulp apart before quantization may
+    round to the neighbouring integer (and move its row's bf16 scale by
+    an ulp), so at most 0.1% of the elements may differ, ints by 1 and
+    scales by one bf16 step."""
+    for key in jc:
+        t = tc[key].float().numpy()[:, 1:]
+        j = np.asarray(jc[key], np.float32)[:, 1:]
+        diff = np.abs(t - j)
+        assert np.mean(diff > 0) <= 1e-3, (key, np.mean(diff > 0))
+        if tc[key].dtype == torch.int8:
+            assert diff.max() <= 1, key
+        else:
+            np.testing.assert_allclose(t, j, rtol=2 ** -7, err_msg=key)
 
 
 def test_forward_mixed_matches_jax():
     """Bucket mixed step (f32): decode logits of the active row, slice
     logits at every valid position, and the pools within 1e-4."""
-    jcfg, jparams, tcfg, tparams, jc, tc, dec, sl = _mixed_setup()
+    _check_forward_mixed(*_mixed_setup())
+
+
+def _check_forward_mixed(jcfg, jparams, tcfg, tparams, jc, tc, dec, sl,
+                         atol=1e-4):
     Tw = 10
     toks = np.zeros((2, Tw), np.int32)
     pos = np.zeros((2, Tw), np.int32)
@@ -218,10 +254,10 @@ def test_forward_mixed_matches_jax():
         torch.tensor(dec["positions"]), tc, torch.tensor(dec["bt"]),
         torch.tensor(toks), torch.tensor(pos), torch.tensor(lens),
         torch.tensor(sl["bt"]), torch.tensor(dec["active"]))
-    np.testing.assert_allclose(td.numpy()[:1], np.asarray(jd)[:1], atol=1e-4)
+    np.testing.assert_allclose(td.numpy()[:1], np.asarray(jd)[:1], atol=atol)
     for i, n in enumerate(lens):
         np.testing.assert_allclose(tp.numpy()[i, :n], np.asarray(jp)[i, :n],
-                                   atol=1e-4)
+                                   atol=atol)
     _pools_match(jc, tc)
 
 
@@ -230,7 +266,11 @@ def test_forward_mixed_ragged_matches_jax():
     plus an unused slice row: decode logits, the slices' last-token
     logits and the pools within 1e-4; the module method gives the
     functional result."""
-    jcfg, jparams, tcfg, tparams, jc, tc, dec, sl = _mixed_setup()
+    _check_forward_mixed_ragged(*_mixed_setup())
+
+
+def _check_forward_mixed_ragged(jcfg, jparams, tcfg, tparams, jc, tc, dec,
+                                sl, atol=1e-4):
     N = 32
     toks = np.zeros(N, np.int32)
     pos = np.zeros(N, np.int32)
@@ -251,8 +291,80 @@ def test_forward_mixed_ragged_matches_jax():
             torch.tensor(qoff), torch.tensor(qlen), torch.tensor(pf_bt),
             torch.tensor(dec["active"]))
     td, tp = T.forward_mixed_ragged(tparams, tcfg, *args)
-    np.testing.assert_allclose(td.numpy()[:1], np.asarray(jd)[:1], atol=1e-4)
-    np.testing.assert_allclose(tp.numpy()[:2], np.asarray(jp)[:2], atol=1e-4)
+    np.testing.assert_allclose(td.numpy()[:1], np.asarray(jd)[:1], atol=atol)
+    np.testing.assert_allclose(tp.numpy()[:2], np.asarray(jp)[:2], atol=atol)
     _pools_match(jc, tc)
     md, mp = T.Llama(tcfg, tparams).forward_mixed_ragged(*args)
     assert torch.equal(md, td) and torch.equal(mp, tp)
+
+
+# -- int8: w8a8 weights, int8 KV pools, and both -------------------------------
+
+INT8_MODES = {"weights": (True, False), "kv": (False, True),
+              "both": (True, True)}
+
+# int8 weights alone keep the 1e-4 of the f32 forwards: the int32
+# products are exact. With int8 KV a value one f32 ulp apart before
+# quantization can round to the neighbouring integer (measured: one
+# element of layer 1's K pool), and int8 activations downstream amplify
+# that: the largest logit difference measured is 0.040 on logits of
+# magnitude ~4, so int8-KV modes are held to 0.1.
+INT8_KV_ATOL = 0.1
+
+
+def _int8_atol(mode):
+    return INT8_KV_ATOL if INT8_MODES[mode][1] else 1e-4
+
+
+def test_bridge_carries_a_quantized_tree_unchanged():
+    """A quantized JAX tree crosses ``params_from_jax`` leaf for leaf:
+    int8 weights and f32 scales, same shapes, same values; the module
+    holds them and gives the tree back."""
+    jcfg = J.get_config("llama3-tiny", **KW)
+    jp = jquant.quantize_params(J.init_params(jax.random.PRNGKey(2), jcfg))
+    host = jax.tree_util.tree_map(np.asarray, jp)
+    tp = T.params_from_jax(host, device="cpu")
+    for name in ("wq", "w_down"):
+        q, s = tp["layers"][name]["q"], tp["layers"][name]["s"]
+        assert q.dtype == torch.int8 and s.dtype == torch.float32
+        np.testing.assert_array_equal(q.numpy(), host["layers"][name]["q"])
+        np.testing.assert_array_equal(s.numpy(), host["layers"][name]["s"])
+    assert tp["embed"]["q"].dtype == torch.int8
+    assert tp["layers"]["attn_norm"].dtype == torch.bfloat16
+    model = T.Llama(T.get_config("llama3-tiny", **KW), tp)
+    assert not any(p.requires_grad for p in model.parameters())
+    back = model.params
+    assert back["layers"]["wq"]["q"] is not None
+    assert torch.equal(back["layers"]["wq"]["q"], tp["layers"]["wq"]["q"])
+    assert set(back) == set(tp) and set(back["layers"]) == set(tp["layers"])
+
+
+@pytest.mark.parametrize("mode", sorted(INT8_MODES))
+def test_int8_forwards_match_jax(mode):
+    """Prefill with a continuation chunk, then 5 greedy decode steps
+    (f32 tiny), int8 weights and/or int8 KV: logits within 1e-4 (int8
+    weights) or ``INT8_KV_ATOL``, and greedy tokens equal."""
+    quant, kv = INT8_MODES[mode]
+    for j, t in _run_both(jnp.float32, torch.float32, quant, kv):
+        assert t.shape == j.shape
+        np.testing.assert_allclose(t, j, atol=_int8_atol(mode))
+        np.testing.assert_array_equal(t.argmax(-1), j.argmax(-1))
+
+
+@pytest.mark.parametrize("mode", sorted(INT8_MODES))
+def test_int8_forward_mixed_matches_jax(mode):
+    """The bucket mixed step on int8 weights and/or int8 pools: decode
+    and slice logits within 1e-4 (int8 weights) or ``INT8_KV_ATOL``;
+    pools within 1e-5, int8 pools as ``_q8_pools_match`` states."""
+    _check_forward_mixed(*_mixed_setup(*INT8_MODES[mode]),
+                         atol=_int8_atol(mode))
+
+
+@pytest.mark.parametrize("mode", sorted(INT8_MODES))
+def test_int8_forward_mixed_ragged_matches_jax(mode):
+    """The ragged mixed step on int8 weights and/or int8 pools (the int8
+    slice rows scattered straight from the packed buffer, then the
+    kernel-7 route): logits within 1e-4 (int8 weights) or
+    ``INT8_KV_ATOL``, pools as in the bucket step."""
+    _check_forward_mixed_ragged(*_mixed_setup(*INT8_MODES[mode]),
+                                atol=_int8_atol(mode))

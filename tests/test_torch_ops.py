@@ -629,3 +629,284 @@ def test_ragged_step_two_pieces_of_one_prompt():
     np.testing.assert_allclose(two[0:12], one[0:12], atol=F32_ATOL)
     assert torch.equal(k1, k2)
 
+
+
+# -- int8 KV: kernels 5 and 7, and the int8 routes ------------------------------
+#
+# Pools hold int8 rows drawn through quantize_kv_rows from unit-scale
+# values (raw ±127 integers would let the softmax amplify the two sides'
+# different bf16 rounding points). Kernel twins are held to the Pallas
+# kernels within 3e-2 (the JAX package's own int8 kernel-vs-plain
+# tolerance: the kernels scale logits in f32 where the plain routes
+# round the dequantized K/V to bf16), pools and scale pools bit-exact.
+# The routes are held to the JAX package's plain routes at f32 queries
+# within 1e-5.
+
+Q8_ATOL = 3e-2
+
+
+def _tt(a):
+    """A JAX or numpy array → torch, bf16 carried bit for bit."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def _q8_pools(rng, L, P, ps, hkv, d):
+    """Random int8 pools and (L, P, H_kv, ps) bf16 scale pools, as JAX
+    arrays, through the JAX package's row quantization."""
+    from llmq_tpu.ops.quant import quantize_kv_rows
+
+    out = []
+    for _ in range(2):
+        x = jnp.asarray(rng.standard_normal((L, P, ps, hkv, d)), jnp.float32)
+        q, s = quantize_kv_rows(x)
+        out.append((q.reshape(L, P, ps, hkv * d), jnp.moveaxis(s, 3, 2)))
+    (kq, ks), (vq, vs) = out
+    return kq, vq, ks, vs
+
+
+def _same_pools(t_pools, j_pools, first_page=0):
+    for t, j in zip(t_pools, j_pools):
+        np.testing.assert_array_equal(
+            t.float().numpy()[:, first_page:],
+            np.asarray(j, np.float32)[:, first_page:])
+
+
+def test_fused_decode_q8_twin_matches_pallas():
+    """Kernel 5 on tests/test_pallas.py's int8 geometry (B=8, H=16,
+    H_kv=8, D=16, page size 8, 4 pages a row): two history tokens a row
+    written by the JAX plain route, then the Pallas kernel (interpret
+    mode) and the port's twin from the same pools."""
+    from llmq_tpu.ops.pallas.fused_decode import (
+        fused_decode_attention_q8_pallas)
+    from llmq_tpu.ops.quant import quantize_kv_rows
+
+    rng = np.random.default_rng(7)
+    B, Hkv, d, h, ps, mp, L, P = 8, 8, 16, 16, 8, 4, 2, 33
+    gd = Hkv * d
+    pools = (jnp.zeros((L, P, ps, gd), jnp.int8),
+             jnp.zeros((L, P, ps, gd), jnp.int8),
+             jnp.zeros((L, P, Hkv, ps), jnp.bfloat16),
+             jnp.zeros((L, P, Hkv, ps), jnp.bfloat16))
+    hist = [jnp.asarray(rng.standard_normal((B, 3, Hkv, d)), jnp.float32)
+            for _ in range(2)]
+    bt = jnp.asarray(rng.permutation(np.arange(1, P))[:B * mp].reshape(B, mp),
+                     jnp.int32)
+    positions = jnp.asarray([0, 3, 7, 8, 15, 20, 25, 29], jnp.int32)
+    q = jnp.asarray(rng.standard_normal((B, h, d)), jnp.bfloat16)
+    for step in range(2):
+        pos = positions + step
+        _, pools = jattn.paged_decode_step_q8(
+            q, hist[0][:, step], hist[1][:, step], pools, bt, pos + 1,
+            bt[jnp.arange(B), pos // ps], pos % ps, 1)
+    pos = positions + 2
+    seq_lens, page_of = pos + 1, bt[jnp.arange(B), pos // ps]
+    kq, ksc = quantize_kv_rows(hist[0][:, 2])
+    vq, vsc = quantize_kv_rows(hist[1][:, 2])
+    t_pools = [_tt(p) for p in pools]
+    j_attn, j_pools = fused_decode_attention_q8_pallas(
+        q, kq, ksc, vq, vsc, pools, bt, seq_lens, page_of, 1,
+        pages_per_chunk=2, interpret=True)
+    t_attn = kernels.fused_decode_q8(
+        _tt(q), _tt(kq), _tt(ksc), _tt(vq), _tt(vsc), *t_pools, _tt(bt),
+        _tt(seq_lens), _tt(page_of), 1)
+    np.testing.assert_allclose(_np(t_attn), np.asarray(j_attn, np.float32),
+                               atol=Q8_ATOL, rtol=Q8_ATOL)
+    _same_pools(t_pools, j_pools)
+
+
+def test_paged_decode_step_q8_matches_jax():
+    """ops/attention.paged_decode_step_q8 (plain quantize, then the
+    kernel-5 route) against the JAX package's plain route, f32 queries:
+    active rows within 1e-5; pools bit-exact, the inactive row's write to
+    the null page included."""
+    rng = np.random.default_rng(18)
+    L, P, hkv = 2, 40, HKV
+    pools = _q8_pools(rng, L, P, PS, hkv, D)
+    q, kn, vn, bt, sl, wp = _decode_case(rng, [3, 17, 40, 64, 9],
+                                         inactive=(4,))
+    slot = ((sl - 1) % PS).astype(np.int32)
+    j_attn, j_pools = jattn.paged_decode_step_q8(
+        jnp.asarray(q), jnp.asarray(kn), jnp.asarray(vn), pools,
+        jnp.asarray(bt), jnp.asarray(sl), jnp.asarray(wp), jnp.asarray(slot),
+        1)
+    t_pools = [_tt(p) for p in pools]
+    t_attn = tattn.paged_decode_step_q8(_t(q), _t(kn), _t(vn), t_pools,
+                                        _t(bt), _t(sl), _t(wp), 1)
+    np.testing.assert_allclose(_np(t_attn)[:4], np.asarray(j_attn)[:4],
+                               atol=F32_ATOL)
+    _same_pools(t_pools, j_pools)
+
+
+# tests/test_ragged_attention.py:262-280's two int8 geometries.
+RAGGED_Q8_GEOMETRIES = {
+    "int8_scales_mixed": dict(dec_lens=[3, 140], h=16, slices=[(2, 9),
+                                                               (0, 4)]),
+    "int8_long_slice_multiblock": dict(dec_lens=[1, 2], h=8,
+                                       slices=[(0, 20), (5, 3)]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RAGGED_Q8_GEOMETRIES))
+def test_ragged_mixed_attention_q8_twin_matches_pallas(name):
+    """Kernel 7 at H_kv=8, D=16, page size 128, 2 pages a row: decode
+    rows and live packed slice rows within 3e-2 of the Pallas kernel
+    (interpret mode), rows outside every slice zero in the twin, the
+    four pools bit-exact."""
+    from llmq_tpu.ops.pallas.ragged_paged_attention import (
+        ragged_mixed_attention_q8_pallas)
+    from llmq_tpu.ops.quant import quantize_kv_rows
+
+    g = RAGGED_Q8_GEOMETRIES[name]
+    rng = np.random.default_rng(len(name))
+    hkv, d, ps, mp, P = 8, 16, 128, 2, 16
+    dec_lens, slices, h = g["dec_lens"], g["slices"], g["h"]
+    B, S = len(dec_lens), len(slices)
+    pools = _q8_pools(rng, 1, P, ps, hkv, d)
+    bt = np.zeros((B + S, mp), np.int32)
+    used = 1
+    for b, n in enumerate(dec_lens):
+        k = -(-max(1, n) // ps)
+        bt[b, :k] = np.arange(used, used + k)
+        used += k
+    for s, (st, n) in enumerate(slices):
+        k = -(-(st + n) // ps)
+        bt[B + s, :k] = np.arange(used, used + k)
+        used += k
+    wp = np.array([bt[b, (n - 1) // ps] for b, n in enumerate(dec_lens)],
+                  np.int32)
+    qoff = np.zeros(S, np.int32)
+    off = 0
+    for s, (_st, n) in enumerate(slices):
+        qoff[s] = off
+        off += -(-n // tattn.RAGGED_Q_BLOCK) * tattn.RAGGED_Q_BLOCK
+    N = off
+    qlen = np.array([n for _, n in slices], np.int32)
+    qstart = np.array([st for st, _ in slices], np.int32)
+    seq = np.concatenate([np.asarray(dec_lens, np.int32), qstart + qlen])
+    bf = jnp.bfloat16
+    q_dec = jnp.asarray(rng.standard_normal((B, h, d)), bf)
+    q_pf = jnp.asarray(rng.standard_normal((N, h, d)), bf)
+    kq, ks = quantize_kv_rows(jnp.asarray(rng.standard_normal((B, hkv, d)),
+                                          jnp.float32))
+    vq, vs = quantize_kv_rows(jnp.asarray(rng.standard_normal((B, hkv, d)),
+                                          jnp.float32))
+    t_pools = [_tt(p) for p in pools]
+    j_d, j_p, j_pools = ragged_mixed_attention_q8_pallas(
+        q_dec, kq, ks, vq, vs, q_pf, pools, jnp.asarray(bt),
+        jnp.asarray(seq), jnp.asarray(wp), jnp.asarray(qoff),
+        jnp.asarray(qlen), jnp.asarray(qstart), 0, interpret=True)
+    t_d, t_p = kernels.ragged_mixed_attention_q8(
+        _tt(q_dec), _tt(kq), _tt(ks), _tt(vq), _tt(vs), _tt(q_pf), *t_pools,
+        _t(bt), _t(seq), _t(wp), _t(qoff), _t(qlen), _t(qstart), 0)
+    np.testing.assert_allclose(_np(t_d), np.asarray(j_d, np.float32),
+                               atol=Q8_ATOL, rtol=Q8_ATOL)
+    live = np.zeros(N, bool)
+    for o, n in zip(qoff, qlen):
+        live[o:o + n] = True
+    np.testing.assert_allclose(_np(t_p)[live],
+                               np.asarray(j_p, np.float32)[live],
+                               atol=Q8_ATOL, rtol=Q8_ATOL)
+    assert np.all(_np(t_p)[~live] == 0)
+    _same_pools(t_pools, j_pools)
+
+
+def test_prefill_q8_write_and_attention_match_jax():
+    """The int8 prefill chunk (plain on both devices, as in JAX): a fresh
+    row and a continuation row over history, right-padded. Valid rows'
+    attention within 1e-5 (f32 queries); pools bit-exact except the null
+    page, where both sides scatter every padding row to slot 0."""
+    rng = np.random.default_rng(19)
+    L, P, T, mp = 2, 40, 16, 6
+    pools = _q8_pools(rng, L, P, PS, HKV, D)
+    bt = rng.permutation(np.arange(1, P))[:2 * mp].reshape(2, mp)
+    bt = bt.astype(np.int32)
+    lengths = np.array([16, 9], np.int32)
+    starts = np.array([0, 21], np.int32)
+    pos = np.minimum(np.arange(T)[None] + starts[:, None],
+                     (starts + lengths - 1)[:, None]).astype(np.int32)
+    seq = (starts + lengths).astype(np.int32)
+    q = rng.standard_normal((2, T, H, D)).astype(np.float32)
+    k, v = (rng.standard_normal((2, T, HKV, D)).astype(np.float32)
+            for _ in range(2))
+    j_pools = jattn.paged_kv_write_prefill_q8(
+        pools, jnp.asarray(k), jnp.asarray(v), jnp.asarray(bt),
+        jnp.asarray(pos), jnp.asarray(lengths), 1)
+    j_out = jattn.dispatch_prefill_attention_q8(
+        jnp.asarray(q), j_pools, jnp.asarray(bt), jnp.asarray(pos),
+        jnp.asarray(seq), 1)
+    t_pools = [_tt(p) for p in pools]
+    tattn.paged_kv_write_prefill_q8(t_pools, _t(k), _t(v), _t(bt), _t(pos),
+                                    _t(lengths), 1)
+    t_out = tattn.dispatch_prefill_attention_q8(_t(q), t_pools, _t(bt),
+                                                _t(pos), _t(seq), 1)
+    _same_pools(t_pools, j_pools, first_page=1)
+    for b, n in enumerate(lengths):
+        np.testing.assert_allclose(_np(t_out)[b, :n], np.asarray(j_out)[b, :n],
+                                   atol=F32_ATOL)
+
+
+def test_ragged_mixed_step_q8_matches_jax():
+    """ops/attention.ragged_mixed_step_q8 against the JAX package's plain
+    route (f32 queries): the live slice rows quantized and scattered
+    straight from the packed buffer, then one kernel-7 launch (its twin
+    here). Active decode rows and live slice rows within 1e-5; the four
+    pools bit-exact except the null page (JAX writes one token of the
+    unused slice row there, the port nothing)."""
+    rng = np.random.default_rng(20)
+    pools = _q8_pools(rng, 2, 40, PS, HKV, D)
+    B, MP, N = 3, 6, 48
+    dec_bt = np.zeros((B, MP), np.int32)
+    dec_bt[0, :2], dec_bt[1, :3], dec_bt[2, :1] = [1, 2], [3, 4, 5], [6]
+    pos = np.array([20, 33, 4], np.int32)
+    page_of = dec_bt[np.arange(B), pos // PS].copy()
+    page_of[2] = 0                                   # an inactive row
+    slot_of = (pos % PS).astype(np.int32)
+    pf_bt = np.zeros((3, MP), np.int32)
+    pf_bt[0, :1], pf_bt[1, :4] = [7], [8, 9, 10, 11]
+    qoff = np.array([0, 16, 0], np.int32)
+    qlen = np.array([13, 20, 0], np.int32)
+    qstart = np.array([0, 37, 0], np.int32)
+    pf_pos = np.zeros(N, np.int32)
+    pf_pos[0:13] = np.arange(13)
+    pf_pos[16:36] = 37 + np.arange(20)
+    q_dec = rng.standard_normal((B, H, D)).astype(np.float32)
+    kd, vd = (rng.standard_normal((B, HKV, D)).astype(np.float32)
+              for _ in range(2))
+    q_pf = rng.standard_normal((N, H, D)).astype(np.float32)
+    kpf, vpf = (rng.standard_normal((N, HKV, D)).astype(np.float32)
+                for _ in range(2))
+    j = jnp.asarray
+    j_d, j_p, j_pools = jattn.ragged_mixed_step_q8(
+        j(q_dec), j(kd), j(vd), j(q_pf), j(kpf), j(vpf), pools, j(dec_bt),
+        j(pos + 1), j(page_of), j(slot_of), j(pf_bt), j(pf_pos), j(qoff),
+        j(qlen), 1)
+    t_pools = [_tt(p) for p in pools]
+    slices = tattn.ragged_slices(_t(dec_bt), _t(pos + 1), _t(pf_bt), qoff,
+                                 qlen, qstart)
+    rows = tattn.ragged_slice_rows(slices, PS)
+    assert rows[0].numel() == 33
+    t_d, t_p = tattn.ragged_mixed_step_q8(
+        _t(q_dec), _t(kd), _t(vd), _t(q_pf), _t(kpf), _t(vpf), t_pools,
+        _t(page_of), slices, rows, 1)
+    np.testing.assert_allclose(_np(t_d)[:2], np.asarray(j_d)[:2],
+                               atol=F32_ATOL)
+    live = np.r_[0:13, 16:36]
+    np.testing.assert_allclose(_np(t_p)[live], np.asarray(j_p)[live],
+                               atol=F32_ATOL)
+    _same_pools(t_pools, j_pools, first_page=1)
+
+
+def test_q8_wrappers_count_no_launch_on_cpu():
+    """CPU tensors take the int8 twins: kernels 5 and 7 count nothing."""
+    rng = np.random.default_rng(21)
+    t_pools = [_tt(p) for p in _q8_pools(rng, 1, 8, PS, HKV, D)]
+    q, kn, vn, bt, sl, wp = _decode_case(rng, [3, 17], P=8, mp=2)
+    from llmq_tpu_torch.ops.quant import quantize_kv_rows
+    (kq, ks), (vq, vs) = quantize_kv_rows(_t(kn)), quantize_kv_rows(_t(vn))
+    before = dict(kernels.LAUNCHES)
+    kernels.fused_decode_q8(_t(q).bfloat16(), kq, ks, vq, vs, *t_pools,
+                            _t(bt), _t(sl), _t(wp), 0)
+    assert kernels.LAUNCHES == before

@@ -266,3 +266,57 @@ def test_ragged_serving_over_rest():
         assert app.engine.executor.ragged_attention
     finally:
         app.stop()
+
+
+def test_int8_serving_over_rest():
+    """The REST path with int8 weights and int8 KV (the JAX package's
+    tests/test_quant.py:276-304 counterpart): the executor's weights are
+    w8a8 leaves, its pools carry scale pools, concurrent messages and a
+    two-turn conversation complete, and turn 2 reports cached tokens."""
+    from llmq_tpu_torch.ops.quant import is_quantized
+
+    cfg = _tiny_cfg()
+    cfg.model.quantization = "int8"
+    cfg.model.kv_quantization = "int8"
+    app = App(cfg)
+    port = app.start(host="127.0.0.1", port=0)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        ex = app.engine.executor
+        assert is_quantized(ex.model.params["layers"]["w_up"])
+        assert is_quantized(ex.model.params["embed"])
+        assert sorted(ex.cache) == ["k", "k_scale", "v", "v_scale"]
+        assert ex.cache["k"].dtype == torch.int8
+        assert ex.cache["k_scale"].shape == (2, 64, 2, 16)
+        mids = [_http("POST", f"{base}/api/v1/messages",
+                      {"content": f"int8 message {i} " * (i + 1),
+                       "priority": p})[1]["message_id"]
+                for i, p in enumerate(("low", "high", "realtime"))]
+        usages = []
+        for text in ("first turn of the chat", " second turn"):
+            status, r = _http("POST", f"{base}/api/v1/messages",
+                              {"content": text, "conversation_id": "q8"})
+            assert status == 202
+            usages.append(_poll(base, r["message_id"])["metadata"]["usage"])
+        for mid in mids:
+            assert _poll(base, mid)["status"] == "completed"
+        assert usages[0]["cached_tokens"] == 0
+        assert usages[1]["cached_tokens"] > 0
+    finally:
+        app.stop()
+
+
+def test_check_command_runs_int8_from_env(monkeypatch, capsys, caplog):
+    """Both switches through their LLMQ_* variables reach the entry
+    point: ``check`` builds (boot log) and serves the int8 engine on the
+    CPU."""
+    import logging
+
+    monkeypatch.setenv("LLMQ_MODEL_QUANTIZATION", "int8")
+    monkeypatch.setenv("LLMQ_MODEL_KV_QUANTIZATION", "int8")
+    with caplog.at_level(logging.INFO, logger="llmq_tpu_torch.builder"):
+        rc = main(["--model", "llama3-tiny", "--device", "cpu", "check",
+                   "--timeout", "60"])
+    assert rc == 0
+    assert "CHECK OK" in capsys.readouterr().out
+    assert "quantization=int8 kv_quantization=int8" in caplog.text
