@@ -20,8 +20,14 @@ shows where it happened):
                  with slices of 100 and 37 tokens, the second over history,
                  packed into N=144): attention within ``ATOL`` (``Q8_ATOL``
                  over int8 pools), pools and scale pools bit-exact; kernel,
-                 plain, library times and the bound. Then cuBLAS's int8
-                 GEMM with the weight row and column major.
+                 plain, library times and the bound; kernel 1 also at each
+                 candidate split size. Then cuBLAS's int8 GEMM with the
+                 weight row and column major. Then kernels 1 and 3 at
+                 their longest served shapes (B=8 rows of 2000 positions;
+                 a 2048-token chunk), held against their twins (also
+                 within ``REL_TOL`` of the twin's RMS, which a control
+                 with one page of keys wrong must fail) and timed beside
+                 decode and causal SDPA.
 4. split      — one decode step through ``paged_decode_step(fused=False)``
                  (row-write kernel + decode-attention kernel) against
                  ``fused=True``: same attention within ``ATOL``, identical
@@ -73,6 +79,11 @@ import urllib.request
 # softmax weights in f32 where the plain twins round them to bf16 before
 # P @ V (the JAX package's order), and bf16 rounds at 2**-8 near 1.
 ATOL = 2e-2
+# Over a long history an output element is small (about sqrt(e / n) over
+# n keys of unit-normal q, K and V: 0.037 at 2000), so at the long shapes
+# ATOL alone would pass a kernel that loses a page of keys; there each
+# (row, head) is also held to REL_TOL of its twin's RMS.
+REL_TOL = 0.1
 # int8 K/V (kernels 5 and 7): the kernels scale the logits and the
 # probabilities in f32 where the twins round the dequantized K/V to bf16;
 # the JAX package's own int8 kernel-vs-plain tolerance.
@@ -113,6 +124,15 @@ def bound(bytes_moved: float, flops: float):
     t_ops = flops / BF16_FLOPS_PER_S * 1e3
     return (max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def scaled_err(out, ref) -> float:
+    """Largest max |out - ref| / RMS(ref) over the (row, head) vectors
+    whose reference is not all zero."""
+    d = (out.float() - ref.float()).abs().amax(-1)
+    rms = ref.float().pow(2).mean(-1).sqrt()
+    live = rms > 0
+    return (d[live] / rms[live]).max().item()
 
 
 def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -189,7 +209,8 @@ def phase_build(state) -> None:
     dt = time.perf_counter() - t0
     for name, text in sorted(kernels.BUILD_LOGS.items()):
         for line in text.splitlines():
-            if "registers" in line or "Compiling entry" in line \
+            if any(w in line for w in ("registers", "spill", "Compiling "
+                                       "entry", "Performance", "arning")) \
                     or "error" in line.lower():
                 log(f"[build] {name}: {line.strip()}")
     log(f"[build] {len(kernels.SOURCES)} sources built in {dt:.1f} s "
@@ -318,6 +339,13 @@ def phase_kernels(state) -> None:
     del kp2, vp2
     ms = device_ms(lambda i: kernels.fused_decode(
         q, kn, vn, kp1, vp1, bt, sl, wp, i % L_POOL))
+    # Many launches on the same split workspace later, the arrival
+    # counters are back at 0: the same inputs give the same output.
+    again = kernels.fused_decode(q, kn, vn, kp1, vp1, bt, sl, wp, layer)
+    torch.cuda.synchronize()
+    if not torch.equal(again[:nl], out_k[:nl]):
+        raise AssertionError("fused_decode: a later launch on the cached "
+                             "workspace differs from the first")
     plain_ms = device_ms(lambda i: kernels.fused_decode_plain(
         q, kn, vn, kp1, vp1, bt, sl, wp, i % L_POOL), iters=5, warmup=1)
     sdpa_dec = _sdpa_decode(gen, dev, q, sl, max(live_lens))
@@ -330,6 +358,12 @@ def phase_kernels(state) -> None:
     _record(state, "fused_decode", "llmq_tpu_torch/csrc/fused_decode.cu",
             "llmq_tpu/ops/pallas/fused_decode.py:370", err, ms, plain_ms,
             bms, by, lib_ms)
+    chunk_ms = _chunk_sweep(lambda i: kernels.fused_decode(
+        q, kn, vn, kp1, vp1, bt, sl, wp, i % L_POOL))
+    state["kernels"]["fused_decode"]["ms_by_chunk"] = chunk_ms
+    log("[kernels] fused_decode by chunk, ms: "
+        + ", ".join(f"{c}: {t:.4f}" for c, t in chunk_ms.items())
+        + f" ({CARD})")
 
     # -- kernel 3: prefill attention, kernel 2: prefill write ----------------
     for T, start in ((128, 0), (128, 37), (512, 0), (512, 37)):
@@ -444,7 +478,7 @@ def phase_kernels(state) -> None:
     del pools
     torch.cuda.empty_cache()
     _int_mm_layouts(state)
-    _long_context_timings()
+    _long_shapes(state)
 
 
 def _kernel_paged_decode(state, gen, k_pool, v_pool) -> None:
@@ -797,12 +831,34 @@ def _int_mm_layouts(state) -> None:
         + ", ".join(f"{k} {v:.4f}" for k, v in res.items()) + f" ({CARD})")
 
 
-def _long_context_timings() -> None:
-    """The two attention kernels at the longest shapes the served
-    geometry allows: decode with every row at 2000 cached positions, and
-    a full 2048-token prefill chunk. Timing only (correctness is held
-    above); a 4-layer pool with room for 8 full block tables."""
+def _chunk_sweep(fn) -> dict:
+    """Device ms of ``fn(i)``, a kernel 1 launch, with
+    ``kernels.FUSED_DECODE_CHUNK`` set to each candidate in turn (the
+    wrapper's split count follows it); the committed value is restored."""
+    from llmq_tpu_torch.ops import kernels
+
+    chunk = kernels.FUSED_DECODE_CHUNK
+    res = {}
+    try:
+        for c in (64, 128, 256, 512):
+            kernels.FUSED_DECODE_CHUNK = c
+            res[c] = device_ms(fn)
+    finally:
+        kernels.FUSED_DECODE_CHUNK = chunk
+    return res
+
+
+def _long_shapes(state) -> None:
+    """Kernels 1 and 3 at the longest shapes the served geometry allows:
+    decode with every row at 2000 cached positions (B=8), and a full
+    2048-token prefill chunk from position 0. Each is held against its
+    twin (attention within ``ATOL`` and within ``REL_TOL`` of the twin's
+    RMS per (row, head), kernel 1's pools bit-exact) and timed beside its
+    bound, its twin and an SDPA yardstick, kernel 1 also at each
+    candidate split size; the numbers go into the kernel's table entry
+    as ``long``. A 4-layer pool with room for 8 full block tables."""
     import torch
+    import torch.nn.functional as F
 
     from llmq_tpu_torch.ops import kernels
 
@@ -818,19 +874,100 @@ def _long_context_timings() -> None:
     q = torch.randn((B, H, D), generator=gen, device=dev).to(torch.bfloat16)
     kn = torch.randn((B, HKV, D), generator=gen, device=dev).to(torch.bfloat16)
     vn = torch.randn((B, HKV, D), generator=gen, device=dev).to(torch.bfloat16)
+    kp2, vp2 = kp.clone(), vp.clone()
+    out_k = kernels.fused_decode(q, kn, vn, kp, vp, bt, sl, wp, 1)
+    out_p = kernels.fused_decode_plain(q, kn, vn, kp2, vp2, bt, sl, wp, 1)
+    torch.cuda.synchronize()
+    err = (out_k.float() - out_p.float()).abs().max().item()
+    rel = scaled_err(out_k, out_p)
+    if not torch.isfinite(out_k).all() or err > ATOL or rel > REL_TOL:
+        raise AssertionError(f"fused_decode seq_len={n}: max err {err} > "
+                             f"{ATOL}, scaled err {rel} > {REL_TOL} or "
+                             f"non-finite")
+    if not (torch.equal(kp, kp2) and torch.equal(vp, vp2)):
+        raise AssertionError(f"fused_decode seq_len={n}: pools differ from "
+                             f"the twin")
+    # Control: the twin reading positions 1024..1039 from the first page
+    # (16 of 2000 keys wrong) must fail the scaled check.
+    bt_bad = bt.clone()
+    bt_bad[:, 1024 // PS] = bt[:, 0]
+    ctl = kernels.fused_decode_plain(q, kn, vn, kp2, vp2, bt_bad, sl, wp, 1)
+    ctl_err = (ctl.float() - out_p.float()).abs().max().item()
+    ctl_rel = scaled_err(ctl, out_p)
+    if ctl_rel <= REL_TOL:
+        raise AssertionError(f"fused_decode seq_len={n}: the scaled check "
+                             f"passes a wrong page ({ctl_rel})")
+    del kp2, vp2, ctl, bt_bad
     ms = device_ms(lambda i: kernels.fused_decode(q, kn, vn, kp, vp, bt, sl,
                                                 wp, i % L))
+    plain_ms = device_ms(lambda i: kernels.fused_decode_plain(
+        q, kn, vn, kp, vp, bt, sl, wp, i % L), iters=3, warmup=1)
+    sdpa_dec = _sdpa_decode(gen, dev, q, sl, n)
+    lib_ms = device_ms(lambda i: sdpa_dec())
+    del sdpa_dec
+    chunk_ms = _chunk_sweep(lambda i: kernels.fused_decode(
+        q, kn, vn, kp, vp, bt, sl, wp, i % L))
+    chunk = kernels.FUSED_DECODE_CHUNK
     bms, by = bound(B * n * GD * 2 * 2 + 2 * B * H * D * 2, B * n * H * 4 * D)
-    log(f"[kernels] fused_decode B={B} seq_len={n}: kernel {ms:.4f} ms, "
-        f"bound {bms:.4f} ms ({by}) ({CARD})")
+    state["kernels"]["fused_decode"]["long"] = {
+        "shape": f"B={B} seq_len={n}", "chunk": chunk,
+        "max_abs_err": err, "scaled_err": rel, "control_max_abs_err": ctl_err,
+        "control_scaled_err": ctl_rel, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+        "ms_by_chunk": chunk_ms}
+    log(f"[kernels] fused_decode B={B} seq_len={n} (chunk {chunk}): "
+        f"max_abs_err {err:.3g} scaled {rel:.3g} (control, one wrong page: "
+        f"{ctl_err:.3g} scaled {ctl_rel:.3g}), pools bit-exact; kernel "
+        f"{ms:.4f} ms plain {plain_ms:.4f} ms library {lib_ms:.4f} ms bound "
+        f"{bms:.4f} ms ({by}); by chunk "
+        + ", ".join(f"{c}: {t:.4f}" for c, t in chunk_ms.items())
+        + f" ms ({CARD})")
+
     T = 2048
     qp = torch.randn((T, H, D), generator=gen, device=dev).to(torch.bfloat16)
+    o_k = kernels.prefill_attention(qp, kp, vp, bt[0], 0, 1)
+    o_p = kernels.prefill_attention_plain(qp, kp, vp, bt[0], 0, 1)
+    torch.cuda.synchronize()
+    err = (o_k.float() - o_p.float()).abs().max().item()
+    rel = scaled_err(o_k, o_p)
+    if not torch.isfinite(o_k).all() or err > ATOL or rel > REL_TOL:
+        raise AssertionError(f"prefill_attention T={T}: max err {err} > "
+                             f"{ATOL}, scaled err {rel} > {REL_TOL} or "
+                             f"non-finite")
+    # Control as for kernel 1: keys 1024..1039 read from the first page.
+    bt_bad = bt[0].clone()
+    bt_bad[1024 // PS] = bt[0, 0]
+    ctl = kernels.prefill_attention_plain(qp, kp, vp, bt_bad, 0, 1)
+    ctl_err = (ctl.float() - o_p.float()).abs().max().item()
+    ctl_rel = scaled_err(ctl, o_p)
+    if ctl_rel <= REL_TOL:
+        raise AssertionError(f"prefill_attention T={T}: the scaled check "
+                             f"passes a wrong page ({ctl_rel})")
+    del o_p, ctl, bt_bad
     ms = device_ms(lambda i: kernels.prefill_attention(qp, kp, vp, bt[0], 0,
-                                                     i % L), iters=5)
+                                                     i % L), iters=10)
+    plain_ms = device_ms(lambda i: kernels.prefill_attention_plain(
+        qp, kp, vp, bt[0], 0, i % L), iters=3, warmup=1)
+    # The same function in one call: causal SDPA over dense K/V, the
+    # H_kv heads repeated for the n_rep query heads of each group.
+    qh = qp.transpose(0, 1)[None].contiguous()
+    kh = torch.randn((1, HKV, T, D), generator=gen, device=dev).to(
+        torch.bfloat16).repeat_interleave(H // HKV, dim=1)
+    vh = torch.randn((1, HKV, T, D), generator=gen, device=dev).to(
+        torch.bfloat16).repeat_interleave(H // HKV, dim=1)
+    lib_ms = device_ms(lambda i: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True), iters=10)
     bms, by = bound(2 * T * H * D * 2 + T * GD * 2 * 2,
                     T * (T + 1) // 2 * H * 4 * D)
-    log(f"[kernels] prefill_attention T={T} start=0: kernel {ms:.4f} ms, "
-        f"bound {bms:.4f} ms ({by}) ({CARD})")
+    state["kernels"]["prefill_attention"]["long"] = {
+        "shape": f"T={T} start=0", "max_abs_err": err, "scaled_err": rel,
+        "control_max_abs_err": ctl_err, "control_scaled_err": ctl_rel,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+        "library_ms": lib_ms}
+    log(f"[kernels] prefill_attention T={T} start=0: max_abs_err "
+        f"{err:.3g} scaled {rel:.3g} (control, one wrong page: {ctl_err:.3g} "
+        f"scaled {ctl_rel:.3g}); kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+        f"library {lib_ms:.4f} ms bound {bms:.4f} ms ({by}) ({CARD})")
 
 
 def phase_split(state) -> None:

@@ -38,7 +38,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -69,7 +69,7 @@ _SIGNATURES = {
         "llmq_kv_prefill_write": [_P] * 5 + [_I] * 6 + [_P],
     },
     "fused_decode": {
-        "llmq_fused_decode": [_P] * 9 + [_I] * 8 + [_F, _P],
+        "llmq_fused_decode": [_P] * 11 + [_I] * 9 + [_F, _P],
         "llmq_fused_decode_q8": [_P] * 13 + [_I] * 8 + [_F, _P],
     },
     "prefill_attention": {
@@ -99,6 +99,15 @@ BUILD_LOGS: Dict[str, str] = {}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _BUILD_LOCK = threading.Lock()
+
+#: Positions per split block of :func:`fused_decode` for a row that
+#: fills its block table (a multiple of 64, the kernel's tile); a
+#: shorter row takes fewer, shorter splits. Chosen on the card (PERF.md).
+FUSED_DECODE_CHUNK = 128
+
+#: (device, B, H_kv, n_rep, D, n_splits) → (workspace, counters) of
+#: :func:`fused_decode`, made once with ``torch.zeros``.
+_SPLIT_WORKSPACES: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def reset_launches() -> None:
@@ -270,6 +279,35 @@ def _raise_on(rc: int, what: str) -> None:
 
 # -- kernel 1: fused decode write + attention --------------------------------
 
+def fused_decode_splits(max_pages: int, page_size: int) -> int:
+    """Split blocks per (row, KV head) of :func:`fused_decode`: enough
+    chunks of :data:`FUSED_DECODE_CHUNK` positions to cover a full block
+    table. From shapes only, so the launch never waits on ``seq_lens``;
+    the kernel cuts each row into that many chunks or fewer, each a
+    multiple of 64 positions."""
+    return max(1, -(-max_pages * page_size // FUSED_DECODE_CHUNK))
+
+
+def split_workspace(device: torch.device, batch: int, n_kv_heads: int,
+                    n_rep: int, head_dim: int,
+                    n_splits: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The f32 partials ``(B, H_kv, n_splits, n_rep * (D + 2))`` and the
+    int32 arrival counters ``(B, H_kv)`` of :func:`fused_decode`, made
+    once per geometry with ``torch.zeros`` and reused by every later
+    call: the kernel leaves each counter at 0, so no call allocates or
+    clears anything (and a captured graph may replay the launch)."""
+    key = (torch.device(device), batch, n_kv_heads, n_rep, head_dim,
+           n_splits)
+    if key not in _SPLIT_WORKSPACES:
+        _SPLIT_WORKSPACES[key] = (
+            torch.zeros((batch, n_kv_heads, n_splits,
+                         n_rep * (head_dim + 2)), dtype=torch.float32,
+                        device=device),
+            torch.zeros((batch, n_kv_heads), dtype=torch.int32,
+                        device=device))
+    return _SPLIT_WORKSPACES[key]
+
+
 def fused_decode(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
                  k_pool: torch.Tensor, v_pool: torch.Tensor,
                  block_tables: torch.Tensor, seq_lens: torch.Tensor,
@@ -282,8 +320,10 @@ def fused_decode(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
 
     Replaces ``fused_decode_attention_pallas``
     (llmq_tpu/ops/pallas/fused_decode.py). Bound on the H100 by bytes:
-    each cached K/V byte is read once for all n_rep query heads of its
-    group (see csrc/fused_decode.cu)."""
+    each row's positions are split over up to
+    :func:`fused_decode_splits` blocks that stream K/V by cp.async and
+    score on the tensor cores, merged in the same launch
+    (csrc/fused_decode.cu, csrc/decode_attention.cuh)."""
     if _on_cpu(q, k_new, v_new, k_pool, v_pool, block_tables, seq_lens,
                write_page):
         return fused_decode_plain(q, k_new, v_new, k_pool, v_pool,
@@ -304,12 +344,15 @@ def fused_decode(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
     _check(block_tables, "block_tables", torch.int32, (B, MP))
     _check(seq_lens, "seq_lens", torch.int32, (B,))
     _check(write_page, "write_page", torch.int32, (B,))
+    n_splits = fused_decode_splits(MP, ps)
+    ws, counters = split_workspace(q.device, B, Hkv, H // Hkv, D, n_splits)
     out = torch.empty_like(q)
     rc = _fn("fused_decode", "llmq_fused_decode")(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         k_pool.data_ptr(), v_pool.data_ptr(), block_tables.data_ptr(),
         seq_lens.data_ptr(), write_page.data_ptr(), out.data_ptr(),
-        B, H, Hkv, D, layer, P, ps, MP, D ** -0.5, _stream(q))
+        ws.data_ptr(), counters.data_ptr(), B, H, Hkv, D, layer, P, ps, MP,
+        n_splits, D ** -0.5, _stream(q))
     _raise_on(rc, "fused_decode")
     LAUNCHES["fused_decode"] += 1
     return out
@@ -412,8 +455,9 @@ def prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
     Replaces ``paged_prefill_attention_pallas`` (llmq_tpu/ops/pallas/
     prefill_attention.py). Its bound moves between bytes (a fresh
-    chunk) and operations (a long history); the design streams each K/V
-    tile once for 64 query rows (csrc/prefill_attention.cu)."""
+    chunk) and operations (a long chunk or history); both products run
+    on the tensor cores (wgmma), each cp.async-staged K/V tile serving
+    64 query rows (csrc/prefill_attention.cu)."""
     if _on_cpu(q, k_pool, v_pool, block_table):
         return prefill_attention_plain(q, k_pool, v_pool, block_table,
                                        start_pos, layer)
@@ -424,7 +468,7 @@ def prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
     _check_heads(H, Hkv, D)
     if Hkv * D != GD:
         raise ValueError(f"pool GD={GD} != H_kv*D for D={D}")
-    _check(q, "q", torch.bfloat16, (T, H, D))
+    _check(q, "q", torch.bfloat16, (T, H, D), align=16)
     MP = block_table.shape[0]
     _check(block_table, "block_table", torch.int32, (MP,))
     if start_pos < 0:

@@ -234,7 +234,17 @@ def _decode_case(rng, seq_lens, P=40, mp=6, inactive=()):
     return q, kn, vn, bt, sl, wp
 
 
-@pytest.mark.parametrize("case", ["page_edges", "inactive_and_empty"])
+# seq_lens, inactive rows, block-table width, Pallas pages per chunk
+_DECODE_CASES = {
+    "page_edges": ([1, 16, 17, 33, 96], (), 6, 2),
+    "inactive_and_empty": ([9, 0, 48, 5, 31], (3,), 6, 2),
+    # where the kernel's 64-position tiles and its splits begin and end
+    "tile_edges": ([63, 64, 65], (), 9, 3),
+    "split_edges": ([127, 128, 129], (), 9, 3),
+}
+
+
+@pytest.mark.parametrize("case", list(_DECODE_CASES))
 def test_fused_decode_twin_matches_pallas(case):
     """Kernel 1. Live rows' attention within 1e-4 (f32, the kernel's
     online softmax vs the twin's one-pass softmax); a zero-length row
@@ -243,16 +253,14 @@ def test_fused_decode_twin_matches_pallas(case):
     from llmq_tpu.ops.pallas.fused_decode import fused_decode_attention_pallas
 
     rng = np.random.default_rng(11)
-    if case == "page_edges":
-        seq_lens, inactive = [1, 16, 17, 33, 96], ()
-    else:
-        seq_lens, inactive = [9, 0, 48, 5, 31], (3,)
+    seq_lens, inactive, mp, ppc = _DECODE_CASES[case]
     kp, vp = _pools(rng, P=40)
-    q, kn, vn, bt, sl, wp = _decode_case(rng, seq_lens, inactive=inactive)
+    q, kn, vn, bt, sl, wp = _decode_case(rng, seq_lens, mp=mp,
+                                         inactive=inactive)
     j_out, (jk, jv) = fused_decode_attention_pallas(
         jnp.asarray(q), jnp.asarray(kn), jnp.asarray(vn), jnp.asarray(kp),
         jnp.asarray(vp), jnp.asarray(bt), jnp.asarray(sl), jnp.asarray(wp),
-        1, pages_per_chunk=2, interpret=True)
+        1, pages_per_chunk=ppc, interpret=True)
     tk, tv = _t(kp), _t(vp)
     t_out = kernels.fused_decode(_t(q), _t(kn), _t(vn), tk, tv, _t(bt),
                                  _t(sl), _t(wp), 1)
@@ -301,10 +309,11 @@ def test_kv_prefill_write_twin_matches_pallas(start, n_tok):
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
 
 
-@pytest.mark.parametrize("start", [0, 24, 37])
+@pytest.mark.parametrize("start", [0, 24, 37, 64])
 def test_prefill_attention_twin_matches_pallas(start):
     """Kernel 3: a fresh chunk and continuation chunks (37 is not page
-    aligned) over cached history; f32 atol 1e-4."""
+    aligned; 64 starts on the card kernel's key-tile edge) over cached
+    history; f32 atol 1e-4."""
     from llmq_tpu.ops.pallas.prefill_attention import (
         paged_prefill_attention_pallas)
 
@@ -393,6 +402,68 @@ def test_wrappers_count_no_launch_on_cpu():
     g.port(torch.float32)
     kernels.paged_decode_attention(_t(g.q_dec), _t(g.kp), _t(g.vp),
                                    _t(g.bt[:g.B]), _t(g.dec_lens), 0)
+    assert kernels.LAUNCHES == before
+
+
+# -- kernel 1's split-K host side ----------------------------------------------
+
+@pytest.mark.parametrize("max_pages,page_size", [
+    (128, 16), (64, 16), (6, 16), (5, 16), (9, 16), (1, 1), (8, 48),
+    (16, 8), (3, 100), (512, 16), (32, 32), (7, 1), (2, 64), (100, 16)])
+def test_fused_decode_split_count(max_pages, page_size):
+    """Split blocks per (row, KV head): the fewest chunks of
+    FUSED_DECODE_CHUNK positions (a multiple of the kernel's 64-position
+    tile) that cover a full block table, from shapes alone (no read of
+    seq_lens)."""
+    chunk = kernels.FUSED_DECODE_CHUNK
+    assert chunk > 0 and chunk % 64 == 0
+    splits = kernels.fused_decode_splits(max_pages, page_size)
+    assert splits >= 1
+    assert (splits - 1) * chunk < max_pages * page_size <= splits * chunk
+
+
+@pytest.mark.parametrize("B,hkv,n_rep,d,splits", [
+    (8, 8, 4, 128, 16), (3, 2, 2, 64, 1), (1, 1, 8, 64, 5)])
+def test_split_workspace_shape(B, hkv, n_rep, d, splits):
+    """f32 partials (B, H_kv, S, n_rep * (D + 2)): acc, then the max and
+    the sum per head; int32 counters (B, H_kv); all zeros when made."""
+    ws, counters = kernels.split_workspace(torch.device("cpu"), B, hkv,
+                                           n_rep, d, splits)
+    assert tuple(ws.shape) == (B, hkv, splits, n_rep * (d + 2))
+    assert ws.dtype == torch.float32 and not ws.any()
+    assert tuple(counters.shape) == (B, hkv)
+    assert counters.dtype == torch.int32 and not counters.any()
+
+
+GEOMETRY = (4, 2, 2, 64, 3)       # B, H_kv, n_rep, D, splits
+
+
+@pytest.mark.parametrize("changed", range(len(GEOMETRY)))
+def test_split_workspace_is_made_once_per_geometry(changed):
+    """The same geometry gets the same tensors back (no per-call
+    allocation); a change in any of B, H_kv, n_rep, D or the split count
+    gets new ones."""
+    a = kernels.split_workspace("cpu", *GEOMETRY)
+    b = kernels.split_workspace(torch.device("cpu"), *GEOMETRY)
+    assert a[0] is b[0] and a[1] is b[1]
+    other = list(GEOMETRY)
+    other[changed] += 1
+    c = kernels.split_workspace("cpu", *other)
+    assert c[0] is not a[0] and c[1] is not a[1]
+    assert kernels.split_workspace("cpu", *other)[0] is c[0]
+
+
+def test_fused_decode_on_cpu_makes_no_workspace():
+    """CPU tensors take the twin: no workspace is made, no launch
+    counted."""
+    rng = np.random.default_rng(15)
+    kp, vp = _pools(rng, P=40)
+    q, kn, vn, bt, sl, wp = _decode_case(rng, [3, 70])
+    made = dict(kernels._SPLIT_WORKSPACES)
+    before = dict(kernels.LAUNCHES)
+    kernels.fused_decode(_t(q), _t(kn), _t(vn), _t(kp), _t(vp), _t(bt),
+                         _t(sl), _t(wp), 0)
+    assert kernels._SPLIT_WORKSPACES == made
     assert kernels.LAUNCHES == before
 
 
