@@ -3,7 +3,9 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases env,build,kernels]
+
+(``--phases`` runs a subset, e.g. the kernel checks and timings alone.)
 
 Phases, in order (each ends in ``torch.cuda.synchronize()`` so a fault
 shows where it happened):
@@ -22,12 +24,14 @@ shows where it happened):
                  over int8 pools), pools and scale pools bit-exact; kernel,
                  plain, library times and the bound; kernel 1 also at each
                  candidate split size. Then cuBLAS's int8 GEMM with the
-                 weight row and column major. Then kernels 1 and 3 at
-                 their longest served shapes (B=8 rows of 2000 positions;
-                 a 2048-token chunk), held against their twins (also
-                 within ``REL_TOL`` of the twin's RMS, which a control
-                 with one page of keys wrong must fail) and timed beside
-                 decode and causal SDPA.
+                 weight row and column major. Kernel 6 is also timed by
+                 range (its decode rows alone, its slices alone). Then
+                 kernels 1, 3, 8 and 6 at their longest served shapes
+                 (B=8 rows of 2000 positions; a 2048-token chunk; the
+                 2000-position rows plus a 128-token slice from 1920),
+                 held against their twins (also within ``REL_TOL`` of the
+                 twin's RMS, which a control with one page of keys wrong
+                 must fail) and timed beside decode and causal SDPA.
 4. split      — one decode step through ``paged_decode_step(fused=False)``
                  (row-write kernel + decode-attention kernel) against
                  ``fused=True``: same attention within ``ATOL``, identical
@@ -598,7 +602,9 @@ def _kernel_ragged(state, gen, k_pool, v_pool) -> None:
         _sdpa_prefill(gen, dev, q_pf[off:off + n], st)
         for st, n, off in RAGGED_SLICES if n]
     lib_ms = device_ms(lambda i: [c() for c in calls])
-    del calls, kp1, vp1
+    del calls
+    dec_ms, slice_ms = _ragged_ranges(q, kn, vn, q_pf, kp1, vp1, args)
+    del kp1, vp1
     n_pos = sum(live_lens) + 5
     N = RAGGED_N
     pf_pos = sum(st + n for st, n, _ in RAGGED_SLICES)
@@ -611,6 +617,29 @@ def _kernel_ragged(state, gen, k_pool, v_pool) -> None:
             "llmq_tpu_torch/csrc/ragged_attention.cu",
             "llmq_tpu/ops/pallas/ragged_paged_attention.py:474", err, ms,
             plain_ms, bms, by, lib_ms)
+    state["kernels"]["ragged_mixed_attention"].update(
+        {"ms_decode_range": dec_ms, "ms_slice_range": slice_ms})
+    log(f"[kernels] ragged_mixed_attention by range: decode rows alone "
+        f"{dec_ms:.4f} ms, slices alone {slice_ms:.4f} ms ({CARD})")
+
+
+def _ragged_ranges(q, kn, vn, q_pf, kp, vp, args):
+    """Kernel 6's device ms for each range of its grid alone: the same
+    decode rows with every slice at qlen 0 (each slice block then only
+    writes its zeros), and the same slices with no decode row (B=0)."""
+    import torch
+
+    from llmq_tpu_torch.ops import kernels
+
+    bt, sl, wp, qoff, qlen, qstart = args
+    B = q.shape[0]
+    no_slices = (bt, sl, wp, qoff, torch.zeros_like(qlen), qstart)
+    dec_ms = device_ms(lambda i: kernels.ragged_mixed_attention(
+        q, kn, vn, q_pf, kp, vp, *no_slices, i % kp.shape[0]))
+    no_rows = (bt[B:], sl[B:], wp[:0], qoff, qlen, qstart)
+    slice_ms = device_ms(lambda i: kernels.ragged_mixed_attention(
+        q[:0], kn[:0], vn[:0], q_pf, kp, vp, *no_rows, i % kp.shape[0]))
+    return dec_ms, slice_ms
 
 
 def _q8_pools(gen, dev):
@@ -849,14 +878,17 @@ def _chunk_sweep(fn) -> dict:
 
 
 def _long_shapes(state) -> None:
-    """Kernels 1 and 3 at the longest shapes the served geometry allows:
-    decode with every row at 2000 cached positions (B=8), and a full
-    2048-token prefill chunk from position 0. Each is held against its
-    twin (attention within ``ATOL`` and within ``REL_TOL`` of the twin's
-    RMS per (row, head), kernel 1's pools bit-exact) and timed beside its
-    bound, its twin and an SDPA yardstick, kernel 1 also at each
-    candidate split size; the numbers go into the kernel's table entry
-    as ``long``. A 4-layer pool with room for 8 full block tables."""
+    """Kernels 1, 3, 8 and 6 at the longest shapes the served geometry
+    allows: decode with every row at 2000 cached positions (B=8; kernels
+    1 and 8), a full 2048-token prefill chunk from position 0 (kernel
+    3), and those decode rows plus one 128-token slice from position 1920
+    (kernel 6). Each is held against its twin (attention within ``ATOL``
+    and within ``REL_TOL`` of the twin's RMS per (row, head), which a
+    control with one page of keys wrong must fail; pools bit-exact where
+    the kernel writes) and timed beside its bound, its twin and an SDPA
+    yardstick, kernel 1 also at each candidate split size and kernel 6
+    also by range; the numbers go into the kernel's table entry as
+    ``long``. A 4-layer pool with room for 9 full block tables."""
     import torch
     import torch.nn.functional as F
 
@@ -864,7 +896,7 @@ def _long_shapes(state) -> None:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
-    L, P = 4, B * MP + 1
+    L, P = 4, (B + 1) * MP + 1
     kp = torch.randn((L, P, PS, GD), generator=gen, device=dev).to(torch.bfloat16)
     vp = torch.randn((L, P, PS, GD), generator=gen, device=dev).to(torch.bfloat16)
     bt = (1 + torch.arange(B * MP, device=dev, dtype=torch.int32)).reshape(B, MP)
@@ -968,6 +1000,136 @@ def _long_shapes(state) -> None:
         f"{err:.3g} scaled {rel:.3g} (control, one wrong page: {ctl_err:.3g} "
         f"scaled {ctl_rel:.3g}); kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
         f"library {lib_ms:.4f} ms bound {bms:.4f} ms ({by}) ({CARD})")
+    del qh, kh, vh, qp
+    _long_paged_decode(state, gen, kp, vp, bt, sl, q)
+    _long_ragged(state, gen, kp, vp, bt, sl, wp, q, kn, vn)
+
+
+def _wrong_page(bt):
+    """The block table(s) with the page of positions 1024..1039 replaced
+    by the first page: the one-wrong-page control of the long shapes."""
+    bad = bt.clone()
+    bad[..., 1024 // PS] = bad[..., 0]
+    return bad
+
+
+def _long_paged_decode(state, gen, kp, vp, bt, sl, q) -> None:
+    """Kernel 8 on the long decode rows (B=8 × 2000 positions, layer 1)."""
+    import torch
+
+    from llmq_tpu_torch.ops import kernels
+
+    dev = kp.device
+    L = kp.shape[0]
+    n = int(sl[0])
+    out_k = kernels.paged_decode_attention(q, kp, vp, bt, sl, 1)
+    out_p = kernels.paged_decode_attention_plain(q, kp, vp, bt, sl, 1)
+    torch.cuda.synchronize()
+    err = (out_k.float() - out_p.float()).abs().max().item()
+    rel = scaled_err(out_k, out_p)
+    if not torch.isfinite(out_k).all() or err > ATOL or rel > REL_TOL:
+        raise AssertionError(f"paged_decode_attention seq_len={n}: max err "
+                             f"{err} > {ATOL}, scaled err {rel} > {REL_TOL} "
+                             f"or non-finite")
+    ctl = kernels.paged_decode_attention_plain(q, kp, vp, _wrong_page(bt), sl,
+                                               1)
+    ctl_err = (ctl.float() - out_p.float()).abs().max().item()
+    ctl_rel = scaled_err(ctl, out_p)
+    if ctl_rel <= REL_TOL:
+        raise AssertionError(f"paged_decode_attention seq_len={n}: the "
+                             f"scaled check passes a wrong page ({ctl_rel})")
+    del ctl, out_p
+    ms = device_ms(lambda i: kernels.paged_decode_attention(
+        q, kp, vp, bt, sl, i % L))
+    plain_ms = device_ms(lambda i: kernels.paged_decode_attention_plain(
+        q, kp, vp, bt, sl, i % L), iters=3, warmup=1)
+    sdpa_dec = _sdpa_decode(gen, dev, q, sl, n)
+    lib_ms = device_ms(lambda i: sdpa_dec())
+    del sdpa_dec
+    bms, by = bound(B * n * GD * 2 * 2 + 2 * B * H * D * 2 + B * MP * 4
+                    + B * 4, B * n * H * 4 * D)
+    state["kernels"]["paged_decode_attention"]["long"] = {
+        "shape": f"B={B} seq_len={n}", "max_abs_err": err,
+        "scaled_err": rel, "control_max_abs_err": ctl_err,
+        "control_scaled_err": ctl_rel, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+    log(f"[kernels] paged_decode_attention B={B} seq_len={n}: max_abs_err "
+        f"{err:.3g} scaled {rel:.3g} (control, one wrong page: {ctl_err:.3g} "
+        f"scaled {ctl_rel:.3g}); kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+        f"library {lib_ms:.4f} ms bound {bms:.4f} ms ({by}) ({CARD})")
+
+
+def _long_ragged(state, gen, kp, vp, bt, sl, wp, q, kn, vn) -> None:
+    """Kernel 6 on the long decode rows plus one 128-token slice from
+    position 1920 on the pool's ninth block table (layer 2)."""
+    import torch
+
+    from llmq_tpu_torch.ops import kernels
+
+    dev = kp.device
+    L = kp.shape[0]
+    n = int(sl[0])
+    T, start = 128, 1920
+    bt_s = (1 + B * MP + torch.arange(MP, device=dev,
+                                      dtype=torch.int32))[None]
+    args = (torch.cat([bt, bt_s]).contiguous(),
+            torch.cat([sl, torch.tensor([start + T], dtype=torch.int32,
+                                        device=dev)]),
+            wp, *(torch.tensor([v], dtype=torch.int32, device=dev)
+                  for v in (0, T, start)))
+    q_pf = torch.randn((T, H, D), generator=gen, device=dev).to(torch.bfloat16)
+    kp2, vp2 = kp.clone(), vp.clone()
+    d_k, p_k = kernels.ragged_mixed_attention(q, kn, vn, q_pf, kp, vp, *args, 2)
+    d_p, p_p = kernels.ragged_mixed_attention_plain(q, kn, vn, q_pf, kp2, vp2,
+                                                    *args, 2)
+    torch.cuda.synchronize()
+    err = max((d_k.float() - d_p.float()).abs().max().item(),
+              (p_k.float() - p_p.float()).abs().max().item())
+    rel = max(scaled_err(d_k, d_p), scaled_err(p_k, p_p))
+    if not (torch.isfinite(d_k).all() and torch.isfinite(p_k).all()) \
+            or err > ATOL or rel > REL_TOL:
+        raise AssertionError(f"ragged_mixed_attention long: max err {err} > "
+                             f"{ATOL}, scaled err {rel} > {REL_TOL} or "
+                             f"non-finite")
+    if not (torch.equal(kp, kp2) and torch.equal(vp, vp2)):
+        raise AssertionError("ragged_mixed_attention long: pools differ from "
+                             "the twin")
+    c_d, c_p = kernels.ragged_mixed_attention_plain(
+        q, kn, vn, q_pf, kp2, vp2, _wrong_page(args[0]), *args[1:], 2)
+    ctl_err = max((c_d.float() - d_p.float()).abs().max().item(),
+                  (c_p.float() - p_p.float()).abs().max().item())
+    ctl_rel = min(scaled_err(c_d, d_p), scaled_err(c_p, p_p))
+    if ctl_rel <= REL_TOL:
+        raise AssertionError(f"ragged_mixed_attention long: the scaled check "
+                             f"passes a wrong page ({ctl_rel})")
+    del kp2, vp2, c_d, c_p, d_p, p_p
+    ms = device_ms(lambda i: kernels.ragged_mixed_attention(
+        q, kn, vn, q_pf, kp, vp, *args, i % L))
+    plain_ms = device_ms(lambda i: kernels.ragged_mixed_attention_plain(
+        q, kn, vn, q_pf, kp, vp, *args, i % L), iters=3, warmup=1)
+    calls = [_sdpa_decode(gen, dev, q, sl, n), _sdpa_prefill(gen, dev, q_pf,
+                                                             start)]
+    lib_ms = device_ms(lambda i: [c() for c in calls])
+    del calls
+    dec_ms, slice_ms = _ragged_ranges(q, kn, vn, q_pf, kp, vp, args)
+    pairs = sum(start + t + 1 for t in range(T))
+    bms, by = bound(2 * B * H * D * 2 + 2 * B * GD * 2 + B * n * GD * 2 * 2
+                    + 2 * T * H * D * 2 + (start + T) * GD * 2 * 2
+                    + (B + 1) * MP * 4 + (2 * B + 4) * 4,
+                    (B * n + pairs) * H * 4 * D)
+    state["kernels"]["ragged_mixed_attention"]["long"] = {
+        "shape": f"B={B} seq_len={n} + slice T={T} from {start}",
+        "max_abs_err": err, "scaled_err": rel,
+        "control_max_abs_err": ctl_err, "control_scaled_err": ctl_rel,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+        "library_ms": lib_ms, "ms_decode_range": dec_ms,
+        "ms_slice_range": slice_ms}
+    log(f"[kernels] ragged_mixed_attention B={B} seq_len={n} + slice T={T} "
+        f"from {start}: max_abs_err {err:.3g} scaled {rel:.3g} (control, one "
+        f"wrong page: {ctl_err:.3g} scaled {ctl_rel:.3g}), pools bit-exact; "
+        f"kernel {ms:.4f} ms (decode rows alone {dec_ms:.4f}, slice alone "
+        f"{slice_ms:.4f}) plain {plain_ms:.4f} ms library {lib_ms:.4f} ms "
+        f"bound {bms:.4f} ms ({by}) ({CARD})")
 
 
 def phase_split(state) -> None:
@@ -1711,7 +1873,21 @@ PHASES = [("env", phase_env), ("build", phase_build),
           ("serve-int8", phase_serve_int8)]
 
 
-def main() -> int:
+def main(argv=()) -> int:
+    """Runs the phases; ``argv`` holds the command-line arguments (none:
+    every phase)."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(n for n, _ in PHASES),
+                    help="comma-separated phases to run, in the script's "
+                         "order (default: all); a partial run prints its "
+                         "tables but no ok line")
+    args = ap.parse_args(list(argv))
+    chosen = args.phases.split(",")
+    unknown = set(chosen) - {n for n, _ in PHASES}
+    if unknown:
+        ap.error(f"unknown phases: {sorted(unknown)}")
     try:
         import torch
     except ImportError as e:
@@ -1731,6 +1907,8 @@ def main() -> int:
     state = {"kernels": {}}
     t_all = time.perf_counter()
     for name, fn in PHASES:
+        if name not in chosen:
+            continue
         t0 = time.perf_counter()
         try:
             fn(state)
@@ -1742,10 +1920,12 @@ def main() -> int:
         log(f"[{name}] done in {time.perf_counter() - t0:.1f} s")
     log(f"[all] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": list(state["kernels"].values()),
-                      "serve": state["serve"],
-                      "serve_int8": state["serve_int8"],
-                      "int_mm": state["int_mm"]}))
+                      "serve": state.get("serve"),
+                      "serve_int8": state.get("serve_int8"),
+                      "int_mm": state.get("int_mm")}))
     print(CARD)
+    if len(chosen) < len(PHASES):
+        return 0
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -1753,4 +1933,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,25 +1,27 @@
 // Device code shared by the decode-attention kernels of the port:
 // csrc/fused_decode.cu (write + attention, bf16 and int8 pools),
-// csrc/paged_decode.cu (attention only) and the decode blocks of
-// csrc/ragged_attention.cu (bf16 and int8 pools).
+// csrc/paged_decode.cu (attention only) and csrc/ragged_attention.cu
+// (decode blocks and, through attend_tiles(), the bf16 slice blocks).
 //
-// Two block bodies:
+// Two decode block bodies:
 // - decode_attend(): ONE block for one (decode row, KV head), walking
-//   every position of the row (kernels 5, 6, 7 and 8);
+//   every position of the row, over int8 pools only (kernels 5 and 7);
 // - decode_attend_split(): ONE block for one (decode row, KV head, one
 //   of S splits of the row's positions), the splits merged in the same
-//   launch by the last block to finish (kernel 1 over bf16 pools).
+//   launch by the last block to finish, over bf16 pools (kernels 1 and 8
+//   and kernel 6's decode blocks). Its tiles run through attend_tiles(),
+//   which kernel 6's tensor-core slice blocks share.
 // Both optionally write the row's new K/V slice into its page, then run
 // GQA attention of the group's NREP query heads over positions
 // [0, seq_len) read through the row's block table, with an f32 softmax
 // whose running max floors at -1e30.
 //
-// The pool element T is __nv_bfloat16 or int8_t. With int8 pools each
-// (position, KV head) has a bf16 scale in scale pools shaped
-// (L, P, H_kv, page_size); the K scale multiplies the logit and the V
-// scale folds into the probability before it weights V (the TPU
-// kernel's order), so no dequantized K/V is ever stored. The block of
-// head g also writes the new row's two scales.
+// decode_attend() is templated on the pool element T but instantiated
+// for int8_t only. Each (position, KV head) has a bf16 scale in scale
+// pools shaped (L, P, H_kv, page_size); the K scale multiplies the logit
+// and the V scale folds into the probability before it weights V (the
+// TPU kernel's order), so no dequantized K/V is ever stored. The block
+// of head g also writes the new row's two scales.
 //
 // What bounds it: bytes. Decode attention does 4 * H * D flops per
 // cached position against 2 * GD * 2 bytes of bf16 K/V (2 * GD + 4 of
@@ -65,9 +67,6 @@ struct is_int8<int8_t> {
   static constexpr bool value = true;
 };
 
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
 
 template <int N>
@@ -85,12 +84,8 @@ __device__ __forceinline__ void load_bf16(const __nv_bfloat16* p, float* out) {
   }
 }
 
-// N consecutive pool values as floats, N in {2, 4}: one 2- to 8-byte load.
-template <int N>
-__device__ __forceinline__ void load_kv(const __nv_bfloat16* p, float* out) {
-  load_bf16<N>(p, out);
-}
-
+// N consecutive int8 pool values as floats, N in {2, 4}: one 2- or 4-byte
+// load.
 template <int N>
 __device__ __forceinline__ void load_kv(const int8_t* p, float* out) {
   if constexpr (N == 4) {
@@ -123,13 +118,14 @@ __host__ __device__ constexpr int decode_smem_floats() {
 // with warp shuffles, and each warp keeps its own online softmax, merged
 // through shared memory at the end. Every position costs a chain of
 // NREP shuffle reductions before the next one's loads, so at long
-// contexts the body is bound by latency, not bytes.
+// contexts the body is bound by latency, not bytes. int8 pools only
+// (kernels 5 and 7); bf16 pools run decode_attend_split().
 //   q_row:    the row's H query heads, (H, D)
 //   kn, vn:   the row's new K/V slice for head g (D values), or nullptr:
 //             then nothing is written and every position is read from
 //             the pool
-//   kns, vns: int8 pools only: the new slice's bf16 scales (one value
-//             each); ks_pool, vs_pool the scale pools. nullptr for bf16.
+//   kns, vns: the new slice's bf16 scales (one value each); ks_pool,
+//             vs_pool the scale pools
 //   wp:       page the new K/V lands in (slot (sl - 1) % page_size)
 //   bt:       the row's block table (max_pages,)
 //   out_row:  the row's output, (H, D)
@@ -147,6 +143,8 @@ __device__ void decode_attend(const __nv_bfloat16* __restrict__ q_row,
                               int layer, int num_pages, int page_size,
                               int max_pages, int gd, float scale,
                               float* smem) {
+  static_assert(is_int8<T>::value,
+                "bf16 pools run decode_attend_split()");
   constexpr bool Q8 = is_int8<T>::value;
   constexpr int DPL = D / 32;  // dims per lane
   const int warp = threadIdx.x / 32;
@@ -269,56 +267,69 @@ __device__ void decode_attend(const __nv_bfloat16* __restrict__ q_row,
   }
 }
 
-// ---- split-K body --------------------------------------------------------
+// ---- split-K tile machinery ------------------------------------------------
 //
-// decode_attend_split() spreads a row's positions over the S blocks of
-// its (row, KV head) (grid (B, H_kv, S), S from host-known shapes, so
-// the launch never reads seq_lens on the host): a row of kv_len
-// positions is cut into chunks of ceil(kv_len / S) positions rounded up
-// to the 64-position tile, so a short row takes a few one-tile blocks and
-// a long one all S blocks, and many SMs stream one row's K/V at once
-// where one block per (row, head) walked it alone. Inside a block:
-// - the chunk's tiles of K rows and V rows come in by cp.async (16 bytes
-//   a lane, row addresses from the block table) into a two-stage ring,
-//   K and V of a tile as two commit groups: tile i + 1 loads while tile
-//   i is used, and V(i) while K(i) is scored. A row's 16-byte chunk c
-//   lands at c ^ (position % 8), so the ldmatrix reads below are free of
-//   bank conflicts;
-// - scores on the tensor cores: S^T (64 keys x 8 heads) = K q^T, one
-//   mma.m16n8k16 per 16 keys and 16 dims; K from shared memory by
-//   ldmatrix, q^T as the B fragment held in registers for the whole
-//   chunk (query heads past NREP are zero columns);
-// - online softmax across the chunk's tiles, one warp per head, with
-//   the probabilities stored as bf16 [NREP][64];
-// - O^T (D x 8 heads) += V^T P^T, one mma per 16 dims and 16 positions;
-//   V^T from the V tile by ldmatrix.trans, P^T as the B fragment straight
+// attend_tiles() runs online-softmax attention of NQ query columns of one
+// KV head over a range of positions, 64 positions (a tile) at a time, on
+// the tensor cores. Both split-K bodies are built on it: the decode body
+// below (NQ = the group's NREP query heads) and the slice blocks of
+// csrc/ragged_attention.cu (NQ = 8 tokens x NREP heads). Per tile:
+// - the tile's K rows and V rows come in by cp.async (16 bytes a lane,
+//   row addresses from the block table) into a two-stage ring, K and V
+//   as two commit groups: tile i + 1 loads while tile i is used, and
+//   V(i) while K(i) is scored. A row's 16-byte chunk c lands at
+//   c ^ (position % 8), so the ldmatrix reads below are free of bank
+//   conflicts;
+// - S^T (64 keys x NQ columns) = K Q^T, one mma.m16n8k16 per 16 keys, 16
+//   dims and 8 columns, a warp per 16 keys; K from shared memory by
+//   ldmatrix, the Q^T B fragments from the caller (registers or shared
+//   memory; columns past NQ are zero). The mask is per (key, column): a
+//   key past the range or on a page outside [0, P) never counts, and
+//   column c sees positions up to last_pos(c) only;
+// - online softmax down each column, a warp per NQ / 4 columns (2 to 32
+//   lanes a column, their keys in registers, shuffle reductions within
+//   the column's lanes), with the probabilities stored as bf16 [NQ][64];
+// - O^T (D x NQ) += V^T P^T, one mma per 16 dims, 16 positions and 8
+//   columns; V^T from the V tile by ldmatrix.trans, P^T as B fragments
 //   from shared memory; a warp owns D / 4 dims.
-// A block whose chunk starts at or past kv_len exits at once. A row
-// that fits one chunk writes its output directly. Otherwise each split
-// writes (acc[NREP][D], m[NREP], l[NREP]) to the f32 workspace, fences,
-// and bumps the (row, head)'s arrival counter; the last to arrive merges
-// the splits (lanes over splits for the max and sum, then every element
-// with its split loads in flight together), writes the output and sets
-// the counter back to 0, so the next launch finds it at 0 (workspace and
-// counters are the wrapper's, allocated once per geometry: nothing is
-// allocated or cleared per call).
+// Score and probability rows are padded (68 floats, 72 bf16) so the
+// fragment stores and loads hit 32 distinct banks.
 
 constexpr int kSplitTile = 64;     // positions per K/V tile
 constexpr int kSplitThreads = 128;
+constexpr int kScoreStride = kSplitTile + 4;  // floats per score row
+constexpr int kProbStride = kSplitTile + 8;   // bf16 per probability row
 
-// Bytes of dynamic shared memory decode_attend_split() needs.
-template <int D, int NREP, typename T>
-__host__ __device__ constexpr int split_smem_bytes() {
+// Bytes of dynamic shared memory attend_tiles() needs for NQ columns.
+template <int D, int NQ, typename T>
+__host__ __device__ constexpr int tiles_smem_bytes() {
   return 2 * 2 * kSplitTile * D * (int)sizeof(T)  // ring: K and V tiles
-         + NREP * kSplitTile * 4                  // scores (f32)
-         + NREP * kSplitTile * 2                  // probabilities (bf16)
-         + 3 * NREP * 4 + 16;                     // m, l, alpha; flag
+         + NQ * kScoreStride * 4                  // scores (f32)
+         + NQ * kProbStride * 2                   // probabilities (bf16)
+         + 3 * NQ * 4 + 16;                       // m, l, alpha; flag
 }
 
-// Floats of workspace one split of one (row, KV head) writes.
-template <int D, int NREP>
-__host__ __device__ constexpr int split_ws_floats() {
-  return NREP * (D + 2);
+// The regions of attend_tiles()' shared memory.
+struct TileSmem {
+  uint32_t ring;       // shared-space address of the two-stage ring
+  float* sc;           // scores [NQ][kScoreStride]
+  __nv_bfloat16* pb;   // probabilities [NQ][kProbStride]
+  float* ml;           // per column: running max at [c], sum at [NQ + c]
+  float* alpha;        // per column: the last tile's rescale factor
+  int* flag;           // one int for the caller
+};
+
+template <int D, int NQ, typename T>
+__device__ __forceinline__ TileSmem tile_smem(unsigned char* smem) {
+  constexpr int TILEB = kSplitTile * D * (int)sizeof(T);
+  TileSmem t;
+  t.ring = (uint32_t)__cvta_generic_to_shared(smem);
+  t.sc = reinterpret_cast<float*>(smem + 4 * TILEB);
+  t.pb = reinterpret_cast<__nv_bfloat16*>(t.sc + NQ * kScoreStride);
+  t.ml = reinterpret_cast<float*>(t.pb + NQ * kProbStride);
+  t.alpha = t.ml + 2 * NQ;
+  t.flag = reinterpret_cast<int*>(t.alpha + NQ);
+  return t;
 }
 
 __device__ __forceinline__ void split_cp16(uint32_t dst, const void* src,
@@ -361,74 +372,52 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// One (row, KV head g, split) of decode attention; called by every
-// thread of a block of kSplitThreads threads, gridDim.z splits.
-//   q_row, kn, vn, k_pool, v_pool, bt, sl, wp, out_row, g, layer, ...:
-//            as for decode_attend()
-//   ws:      this (row, head)'s workspace, gridDim.z * split_ws_floats()
-//   counter: this (row, head)'s arrival counter, 0 between launches
-//   smem:    split_smem_bytes<D, NREP, T>() bytes, 16-byte aligned
-// Written for bf16 pools; kernel 5's int8 pools still run decode_attend().
-template <int D, int NREP, typename T>
-__device__ void decode_attend_split(
-    const __nv_bfloat16* __restrict__ q_row, const T* __restrict__ kn,
-    const T* __restrict__ vn, T* k_pool, T* v_pool,
-    const int* __restrict__ bt, int sl, int wp,
-    __nv_bfloat16* __restrict__ out_row, float* ws, int* counter, int g,
-    int layer, int num_pages, int page_size, int max_pages, int gd,
-    float scale, unsigned char* smem) {
-  static_assert(!is_int8<T>::value,
-                "int8 pools: the scale loads are not written yet");
+// Attention of NQ query columns of KV head g over positions [c0, c1)
+// (c0 < c1), called by every thread of a block of kSplitThreads threads.
+// Leaves O^T unnormalised in o: o[mt][n][e] is (dim 16 (warp * MT + mt) +
+// gq + 8 (e / 2), column 8 n + 2 tq + e % 2), gq = lane / 4, tq = lane % 4,
+// MT = D / 64; and per column the running max at sm.ml[c] and the sum at
+// sm.ml[NQ + c], visible to every thread on return.
+//   kn, vn:      the new token's K/V slice for head g, read for position
+//                sl - 1 in place of the pool, or nullptr (every position
+//                from the pool)
+//   bt:          the sequence's block table
+//   qfrag(kp, n, b): the Q^T B fragments of dims 32 kp ... 32 kp + 31 and
+//                columns 8 n ... 8 n + 7: b[0], b[1] for the first 16
+//                dims, b[2], b[3] for the next 16
+//   last_pos(c): the last position column c sees
+// cp.async copies the caller issued and did not commit ride in the first
+// commit group (tile 0's K), so they have landed when tile 0 is scored.
+template <int D, int NQ, typename T, typename QFrag, typename LastPos>
+__device__ __forceinline__ void attend_tiles(
+    const T* __restrict__ k_pool, const T* __restrict__ v_pool,
+    const T* __restrict__ kn, const T* __restrict__ vn,
+    const int* __restrict__ bt, int sl, int c0, int c1, int g,
+    size_t layer_row0, int num_pages, int page_size, int gd, float scale,
+    const QFrag& qfrag, const LastPos& last_pos, const TileSmem& sm,
+    float (&o)[D / 64][(NQ + 7) / 8][4]) {
   constexpr int ROWB = D * (int)sizeof(T);   // bytes of one K/V row
   constexpr int CPR = ROWB / 16;             // 16-byte chunks per row
   constexpr int EPC = 16 / (int)sizeof(T);   // elements per chunk
   constexpr int SWZ = CPR >= 8 ? 7 : CPR - 1;
   constexpr int TILEB = kSplitTile * ROWB;   // bytes of a K or V tile
   constexpr int MT = D / 64;                 // P V: 16-dim tiles per warp
-  constexpr int WS = split_ws_floats<D, NREP>();
+  constexpr int NF = (NQ + 7) / 8;           // 8-column fragments
+  // Softmax layout: CPW columns a warp, LPC lanes a column, KPL keys a
+  // lane (NQ is a power of two).
+  constexpr int CPW = (NQ + kSplitThreads / 32 - 1) / (kSplitThreads / 32);
+  constexpr int LPC = 32 / CPW;
+  constexpr int KPL = kSplitTile / LPC;
+  static_assert((NQ & (NQ - 1)) == 0 && CPW * LPC == 32 && KPL % 2 == 0,
+                "softmax layout");
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int gq = lane / 4;  // mma fragment row group
   const int tq = lane % 4;  // ... and column pair
-  const int split = blockIdx.z;
-  const int n_splits = gridDim.z;
-  const size_t layer_row0 = (size_t)layer * num_pages * page_size;
-
-  // 1. Split 0 writes this head's slice of the new token in place.
-  if (split == 0 && kn != nullptr && sl > 0 && wp >= 0 && wp < num_pages) {
-    const size_t row =
-        layer_row0 + (size_t)wp * page_size + (sl - 1) % page_size;
-    for (int i = tid; i < D; i += kSplitThreads) {
-      k_pool[row * gd + g * D + i] = kn[i];
-      v_pool[row * gd + g * D + i] = vn[i];
-    }
-  }
-  const int kv_len = min(sl, max_pages * page_size);
-  const int per = (kv_len + n_splits - 1) / n_splits;
-  const int chunk = max(kSplitTile, (per + kSplitTile - 1) / kSplitTile *
-                                        kSplitTile);
-  const int c0 = split * chunk;
-  __nv_bfloat16* o_row = out_row + (size_t)g * NREP * D;
-  if (c0 >= kv_len) {
-    if (split == 0)  // kv_len <= 0: nothing to attend to
-      for (int i = tid; i < NREP * D; i += kSplitThreads)
-        o_row[i] = __float2bfloat16(0.f);
-    return;
-  }
-  const int c1 = min(c0 + chunk, kv_len);
-  const int n_active = (kv_len + chunk - 1) / chunk;
+  const int mi = lane / 8;  // ldmatrix: which 8 x 8 matrix this lane names
+  const int mr = lane % 8;  // ... and which of its rows
   const int n_tiles = (c1 - c0 + kSplitTile - 1) / kSplitTile;
-
-  const uint32_t ring = (uint32_t)__cvta_generic_to_shared(smem);
-  float* sc = reinterpret_cast<float*>(smem + 4 * TILEB);   // [NREP][64]
-  __nv_bfloat16* pb =
-      reinterpret_cast<__nv_bfloat16*>(sc + NREP * kSplitTile);
-  // Per head: running max at ml[r], sum at ml[NREP + r], and the last
-  // tile's rescale factor at alpha[r].
-  float* ml = reinterpret_cast<float*>(pb + NREP * kSplitTile);
-  float* alpha = ml + 2 * NREP;
-  int* last = reinterpret_cast<int*>(alpha + NREP);
 
   // K then V rows of tile `it` into its stage, two commit groups. A
   // thread copies chunk lc of PER positions; their block-table reads go
@@ -454,7 +443,7 @@ __device__ void decode_attend_split(
     for (int half = 0; half < 2; ++half) {
       const T* pool = half ? v_pool : k_pool;
       const T* nrow = half ? vn : kn;
-      const uint32_t base = ring + ((it & 1) * 2 + half) * TILEB;
+      const uint32_t base = sm.ring + ((it & 1) * 2 + half) * TILEB;
 #pragma unroll
       for (int k = 0; k < PER; ++k) {
         const int j = lj + k * (kSplitThreads / CPR);
@@ -473,6 +462,349 @@ __device__ void decode_attend_split(
   };
   load(0);
 
+  if (tid < NQ) {
+    sm.ml[tid] = -1e30f;
+    sm.ml[NQ + tid] = 0.f;
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int n = 0; n < NF; ++n)
+      o[mt][n][0] = o[mt][n][1] = o[mt][n][2] = o[mt][n][3] = 0.f;
+  const float neg_inf = __int_as_float(0xff800000);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const bool more = it + 1 < n_tiles;
+    if (more) {
+      load(it + 1);
+      split_wait<3>();  // K(it) has landed
+    } else {
+      split_wait<1>();
+    }
+    __syncthreads();
+    const uint32_t sK = sm.ring + (it & 1) * 2 * TILEB;
+    const uint32_t sV = sK + TILEB;
+    const int p0 = c0 + it * kSplitTile;
+
+    // 1. S^T = K Q^T for keys 16 warp ... 16 warp + 15.
+    {
+      float c[NF][4];
+#pragma unroll
+      for (int n = 0; n < NF; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
+      const int key = 16 * warp + mr + (mi % 2) * 8;
+#pragma unroll
+      for (int kp = 0; kp < D / 32; ++kp) {
+        uint32_t a0[4], a1[4];
+        ldsm_x4(sK + key * ROWB + (((4 * kp + mi / 2) ^ (key & SWZ)) << 4),
+                a0);
+        ldsm_x4(sK + key * ROWB +
+                    (((4 * kp + 2 + mi / 2) ^ (key & SWZ)) << 4),
+                a1);
+#pragma unroll
+        for (int n = 0; n < NF; ++n) {
+          uint32_t b[4];
+          qfrag(kp, n, b);
+          mma_bf16(c[n], a0, b[0], b[1]);
+          mma_bf16(c[n], a1, b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int j = 16 * warp + gq + 8 * half;
+        const int p = p0 + j;
+        bool ok = p < c1;
+        if (ok && !(kn != nullptr && p == sl - 1)) {
+          const int page = bt[p / page_size];
+          ok = page >= 0 && page < num_pages;
+        }
+#pragma unroll
+        for (int n = 0; n < NF; ++n) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = 8 * n + 2 * tq + e;
+            if (col < NQ)
+              sm.sc[col * kScoreStride + j] =
+                  ok && p <= last_pos(col) ? c[n][2 * half + e] * scale
+                                           : neg_inf;
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // 2. Online softmax over the tile: warp w owns columns w CPW ...,
+    //    LPC lanes a column, KPL consecutive keys a lane.
+    if (warp * CPW < NQ) {
+      const int r = warp * CPW + lane / LPC;
+      const int k0 = (lane % LPC) * KPL;
+      float sv[KPL];
+      float mx = -1e30f;
+#pragma unroll
+      for (int i = 0; i < KPL; i += 2) {
+        const float2 v2 =
+            *reinterpret_cast<const float2*>(sm.sc + r * kScoreStride + k0 + i);
+        sv[i] = v2.x;
+        sv[i + 1] = v2.y;
+        mx = fmaxf(mx, fmaxf(v2.x, v2.y));
+      }
+#pragma unroll
+      for (int o = LPC / 2; o > 0; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_old = sm.ml[r];
+      const float m_new = fmaxf(m_old, mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < KPL; i += 2) {
+        const float e0 = __expf(sv[i] - m_new);
+        const float e1 = __expf(sv[i + 1] - m_new);
+        sum += e0 + e1;
+        *reinterpret_cast<__nv_bfloat162*>(sm.pb + r * kProbStride + k0 + i) =
+            __floats2bfloat162_rn(e0, e1);
+      }
+#pragma unroll
+      for (int o = LPC / 2; o > 0; o >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      if (lane % LPC == 0) {
+        const float a = __expf(m_old - m_new);
+        sm.alpha[r] = a;
+        sm.ml[r] = m_new;
+        sm.ml[NQ + r] = sm.ml[NQ + r] * a + sum;
+      }
+    }
+    if (more)
+      split_wait<2>();  // V(it) has landed
+    else
+      split_wait<0>();
+    __syncthreads();
+
+    // 3. O^T += V^T P^T for dims 16 (warp * MT + mt) ....
+    {
+#pragma unroll
+      for (int n = 0; n < NF; ++n) {
+        const int col = 8 * n + 2 * tq;
+        const float a0 = col < NQ ? sm.alpha[col] : 1.f;
+        const float a1 = col + 1 < NQ ? sm.alpha[col + 1] : 1.f;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          o[mt][n][0] *= a0;
+          o[mt][n][1] *= a1;
+          o[mt][n][2] *= a0;
+          o[mt][n][3] *= a1;
+        }
+      }
+#pragma unroll
+      for (int ks = 0; ks < kSplitTile / 16; ++ks) {
+        uint32_t b[NF][2];
+#pragma unroll
+        for (int n = 0; n < NF; ++n) {
+          b[n][0] = b[n][1] = 0u;
+          const int col = 8 * n + gq;
+          if (col < NQ) {
+            const __nv_bfloat16* pr =
+                sm.pb + col * kProbStride + 16 * ks + 2 * tq;
+            b[n][0] = *reinterpret_cast<const uint32_t*>(pr);
+            b[n][1] = *reinterpret_cast<const uint32_t*>(pr + 8);
+          }
+        }
+        const int pos = 16 * ks + mr + (mi / 2) * 8;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          uint32_t a[4];
+          const int ch = 2 * (warp * MT + mt) + mi % 2;
+          ldsm_x4_t(sV + pos * ROWB + ((ch ^ (pos & SWZ)) << 4), a);
+#pragma unroll
+          for (int n = 0; n < NF; ++n) mma_bf16(o[mt][n], a, b[n][0], b[n][1]);
+        }
+      }
+    }
+    __syncthreads();  // the stage and the score buffers are free again
+  }
+}
+
+// ---- the end of a split -----------------------------------------------------
+//
+// finish_split() turns one split's attend_tiles() result into output. A
+// (row, head) that one split covers writes its output directly.
+// Otherwise each split writes (acc[NQ][D], m[NQ], l[NQ]) to its slot of
+// the f32 workspace, fences, and bumps the (row, head)'s arrival counter;
+// the last to arrive merges the splits: per column, lanes over splits
+// for the global max M and sum L, each split's weight exp(m - M) / L put
+// back into its slot in place of m, then every element with its splits'
+// loads in flight together. It writes the output and sets the counter
+// back to 0, so the next launch finds it at 0 (workspace and counters
+// are the wrapper's, allocated once per kernel and geometry: nothing is
+// allocated or cleared per call).
+
+// Floats of workspace one split of one (row, KV head) writes.
+template <int D, int NQ>
+__host__ __device__ constexpr int split_ws_floats() {
+  return NQ * (D + 2);
+}
+
+//   o, sm:    attend_tiles()' result
+//   ws:       the (row, head)'s workspace, n_splits * split_ws_floats()
+//   counter:  the (row, head)'s arrival counter, 0 between launches
+//   n_active: the splits that cover the (row, head)'s positions; at 1,
+//             ws and counter are not touched (may be nullptr)
+//   store(c, d, v): writes output element (column c, dim d) = v
+template <int D, int NQ, typename Store>
+__device__ __forceinline__ void finish_split(
+    const float (&o)[D / 64][(NQ + 7) / 8][4], const TileSmem& sm, float* ws,
+    int* counter, int split, int n_active, const Store& store) {
+  constexpr int MT = D / 64;
+  constexpr int NF = (NQ + 7) / 8;
+  constexpr int WS = split_ws_floats<D, NQ>();
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int gq = lane / 4;
+  const int tq = lane % 4;
+  // o[mt][n][e] is (dim 16 (warp * MT + mt) + gq (+8 for e >= 2), column
+  // 8 n + 2 tq + e % 2).
+  float* mine = ws + (size_t)split * WS;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int n = 0; n < NF; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * n + 2 * tq + e % 2;
+        const int d = 16 * (warp * MT + mt) + gq + 8 * (e / 2);
+        if (c >= NQ) continue;
+        if (n_active == 1)
+          store(c, d, o[mt][n][e] / fmaxf(sm.ml[NQ + c], 1e-30f));
+        else
+          __stcg(mine + c * D + d, o[mt][n][e]);
+      }
+    }
+  }
+  if (n_active == 1) return;
+  for (int i = tid; i < 2 * NQ; i += kSplitThreads)
+    __stcg(mine + NQ * D + i, sm.ml[i]);
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) *sm.flag = atomicAdd(counter, 1) == n_active - 1;
+  __syncthreads();
+  if (!*sm.flag) return;
+  __threadfence();
+  for (int c = warp; c < NQ; c += kSplitThreads / 32) {
+    float mx = -1e30f;
+    for (int s = lane; s < n_active; s += 32)
+      mx = fmaxf(mx, __ldcg(ws + (size_t)s * WS + NQ * D + c));
+    mx = warp_max(mx);
+    float L = 0.f;
+    for (int s = lane; s < n_active; s += 32) {
+      const float* part = ws + (size_t)s * WS + NQ * D;
+      L += __ldcg(part + NQ + c) * __expf(__ldcg(part + c) - mx);
+    }
+    const float inv = 1.f / fmaxf(warp_sum(L), 1e-30f);
+    for (int s = lane; s < n_active; s += 32) {
+      float* m = ws + (size_t)s * WS + NQ * D + c;
+      __stcg(m, __expf(__ldcg(m) - mx) * inv);
+    }
+  }
+  __threadfence_block();
+  __syncthreads();
+  constexpr int EPT = (NQ * D + kSplitThreads - 1) / kSplitThreads;
+  constexpr int CH = EPT < 8 ? EPT : 8;  // elements in flight per thread
+#pragma unroll 1
+  for (int k0 = 0; k0 < EPT; k0 += CH) {
+    float acc[CH];
+#pragma unroll
+    for (int k = 0; k < CH; ++k) acc[k] = 0.f;
+#pragma unroll 4
+    for (int s = 0; s < n_active; ++s) {
+      const float* part = ws + (size_t)s * WS;
+#pragma unroll
+      for (int k = 0; k < CH; ++k) {
+        const int idx = tid + (k0 + k) * kSplitThreads;
+        if (idx < NQ * D)
+          acc[k] += __ldcg(part + idx) * __ldcg(part + NQ * D + idx / D);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < CH; ++k) {
+      const int idx = tid + (k0 + k) * kSplitThreads;
+      if (idx < NQ * D) store(idx / D, idx % D, acc[k]);
+    }
+  }
+  if (tid == 0) atomicExch(counter, 0);
+}
+
+// ---- split-K decode body ---------------------------------------------------
+//
+// decode_attend_split() spreads a row's positions over the S blocks of
+// its (row, KV head): grid (B, H_kv, S) in kernels 1 and 8, a range of
+// the 1-D grid in kernel 6, S from host-known shapes, so the launch never
+// reads seq_lens on the host. A row of kv_len positions is cut into
+// chunks of ceil(kv_len / S) positions rounded up to the 64-position
+// tile, so a short row takes a few one-tile blocks and a long one all S
+// blocks, and many SMs stream one row's K/V at once where one block per
+// (row, head) walked it alone. A chunk runs through attend_tiles() with
+// the group's NREP query heads as its columns, q^T held in registers; a
+// block whose chunk starts at or past kv_len exits at once, and
+// finish_split() writes the output or merges the splits.
+
+// Bytes of dynamic shared memory decode_attend_split() needs.
+template <int D, int NREP, typename T>
+__host__ __device__ constexpr int split_smem_bytes() {
+  return tiles_smem_bytes<D, NREP, T>();
+}
+
+// One (row, KV head g, split) of decode attention; called by every
+// thread of a block of kSplitThreads threads.
+//   q_row, kn, vn, k_pool, v_pool, bt, sl, wp, out_row, g, layer, ...:
+//            as for decode_attend(); kn == nullptr (kernel 8): nothing is
+//            written and every position, the newest included, is read
+//            from the pool
+//   ws:      this (row, head)'s workspace, n_splits * split_ws_floats()
+//   counter: this (row, head)'s arrival counter, 0 between launches
+//   split, n_splits: this block's split and the (row, head)'s count
+//   smem:    split_smem_bytes<D, NREP, T>() bytes, 16-byte aligned
+// Written for bf16 pools (kernels 1, 6 and 8); the int8 pools of kernels
+// 5 and 7 still run decode_attend().
+template <int D, int NREP, typename T>
+__device__ void decode_attend_split(
+    const __nv_bfloat16* __restrict__ q_row, const T* __restrict__ kn,
+    const T* __restrict__ vn, T* k_pool, T* v_pool,
+    const int* __restrict__ bt, int sl, int wp,
+    __nv_bfloat16* __restrict__ out_row, float* ws, int* counter, int g,
+    int layer, int num_pages, int page_size, int max_pages, int gd,
+    float scale, int split, int n_splits, unsigned char* smem) {
+  static_assert(!is_int8<T>::value,
+                "int8 pools: the scale loads are not written yet "
+                "(kernels 5 and 7 run decode_attend())");
+  constexpr int MT = D / 64;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int gq = lane / 4;
+  const int tq = lane % 4;
+  const size_t layer_row0 = (size_t)layer * num_pages * page_size;
+
+  // 1. Split 0 writes this head's slice of the new token in place.
+  if (split == 0 && kn != nullptr && sl > 0 && wp >= 0 && wp < num_pages) {
+    const size_t row =
+        layer_row0 + (size_t)wp * page_size + (sl - 1) % page_size;
+    for (int i = tid; i < D; i += kSplitThreads) {
+      k_pool[row * gd + g * D + i] = kn[i];
+      v_pool[row * gd + g * D + i] = vn[i];
+    }
+  }
+  const int kv_len = min(sl, max_pages * page_size);
+  const int per = (kv_len + n_splits - 1) / n_splits;
+  const int chunk = max(kSplitTile, (per + kSplitTile - 1) / kSplitTile *
+                                        kSplitTile);
+  const int c0 = split * chunk;
+  __nv_bfloat16* o_row = out_row + (size_t)g * NREP * D;
+  if (c0 >= kv_len) {
+    if (split == 0)  // kv_len <= 0: nothing to attend to
+      for (int i = tid; i < NREP * D; i += kSplitThreads)
+        o_row[i] = __float2bfloat16(0.f);
+    return;
+  }
+  const int c1 = min(c0 + chunk, kv_len);
+  const int n_active = (kv_len + chunk - 1) / chunk;
+
   // q^T as B fragments: column gq is query head g * NREP + gq (zero past
   // NREP), rows 16 kk + 2 tq (+1, +8, +9) are dims.
   uint32_t qb[D / 16][2];
@@ -485,186 +817,22 @@ __device__ void decode_attend_split(
       qb[kk][1] = *reinterpret_cast<const uint32_t*>(qr + 8 + 2 * tq);
     }
   }
-  if (tid < NREP) {
-    ml[tid] = -1e30f;
-    ml[NREP + tid] = 0.f;
-  }
-  float o[MT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-    o[mt][0] = o[mt][1] = o[mt][2] = o[mt][3] = 0.f;
-  const float neg_inf = __int_as_float(0xff800000);
-  const int mi = lane / 8;  // ldmatrix: which 8 x 8 matrix this lane names
-  const int mr = lane % 8;  // ... and which of its rows
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const bool more = it + 1 < n_tiles;
-    if (more) {
-      load(it + 1);
-      split_wait<3>();  // K(it) has landed
-    } else {
-      split_wait<1>();
-    }
-    __syncthreads();
-    const uint32_t sK = ring + (it & 1) * 2 * TILEB;
-    const uint32_t sV = sK + TILEB;
-    const int p0 = c0 + it * kSplitTile;
-
-    // 2. S^T = K q^T for keys 16 warp ... 16 warp + 15.
-    {
-      float c[4] = {0.f, 0.f, 0.f, 0.f};
-      const int key = 16 * warp + mr + (mi % 2) * 8;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t a[4];
-        const int ch = 2 * kk + mi / 2;
-        ldsm_x4(sK + key * ROWB + ((ch ^ (key & SWZ)) << 4), a);
-        mma_bf16(c, a, qb[kk][0], qb[kk][1]);
-      }
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int j = 16 * warp + gq + 8 * half;
-        const int p = p0 + j;
-        bool ok = p < c1;
-        if (ok && !(kn != nullptr && p == sl - 1)) {
-          const int page = bt[p / page_size];
-          ok = page >= 0 && page < num_pages;
-        }
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int r = 2 * tq + e;
-          if (r < NREP) sc[r * kSplitTile + j] = ok ? c[2 * half + e] * scale
-                                                    : neg_inf;
-        }
-      }
-    }
-    __syncthreads();
-
-    // 3. Online softmax over the tile, one warp per head.
-    for (int r = warp; r < NREP; r += kSplitThreads / 32) {
-      const float s0 = sc[r * kSplitTile + lane];
-      const float s1 = sc[r * kSplitTile + lane + 32];
-      const float m_old = ml[r];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      const float e0 = __expf(s0 - m_new);
-      const float e1 = __expf(s1 - m_new);
-      pb[r * kSplitTile + lane] = __float2bfloat16(e0);
-      pb[r * kSplitTile + lane + 32] = __float2bfloat16(e1);
-      const float sum = warp_sum(e0 + e1);
-      if (lane == 0) {
-        const float a = __expf(m_old - m_new);
-        alpha[r] = a;
-        ml[r] = m_new;
-        ml[NREP + r] = ml[NREP + r] * a + sum;
-      }
-    }
-    if (more)
-      split_wait<2>();  // V(it) has landed
-    else
-      split_wait<0>();
-    __syncthreads();
-
-    // 4. O^T += V^T P^T for dims 16 (warp * MT + mt) ....
-    {
-      float a0 = 1.f, a1 = 1.f;
-      if (2 * tq < NREP) a0 = alpha[2 * tq];
-      if (2 * tq + 1 < NREP) a1 = alpha[2 * tq + 1];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        o[mt][0] *= a0;
-        o[mt][1] *= a1;
-        o[mt][2] *= a0;
-        o[mt][3] *= a1;
-      }
-#pragma unroll
-      for (int ks = 0; ks < kSplitTile / 16; ++ks) {
-        uint32_t b0 = 0u, b1 = 0u;
-        if (gq < NREP) {
-          const __nv_bfloat16* pr = pb + gq * kSplitTile + 16 * ks + 2 * tq;
-          b0 = *reinterpret_cast<const uint32_t*>(pr);
-          b1 = *reinterpret_cast<const uint32_t*>(pr + 8);
-        }
-        const int pos = 16 * ks + mr + (mi / 2) * 8;
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          uint32_t a[4];
-          const int ch = 2 * (warp * MT + mt) + mi % 2;
-          ldsm_x4_t(sV + pos * ROWB + ((ch ^ (pos & SWZ)) << 4), a);
-          mma_bf16(o[mt], a, b0, b1);
-        }
-      }
-    }
-    __syncthreads();  // the stage and the score buffers are free again
-  }
-
-  // 5. o[mt][e] is (dim 16 (warp * MT + mt) + gq (+8 for e >= 2), head
-  //    2 tq + e % 2). One split: the output. Otherwise publish and merge.
-  float* mine = ws + (size_t)split * WS;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = 2 * tq + e % 2;
-      const int d = 16 * (warp * MT + mt) + gq + 8 * (e / 2);
-      if (r >= NREP) continue;
-      if (n_active == 1)
-        o_row[r * D + d] =
-            __float2bfloat16(o[mt][e] / fmaxf(ml[NREP + r], 1e-30f));
-      else
-        __stcg(mine + r * D + d, o[mt][e]);
-    }
-  }
-  if (n_active == 1) return;
-  if (tid < 2 * NREP) __stcg(mine + NREP * D + tid, ml[tid]);
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) *last = atomicAdd(counter, 1) == n_active - 1;
-  __syncthreads();
-  if (!*last) return;
-  __threadfence();
-  // Per head: the global max M (into ml[r]) and 1 / sum (ml[NREP + r]),
-  // lanes over splits.
-  for (int r = warp; r < NREP; r += kSplitThreads / 32) {
-    float mx = -1e30f;
-    for (int s = lane; s < n_active; s += 32)
-      mx = fmaxf(mx, __ldcg(ws + (size_t)s * WS + NREP * D + r));
-    mx = warp_max(mx);
-    float L = 0.f;
-    for (int s = lane; s < n_active; s += 32) {
-      const float* part = ws + (size_t)s * WS + NREP * D;
-      L += __ldcg(part + NREP + r) * __expf(__ldcg(part + r) - mx);
-    }
-    L = warp_sum(L);
-    if (lane == 0) {
-      ml[r] = mx;
-      ml[NREP + r] = 1.f / fmaxf(L, 1e-30f);
-    }
-  }
-  __syncthreads();
-  constexpr int EPT = (NREP * D + kSplitThreads - 1) / kSplitThreads;
-  float acc[EPT];
-#pragma unroll
-  for (int k = 0; k < EPT; ++k) acc[k] = 0.f;
-#pragma unroll 8
-  for (int s = 0; s < n_active; ++s) {
-    const float* part = ws + (size_t)s * WS;
-#pragma unroll
-    for (int k = 0; k < EPT; ++k) {
-      const int idx = tid + k * kSplitThreads;
-      if (idx < NREP * D) {
-        const int r = idx / D;
-        acc[k] += __ldcg(part + idx) * __expf(__ldcg(part + NREP * D + r) -
-                                              ml[r]);
-      }
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < EPT; ++k) {
-    const int idx = tid + k * kSplitThreads;
-    if (idx < NREP * D)
-      o_row[idx] = __float2bfloat16(acc[k] * ml[NREP + idx / D]);
-  }
-  if (tid == 0) atomicExch(counter, 0);
+  auto qfrag = [&](int kp, int, uint32_t (&b)[4]) {
+    b[0] = qb[2 * kp][0];
+    b[1] = qb[2 * kp][1];
+    b[2] = qb[2 * kp + 1][0];
+    b[3] = qb[2 * kp + 1][1];
+  };
+  auto every_pos = [](int) { return 0x7fffffff; };
+  const TileSmem sm = tile_smem<D, NREP, T>(smem);
+  float o[MT][1][4];
+  attend_tiles<D, NREP, T>(k_pool, v_pool, kn, vn, bt, sl, c0, c1, g,
+                           layer_row0, num_pages, page_size, gd, scale, qfrag,
+                           every_pos, sm, o);
+  finish_split<D, NREP>(o, sm, ws, counter, split, n_active,
+                        [&](int r, int d, float v) {
+                          o_row[r * D + d] = __float2bfloat16(v);
+                        });
 }
 
 }  // namespace llmq

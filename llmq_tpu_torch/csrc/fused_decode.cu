@@ -22,11 +22,11 @@
 // arrival counters. Kernel 5 is one block per (row, KV head) running
 // decode_attend(). Both bodies live in decode_attention.cuh (shared with
 // csrc/paged_decode.cu and csrc/ragged_attention.cu), with what bounds
-// the kernel (bytes) and what each design does about it. The write-then-read hazard: a block
-// writes only its own head's slice of the row (and its scales) and takes
-// position seq_len - 1 from the new row, never from the pool, so no
-// block waits on another's write. A row with seq_len == 0 attends to
-// nothing and returns zeros. None of the TPU kernel's page DMA,
+// the kernel (bytes) and what each design does about it. The
+// write-then-read hazard: a block writes only its own head's slice of
+// the row (and its scales) and takes position seq_len - 1 from the new
+// row, never from the pool, so no block waits on another's write. A row
+// with seq_len == 0 attends to nothing and returns zeros. None of the TPU kernel's page DMA,
 // pre-broadcast scale pages or block-diagonal q is carried over, and no
 // page-size or head-count limit of Mosaic applies: any page size,
 // D in {64, 128}, n_rep in {1, 2, 4, 8}.
@@ -65,7 +65,7 @@ fused_decode_split_kernel(const __nv_bfloat16* __restrict__ q,   // (B, H, D)
       block_tables + (size_t)b * max_pages, seq_lens[b], write_page[b],
       out + b * hd, ws + bg * gridDim.z * llmq::split_ws_floats<D, NREP>(),
       counters + bg, g, layer, num_pages, page_size, max_pages, gd, scale,
-      smem);
+      blockIdx.z, gridDim.z, smem);
 }
 
 template <int D, int NREP>

@@ -76,10 +76,10 @@ _SIGNATURES = {
         "llmq_prefill_attention": [_P] * 5 + [_I] * 9 + [_F, _P],
     },
     "paged_decode": {
-        "llmq_paged_decode": [_P] * 6 + [_I] * 8 + [_F, _P],
+        "llmq_paged_decode": [_P] * 8 + [_I] * 9 + [_F, _P],
     },
     "ragged_attention": {
-        "llmq_ragged_mixed_attention": [_P] * 14 + [_I] * 10 + [_F, _P],
+        "llmq_ragged_mixed_attention": [_P] * 16 + [_I] * 12 + [_F, _P],
         "llmq_ragged_mixed_attention_q8": [_P] * 18 + [_I] * 10 + [_F, _P],
     },
 }
@@ -100,13 +100,19 @@ BUILD_LOGS: Dict[str, str] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _BUILD_LOCK = threading.Lock()
 
-#: Positions per split block of :func:`fused_decode` for a row that
-#: fills its block table (a multiple of 64, the kernel's tile); a
-#: shorter row takes fewer, shorter splits. Chosen on the card (PERF.md).
+#: Positions per split block of the split-K decode body (kernels 1 and 8
+#: and kernel 6's decode blocks) for a row that fills its block table (a
+#: multiple of 64, the body's tile); a shorter row takes fewer, shorter
+#: splits. Chosen on the card for kernel 1 (PERF.md).
 FUSED_DECODE_CHUNK = 128
 
-#: (device, B, H_kv, n_rep, D, n_splits) → (workspace, counters) of
-#: :func:`fused_decode`, made once with ``torch.zeros``.
+#: The kernels that launch the split-K decode body, each with workspaces
+#: of its own.
+SPLIT_KERNELS = ("fused_decode", "paged_decode_attention",
+                 "ragged_mixed_attention")
+
+#: (kernel, device, B, H_kv, n_rep, D, n_splits) → (workspace, counters)
+#: of a split-K launch, made once with ``torch.zeros``.
 _SPLIT_WORKSPACES: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
@@ -280,23 +286,30 @@ def _raise_on(rc: int, what: str) -> None:
 # -- kernel 1: fused decode write + attention --------------------------------
 
 def fused_decode_splits(max_pages: int, page_size: int) -> int:
-    """Split blocks per (row, KV head) of :func:`fused_decode`: enough
-    chunks of :data:`FUSED_DECODE_CHUNK` positions to cover a full block
-    table. From shapes only, so the launch never waits on ``seq_lens``;
-    the kernel cuts each row into that many chunks or fewer, each a
-    multiple of 64 positions."""
+    """Split blocks per (row, KV head) of the split-K decode body
+    (:func:`fused_decode`, :func:`paged_decode_attention` and the decode
+    range of :func:`ragged_mixed_attention`): enough chunks of
+    :data:`FUSED_DECODE_CHUNK` positions to cover a full block table.
+    From shapes only, so the launch never waits on ``seq_lens``; the
+    kernel cuts each row into that many chunks or fewer, each a multiple
+    of 64 positions."""
     return max(1, -(-max_pages * page_size // FUSED_DECODE_CHUNK))
 
 
-def split_workspace(device: torch.device, batch: int, n_kv_heads: int,
-                    n_rep: int, head_dim: int,
+def split_workspace(kernel: str, device: torch.device, batch: int,
+                    n_kv_heads: int, n_rep: int, head_dim: int,
                     n_splits: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The f32 partials ``(B, H_kv, n_splits, n_rep * (D + 2))`` and the
-    int32 arrival counters ``(B, H_kv)`` of :func:`fused_decode`, made
-    once per geometry with ``torch.zeros`` and reused by every later
-    call: the kernel leaves each counter at 0, so no call allocates or
-    clears anything (and a captured graph may replay the launch)."""
-    key = (torch.device(device), batch, n_kv_heads, n_rep, head_dim,
+    int32 arrival counters ``(B, H_kv)`` of the split-K launches of
+    ``kernel`` (one of :data:`SPLIT_KERNELS`), made once per kernel and
+    geometry with ``torch.zeros`` and reused by every later call: the
+    kernel leaves each counter at 0, so no call allocates or clears
+    anything (and a captured graph may replay the launch). No two
+    kernels share counters, so one kernel's fault cannot leave another's
+    at non-zero."""
+    if kernel not in SPLIT_KERNELS:
+        raise ValueError(f"no split workspace for kernel {kernel!r}")
+    key = (kernel, torch.device(device), batch, n_kv_heads, n_rep, head_dim,
            n_splits)
     if key not in _SPLIT_WORKSPACES:
         _SPLIT_WORKSPACES[key] = (
@@ -345,7 +358,8 @@ def fused_decode(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
     _check(seq_lens, "seq_lens", torch.int32, (B,))
     _check(write_page, "write_page", torch.int32, (B,))
     n_splits = fused_decode_splits(MP, ps)
-    ws, counters = split_workspace(q.device, B, Hkv, H // Hkv, D, n_splits)
+    ws, counters = split_workspace("fused_decode", q.device, B, Hkv, H // Hkv,
+                                   D, n_splits)
     out = torch.empty_like(q)
     rc = _fn("fused_decode", "llmq_fused_decode")(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
@@ -640,6 +654,24 @@ def fused_decode_q8_plain(q: torch.Tensor, k_new_q: torch.Tensor,
 
 # -- kernel 6: ragged mixed attention -----------------------------------------
 
+def ragged_grid(n_tokens: int, n_kv_heads: int, max_pages: int,
+                page_size: int) -> Tuple[int, int]:
+    """Kernel 6's 1-D grid: ``(slice blocks, decode splits)``. The slice
+    range comes first, one block per (8-row q-block of the packed
+    buffer, KV head); then ``decode splits`` blocks per (decode row, KV
+    head), as many as :func:`fused_decode_splits` gives kernel 1. From
+    shapes only; the launch has ``slice blocks + B * H_kv * decode
+    splits`` blocks. The q-block is ``ops/attention.RAGGED_Q_BLOCK``
+    (``kQBlock`` in the source)."""
+    from llmq_tpu_torch.ops.attention import RAGGED_Q_BLOCK
+
+    if n_tokens % RAGGED_Q_BLOCK:
+        raise ValueError(f"packed buffer N={n_tokens} must be a multiple "
+                         f"of {RAGGED_Q_BLOCK}")
+    return (n_tokens // RAGGED_Q_BLOCK * n_kv_heads,
+            fused_decode_splits(max_pages, page_size))
+
+
 def ragged_mixed_attention(q_dec: torch.Tensor, k_new: torch.Tensor,
                            v_new: torch.Tensor, q_pf: torch.Tensor,
                            k_pool: torch.Tensor, v_pool: torch.Tensor,
@@ -659,8 +691,11 @@ def ragged_mixed_attention(q_dec: torch.Tensor, k_new: torch.Tensor,
     D))``; packed rows outside every slice come out as zeros.
 
     Replaces ``ragged_mixed_attention_pallas`` (llmq_tpu/ops/pallas/
-    ragged_paged_attention.py). Decode blocks are bound by bytes, slice
-    blocks by bytes or operations with the history's length
+    ragged_paged_attention.py). Decode blocks are bound by bytes and run
+    kernel 1's split-K body (:func:`fused_decode_splits` blocks per (row,
+    KV head), merged in the launch through this kernel's own
+    :func:`split_workspace`); slice blocks, bound by bytes or operations
+    with the history's length, run both products on the tensor cores
     (csrc/ragged_attention.cu)."""
     if _on_cpu(q_dec, k_new, v_new, q_pf, k_pool, v_pool, block_tables,
                seq_lens, write_page, pf_qoff, pf_qlen, pf_qstart):
@@ -676,11 +711,10 @@ def ragged_mixed_attention(q_dec: torch.Tensor, k_new: torch.Tensor,
     _check_heads(H, Hkv, D)
     if Hkv * D != GD:
         raise ValueError(f"pool GD={GD} != H_kv*D for D={D}")
-    if N % 8:
-        raise ValueError(f"packed buffer N={N} must be a multiple of 8")
     MP = block_tables.shape[1] if block_tables.dim() == 2 else -1
+    n_slice_blocks, n_splits = ragged_grid(N, Hkv, MP, ps)
     _check(q_dec, "q_dec", torch.bfloat16, (B, H, D), align=8)
-    _check(q_pf, "q_pf", torch.bfloat16, (N, H, D))
+    _check(q_pf, "q_pf", torch.bfloat16, (N, H, D), align=16)
     _check(k_new, "k_new", torch.bfloat16, align=8)
     _check(v_new, "v_new", torch.bfloat16, align=8)
     if k_new.numel() != B * GD or v_new.numel() != B * GD:
@@ -691,6 +725,8 @@ def ragged_mixed_attention(q_dec: torch.Tensor, k_new: torch.Tensor,
     for t, name in ((pf_qoff, "pf_qoff"), (pf_qlen, "pf_qlen"),
                     (pf_qstart, "pf_qstart")):
         _check(t, name, torch.int32, (S,))
+    ws, counters = split_workspace("ragged_mixed_attention", q_dec.device, B,
+                                   Hkv, H // Hkv, D, n_splits)
     out_dec = torch.empty_like(q_dec)
     out_pf = torch.empty_like(q_pf)
     rc = _fn("ragged_attention", "llmq_ragged_mixed_attention")(
@@ -698,8 +734,9 @@ def ragged_mixed_attention(q_dec: torch.Tensor, k_new: torch.Tensor,
         q_pf.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), seq_lens.data_ptr(), write_page.data_ptr(),
         pf_qoff.data_ptr(), pf_qlen.data_ptr(), pf_qstart.data_ptr(),
-        out_dec.data_ptr(), out_pf.data_ptr(), B, S, N, H, Hkv, D, layer, P,
-        ps, MP, D ** -0.5, _stream(q_dec))
+        out_dec.data_ptr(), out_pf.data_ptr(), ws.data_ptr(),
+        counters.data_ptr(), B, S, N, H, Hkv, D, layer, P, ps, MP,
+        n_slice_blocks, n_splits, D ** -0.5, _stream(q_dec))
     _raise_on(rc, "ragged_mixed_attention")
     LAUNCHES["ragged_mixed_attention"] += 1
     return out_dec, out_pf
@@ -854,8 +891,11 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
     Replaces ``paged_decode_attention_pallas`` (llmq_tpu/ops/pallas/
     paged_attention.py), the attention half of the split decode route.
-    Bound by bytes: each cached K/V byte is read once for all n_rep
-    query heads of its group (csrc/paged_decode.cu)."""
+    Bound by bytes: kernel 1's split-K body without the write, each
+    row's positions over up to :func:`fused_decode_splits` blocks that
+    read each cached K/V byte once for all n_rep query heads of their
+    group, merged in the launch through this kernel's own
+    :func:`split_workspace` (csrc/paged_decode.cu)."""
     if k_pool.dim() == 3:
         k_pool, v_pool = k_pool[None], v_pool[None]
     if _on_cpu(q, k_pool, v_pool, block_tables, seq_lens):
@@ -872,11 +912,15 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     _check(q, "q", torch.bfloat16, (B, H, D), align=8)
     _check(block_tables, "block_tables", torch.int32, (B, MP))
     _check(seq_lens, "seq_lens", torch.int32, (B,))
+    n_splits = fused_decode_splits(MP, ps)
+    ws, counters = split_workspace("paged_decode_attention", q.device, B, Hkv,
+                                   H // Hkv, D, n_splits)
     out = torch.empty_like(q)
     rc = _fn("paged_decode", "llmq_paged_decode")(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), B, H,
-        Hkv, D, layer, P, ps, MP, D ** -0.5, _stream(q))
+        block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+        ws.data_ptr(), counters.data_ptr(), B, H, Hkv, D, layer, P, ps, MP,
+        n_splits, D ** -0.5, _stream(q))
     _raise_on(rc, "paged_decode_attention")
     LAUNCHES["paged_decode_attention"] += 1
     return out

@@ -188,8 +188,138 @@ def test_fused_decode_splits_match_twin_twice(D_, n_rep):
     assert torch.all(a1[0] == 0) and torch.all(a2[0] == 0)
     assert torch.equal(k1, k2) and torch.equal(v1, v2)
     n_splits = kernels.fused_decode_splits(mp, PS)
-    _, counters = kernels.split_workspace(q.device, B, HKV, n_rep, D_,
-                                          n_splits)
+    _, counters = kernels.split_workspace("fused_decode", q.device, B, HKV,
+                                          n_rep, D_, n_splits)
+    assert not counters.any()
+
+
+#: Decode lengths across the split body's 64-position tile and the
+#: default 128-position chunk, empty and long, and an inactive row (5,
+#: writing the null page) last.
+SPLIT_LENS = [0, 1, 63, 64, 65, 127, 128, 129, 2000]
+
+
+def _split_rows(gen, D_, lens, mp, extra_pages=0):
+    """Pools with room for ``lens`` on consecutive pages from page 1 (and
+    ``extra_pages`` more), the rows' block tables, seq_lens, and the
+    pages their newest token lands in (0 for an empty row)."""
+    n_pages = sum(-(-n // PS) for n in lens) + extra_pages
+    kp = _rand((2, n_pages + 2, PS, HKV * D_), gen)
+    vp = _rand((2, n_pages + 2, PS, HKV * D_), gen)
+    B = len(lens)
+    bt = torch.zeros((B, mp), dtype=torch.int32)
+    nxt = 1
+    for b, n in enumerate(lens):
+        pages = -(-n // PS)
+        bt[b, :pages] = torch.arange(nxt, nxt + pages, dtype=torch.int32)
+        nxt += pages
+    sl = torch.tensor(lens, dtype=torch.int32)
+    wp = torch.where(sl > 0, bt[torch.arange(B), (sl - 1).clamp(min=0) // PS],
+                     torch.zeros_like(sl))
+    return kp, vp, bt, sl, wp, nxt
+
+
+@needs_cuda
+@pytest.mark.parametrize("n_rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("D_", [64, 128])
+def test_paged_decode_splits_match_twin_twice(D_, n_rep):
+    """Kernel 8 (kernel 1's split-K body, no new token: every position
+    read from the pool) at seq_lens 0, 1, the 64-position tile's and the
+    128-position chunk's edges and 2000: two launches on the same cached
+    workspace give the same output, within 2e-2 and REL_TOL of the
+    twin's scale; the empty row exactly 0; its counters back at 0 and
+    apart from kernel 1's."""
+    gen = torch.Generator(device="cuda").manual_seed(D_ * 20 + n_rep)
+    mp = 128
+    kp, vp, bt, sl, _wp, _ = _split_rows(gen, D_, SPLIT_LENS, mp)
+    bt, sl = bt.cuda(), sl.cuda()
+    B, H_ = len(SPLIT_LENS), HKV * n_rep
+    q = _rand((B, H_, D_), gen)
+    before = kernels.LAUNCHES["paged_decode_attention"]
+    a1 = kernels.paged_decode_attention(q, kp, vp, bt, sl, 1)
+    a2 = kernels.paged_decode_attention(q, kp, vp, bt, sl, 1)
+    b = kernels.paged_decode_attention_plain(q, kp, vp, bt, sl, 1)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["paged_decode_attention"] == before + 2
+    assert torch.isfinite(a1).all()
+    live = slice(1, B)
+    assert (a1[live].float() - b[live].float()).abs().max().item() <= ATOL
+    assert _scaled_err(a1[live], b[live]) <= REL_TOL
+    assert torch.equal(a1, a2)
+    assert torch.all(a1[0] == 0)
+    n_splits = kernels.fused_decode_splits(mp, PS)
+    ws, counters = kernels.split_workspace("paged_decode_attention", q.device,
+                                           B, HKV, n_rep, D_, n_splits)
+    assert not counters.any()
+    ws1, _ = kernels.split_workspace("fused_decode", q.device, B, HKV, n_rep,
+                                     D_, n_splits)
+    assert ws.data_ptr() != ws1.data_ptr()
+
+
+@needs_cuda
+@pytest.mark.parametrize("n_rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("D_", [64, 128])
+def test_ragged_split_and_tensor_core_blocks_match_twin_twice(D_, n_rep):
+    """Kernel 6: decode rows of different lengths (0 and 2000 among them)
+    and an inactive row as split blocks; a fresh slice, a slice at
+    position 300 (not page-aligned; q-blocks straddle pages) and a
+    128-token slice at 1920 as tensor-core slice blocks, plus an unused
+    slice row; launched twice on one workspace. Outputs within 2e-2 and
+    REL_TOL of the twin, equal across the two launches; rows outside
+    the slices and the empty decode row exactly 0; pools bit-exact."""
+    gen = torch.Generator(device="cuda").manual_seed(D_ * 30 + n_rep)
+    mp = 128
+    dec_lens = [0, 1, 63, 65, 129, 2000]
+    slices = [(0, 13), (300, 37), (1920, 128), (0, 0)]    # (qstart, qlen)
+    kp, vp, bt_d, sl_d, wp, nxt = _split_rows(
+        gen, D_, dec_lens, mp,
+        extra_pages=sum(-(-(st + n) // PS) for st, n in slices))
+    bt_s = torch.zeros((len(slices), mp), dtype=torch.int32)
+    for s, (st, n) in enumerate(slices):
+        pages = -(-(st + n) // PS)
+        bt_s[s, :pages] = torch.arange(nxt, nxt + pages, dtype=torch.int32)
+        nxt += pages
+    # An inactive row: 5 positions on the null page, writing slot 4.
+    bt = torch.cat([bt_d, torch.zeros((1, mp), dtype=torch.int32), bt_s])
+    sl = torch.cat([sl_d, torch.tensor([5], dtype=torch.int32),
+                    torch.tensor([st + n for st, n in slices],
+                                 dtype=torch.int32)])
+    wp = torch.cat([wp, torch.zeros(1, dtype=torch.int32)])
+    B = len(dec_lens) + 1
+    qoff = torch.tensor([0, 16, 56, 0], dtype=torch.int32)
+    qlen = torch.tensor([n for _, n in slices], dtype=torch.int32)
+    qstart = torch.tensor([st for st, _ in slices], dtype=torch.int32)
+    N = 192
+    H_ = HKV * n_rep
+    q_dec, q_pf = _rand((B, H_, D_), gen), _rand((N, H_, D_), gen)
+    kn, vn = _rand((B, HKV, D_), gen), _rand((B, HKV, D_), gen)
+    args = [t.cuda() for t in (bt, sl, wp, qoff, qlen, qstart)]
+    k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    before = kernels.LAUNCHES["ragged_mixed_attention"]
+    a_d, a_p = kernels.ragged_mixed_attention(q_dec, kn, vn, q_pf, k1, v1,
+                                              *args, 1)
+    a_d2, a_p2 = kernels.ragged_mixed_attention(q_dec, kn, vn, q_pf, k1, v1,
+                                                *args, 1)
+    b_d, b_p = kernels.ragged_mixed_attention_plain(q_dec, kn, vn, q_pf, k2,
+                                                    v2, *args, 1)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ragged_mixed_attention"] == before + 2
+    assert torch.isfinite(a_d).all() and torch.isfinite(a_p).all()
+    dec = slice(1, len(dec_lens))
+    assert (a_d[dec].float() - b_d[dec].float()).abs().max().item() <= ATOL
+    assert _scaled_err(a_d[dec], b_d[dec]) <= REL_TOL
+    assert torch.all(a_d[0] == 0)
+    live = torch.zeros(N, dtype=torch.bool, device="cuda")
+    for off, n in ((0, 13), (16, 37), (56, 128)):
+        live[off:off + n] = True
+    assert (a_p[live].float() - b_p[live].float()).abs().max().item() <= ATOL
+    assert _scaled_err(a_p[live], b_p[live]) <= REL_TOL
+    assert torch.all(a_p[~live] == 0)
+    assert torch.equal(a_d[:B - 1], a_d2[:B - 1]) and torch.equal(a_p, a_p2)
+    assert torch.equal(k1, k2) and torch.equal(v1, v2)
+    _, splits = kernels.ragged_grid(N, HKV, mp, PS)
+    _, counters = kernels.split_workspace("ragged_mixed_attention", q_dec.device,
+                                          B, HKV, n_rep, D_, splits)
     assert not counters.any()
 
 

@@ -427,8 +427,8 @@ def test_fused_decode_split_count(max_pages, page_size):
 def test_split_workspace_shape(B, hkv, n_rep, d, splits):
     """f32 partials (B, H_kv, S, n_rep * (D + 2)): acc, then the max and
     the sum per head; int32 counters (B, H_kv); all zeros when made."""
-    ws, counters = kernels.split_workspace(torch.device("cpu"), B, hkv,
-                                           n_rep, d, splits)
+    ws, counters = kernels.split_workspace("fused_decode", torch.device("cpu"),
+                                           B, hkv, n_rep, d, splits)
     assert tuple(ws.shape) == (B, hkv, splits, n_rep * (d + 2))
     assert ws.dtype == torch.float32 and not ws.any()
     assert tuple(counters.shape) == (B, hkv)
@@ -443,14 +443,51 @@ def test_split_workspace_is_made_once_per_geometry(changed):
     """The same geometry gets the same tensors back (no per-call
     allocation); a change in any of B, H_kv, n_rep, D or the split count
     gets new ones."""
-    a = kernels.split_workspace("cpu", *GEOMETRY)
-    b = kernels.split_workspace(torch.device("cpu"), *GEOMETRY)
+    a = kernels.split_workspace("fused_decode", "cpu", *GEOMETRY)
+    b = kernels.split_workspace("fused_decode", torch.device("cpu"),
+                                *GEOMETRY)
     assert a[0] is b[0] and a[1] is b[1]
     other = list(GEOMETRY)
     other[changed] += 1
-    c = kernels.split_workspace("cpu", *other)
+    c = kernels.split_workspace("fused_decode", "cpu", *other)
     assert c[0] is not a[0] and c[1] is not a[1]
-    assert kernels.split_workspace("cpu", *other)[0] is c[0]
+    assert kernels.split_workspace("fused_decode", "cpu", *other)[0] is c[0]
+
+
+@pytest.mark.parametrize("geometry", [GEOMETRY, (8, 8, 4, 128, 16)])
+def test_split_workspace_is_one_per_kernel(geometry):
+    """Kernels 1, 8 and 6 get three distinct workspaces and counter
+    arrays for one geometry, each reused by its own kernel's later
+    calls; a name that is no split kernel's is refused."""
+    names = kernels.SPLIT_KERNELS
+    assert names == ("fused_decode", "paged_decode_attention",
+                     "ragged_mixed_attention")
+    made = [kernels.split_workspace(k, "cpu", *geometry) for k in names]
+    assert len({id(ws) for ws, _ in made}) == len(names)
+    assert len({id(c) for _, c in made}) == len(names)
+    assert len({c.data_ptr() for _, c in made}) == len(names)
+    for k, (ws, counters) in zip(names, made):
+        again = kernels.split_workspace(k, "cpu", *geometry)
+        assert again[0] is ws and again[1] is counters
+    for name in ("decode", "fused_decode_q8"):
+        with pytest.raises(ValueError, match="no split workspace"):
+            kernels.split_workspace(name, "cpu", *geometry)
+
+
+@pytest.mark.parametrize("N,hkv,max_pages,page_size,slice_blocks,splits", [
+    (144, 8, 128, 16, 144, 16),   # llama3-8b: 1168 blocks at B=8
+    (48, 2, 16, 16, 12, 2), (0, 8, 128, 16, 0, 16), (8, 1, 1, 1, 1, 1),
+    (128, 4, 8, 48, 64, 3), (2048, 8, 128, 16, 2048, 16)])
+def test_ragged_grid(N, hkv, max_pages, page_size, slice_blocks, splits):
+    """Kernel 6's grid: one slice block per (8-row q-block, KV head),
+    first; then kernel 1's split count of decode blocks per (row, KV
+    head). A packed buffer that is not a multiple of 8 rows is
+    refused."""
+    assert kernels.ragged_grid(N, hkv, max_pages, page_size) == \
+        (slice_blocks, splits)
+    assert splits == kernels.fused_decode_splits(max_pages, page_size)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        kernels.ragged_grid(N + 4, hkv, max_pages, page_size)
 
 
 def test_fused_decode_on_cpu_makes_no_workspace():
@@ -586,6 +623,19 @@ def test_ragged_mixed_attention_twin_bf16_matches_pallas():
                                   np.asarray(jk).view(np.int16))
     np.testing.assert_array_equal(tv.view(torch.int16).numpy(),
                                   np.asarray(jv).view(np.int16))
+
+
+def test_split_wrappers_of_kernels_6_and_8_on_cpu_make_no_workspace():
+    """CPU tensors take the twins of kernels 6 and 8: no split workspace
+    is made and no launch is counted."""
+    g = _Ragged(seed=3, **RAGGED_GEOMETRIES["mixed_decode_and_slices"])
+    made = dict(kernels._SPLIT_WORKSPACES)
+    before = dict(kernels.LAUNCHES)
+    g.port(torch.float32)
+    kernels.paged_decode_attention(_t(g.q_dec), _t(g.kp), _t(g.vp),
+                                   _t(g.bt[:g.B]), _t(g.dec_lens), 0)
+    assert kernels._SPLIT_WORKSPACES == made
+    assert kernels.LAUNCHES == before
 
 
 @pytest.mark.parametrize("single_layer", [False, True])
