@@ -23,15 +23,18 @@ shows where it happened):
                  packed into N=144): attention within ``ATOL`` (``Q8_ATOL``
                  over int8 pools), pools and scale pools bit-exact; kernel,
                  plain, library times and the bound; kernel 1 also at each
-                 candidate split size. Then cuBLAS's int8 GEMM with the
-                 weight row and column major. Kernel 6 is also timed by
-                 range (its decode rows alone, its slices alone). Then
-                 kernels 1, 3, 8 and 6 at their longest served shapes
-                 (B=8 rows of 2000 positions; a 2048-token chunk; the
-                 2000-position rows plus a 128-token slice from 1920),
-                 held against their twins (also within ``REL_TOL`` of the
-                 twin's RMS, which a control with one page of keys wrong
-                 must fail) and timed beside decode and causal SDPA.
+                 candidate split size; kernels 1, 5 and 7 relaunched on
+                 their cached workspaces must repeat their output. Then
+                 cuBLAS's int8 GEMM with the weight row and column major.
+                 Kernels 6 and 7 are also timed by range (their decode
+                 rows alone, their slices alone). Then kernels 1, 3, 8,
+                 6, 5 and 7 at their longest served shapes (B=8 rows of
+                 2000 positions; a 2048-token chunk; the 2000-position
+                 rows plus a 128-token slice from 1920; 5 and 7 over
+                 int8 pools), held against their twins (also within
+                 ``REL_TOL`` of the twin's RMS, which a control with one
+                 page of keys wrong must fail) and timed beside decode
+                 and causal SDPA (two calls each over int8 pools).
 4. split      — one decode step through ``paged_decode_step(fused=False)``
                  (row-write kernel + decode-attention kernel) against
                  ``fused=True``: same attention within ``ATOL``, identical
@@ -603,7 +606,8 @@ def _kernel_ragged(state, gen, k_pool, v_pool) -> None:
         for st, n, off in RAGGED_SLICES if n]
     lib_ms = device_ms(lambda i: [c() for c in calls])
     del calls
-    dec_ms, slice_ms = _ragged_ranges(q, kn, vn, q_pf, kp1, vp1, args)
+    dec_ms, slice_ms = _ragged_ranges(kernels.ragged_mixed_attention, q,
+                                      (kn, vn), q_pf, (kp1, vp1), args)
     del kp1, vp1
     n_pos = sum(live_lens) + 5
     N = RAGGED_N
@@ -623,41 +627,41 @@ def _kernel_ragged(state, gen, k_pool, v_pool) -> None:
         f"{dec_ms:.4f} ms, slices alone {slice_ms:.4f} ms ({CARD})")
 
 
-def _ragged_ranges(q, kn, vn, q_pf, kp, vp, args):
-    """Kernel 6's device ms for each range of its grid alone: the same
-    decode rows with every slice at qlen 0 (each slice block then only
-    writes its zeros), and the same slices with no decode row (B=0)."""
+def _ragged_ranges(fn, q, new, q_pf, pools, args):
+    """Device ms of ``fn`` (kernel 6's or kernel 7's wrapper, called as
+    ``fn(q, *new, q_pf, *pools, *args, layer)``) for each range of its
+    grid alone: the same decode rows with every slice at qlen 0 (each
+    slice block then only writes its zeros), and the same slices with no
+    decode row (B=0)."""
     import torch
 
-    from llmq_tpu_torch.ops import kernels
-
     bt, sl, wp, qoff, qlen, qstart = args
-    B = q.shape[0]
+    B, L = q.shape[0], pools[0].shape[0]
     no_slices = (bt, sl, wp, qoff, torch.zeros_like(qlen), qstart)
-    dec_ms = device_ms(lambda i: kernels.ragged_mixed_attention(
-        q, kn, vn, q_pf, kp, vp, *no_slices, i % kp.shape[0]))
+    dec_ms = device_ms(lambda i: fn(q, *new, q_pf, *pools, *no_slices, i % L))
     no_rows = (bt[B:], sl[B:], wp[:0], qoff, qlen, qstart)
-    slice_ms = device_ms(lambda i: kernels.ragged_mixed_attention(
-        q[:0], kn[:0], vn[:0], q_pf, kp, vp, *no_rows, i % kp.shape[0]))
+    none = [t[:0] for t in new]
+    slice_ms = device_ms(lambda i: fn(q[:0], *none, q_pf, *pools, *no_rows,
+                                      i % L))
     return dec_ms, slice_ms
 
 
-def _q8_pools(gen, dev):
-    """The served int8 pools (32 layers x 512 pages) and their (L, P,
-    H_kv, ps) bf16 scale pools, filled with unit-scale values quantized
-    per (row, head) by the port's own quantize_kv_rows."""
+def _q8_pools(gen, dev, L=L_POOL, P=P_POOL):
+    """int8 pools (L, P, ps, GD), by default the served 32 layers x 512
+    pages, and their (L, P, H_kv, ps) bf16 scale pools, filled with
+    unit-scale values quantized per (row, head) by the port's own
+    quantize_kv_rows; in the wrappers' order (k, v, k scales, v
+    scales)."""
     import torch
 
     from llmq_tpu_torch.ops.quant import quantize_kv_rows
 
     out = []
     for _ in range(2):
-        x = torch.randn((L_POOL, P_POOL, PS, HKV, D), generator=gen,
-                        device=dev)
+        x = torch.randn((L, P, PS, HKV, D), generator=gen, device=dev)
         q, sc = quantize_kv_rows(x)
         del x
-        out.append((q.reshape(L_POOL, P_POOL, PS, GD),
-                    sc.transpose(2, 3).contiguous()))
+        out.append((q.reshape(L, P, PS, GD), sc.transpose(2, 3).contiguous()))
     (kq, ks), (vq, vs) = out
     return [kq, vq, ks, vs]
 
@@ -692,6 +696,30 @@ def _sdpa_q8(gen, dev, q_rows, S, mask):
     return call
 
 
+def _q8_library(gen, dev, q, sl, S, q_pf=None, slices=()):
+    """The yardstick of kernels 5 and 7: ``_sdpa_q8``'s two calls for the
+    decode rows q (B, H, D) of seq_lens ``sl`` over an S-position window,
+    plus two (dequantize, causal SDPA) per live slice (qstart, qlen,
+    qoff) of ``q_pf``. Returns one callable."""
+    import torch
+
+    mask = (torch.arange(S, device=dev)[None, :]
+            < sl[:, None].to(torch.long))[:, None, None, :]
+    mask[sl == 0] = True                 # SDPA needs a visible key per row
+    n_rep = H // HKV
+    calls = [_sdpa_q8(gen, dev, q.reshape(q.shape[0], HKV, n_rep, D), S,
+                      mask)]
+    for st, n, off in slices:
+        if not n:
+            continue
+        qpos = (st + torch.arange(n, device=dev)).repeat_interleave(n_rep)
+        amask = torch.arange(st + n, device=dev)[None, :] <= qpos[:, None]
+        qh = (q_pf[off:off + n].reshape(n, HKV, n_rep, D).permute(1, 0, 2, 3)
+              .reshape(1, HKV, n * n_rep, D).contiguous())
+        calls.append(_sdpa_q8(gen, dev, qh, st + n, amask))
+    return lambda: [c() for c in calls]
+
+
 def _q8_decode_bytes(n_pos: int, n_new: int) -> int:
     """Bytes of a decode step over int8 pools: q and the output, the new
     rows and scales read and written, ``n_pos - n_new`` cached positions
@@ -699,6 +727,12 @@ def _q8_decode_bytes(n_pos: int, n_new: int) -> int:
     per_pos = 2 * GD + 2 * HKV * 2
     return (2 * B * H * D * 2 + 2 * (2 * B * GD + 2 * B * HKV * 2)
             + (n_pos - n_new) * per_pos + B * MP * 4 + 2 * B * 4)
+
+
+def _same_pools(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def _kernel_fused_decode_q8(state, gen, pools) -> None:
@@ -712,15 +746,13 @@ def _kernel_fused_decode_q8(state, gen, pools) -> None:
 
     dev = pools[0].device
     q, kn, vn, bt, sl, wp, live_lens = _decode_inputs(gen, dev, True)
-    (kq, ks), (vq, vs) = _q8_rows(kn), _q8_rows(vn)
+    new = (*_q8_rows(kn), *_q8_rows(vn))
     layer = 3
     p1 = [t.clone() for t in pools]
     p2 = [t.clone() for t in pools]
-    out_k = kernels.fused_decode_q8(q, kq, ks, vq, vs, *p1, bt, sl, wp,
-                                    layer)
+    out_k = kernels.fused_decode_q8(q, *new, *p1, bt, sl, wp, layer)
     torch.cuda.synchronize()
-    out_p = kernels.fused_decode_q8_plain(q, kq, ks, vq, vs, *p2, bt, sl, wp,
-                                          layer)
+    out_p = kernels.fused_decode_q8_plain(q, *new, *p2, bt, sl, wp, layer)
     nl = len(live_lens)
     if not torch.isfinite(out_k).all():
         raise AssertionError("fused_decode_q8: non-finite output")
@@ -729,19 +761,22 @@ def _kernel_fused_decode_q8(state, gen, pools) -> None:
         raise AssertionError(f"fused_decode_q8: max err {err} > {Q8_ATOL}")
     if out_k[7].abs().max().item() != 0.0:
         raise AssertionError("fused_decode_q8: zero-length row is not 0")
-    if not all(torch.equal(a, b) for a, b in zip(p1, p2)):
+    if not _same_pools(p1, p2):
         raise AssertionError("fused_decode_q8: pools or scale pools differ "
                              "from the twin")
     del p2
     ms = device_ms(lambda i: kernels.fused_decode_q8(
-        q, kq, ks, vq, vs, *p1, bt, sl, wp, i % L_POOL))
+        q, *new, *p1, bt, sl, wp, i % L_POOL))
+    # Many launches on the same split workspace later, the arrival
+    # counters are back at 0: the same inputs give the same output.
+    again = kernels.fused_decode_q8(q, *new, *p1, bt, sl, wp, layer)
+    torch.cuda.synchronize()
+    if not torch.equal(again[:nl], out_k[:nl]):
+        raise AssertionError("fused_decode_q8: a later launch on the cached "
+                             "workspace differs from the first")
     plain_ms = device_ms(lambda i: kernels.fused_decode_q8_plain(
-        q, kq, ks, vq, vs, *p1, bt, sl, wp, i % L_POOL), iters=5, warmup=1)
-    S = max(live_lens)
-    mask = (torch.arange(S, device=dev)[None, :]
-            < sl[:, None].to(torch.long))[:, None, None, :]
-    mask[sl == 0] = True                 # SDPA needs a visible key per row
-    lib = _sdpa_q8(gen, dev, q.reshape(B, HKV, H // HKV, D), S, mask)
+        q, *new, *p1, bt, sl, wp, i % L_POOL), iters=5, warmup=1)
+    lib = _q8_library(gen, dev, q, sl, max(live_lens))
     lib_ms = device_ms(lambda i: lib())
     del p1, lib
     n_pos = sum(live_lens) + 5
@@ -755,23 +790,22 @@ def _kernel_ragged_q8(state, gen, pools) -> None:
     """Kernel 7 at kernel 6's mixed shapes (the 8 decode rows, slices of
     100 and 37 tokens at positions 0 and 300, an unused slice row, N=144)
     over the served int8 pools, layer 4; the slices' int8 K/V and scales
-    are the pool's own."""
+    are the pool's own. Also timed by range, as kernel 6 is."""
     import torch
 
     from llmq_tpu_torch.ops import kernels
 
     dev = pools[0].device
     q, kn, vn, q_pf, args, live, live_lens = _ragged_inputs(gen, dev)
-    (kq, ks), (vq, vs) = _q8_rows(kn), _q8_rows(vn)
+    new = (*_q8_rows(kn), *_q8_rows(vn))
     layer = 4
     p1 = [t.clone() for t in pools]
     p2 = [t.clone() for t in pools]
-    d_k, p_k = kernels.ragged_mixed_attention_q8(q, kq, ks, vq, vs, q_pf,
-                                                 *p1, *args, layer)
+    d_k, p_k = kernels.ragged_mixed_attention_q8(q, *new, q_pf, *p1, *args,
+                                                 layer)
     torch.cuda.synchronize()
-    d_p, p_p = kernels.ragged_mixed_attention_q8_plain(q, kq, ks, vq, vs,
-                                                       q_pf, *p2, *args,
-                                                       layer)
+    d_p, p_p = kernels.ragged_mixed_attention_q8_plain(q, *new, q_pf, *p2,
+                                                       *args, layer)
     if not (torch.isfinite(d_k).all() and torch.isfinite(p_k).all()):
         raise AssertionError("ragged_mixed_attention_q8: non-finite output")
     err = max((d_k[:7].float() - d_p[:7].float()).abs().max().item(),
@@ -783,32 +817,29 @@ def _kernel_ragged_q8(state, gen, pools) -> None:
             p_k[~live].abs().max().item() != 0.0:
         raise AssertionError("ragged_mixed_attention_q8: empty decode row "
                              "or rows outside the slices are not 0")
-    if not all(torch.equal(a, b) for a, b in zip(p1, p2)):
+    if not _same_pools(p1, p2):
         raise AssertionError("ragged_mixed_attention_q8: pools or scale "
                              "pools differ from the twin")
     del p2
     ms = device_ms(lambda i: kernels.ragged_mixed_attention_q8(
-        q, kq, ks, vq, vs, q_pf, *p1, *args, i % L_POOL))
+        q, *new, q_pf, *p1, *args, i % L_POOL))
+    again_d, again_p = kernels.ragged_mixed_attention_q8(q, *new, q_pf, *p1,
+                                                         *args, layer)
+    torch.cuda.synchronize()
+    if not (torch.equal(again_d[:7], d_k[:7]) and torch.equal(again_p, p_k)):
+        raise AssertionError("ragged_mixed_attention_q8: a later launch on "
+                             "the cached workspace differs from the first")
     plain_ms = device_ms(lambda i: kernels.ragged_mixed_attention_q8_plain(
-        q, kq, ks, vq, vs, q_pf, *p1, *args, i % L_POOL), iters=5, warmup=1)
+        q, *new, q_pf, *p1, *args, i % L_POOL), iters=5, warmup=1)
     # Library yardstick: kernel 5's two calls for the decode rows, plus
     # the two calls (dequantize, causal SDPA) per live slice.
-    S, sl = max(live_lens), args[1][:B]
-    mask = (torch.arange(S, device=dev)[None, :]
-            < sl[:, None].to(torch.long))[:, None, None, :]
-    mask[sl == 0] = True
-    calls = [_sdpa_q8(gen, dev, q.reshape(B, HKV, H // HKV, D), S, mask)]
-    n_rep = H // HKV
-    for st, n, off in RAGGED_SLICES:
-        if not n:
-            continue
-        qpos = (st + torch.arange(n, device=dev)).repeat_interleave(n_rep)
-        amask = torch.arange(st + n, device=dev)[None, :] <= qpos[:, None]
-        qh = (q_pf[off:off + n].reshape(n, HKV, n_rep, D).permute(1, 0, 2, 3)
-              .reshape(1, HKV, n * n_rep, D).contiguous())
-        calls.append(_sdpa_q8(gen, dev, qh, st + n, amask))
-    lib_ms = device_ms(lambda i: [c() for c in calls])
-    del calls, p1
+    lib = _q8_library(gen, dev, q, args[1][:B], max(live_lens), q_pf,
+                      RAGGED_SLICES)
+    lib_ms = device_ms(lambda i: lib())
+    del lib
+    dec_ms, slice_ms = _ragged_ranges(kernels.ragged_mixed_attention_q8, q,
+                                      new, q_pf, p1, args)
+    del p1
     n_pos = sum(live_lens) + 5
     pf_pos = sum(st + n for st, n, _ in RAGGED_SLICES)
     pairs = sum(st + t + 1 for st, n, _ in RAGGED_SLICES for t in range(n))
@@ -820,6 +851,10 @@ def _kernel_ragged_q8(state, gen, pools) -> None:
             "llmq_tpu_torch/csrc/ragged_attention.cu",
             "llmq_tpu/ops/pallas/ragged_paged_attention.py:1042", err, ms,
             plain_ms, bms, by, lib_ms)
+    state["kernels"]["ragged_mixed_attention_q8"].update(
+        {"ms_decode_range": dec_ms, "ms_slice_range": slice_ms})
+    log(f"[kernels] ragged_mixed_attention_q8 by range: decode rows alone "
+        f"{dec_ms:.4f} ms, slices alone {slice_ms:.4f} ms ({CARD})")
 
 
 def _int_mm_layouts(state) -> None:
@@ -878,16 +913,17 @@ def _chunk_sweep(fn) -> dict:
 
 
 def _long_shapes(state) -> None:
-    """Kernels 1, 3, 8 and 6 at the longest shapes the served geometry
-    allows: decode with every row at 2000 cached positions (B=8; kernels
-    1 and 8), a full 2048-token prefill chunk from position 0 (kernel
-    3), and those decode rows plus one 128-token slice from position 1920
-    (kernel 6). Each is held against its twin (attention within ``ATOL``
-    and within ``REL_TOL`` of the twin's RMS per (row, head), which a
+    """Kernels 1, 3, 8, 6, 5 and 7 at the longest shapes the served
+    geometry allows: decode with every row at 2000 cached positions (B=8;
+    kernels 1 and 8; 5 over int8 pools), a full 2048-token prefill chunk
+    from position 0 (kernel 3), and those decode rows plus one 128-token
+    slice from position 1920 (kernel 6; 7 over int8 pools). Each is held
+    against its twin (attention within ``ATOL``, ``Q8_ATOL`` over int8
+    pools, and within ``REL_TOL`` of the twin's RMS per (row, head), which a
     control with one page of keys wrong must fail; pools bit-exact where
     the kernel writes) and timed beside its bound, its twin and an SDPA
-    yardstick, kernel 1 also at each candidate split size and kernel 6
-    also by range; the numbers go into the kernel's table entry as
+    yardstick, kernel 1 also at each candidate split size and kernels 6
+    and 7 also by range; the numbers go into the kernel's table entry as
     ``long``. A 4-layer pool with room for 9 full block tables."""
     import torch
     import torch.nn.functional as F
@@ -1003,6 +1039,9 @@ def _long_shapes(state) -> None:
     del qh, kh, vh, qp
     _long_paged_decode(state, gen, kp, vp, bt, sl, q)
     _long_ragged(state, gen, kp, vp, bt, sl, wp, q, kn, vn)
+    del kp, vp
+    torch.cuda.empty_cache()
+    _long_q8(state, gen, bt, sl, wp, q)
 
 
 def _wrong_page(bt):
@@ -1111,7 +1150,8 @@ def _long_ragged(state, gen, kp, vp, bt, sl, wp, q, kn, vn) -> None:
                                                              start)]
     lib_ms = device_ms(lambda i: [c() for c in calls])
     del calls
-    dec_ms, slice_ms = _ragged_ranges(q, kn, vn, q_pf, kp, vp, args)
+    dec_ms, slice_ms = _ragged_ranges(kernels.ragged_mixed_attention, q,
+                                      (kn, vn), q_pf, (kp, vp), args)
     pairs = sum(start + t + 1 for t in range(T))
     bms, by = bound(2 * B * H * D * 2 + 2 * B * GD * 2 + B * n * GD * 2 * 2
                     + 2 * T * H * D * 2 + (start + T) * GD * 2 * 2
@@ -1130,6 +1170,109 @@ def _long_ragged(state, gen, kp, vp, bt, sl, wp, q, kn, vn) -> None:
         f"kernel {ms:.4f} ms (decode rows alone {dec_ms:.4f}, slice alone "
         f"{slice_ms:.4f}) plain {plain_ms:.4f} ms library {lib_ms:.4f} ms "
         f"bound {bms:.4f} ms ({by}) ({CARD})")
+
+
+def _long_q8(state, gen, bt, sl, wp, q) -> None:
+    """Kernels 5 and 7 on the long decode rows (B=8 × 2000 positions,
+    layer 2) over int8 pools the size of the long bf16 ones; kernel 7
+    adds one 128-token slice from position 1920 on the ninth block table.
+    Each is held within ``Q8_ATOL`` of its twin and within ``REL_TOL`` of
+    the twin's RMS per (row, head), which the twin with one page of keys
+    wrong must fail; the four pools bit-exact; a relaunch on the cached
+    workspace repeats the output. Timed beside its bound, its twin and
+    its two-call library yardstick, kernel 7 also by range."""
+    import torch
+
+    from llmq_tpu_torch.ops import kernels
+
+    dev = q.device
+    pools = _q8_pools(gen, dev, L=4, P=(B + 1) * MP + 1)
+    L = pools[0].shape[0]
+    n, layer = int(sl[0]), 2
+    new = (*_q8_rows(torch.randn((B, HKV, D), generator=gen, device=dev)),
+           *_q8_rows(torch.randn((B, HKV, D), generator=gen, device=dev)))
+    T, start = 128, 1920
+    bt_s = (1 + B * MP + torch.arange(MP, device=dev,
+                                      dtype=torch.int32))[None]
+    args = (torch.cat([bt, bt_s]).contiguous(),
+            torch.cat([sl, torch.tensor([start + T], dtype=torch.int32,
+                                        device=dev)]),
+            wp, *(torch.tensor([v], dtype=torch.int32, device=dev)
+                  for v in (0, T, start)))
+    q_pf = torch.randn((T, H, D), generator=gen, device=dev).to(torch.bfloat16)
+    pf_bytes = 2 * T * H * D * 2 + (start + T) * (2 * GD + 2 * HKV * 2)
+    pairs = sum(start + t + 1 for t in range(T))
+    cases = [
+        ("fused_decode_q8", f"B={B} seq_len={n}",
+         lambda p, a, i: (kernels.fused_decode_q8(q, *new, *p, *a[:3], i),),
+         lambda p, a: (kernels.fused_decode_q8_plain(q, *new, *p, *a[:3],
+                                                     layer),),
+         (bt, sl, wp), _q8_library(gen, dev, q, sl, n),
+         bound(_q8_decode_bytes(B * n, B), B * n * H * 4 * D)),
+        ("ragged_mixed_attention_q8",
+         f"B={B} seq_len={n} + slice T={T} from {start}",
+         lambda p, a, i: kernels.ragged_mixed_attention_q8(q, *new, q_pf, *p,
+                                                           *a, i),
+         lambda p, a: kernels.ragged_mixed_attention_q8_plain(
+             q, *new, q_pf, *p, *a, layer),
+         args, _q8_library(gen, dev, q, sl, n, q_pf, [(start, T, 0)]),
+         bound(_q8_decode_bytes(B * n, B) + pf_bytes + MP * 4 + 3 * 4,
+               (B * n + pairs) * H * 4 * D)),
+    ]
+    for name, shape, run, twin, a, lib, (bms, by) in cases:
+        p1 = [t.clone() for t in pools]
+        p2 = [t.clone() for t in pools]
+        outs = run(p1, a, layer)
+        refs = twin(p2, a)
+        torch.cuda.synchronize()
+        err = max((o.float() - r.float()).abs().max().item()
+                  for o, r in zip(outs, refs))
+        rel = max(scaled_err(o, r) for o, r in zip(outs, refs))
+        if not all(torch.isfinite(o).all() for o in outs) or err > Q8_ATOL \
+                or rel > REL_TOL:
+            raise AssertionError(f"{name} {shape}: max err {err} > "
+                                 f"{Q8_ATOL}, scaled err {rel} > {REL_TOL} "
+                                 f"or non-finite")
+        if not _same_pools(p1, p2):
+            raise AssertionError(f"{name} {shape}: pools or scale pools "
+                                 f"differ from the twin")
+        bad = (_wrong_page(a[0]), *a[1:])
+        ctl = twin(p2, bad)
+        ctl_err = max((c.float() - r.float()).abs().max().item()
+                      for c, r in zip(ctl, refs))
+        ctl_rel = min(scaled_err(c, r) for c, r in zip(ctl, refs))
+        if ctl_rel <= REL_TOL:
+            raise AssertionError(f"{name} {shape}: the scaled check passes "
+                                 f"a wrong page ({ctl_rel})")
+        del p2, ctl, refs
+        ms = device_ms(lambda i: run(p1, a, i % L))
+        again = run(p1, a, layer)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(again, outs)):
+            raise AssertionError(f"{name} {shape}: a later launch on the "
+                                 f"cached workspace differs from the first")
+        plain_ms = device_ms(lambda i: twin(p1, a), iters=3, warmup=1)
+        lib_ms = device_ms(lambda i: lib())
+        entry = {"shape": shape, "max_abs_err": err, "scaled_err": rel,
+                 "control_max_abs_err": ctl_err,
+                 "control_scaled_err": ctl_rel, "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                 "library_ms": lib_ms}
+        ranges = ""
+        if name == "ragged_mixed_attention_q8":
+            dec_ms, slice_ms = _ragged_ranges(
+                kernels.ragged_mixed_attention_q8, q, new, q_pf, p1, a)
+            entry.update({"ms_decode_range": dec_ms,
+                          "ms_slice_range": slice_ms})
+            ranges = (f" (decode rows alone {dec_ms:.4f}, slice alone "
+                      f"{slice_ms:.4f})")
+        del p1, lib
+        state["kernels"][name]["long"] = entry
+        log(f"[kernels] {name} {shape}: max_abs_err {err:.3g} scaled "
+            f"{rel:.3g} (control, one wrong page: {ctl_err:.3g} scaled "
+            f"{ctl_rel:.3g}), pools bit-exact, relaunch repeats; kernel "
+            f"{ms:.4f} ms{ranges} plain {plain_ms:.4f} ms library "
+            f"{lib_ms:.4f} ms bound {bms:.4f} ms ({by}) ({CARD})")
 
 
 def phase_split(state) -> None:
@@ -1690,7 +1833,8 @@ def _mixed_timing(engine, out: dict, tag: str) -> None:
 def _decode_breakdown(engine, out: dict, tag: str = "serve") -> None:
     """Where one B=8, 16-step decode chunk of the served model spends its
     time: host wall per step, device busy per step (sum of the kernels'
-    device time in a torch.profiler trace) and the top kernels."""
+    device time in a torch.profiler trace), the top kernels and the
+    port's own (``PORT_KERNELS``)."""
     import numpy as np
     import torch
 
@@ -1726,6 +1870,24 @@ def _decode_breakdown(engine, out: dict, tag: str = "serve") -> None:
     for dev_us, key, count in rows[:10]:
         log(f"[{tag}]   {dev_us / 1e3 / K:8.3f} ms/step  {count // K:5d} "
             f"calls/step  {key[:90]}")
+    own = {}
+    for dev_us, key, count in rows:
+        for name in PORT_KERNELS:
+            if name in key:
+                ms, n = own.get(name, (0.0, 0))
+                own[name] = (ms + dev_us / 1e3 / K, n + count // K)
+    out["decode_step_port_kernels_b8"] = {
+        k: {"ms_per_step": ms, "calls_per_step": n}
+        for k, (ms, n) in own.items()}
+    for name, (ms, n) in own.items():
+        log(f"[{tag}]   {ms:8.3f} ms/step  {n:5d} calls/step  {name} "
+            f"(the port's)")
+
+
+#: The port's kernel functions (csrc/*.cu), as the profiler names them.
+PORT_KERNELS = ("fused_decode_split_kernel", "paged_decode_kernel",
+                "ragged_split_kernel", "prefill_attention_kernel",
+                "kv_cache_write_kernel", "kv_prefill_write_kernel")
 
 
 #: Kernels that must not launch in an int8-KV engine: the bf16 pools'

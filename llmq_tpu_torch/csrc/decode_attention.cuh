@@ -1,41 +1,41 @@
-// Device code shared by the decode-attention kernels of the port:
-// csrc/fused_decode.cu (write + attention, bf16 and int8 pools),
-// csrc/paged_decode.cu (attention only) and csrc/ragged_attention.cu
-// (decode blocks and, through attend_tiles(), the bf16 slice blocks).
+// Device code shared by the attention kernels of the port that read the
+// paged pools tile by tile: csrc/fused_decode.cu (write + attention,
+// kernels 1 and 5), csrc/paged_decode.cu (attention only, kernel 8) and
+// csrc/ragged_attention.cu (decode and slice blocks, kernels 6 and 7).
 //
-// Two decode block bodies:
-// - decode_attend(): ONE block for one (decode row, KV head), walking
-//   every position of the row, over int8 pools only (kernels 5 and 7);
-// - decode_attend_split(): ONE block for one (decode row, KV head, one
-//   of S splits of the row's positions), the splits merged in the same
-//   launch by the last block to finish, over bf16 pools (kernels 1 and 8
-//   and kernel 6's decode blocks). Its tiles run through attend_tiles(),
-//   which kernel 6's tensor-core slice blocks share.
-// Both optionally write the row's new K/V slice into its page, then run
-// GQA attention of the group's NREP query heads over positions
-// [0, seq_len) read through the row's block table, with an f32 softmax
-// whose running max floors at -1e30.
+// One decode body, decode_attend_split(): ONE block for one (decode row,
+// KV head, one of S splits of the row's positions), the splits merged in
+// the same launch by the last block to finish. It optionally writes the
+// row's new K/V slice into its page, then runs GQA attention of the
+// group's NREP query heads over positions [0, seq_len) read through the
+// row's block table, with an f32 online softmax whose running max floors
+// at -1e30. Its tiles run through attend_tiles(), which the ragged
+// kernels' slice blocks share.
 //
-// decode_attend() is templated on the pool element T but instantiated
-// for int8_t only. Each (position, KV head) has a bf16 scale in scale
-// pools shaped (L, P, H_kv, page_size); the K scale multiplies the logit
-// and the V scale folds into the probability before it weights V (the
-// TPU kernel's order), so no dequantized K/V is ever stored. The block
-// of head g also writes the new row's two scales.
+// Both are templated on the pool element T: __nv_bfloat16 (kernels 1, 6
+// and 8) or int8_t (kernels 5 and 7). Over int8 pools each (position, KV
+// head) has a bf16 scale in scale pools shaped (L, P, H_kv, page_size).
+// An int8 tile lands with its 64 K and 64 V scales beside it and is
+// converted to bf16 in shared memory (exact: |x| <= 128 fits bf16's 8
+// significant bits), then runs through the same tensor-core products as
+// a bf16 tile. The K scale multiplies the logit in f32, the V scale
+// folds into the probability before it is rounded to bf16 for P V, and
+// the softmax sum counts the unscaled probability (the TPU kernel's
+// order), so no dequantized K/V ever reaches device memory.
 //
 // What bounds it: bytes. Decode attention does 4 * H * D flops per
-// cached position against 2 * GD * 2 bytes of bf16 K/V (2 * GD + 4 of
-// int8 K/V and scales), 8 to 16 flops a byte, far below the ~295 at
-// which an H100 turns compute-bound. Both bodies read every cached K/V
-// byte once: a block serves all NREP query heads of its group from the
-// same load (GQA index h = g * NREP + r, no block-diagonal q as on the
-// TPU), and the mask is the loop bound.
+// cached position against 2 * GD * 2 bytes of bf16 K/V (2 * GD + 4 * H_kv
+// of int8 K/V and scales), 8 to 16 flops a byte, far below the ~295 at
+// which an H100 turns compute-bound. Every cached K/V byte is read once:
+// a block serves all NREP query heads of its group from the same tile
+// (GQA index h = g * NREP + r, no block-diagonal q as on the TPU), and a
+// long row is spread over many SMs.
 //
-// The write-then-read hazard: a block writes only its own head's slice
-// of the row and, when it has the new token (kn != nullptr), takes
-// position seq_len - 1 from it, never from the pool, so no block waits
-// on another's write. A row with seq_len == 0 attends to nothing and
-// returns zeros.
+// The write-then-read hazard: split 0 writes only its own head's slice of
+// the row (over int8 pools also its two scales), and the block that
+// covers position seq_len - 1 takes it from the new row, never from the
+// pools, so no block waits on another's write. A row with seq_len == 0
+// attends to nothing and returns zeros.
 
 #pragma once
 
@@ -67,36 +67,6 @@ struct is_int8<int8_t> {
   static constexpr bool value = true;
 };
 
-__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
-
-template <int N>
-__device__ __forceinline__ void load_bf16(const __nv_bfloat16* p, float* out) {
-  // N consecutive bf16 values, N in {2, 4}: one 4- or 8-byte load.
-  if constexpr (N == 4) {
-    uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-    float2 a = __bfloat1622float2(h[0]);
-    float2 b = __bfloat1622float2(h[1]);
-    out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
-  } else {
-    float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-    out[0] = a.x; out[1] = a.y;
-  }
-}
-
-// N consecutive int8 pool values as floats, N in {2, 4}: one 2- or 4-byte
-// load.
-template <int N>
-__device__ __forceinline__ void load_kv(const int8_t* p, float* out) {
-  if constexpr (N == 4) {
-    const char4 c = *reinterpret_cast<const char4*>(p);
-    out[0] = c.x; out[1] = c.y; out[2] = c.z; out[3] = c.w;
-  } else {
-    const char2 c = *reinterpret_cast<const char2*>(p);
-    out[0] = c.x; out[1] = c.y;
-  }
-}
-
 // Index of the scale of (layer, page, KV head g, slot) in a
 // (L, P, H_kv, page_size) scale pool.
 __device__ __forceinline__ size_t scale_index(int layer, int page, int g,
@@ -106,189 +76,61 @@ __device__ __forceinline__ size_t scale_index(int layer, int page, int g,
          slot;
 }
 
-// Floats of shared memory decode_attend() needs.
-template <int D, int NREP, int WARPS>
-__host__ __device__ constexpr int decode_smem_floats() {
-  return WARPS * NREP * (D + 2);
-}
+// The bf16 scales of int8 pools: the (L, P, H_kv, ps) scale pools and the
+// new row's K and V scale for the block's head (nullptr without a new
+// row). All nullptr for bf16 pools.
+struct Scales {
+  __nv_bfloat16* k_pool;
+  __nv_bfloat16* v_pool;
+  const __nv_bfloat16* k_new;
+  const __nv_bfloat16* v_new;
+};
 
-// One (row, KV head g) of decode attention; called by every thread of a
-// block of WARPS * 32 threads. WARPS warps split the positions
-// round-robin; a lane owns D / 32 contiguous dims, dot products reduce
-// with warp shuffles, and each warp keeps its own online softmax, merged
-// through shared memory at the end. Every position costs a chain of
-// NREP shuffle reductions before the next one's loads, so at long
-// contexts the body is bound by latency, not bytes. int8 pools only
-// (kernels 5 and 7); bf16 pools run decode_attend_split().
-//   q_row:    the row's H query heads, (H, D)
-//   kn, vn:   the row's new K/V slice for head g (D values), or nullptr:
-//             then nothing is written and every position is read from
-//             the pool
-//   kns, vns: the new slice's bf16 scales (one value each); ks_pool,
-//             vs_pool the scale pools
-//   wp:       page the new K/V lands in (slot (sl - 1) % page_size)
-//   bt:       the row's block table (max_pages,)
-//   out_row:  the row's output, (H, D)
-//   smem:     decode_smem_floats<D, NREP, WARPS>() floats
-template <int D, int NREP, int WARPS, typename T>
-__device__ void decode_attend(const __nv_bfloat16* __restrict__ q_row,
-                              const T* __restrict__ kn,
-                              const T* __restrict__ vn,
-                              const __nv_bfloat16* __restrict__ kns,
-                              const __nv_bfloat16* __restrict__ vns,
-                              T* k_pool, T* v_pool, __nv_bfloat16* ks_pool,
-                              __nv_bfloat16* vs_pool,
-                              const int* __restrict__ bt, int sl, int wp,
-                              __nv_bfloat16* __restrict__ out_row, int g,
-                              int layer, int num_pages, int page_size,
-                              int max_pages, int gd, float scale,
-                              float* smem) {
-  static_assert(is_int8<T>::value,
-                "bf16 pools run decode_attend_split()");
-  constexpr bool Q8 = is_int8<T>::value;
-  constexpr int DPL = D / 32;  // dims per lane
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int hkv = gd / D;
-  const size_t layer_row0 = (size_t)layer * num_pages * page_size;
-
-  // 1. In-place write of this head's slice of the new token (and, for
-  //    int8 pools, of its two scales).
-  if (kn != nullptr && sl > 0 && wp >= 0 && wp < num_pages) {
-    const int slot = (sl - 1) % page_size;
-    const size_t row = layer_row0 + (size_t)wp * page_size + slot;
-    for (int i = threadIdx.x; i < D; i += blockDim.x) {
-      k_pool[row * gd + g * D + i] = kn[i];
-      v_pool[row * gd + g * D + i] = vn[i];
-    }
-    if constexpr (Q8) {
-      if (threadIdx.x == 0) {
-        const size_t si =
-            scale_index(layer, wp, g, slot, num_pages, hkv, page_size);
-        ks_pool[si] = *kns;
-        vs_pool[si] = *vns;
-      }
-    }
-  }
-
-  // 2. Online-softmax attention over [0, kv_len), positions split
-  //    round-robin over the warps.
-  float qv[NREP][DPL];
+// Four int8 values (one word, the first in the low byte) as four bf16,
+// exactly: byte x + 128 becomes the low mantissa byte of the float
+// 2^23 + x + 128, from which 2^23 + 128 is subtracted.
+__device__ __forceinline__ uint2 i8x4_to_bf16x4(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;
+  float f[4];
 #pragma unroll
-  for (int r = 0; r < NREP; ++r) {
-    load_bf16<DPL>(q_row + (size_t)(g * NREP + r) * D + lane * DPL, qv[r]);
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) qv[r][i] *= scale;
-  }
-  float m[NREP], l[NREP], acc[NREP][DPL];
-#pragma unroll
-  for (int r = 0; r < NREP; ++r) {
-    m[r] = -1e30f;
-    l[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[r][i] = 0.f;
-  }
-  const int kv_len = min(sl, max_pages * page_size);
-  for (int p = warp; p < kv_len; p += WARPS) {
-    const T* kp;
-    const T* vp;
-    float ksc = 1.f, vsc = 1.f;  // int8 pools: this position's scales
-    if (kn != nullptr && p == sl - 1) {
-      kp = kn;
-      vp = vn;
-      if constexpr (Q8) {
-        ksc = __bfloat162float(*kns);
-        vsc = __bfloat162float(*vns);
-      }
-    } else {
-      const int page = bt[p / page_size];
-      if (page < 0 || page >= num_pages) continue;
-      const size_t row = layer_row0 + (size_t)page * page_size + p % page_size;
-      kp = k_pool + row * gd + g * D;
-      vp = v_pool + row * gd + g * D;
-      if constexpr (Q8) {
-        const size_t si = scale_index(layer, page, g, p % page_size,
-                                      num_pages, hkv, page_size);
-        ksc = __bfloat162float(ks_pool[si]);
-        vsc = __bfloat162float(vs_pool[si]);
-      }
-    }
-    float kf[DPL], vf[DPL];
-    load_kv<DPL>(kp + lane * DPL, kf);
-    load_kv<DPL>(vp + lane * DPL, vf);
-#pragma unroll
-    for (int r = 0; r < NREP; ++r) {
-      float s = 0.f;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) s += qv[r][i] * kf[i];
-      s = warp_sum(s);
-      if constexpr (Q8) s *= ksc;
-      const float m_new = fmaxf(m[r], s);
-      const float alpha = __expf(m[r] - m_new);
-      const float pe = __expf(s - m_new);
-      l[r] = l[r] * alpha + pe;
-      const float pv = Q8 ? pe * vsc : pe;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[r][i] = acc[r][i] * alpha + pv * vf[i];
-      m[r] = m_new;
-    }
-  }
-
-  // 3. Merge the warps' partial softmaxes.
-  float* sm_m = smem;                          // [WARPS][NREP]
-  float* sm_l = sm_m + WARPS * NREP;           // [WARPS][NREP]
-  float* sm_acc = sm_l + WARPS * NREP;         // [WARPS][NREP][D]
-#pragma unroll
-  for (int r = 0; r < NREP; ++r) {
-    if (lane == 0) {
-      sm_m[warp * NREP + r] = m[r];
-      sm_l[warp * NREP + r] = l[r];
-    }
-#pragma unroll
-    for (int i = 0; i < DPL; ++i)
-      sm_acc[(warp * NREP + r) * D + lane * DPL + i] = acc[r][i];
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < NREP * D; idx += blockDim.x) {
-    const int r = idx / D;
-    const int d = idx % D;
-    float mx = -1e30f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, sm_m[w * NREP + r]);
-    float lsum = 0.f, a = 0.f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      const float f = __expf(sm_m[w * NREP + r] - mx);
-      lsum += sm_l[w * NREP + r] * f;
-      a += sm_acc[(w * NREP + r) * D + d] * f;
-    }
-    out_row[(size_t)(g * NREP + r) * D + d] =
-        __float2bfloat16(a / fmaxf(lsum, 1e-30f));
-  }
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(u, 0x4b000000u, 0x7650 + i)) -
+           8388736.f;
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(f[0], f[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(f[2], f[3]);
+  return make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                    *reinterpret_cast<const uint32_t*>(&hi));
 }
 
 // ---- split-K tile machinery ------------------------------------------------
 //
 // attend_tiles() runs online-softmax attention of NQ query columns of one
 // KV head over a range of positions, 64 positions (a tile) at a time, on
-// the tensor cores. Both split-K bodies are built on it: the decode body
-// below (NQ = the group's NREP query heads) and the slice blocks of
-// csrc/ragged_attention.cu (NQ = 8 tokens x NREP heads). Per tile:
+// the tensor cores. The decode body below (NQ = the group's NREP query
+// heads) and the slice blocks of csrc/ragged_attention.cu (NQ = 8 tokens
+// x NREP heads) are built on it. Per tile:
 // - the tile's K rows and V rows come in by cp.async (16 bytes a lane,
 //   row addresses from the block table) into a two-stage ring, K and V
-//   as two commit groups: tile i + 1 loads while tile i is used, and
-//   V(i) while K(i) is scored. A row's 16-byte chunk c lands at
-//   c ^ (position % 8), so the ldmatrix reads below are free of bank
-//   conflicts;
+//   as two commit groups: tile i + 1 loads while tile i is used. A row's
+//   16-byte chunk c lands at c ^ (position % 8) (% 4 for an int8 row of
+//   64 bytes), so the reads below are free of bank conflicts;
+// - int8 pools: once the tile has landed, one pass converts its K and V
+//   rows into a bf16 K tile and V tile in the bf16 rows' swizzle, and
+//   stores the tile's scales, loaded a tile ahead by plain loads into a
+//   register (zero for a position past the range or on a page outside
+//   [0, P): a stale NaN scale would survive the masked softmax as 0 *
+//   NaN);
 // - S^T (64 keys x NQ columns) = K Q^T, one mma.m16n8k16 per 16 keys, 16
 //   dims and 8 columns, a warp per 16 keys; K from shared memory by
 //   ldmatrix, the Q^T B fragments from the caller (registers or shared
 //   memory; columns past NQ are zero). The mask is per (key, column): a
 //   key past the range or on a page outside [0, P) never counts, and
-//   column c sees positions up to last_pos(c) only;
+//   column c sees positions up to last_pos(c) only. int8: the logit is
+//   multiplied by its K scale here;
 // - online softmax down each column, a warp per NQ / 4 columns (2 to 32
 //   lanes a column, their keys in registers, shuffle reductions within
-//   the column's lanes), with the probabilities stored as bf16 [NQ][64];
+//   the column's lanes), with the probabilities stored as bf16 [NQ][64]
+//   (int8: times their V scale; the sum counts them unscaled);
 // - O^T (D x NQ) += V^T P^T, one mma per 16 dims, 16 positions and 8
 //   columns; V^T from the V tile by ldmatrix.trans, P^T as B fragments
 //   from shared memory; a warp owns D / 4 dims.
@@ -304,6 +146,9 @@ constexpr int kProbStride = kSplitTile + 8;   // bf16 per probability row
 template <int D, int NQ, typename T>
 __host__ __device__ constexpr int tiles_smem_bytes() {
   return 2 * 2 * kSplitTile * D * (int)sizeof(T)  // ring: K and V tiles
+         + (is_int8<T>::value ? 2 * kSplitTile * D * 2  // converted K, V
+                                    + 2 * kSplitTile * 4  // their scales
+                              : 0)
          + NQ * kScoreStride * 4                  // scores (f32)
          + NQ * kProbStride * 2                   // probabilities (bf16)
          + 3 * NQ * 4 + 16;                       // m, l, alpha; flag
@@ -311,20 +156,30 @@ __host__ __device__ constexpr int tiles_smem_bytes() {
 
 // The regions of attend_tiles()' shared memory.
 struct TileSmem {
-  uint32_t ring;       // shared-space address of the two-stage ring
-  float* sc;           // scores [NQ][kScoreStride]
-  __nv_bfloat16* pb;   // probabilities [NQ][kProbStride]
-  float* ml;           // per column: running max at [c], sum at [NQ + c]
-  float* alpha;        // per column: the last tile's rescale factor
-  int* flag;           // one int for the caller
+  uint32_t ring;         // shared-space address of the two-stage ring
+  unsigned char* ring_p; // ... and its generic address
+  uint32_t cvt;          // int8 pools: the converted bf16 K tile, then V
+  unsigned char* cvt_p;
+  float* scl;            // int8 pools: the tile's K scales [64], then V [64]
+  float* sc;             // scores [NQ][kScoreStride]
+  __nv_bfloat16* pb;     // probabilities [NQ][kProbStride]
+  float* ml;             // per column: running max at [c], sum at [NQ + c]
+  float* alpha;          // per column: the last tile's rescale factor
+  int* flag;             // one int for the caller
 };
 
 template <int D, int NQ, typename T>
 __device__ __forceinline__ TileSmem tile_smem(unsigned char* smem) {
-  constexpr int TILEB = kSplitTile * D * (int)sizeof(T);
+  constexpr bool Q8 = is_int8<T>::value;
+  constexpr int RING = 4 * kSplitTile * D * (int)sizeof(T);
+  constexpr int CVT = Q8 ? 2 * kSplitTile * D * 2 : 0;
   TileSmem t;
+  t.ring_p = smem;
   t.ring = (uint32_t)__cvta_generic_to_shared(smem);
-  t.sc = reinterpret_cast<float*>(smem + 4 * TILEB);
+  t.cvt_p = smem + RING;
+  t.cvt = t.ring + RING;
+  t.scl = reinterpret_cast<float*>(smem + RING + CVT);
+  t.sc = t.scl + (Q8 ? 2 * kSplitTile : 0);
   t.pb = reinterpret_cast<__nv_bfloat16*>(t.sc + NQ * kScoreStride);
   t.ml = reinterpret_cast<float*>(t.pb + NQ * kProbStride);
   t.alpha = t.ml + 2 * NQ;
@@ -381,6 +236,8 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4],
 //   kn, vn:      the new token's K/V slice for head g, read for position
 //                sl - 1 in place of the pool, or nullptr (every position
 //                from the pool)
+//   scl:         int8 pools: the scale pools and, with kn, the new row's
+//                scales
 //   bt:          the sequence's block table
 //   qfrag(kp, n, b): the Q^T B fragments of dims 32 kp ... 32 kp + 31 and
 //                columns 8 n ... 8 n + 7: b[0], b[1] for the first 16
@@ -391,16 +248,22 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4],
 template <int D, int NQ, typename T, typename QFrag, typename LastPos>
 __device__ __forceinline__ void attend_tiles(
     const T* __restrict__ k_pool, const T* __restrict__ v_pool,
-    const T* __restrict__ kn, const T* __restrict__ vn,
-    const int* __restrict__ bt, int sl, int c0, int c1, int g,
-    size_t layer_row0, int num_pages, int page_size, int gd, float scale,
+    const T* __restrict__ kn, const T* __restrict__ vn, const Scales& scl,
+    const int* __restrict__ bt, int sl, int c0, int c1, int g, int layer,
+    int num_pages, int page_size, int gd, float scale,
     const QFrag& qfrag, const LastPos& last_pos, const TileSmem& sm,
     float (&o)[D / 64][(NQ + 7) / 8][4]) {
-  constexpr int ROWB = D * (int)sizeof(T);   // bytes of one K/V row
-  constexpr int CPR = ROWB / 16;             // 16-byte chunks per row
-  constexpr int EPC = 16 / (int)sizeof(T);   // elements per chunk
-  constexpr int SWZ = CPR >= 8 ? 7 : CPR - 1;
-  constexpr int TILEB = kSplitTile * ROWB;   // bytes of a K or V tile
+  constexpr bool Q8 = is_int8<T>::value;
+  // The ring holds pool rows; the products read bf16 rows: the ring's
+  // own stage over bf16 pools, the converted tiles over int8 pools.
+  constexpr int LROWB = D * (int)sizeof(T);  // bytes of one pool row
+  constexpr int LCPR = LROWB / 16;           // 16-byte chunks per pool row
+  constexpr int LEPC = 16 / (int)sizeof(T);  // elements per chunk
+  constexpr int LSWZ = LCPR >= 8 ? 7 : LCPR - 1;
+  constexpr int LTILEB = kSplitTile * LROWB; // bytes of a ring K or V tile
+  constexpr int ROWB = D * 2;                // bytes of one bf16 row
+  constexpr int SWZ = 7;                     // ROWB / 16 >= 8 chunks
+  constexpr int TILEB = kSplitTile * ROWB;   // bytes of a bf16 K or V tile
   constexpr int MT = D / 64;                 // P V: 16-dim tiles per warp
   constexpr int NF = (NQ + 7) / 8;           // 8-column fragments
   // Softmax layout: CPW columns a warp, LPC lanes a column, KPL keys a
@@ -410,6 +273,9 @@ __device__ __forceinline__ void attend_tiles(
   constexpr int KPL = kSplitTile / LPC;
   static_assert((NQ & (NQ - 1)) == 0 && CPW * LPC == 32 && KPL % 2 == 0,
                 "softmax layout");
+  static_assert(ROWB / 16 >= 8, "bf16 row swizzle");
+  static_assert(!Q8 || kSplitThreads == 2 * kSplitTile,
+                "one K or V scale a thread");
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -418,40 +284,61 @@ __device__ __forceinline__ void attend_tiles(
   const int mi = lane / 8;  // ldmatrix: which 8 x 8 matrix this lane names
   const int mr = lane % 8;  // ... and which of its rows
   const int n_tiles = (c1 - c0 + kSplitTile - 1) / kSplitTile;
+  const size_t layer_row0 = (size_t)layer * num_pages * page_size;
 
   // K then V rows of tile `it` into its stage, two commit groups. A
   // thread copies chunk lc of PER positions; their block-table reads go
   // out together, once for K and V. Positions past c1 and pages outside
   // [0, P) are zero-filled; position sl - 1 comes from the new row.
-  constexpr int PER = kSplitTile * CPR / kSplitThreads;
-  static_assert(kSplitThreads % CPR == 0 && PER > 0, "loader layout");
-  const int lc = tid % CPR;
-  const int lj = tid / CPR;
+  // Returns, over int8 pools, this thread's scale of the tile (K scales
+  // on threads 0..63, V scales on 64..127, position p0 + tid % 64), zero
+  // where the row is zero-filled.
+  constexpr int PER = kSplitTile * LCPR / kSplitThreads;
+  static_assert(kSplitThreads % LCPR == 0 && PER > 0, "loader layout");
+  const int lc = tid % LCPR;
+  const int lj = tid / LCPR;
   auto load = [&](int it) {
     const int p0 = c0 + it * kSplitTile;
     size_t off[PER];  // element offset of the row chunk; ~0 for zeros
 #pragma unroll
     for (int k = 0; k < PER; ++k) {
-      const int p = p0 + lj + k * (kSplitThreads / CPR);
+      const int p = p0 + lj + k * (kSplitThreads / LCPR);
       const int page = p < c1 ? bt[p / page_size] : -1;
       off[k] = page >= 0 && page < num_pages
                    ? (layer_row0 + (size_t)page * page_size + p % page_size) *
-                             gd + g * D + lc * EPC
+                             gd + g * D + lc * LEPC
                    : ~(size_t)0;
+    }
+    float s = 0.f;
+    if constexpr (Q8) {
+      const int p = p0 + tid % kSplitTile;
+      const bool is_v = tid >= kSplitTile;
+      if (p < c1) {
+        if (kn != nullptr && p == sl - 1) {
+          s = __bfloat162float(*(is_v ? scl.v_new : scl.k_new));
+        } else {
+          const int page = bt[p / page_size];
+          if (page >= 0 && page < num_pages)
+            s = __bfloat162float(
+                (is_v ? scl.v_pool : scl.k_pool)[scale_index(
+                    layer, page, g, p % page_size, num_pages, gd / D,
+                    page_size)]);
+        }
+      }
     }
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const T* pool = half ? v_pool : k_pool;
       const T* nrow = half ? vn : kn;
-      const uint32_t base = sm.ring + ((it & 1) * 2 + half) * TILEB;
+      const uint32_t base = sm.ring + ((it & 1) * 2 + half) * LTILEB;
 #pragma unroll
       for (int k = 0; k < PER; ++k) {
-        const int j = lj + k * (kSplitThreads / CPR);
+        const int j = lj + k * (kSplitThreads / LCPR);
         const int p = p0 + j;
-        const uint32_t dst = base + j * ROWB + ((lc ^ (j & SWZ)) << 4);
+        const uint32_t dst = base + j * LROWB + ((lc ^ (j & LSWZ)) << 4);
         if (p < c1 && nrow != nullptr && p == sl - 1) {
-          split_cp8(dst, nrow + lc * EPC);
-          split_cp8(dst + 8, nrow + lc * EPC + EPC / 2);
+          split_cp8(dst, nrow + lc * LEPC);
+          split_cp8(dst + 8, nrow + lc * LEPC + LEPC / 2);
         } else {
           const bool ok = off[k] != ~(size_t)0;
           split_cp16(dst, pool + (ok ? off[k] : 0), ok ? 16 : 0);
@@ -459,8 +346,9 @@ __device__ __forceinline__ void attend_tiles(
       }
       asm volatile("cp.async.commit_group;\n" ::: "memory");
     }
+    return s;
   };
-  load(0);
+  float s_next = load(0);
 
   if (tid < NQ) {
     sm.ml[tid] = -1e30f;
@@ -475,14 +363,46 @@ __device__ __forceinline__ void attend_tiles(
 
   for (int it = 0; it < n_tiles; ++it) {
     const bool more = it + 1 < n_tiles;
-    if (more) {
-      load(it + 1);
-      split_wait<3>();  // K(it) has landed
-    } else {
-      split_wait<1>();
+    [[maybe_unused]] const float s_cur = s_next;  // int8: this tile's
+    if (more) s_next = load(it + 1);
+    if constexpr (Q8) {  // K(it) and V(it) have landed
+      if (more)
+        split_wait<2>();
+      else
+        split_wait<0>();
+    } else {  // K(it) has landed
+      if (more)
+        split_wait<3>();
+      else
+        split_wait<1>();
     }
     __syncthreads();
-    const uint32_t sK = sm.ring + (it & 1) * 2 * TILEB;
+    uint32_t sK = sm.ring + (it & 1) * 2 * TILEB;
+    if constexpr (Q8) {
+      // int8 K and V rows → bf16 rows, one 16-byte bf16 chunk (8 values)
+      // a step, and the tile's scales beside them.
+      constexpr int UPR = D / 8;  // bf16 chunks per row
+      constexpr int STEPS = 2 * kSplitTile * UPR / kSplitThreads;
+      const unsigned char* src = sm.ring_p + (it & 1) * 2 * LTILEB;
+#pragma unroll
+      for (int k = 0; k < STEPS; ++k) {
+        const int u = tid + k * kSplitThreads;
+        const int half = u / (kSplitTile * UPR);
+        const int j = u / UPR % kSplitTile;
+        const int c = u % UPR;
+        const uint2 w = *reinterpret_cast<const uint2*>(
+            src + half * LTILEB + j * LROWB + (((c >> 1) ^ (j & LSWZ)) << 4) +
+            (c & 1) * 8);
+        const uint2 lo = i8x4_to_bf16x4(w.x);
+        const uint2 hi = i8x4_to_bf16x4(w.y);
+        *reinterpret_cast<uint4*>(sm.cvt_p + half * TILEB + j * ROWB +
+                                  ((c ^ (j & SWZ)) << 4)) =
+            make_uint4(lo.x, lo.y, hi.x, hi.y);
+      }
+      sm.scl[tid] = s_cur;
+      __syncthreads();
+      sK = sm.cvt;
+    }
     const uint32_t sV = sK + TILEB;
     const int p0 = c0 + it * kSplitTile;
 
@@ -517,6 +437,8 @@ __device__ __forceinline__ void attend_tiles(
           const int page = bt[p / page_size];
           ok = page >= 0 && page < num_pages;
         }
+        float kscale = scale;
+        if constexpr (Q8) kscale *= sm.scl[j];
 #pragma unroll
         for (int n = 0; n < NF; ++n) {
 #pragma unroll
@@ -524,7 +446,7 @@ __device__ __forceinline__ void attend_tiles(
             const int col = 8 * n + 2 * tq + e;
             if (col < NQ)
               sm.sc[col * kScoreStride + j] =
-                  ok && p <= last_pos(col) ? c[n][2 * half + e] * scale
+                  ok && p <= last_pos(col) ? c[n][2 * half + e] * kscale
                                            : neg_inf;
           }
         }
@@ -555,9 +477,13 @@ __device__ __forceinline__ void attend_tiles(
       float sum = 0.f;
 #pragma unroll
       for (int i = 0; i < KPL; i += 2) {
-        const float e0 = __expf(sv[i] - m_new);
-        const float e1 = __expf(sv[i + 1] - m_new);
+        float e0 = __expf(sv[i] - m_new);
+        float e1 = __expf(sv[i + 1] - m_new);
         sum += e0 + e1;
+        if constexpr (Q8) {
+          e0 *= sm.scl[kSplitTile + k0 + i];
+          e1 *= sm.scl[kSplitTile + k0 + i + 1];
+        }
         *reinterpret_cast<__nv_bfloat162*>(sm.pb + r * kProbStride + k0 + i) =
             __floats2bfloat162_rn(e0, e1);
       }
@@ -571,10 +497,12 @@ __device__ __forceinline__ void attend_tiles(
         sm.ml[NQ + r] = sm.ml[NQ + r] * a + sum;
       }
     }
-    if (more)
-      split_wait<2>();  // V(it) has landed
-    else
-      split_wait<0>();
+    if constexpr (!Q8) {  // V(it) has landed
+      if (more)
+        split_wait<2>();
+      else
+        split_wait<0>();
+    }
     __syncthreads();
 
     // 3. O^T += V^T P^T for dims 16 (warp * MT + mt) ....
@@ -617,7 +545,11 @@ __device__ __forceinline__ void attend_tiles(
         }
       }
     }
-    __syncthreads();  // the stage and the score buffers are free again
+    // The ring stage and the score buffers are free again. Over int8
+    // pools no barrier is needed: P V read the converted tiles, and the
+    // next tile writes them, its scales, scores and probabilities only
+    // after its first barrier.
+    if constexpr (!Q8) __syncthreads();
   }
 }
 
@@ -734,16 +666,16 @@ __device__ __forceinline__ void finish_split(
 // ---- split-K decode body ---------------------------------------------------
 //
 // decode_attend_split() spreads a row's positions over the S blocks of
-// its (row, KV head): grid (B, H_kv, S) in kernels 1 and 8, a range of
-// the 1-D grid in kernel 6, S from host-known shapes, so the launch never
-// reads seq_lens on the host. A row of kv_len positions is cut into
-// chunks of ceil(kv_len / S) positions rounded up to the 64-position
-// tile, so a short row takes a few one-tile blocks and a long one all S
-// blocks, and many SMs stream one row's K/V at once where one block per
-// (row, head) walked it alone. A chunk runs through attend_tiles() with
-// the group's NREP query heads as its columns, q^T held in registers; a
-// block whose chunk starts at or past kv_len exits at once, and
-// finish_split() writes the output or merges the splits.
+// its (row, KV head): grid (B, H_kv, S) in kernels 1, 5 and 8, a range of
+// the 1-D grid in kernels 6 and 7, S from host-known shapes, so the
+// launch never reads seq_lens on the host. A row of kv_len positions is
+// cut into chunks of ceil(kv_len / S) positions rounded up to the
+// 64-position tile, so a short row takes a few one-tile blocks and a long
+// one all S blocks, and many SMs stream one row's K/V at once. A chunk
+// runs through attend_tiles() with the group's NREP query heads as its
+// columns, q^T held in registers; a block whose chunk starts at or past
+// kv_len exits at once, and finish_split() writes the output or merges
+// the splits.
 
 // Bytes of dynamic shared memory decode_attend_split() needs.
 template <int D, int NREP, typename T>
@@ -753,27 +685,27 @@ __host__ __device__ constexpr int split_smem_bytes() {
 
 // One (row, KV head g, split) of decode attention; called by every
 // thread of a block of kSplitThreads threads.
-//   q_row, kn, vn, k_pool, v_pool, bt, sl, wp, out_row, g, layer, ...:
-//            as for decode_attend(); kn == nullptr (kernel 8): nothing is
-//            written and every position, the newest included, is read
-//            from the pool
+//   q_row:   the row's H query heads, (H, D)
+//   kn, vn:  the row's new K/V slice for head g (D values), or nullptr
+//            (kernel 8): then nothing is written and every position, the
+//            newest included, is read from the pool
+//   scl:     int8 pools: the scale pools and the new slice's two scales,
+//            which split 0 writes beside the slice
+//   bt:      the row's block table (max_pages,)
+//   wp:      page the new K/V lands in (slot (sl - 1) % page_size)
+//   out_row: the row's output, (H, D)
 //   ws:      this (row, head)'s workspace, n_splits * split_ws_floats()
 //   counter: this (row, head)'s arrival counter, 0 between launches
 //   split, n_splits: this block's split and the (row, head)'s count
 //   smem:    split_smem_bytes<D, NREP, T>() bytes, 16-byte aligned
-// Written for bf16 pools (kernels 1, 6 and 8); the int8 pools of kernels
-// 5 and 7 still run decode_attend().
 template <int D, int NREP, typename T>
 __device__ void decode_attend_split(
     const __nv_bfloat16* __restrict__ q_row, const T* __restrict__ kn,
-    const T* __restrict__ vn, T* k_pool, T* v_pool,
+    const T* __restrict__ vn, T* k_pool, T* v_pool, const Scales& scl,
     const int* __restrict__ bt, int sl, int wp,
     __nv_bfloat16* __restrict__ out_row, float* ws, int* counter, int g,
     int layer, int num_pages, int page_size, int max_pages, int gd,
     float scale, int split, int n_splits, unsigned char* smem) {
-  static_assert(!is_int8<T>::value,
-                "int8 pools: the scale loads are not written yet "
-                "(kernels 5 and 7 run decode_attend())");
   constexpr int MT = D / 64;
   const int tid = threadIdx.x;
   const int lane = tid % 32;
@@ -781,13 +713,22 @@ __device__ void decode_attend_split(
   const int tq = lane % 4;
   const size_t layer_row0 = (size_t)layer * num_pages * page_size;
 
-  // 1. Split 0 writes this head's slice of the new token in place.
+  // 1. Split 0 writes this head's slice of the new token in place (and,
+  //    over int8 pools, its two scales).
   if (split == 0 && kn != nullptr && sl > 0 && wp >= 0 && wp < num_pages) {
-    const size_t row =
-        layer_row0 + (size_t)wp * page_size + (sl - 1) % page_size;
+    const int slot = (sl - 1) % page_size;
+    const size_t row = layer_row0 + (size_t)wp * page_size + slot;
     for (int i = tid; i < D; i += kSplitThreads) {
       k_pool[row * gd + g * D + i] = kn[i];
       v_pool[row * gd + g * D + i] = vn[i];
+    }
+    if constexpr (is_int8<T>::value) {
+      if (tid == 0) {
+        const size_t si =
+            scale_index(layer, wp, g, slot, num_pages, gd / D, page_size);
+        scl.k_pool[si] = *scl.k_new;
+        scl.v_pool[si] = *scl.v_new;
+      }
     }
   }
   const int kv_len = min(sl, max_pages * page_size);
@@ -826,8 +767,8 @@ __device__ void decode_attend_split(
   auto every_pos = [](int) { return 0x7fffffff; };
   const TileSmem sm = tile_smem<D, NREP, T>(smem);
   float o[MT][1][4];
-  attend_tiles<D, NREP, T>(k_pool, v_pool, kn, vn, bt, sl, c0, c1, g,
-                           layer_row0, num_pages, page_size, gd, scale, qfrag,
+  attend_tiles<D, NREP, T>(k_pool, v_pool, kn, vn, scl, bt, sl, c0, c1, g,
+                           layer, num_pages, page_size, gd, scale, qfrag,
                            every_pos, sm, o);
   finish_split<D, NREP>(o, sm, ws, counter, split, n_active,
                         [&](int r, int d, float v) {

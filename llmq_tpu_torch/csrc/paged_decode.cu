@@ -46,7 +46,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,    // (B, H, D)
   // pools are passed through unchanged.
   llmq::decode_attend_split<D, NREP, __nv_bfloat16>(
       q + b * hd, nullptr, nullptr, const_cast<__nv_bfloat16*>(k_pool),
-      const_cast<__nv_bfloat16*>(v_pool),
+      const_cast<__nv_bfloat16*>(v_pool), llmq::Scales{},
       block_tables + (size_t)b * max_pages, seq_lens[b], -1, out + b * hd,
       ws + bg * gridDim.z * llmq::split_ws_floats<D, NREP>(), counters + bg,
       g, layer, num_pages, page_size, max_pages, gd, scale, blockIdx.z,

@@ -13,18 +13,23 @@
 // rows and scales, runs first on the same stream), so the launch only
 // reads for the slices.
 //
-// Both kernels' grids are one dimension with two ranges of blocks:
-//  - decode blocks: write the row's new K/V at (write_page[b],
-//    (seq_len - 1) % ps), attend over [0, seq_len) reading position
-//    seq_len - 1 from k_new / v_new; an inactive row writes page 0, an
-//    empty row (seq_len == 0) returns zeros;
-//  - slice blocks, one per (8-token q-block, KV head g): the block finds
-//    the slice that owns its first token by scanning the S descriptors
-//    (the TPU kernel's scalar-prefetched owner table; no owner means a
-//    dead block, which writes zeros and loads nothing). Query t of slice
-//    s sits at absolute position qstart[s] + t - qoff[s] and sees keys at
-//    kv_pos <= q_pos, its slice's fresh K/V and any history from earlier
-//    turns alike. Rows of a live block past qlen come out as zeros.
+// The grid is one dimension with two ranges of blocks:
+//  - slice blocks, one per (8-token q-block, KV head g), first (over a
+//    long history they run longest; most decode blocks of short rows exit
+//    at once and fill in behind): the block finds the slice that owns its
+//    first token by scanning the S descriptors (the TPU kernel's
+//    scalar-prefetched owner table; no owner means a dead block, which
+//    writes zeros and loads nothing). Query t of slice s sits at absolute
+//    position qstart[s] + t - qoff[s] and sees keys at kv_pos <= q_pos,
+//    its slice's fresh K/V and any history from earlier turns alike. Rows
+//    of a live block past qlen come out as zeros;
+//  - then one decode block per (row b, KV head g, split of S), running
+//    decode_attend_split() as kernels 1 and 5 do: the row's new K/V
+//    written at (write_page[b], (seq_len - 1) % ps), attention over
+//    [0, seq_len) with position seq_len - 1 read from k_new / v_new; an
+//    inactive row writes page 0, an empty row (seq_len == 0) returns
+//    zeros. The splits merge through the wrapper's workspace and counters
+//    (one pair per kernel).
 //
 // Why one launch is safe: a sequence is either decoding or mid-prefill,
 // never both, so decode blocks write only pages that no slice block
@@ -34,39 +39,26 @@
 //
 // What bounds it: a decode block is bound by bytes as kernel 1 is. A
 // slice block does 4 * H * D flops per visible (query, key) pair on
-// 2 * GD * 2 bytes per key read; for a fresh slice bytes dominate, for a
-// slice over a long history operations do.
+// 2 * GD * 2 bytes per key read (2 * GD + 4 * H_kv over int8 pools); for
+// a fresh slice bytes dominate, for a slice over a long history
+// operations do.
 //
-// Kernel 6 (bf16) is built from the split-K tile machinery of
-// decode_attention.cuh, 128 threads a block:
-//  - the slice range comes first in the grid (over a long history its
-//    blocks run longest; most decode blocks of short rows exit at once
-//    and fill in behind). A slice block's query columns are its 8 tokens
-//    x the group's NREP heads (8 to 64 columns; column c is token c / NREP
-//    at position pos0 + c / NREP, head c % NREP). Q comes into shared
-//    memory by cp.async, 64-key K/V tiles by cp.async into a two-stage
-//    ring with row addresses from the block table, and attend_tiles()
-//    runs S^T = K Q^T and O^T += V^T P^T on the tensor cores (mma.sync
-//    m16n8k16, bf16 operands, f32 accumulation), the causal mask per
-//    (key, column) and the online softmax down the columns. Tiles past
-//    the block's last query position are never loaded; pages outside
-//    [0, P) read as zeros. wgmma is not used: it needs 64-row tiles, and
-//    an 8-token q-block has 64 columns only at NREP 8 (a 16-token block
-//    could straddle two slices), so mma.sync is the unit that fits. A
-//    slice block walks its q-block's keys itself: splitting them over
-//    blocks, as decode rows are, was slower at every split size tried
-//    up to 2048 positions (PERF.md);
-//  - then one decode block per (row b, KV head g, split of S), running
-//    decode_attend_split() as kernel 1 does, merged through the
-//    wrapper's workspace and counters (kept apart from kernels 1 and 8).
-//
-// Kernel 7 (int8) keeps the first design: decode blocks run kernel 5's
-// decode_attend() (pre-quantized rows and their scales written,
-// in-register dequant); slice blocks (prefill_block(), f32 CUDA cores, 8
-// warps, one query token each) stage each int8 K/V tile with its 2 x 32
-// scale entries in shared memory, then apply the K scales to the logits
-// and the V scales to the probabilities. Nothing dequantized goes back to
-// device memory.
+// Both kernels are built from the split-K tile machinery of
+// decode_attention.cuh, 128 threads a block. A slice block's query
+// columns are its 8 tokens x the group's NREP heads (8 to 64 columns;
+// column c is token c / NREP at position pos0 + c / NREP, head c % NREP).
+// Q comes into shared memory by cp.async, 64-key K/V tiles by cp.async
+// into a two-stage ring with row addresses from the block table (int8
+// tiles converted to bf16 beside their scales), and attend_tiles() runs
+// S^T = K Q^T and O^T += V^T P^T on the tensor cores (mma.sync m16n8k16,
+// bf16 operands, f32 accumulation), the causal mask per (key, column)
+// and the online softmax down the columns. Tiles past the block's last
+// query position are never loaded; pages outside [0, P) read as zeros.
+// wgmma is not used: it needs 64-row tiles, and an 8-token q-block has 64
+// columns only at NREP 8 (a 16-token block could straddle two slices), so
+// mma.sync is the unit that fits. A slice block walks its q-block's keys
+// itself: splitting them over blocks, as decode rows are, was slower at
+// every split size tried up to 2048 positions (PERF.md).
 
 #include "decode_attention.cuh"
 
@@ -74,30 +66,28 @@ namespace {
 
 constexpr int kQBlock = 8;   // packed tokens per q-block
 
-// ---- kernel 6 (bf16 pools): split decode blocks, tensor-core slices -------
-
 // Bytes of dynamic shared memory of a slice block: attend_tiles()' regions
 // for 8 * NREP columns, then the block's Q rows (one per column).
-template <int D, int NREP>
+template <int D, int NREP, typename T>
 __host__ __device__ constexpr int slice_q_offset() {
-  return (llmq::tiles_smem_bytes<D, kQBlock * NREP, __nv_bfloat16>() + 15) /
-         16 * 16;
+  return (llmq::tiles_smem_bytes<D, kQBlock * NREP, T>() + 15) / 16 * 16;
 }
-template <int D, int NREP>
+template <int D, int NREP, typename T>
 __host__ __device__ constexpr int slice_smem_bytes() {
-  return slice_q_offset<D, NREP>() + kQBlock * NREP * D * 2;
+  return slice_q_offset<D, NREP, T>() + kQBlock * NREP * D * 2;
 }
 
 // One (8-token q-block qb, KV head g) of the slice range; called by every
 // thread of a block of kSplitThreads threads. Column c = t * NREP + r is
 // token blk0 + t (position pos0 + t), query head g * NREP + r; Q^T's B
 // fragments come from the block's Q rows in shared memory by ldmatrix
-// (16-byte chunks swizzled as the K/V tiles are). The block walks the
-// q-block's keys [0, pos0 + n_live) itself.
-template <int D, int NREP>
+// (16-byte chunks swizzled as the bf16 K/V tiles are). The block walks
+// the q-block's keys [0, pos0 + n_live) itself.
+template <int D, int NREP, typename T>
 __device__ void slice_attend(const __nv_bfloat16* __restrict__ q_pf,
-                             const __nv_bfloat16* __restrict__ k_pool,
-                             const __nv_bfloat16* __restrict__ v_pool,
+                             const T* __restrict__ k_pool,
+                             const T* __restrict__ v_pool,
+                             const llmq::Scales& scl,
                              const int* __restrict__ block_tables,
                              const int* __restrict__ pf_qoff,
                              const int* __restrict__ pf_qlen,
@@ -142,8 +132,8 @@ __device__ void slice_attend(const __nv_bfloat16* __restrict__ q_pf,
 
   // The block's Q rows by cp.async, zeros past n_live. Not committed
   // here: they ride in attend_tiles()' first group with tile 0's K.
-  const uint32_t sQ =
-      (uint32_t)__cvta_generic_to_shared(smem + slice_q_offset<D, NREP>());
+  const uint32_t sQ = (uint32_t)__cvta_generic_to_shared(
+      smem + slice_q_offset<D, NREP, T>());
   for (int idx = tid; idx < NQ * CPR; idx += llmq::kSplitThreads) {
     const int c = idx / CPR;
     const int ch = idx % CPR;
@@ -164,13 +154,11 @@ __device__ void slice_attend(const __nv_bfloat16* __restrict__ q_pf,
   auto last_pos = [&](int c) {
     return c / NREP < n_live ? pos0 + c / NREP : -1;
   };
-  const llmq::TileSmem sm =
-      llmq::tile_smem<D, NQ, __nv_bfloat16>(smem);
+  const llmq::TileSmem sm = llmq::tile_smem<D, NQ, T>(smem);
   float o[MT][NF][4];
-  llmq::attend_tiles<D, NQ, __nv_bfloat16>(
-      k_pool, v_pool, nullptr, nullptr, bt, 0, 0, kv_end, g,
-      (size_t)layer * num_pages * page_size, num_pages, page_size,
-      n_kv_heads * D, scale, qfrag, last_pos, sm, o);
+  llmq::attend_tiles<D, NQ, T>(
+      k_pool, v_pool, nullptr, nullptr, scl, bt, 0, 0, kv_end, g, layer,
+      num_pages, page_size, n_kv_heads * D, scale, qfrag, last_pos, sm, o);
   // One split: finish_split() writes o / l directly and touches no
   // workspace. Rows past n_live come out as zeros.
   llmq::finish_split<D, NQ>(
@@ -182,15 +170,20 @@ __device__ void slice_attend(const __nv_bfloat16* __restrict__ q_pf,
 }
 
 // The slice range first (n_slice_blocks = N / 8 * H_kv blocks), then
-// n_splits blocks per (decode row b, KV head g).
-template <int D, int NREP>
+// n_splits blocks per (decode row b, KV head g). k_new_scale /
+// v_new_scale (B, H_kv) and the scale pools are nullptr for bf16.
+template <int D, int NREP, typename T>
 __global__ void __launch_bounds__(llmq::kSplitThreads)
 ragged_split_kernel(const __nv_bfloat16* __restrict__ q_dec,   // (B, H, D)
-                    const __nv_bfloat16* __restrict__ k_new,   // (B, GD)
-                    const __nv_bfloat16* __restrict__ v_new,   // (B, GD)
+                    const T* __restrict__ k_new,               // (B, GD)
+                    const T* __restrict__ v_new,               // (B, GD)
+                    const __nv_bfloat16* __restrict__ k_new_scale,
+                    const __nv_bfloat16* __restrict__ v_new_scale,
                     const __nv_bfloat16* __restrict__ q_pf,    // (N, H, D)
-                    __nv_bfloat16* k_pool,                     // (L, P, ps, GD)
-                    __nv_bfloat16* v_pool,
+                    T* k_pool,                                 // (L, P, ps, GD)
+                    T* v_pool,
+                    __nv_bfloat16* ks_pool,                    // (L, P, H_kv, ps)
+                    __nv_bfloat16* vs_pool,
                     const int* __restrict__ block_tables,      // (B + S, MP)
                     const int* __restrict__ seq_lens,          // (B + S,)
                     const int* __restrict__ write_page,        // (B,)
@@ -204,14 +197,15 @@ ragged_split_kernel(const __nv_bfloat16* __restrict__ q_dec,   // (B, H, D)
                     int batch, int n_slices, int n_slice_blocks,
                     int n_splits, int layer, int num_pages, int page_size,
                     int max_pages, int n_kv_heads, float scale) {
-  // Not `smem`: kernel 7's extern array below has that name as float[].
-  extern __shared__ __align__(16) unsigned char tiles[];
+  extern __shared__ __align__(16) unsigned char smem[];
   const int bx = blockIdx.x;
   if (bx < n_slice_blocks) {
-    slice_attend<D, NREP>(q_pf, k_pool, v_pool, block_tables, pf_qoff,
-                          pf_qlen, pf_qstart, out_pf, bx / n_kv_heads,
-                          bx % n_kv_heads, batch, n_slices, layer, num_pages,
-                          page_size, max_pages, n_kv_heads, scale, tiles);
+    slice_attend<D, NREP, T>(q_pf, k_pool, v_pool,
+                             llmq::Scales{ks_pool, vs_pool, nullptr, nullptr},
+                             block_tables, pf_qoff, pf_qlen, pf_qstart,
+                             out_pf, bx / n_kv_heads, bx % n_kv_heads, batch,
+                             n_slices, layer, num_pages, page_size, max_pages,
+                             n_kv_heads, scale, smem);
     return;
   }
   const int i = bx - n_slice_blocks;
@@ -221,33 +215,38 @@ ragged_split_kernel(const __nv_bfloat16* __restrict__ q_dec,   // (B, H, D)
   const int g = bg % n_kv_heads;
   const int gd = n_kv_heads * D;
   const size_t hd = (size_t)n_kv_heads * NREP * D;
-  llmq::decode_attend_split<D, NREP, __nv_bfloat16>(
+  const llmq::Scales scl{ks_pool, vs_pool,
+                         k_new_scale ? k_new_scale + bg : nullptr,
+                         v_new_scale ? v_new_scale + bg : nullptr};
+  llmq::decode_attend_split<D, NREP, T>(
       q_dec + b * hd, k_new + (size_t)b * gd + g * D,
-      v_new + (size_t)b * gd + g * D, k_pool, v_pool,
+      v_new + (size_t)b * gd + g * D, k_pool, v_pool, scl,
       block_tables + (size_t)b * max_pages, seq_lens[b], write_page[b],
       out_dec + b * hd,
       ws + (size_t)bg * n_splits * llmq::split_ws_floats<D, NREP>(),
       counters + bg, g, layer, num_pages, page_size, max_pages, gd, scale,
-      split, n_splits, tiles);
+      split, n_splits, smem);
 }
 
-template <int D, int NREP>
+template <int D, int NREP, typename T>
 int launch_split(const void* q_dec, const void* k_new, const void* v_new,
-                 const void* q_pf, void* k_pool, void* v_pool,
-                 const void* block_tables, const void* seq_lens,
-                 const void* write_page, const void* pf_qoff,
-                 const void* pf_qlen, const void* pf_qstart, void* out_dec,
-                 void* out_pf, void* ws, void* counters, int batch,
-                 int n_slices, int n_slice_blocks, int n_splits, int layer,
-                 int num_pages, int page_size, int max_pages, int n_kv_heads,
-                 float scale, cudaStream_t stream) {
-  constexpr int a = slice_smem_bytes<D, NREP>();
-  constexpr int b = llmq::split_smem_bytes<D, NREP, __nv_bfloat16>();
+                 const void* k_new_scale, const void* v_new_scale,
+                 const void* q_pf, void* k_pool, void* v_pool, void* ks_pool,
+                 void* vs_pool, const void* block_tables,
+                 const void* seq_lens, const void* write_page,
+                 const void* pf_qoff, const void* pf_qlen,
+                 const void* pf_qstart, void* out_dec, void* out_pf,
+                 void* ws, void* counters, int batch, int n_slices,
+                 int n_slice_blocks, int n_splits, int layer, int num_pages,
+                 int page_size, int max_pages, int n_kv_heads, float scale,
+                 cudaStream_t stream) {
+  constexpr int a = slice_smem_bytes<D, NREP, T>();
+  constexpr int b = llmq::split_smem_bytes<D, NREP, T>();
   constexpr int smem = a > b ? a : b;
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        ragged_split_kernel<D, NREP>,
+        ragged_split_kernel<D, NREP, T>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     configured = true;
@@ -255,309 +254,25 @@ int launch_split(const void* q_dec, const void* k_new, const void* v_new,
   const long long blocks =
       n_slice_blocks + (long long)batch * n_kv_heads * n_splits;
   if (blocks == 0) return (int)cudaGetLastError();
-  ragged_split_kernel<D, NREP>
+  ragged_split_kernel<D, NREP, T>
       <<<(unsigned)blocks, llmq::kSplitThreads, smem, stream>>>(
-          (const __nv_bfloat16*)q_dec, (const __nv_bfloat16*)k_new,
-          (const __nv_bfloat16*)v_new, (const __nv_bfloat16*)q_pf,
-          (__nv_bfloat16*)k_pool, (__nv_bfloat16*)v_pool,
-          (const int*)block_tables, (const int*)seq_lens,
-          (const int*)write_page, (const int*)pf_qoff, (const int*)pf_qlen,
-          (const int*)pf_qstart, (__nv_bfloat16*)out_dec,
+          (const __nv_bfloat16*)q_dec, (const T*)k_new, (const T*)v_new,
+          (const __nv_bfloat16*)k_new_scale,
+          (const __nv_bfloat16*)v_new_scale, (const __nv_bfloat16*)q_pf,
+          (T*)k_pool, (T*)v_pool, (__nv_bfloat16*)ks_pool,
+          (__nv_bfloat16*)vs_pool, (const int*)block_tables,
+          (const int*)seq_lens, (const int*)write_page, (const int*)pf_qoff,
+          (const int*)pf_qlen, (const int*)pf_qstart, (__nv_bfloat16*)out_dec,
           (__nv_bfloat16*)out_pf, (float*)ws, (int*)counters, batch,
           n_slices, n_slice_blocks, n_splits, layer, num_pages, page_size,
           max_pages, n_kv_heads, scale);
   return (int)cudaGetLastError();
 }
 
-// ---- kernel 7 (int8 pools): the first design ------------------------------
-
-constexpr int kWarps = 8;    // one query token per warp
-constexpr int kKeys = 32;    // keys per tile: one per lane
-
-template <int D, int NREP>
-constexpr int prefill_smem_floats() {
-  return kQBlock * NREP * D        // Qs: the block's query rows, pre-scaled
-         + kKeys * (D + 1)         // Ks: padded rows, conflict-free reads
-         + kKeys * D               // Vs
-         + kWarps * NREP * kKeys   // Ps: each warp's softmax weights
-         + 2 * kKeys;              // Ss: the tile's K and V scales (int8)
-}
-
-template <int D, int NREP>
-constexpr int smem_floats() {
-  constexpr int a = prefill_smem_floats<D, NREP>();
-  constexpr int b = llmq::decode_smem_floats<D, NREP, kWarps>();
-  return a > b ? a : b;
-}
-
-template <int D, int NREP, typename T>
-__device__ void prefill_block(const __nv_bfloat16* __restrict__ q_pf,
-                              const T* __restrict__ k_pool,
-                              const T* __restrict__ v_pool,
-                              const __nv_bfloat16* __restrict__ ks_pool,
-                              const __nv_bfloat16* __restrict__ vs_pool,
-                              const int* __restrict__ block_tables,
-                              const int* __restrict__ pf_qoff,
-                              const int* __restrict__ pf_qlen,
-                              const int* __restrict__ pf_qstart,
-                              __nv_bfloat16* __restrict__ out_pf, int qb,
-                              int g, int batch, int n_slices, int layer,
-                              int num_pages, int page_size, int max_pages,
-                              int n_kv_heads, float scale, float* smem) {
-  static_assert(llmq::is_int8<T>::value,
-                "bf16 pools run slice_attend()");
-  constexpr bool Q8 = llmq::is_int8<T>::value;
-  constexpr int DPL = D / 32;
-  constexpr int KSTRIDE = D + 1;
-  const int H = n_kv_heads * NREP;
-  const int gd = n_kv_heads * D;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int blk0 = qb * kQBlock;
-
-  int own = -1;
-  for (int s = 0; s < n_slices; ++s) {
-    if (blk0 >= pf_qoff[s] && blk0 < pf_qoff[s] + pf_qlen[s]) {
-      own = s;
-      break;
-    }
-  }
-  if (own < 0) {  // dead block: zeros, nothing loaded
-    for (int idx = tid; idx < kQBlock * NREP * D; idx += blockDim.x) {
-      const int t = idx / (NREP * D);
-      const int rd = idx % (NREP * D);
-      out_pf[((size_t)(blk0 + t) * H + g * NREP) * D + rd] =
-          __float2bfloat16(0.f);
-    }
-    return;
-  }
-  const int n_live = min(pf_qoff[own] + pf_qlen[own] - blk0, kQBlock);
-  const int pos0 = pf_qstart[own] + blk0 - pf_qoff[own];
-  const int* bt = block_tables + (size_t)(batch + own) * max_pages;
-  const size_t layer_row0 = (size_t)layer * num_pages * page_size;
-
-  float* Qs = smem;                      // kQBlock * NREP rows x D
-  float* Ks = Qs + kQBlock * NREP * D;   // kKeys x (D + 1)
-  float* Vs = Ks + kKeys * KSTRIDE;      // kKeys x D
-  float* P = Vs + kKeys * D + warp * NREP * kKeys;  // this warp's NREP x kKeys
-  float* Sk = Vs + kKeys * D + kWarps * NREP * kKeys;  // kKeys K scales
-  float* Sv = Sk + kKeys;                              // kKeys V scales
-
-  // Row R = t * NREP + r: token blk0 + t, head g * NREP + r.
-  for (int idx = tid; idx < kQBlock * NREP * D; idx += blockDim.x) {
-    const int t = idx / (NREP * D);
-    const int rd = idx % (NREP * D);
-    float v = 0.f;
-    if (t < n_live)
-      v = __bfloat162float(q_pf[((size_t)(blk0 + t) * H + g * NREP) * D + rd]) *
-          scale;
-    Qs[idx] = v;
-  }
-  const int kv_end = min(pos0 + n_live, max_pages * page_size);
-  const bool live_row = warp < n_live;
-  const int q_pos = pos0 + warp;
-
-  float m[NREP], l[NREP], acc[NREP][DPL];
-#pragma unroll
-  for (int r = 0; r < NREP; ++r) {
-    m[r] = -1e30f;
-    l[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[r][i] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < kv_end; k0 += kKeys) {
-    __syncthreads();  // Q written / previous tile consumed
-    for (int idx = tid; idx < kKeys * D; idx += blockDim.x) {
-      const int j = idx / D;
-      const int d = idx % D;
-      const int p = k0 + j;
-      float kv = 0.f, vv = 0.f;
-      if (p < kv_end) {
-        const int page = bt[p / page_size];
-        if (page >= 0 && page < num_pages) {
-          const size_t off =
-              (layer_row0 + (size_t)page * page_size + p % page_size) * gd +
-              g * D + d;
-          kv = llmq::to_f32(k_pool[off]);
-          vv = llmq::to_f32(v_pool[off]);
-        }
-      }
-      Ks[j * KSTRIDE + d] = kv;
-      Vs[j * D + d] = vv;
-    }
-    if constexpr (Q8) {
-      for (int j = tid; j < kKeys; j += blockDim.x) {
-        const int p = k0 + j;
-        float ks = 0.f, vs = 0.f;
-        if (p < kv_end) {
-          const int page = bt[p / page_size];
-          if (page >= 0 && page < num_pages) {
-            const size_t si = llmq::scale_index(layer, page, g, p % page_size,
-                                                num_pages, n_kv_heads,
-                                                page_size);
-            ks = __bfloat162float(ks_pool[si]);
-            vs = __bfloat162float(vs_pool[si]);
-          }
-        }
-        Sk[j] = ks;
-        Sv[j] = vs;
-      }
-    }
-    __syncthreads();
-
-    // Scores: lane j scores key k0 + j against the warp's NREP rows.
-    float s[NREP];
-#pragma unroll
-    for (int r = 0; r < NREP; ++r) s[r] = 0.f;
-    const float* krow = Ks + lane * KSTRIDE;
-    const float* qrow = Qs + warp * NREP * D;
-    for (int d = 0; d < D; d += 4) {
-      const float k0f = krow[d], k1f = krow[d + 1];
-      const float k2f = krow[d + 2], k3f = krow[d + 3];
-#pragma unroll
-      for (int r = 0; r < NREP; ++r) {
-        const float4 q4 = *reinterpret_cast<const float4*>(qrow + r * D + d);
-        s[r] += q4.x * k0f + q4.y * k1f + q4.z * k2f + q4.w * k3f;
-      }
-    }
-    const int p = k0 + lane;
-    const bool ok = live_row && p < kv_end && p <= q_pos;
-    if constexpr (Q8) {
-#pragma unroll
-      for (int r = 0; r < NREP; ++r) s[r] *= Sk[lane];
-    }
-#pragma unroll
-    for (int r = 0; r < NREP; ++r) {
-      const float sv = ok ? s[r] : -1e30f;
-      const float m_new = fmaxf(m[r], llmq::warp_max(sv));
-      const float alpha = __expf(m[r] - m_new);
-      const float pe = ok ? __expf(sv - m_new) : 0.f;
-      l[r] = l[r] * alpha + llmq::warp_sum(pe);
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[r][i] *= alpha;
-      m[r] = m_new;
-      P[r * kKeys + lane] = Q8 ? pe * Sv[lane] : pe;
-    }
-    __syncwarp();
-
-    // P @ V: lane owns dims [lane * DPL, lane * DPL + DPL).
-    for (int j = 0; j < kKeys; ++j) {
-      float vf[DPL];
-      if constexpr (DPL == 4) {
-        const float4 v4 = *reinterpret_cast<const float4*>(Vs + j * D + lane * 4);
-        vf[0] = v4.x; vf[1] = v4.y; vf[2] = v4.z; vf[3] = v4.w;
-      } else {
-        const float2 v2 = *reinterpret_cast<const float2*>(Vs + j * D + lane * 2);
-        vf[0] = v2.x; vf[1] = v2.y;
-      }
-#pragma unroll
-      for (int r = 0; r < NREP; ++r) {
-        const float pj = P[r * kKeys + j];
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) acc[r][i] += pj * vf[i];
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < NREP; ++r) {
-    const float inv = live_row ? 1.f / fmaxf(l[r], 1e-30f) : 0.f;
-    __nv_bfloat16* o =
-        out_pf + ((size_t)(blk0 + warp) * H + g * NREP + r) * D + lane * DPL;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) o[i] = __float2bfloat16(acc[r][i] * inv);
-  }
-}
-
-// k_new_scale / v_new_scale and the scale pools are nullptr for bf16.
-template <int D, int NREP, typename T>
-__global__ void __launch_bounds__(kWarps * 32)
-ragged_kernel(const __nv_bfloat16* __restrict__ q_dec,   // (B, H, D)
-              const T* __restrict__ k_new,               // (B, GD)
-              const T* __restrict__ v_new,               // (B, GD)
-              const __nv_bfloat16* __restrict__ k_new_scale,  // (B, H_kv)
-              const __nv_bfloat16* __restrict__ v_new_scale,
-              const __nv_bfloat16* __restrict__ q_pf,    // (N, H, D)
-              T* k_pool,                                 // (L, P, ps, GD)
-              T* v_pool,
-              __nv_bfloat16* ks_pool,                    // (L, P, H_kv, ps)
-              __nv_bfloat16* vs_pool,
-              const int* __restrict__ block_tables,      // (B + S, MP)
-              const int* __restrict__ seq_lens,          // (B + S,)
-              const int* __restrict__ write_page,        // (B,)
-              const int* __restrict__ pf_qoff,           // (S,)
-              const int* __restrict__ pf_qlen,           // (S,)
-              const int* __restrict__ pf_qstart,         // (S,)
-              __nv_bfloat16* __restrict__ out_dec,       // (B, H, D)
-              __nv_bfloat16* __restrict__ out_pf,        // (N, H, D)
-              int batch, int n_slices, int layer, int num_pages,
-              int page_size, int max_pages, int n_kv_heads, float scale) {
-  extern __shared__ float smem[];
-  const int n_dec = batch * n_kv_heads;
-  const int bx = blockIdx.x;
-  if (bx < n_dec) {
-    const int b = bx / n_kv_heads;
-    const int g = bx % n_kv_heads;
-    const int gd = n_kv_heads * D;
-    const size_t hd = (size_t)n_kv_heads * NREP * D;
-    const size_t si = (size_t)b * n_kv_heads + g;
-    llmq::decode_attend<D, NREP, kWarps, T>(
-        q_dec + b * hd, k_new + (size_t)b * gd + g * D,
-        v_new + (size_t)b * gd + g * D,
-        k_new_scale ? k_new_scale + si : nullptr,
-        v_new_scale ? v_new_scale + si : nullptr, k_pool, v_pool, ks_pool,
-        vs_pool, block_tables + (size_t)b * max_pages, seq_lens[b],
-        write_page[b], out_dec + b * hd, g, layer, num_pages, page_size,
-        max_pages, gd, scale, smem);
-    return;
-  }
-  const int i = bx - n_dec;
-  prefill_block<D, NREP, T>(q_pf, k_pool, v_pool, ks_pool, vs_pool,
-                            block_tables, pf_qoff, pf_qlen, pf_qstart, out_pf,
-                            i / n_kv_heads, i % n_kv_heads, batch, n_slices,
-                            layer, num_pages, page_size, max_pages,
-                            n_kv_heads, scale, smem);
-}
-
-template <int D, int NREP, typename T>
-int launch(const void* q_dec, const void* k_new, const void* v_new,
-           const void* k_new_scale, const void* v_new_scale,
-           const void* q_pf, void* k_pool, void* v_pool, void* ks_pool,
-           void* vs_pool, const void* block_tables, const void* seq_lens,
-           const void* write_page, const void* pf_qoff, const void* pf_qlen,
-           const void* pf_qstart, void* out_dec, void* out_pf, int batch,
-           int n_slices, int n_tokens, int layer, int num_pages,
-           int page_size, int max_pages, int n_kv_heads, float scale,
-           cudaStream_t stream) {
-  constexpr size_t smem = sizeof(float) * smem_floats<D, NREP>();
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        ragged_kernel<D, NREP, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
-  const int blocks = (batch + n_tokens / kQBlock) * n_kv_heads;
-  if (blocks == 0) return (int)cudaGetLastError();
-  ragged_kernel<D, NREP, T><<<blocks, kWarps * 32, smem, stream>>>(
-      (const __nv_bfloat16*)q_dec, (const T*)k_new, (const T*)v_new,
-      (const __nv_bfloat16*)k_new_scale, (const __nv_bfloat16*)v_new_scale,
-      (const __nv_bfloat16*)q_pf, (T*)k_pool, (T*)v_pool,
-      (__nv_bfloat16*)ks_pool, (__nv_bfloat16*)vs_pool,
-      (const int*)block_tables, (const int*)seq_lens,
-      (const int*)write_page, (const int*)pf_qoff, (const int*)pf_qlen,
-      (const int*)pf_qstart, (__nv_bfloat16*)out_dec, (__nv_bfloat16*)out_pf,
-      batch, n_slices, layer, num_pages, page_size, max_pages, n_kv_heads,
-      scale);
-  return (int)cudaGetLastError();
-}
-
 // Dispatch on the head geometry; cudaErrorInvalidValue for one without
-// an instantiation (D in {64, 128}, n_rep in {1, 2, 4, 8}) or for a
-// packed buffer that is not a multiple of 8 rows.
+// an instantiation (D in {64, 128}, n_rep in {1, 2, 4, 8}) or for an
+// inconsistent grid (a packed buffer that is not a multiple of 8 rows,
+// n_slice_blocks != N / 8 * H_kv, n_splits < 1).
 template <typename T>
 int dispatch(const void* q_dec, const void* k_new, const void* v_new,
              const void* k_new_scale, const void* v_new_scale,
@@ -565,21 +280,23 @@ int dispatch(const void* q_dec, const void* k_new, const void* v_new,
              void* vs_pool, const void* block_tables, const void* seq_lens,
              const void* write_page, const void* pf_qoff,
              const void* pf_qlen, const void* pf_qstart, void* out_dec,
-             void* out_pf, int batch, int n_slices, int n_tokens,
-             int n_heads, int n_kv_heads, int head_dim, int layer,
-             int num_pages, int page_size, int max_pages, float scale,
-             void* stream) {
-  if (n_tokens % kQBlock) return (int)cudaErrorInvalidValue;
+             void* out_pf, void* ws, void* counters, int batch, int n_slices,
+             int n_tokens, int n_heads, int n_kv_heads, int head_dim,
+             int layer, int num_pages, int page_size, int max_pages,
+             int n_slice_blocks, int n_splits, float scale, void* stream) {
+  if (n_tokens % kQBlock || n_splits <= 0 ||
+      n_slice_blocks != n_tokens / kQBlock * n_kv_heads)
+    return (int)cudaErrorInvalidValue;
   const int n_rep = n_heads / n_kv_heads;
   cudaStream_t s = (cudaStream_t)stream;
 #define LLMQ_CASE(DD, RR)                                                    \
   if (head_dim == DD && n_rep == RR)                                         \
-    return launch<DD, RR, T>(q_dec, k_new, v_new, k_new_scale, v_new_scale,  \
-                             q_pf, k_pool, v_pool, ks_pool, vs_pool,         \
-                             block_tables, seq_lens, write_page, pf_qoff,    \
-                             pf_qlen, pf_qstart, out_dec, out_pf, batch,     \
-                             n_slices, n_tokens, layer, num_pages,           \
-                             page_size, max_pages, n_kv_heads, scale, s);
+    return launch_split<DD, RR, T>(                                          \
+        q_dec, k_new, v_new, k_new_scale, v_new_scale, q_pf, k_pool, v_pool, \
+        ks_pool, vs_pool, block_tables, seq_lens, write_page, pf_qoff,       \
+        pf_qlen, pf_qstart, out_dec, out_pf, ws, counters, batch, n_slices,  \
+        n_slice_blocks, n_splits, layer, num_pages, page_size, max_pages,    \
+        n_kv_heads, scale, s);
   LLMQ_CASE(128, 1) LLMQ_CASE(128, 2) LLMQ_CASE(128, 4) LLMQ_CASE(128, 8)
   LLMQ_CASE(64, 1) LLMQ_CASE(64, 2) LLMQ_CASE(64, 4) LLMQ_CASE(64, 8)
 #undef LLMQ_CASE
@@ -603,40 +320,33 @@ extern "C" int llmq_ragged_mixed_attention(
     int n_heads, int n_kv_heads, int head_dim, int layer, int num_pages,
     int page_size, int max_pages, int n_slice_blocks, int n_splits,
     float scale, void* stream) {
-  if (n_tokens % kQBlock || n_splits <= 0 ||
-      n_slice_blocks != n_tokens / kQBlock * n_kv_heads)
-    return (int)cudaErrorInvalidValue;
-  const int n_rep = n_heads / n_kv_heads;
-  cudaStream_t s = (cudaStream_t)stream;
-#define LLMQ_CASE(DD, RR)                                                    \
-  if (head_dim == DD && n_rep == RR)                                         \
-    return launch_split<DD, RR>(                                             \
-        q_dec, k_new, v_new, q_pf, k_pool, v_pool, block_tables, seq_lens,   \
-        write_page, pf_qoff, pf_qlen, pf_qstart, out_dec, out_pf, ws,        \
-        counters, batch, n_slices, n_slice_blocks, n_splits, layer,          \
-        num_pages, page_size, max_pages, n_kv_heads, scale, s);
-  LLMQ_CASE(128, 1) LLMQ_CASE(128, 2) LLMQ_CASE(128, 4) LLMQ_CASE(128, 8)
-  LLMQ_CASE(64, 1) LLMQ_CASE(64, 2) LLMQ_CASE(64, 4) LLMQ_CASE(64, 8)
-#undef LLMQ_CASE
-  return (int)cudaErrorInvalidValue;
+  return dispatch<__nv_bfloat16>(
+      q_dec, k_new, v_new, nullptr, nullptr, q_pf, k_pool, v_pool, nullptr,
+      nullptr, block_tables, seq_lens, write_page, pf_qoff, pf_qlen,
+      pf_qstart, out_dec, out_pf, ws, counters, batch, n_slices, n_tokens,
+      n_heads, n_kv_heads, head_dim, layer, num_pages, page_size, max_pages,
+      n_slice_blocks, n_splits, scale, stream);
 }
 
-// Kernel 7, int8 pools: k_new_q / v_new_q (B, H_kv, D) int8 with scales
-// (B, H_kv) bf16; scale pools (L, P, H_kv, page_size) bf16. The slices'
-// int8 K/V and scales must already be in their pages.
+// Kernel 7, int8 pools: k_new_q / v_new_q (B, H_kv, D) int8, 8-byte
+// aligned rows, with scales (B, H_kv) bf16; scale pools (L, P, H_kv,
+// page_size) bf16. The slices' int8 K/V and scales must already be in
+// their pages. Grid, workspace and counters as for kernel 6, of the
+// kernel's own.
 extern "C" int llmq_ragged_mixed_attention_q8(
     const void* q_dec, const void* k_new_q, const void* k_new_scale,
     const void* v_new_q, const void* v_new_scale, const void* q_pf,
     void* k_pool, void* v_pool, void* ks_pool, void* vs_pool,
     const void* block_tables, const void* seq_lens, const void* write_page,
     const void* pf_qoff, const void* pf_qlen, const void* pf_qstart,
-    void* out_dec, void* out_pf, int batch, int n_slices, int n_tokens,
-    int n_heads, int n_kv_heads, int head_dim, int layer, int num_pages,
-    int page_size, int max_pages, float scale, void* stream) {
+    void* out_dec, void* out_pf, void* ws, void* counters, int batch,
+    int n_slices, int n_tokens, int n_heads, int n_kv_heads, int head_dim,
+    int layer, int num_pages, int page_size, int max_pages,
+    int n_slice_blocks, int n_splits, float scale, void* stream) {
   return dispatch<int8_t>(
       q_dec, k_new_q, v_new_q, k_new_scale, v_new_scale, q_pf, k_pool,
       v_pool, ks_pool, vs_pool, block_tables, seq_lens, write_page, pf_qoff,
-      pf_qlen, pf_qstart, out_dec, out_pf, batch, n_slices, n_tokens,
-      n_heads, n_kv_heads, head_dim, layer, num_pages, page_size, max_pages,
-      scale, stream);
+      pf_qlen, pf_qstart, out_dec, out_pf, ws, counters, batch, n_slices,
+      n_tokens, n_heads, n_kv_heads, head_dim, layer, num_pages, page_size,
+      max_pages, n_slice_blocks, n_splits, scale, stream);
 }

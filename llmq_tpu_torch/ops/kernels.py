@@ -70,7 +70,7 @@ _SIGNATURES = {
     },
     "fused_decode": {
         "llmq_fused_decode": [_P] * 11 + [_I] * 9 + [_F, _P],
-        "llmq_fused_decode_q8": [_P] * 13 + [_I] * 8 + [_F, _P],
+        "llmq_fused_decode_q8": [_P] * 15 + [_I] * 9 + [_F, _P],
     },
     "prefill_attention": {
         "llmq_prefill_attention": [_P] * 5 + [_I] * 9 + [_F, _P],
@@ -80,7 +80,7 @@ _SIGNATURES = {
     },
     "ragged_attention": {
         "llmq_ragged_mixed_attention": [_P] * 16 + [_I] * 12 + [_F, _P],
-        "llmq_ragged_mixed_attention_q8": [_P] * 18 + [_I] * 10 + [_F, _P],
+        "llmq_ragged_mixed_attention_q8": [_P] * 20 + [_I] * 12 + [_F, _P],
     },
 }
 
@@ -100,16 +100,17 @@ BUILD_LOGS: Dict[str, str] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _BUILD_LOCK = threading.Lock()
 
-#: Positions per split block of the split-K decode body (kernels 1 and 8
-#: and kernel 6's decode blocks) for a row that fills its block table (a
-#: multiple of 64, the body's tile); a shorter row takes fewer, shorter
-#: splits. Chosen on the card for kernel 1 (PERF.md).
+#: Positions per split block of the split-K decode body (kernels 1, 5 and
+#: 8 and the decode blocks of kernels 6 and 7) for a row that fills its
+#: block table (a multiple of 64, the body's tile); a shorter row takes
+#: fewer, shorter splits. Chosen on the card for kernel 1 (PERF.md).
 FUSED_DECODE_CHUNK = 128
 
 #: The kernels that launch the split-K decode body, each with workspaces
 #: of its own.
 SPLIT_KERNELS = ("fused_decode", "paged_decode_attention",
-                 "ragged_mixed_attention")
+                 "ragged_mixed_attention", "fused_decode_q8",
+                 "ragged_mixed_attention_q8")
 
 #: (kernel, device, B, H_kv, n_rep, D, n_splits) → (workspace, counters)
 #: of a split-K launch, made once with ``torch.zeros``.
@@ -255,10 +256,10 @@ def _check_q8_pools(k_pool: torch.Tensor, v_pool: torch.Tensor,
 def _check_new_q8(B: int, Hkv: int, D: int, kq: torch.Tensor,
                   ks: torch.Tensor, vq: torch.Tensor,
                   vs: torch.Tensor) -> None:
-    """Pre-quantized decode rows: int8 (B, H_kv, D), bf16 scales
-    (B, H_kv)."""
+    """Pre-quantized decode rows: int8 (B, H_kv, D), 8-byte aligned (the
+    kernels copy a row in 8-byte pieces), bf16 scales (B, H_kv)."""
     for t, name in ((kq, "k_new_q"), (vq, "v_new_q")):
-        _check(t, name, torch.int8, align=4)
+        _check(t, name, torch.int8, align=8)
         if t.numel() != B * Hkv * D:
             raise ValueError(f"{name} must hold (B, H_kv, D) = "
                              f"({B}, {Hkv}, {D})")
@@ -287,8 +288,10 @@ def _raise_on(rc: int, what: str) -> None:
 
 def fused_decode_splits(max_pages: int, page_size: int) -> int:
     """Split blocks per (row, KV head) of the split-K decode body
-    (:func:`fused_decode`, :func:`paged_decode_attention` and the decode
-    range of :func:`ragged_mixed_attention`): enough chunks of
+    (:func:`fused_decode`, :func:`fused_decode_q8`,
+    :func:`paged_decode_attention` and the decode ranges of
+    :func:`ragged_mixed_attention` and
+    :func:`ragged_mixed_attention_q8`): enough chunks of
     :data:`FUSED_DECODE_CHUNK` positions to cover a full block table.
     From shapes only, so the launch never waits on ``seq_lens``; the
     kernel cuts each row into that many chunks or fewer, each a multiple
@@ -579,7 +582,11 @@ def fused_decode_q8(q: torch.Tensor, k_new_q: torch.Tensor,
 
     Replaces ``fused_decode_attention_q8_pallas`` (llmq_tpu/ops/pallas/
     fused_decode.py). Bound by bytes: half kernel 1's K/V bytes plus 4
-    bytes of scales per cached (position, head) (csrc/fused_decode.cu)."""
+    bytes of scales per cached (position, head). Kernel 1's split-K body
+    over int8 pools: each int8 tile is converted to bf16 in shared memory
+    beside its scales and scored on the tensor cores, the splits merged
+    in the launch through this kernel's own :func:`split_workspace`
+    (csrc/fused_decode.cu, csrc/decode_attention.cuh)."""
     if _on_cpu(q, k_new_q, k_new_scale, v_new_q, v_new_scale, k_pool,
                v_pool, k_scale_pool, v_scale_pool, block_tables, seq_lens,
                write_page):
@@ -599,14 +606,17 @@ def fused_decode_q8(q: torch.Tensor, k_new_q: torch.Tensor,
     _check(block_tables, "block_tables", torch.int32, (B, MP))
     _check(seq_lens, "seq_lens", torch.int32, (B,))
     _check(write_page, "write_page", torch.int32, (B,))
+    n_splits = fused_decode_splits(MP, ps)
+    ws, counters = split_workspace("fused_decode_q8", q.device, B, Hkv,
+                                   H // Hkv, D, n_splits)
     out = torch.empty_like(q)
     rc = _fn("fused_decode", "llmq_fused_decode_q8")(
         q.data_ptr(), k_new_q.data_ptr(), k_new_scale.data_ptr(),
         v_new_q.data_ptr(), v_new_scale.data_ptr(), k_pool.data_ptr(),
         v_pool.data_ptr(), k_scale_pool.data_ptr(), v_scale_pool.data_ptr(),
         block_tables.data_ptr(), seq_lens.data_ptr(), write_page.data_ptr(),
-        out.data_ptr(), B, H, Hkv, D, layer, P, ps, MP, D ** -0.5,
-        _stream(q))
+        out.data_ptr(), ws.data_ptr(), counters.data_ptr(), B, H, Hkv, D,
+        layer, P, ps, MP, n_splits, D ** -0.5, _stream(q))
     _raise_on(rc, "fused_decode_q8")
     LAUNCHES["fused_decode_q8"] += 1
     return out
@@ -656,13 +666,13 @@ def fused_decode_q8_plain(q: torch.Tensor, k_new_q: torch.Tensor,
 
 def ragged_grid(n_tokens: int, n_kv_heads: int, max_pages: int,
                 page_size: int) -> Tuple[int, int]:
-    """Kernel 6's 1-D grid: ``(slice blocks, decode splits)``. The slice
-    range comes first, one block per (8-row q-block of the packed
-    buffer, KV head); then ``decode splits`` blocks per (decode row, KV
-    head), as many as :func:`fused_decode_splits` gives kernel 1. From
-    shapes only; the launch has ``slice blocks + B * H_kv * decode
-    splits`` blocks. The q-block is ``ops/attention.RAGGED_Q_BLOCK``
-    (``kQBlock`` in the source)."""
+    """The 1-D grid of kernels 6 and 7: ``(slice blocks, decode
+    splits)``. The slice range comes first, one block per (8-row q-block
+    of the packed buffer, KV head); then ``decode splits`` blocks per
+    (decode row, KV head), as many as :func:`fused_decode_splits` gives
+    kernel 1. From shapes only; the launch has ``slice blocks + B * H_kv
+    * decode splits`` blocks. The q-block is
+    ``ops/attention.RAGGED_Q_BLOCK`` (``kQBlock`` in the source)."""
     from llmq_tpu_torch.ops.attention import RAGGED_Q_BLOCK
 
     if n_tokens % RAGGED_Q_BLOCK:
@@ -793,9 +803,12 @@ def ragged_mixed_attention_q8(q_dec: torch.Tensor, k_new_q: torch.Tensor,
     slice are zeros.
 
     Replaces ``ragged_mixed_attention_q8_pallas`` (llmq_tpu/ops/pallas/
-    ragged_paged_attention.py). Decode blocks are bound by bytes, slice
-    blocks by bytes or operations with the history's length
-    (csrc/ragged_attention.cu)."""
+    ragged_paged_attention.py). Kernel 6's design over int8 pools (the
+    grid of :func:`ragged_grid`, split decode blocks merged through this
+    kernel's own :func:`split_workspace`, tensor-core slice blocks), each
+    int8 tile converted to bf16 in shared memory beside its scales.
+    Decode blocks are bound by bytes, slice blocks by bytes or operations
+    with the history's length (csrc/ragged_attention.cu)."""
     if _on_cpu(q_dec, k_new_q, k_new_scale, v_new_q, v_new_scale, q_pf,
                k_pool, v_pool, k_scale_pool, v_scale_pool, block_tables,
                seq_lens, write_page, pf_qoff, pf_qlen, pf_qstart):
@@ -810,11 +823,10 @@ def ragged_mixed_attention_q8(q_dec: torch.Tensor, k_new_q: torch.Tensor,
     L, P, ps, GD = k_pool.shape
     Hkv = GD // D
     _check_heads(H, Hkv, D)
-    if N % 8:
-        raise ValueError(f"packed buffer N={N} must be a multiple of 8")
     MP = block_tables.shape[1] if block_tables.dim() == 2 else -1
+    n_slice_blocks, n_splits = ragged_grid(N, Hkv, MP, ps)
     _check(q_dec, "q_dec", torch.bfloat16, (B, H, D), align=8)
-    _check(q_pf, "q_pf", torch.bfloat16, (N, H, D))
+    _check(q_pf, "q_pf", torch.bfloat16, (N, H, D), align=16)
     _check_new_q8(B, Hkv, D, k_new_q, k_new_scale, v_new_q, v_new_scale)
     _check(block_tables, "block_tables", torch.int32, (B + S, MP))
     _check(seq_lens, "seq_lens", torch.int32, (B + S,))
@@ -822,6 +834,9 @@ def ragged_mixed_attention_q8(q_dec: torch.Tensor, k_new_q: torch.Tensor,
     for t, name in ((pf_qoff, "pf_qoff"), (pf_qlen, "pf_qlen"),
                     (pf_qstart, "pf_qstart")):
         _check(t, name, torch.int32, (S,))
+    ws, counters = split_workspace("ragged_mixed_attention_q8",
+                                   q_dec.device, B, Hkv, H // Hkv, D,
+                                   n_splits)
     out_dec = torch.empty_like(q_dec)
     out_pf = torch.empty_like(q_pf)
     rc = _fn("ragged_attention", "llmq_ragged_mixed_attention_q8")(
@@ -831,7 +846,8 @@ def ragged_mixed_attention_q8(q_dec: torch.Tensor, k_new_q: torch.Tensor,
         v_scale_pool.data_ptr(), block_tables.data_ptr(),
         seq_lens.data_ptr(), write_page.data_ptr(), pf_qoff.data_ptr(),
         pf_qlen.data_ptr(), pf_qstart.data_ptr(), out_dec.data_ptr(),
-        out_pf.data_ptr(), B, S, N, H, Hkv, D, layer, P, ps, MP, D ** -0.5,
+        out_pf.data_ptr(), ws.data_ptr(), counters.data_ptr(), B, S, N, H,
+        Hkv, D, layer, P, ps, MP, n_slice_blocks, n_splits, D ** -0.5,
         _stream(q_dec))
     _raise_on(rc, "ragged_mixed_attention_q8")
     LAUNCHES["ragged_mixed_attention_q8"] += 1

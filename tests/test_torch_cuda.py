@@ -495,19 +495,19 @@ def test_new_wrappers_raise_on_uninstantiated_geometry():
 Q8_ATOL = 3e-2   # the JAX package's int8 kernel-vs-plain tolerance
 
 
-def _q8(x):
+def _q8(x, d=D):
     """bf16 (..., GD) rows → int8 rows (..., GD) and per-head bf16 scales
     (..., H_kv), through the port's own row quantization."""
     from llmq_tpu_torch.ops.quant import quantize_kv_rows
 
-    q, s = quantize_kv_rows(x.reshape(*x.shape[:-1], -1, D))
+    q, s = quantize_kv_rows(x.reshape(*x.shape[:-1], -1, d))
     return q.reshape(x.shape).contiguous(), s.contiguous()
 
 
-def _q8_pools(kp, vp):
+def _q8_pools(kp, vp, d=D):
     """bf16 pools (L, P, ps, GD) → int8 pools and (L, P, H_kv, ps) scale
     pools."""
-    (kq, ks), (vq, vs) = _q8(kp), _q8(vp)
+    (kq, ks), (vq, vs) = _q8(kp, d), _q8(vp, d)
     return (kq, vq, ks.transpose(2, 3).contiguous(),
             vs.transpose(2, 3).contiguous())
 
@@ -568,6 +568,126 @@ def test_ragged_mixed_attention_q8_matches_twin(h):
     assert torch.all(a_p[~live] == 0)
     for x, y in zip(p1, p2):
         assert torch.equal(x, y)
+
+
+@needs_cuda
+@pytest.mark.parametrize("n_rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("D_", [64, 128])
+def test_fused_decode_q8_splits_match_twin_twice(D_, n_rep):
+    """Kernel 5 (kernel 1's split-K body over int8 pools) at seq_lens 0,
+    1, the 64-position tile's and the 128-position chunk's edges and
+    2000, plus an inactive row writing the null page: two launches on the
+    same cached workspace give the same output, within 3e-2 and REL_TOL
+    of the twin's scale; int8 pools and scale pools bit-exact; the empty
+    row exactly 0; its counters back at 0 and apart from kernel 1's."""
+    gen = torch.Generator(device="cuda").manual_seed(D_ * 40 + n_rep)
+    mp = 128
+    lens = SPLIT_LENS + [5]
+    kp, vp, bt, sl, wp, _ = _split_rows(gen, D_, lens, mp)
+    wp[-1] = 0                                   # inactive: null page
+    bt, sl, wp = bt.cuda(), sl.cuda(), wp.cuda()
+    pools = _q8_pools(kp, vp, D_)
+    B, H_ = len(lens), HKV * n_rep
+    q = _rand((B, H_, D_), gen)
+    (kq, ks), (vq, vs) = (_q8(_rand((B, HKV * D_), gen), D_)
+                          for _ in range(2))
+    p1 = [t.clone() for t in pools]
+    p2 = [t.clone() for t in pools]
+    before = kernels.LAUNCHES["fused_decode_q8"]
+    a1 = kernels.fused_decode_q8(q, kq, ks, vq, vs, *p1, bt, sl, wp, 1)
+    a2 = kernels.fused_decode_q8(q, kq, ks, vq, vs, *p1, bt, sl, wp, 1)
+    b = kernels.fused_decode_q8_plain(q, kq, ks, vq, vs, *p2, bt, sl, wp, 1)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fused_decode_q8"] == before + 2
+    assert torch.isfinite(a1).all()
+    live = slice(1, B - 1)
+    assert (a1[live].float() - b[live].float()).abs().max().item() <= Q8_ATOL
+    assert _scaled_err(a1[live], b[live]) <= REL_TOL
+    assert torch.equal(a1[:B - 1], a2[:B - 1])
+    assert torch.all(a1[0] == 0) and torch.all(a2[0] == 0)
+    for x, y in zip(p1, p2):
+        assert torch.equal(x, y)
+    n_splits = kernels.fused_decode_splits(mp, PS)
+    ws, counters = kernels.split_workspace("fused_decode_q8", q.device, B,
+                                           HKV, n_rep, D_, n_splits)
+    assert not counters.any()
+    ws1, _ = kernels.split_workspace("fused_decode", q.device, B, HKV, n_rep,
+                                     D_, n_splits)
+    assert ws.data_ptr() != ws1.data_ptr()
+
+
+@needs_cuda
+@pytest.mark.parametrize("n_rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("D_", [64, 128])
+def test_ragged_q8_split_and_tensor_core_blocks_match_twin_twice(D_, n_rep):
+    """Kernel 7 (kernel 6's design over int8 pools): decode rows of
+    lengths 0 to 2000 and an inactive row as split blocks; a fresh slice,
+    a slice at position 300 and a 128-token slice at 1920 as tensor-core
+    slice blocks, plus an unused slice row; launched twice on one
+    workspace. Outputs within 3e-2 and REL_TOL of the twin, equal across
+    the two launches; rows outside the slices and the empty decode row
+    exactly 0; the four pools bit-exact; counters back at 0."""
+    gen = torch.Generator(device="cuda").manual_seed(D_ * 50 + n_rep)
+    mp = 128
+    dec_lens = [0, 1, 63, 65, 129, 2000]
+    slices = [(0, 13), (300, 37), (1920, 128), (0, 0)]    # (qstart, qlen)
+    kp, vp, bt_d, sl_d, wp, nxt = _split_rows(
+        gen, D_, dec_lens, mp,
+        extra_pages=sum(-(-(st + n) // PS) for st, n in slices))
+    bt_s = torch.zeros((len(slices), mp), dtype=torch.int32)
+    for s, (st, n) in enumerate(slices):
+        pages = -(-(st + n) // PS)
+        bt_s[s, :pages] = torch.arange(nxt, nxt + pages, dtype=torch.int32)
+        nxt += pages
+    # An inactive row: 5 positions on the null page, writing slot 4.
+    bt = torch.cat([bt_d, torch.zeros((1, mp), dtype=torch.int32), bt_s])
+    sl = torch.cat([sl_d, torch.tensor([5], dtype=torch.int32),
+                    torch.tensor([st + n for st, n in slices],
+                                 dtype=torch.int32)])
+    wp = torch.cat([wp, torch.zeros(1, dtype=torch.int32)])
+    B = len(dec_lens) + 1
+    qoff = torch.tensor([0, 16, 56, 0], dtype=torch.int32)
+    qlen = torch.tensor([n for _, n in slices], dtype=torch.int32)
+    qstart = torch.tensor([st for st, _ in slices], dtype=torch.int32)
+    N = 192
+    H_ = HKV * n_rep
+    q_dec, q_pf = _rand((B, H_, D_), gen), _rand((N, H_, D_), gen)
+    (kq, ks), (vq, vs) = (_q8(_rand((B, HKV * D_), gen), D_)
+                          for _ in range(2))
+    pools = _q8_pools(kp, vp, D_)
+    args = [t.cuda() for t in (bt, sl, wp, qoff, qlen, qstart)]
+    p1 = [t.clone() for t in pools]
+    p2 = [t.clone() for t in pools]
+    before = kernels.LAUNCHES["ragged_mixed_attention_q8"]
+    a_d, a_p = kernels.ragged_mixed_attention_q8(q_dec, kq, ks, vq, vs, q_pf,
+                                                 *p1, *args, 1)
+    a_d2, a_p2 = kernels.ragged_mixed_attention_q8(q_dec, kq, ks, vq, vs,
+                                                   q_pf, *p1, *args, 1)
+    b_d, b_p = kernels.ragged_mixed_attention_q8_plain(q_dec, kq, ks, vq, vs,
+                                                       q_pf, *p2, *args, 1)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ragged_mixed_attention_q8"] == before + 2
+    assert torch.isfinite(a_d).all() and torch.isfinite(a_p).all()
+    dec = slice(1, len(dec_lens))
+    assert (a_d[dec].float() - b_d[dec].float()).abs().max().item() \
+        <= Q8_ATOL
+    assert _scaled_err(a_d[dec], b_d[dec]) <= REL_TOL
+    assert torch.all(a_d[0] == 0)
+    live = torch.zeros(N, dtype=torch.bool, device="cuda")
+    for off, n in ((0, 13), (16, 37), (56, 128)):
+        live[off:off + n] = True
+    assert (a_p[live].float() - b_p[live].float()).abs().max().item() \
+        <= Q8_ATOL
+    assert _scaled_err(a_p[live], b_p[live]) <= REL_TOL
+    assert torch.all(a_p[~live] == 0)
+    assert torch.equal(a_d[:B - 1], a_d2[:B - 1]) and torch.equal(a_p, a_p2)
+    for x, y in zip(p1, p2):
+        assert torch.equal(x, y)
+    _, splits = kernels.ragged_grid(N, HKV, mp, PS)
+    _, counters = kernels.split_workspace("ragged_mixed_attention_q8",
+                                          q_dec.device, B, HKV, n_rep, D_,
+                                          splits)
+    assert not counters.any()
 
 
 @needs_cuda

@@ -456,12 +456,13 @@ def test_split_workspace_is_made_once_per_geometry(changed):
 
 @pytest.mark.parametrize("geometry", [GEOMETRY, (8, 8, 4, 128, 16)])
 def test_split_workspace_is_one_per_kernel(geometry):
-    """Kernels 1, 8 and 6 get three distinct workspaces and counter
+    """Kernels 1, 8, 6, 5 and 7 get five distinct workspaces and counter
     arrays for one geometry, each reused by its own kernel's later
     calls; a name that is no split kernel's is refused."""
     names = kernels.SPLIT_KERNELS
     assert names == ("fused_decode", "paged_decode_attention",
-                     "ragged_mixed_attention")
+                     "ragged_mixed_attention", "fused_decode_q8",
+                     "ragged_mixed_attention_q8")
     made = [kernels.split_workspace(k, "cpu", *geometry) for k in names]
     assert len({id(ws) for ws, _ in made}) == len(names)
     assert len({id(c) for _, c in made}) == len(names)
@@ -469,9 +470,30 @@ def test_split_workspace_is_one_per_kernel(geometry):
     for k, (ws, counters) in zip(names, made):
         again = kernels.split_workspace(k, "cpu", *geometry)
         assert again[0] is ws and again[1] is counters
-    for name in ("decode", "fused_decode_q8"):
+    for name in ("decode", "paged_decode_attention_q8"):
         with pytest.raises(ValueError, match="no split workspace"):
             kernels.split_workspace(name, "cpu", *geometry)
+
+
+@pytest.mark.parametrize("q8", ["fused_decode_q8",
+                                "ragged_mixed_attention_q8"])
+@pytest.mark.parametrize("geometry", [GEOMETRY, (8, 8, 4, 128, 16)])
+def test_split_workspace_of_int8_kernels_is_their_own(q8, geometry):
+    """Kernels 5 and 7 each get a workspace and counters of their own,
+    apart from the bf16 kernels' (and each other's) at the same
+    geometry, shaped as kernel 1's; a name with a typo is refused."""
+    ws, counters = kernels.split_workspace(q8, "cpu", *geometry)
+    B, hkv, n_rep, d, splits = geometry
+    assert tuple(ws.shape) == (B, hkv, splits, n_rep * (d + 2))
+    assert tuple(counters.shape) == (B, hkv) and not counters.any()
+    for other in kernels.SPLIT_KERNELS:
+        if other == q8:
+            continue
+        o_ws, o_counters = kernels.split_workspace(other, "cpu", *geometry)
+        assert o_ws.data_ptr() != ws.data_ptr()
+        assert o_counters.data_ptr() != counters.data_ptr()
+    with pytest.raises(ValueError, match="no split workspace"):
+        kernels.split_workspace(q8.upper(), "cpu", *geometry)
 
 
 @pytest.mark.parametrize("N,hkv,max_pages,page_size,slice_blocks,splits", [
@@ -795,41 +817,66 @@ def _same_pools(t_pools, j_pools, first_page=0):
             np.asarray(j, np.float32)[:, first_page:])
 
 
-def test_fused_decode_q8_twin_matches_pallas():
-    """Kernel 5 on tests/test_pallas.py's int8 geometry (B=8, H=16,
-    H_kv=8, D=16, page size 8, 4 pages a row): two history tokens a row
-    written by the JAX plain route, then the Pallas kernel (interpret
-    mode) and the port's twin from the same pools."""
+#: Kernel 5's twin against Pallas: "history" is tests/test_pallas.py's
+#: int8 geometry with history written by the JAX plain route; the other
+#: rows cross a page edge (page size 8) and the split body's 64-position
+#: tile, 16 pages a row, over random int8 pools.
+_Q8_DECODE_CASES = {
+    "history": None,
+    "page_and_tile_edges": [1, 8, 9, 63, 64, 65, 128],
+}
+
+
+@pytest.mark.parametrize("case", list(_Q8_DECODE_CASES))
+def test_fused_decode_q8_twin_matches_pallas(case):
+    """Kernel 5 at H=16, H_kv=8, D=16, page size 8: the Pallas kernel
+    (interpret mode) and the port's twin from the same pools; attention
+    within 3e-2, the four pools bit-exact."""
     from llmq_tpu.ops.pallas.fused_decode import (
         fused_decode_attention_q8_pallas)
     from llmq_tpu.ops.quant import quantize_kv_rows
 
     rng = np.random.default_rng(7)
-    B, Hkv, d, h, ps, mp, L, P = 8, 8, 16, 16, 8, 4, 2, 33
+    Hkv, d, h, ps, L = 8, 16, 16, 8, 2
     gd = Hkv * d
-    pools = (jnp.zeros((L, P, ps, gd), jnp.int8),
-             jnp.zeros((L, P, ps, gd), jnp.int8),
-             jnp.zeros((L, P, Hkv, ps), jnp.bfloat16),
-             jnp.zeros((L, P, Hkv, ps), jnp.bfloat16))
-    hist = [jnp.asarray(rng.standard_normal((B, 3, Hkv, d)), jnp.float32)
-            for _ in range(2)]
-    bt = jnp.asarray(rng.permutation(np.arange(1, P))[:B * mp].reshape(B, mp),
-                     jnp.int32)
-    positions = jnp.asarray([0, 3, 7, 8, 15, 20, 25, 29], jnp.int32)
-    q = jnp.asarray(rng.standard_normal((B, h, d)), jnp.bfloat16)
-    for step in range(2):
-        pos = positions + step
-        _, pools = jattn.paged_decode_step_q8(
-            q, hist[0][:, step], hist[1][:, step], pools, bt, pos + 1,
-            bt[jnp.arange(B), pos // ps], pos % ps, 1)
-    pos = positions + 2
-    seq_lens, page_of = pos + 1, bt[jnp.arange(B), pos // ps]
-    kq, ksc = quantize_kv_rows(hist[0][:, 2])
-    vq, vsc = quantize_kv_rows(hist[1][:, 2])
+    lens = _Q8_DECODE_CASES[case]
+    if lens is None:
+        # Two history tokens a row written by the JAX plain route.
+        B, mp, P, ppc = 8, 4, 33, 2
+        pools = (jnp.zeros((L, P, ps, gd), jnp.int8),
+                 jnp.zeros((L, P, ps, gd), jnp.int8),
+                 jnp.zeros((L, P, Hkv, ps), jnp.bfloat16),
+                 jnp.zeros((L, P, Hkv, ps), jnp.bfloat16))
+        hist = [jnp.asarray(rng.standard_normal((B, 3, Hkv, d)), jnp.float32)
+                for _ in range(2)]
+        bt = jnp.asarray(rng.permutation(np.arange(1, P))[:B * mp]
+                         .reshape(B, mp), jnp.int32)
+        positions = jnp.asarray([0, 3, 7, 8, 15, 20, 25, 29], jnp.int32)
+        q = jnp.asarray(rng.standard_normal((B, h, d)), jnp.bfloat16)
+        for step in range(2):
+            pos = positions + step
+            _, pools = jattn.paged_decode_step_q8(
+                q, hist[0][:, step], hist[1][:, step], pools, bt, pos + 1,
+                bt[jnp.arange(B), pos // ps], pos % ps, 1)
+        new = [hist[0][:, 2], hist[1][:, 2]]
+        seq_lens = positions + 3
+    else:
+        B, mp, ppc = len(lens), 16, 4
+        P = B * mp + 1
+        pools = _q8_pools(rng, L, P, ps, Hkv, d)
+        bt = jnp.asarray(rng.permutation(np.arange(1, P))[:B * mp]
+                         .reshape(B, mp), jnp.int32)
+        q = jnp.asarray(rng.standard_normal((B, h, d)), jnp.bfloat16)
+        new = [jnp.asarray(rng.standard_normal((B, Hkv, d)), jnp.float32)
+               for _ in range(2)]
+        seq_lens = jnp.asarray(lens, jnp.int32)
+    page_of = bt[jnp.arange(B), (seq_lens - 1) // ps]
+    kq, ksc = quantize_kv_rows(new[0])
+    vq, vsc = quantize_kv_rows(new[1])
     t_pools = [_tt(p) for p in pools]
     j_attn, j_pools = fused_decode_attention_q8_pallas(
         q, kq, ksc, vq, vsc, pools, bt, seq_lens, page_of, 1,
-        pages_per_chunk=2, interpret=True)
+        pages_per_chunk=ppc, interpret=True)
     t_attn = kernels.fused_decode_q8(
         _tt(q), _tt(kq), _tt(ksc), _tt(vq), _tt(vsc), *t_pools, _tt(bt),
         _tt(seq_lens), _tt(page_of), 1)
@@ -1030,4 +1077,28 @@ def test_q8_wrappers_count_no_launch_on_cpu():
     before = dict(kernels.LAUNCHES)
     kernels.fused_decode_q8(_t(q).bfloat16(), kq, ks, vq, vs, *t_pools,
                             _t(bt), _t(sl), _t(wp), 0)
+    assert kernels.LAUNCHES == before
+
+
+def test_q8_wrappers_on_cpu_make_no_workspace():
+    """CPU tensors take the int8 twins of kernels 5 and 7: no split
+    workspace is made and no launch is counted."""
+    from llmq_tpu_torch.ops.quant import quantize_kv_rows
+
+    rng = np.random.default_rng(22)
+    t_pools = [_tt(p) for p in _q8_pools(rng, 1, 12, PS, HKV, D)]
+    # Two decode rows, then one 5-token slice from position 0.
+    q, kn, vn, bt, sl, wp = _decode_case(rng, [3, 17, 5], P=12, mp=2)
+    (kq, ks), (vq, vs) = (quantize_kv_rows(_t(x[:2])) for x in (kn, vn))
+    q_dec = _t(q[:2]).bfloat16()
+    q_pf = torch.zeros((8, H, D), dtype=torch.bfloat16)
+    q_pf[:5] = _t(rng.standard_normal((5, H, D)).astype(np.float32))
+    descr = [torch.tensor([v], dtype=torch.int32) for v in (0, 5, 0)]
+    made = dict(kernels._SPLIT_WORKSPACES)
+    before = dict(kernels.LAUNCHES)
+    kernels.fused_decode_q8(q_dec, kq, ks, vq, vs, *t_pools, _t(bt[:2]),
+                            _t(sl[:2]), _t(wp[:2]), 0)
+    kernels.ragged_mixed_attention_q8(q_dec, kq, ks, vq, vs, q_pf, *t_pools,
+                                      _t(bt), _t(sl), _t(wp[:2]), *descr, 0)
+    assert kernels._SPLIT_WORKSPACES == made
     assert kernels.LAUNCHES == before
