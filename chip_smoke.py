@@ -35,6 +35,8 @@ shows where it happened):
                  ``REL_TOL`` of the twin's RMS, which a control with one
                  page of keys wrong must fail) and timed beside decode
                  and causal SDPA (two calls each over int8 pools).
+                 Beside kernel 4, the device time of an empty kernel
+                 (``torch.cuda._sleep(0)``): the launch floor.
 4. split      — one decode step through ``paged_decode_step(fused=False)``
                  (row-write kernel + decode-attention kernel) against
                  ``fused=True``: same attention within ``ATOL``, identical
@@ -44,7 +46,16 @@ shows where it happened):
                  continuation chunk), decode, ``forward_mixed`` and
                  ``forward_mixed_ragged`` on the card against the same
                  model on the CPU (plain twins).
-6. serve      — llama3-8b bf16 at full width and depth, random weights
+6. graphs     — the decode step as a CUDA graph on five llama3-8b
+                 engines built with ``warmup=True`` (bf16 default, the
+                 same on the split route, bf16 ragged, int8 weights +
+                 int8 KV default and ragged): a B=8, 16-step chunk run
+                 eagerly and replayed, per step wall and device busy,
+                 device kernels and the host's kernel and graph
+                 launches, the graph pool's bytes; greedy streams must
+                 agree token for token (also with budgets 0..16), and
+                 each step must be one replay.
+7. serve      — llama3-8b bf16 at full width and depth, random weights
                  from a seed, served by the port's REST server with mixed
                  batching on (the default): messages across all four
                  priorities, a two-turn conversation, and four ~600-token
@@ -56,8 +67,11 @@ shows where it happened):
                  prefill plus a decode chunk. Then a second engine on the
                  same weights with ragged attention on serves the same
                  mix: the ragged kernel and the prefill write launch, the
-                 bucket prefill attention does not.
-7. serve-int8 — llama3-8b with int8 weights and int8 KV at full width and
+                 bucket prefill attention does not. Each engine is built
+                 with ``warmup=True``; its calibrated step time and the
+                 realtime admission cap it sets are printed, and TTFT and
+                 the B=1 rate are medians of three requests.
+8. serve-int8 — llama3-8b with int8 weights and int8 KV at full width and
                  depth (``LLMQ_MODEL_QUANTIZATION=int8
                  LLMQ_MODEL_KV_QUANTIZATION=int8``), the same REST mix:
                  kernel 5 launches and no bf16-pool kernel does; then a
@@ -65,7 +79,9 @@ shows where it happened):
                  on: kernel 7 launches. Rates, the decode breakdown,
                  weight bytes and peak memory.
 
-No ``*_plain`` twin may be called while serving.
+No ``*_plain`` twin may be called while serving. On the card every
+decode step is a replay of the executor's captured step; the launch
+counts add each replay's kernels.
 
 Exits non-zero on any failure. On success the last lines are the kernel
 table as JSON, the card's name and power limit, and
@@ -147,19 +163,37 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     kernels it launched over ``iters`` calls (torch.profiler, device
     events only), divided by ``iters``. Gaps while the host prepares the
     next launch are not counted — at these sizes a CUDA-event loop would
-    measure the Python wrapper, not the kernel."""
+    measure the Python wrapper, not the kernel. Every call launches a
+    kernel at least, so a trace with fewer kernels than calls lost
+    events: it is taken again, twice at most, then the script fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(i)
-        torch.cuda.synchronize()
-    return _device_us(prof) / 1e3 / iters
+    for _attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(i)
+            torch.cuda.synchronize()
+        n = _kernel_events(prof)
+        if n >= iters:
+            return _device_us(prof) / 1e3 / iters
+        log(f"[trace] {n} kernels recorded for {iters} calls: tracing "
+            f"again")
+    raise AssertionError(f"the profiler recorded {n} kernels for {iters} "
+                         f"calls, three times")
+
+
+def _kernel_events(prof) -> int:
+    """Kernels in a trace (device events that are not copies or sets)."""
+    import torch
+
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith(("Memcpy", "Memset")))
 
 
 def _device_trace(fn):
@@ -474,6 +508,12 @@ def phase_kernels(state) -> None:
     _record(state, "kv_cache_write", "llmq_tpu_torch/csrc/kv_write.cu",
             "llmq_tpu/ops/pallas/kv_write.py:126", 0.0, ms4, plain4, bms, by,
             lib4_ms)
+    # The launch floor: the device time of a kernel that does nothing.
+    floor = device_ms(lambda i: torch.cuda._sleep(0))
+    state["launch_floor_ms"] = floor
+    log(f"[kernels] launch floor: an empty kernel (torch.cuda._sleep(0)) "
+        f"takes {floor:.4f} ms of device time, kv_cache_write {ms4:.4f} ms "
+        f"({CARD})")
     del kp1, vp1
     _kernel_paged_decode(state, gen, k_pool, v_pool)
     _kernel_ragged(state, gen, k_pool, v_pool)
@@ -1537,19 +1577,182 @@ def _check_completed(results, what: str) -> int:
     return sum(m["metadata"]["usage"]["completion_tokens"] for m in results)
 
 
-def _b1_rates(engine):
+def _b1_rates(engine, tag: str):
     """TTFT and decode rate of one request alone (90-token prompt, 32
-    new tokens)."""
+    new tokens): the medians of three requests, one after another."""
     from llmq_tpu_torch.engine.engine import GenRequest
 
     prompt = "The quick brown fox jumps over the lazy dog. " * 2
-    h = engine.submit(GenRequest(id=f"ttft-{time.time()}", prompt=prompt,
-                                 max_new_tokens=32))
-    assert h.wait(120), "ttft request timed out"
-    ttft = h.marks["first_token"] - h.submitted_at
-    rate = (len(h.result.tokens) - 1) / (h.finished_at
-                                         - h.marks["first_token"])
-    return ttft, rate, h.result.prompt_tokens
+    ttfts, rates = [], []
+    for i in range(3):
+        h = engine.submit(GenRequest(id=f"ttft-{i}-{time.time()}",
+                                     prompt=prompt, max_new_tokens=32))
+        assert h.wait(120), "ttft request timed out"
+        ttfts.append(h.marks["first_token"] - h.submitted_at)
+        rates.append((len(h.result.tokens) - 1)
+                     / (h.finished_at - h.marks["first_token"]))
+    log(f"[{tag}] B=1: TTFT {', '.join(f'{t * 1e3:.1f}' for t in ttfts)} ms; "
+        f"decode {', '.join(f'{r:.1f}' for r in rates)} tok/s")
+    return sorted(ttfts)[1], sorted(rates)[1], h.result.prompt_tokens
+
+
+#: Host-side CUDA runtime calls that launch work, as torch.profiler names
+#: them: kernel launches, and graph launches.
+KERNEL_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                       "cuLaunchKernel", "cuLaunchKernelEx")
+GRAPH_LAUNCH_CALLS = ("cudaGraphLaunch", "cuGraphLaunch")
+
+
+def _chunk_profile(fn, steps: int, host: bool) -> dict:
+    """One chunk under torch.profiler: per step, the device busy ms
+    (summed kernel time) and the device kernels; with ``host`` also the
+    host's kernel and graph launch calls (host activity is traced too,
+    which over an eager chunk's thousands of ops costs more than the
+    chunk); and the chunk's device span per step from CUDA events around
+    it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
+    with profile(activities=acts) as prof:
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+    launches = graphs = 0
+    for e in prof.key_averages():
+        if e.key in KERNEL_LAUNCH_CALLS:
+            launches += e.count
+        elif e.key in GRAPH_LAUNCH_CALLS:
+            graphs += e.count
+    out = {"busy_ms": _device_us(prof) / 1e3 / steps,
+           "device_kernels": _kernel_events(prof) / steps,
+           "span_ms": start.elapsed_time(end) / steps}
+    if host:
+        out.update(host_kernel_launches=launches / steps,
+                   host_graph_launches=graphs / steps)
+    return out
+
+
+def _graph_vs_eager(engine, tag: str, state) -> None:
+    """One engine's decode step as a graph replay against the same step
+    run eagerly, on an idle engine: B=8 rows of 64 positions over fresh
+    pages, K=16 steps, every budget K: the wall per step (host clock
+    around a chunk that ends in a synchronize; the graph twice), then one
+    profiled chunk each (the eager one traces device activity only: every
+    eager kernel is a host launch). Then a chunk with budgets 0..K each;
+    greedy streams must agree token for token, and the graph must take
+    one replay (the host's one graph launch) per step."""
+    import numpy as np
+    import torch
+
+    ex = engine.executor
+    B, K = ex.spec.batch_size, ex.chunk_size
+    pages = engine.allocator.alloc(B * 8)
+    bt = np.zeros((B, ex.spec.max_pages_per_seq), np.int32)
+    bt[:, :8] = np.asarray(pages).reshape(B, 8)
+    args = (np.arange(100, 100 + B, dtype=np.int32), np.full(B, 64, np.int32),
+            bt, np.zeros(B, np.float32))
+    full = np.full(B, K, np.int32)
+    budgets = np.array([K, K, 5, 0, K, 3, K, 1], np.int32)[:B]
+    # A route not yet replayed is captured here, outside the timed chunks.
+    ex.decode_chunk(*args, full)
+    res = {}
+    for mode, rounds in (("eager", 1), ("graph", 2)):
+        def chunk(b):
+            if mode == "eager":
+                return ex._decode_chunk(*args, b, eager=True)
+            return ex.decode_chunk(*args, b)
+
+        walls = []
+        for _ in range(rounds):
+            torch.cuda.synchronize()
+            replays = ex.graph_replays
+            t0 = time.perf_counter()
+            out = chunk(full)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3 / K)
+        r = res[mode] = {"wall_ms": walls, "out": out,
+                         "replays": ex.graph_replays - replays}
+        r.update(_chunk_profile(lambda: chunk(full), K, host=mode == "graph"))
+        r["out_budgets"] = chunk(budgets)
+    engine.allocator.free(pages)
+    eager, graph = res["eager"], res["graph"]
+    for key in ("out", "out_budgets"):
+        if not np.array_equal(eager[key], graph[key]):
+            raise AssertionError(f"[graphs] {tag}: replayed stream differs "
+                                 f"from the eager step's ({key})\n"
+                                 f"{eager[key]}\n{graph[key]}")
+    if graph["replays"] != K:
+        raise AssertionError(f"[graphs] {tag}: {graph['replays']} replays "
+                             f"for a {K}-step chunk (one a step expected)")
+    # Kernels inside a replay must show in the trace for its busy time to
+    # hold; otherwise the device span from CUDA events stands in for it.
+    seen = graph["device_kernels"] >= 0.5 * eager["device_kernels"]
+    row = {"steps": K, "streams_equal": True, "step_ms": ex.step_ms,
+           "profiler_sees_replayed_kernels": seen,
+           "pool_bytes": sum(g.pool_bytes for g in ex.step_graphs.values()),
+           "captured_launches": {("fused" if r else "split"): g.launches
+                                 for r, g in ex.step_graphs.items()}}
+    for mode, r in res.items():
+        row.update({f"{mode}_{k}": v for k, v in r.items()
+                    if k not in ("out", "out_budgets", "replays")})
+    state["graphs"][tag] = row
+    busy = graph["busy_ms"] if seen else graph["span_ms"]
+    log(f"[graphs] {tag}: per step eager {eager['wall_ms'][0]:.2f} ms wall, "
+        f"{eager['busy_ms']:.2f} ms busy, {eager['device_kernels']:.0f} "
+        f"device kernels (each a host launch); graph "
+        f"{', '.join(f'{w:.2f}' for w in graph['wall_ms'])} ms wall, "
+        f"{busy:.2f} ms busy{'' if seen else ' (CUDA-event span: the '
+                                     'profiler shows no replayed kernels)'}, "
+        f"{graph['device_kernels']:.0f} device kernels, "
+        f"{graph['host_kernel_launches']:.2f} host kernel launches + "
+        f"{graph['host_graph_launches']:.2f} graph launches "
+        f"({graph['replays']} replays for {K} steps); graph pool "
+        f"{row['pool_bytes'] / 2**20:.1f} MiB; greedy streams equal "
+        f"({CARD})")
+
+
+def phase_graphs(state) -> None:
+    """The decode step captured into a CUDA graph on the five engines of
+    the serve phases, each built with ``warmup=True`` (the step captured
+    at build): llama3-8b bf16 default (fused route), the same engine on
+    the split route (captured at its first replay), bf16 ragged, int8
+    weights + int8 KV default and ragged (weights from seed 0, shared by
+    the two engines of a type). Each: eager against graph (wall and
+    device busy per step, host launches against device kernels per
+    step), the graph pool's bytes, greedy streams equal."""
+    import gc
+
+    import torch
+
+    from llmq_tpu_torch.engine.builder import build_engine
+
+    state["graphs"] = {}
+    for q8 in (False, True):
+        cfg = _serve_cfg()
+        if q8:
+            cfg.model.quantization = cfg.model.kv_quantization = "int8"
+        kind = "int8" if q8 else "bf16"
+        engine = build_engine(cfg, warmup=True)
+        ex = engine.executor
+        _log_warmup(engine, f"graphs {kind} default")
+        _graph_vs_eager(engine, f"{kind} default", state)
+        if not q8:
+            ex.fused_decode = False
+            _graph_vs_eager(engine, "bf16 split", state)
+            ex.fused_decode = True
+        params = ex.model.params
+        del engine, ex
+        cfg.executor.ragged_attention.enabled = True
+        engine = build_engine(cfg, params=params, warmup=True)
+        _log_warmup(engine, f"graphs {kind} ragged")
+        _graph_vs_eager(engine, f"{kind} ragged", state)
+        del engine, params
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def phase_serve(state) -> None:
@@ -1563,6 +1766,21 @@ def phase_serve(state) -> None:
     log("[serve] no *_plain twin was called while serving")
 
 
+def _log_warmup(engine, tag: str) -> None:
+    """The engine's warmup: its split, the calibrated step time and the
+    realtime admission cap that step time sets."""
+    from llmq_tpu_torch.engine.engine import realtime_admission_cap
+
+    ex = engine.executor
+    if not ex.step_ms or set(ex.warmup_split) != {"capture", "warmup"}:
+        raise AssertionError(f"{tag}: warmup did not run: step_ms "
+                             f"{ex.step_ms}, split {ex.warmup_split}")
+    log(f"[{tag}] warmup {ex.warmup_split['warmup']:.2f} s + capture "
+        f"{ex.warmup_split['capture']:.2f} s; calibrated step "
+        f"{ex.step_ms:.3f} ms, realtime admission cap "
+        f"{realtime_admission_cap(ex.step_ms)} steps ({CARD})")
+
+
 def _serve_default(state):
     import torch
 
@@ -1572,13 +1790,14 @@ def _serve_default(state):
 
     cfg = _serve_cfg()
     t0 = time.perf_counter()
-    engine = build_engine(cfg)
+    engine = build_engine(cfg, warmup=True)
     torch.cuda.synchronize()
     mc = engine.executor.model_cfg
     log(f"[serve] built {mc.name} L={mc.n_layers} dim={mc.dim} "
         f"H={mc.n_heads}/{mc.n_kv_heads} ffn={mc.ffn_dim} vocab="
         f"{mc.vocab_size} in {time.perf_counter() - t0:.1f} s; "
         f"memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB ({CARD})")
+    _log_warmup(engine, "serve")
     app = App(cfg, engine=engine)
     port = app.start(host="127.0.0.1", port=0)
     base = f"http://127.0.0.1:{port}"
@@ -1662,7 +1881,7 @@ def _rates(engine, tag: str, what: str) -> dict:
     with the realtime admission cap it sets."""
     from llmq_tpu_torch.engine.engine import GenRequest, realtime_admission_cap
 
-    ttft, rate1, prompt_tokens = _b1_rates(engine)
+    ttft, rate1, prompt_tokens = _b1_rates(engine, tag)
     prompt = "The quick brown fox jumps over the lazy dog. " * 2
     hs = [engine.submit(GenRequest(id=f"{tag}-b{i}", prompt=f"{i}: " + prompt,
                                    max_new_tokens=32)) for i in range(8)]
@@ -1681,7 +1900,7 @@ def _rates(engine, tag: str, what: str) -> dict:
     cap = realtime_admission_cap(step_ms)
     log(f"[{tag}] executor step time {step_ms:.2f} ms (moving average); "
         f"realtime admission cap {cap} steps ({CARD})")
-    log(f"[{tag}] llama3-8b {what}: TTFT {ttft * 1e3:.1f} ms (B=1, "
+    log(f"[{tag}] llama3-8b {what}: TTFT {ttft * 1e3:.1f} ms (median; B=1, "
         f"{prompt_tokens}-token prompt); decode {rate1:.1f} tok/s (B=1); 8 "
         f"concurrent: {ntok / (t_last - t_first):.1f} tok/s end to end, "
         f"{sum(per_req) / len(per_req):.1f} tok/s per request after its "
@@ -1716,8 +1935,9 @@ def _serve_ragged(state, params) -> None:
 
     cfg = _serve_cfg()
     cfg.executor.ragged_attention.enabled = True
-    engine = build_engine(cfg, params=params)
+    engine = build_engine(cfg, params=params, warmup=True)
     ex = engine.executor
+    _log_warmup(engine, "serve-ragged")
     log(f"[serve-ragged] engine on the same weights: ragged capacity "
         f"{ex.mixed_slice_tokens} tokens x {ex.mixed_prefill_slices} slices, "
         f"packed buffer {ex.ragged_buffer} rows")
@@ -1768,11 +1988,12 @@ def _serve_ragged(state, params) -> None:
             f"{cached}; mixed steps {engine.mixed_steps} "
             f"({engine.mixed_prefill_tokens_total} prefill tokens); "
             f"launches {launches} ({CARD})")
-        ttft, rate1, n_prompt = _b1_rates(engine)
+        ttft, rate1, n_prompt = _b1_rates(engine, "serve-ragged")
         state["serve"].update({"ragged_ttft_ms_b1": ttft * 1e3,
                                "ragged_decode_tok_s_b1": rate1,
                                "ragged_mixed_steps": engine.mixed_steps})
-        log(f"[serve-ragged] llama3-8b bf16: TTFT {ttft * 1e3:.1f} ms (B=1, "
+        log(f"[serve-ragged] llama3-8b bf16: TTFT {ttft * 1e3:.1f} ms "
+            f"(median; B=1, "
             f"{n_prompt}-token prompt, ragged prefill); decode {rate1:.1f} "
             f"tok/s (B=1) ({CARD})")
         _mixed_timing(engine, state["serve"], "ragged")
@@ -1949,9 +2170,10 @@ def _serve_int8(state, *, ragged: bool, params):
     cfg.model.kv_quantization = "int8"
     cfg.executor.ragged_attention.enabled = ragged
     t0 = time.perf_counter()
-    engine = build_engine(cfg, params=params)
+    engine = build_engine(cfg, params=params, warmup=True)
     torch.cuda.synchronize()
     ex = engine.executor
+    _log_warmup(engine, tag)
     weights = params_bytes(ex.model.params)
     pool = sum(t.numel() * t.element_size() for t in ex.cache.values())
     out[pre + "build_s"] = time.perf_counter() - t0
@@ -2031,7 +2253,8 @@ def _serve_int8(state, *, ragged: bool, params):
 
 PHASES = [("env", phase_env), ("build", phase_build),
           ("kernels", phase_kernels), ("split", phase_split),
-          ("model", phase_model), ("serve", phase_serve),
+          ("model", phase_model), ("graphs", phase_graphs),
+          ("serve", phase_serve),
           ("serve-int8", phase_serve_int8)]
 
 
@@ -2084,7 +2307,9 @@ def main(argv=()) -> int:
     print(json.dumps({"kernels": list(state["kernels"].values()),
                       "serve": state.get("serve"),
                       "serve_int8": state.get("serve_int8"),
-                      "int_mm": state.get("int_mm")}))
+                      "int_mm": state.get("int_mm"),
+                      "launch_floor_ms": state.get("launch_floor_ms"),
+                      "graphs": state.get("graphs")}, default=str))
     print(CARD)
     if len(chosen) < len(PHASES):
         return 0

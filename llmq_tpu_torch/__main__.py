@@ -21,6 +21,8 @@ import time
 import urllib.request
 from typing import List, Optional
 
+import torch
+
 from llmq_tpu_torch.api.server import ApiServer
 from llmq_tpu_torch.core.config import Config, load_config
 from llmq_tpu_torch.engine.builder import build_engine
@@ -37,7 +39,10 @@ class App:
     def __init__(self, cfg: Config,
                  engine: Optional[InferenceEngine] = None) -> None:
         self.cfg = cfg
-        self.engine = engine if engine is not None else build_engine(cfg)
+        # On the card the engine warms up before it serves: every program
+        # runs once and the decode step's graph is captured.
+        self.engine = engine if engine is not None else build_engine(
+            cfg, warmup=torch.device(cfg.device).type == "cuda")
         self.manager = QueueManager("default", cfg)
         self.workers = [Worker(f"w{i}", self.manager,
                                self.engine.process_fn)

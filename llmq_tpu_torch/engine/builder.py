@@ -26,15 +26,18 @@ log = logging.getLogger("llmq_tpu_torch.builder")
 
 def build_engine(cfg: Config, *, name: str = "engine0",
                  params=None, device: Optional[str] = None,
-                 model_dtype: Optional[torch.dtype] = None
-                 ) -> InferenceEngine:
+                 model_dtype: Optional[torch.dtype] = None,
+                 warmup: bool = False) -> InferenceEngine:
     """Engine for ``cfg.model`` / ``cfg.executor`` on ``device`` (default
     ``cfg.device``). ``params`` (a parameter tree in the JAX layout) is
     used as given (quantized first if ``model.quantization`` asks for it
     and it is not already); otherwise weights are random-initialised on
     the device from seed 0 (the JAX package's ``PRNGKey(0)``
     counterpart), leaf by leaf straight into int8 when quantized.
-    ``model_dtype`` overrides the model's bf16 (tests run f32)."""
+    ``model_dtype`` overrides the model's bf16 (tests run f32).
+    ``warmup`` runs :meth:`TorchExecutor.warmup` before the engine is
+    made: every program once, the decode step's graph captured on the
+    card, ``step_ms`` calibrated."""
     ex = cfg.executor
     dev = resolve_device(device or cfg.device)
     tokenizer = get_tokenizer()
@@ -85,6 +88,8 @@ def build_engine(cfg: Config, *, name: str = "engine0",
         ragged_max_slices=ragged.max_slices,
         cache_dtype=torch.int8 if kv_quant == "int8" else None,
         device=str(dev))
+    if warmup:
+        executor.warmup()
     tier_max_wait = {Priority(lvl.priority): lvl.max_wait_time
                      for lvl in cfg.queue.levels}
     engine = InferenceEngine(
@@ -96,7 +101,8 @@ def build_engine(cfg: Config, *, name: str = "engine0",
         mixed_batch=mixed)
     log.info("built %s engine %s on %s in %.1fs (slots=%d pages=%d "
              "page_size=%d chunk=%d quantization=%s kv_quantization=%s "
-             "weights=%.2f GB mixed_batch=%s ragged_attention=%s)",
+             "weights=%.2f GB mixed_batch=%s ragged_attention=%s "
+             "warmup=%s)",
              mcfg.name, name, dev, time.perf_counter() - t0,
              ex.max_batch_size, ex.kv_pages, ex.page_size, ex.decode_chunk,
              quant or "bf16", kv_quant or "bf16", params_bytes(params) / 1e9,
@@ -105,5 +111,7 @@ def build_engine(cfg: Config, *, name: str = "engine0",
               else "off"),
              (f"on(cap={executor.mixed_slice_tokens}"
               f"x{executor.mixed_prefill_slices})" if ragged.enabled
-              else "off"))
+              else "off"),
+             (" ".join(f"{k}={v:.2f}s" for k, v in
+                       executor.warmup_split.items()) if warmup else "off"))
     return engine

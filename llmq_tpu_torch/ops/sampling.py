@@ -3,7 +3,10 @@ static-shape (counterpart of ``llmq_tpu/ops/sampling.py``).
 
 Draws come from an explicit ``torch.Generator`` on the logits' device;
 they are not JAX's threefry stream, so only greedy rows compare across
-the two packages."""
+the two packages. No value goes from the host to the device here (the
+temperature comes as a device tensor or as a fill), so the executor's
+decode step captures the sampler, ``torch.multinomial`` included, into
+its CUDA graph; the generator is registered with that graph."""
 
 from __future__ import annotations
 
@@ -24,11 +27,18 @@ def _filter_logits(logits: torch.Tensor,
     """Shared temperature / top-k / top-p filtering. Returns
     (t (B,), lf (B, V) f32, scaled (B, V) filtered logits)."""
     B, V = logits.shape
-    t = torch.as_tensor(temperature, dtype=torch.float32,
-                        device=logits.device).expand(B)
+    if isinstance(temperature, torch.Tensor):
+        if temperature.device != logits.device:
+            raise ValueError(f"temperature on {temperature.device}, logits "
+                             f"on {logits.device}")
+        t = temperature.to(torch.float32).expand(B)
+    else:
+        # A fill on the device: no host-to-device copy.
+        t = torch.full((B,), float(temperature), dtype=torch.float32,
+                       device=logits.device)
     lf = logits.float()
     scaled = lf / torch.clamp(t[:, None], min=1e-6)
-    neg_inf = torch.tensor(float("-inf"), device=logits.device)
+    neg_inf = float("-inf")
     if top_k and top_k < V:
         kth = torch.sort(scaled, dim=-1).values[:, V - top_k][:, None]
         scaled = torch.where(scaled < kth, neg_inf, scaled)

@@ -490,7 +490,7 @@ def test_new_wrappers_raise_on_uninstantiated_geometry():
     assert kernels.LAUNCHES == before
 
 
-# -- int8 serving: kernels 5 and 7, and the int8 GEMM ---------------------------
+# -- int8 serving: kernels 5 and 7, and the int8 GEMM -------------------------
 
 Q8_ATOL = 3e-2   # the JAX package's int8 kernel-vs-plain tolerance
 
@@ -708,3 +708,182 @@ def test_qdot_and_tied_head_on_the_card(rows):
         cpu = fn(x, arg)
         dev = fn(x.cuda(), {k: v.cuda() for k, v in arg.items()}).cpu()
         torch.testing.assert_close(dev, cpu, rtol=1e-5, atol=1e-5)
+
+
+# -- the decode step as a CUDA graph ------------------------------------------
+#
+# A 2-layer model with llama3-1b's head geometry cut down (D=64, n_rep
+# 4), random weights from seed 0, on each decode route: the captured step
+# replayed against the same step body run eagerly. Greedy rows compare
+# token for token (the same kernels on the same inputs), pools bit-exact.
+
+GRAPH_K = 4
+GRAPH_PROMPTS = [[5, 9, 13, 17, 21], [40, 41, 42], [7] * 9, [300, 200, 100]]
+GRAPH_ROUTES = ["fused", "split", "int8_kv", "int8_weights_int8_kv"]
+
+
+def _graph_executor(route, eos=-1, seed=0):
+    from llmq_tpu_torch.engine.executor import TorchExecutor
+    from llmq_tpu_torch.models import llama as T
+    from llmq_tpu_torch.ops.quant import quantize_params
+
+    cfg = T.get_config("llama3-tiny", dim=512, n_heads=8, n_kv_heads=2,
+                       n_layers=2, vocab_size=512, max_seq_len=256)
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    kw = dict(batch_size=len(GRAPH_PROMPTS), page_size=16, num_pages=64,
+              prefill_buckets=[16, 32], chunk_size=GRAPH_K, eos_id=eos,
+              seed=seed, device="cuda")
+    if route == "split":
+        kw["fused_decode"] = False
+    if route.endswith("int8_kv"):
+        kw["cache_dtype"] = torch.int8
+    if route.startswith("int8_weights"):
+        params = quantize_params(params)
+    return TorchExecutor(cfg, params, **kw)
+
+
+def _graph_prefill(ex):
+    import numpy as np
+
+    B, MP = ex.spec.batch_size, ex.spec.max_pages_per_seq
+    bt = np.zeros((B, MP), np.int32)
+    for b in range(B):
+        bt[b, :2] = [1 + 2 * b, 2 + 2 * b]
+    tok = np.asarray([ex.prefill(p, 0, bt[b], 0.0, b)
+                      for b, p in enumerate(GRAPH_PROMPTS)], np.int32)
+    return tok, np.asarray([len(p) for p in GRAPH_PROMPTS], np.int32), bt
+
+
+def _graph_eos(route):
+    """A token row 0 emits at step 1 from the prefilled state: used as
+    EOS, it latches row 0 mid-chunk."""
+    import numpy as np
+
+    ex = _graph_executor(route)
+    tok, pos, bt = _graph_prefill(ex)
+    B = len(tok)
+    out = ex._decode_chunk(tok, pos, bt, np.zeros(B, np.float32),
+                           np.full(B, GRAPH_K, np.int32), eager=True)
+    return int(out[0, 1])
+
+
+@needs_cuda
+@pytest.mark.parametrize("route", GRAPH_ROUTES)
+def test_graph_replay_equals_eager_step_over_two_chunks(route):
+    """Two chunks (budgets 0..K, the second carrying on from the first,
+    row 0 latching on EOS): the replayed step gives the eager body's
+    tokens and pools; each step of the graph executor is one replay."""
+    import numpy as np
+
+    eos = _graph_eos(route)
+    g_ex, e_ex = _graph_executor(route, eos), _graph_executor(route, eos)
+    tok, pos, bt = _graph_prefill(g_ex)
+    tok_e, _, _ = _graph_prefill(e_ex)
+    assert (tok == tok_e).all()
+    B = len(tok)
+    temps = np.zeros(B, np.float32)
+    budgets = np.array([4, 0, 2, 3], np.int32)
+    latched = np.zeros(B, bool)
+    for _chunk in range(2):
+        replays = g_ex.graph_replays
+        got = g_ex.decode_chunk(tok, pos, bt, temps, budgets)
+        want = e_ex._decode_chunk(tok, pos, bt, temps, budgets, eager=True)
+        assert (got == want).all(), (got, want)
+        assert g_ex.graph_replays > replays
+        for b in range(B):
+            real = want[b, :budgets[b]]
+            if len(real):
+                tok[b], pos[b] = real[-1], pos[b] + len(real)
+                latched[b] |= eos in real
+        budgets = np.where(latched, 0, GRAPH_K).astype(np.int32)
+    assert latched[0]
+    torch.cuda.synchronize()
+    assert set(g_ex.step_graphs) == {route != "split"}
+    for name, pool in g_ex.cache.items():
+        assert torch.equal(pool[:, 1:], e_ex.cache[name][:, 1:]), name
+
+
+@needs_cuda
+@pytest.mark.parametrize("route", GRAPH_ROUTES)
+def test_each_replay_adds_its_captured_launches(route):
+    """Capture launches nothing; every replay adds the capture's launch
+    counts, which name the route's kernels once a layer."""
+    import numpy as np
+
+    ex = _graph_executor(route)
+    ex.warmup()
+    g = ex.step_graphs[route != "split"]
+    want = {"fused": {"fused_decode": 2},
+            "split": {"kv_cache_write": 2, "paged_decode_attention": 2},
+            "int8_kv": {"fused_decode_q8": 2},
+            "int8_weights_int8_kv": {"fused_decode_q8": 2}}[route]
+    assert g.launches == want
+    assert g.pool_bytes >= 0
+    lo, hi = 0.05, 250.0
+    assert ex.step_ms is not None and lo <= ex.step_ms <= hi
+    assert ex.warmup_split["capture"] > 0
+    tok, pos, bt = _graph_prefill(ex)
+    B = len(tok)
+    before = dict(kernels.LAUNCHES)
+    replays = ex.graph_replays
+    ex.decode(tok, pos, bt, np.zeros(B, np.float32))
+    assert ex.graph_replays == replays + 1
+    delta = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+             if v != before[k]}
+    assert delta == want
+
+
+@needs_cuda
+def test_graph_draws_repeat_from_the_seed():
+    """At temperature > 0 two executors with one seed replay the same
+    draws; another seed draws others."""
+    import numpy as np
+
+    outs = []
+    for seed in (5, 5, 6):
+        ex = _graph_executor("fused", seed=seed)
+        tok, pos, bt = _graph_prefill(ex)
+        B = len(tok)
+        outs.append(ex.decode_chunk(tok, pos, bt, np.ones(B, np.float32),
+                                    np.full(B, GRAPH_K, np.int32)))
+    assert (outs[0] == outs[1]).all()
+    assert not (outs[0] == outs[2]).all()
+
+
+@needs_cuda
+@pytest.mark.parametrize("route", ["fused", "split", "int8_kv"])
+def test_replay_reads_the_pages_as_they_are_now(route):
+    """After a replay, new K/V in a row's pages and a block table that
+    moves it to other pages: the next replay attends to what is there
+    now, as the eager body does (no stale pointers or values)."""
+    import numpy as np
+
+    g_ex, e_ex = _graph_executor(route), _graph_executor(route)
+    tok, pos, bt = _graph_prefill(g_ex)
+    _graph_prefill(e_ex)
+    B = len(tok)
+    temps = np.zeros(B, np.float32)
+    ones = np.ones(B, np.int32)
+    first = g_ex.decode(tok, pos, bt, temps)
+    assert (first == e_ex._decode_chunk(tok, pos, bt, temps, ones,
+                                        eager=True)[:, 0]).all()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for ex in (g_ex, e_ex):
+        gen.manual_seed(1)
+        for name, pool in ex.cache.items():
+            # Row 0's history to pages 30-31, fresh values in row 1's.
+            pool[:, 30:32] = pool[:, 1:3]
+            noise = torch.randn(pool[:, 3:5].shape, generator=gen,
+                                device="cuda")
+            pool[:, 3:5] = (noise * 20).to(pool.dtype) if pool.dtype == \
+                torch.int8 else noise.to(pool.dtype)
+    bt2 = bt.copy()
+    bt2[0, :2] = [30, 31]
+    got = g_ex.decode(tok, pos, bt2, temps)
+    want = e_ex._decode_chunk(tok, pos, bt2, temps, ones, eager=True)[:, 0]
+    assert (got == want).all(), (got, want)
+    assert got[0] == first[0]
+    torch.cuda.synchronize()
+    for name, pool in g_ex.cache.items():
+        assert torch.equal(pool[:, 1:], e_ex.cache[name][:, 1:]), name
