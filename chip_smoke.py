@@ -36,7 +36,15 @@ shows where it happened):
                  page of keys wrong must fail) and timed beside decode
                  and causal SDPA (two calls each over int8 pools).
                  Beside kernel 4, the device time of an empty kernel
-                 (``torch.cuda._sleep(0)``): the launch floor.
+                 (``torch.cuda._sleep(0)``): the launch floor. Kernels 2
+                 and 3 run batched, as the prefill programs launch them:
+                 one launch for N=4 rows of T=512 and of T=2048 (live
+                 lengths 600, 90 from position 37, 2048 and an unused
+                 row of one token; at T=512 clipped to 512), against
+                 their twins (at T=2048 also ``REL_TOL``, with the
+                 one-wrong-page control), timed beside the bound and
+                 one causal SDPA per row; kernel 3 also at T=2048 with
+                 600 tokens live (its dead-tile skip).
 4. split      — one decode step through ``paged_decode_step(fused=False)``
                  (row-write kernel + decode-attention kernel) against
                  ``fused=True``: same attention within ``ATOL``, identical
@@ -54,7 +62,14 @@ shows where it happened):
                  device kernels and the host's kernel and graph
                  launches, the graph pool's bytes; greedy streams must
                  agree token for token (also with budgets 0..16), and
-                 each step must be one replay.
+                 each step must be one replay. Then, on the same
+                 engines, every prefill program (each bucket with one
+                 row and with ``prefill_batch`` rows; ragged: the ragged
+                 step) and the mixed step 0 of each route, replayed
+                 against eager: greedy first tokens and streams equal,
+                 one replay a program call (and, profiled, one graph
+                 launch), the wall of a call, each graph's capture
+                 seconds and the bytes it added to the shared pool.
 7. serve      — llama3-8b bf16 at full width and depth, random weights
                  from a seed, served by the port's REST server with mixed
                  batching on (the default): messages across all four
@@ -70,18 +85,24 @@ shows where it happened):
                  bucket prefill attention does not. Each engine is built
                  with ``warmup=True``; its calibrated step time and the
                  realtime admission cap it sets are printed, and TTFT and
-                 the B=1 rate are medians of three requests.
+                 the B=1 rate are medians of three requests (TTFT also
+                 with the prefill programs run eagerly). Four ~600-token
+                 prompts with no decode row are admitted as one wave
+                 (``prefill_multi_async``) and as four single programs.
 8. serve-int8 — llama3-8b with int8 weights and int8 KV at full width and
                  depth (``LLMQ_MODEL_QUANTIZATION=int8
                  LLMQ_MODEL_KV_QUANTIZATION=int8``), the same REST mix:
                  kernel 5 launches and no bf16-pool kernel does; then a
                  second engine on the same weights with ragged attention
                  on: kernel 7 launches. Rates, the decode breakdown,
-                 weight bytes and peak memory.
+                 the plain int8 prefill attention's share of the int8
+                 TTFT program, the wave admission, weight bytes and
+                 peak memory.
 
 No ``*_plain`` twin may be called while serving. On the card every
-decode step is a replay of the executor's captured step; the launch
-counts add each replay's kernels.
+decode step, prefill program and mixed step 0 is a replay of one of the
+executor's captured graphs; the launch counts add each replay's
+kernels. Each engine's graphs are released before the next is built.
 
 Exits non-zero on any failure. On success the last lines are the kernel
 table as JSON, the card's name and power limit, and
@@ -332,6 +353,26 @@ def _sdpa_prefill(gen, dev, qp, start):
     return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=amask)
 
 
+def _desc(dev, *cols):
+    """Per-row int32 descriptors of kernels 2 and 3 on the card."""
+    import torch
+
+    return [torch.tensor(c, dtype=torch.int32, device=dev) for c in cols]
+
+
+def _write1(fn, kp, vp, rk, rv, btab, desc, layer):
+    """Kernel 2 (or its twin) for one chunk: the batched call, N=1, with
+    ``desc`` = ``_desc(dev, [0], [n_tok], [start])`` made once outside
+    any timed call (its uploads would be timed with the kernel)."""
+    fn(kp, vp, rk, rv, btab[None], *desc, rk.shape[0], layer)
+
+
+def _attn1(fn, qp, kp, vp, btab, desc, layer):
+    """Kernel 3 (or its twin) for one chunk qp (T, H, D): the batched
+    call, N=1, with ``desc`` = ``_desc(dev, [start], [live tokens])``."""
+    return fn(qp[None], kp, vp, btab[None], *desc, layer)[0]
+
+
 def _record(state, name, source, replaces, err, ms, plain_ms, bound_ms,
             bound_by, library_ms):
     from llmq_tpu_torch.ops import kernels
@@ -421,10 +462,12 @@ def phase_kernels(state) -> None:
         n_tok = T - 5                     # the last 5 rows are padding
         kp1, vp1 = k_pool.clone(), v_pool.clone()
         kp2, vp2 = k_pool.clone(), v_pool.clone()
-        kernels.kv_prefill_write(kp1, vp1, rows_k, rows_v, btab, start,
-                                 n_tok, layer)
-        kernels.kv_prefill_write_plain(kp2, vp2, rows_k, rows_v, btab,
-                                       start, n_tok, layer)
+        wdesc = _desc(dev, [0], [n_tok], [start])
+        adesc = _desc(dev, [start], [T])
+        _write1(kernels.kv_prefill_write, kp1, vp1, rows_k, rows_v, btab,
+                wdesc, layer)
+        _write1(kernels.kv_prefill_write_plain, kp2, vp2, rows_k, rows_v,
+                btab, wdesc, layer)
         torch.cuda.synchronize()
         if not (torch.equal(kp1, kp2) and torch.equal(vp1, vp2)):
             raise AssertionError(f"kv_prefill_write T={T} start={start}: "
@@ -432,9 +475,10 @@ def phase_kernels(state) -> None:
         w_err = max((kp1.float() - kp2.float()).abs().max().item(),
                     (vp1.float() - vp2.float()).abs().max().item())
         del kp2, vp2
-        o_k = kernels.prefill_attention(qp, kp1, vp1, btab, start, layer)
-        o_p = kernels.prefill_attention_plain(qp, kp1, vp1, btab, start,
-                                              layer)
+        o_k = _attn1(kernels.prefill_attention, qp, kp1, vp1, btab, adesc,
+                     layer)
+        o_p = _attn1(kernels.prefill_attention_plain, qp, kp1, vp1, btab,
+                     adesc, layer)
         valid = n_tok
         a_err = (o_k[:valid].float() - o_p[:valid].float()).abs().max().item()
         if not torch.isfinite(o_k).all():
@@ -447,10 +491,11 @@ def phase_kernels(state) -> None:
         if (T, start) != (512, 37):
             continue
         # Timings and bounds at the largest chunk with history.
-        ms_a = device_ms(lambda i: kernels.prefill_attention(
-            qp, kp1, vp1, btab, start, i % L_POOL))
-        plain_a = device_ms(lambda i: kernels.prefill_attention_plain(
-            qp, kp1, vp1, btab, start, i % L_POOL), iters=5, warmup=1)
+        ms_a = device_ms(lambda i: _attn1(
+            kernels.prefill_attention, qp, kp1, vp1, btab, adesc, i % L_POOL))
+        plain_a = device_ms(lambda i: _attn1(
+            kernels.prefill_attention_plain, qp, kp1, vp1, btab, adesc,
+            i % L_POOL), iters=5, warmup=1)
         S = start + T
         sdpa_pf = _sdpa_prefill(gen, dev, qp, start)
         lib_a = device_ms(lambda i: sdpa_pf())
@@ -462,11 +507,12 @@ def phase_kernels(state) -> None:
                 "llmq_tpu_torch/csrc/prefill_attention.cu",
                 "llmq_tpu/ops/pallas/prefill_attention.py:167", a_err, ms_a,
                 plain_a, bms, by, lib_a)
-        ms_w = device_ms(lambda i: kernels.kv_prefill_write(
-            kp1, vp1, rows_k, rows_v, btab, start, n_tok, i % L_POOL))
-        plain_w = device_ms(lambda i: kernels.kv_prefill_write_plain(
-            kp1, vp1, rows_k, rows_v, btab, start, n_tok, i % L_POOL),
-            iters=10, warmup=2)
+        ms_w = device_ms(lambda i: _write1(
+            kernels.kv_prefill_write, kp1, vp1, rows_k, rows_v, btab, wdesc,
+            i % L_POOL))
+        plain_w = device_ms(lambda i: _write1(
+            kernels.kv_prefill_write_plain, kp1, vp1, rows_k, rows_v, btab,
+            wdesc, i % L_POOL), iters=10, warmup=2)
         pos = start + torch.arange(n_tok, device=dev)
         flat_rows = (btab.long()[pos // PS] * PS + pos % PS)
 
@@ -515,6 +561,7 @@ def phase_kernels(state) -> None:
         f"takes {floor:.4f} ms of device time, kv_cache_write {ms4:.4f} ms "
         f"({CARD})")
     del kp1, vp1
+    _kernel_batched_prefill(state, gen, k_pool, v_pool)
     _kernel_paged_decode(state, gen, k_pool, v_pool)
     _kernel_ragged(state, gen, k_pool, v_pool)
     del k_pool, v_pool
@@ -526,6 +573,148 @@ def phase_kernels(state) -> None:
     torch.cuda.empty_cache()
     _int_mm_layouts(state)
     _long_shapes(state)
+
+
+#: The batched checks of kernels 2 and 3: N=4 rows of T tokens, live
+#: lengths (a 600-token prompt, a 90-token continuation from 37, a full
+#: row, an unused row of one token on the null page) and starts.
+BATCHED = ((512, (512, 90, 512, 1), (0, 37, 0, 0)),
+           (2048, (600, 90, 2048, 1), (0, 37, 0, 0)))
+
+
+def _kernel_batched_prefill(state, gen, k_pool, v_pool) -> None:
+    """Kernels 2 and 3 as the prefill programs launch them: one launch
+    for the N=4 rows of a batch (``BATCHED``), descriptors on the card.
+    The pools against the scatter twin bit-exact; the live rows within
+    ``ATOL`` (and, at T=2048, ``REL_TOL`` of the twin's RMS, which a
+    twin reading one wrong page must fail), the rest zero. Times beside
+    the bound (live work only), the twins, and the library: one causal
+    SDPA per row, summed (kernel 3), one ``index_copy_`` of the live rows
+    (kernel 2). Recorded as ``batched`` in the kernels' entries."""
+    import torch
+
+    from llmq_tpu_torch.ops import kernels
+
+    dev = k_pool.device
+    layer = 6
+    for T, lengths, starts in BATCHED:
+        N = len(lengths)
+        need = [-(-(s + n) // PS) for s, n in zip(starts, lengths)]
+        perm = (torch.randperm(P_POOL - 1, generator=torch.Generator()
+                               .manual_seed(T)) + 1).to(torch.int32)
+        bt = torch.zeros((N, MP), dtype=torch.int32)
+        nxt = 0
+        for i, (n, k) in enumerate(zip(lengths, need)):
+            if n > 1:                      # the unused row: all page 0
+                bt[i, :k] = perm[nxt:nxt + k]
+                nxt += k
+        bt = bt.to(dev)
+        off, ln, st = _desc(dev, [i * T for i in range(N)], lengths, starts)
+        q = torch.randn((N, T, H, D), generator=gen, device=dev).to(torch.bfloat16)
+        rk = torch.randn((N * T, GD), generator=gen, device=dev).to(torch.bfloat16)
+        rv = torch.randn((N * T, GD), generator=gen, device=dev).to(torch.bfloat16)
+        kp1, vp1 = k_pool.clone(), v_pool.clone()
+        kp2, vp2 = k_pool.clone(), v_pool.clone()
+        kernels.kv_prefill_write(kp1, vp1, rk, rv, bt, off, ln, st, T, layer)
+        kernels.kv_prefill_write_plain(kp2, vp2, rk, rv, bt, off, ln, st, T,
+                                       layer)
+        torch.cuda.synchronize()
+        if not (torch.equal(kp1, kp2) and torch.equal(vp1, vp2)):
+            raise AssertionError(f"kv_prefill_write N={N} T={T}: pools "
+                                 f"differ from the twin")
+        del kp2, vp2
+        o_k = kernels.prefill_attention(q, kp1, vp1, bt, st, ln, layer)
+        o_p = kernels.prefill_attention_plain(q, kp1, vp1, bt, st, ln, layer)
+        torch.cuda.synchronize()
+        if not torch.isfinite(o_k).all():
+            raise AssertionError(f"prefill_attention N={N} T={T}: "
+                                 f"non-finite output")
+        err = rel = 0.0
+        for n, live in enumerate(lengths):
+            err = max(err, (o_k[n, :live].float() - o_p[n, :live].float())
+                      .abs().max().item())
+            rel = max(rel, scaled_err(o_k[n, :live], o_p[n, :live]))
+            if live < T and o_k[n, live:].abs().max().item() != 0.0:
+                raise AssertionError(f"prefill_attention N={N} T={T}: row "
+                                     f"{n} is not zero past its length")
+        if err > ATOL or (T == 2048 and rel > REL_TOL):
+            raise AssertionError(f"prefill_attention N={N} T={T}: max err "
+                                 f"{err} > {ATOL} or scaled err {rel} > "
+                                 f"{REL_TOL}")
+        entry = {"shape": f"N={N} T={T} lengths={list(lengths)} "
+                          f"starts={list(starts)}",
+                 "max_abs_err": err, "scaled_err": rel}
+        if T == 2048:
+            bad = _wrong_page(bt)
+            ctl = kernels.prefill_attention_plain(q, kp1, vp1, bad, st, ln,
+                                                  layer)
+            ctl_rel = scaled_err(ctl[2], o_p[2])
+            if ctl_rel <= REL_TOL:
+                raise AssertionError(f"prefill_attention N={N} T={T}: the "
+                                     f"scaled check passes a wrong page "
+                                     f"({ctl_rel})")
+            entry["control_scaled_err"] = ctl_rel
+            del ctl, bad
+        del o_p
+        ms = device_ms(lambda i: kernels.prefill_attention(
+            q, kp1, vp1, bt, st, ln, i % L_POOL), iters=10)
+        plain_ms = device_ms(lambda i: kernels.prefill_attention_plain(
+            q, kp1, vp1, bt, st, ln, i % L_POOL), iters=3, warmup=1)
+        lib_ms = 0.0
+        for n, (live, start) in enumerate(zip(lengths, starts)):
+            sdpa = _sdpa_prefill(gen, dev, q[n, :live], start)
+            lib_ms += device_ms(lambda i: sdpa(), iters=10)
+            del sdpa
+        live_rows = sum(lengths)
+        pairs = sum(s + t + 1 for s, n in zip(starts, lengths)
+                    for t in range(n))
+        bms, by = bound(live_rows * H * D * 2 + N * T * H * D * 2
+                        + sum(s + n for s, n in zip(starts, lengths))
+                        * GD * 2 * 2 + N * (MP + 2) * 4,
+                        pairs * H * 4 * D)
+        entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                     library_ms=lib_ms, library="causal SDPA per row, summed")
+        state["kernels"]["prefill_attention"].setdefault(
+            "batched", {})[f"N{N}xT{T}"] = entry
+        log(f"[kernels] prefill_attention batched N={N} T={T} lengths "
+            f"{list(lengths)} starts {list(starts)}: max_abs_err {err:.3g} "
+            f"scaled {rel:.3g}"
+            + (f" (control, one wrong page: scaled "
+               f"{entry['control_scaled_err']:.3g})" if T == 2048 else "")
+            + f"; one launch {ms:.4f} ms, plain {plain_ms:.4f} ms, causal "
+            f"SDPA per row summed {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}) "
+            f"({CARD})")
+        ms_w = device_ms(lambda i: kernels.kv_prefill_write(
+            kp1, vp1, rk, rv, bt, off, ln, st, T, i % L_POOL))
+        plain_w = device_ms(lambda i: kernels.kv_prefill_write_plain(
+            kp1, vp1, rk, rv, bt, off, ln, st, T, i % L_POOL),
+            iters=5, warmup=1)
+        src = torch.cat([n * T + torch.arange(live, device=dev)
+                         for n, live in enumerate(lengths)])
+        pos = torch.cat([s + torch.arange(live, device=dev)
+                         for s, live in zip(starts, lengths)])
+        owner = torch.cat([torch.full((live,), n, device=dev)
+                           for n, live in enumerate(lengths)])
+        flat = bt.long()[owner, pos // PS] * PS + pos % PS
+        rks, rvs = rk[src], rv[src]
+
+        def lib_write(i):
+            base = (i % L_POOL) * P_POOL * PS
+            kp1.view(-1, GD).index_copy_(0, base + flat, rks)
+            vp1.view(-1, GD).index_copy_(0, base + flat, rvs)
+        lib_w = device_ms(lib_write)
+        bms_w, by_w = bound(live_rows * GD * 2 * 2 * 2 + N * (MP + 3) * 4, 0)
+        state["kernels"]["kv_prefill_write"].setdefault(
+            "batched", {})[f"N{N}xT{T}"] = {
+                "shape": entry["shape"], "max_abs_err": 0.0, "ms": ms_w,
+                "plain_ms": plain_w, "bound_ms": bms_w, "bound_by": by_w,
+                "library_ms": lib_w}
+        log(f"[kernels] kv_prefill_write batched N={N} T={T}: pools "
+            f"bit-exact; one launch {ms_w:.4f} ms, plain {plain_w:.4f} ms, "
+            f"index_copy_ {lib_w:.4f} ms, bound {bms_w:.4f} ms ({by_w}) "
+            f"({CARD})")
+        del kp1, vp1, q, rk, rv
+        torch.cuda.empty_cache()
 
 
 def _kernel_paged_decode(state, gen, k_pool, v_pool) -> None:
@@ -1033,8 +1222,9 @@ def _long_shapes(state) -> None:
 
     T = 2048
     qp = torch.randn((T, H, D), generator=gen, device=dev).to(torch.bfloat16)
-    o_k = kernels.prefill_attention(qp, kp, vp, bt[0], 0, 1)
-    o_p = kernels.prefill_attention_plain(qp, kp, vp, bt[0], 0, 1)
+    full, live600 = _desc(dev, [0], [T]), _desc(dev, [0], [600])
+    o_k = _attn1(kernels.prefill_attention, qp, kp, vp, bt[0], full, 1)
+    o_p = _attn1(kernels.prefill_attention_plain, qp, kp, vp, bt[0], full, 1)
     torch.cuda.synchronize()
     err = (o_k.float() - o_p.float()).abs().max().item()
     rel = scaled_err(o_k, o_p)
@@ -1045,17 +1235,23 @@ def _long_shapes(state) -> None:
     # Control as for kernel 1: keys 1024..1039 read from the first page.
     bt_bad = bt[0].clone()
     bt_bad[1024 // PS] = bt[0, 0]
-    ctl = kernels.prefill_attention_plain(qp, kp, vp, bt_bad, 0, 1)
+    ctl = _attn1(kernels.prefill_attention_plain, qp, kp, vp, bt_bad, full, 1)
     ctl_err = (ctl.float() - o_p.float()).abs().max().item()
     ctl_rel = scaled_err(ctl, o_p)
     if ctl_rel <= REL_TOL:
         raise AssertionError(f"prefill_attention T={T}: the scaled check "
                              f"passes a wrong page ({ctl_rel})")
     del o_p, ctl, bt_bad
-    ms = device_ms(lambda i: kernels.prefill_attention(qp, kp, vp, bt[0], 0,
-                                                     i % L), iters=10)
-    plain_ms = device_ms(lambda i: kernels.prefill_attention_plain(
-        qp, kp, vp, bt[0], 0, i % L), iters=3, warmup=1)
+    ms = device_ms(lambda i: _attn1(kernels.prefill_attention, qp, kp, vp,
+                                    bt[0], full, i % L), iters=10)
+    plain_ms = device_ms(lambda i: _attn1(
+        kernels.prefill_attention_plain, qp, kp, vp, bt[0], full, i % L),
+        iters=3, warmup=1)
+    # The dead-tile skip: the same 2048-row chunk with 600 tokens live
+    # (where ~600-token prompts land in the 2048 bucket).
+    ms_600 = device_ms(lambda i: _attn1(kernels.prefill_attention, qp, kp,
+                                        vp, bt[0], live600, i % L),
+                       iters=10)
     # The same function in one call: causal SDPA over dense K/V, the
     # H_kv heads repeated for the n_rep query heads of each group.
     qh = qp.transpose(0, 1)[None].contiguous()
@@ -1071,11 +1267,12 @@ def _long_shapes(state) -> None:
         "shape": f"T={T} start=0", "max_abs_err": err, "scaled_err": rel,
         "control_max_abs_err": ctl_err, "control_scaled_err": ctl_rel,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-        "library_ms": lib_ms}
+        "library_ms": lib_ms, "ms_600_live": ms_600}
     log(f"[kernels] prefill_attention T={T} start=0: max_abs_err "
         f"{err:.3g} scaled {rel:.3g} (control, one wrong page: {ctl_err:.3g} "
         f"scaled {ctl_rel:.3g}); kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-        f"library {lib_ms:.4f} ms bound {bms:.4f} ms ({by}) ({CARD})")
+        f"library {lib_ms:.4f} ms bound {bms:.4f} ms ({by}); with 600 of "
+        f"2048 tokens live {ms_600:.4f} ms ({CARD})")
     del qh, kh, vh, qp
     _long_paged_decode(state, gen, kp, vp, bt, sl, q)
     _long_ragged(state, gen, kp, vp, bt, sl, wp, q, kn, vn)
@@ -1715,6 +1912,181 @@ def _graph_vs_eager(engine, tag: str, state) -> None:
         f"({CARD})")
 
 
+def _eager_programs(ex):
+    """Context: the executor's prefill programs and mixed step 0 run
+    eagerly (their graphs untouched); the decode step still replays.
+    Returns a restore function."""
+    launch = ex._launch
+    ex._launch = lambda name, p, body, eager: launch(name, p, body, True)
+
+    def restore():
+        ex._launch = launch
+    return restore
+
+
+def _program_requests(engine, lengths, rng):
+    """One request per length: random tokens from ``rng`` over fresh
+    pages of the engine's (idle) allocator. Returns (reqs, pages)."""
+    import numpy as np
+
+    ex = engine.executor
+    reqs, pages = [], []
+    for n in lengths:
+        pg = engine.allocator.alloc(-(-n // ex.spec.page_size))
+        bt = np.zeros(ex.spec.max_pages_per_seq, np.int32)
+        bt[:len(pg)] = pg
+        reqs.append(([int(x) for x in rng.integers(
+            3, min(20000, ex.model_cfg.vocab_size), n)], 0, bt, 0.0))
+        pages += pg
+    return reqs, pages
+
+
+def _programs_vs_eager(engine, tag: str, state, prefill: bool = True
+                       ) -> None:
+    """Every prefill program of one engine and its mixed step 0, each
+    replayed from its graph against the same program run eagerly, on the
+    same inputs over fresh pages: bucket mode each bucket with one row
+    and with ``prefill_batch`` rows (lengths up to the bucket), ragged
+    mode a wave of four prompts through the ragged step; then a mixed
+    chunk (B=8 rows at 64 positions, two 64-token slices; ragged: one
+    128-token slice). Greedy first tokens and the chunk's streams must be
+    equal, each program call one replay (the host's one graph launch,
+    from a profiled call of the largest program). Per program the wall
+    of one call (host clock to the fetched tokens) eager and replayed,
+    and each graph's capture seconds and the bytes it added to the
+    shared pool. ``prefill=False``: the mixed chunk alone (another
+    decode route of an engine already checked)."""
+    import numpy as np
+    import torch
+
+    ex = engine.executor
+    rng = np.random.default_rng(7)
+    rows = {}
+    if not prefill:
+        plan = []
+    elif ex.ragged_attention:
+        plan = [("ragged_step0", [600, 90, 300, 17])]
+    else:
+        plan = []
+        for T in ex.prefill_buckets:
+            plan.append((f"prefill_b{T}", [T - 3]))
+            plan.append((f"prefill_multi_b{T}",
+                         [T, T // 2 + 1, min(T, 1200), 90][:ex.prefill_batch]))
+    for name, lengths in plan:
+        res = {}
+        for eager in (True, False):
+            reqs, pages = _program_requests(engine, lengths,
+                                            np.random.default_rng(len(rows)))
+            before = dict(ex.program_replays)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if ex.ragged_attention:
+                hs = ex._ragged_prefill_start(reqs, eager=eager)
+            else:
+                hs = ex._prefill_wave(reqs, len(reqs), eager=eager)
+            toks = ex.gather_scalars(hs)
+            wall = (time.perf_counter() - t0) * 1e3
+            replays = {k: v - before.get(k, 0)
+                       for k, v in ex.program_replays.items()
+                       if v != before.get(k, 0)}
+            res[eager] = (toks, wall, replays)
+            engine.allocator.free(pages)
+        (t_e, w_e, r_e), (t_g, w_g, r_g) = res[True], res[False]
+        if not np.array_equal(t_e, t_g):
+            raise AssertionError(f"[graphs] {tag} {name}: replayed first "
+                                 f"tokens {t_g} differ from eager {t_e}")
+        if r_e or (not ex.ragged_attention and r_g != {name: 1}):
+            raise AssertionError(f"[graphs] {tag} {name}: replays eager "
+                                 f"{r_e}, graph {r_g} (one expected)")
+        g = ex.program_graphs[name]
+        rows[name] = {"lengths": lengths, "first_tokens_equal": True,
+                      "eager_wall_ms": w_e, "graph_wall_ms": w_g,
+                      "replays": r_g.get(name, 0),
+                      "capture_s": g.capture_s, "pool_bytes": g.pool_bytes,
+                      "captured_launches": sum(g.launches.values())}
+        log(f"[graphs] {tag} {name} (lengths {lengths}): first tokens equal; "
+            f"one call {w_e:.2f} ms eager, {w_g:.2f} ms replayed "
+            f"({r_g.get(name, 0)} replays, {sum(g.launches.values())} "
+            f"kernels each); captured in {g.capture_s:.2f} s, "
+            f"{g.pool_bytes / 2**20:.1f} MiB added to the shared pool "
+            f"({CARD})")
+    if plan:
+        # The largest program once under the profiler: the host launches
+        # graphs and no kernel of the model.
+        name, lengths = plan[-1]
+        reqs, pages = _program_requests(engine, lengths, rng)
+        if ex.ragged_attention:
+            prof = _chunk_profile(lambda: ex.gather_scalars(
+                ex._ragged_prefill_start(reqs)), 1, host=True)
+        else:
+            prof = _chunk_profile(lambda: ex.gather_scalars(
+                ex._prefill_wave(reqs, len(reqs))), 1, host=True)
+        engine.allocator.free(pages)
+        rows[name]["profiled"] = prof
+        log(f"[graphs] {tag} {name} profiled: "
+            f"{prof['host_graph_launches']:.0f} graph launches, "
+            f"{prof['host_kernel_launches']:.0f} host kernel launches, "
+            f"{prof['device_kernels']:.0f} device kernels, "
+            f"{prof['busy_ms']:.2f} ms busy ({CARD})")
+    # The mixed step 0: a mixed chunk eager against replayed.
+    B, K, MPs = ex.spec.batch_size, ex.chunk_size, ex.spec.max_pages_per_seq
+    slices = ([128] if ex.ragged_attention else [64, 64])
+    outs = {}
+    # The same pages for both runs (the rows' history is whatever they
+    # hold; each run rewrites what it writes with the same values).
+    pages = engine.allocator.alloc(B * 8)
+    bt = np.zeros((B, MPs), np.int32)
+    bt[:, :8] = np.asarray(pages).reshape(B, 8)
+    preqs, ppages = _program_requests(engine, slices,
+                                      np.random.default_rng(3))
+    pf = [(0, t, sp, pbt, temp) for t, sp, pbt, temp in preqs]
+    args = (np.full(B, 100, np.int32), np.full(B, 64, np.int32), bt,
+            np.zeros(B, np.float32), np.full(B, K, np.int32))
+    for eager in (True, False):
+        before = dict(ex.program_replays)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, pf_first = ex._mixed_chunk(*args, pf, eager=eager)
+        wall = (time.perf_counter() - t0) * 1e3 / K
+        outs[eager] = (out, pf_first, wall, {
+            k: v - before.get(k, 0) for k, v in ex.program_replays.items()
+            if v != before.get(k, 0)})
+    engine.allocator.free(pages + ppages)
+    (o_e, f_e, w_e, _), (o_g, f_g, w_g, r_g) = outs[True], outs[False]
+    if not (np.array_equal(o_e, o_g) and np.array_equal(f_e, f_g)):
+        raise AssertionError(f"[graphs] {tag} mixed chunk: replayed step 0 "
+                             f"streams differ from eager\n{o_e}\n{o_g}\n"
+                             f"{f_e} {f_g}")
+    step0 = ("ragged_step0" if ex.ragged_attention else
+             f"mixed_step0_{'fused' if ex.fused_decode else 'split'}")
+    if r_g != {step0: 1}:
+        raise AssertionError(f"[graphs] {tag} mixed chunk: step 0 replays "
+                             f"{r_g} (one expected)")
+    g = ex.program_graphs[step0]
+    rows[step0] = {"streams_equal": True, "eager_wall_ms_per_step": w_e,
+                   "graph_wall_ms_per_step": w_g, "capture_s": g.capture_s,
+                   "pool_bytes": g.pool_bytes,
+                   "captured_launches": sum(g.launches.values())}
+    pools = [x.pool_bytes for x in ex.program_graphs.values()]
+    total = {"graphs": sorted(ex.program_graphs),
+             "pool_bytes_total": sum(pools),
+             "pool_bytes_largest": max(pools),
+             "capture_s_total": sum(x.capture_s for x in
+                                    ex.program_graphs.values()),
+             "memory_reserved_bytes": torch.cuda.memory_reserved()}
+    state["graphs"].setdefault("programs", {})[tag] = {"programs": rows,
+                                                       **total}
+    log(f"[graphs] {tag} {step0}: mixed chunk streams equal; "
+        f"{w_e:.2f} ms/step eager step 0, {w_g:.2f} ms/step replayed; "
+        f"captured in {g.capture_s:.2f} s, {g.pool_bytes / 2**20:.1f} MiB "
+        f"({CARD})")
+    log(f"[graphs] {tag}: {len(pools)} program graphs share one pool of "
+        f"{total['pool_bytes_total'] / 2**20:.1f} MiB (largest single "
+        f"capture {total['pool_bytes_largest'] / 2**20:.1f} MiB), captured "
+        f"in {total['capture_s_total']:.2f} s; {torch.cuda.memory_reserved() / 2**30:.2f} "
+        f"GiB reserved ({CARD})")
+
+
 def phase_graphs(state) -> None:
     """The decode step captured into a CUDA graph on the five engines of
     the serve phases, each built with ``warmup=True`` (the step captured
@@ -1740,16 +2112,21 @@ def phase_graphs(state) -> None:
         ex = engine.executor
         _log_warmup(engine, f"graphs {kind} default")
         _graph_vs_eager(engine, f"{kind} default", state)
+        _programs_vs_eager(engine, f"{kind} default", state)
         if not q8:
             ex.fused_decode = False
             _graph_vs_eager(engine, "bf16 split", state)
+            _programs_vs_eager(engine, "bf16 split", state, prefill=False)
             ex.fused_decode = True
         params = ex.model.params
+        ex.release_graphs()
         del engine, ex
         cfg.executor.ragged_attention.enabled = True
         engine = build_engine(cfg, params=params, warmup=True)
         _log_warmup(engine, f"graphs {kind} ragged")
         _graph_vs_eager(engine, f"{kind} ragged", state)
+        _programs_vs_eager(engine, f"{kind} ragged", state)
+        engine.executor.release_graphs()
         del engine, params
         gc.collect()
         torch.cuda.empty_cache()
@@ -1868,10 +2245,12 @@ def _serve_default(state):
             f"{split}")
         _decode_breakdown(engine, state["serve"])
         _mixed_timing(engine, state["serve"], "bucket")
+        _wave_timing(engine, state["serve"], "serve")
         log(f"[serve] peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({CARD})")
     finally:
         app.stop()
+        engine.executor.release_graphs()
     return engine.executor.model.params
 
 
@@ -1882,6 +2261,12 @@ def _rates(engine, tag: str, what: str) -> dict:
     from llmq_tpu_torch.engine.engine import GenRequest, realtime_admission_cap
 
     ttft, rate1, prompt_tokens = _b1_rates(engine, tag)
+    # The same requests with the prefill programs run eagerly.
+    restore = _eager_programs(engine.executor)
+    try:
+        ttft_eager, _rate, _n = _b1_rates(engine, f"{tag} eager prefill")
+    finally:
+        restore()
     prompt = "The quick brown fox jumps over the lazy dog. " * 2
     hs = [engine.submit(GenRequest(id=f"{tag}-b{i}", prompt=f"{i}: " + prompt,
                                    max_new_tokens=32)) for i in range(8)]
@@ -1901,11 +2286,14 @@ def _rates(engine, tag: str, what: str) -> dict:
     log(f"[{tag}] executor step time {step_ms:.2f} ms (moving average); "
         f"realtime admission cap {cap} steps ({CARD})")
     log(f"[{tag}] llama3-8b {what}: TTFT {ttft * 1e3:.1f} ms (median; B=1, "
-        f"{prompt_tokens}-token prompt); decode {rate1:.1f} tok/s (B=1); 8 "
+        f"{prompt_tokens}-token prompt; {ttft_eager * 1e3:.1f} ms with the "
+        f"prefill program eager); decode {rate1:.1f} tok/s (B=1); 8 "
         f"concurrent: {ntok / (t_last - t_first):.1f} tok/s end to end, "
         f"{sum(per_req) / len(per_req):.1f} tok/s per request after its "
         f"first token ({CARD})")
-    return {"ttft_ms_b1": ttft * 1e3, "decode_tok_s_b1": rate1,
+    return {"ttft_ms_b1": ttft * 1e3,
+            "ttft_ms_b1_eager_prefill": ttft_eager * 1e3,
+            "decode_tok_s_b1": rate1,
             "tok_s_b8_e2e": ntok / (t_last - t_first),
             "decode_tok_s_per_req_b8": sum(per_req) / len(per_req),
             "prompt_tokens_b1": prompt_tokens, "executor_step_ms": step_ms,
@@ -1997,8 +2385,10 @@ def _serve_ragged(state, params) -> None:
             f"{n_prompt}-token prompt, ragged prefill); decode {rate1:.1f} "
             f"tok/s (B=1) ({CARD})")
         _mixed_timing(engine, state["serve"], "ragged")
+        _wave_timing(engine, state["serve"], "serve-ragged")
     finally:
         app.stop()
+        engine.executor.release_graphs()
 
 
 def _mixed_timing(engine, out: dict, tag: str) -> None:
@@ -2049,6 +2439,91 @@ def _mixed_timing(engine, out: dict, tag: str) -> None:
         f"device busy, {mixed_wall:.1f} ms in all; unfused (prefill of the "
         f"128 tokens, then a decode chunk): {unfused_wall:.1f} ms wall, "
         f"{unfused_busy:.1f} ms device busy ({CARD})")
+
+
+def _wave_timing(engine, out: dict, tag: str) -> None:
+    """Admission of four ~600-token prompts with no decode row active:
+    the wall to all four first tokens as one wave
+    (``prefill_multi_async``, one fetch) against four single programs
+    (``prefill_async`` each, one fetch), in turns (single, wave, wave,
+    single; host clock to the fetched tokens), and each one's device
+    busy time from a trace."""
+    import numpy as np
+    import torch
+
+    ex = engine.executor
+    reqs, pages = _program_requests(engine, [600, 601, 599, 600],
+                                    np.random.default_rng(11))
+
+    def wave():
+        return ex.gather_scalars(ex.prefill_multi_async(reqs))
+
+    def singles():
+        return ex.gather_scalars([ex.prefill_async(*r) for r in reqs])
+
+    walls = {"wave": [], "singles": []}
+    firsts = {}
+    for name in ("singles", "wave", "wave", "singles"):
+        fn = wave if name == "wave" else singles
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        firsts[name] = fn()
+        walls[name].append((time.perf_counter() - t0) * 1e3)
+    if not np.array_equal(firsts["wave"], firsts["singles"]):
+        raise AssertionError(f"[{tag}] wave first tokens {firsts['wave']} "
+                             f"differ from single programs' "
+                             f"{firsts['singles']}")
+    busy = {n: _device_us(_device_trace(f)) / 1e3
+            for n, f in (("wave", wave), ("singles", singles))}
+    engine.allocator.free(pages)
+    out.update({f"{tag}_wave4x600_wall_ms": walls["wave"],
+                f"{tag}_single4x600_wall_ms": walls["singles"],
+                f"{tag}_wave4x600_device_ms": busy["wave"],
+                f"{tag}_single4x600_device_ms": busy["singles"]})
+    log(f"[{tag}] four ~600-token prompts, no decode row: one wave "
+        f"{', '.join(f'{w:.1f}' for w in walls['wave'])} ms wall "
+        f"({busy['wave']:.1f} ms device busy); four single programs "
+        f"{', '.join(f'{w:.1f}' for w in walls['singles'])} ms wall "
+        f"({busy['singles']:.1f} ms device busy); first tokens equal "
+        f"({CARD})")
+
+
+def _q8_prefill_share(engine, out: dict, tag: str) -> None:
+    """The plain int8 prefill attention's share of the int8 TTFT program:
+    the device time of one replay of ``prefill_b128`` (the B=1 TTFT
+    prompt's program) against 32 layers of
+    ``dispatch_prefill_attention_q8`` (gather, dequantize, blockwise
+    attention) timed alone at that program's shapes."""
+    import numpy as np
+    import torch
+
+    from llmq_tpu_torch.ops.attention import dispatch_prefill_attention_q8
+
+    ex = engine.executor
+    T = ex.prefill_buckets[0]
+    reqs, pages = _program_requests(engine, [90], np.random.default_rng(5))
+    prog_ms = _device_us(_device_trace(lambda: ex.gather_scalars(
+        ex._prefill_wave(reqs, 1)))) / 1e3
+    mc = ex.model_cfg
+    p = ex._programs[f"prefill_b{T}"].bufs
+    q = torch.randn((1, T, mc.n_heads, mc.head_dim), device=ex.device).to(
+        ex.cache["k_scale"].dtype)
+    pools = (ex.cache["k"], ex.cache["v"], ex.cache["k_scale"],
+             ex.cache["v_scale"])
+    valid = torch.arange(T, device=ex.device)[None] < p["len"][:, None]
+    seq_lens = torch.where(valid, p["pos"], -1).amax(1) + 1
+    attn_ms = device_ms(lambda i: dispatch_prefill_attention_q8(
+        q, pools, p["bt"], p["pos"], seq_lens, i % mc.n_layers), iters=8)
+    engine.allocator.free(pages)
+    share = mc.n_layers * attn_ms / prog_ms
+    out.update({f"{tag}_prefill_b{T}_device_ms": prog_ms,
+                f"{tag}_q8_prefill_attention_ms_per_layer": attn_ms,
+                f"{tag}_q8_prefill_attention_share": share})
+    log(f"[{tag}] int8 prefill_b{T} (90 tokens): {prog_ms:.2f} ms device "
+        f"time a replay; the plain int8 prefill attention takes "
+        f"{attn_ms:.3f} ms a layer alone, {mc.n_layers} layers "
+        f"{mc.n_layers * attn_ms:.2f} ms = {100 * share:.0f}% of it "
+        f"({CARD})")
 
 
 def _decode_breakdown(engine, out: dict, tag: str = "serve") -> None:
@@ -2246,8 +2721,11 @@ def _serve_int8(state, *, ragged: bool, params):
         out.update({pre + k: v for k, v in rates.items()})
         if not ragged:
             _decode_breakdown(engine, out, tag)
+            _q8_prefill_share(engine, out, tag)
+        _wave_timing(engine, out, tag)
     finally:
         app.stop()
+        ex.release_graphs()
     return ex.model.params
 
 

@@ -135,6 +135,9 @@ class ExecutorConfig:
     prefill_buckets: List[int] = field(
         default_factory=lambda: [128, 512, 2048])
     decode_chunk: int = 16
+    #: Prompts' chunks per admission-wave prefill program (the JAX
+    #: package's default); at most ``max_batch_size``.
+    prefill_batch: int = 4
     max_decode_steps: int = 256
     preemption: bool = True
     kv_pin_ttl: float = 600.0           # per-conversation KV pin TTL

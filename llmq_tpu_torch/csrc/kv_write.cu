@@ -2,8 +2,15 @@
 //
 // Replaces the two Pallas write kernels of llmq_tpu/ops/pallas/kv_write.py:
 //   - kv_cache_write_pallas  (N token rows to distinct (page, slot) pairs)
-//   - kv_prefill_write_pallas (one sequence's prefill chunk through its
-//     block table, positions [start_pos, start_pos + n_tokens))
+//   - kv_prefill_write_pallas (a prefill chunk through its block table,
+//     positions [start_pos, start_pos + n_tokens)), batched: one launch
+//     writes every row of a prefill batch or every slice of a ragged
+//     step. JAX vmaps the kernel over the wave's rows with a traced
+//     start; here each row's descriptors (its first row in the K/V
+//     buffer, live count, start position, block-table row) are device
+//     int32 tensors, and the grid comes from the buffer's shape alone,
+//     so the launch reads nothing from the host and a CUDA graph can
+//     hold it.
 //
 // Pools are flat (L, P, page_size, GD) bf16 with GD = H_kv * head_dim.
 // Both kernels are pure data movement, so what bounds them on the card
@@ -50,21 +57,35 @@ kv_cache_write_kernel(uint16_t* __restrict__ k_pool,
            reinterpret_cast<const uint4*>(src), gd / 8);
 }
 
-// grid (n_tokens, 2): token t lands at absolute position start_pos + t.
+// grid (row_tokens, n_rows, 2): token t of row r is buffer row
+// offsets[r] + t and lands at absolute position starts[r] + t through
+// row r of block_tables; tokens at or past counts[r] are not written.
 __global__ void __launch_bounds__(kThreads)
 kv_prefill_write_kernel(uint16_t* __restrict__ k_pool,
                         uint16_t* __restrict__ v_pool,
                         const uint16_t* __restrict__ k_rows,
                         const uint16_t* __restrict__ v_rows,
-                        const int* __restrict__ block_table,
-                        int start_pos, int layer, int num_pages,
+                        const int* __restrict__ block_tables,
+                        const int* __restrict__ offsets,
+                        const int* __restrict__ counts,
+                        const int* __restrict__ starts, int n_buf_rows,
+                        int max_pages, int layer, int num_pages,
                         int page_size, int gd) {
   const int t = blockIdx.x;
-  const int pos = start_pos + t;
-  const int page = block_table[pos / page_size];
+  const int r = blockIdx.y;
+  // The three descriptor loads go out together, ahead of the test.
+  const int count = counts[r];
+  const int src_row = offsets[r] + t;
+  const int pos = starts[r] + t;
+  if (t >= count) return;
+  if (src_row < 0 || src_row >= n_buf_rows || pos < 0 ||
+      pos / page_size >= max_pages)
+    return;
+  const int page = block_tables[(size_t)r * max_pages + pos / page_size];
   if (page < 0 || page >= num_pages) return;
-  const uint16_t* src = (blockIdx.y == 0 ? k_rows : v_rows) + (size_t)t * gd;
-  uint16_t* pool = blockIdx.y == 0 ? k_pool : v_pool;
+  const uint16_t* src =
+      (blockIdx.z == 0 ? k_rows : v_rows) + (size_t)src_row * gd;
+  uint16_t* pool = blockIdx.z == 0 ? k_pool : v_pool;
   const size_t row =
       ((size_t)layer * num_pages + page) * page_size + pos % page_size;
   copy_row(reinterpret_cast<uint4*>(pool + row * gd),
@@ -90,15 +111,19 @@ extern "C" int llmq_kv_cache_write(void* k_pool, void* v_pool,
 
 extern "C" int llmq_kv_prefill_write(void* k_pool, void* v_pool,
                                      const void* k_rows, const void* v_rows,
-                                     const void* block_table, int start_pos,
-                                     int n_tokens, int layer, int num_pages,
+                                     const void* block_tables,
+                                     const void* offsets, const void* counts,
+                                     const void* starts, int n_rows,
+                                     int row_tokens, int n_buf_rows,
+                                     int max_pages, int layer, int num_pages,
                                      int page_size, int gd, void* stream) {
-  if (n_tokens > 0) {
-    kv_prefill_write_kernel<<<dim3(n_tokens, 2), kThreads, 0,
+  if (n_rows > 0 && row_tokens > 0) {
+    kv_prefill_write_kernel<<<dim3(row_tokens, n_rows, 2), kThreads, 0,
                               (cudaStream_t)stream>>>(
         (uint16_t*)k_pool, (uint16_t*)v_pool, (const uint16_t*)k_rows,
-        (const uint16_t*)v_rows, (const int*)block_table, start_pos, layer,
-        num_pages, page_size, gd);
+        (const uint16_t*)v_rows, (const int*)block_tables,
+        (const int*)offsets, (const int*)counts, (const int*)starts,
+        n_buf_rows, max_pages, layer, num_pages, page_size, gd);
   }
   return (int)cudaGetLastError();
 }

@@ -2,11 +2,16 @@
 // flash kernel.
 //
 // Replaces paged_prefill_attention_pallas (_prefill_attn_kernel) of
-// llmq_tpu/ops/pallas/prefill_attention.py: causal attention for one
-// sequence's chunk q (T, H, D) whose row t sits at absolute position
-// start_pos + t, over that sequence's pages of a flat (L, P, ps, GD)
-// pool — its own fresh K/V (written just before) and any cached history
-// of earlier turns. Visibility is kv_pos <= q_pos.
+// llmq_tpu/ops/pallas/prefill_attention.py: causal attention for each
+// of N sequences' chunks q (N, T, H, D), row n's token t at absolute
+// position starts[n] + t, over that sequence's pages (row n of the block
+// tables) of a flat (L, P, ps, GD) pool — its own fresh K/V (written
+// just before) and any cached history of earlier turns. Visibility is
+// kv_pos <= q_pos. Only the first lengths[n] tokens of row n are live.
+// JAX vmaps the kernel over a prefill wave's rows with a traced start;
+// here starts and lengths are device int32 tensors and the grid comes
+// from the shapes alone, (q tiles, H_kv, N), so one launch serves every
+// row of a wave and a CUDA graph can hold it.
 //
 // What bounds it: q and the output are T * H * D * 2 bytes each and the
 // K/V history 2 * S * GD * 2, against 4 * H * D flops per visible
@@ -38,8 +43,11 @@
 //   wgmma descriptors name (16-byte chunk c of row r at c ^ (r % 8)),
 //   D = 128 as two blocks.
 // - Tiles past the CTA's last visible position are never loaded; pages
-//   outside [0, P) read as zeros (cp.async zero-fill); rows at or past T
-//   are computed and not stored.
+//   outside [0, P) read as zeros (cp.async zero-fill). A q tile wholly
+//   at or past lengths[n] writes zeros and returns; inside a live tile,
+//   rows at or past lengths[n] are written as zeros too (JAX computes
+//   and discards them; zeros keep them defined when a graph's memory is
+//   reused).
 //
 // A thread keeps 64 f32 output and 32 score registers (at most 128 in
 // all, for two CTAs of 256 threads an SM); shared memory is 97 KB at
@@ -225,14 +233,15 @@ __device__ __forceinline__ float quad_sum(float v) {
 
 template <int D, int NREP>
 __global__ void __launch_bounds__(kThreads, 2)
-prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,   // (T, H, D)
+prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,  // (N,T,H,D)
                          const __nv_bfloat16* __restrict__ k_pool,
                          const __nv_bfloat16* __restrict__ v_pool,
-                         const int* __restrict__ block_table,   // (MP,)
-                         __nv_bfloat16* __restrict__ out,       // (T, H, D)
-                         int T, int start_pos, int layer, int num_pages,
-                         int page_size, int max_pages, int n_kv_heads,
-                         float scale_log2) {
+                         const int* __restrict__ block_tables,  // (N, MP)
+                         const int* __restrict__ starts,        // (N,)
+                         const int* __restrict__ lengths,       // (N,)
+                         __nv_bfloat16* __restrict__ out,       // (N,T,H,D)
+                         int T, int layer, int num_pages, int page_size,
+                         int max_pages, int n_kv_heads, float scale_log2) {
   constexpr int ROWS = kWarpgroups * kRows;  // query-head rows per CTA
   constexpr int BQW = kRows / NREP;          // tokens per warpgroup
   constexpr int BQ = kWarpgroups * BQW;      // tokens per CTA
@@ -244,34 +253,51 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,   // (T, H, D)
       ((uint32_t)__cvta_generic_to_shared(smem_raw) + 1023u) & ~1023u;
 
   const int g = blockIdx.y;
+  const int n = blockIdx.z;
   const int t0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int H = n_kv_heads * NREP;
   const int gd = n_kv_heads * D;
   const int tid = threadIdx.x;
+  q += (size_t)n * T * H * D;
+  out += (size_t)n * T * H * D;
+  const int* __restrict__ block_table = block_tables + (size_t)n * max_pages;
+  const int start_pos = starts[n];
+  const int len = min(max(lengths[n], 0), T);  // live tokens of row n
+  if (t0 >= len) {
+    // A dead tile: its rows (tokens t0.., heads of group g) are zeros.
+    for (int idx = tid; idx < ROWS * CPR; idx += kThreads) {
+      const int t = t0 + idx / CPR / NREP;
+      if (t < T)
+        *reinterpret_cast<uint4*>(
+            out + ((size_t)t * H + g * NREP + (idx / CPR) % NREP) * D +
+            (idx % CPR) * 8) = make_uint4(0, 0, 0, 0);
+    }
+    return;
+  }
   const int wg = tid / kWgThreads;
   const int warp = (tid % kWgThreads) / 32;
   const int lane = tid % 32;
   const size_t layer_row0 = (size_t)layer * num_pages * page_size;
   const int S = max_pages * page_size;
-  const int kv_end = min(start_pos + min(T, t0 + BQ), S);
+  const int kv_end = min(start_pos + min(len, t0 + BQ), S);
   const int n_tiles = (kv_end + kKeys - 1) / kKeys;
   // This warpgroup's tokens start at tw; its keys end at wg_end (it has
-  // no row to compute when tw >= T).
+  // no row to compute when tw >= len).
   const int tw = t0 + wg * BQW;
-  const int wg_end = min(start_pos + min(T, tw + BQW), S);
+  const int wg_end = min(start_pos + min(len, tw + BQW), S);
   const uint32_t sQ = sbase + wg * (wg_q_bytes<D>());
 
   // Q: row R of a warpgroup holds token tw + R / NREP, head
-  // g * NREP + R % NREP; rows past T are zero-filled.
+  // g * NREP + R % NREP; rows past len are zero-filled.
   for (int idx = tid; idx < ROWS * CPR; idx += kThreads) {
     const int RR = idx / CPR;  // row of the CTA
     const int c = idx % CPR;
     const int t = t0 + RR / NREP;
     const __nv_bfloat16* src =
-        q + ((size_t)min(t, T - 1) * H + g * NREP + RR % NREP) * D + c * 8;
+        q + ((size_t)min(t, len - 1) * H + g * NREP + RR % NREP) * D + c * 8;
     cp_async16(sbase + (RR / kRows) * wg_q_bytes<D>() + (c / 8) * QBLK +
                    sw128(RR % kRows, c % 8),
-               src, t < T ? 16 : 0);
+               src, t < len ? 16 : 0);
   }
   // K/V tile `it` (keys it * kKeys ...) into stage it % kStages. A
   // thread copies chunk c of PER keys; their block-table reads go out
@@ -328,7 +354,7 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,   // (T, H, D)
     __syncthreads();
     const int k0 = it * kKeys;
     // A warpgroup whose rows see no key of the tile skips it.
-    const bool active = tw < T && k0 < wg_end;
+    const bool active = tw < len && k0 < wg_end;
     const uint32_t sK = sbase + kWarpgroups * wg_q_bytes<D>() +
                         (it % kStages) * 2 * tile_bytes<D>();
     const uint32_t sV = sK + tile_bytes<D>();
@@ -430,7 +456,7 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,   // (T, H, D)
     const int R = r0 + 8 * half;
     const int t = tw + R / NREP;
     if (t >= T) continue;
-    const float inv = half ? inv1 : inv0;
+    const float inv = t < len ? (half ? inv1 : inv0) : 0.f;
     __nv_bfloat16* orow =
         out + ((size_t)t * H + g * NREP + R % NREP) * D + 2 * (lane % 4);
 #pragma unroll
@@ -443,9 +469,10 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,   // (T, H, D)
 
 template <int D, int NREP>
 int launch(const void* q, const void* k_pool, const void* v_pool,
-           const void* block_table, void* out, int T, int start_pos,
-           int layer, int num_pages, int page_size, int max_pages,
-           int n_kv_heads, float scale, cudaStream_t stream) {
+           const void* block_tables, const void* starts,
+           const void* lengths, void* out, int N, int T, int layer,
+           int num_pages, int page_size, int max_pages, int n_kv_heads,
+           float scale, cudaStream_t stream) {
   constexpr int smem = smem_bytes<D>();
   static bool configured = false;
   if (!configured) {
@@ -456,12 +483,13 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
     configured = true;
   }
   constexpr int BQ = kWarpgroups * kRows / NREP;
-  const dim3 grid((T + BQ - 1) / BQ, n_kv_heads);
+  const dim3 grid((T + BQ - 1) / BQ, n_kv_heads, N);
   prefill_attention_kernel<D, NREP><<<grid, kThreads, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_pool,
-      (const __nv_bfloat16*)v_pool, (const int*)block_table,
-      (__nv_bfloat16*)out, T, start_pos, layer, num_pages, page_size,
-      max_pages, n_kv_heads, scale * 1.4426950408889634f);
+      (const __nv_bfloat16*)v_pool, (const int*)block_tables,
+      (const int*)starts, (const int*)lengths, (__nv_bfloat16*)out, T,
+      layer, num_pages, page_size, max_pages, n_kv_heads,
+      scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
@@ -472,19 +500,20 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
 // n_rep in {1, 2, 4, 8}).
 extern "C" int llmq_prefill_attention(const void* q, const void* k_pool,
                                       const void* v_pool,
-                                      const void* block_table, void* out,
+                                      const void* block_tables,
+                                      const void* starts,
+                                      const void* lengths, void* out, int N,
                                       int T, int n_heads, int n_kv_heads,
-                                      int head_dim, int start_pos, int layer,
-                                      int num_pages, int page_size,
-                                      int max_pages, float scale,
-                                      void* stream) {
-  if (T <= 0) return (int)cudaGetLastError();
+                                      int head_dim, int layer, int num_pages,
+                                      int page_size, int max_pages,
+                                      float scale, void* stream) {
+  if (N <= 0 || T <= 0) return (int)cudaGetLastError();
   const int n_rep = n_heads / n_kv_heads;
   cudaStream_t s = (cudaStream_t)stream;
 #define LLMQ_CASE(DD, RR)                                                   \
   if (head_dim == DD && n_rep == RR)                                        \
-    return launch<DD, RR>(q, k_pool, v_pool, block_table, out, T,           \
-                          start_pos, layer, num_pages, page_size, max_pages, \
+    return launch<DD, RR>(q, k_pool, v_pool, block_tables, starts, lengths, \
+                          out, N, T, layer, num_pages, page_size, max_pages, \
                           n_kv_heads, scale, s);
   LLMQ_CASE(128, 1) LLMQ_CASE(128, 2) LLMQ_CASE(128, 4) LLMQ_CASE(128, 8)
   LLMQ_CASE(64, 1) LLMQ_CASE(64, 2) LLMQ_CASE(64, 4) LLMQ_CASE(64, 8)

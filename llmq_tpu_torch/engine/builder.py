@@ -77,6 +77,7 @@ def build_engine(cfg: Config, *, name: str = "engine0",
         prefill_buckets=list(ex.prefill_buckets),
         eos_id=tokenizer.eos_id,
         chunk_size=ex.decode_chunk,
+        prefill_batch=ex.prefill_batch,
         # Mixed geometry: bucket mode S slices of budget // S tokens; the
         # executor turns it into S slices sharing one packed capacity
         # when ragged attention is on.
@@ -100,12 +101,14 @@ def build_engine(cfg: Config, *, name: str = "engine0",
         tier_max_wait=tier_max_wait,
         mixed_batch=mixed)
     log.info("built %s engine %s on %s in %.1fs (slots=%d pages=%d "
-             "page_size=%d chunk=%d quantization=%s kv_quantization=%s "
+             "page_size=%d chunk=%d prefill_batch=%d quantization=%s "
+             "kv_quantization=%s "
              "weights=%.2f GB mixed_batch=%s ragged_attention=%s "
              "warmup=%s)",
              mcfg.name, name, dev, time.perf_counter() - t0,
              ex.max_batch_size, ex.kv_pages, ex.page_size, ex.decode_chunk,
-             quant or "bf16", kv_quant or "bf16", params_bytes(params) / 1e9,
+             executor.prefill_batch, quant or "bf16", kv_quant or "bf16",
+             params_bytes(params) / 1e9,
              (f"on(budget={mixed.prefill_token_budget}"
               f"x{executor.mixed_prefill_slices})" if mixed.enabled
               else "off"),

@@ -18,17 +18,22 @@ active sequence by a chunk of tokens per device program.
   its pages pinned; the next turn adopts them and prefills only its new
   tokens on top (continuation prefill). Pins end on the pin TTL, on
   delete, or under pool pressure (LRU), which frees their pages.
-- **Incremental prefill.** An admitted sequence runs one prefill bucket
-  per engine step, so a long prompt never stalls decoding rows for its
-  whole length.
+- **Incremental prefill in admission waves.** Every admitted sequence
+  runs one prefill bucket per engine step, so a long prompt never stalls
+  decoding rows for its whole length. The step's chunks go out as waves
+  of up to ``prefill_batch`` prompts, one program each
+  (``prefill_multi_async``; a trailing single chunk takes the one-row
+  program), without a host wait; the first tokens of the final chunks
+  are fetched after the step's decode chunk, all in one transfer
+  (``_resolve_prefills``).
 - **Token-budget mixed batching** (``mixed_batch``). While decode rows
   are active, pending prefill runs as budgeted slices inside the first
   step of the decode chunk (executor ``mixed_chunk``), so a decode row
   waits for at most ``prefill_token_budget`` prefill tokens a chunk.
 
-Left to later work (``ROADMAP.md``): the async pipeline, batched
-prefill waves, the prefix cache, preemption with page release, metrics,
-tenancy, tiering and speculation.
+Left to later work (``ROADMAP.md``): the async decode pipeline (its
+fetch lanes and device-side joins), the prefix cache, preemption with
+page release, metrics, tenancy, tiering and speculation.
 """
 
 from __future__ import annotations
@@ -161,7 +166,7 @@ class _Sequence:
                  "block_table", "pos", "cached_len", "last_token", "slot",
                  "prefilled", "order", "adopted", "prefill_ids",
                  "prefill_start", "carry", "written_ids", "todo_ids",
-                 "todo_pos", "eff_prio", "arrival")
+                 "todo_pos", "eff_prio", "arrival", "first_handle")
 
     def __init__(self, req: GenRequest, handle: GenHandle, order: int,
                  max_pages: int) -> None:
@@ -186,6 +191,9 @@ class _Sequence:
         #: Incremental prefill: tokens not yet run, next write position.
         self.todo_ids: List[int] = []
         self.todo_pos = 0
+        #: The dispatched final prefill chunk's token, not yet fetched
+        #: (an executor handle); None otherwise.
+        self.first_handle = None
         #: Effective priority: the request's tier, promoted while pending.
         self.eff_prio = int(req.priority)
         self.arrival = 0.0
@@ -355,11 +363,14 @@ class InferenceEngine:
     # -- core step -----------------------------------------------------------
 
     def step(self) -> bool:
-        """One scheduling round: ingest, expire pins, admit, run one
-        prefill bucket (unless mixed batching owns prefill), then one
-        chunk: mixed when decode rows and pending prefill coexist, else
-        plain decode. Returns True if any work happened. One stepper at
-        a time."""
+        """One scheduling round: ingest, expire pins, admit, dispatch one
+        prefill bucket per mid-prefill sequence (unless mixed batching
+        owns prefill), then one chunk: mixed when decode rows and pending
+        prefill coexist, else plain decode; then fetch the first tokens
+        of the prefills dispatched so far. Dispatch comes before that
+        fetch, as in the JAX engine's step with no chunk in flight, so
+        the fetch waits behind work already queued. Returns True if any
+        work happened. One stepper at a time."""
         self._ingest()
         self._expire_pins()
         admitted = self._admit()
@@ -368,7 +379,8 @@ class InferenceEngine:
             stepped = self._mixed_once()
         else:
             stepped = self._decode_once()
-        return admitted or prefilled or stepped
+        resolved = self._resolve_prefills()
+        return resolved or admitted or prefilled or stepped
 
     def run_until_idle(self, max_steps: int = 100000) -> None:
         for _ in range(max_steps):
@@ -600,9 +612,16 @@ class InferenceEngine:
     # -- prefill -------------------------------------------------------------
 
     def _advance_prefill(self) -> bool:
-        """Run ONE prefill bucket for the most urgent mid-prefill
-        sequence; completes its admission when the last chunk lands."""
-        cands = [s for s in self._slots if s is not None and not s.prefilled]
+        """Dispatch one prefill bucket for EVERY mid-prefill sequence
+        (``InferenceEngine._advance_prefill`` of the JAX package, the
+        branch of an executor with async prefill): most urgent first, in
+        waves of up to ``prefill_batch`` chunks, one ``prefill_multi_async``
+        program each; a trailing single chunk (or every chunk, with
+        ``prefill_batch`` 1) takes ``prefill_async``. Nothing waits for
+        the device: a sequence whose final chunk went out keeps its
+        handle in ``first_handle`` for :meth:`_resolve_prefills`."""
+        cands = [s for s in self._slots if s is not None and not s.prefilled
+                 and s.first_handle is None]
         reaped = False
         for s in list(cands):
             if s.handle.cancelled:
@@ -615,20 +634,50 @@ class InferenceEngine:
                                     for s in self._slots):
             # Mixed mode owns prefill while decode rows are hot: the next
             # mixed chunk runs these sequences' slices inside the decode
-            # program (budget-bounded) instead of a whole bucket first.
+            # program (budget-bounded) instead of whole buckets first.
             return reaped
-        seq = min(cands, key=lambda s: s.sort_key())
-        seq.handle.marks.setdefault("prefill_start", time.perf_counter())
-        chunk_len = self.executor.prefill_buckets[-1]
-        chunk = seq.todo_ids[:chunk_len]
-        seq.todo_ids = seq.todo_ids[chunk_len:]
-        first = self.executor.prefill(chunk, seq.todo_pos, seq.block_table,
-                                      seq.req.temperature, seq.slot)
-        seq.todo_pos += len(chunk)
-        seq.pos = seq.todo_pos
-        seq.written_ids.extend(chunk)
-        if not seq.todo_ids:
-            self._complete_prefill(seq, first)
+        cands.sort(key=lambda s: s.sort_key())
+        ex = self.executor
+        chunk_len = ex.prefill_buckets[-1]
+        work = []
+        for seq in cands:
+            seq.handle.marks.setdefault("prefill_start", time.perf_counter())
+            chunk = seq.todo_ids[:chunk_len]
+            seq.todo_ids = seq.todo_ids[chunk_len:]
+            work.append((seq, chunk))
+        npf = ex.prefill_batch
+        handles: List = []
+        for i0 in range(0, len(work), npf):
+            grp = work[i0:i0 + npf]
+            reqs = [(chunk, seq.todo_pos, seq.block_table,
+                     seq.req.temperature) for seq, chunk in grp]
+            if len(grp) == 1:
+                handles.append(ex.prefill_async(*reqs[0]))
+            else:
+                handles.extend(ex.prefill_multi_async(reqs))
+        for (seq, chunk), h in zip(work, handles):
+            seq.todo_pos += len(chunk)
+            seq.pos = seq.todo_pos
+            seq.written_ids.extend(chunk)
+            if not seq.todo_ids:
+                seq.first_handle = h        # fetched after this step's chunk
+        return True
+
+    def _resolve_prefills(self) -> bool:
+        """Fetch the first tokens of the prefills dispatched so far and
+        complete those admissions: every pending handle in ONE transfer
+        (``gather_scalars``; ``InferenceEngine._resolve_prefills`` of the
+        JAX package, whose fetch lanes are not ported: the fetch runs
+        here on the engine thread)."""
+        pending = [s for s in self._slots
+                   if s is not None and s.first_handle is not None]
+        if not pending:
+            return False
+        firsts = self.executor.gather_scalars([s.first_handle
+                                               for s in pending])
+        for seq, first in zip(pending, firsts):
+            seq.first_handle = None
+            self._complete_prefill(seq, int(first))
         return True
 
     def _complete_prefill(self, seq: _Sequence, first: int) -> None:
@@ -656,7 +705,7 @@ class InferenceEngine:
         if not any(s is not None and s.prefilled for s in self._slots):
             return False
         return any(s is not None and not s.prefilled and s.todo_ids
-                   for s in self._slots)
+                   and s.first_handle is None for s in self._slots)
 
     def _mixed_once(self) -> bool:
         """One mixed chunk: the active decode rows' chunk plus up to

@@ -8,7 +8,11 @@ table), ``decode`` (one step for every slot), ``decode_chunk`` (up to
 ``chunk_size`` steps with sampling, EOS and budget latches kept on the
 device), ``release_slot`` and ``resume``; with a mixed geometry also
 ``mixed_chunk`` (a decode chunk whose first step carries budgeted
-prefill slices).
+prefill slices). Prefill also runs without a host wait:
+``prefill_async`` (one chunk) and ``prefill_multi_async`` (an admission
+wave of up to ``prefill_batch`` prompts' chunks in one program) return
+:class:`PrefillHandle` s, whose first tokens ``gather_scalars`` fetches
+in one transfer.
 
 Mixed geometry: ``mixed_prefill_slices`` (S) slices of up to
 ``mixed_slice_tokens`` (T) tokens each. With ``ragged_attention`` the
@@ -31,7 +35,18 @@ once per decode route into a CUDA graph (at :meth:`TorchExecutor.warmup`,
 or at its first decode call), and every decode step of ``decode_chunk``,
 ``decode`` and steps 1..K-1 of ``mixed_chunk`` is a replay of it: the
 port's counterpart of JAX's one-program decode step. On the CPU the same
-step body runs eagerly. Prefill and the mixed step 0 stay eager.
+step body runs eagerly.
+
+Every prefill program and the mixed step 0 run the same way
+(:class:`_Program`: static inputs, pinned staging, one graph each): the
+counterparts of JAX's ``prefill_b{T}`` (one row), ``prefill_multi_b{T}``
+(``prefill_batch`` rows; unused rows hold one token against the null
+page), the mixed step 0 padded to its full (S, T) geometry (one graph
+per decode route) and the ragged step 0, which ragged prefill replays
+with every decode row frozen. Their graphs share one memory pool: their
+replays are serialised on one stream, and each replay's sampled tokens
+are copied at once into a ring of result slots outside the pool, which
+the handles read.
 """
 
 from __future__ import annotations
@@ -55,6 +70,12 @@ log = logging.getLogger("llmq_tpu_torch.executor")
 #: Bounds of the step time warmup calibrates, in ms (JAX's clamp).
 STEP_MS_RANGE = (0.05, 250.0)
 
+#: Prefill dispatches whose sampled tokens the result ring holds on the
+#: device at once. A dispatch that comes round to a slot whose handles
+#: are not yet fetched fetches them first (the ring is the staging
+#: fence): no later wave overwrites an unresolved handle.
+RESULT_RING = 8
+
 
 @dataclass(frozen=True)
 class ExecutorSpec:
@@ -73,6 +94,9 @@ class Executor(Protocol):
     chunk_size: int
     #: Measured wall milliseconds per decode step (None until measured).
     step_ms: Optional[float]
+    #: Prefill chunks per ``prefill_multi_async`` program.
+    prefill_batch: int
+    prefill_buckets: List[int]
 
     def prefill(self, tokens: List[int], start_pos: int,
                 block_table: np.ndarray, temperature: float,
@@ -80,6 +104,21 @@ class Executor(Protocol):
         """Write ``tokens``' KV at absolute positions
         ``[start_pos, start_pos+len)`` through ``block_table`` and return
         the first sampled next token."""
+        ...
+
+    def prefill_async(self, tokens: List[int], start_pos: int,
+                      block_table: np.ndarray, temperature: float):
+        """``prefill`` of one chunk without the host wait: returns a
+        handle of the sampled token."""
+        ...
+
+    def prefill_multi_async(self, reqs: List) -> List:
+        """Up to ``prefill_batch`` chunks ``(tokens, start_pos,
+        block_table, temperature)`` in one program; one handle each."""
+        ...
+
+    def gather_scalars(self, handles: List) -> np.ndarray:
+        """The handles' tokens, in one device-to-host transfer."""
         ...
 
     def decode(self, tokens: np.ndarray, positions: np.ndarray,
@@ -128,13 +167,43 @@ class _StepBuffers:
 
 @dataclass
 class _StepGraph:
-    """One decode route's captured step."""
+    """One captured program: a decode route's step, a prefill program or
+    a mixed step 0."""
 
     graph: "torch.cuda.CUDAGraph"
     #: Kernel launches (``kernels.LAUNCHES`` names) one replay makes.
     launches: Dict[str, int]
-    #: Device memory the capture reserved: the graph's private pool.
+    #: Device memory the capture reserved (the decode step: its private
+    #: pool; a prefill program: what it added to the shared pool).
     pool_bytes: int
+    #: Seconds of the eager run before capture and of the capture.
+    capture_s: float = 0.0
+    #: The tensor the captured body returned: each replay rewrites it.
+    out: Optional[torch.Tensor] = None
+
+
+@dataclass
+class _Program:
+    """A prefill program or mixed step 0: static device inputs that its
+    graph reads, their host staging (pinned on the card) and the event
+    behind the last copy out of that staging."""
+
+    bufs: Dict[str, torch.Tensor]
+    stage: Dict[str, torch.Tensor]
+    staged: Optional["torch.cuda.Event"]
+
+
+class PrefillHandle:
+    """A dispatched prefill's sampled first token: row ``row`` of slot
+    ``slot`` of its executor's result ring until fetched, then
+    ``value``."""
+
+    __slots__ = ("slot", "row", "value")
+
+    def __init__(self, slot: int, row: int) -> None:
+        self.slot = slot
+        self.row = row
+        self.value: Optional[int] = None
 
 
 class TorchExecutor:
@@ -155,6 +224,7 @@ class TorchExecutor:
                  ragged_attention: bool = False,
                  ragged_token_capacity: int = 0, ragged_max_slices: int = 0,
                  cache_dtype: Optional[torch.dtype] = None,
+                 prefill_batch: int = 4,
                  device: str = "cuda") -> None:
         if cache_dtype == torch.int8 and not fused_decode:
             # The JAX package's int8-KV decode step has no split route.
@@ -167,6 +237,9 @@ class TorchExecutor:
                                  max(1, model_cfg.max_seq_len // page_size),
                                  eos_id)
         self.chunk_size = max(1, chunk_size)
+        #: Prompts per admission-wave program (``prefill_multi_async``),
+        #: at most the batch size, as in the JAX package.
+        self.prefill_batch = max(1, min(prefill_batch, batch_size))
         self.prefill_buckets = sorted(prefill_buckets or [32, 128, 512])
         self._top_k = top_k
         self._top_p = top_p
@@ -203,8 +276,8 @@ class TorchExecutor:
         #: engine sizes its realtime admission cap from it.
         self.step_ms: Optional[float] = None
         self._decode_calls = 0
-        #: Seconds of :meth:`warmup`: ``capture`` (the decode step's
-        #: graph) and ``warmup`` (the rest). Empty until it runs.
+        #: Seconds of :meth:`warmup`: ``capture`` (every graph) and
+        #: ``warmup`` (the rest). Empty until it runs.
         self.warmup_split: Dict[str, float] = {}
         B, MP, K = batch_size, self.spec.max_pages_per_seq, self.chunk_size
 
@@ -237,12 +310,26 @@ class TorchExecutor:
         #: Graph replays so far: the host's launches of decode steps.
         self.graph_replays = 0
         self._capture_stream: Optional[torch.cuda.Stream] = None
+        #: Prefill programs and mixed step 0s by name (``prefill_b128``,
+        #: ``prefill_multi_b128``, ``mixed_step0``, ``ragged_step0``),
+        #: made at first use.
+        self._programs: Dict[str, _Program] = {}
+        #: Their captured graphs by name (the mixed step 0's per decode
+        #: route: ``mixed_step0_fused``, ``mixed_step0_split``) and the
+        #: host's replays of each.
+        self.program_graphs: Dict[str, _StepGraph] = {}
+        self.program_replays: Dict[str, int] = {}
+        #: The memory pool every program graph of this executor shares.
+        self._graph_pool = None
+        # The result ring (see RESULT_RING): one row of sampled tokens
+        # per dispatch, and the handles each slot holds.
+        width = max(self.prefill_batch, self.mixed_prefill_slices, 1)
+        self._ring = zeros((RESULT_RING, width), torch.int32)
+        self._ring_handles: List[List[PrefillHandle]] = [
+            [] for _ in range(RESULT_RING)]
+        self._ring_next = 0
 
     # -- helpers -------------------------------------------------------------
-
-    def _t(self, x, dtype: torch.dtype) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x), dtype=dtype,
-                               device=self.device)
 
     def _bucket_for(self, n: int) -> int:
         for b in self.prefill_buckets:
@@ -258,48 +345,68 @@ class TorchExecutor:
         self.step_ms = (ms if self.step_ms is None
                         else 0.8 * self.step_ms + 0.2 * ms)
 
-    def _sample(self, logits: torch.Tensor, temperatures) -> torch.Tensor:
-        temps = self._t(temperatures, torch.float32)
-        return sample_token(logits, self._gen, temperature=temps,
-                            top_k=self._top_k, top_p=self._top_p)
-
     # -- Executor API --------------------------------------------------------
-
-    @torch.inference_mode()
-    def _prefill_chunk(self, chunk: List[int], start_pos: int,
-                       bt: torch.Tensor, temperature: float) -> torch.Tensor:
-        """Run ONE bucketed prefill chunk: pad to the bucket, clamp the
-        padding positions, write KV in place. Returns the sampled next
-        token as a (1,) device tensor (no host sync)."""
-        T = self._bucket_for(len(chunk))
-        n = len(chunk)
-        padded = np.zeros((1, T), np.int32)
-        padded[0, :n] = chunk
-        positions = np.minimum(np.arange(T, dtype=np.int32) + start_pos,
-                               start_pos + n - 1)[None, :]
-        logits = self.model.forward_prefill(
-            self._t(padded, torch.int32), self._t(positions, torch.int32),
-            self._t([n], torch.int32), self.cache, bt)
-        return self._sample(logits[:, n - 1], [temperature])
 
     def prefill(self, tokens: List[int], start_pos: int,
                 block_table: np.ndarray, temperature: float,
                 slot: int) -> int:
-        if self.ragged_attention:
-            return self._ragged_prefill(tokens, start_pos, block_table,
-                                        temperature)
-        bt = self._t(block_table, torch.int32).reshape(1, -1)
-        pos = start_pos
-        remaining = list(tokens)
-        tok = None
-        while remaining:
-            chunk = remaining[: self.prefill_buckets[-1]]
-            remaining = remaining[len(chunk):]
-            tok = self._prefill_chunk(chunk, pos, bt, temperature)
-            pos += len(chunk)
-        if tok is None:
+        """Synchronous prefill: :meth:`prefill_async` over the prompt's
+        bucket-sized chunks (ragged mode: the ragged step's pieces), then
+        one fetch of the last chunk's token."""
+        if not len(tokens):
             return self.spec.eos_id
-        return int(tok.item())
+        if self.ragged_attention:
+            h = self._ragged_prefill_start(
+                [(tokens, start_pos, block_table, temperature)])[0]
+            return int(self.gather_scalars([h])[0])
+        pos, h = start_pos, None
+        largest = self.prefill_buckets[-1]
+        for o in range(0, len(tokens), largest):
+            chunk = list(tokens[o:o + largest])
+            h = self.prefill_async(chunk, pos, block_table, temperature)
+            pos += len(chunk)
+        return int(self.gather_scalars([h])[0])
+
+    def prefill_async(self, tokens: List[int], start_pos: int,
+                      block_table: np.ndarray,
+                      temperature: float) -> PrefillHandle:
+        """One prefill chunk (at most the largest bucket; ragged mode: any
+        length) dispatched without a host wait: the one-row program of
+        its bucket. Returns the handle of its sampled next token."""
+        req = (list(tokens), start_pos, block_table, temperature)
+        if self.ragged_attention:
+            return self._ragged_prefill_start([req])[0]
+        if len(tokens) > self.prefill_buckets[-1]:
+            raise ValueError("prefill_async takes one bucket-sized chunk")
+        return self._prefill_wave([req], rows=1)[0]
+
+    def prefill_multi_async(self, reqs: List) -> List[PrefillHandle]:
+        """Up to ``prefill_batch`` prompts' chunks in ONE program,
+        dispatched without a host wait (``JaxExecutor.prefill_multi_async``):
+        the weights stream once for the wave. ``reqs``: ``(tokens,
+        start_pos, block_table, temperature)`` each, every chunk at most
+        the largest bucket. Ragged mode packs the requests into ragged
+        steps instead. Returns one handle per request."""
+        if not 0 < len(reqs) <= self.prefill_batch:
+            raise ValueError(f"{len(reqs)} requests for a wave of "
+                             f"{self.prefill_batch}")
+        reqs = [(list(t), sp, bt, temp) for t, sp, bt, temp in reqs]
+        if self.ragged_attention:
+            return self._ragged_prefill_start(reqs)
+        if any(not 0 < len(r[0]) <= self.prefill_buckets[-1] for r in reqs):
+            raise ValueError("a wave's chunk is empty or exceeds the "
+                             "largest bucket")
+        return self._prefill_wave(reqs, rows=self.prefill_batch)
+
+    def gather_scalars(self, handles: List[PrefillHandle]) -> np.ndarray:
+        """The handles' tokens, fetched in ONE device-to-host transfer (of
+        the whole result ring) however many are pending."""
+        if any(h.value is None for h in handles):
+            ring = self._ring.to("cpu").numpy()
+            for h in handles:
+                if h.value is None:
+                    h.value = int(ring[h.slot, h.row])
+        return np.array([h.value for h in handles], dtype=np.int64)
 
     @torch.inference_mode()
     def decode(self, tokens: np.ndarray, positions: np.ndarray,
@@ -338,35 +445,52 @@ class TorchExecutor:
         self._time_steps(t0, ran)
         return result
 
-    @torch.inference_mode()
     def mixed_chunk(self, tokens: np.ndarray, positions: np.ndarray,
                     block_tables: np.ndarray, temperatures: np.ndarray,
                     budgets: np.ndarray, pf: List) -> tuple:
         """A decode chunk whose step 0 also runs prefill slices: the
-        mixed forward (bucket: ``forward_mixed``; ragged:
-        ``forward_mixed_ragged``) advances the decode rows one token and
-        writes each slice's K/V, then steps 1..K-1 are ``decode_chunk``'s
-        step (replayed on the card) with its latch semantics, carrying on
-        from step 0 in the same buffers. ``pf``: ``(slot, tokens,
-        start_pos, block_table, temperature)`` per slice, at most
-        ``mixed_prefill_slices`` of them, each at most
+        mixed step 0 (bucket: ``forward_mixed`` over the full (S, T)
+        slice geometry, unused slices one token against the null page;
+        ragged: ``forward_mixed_ragged`` over the packed buffer) advances
+        the decode rows one token and writes each slice's K/V, then steps
+        1..K-1 are ``decode_chunk``'s step with its latch semantics,
+        carrying on from step 0 in the same buffers. On the card step 0
+        is one replay of its graph for the current decode route, then
+        each later step one replay of the decode step's. ``pf``:
+        ``(slot, tokens, start_pos, block_table, temperature)`` per
+        slice, at most ``mixed_prefill_slices`` of them, each at most
         ``mixed_slice_tokens`` tokens (ragged: all of them together).
         Returns ``(out (B, K), pf_first (len(pf),))``; ``pf_first[i]``
         is sampled at slice i's last token, the first generated token
         when the slice ends its prompt."""
+        return self._mixed_chunk(tokens, positions, block_tables,
+                                 temperatures, budgets, pf, eager=False)
+
+    @torch.inference_mode()
+    def _mixed_chunk(self, tokens, positions, block_tables, temperatures,
+                     budgets, pf: List, *, eager: bool) -> tuple:
+        """:meth:`mixed_chunk`; ``eager`` runs step 0 and the decode
+        steps eagerly instead of replaying their graphs."""
         if self.mixed_prefill_slices <= 0:
             raise RuntimeError("mixed batching disabled for this executor")
+        S, T = self.mixed_prefill_slices, self.mixed_slice_tokens
+        if not 0 < len(pf) <= S:
+            raise ValueError(f"{len(pf)} slices for a geometry of {S}")
+        reqs = [(list(t), sp, bt, temp) for _slot, t, sp, bt, temp in pf]
+        if self.ragged_attention:
+            if sum(len(r[0]) for r in reqs) > T:
+                raise ValueError(f"ragged pack exceeds the capacity {T}")
+        elif any(not 0 < len(r[0]) <= T for r in reqs):
+            raise ValueError(f"a slice is empty or wider than {T}")
         t0 = time.perf_counter()
+        name, p = self._step0_program()
         self._fill(tokens, positions, block_tables, temperatures, budgets)
-        b = self._buf
-        active = (~b.frozen) & (b.j < b.budgets)
-        dec_logits, pf_logits = self._mixed_forward(b.tok, b.pos, b.bt,
-                                                    active, pf)
-        pf_first = self._sample(pf_logits, [p[4] for p in pf])
-        self._advance(active, dec_logits)
+        self._stage_step0(p, reqs)
+        first = self._launch(name, p, self._step0_body, eager)
         self._flag(0)
-        ran = 1 + self._decode_steps(1, self._chunk_steps(budgets), False)
-        result = self._out(), pf_first.cpu().numpy()
+        ran = 1 + self._decode_steps(1, self._chunk_steps(budgets), eager)
+        result = (self._out(),
+                  first[:len(pf)].to("cpu", copy=True).numpy())
         self._time_steps(t0, ran)
         return result
 
@@ -374,43 +498,72 @@ class TorchExecutor:
 
     @torch.inference_mode()
     def warmup(self) -> None:
-        """Run every program once, capture the decode step, calibrate
+        """Run every program once, capture the graphs, calibrate
         ``step_ms`` (``JaxExecutor.warmup``, llmq_tpu/engine/executor.py:
-        1811). In order: one eager prefill per bucket (ragged mode: one
-        small ragged prefill), one eager decode chunk and, with a mixed
-        geometry, one mixed chunk (on the card these build every kernel
-        library, set every kernel attribute, make every split workspace
-        and warm cuBLAS, all outside capture); the decode step's graph
-        (card only); then ``step_ms`` from three pairs of a 1-step and a
-        K-step chunk, as JAX: each pair's difference over the K-step
-        chunk's effective steps, the median, clamped to
-        :data:`STEP_MS_RANGE`. Every write goes through all-zero block
-        tables to page 0. Records ``warmup_split``."""
+        1620-1811). In order: each program once eagerly, every write
+        through all-zero block tables to page 0: bucket mode one prefill
+        per bucket with one row and with ``prefill_batch`` rows, ragged
+        mode one ragged prefill; one decode chunk; with a mixed geometry
+        one mixed chunk (on the card these build every kernel library,
+        set every kernel attribute, make every split workspace and warm
+        cuBLAS, all outside capture). Then (card only) the graphs: each
+        prefill program's, largest first, then the decode step's and the
+        mixed step 0's of each decode route (fused and split; an int8
+        cache has the fused one). Then ``step_ms`` from three pairs of a
+        1-step and a K-step chunk, as JAX: each pair's difference over
+        the K-step chunk's effective steps, the median, clamped to
+        :data:`STEP_MS_RANGE`. Records ``warmup_split``."""
         t_start = time.perf_counter()
         B, MP, K = (self.spec.batch_size, self.spec.max_pages_per_seq,
                     self.chunk_size)
         bt = np.zeros(MP, np.int32)
-        if self.ragged_attention:
-            self.prefill([1] * min(8, self.mixed_slice_tokens), 0, bt, 0.0, 0)
-        else:
-            prev = 0
-            for bucket in self.prefill_buckets:
-                # Lengths prev+1..bucket run as the bucket-sized chunk.
-                self.prefill([1] * min(bucket, prev + 1), 0, bt, 0.0, 0)
-                prev = bucket
         zeros = np.zeros(B, np.int32)
         zbt = np.zeros((B, MP), np.int32)
         ztemp = np.zeros(B, np.float32)
         ones = np.ones(B, np.int32)
+        waves = []
+
+        def programs(eager: bool, mixed: bool = True) -> None:
+            if self.ragged_attention:
+                waves.append(self._ragged_prefill_start(
+                    [([1] * min(8, self.mixed_slice_tokens), 0, bt, 0.0)],
+                    eager=eager))
+            else:
+                # Largest program first: its capture sizes the shared pool,
+                # which the smaller ones then reuse. Lengths prev+1..bucket
+                # run as the bucket's programs.
+                lows = [0] + self.prefill_buckets[:-1]
+                for prev, bucket in reversed(list(zip(lows,
+                                                      self.prefill_buckets))):
+                    req = ([1] * min(bucket, prev + 1), 0, bt, 0.0)
+                    for rows in sorted({1, self.prefill_batch}, reverse=True):
+                        waves.append(self._prefill_wave([req] * rows, rows,
+                                                        eager=eager))
+            if mixed and self.mixed_prefill_slices:
+                self._mixed_chunk(zeros, zeros, zbt, ztemp, ones,
+                                  [(0, [1], 0, bt, 0.0)], eager=eager)
+
+        programs(eager=True)
         self._decode_chunk(zeros, zeros, zbt, ztemp, ones, eager=True)
-        if self.mixed_prefill_slices:
-            self.mixed_chunk(zeros, zeros, zbt, ztemp, ones,
-                             [(0, [1], 0, bt, 0.0)])
         t_capture = time.perf_counter()
         if self._graphs_on:
-            self._step_graph()
+            # Every prefill program, then every decode route's step and
+            # mixed step 0 (an int8 cache has the fused route only); each
+            # captured at its first replay here.
+            programs(eager=False, mixed=False)
+            route = self.fused_decode
+            for fused in ([True, False] if "k_scale" not in self.cache
+                          else [True]):
+                self.fused_decode = fused
+                self._step_graph()
+                if self.mixed_prefill_slices:
+                    self._mixed_chunk(zeros, zeros, zbt, ztemp, ones,
+                                      [(0, [1], 0, bt, 0.0)], eager=False)
+            self.fused_decode = route
             torch.cuda.synchronize(self.device)
         capture_s = time.perf_counter() - t_capture
+        for hs in waves:
+            self.gather_scalars(hs)
         if K > 1:
             full = np.full(B, K, np.int32)
             samples = []
@@ -436,9 +589,21 @@ class TorchExecutor:
         self.warmup_split = {
             "capture": capture_s,
             "warmup": time.perf_counter() - t_start - capture_s}
-        log.info("warmup: %.2f s (capture %.2f s); decode step %s ms",
+        log.info("warmup: %.2f s (capture %.2f s: %d graphs, %.1f MiB of "
+                 "shared program pool); decode step %s ms",
                  sum(self.warmup_split.values()), capture_s,
+                 len(self.step_graphs) + len(self.program_graphs),
+                 sum(g.pool_bytes for g in self.program_graphs.values())
+                 / 2**20,
                  f"{self.step_ms:.2f}" if self.step_ms else "not measured")
+
+    def release_graphs(self) -> None:
+        """Drop every captured graph and program buffer (their memory
+        returns to the allocator's cache); later calls capture again."""
+        self.step_graphs.clear()
+        self.program_graphs.clear()
+        self._programs.clear()
+        self._graph_pool = None
 
     # -- the decode step ------------------------------------------------------
 
@@ -506,30 +671,41 @@ class TorchExecutor:
         if eager or not self._graphs_on:
             self._step()
             return
-        g = self._step_graph()
+        self._replay(self._step_graph())
+        self.graph_replays += 1
+
+    def _replay(self, g: _StepGraph) -> None:
         g.graph.replay()
         for name, n in g.launches.items():
             kernels.LAUNCHES[name] += n
-        self.graph_replays += 1
 
     def _step_graph(self) -> _StepGraph:
         """The current route's captured step, captured at first use."""
         g = self.step_graphs.get(self.fused_decode)
         if g is None:
-            g = self.step_graphs[self.fused_decode] = self._capture()
+            g = self.step_graphs[self.fused_decode] = self._capture(
+                self._step, pool=None)
+            log.info("captured the decode step (%s route): %d kernel "
+                     "launches a replay, pool %.1f MiB",
+                     "fused" if self.fused_decode else "split",
+                     sum(g.launches.values()), g.pool_bytes / 2**20)
         return g
 
-    def _capture(self) -> _StepGraph:
-        """Capture :meth:`_step` for the current route. One eager step on
-        the capture stream comes first, every row frozen so that its
-        writes land on page 0: the kernel libraries, their attributes,
-        the split workspaces and that stream's cuBLAS workspace then all
-        exist before capture. The buffers are restored afterwards. The
-        private generator is registered with the graph, so each replay
-        draws fresh numbers. The capture launches nothing: its launch
-        counts are taken back out of ``kernels.LAUNCHES`` and kept as
-        what each replay adds. A failed capture raises."""
+    def _capture(self, body, pool) -> _StepGraph:
+        """Capture ``body`` (the decode step, or a program's body over its
+        inputs, which the caller has set to write the null page only).
+        One eager run on the capture stream comes first, every decode row
+        frozen so that its writes land on page 0: the kernel libraries,
+        their attributes, the split workspaces and that stream's cuBLAS
+        workspace then all exist before capture. The decode step's
+        buffers are restored afterwards. ``pool``: a shared graph memory
+        pool, or None for a private one. The private generator is
+        registered with the graph, so each replay draws fresh numbers.
+        The capture launches nothing: its launch counts are taken back
+        out of ``kernels.LAUNCHES`` and kept as what each replay adds. A
+        failed capture raises."""
         dev, b = self.device, self._buf
+        t0 = time.perf_counter()
         saved = [t.clone() for t in b.tensors()]
         b.frozen.fill_(True)
         b.bt.zero_()
@@ -538,7 +714,7 @@ class TorchExecutor:
         stream = self._capture_stream
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
-            self._step()
+            body()
         torch.cuda.current_stream(dev).wait_stream(stream)
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
@@ -546,21 +722,18 @@ class TorchExecutor:
         before = dict(kernels.LAUNCHES)
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self._gen)
-        with torch.cuda.graph(graph, stream=stream,
+        with torch.cuda.graph(graph, pool=pool, stream=stream,
                               capture_error_mode="thread_local"):
-            self._step()
+            out = body()
         launches = {name: n - before[name]
                     for name, n in kernels.LAUNCHES.items()
                     if n != before[name]}
         kernels.LAUNCHES.update(before)
-        pool = torch.cuda.memory_reserved(dev) - reserved
+        pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         for t, v in zip(b.tensors(), saved):
             t.copy_(v)
-        log.info("captured the decode step (%s route): %d kernel launches "
-                 "a replay, pool %.1f MiB",
-                 "fused" if self.fused_decode else "split",
-                 sum(launches.values()), pool / 2**20)
-        return _StepGraph(graph, launches, pool)
+        return _StepGraph(graph, launches, pool_bytes,
+                          time.perf_counter() - t0, out)
 
     def _flag(self, j: int) -> None:
         """Queue the copy of step ``j``'s exit flag into its host slot,
@@ -591,100 +764,247 @@ class TorchExecutor:
                 break
         return ran
 
-    def _mixed_forward(self, tok, pos, bt, active, pf: List):
-        """Step 0 of a mixed chunk: (dec_logits (B, V), slice logits at
-        each slice's last token (len(pf), V))."""
-        S, T = self.mixed_prefill_slices, self.mixed_slice_tokens
-        if not 0 < len(pf) <= S:
-            raise ValueError(f"{len(pf)} slices for a geometry of {S}")
-        if self.ragged_attention:
-            if sum(len(p[1]) for p in pf) > T:
-                raise ValueError(f"ragged pack exceeds the capacity {T}")
-            return self._ragged_forward(tok, pos, bt, active, pf)
-        if any(not 0 < len(p[1]) <= T for p in pf):
-            raise ValueError(f"a slice is empty or wider than {T}")
-        n = len(pf)
-        width = max(len(p[1]) for p in pf)
-        toks = np.zeros((n, width), np.int32)
-        poss = np.zeros((n, width), np.int32)
-        lens = np.zeros(n, np.int32)
-        bts = np.zeros((n, self.spec.max_pages_per_seq), np.int32)
-        for i, (_slot, t, sp, slice_bt, _temp) in enumerate(pf):
-            toks[i, :len(t)] = t
-            poss[i] = np.minimum(np.arange(width) + sp, sp + len(t) - 1)
-            lens[i] = len(t)
-            bts[i] = slice_bt
-        dec_logits, pf_logits = self.model.forward_mixed(
-            tok, pos, self.cache, bt, self._t(toks, torch.int32),
-            self._t(poss, torch.int32), self._t(lens, torch.int32),
-            self._t(bts, torch.int32), active, fused=self.fused_decode)
-        last = self._t(lens - 1, torch.int64)
-        return dec_logits, pf_logits[torch.arange(n, device=self.device),
-                                     last]
+    # -- prefill programs and the mixed step 0 --------------------------------
 
-    def _ragged_forward(self, tok, pos, bt, active, pf: List):
-        """Pack the slices into the (N,) buffer, each segment starting on
-        a q-block boundary, and run ``forward_mixed_ragged``."""
+    def _program(self, name: str, shapes: Dict[str, tuple]) -> _Program:
+        """The named program's static inputs (made at first use): device
+        buffers of ``shapes`` (name → (shape, dtype)) and their host
+        staging."""
+        p = self._programs.get(name)
+        if p is None:
+            pin = self._graphs_on
+            p = self._programs[name] = _Program(
+                bufs={k: torch.zeros(shape, dtype=dt, device=self.device)
+                      for k, (shape, dt) in shapes.items()},
+                stage={k: torch.zeros(shape, dtype=dt, pin_memory=pin)
+                       for k, (shape, dt) in shapes.items()},
+                staged=torch.cuda.Event() if pin else None)
+        return p
+
+    def _rows_shapes(self, n: int, T: int) -> Dict[str, tuple]:
+        """Inputs of a bucket-style program: n rows of T tokens."""
+        MP = self.spec.max_pages_per_seq
+        return {"tok": ((n, T), torch.int32), "pos": ((n, T), torch.int32),
+                "len": ((n,), torch.int32), "bt": ((n, MP), torch.int32),
+                "temps": ((n,), torch.float32)}
+
+    def _step0_program(self):
+        """(graph name, program) of the mixed step 0 on the current decode
+        route: bucket mode S rows of T tokens, ragged mode the packed
+        (N,) buffer and S slice descriptors."""
+        S, MP = self.mixed_prefill_slices, self.spec.max_pages_per_seq
+        if self.ragged_attention:
+            N = self.ragged_buffer
+            return "ragged_step0", self._program("ragged_step0", {
+                "tok": ((N,), torch.int32), "pos": ((N,), torch.int32),
+                "qoff": ((S,), torch.int32), "qlen": ((S,), torch.int32),
+                "bt": ((S, MP), torch.int32),
+                "temps": ((S,), torch.float32)})
+        route = "fused" if self.fused_decode else "split"
+        return (f"mixed_step0_{route}", self._program(
+            "mixed_step0", self._rows_shapes(S, self.mixed_slice_tokens)))
+
+    def _stage_inputs(self, p: _Program, fill) -> None:
+        """Write a program's inputs: wait until the last copy out of its
+        staging has run (the staging fence), let ``fill`` write the
+        staging's numpy views, then copy every input to the device
+        (asynchronously on the card) and record the fence."""
+        if p.staged is not None:
+            p.staged.synchronize()
+        views = {k: st.numpy() for k, st in p.stage.items()}
+        for v in views.values():
+            v[...] = 0
+        fill(views)
+        for k, buf in p.bufs.items():
+            buf.copy_(p.stage[k], non_blocking=True)
+        if p.staged is not None:
+            p.staged.record()
+
+    @staticmethod
+    def _fill_rows(v, reqs: List) -> None:
+        """Bucket-style inputs: request i in row i, right-padded, its
+        padding positions clamped to its last token; unused rows one
+        token against the null page (JAX's convention)."""
+        T = v["tok"].shape[1]
+        v["len"][...] = 1
+        for i, (t, sp, bt, temp) in enumerate(reqs):
+            n = len(t)
+            v["tok"][i, :n] = t
+            v["pos"][i] = np.minimum(np.arange(T) + sp, sp + n - 1)
+            v["len"][i] = n
+            v["bt"][i] = bt
+            v["temps"][i] = temp
+
+    def _fill_ragged(self, v, reqs: List) -> None:
+        """Ragged inputs: the requests packed into the (N,) buffer, each
+        segment on a q-block boundary; unused slices have qlen 0."""
         N, qblk = self.ragged_buffer, RAGGED_Q_BLOCK
-        n = len(pf)
-        toks = np.zeros(N, np.int32)
-        poss = np.zeros(N, np.int32)
-        qoff = np.zeros(n, np.int32)
-        qlen = np.zeros(n, np.int32)
-        bts = np.zeros((n, self.spec.max_pages_per_seq), np.int32)
         off = 0
-        for i, (_slot, t, sp, slice_bt, _temp) in enumerate(pf):
-            L = len(t)
-            if L == 0 or off + L > N:
+        for i, (t, sp, bt, temp) in enumerate(reqs):
+            n = len(t)
+            if n == 0 or off + n > N:
                 raise ValueError(f"slices do not pack into {N} rows")
-            toks[off:off + L] = t
-            poss[off:off + L] = np.arange(L) + sp
-            qoff[i], qlen[i] = off, L
-            bts[i] = slice_bt
-            off += -(-L // qblk) * qblk
-        return self.model.forward_mixed_ragged(
-            tok, pos, self.cache, bt, self._t(toks, torch.int32),
-            self._t(poss, torch.int32), self._t(qoff, torch.int32),
-            self._t(qlen, torch.int32), self._t(bts, torch.int32), active)
+            v["tok"][off:off + n] = t
+            v["pos"][off:off + n] = np.arange(n) + sp
+            v["qoff"][i], v["qlen"][i] = off, n
+            v["bt"][i] = bt
+            v["temps"][i] = temp
+            off += -(-n // qblk) * qblk
+
+    def _stage_step0(self, p: _Program, reqs: List) -> None:
+        if self.ragged_attention:
+            self._stage_inputs(p, lambda v: self._fill_ragged(v, reqs))
+        else:
+            self._stage_inputs(p, lambda v: self._fill_rows(v, reqs))
+
+    def _prefill_body(self, p: _Program) -> torch.Tensor:
+        """A prefill program: the forward over its rows, the LM head at
+        each row's last token, sampling. Returns (n,) int32 tokens."""
+        b = p.bufs
+        logits = self.model.forward_prefill_last(b["tok"], b["pos"],
+                                                 b["len"], self.cache,
+                                                 b["bt"])
+        return sample_token(logits, self._gen, temperature=b["temps"],
+                            top_k=self._top_k, top_p=self._top_p)
+
+    def _step0_body(self, p: _Program) -> torch.Tensor:
+        """A mixed step 0 over the decode step's buffers and the slices in
+        ``p``: the mixed forward, the slices' tokens sampled at their last
+        token, then the decode rows' step 0 (:meth:`_advance`). Returns
+        the (S,) slice tokens."""
+        sb, b = self._buf, p.bufs
+        active = (~sb.frozen) & (sb.j < sb.budgets)
+        if self.ragged_attention:
+            dec_logits, pf_logits = self.model.forward_mixed_ragged(
+                sb.tok, sb.pos, self.cache, sb.bt, b["tok"], b["pos"],
+                b["qoff"], b["qlen"], b["bt"], active)
+        else:
+            dec_logits, pf_logits = self.model.forward_mixed(
+                sb.tok, sb.pos, self.cache, sb.bt, b["tok"], b["pos"],
+                b["len"], b["bt"], active, fused=self.fused_decode,
+                last_only=True)
+        first = sample_token(pf_logits, self._gen, temperature=b["temps"],
+                             top_k=self._top_k, top_p=self._top_p)
+        self._advance(active, dec_logits)
+        return first
+
+    def _program_graph(self, name: str, p: _Program, body) -> _StepGraph:
+        """Program ``name``'s graph, captured at its first replay into
+        the shared pool. Its staged inputs are kept aside meanwhile and
+        set to write the null page only (every row one token, all-zero
+        block tables)."""
+        g = self.program_graphs.get(name)
+        if g is not None:
+            return g
+        saved = {k: t.clone() for k, t in p.bufs.items()}
+        for k, t in p.bufs.items():
+            t.fill_(1 if k == "len" else 0)
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        g = self.program_graphs[name] = self._capture(lambda: body(p),
+                                                      self._graph_pool)
+        for k, t in p.bufs.items():
+            t.copy_(saved[k])
+        self.program_replays.setdefault(name, 0)
+        log.info("captured %s: %d kernel launches a replay, %.1f MiB added "
+                 "to the shared pool, %.2f s", name, sum(g.launches.values()),
+                 g.pool_bytes / 2**20, g.capture_s)
+        return g
+
+    def _launch(self, name: str, p: _Program, body,
+                eager: bool) -> torch.Tensor:
+        """Run program ``name`` over its staged inputs: on the card one
+        replay of its graph (captured first if it is not yet; its kernels
+        added to ``kernels.LAUNCHES``), on the CPU or with ``eager`` the
+        body itself. Returns its tokens; a replay's are rewritten by the
+        next replay of the same graph."""
+        if eager or not self._graphs_on:
+            return body(p)
+        g = self._program_graph(name, p, body)
+        self._replay(g)
+        self.program_replays[name] += 1
+        return g.out
+
+    def _ring_put(self, tokens: torch.Tensor,
+                  rows: List[int]) -> List[PrefillHandle]:
+        """Copy a dispatch's tokens into the next result-ring slot and
+        hand out handles to ``rows`` of it. Handles the slot still holds
+        unfetched are fetched first."""
+        slot = self._ring_next
+        self._ring_next = (slot + 1) % RESULT_RING
+        pending = [h for h in self._ring_handles[slot] if h.value is None]
+        if pending:
+            self.gather_scalars(pending)
+        self._ring[slot, :tokens.shape[0]].copy_(tokens)
+        hs = [PrefillHandle(slot, r) for r in rows]
+        self._ring_handles[slot] = hs
+        return hs
 
     @torch.inference_mode()
-    def _ragged_prefill(self, tokens: List[int], start_pos: int,
-                        block_table: np.ndarray, temperature: float) -> int:
+    def _prefill_wave(self, reqs: List, rows: int, *,
+                      eager: bool = False) -> List[PrefillHandle]:
+        """One bucket program over ``reqs`` (each a chunk of at most the
+        largest bucket) in its ``rows``-row variant: ``prefill_b{T}`` for
+        one row, ``prefill_multi_b{T}`` for a wave."""
+        T = self._bucket_for(max(len(r[0]) for r in reqs))
+        name = f"prefill_b{T}" if rows == 1 else f"prefill_multi_b{T}"
+        p = self._program(name, self._rows_shapes(rows, T))
+        self._stage_inputs(p, lambda v: self._fill_rows(v, reqs))
+        out = self._launch(name, p, self._prefill_body, eager)
+        return self._ring_put(out, list(range(len(reqs))))
+
+    @torch.inference_mode()
+    def _ragged_prefill_start(self, reqs: List, *,
+                              eager: bool = False) -> List:
         """Prefill through the ragged step with every decode row frozen
-        (no bucket program runs in ragged mode). The prompt is cut into
-        pieces of at most the capacity; consecutive pieces share a step
-        while they fit (all slice writes of a layer precede its attention
-        launch, so a later piece sees an earlier one's K/V). Returns the
-        token sampled after the last piece."""
+        (no bucket program runs in ragged mode;
+        ``JaxExecutor._ragged_prefill_start``). Each prompt is cut into
+        pieces of at most the capacity, packed in order, as many per step
+        as fit (all slice writes of a layer precede its attention launch,
+        so a later piece sees an earlier one's K/V). Returns one handle
+        per request (None for an empty one): its token sampled after its
+        last piece."""
         cap, S = self.mixed_slice_tokens, self.mixed_prefill_slices
         qblk, N = RAGGED_Q_BLOCK, self.ragged_buffer
-        B, MP = self.spec.batch_size, self.spec.max_pages_per_seq
-        pieces = [(list(tokens[o:o + cap]), start_pos + o)
-                  for o in range(0, len(tokens), cap)]
-        if not pieces:
-            return self.spec.eos_id
-        zeros = self._t(np.zeros(B, np.int32), torch.int32)
-        zbt = self._t(np.zeros((B, MP), np.int32), torch.int32)
-        frozen = torch.zeros(B, dtype=torch.bool, device=self.device)
+        pieces = []
+        for ri, (toks, sp, bt, temp) in enumerate(reqs):
+            toks = list(toks)
+            for o in range(0, len(toks), cap):
+                chunk = toks[o:o + cap]
+                pieces.append((ri, (chunk, sp + o, bt, temp),
+                               o + len(chunk) >= len(toks)))
+        results: List = [None] * len(reqs)
+        name, p = self._step0_program()
         i = 0
         while i < len(pieces):
             group, live, padded = [], 0, 0
             while i < len(pieces) and len(group) < S:
-                n = len(pieces[i][0])
+                n = len(pieces[i][1][0])
                 pad = -(-n // qblk) * qblk
                 if group and (live + n > cap or padded + pad > N):
                     break
                 group.append(pieces[i])
                 live, padded, i = live + n, padded + pad, i + 1
-            pf = [(0, chunk, sp, block_table, temperature)
-                  for chunk, sp in group]
-            _dec, pf_logits = self._ragged_forward(zeros, zeros, zbt, frozen,
-                                                   pf)
-        return int(self._sample(pf_logits[-1:], [temperature]).item())
+            self._freeze_rows()
+            self._stage_step0(p, [req for _ri, req, _fin in group])
+            first = self._launch(name, p, self._step0_body, eager)
+            fin = [j for j, (_ri, _req, done) in enumerate(group) if done]
+            if fin:
+                for j, h in zip(fin, self._ring_put(first, fin)):
+                    results[group[j][0]] = h
+        return results
+
+    def _freeze_rows(self) -> None:
+        """Every decode row inactive for a ragged prefill step: budgets
+        0 and all-zero block tables, so their writes land on page 0 and
+        their samples are discarded (device fills; no host copy)."""
+        b = self._buf
+        for t in (b.tok, b.pos, b.bt, b.budgets, b.j):
+            t.zero_()
+        b.frozen.fill_(True)
 
     def release_slot(self, slot: int) -> None:
         pass  # no per-slot state: block tables carry everything
 
     def resume(self, slot: int, tokens: List[int], start_pos: int) -> None:
         pass
-

@@ -269,39 +269,38 @@ def _attn_out_mlp(h: torch.Tensor, attn: torch.Tensor, lp: Params,
 
 @dataclass(frozen=True)
 class _Chunk:
-    """Right-padded prefill rows (B, T): host starts and counts for the
-    bf16 routes' per-row launches; positions, lengths and the visible
-    history ``seq_lens`` (last valid position + 1) as tensors for the
-    int8 routes' scatters."""
+    """Right-padded prefill rows (B, T), described on the device once
+    per forward for every layer: each row's start position, live count
+    and first row in the flattened (B·T) K/V buffer (int32, for the
+    bf16 kernels' single launch over all rows), its positions and the
+    visible history ``seq_lens`` (last valid position + 1, for the int8
+    routes). Nothing is read back to the host."""
 
-    starts: Optional[list]
-    counts: Optional[list]
-    positions: torch.Tensor
+    starts: torch.Tensor
     lengths: torch.Tensor
-    seq_lens: Optional[torch.Tensor]
+    offsets: torch.Tensor
+    positions: torch.Tensor
+    seq_lens: torch.Tensor
 
 
-def _chunk(positions: torch.Tensor, lengths: torch.Tensor,
-           q8: bool) -> _Chunk:
-    if q8:
-        T = positions.shape[1]
-        valid = (torch.arange(T, device=positions.device)[None, :]
-                 < lengths[:, None])
-        last = torch.where(valid, positions,
-                           torch.full_like(positions, -1)).amax(dim=1)
-        return _Chunk(None, None, positions, lengths, last + 1)
-    # Host copies for the per-row write/attention launches: two reads
-    # per forward instead of two per layer.
-    return _Chunk([int(x) for x in positions[:, 0].tolist()],
-                  [int(x) for x in lengths.tolist()], positions, lengths,
-                  None)
+def _chunk(positions: torch.Tensor, lengths: torch.Tensor) -> _Chunk:
+    B, T = positions.shape
+    dev = positions.device
+    valid = torch.arange(T, device=dev)[None, :] < lengths[:, None]
+    last = torch.where(valid, positions,
+                       torch.full_like(positions, -1)).amax(dim=1)
+    return _Chunk(positions[:, 0].to(torch.int32).contiguous(),
+                  lengths.to(torch.int32).contiguous(),
+                  torch.arange(0, B * T, T, device=dev, dtype=torch.int32),
+                  positions, last + 1)
 
 
 def _prefill_layer(h: torch.Tensor, lp: Params, layer: int,
                    cfg: LlamaConfig, cos, sin, kv_cache: KVCache,
                    block_tables: torch.Tensor, chunk: _Chunk) -> torch.Tensor:
     """One layer for right-padded chunk rows h (B, T, dim): write their
-    K/V, attend over each row's pages, MLP."""
+    K/V, attend over each row's pages, MLP. Over the bf16 pools the
+    write and the attention are one kernel launch each for all rows."""
     q, k, v = _qkv(h, lp, layer, cfg, cos, sin)
     pools = _q8_pools(kv_cache)
     if pools is not None:
@@ -312,10 +311,10 @@ def _prefill_layer(h: torch.Tensor, lp: Params, layer: int,
                                              layer)
         return _attn_out_mlp(h, attn, lp, layer, cfg)
     k_pool, v_pool = kv_cache["k"], kv_cache["v"]
-    paged_kv_write_prefill(k_pool, v_pool, k, v, block_tables, chunk.starts,
-                           chunk.counts, layer)
+    paged_kv_write_prefill(k_pool, v_pool, k, v, block_tables, chunk.offsets,
+                           chunk.starts, chunk.lengths, layer)
     attn = dispatch_prefill_attention(q, k_pool, v_pool, block_tables,
-                                      chunk.starts, layer)
+                                      chunk.starts, chunk.lengths, layer)
     return _attn_out_mlp(h, attn, lp, layer, cfg)
 
 
@@ -368,15 +367,49 @@ def forward_prefill(params: Params, cfg: LlamaConfig,
     past ``lengths`` are padding, not written, and their logits are
     meaningless. Continuation chunks (turn 2+) attend to earlier pages
     through the same block tables."""
+    h = _prefill_hidden(params, cfg, tokens, positions, lengths, kv_cache,
+                        block_tables)
+    return _logits(params, rms_norm(h, params["final_norm"], cfg.norm_eps))
+
+
+def forward_prefill_last(params: Params, cfg: LlamaConfig,
+                         tokens: torch.Tensor, positions: torch.Tensor,
+                         lengths: torch.Tensor, kv_cache: KVCache,
+                         block_tables: torch.Tensor) -> torch.Tensor:
+    """:func:`forward_prefill` with the LM head applied to each row's
+    last live token only (the hidden state at ``lengths - 1``, taken on
+    the device): logits (B, V) f32, the row the sampler reads, as the
+    JAX package's prefill programs read it. A batch's (B, T, V) logits
+    are never made."""
+    h = _prefill_hidden(params, cfg, tokens, positions, lengths, kv_cache,
+                        block_tables)
+    return _logits(params, _last_rows(params, cfg, h, lengths))
+
+
+def _last_rows(params: Params, cfg: LlamaConfig, h: torch.Tensor,
+               lengths: torch.Tensor) -> torch.Tensor:
+    """Final-normed hidden state (B, D) of each row's token
+    ``lengths - 1`` of h (B, T, D)."""
+    B, T = h.shape[0], h.shape[1]
+    last = (lengths.long() - 1).clamp(0, T - 1)
+    h_last = h[torch.arange(B, device=h.device), last]
+    return rms_norm(h_last, params["final_norm"], cfg.norm_eps)
+
+
+def _prefill_hidden(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
+                    positions: torch.Tensor, lengths: torch.Tensor,
+                    kv_cache: KVCache,
+                    block_tables: torch.Tensor) -> torch.Tensor:
+    """The layers of :func:`forward_prefill`: hidden states (B, T, D)
+    before the final norm."""
     lp = params["layers"]
     h = embed_lookup(params["embed"], tokens, cfg.dtype)       # (B, T, D)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
-    chunk = _chunk(positions, lengths, "k_scale" in kv_cache)
+    chunk = _chunk(positions, lengths)
     for layer in range(cfg.n_layers):
         h = _prefill_layer(h, lp, layer, cfg, cos, sin, kv_cache,
                            block_tables, chunk)
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return _logits(params, h)
+    return h
 
 
 def forward_decode(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
@@ -407,7 +440,7 @@ def forward_mixed(params: Params, cfg: LlamaConfig,
                   pf_tokens: torch.Tensor, pf_positions: torch.Tensor,
                   pf_lengths: torch.Tensor, pf_block_tables: torch.Tensor,
                   dec_active: Optional[torch.Tensor] = None, *,
-                  fused: bool = True):
+                  fused: bool = True, last_only: bool = False):
     """Mixed step (token-budget mixed batching): advance B decode rows
     one token AND write S prefill slices (up to T tokens each, (S, T)
     right-padded, contiguous positions per row) into the shared pool,
@@ -416,7 +449,8 @@ def forward_mixed(params: Params, cfg: LlamaConfig,
     (:func:`forward_decode`'s; ``dec_active`` sends inactive rows'
     writes to page 0), each with its own matmuls. A sequence is either
     decoding or mid-prefill, so their pages are disjoint. Returns
-    ``(dec_logits (B, V), pf_logits (S, T, V))`` f32."""
+    ``(dec_logits (B, V), pf_logits (S, T, V))`` f32; with ``last_only``
+    the slice logits are each slice's last live token's, (S, V)."""
     lp = params["layers"]
     h_d = embed_lookup(params["embed"], dec_tokens, cfg.dtype)  # (B, D)
     cos_d, sin_d = rope_cos_sin(dec_positions[:, None], cfg.head_dim,
@@ -425,7 +459,7 @@ def forward_mixed(params: Params, cfg: LlamaConfig,
         dec_positions, dec_block_tables, kv_cache["k"].shape[2], dec_active)
     h_p = embed_lookup(params["embed"], pf_tokens, cfg.dtype)  # (S, T, D)
     cos_p, sin_p = rope_cos_sin(pf_positions, cfg.head_dim, cfg.rope_theta)
-    chunk = _chunk(pf_positions, pf_lengths, "k_scale" in kv_cache)
+    chunk = _chunk(pf_positions, pf_lengths)
     for layer in range(cfg.n_layers):
         h_p = _prefill_layer(h_p, lp, layer, cfg, cos_p, sin_p, kv_cache,
                              pf_block_tables, chunk)
@@ -433,7 +467,10 @@ def forward_mixed(params: Params, cfg: LlamaConfig,
                             dec_block_tables, seq_lens, page_of, slot_of,
                             fused)
     h_d = rms_norm(h_d, params["final_norm"], cfg.norm_eps)
-    h_p = rms_norm(h_p, params["final_norm"], cfg.norm_eps)
+    if last_only:
+        h_p = _last_rows(params, cfg, h_p, pf_lengths)
+    else:
+        h_p = rms_norm(h_p, params["final_norm"], cfg.norm_eps)
     return _logits(params, h_d), _logits(params, h_p)
 
 
@@ -452,11 +489,11 @@ def forward_mixed_ragged(params: Params, cfg: LlamaConfig,
     contiguous per segment. The dense math runs over the N packed rows
     as one sequence; per layer the attention of the decode rows and of
     every packed token is one :func:`ragged_mixed_step`. The descriptors
-    are read to the host once per forward and uploaded once for all
-    layers (with an int8 cache, also the live packed rows' pages and
-    slots, :func:`ragged_slice_rows`). Returns ``(dec_logits (B, V),
-    pf_last_logits (S, V))``, the slice logits at each slice's last live
-    token."""
+    are built on the device once per forward for all layers (with an
+    int8 cache, also every packed row's page and slot,
+    :func:`ragged_slice_rows`); nothing is read back to the host.
+    Returns ``(dec_logits (B, V), pf_last_logits (S, V))``, the slice
+    logits at each slice's last live token."""
     lp = params["layers"]
     N = pf_tokens.shape[0]
     pools = _q8_pools(kv_cache)
@@ -466,12 +503,10 @@ def forward_mixed_ragged(params: Params, cfg: LlamaConfig,
     page_of, _slot_of, seq_lens = _decode_rows(
         dec_positions, dec_block_tables, kv_cache["k"].shape[2], dec_active)
     first = pf_qoff.long().clamp(0, N - 1)
-    qoff, qlen, qstart = torch.stack(
-        [pf_qoff.long(), pf_qlen.long(), pf_positions.long()[first]]).tolist()
     slices = ragged_slices(dec_block_tables, seq_lens, pf_block_tables,
-                           qoff, qlen, qstart)
+                           pf_qoff, pf_qlen, pf_positions[first])
     if pools is not None:
-        rows = ragged_slice_rows(slices, kv_cache["k"].shape[2])
+        rows = ragged_slice_rows(slices, N, kv_cache["k"].shape[2])
     h_p = embed_lookup(params["embed"], pf_tokens, cfg.dtype)[None]  # (1,N,D)
     cos_p, sin_p = rope_cos_sin(pf_positions[None], cfg.head_dim,
                                 cfg.rope_theta)
@@ -489,8 +524,7 @@ def forward_mixed_ragged(params: Params, cfg: LlamaConfig,
                 slices, layer)
         h_p = _attn_out_mlp(h_p, attn_p, lp, layer, cfg)
         h_d = _attn_out_mlp(h_d, attn_d, lp, layer, cfg)
-    last = torch.tensor([min(max(o + max(n, 1) - 1, 0), N - 1)
-                         for o, n in zip(qoff, qlen)], device=h_p.device)
+    last = (pf_qoff.long() + pf_qlen.long().clamp(min=1) - 1).clamp(0, N - 1)
     h_d = rms_norm(h_d, params["final_norm"], cfg.norm_eps)
     h_last = rms_norm(h_p[0, last], params["final_norm"], cfg.norm_eps)
     return _logits(params, h_d), _logits(params, h_last)
@@ -545,6 +579,11 @@ class Llama(nn.Module):
         return forward_prefill(self.params, self.cfg, tokens, positions,
                                lengths, kv_cache, block_tables)
 
+    def forward_prefill_last(self, tokens, positions, lengths, kv_cache,
+                             block_tables) -> torch.Tensor:
+        return forward_prefill_last(self.params, self.cfg, tokens, positions,
+                                    lengths, kv_cache, block_tables)
+
     def forward_decode(self, tokens, positions, kv_cache, block_tables,
                        active=None, *, fused: bool = True) -> torch.Tensor:
         return forward_decode(self.params, self.cfg, tokens, positions,
@@ -553,11 +592,12 @@ class Llama(nn.Module):
     def forward_mixed(self, dec_tokens, dec_positions, kv_cache,
                       dec_block_tables, pf_tokens, pf_positions, pf_lengths,
                       pf_block_tables, dec_active=None, *,
-                      fused: bool = True):
+                      fused: bool = True, last_only: bool = False):
         return forward_mixed(self.params, self.cfg, dec_tokens,
                              dec_positions, kv_cache, dec_block_tables,
                              pf_tokens, pf_positions, pf_lengths,
-                             pf_block_tables, dec_active, fused=fused)
+                             pf_block_tables, dec_active, fused=fused,
+                             last_only=last_only)
 
     def forward_mixed_ragged(self, dec_tokens, dec_positions, kv_cache,
                              dec_block_tables, pf_tokens, pf_positions,

@@ -26,7 +26,7 @@ buffer donation.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import Tuple
 
 import torch
 
@@ -164,33 +164,34 @@ def blockwise_prefill_attention(q: torch.Tensor, k_hist: torch.Tensor,
 
 def paged_kv_write_prefill(k_pool: torch.Tensor, v_pool: torch.Tensor,
                            k: torch.Tensor, v: torch.Tensor,
-                           block_tables: torch.Tensor, starts: List[int],
-                           lengths: List[int], layer: int) -> None:
-    """Write a prefill chunk's K/V (k, v (B, T, H_kv, D)) into layer
-    ``layer`` in place, one prefill-write launch per row: row b's first
-    ``lengths[b]`` tokens land at positions ``starts[b] + t``; the rest
-    are padding and are not written. ``starts``/``lengths`` are host
-    ints, so the per-layer calls never wait on the device."""
+                           block_tables: torch.Tensor, offsets: torch.Tensor,
+                           starts: torch.Tensor, lengths: torch.Tensor,
+                           layer: int) -> None:
+    """Write a prefill batch's K/V (k, v (B, T, H_kv, D)) into layer
+    ``layer`` in place, in one prefill-write launch for every row: row
+    b's first ``lengths[b]`` tokens land at positions ``starts[b] + t``;
+    the rest are padding and are not written. ``offsets`` (``b·T``),
+    ``starts`` and ``lengths`` are device int32 (B,), so nothing is read
+    back to the host."""
     B, T = k.shape[0], k.shape[1]
     GD = k_pool.shape[3]
-    for b in range(B):
-        kernels.kv_prefill_write(k_pool, v_pool, k[b].reshape(T, GD),
-                                 v[b].reshape(T, GD), block_tables[b],
-                                 starts[b], lengths[b], layer)
+    kernels.kv_prefill_write(k_pool, v_pool, k.reshape(B * T, GD),
+                             v.reshape(B * T, GD), block_tables, offsets,
+                             lengths, starts, T, layer)
 
 
 def dispatch_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
                                v_pool: torch.Tensor,
                                block_tables: torch.Tensor,
-                               starts: List[int], layer: int) -> torch.Tensor:
-    """Prefill-chunk attention over the pool, one launch per row;
+                               starts: torch.Tensor, lengths: torch.Tensor,
+                               layer: int) -> torch.Tensor:
+    """Prefill-chunk attention over the pool for every row in one launch;
     q (B, T, H, D). Row b's queries sit at positions ``starts[b] + t``
-    (contiguous chunks; padding rows produce values the caller
-    discards). Returns (B, T, H, D)."""
-    outs = [kernels.prefill_attention(q[b], k_pool, v_pool,
-                                      block_tables[b], starts[b], layer)
-            for b in range(q.shape[0])]
-    return torch.stack(outs)
+    (contiguous chunks); tokens at or past ``lengths[b]`` come out as
+    zeros. ``starts`` and ``lengths`` are device int32 (B,). Returns
+    (B, T, H, D)."""
+    return kernels.prefill_attention(q, k_pool, v_pool, block_tables,
+                                     starts, lengths, layer)
 
 
 def paged_decode_step(q: torch.Tensor, k_new: torch.Tensor,
@@ -231,34 +232,31 @@ RAGGED_Q_BLOCK = 8
 
 @dataclass(frozen=True)
 class RaggedSlices:
-    """The slice descriptors of one ragged dispatch, built once and read
-    by every layer: host ints for the per-slice write launches, and the
-    same descriptors on the device for the attention kernel."""
+    """The slice descriptors of one ragged dispatch, built once on the
+    device and read by every layer."""
 
-    qoff: List[int]              # packed row of each slice's first token
-    qlen: List[int]              # live tokens per slice (0: unused row)
-    qstart: List[int]            # absolute position of the first token
     block_tables: torch.Tensor   # (B+S, MP) int32: decode rows, slices
     seq_lens: torch.Tensor       # (B+S,) int32: pos+1, then qstart+qlen
     meta: torch.Tensor           # (3, S) int32: qoff, qlen, qstart
 
+    @property
+    def n_slices(self) -> int:
+        return self.meta.shape[1]
+
 
 def ragged_slices(dec_block_tables: torch.Tensor,
                   dec_seq_lens: torch.Tensor,
-                  pf_block_tables: torch.Tensor, qoff: Sequence[int],
-                  qlen: Sequence[int],
-                  qstart: Sequence[int]) -> RaggedSlices:
-    """Descriptors for :func:`ragged_mixed_step`: one upload of the
-    (3, S) host descriptors, and the decode rows' and slices' block
-    tables and lengths concatenated on the device."""
-    qoff, qlen, qstart = ([int(x) for x in v] for v in (qoff, qlen, qstart))
-    dev = dec_block_tables.device
-    meta = torch.tensor([qoff, qlen, qstart], dtype=torch.int32, device=dev)
+                  pf_block_tables: torch.Tensor, qoff: torch.Tensor,
+                  qlen: torch.Tensor, qstart: torch.Tensor) -> RaggedSlices:
+    """Descriptors for :func:`ragged_mixed_step` from device tensors
+    (qoff, qlen, qstart (S,)): the (3, S) descriptors, and the decode
+    rows' and slices' block tables and lengths concatenated, all on the
+    device (nothing is read back or uploaded)."""
+    meta = torch.stack([qoff, qlen, qstart]).to(torch.int32)
     bt = torch.cat([dec_block_tables.to(torch.int32),
                     pf_block_tables.to(torch.int32)])
     sl = torch.cat([dec_seq_lens.to(torch.int32), meta[2] + meta[1]])
-    return RaggedSlices(qoff, qlen, qstart, bt.contiguous(), sl.contiguous(),
-                        meta)
+    return RaggedSlices(bt.contiguous(), sl.contiguous(), meta.contiguous())
 
 
 def ragged_mixed_step(q_dec: torch.Tensor, k_new: torch.Tensor,
@@ -267,27 +265,22 @@ def ragged_mixed_step(q_dec: torch.Tensor, k_new: torch.Tensor,
                       k_pool: torch.Tensor, v_pool: torch.Tensor,
                       page_of: torch.Tensor, slices: RaggedSlices,
                       layer: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One mixed layer, ragged: write each live slice's K/V straight from
-    its packed rows (one prefill-write launch per slice; the rows
-    ``k_pf[qoff:qoff+qlen]`` are a contiguous view of the (N, GD)
-    buffer), then ONE ragged attention launch for the decode rows (their
-    K/V written in place at ``page_of``) and every packed slice token.
-    An unused slice row (qlen 0) writes nothing. The writes precede the
-    attention on the stream, so a slice sees its own fresh K/V and that
-    of an earlier piece of the same prompt in the same step. Returns
-    ``(attn_dec (B, H, D), attn_pf (N, H, D))``; pools update in
-    place."""
+    """One mixed layer, ragged: ONE prefill-write launch for every
+    slice's K/V, straight from the packed rows (slice s is rows
+    ``[qoff, qoff+qlen)`` of the (N, GD) buffer), then ONE ragged
+    attention launch for the decode rows (their K/V written in place at
+    ``page_of``) and every packed slice token. An unused slice row
+    (qlen 0) writes nothing. The writes precede the attention on the
+    stream, so a slice sees its own fresh K/V and that of an earlier
+    piece of the same prompt in the same step. Returns ``(attn_dec (B,
+    H, D), attn_pf (N, H, D))``; pools update in place."""
     B = q_dec.shape[0]
     N = q_pf.shape[0]
     GD = k_pool.shape[3]
-    k_rows, v_rows = k_pf.reshape(N, GD), v_pf.reshape(N, GD)
-    for s, (off, n, start) in enumerate(zip(slices.qoff, slices.qlen,
-                                            slices.qstart)):
-        if n > 0:
-            kernels.kv_prefill_write(k_pool, v_pool, k_rows[off:off + n],
-                                     v_rows[off:off + n],
-                                     slices.block_tables[B + s], start, n,
-                                     layer)
+    kernels.kv_prefill_write(k_pool, v_pool, k_pf.reshape(N, GD),
+                             v_pf.reshape(N, GD), slices.block_tables[B:],
+                             slices.meta[0], slices.meta[1], slices.meta[2],
+                             N, layer)
     return kernels.ragged_mixed_attention(
         q_dec, k_new, v_new, q_pf, k_pool, v_pool, slices.block_tables,
         slices.seq_lens, page_of, slices.meta[0], slices.meta[1],
@@ -387,22 +380,26 @@ def dispatch_prefill_attention_q8(q: torch.Tensor, pools: Q8Pools,
                                        seq_lens)
 
 
-def ragged_slice_rows(slices: RaggedSlices, page_size: int):
-    """The live packed rows of a ragged dispatch and where each lands:
-    ``(rows, page_of, slot_of)`` (M,) int64 on the device, built once per
-    forward (one upload and one block-table gather) for every layer's
-    int8 slice write."""
-    B = slices.block_tables.shape[0] - len(slices.qoff)
-    rows, pos, owner = [], [], []
-    for s, (off, n, start) in enumerate(zip(slices.qoff, slices.qlen,
-                                            slices.qstart)):
-        rows += range(off, off + n)
-        pos += range(start, start + n)
-        owner += [B + s] * n
-    t = torch.tensor([rows, pos, owner], dtype=torch.long,
-                     device=slices.block_tables.device)
-    page_of = slices.block_tables.long()[t[2], t[1] // page_size]
-    return t[0], page_of, t[1] % page_size
+def ragged_slice_rows(slices: RaggedSlices, n_rows: int, page_size: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Where each of the N packed rows of a ragged dispatch lands:
+    ``(page_of, slot_of)`` (N,) int64 on the device, built once per
+    forward for every layer's int8 slice write. A row outside every
+    slice goes to the null page's slot 0, as in the JAX package's int8
+    scatter; the set of rows is fixed, so nothing is read back."""
+    B = slices.block_tables.shape[0] - slices.n_slices
+    qoff, qlen, qstart = slices.meta.long()
+    n = torch.arange(n_rows, device=qoff.device)
+    inside = (n[:, None] >= qoff[None, :]) & (n[:, None] < (qoff + qlen)[None])
+    owner = inside.long().argmax(dim=1)                 # (N,) slice index
+    live = inside.any(dim=1)
+    pos = (qstart[owner] + n - qoff[owner]).clamp(min=0)
+    MP = slices.block_tables.shape[1]
+    page = slices.block_tables.long()[B + owner,
+                                      (pos // page_size).clamp(max=MP - 1)]
+    zero = torch.zeros_like(page)
+    return (torch.where(live, page, zero),
+            torch.where(live, pos % page_size, zero))
 
 
 def ragged_mixed_step_q8(q_dec: torch.Tensor, k_new: torch.Tensor,
@@ -411,24 +408,24 @@ def ragged_mixed_step_q8(q_dec: torch.Tensor, k_new: torch.Tensor,
                          pools: Q8Pools, page_of: torch.Tensor,
                          slices: RaggedSlices, rows, layer: int
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`ragged_mixed_step` over the int8 pools: quantize the live
-    packed slice rows and scatter them with their scales straight from
-    the packed buffer (``rows`` from :func:`ragged_slice_rows`; no dense
-    view), then quantize the decode rows and make ONE int8 ragged
-    attention launch, which writes the decode rows and their scales and
-    dequantizes in the kernel. Returns ``(attn_dec (B, H, D), attn_pf
-    (N, H, D))``; pools update in place."""
+    """:func:`ragged_mixed_step` over the int8 pools: quantize the N
+    packed rows and scatter them with their scales straight from the
+    packed buffer (``rows`` from :func:`ragged_slice_rows`: rows outside
+    every slice land on the null page; no dense view), then quantize the
+    decode rows and make ONE int8 ragged attention launch, which writes
+    the decode rows and their scales and dequantizes in the kernel.
+    Returns ``(attn_dec (B, H, D), attn_pf (N, H, D))``; pools update in
+    place."""
     k_pool, v_pool, ks_pool, vs_pool = pools
     N, H, D = q_pf.shape
     GD = k_pool.shape[3]
-    idx, pf_page, pf_slot = rows
-    if idx.numel():
-        kq, ks = quantize_kv_rows(k_pf.reshape(N, GD // D, D)[idx])
-        vq, vs = quantize_kv_rows(v_pf.reshape(N, GD // D, D)[idx])
-        k_pool[layer, pf_page, pf_slot] = kq.reshape(-1, GD)
-        v_pool[layer, pf_page, pf_slot] = vq.reshape(-1, GD)
-        _scale_scatter(ks_pool, layer, pf_page, pf_slot, ks)
-        _scale_scatter(vs_pool, layer, pf_page, pf_slot, vs)
+    pf_page, pf_slot = rows
+    kq, ks = quantize_kv_rows(k_pf.reshape(N, GD // D, D))
+    vq, vs = quantize_kv_rows(v_pf.reshape(N, GD // D, D))
+    k_pool[layer, pf_page, pf_slot] = kq.reshape(-1, GD)
+    v_pool[layer, pf_page, pf_slot] = vq.reshape(-1, GD)
+    _scale_scatter(ks_pool, layer, pf_page, pf_slot, ks)
+    _scale_scatter(vs_pool, layer, pf_page, pf_slot, vs)
     kq, ks = quantize_kv_rows(k_new)
     vq, vs = quantize_kv_rows(v_new)
     return kernels.ragged_mixed_attention_q8(

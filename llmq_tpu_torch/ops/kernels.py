@@ -66,14 +66,14 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "kv_write": {
         "llmq_kv_cache_write": [_P] * 6 + [_I] * 5 + [_P],
-        "llmq_kv_prefill_write": [_P] * 5 + [_I] * 6 + [_P],
+        "llmq_kv_prefill_write": [_P] * 8 + [_I] * 8 + [_P],
     },
     "fused_decode": {
         "llmq_fused_decode": [_P] * 11 + [_I] * 9 + [_F, _P],
         "llmq_fused_decode_q8": [_P] * 15 + [_I] * 9 + [_F, _P],
     },
     "prefill_attention": {
-        "llmq_prefill_attention": [_P] * 5 + [_I] * 9 + [_F, _P],
+        "llmq_prefill_attention": [_P] * 7 + [_I] * 9 + [_F, _P],
     },
     "paged_decode": {
         "llmq_paged_decode": [_P] * 8 + [_I] * 9 + [_F, _P],
@@ -406,118 +406,148 @@ def fused_decode_plain(q: torch.Tensor, k_new: torch.Tensor,
 
 # -- kernel 2: prefill chunk write --------------------------------------------
 
+def _check_rows_desc(n_rows: int, max_pages: int, block_tables: torch.Tensor,
+                     **desc: torch.Tensor) -> None:
+    """Per-row device descriptors: int32 (n_rows,) each, and the int32
+    block tables (n_rows, max_pages)."""
+    _check(block_tables, "block_tables", torch.int32, (n_rows, max_pages))
+    for name, t in desc.items():
+        _check(t, name, torch.int32, (n_rows,))
+
+
 def kv_prefill_write(k_pool: torch.Tensor, v_pool: torch.Tensor,
                      k_rows: torch.Tensor, v_rows: torch.Tensor,
-                     block_table: torch.Tensor, start_pos: int,
-                     n_tokens: int, layer: int) -> None:
-    """Write the first ``n_tokens`` of a chunk's K/V rows (T, GD) at
-    absolute positions ``[start_pos, start_pos + n_tokens)`` through one
-    sequence's ``block_table`` (MP,), in place. Padding rows past
-    ``n_tokens`` are not written.
+                     block_tables: torch.Tensor, offsets: torch.Tensor,
+                     counts: torch.Tensor, starts: torch.Tensor,
+                     row_tokens: int, layer: int) -> None:
+    """Write the prefill rows of a whole batch in one launch, in place:
+    row r's token t (``t < counts[r]``) is buffer row ``offsets[r] + t``
+    of k_rows/v_rows (M, GD) and lands at absolute position ``starts[r]
+    + t`` through ``block_tables[r]`` (R, MP). Tokens at or past
+    ``counts[r]`` are not written. ``row_tokens`` bounds every count and
+    sets the grid with R, so nothing is read from the device: the bucket
+    programs pass T with offsets ``r·T``, a ragged step its buffer's N
+    with the slices' ``qoff/qlen/qstart``. A position past the block
+    table or a page outside the pool is skipped.
 
     Replaces ``kv_prefill_write_pallas`` (llmq_tpu/ops/pallas/
-    kv_write.py), without its page-aligned pre-shifted buffer. Bound by
-    bytes: each row is read and written once (csrc/kv_write.cu)."""
-    if _on_cpu(k_pool, v_pool, k_rows, v_rows, block_table):
-        kv_prefill_write_plain(k_pool, v_pool, k_rows, v_rows, block_table,
-                               start_pos, n_tokens, layer)
+    kv_write.py), vmapped there over a wave's rows, without its
+    page-aligned pre-shifted buffer. Bound by bytes: each live row is
+    read and written once (csrc/kv_write.cu)."""
+    if _on_cpu(k_pool, v_pool, k_rows, v_rows, block_tables, offsets,
+               counts, starts):
+        kv_prefill_write_plain(k_pool, v_pool, k_rows, v_rows, block_tables,
+                               offsets, counts, starts, row_tokens, layer)
         return
     _check_pools(k_pool, v_pool, layer)
     L, P, ps, GD = k_pool.shape
-    T = k_rows.shape[0]
-    _check(k_rows, "k_rows", torch.bfloat16, (T, GD), align=16)
-    _check(v_rows, "v_rows", torch.bfloat16, (T, GD), align=16)
-    MP = block_table.shape[0]
-    _check(block_table, "block_table", torch.int32, (MP,))
-    if not 0 <= n_tokens <= T or start_pos < 0:
-        raise ValueError(f"bad chunk: start_pos={start_pos} "
-                         f"n_tokens={n_tokens} T={T}")
-    if start_pos + n_tokens > MP * ps:
-        raise ValueError(f"chunk end {start_pos + n_tokens} exceeds the "
-                         f"block table's {MP * ps} positions")
-    if n_tokens == 0:
-        return
+    M = k_rows.shape[0]
+    _check(k_rows, "k_rows", torch.bfloat16, (M, GD), align=16)
+    _check(v_rows, "v_rows", torch.bfloat16, (M, GD), align=16)
+    R = offsets.shape[0]
+    MP = block_tables.shape[1] if block_tables.dim() == 2 else -1
+    _check_rows_desc(R, MP, block_tables, offsets=offsets, counts=counts,
+                     starts=starts)
+    if not 0 < row_tokens <= M:
+        raise ValueError(f"row_tokens={row_tokens} outside (0, {M}]")
     rc = _fn("kv_write", "llmq_kv_prefill_write")(
         k_pool.data_ptr(), v_pool.data_ptr(), k_rows.data_ptr(),
-        v_rows.data_ptr(), block_table.data_ptr(), start_pos, n_tokens,
-        layer, P, ps, GD, _stream(k_pool))
+        v_rows.data_ptr(), block_tables.data_ptr(), offsets.data_ptr(),
+        counts.data_ptr(), starts.data_ptr(), R, row_tokens, M, MP, layer,
+        P, ps, GD, _stream(k_pool))
     _raise_on(rc, "kv_prefill_write")
     LAUNCHES["kv_prefill_write"] += 1
 
 
 def kv_prefill_write_plain(k_pool: torch.Tensor, v_pool: torch.Tensor,
                            k_rows: torch.Tensor, v_rows: torch.Tensor,
-                           block_table: torch.Tensor, start_pos: int,
-                           n_tokens: int, layer: int) -> None:
-    """Plain twin of :func:`kv_prefill_write`: a scatter."""
+                           block_tables: torch.Tensor, offsets: torch.Tensor,
+                           counts: torch.Tensor, starts: torch.Tensor,
+                           row_tokens: int, layer: int) -> None:
+    """Plain twin of :func:`kv_prefill_write`: one scatter of the live
+    tokens of every row."""
     from llmq_tpu_torch.ops.attention import paged_kv_write
 
     ps = k_pool.shape[2]
-    pos = torch.arange(start_pos, start_pos + n_tokens,
-                       device=k_pool.device)
-    page = block_table.long()[pos // ps]
-    paged_kv_write(k_pool, v_pool, k_rows[:n_tokens], v_rows[:n_tokens],
-                   page, pos % ps, layer)
+    MP = block_tables.shape[1]
+    t = torch.arange(row_tokens, device=k_pool.device)[None, :]
+    src = offsets.long()[:, None] + t
+    pos = starts.long()[:, None] + t
+    live = ((t < counts.long()[:, None]) & (src >= 0)
+            & (src < k_rows.shape[0]) & (pos >= 0) & (pos // ps < MP))
+    page = block_tables.long().gather(1, (pos // ps).clamp(0, MP - 1))
+    live &= (page >= 0) & (page < k_pool.shape[1])
+    src = src[live]
+    paged_kv_write(k_pool, v_pool, k_rows[src], v_rows[src], page[live],
+                   pos[live] % ps, layer)
 
 
 # -- kernel 3: paged causal prefill attention ---------------------------------
 
 def prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
-                      v_pool: torch.Tensor, block_table: torch.Tensor,
-                      start_pos: int, layer: int) -> torch.Tensor:
-    """Causal attention for one sequence's chunk q (T, H, D) whose row t
-    sits at absolute position ``start_pos + t``, over the sequence's
-    pages (its fresh K/V and any cached history); visibility is
-    ``kv_pos <= q_pos``. Returns (T, H, D).
+                      v_pool: torch.Tensor, block_tables: torch.Tensor,
+                      starts: torch.Tensor, lengths: torch.Tensor,
+                      layer: int) -> torch.Tensor:
+    """Causal attention for N sequences' chunks in one launch: q (N, T,
+    H, D), row n's token t at absolute position ``starts[n] + t``, over
+    that sequence's pages through ``block_tables[n]`` (its fresh K/V and
+    any cached history); visibility is ``kv_pos <= q_pos``. Tokens at or
+    past ``lengths[n]`` come out as zeros. ``starts`` and ``lengths``
+    are device int32 (N,); the grid comes from the shapes. Returns (N,
+    T, H, D).
 
     Replaces ``paged_prefill_attention_pallas`` (llmq_tpu/ops/pallas/
-    prefill_attention.py). Its bound moves between bytes (a fresh
-    chunk) and operations (a long chunk or history); both products run
-    on the tensor cores (wgmma), each cp.async-staged K/V tile serving
-    64 query rows (csrc/prefill_attention.cu)."""
-    if _on_cpu(q, k_pool, v_pool, block_table):
-        return prefill_attention_plain(q, k_pool, v_pool, block_table,
-                                       start_pos, layer)
-    T, H, D = q.shape
+    prefill_attention.py), vmapped there over a wave's rows. Its bound
+    moves between bytes (a fresh chunk) and operations (a long chunk or
+    history); both products run on the tensor cores (wgmma), each
+    cp.async-staged K/V tile serving 64 query rows; q tiles past a row's
+    length only write zeros (csrc/prefill_attention.cu)."""
+    if _on_cpu(q, k_pool, v_pool, block_tables, starts, lengths):
+        return prefill_attention_plain(q, k_pool, v_pool, block_tables,
+                                       starts, lengths, layer)
+    N, T, H, D = q.shape
     _check_pools(k_pool, v_pool, layer)
     L, P, ps, GD = k_pool.shape
     Hkv = GD // D
     _check_heads(H, Hkv, D)
     if Hkv * D != GD:
         raise ValueError(f"pool GD={GD} != H_kv*D for D={D}")
-    _check(q, "q", torch.bfloat16, (T, H, D), align=16)
-    MP = block_table.shape[0]
-    _check(block_table, "block_table", torch.int32, (MP,))
-    if start_pos < 0:
-        raise ValueError(f"start_pos={start_pos} < 0")
+    _check(q, "q", torch.bfloat16, (N, T, H, D), align=16)
+    MP = block_tables.shape[1] if block_tables.dim() == 2 else -1
+    _check_rows_desc(N, MP, block_tables, starts=starts, lengths=lengths)
     out = torch.empty_like(q)
     rc = _fn("prefill_attention", "llmq_prefill_attention")(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_table.data_ptr(), out.data_ptr(), T, H, Hkv, D, start_pos,
-        layer, P, ps, MP, D ** -0.5, _stream(q))
+        block_tables.data_ptr(), starts.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), N, T, H, Hkv, D, layer, P, ps, MP, D ** -0.5,
+        _stream(q))
     _raise_on(rc, "prefill_attention")
     LAUNCHES["prefill_attention"] += 1
     return out
 
 
 def prefill_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
-                            v_pool: torch.Tensor, block_table: torch.Tensor,
-                            start_pos: int, layer: int) -> torch.Tensor:
-    """Plain twin of :func:`prefill_attention`: gather the sequence's
-    pages, then the blockwise online-softmax attention."""
+                            v_pool: torch.Tensor, block_tables: torch.Tensor,
+                            starts: torch.Tensor, lengths: torch.Tensor,
+                            layer: int) -> torch.Tensor:
+    """Plain twin of :func:`prefill_attention`: gather each row's pages,
+    the blockwise online-softmax attention, zeros past each length."""
     from llmq_tpu_torch.ops.attention import blockwise_prefill_attention
 
-    T, H, D = q.shape
+    N, T, H, D = q.shape
     ps, GD = k_pool.shape[2], k_pool.shape[3]
     Hkv = GD // D
-    S = block_table.shape[0] * ps
-    bt = block_table.long()
-    k_hist = k_pool[layer][bt].reshape(1, S, Hkv, D)
-    v_hist = v_pool[layer][bt].reshape(1, S, Hkv, D)
-    positions = (start_pos + torch.arange(T, device=q.device))[None]
-    seq_lens = torch.tensor([min(start_pos + T, S)], device=q.device)
-    return blockwise_prefill_attention(q[None], k_hist, v_hist, positions,
-                                       seq_lens)[0]
+    S = block_tables.shape[1] * ps
+    bt = block_tables.long()
+    k_hist = k_pool[layer][bt].reshape(N, S, Hkv, D)
+    v_hist = v_pool[layer][bt].reshape(N, S, Hkv, D)
+    t = torch.arange(T, device=q.device)
+    positions = starts.long()[:, None] + t[None, :]
+    lens = lengths.long().clamp(0, T)
+    seq_lens = (starts.long() + lens).clamp(max=S)
+    out = blockwise_prefill_attention(q, k_hist, v_hist, positions, seq_lens)
+    live = t[None, :] < lens[:, None]
+    return torch.where(live[:, :, None, None], out, torch.zeros_like(out))
 
 
 # -- kernel 4: decode row write -----------------------------------------------
@@ -761,22 +791,36 @@ def ragged_mixed_attention_plain(q_dec: torch.Tensor, k_new: torch.Tensor,
                                  pf_qoff: torch.Tensor, pf_qlen: torch.Tensor,
                                  pf_qstart: torch.Tensor, layer: int):
     """Plain twin of :func:`ragged_mixed_attention`: the decode half as
-    :func:`fused_decode_plain`, then each live slice's causal attention
-    over its gathered pages (:func:`prefill_attention_plain`); packed
-    rows outside every slice are zeros."""
+    :func:`fused_decode_plain`, then each slice's causal attention over
+    its gathered pages (:func:`prefill_attention_plain`) for the packed
+    rows it owns (:func:`_slice_owner`); packed rows outside every slice
+    are zeros. Descriptors stay on the device."""
     B = q_dec.shape[0]
     out_dec = fused_decode_plain(q_dec, k_new, v_new, k_pool, v_pool,
                                  block_tables[:B], seq_lens[:B], write_page,
                                  layer)
+    N = q_pf.shape[0]
+    own = _slice_owner(N, pf_qoff, pf_qlen)
     out_pf = torch.zeros_like(q_pf)
-    for s, (off, n, start) in enumerate(zip(pf_qoff.tolist(),
-                                            pf_qlen.tolist(),
-                                            pf_qstart.tolist())):
-        if n > 0:
-            out_pf[off:off + n] = prefill_attention_plain(
-                q_pf[off:off + n], k_pool, v_pool, block_tables[B + s],
-                start, layer)
+    for s in range(pf_qoff.shape[0]):
+        # Every packed row as if slice s held it: row n at qstart + n -
+        # qoff; the rows slice s owns are the ones kept.
+        start = (pf_qstart[s:s + 1] - pf_qoff[s:s + 1]).to(torch.int32)
+        o = prefill_attention_plain(
+            q_pf[None], k_pool, v_pool, block_tables[B + s:B + s + 1],
+            start, (pf_qoff[s:s + 1] + pf_qlen[s:s + 1]).to(torch.int32),
+            layer)[0]
+        out_pf = torch.where(own[s][:, None, None], o, out_pf)
     return out_dec, out_pf
+
+
+def _slice_owner(n_rows: int, qoff: torch.Tensor,
+                 qlen: torch.Tensor) -> torch.Tensor:
+    """(S, n_rows) bool: packed row n lies in slice s, ``qoff[s] <= n <
+    qoff[s] + qlen[s]``."""
+    n = torch.arange(n_rows, device=qoff.device)[None, :]
+    off = qoff.long()[:, None]
+    return (n >= off) & (n < off + qlen.long()[:, None])
 
 
 # -- kernel 7: int8 ragged mixed attention -----------------------------------
@@ -871,9 +915,9 @@ def ragged_mixed_attention_q8_plain(q_dec: torch.Tensor,
                                     pf_qstart: torch.Tensor, layer: int):
     """Plain twin of :func:`ragged_mixed_attention_q8`, the JAX package's
     plain route: the decode half as :func:`fused_decode_q8_plain`, then
-    each live slice's causal attention over its dequantized window
-    (``ops/attention.dispatch_prefill_attention_q8``); packed rows outside
-    every slice are zeros."""
+    each slice's causal attention over its dequantized window
+    (``ops/attention.dispatch_prefill_attention_q8``) for the packed rows
+    it owns; packed rows outside every slice are zeros."""
     from llmq_tpu_torch.ops.attention import dispatch_prefill_attention_q8
 
     B = q_dec.shape[0]
@@ -881,16 +925,18 @@ def ragged_mixed_attention_q8_plain(q_dec: torch.Tensor,
     out_dec = fused_decode_q8_plain(q_dec, k_new_q, k_new_scale, v_new_q,
                                     v_new_scale, *pools, block_tables[:B],
                                     seq_lens[:B], write_page, layer)
+    N = q_pf.shape[0]
+    own = _slice_owner(N, pf_qoff, pf_qlen)
+    rows = torch.arange(N, device=q_pf.device)
     out_pf = torch.zeros_like(q_pf)
-    dev = q_pf.device
-    for s, (off, n, start) in enumerate(zip(pf_qoff.tolist(),
-                                            pf_qlen.tolist(),
-                                            pf_qstart.tolist())):
-        if n > 0:
-            pos = (start + torch.arange(n, device=dev))[None]
-            out_pf[off:off + n] = dispatch_prefill_attention_q8(
-                q_pf[None, off:off + n], pools, block_tables[B + s][None],
-                pos, torch.tensor([start + n], device=dev), layer)[0]
+    for s in range(pf_qoff.shape[0]):
+        # Every packed row as if slice s held it (see the bf16 twin).
+        pos = (pf_qstart[s].long() - pf_qoff[s].long() + rows)[None]
+        seq_len = (pf_qstart[s:s + 1] + pf_qlen[s:s + 1]).long()
+        o = dispatch_prefill_attention_q8(
+            q_pf[None], pools, block_tables[B + s:B + s + 1], pos, seq_len,
+            layer)[0]
+        out_pf = torch.where(own[s][:, None, None], o, out_pf)
     return out_dec, out_pf
 
 

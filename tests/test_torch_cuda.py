@@ -45,6 +45,18 @@ def _pools(gen):
     return _rand((L, P, PS, GD), gen), _rand((L, P, PS, GD), gen)
 
 
+def _desc(*cols):
+    """Per-row int32 descriptors (kernels 2 and 3) on the card."""
+    return [torch.tensor(c, dtype=torch.int32, device="cuda") for c in cols]
+
+
+def _attn1(fn, q, kp, vp, bt, start, layer):
+    """Kernel 3 (or its twin) for one chunk q (T, H, D) at ``start``, all
+    T tokens live: the batched call with N = 1."""
+    return fn(q[None], kp, vp, bt[None], *_desc([start], [q.shape[0]]),
+              layer)[0]
+
+
 @needs_cuda
 def test_fused_decode_matches_twin():
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -83,13 +95,14 @@ def test_prefill_write_and_attention_match_twins(T, start, n_tok):
     bt = (bt[:MP] + 1).to(torch.int32).cuda()
     rk, rv = _rand((T, GD), gen), _rand((T, GD), gen)
     k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
-    kernels.kv_prefill_write(k1, v1, rk, rv, bt, start, n_tok, 0)
-    kernels.kv_prefill_write_plain(k2, v2, rk, rv, bt, start, n_tok, 0)
+    desc = _desc([0], [n_tok], [start])
+    kernels.kv_prefill_write(k1, v1, rk, rv, bt[None], *desc, T, 0)
+    kernels.kv_prefill_write_plain(k2, v2, rk, rv, bt[None], *desc, T, 0)
     torch.cuda.synchronize()
     assert torch.equal(k1, k2) and torch.equal(v1, v2)
     q = _rand((T, H, D), gen)
-    a = kernels.prefill_attention(q, k1, v1, bt, start, 0)
-    b = kernels.prefill_attention_plain(q, k1, v1, bt, start, 0)
+    a = _attn1(kernels.prefill_attention, q, k1, v1, bt, start, 0)
+    b = _attn1(kernels.prefill_attention_plain, q, k1, v1, bt, start, 0)
     torch.cuda.synchronize()
     assert torch.isfinite(a).all()
     assert (a[:n_tok].float() - b[:n_tok].float()).abs().max().item() <= ATOL
@@ -119,8 +132,8 @@ def test_prefill_attention_tiles_match_twin(T, start, D_, n_rep):
     gen = torch.Generator(device="cuda").manual_seed(T * 7 + start + D_ + n_rep)
     q, kp, vp, bt = _kernel3_case(gen, D_, n_rep, T, start)
     before = kernels.LAUNCHES["prefill_attention"]
-    a = kernels.prefill_attention(q, kp, vp, bt, start, 0)
-    b = kernels.prefill_attention_plain(q, kp, vp, bt, start, 0)
+    a = _attn1(kernels.prefill_attention, q, kp, vp, bt, start, 0)
+    b = _attn1(kernels.prefill_attention_plain, q, kp, vp, bt, start, 0)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["prefill_attention"] == before + 1
     assert torch.isfinite(a).all()
@@ -136,8 +149,8 @@ def test_prefill_attention_two_warpgroups_match_twin(T, start):
     REL_TOL of the twin's scale."""
     gen = torch.Generator(device="cuda").manual_seed(T + start)
     q, kp, vp, bt = _kernel3_case(gen, 128, 4, T, start, hkv=8)
-    a = kernels.prefill_attention(q, kp, vp, bt, start, 0)
-    b = kernels.prefill_attention_plain(q, kp, vp, bt, start, 0)
+    a = _attn1(kernels.prefill_attention, q, kp, vp, bt, start, 0)
+    b = _attn1(kernels.prefill_attention_plain, q, kp, vp, bt, start, 0)
     torch.cuda.synchronize()
     assert torch.isfinite(a).all()
     assert (a.float() - b.float()).abs().max().item() <= ATOL
@@ -350,7 +363,8 @@ def test_wrappers_reject_bad_inputs_on_cuda():
         kernels.kv_cache_write(kp, vp, rows, rows, idx.int(), idx.int(), L)
     q = _rand((4, 6, 64), gen)                       # n_rep 3: no kernel
     with pytest.raises(ValueError):
-        kernels.prefill_attention(q, kp, vp, idx.int(), 0, 0)
+        kernels.prefill_attention(q[None], kp, vp, idx.int()[None],
+                                  idx.int()[:1], idx.int()[:1], 0)
 
 
 def _ragged_case(gen, H_=H, D_=D):
@@ -887,3 +901,142 @@ def test_replay_reads_the_pages_as_they_are_now(route):
     torch.cuda.synchronize()
     for name, pool in g_ex.cache.items():
         assert torch.equal(pool[:, 1:], e_ex.cache[name][:, 1:]), name
+
+
+# -- batched kernels 2 and 3, and the prefill programs' graphs -----------------
+
+def _batched_case(gen, T, lengths, starts):
+    """N = len(lengths) rows of a T-token batch at llama3-8b's heads: row
+    n's live tokens at ``starts[n]..`` over its own shuffled pages (its
+    history included); a row of length 1 with an all-zero block table
+    stands for an unused row (null page). Returns q (N, T, 32, 128), the
+    (N·T, GD) K/V rows, one-layer pools, block tables (N, MP) and the
+    descriptors."""
+    hkv, d = 8, 128
+    mp = -(-max(s + n for s, n in zip(starts, lengths)) // PS)
+    need = [-(-(s + n) // PS) for s, n in zip(starts, lengths)]
+    kp = _rand((1, sum(need) + 2, PS, hkv * d), gen)
+    vp = _rand((1, sum(need) + 2, PS, hkv * d), gen)
+    perm = (torch.randperm(sum(need), generator=torch.Generator()
+                           .manual_seed(T)) + 1).to(torch.int32)
+    bt = torch.zeros((len(lengths), mp), dtype=torch.int32)
+    nxt = 0
+    for i, (n, k) in enumerate(zip(lengths, need)):
+        if n > 1:
+            bt[i, :k] = perm[nxt:nxt + k]
+            nxt += k
+    N = len(lengths)
+    rows_k, rows_v = _rand((N * T, hkv * d), gen), _rand((N * T, hkv * d), gen)
+    q = _rand((N, T, 4 * hkv, d), gen)
+    desc = _desc([i * T for i in range(N)], lengths, starts)
+    return q, rows_k, rows_v, kp, vp, bt.cuda(), desc
+
+
+@needs_cuda
+@pytest.mark.parametrize("T,lengths,starts", [
+    (512, [512, 90, 377, 1], [0, 37, 0, 0]),
+    (2048, [600, 90, 2048, 1], [0, 37, 0, 0])])
+def test_batched_prefill_kernels_match_twins(T, lengths, starts):
+    """Kernels 2 and 3 over a whole batch in one launch each (N=4 rows,
+    mixed live lengths, a continuation row, an unused row): pools
+    bit-exact against the scatter twin, live rows within 2e-2 and
+    REL_TOL of the attention twin, rows past each length zero; at
+    T=2048 a twin reading one wrong page must fail REL_TOL."""
+    gen = torch.Generator(device="cuda").manual_seed(T)
+    q, rk, rv, kp, vp, bt, (off, ln, st) = _batched_case(gen, T, lengths,
+                                                         starts)
+    k1, v1, k2, v2 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    before = dict(kernels.LAUNCHES)
+    kernels.kv_prefill_write(k1, v1, rk, rv, bt, off, ln, st, T, 0)
+    kernels.kv_prefill_write_plain(k2, v2, rk, rv, bt, off, ln, st, T, 0)
+    a = kernels.prefill_attention(q, k1, v1, bt, st, ln, 0)
+    b = kernels.prefill_attention_plain(q, k1, v1, bt, st, ln, 0)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["kv_prefill_write"] == before["kv_prefill_write"] + 1
+    assert (kernels.LAUNCHES["prefill_attention"]
+            == before["prefill_attention"] + 1)
+    assert torch.equal(k1, k2) and torch.equal(v1, v2)
+    assert torch.isfinite(a).all()
+    for n, live in enumerate(lengths):
+        assert (a[n, :live].float() - b[n, :live].float()).abs().max() <= ATOL
+        assert _scaled_err(a[n, :live], b[n, :live]) <= REL_TOL
+        assert torch.all(a[n, live:] == 0)
+    if T == 2048:
+        bad = bt.clone()
+        bad[2, 1024 // PS] = bt[2, 0]
+        ctl = kernels.prefill_attention_plain(q, k1, v1, bad, st, ln, 0)
+        assert _scaled_err(ctl[2], b[2]) > REL_TOL
+
+
+PROGRAM_ROUTES = ["fused", "split", "int8_kv", "ragged", "ragged_int8_kv"]
+
+
+def _program_executor(route):
+    from llmq_tpu_torch.engine.executor import TorchExecutor
+    from llmq_tpu_torch.models import llama as T
+
+    cfg = T.get_config("llama3-tiny", dim=512, n_heads=8, n_kv_heads=2,
+                       n_layers=2, vocab_size=512, max_seq_len=256)
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    kw = dict(batch_size=4, page_size=16, num_pages=96,
+              prefill_buckets=[16, 32], chunk_size=GRAPH_K, eos_id=-1,
+              mixed_prefill_slices=2, mixed_slice_tokens=16,
+              ragged_attention=route.startswith("ragged"),
+              ragged_token_capacity=32, device="cuda")
+    if route == "split":
+        kw["fused_decode"] = False
+    if route.endswith("int8_kv"):
+        kw["cache_dtype"] = torch.int8
+    return TorchExecutor(cfg, params, **kw)
+
+
+def _program_run(ex, eager):
+    """A wave of four prompts across both buckets, a one-row
+    continuation over cached history, then a mixed chunk (two decode
+    rows, one slice); eager or through the programs' graphs. Returns the
+    first tokens, the chunk's tokens and the slice's token."""
+    import numpy as np
+
+    B, MP = ex.spec.batch_size, ex.spec.max_pages_per_seq
+    bt = np.zeros((B, MP), np.int32)
+    for b in range(B):
+        bt[b, :3] = [1 + 3 * b, 2 + 3 * b, 3 + 3 * b]
+    prompts = [list(range(3, 3 + n)) for n in (5, 16, 17, 30)]
+    reqs = [(p, 0, bt[i], 0.0) for i, p in enumerate(prompts)]
+    if ex.ragged_attention:
+        hs = ex._ragged_prefill_start(reqs, eager=eager)
+    else:
+        hs = ex._prefill_wave(reqs, ex.prefill_batch, eager=eager)
+        hs += ex._prefill_wave([([9, 8, 7], 30, bt[3], 0.0)], 1, eager=eager)
+    first = ex.gather_scalars(hs)
+    pos = np.array([len(p) for p in prompts], np.int32)
+    sbt = np.zeros(MP, np.int32)
+    sbt[:2] = [40, 41]
+    out, pf_first = ex._mixed_chunk(
+        first[:B].astype(np.int32), pos, bt, np.zeros(B, np.float32),
+        np.array([GRAPH_K, GRAPH_K, 0, 0], np.int32),
+        [(3, list(range(50, 62)), 0, sbt, 0.0)], eager=eager)
+    return first, out, pf_first
+
+
+@needs_cuda
+@pytest.mark.parametrize("route", PROGRAM_ROUTES)
+def test_replayed_prefill_programs_equal_eager(route):
+    """Every prefill program and the mixed step 0 replayed from their
+    graphs give the eager run's greedy tokens and pools, and each
+    program is one replay a call."""
+    runs = []
+    for eager in (True, False):
+        ex = _program_executor(route)
+        res = _program_run(ex, eager)
+        torch.cuda.synchronize()
+        runs.append((res, {k: v.clone() for k, v in ex.cache.items()}, ex))
+    (r_e, c_e, _), (r_g, c_g, ex) = runs
+    for a, b in zip(r_e, r_g):
+        assert (a == b).all(), route
+    for k in c_e:
+        assert torch.equal(c_e[k][:, 1:], c_g[k][:, 1:]), k
+    assert ex.program_graphs and all(
+        n == 1 or name.startswith("ragged") for name, n in
+        ex.program_replays.items())

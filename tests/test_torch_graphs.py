@@ -420,3 +420,194 @@ def test_sampler_float_temperature_is_a_device_fill():
     b = sample_token(logits, torch.Generator().manual_seed(5),
                      temperature=torch.full((3,), 0.9), top_k=8)
     assert torch.equal(a, b)
+
+
+# -- prefill programs and the mixed step 0 -------------------------------------
+
+PF_GEOM = dict(GEOM, mixed_prefill_slices=2, mixed_slice_tokens=8,
+               ragged_token_capacity=16, ragged_max_slices=2)
+
+
+def _pf_executor(tcfg, tparams, kv, ragged=False):
+    return TorchExecutor(tcfg, tparams, device="cpu", ragged_attention=ragged,
+                         cache_dtype=torch.int8 if kv == "int8" else None,
+                         **PF_GEOM)
+
+
+def _trap(monkeypatch):
+    def host_read(*_a, **_k):
+        raise AssertionError("host read inside a captured program")
+
+    for name in HOST_READS:
+        monkeypatch.setattr(torch.Tensor, name, host_read)
+    for name in ("tensor", "as_tensor"):
+        monkeypatch.setattr(torch, name, host_read)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("program", ["prefill_n1", "prefill_n4",
+                                     "mixed_step0", "ragged_step0"])
+def test_prefill_bodies_make_no_host_read(models, program, kv, monkeypatch):
+    """The bodies the card captures as the prefill programs (one row and
+    a wave of four), the bucket mixed step 0 and the ragged step 0 read
+    nothing back to the host and make no tensor from host data, over the
+    model-dtype pools and over int8 pools: each such call raises while
+    they run, and they still sample a token per row."""
+    _, _, tcfg, tparams = models
+    ex = _pf_executor(tcfg, tparams, kv, ragged=program == "ragged_step0")
+    B, MP = ex.spec.batch_size, ex.spec.max_pages_per_seq
+    bt = _tables(B, MP)
+    reqs = [(p[:5], 0, bt[b], 0.0) for b, p in enumerate(PROMPTS[:4])]
+    with torch.inference_mode():
+        if program.startswith("prefill"):
+            rows = 1 if program == "prefill_n1" else 4
+            p = ex._program("prefill_b16", ex._rows_shapes(rows, 16))
+            ex._stage_inputs(p, lambda v: ex._fill_rows(v, reqs[:rows]))
+            body = ex._prefill_body
+        else:
+            tok, pos = _prefilled(ex, bt)
+            ex._fill(tok, pos, bt, np.zeros(B, np.float32),
+                     np.full(B, K, np.int32))
+            _name, p = ex._step0_program()
+            ex._stage_step0(p, [([3, 4, 5], 0, bt[4], 0.0)])
+            body = ex._step0_body
+    _trap(monkeypatch)
+    with torch.inference_mode():
+        out = body(p)
+    monkeypatch.undo()
+    assert out.dtype == torch.int32 and (out >= 0).all()
+    if program == "prefill_n4":
+        assert out.shape == (4,)
+
+
+def test_later_waves_do_not_overwrite_unresolved_handles(models):
+    """More waves than the result ring has slots, none fetched until the
+    end: every handle still reads its own wave's token (the slot a wave
+    comes round to is fetched first), equal to a synchronous prefill of
+    the same chunk."""
+    from llmq_tpu_torch.engine.executor import RESULT_RING
+
+    _, _, tcfg, tparams = models
+    ex = _pf_executor(tcfg, tparams, "bf16")
+    ref = _pf_executor(tcfg, tparams, "bf16")
+    MP = ex.spec.max_pages_per_seq
+    bt = np.zeros(MP, np.int32)
+    bt[:2] = [1, 2]
+    rng = np.random.default_rng(5)
+    chunks = [[int(x) for x in rng.integers(3, 500, 1 + i % 7)]
+              for i in range(RESULT_RING + 3)]
+    handles = [ex.prefill_async(c, 0, bt, 0.0) for c in chunks]
+    want = [ref.prefill(c, 0, bt, 0.0, 0) for c in chunks]
+    assert list(ex.gather_scalars(handles)) == want
+    assert len(set(want)) > 1
+
+
+class _FakeGraph:
+    """Stands in for ``torch.cuda.CUDAGraph`` on the CPU: a replay runs
+    the captured body again and writes its result into the captured
+    output, as a replay rewrites the graph's static output."""
+
+    def __init__(self):
+        self.body = self.out = None
+
+    def register_generator_state(self, _gen):
+        pass
+
+    def replay(self):
+        res = self.body()
+        if self.out is not None:
+            self.out.copy_(res)
+
+
+class _FakeEvent:
+    def __init__(self, *_a, **_k):
+        pass
+
+    def record(self, *_a):
+        pass
+
+    def synchronize(self):
+        pass
+
+
+class _FakeStream(_FakeEvent):
+    def wait_stream(self, _s):
+        pass
+
+
+@pytest.mark.parametrize("mode", ["bucket", "ragged"])
+def test_program_graph_control_flow_with_fake_graphs(models, mode,
+                                                     monkeypatch):
+    """The card's capture-and-replay control flow of the prefill
+    programs and the mixed step 0, rehearsed on the CPU with fakes for
+    the CUDA graph, stream and event calls (a fake replay reruns the
+    body into the captured output): warmup, a wave, a single chunk, a
+    continuation and a mixed chunk give the eager executor's tokens and
+    pools, each call one replay of its program, and the capture's launch
+    accounting and input save/restore leave nothing behind."""
+    import contextlib
+
+    from llmq_tpu_torch.engine import executor as E
+
+    _, _, tcfg, tparams = models
+
+    @contextlib.contextmanager
+    def ctx(*_a, **_k):
+        yield
+
+    real = E.TorchExecutor._capture
+
+    def capture(self, body, pool):
+        g = real(self, body, pool)
+        g.graph.body, g.graph.out = body, g.out
+        return g
+
+    zeros = torch.zeros
+    for name, val in (("CUDAGraph", _FakeGraph), ("graph", ctx),
+                      ("Stream", _FakeStream), ("stream", ctx),
+                      ("current_stream", lambda *_a: _FakeStream()),
+                      ("synchronize", lambda *_a: None),
+                      ("empty_cache", lambda: None),
+                      ("memory_reserved", lambda *_a: 0),
+                      ("graph_pool_handle", lambda: object()),
+                      ("Event", _FakeEvent)):
+        monkeypatch.setattr(torch.cuda, name, val)
+    monkeypatch.setattr(E.TorchExecutor, "_capture", capture)
+    monkeypatch.setattr(torch, "zeros",
+                        lambda *a, pin_memory=False, **k: zeros(*a, **k))
+    runs = []
+    for graphs in (False, True):
+        ex = _pf_executor(tcfg, tparams, "bf16", ragged=mode == "ragged")
+        if graphs:
+            ex._graphs_on = True
+            ex._left_events = [_FakeEvent() for _ in range(ex.chunk_size)]
+        ex.warmup()
+        B, MP = ex.spec.batch_size, ex.spec.max_pages_per_seq
+        bt = _tables(B, MP)
+        reqs = [(p, 0, bt[b], 0.0) for b, p in enumerate(PROMPTS[:3])]
+        hs = ex.prefill_multi_async(reqs)
+        hs.append(ex.prefill_async(PROMPTS[3], 0, bt[3], 0.0))
+        first = ex.gather_scalars(hs)
+        pos = np.array([len(p) for p in PROMPTS[:4]] + [0], np.int32)
+        tok = np.append(first, 0).astype(np.int32)
+        replays = dict(ex.program_replays)
+        out, pf_first = ex.mixed_chunk(
+            tok, pos, bt, np.zeros(B, np.float32),
+            np.array([K, K, 2, 0, 0], np.int32),
+            [(4, [11, 12, 13, 14, 15], 0, bt[4], 0.0)])
+        cont = ex.gather_scalars([ex.prefill_async([16, 17], 5, bt[4], 0.0)])
+        runs.append((first, out, pf_first, cont, ex, replays))
+    (*eager, e_ex, _), (*graph, g_ex, replays) = runs
+    for a, b in zip(eager, graph):
+        np.testing.assert_array_equal(a, b)
+    for k in e_ex.cache:
+        assert torch.equal(e_ex.cache[k][:, 1:], g_ex.cache[k][:, 1:]), k
+    assert g_ex.program_graphs and g_ex.step_graphs
+    assert set(g_ex.program_replays) == set(g_ex.program_graphs)
+    if mode == "bucket":
+        # Warmup replays each program once; the wave and the single chunk
+        # are one replay each, and the mixed step 0 one.
+        assert replays["prefill_multi_b16"] == 2
+        assert replays["prefill_b16"] == 2
+        assert g_ex.program_replays["mixed_step0_fused"] == 2
+    assert all(n > 0 for n in g_ex.program_replays.values())

@@ -279,6 +279,11 @@ def test_fused_decode_twin_matches_pallas(case):
                                   np.asarray(jv)[:, first:])
 
 
+def _desc(*cols):
+    """Per-row int32 descriptor tensors (kernels 2 and 3) from lists."""
+    return [torch.tensor(c, dtype=torch.int32) for c in cols]
+
+
 @pytest.mark.parametrize("start,n_tok", [(0, 32), (5, 20), (13, 32),
                                          (19, 1), (37, 27)])
 def test_kv_prefill_write_twin_matches_pallas(start, n_tok):
@@ -303,8 +308,8 @@ def test_kv_prefill_write_twin_matches_pallas(start, n_tok):
         jnp.asarray(bt), jnp.int32(start), jnp.int32(n_tok), 1,
         interpret=True)
     tk, tv = _t(kp), _t(vp)
-    kernels.kv_prefill_write(tk, tv, _t(rows_k), _t(rows_v), _t(bt), start,
-                             n_tok, 1)
+    kernels.kv_prefill_write(tk, tv, _t(rows_k), _t(rows_v), _t(bt[None]),
+                             *_desc([0], [n_tok], [start]), T, 1)
     np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
 
@@ -325,7 +330,8 @@ def test_prefill_attention_twin_matches_pallas(start):
     j = paged_prefill_attention_pallas(
         jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(bt),
         jnp.int32(start), 1, pages_per_chunk=2, q_block=8, interpret=True)
-    t = kernels.prefill_attention(_t(q), _t(kp), _t(vp), _t(bt), start, 1)
+    t = kernels.prefill_attention(_t(q[None]), _t(kp), _t(vp), _t(bt[None]),
+                                  *_desc([start], [T]), 1)[0]
     np.testing.assert_allclose(_np(t), np.asarray(j), atol=1e-4)
 
 
@@ -346,8 +352,9 @@ def test_prefill_attention_twin_bf16_matches_pallas():
         jnp.asarray(bt), jnp.int32(start), 1, pages_per_chunk=2,
         q_block=8, interpret=True)
     tb = torch.bfloat16
-    t = kernels.prefill_attention(_t(q).to(tb), _t(kp).to(tb),
-                                  _t(vp).to(tb), _t(bt), start, 1)
+    t = kernels.prefill_attention(_t(q[None]).to(tb), _t(kp).to(tb),
+                                  _t(vp).to(tb), _t(bt[None]),
+                                  *_desc([start], [T]), 1)[0]
     np.testing.assert_allclose(_np(t), np.asarray(j, np.float32), atol=2e-2)
 
 
@@ -719,8 +726,8 @@ def test_ragged_mixed_step_matches_jax():
                                    dec_bt, pos + 1, page_of, slot_of, pf_bt,
                                    pf_pos, qoff, qlen)), 1)
     tk, tv = _t(kp), _t(vp)
-    slices = tattn.ragged_slices(_t(dec_bt), _t(pos + 1), _t(pf_bt), qoff,
-                                 qlen, qstart)
+    slices = tattn.ragged_slices(_t(dec_bt), _t(pos + 1), _t(pf_bt),
+                                 *_desc(qoff, qlen, qstart))
     t_d, t_p = tattn.ragged_mixed_step(_t(q_dec), _t(kd), _t(vd), _t(q_pf),
                                        _t(kpf), _t(vpf), tk, tv,
                                        _t(page_of), slices, 1)
@@ -759,8 +766,8 @@ def test_ragged_step_two_pieces_of_one_prompt():
             vpk[off:off + b - a] = v[a:b]
         tk, tv = _t(kp), _t(vp)
         slices = tattn.ragged_slices(_t(dec_bt), _t(pos + 1),
-                                     _t(np.stack([bt] * len(qoff))), qoff,
-                                     qlen, qstart)
+                                     _t(np.stack([bt] * len(qoff))),
+                                     *_desc(qoff, qlen, qstart))
         _d, p = tattn.ragged_mixed_step(
             _t(q_dec), _t(kd), _t(vd), _t(qp), _t(kpk), _t(vpk), tk, tv,
             _t(dec_bt[:, 0]), slices, 0)
@@ -1052,10 +1059,16 @@ def test_ragged_mixed_step_q8_matches_jax():
         j(pos + 1), j(page_of), j(slot_of), j(pf_bt), j(pf_pos), j(qoff),
         j(qlen), 1)
     t_pools = [_tt(p) for p in pools]
-    slices = tattn.ragged_slices(_t(dec_bt), _t(pos + 1), _t(pf_bt), qoff,
-                                 qlen, qstart)
-    rows = tattn.ragged_slice_rows(slices, PS)
-    assert rows[0].numel() == 33
+    slices = tattn.ragged_slices(_t(dec_bt), _t(pos + 1), _t(pf_bt),
+                                 *_desc(qoff, qlen, qstart))
+    rows = tattn.ragged_slice_rows(slices, N, PS)
+    # One (page, slot) per packed row: the 33 live rows on their slices'
+    # pages, every other row on the null page's slot 0.
+    assert rows[0].shape == (N,)
+    live_rows = np.r_[0:13, 16:36]
+    assert (rows[0][live_rows] > 0).all()
+    dead = np.setdiff1d(np.arange(N), live_rows)
+    assert (rows[0][dead] == 0).all() and (rows[1][dead] == 0).all()
     t_d, t_p = tattn.ragged_mixed_step_q8(
         _t(q_dec), _t(kd), _t(vd), _t(q_pf), _t(kpf), _t(vpf), t_pools,
         _t(page_of), slices, rows, 1)
@@ -1102,3 +1115,31 @@ def test_q8_wrappers_on_cpu_make_no_workspace():
                                       _t(bt), _t(sl), _t(wp[:2]), *descr, 0)
     assert kernels._SPLIT_WORKSPACES == made
     assert kernels.LAUNCHES == before
+
+
+def _c_interfaces():
+    """(library, C function, kinds of its parameters) for every
+    ``extern "C"`` function in the port's CUDA sources: 'p' a pointer
+    (the stream included), 'i' an int, 'f' a float."""
+    import re
+
+    out = []
+    for lib, src in kernels.SOURCES.items():
+        text = (kernels.CSRC_DIR / src).read_text()
+        for name, params in re.findall(
+                r'extern "C" int (\w+)\(([^)]*)\)', text):
+            kinds = ["p" if "*" in p else "f" if "float" in p else "i"
+                     for p in params.split(",")]
+            out.append((lib, name, kinds))
+    return out
+
+
+@pytest.mark.parametrize("lib,name,kinds", _c_interfaces(),
+                         ids=lambda x: x if isinstance(x, str) else "")
+def test_ctypes_signatures_match_the_c_interfaces(lib, name, kinds):
+    """Each wrapper's ctypes argtypes name the C function's parameters
+    one for one (a pointer as c_void_p, so it is not cut to 32 bits)."""
+    import ctypes
+
+    code = {ctypes.c_void_p: "p", ctypes.c_int: "i", ctypes.c_float: "f"}
+    assert [code[t] for t in kernels._SIGNATURES[lib][name]] == kinds
