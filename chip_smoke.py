@@ -111,6 +111,7 @@ table as JSON, the card's name and power limit, and
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -155,6 +156,16 @@ def log(msg: str) -> None:
     print(f"{time.perf_counter() - T0:7.1f}s {msg}", flush=True)
 
 
+def clocks() -> str:
+    """The card's SM clock, power draw and temperature now, as
+    ``nvidia-smi`` reads them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return "SM clock, power, temperature: " + out.stdout.strip()
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -179,33 +190,80 @@ def scaled_err(out, ref) -> float:
     return (d[live] / rms[live]).max().item()
 
 
+def _profiled(fn, activities, complete, what: str):
+    """``fn()`` under torch.profiler, then a device synchronize, taken
+    again until ``complete(prof)`` holds, five times at most. The
+    profiler now and then drops the device events of a trace, all of
+    them or a few (runs of this script on the H100 saw 9 kernels
+    recorded for 10 calls, and 0 for 20), at no fixed place in the
+    script: an incomplete trace is taken again, not used."""
+    import torch
+    from torch.profiler import profile
+
+    for _attempt in range(5):
+        with profile(activities=activities) as prof:
+            fn()
+            torch.cuda.synchronize()
+        if complete(prof):
+            return prof
+        log(f"[trace] {what}: the profiler lost device events, tracing "
+            f"again")
+    raise AssertionError(f"the profiler lost device events of {what} in "
+                         f"five traces running")
+
+
 def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Device time per call of ``fn(i)``: the summed durations of the
-    kernels it launched over ``iters`` calls (torch.profiler, device
-    events only), divided by ``iters``. Gaps while the host prepares the
-    next launch are not counted — at these sizes a CUDA-event loop would
-    measure the Python wrapper, not the kernel. Every call launches a
-    kernel at least, so a trace with fewer kernels than calls lost
-    events: it is taken again, twice at most, then the script fails."""
+    device events it caused over ``iters`` calls (torch.profiler),
+    divided by ``iters``. Gaps while the host prepares the next launch
+    are not counted — at these sizes a CUDA-event loop would measure the
+    Python wrapper, not the kernel. A trace is complete when it holds a
+    kernel for each call at least, and a kernel for each kernel launch
+    the host made (:func:`_host_launches`) or the same kernels and
+    launches as an earlier trace of this call (some calls launch more
+    than the profiler shows kernels for, every time: the int8 prefill
+    attention's 8 calls made 1064 launches and showed 1041 to 1046
+    kernels in every trace on the H100); else it is taken again."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
-    for _attempt in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for i in range(iters):
-                fn(i)
-            torch.cuda.synchronize()
-        n = _kernel_events(prof)
-        if n >= iters:
-            return _device_us(prof) / 1e3 / iters
-        log(f"[trace] {n} kernels recorded for {iters} calls: tracing "
-            f"again")
-    raise AssertionError(f"the profiler recorded {n} kernels for {iters} "
-                         f"calls, three times")
+
+    def calls():
+        for i in range(iters):
+            fn(i)
+
+    seen = set()
+
+    def complete(prof):
+        n, launched = _kernel_events(prof), _host_launches(prof)
+        if n >= iters and _device_us(prof) > 0 and (
+                n >= launched or (n, launched) in seen):
+            return True
+        seen.add((n, launched))
+        log(f"[trace] {n} kernels recorded for {iters} calls and "
+            f"{launched} host launches")
+        return False
+    prof = _profiled(calls, [ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     complete, f"{iters} timed calls")
+    return _device_us(prof) / 1e3 / iters
+
+
+def _host_launches(prof) -> int:
+    """Kernel launches the host made in a trace: the runtime API's
+    (``cuda*``) or the low-level API's (``cu*``) launch calls, whichever
+    counted more (a runtime launch may also show as the ``cu*`` call it
+    makes)."""
+    runtime = low_level = 0
+    for e in prof.key_averages():
+        if e.key in KERNEL_LAUNCH_CALLS:
+            if e.key.startswith("cuda"):
+                runtime += e.count
+            else:
+                low_level += e.count
+    return max(runtime, low_level)
 
 
 def _kernel_events(prof) -> int:
@@ -218,19 +276,14 @@ def _kernel_events(prof) -> int:
 
 
 def _device_trace(fn):
-    """Run ``fn()`` once under torch.profiler recording device activity
-    only (host-op events of whole served steps would cost the trace more
-    than the steps) and return the profile; raises if it holds no device
-    time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    """Run ``fn()`` under torch.profiler recording device activity only
+    (host-op events of whole served steps would cost the trace more
+    than the steps) and return the profile; ``fn`` runs again while the
+    trace holds no device time (:func:`_profiled`)."""
+    from torch.profiler import ProfilerActivity
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    if _device_us(prof) <= 0:
-        raise AssertionError("the profiler recorded no device time")
-    return prof
+    return _profiled(fn, [ProfilerActivity.CUDA],
+                     lambda p: _device_us(p) > 0, "a device trace")
 
 
 def _device_us(prof) -> float:
@@ -1774,14 +1827,21 @@ def _check_completed(results, what: str) -> int:
     return sum(m["metadata"]["usage"]["completion_tokens"] for m in results)
 
 
+#: Numbers the B=1 prompts: each starts with its own two digits, so that
+#: no prompt's first page is in an engine's prefix cache.
+B1_PROMPTS = itertools.count()
+
+
 def _b1_rates(engine, tag: str):
     """TTFT and decode rate of one request alone (90-token prompt, 32
-    new tokens): the medians of three requests, one after another."""
+    new tokens): the medians of three requests, one after another, each
+    prompt's first page its own (no prefix-cache hit)."""
     from llmq_tpu_torch.engine.engine import GenRequest
 
-    prompt = "The quick brown fox jumps over the lazy dog. " * 2
+    base = "The quick brown fox jumps over the lazy dog. " * 2
     ttfts, rates = [], []
     for i in range(3):
+        prompt = f"{next(B1_PROMPTS) % 100:02d}" + base[2:]
         h = engine.submit(GenRequest(id=f"ttft-{i}-{time.time()}",
                                      prompt=prompt, max_new_tokens=32))
         assert h.wait(120), "ttft request timed out"
@@ -1789,7 +1849,8 @@ def _b1_rates(engine, tag: str):
         rates.append((len(h.result.tokens) - 1)
                      / (h.finished_at - h.marks["first_token"]))
     log(f"[{tag}] B=1: TTFT {', '.join(f'{t * 1e3:.1f}' for t in ttfts)} ms; "
-        f"decode {', '.join(f'{r:.1f}' for r in rates)} tok/s")
+        f"decode {', '.join(f'{r:.1f}' for r in rates)} tok/s; step "
+        f"{engine.executor.step_ms:.2f} ms (moving average); {clocks()}")
     return sorted(ttfts)[1], sorted(rates)[1], h.result.prompt_tokens
 
 
@@ -1808,16 +1869,16 @@ def _chunk_profile(fn, steps: int, host: bool) -> dict:
     chunk); and the chunk's device span per step from CUDA events around
     it."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
-    with profile(activities=acts) as prof:
+    def run():
         start.record()
         fn()
         end.record()
-        torch.cuda.synchronize()
+    prof = _profiled(run, acts, lambda p: _device_us(p) > 0, "a chunk")
     launches = graphs = 0
     for e in prof.key_averages():
         if e.key in KERNEL_LAUNCH_CALLS:
@@ -2087,6 +2148,151 @@ def _programs_vs_eager(engine, tag: str, state, prefill: bool = True
         f"GiB reserved ({CARD})")
 
 
+def _device_events(prof):
+    """(start µs, end µs, name) of every device event of a trace (kernels
+    and copies), by start."""
+    import torch
+
+    return sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def _chunk_gaps(events, n_chunks: int):
+    """Device idle between the chunks of a trace. Every chunk opens with
+    the host-to-device copies of its staged inputs, and no step copies
+    from the host, so each run of such copies marks a chunk's start. For
+    each boundary: the time from the last kernel before those copies to
+    the first kernel after them, in ms (the copies' own microseconds
+    included). Also the run's idle ms in all: its span from first to last
+    event less the union of its events. The boundaries are None when the
+    trace does not show ``n_chunks`` starts."""
+    busy, end = 0.0, None
+    for a, b, _n in events:
+        if end is None or a >= end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    idle_ms = ((events[-1][1] - events[0][0]) - busy) / 1e3
+    starts = [i for i, e in enumerate(events) if "HtoD" in e[2]
+              and (i == 0 or "HtoD" not in events[i - 1][2])]
+    if len(starts) != n_chunks:
+        return None, idle_ms
+
+    def kernel(e):
+        return not e[2].startswith(("Memcpy", "Memset"))
+
+    gaps = []
+    for i in starts[1:]:
+        last = max(e[1] for e in events[:i] if kernel(e))
+        first = next(e[0] for e in events[i:] if kernel(e))
+        gaps.append((first - last) / 1e3)
+    return gaps, idle_ms
+
+
+def _pipeline_vs_blocking(engine, tag: str, state) -> None:
+    """The async pipeline's dispatch against the blocking chunk, on an
+    idle engine: four 16-step chunks of B=8 rows from 64 positions over
+    fresh pages, every budget K. Blocking: ``decode_chunk`` four times,
+    each next chunk assembled on the host from the last one's tokens.
+    Carried at depth 2: ``decode_chunk_start`` from the previous handle's
+    device-carried end state, the next chunk dispatched before the
+    previous one is fetched. Each path once timed (wall per chunk, host
+    clock to the last fetched token) and once under the profiler (device
+    activity only): the device idle time between chunks, from one chunk's
+    last kernel to the next one's first, and the steps that ran with no
+    live row. Tokens must be equal."""
+    from collections import deque
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    ex = engine.executor
+    B, K, N = ex.spec.batch_size, ex.chunk_size, 4
+    eos = ex.spec.eos_id
+    pages = engine.allocator.alloc(B * 8)
+    bt = np.zeros((B, ex.spec.max_pages_per_seq), np.int32)
+    bt[:, :8] = np.asarray(pages).reshape(B, 8)
+    tok0 = np.arange(100, 100 + B, dtype=np.int32)
+    pos0 = np.full(B, 64, np.int32)
+    temps = np.zeros(B, np.float32)
+
+    def blocking():
+        tok, pos, latched, outs = tok0.copy(), pos0.copy(), \
+            np.zeros(B, bool), []
+        for _ in range(N):
+            budgets = np.where(latched, 0, K).astype(np.int32)
+            out = ex.decode_chunk(tok, pos, bt, temps, budgets)
+            outs.append(out)
+            for b in range(B):
+                for t in out[b, :budgets[b]]:
+                    tok[b], pos[b] = t, pos[b] + 1
+                    if t == eos:
+                        latched[b] = True
+                        break
+        return outs
+
+    def carried():
+        outs, inflight, h = [], deque(), None
+        full = np.full(B, K, np.int32)
+        for _ in range(N):
+            h = (ex.decode_chunk_start(tok0, pos0, bt, temps, full)
+                 if h is None else
+                 ex.decode_chunk_start(None, None, bt, temps, full, carry=h))
+            inflight.append(h)
+            if len(inflight) == 2:
+                outs.append(inflight.popleft().fetch())
+        outs += [x.fetch() for x in inflight]
+        return outs
+
+    ex.decode_chunk(tok0, pos0, bt, temps, np.ones(B, np.int32))   # warm
+    res = {}
+    for name, fn in (("blocking", blocking), ("carried", carried)):
+        torch.cuda.synchronize()
+        idle0 = ex.idle_steps
+        t0 = time.perf_counter()
+        outs = fn()
+        wall = (time.perf_counter() - t0) * 1e3 / N
+        idle_steps = ex.idle_steps - idle0
+        traced = {}
+
+        def run(fn=fn):
+            traced["outs"] = fn()
+        prof = _profiled(run, [ProfilerActivity.CUDA],
+                         lambda p: _device_us(p) > 0, f"{name} chunks")
+        outs2 = traced["outs"]
+        gaps, idle_ms = _chunk_gaps(_device_events(prof), N)
+        res[name] = {"outs": outs + outs2, "wall_ms_per_chunk": wall,
+                     "gaps_ms": gaps, "idle_ms": idle_ms,
+                     "no_live_row_steps": idle_steps}
+    engine.allocator.free(pages)
+    b_outs, c_outs = res["blocking"].pop("outs"), res["carried"].pop("outs")
+    if not all(np.array_equal(b_outs[0], o) for o in b_outs[N::N]) or \
+            not all(np.array_equal(a, b) for a, b in zip(b_outs, c_outs)):
+        raise AssertionError(f"[graphs] {tag}: carried chunks' tokens differ "
+                             f"from the blocking chunks'")
+    state["graphs"].setdefault("pipeline", {})[tag] = {
+        "chunks": N, "steps": K, "rows": B, "tokens_equal": True, **res}
+
+    def gaps(r):
+        if r["gaps_ms"] is None:
+            return "chunk starts not found in the trace"
+        return ", ".join(f"{g:.3f}" for g in r["gaps_ms"]) + " ms"
+
+    blk, car = res["blocking"], res["carried"]
+    log(f"[graphs] {tag} pipeline: {N} chunks of {K} steps, B={B}, tokens "
+        f"equal; wall per chunk blocking {blk['wall_ms_per_chunk']:.2f} ms, "
+        f"carried at depth 2 {car['wall_ms_per_chunk']:.2f} ms; device idle "
+        f"between chunks blocking {gaps(blk)} ({blk['idle_ms']:.3f} ms idle "
+        f"in the profiled run), carried {gaps(car)} ({car['idle_ms']:.3f} "
+        f"ms); "
+        f"steps with no live row blocking {blk['no_live_row_steps']}, "
+        f"carried {car['no_live_row_steps']} ({CARD})")
+
+
 def phase_graphs(state) -> None:
     """The decode step captured into a CUDA graph on the five engines of
     the serve phases, each built with ``warmup=True`` (the step captured
@@ -2095,7 +2301,9 @@ def phase_graphs(state) -> None:
     weights + int8 KV default and ragged (weights from seed 0, shared by
     the two engines of a type). Each: eager against graph (wall and
     device busy per step, host launches against device kernels per
-    step), the graph pool's bytes, greedy streams equal."""
+    step), the graph pool's bytes, greedy streams equal. The bf16
+    default engine also runs four chunks carried at depth 2 against the
+    same four blocking (the async pipeline's dispatch)."""
     import gc
 
     import torch
@@ -2113,6 +2321,8 @@ def phase_graphs(state) -> None:
         _log_warmup(engine, f"graphs {kind} default")
         _graph_vs_eager(engine, f"{kind} default", state)
         _programs_vs_eager(engine, f"{kind} default", state)
+        if not q8:
+            _pipeline_vs_blocking(engine, f"{kind} default", state)
         if not q8:
             ex.fused_decode = False
             _graph_vs_eager(engine, "bf16 split", state)
@@ -2175,6 +2385,7 @@ def _serve_default(state):
         f"{mc.vocab_size} in {time.perf_counter() - t0:.1f} s; "
         f"memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB ({CARD})")
     _log_warmup(engine, "serve")
+    _check_defaults(engine, "serve")
     app = App(cfg, engine=engine)
     port = app.start(host="127.0.0.1", port=0)
     base = f"http://127.0.0.1:{port}"
@@ -2221,7 +2432,7 @@ def _serve_default(state):
             f"{rest_s:.2f} s, {tokens} tokens; turn 2 cached_tokens "
             f"{cached}; mixed steps {engine.mixed_steps} "
             f"({engine.mixed_prefill_tokens_total} prefill tokens); "
-            f"launches {launches} ({CARD})")
+            f"launches {launches}; {_engine_stats(engine)} ({CARD})")
 
         # -- latency and rate, straight through the engine -----------------
         state["serve"] = _rates(engine, "serve", "bf16")
@@ -2258,7 +2469,7 @@ def _rates(engine, tag: str, what: str) -> dict:
     """TTFT and decode rate at B=1, the rate of 8 concurrent requests (90
     prompt tokens, 32 new each), and the executor's measured step time
     with the realtime admission cap it sets."""
-    from llmq_tpu_torch.engine.engine import GenRequest, realtime_admission_cap
+    from llmq_tpu_torch.engine.engine import realtime_admission_cap
 
     ttft, rate1, prompt_tokens = _b1_rates(engine, tag)
     # The same requests with the prefill programs run eagerly.
@@ -2267,16 +2478,7 @@ def _rates(engine, tag: str, what: str) -> dict:
         ttft_eager, _rate, _n = _b1_rates(engine, f"{tag} eager prefill")
     finally:
         restore()
-    prompt = "The quick brown fox jumps over the lazy dog. " * 2
-    hs = [engine.submit(GenRequest(id=f"{tag}-b{i}", prompt=f"{i}: " + prompt,
-                                   max_new_tokens=32)) for i in range(8)]
-    for x in hs:
-        assert x.wait(300), "batch request timed out"
-    t_first = min(x.submitted_at for x in hs)
-    t_last = max(x.finished_at for x in hs)
-    ntok = sum(len(x.result.tokens) for x in hs)
-    per_req = [(len(x.result.tokens) - 1)
-               / (x.finished_at - x.marks["first_token"]) for x in hs]
+    b8, per_req = _b8_rate(engine, tag)
     # The realtime admission cap comes from the executor's measured step
     # time: show both, as a waiting REALTIME request sees them.
     step_ms = engine.executor.step_ms
@@ -2288,16 +2490,138 @@ def _rates(engine, tag: str, what: str) -> dict:
     log(f"[{tag}] llama3-8b {what}: TTFT {ttft * 1e3:.1f} ms (median; B=1, "
         f"{prompt_tokens}-token prompt; {ttft_eager * 1e3:.1f} ms with the "
         f"prefill program eager); decode {rate1:.1f} tok/s (B=1); 8 "
-        f"concurrent: {ntok / (t_last - t_first):.1f} tok/s end to end, "
-        f"{sum(per_req) / len(per_req):.1f} tok/s per request after its "
-        f"first token ({CARD})")
-    return {"ttft_ms_b1": ttft * 1e3,
-            "ttft_ms_b1_eager_prefill": ttft_eager * 1e3,
-            "decode_tok_s_b1": rate1,
-            "tok_s_b8_e2e": ntok / (t_last - t_first),
-            "decode_tok_s_per_req_b8": sum(per_req) / len(per_req),
-            "prompt_tokens_b1": prompt_tokens, "executor_step_ms": step_ms,
-            "realtime_admission_cap_steps": cap}
+        f"concurrent: {b8:.1f} tok/s end to end, {per_req:.1f} tok/s per "
+        f"request after its first token; {_switches(engine)} ({CARD})")
+    out = {"ttft_ms_b1": ttft * 1e3,
+           "ttft_ms_b1_eager_prefill": ttft_eager * 1e3,
+           "decode_tok_s_b1": rate1,
+           "tok_s_b8_e2e": b8,
+           "decode_tok_s_per_req_b8": per_req,
+           "prompt_tokens_b1": prompt_tokens, "executor_step_ms": step_ms,
+           "realtime_admission_cap_steps": cap,
+           "shared_prefix": _shared_prefix(engine, tag)}
+    out["switches_off"] = _rates_switches_off(engine, tag, what)
+    return out
+
+
+def _b8_rate(engine, tag: str):
+    """8 concurrent requests (90 prompt tokens, 32 new each): tok/s end to
+    end, and the mean per request after its first token."""
+    from llmq_tpu_torch.engine.engine import GenRequest
+
+    prompt = "The quick brown fox jumps over the lazy dog. " * 2
+    hs = [engine.submit(GenRequest(id=f"{tag}-b{i}", prompt=f"{i}: " + prompt,
+                                   max_new_tokens=32)) for i in range(8)]
+    for x in hs:
+        assert x.wait(300), "batch request timed out"
+    e2e = (sum(len(x.result.tokens) for x in hs)
+           / (max(x.finished_at for x in hs)
+              - min(x.submitted_at for x in hs)))
+    per_req = [(len(x.result.tokens) - 1)
+               / (x.finished_at - x.marks["first_token"]) for x in hs]
+    return e2e, sum(per_req) / len(per_req)
+
+
+def _engine_stats(engine) -> str:
+    """The engine's switches, the chunks it dispatched at each pipeline
+    depth and its prefix-cache admissions, as a log phrase."""
+    st = engine.get_stats()
+    pc = st.get("prefix_cache", {})
+    return (f"{_switches(engine)}; chunks by pipeline depth "
+            f"{st.get('pipeline', {}).get('depth_hist')}; prefix cache "
+            f"hits {pc.get('admission_hits')} misses "
+            f"{pc.get('admission_misses')}, {pc.get('pages')} pages; "
+            f"steps with no live row {engine.executor.idle_steps}")
+
+
+def _switches(engine) -> str:
+    """The engine's async pipeline and prefix cache, as a log phrase."""
+    pipe = (f"async pipeline depth {engine._pipe_depth}"
+            if engine._pipe_cfg is not None else
+            "async pipeline off (depth 2, completions inline)")
+    return (f"{pipe}, prefix cache "
+            f"{'on' if engine._prefix_cache is not None else 'off'}")
+
+
+def _check_defaults(engine, tag: str) -> None:
+    """A serve engine runs the JAX package's defaults: the async pipeline
+    at depth 2 with one completion thread, and the prefix cache on."""
+    if (engine._pipe_cfg is None or engine._pipe_depth != 2
+            or engine._completion_workers != 1
+            or engine._prefix_cache is None):
+        raise AssertionError(f"[{tag}] engine is not on the defaults: "
+                             f"{_switches(engine)}")
+
+
+#: The shared-prefix traffic: a 512-token system prompt and 40-token
+#: tails that differ in their first character.
+SYSTEM_PROMPT = ("You are the support assistant of a message queue that "
+                 "serves LLM requests on four priority tiers. " * 8)[:512]
+TAILS = [f"{c} tail: which tier suits a nightly batch job?"[:40]
+         for c in "ABCD"]
+
+
+def _shared_prefix(engine, tag: str, want_cached: bool = True) -> dict:
+    """Four requests that share SYSTEM_PROMPT, each sent after the previous
+    one completes: with the prefix cache on, requests 2-4 must report 512
+    cached tokens (the first, none); their TTFTs print beside the
+    first's. The system prompt starts with '#' and the tag, which no
+    other traffic of the engine starts with, so none of it was cached."""
+    from llmq_tpu_torch.engine.engine import GenRequest
+
+    system = (f"#{tag}# " + SYSTEM_PROMPT)[:512]
+    ttfts, cached = [], []
+    for i, tail in enumerate(TAILS):
+        assert len(system) == 512 and len(tail) == 40
+        h = engine.submit(GenRequest(id=f"{tag}-shared-{i}-{time.time()}",
+                                     prompt=system + tail, max_new_tokens=8))
+        assert h.wait(300), "shared-prefix request timed out"
+        if h.result.finish_reason not in ("eos", "length"):
+            raise AssertionError(f"[{tag}] shared-prefix request failed: "
+                                 f"{h.result}")
+        ttfts.append((h.marks["first_token"] - h.submitted_at) * 1e3)
+        cached.append(h.result.cached_tokens)
+    want = [0, 512, 512, 512] if want_cached else [0, 0, 0, 0]
+    if cached != want:
+        raise AssertionError(f"[{tag}] shared-prefix cached_tokens {cached}, "
+                             f"expected {want}")
+    log(f"[{tag}] shared 512-token system prompt, 552-token requests one "
+        f"after another: cached_tokens {cached}; TTFT "
+        f"{', '.join(f'{t:.1f}' for t in ttfts)} ms; {_switches(engine)} "
+        f"({CARD})")
+    return {"cached_tokens": cached, "ttft_ms": ttfts}
+
+
+def _rates_switches_off(engine, tag: str, what: str) -> dict:
+    """TTFT and decode rate at B=1, 8 concurrent tok/s and the
+    shared-prefix traffic once more with the async pipeline and the
+    prefix cache off (the JAX package's off-switches), in the same call:
+    the serving engine's thread is stopped, a second engine drives the
+    same executor over the same allocator (the first engine's pinned and
+    cached pages stay allocated), then the first engine resumes."""
+    from llmq_tpu_torch.engine.engine import InferenceEngine
+
+    engine.stop()
+    off = InferenceEngine(engine.executor, engine.tokenizer,
+                          name=f"{engine.name}-off",
+                          max_decode_steps=engine.max_decode_steps,
+                          tier_max_wait=engine.tier_max_wait,
+                          mixed_batch=engine._mixed_cfg)
+    off.allocator = engine.allocator
+    off.start()
+    try:
+        ttft, rate1, _n = _b1_rates(off, f"{tag} switches off")
+        b8, _per_req = _b8_rate(off, f"{tag}-off")
+        shared = _shared_prefix(off, f"{tag} switches off",
+                                want_cached=False)
+    finally:
+        off.stop()
+        engine.start()
+    log(f"[{tag}] llama3-8b {what}, {_switches(off)}: TTFT "
+        f"{ttft * 1e3:.1f} ms (median; B=1); decode {rate1:.1f} tok/s "
+        f"(B=1); 8 concurrent {b8:.1f} tok/s end to end ({CARD})")
+    return {"ttft_ms_b1": ttft * 1e3, "decode_tok_s_b1": rate1,
+            "tok_s_b8_e2e": b8, "shared_prefix": shared}
 
 
 def _serve_cfg():
@@ -2326,6 +2650,7 @@ def _serve_ragged(state, params) -> None:
     engine = build_engine(cfg, params=params, warmup=True)
     ex = engine.executor
     _log_warmup(engine, "serve-ragged")
+    _check_defaults(engine, "serve-ragged")
     log(f"[serve-ragged] engine on the same weights: ragged capacity "
         f"{ex.mixed_slice_tokens} tokens x {ex.mixed_prefill_slices} slices, "
         f"packed buffer {ex.ragged_buffer} rows")
@@ -2375,11 +2700,13 @@ def _serve_ragged(state, params) -> None:
             f"{rest_s:.2f} s, {tokens} tokens; turn 2 cached_tokens "
             f"{cached}; mixed steps {engine.mixed_steps} "
             f"({engine.mixed_prefill_tokens_total} prefill tokens); "
-            f"launches {launches} ({CARD})")
+            f"launches {launches}; {_engine_stats(engine)} ({CARD})")
         ttft, rate1, n_prompt = _b1_rates(engine, "serve-ragged")
         state["serve"].update({"ragged_ttft_ms_b1": ttft * 1e3,
                                "ragged_decode_tok_s_b1": rate1,
-                               "ragged_mixed_steps": engine.mixed_steps})
+                               "ragged_mixed_steps": engine.mixed_steps,
+                               "ragged_shared_prefix": _shared_prefix(
+                                   engine, "serve-ragged")})
         log(f"[serve-ragged] llama3-8b bf16: TTFT {ttft * 1e3:.1f} ms "
             f"(median; B=1, "
             f"{n_prompt}-token prompt, ragged prefill); decode {rate1:.1f} "
@@ -2649,6 +2976,7 @@ def _serve_int8(state, *, ragged: bool, params):
     torch.cuda.synchronize()
     ex = engine.executor
     _log_warmup(engine, tag)
+    _check_defaults(engine, tag)
     weights = params_bytes(ex.model.params)
     pool = sum(t.numel() * t.element_size() for t in ex.cache.values())
     out[pre + "build_s"] = time.perf_counter() - t0
@@ -2715,7 +3043,8 @@ def _serve_int8(state, *, ragged: bool, params):
             f"{rest_s:.2f} s, {tokens} tokens; turn 2 cached_tokens "
             f"{cached}; mixed steps {engine.mixed_steps} "
             f"({engine.mixed_prefill_tokens_total} prefill tokens); "
-            f"launches {out[pre + 'launches']} ({CARD})")
+            f"launches {out[pre + 'launches']}; {_engine_stats(engine)} "
+            f"({CARD})")
         rates = _rates(engine, tag, "int8 weights + int8 KV"
                        + (", ragged" if ragged else ""))
         out.update({pre + k: v for k, v in rates.items()})

@@ -128,6 +128,59 @@ class RaggedAttentionConfig:
 
 
 @dataclass
+class AsyncPipelineConfig:
+    """The async decode pipeline: the engine keeps up to ``depth``
+    dispatched decode/mixed chunks in flight, each dispatched from the
+    previous chunk's device-carried end state before that chunk's tokens
+    are fetched; the fetches run on dedicated lanes and the request-facing
+    completions on a small pool. ``enabled: false`` keeps one chunk in
+    flight plus at most one carried dispatch a step (depth 2) with every
+    completion inline on the engine thread, as the JAX package's
+    off-switch does."""
+    enabled: bool = True
+    #: Dispatched-but-unreconciled chunks the engine may keep in flight.
+    #: 2 = double buffering; 1 reconciles every chunk before the next.
+    depth: int = 2
+    #: Completion threads. Jobs for one request always land on the same
+    #: thread, so its tokens always precede its finish.
+    completion_workers: int = 1
+
+    def __post_init__(self) -> None:
+        if not 1 <= self.depth <= 4:
+            raise ValueError(
+                f"async_pipeline.depth must be in [1, 4] "
+                f"(got {self.depth})")
+        if not 1 <= self.completion_workers <= 8:
+            raise ValueError(
+                f"async_pipeline.completion_workers must be in [1, 8] "
+                f"(got {self.completion_workers})")
+
+
+VALID_PREFIX_EVICTION = ("lru", "fifo")
+
+
+@dataclass
+class PrefixCacheConfig:
+    """Radix-tree prefix KV cache (``prefixcache/radix.py``): finished
+    sequences publish their page-aligned KV prefix, and an admission
+    that shares one (a shared system prompt, a conversation's earlier
+    turn) adopts the cached pages by reference count instead of
+    prefilling them. ``enabled: false`` is a hard off-switch."""
+    enabled: bool = True
+    #: Cap on pages the tree may hold; 0 = bounded only by the KV pool
+    #: (pool pressure evicts zero-ref leaves on demand).
+    max_cached_pages: int = 0
+    #: "lru" (default) or "fifo": which zero-ref leaf goes first.
+    eviction: str = "lru"
+
+    def __post_init__(self) -> None:
+        if self.eviction not in VALID_PREFIX_EVICTION:
+            raise ValueError(
+                f"unknown prefix-cache eviction policy {self.eviction!r}; "
+                f"valid: {VALID_PREFIX_EVICTION}")
+
+
+@dataclass
 class ExecutorConfig:
     max_batch_size: int = 8             # decode slots
     page_size: int = 16                 # tokens per KV page
@@ -144,6 +197,10 @@ class ExecutorConfig:
     mixed_batch: MixedBatchConfig = field(default_factory=MixedBatchConfig)
     ragged_attention: RaggedAttentionConfig = field(
         default_factory=RaggedAttentionConfig)
+    async_pipeline: AsyncPipelineConfig = field(
+        default_factory=AsyncPipelineConfig)
+    prefix_cache: PrefixCacheConfig = field(
+        default_factory=PrefixCacheConfig)
 
 
 @dataclass
@@ -187,7 +244,8 @@ def apply_env(cfg: Config, environ: Optional[Mapping[str, str]] = None
               ) -> None:
     """``LLMQ_EXECUTOR_KV_PAGES=256`` overrides ``executor.kv_pages``:
     the name after ``LLMQ_`` is walked greedily, longest field name
-    first. Unknown keys are ignored (they may belong to other tools)."""
+    first, and the block it lands in is validated again. Unknown keys
+    are ignored (they may belong to other tools)."""
     env = os.environ if environ is None else environ
     for key, raw in env.items():
         if not key.startswith("LLMQ_"):
@@ -202,6 +260,11 @@ def apply_env(cfg: Config, environ: Optional[Mapping[str, str]] = None
                 if cand in names:
                     if j == len(parts):
                         setattr(obj, cand, _coerce(raw, getattr(obj, cand)))
+                        # Re-validate: __post_init__ does not rerun on
+                        # setattr, and an override must not bypass it.
+                        post = getattr(obj, "__post_init__", None)
+                        if post is not None:
+                            post()
                     else:
                         obj = getattr(obj, cand)
                     i = j

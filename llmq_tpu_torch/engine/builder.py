@@ -2,7 +2,9 @@
 ``TorchExecutor`` and ``InferenceEngine`` (counterpart of the ``jax``
 branch of ``llmq_tpu/engine/builder.py``), in bf16 or with int8 weights
 (``model.quantization``) and/or int8 KV pools (``model.kv_quantization``),
-the two switches independent as in the JAX package."""
+the two switches independent as in the JAX package; the async decode
+pipeline (``executor.async_pipeline``) and the radix prefix cache
+(``executor.prefix_cache``) on by default, as in the JAX package."""
 
 from __future__ import annotations
 
@@ -61,6 +63,7 @@ def build_engine(cfg: Config, *, name: str = "engine0",
         raise ValueError(f"unknown model.kv_quantization {kv_quant!r} "
                          f"(supported: 'int8')")
     mixed, ragged = ex.mixed_batch, ex.ragged_attention
+    pipe, prefix = ex.async_pipeline, ex.prefix_cache
     t0 = time.perf_counter()
     if params is None:
         gen = torch.Generator(device=dev)
@@ -99,12 +102,14 @@ def build_engine(cfg: Config, *, name: str = "engine0",
         preemption=ex.preemption,
         kv_pin_ttl=ex.kv_pin_ttl,
         tier_max_wait=tier_max_wait,
-        mixed_batch=mixed)
+        mixed_batch=mixed,
+        prefix_cache=prefix,
+        async_pipeline=pipe)
     log.info("built %s engine %s on %s in %.1fs (slots=%d pages=%d "
              "page_size=%d chunk=%d prefill_batch=%d quantization=%s "
              "kv_quantization=%s "
              "weights=%.2f GB mixed_batch=%s ragged_attention=%s "
-             "warmup=%s)",
+             "async_pipeline=%s prefix_cache=%s warmup=%s)",
              mcfg.name, name, dev, time.perf_counter() - t0,
              ex.max_batch_size, ex.kv_pages, ex.page_size, ex.decode_chunk,
              executor.prefill_batch, quant or "bf16", kv_quant or "bf16",
@@ -115,6 +120,10 @@ def build_engine(cfg: Config, *, name: str = "engine0",
              (f"on(cap={executor.mixed_slice_tokens}"
               f"x{executor.mixed_prefill_slices})" if ragged.enabled
               else "off"),
+             (f"on(depth={pipe.depth} completion_workers="
+              f"{pipe.completion_workers})" if pipe.enabled else "off"),
+             (f"on({prefix.eviction} max_cached_pages="
+              f"{prefix.max_cached_pages})" if prefix.enabled else "off"),
              (" ".join(f"{k}={v:.2f}s" for k, v in
                        executor.warmup_split.items()) if warmup else "off"))
     return engine

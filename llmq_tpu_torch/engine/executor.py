@@ -8,11 +8,12 @@ table), ``decode`` (one step for every slot), ``decode_chunk`` (up to
 ``chunk_size`` steps with sampling, EOS and budget latches kept on the
 device), ``release_slot`` and ``resume``; with a mixed geometry also
 ``mixed_chunk`` (a decode chunk whose first step carries budgeted
-prefill slices). Prefill also runs without a host wait:
+prefill slices), and their dispatch-only forms ``decode_chunk_start``
+and ``mixed_chunk_start``. Prefill also runs without a host wait:
 ``prefill_async`` (one chunk) and ``prefill_multi_async`` (an admission
 wave of up to ``prefill_batch`` prompts' chunks in one program) return
-:class:`PrefillHandle` s, whose first tokens ``gather_scalars`` fetches
-in one transfer.
+:class:`PrefillHandle` s, whose first tokens ``gather_scalars`` reads
+(each dispatch queued their copy to host memory).
 
 Mixed geometry: ``mixed_prefill_slices`` (S) slices of up to
 ``mixed_slice_tokens`` (T) tokens each. With ``ragged_attention`` the
@@ -45,8 +46,26 @@ page), the mixed step 0 padded to its full (S, T) geometry (one graph
 per decode route) and the ragged step 0, which ragged prefill replays
 with every decode row frozen. Their graphs share one memory pool: their
 replays are serialised on one stream, and each replay's sampled tokens
-are copied at once into a ring of result slots outside the pool, which
-the handles read.
+are copied at once into a ring of result slots outside the pool (which a
+decode join reads on the device) and on into pinned host memory behind
+an event (which the handles read).
+
+The async decode pipeline (``JaxExecutor.decode_chunk_start``):
+``decode_chunk_start`` and ``mixed_chunk_start`` queue a chunk's steps and
+return a :class:`ChunkHandle` / :class:`MixedChunkHandle` without reading
+the device: they queue ``min(K, max budget)`` steps with no exit test (a
+step in which every row is latched writes page 0 only and emits EOS, so
+``out`` and the carry equal what JAX's loop leaves). The chunk's tokens
+go to pinned host memory with an event behind them; ``fetch()`` waits on
+that event, ``ready()`` queries it, and the chunk's device time (CUDA
+events) feeds ``step_ms``. A handle keeps the chunk's end state (``tok``,
+``pos`` and ``frozen``, the EOS latch) on the device, and a dispatch with
+``carry=`` starts from it; ``overrides`` join just-prefilled sequences
+device to device from the prefill result ring, so a first token never
+visits the host. Every host input goes through a ring of pinned staging
+slots (:class:`HostStaging`), each reused only once the event behind its
+last copy has completed, so chunks queued back to back never overwrite
+each other's inputs. The blocking ``decode_chunk`` keeps its early exit.
 """
 
 from __future__ import annotations
@@ -75,6 +94,10 @@ STEP_MS_RANGE = (0.05, 250.0)
 #: are not yet fetched fetches them first (the ring is the staging
 #: fence): no later wave overwrites an unresolved handle.
 RESULT_RING = 8
+
+#: Host staging slots a program (:class:`HostStaging`): the JAX engine's
+#: ``max(8, depth + 4)``, which is 8 at every pipeline depth (1 to 4).
+STAGING_RING = 8
 
 
 @dataclass(frozen=True)
@@ -118,7 +141,8 @@ class Executor(Protocol):
         ...
 
     def gather_scalars(self, handles: List) -> np.ndarray:
-        """The handles' tokens, in one device-to-host transfer."""
+        """The handles' tokens (a wait on the copies their dispatches
+        queued, no transfer of its own)."""
         ...
 
     def decode(self, tokens: np.ndarray, positions: np.ndarray,
@@ -136,6 +160,21 @@ class Executor(Protocol):
         many ``decode`` calls. A row latches on EOS (for good) or when its
         ``budgets[b]`` steps are spent (this chunk only); latched rows
         emit EOS and write KV to page 0. Returns (B, chunk_size)."""
+        ...
+
+    def decode_chunk_start(self, tokens, positions, block_tables,
+                           temperatures, budgets, carry=None,
+                           overrides=None) -> "ChunkHandle":
+        """``decode_chunk`` dispatched without a host wait: ``carry`` (an
+        earlier handle) supplies the rows' tokens, positions and EOS
+        latches on the device; ``overrides`` ``(slot, prefill handle,
+        pos)`` join just-prefilled sequences device to device."""
+        ...
+
+    def mixed_chunk_start(self, tokens, positions, block_tables,
+                          temperatures, budgets,
+                          pf: List) -> "MixedChunkHandle":
+        """``mixed_chunk`` dispatched without a host wait."""
         ...
 
     def release_slot(self, slot: int) -> None:
@@ -160,9 +199,121 @@ class _StepBuffers:
     out: torch.Tensor        # (B, K) int32, EOS-padded
     j: torch.Tensor          # (1,) int64: the step index
     left: torch.Tensor       # () bool: a row has a step after this one
+    idle: torch.Tensor       # (1,) int64: decode steps run with no live row
 
     def tensors(self) -> List[torch.Tensor]:
         return [getattr(self, f.name) for f in fields(self)]
+
+
+class _StageSlot:
+    """One slot of a :class:`HostStaging` ring: host buffers (pinned on
+    the card) with numpy views made once, and the event recorded behind
+    the last copy out of them."""
+
+    __slots__ = ("bufs", "views", "event", "recorded")
+
+    def __init__(self, shapes: Dict[str, tuple], pin: bool) -> None:
+        self.bufs = {k: torch.zeros(shape, dtype=dt, pin_memory=pin)
+                     for k, (shape, dt) in shapes.items()}
+        self.views = {k: t.numpy() for k, t in self.bufs.items()}
+        self.event = torch.cuda.Event() if pin else None
+        self.recorded = False
+
+    def record(self) -> None:
+        """Fence the copies just queued out of this slot."""
+        if self.event is not None:
+            self.event.record()
+            self.recorded = True
+
+
+class HostStaging:
+    """Rings of host staging slots, one ring per tag (a program's inputs,
+    or the decode step's): the port's counterpart of the JAX package's
+    ``HostStaging``. A dispatch takes the next slot of its tag, fills it,
+    queues its copies to the device and records the slot's event; a slot
+    is filled again only once that event has completed, so dispatches
+    queued back to back (chunks in flight) never overwrite inputs that a
+    queued copy has not read yet. On the CPU the copies are synchronous
+    and no event is needed."""
+
+    def __init__(self, ring: int, pin: bool) -> None:
+        self.ring = ring
+        self._pin = pin
+        self._slots: Dict[str, List[_StageSlot]] = {}
+        self._next: Dict[str, int] = {}
+
+    def take(self, tag: str, shapes: Dict[str, tuple]) -> _StageSlot:
+        """The next slot of ``tag`` (``shapes``: name → (shape, dtype),
+        fixed per tag), once the last copy out of it has run."""
+        slots = self._slots.get(tag)
+        if slots is None:
+            slots = self._slots[tag] = [_StageSlot(shapes, self._pin)
+                                        for _ in range(self.ring)]
+            self._next[tag] = 0
+        i = self._next[tag]
+        self._next[tag] = (i + 1) % self.ring
+        slot = slots[i]
+        if slot.recorded:
+            slot.event.synchronize()
+        return slot
+
+
+class ChunkHandle:
+    """A dispatched decode chunk (``JaxExecutor``'s ``ChunkHandle``):
+    its (B, K) tokens on their way to pinned host memory behind an event,
+    and the device-resident end state (``tok``, ``pos``, ``frozen``: the
+    EOS latch) that a carried dispatch starts from. ``fetch()`` waits for
+    the tokens; ``ready()`` says whether that would return at once. The
+    first fetch reports the chunk's device time a step to its executor
+    (CUDA events on the card, the dispatch's host wall on the CPU)."""
+
+    __slots__ = ("tok", "pos", "frozen", "steps", "_host", "_shape",
+                 "_start", "_done", "_host_ms", "_note", "_value")
+
+    def __init__(self, tok, pos, frozen, host, shape, steps, start, done,
+                 host_ms, note) -> None:
+        self.tok = tok
+        self.pos = pos
+        self.frozen = frozen
+        self.steps = steps
+        self._host = host
+        self._shape = shape
+        self._start = start
+        self._done = done
+        self._host_ms = host_ms
+        self._note = note
+        self._value: Optional[np.ndarray] = None
+
+    def ready(self) -> bool:
+        return self._done is None or self._done.query()
+
+    def _wait(self) -> np.ndarray:
+        if self._value is None:
+            ms = self._host_ms
+            if self._done is not None:
+                self._done.synchronize()
+                ms = (self._start.elapsed_time(self._done) / self.steps
+                      if self.steps else None)
+            self._value = self._host.numpy()
+            self._note(ms)
+        return self._value
+
+    def fetch(self) -> np.ndarray:
+        """The chunk's (B, K) tokens, EOS-padded."""
+        return self._wait().reshape(self._shape)
+
+
+class MixedChunkHandle(ChunkHandle):
+    """A dispatched mixed chunk: a :class:`ChunkHandle` whose transfer
+    also carries the slices' sampled tokens (one copy for both)."""
+
+    __slots__ = ()
+
+    def fetch(self) -> tuple:
+        """``(decode tokens (B, K), slice first tokens (len(pf),))``."""
+        v = self._wait()
+        n = self._shape[0] * self._shape[1]
+        return v[:n].reshape(self._shape), v[n:]
 
 
 @dataclass
@@ -184,25 +335,46 @@ class _StepGraph:
 
 @dataclass
 class _Program:
-    """A prefill program or mixed step 0: static device inputs that its
-    graph reads, their host staging (pinned on the card) and the event
-    behind the last copy out of that staging."""
+    """A prefill program or mixed step 0: the static device inputs that
+    its graph reads; their host staging is the ``name`` ring of the
+    executor's :class:`HostStaging`."""
 
+    name: str
+    shapes: Dict[str, tuple]
     bufs: Dict[str, torch.Tensor]
-    stage: Dict[str, torch.Tensor]
-    staged: Optional["torch.cuda.Event"]
+
+
+class _HostCopy:
+    """A dispatch's result-ring slot copied to host memory (pinned on the
+    card) with the event behind the copy."""
+
+    __slots__ = ("host", "event", "_values")
+
+    def __init__(self, host: torch.Tensor, event) -> None:
+        self.host = host
+        self.event = event
+        self._values: Optional[np.ndarray] = None
+
+    def read(self, row: int) -> int:
+        if self._values is None:
+            if self.event is not None:
+                self.event.synchronize()
+            self._values = self.host.numpy()
+        return int(self._values[row])
 
 
 class PrefillHandle:
     """A dispatched prefill's sampled first token: row ``row`` of slot
-    ``slot`` of its executor's result ring until fetched, then
+    ``slot`` of its executor's result ring (on the device, where a decode
+    join reads it) and of that slot's host copy, until fetched, then
     ``value``."""
 
-    __slots__ = ("slot", "row", "value")
+    __slots__ = ("slot", "row", "value", "copy")
 
-    def __init__(self, slot: int, row: int) -> None:
+    def __init__(self, slot: int, row: int, copy: _HostCopy) -> None:
         self.slot = slot
         self.row = row
+        self.copy = copy
         self.value: Optional[int] = None
 
 
@@ -269,11 +441,13 @@ class TorchExecutor:
                                    self.device, dtype=cache_dtype)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
-        #: Wall milliseconds per decode step, host loop and readback
-        #: included: calibrated by :meth:`warmup`, else first measured at
-        #: the second decode call (the first pays the kernels' build and
-        #: the capture), then a moving average. None until measured; the
-        #: engine sizes its realtime admission cap from it.
+        #: Milliseconds per decode step: calibrated by :meth:`warmup`,
+        #: else first measured at the second decode call (the first pays
+        #: the kernels' build and the capture), then a moving average: of
+        #: the host wall of a blocking call, and of a dispatched chunk's
+        #: device time (CUDA events; the CPU: its dispatch's wall) at its
+        #: fetch. None until measured; the engine sizes its realtime
+        #: admission cap from it.
         self.step_ms: Optional[float] = None
         self._decode_calls = 0
         #: Seconds of :meth:`warmup`: ``capture`` (every graph) and
@@ -289,19 +463,15 @@ class TorchExecutor:
             bt=zeros((B, MP), torch.int32), temps=zeros(B, torch.float32),
             budgets=zeros(B, torch.int32), frozen=zeros(B, torch.bool),
             out=zeros((B, K), torch.int32), j=zeros(1, torch.int64),
-            left=zeros((), torch.bool))
+            left=zeros((), torch.bool), idle=zeros(1, torch.int64))
         #: On the card the decode step is a CUDA graph; the CPU has none.
         self._graphs_on = self.device.type == "cuda"
-        # Host staging of the inputs and of each step's exit flag: pinned
-        # on the card, so the copies are asynchronous.
-        pin = self._graphs_on
-
-        def host(like: torch.Tensor) -> torch.Tensor:
-            return torch.empty(like.shape, dtype=like.dtype, pin_memory=pin)
-
-        b = self._buf
-        self._stage = {name: host(getattr(b, name))
-                       for name in ("tok", "pos", "bt", "temps", "budgets")}
+        # Host staging of every input (one ring a program, one for the
+        # decode step), of each step's exit flag and of every result:
+        # pinned on the card, so the copies are asynchronous, with events
+        # behind them.
+        pin = self._pin = self.device.type == "cuda"
+        self._staging = HostStaging(STAGING_RING, pin)
         self._left_host = torch.zeros(K, dtype=torch.bool, pin_memory=pin)
         self._left_events = ([torch.cuda.Event() for _ in range(K)]
                              if pin else None)
@@ -338,12 +508,33 @@ class TorchExecutor:
         return self.prefill_buckets[-1]
 
     def _time_steps(self, t0: float, steps: int) -> None:
+        self._note_step_ms((time.perf_counter() - t0) * 1e3 / steps
+                           if steps > 0 else None)
+
+    def _note_step_ms(self, ms: Optional[float]) -> None:
+        """One decode call's milliseconds a step into ``step_ms`` (the
+        first call, which builds and captures, is left out)."""
         self._decode_calls += 1
-        if self._decode_calls == 1 or steps <= 0:
+        if self._decode_calls == 1 or ms is None:
             return
-        ms = (time.perf_counter() - t0) * 1e3 / steps
         self.step_ms = (ms if self.step_ms is None
                         else 0.8 * self.step_ms + 0.2 * ms)
+
+    def _event(self, timing: bool = False):
+        """A CUDA event recorded now on the current stream (None on the
+        CPU, where every copy is synchronous)."""
+        if not self._pin:
+            return None
+        ev = torch.cuda.Event(enable_timing=timing)
+        ev.record()
+        return ev
+
+    @property
+    def idle_steps(self) -> int:
+        """Decode steps run so far in which no row was live (a dispatched
+        chunk runs its full step count; the blocking chunk's one extra
+        step): a host read, for statistics only."""
+        return int(self._buf.idle[0])
 
     # -- Executor API --------------------------------------------------------
 
@@ -399,13 +590,13 @@ class TorchExecutor:
         return self._prefill_wave(reqs, rows=self.prefill_batch)
 
     def gather_scalars(self, handles: List[PrefillHandle]) -> np.ndarray:
-        """The handles' tokens, fetched in ONE device-to-host transfer (of
-        the whole result ring) however many are pending."""
-        if any(h.value is None for h in handles):
-            ring = self._ring.to("cpu").numpy()
-            for h in handles:
-                if h.value is None:
-                    h.value = int(ring[h.slot, h.row])
+        """The handles' tokens. Each dispatch queued its tokens' copy to
+        host memory when it was made, so this only waits on those copies'
+        events and reads host memory: no transfer of its own, and safe
+        off the thread that dispatches."""
+        for h in handles:
+            if h.value is None:
+                h.value = h.copy.read(h.row)
         return np.array([h.value for h in handles], dtype=np.int64)
 
     @torch.inference_mode()
@@ -434,16 +625,90 @@ class TorchExecutor:
                                   temperatures, budgets, eager=False)
 
     @torch.inference_mode()
+    def decode_chunk_start(self, tokens, positions, block_tables: np.ndarray,
+                           temperatures: np.ndarray, budgets: np.ndarray,
+                           carry: Optional[ChunkHandle] = None,
+                           overrides: Optional[List] = None) -> ChunkHandle:
+        """Dispatch one chunk without reading the device
+        (``JaxExecutor.decode_chunk_start``): ``min(K, max budget)`` step
+        replays, no exit test. With ``carry`` (an earlier handle) the
+        rows' tokens, positions and EOS latches come from its end state on
+        the device (``tokens`` and ``positions`` are ignored); without
+        it they come from the host and no row starts latched.
+        ``overrides``: ``(slot, prefill handle, pos)`` triples whose input
+        token is the prefill's sampled token, copied device to device
+        from the result ring (a same-step join: the first token never
+        visits the host); the slot's position and latch are overridden
+        too, so a join may land on a lane whose previous owner finished.
+        Block tables, temperatures and budgets come from the host."""
+        t0 = time.perf_counter()
+        self._fill(tokens, positions, block_tables, temperatures, budgets,
+                   carry=carry)
+        self._join(overrides or ())
+        start = self._event(timing=True)
+        steps = self._chunk_steps(budgets)
+        for _ in range(steps):
+            self._run_step(eager=False)
+        return self._handle(ChunkHandle, steps, t0, start)
+
+    def _join(self, overrides) -> None:
+        """Write each override's token, position and cleared latch into
+        its slot of the step buffers, on the device."""
+        b = self._buf
+        for slot, h, pos in overrides:
+            if h.value is not None:
+                b.tok[slot].fill_(h.value)
+            else:
+                b.tok[slot].copy_(self._ring[h.slot, h.row])
+            b.pos[slot].fill_(pos)
+            b.frozen[slot].fill_(False)
+
+    def _handle(self, cls, steps: int, t0: float, start,
+                first: Optional[torch.Tensor] = None) -> ChunkHandle:
+        """Close a dispatch: queue one copy of ``out`` (and, for a mixed
+        chunk, the slices' ``first`` tokens) to host memory with a timing
+        event behind it, and keep the end state on the device for a later
+        carry. Everything is queued in stream order, before any later
+        dispatch resets the step buffers or replays ``first``'s graph."""
+        b = self._buf
+        dev = b.out.view(-1)
+        if first is not None:
+            dev = torch.cat([dev, first])
+        host = torch.empty(dev.shape, dtype=torch.int32,
+                           pin_memory=self._pin)
+        host.copy_(dev, non_blocking=self._pin)
+        done = self._event(timing=True)
+        host_ms = (None if done is not None or steps <= 0 else
+                   (time.perf_counter() - t0) * 1e3 / steps)
+        return cls(b.tok.clone(), b.pos.clone(), b.frozen.clone(), host,
+                   tuple(b.out.shape), steps, start, done, host_ms,
+                   self._note_step_ms)
+
+    @torch.inference_mode()
     def _decode_chunk(self, tokens, positions, block_tables, temperatures,
                       budgets, *, eager: bool) -> np.ndarray:
         """:meth:`decode_chunk`; ``eager`` runs the step body instead of
         replaying its graph (warmup before capture, and comparisons)."""
         t0 = time.perf_counter()
         self._fill(tokens, positions, block_tables, temperatures, budgets)
-        ran = self._decode_steps(0, self._chunk_steps(budgets), eager)
+        ran = self._decode_steps(self._chunk_steps(budgets), eager)
         result = self._out()
         self._time_steps(t0, ran)
         return result
+
+    def mixed_chunk_start(self, tokens: np.ndarray, positions: np.ndarray,
+                          block_tables: np.ndarray, temperatures: np.ndarray,
+                          budgets: np.ndarray,
+                          pf: List) -> MixedChunkHandle:
+        """:meth:`mixed_chunk` dispatched without reading the device
+        (``JaxExecutor.mixed_chunk_start``; in ragged mode its
+        ``_ragged_chunk_start``): step 0, then ``min(K, max budget) - 1``
+        decode steps with no exit test. A fresh dispatch: no row starts
+        latched. ``fetch()`` returns ``(out, pf_first)`` in one
+        transfer."""
+        return self._mixed_chunk_start(tokens, positions, block_tables,
+                                       temperatures, budgets, pf,
+                                       eager=False)
 
     def mixed_chunk(self, tokens: np.ndarray, positions: np.ndarray,
                     block_tables: np.ndarray, temperatures: np.ndarray,
@@ -466,11 +731,18 @@ class TorchExecutor:
         return self._mixed_chunk(tokens, positions, block_tables,
                                  temperatures, budgets, pf, eager=False)
 
-    @torch.inference_mode()
     def _mixed_chunk(self, tokens, positions, block_tables, temperatures,
                      budgets, pf: List, *, eager: bool) -> tuple:
         """:meth:`mixed_chunk`; ``eager`` runs step 0 and the decode
         steps eagerly instead of replaying their graphs."""
+        return self._mixed_chunk_start(tokens, positions, block_tables,
+                                       temperatures, budgets, pf,
+                                       eager=eager).fetch()
+
+    @torch.inference_mode()
+    def _mixed_chunk_start(self, tokens, positions, block_tables,
+                           temperatures, budgets, pf: List, *,
+                           eager: bool) -> MixedChunkHandle:
         if self.mixed_prefill_slices <= 0:
             raise RuntimeError("mixed batching disabled for this executor")
         S, T = self.mixed_prefill_slices, self.mixed_slice_tokens
@@ -486,13 +758,13 @@ class TorchExecutor:
         name, p = self._step0_program()
         self._fill(tokens, positions, block_tables, temperatures, budgets)
         self._stage_step0(p, reqs)
+        start = self._event(timing=True)
         first = self._launch(name, p, self._step0_body, eager)
-        self._flag(0)
-        ran = 1 + self._decode_steps(1, self._chunk_steps(budgets), eager)
-        result = (self._out(),
-                  first[:len(pf)].to("cpu", copy=True).numpy())
-        self._time_steps(t0, ran)
-        return result
+        steps = max(1, self._chunk_steps(budgets))
+        for _ in range(1, steps):
+            self._run_step(eager)
+        return self._handle(MixedChunkHandle, steps, t0, start,
+                            first[:len(pf)])
 
     # -- warmup ---------------------------------------------------------------
 
@@ -612,23 +884,35 @@ class TorchExecutor:
                    else 0)
 
     def _fill(self, tokens, positions, block_tables, temperatures,
-              budgets) -> None:
-        """Start a chunk: copy the inputs into the static buffers through
-        the host staging (asynchronously on the card; every call ends in
-        a readback, so the staging is free again at the next call), and
-        reset the carry: no row latched, ``out`` all EOS, step 0."""
+              budgets, carry: Optional[ChunkHandle] = None) -> None:
+        """Start a chunk: copy the host inputs into the static buffers
+        through the next slot of the step's staging ring (asynchronously
+        on the card), set the carry and reset ``out`` (all EOS) and the
+        step index. Without ``carry`` no row starts latched; with it the
+        rows' tokens, positions and latches are its end state, copied on
+        the device."""
         b = self._buf
-        for name, arr in (("tok", tokens), ("pos", positions),
-                          ("bt", block_tables), ("temps", temperatures),
-                          ("budgets", budgets)):
-            stage = self._stage[name]
-            arr = np.asarray(arr)
-            if arr.shape != tuple(stage.shape):
+        names = (() if carry is not None else ("tok", "pos")) + (
+            "bt", "temps", "budgets")
+        slot = self._staging.take("step", {
+            n: (tuple(getattr(b, n).shape), getattr(b, n).dtype)
+            for n in ("tok", "pos", "bt", "temps", "budgets")})
+        arrays = {"tok": tokens, "pos": positions, "bt": block_tables,
+                  "temps": temperatures, "budgets": budgets}
+        for name in names:
+            view, arr = slot.views[name], np.asarray(arrays[name])
+            if arr.shape != view.shape:
                 raise ValueError(f"{name}: shape {arr.shape}, the executor's "
-                                 f"geometry needs {tuple(stage.shape)}")
-            stage.numpy()[...] = arr
-            getattr(b, name).copy_(stage, non_blocking=True)
-        b.frozen.zero_()
+                                 f"geometry needs {view.shape}")
+            view[...] = arr
+            getattr(b, name).copy_(slot.bufs[name], non_blocking=self._pin)
+        slot.record()
+        if carry is None:
+            b.frozen.zero_()
+        else:
+            b.tok.copy_(carry.tok)
+            b.pos.copy_(carry.pos)
+            b.frozen.copy_(carry.frozen)
         b.out.fill_(self.spec.eos_id)
         b.j.zero_()
 
@@ -646,6 +930,7 @@ class TorchExecutor:
         active = (~b.frozen) & (b.j < b.budgets)
         logits = self.model.forward_decode(b.tok, b.pos, self.cache, b.bt,
                                            active, fused=self.fused_decode)
+        b.idle.add_((~active.any()).to(torch.int64))
         self._advance(active, logits)
 
     def _advance(self, active: torch.Tensor, logits: torch.Tensor) -> None:
@@ -748,15 +1033,14 @@ class TorchExecutor:
             self._left_events[j].synchronize()
         return bool(self._left_host[j])
 
-    def _decode_steps(self, first: int, steps: int, eager: bool) -> int:
-        """Decode steps ``first..steps-1``; returns how many ran. Step
-        ``j - 1``'s exit flag is read only after step ``j`` is queued, so
-        the device never waits for the host: the one extra step that can
-        run has every row inactive (its writes go to page 0 and its
-        outputs stay EOS). With ``first > 0`` step ``first - 1``'s flag
-        must be queued already."""
+    def _decode_steps(self, steps: int, eager: bool) -> int:
+        """The blocking chunk's decode steps ``0..steps-1``; returns how
+        many ran. Step ``j - 1``'s exit flag is read only after step ``j``
+        is queued, so the device never waits for the host: the one extra
+        step that can run has every row inactive (its writes go to page 0
+        and its outputs stay EOS)."""
         ran = 0
-        for j in range(first, steps):
+        for j in range(steps):
             self._run_step(eager)
             self._flag(j)
             ran += 1
@@ -768,17 +1052,13 @@ class TorchExecutor:
 
     def _program(self, name: str, shapes: Dict[str, tuple]) -> _Program:
         """The named program's static inputs (made at first use): device
-        buffers of ``shapes`` (name → (shape, dtype)) and their host
-        staging."""
+        buffers of ``shapes`` (name → (shape, dtype))."""
         p = self._programs.get(name)
         if p is None:
-            pin = self._graphs_on
             p = self._programs[name] = _Program(
-                bufs={k: torch.zeros(shape, dtype=dt, device=self.device)
-                      for k, (shape, dt) in shapes.items()},
-                stage={k: torch.zeros(shape, dtype=dt, pin_memory=pin)
-                       for k, (shape, dt) in shapes.items()},
-                staged=torch.cuda.Event() if pin else None)
+                name, dict(shapes),
+                {k: torch.zeros(shape, dtype=dt, device=self.device)
+                 for k, (shape, dt) in shapes.items()})
         return p
 
     def _rows_shapes(self, n: int, T: int) -> Dict[str, tuple]:
@@ -805,20 +1085,17 @@ class TorchExecutor:
             "mixed_step0", self._rows_shapes(S, self.mixed_slice_tokens)))
 
     def _stage_inputs(self, p: _Program, fill) -> None:
-        """Write a program's inputs: wait until the last copy out of its
-        staging has run (the staging fence), let ``fill`` write the
-        staging's numpy views, then copy every input to the device
-        (asynchronously on the card) and record the fence."""
-        if p.staged is not None:
-            p.staged.synchronize()
-        views = {k: st.numpy() for k, st in p.stage.items()}
-        for v in views.values():
+        """Write a program's inputs: take the next slot of its staging
+        ring (once the last copy out of that slot has run), let ``fill``
+        write the slot's numpy views, then copy every input to the device
+        (asynchronously on the card) and fence the slot."""
+        slot = self._staging.take(p.name, p.shapes)
+        for v in slot.views.values():
             v[...] = 0
-        fill(views)
+        fill(slot.views)
         for k, buf in p.bufs.items():
-            buf.copy_(p.stage[k], non_blocking=True)
-        if p.staged is not None:
-            p.staged.record()
+            buf.copy_(slot.bufs[k], non_blocking=self._pin)
+        slot.record()
 
     @staticmethod
     def _fill_rows(v, reqs: List) -> None:
@@ -927,16 +1204,21 @@ class TorchExecutor:
 
     def _ring_put(self, tokens: torch.Tensor,
                   rows: List[int]) -> List[PrefillHandle]:
-        """Copy a dispatch's tokens into the next result-ring slot and
-        hand out handles to ``rows`` of it. Handles the slot still holds
-        unfetched are fetched first."""
+        """Copy a dispatch's tokens into the next result-ring slot, queue
+        that slot's copy to host memory with an event behind it, and hand
+        out handles to ``rows`` of it. Handles the slot still holds
+        unfetched are fetched first (a join of one then uses its value)."""
         slot = self._ring_next
         self._ring_next = (slot + 1) % RESULT_RING
-        pending = [h for h in self._ring_handles[slot] if h.value is None]
-        if pending:
-            self.gather_scalars(pending)
-        self._ring[slot, :tokens.shape[0]].copy_(tokens)
-        hs = [PrefillHandle(slot, r) for r in rows]
+        for h in self._ring_handles[slot]:
+            if h.value is None:
+                h.value = h.copy.read(h.row)
+        row = self._ring[slot]
+        row[:tokens.shape[0]].copy_(tokens)
+        host = torch.empty(row.shape, dtype=torch.int32, pin_memory=self._pin)
+        host.copy_(row, non_blocking=self._pin)
+        copy = _HostCopy(host, self._event())
+        hs = [PrefillHandle(slot, r, copy) for r in rows]
         self._ring_handles[slot] = hs
         return hs
 

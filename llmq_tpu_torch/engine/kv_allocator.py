@@ -7,6 +7,12 @@
   are reused first.
 - allocation is all-or-nothing, so a half-admitted sequence never holds
   part of the pool.
+- **ref-counted sharing** (prefix cache): a page handed out by
+  :meth:`alloc` starts at refcount 1; :meth:`retain` adds holders (the
+  radix prefix cache sharing one physical page across sequences) and
+  :meth:`free` drops one holder — the page returns to the free list only
+  when its last holder lets go. Code that never calls ``retain`` sees
+  exclusive ownership.
 - conversations pin their pages between turns under a name; the engine
   unpins on adoption, pin TTL or pool-pressure reclaim.
 """
@@ -24,30 +30,54 @@ class PageAllocator:
         self.num_pages = num_pages
         self.page_size = page_size
         self._free: List[int] = list(range(num_pages - 1, 0, -1))
-        self._used: set = set()
+        self._refs: Dict[int, int] = {}        # page id → holder count
         self._pins: Dict[str, List[int]] = {}
         self._mu = threading.Lock()
 
     def alloc(self, n: int) -> Optional[List[int]]:
-        """Allocate ``n`` pages, or None if the pool can't supply all."""
+        """Allocate ``n`` pages (each at refcount 1), or None if the pool
+        can't supply all."""
         if n <= 0:
             return []
         with self._mu:
             if len(self._free) < n:
                 return None
             pages = [self._free.pop() for _ in range(n)]
-            self._used.update(pages)
+            for p in pages:
+                self._refs[p] = 1
         return pages
 
+    def retain(self, pages: List[int]) -> None:
+        """Add one holder to each page: the prefix cache retains a page
+        per tree node, and every sequence whose block table adopts a
+        shared page retains it for the duration of the match."""
+        with self._mu:
+            for p in pages:
+                if p not in self._refs:
+                    raise ValueError(f"retain of unallocated page {p}")
+                self._refs[p] += 1
+
     def free(self, pages: List[int]) -> None:
+        """Drop one holder per page; a page whose last holder left returns
+        to the free list. Holders never write a page whose refcount
+        exceeds their own share: they allocate a fresh page instead."""
         with self._mu:
             for p in pages:
                 if p <= 0 or p >= self.num_pages:
                     raise ValueError(f"bad page id {p}")
-                if p not in self._used:
+                refs = self._refs.get(p)
+                if refs is None:
                     raise ValueError(f"double free of page {p}")
-                self._used.discard(p)
-                self._free.append(p)
+                if refs > 1:
+                    self._refs[p] = refs - 1
+                else:
+                    del self._refs[p]
+                    self._free.append(p)
+
+    def refcount(self, page: int) -> int:
+        """Current holder count (0 = free)."""
+        with self._mu:
+            return self._refs.get(page, 0)
 
     def pin(self, key: str, pages: List[int]) -> None:
         """Record ``pages`` as pinned for ``key`` (a conversation id).
@@ -74,6 +104,11 @@ class PageAllocator:
 
     def used(self) -> int:
         return self.total - self.available()
+
+    def shared_pages(self) -> int:
+        """Pages with more than one holder (prefix-cache sharing)."""
+        with self._mu:
+            return sum(1 for r in self._refs.values() if r > 1)
 
     @staticmethod
     def pages_for(tokens: int, page_size: int) -> int:

@@ -1040,3 +1040,155 @@ def test_replayed_prefill_programs_equal_eager(route):
     assert ex.program_graphs and all(
         n == 1 or name.startswith("ragged") for name, n in
         ex.program_replays.items())
+
+
+# -- the async decode pipeline and the prefix cache on the card ---------------
+# Dispatched chunks (no host read, every step a replay, the carry and the
+# joins on the device) against the blocking path of a twin executor on the
+# same weights: greedy tokens bit for bit, pools bit-exact past page 0.
+
+
+def _host_carry(out, tok, pos, latched, budgets, eos):
+    """The end state of a chunk from its tokens: a live row moves a
+    position a step until its budget ends or it emits EOS (which latches
+    it)."""
+    for b in range(len(tok)):
+        if latched[b]:
+            continue
+        for t in out[b, :budgets[b]]:
+            tok[b], pos[b] = t, pos[b] + 1
+            if t == eos:
+                latched[b] = True
+                break
+
+
+@needs_cuda
+@pytest.mark.parametrize("route", GRAPH_ROUTES)
+def test_carried_and_joined_chunks_equal_blocking(route):
+    """Three chunks dispatched back to back before any fetch: the second
+    carried from the first on the device and joined on lane 3 by a new
+    prompt's prefill (its token copied device to device), the third
+    carried from the second. They give the blocking chunks' tokens bit
+    for bit, with the carry and the join assembled on the host; row 0
+    latches on EOS in the first."""
+    import numpy as np
+
+    eos = _graph_eos(route)
+    ex, ref = _graph_executor(route, eos), _graph_executor(route, eos)
+    tok, pos, bt = _graph_prefill(ex)
+    _graph_prefill(ref)
+    B = len(tok)
+    temps = np.zeros(B, np.float32)
+    b1 = np.array([GRAPH_K, 2, 3, 0], np.int32)
+    full = np.full(B, GRAPH_K, np.int32)
+    new_bt = bt.copy()
+    new_bt[3, :2] = [30, 31]
+    prompt = [60, 61, 62, 63, 64, 65, 66]
+    h1 = ex.decode_chunk_start(tok, pos, bt, temps, b1)
+    hp = ex.prefill_async(prompt, 0, new_bt[3], 0.0)
+    h2 = ex.decode_chunk_start(None, None, new_bt, temps, full, carry=h1,
+                               overrides=[(3, hp, len(prompt))])
+    h3 = ex.decode_chunk_start(None, None, new_bt, temps, full, carry=h2)
+    latched = np.zeros(B, bool)
+    out1 = ref.decode_chunk(tok, pos, bt, temps, b1)
+    _host_carry(out1, tok, pos, latched, b1, eos)
+    first = ref.prefill(prompt, 0, new_bt[3], 0.0, 3)
+    tok[3], pos[3] = first, len(prompt)
+    want = [out1]
+    for _ in range(2):
+        b = np.where(latched, 0, GRAPH_K).astype(np.int32)
+        out = ref.decode_chunk(tok, pos, new_bt, temps, b)
+        _host_carry(out, tok, pos, latched, b, eos)
+        want.append(out)
+    assert latched[0]
+    for h, w in zip((h1, h2, h3), want):
+        got = h.fetch()
+        assert (got == w).all(), (got, w)
+    assert int(ex.gather_scalars([hp])[0]) == first
+    torch.cuda.synchronize()
+    for name, p in ex.cache.items():
+        assert torch.equal(p[:, 1:], ref.cache[name][:, 1:]), name
+
+
+@needs_cuda
+def test_queued_dispatches_read_their_own_inputs():
+    """The staging race: with the stream held busy, four dispatches with
+    different block tables, budgets and tokens are all queued before
+    any fetch, so their inputs' copies run long after the host has
+    staged the next ones. Each fetches what a blocking chunk of the same
+    inputs gives: no dispatch read another's staging."""
+    import numpy as np
+
+    ex, ref = _graph_executor("fused"), _graph_executor("fused")
+    tok, pos, bt = _graph_prefill(ex)
+    _graph_prefill(ref)
+    B = len(tok)
+    temps = np.zeros(B, np.float32)
+    ex.decode_chunk(tok, pos, bt, temps, np.ones(B, np.int32))
+    ref.decode_chunk(tok, pos, bt, temps, np.ones(B, np.int32))
+    inputs = []
+    for i in range(4):
+        b = np.zeros(B, np.int32)
+        b[i] = GRAPH_K - (i % 2)
+        t = np.zeros_like(bt)
+        t[i] = bt[i]
+        inputs.append((tok + 7 * i, pos + 1, t, temps, b))
+    torch.cuda._sleep(200_000_000)
+    handles = [ex.decode_chunk_start(*args) for args in inputs]
+    for h, args in zip(handles, inputs):
+        assert (h.fetch() == ref.decode_chunk(*args)).all()
+    torch.cuda.synchronize()
+    for name, p in ex.cache.items():
+        assert torch.equal(p[:, 1:], ref.cache[name][:, 1:]), name
+
+
+@needs_cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_shared_pages_unchanged_by_a_prefix_hit_wave(kv):
+    """A 48-token system prompt published by a finished request; a wave
+    of three requests sharing it adopts its three pages (reference count
+    4 while they run) and writes only pages of its own: the shared
+    pages (K, V and, int8, their scales) are unchanged byte for byte,
+    and each request reports 48 cached tokens."""
+    from llmq_tpu_torch.core.config import (AsyncPipelineConfig,
+                                            PrefixCacheConfig)
+    from llmq_tpu_torch.engine.engine import GenRequest, InferenceEngine
+    from llmq_tpu_torch.engine.executor import TorchExecutor
+    from llmq_tpu_torch.engine.tokenizer import ByteTokenizer
+    from llmq_tpu_torch.models import llama as T
+
+    cfg = T.get_config("llama3-tiny", dim=512, n_heads=8, n_kv_heads=2,
+                       n_layers=2, vocab_size=512, max_seq_len=256)
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    ex = TorchExecutor(cfg, params, batch_size=4, page_size=16, num_pages=96,
+                       prefill_buckets=[16, 64], chunk_size=GRAPH_K,
+                       eos_id=ByteTokenizer.eos_id,
+                       cache_dtype=torch.int8 if kv == "int8" else None,
+                       device="cuda")
+    eng = InferenceEngine(ex, ByteTokenizer(), max_decode_steps=8,
+                          prefix_cache=PrefixCacheConfig(),
+                          async_pipeline=AsyncPipelineConfig())
+    system = "The shared system prompt, three pages of it, is here."[:48]
+    assert len(system) == 48
+    h = eng.submit(GenRequest(id="first", prompt=system + " One.",
+                              max_new_tokens=4))
+    eng.run_until_idle()
+    assert h.result.finish_reason in ("eos", "length")
+    shared = [p for p in range(1, 96) if eng.allocator.refcount(p) > 0]
+    assert len(shared) == 3
+    before = {k: v[:, shared].clone() for k, v in ex.cache.items()}
+    hs = [eng.submit(GenRequest(id=f"w{i}", prompt=system + tail,
+                                max_new_tokens=6))
+          for i, tail in enumerate([" Two!", " Three?", " Four, then."])]
+    peak = 0
+    while not all(x.done for x in hs):
+        eng.step()
+        peak = max(peak, max(eng.allocator.refcount(p) for p in shared))
+    eng.run_until_idle()
+    assert peak == 4
+    assert [x.result.cached_tokens for x in hs] == [48, 48, 48]
+    torch.cuda.synchronize()
+    for k, v in ex.cache.items():
+        assert torch.equal(v[:, shared], before[k]), k
+    eng.stop()

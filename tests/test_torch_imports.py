@@ -69,6 +69,15 @@ _BLOCKED_IMPORT_SCRIPT = textwrap.dedent("""
     from llmq_tpu_torch.models.llama import init_params_quantized
     from llmq_tpu_torch.core.config import ModelConfig
     assert ModelConfig().quantization == ModelConfig().kv_quantization == ""
+    # The async pipeline and the prefix cache.
+    from llmq_tpu_torch.prefixcache.radix import PrefixCache, PrefixMatch
+    from llmq_tpu_torch.core.config import (AsyncPipelineConfig,
+                                            PrefixCacheConfig)
+    assert AsyncPipelineConfig().enabled and PrefixCacheConfig().enabled
+    from llmq_tpu_torch.engine.executor import (ChunkHandle, HostStaging,
+                                                MixedChunkHandle)
+    assert hasattr(TorchExecutor, "decode_chunk_start")
+    assert hasattr(TorchExecutor, "mixed_chunk_start")
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", sys.argv[1] + "/chip_smoke.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
