@@ -89,7 +89,31 @@ shows where it happened):
                  with the prefill programs run eagerly). Four ~600-token
                  prompts with no decode row are admitted as one wave
                  (``prefill_multi_async``) and as four single programs.
-8. serve-int8 — llama3-8b with int8 weights and int8 KV at full width and
+8. serve-plane — the serving process around the serve phase's bf16
+                 default engine (same weights, same pool: 8 slots, 512
+                 pages of 16), over REST with retry backoff shortened to
+                 0.05 s: pool pressure (six 1200-token LOW requests
+                 arriving together and decoding, then two REALTIME
+                 ones: a preemption must release the pages of a LOW
+                 that has generated tokens, which rebuilds and resumes;
+                 every request completes its tokens, the REALTIME ones
+                 before the LOWs they preempted, and once idle the pool
+                 holds only the radix tree's pages and the pins);
+                 at-least-once delivery through an
+                 engine loop killed by a BaseException with four
+                 requests decoding (the supervisor restarts it once,
+                 each message retries through the delayed queue and
+                 completes once, the graphs are replayed and none is
+                 captured again); a message that fails on every attempt
+                 in the process function and one the engine finishes
+                 "error" reach the dead-letter queue, and the second is
+                 requeued by the admin route; a conversation of three turns (turns 2
+                 and 3 cached), its state update, and its eviction
+                 freeing its pinned pages; "urgent" served at HIGH; an
+                 SSE stream equal to the queued response; 429 past a
+                 low queue-depth limit and 503 with the engine stopped,
+                 both with Retry-After.
+9. serve-int8 — llama3-8b with int8 weights and int8 KV at full width and
                  depth (``LLMQ_MODEL_QUANTIZATION=int8
                  LLMQ_MODEL_KV_QUANTIZATION=int8``), the same REST mix:
                  kernel 5 launches and no bf16-pool kernel does; then a
@@ -97,7 +121,8 @@ shows where it happened):
                  on: kernel 7 launches. Rates, the decode breakdown,
                  the plain int8 prefill attention's share of the int8
                  TTFT program, the wave admission, weight bytes and
-                 peak memory.
+                 peak memory; and serve-plane's pool-pressure traffic
+                 once more over the int8 pool and its scale pools.
 
 No ``*_plain`` twin may be called while serving. On the card every
 decode step, prefill program and mixed step 0 is a replay of one of the
@@ -116,8 +141,10 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 import traceback
+import urllib.error
 import urllib.request
 
 # Attention outputs are bf16 on unit-scale inputs: the kernels keep the
@@ -2461,7 +2488,12 @@ def _serve_default(state):
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({CARD})")
     finally:
         app.stop()
-        engine.executor.release_graphs()
+        if "serve-plane" in state.get("chosen", ()):
+            # The serve-plane phase serves on this engine: its graphs
+            # stay captured.
+            state["serve_engine"] = engine
+        else:
+            engine.executor.release_graphs()
     return engine.executor.model.params
 
 
@@ -3052,16 +3084,638 @@ def _serve_int8(state, *, ragged: bool, params):
             _decode_breakdown(engine, out, tag)
             _q8_prefill_share(engine, out, tag)
         _wave_timing(engine, out, tag)
+        if not ragged:
+            # serve-plane's pool pressure over the int8 pool and its
+            # scale pools.
+            kernels.reset_launches()
+            state.setdefault("serve_plane", {})["int8_pressure"] = \
+                _pool_pressure(engine, base, "serve-plane-int8")
+            launches = dict(kernels.LAUNCHES)
+            wrong = {n: launches[n] for n in BF16_ONLY if launches[n]}
+            if launches["fused_decode_q8"] <= 0 or wrong:
+                raise AssertionError(f"serve-plane-int8: launches {launches}")
+            log(f"[serve-plane-int8] launches "
+                f"{ {k: v for k, v in launches.items() if v} }")
     finally:
         app.stop()
         ex.release_graphs()
     return ex.model.params
 
 
+# -- serve-plane: the serving process around the default engine ----------------
+
+#: Retry backoff of the serve-plane phase (seconds; the default 1 s
+#: doubles per retry, which would only make the phase sleep).
+PLANE_BACKOFF_S = 0.05
+#: The pressure traffic: six LOW prompts of PRESSURE_PROMPT tokens
+#: decoding PRESSURE_LOW_NEW each, then, once all six decode, two
+#: REALTIME ones of the same length decoding PRESSURE_RT_NEW. The six
+#: grow to 6 x 83 of the 511 pages, so each REALTIME admission (77
+#: pages) has to shed past the radix tree's leaves and the idle pins
+#: into a LOW runner that has generated tokens. 128 new tokens keep the
+#: LOWs decoding through the two 32-step chunks that can be in flight
+#: when the REALTIMEs arrive (preemption waits for them to drain).
+PRESSURE_PROMPT = 1200
+PRESSURE_LOW_NEW = 128
+PRESSURE_RT_NEW = 32
+PRESSURE_FILLER = ("The queue serves four priority tiers, and every request "
+                   "carries its own deadline and budget. ")
+
+
+def _plane_cfg():
+    """The serve config with the phase's settings: retry backoff
+    PLANE_BACKOFF_S, a 5 ms worker poll and a 50 ms supervisor check."""
+    cfg = _serve_cfg()
+    cfg.queue.retry.initial_backoff = PLANE_BACKOFF_S
+    cfg.queue.worker.process_interval = 0.005
+    cfg.executor.supervisor.check_interval = 0.05
+    return cfg
+
+
+def _http_status(method, url, body=None):
+    """(status, payload, Retry-After header), error statuses included."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return (resp.status, json.loads(resp.read()),
+                    resp.headers.get("Retry-After"))
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), e.headers.get("Retry-After")
+
+
+def _until(pred, timeout: float, what: str, poll: float = 0.001) -> None:
+    deadline = time.time() + timeout
+    while not pred():
+        if time.time() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(poll)
+
+
+class _PlaneTracker:
+    """The smoke's instrumentation of an engine (removed by ``close``):
+    its handles by request id, its preemptions (``(id, release_pages)``,
+    as the JAX package's tests record them) with the tokens each
+    page-releasing victim had generated, and each rebuild's re-prefilled
+    tokens with the seconds from its admission to its completed
+    prefill."""
+
+    NAMES = ("submit", "_preempt", "_start_sequence", "_complete_prefill")
+
+    def __init__(self, engine) -> None:
+        self.engine = engine
+        self.handles = {}
+        self.victims = []
+        self.generated_at_release = []      # (id, tokens generated)
+        self.rebuilds = []          # [id, tokens, t_admit, t_done]
+        orig = {n: getattr(engine, n) for n in self.NAMES}
+
+        def submit(req, **kw):
+            h = orig["submit"](req, **kw)
+            self.handles[req.id] = h
+            return h
+
+        def preempt(victim, release_pages):
+            self.victims.append((victim.req.id, release_pages))
+            if release_pages:
+                self.generated_at_release.append(
+                    (victim.req.id, len(victim.generated)))
+            return orig["_preempt"](victim, release_pages)
+
+        def start_sequence(seq, slot):
+            was = seq.rebuild
+            ok = orig["_start_sequence"](seq, slot)
+            if was and ok and seq.todo_rebuild:
+                self.rebuilds.append([seq.req.id, len(seq.todo_ids),
+                                      time.perf_counter(), None])
+            return ok
+
+        def complete_prefill(seq, first):
+            rebuilt = seq.todo_rebuild
+            orig["_complete_prefill"](seq, first)
+            if rebuilt:
+                for r in reversed(self.rebuilds):
+                    if r[0] == seq.req.id and r[3] is None:
+                        r[3] = time.perf_counter()
+                        break
+
+        for n, fn in zip(self.NAMES, (submit, preempt, start_sequence,
+                                      complete_prefill)):
+            setattr(engine, n, fn)
+
+    def close(self) -> None:
+        for n in self.NAMES:
+            self.engine.__dict__.pop(n, None)
+
+
+def _idle(engine) -> bool:
+    st = engine.get_stats()
+    return st["active"] == 0 and st["pending"] == 0 and not engine._inflight
+
+
+def _pool_accounting(engine):
+    """(pages in use, pages of the radix tree and the pins together)."""
+    tree = set()
+    stack = list(engine._prefix_cache._root.children.values())
+    while stack:
+        node = stack.pop()
+        tree.add(node.page)
+        stack.extend(node.children.values())
+    pins = {p for ps in engine.allocator._pins.values() for p in ps}
+    return engine.allocator.used(), len(tree | pins), len(tree), len(pins)
+
+
+def _pool_pressure(engine, base, tag: str) -> dict:
+    """Six LOW requests of PRESSURE_PROMPT tokens, arriving together;
+    once all six have emitted a first token (none finished), two REALTIME ones of the same
+    length. Every request must complete its tokens (none finishes
+    "error"), a preemption must release the pages of a LOW that had
+    generated tokens (its rebuild resumes from its newest token), the
+    REALTIME requests must finish before the LOWs they stripped, and
+    once idle the pool must hold only the radix tree's pages and the
+    pins. Prints the REALTIME TTFT, each rebuild's tokens and ms, and
+    (no gate: bf16 re-prefill logits are not decode logits) how many
+    leading tokens of the decoded victim equal the same prompt served
+    alone."""
+    from llmq_tpu_torch.core.types import Priority
+    from llmq_tpu_torch.engine.engine import GenRequest
+
+    _until(lambda: _idle(engine), 120, f"{tag}: idle engine before")
+    tr = _PlaneTracker(engine)
+    try:
+        t0 = time.perf_counter()
+        prompts = {}
+        lows = []
+        # The six arrive together: the engine loop holds its next step
+        # until all six are submitted, so they are admitted as one
+        # prefill wave and decode side by side (posted one by one, the
+        # first would decode its tokens while the others still prefill
+        # in 128-token mixed slices).
+        gate = threading.Event()
+        real_step = engine.step
+
+        def held_step():
+            gate.wait(60)
+            return real_step()
+
+        engine.step = held_step
+        try:
+            for i in range(6):
+                text = (f"{i:02d} {tag} low job: "
+                        + PRESSURE_FILLER * 20)[:PRESSURE_PROMPT]
+                mid = _post(base, {"content": text, "priority": "low",
+                                   "metadata": {
+                                       "max_new_tokens": PRESSURE_LOW_NEW}})
+                prompts[mid] = text
+                lows.append(mid)
+            _until(lambda: all(m in tr.handles for m in lows), 30,
+                   f"{tag}: six LOW requests submitted")
+        finally:
+            engine.__dict__.pop("step", None)
+            gate.set()
+        _until(lambda: all(m in tr.handles and "first_token" in
+                           tr.handles[m].marks for m in lows), 120,
+               f"{tag}: six LOW requests decoding")
+        early = [m for m in lows if tr.handles[m].result is not None]
+        if early:
+            raise AssertionError(f"{tag}: LOW requests {early} finished "
+                                 f"before the REALTIME ones were sent")
+        rts = []
+        for i in range(2):
+            text = (f"{i:02d} {tag} realtime job: "
+                    + PRESSURE_FILLER * 20)[:PRESSURE_PROMPT]
+            rts.append(_post(base, {"content": text,
+                                    "priority": "realtime",
+                                    "metadata": {
+                                        "max_new_tokens": PRESSURE_RT_NEW}}))
+        done = {m: _poll(base, m) for m in lows + rts}
+        wall = time.perf_counter() - t0
+        _until(lambda: _idle(engine), 120, f"{tag}: idle engine after")
+        for m, r in done.items():
+            u = r["metadata"].get("usage", {})
+            want = PRESSURE_LOW_NEW if m in lows else PRESSURE_RT_NEW
+            if r["status"] != "completed" or u.get("finish_reason") not in \
+                    ("eos", "length") or (u["completion_tokens"] != want
+                                          and u["finish_reason"] != "eos"):
+                raise AssertionError(f"{tag}: request under pressure did "
+                                     f"not complete its tokens: {r}")
+        released = [v for v, rel in tr.victims if rel]
+        if not released:
+            raise AssertionError(f"{tag}: no preemption released pages: "
+                                 f"{tr.victims}")
+        decoded = [(v, n) for v, n in tr.generated_at_release
+                   if v in lows and n > 0]
+        if not decoded:
+            raise AssertionError(f"{tag}: no released LOW had generated "
+                                 f"tokens: {tr.generated_at_release}")
+        stripped = [v for v in dict.fromkeys(released) if v in lows]
+        for rt in rts:
+            for v in stripped:
+                if tr.handles[rt].finished_at >= tr.handles[v].finished_at:
+                    raise AssertionError(f"{tag}: REALTIME {rt} finished "
+                                         f"after the LOW {v} it preempted")
+        used, accounted, tree, pins = _pool_accounting(engine)
+        if used != accounted:
+            raise AssertionError(f"{tag}: {used} pages in use but the radix "
+                                 f"tree and the pins hold {accounted}")
+        ttft = [(tr.handles[m].marks["first_token"]
+                 - tr.handles[m].submitted_at) * 1e3 for m in rts]
+        rebuilds = [(v, n, (t1 - t0_) * 1e3) for v, n, t0_, t1 in
+                    tr.rebuilds if t1 is not None]
+        victim, victim_generated = decoded[0]
+        victim_rebuilds = [(n, ms) for v, n, ms in rebuilds if v == victim]
+        if not victim_rebuilds:
+            raise AssertionError(f"{tag}: the decoded victim {victim} was "
+                                 f"not rebuilt: {tr.rebuilds}")
+    finally:
+        tr.close()
+    alone = engine.submit(GenRequest(id=f"{tag}-alone-{time.time()}",
+                                     prompt=prompts[victim],
+                                     priority=Priority.LOW,
+                                     max_new_tokens=PRESSURE_LOW_NEW))
+    if not alone.wait(300):
+        raise AssertionError(f"{tag}: the alone run timed out")
+    served = tr.handles[victim].result.tokens
+    lead = next((i for i, (a, b) in enumerate(zip(served,
+                                                   alone.result.tokens))
+                 if a != b), min(len(served), len(alone.result.tokens)))
+    log(f"[{tag}] 6 LOW ({PRESSURE_LOW_NEW} new) + 2 REALTIME "
+        f"({PRESSURE_RT_NEW} new) requests of {PRESSURE_PROMPT} tokens, "
+        f"all completed in {wall:.2f} s; preemptions {tr.victims}; tokens "
+        f"generated at each release {tr.generated_at_release}; REALTIME "
+        f"TTFT under pressure {', '.join(f'{t:.1f}' for t in ttft)} ms; "
+        f"rebuilds (id, re-prefilled tokens, admission to prefill done "
+        f"ms) {rebuilds}; idle pool {used} pages = radix {tree} | pins "
+        f"{pins} ({CARD})")
+    log(f"[{tag}] decoded victim {victim}: released after "
+        f"{victim_generated} generated tokens, rebuilt by re-prefilling "
+        f"{', '.join(f'{n} tokens in {ms:.1f} ms' for n, ms in victim_rebuilds)}"
+        f", resumed from its newest token; {lead} of {len(served)} leading "
+        f"tokens equal to the same prompt served alone (not gated) ({CARD})")
+    return {"wall_s": wall, "preemptions": tr.victims,
+            "released": len(released), "realtime_ttft_ms": ttft,
+            "rebuilds": [{"tokens": n, "ms": ms} for _, n, ms in rebuilds],
+            "victim_generated": victim_generated,
+            "idle_pages": used, "radix_pages": tree, "pin_pages": pins,
+            "leading_equal_alone": lead}
+
+
+def _crash_recovery(app, engine, base) -> dict:
+    """Four REST requests decoding, then the engine loop dies once (its
+    next ``step`` raises a BaseException). The supervisor must restart
+    it once; each message must fail over, retry through the delayed
+    queue and complete exactly once; the dead-letter queue stays as it
+    was; the restarted loop replays the captured graphs (replays grow)
+    and captures none."""
+    ex = engine.executor
+    captures = []
+    orig_capture = ex._capture
+    ex._capture = lambda *a, **k: (captures.append(a), orig_capture(*a, **k))[1]
+    graphs = {**{("step", k): id(g) for k, g in ex.step_graphs.items()},
+              **{k: id(g) for k, g in ex.program_graphs.items()}}
+    sup = app.supervisor
+    restarts0 = sup.restarts
+    dlq = app.factory.get_dead_letter_queue("standard")
+    dlq0 = dlq.size()
+
+    def worker_sum(key):
+        return sum(w.stats.to_dict()[key] for w in app.workers)
+
+    ok0, retried0 = worker_sum("succeeded"), worker_sum("retried")
+    try:
+        _until(lambda: _idle(engine), 120, "idle engine before the crash")
+        # 128 tokens each: the four decode together long enough for the
+        # crash to land while all of them are in flight.
+        mids = [_post(base, {"content": f"{i} crash check: describe a "
+                                        f"queue in a few words.",
+                             "priority": "normal",
+                             "metadata": {"max_new_tokens": 128}})
+                for i in range(4)]
+        _until(lambda: _decoding_rows(engine) >= 4, 120,
+               "four requests decoding")
+        replays0 = ex.graph_replays
+
+        def crashing():
+            engine.__dict__.pop("step", None)
+            raise _LoopCrash("injected by chip_smoke")
+
+        t_crash = time.perf_counter()
+        engine.step = crashing
+        done = [_poll(base, m) for m in mids]
+        recover_s = time.perf_counter() - t_crash
+        _until(lambda: worker_sum("succeeded") - ok0 >= 4, 60,
+               "the workers' completions")
+        time.sleep(0.2)        # a duplicate completion would land here
+    finally:
+        engine.__dict__.pop("step", None)
+        ex.__dict__.pop("_capture", None)
+    bad = [m for m in done if m["status"] != "completed"
+           or m["retry_count"] < 1]
+    if sup.restarts != restarts0 + 1 or bad:
+        raise AssertionError(f"crash: restarts {sup.restarts - restarts0}, "
+                             f"messages {bad or done}")
+    if worker_sum("succeeded") - ok0 != 4 or dlq.size() != dlq0:
+        raise AssertionError(f"crash: {worker_sum('succeeded') - ok0} "
+                             f"completions for 4 messages, dead letters "
+                             f"{dlq0} -> {dlq.size()}")
+    now = {**{("step", k): id(g) for k, g in ex.step_graphs.items()},
+           **{k: id(g) for k, g in ex.program_graphs.items()}}
+    if captures or now != graphs or ex.graph_replays <= replays0:
+        raise AssertionError(f"crash: {len(captures)} captures after the "
+                             f"restart, graphs {len(graphs)} -> {len(now)}, "
+                             f"replays {replays0} -> {ex.graph_replays}")
+    log(f"[serve-plane] engine loop killed with 4 requests decoding: "
+        f"supervisor restarts {sup.restarts - restarts0}, recovered "
+        f"{sup.recovered_total}; all 4 completed once after "
+        f"{[m['retry_count'] for m in done]} retries, crash to all "
+        f"completed {recover_s:.2f} s; graph replays {replays0} -> "
+        f"{ex.graph_replays}, captures 0 ({len(now)} graphs kept); retries "
+        f"{worker_sum('retried') - retried0}; dead letters {dlq.size()} "
+        f"({CARD})")
+    return {"crash_to_completed_s": recover_s,
+            "restarts": sup.restarts - restarts0,
+            "retry_counts": [m["retry_count"] for m in done],
+            "graph_replays_after": ex.graph_replays - replays0}
+
+
+class _LoopCrash(BaseException):
+    """Kills the engine loop (an Exception from a step is only logged)."""
+
+
+#: Prompt prefix of the serve-plane message the engine refuses at
+#: admission on every attempt.
+ENGINE_REFUSES = "dead-letter check: the engine refuses this prompt"
+
+
+def _dead_letters(app, engine, base) -> dict:
+    """Two messages that fail on every attempt go to the dead-letter
+    queue after their retries: one whose ``max_new_tokens`` is not a
+    number (the process function raises before the engine sees it), and
+    one the engine finishes "error" at admission. At llama3-8b's
+    geometry no REST request fails the engine by itself (a prompt over
+    ``max_seq_len`` slides its window and completes, here as in the JAX
+    package), so the smoke makes ``_start_sequence`` take its own
+    admission-error exit for prompts starting with ENGINE_REFUSES. The
+    admin route puts the engine-refused one back on its queue, where it
+    fails into the dead-letter queue again."""
+    dlq = app.factory.get_dead_letter_queue("standard")
+    n0 = dlq.size()
+    orig = engine._start_sequence
+    refused = []
+
+    def start_sequence(seq, slot):
+        if not seq.req.prompt.startswith(ENGINE_REFUSES):
+            return orig(seq, slot)
+        refused.append(seq.req.id)
+        engine._finish(seq, "error", "refused at admission by chip_smoke")
+        return True
+
+    engine._start_sequence = start_sequence
+    try:
+        t0 = time.perf_counter()
+        bad_md = _post(base, {"content": "this message fails on every "
+                                         "attempt",
+                              "priority": "low",
+                              "metadata": {"max_new_tokens": "many"}})
+        by_engine = _post(base, {"content": f"{ENGINE_REFUSES}, every time",
+                                 "priority": "low",
+                                 "metadata": {"max_new_tokens": 8}})
+        msgs = {m: _poll(base, m) for m in (bad_md, by_engine)}
+        _until(lambda: dlq.size() == n0 + 2, 30, "the two dead letters")
+        dead_s = time.perf_counter() - t0
+        for m in msgs.values():
+            if m["status"] != "failed" or \
+                    m["retry_count"] != m["max_retries"]:
+                raise AssertionError(f"dead letter: {m}")
+        attempts = len(refused)
+        if attempts != msgs[by_engine]["retry_count"]:
+            raise AssertionError(f"dead letter: the engine refused "
+                                 f"{attempts} attempts of {by_engine}: "
+                                 f"{msgs[by_engine]}")
+        status, r, _ = _http_status(
+            "POST", f"{base}/api/v1/admin/dead-letter/requeue/{by_engine}")
+        if status != 200 or r != {"status": "requeued",
+                                  "message_id": by_engine}:
+            raise AssertionError(f"dead-letter requeue: {status} {r}")
+        _until(lambda: dlq.size() == n0 + 2 and len(refused) > attempts,
+               30, "the requeued message's second dead letter")
+    finally:
+        engine.__dict__.pop("_start_sequence", None)
+    log(f"[serve-plane] two messages failing every attempt reached the "
+        f"dead-letter queue after {msgs[bad_md]['retry_count']} and "
+        f"{msgs[by_engine]['retry_count']} retries in {dead_s:.2f} s "
+        f"(backoff {PLANE_BACKOFF_S} s doubling): one in the process "
+        f"function, one finished \"error\" by the engine on each of its "
+        f"{attempts} attempts; the admin requeue put the engine-refused "
+        f"one back and it failed into the queue again")
+    return {"retries": msgs[by_engine]["retry_count"],
+            "engine_attempts": attempts, "to_dead_letter_s": dead_s}
+
+
+def _conversation_plane(app, engine, base) -> dict:
+    """A conversation over REST: three turns (turns 2 and 3 cached), the
+    conversation holding its messages with their responses, a state
+    update that keeps the KV pin, then the service's eviction
+    (``delete``), which unpins it and returns its pages."""
+    status, c = _http("POST", f"{base}/api/v1/conversations",
+                      {"user_id": "smoke-user"})
+    assert status == 201, (status, c)
+    cid = c["conversation_id"]
+    turns = []
+    for text in ("Tell me about paged attention, briefly.",
+                 " Now the same for the queue tiers.", " And a summary."):
+        status, r = _http("POST", f"{base}/api/v1/conversations/{cid}/"
+                                  f"messages",
+                          {"content": text, "priority": "high",
+                           "timeout": MESSAGE_TIMEOUT_S,
+                           "metadata": {"max_new_tokens": 16}})
+        assert status == 202, (status, r)
+        turns.append(_poll(base, r["message_id"]))
+    _check_completed(turns, "conversation")
+    cached = [t["metadata"]["usage"]["cached_tokens"] for t in turns]
+    if cached[1] <= 0 or cached[2] <= 0:
+        raise AssertionError(f"conversation turns cached {cached}")
+    _, conv = _http("GET", f"{base}/api/v1/conversations/{cid}")
+    if conv["message_count"] != 3 or [m["response"] for m in
+                                      conv["messages"]] != \
+            [t["response"] for t in turns]:
+        raise AssertionError(f"conversation holds {conv}")
+    status, r = _http("PUT", f"{base}/api/v1/conversations/{cid}/state",
+                      {"state": "completed"})
+    _, conv = _http("GET", f"{base}/api/v1/conversations/{cid}")
+    if status != 200 or conv["state"] != "completed" or \
+            cid not in engine.cached_conversations():
+        raise AssertionError(f"state update: {status} {r} {conv['state']}")
+    _until(lambda: _idle(engine), 60, "idle engine")
+    used0 = engine.allocator.used()
+    pinned = len(engine.allocator._pins.get(cid, []))
+    if not app.state_manager.delete(cid):
+        raise AssertionError("the state manager did not know the "
+                             "conversation")
+    used1 = engine.allocator.used()
+    if cid in engine.cached_conversations() or used1 >= used0:
+        raise AssertionError(f"eviction kept the KV: pages {used0} -> "
+                             f"{used1}")
+    log(f"[serve-plane] conversation of 3 turns over REST: cached_tokens "
+        f"{cached}; state 'completed' kept the pin; eviction unpinned "
+        f"{pinned} pages, pool {used0} -> {used1} pages in use")
+    return {"cached_tokens": cached, "pinned_pages": pinned,
+            "pages_freed": used0 - used1}
+
+
+def _priority_inference(base) -> dict:
+    """"urgent: ..." with no priority is served at HIGH."""
+    status, r = _http("POST", f"{base}/api/v1/messages", {
+        "content": "urgent: summarise the queue's state in one line.",
+        "timeout": MESSAGE_TIMEOUT_S, "metadata": {"max_new_tokens": 8}})
+    m = _poll(base, r["message_id"])
+    if status != 202 or r["priority"] != 2 or m["priority"] != 2 or \
+            m["status"] != "completed":
+        raise AssertionError(f"priority inference: {r} {m}")
+    log("[serve-plane] 'urgent: ...' without a priority was served at "
+        "HIGH (2)")
+    return {"priority": m["priority"]}
+
+
+def _sse_check(engine, base) -> dict:
+    """A ``"stream": true`` request yields ``data:`` events and one
+    ``event: done`` with ``first_token_ms``; its text is the same
+    prompt's queued greedy response, and its tokens the queued run's.
+    The byte tokenizer renders only ids below 259, which random weights
+    over 128256 ids practically never sample (12 prompts x 256 tokens
+    gave none), so during this check the engine decodes every id as a
+    letter (``_LetterDecode``; prompts encode as before). The prompt is
+    shorter than a page: neither run reuses the other's KV."""
+    from llmq_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    class _LetterDecode(ByteTokenizer):
+        def decode(self, ids) -> str:
+            return "".join(chr(97 + i % 26) for i in ids if i >= 3)
+
+    prompt = "SSE check, go."
+    tr = _PlaneTracker(engine)
+    tokenizer, engine.tokenizer = engine.tokenizer, _LetterDecode()
+    try:
+        queued = _poll(base, _post(base, {
+            "content": prompt, "priority": "high",
+            "metadata": {"max_new_tokens": 16}}))
+        n0 = len(tr.handles)
+        req = urllib.request.Request(
+            f"{base}/api/v1/messages", method="POST",
+            data=json.dumps({"content": prompt, "priority": "high",
+                             "stream": True,
+                             "metadata": {"max_new_tokens": 16}}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            ctype = resp.headers["Content-Type"]
+            body = resp.read().decode()
+        streamed = list(tr.handles.values())[n0].result.tokens
+        queued_tokens = tr.handles[queued["id"]].result.tokens
+    finally:
+        engine.tokenizer = tokenizer
+        tr.close()
+    events = [e for e in body.split("\n\n") if e]
+    datas = events[1:-1]
+    done = json.loads(events[-1].split("data: ", 1)[1])
+    text = "".join(json.loads(e[len("data: "):])["token"] for e in datas)
+    if (not ctype.startswith("text/event-stream")
+            or not events[0].startswith("event: start")
+            or not events[-1].startswith("event: done")
+            or not all(e.startswith("data: ") for e in datas) or not datas
+            or done.get("first_token_ms") is None
+            or text != queued["response"] or streamed != queued_tokens):
+        raise AssertionError(f"SSE: {body!r} vs queued "
+                             f"{queued['response']!r}")
+    log(f"[serve-plane] SSE: {len(datas)} data events, done with "
+        f"first_token_ms {done['first_token_ms']}; text equal to the queued "
+        f"greedy response ({len(text)} chars, every id rendered as a "
+        f"letter), tokens equal ({len(streamed)}) ({CARD})")
+    return {"data_events": len(datas),
+            "first_token_ms": done["first_token_ms"]}
+
+
+def _overload(app, engine, base) -> dict:
+    """With the workers stopped and the queue-depth limit at 1, the
+    second message gets 429; with the engine stopped, 503; both carry
+    Retry-After."""
+    for w in app.workers:
+        w.stop()
+    app.api.shedder.queue_depth_limit = 1
+    first = _http_status("POST", f"{base}/api/v1/messages",
+                         {"content": "fills the queue"})
+    backlog = _http_status("POST", f"{base}/api/v1/messages",
+                           {"content": "one too many"})
+    app.supervisor.stop()
+    engine.stop()
+    down = _http_status("POST", f"{base}/api/v1/messages",
+                        {"content": "engine is down"})
+    _, health = _http("GET", f"{base}/health")
+    if first[0] != 202 or backlog[0] != 429 or not backlog[2] or \
+            down[0] != 503 or not down[2] or health["engine"] != "stopped":
+        raise AssertionError(f"overload: {first} {backlog} {down} {health}")
+    log(f"[serve-plane] shedding: queue-depth limit 1 → {backlog[0]} "
+        f"(Retry-After {backlog[2]}), engine stopped → {down[0]} "
+        f"(Retry-After {down[2]})")
+    return {"backlog": backlog[0], "engine_down": down[0]}
+
+
+def phase_serve_plane(state) -> None:
+    """The serving process (queue factory with delayed and dead-letter
+    queues, workers with retry backoff, crash supervisor, conversation
+    service, preprocessor, overload shedder) around the serve phase's
+    bf16 default engine, through REST. No ``*_plain`` twin may be
+    called; the pressure traffic must launch the bucket route's
+    kernels."""
+    import torch
+
+    from llmq_tpu_torch.__main__ import App
+    from llmq_tpu_torch.ops import kernels
+
+    engine = state.pop("serve_engine", None)
+    if engine is None:
+        raise AssertionError("serve-plane serves on the serve phase's "
+                             "engine: run both phases")
+    cfg = _plane_cfg()
+    out = state.setdefault("serve_plane", {})
+    counts, restore = _count_plain_calls()
+    app = App(cfg, engine=engine)
+    base = f"http://127.0.0.1:{app.start(host='127.0.0.1', port=0)}"
+    log(f"[serve-plane] serving process on the serve phase's engine: retry "
+        f"backoff initial {cfg.queue.retry.initial_backoff} s x "
+        f"{cfg.queue.retry.backoff_multiplier} (max_retries "
+        f"{cfg.queue.retry.max_retries}), worker poll "
+        f"{cfg.queue.worker.process_interval} s, supervisor check "
+        f"{cfg.executor.supervisor.check_interval} s, overload shedding "
+        f"{'on' if app.api.shedder is not None else 'off'}")
+    try:
+        kernels.reset_launches()
+        out["pressure"] = _pool_pressure(engine, base, "serve-plane")
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        for name in ("fused_decode", "kv_prefill_write", "prefill_attention"):
+            if launches[name] <= 0:
+                raise AssertionError(f"serve-plane pressure never launched "
+                                     f"{name}: {launches}")
+        out["pressure_launches"] = {k: v for k, v in launches.items() if v}
+        log(f"[serve-plane] pressure launches {out['pressure_launches']}")
+        out["crash"] = _crash_recovery(app, engine, base)
+        out["dead_letter"] = _dead_letters(app, engine, base)
+        out["conversation"] = _conversation_plane(app, engine, base)
+        out["priority"] = _priority_inference(base)
+        out["sse"] = _sse_check(engine, base)
+        out["overload"] = _overload(app, engine, base)
+    finally:
+        app.stop()
+        restore()
+        engine.executor.release_graphs()
+    if counts:
+        raise AssertionError(f"serve-plane called plain twins: {counts}")
+
 PHASES = [("env", phase_env), ("build", phase_build),
           ("kernels", phase_kernels), ("split", phase_split),
           ("model", phase_model), ("graphs", phase_graphs),
-          ("serve", phase_serve),
+          ("serve", phase_serve), ("serve-plane", phase_serve_plane),
           ("serve-int8", phase_serve_int8)]
 
 
@@ -3096,7 +3750,7 @@ def main(argv=()) -> int:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
         return 2
-    state = {"kernels": {}}
+    state = {"kernels": {}, "chosen": chosen}
     t_all = time.perf_counter()
     for name, fn in PHASES:
         if name not in chosen:
@@ -3114,6 +3768,7 @@ def main(argv=()) -> int:
     print(json.dumps({"kernels": list(state["kernels"].values()),
                       "serve": state.get("serve"),
                       "serve_int8": state.get("serve_int8"),
+                      "serve_plane": state.get("serve_plane"),
                       "int_mm": state.get("int_mm"),
                       "launch_floor_ms": state.get("launch_floor_ms"),
                       "graphs": state.get("graphs")}, default=str))

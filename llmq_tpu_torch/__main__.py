@@ -1,8 +1,11 @@
 """Command line: ``python -m llmq_tpu_torch serve|check``.
 
-``serve`` runs the monolith (REST API + queue workers + engine) until
-SIGINT/SIGTERM; ``check`` builds the same monolith on an ephemeral port,
-sends one message through REST end to end and exits 0 when it
+``serve`` runs the monolith until SIGINT/SIGTERM: the REST API, the
+preprocessor, the queue factory's managers with their delayed and
+dead-letter queues, the workers (retry backoff, watchdog), the
+conversation service tied to the engine's KV pins, the engine and its
+crash supervisor. ``check`` builds the same monolith on an ephemeral
+port, sends one message through REST end to end and exits 0 when it
 completes. Both run on ``cuda`` unless ``--device cpu`` is given.
 
 Configuration: dataclass defaults, then ``LLMQ_*`` environment
@@ -23,46 +26,77 @@ from typing import List, Optional
 
 import torch
 
+from llmq_tpu_torch.api.message_store import MessageStore
 from llmq_tpu_torch.api.server import ApiServer
+from llmq_tpu_torch.conversation.persistence import make_store
+from llmq_tpu_torch.conversation.state_manager import StateManager
 from llmq_tpu_torch.core.config import Config, load_config
 from llmq_tpu_torch.engine.builder import build_engine
 from llmq_tpu_torch.engine.engine import InferenceEngine
-from llmq_tpu_torch.queueing.queue_manager import QueueManager
-from llmq_tpu_torch.queueing.worker import Worker
+from llmq_tpu_torch.engine.supervisor import EngineSupervisor
+from llmq_tpu_torch.preprocessor.preprocessor import Preprocessor
+from llmq_tpu_torch.queueing.factory import QueueFactory, QueueType
 
 log = logging.getLogger("llmq_tpu_torch")
 
 
 class App:
-    """Engine + queue manager + workers + REST API in one process."""
+    """The serving process, wired as the JAX package's ``App`` wires the
+    parts the port has."""
 
     def __init__(self, cfg: Config,
                  engine: Optional[InferenceEngine] = None) -> None:
         self.cfg = cfg
+        self.factory = QueueFactory(cfg)
+        self.factory.create_queue_manager("standard", QueueType.STANDARD)
+        self.factory.create_queue_manager("delayed", QueueType.DELAYED)
+        self.factory.create_queue_manager("priority", QueueType.PRIORITY)
+        self.preprocessor = Preprocessor()
+        p = cfg.persistence
+        store = make_store(p.backend, sqlite_path=p.sqlite_path,
+                           redis_url=p.redis_url, key_prefix=p.key_prefix,
+                           cache_ttl=p.cache_ttl)
+        self.state_manager = StateManager(cfg.conversation, store=store)
         # On the card the engine warms up before it serves: every program
-        # runs once and the decode step's graph is captured.
+        # runs once and its CUDA graph is captured.
         self.engine = engine if engine is not None else build_engine(
             cfg, warmup=torch.device(cfg.device).type == "cuda")
-        self.manager = QueueManager("default", cfg)
-        self.workers = [Worker(f"w{i}", self.manager,
-                               self.engine.process_fn)
-                        for i in range(max(1, cfg.queue.worker.count))]
-        self.api = ApiServer(self.manager, self.engine)
+        # Conversation eviction frees the conversation's pinned KV.
+        self.engine.attach_conversation_manager(self.state_manager)
+        self.supervisor: Optional[EngineSupervisor] = None
+        if cfg.executor.supervisor.enabled:
+            self.supervisor = EngineSupervisor(
+                self.engine, config=cfg.executor.supervisor)
+        self.workers = self.factory.create_workers(
+            "standard", max(1, cfg.queue.worker.count),
+            self.engine.process_fn, start=False)
+        self.message_store = MessageStore()
+        self.api = ApiServer(cfg, queue_factory=self.factory,
+                             preprocessor=self.preprocessor,
+                             state_manager=self.state_manager,
+                             engine=self.engine,
+                             message_store=self.message_store)
 
     def start(self, host: Optional[str] = None,
               port: Optional[int] = None) -> int:
         """Start everything; returns the API's bound port."""
+        self.state_manager.start()
         self.engine.start()
+        if self.supervisor is not None:
+            self.supervisor.start()
         for w in self.workers:
             w.start()
-        return self.api.start(self.cfg.server.host if host is None else host,
-                              self.cfg.server.port if port is None else port)
+        return self.api.start(host, port)
 
     def stop(self) -> None:
+        """The shutdown cascade: the supervisor before the engine (else
+        it would take the deliberate stop for a crash)."""
+        if self.supervisor is not None:
+            self.supervisor.stop()
         self.api.stop()
-        for w in self.workers:
-            w.stop()
+        self.factory.stop_all()
         self.engine.stop()
+        self.state_manager.stop()
 
 
 def _load(args) -> Config:

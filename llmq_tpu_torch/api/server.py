@@ -1,91 +1,217 @@
-"""REST API on the standard library's ``http.server`` (counterpart of
-``llmq_tpu/api/server.py``, trimmed to the serving main path):
+"""REST API on the standard library's ``http.server`` (the port's
+counterpart of ``llmq_tpu/api/server.py``, with the routes of the planes
+the port has):
 
-- ``GET  /health``
-- ``POST /api/v1/messages``      → 202 ``{"message_id", "priority", ...}``
-- ``GET  /api/v1/messages/:id``  → the message, with ``response`` and
-  ``metadata.usage`` once its status is ``completed``
+- ``GET  /health`` (engine liveness)
+- ``POST /api/v1/messages`` → 202, or with ``"stream": true`` an SSE
+  stream of tokens; ``GET /api/v1/messages`` (filters) and
+  ``GET /api/v1/messages/:id``
+- ``POST /api/v1/conversations``, ``GET /api/v1/conversations/:id``,
+  ``POST /api/v1/conversations/:id/messages``,
+  ``PUT /api/v1/conversations/:id/state``,
+  ``GET /api/v1/users/:user_id/conversations``
+- ``GET /api/v1/queues/stats``, ``GET /api/v1/engine/stats``
+- ``POST /api/v1/generate`` (synchronous generation)
+- admin: preprocessor rules and user priorities, removal of a pending
+  message, dead-letter requeue (one and all)
 
-Submitted messages go to the queue manager's tier queues; workers
-drain them into the engine. A bounded in-memory store keeps every
-submitted message for the query route: the queue plane mutates the
-same ``Message`` objects, so status and response show up there.
+Every submission runs through the preprocessor (priority inference),
+the overload shedder (429/503 with ``Retry-After``), the queue manager
+and the conversation service. The routes of planes the port does not
+have yet (metrics, resources, endpoints, cluster, usage, tenancy,
+tracing, profiling, control plane, drain) wait for them.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import math
 import re
 import threading
 import time
-from collections import OrderedDict
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
+from urllib.parse import parse_qs, urlparse
 
 from llmq_tpu_torch import __version__
-from llmq_tpu_torch.core.types import (Message, MessageStatus,
-                                       QueueFullError, QueueNotFoundError,
-                                       new_id)
+from llmq_tpu_torch.api.message_store import MessageStore
+from llmq_tpu_torch.api.overload import build_shedder, sanitize_tenant
+from llmq_tpu_torch.core.config import Config
+from llmq_tpu_torch.core.errors import QueueFullError, QueueNotFoundError
+from llmq_tpu_torch.core.types import (ConversationState, Message,
+                                       MessageStatus, Priority, new_id)
 
 log = logging.getLogger("llmq_tpu_torch.api")
 
-_TERMINAL = (MessageStatus.COMPLETED, MessageStatus.FAILED,
-             MessageStatus.TIMEOUT)
+#: Fallback per-tier wait estimates, seconds, before any wait is measured.
+_WAIT_TABLE = {Priority.REALTIME: 1.0, Priority.HIGH: 5.0,
+               Priority.NORMAL: 15.0, Priority.LOW: 30.0}
+
+Handler = Callable[["_Request"], Tuple[int, Any]]
 
 
-class MessageStore:
-    """Bounded registry of submitted messages; when full, the oldest
-    terminal message is evicted first."""
+class _Deadline:
+    """The worker context's deadline for the synchronous generate route:
+    the engine's ``process_fn`` only consults ``remaining()``."""
 
-    def __init__(self, max_messages: int = 10_000) -> None:
-        self.max_messages = max_messages
-        self._messages: "OrderedDict[str, Message]" = OrderedDict()
-        self._mu = threading.Lock()
+    def __init__(self, secs: float) -> None:
+        self._deadline = time.monotonic() + secs
 
-    def record(self, message: Message) -> None:
-        with self._mu:
-            self._messages[message.id] = message
-            self._messages.move_to_end(message.id)
-            if len(self._messages) > self.max_messages:
-                victim = next((mid for mid, m in self._messages.items()
-                               if m.status in _TERMINAL),
-                              next(iter(self._messages)))
-                del self._messages[victim]
+    def remaining(self) -> float:
+        return self._deadline - time.monotonic()
 
-    def get(self, message_id: str) -> Optional[Message]:
-        with self._mu:
-            return self._messages.get(message_id)
+
+class _SSEStream:
+    """Dispatch payload marker: each yielded string is written as it is
+    produced (``text/event-stream``). ``on_close`` (idempotent) runs when
+    the HTTP handler is done with the stream, also when the generator
+    never started."""
+
+    def __init__(self, events, on_close=None, headers=None) -> None:
+        self.events = events
+        self.on_close = on_close
+        self.headers = headers or {}
+
+    def __iter__(self):
+        return iter(self.events)
 
 
 class ApiError(Exception):
-    def __init__(self, status: int, message: str) -> None:
+    def __init__(self, status: int, message: str,
+                 retry_after: Optional[float] = None) -> None:
         super().__init__(message)
         self.status = status
         self.message = message
+        #: Seconds the client should wait before retrying (overload
+        #: shedding): a ``Retry-After`` header and a ``retry_after``
+        #: body field.
+        self.retry_after = retry_after
+
+
+class _Request:
+    """Parsed request handed to route handlers."""
+
+    def __init__(self, method: str, path: str, params: Dict[str, str],
+                 query: Dict[str, List[str]], body: bytes,
+                 headers: Optional[Dict[str, str]] = None) -> None:
+        self.method = method
+        self.path = path
+        self.params = params
+        self.query = query
+        self._body = body
+        self.headers = {str(k).lower(): v
+                        for k, v in (headers or {}).items()}
+
+    def json(self) -> Dict[str, Any]:
+        if not self._body:
+            raise ApiError(400, "request body required")
+        try:
+            data = json.loads(self._body)
+        except json.JSONDecodeError as e:
+            raise ApiError(400, f"invalid JSON: {e}") from None
+        if not isinstance(data, dict):
+            raise ApiError(400, "JSON object expected")
+        return data
+
+    def q(self, name: str, default: str = "") -> str:
+        vals = self.query.get(name)
+        return vals[0] if vals else default
 
 
 class ApiServer:
-    def __init__(self, manager, engine=None,
-                 store: Optional[MessageStore] = None) -> None:
-        self.manager = manager
+    """The v1 REST contract over the queue factory, the preprocessor, the
+    conversation service and the engine."""
+
+    def __init__(self, config: Optional[Config] = None, *,
+                 queue_factory=None, preprocessor=None, state_manager=None,
+                 engine=None, message_store: Optional[MessageStore] = None,
+                 manager_name: str = "standard") -> None:
+        self.config = config or Config()
+        self.factory = queue_factory
+        self.preprocessor = preprocessor
+        self.state_manager = state_manager
         self.engine = engine
-        self.store = store or MessageStore()
+        self.store = message_store or MessageStore()
+        self.manager_name = manager_name
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
-        self._routes = []
-        self._route("GET", "/health", self.health_check)
-        self._route("POST", "/api/v1/messages", self.submit_message)
-        self._route("GET", "/api/v1/messages/:id", self.get_message)
+        self._routes: List[Tuple[str, re.Pattern, Handler]] = []
+        # SSE admission: streams bypass the queue plane, so they carry a
+        # gate of their own (_acquire_stream_slot).
+        self._stream_mu = threading.Lock()
+        self._active_streams = 0
+        #: None when overload.enabled is false.
+        self.shedder = build_shedder(self.config, engine=engine)
+        self._setup_routes()
 
-    def _route(self, method: str, pattern: str, handler) -> None:
+    # -- SSE admission -------------------------------------------------------
+
+    def _acquire_stream_slot(self) -> None:
+        """429 past the concurrent-stream cap, 503 when the engine's
+        pending queue is already deep."""
+        scfg = self.config.server
+        limit = scfg.stream_pending_limit
+        if limit > 0 and self.engine is not None:
+            pending = self.engine.get_stats().get("pending", 0)
+            if pending >= limit:
+                raise ApiError(
+                    503, f"engine backlog too deep for streaming "
+                         f"({pending} pending >= {limit})")
+        cap = scfg.max_concurrent_streams
+        with self._stream_mu:
+            if cap > 0 and self._active_streams >= cap:
+                raise ApiError(
+                    429, f"too many concurrent streams (max {cap})")
+            self._active_streams += 1
+
+    def _release_stream_slot(self) -> None:
+        with self._stream_mu:
+            if self._active_streams > 0:
+                self._active_streams -= 1
+
+    # -- routing table -------------------------------------------------------
+
+    def _route(self, method: str, pattern: str, handler: Handler) -> None:
         rx = re.sub(r":(\w+)", r"(?P<\1>[^/]+)", pattern)
         self._routes.append((method, re.compile(f"^{rx}$"), handler))
 
-    def dispatch(self, method: str, path: str,
-                 body: bytes) -> Tuple[int, Dict[str, Any]]:
-        """Route one request; returns (status, JSON payload)."""
-        path = path.split("?", 1)[0].rstrip("/") or "/"
+    def _setup_routes(self) -> None:
+        r = self._route
+        r("GET", "/health", self.health_check)
+        v1 = "/api/v1"
+        r("POST", f"{v1}/messages", self.submit_message)
+        r("GET", f"{v1}/messages/:id", self.get_message)
+        r("GET", f"{v1}/messages", self.list_messages)
+        r("POST", f"{v1}/conversations", self.create_conversation)
+        r("GET", f"{v1}/conversations/:id", self.get_conversation)
+        r("POST", f"{v1}/conversations/:id/messages",
+          self.add_message_to_conversation)
+        r("PUT", f"{v1}/conversations/:id/state",
+          self.update_conversation_state)
+        r("GET", f"{v1}/users/:user_id/conversations",
+          self.list_user_conversations)
+        r("GET", f"{v1}/queues/stats", self.get_queue_stats)
+        r("GET", f"{v1}/engine/stats", self.get_engine_stats)
+        r("POST", f"{v1}/generate", self.generate_sync)
+        adm = f"{v1}/admin"
+        r("POST", f"{adm}/preprocessor/rules", self.add_priority_rule)
+        r("GET", f"{adm}/preprocessor/rules", self.list_priority_rules)
+        r("POST", f"{adm}/preprocessor/user-priorities",
+          self.set_user_priority)
+        r("DELETE", f"{adm}/queues/:queue_type/:id", self.remove_message)
+        r("POST", f"{adm}/dead-letter/requeue/:id",
+          self.requeue_dead_letter_message)
+        r("POST", f"{adm}/dead-letter/requeue-all",
+          self.requeue_all_dead_letter_messages)
+
+    def dispatch(self, method: str, raw_path: str, body: bytes,
+                 headers: Optional[Dict[str, str]] = None,
+                 ) -> Tuple[int, Any, str]:
+        """Route one request. Returns (status, payload, content_type)."""
+        parsed = urlparse(raw_path)
+        path = parsed.path.rstrip("/") or "/"
+        query = parse_qs(parsed.query)
         matched_path = False
         for m, rx, handler in self._routes:
             match = rx.match(path)
@@ -94,37 +220,73 @@ class ApiServer:
             matched_path = True
             if m != method:
                 continue
+            req = _Request(method, path, match.groupdict(), query, body,
+                           headers)
             try:
-                return handler(match.groupdict(), body)
+                status, payload = handler(req)
             except ApiError as e:
-                return e.status, {"error": e.message}
+                err: Dict[str, Any] = {"error": e.message}
+                if e.retry_after is not None:
+                    err["retry_after"] = round(float(e.retry_after), 3)
+                return e.status, err, "application/json"
             except QueueNotFoundError as e:
-                return 404, {"error": str(e)}
+                return 404, {"error": str(e)}, "application/json"
             except QueueFullError as e:
-                return 503, {"error": str(e)}
+                return 503, {"error": str(e)}, "application/json"
             except Exception as e:  # noqa: BLE001 — one bad request must not kill the server
                 log.exception("handler error on %s %s", method, path)
-                return 500, {"error": f"internal error: {e}"}
+                return 500, {"error": f"internal error: {e}"}, \
+                    "application/json"
+            if isinstance(payload, _SSEStream):
+                return status, payload, "text/event-stream"
+            return status, payload, "application/json"
         if matched_path:
-            return 405, {"error": "method not allowed"}
-        return 404, {"error": "not found"}
+            return 405, {"error": "method not allowed"}, "application/json"
+        return 404, {"error": "not found"}, "application/json"
 
-    # -- handlers ------------------------------------------------------------
+    # -- helpers -------------------------------------------------------------
 
-    def health_check(self, params, body) -> Tuple[int, Dict[str, Any]]:
-        out: Dict[str, Any] = {"status": "ok", "version": __version__,
-                               "time": time.time()}
-        if self.engine is not None:
-            out["engine"] = "running" if self.engine.running else "stopped"
-        return 200, out
+    def _manager(self, name: Optional[str] = None):
+        if self.factory is None:
+            raise ApiError(503, "queue factory not configured")
+        mgr = self.factory.get_queue_manager(name or self.manager_name)
+        if mgr is None:
+            if name:
+                raise ApiError(404, f"no queue manager named {name!r}")
+            raise ApiError(500, "failed to access message queue")
+        return mgr
 
-    def submit_message(self, params, body) -> Tuple[int, Dict[str, Any]]:
+    def _require_state_manager(self):
+        if self.state_manager is None:
+            raise ApiError(503, "conversation service not configured")
+        return self.state_manager
+
+    def _require_preprocessor(self):
+        if self.preprocessor is None:
+            raise ApiError(503, "preprocessor not configured")
+        return self.preprocessor
+
+    def estimate_wait(self, priority: Priority) -> float:
+        """Measured per-tier estimate (average wait scaled by the
+        backlog), with a fixed table before any wait is measured."""
+        fallback = _WAIT_TABLE.get(priority, 15.0)
+        if self.factory is None:
+            return fallback
+        mgr = self.factory.get_queue_manager(self.manager_name)
+        if mgr is None:
+            return fallback
         try:
-            data = json.loads(body or b"{}")
-        except ValueError:
-            raise ApiError(400, "body must be JSON") from None
-        if not isinstance(data, dict):
-            raise ApiError(400, "body must be a JSON object")
+            stats = mgr.get_stats(priority.tier_name)
+        except QueueNotFoundError:
+            return fallback
+        if stats.wait_samples == 0:
+            return fallback
+        backlog_factor = 1.0 + stats.pending_count / max(
+            1, stats.completed_count + stats.processing_count)
+        return round(stats.avg_wait_time * backlog_factor, 4)
+
+    @staticmethod
+    def _parse_message(data: Dict[str, Any], tenant_header: str) -> Message:
         if not isinstance(data.get("content", ""), str):
             raise ApiError(400, "content must be a string")
         if not isinstance(data.get("metadata", {}), dict):
@@ -133,21 +295,433 @@ class ApiServer:
             msg = Message.from_dict(data)
         except (ValueError, TypeError) as e:
             raise ApiError(400, f"invalid message: {e}") from None
+        # The X-Tenant-Id header wins over the body field.
+        msg.tenant_id = sanitize_tenant(tenant_header or msg.tenant_id)
+        return msg
+
+    def _ingest_message(self, data: Dict[str, Any],
+                        conversation_id: str = "",
+                        tenant_header: str = "") -> Message:
+        """Shared submit pipeline: parse → id/timestamps → preprocess →
+        analysis metadata → shed → push → store → conversation update."""
+        msg = self._parse_message(data, tenant_header)
+        if conversation_id:
+            msg.conversation_id = conversation_id
         if not msg.id:
             msg.id = new_id()
         now = time.time()
         msg.created_at = now
         msg.updated_at = now
+        if self.preprocessor is not None:
+            msg = self.preprocessor.process_message(msg)
+            if self.preprocessor.enable_content_analysis:
+                # The analysis also goes under metadata["analysis"] as a
+                # JSON string, from the keys process_message annotated.
+                msg.metadata["analysis"] = json.dumps(
+                    {k: msg.metadata[k]
+                     for k in ("word_count", "char_count", "sentiment",
+                               "is_question") if k in msg.metadata})
+        mgr = self._manager()
+        if self.shedder is not None:
+            # A shed request never entered the queue plane: its 429/503
+            # and Retry-After are its whole outcome.
+            self.shedder.admit(msg, mgr, self.estimate_wait(msg.priority))
+        mgr.push_message(msg)
         self.store.record(msg)
-        self.manager.push_message(msg)
-        return 202, {"message_id": msg.id, "priority": int(msg.priority),
-                     "queue_time": now}
+        if msg.conversation_id and self.state_manager is not None:
+            try:
+                self.state_manager.add_message(msg.conversation_id, msg)
+            except Exception:  # noqa: BLE001 — log, don't fail the submit
+                log.exception("conversation update failed for %s", msg.id)
+        return msg
 
-    def get_message(self, params, body) -> Tuple[int, Dict[str, Any]]:
-        msg = self.store.get(params["id"])
+    # -- handlers ------------------------------------------------------------
+
+    def health_check(self, req: _Request) -> Tuple[int, Any]:
+        out: Dict[str, Any] = {"status": "ok", "version": __version__,
+                               "time": time.time()}
+        if self.engine is not None:
+            out["engine"] = "running" if self.engine.running else "stopped"
+        return 200, out
+
+    def submit_message(self, req: _Request) -> Tuple[int, Any]:
+        data = req.json()
+        stream = data.pop("stream", False)
+        if stream is None:
+            stream = False
+        if isinstance(stream, str):
+            low = stream.strip().lower()
+            if low in ("true", "1", "yes", "on"):
+                stream = True
+            elif low in ("false", "0", "no", "off", ""):
+                stream = False
+            else:
+                raise ApiError(400, f"invalid stream value {stream!r}")
+        elif not isinstance(stream, (bool, int)):
+            raise ApiError(400, "stream must be a boolean")
+        tenant = req.headers.get("x-tenant-id", "")
+        if stream:
+            return self._stream_message(data, tenant_header=tenant)
+        msg = self._ingest_message(data, tenant_header=tenant)
+        return 202, {
+            "message_id": msg.id,
+            "priority": int(msg.priority),
+            "queue_time": time.time(),
+            "estimated_wait": self.estimate_wait(msg.priority),
+        }
+
+    def _stream_message(self, data: Dict[str, Any],
+                        tenant_header: str = "") -> Tuple[int, Any]:
+        """``POST /api/v1/messages`` with ``"stream": true``: tokens over
+        SSE. The message goes straight to the engine with an ``on_token``
+        subscription (first-token latency is what a realtime client
+        feels); it is still recorded in the store and its conversation
+        updated, so the query API sees it like a queued one. Events:
+        ``event: start``, ``data: {"token": ...}`` per committed burst,
+        ``event: done`` with ``finish_reason``, ``first_token_ms`` and
+        ``usage``."""
+        if self.engine is None:
+            raise ApiError(503, "streaming requires an attached engine")
+        from queue import Empty, Queue
+
+        from llmq_tpu_torch.engine.engine import GenRequest
+
+        # The client's timeout, read before Message.from_dict fills in
+        # the 30 s default: an unset field gets the streaming default.
+        explicit_timeout = data.get("timeout")
+        if explicit_timeout is not None:
+            try:
+                explicit_timeout = float(explicit_timeout)
+            except (TypeError, ValueError):
+                raise ApiError(
+                    400, f"timeout must be a number, "
+                         f"got {explicit_timeout!r}") from None
+        msg = self._parse_message(data, tenant_header)
+        if self.shedder is not None:
+            # Engine-down and SLA shedding; no manager: the stream cap
+            # and backlog gates below stand in for the queue's.
+            self.shedder.admit(msg, None, 0.0)
+        self._acquire_stream_slot()
+        try:
+            if not msg.id:
+                msg.id = new_id()
+            msg.created_at = msg.updated_at = time.time()
+            if self.preprocessor is not None:
+                msg = self.preprocessor.process_message(msg)
+            msg.status = MessageStatus.PROCESSING
+            self.store.record(msg)
+            if msg.conversation_id and self.state_manager is not None:
+                try:
+                    self.state_manager.add_message(msg.conversation_id, msg)
+                except Exception:  # noqa: BLE001 — log, don't fail
+                    log.exception("conversation update failed for %s",
+                                  msg.id)
+            tokens: "Queue[int]" = Queue()
+            handle = self.engine.submit(GenRequest.from_message(msg),
+                                        on_token=tokens.put)
+            tokenizer = self.engine.tokenizer
+            timeout = (explicit_timeout
+                       if explicit_timeout and explicit_timeout > 0
+                       else 120.0)
+        except BaseException:
+            self._release_stream_slot()
+            raise
+
+        def events():
+            yield ("event: start\ndata: "
+                   + json.dumps({"message_id": msg.id,
+                                 "priority": int(msg.priority)})
+                   + "\n\n")
+            ids: List[int] = []
+            sent = ""
+            deadline = time.monotonic() + timeout
+
+            def drain_delta(final: bool = False) -> str:
+                nonlocal sent
+                # Cumulative decode, then slice: a per-id decode would
+                # split multi-byte characters at burst boundaries. A
+                # trailing U+FFFD is held back mid-stream (its tail
+                # usually lands in the next burst); the final flush
+                # emits everything.
+                full = tokenizer.decode(ids)
+                safe = full
+                if not final:
+                    while safe and safe[-1] == "�":
+                        safe = safe[:-1]
+                if len(safe) < len(sent):
+                    return ""
+                delta, sent = safe[len(sent):], safe
+                return delta
+
+            try:
+                while True:
+                    try:
+                        ids.append(tokens.get(timeout=0.05))
+                    except Empty:
+                        if handle.done:
+                            break
+                        if time.monotonic() > deadline:
+                            handle.cancel()
+                            break
+                        continue
+                    while not tokens.empty():   # a burst → one event
+                        ids.append(tokens.get_nowait())
+                    delta = drain_delta()
+                    if delta:
+                        yield ("data: " + json.dumps({"token": delta})
+                               + "\n\n")
+                handle.wait(5.0)
+                while not tokens.empty():
+                    ids.append(tokens.get_nowait())
+                delta = drain_delta(final=True)
+                if delta:
+                    yield "data: " + json.dumps({"token": delta}) + "\n\n"
+                res = handle.result
+                first_ms = None
+                if "first_token" in handle.marks:
+                    first_ms = round((handle.marks["first_token"]
+                                      - handle.submitted_at) * 1e3, 1)
+                msg.response = res.text if res else sent
+                msg.status = (MessageStatus.COMPLETED
+                              if res and res.finish_reason in
+                              ("eos", "length") else MessageStatus.FAILED)
+                msg.updated_at = time.time()
+                done = {
+                    "message_id": msg.id,
+                    "finish_reason": res.finish_reason if res else "timeout",
+                    "first_token_ms": first_ms,
+                    "usage": {
+                        "prompt_tokens": res.prompt_tokens if res else 0,
+                        "completion_tokens": len(res.tokens) if res else 0,
+                    },
+                }
+                yield "event: done\ndata: " + json.dumps(done) + "\n\n"
+            except BaseException:
+                # Client gone (GeneratorExit) or a mid-stream failure:
+                # stop generating for it and close out the record.
+                handle.cancel()
+                msg.status = MessageStatus.FAILED
+                msg.updated_at = time.time()
+                raise
+
+        # The slot is released once: from the generator's finally, or
+        # from on_close when the generator never started (then the
+        # engine request is cancelled here too).
+        released = threading.Event()
+        started = threading.Event()
+
+        def release_once():
+            if released.is_set():
+                return
+            released.set()
+            self._release_stream_slot()
+            if not started.is_set():
+                handle.cancel()
+                msg.status = MessageStatus.FAILED
+                msg.updated_at = time.time()
+
+        def guarded():
+            started.set()
+            try:
+                yield from events()
+            finally:
+                release_once()
+
+        return 200, _SSEStream(guarded(), on_close=release_once,
+                               headers={"X-Request-Id": msg.id})
+
+    def get_message(self, req: _Request) -> Tuple[int, Any]:
+        msg = self.store.get(req.params["id"])
         if msg is None:
             return 404, {"error": "message not found"}
         return 200, msg.to_dict()
+
+    def list_messages(self, req: _Request) -> Tuple[int, Any]:
+        try:
+            limit = int(req.q("limit", "10"))
+            offset = int(req.q("offset", "0"))
+        except ValueError:
+            raise ApiError(400, "limit/offset must be integers") from None
+        msgs = self.store.list(
+            user_id=req.q("user_id"),
+            conversation_id=req.q("conversation_id"),
+            status=req.q("status"),
+            limit=limit, offset=offset)
+        return 200, {"messages": [m.to_dict() for m in msgs],
+                     "count": len(msgs)}
+
+    def create_conversation(self, req: _Request) -> Tuple[int, Any]:
+        data = req.json()
+        user_id = data.get("user_id")
+        if not user_id:
+            raise ApiError(400, "user_id is required")
+        sm = self._require_state_manager()
+        conv = sm.create(user_id, metadata=data.get("metadata") or {})
+        return 201, {
+            "conversation_id": conv.id,
+            "user_id": conv.user_id,
+            "created_at": conv.created_at,
+            "state": conv.state.value,
+        }
+
+    def get_conversation(self, req: _Request) -> Tuple[int, Any]:
+        sm = self._require_state_manager()
+        try:
+            conv = sm.get(req.params["id"])
+        except KeyError:
+            return 404, {"error": "conversation not found"}
+        return 200, conv.to_dict()
+
+    def add_message_to_conversation(self, req: _Request) -> Tuple[int, Any]:
+        conv_id = req.params["id"]
+        msg = self._ingest_message(
+            req.json(), conversation_id=conv_id,
+            tenant_header=req.headers.get("x-tenant-id", ""))
+        return 202, {
+            "message_id": msg.id,
+            "conversation_id": conv_id,
+            "priority": int(msg.priority),
+            "queue_time": time.time(),
+            "estimated_wait": self.estimate_wait(msg.priority),
+        }
+
+    def update_conversation_state(self, req: _Request) -> Tuple[int, Any]:
+        data = req.json()
+        state = data.get("state")
+        if not state:
+            raise ApiError(400, "state is required")
+        try:
+            new_state = ConversationState(state)
+        except ValueError:
+            raise ApiError(
+                400, f"invalid state {state!r}; valid: "
+                f"{[s.value for s in ConversationState]}") from None
+        sm = self._require_state_manager()
+        try:
+            sm.update_state(req.params["id"], new_state)
+        except KeyError:
+            return 404, {"error": "conversation not found"}
+        return 200, {"status": "updated"}
+
+    def list_user_conversations(self, req: _Request) -> Tuple[int, Any]:
+        sm = self._require_state_manager()
+        convs = sm.user_conversations(req.params["user_id"])
+        return 200, {"conversations": [c.to_dict(include_messages=False)
+                                       for c in convs]}
+
+    def get_queue_stats(self, req: _Request) -> Tuple[int, Any]:
+        if self.factory is None:
+            raise ApiError(503, "queue factory not configured")
+        stats: Dict[str, Any] = {}
+        for name in self.factory.manager_names():
+            mgr = self.factory.get_queue_manager(name)
+            if mgr is None:
+                continue
+            stats[name] = {qn: s.to_dict()
+                           for qn, s in mgr.get_all_stats().items()}
+            stats[name]["workers"] = self.factory.get_worker_stats(name)
+            dlq = self.factory.get_dead_letter_queue(name)
+            if dlq is not None:
+                stats[name]["dead_letter_size"] = dlq.size()
+        return 200, stats
+
+    def get_engine_stats(self, req: _Request) -> Tuple[int, Any]:
+        if self.engine is None:
+            raise ApiError(503, "engine not configured")
+        return 200, self.engine.get_stats()
+
+    def generate_sync(self, req: _Request) -> Tuple[int, Any]:
+        """Synchronous generation: the message goes straight to the
+        engine and the completion comes back in the response."""
+        if self.engine is None:
+            raise ApiError(503, "no engine attached to this process")
+        if not self.engine.running:
+            # Fail fast: a submit to a stopped engine would block the
+            # caller for its whole generation budget.
+            raise ApiError(503, "engine not running on this host")
+        data = req.json()
+        timeout = float(data.pop("timeout", 0) or 120.0)
+        try:
+            msg = Message.from_dict(data)
+        except (ValueError, TypeError) as e:
+            raise ApiError(400, f"invalid message: {e}") from None
+        if not msg.id:
+            msg.id = new_id()
+        try:
+            self.engine.process_fn(_Deadline(timeout), msg)
+        except TimeoutError as e:
+            raise ApiError(504, str(e)) from None
+        except RuntimeError as e:
+            raise ApiError(500, f"generation failed: {e}") from None
+        return 200, {"message_id": msg.id, "response": msg.response,
+                     "usage": msg.metadata.get("usage", {})}
+
+    # -- admin ---------------------------------------------------------------
+
+    def add_priority_rule(self, req: _Request) -> Tuple[int, Any]:
+        pre = self._require_preprocessor()
+        data = req.json()
+        pattern = data.get("pattern")
+        if not pattern:
+            raise ApiError(400, "pattern is required")
+        try:
+            priority = Priority.parse(data.get("priority", "normal"))
+        except (ValueError, TypeError):
+            raise ApiError(400, f"invalid priority {data.get('priority')!r}") \
+                from None
+        try:
+            rule = pre.add_rule(pattern, priority, name=data.get("name", ""))
+        except re.error as e:
+            raise ApiError(400, f"invalid pattern: {e}") from None
+        return 201, {"status": "rule added", "rule": rule.to_dict()}
+
+    def list_priority_rules(self, req: _Request) -> Tuple[int, Any]:
+        pre = self._require_preprocessor()
+        return 200, {"rules": [r.to_dict() for r in pre.list_rules()]}
+
+    def set_user_priority(self, req: _Request) -> Tuple[int, Any]:
+        pre = self._require_preprocessor()
+        data = req.json()
+        user_id = data.get("user_id")
+        prio_raw = data.get("priority")
+        if not user_id or prio_raw is None:
+            raise ApiError(400, "user_id and priority are required")
+        try:
+            priority = Priority.parse(prio_raw)
+        except (ValueError, TypeError):
+            raise ApiError(400, f"invalid priority {prio_raw!r}") from None
+        pre.set_user_priority(user_id, priority)
+        return 200, {"status": "user priority set"}
+
+    def remove_message(self, req: _Request) -> Tuple[int, Any]:
+        mgr = self._manager(req.params["queue_type"])
+        msg = mgr.remove_message(req.params["id"])
+        if msg is None:
+            return 404, {"error": "no pending message with that id"}
+        return 200, {"status": "removed", "message_id": msg.id}
+
+    def _dead_letters(self, req: _Request):
+        if self.factory is None:
+            raise ApiError(503, "queue factory not configured")
+        name = req.q("manager", self.manager_name)
+        dlq = self.factory.get_dead_letter_queue(name)
+        if dlq is None:
+            raise ApiError(404, f"no dead-letter queue for manager {name!r}")
+        return dlq, self._manager(name)
+
+    def requeue_dead_letter_message(self, req: _Request) -> Tuple[int, Any]:
+        dlq, mgr = self._dead_letters(req)
+        try:
+            msg = dlq.requeue(req.params["id"], mgr)
+        except KeyError:
+            return 404, {"error": "message not in dead-letter queue"}
+        return 200, {"status": "requeued", "message_id": msg.id}
+
+    def requeue_all_dead_letter_messages(self, req: _Request
+                                         ) -> Tuple[int, Any]:
+        dlq, mgr = self._dead_letters(req)
+        return 200, {"status": "requeued",
+                     "count": len(dlq.batch_requeue(mgr))}
 
     # -- HTTP plumbing -------------------------------------------------------
 
@@ -160,14 +734,51 @@ class ApiServer:
             def _respond(self) -> None:
                 length = int(self.headers.get("Content-Length") or 0)
                 body = self.rfile.read(length) if length else b""
-                status, payload = server.dispatch(self.command, self.path,
-                                                  body)
+                status, payload, ctype = server.dispatch(
+                    self.command, self.path, body,
+                    dict(self.headers.items()))
+                if isinstance(payload, _SSEStream):
+                    self._stream(status, payload, ctype)
+                    return
                 data = json.dumps(payload).encode()
                 self.send_response(status)
-                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Type", ctype)
                 self.send_header("Content-Length", str(len(data)))
+                if isinstance(payload, dict) and "retry_after" in payload:
+                    # Whole seconds, rounded up.
+                    self.send_header("Retry-After", str(max(1, math.ceil(
+                        float(payload["retry_after"])))))
                 self.end_headers()
                 self.wfile.write(data)
+
+            def _stream(self, status: int, payload: _SSEStream,
+                        ctype: str) -> None:
+                # Chunks flushed per event; the closed connection ends
+                # the body. The header writes sit inside the try, so a
+                # client gone before them still reaches the cleanup.
+                try:
+                    self.send_response(status)
+                    self.send_header("Content-Type", ctype)
+                    self.send_header("Cache-Control", "no-cache")
+                    self.send_header("Connection", "close")
+                    for hk, hv in payload.headers.items():
+                        self.send_header(hk, hv)
+                    self.end_headers()
+                    for event in payload:
+                        self.wfile.write(event.encode("utf-8"))
+                        self.wfile.flush()
+                except (BrokenPipeError, ConnectionResetError):
+                    pass   # client hung up
+                finally:
+                    # Closing the generator raises GeneratorExit in it,
+                    # which cancels its engine request; on_close covers
+                    # a generator that never started.
+                    close = getattr(payload.events, "close", None)
+                    if close is not None:
+                        close()
+                    if payload.on_close is not None:
+                        payload.on_close()
+                self.close_connection = True
 
             do_GET = do_POST = do_PUT = do_DELETE = _respond  # noqa: N815
 
@@ -176,9 +787,12 @@ class ApiServer:
 
         return _Handler
 
-    def start(self, host: str = "127.0.0.1", port: int = 0) -> int:
+    def start(self, host: Optional[str] = None,
+              port: Optional[int] = None) -> int:
         """Serve on a background thread; returns the bound port (port 0
         picks a free one)."""
+        host = self.config.server.host if host is None else host
+        port = self.config.server.port if port is None else port
         self._httpd = ThreadingHTTPServer((host, port), self._make_handler())
         self._httpd.daemon_threads = True
         self._thread = threading.Thread(target=self._httpd.serve_forever,

@@ -2,7 +2,7 @@
 environment overrides, then CLI flags.
 
 Trimmed copy of ``llmq_tpu/core/config.py`` holding only what the serving
-path reads. There is no config file, so the package needs nothing beyond
+process reads (the WAL and spool directories wait for their slice). There is no config file, so the package needs nothing beyond
 ``torch`` and ``numpy``.
 """
 
@@ -18,8 +18,27 @@ from llmq_tpu_torch.core.types import Priority
 
 @dataclass
 class ServerConfig:
+    """Bind address plus SSE admission control (the streaming path
+    bypasses the queue plane, so it needs its own backpressure)."""
     host: str = "0.0.0.0"
     port: int = 8080
+    #: Concurrent SSE streams accepted before new ones get 429; <= 0
+    #: disables the cap.
+    max_concurrent_streams: int = 32
+    #: Engine pending depth above which new streams get 503; <= 0
+    #: disables.
+    stream_pending_limit: int = 256
+
+
+@dataclass
+class PersistenceConfig:
+    """Conversation store: "memory" | "sqlite" | "redis" (redis needs
+    the ``redis`` client package)."""
+    backend: str = "memory"
+    sqlite_path: str = "llmq_state.db"
+    redis_url: str = "redis://localhost:6379/0"
+    key_prefix: str = "llmq:"
+    cache_ttl: float = 24 * 3600.0
 
 
 @dataclass
@@ -49,6 +68,23 @@ class WorkerConfig:
     max_batch_size: int = 10
     process_interval: float = 0.05
     max_concurrent: int = 50
+    #: Hard per-message deadline: a process function still running at
+    #: ``message.timeout * hard_deadline_grace`` is abandoned by the
+    #: watchdog (its slot freed, the message sent down the timeout and
+    #: retry path). The call itself cannot be killed and may still
+    #: finish its side effects: at-least-once, so the grace keeps that
+    #: to calls that are really wedged.
+    hard_deadline: bool = True
+    hard_deadline_grace: float = 2.0
+
+
+@dataclass
+class RetryConfig:
+    max_retries: int = 3
+    initial_backoff: float = 1.0
+    max_backoff: float = 60.0
+    backoff_multiplier: float = 2.0
+    strategy: str = "exponential"  # "exponential" | "fixed"
 
 
 @dataclass
@@ -57,6 +93,61 @@ class QueueConfig:
     levels: List[QueueLevelConfig] = field(
         default_factory=default_queue_levels)
     worker: WorkerConfig = field(default_factory=WorkerConfig)
+    retry: RetryConfig = field(default_factory=RetryConfig)
+    #: Messages whose retries are exhausted go to the dead-letter queue.
+    dead_letter_enabled: bool = True
+    dead_letter_max_size: int = 1000
+    #: Pending messages older than this are expired by the manager's
+    #: monitor (seconds; <= 0 disables).
+    stale_message_age: float = 3600.0
+
+
+@dataclass
+class SchedulerConfig:
+    """Only the queue monitor's period is read in the port (its scale
+    signals wait for the autoscaler)."""
+    monitor_interval: float = 10.0
+
+
+@dataclass
+class ConversationConfig:
+    """The conversation service (``conversation/state_manager.py``)."""
+    max_conversations: int = 1000
+    max_context_length: int = 4096
+    max_conversations_per_user: int = 100
+    ttl: float = 7 * 24 * 3600.0
+    max_idle_time: float = 1800.0
+    cleanup_interval: float = 300.0
+    persist: bool = True
+
+
+@dataclass
+class OverloadConfig:
+    """Overload shedding at the API edge (``api/overload.py``): 503 while
+    the engine is down, 429 past the queue backlog limit or when the
+    request cannot meet its own deadline, each with ``Retry-After``.
+    ``enabled: false`` builds no shedder at all."""
+    enabled: bool = True
+    #: Total queued messages above which submissions get 429; 0 → 90%
+    #: of ``queue.max_queue_size``.
+    queue_depth_limit: int = 0
+    #: Shed when the estimated wait exceeds the request's timeout × this
+    #: factor; <= 0 disables the check.
+    deadline_headroom: float = 1.0
+    #: Baseline Retry-After seconds.
+    retry_after: float = 1.0
+
+
+@dataclass
+class SupervisorConfig:
+    """Engine crash supervisor (``engine/supervisor.py``): detects a dead
+    engine thread, fails its in-flight requests over to the worker
+    retry path and restarts the loop; more than ``max_restarts`` within
+    ``restart_window`` seconds and it gives up."""
+    enabled: bool = True
+    check_interval: float = 0.5
+    max_restarts: int = 5
+    restart_window: float = 60.0
 
 
 @dataclass
@@ -201,12 +292,18 @@ class ExecutorConfig:
         default_factory=AsyncPipelineConfig)
     prefix_cache: PrefixCacheConfig = field(
         default_factory=PrefixCacheConfig)
+    supervisor: SupervisorConfig = field(default_factory=SupervisorConfig)
 
 
 @dataclass
 class Config:
     server: ServerConfig = field(default_factory=ServerConfig)
+    persistence: PersistenceConfig = field(default_factory=PersistenceConfig)
     queue: QueueConfig = field(default_factory=QueueConfig)
+    scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
+    conversation: ConversationConfig = field(
+        default_factory=ConversationConfig)
+    overload: OverloadConfig = field(default_factory=OverloadConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     executor: ExecutorConfig = field(default_factory=ExecutorConfig)
     #: Where the model runs. "cuda" raises without a GPU; only an

@@ -1,0 +1,40 @@
+"""Typed errors of the port (its copy of ``llmq_tpu/core/errors.py``,
+trimmed to the queue plane and the conversation service), so the REST
+layer maps failures to status codes without matching strings."""
+
+from __future__ import annotations
+
+
+class LLMQError(Exception):
+    """Base class of the port's errors."""
+
+
+class QueueNotFoundError(LLMQError, KeyError):
+    def __init__(self, name: str) -> None:
+        super().__init__(f"queue not found: {name}")
+        self.queue_name = name
+
+
+class QueueFullError(LLMQError):
+    def __init__(self, name: str, capacity: int) -> None:
+        super().__init__(f"queue full: {name} (capacity {capacity})")
+        self.queue_name = name
+        self.capacity = capacity
+
+
+class QueueEmptyError(LLMQError):
+    def __init__(self, name: str) -> None:
+        super().__init__(f"queue empty: {name}")
+        self.queue_name = name
+
+
+class MessageNotFoundError(LLMQError, KeyError):
+    def __init__(self, message_id: str) -> None:
+        super().__init__(f"message not found: {message_id}")
+        self.message_id = message_id
+
+
+class ConversationNotFoundError(LLMQError, KeyError):
+    def __init__(self, conversation_id: str) -> None:
+        super().__init__(f"conversation not found: {conversation_id}")
+        self.conversation_id = conversation_id

@@ -1,9 +1,11 @@
-"""Core data model: priorities, message lifecycle, messages, queue stats.
+"""Core data model: priorities, message lifecycle, messages,
+conversations, queue stats.
 
 The port's own copy of ``llmq_tpu/core/types.py`` (the two packages share
 no module): ``Priority`` 4-level tiers where a lower value is more
 urgent, ``MessageStatus`` and ``Message`` with retry accounting, a
-timeout and free-form metadata, plus the per-queue ``QueueStats``.
+timeout and free-form metadata, ``ConversationState`` and
+``Conversation``, plus the per-queue ``QueueStats``.
 """
 
 from __future__ import annotations
@@ -12,7 +14,10 @@ import enum
 import time
 import uuid
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
+
+from llmq_tpu_torch.core.errors import (  # noqa: F401 — re-exported
+    QueueEmptyError, QueueFullError, QueueNotFoundError)
 
 
 class Priority(enum.IntEnum):
@@ -73,6 +78,15 @@ class MessageStatus(str, enum.Enum):
     TIMEOUT = "timeout"
 
 
+class ConversationState(str, enum.Enum):
+    """Conversation lifecycle."""
+
+    ACTIVE = "active"
+    PAUSED = "paused"
+    COMPLETED = "completed"
+    EXPIRED = "expired"
+
+
 def new_id() -> str:
     return str(uuid.uuid4())
 
@@ -84,6 +98,9 @@ class Message:
     id: str = field(default_factory=new_id)
     conversation_id: str = ""
     user_id: str = ""
+    #: The request's billing identity on the wire (``"default"`` when
+    #: unset); the port has no tenancy plane that reads it yet.
+    tenant_id: str = "default"
     content: str = ""
     priority: Priority = Priority.NORMAL
     status: MessageStatus = MessageStatus.PENDING
@@ -106,11 +123,15 @@ class Message:
     def touch(self, now: Optional[float] = None) -> None:
         self.updated_at = time.time() if now is None else now
 
+    def can_retry(self) -> bool:
+        return self.retry_count < self.max_retries
+
     def to_dict(self) -> Dict[str, Any]:
         return {
             "id": self.id,
             "conversation_id": self.conversation_id,
             "user_id": self.user_id,
+            "tenant_id": self.tenant_id,
             "content": self.content,
             "priority": int(self.priority),
             "status": self.status.value,
@@ -134,6 +155,51 @@ class Message:
 
 
 @dataclass
+class Conversation:
+    """Multi-turn conversation state."""
+
+    id: str = field(default_factory=new_id)
+    user_id: str = ""
+    state: ConversationState = ConversationState.ACTIVE
+    messages: List[Message] = field(default_factory=list)
+    context: str = ""
+    created_at: float = field(default_factory=time.time)
+    updated_at: float = field(default_factory=time.time)
+    last_active_at: float = field(default_factory=time.time)
+    metadata: Dict[str, Any] = field(default_factory=dict)
+
+    def __post_init__(self) -> None:
+        if not isinstance(self.state, ConversationState):
+            self.state = ConversationState(self.state)
+
+    def to_dict(self, include_messages: bool = True) -> Dict[str, Any]:
+        d: Dict[str, Any] = {
+            "id": self.id,
+            "user_id": self.user_id,
+            "state": self.state.value,
+            "context": self.context,
+            "created_at": self.created_at,
+            "updated_at": self.updated_at,
+            "last_active_at": self.last_active_at,
+            "metadata": dict(self.metadata),
+            "message_count": len(self.messages),
+        }
+        if include_messages:
+            d["messages"] = [m.to_dict() for m in self.messages]
+        return d
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "Conversation":
+        d = dict(d)
+        d.pop("message_count", None)
+        msgs = [Message.from_dict(m) for m in d.pop("messages", [])]
+        known = set(cls.__dataclass_fields__)  # type: ignore[attr-defined]
+        conv = cls(**{k: v for k, v in d.items() if k in known})
+        conv.messages = msgs
+        return conv
+
+
+@dataclass
 class QueueStats:
     """Per-queue statistics."""
 
@@ -146,21 +212,23 @@ class QueueStats:
     total_wait_time: float = 0.0
     total_process_time: float = 0.0
 
+    @property
+    def avg_wait_time(self) -> float:
+        return (self.total_wait_time / self.wait_samples
+                if self.wait_samples else 0.0)
 
-class QueueNotFoundError(KeyError):
-    def __init__(self, name: str) -> None:
-        super().__init__(f"queue not found: {name}")
-        self.queue_name = name
+    @property
+    def avg_process_time(self) -> float:
+        done = self.completed_count + self.failed_count
+        return self.total_process_time / done if done else 0.0
 
-
-class QueueFullError(Exception):
-    def __init__(self, name: str, capacity: int) -> None:
-        super().__init__(f"queue full: {name} (capacity {capacity})")
-        self.queue_name = name
-        self.capacity = capacity
-
-
-class QueueEmptyError(Exception):
-    def __init__(self, name: str) -> None:
-        super().__init__(f"queue empty: {name}")
-        self.queue_name = name
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "queue_name": self.queue_name,
+            "pending_count": self.pending_count,
+            "processing_count": self.processing_count,
+            "completed_count": self.completed_count,
+            "failed_count": self.failed_count,
+            "avg_wait_time": self.avg_wait_time,
+            "avg_process_time": self.avg_process_time,
+        }

@@ -15,10 +15,19 @@ active sequence by a chunk of tokens per device program.
   the least urgent running sequence iff strictly more urgent; the victim
   keeps its KV pages and resumes without re-prefill. Preemption waits
   while a chunk is in flight (its rows are still decoding on the device).
+- **Pool pressure sheds in order of damage** (``_alloc_pages``): zero-ref
+  radix leaves, idle conversation pins (LRU), pages parked with less
+  urgent pending sequences, then — with no chunk in flight — a strictly
+  less urgent runner (mid-prefill ones included) is preempted with its
+  pages released. A released sequence rebuilds when next admitted: it
+  re-prefills its whole written context and resumes decoding from its
+  newest token. A row that cannot get decode pages is requeued the same
+  way, never failed.
 - **Paged KV with conversation pinning.** A finished conversation keeps
   its pages pinned; the next turn adopts them and prefills only its new
   tokens on top (continuation prefill). Pins end on the pin TTL, on
-  delete, or under pool pressure (LRU), which frees their pages.
+  delete (the conversation service's eviction, once attached), or under
+  pool pressure (LRU), which frees their pages.
 - **Radix prefix cache** (``prefix_cache``). Finished sequences publish
   their full-page KV blocks into a radix tree; a from-scratch admission
   adopts the longest cached page-aligned prefix by reference count (a
@@ -48,8 +57,14 @@ active sequence by a chunk of tokens per device program.
   off-switch keeps depth 2 with every completion inline, as in the JAX
   package.
 
-Left to later work (``ROADMAP.md``): preemption with page release,
-cache-aware scheduling, metrics, tenancy, tiering and speculation.
+- **Crash recovery** (``recover_after_crash``, driven by
+  ``engine/supervisor.py``): an ``Exception`` from ``step`` is logged and
+  the loop goes on; a ``BaseException`` kills the loop thread, and the
+  supervisor fails every unfinished request over to the worker retry
+  path before it starts a fresh loop.
+
+Left to later work (``ROADMAP.md``): cache-aware scheduling, metrics,
+tenancy, tiering and speculation.
 """
 
 from __future__ import annotations
@@ -192,8 +207,9 @@ class _Sequence:
     __slots__ = ("req", "handle", "prompt_ids", "generated", "pages",
                  "block_table", "pos", "cached_len", "last_token", "slot",
                  "prefilled", "order", "adopted", "prefill_ids",
-                 "prefill_start", "carry", "written_ids", "todo_ids",
-                 "todo_pos", "eff_prio", "arrival", "first_handle",
+                 "prefill_start", "carry", "written_ids", "rebuild",
+                 "todo_ids", "todo_pos", "todo_rebuild", "todo_resume",
+                 "eff_prio", "arrival", "first_handle",
                  "prefix_match", "reuse_counted", "mixed_pending",
                  "pending_emit")
 
@@ -215,11 +231,18 @@ class _Sequence:
         self.prefill_ids: List[int] = []  # what prefill saw (for resume)
         self.prefill_start = 0
         self.carry: List[int] = []        # cache's pending token (_ConvKV)
-        #: Token ids whose KV occupies positions [0, pos).
+        #: Token ids whose KV occupies positions [0, pos): what a
+        #: page-releasing preemption (or a capacity fold) re-prefills.
         self.written_ids: List[int] = []
-        #: Incremental prefill: tokens not yet run, next write position.
+        self.rebuild = False      # pages were released; re-prefill written_ids
+        #: Incremental prefill: tokens not yet run, next write position,
+        #: and the completion context taken at admission (a rebuild
+        #: resumes decoding from ``todo_resume`` instead of committing
+        #: the re-prefill's sample).
         self.todo_ids: List[int] = []
         self.todo_pos = 0
+        self.todo_rebuild = False
+        self.todo_resume: Optional[int] = None
         #: The dispatched final prefill chunk's token, not yet fetched
         #: (an executor handle); None otherwise.
         self.first_handle = None
@@ -408,6 +431,9 @@ class InferenceEngine:
         #: a conversation; filled only with the prefix cache on.
         self._conv_evicted_tokens: Dict[str, List[List[int]]] = {}
         self._order = itertools.count()
+        #: The conversation service (attach_conversation_manager): a
+        #: finished turn records its prefix handle there.
+        self._state_manager = None
         self._mu = threading.Lock()
         self._wake = threading.Event()
         self._stop = threading.Event()
@@ -470,6 +496,25 @@ class InferenceEngine:
             "completion_tokens": len(res.tokens),
             "finish_reason": res.finish_reason,
         }
+
+    # -- conversation service hooks -------------------------------------------
+
+    def attach_conversation_manager(self, state_manager) -> None:
+        """Tie KV pin lifetime to the conversation service: touches
+        refresh the pin, evictions (delete, idle/TTL cleanup, the
+        conversation caps) free the pages."""
+        state_manager.on_touch(lambda conv: self.touch_conversation(conv.id))
+        state_manager.on_evict(lambda conv: self.drop_conversation(conv.id))
+        #: Never called while holding self._mu: the state manager fires
+        #: its hooks under its own lock, so the lock order is strictly
+        #: state manager → engine.
+        self._state_manager = state_manager
+
+    def touch_conversation(self, conv_id: str) -> None:
+        with self._mu:
+            kv = self._conv_cache.get(conv_id)
+            if kv is not None:
+                kv.last_used = self._now()
 
     def cached_conversations(self) -> List[str]:
         with self._mu:
@@ -552,16 +597,82 @@ class InferenceEngine:
     def running(self) -> bool:
         return self._thread is not None and self._thread.is_alive()
 
+    def healthy(self) -> bool:
+        """Alive iff the engine loop is running."""
+        return self.running
+
+    def recover_after_crash(self) -> Dict:
+        """Crash-recovery reset, called only with the loop thread dead
+        (``engine/supervisor.py``). Every sequence the dead loop owned
+        (slot holders, pending, inbox) has its pages, slot and radix
+        locks released and its handle finished with reason "error",
+        which unblocks the worker parked in ``process_fn``: it raises and
+        the worker retry path requeues the message through the delayed
+        queue. A handle that finished before the crash is left alone, so
+        a completed request is never also retried.
+
+        The in-flight chunks are dropped (their carries and tokens
+        belong to the dead loop; their staging slots recycle on their
+        own events, and their fetches complete on the lanes unread).
+        The executor's CUDA graphs and static buffers are untouched: the
+        restarted loop replays them. Returns counts for the supervisor."""
+        assert not self.running, "recover_after_crash needs a dead loop"
+        self._inflight.clear()
+        # Dedup barrier: a finish the dead loop already queued on the
+        # completion pool must land before the handle.done checks below,
+        # or a completed request would also be failed into the retry
+        # path.
+        self._drain_completions()
+        with self._mu:
+            inbox, self._inbox = self._inbox, []
+        pending = [s for (_, _, s) in self._pending]
+        self._pending = []
+        holders = [s for s in self._slots if s is not None]
+        recovered = 0
+        already_done = 0
+        for seq in holders + pending + inbox:
+            if seq.slot is not None:
+                try:
+                    self.executor.release_slot(seq.slot)
+                except Exception:  # noqa: BLE001 — the reset must win
+                    pass
+                self._slots[seq.slot] = None
+                seq.slot = None
+            seq.first_handle = None
+            seq.mixed_pending = False
+            if seq.handle.done:
+                already_done += 1
+                if seq.pages:
+                    self.allocator.free(seq.pages)
+                    seq.pages = []
+                continue
+            self._finish(seq, "error",
+                         "engine crashed; request requeued by supervisor")
+            recovered += 1
+        self._wake.clear()
+        log.warning(
+            "engine %s crash recovery: %d request(s) failed over to the "
+            "retry path, %d already finished", self.name, recovered,
+            already_done)
+        return {"recovered": recovered, "already_done": already_done}
+
     def _loop(self) -> None:
-        while not self._stop.is_set():
-            try:
-                did_work = self.step()
-            except Exception:  # noqa: BLE001 — the loop must keep serving
-                log.exception("engine step failed")
-                did_work = False
-            if not did_work:
-                self._wake.wait(0.005)
-                self._wake.clear()
+        try:
+            while not self._stop.is_set():
+                try:
+                    did_work = self.step()
+                except Exception:  # noqa: BLE001 — the loop keeps serving
+                    log.exception("engine step failed")
+                    did_work = False
+                if not did_work:
+                    self._wake.wait(0.005)
+                    self._wake.clear()
+        except BaseException:
+            # A BaseException kills this thread; the supervisor sees the
+            # dead loop and owns the recovery.
+            log.exception("engine %s loop died; the supervisor takes "
+                          "over", self.name)
+            raise
 
     # -- core step -----------------------------------------------------------
 
@@ -675,12 +786,20 @@ class InferenceEngine:
                 return i
         return None
 
-    def _least_urgent_active(self) -> Optional[_Sequence]:
-        """Least urgent prefilled slot holder (a mid-prefill sequence
-        can't resume in place, so it is never a slot-preemption victim)."""
+    def _least_urgent_active(
+            self, exclude: Optional[_Sequence] = None, *,
+            include_prefilling: bool = False) -> Optional[_Sequence]:
+        """Least urgent slot holder. A mid-prefill sequence can't resume
+        in place, so it is never a slot-preemption victim; it is one for
+        page-release shedding (``include_prefilling``): the release folds
+        its remainder into ``written_ids`` and it restarts through the
+        rebuild, so a low-tier long prompt never holds the pool against
+        a realtime sequence."""
         worst: Optional[_Sequence] = None
         for s in self._slots:
-            if s is None or not s.prefilled:
+            if s is None or s is exclude:
+                continue
+            if not s.prefilled and not include_prefilling:
                 continue
             if worst is None or s.sort_key() > worst.sort_key():
                 worst = s
@@ -726,7 +845,7 @@ class InferenceEngine:
                 # the pipeline and preemption runs then.
                 victim = self._least_urgent_active()
                 if victim is not None and victim.sort_key() > (prio, order):
-                    self._preempt(victim)
+                    self._preempt(victim, release_pages=False)
                     slot = self._free_slot()
             if slot is None:
                 break
@@ -740,16 +859,52 @@ class InferenceEngine:
             heapq.heappush(self._pending, entry)
         return admitted
 
-    def _preempt(self, victim: _Sequence) -> None:
+    def _preempt(self, victim: _Sequence, release_pages: bool) -> None:
         """Step-boundary preemption: the victim's slot is handed over; its
-        KV pages stay resident and it resumes without re-prefill."""
+        KV pages stay resident (cheap resume) unless the pool itself is
+        the contended resource, in which case it later resumes by
+        re-prefilling its whole written context (``written_ids``, which
+        includes any adopted conversation history)."""
         assert victim.slot is not None
         self._slots[victim.slot] = None
         self.executor.release_slot(victim.slot)
         victim.slot = None
+        if release_pages:
+            self._release_sequence_pages(victim)
         heapq.heappush(self._pending, (victim.eff_prio, victim.order, victim))
-        log.info("preempted %s (%s)", victim.req.id,
-                 victim.req.priority.tier_name)
+        log.info("preempted %s (%s)%s", victim.req.id,
+                 victim.req.priority.tier_name,
+                 " releasing pages" if release_pages else "")
+
+    def _release_sequence_pages(self, seq: _Sequence) -> None:
+        """Take ``seq``'s KV pages back into the pool; the sequence
+        rebuilds by re-prefilling ``written_ids`` when next admitted. The
+        rebuild's prefill writes every position it reads again (over
+        int8 pools its scale entries too) before any decode step reads
+        them."""
+        if seq.prefix_match is not None:
+            # Matched shared pages: drop this sequence's node locks (the
+            # free below drops its page refs; the tree's own refs keep
+            # the shared KV for everyone else). The rebuild re-matches.
+            self._prefix_cache.unlock(seq.prefix_match)
+            seq.prefix_match = None
+        if seq.pages:
+            self.allocator.free(seq.pages)
+            seq.pages = []
+        seq.block_table[:] = 0
+        seq.pos = 0
+        seq.cached_len = 0
+        # A dispatched prefill's sample refers to released pages: the
+        # rebuild re-prefills and samples again at the same position.
+        seq.first_handle = None
+        if seq.todo_ids:
+            # Mid-prefill victim: fold the remainder into written_ids, so
+            # the rebuild re-prefills the complete context.
+            seq.written_ids = seq.written_ids + seq.todo_ids
+            seq.todo_ids = []
+        if seq.prefilled or seq.written_ids:
+            seq.rebuild = True
+        seq.prefilled = False
 
     def _unmatch(self, seq: _Sequence) -> None:
         """Undo a radix match whose admission could not complete: unlock
@@ -775,12 +930,35 @@ class InferenceEngine:
         log.info("evicted conversation KV %s under pool pressure", cid)
         return True
 
-    def _alloc_pages(self, n: int) -> Optional[List[int]]:
-        """Allocate ``n`` pages, shedding while the pool is short, cheapest
-        first: zero-ref radix leaves (no running sequence reads them; a
-        later request merely prefills what it would have reused), then
-        idle pinned conversations (LRU). Neither touches a row that a
-        chunk in flight decodes."""
+    def _reclaim_pending_pages(self, requester: _Sequence) -> bool:
+        """Release the pages of a *pending* sequence (slot-preempted
+        earlier, pages kept for a cheap resume) strictly less urgent than
+        ``requester``. Without this, pages parked in the pending heap are
+        invisible to shedding, and admission can deadlock with the pool
+        exhausted and every slot empty."""
+        worst: Optional[_Sequence] = None
+        for _, _, seq in self._pending:
+            if seq is requester or not seq.pages:
+                continue
+            if worst is None or seq.sort_key() > worst.sort_key():
+                worst = seq
+        if worst is None or worst.sort_key() <= requester.sort_key():
+            return False
+        self._release_sequence_pages(worst)
+        log.info("reclaimed pages of pending %s for %s", worst.req.id,
+                 requester.req.id)
+        return True
+
+    def _alloc_pages(self, n: int,
+                     requester: _Sequence) -> Optional[List[int]]:
+        """Allocate ``n`` pages, shedding while the pool is short, in
+        increasing order of damage: zero-ref radix leaves (no running
+        sequence reads them), idle pinned conversations (LRU), pages
+        parked with less urgent pending sequences, then — only while no
+        chunk is in flight — preempt-with-release of a strictly less
+        urgent runner. A victim is always less urgent than
+        ``requester``: a low-tier request never strips a realtime
+        sequence's KV."""
         while True:
             pages = self.allocator.alloc(n)
             if pages is not None:
@@ -789,8 +967,22 @@ class InferenceEngine:
             if (self._prefix_cache is not None
                     and self._prefix_cache.evict_pages(deficit) > 0):
                 continue
-            if not self._reclaim_idle_conversation():
+            if self._reclaim_idle_conversation():
+                continue
+            if self._reclaim_pending_pages(requester):
+                continue
+            if self._inflight:
+                # Shedding a decoding row would free pages a chunk in
+                # flight is still writing: wait for the reconcile (the
+                # unadmitted request blocks carried dispatches).
                 return None
+            victim = self._least_urgent_active(exclude=requester,
+                                               include_prefilling=True)
+            if (victim is not None and self.preemption_enabled
+                    and victim.sort_key() > requester.sort_key()):
+                self._preempt(victim, release_pages=True)
+                continue
+            return None
 
     def _start_sequence(self, seq: _Sequence, slot: int) -> bool:
         """Admit ``seq`` into ``slot``. Returns False only when pages are
@@ -828,10 +1020,24 @@ class InferenceEngine:
             ids = self.tokenizer.encode(text)
             seq.prompt_ids = ids or [self.tokenizer.bos_id]
 
-        start_pos = seq.cached_len
-        # KV to build: the carried token and the prompt (the newest
-        # sampled token's KV is written by its decode step).
-        ids = seq.carry + seq.prompt_ids
+        resume_last: Optional[int] = None
+        if seq.rebuild:
+            # Pages were reclaimed mid-flight: re-prefill the exact
+            # written context (adopted history + prompt + generated so
+            # far), then resume decoding from the newest token.
+            ids = list(seq.written_ids)
+            start_pos = 0
+            if seq.generated:
+                resume_last = seq.generated[-1]
+        else:
+            start_pos = seq.cached_len
+            # KV to build: the carried token, the prompt and every
+            # sampled token but the newest (whose KV its decode step
+            # writes).
+            ids = seq.carry + seq.prompt_ids
+            if seq.generated:
+                ids = ids + seq.generated[:-1]
+                resume_last = seq.generated[-1]
         capacity = self.spec.max_pages_per_seq * self.spec.page_size
         if start_pos + len(ids) + 1 > capacity and start_pos > 0:
             # The cached prefix + new tokens exceed the block table: fold
@@ -841,6 +1047,8 @@ class InferenceEngine:
             seq.carry = seq.written_ids + seq.carry
             seq.written_ids = []
             ids = seq.carry + seq.prompt_ids
+            if seq.generated:
+                ids = ids + seq.generated[:-1]
             if seq.pages:
                 self.allocator.free(seq.pages)
                 seq.pages = []
@@ -883,7 +1091,7 @@ class InferenceEngine:
                          f"{self.allocator.total}")
             return True
         if need > 0:
-            pages = self._alloc_pages(need)
+            pages = self._alloc_pages(need, seq)
             if pages is None:
                 if match_seed is not None:
                     # Give the matched pages back: a retry recomputes ids
@@ -894,11 +1102,15 @@ class InferenceEngine:
             seq.pages.extend(pages)
         seq.todo_ids = ids
         seq.todo_pos = start_pos
-        if start_pos == 0 or match_seed is not None:
+        seq.todo_rebuild = seq.rebuild
+        seq.todo_resume = resume_last
+        seq.rebuild = False
+        if seq.todo_rebuild or start_pos == 0 or match_seed is not None:
             # written_ids mirrors [0, pos): the matched prefix, if any.
             seq.written_ids = list(match_seed or [])
-        seq.prefill_ids = ids
-        seq.prefill_start = start_pos
+        if not (seq.todo_rebuild and seq.generated):
+            seq.prefill_ids = ids
+            seq.prefill_start = start_pos
         if self._prefix_cache is not None and not seq.reuse_counted:
             seq.reuse_counted = True
             if seq.cached_len > 0:
@@ -986,7 +1198,10 @@ class InferenceEngine:
             raise box["err"]
         for seq, first, h in zip(pending, box["out"], handles):
             if seq.first_handle is not h or seq.slot is None:
-                continue    # cancelled or finished during the wait
+                # Cancelled, finished or shed during the wait: the sample
+                # belongs to a prefill whose pages may be gone; a rebuild
+                # re-prefills and samples again.
+                continue
             seq.first_handle = None
             self._complete_prefill(seq, int(first))
             self._flush_emits(seq)   # the first token does not wait a chunk
@@ -994,9 +1209,18 @@ class InferenceEngine:
 
     def _complete_prefill(self, seq: _Sequence, first: int) -> None:
         """Admission completes after the final prefill chunk: ``first``
-        is the token sampled at its last position."""
+        is the token sampled at its last position. A rebuild instead
+        resumes from its newest generated token."""
+        if seq.todo_rebuild and seq.generated:
+            # The KV is rebuilt; the slot's executor state gets the
+            # original prefill stream, not the replayed mix.
+            self.executor.resume(seq.slot, seq.prefill_ids,
+                                 seq.prefill_start)
         seq.prefilled = True
         seq.handle.marks.setdefault("prefill_done", time.perf_counter())
+        if seq.todo_resume is not None:
+            seq.last_token = seq.todo_resume
+            return
         self._commit_token(seq, first)
 
     # -- mixed prefill+decode batching ---------------------------------------
@@ -1120,7 +1344,7 @@ class InferenceEngine:
             seq.pos + budget, self.spec.page_size) - len(seq.pages)
         if need <= 0:
             return True
-        pages = self._alloc_pages(need)
+        pages = self._alloc_pages(need, seq)
         if pages is None:
             return False
         seq.block_table[len(seq.pages):len(seq.pages) + need] = pages
@@ -1146,7 +1370,7 @@ class InferenceEngine:
         budgets_by_order: Dict[int, int] = {}
         for seq in rows:
             if seq.slot is None:
-                continue
+                continue    # shed by an earlier row's page allocation
             if seq.handle.cancelled:
                 self._finish_active(seq, "cancelled")
                 continue
@@ -1157,11 +1381,10 @@ class InferenceEngine:
             if not seq.prefilled:
                 budget = max(0, budget - 1)
             if budget and not self._ensure_decode_pages(seq, budget):
-                # Pool exhausted by running sequences: preemption with
-                # page release is not ported, so the request fails
-                # rather than being silently truncated.
-                self._finish_active(seq, "error",
-                                    "KV pool exhausted during decode")
+                # Pool exhausted even after shedding everyone else:
+                # requeue this one (it rebuilds) rather than truncate it.
+                if seq.slot is not None:
+                    self._preempt(seq, release_pages=True)
                 continue
             budgets_by_order[seq.order] = budget
         return budgets_by_order
@@ -1197,9 +1420,13 @@ class InferenceEngine:
         chunk = min(max(1, self.executor.chunk_size), self._admission_cap())
         joining = []
         if chunk > 1:
+            # A rebuild never joins: its re-prefill's sample is discarded
+            # (it resumes from its newest generated token), so the device
+            # must not feed that sample on.
             joining = [s for s in self._slots
                        if s is not None and not s.prefilled
                        and s.first_handle is not None and not s.todo_ids
+                       and s.todo_resume is None and not s.todo_rebuild
                        and not s.handle.cancelled]
         active = [s for s in self._slots if s is not None and s.prefilled]
         if not active and not joining:
@@ -1299,6 +1526,7 @@ class InferenceEngine:
             if (seq is None or seq.prefilled
                     or any(c.seqs[slot] is seq for c in self._inflight)
                     or seq.first_handle is None or seq.todo_ids
+                    or seq.todo_resume is not None or seq.todo_rebuild
                     or seq.handle.cancelled):
                 continue
             b = self._budget_for(seq, chunk) - 1   # the resolve commits one
@@ -1544,6 +1772,7 @@ class InferenceEngine:
         publish = (self._prefix_cache is not None
                    and reason in ("eos", "length")
                    and len(seq.written_ids) == seq.pos)
+        handle_rec = None
         if conv and reason in ("eos", "length"):
             # Trim pages past the written length before pinning: decode
             # budgets allocate ahead.
@@ -1581,9 +1810,21 @@ class InferenceEngine:
                         pending=(seq.last_token if reason == "length"
                                  else None))
                     self.allocator.pin(conv, seq.pages)
+                    if self._prefix_cache is not None:
+                        handle_rec = {"length": seq.pos,
+                                      "pages": len(seq.pages),
+                                      "updated_at": time.time(),
+                                      "tier": "hbm"}
             seq.pages = []
         elif publish and seq.pages:
             self._prefix_cache.insert(seq.written_ids, list(seq.pages))
+        if handle_rec is not None and self._state_manager is not None:
+            # Outside self._mu: the state manager's lock is above the
+            # engine's (its eviction hooks call back in).
+            try:
+                self._state_manager.record_prefix_handle(conv, handle_rec)
+            except Exception:  # noqa: BLE001 — accounting, not a gate
+                log.exception("prefix-handle record failed for %s", conv)
         self._finish(seq, reason, error)
 
     def _finish(self, seq: _Sequence, reason: str, error: str = "") -> None:

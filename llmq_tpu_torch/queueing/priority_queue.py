@@ -1,11 +1,16 @@
-"""Multi-level priority queue (counterpart of
-``llmq_tpu/queueing/priority_queue.py``, over its pure-Python backend).
+"""Multi-level priority queue (the port's copy of
+``llmq_tpu/queueing/priority_queue.py`` over its pure-Python core).
 
-Named queues, each a min-heap ordered by (priority asc, FIFO within
-priority), with a capacity check, pending → processing →
-completed/failed accounting and the queue wait recorded at pop. The
-JAX package's C++ core (``native/``) belongs to that package and is not
-loaded here.
+- named queues, each a min-heap ordered by (priority asc, FIFO within
+  priority), with a capacity check
+- pending → processing → completed/failed accounting, the queue wait
+  recorded at pop, requeue accounting for the retry path
+- admin removal by id and stale-message expiry through tombstones:
+  expired messages are marked TIMEOUT at once and discarded when the
+  heap surfaces them
+
+The JAX package's C++ core (``native/``) and its tenancy fair-dequeue
+layer belong to that package and are not used here.
 """
 
 from __future__ import annotations
@@ -13,16 +18,16 @@ from __future__ import annotations
 import heapq
 import itertools
 import threading
-import time
 from typing import Dict, List, Optional, Tuple
 
-from llmq_tpu_torch.core.types import (Message, MessageStatus,
-                                       QueueEmptyError, QueueFullError,
-                                       QueueNotFoundError, QueueStats)
+from llmq_tpu_torch.core.clock import SYSTEM_CLOCK, Clock
+from llmq_tpu_torch.core.errors import (QueueEmptyError, QueueFullError,
+                                        QueueNotFoundError)
+from llmq_tpu_torch.core.types import Message, MessageStatus, QueueStats
 
 
 class _PyBackend:
-    """Heap core keyed by integer handles."""
+    """Heap core keyed by integer handles, with lazy deletion."""
 
     ERR_NOT_FOUND = -1
     ERR_FULL = -2
@@ -31,8 +36,14 @@ class _PyBackend:
 
     def __init__(self) -> None:
         self._heaps: Dict[str, List[Tuple[int, int, int, float]]] = {}
+        # Liveness index, handle → enqueue_ts. ``discard`` removes items
+        # HERE in O(1) and leaves the heap entry behind as a stale record
+        # (lazy deletion); pop/peek skip entries absent from this map as
+        # they surface. Handles are never reused.
+        self._live: Dict[str, Dict[int, float]] = {}
         self._caps: Dict[str, int] = {}
-        # [pending, processing, completed, failed, pops, wait, proc_time]
+        # [pend, proc, comp, fail, pops, wait, ptime] — pops counts the
+        # wait samples feeding avg_wait.
         self._stats: Dict[str, List[float]] = {}
         self._seq = itertools.count(1)
         self._mu = threading.Lock()
@@ -42,6 +53,7 @@ class _PyBackend:
             if name in self._heaps:
                 return self.ERR_EXISTS
             self._heaps[name] = []
+            self._live[name] = {}
             self._caps[name] = capacity
             self._stats[name] = [0, 0, 0, 0, 0, 0.0, 0.0]
             return 0
@@ -50,17 +62,17 @@ class _PyBackend:
         with self._mu:
             return name in self._heaps
 
-    def push(self, name: str, handle: int, priority: int,
-             enqueue_ts: float) -> int:
+    def push(self, name: str, handle: int, priority: int, enqueue_ts: float) -> int:
         with self._mu:
             heap = self._heaps.get(name)
             if heap is None:
                 return self.ERR_NOT_FOUND
+            live = self._live[name]
             cap = self._caps[name]
-            if cap > 0 and len(heap) >= cap:
+            if cap > 0 and len(live) >= cap:
                 return self.ERR_FULL
-            heapq.heappush(heap, (priority, next(self._seq), handle,
-                                  enqueue_ts))
+            heapq.heappush(heap, (priority, next(self._seq), handle, enqueue_ts))
+            live[handle] = enqueue_ts
             self._stats[name][0] += 1
             return 0
 
@@ -69,32 +81,81 @@ class _PyBackend:
             heap = self._heaps.get(name)
             if heap is None:
                 return self.ERR_NOT_FOUND, 0, 0.0
-            if not heap:
-                return self.ERR_EMPTY, 0, 0.0
-            _, _, handle, ts = heapq.heappop(heap)
-            wait = max(0.0, now - ts)
-            s = self._stats[name]
-            s[0] -= 1
-            s[1] += 1
-            s[4] += 1
-            s[5] += wait
-            return 0, handle, wait
+            live = self._live[name]
+            while heap:
+                _, _, handle, ts = heapq.heappop(heap)
+                if live.pop(handle, None) is None:
+                    continue   # stale: discarded earlier
+                wait = max(0.0, now - ts)
+                s = self._stats[name]
+                s[0] -= 1
+                s[1] += 1
+                s[4] += 1
+                s[5] += wait
+                return 0, handle, wait
+            return self.ERR_EMPTY, 0, 0.0
 
-    def finish(self, name: str, process_time: float, ok: bool) -> int:
+    def _drain_stale_locked(self, name: str) -> None:
+        heap = self._heaps[name]
+        live = self._live[name]
+        while heap and heap[0][2] not in live:
+            heapq.heappop(heap)
+
+    def size(self, name: str) -> int:
+        with self._mu:
+            live = self._live.get(name)
+            return self.ERR_NOT_FOUND if live is None else len(live)
+
+    def complete(self, name: str, process_time: float) -> int:
         with self._mu:
             s = self._stats.get(name)
             if s is None:
                 return self.ERR_NOT_FOUND
             if s[1] > 0:
                 s[1] -= 1
-            s[2 if ok else 3] += 1
+            s[2] += 1
             s[6] += process_time
             return 0
 
-    def stats(self, name: str) -> Optional[List[float]]:
+    def fail(self, name: str, process_time: float) -> int:
         with self._mu:
             s = self._stats.get(name)
-            return None if s is None else list(s)
+            if s is None:
+                return self.ERR_NOT_FOUND
+            if s[1] > 0:
+                s[1] -= 1
+            s[3] += 1
+            s[6] += process_time
+            return 0
+
+    def requeue_accounting(self, name: str) -> int:
+        with self._mu:
+            s = self._stats.get(name)
+            if s is None:
+                return self.ERR_NOT_FOUND
+            if s[1] > 0:
+                s[1] -= 1
+            return 0
+
+    def discard(self, name: str, handle: int) -> int:
+        """Remove a pending item by handle with no wait/failed accounting
+        (admin deletion); O(1) lazy deletion."""
+        with self._mu:
+            live = self._live.get(name)
+            if live is None:
+                return self.ERR_NOT_FOUND
+            if live.pop(handle, None) is None:
+                return self.ERR_EMPTY
+            self._stats[name][0] -= 1
+            self._drain_stale_locked(name)
+            return 0
+
+    def stats(self, name: str) -> Tuple[int, List[int], List[float]]:
+        with self._mu:
+            s = self._stats.get(name)
+            if s is None:
+                return self.ERR_NOT_FOUND, [], []
+            return 0, [int(x) for x in s[:5]], list(s[5:])
 
     def queue_names(self) -> List[str]:
         with self._mu:
@@ -104,18 +165,29 @@ class _PyBackend:
 class MultiLevelQueue:
     """Named priority queues sharing one ordering core."""
 
-    def __init__(self) -> None:
+    ERR_NOT_FOUND = -1
+    ERR_FULL = -2
+    ERR_EMPTY = -3
+    ERR_EXISTS = -4
+
+    def __init__(self, clock: Optional[Clock] = None) -> None:
+        self._clock = clock or SYSTEM_CLOCK
         self._core = _PyBackend()
-        # handle → (queue_name, Message); Python owns the Message objects.
-        self._messages: Dict[int, Tuple[str, Message]] = {}
+        # handle → (queue_name, Message, enqueue_ts); Python owns Message objects.
+        self._messages: Dict[int, Tuple[str, Message, float]] = {}
+        self._tombstones: set[int] = set()
         self._caps: Dict[str, int] = {}
         self._next_handle = itertools.count(1)
         self._mu = threading.Lock()
 
+    # -- queue management ----------------------------------------------------
+
     def create_queue(self, name: str, capacity: int = 0) -> None:
-        if self._core.create_queue(name, capacity) == 0:
-            with self._mu:
-                self._caps[name] = capacity
+        err = self._core.create_queue(name, capacity)
+        if err == self.ERR_EXISTS:
+            return  # idempotent, like CreateQueue on an existing name
+        with self._mu:
+            self._caps[name] = capacity
 
     def has_queue(self, name: str) -> bool:
         return self._core.has_queue(name)
@@ -123,37 +195,54 @@ class MultiLevelQueue:
     def queue_names(self) -> List[str]:
         return self._core.queue_names()
 
+    # -- data path -----------------------------------------------------------
+
     def push(self, name: str, message: Message) -> None:
-        now = time.time()
+        now = self._clock.now()
         handle = next(self._next_handle)
-        # Status is set before the message becomes visible to poppers.
+        # Status is set BEFORE the message becomes visible to concurrent
+        # poppers — a pop may legitimately complete the message before this
+        # function returns, and must not be overwritten back to PENDING.
         message.status = MessageStatus.PENDING
         message.touch(now)
         with self._mu:
-            self._messages[handle] = (name, message)
+            self._messages[handle] = (name, message, now)
         err = self._core.push(name, handle, int(message.priority), now)
         if err == 0:
             return
         with self._mu:
             self._messages.pop(handle, None)
-        if err == _PyBackend.ERR_NOT_FOUND:
+        if err == self.ERR_NOT_FOUND:
             raise QueueNotFoundError(name)
-        raise QueueFullError(name, self._caps.get(name, 0))
+        if err == self.ERR_FULL:
+            raise QueueFullError(name, self._caps.get(name, 0))
+        raise RuntimeError(f"push failed: err={err}")
 
     def pop(self, name: str) -> Message:
-        """Most urgent message; moves it to PROCESSING and records the
-        measured queue wait as ``last_wait_time``."""
-        err, handle, wait = self._core.pop(name, time.time())
-        if err == _PyBackend.ERR_NOT_FOUND:
-            raise QueueNotFoundError(name)
-        if err == _PyBackend.ERR_EMPTY:
-            raise QueueEmptyError(name)
-        with self._mu:
-            _, message = self._messages.pop(handle)
-        message.status = MessageStatus.PROCESSING
-        message.last_wait_time = wait  # type: ignore[attr-defined]
-        message.touch()
-        return message
+        """Most urgent message; moves it to PROCESSING. Tombstoned
+        (expired) entries surfacing here are counted failed and skipped.
+        The measured queue wait is attached as ``last_wait_time``."""
+        while True:
+            err, handle, wait = self._core.pop(name, self._clock.now())
+            if err == self.ERR_NOT_FOUND:
+                raise QueueNotFoundError(name)
+            if err == self.ERR_EMPTY:
+                raise QueueEmptyError(name)
+            with self._mu:
+                tomb = handle in self._tombstones
+                if tomb:
+                    self._tombstones.discard(handle)
+                    self._messages.pop(handle, None)
+                else:
+                    entry = self._messages.pop(handle, None)
+            if tomb or entry is None:
+                self._core.fail(name, 0.0)
+                continue
+            _, message, _ = entry
+            message.status = MessageStatus.PROCESSING
+            message.last_wait_time = wait  # type: ignore[attr-defined]
+            message.touch(self._clock.now())
+            return message
 
     def try_pop(self, name: str) -> Optional[Message]:
         try:
@@ -161,26 +250,110 @@ class MultiLevelQueue:
         except QueueEmptyError:
             return None
 
+    def size(self, name: str) -> int:
+        n = self._core.size(name)
+        if n == self.ERR_NOT_FOUND:
+            raise QueueNotFoundError(name)
+        with self._mu:
+            tomb_here = sum(
+                1 for h in self._tombstones
+                if h in self._messages and self._messages[h][0] == name)
+        return max(0, n - tomb_here)
+
+    def total_size(self) -> int:
+        return sum(self.size(n) for n in self.queue_names())
+
+    # -- stat transitions ----------------------------------------------------
+
     def complete_message(self, name: str, message: Message,
                          process_time: float = 0.0) -> None:
-        if self._core.finish(name, process_time, True) != 0:
+        err = self._core.complete(name, process_time)
+        if err == self.ERR_NOT_FOUND:
             raise QueueNotFoundError(name)
         message.status = MessageStatus.COMPLETED
-        message.touch()
+        message.touch(self._clock.now())
 
     def fail_message(self, name: str, message: Message,
                      process_time: float = 0.0) -> None:
-        if self._core.finish(name, process_time, False) != 0:
+        err = self._core.fail(name, process_time)
+        if err == self.ERR_NOT_FOUND:
             raise QueueNotFoundError(name)
         message.status = MessageStatus.FAILED
-        message.touch()
+        message.touch(self._clock.now())
+
+    def requeue(self, name: str, message: Message) -> None:
+        """Return a popped (PROCESSING) message to the queue without
+        counting it completed/failed — the retry path."""
+        self.requeue_accounting_for(name)
+        self.push(name, message)
+
+    def requeue_accounting_for(self, name: str) -> None:
+        """Move a popped message out of PROCESSING stats without a
+        completed/failed transition (it will re-enter later, e.g. via the
+        delayed queue after a retry backoff)."""
+        err = self._core.requeue_accounting(name)
+        if err == self.ERR_NOT_FOUND:
+            raise QueueNotFoundError(name)
+
+    def remove_message(self, name: str, message_id: str) -> Optional[Message]:
+        """Remove a PENDING message by id (the admin delete). Unlike expiry tombstones, this
+        eagerly discards the heap entry with no wait-sample or failed
+        accounting — an admin deletion is not a failure and must not
+        skew avg_wait. Returns the message, or None if no pending
+        message has that id."""
+        if not self.has_queue(name):
+            raise QueueNotFoundError(name)
+        with self._mu:
+            target = None
+            for h, (qn, msg, _) in self._messages.items():
+                if qn == name and msg.id == message_id and h not in self._tombstones:
+                    target = (h, msg)
+                    break
+        if target is None:
+            return None
+        h, msg = target
+        if self._core.discard(name, h) != 0:
+            return None  # already popped by a concurrent consumer
+        with self._mu:
+            self._messages.pop(h, None)
+        msg.status = MessageStatus.FAILED
+        msg.error = "removed by admin"
+        return msg
+
+    # -- stale cleanup --------------------------------------------------------
+
+    def expire_older_than(self, name: str, max_age: float) -> List[Message]:
+        """Mark pending messages older than ``max_age`` as TIMEOUT: they
+        are tombstoned and discarded (with failed accounting) when the
+        heap surfaces them; reported sizes exclude them at once."""
+        if not self.has_queue(name):
+            raise QueueNotFoundError(name)
+        cutoff = self._clock.now() - max_age
+        expired: List[Message] = []
+        with self._mu:
+            for h, (qn, msg, ts) in self._messages.items():
+                if qn == name and ts < cutoff and h not in self._tombstones:
+                    self._tombstones.add(h)
+                    msg.status = MessageStatus.TIMEOUT
+                    expired.append(msg)
+        return expired
+
+    # -- stats ---------------------------------------------------------------
 
     def get_stats(self, name: str) -> QueueStats:
-        s = self._core.stats(name)
-        if s is None:
+        err, ints, floats = self._core.stats(name)
+        if err == self.ERR_NOT_FOUND:
             raise QueueNotFoundError(name)
-        return QueueStats(queue_name=name, pending_count=int(s[0]),
-                          processing_count=int(s[1]),
-                          completed_count=int(s[2]), failed_count=int(s[3]),
-                          wait_samples=int(s[4]), total_wait_time=s[5],
-                          total_process_time=s[6])
+        return QueueStats(
+            queue_name=name,
+            pending_count=ints[0],
+            processing_count=ints[1],
+            completed_count=ints[2],
+            failed_count=ints[3],
+            wait_samples=ints[4],
+            total_wait_time=floats[0],
+            total_process_time=floats[1],
+        )
+
+    def get_all_stats(self) -> Dict[str, QueueStats]:
+        return {n: self.get_stats(n) for n in self.queue_names()}

@@ -78,6 +78,42 @@ _BLOCKED_IMPORT_SCRIPT = textwrap.dedent("""
                                                 MixedChunkHandle)
     assert hasattr(TorchExecutor, "decode_chunk_start")
     assert hasattr(TorchExecutor, "mixed_chunk_start")
+    # The serving process: queue plane, supervisor, conversation
+    # service, preprocessor, overload shedder, message store, REST.
+    from llmq_tpu_torch.core.clock import FakeClock, SystemClock
+    from llmq_tpu_torch.core.errors import (ConversationNotFoundError,
+                                            MessageNotFoundError)
+    from llmq_tpu_torch.queueing.delayed_queue import DelayedQueue
+    from llmq_tpu_torch.queueing.dead_letter_queue import DeadLetterQueue
+    from llmq_tpu_torch.queueing.queue_manager import (PriorityAdjustRule,
+                                                       QueueManager)
+    from llmq_tpu_torch.queueing.worker import (ExponentialBackoff,
+                                                FixedBackoff, Worker)
+    from llmq_tpu_torch.queueing.factory import QueueFactory, QueueType
+    from llmq_tpu_torch.engine.supervisor import EngineSupervisor
+    from llmq_tpu_torch.conversation.persistence import (InMemoryStore,
+                                                         RedisStore,
+                                                         SqliteStore,
+                                                         make_store)
+    from llmq_tpu_torch.conversation.state_manager import StateManager
+    from llmq_tpu_torch.preprocessor.preprocessor import Preprocessor
+    from llmq_tpu_torch.api.overload import (OverloadShedder,
+                                             build_shedder,
+                                             estimate_prompt_tokens,
+                                             sanitize_tenant)
+    from llmq_tpu_torch.api.message_store import MessageStore
+    from llmq_tpu_torch.api.server import ApiServer
+    from llmq_tpu_torch.engine.engine import InferenceEngine
+    for fn in ("recover_after_crash", "healthy",
+               "attach_conversation_manager", "touch_conversation",
+               "_release_sequence_pages", "_reclaim_pending_pages"):
+        assert callable(getattr(InferenceEngine, fn)), fn
+    from llmq_tpu_torch.core.config import (ConversationConfig,
+                                            OverloadConfig,
+                                            PersistenceConfig, RetryConfig,
+                                            SupervisorConfig)
+    assert SupervisorConfig().enabled and OverloadConfig().enabled
+    assert RetryConfig().max_retries == 3
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", sys.argv[1] + "/chip_smoke.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -89,14 +125,15 @@ _BLOCKED_IMPORT_SCRIPT = textwrap.dedent("""
 
 def test_port_imports_without_jax_or_reference_package():
     """Tolerance: none — every module must import, the mixed and ragged
-    entry points included."""
+    entry points and the serving process's modules included."""
     res = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT_SCRIPT,
                           REPO], capture_output=True, text=True,
                          timeout=120, cwd=REPO)
     assert res.returncode == 0, res.stdout + res.stderr
     n = int(res.stdout.split("IMPORTED")[1])
-    # core, engine, ops, models, queueing, api and their modules.
-    assert n >= 20, res.stdout
+    # core, engine, ops, models, queueing, api, conversation,
+    # preprocessor and their modules.
+    assert n >= 30, res.stdout
 
 
 def test_block_really_blocks():

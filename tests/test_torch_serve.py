@@ -163,13 +163,15 @@ def test_worker_completes_and_fails_messages():
         msg.response = msg.content.upper()
 
     w = Worker("w0", mgr, process)
-    ok, bad = Message(content="fine"), Message(content="boom")
+    # max_retries=0: the failure is permanent at once (the retry path
+    # has tests of its own in test_torch_queue_plane.py).
+    ok, bad = Message(content="fine"), Message(content="boom", max_retries=0)
     mgr.push_message(ok)
     mgr.push_message(bad)
     assert w.process_batch() == 2
     assert ok.status == MessageStatus.COMPLETED and ok.response == "FINE"
     assert bad.status == MessageStatus.FAILED and "boom" in bad.error
-    assert (w.processed, w.failed) == (1, 1)
+    assert (w.stats.succeeded, w.stats.failed) == (1, 1)
 
 
 def test_config_env_overrides_and_defaults():
