@@ -112,7 +112,24 @@ shows where it happened):
                  freeing its pinned pages; "urgent" served at HIGH; an
                  SSE stream equal to the queued response; 429 past a
                  low queue-depth limit and 503 with the engine stopped,
-                 both with Retry-After.
+                 both with Retry-After. The configuration is
+                 ``configs/config.yaml`` with the phase's overrides,
+                 written to a file and read by ``load_config``; the
+                 process is the full ``App`` (load balancer, resource
+                 scheduler). ``/api/v1/resources`` lists the
+                 card by its name and memory with the engine's chip
+                 allocated, and it stays online past twice a 3 s
+                 heartbeat timeout; ``/metrics`` (parsed) holds the
+                 queue's completed and failed counts by priority, the
+                 supervisor's restart, the dead-letter depth, the
+                 engine's preemptions and pages in use, and the
+                 shedder's counts, each equal to its owner's; the
+                 learned prefill ETA agrees with the prefills the engine
+                 reported; a drain with four requests decoding ends
+                 idle, /health reading "draining" meanwhile, and each
+                 completes once. Printed: a scrape's ms while 8 rows
+                 decode, and B=1 and 8-concurrent tok/s with the engine's
+                 metrics on and off.
 9. serve-int8 — llama3-8b with int8 weights and int8 KV at full width and
                  depth (``LLMQ_MODEL_QUANTIZATION=int8
                  LLMQ_MODEL_KV_QUANTIZATION=int8``), the same REST mix:
@@ -139,6 +156,7 @@ from __future__ import annotations
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -339,6 +357,11 @@ def phase_env(state) -> None:
     log("[env] " + nv.stdout.strip().splitlines()[-1])
     log(f"[env] capability {torch.cuda.get_device_capability(0)} "
         f"devices {torch.cuda.device_count()}")
+    try:
+        import yaml
+        log(f"[env] yaml {yaml.__version__} (the config file's reader)")
+    except ImportError as e:
+        log(f"[env] yaml does not import: {e}")
     CARD = nvidia_smi_line()
     log(f"[env] card {CARD}")
 
@@ -3122,14 +3145,104 @@ PRESSURE_FILLER = ("The queue serves four priority tiers, and every request "
                    "carries its own deadline and budget. ")
 
 
+#: The resource scheduler's heartbeat timeout in the serve-plane phase
+#: (seconds): the card's resource must stay online past twice it.
+PLANE_HEARTBEAT_S = 3.0
+
+
 def _plane_cfg():
     """The serve config with the phase's settings: retry backoff
-    PLANE_BACKOFF_S, a 5 ms worker poll and a 50 ms supervisor check."""
+    PLANE_BACKOFF_S, a 5 ms worker poll, a 50 ms supervisor check, and a
+    PLANE_HEARTBEAT_S heartbeat timeout checked every 0.5 s."""
     cfg = _serve_cfg()
     cfg.queue.retry.initial_backoff = PLANE_BACKOFF_S
     cfg.queue.worker.process_interval = 0.005
     cfg.executor.supervisor.check_interval = 0.05
+    cfg.resource_scheduler.heartbeat_timeout = PLANE_HEARTBEAT_S
+    cfg.resource_scheduler.monitor_interval = 0.5
     return cfg
+
+
+def _plane_config_file():
+    """``configs/config.yaml`` with the phase's overrides (the settings of
+    ``_plane_cfg``, the port's ``torch`` backend for the JAX package's
+    ``echo``), written into the port's gitignored build directory; the
+    config ``load_config`` reads from it, which must be
+    ``_plane_cfg()``."""
+    import dataclasses
+
+    import yaml
+
+    from llmq_tpu_torch.core.config import load_config
+    from llmq_tpu_torch.ops.kernels import BUILD_DIR
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "configs", "config.yaml")) as f:
+        data = yaml.safe_load(f)
+    want = _plane_cfg()
+    over = {"device": want.device,
+            "model": {"name": want.model.name,
+                      "max_seq_len": want.model.max_seq_len},
+            "executor": {"backend": "torch",
+                         "max_decode_steps": want.executor.max_decode_steps,
+                         "supervisor": {"check_interval":
+                                        want.executor.supervisor.check_interval}},
+            "queue": {"retry": {"initial_backoff":
+                                want.queue.retry.initial_backoff},
+                      "worker": {"process_interval":
+                                 want.queue.worker.process_interval}},
+            "resource_scheduler": {
+                "heartbeat_timeout": want.resource_scheduler.heartbeat_timeout,
+                "monitor_interval": want.resource_scheduler.monitor_interval}}
+
+    def merge(dst, src):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                merge(dst.setdefault(k, {}), v)
+            else:
+                dst[k] = v
+
+    merge(data, over)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = str(BUILD_DIR / "serve_plane_config.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(data, f, sort_keys=False)
+    cfg = load_config(path)
+    if dataclasses.asdict(cfg) != dataclasses.asdict(want):
+        raise AssertionError("the config file did not load to the phase's "
+                             "settings")
+    return cfg, path
+
+
+def _scrape(base):
+    """``GET /metrics`` parsed: {(name, sorted label pairs): value}, and
+    the ms the request took."""
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(f"{base}/metrics", timeout=60) as resp:
+        ctype = resp.headers["Content-Type"]
+        text = resp.read().decode()
+    ms = (time.perf_counter() - t0) * 1e3
+    if not ctype.startswith("text/plain"):
+        raise AssertionError(f"/metrics content type {ctype}")
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = re.fullmatch(r"([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})? (\S+)",
+                         line)
+        if m is None:
+            raise AssertionError(f"/metrics line not parsed: {line!r}")
+        labels = tuple(sorted(re.findall(r'(\w+)="((?:[^"\\]|\\.)*)"',
+                                         m.group(2) or "")))
+        out[(m.group(1), labels)] = float(m.group(3))
+    return out, ms
+
+
+def _msum(samples, name, **match) -> float:
+    """The sum of a family's samples whose labels include ``match``."""
+    return sum(v for (n, labels), v in samples.items() if n == name
+               and all(dict(labels).get(k) == str(w)
+                       for k, w in match.items()))
 
 
 def _http_status(method, url, body=None):
@@ -3610,7 +3723,8 @@ def _sse_check(engine, base) -> dict:
         with urllib.request.urlopen(req, timeout=120) as resp:
             ctype = resp.headers["Content-Type"]
             body = resp.read().decode()
-        streamed = list(tr.handles.values())[n0].result.tokens
+        streamed_id, streamed_handle = list(tr.handles.items())[n0]
+        streamed = streamed_handle.result.tokens
         queued_tokens = tr.handles[queued["id"]].result.tokens
     finally:
         engine.tokenizer = tokenizer
@@ -3632,7 +3746,8 @@ def _sse_check(engine, base) -> dict:
         f"greedy response ({len(text)} chars, every id rendered as a "
         f"letter), tokens equal ({len(streamed)}) ({CARD})")
     return {"data_events": len(datas),
-            "first_token_ms": done["first_token_ms"]}
+            "first_token_ms": done["first_token_ms"],
+            "streamed_id": streamed_id}
 
 
 def _overload(app, engine, base) -> dict:
@@ -3660,11 +3775,217 @@ def _overload(app, engine, base) -> dict:
     return {"backlog": backlog[0], "engine_down": down[0]}
 
 
+def _topology_check(app, base) -> dict:
+    """``GET /api/v1/resources`` lists every card by the name
+    ``torch.cuda.get_device_name`` gives and its memory in GB (2**30
+    bytes) from ``total_memory``; the engine's allocation holds one
+    chip."""
+    import torch
+
+    from llmq_tpu_torch.scheduling.resource_scheduler import ResourceType
+
+    status, r = _http("GET", f"{base}/api/v1/resources")
+    name = torch.cuda.get_device_name(0)
+    gb = torch.cuda.get_device_properties(0).total_memory / 2**30
+    cards = [x for x in r["resources"] if name in x["capabilities"]]
+    alloc = app.engine_allocation
+    held = [x for x in cards if x["id"] == alloc.resource_id]
+    if (status != 200 or len(cards) != torch.cuda.device_count()
+            or any("cuda" not in x["capabilities"] for x in cards)
+            or any(abs(x["capacity"]["hbm_gb"] - gb) > 1e-6 for x in cards)
+            or alloc.request.amounts != {ResourceType.CHIP: 1.0}
+            or len(held) != 1 or held[0]["used"] != {"chip": 1.0}):
+        raise AssertionError(f"topology: {status} {r} {alloc}")
+    log(f"[serve-plane] /api/v1/resources: {len(cards)} card(s) "
+        f"{name!r}, {gb:.2f} GB each; the engine holds 1 chip of "
+        f"{alloc.resource_id} (pinned)")
+    return {"resource": alloc.resource_id, "hbm_gb": gb, "kind": name,
+            "registered_at": time.time()}
+
+
+def _heartbeat_check(app, topo) -> None:
+    """The card's resource is still online after twice the heartbeat
+    timeout, and the heartbeat moved."""
+    from llmq_tpu_torch.scheduling.resource_scheduler import ResourceStatus
+
+    left = topo["registered_at"] + 2 * PLANE_HEARTBEAT_S + 0.5 - time.time()
+    if left > 0:
+        time.sleep(left)
+    r = app.resource_scheduler.get_resource(topo["resource"])
+    if r.status != ResourceStatus.ONLINE or \
+            r.last_heartbeat <= topo["registered_at"]:
+        raise AssertionError(f"heartbeat: {r.to_dict()}")
+    log(f"[serve-plane] resource {r.id} online "
+        f"{time.time() - topo['registered_at']:.1f} s after registering "
+        f"(heartbeat timeout {PLANE_HEARTBEAT_S} s)")
+
+
+def _metrics_gates(app, engine, base, before, start, streamed_id,
+                   requeued) -> dict:
+    """The parsed ``/metrics`` against each counter's owner, as deltas
+    over the phase (the families are per process; earlier phases' engines
+    share the engine's name): the completed and failed messages by
+    priority (what the message store saw, the one engine-refused message
+    requeued once more, and the queue's own stats), the supervisor's
+    restart, the dead-letter depth, the engine's preemptions and decode
+    steps, and its pages in use once idle."""
+    from llmq_tpu_torch.core.types import PRIORITY_TIERS
+
+    _until(lambda: _idle(engine), 120, "idle engine before the scrape")
+    time.sleep(0.05)          # the idle loop refreshes the pool gauges
+    s, scrape_ms = _scrape(base)
+    mgr = app.factory.get_queue_manager("standard")
+    stats = mgr.get_all_stats()
+    msgs = [m for m in app.message_store.list(limit=10**6)
+            if m.id != streamed_id]
+    bad = []
+    for tier in PRIORITY_TIERS:
+        for fam, status, stat in (
+                ("llm_queue_messages_completed_total", "completed",
+                 "completed_count"),
+                ("llm_queue_messages_failed_total", "failed",
+                 "failed_count")):
+            got = (_msum(s, fam, manager="standard", priority=tier)
+                   - _msum(before, fam, manager="standard", priority=tier))
+            seen = sum(1 for m in msgs if m.status.value == status
+                       and m.priority.tier_name == tier)
+            if status == "failed" and tier == "low":
+                seen += requeued
+            if not got == seen == getattr(stats[tier], stat):
+                bad.append((fam, tier, got, seen, getattr(stats[tier], stat)))
+    name = engine.name
+    restarts = (_msum(s, "llm_queue_engine_restarts_total", engine=name)
+                - _msum(before, "llm_queue_engine_restarts_total",
+                        engine=name))
+    dlq = app.factory.get_dead_letter_queue("standard")
+    depth = _msum(s, "llm_queue_dead_letter_depth", queue=dlq.name)
+    preempt = (_msum(s, "llm_queue_preemptions_total", engine=name)
+               - _msum(before, "llm_queue_preemptions_total", engine=name))
+    steps = (_msum(s, "llm_queue_decode_steps_total", engine=name)
+             - _msum(before, "llm_queue_decode_steps_total", engine=name))
+    pages = _msum(s, "llm_queue_kv_pages_in_use", engine=name)
+    if (bad or restarts != 1 or depth != dlq.size()
+            or preempt != engine.preemptions - start["preemptions"]
+            or steps != engine.steps - start["steps"]
+            or pages != engine.allocator.used()):
+        raise AssertionError(
+            f"/metrics: counts {bad}, restarts {restarts}, dead letters "
+            f"{depth} vs {dlq.size()}, preemptions {preempt} vs "
+            f"{engine.preemptions - start['preemptions']}, steps {steps} vs "
+            f"{engine.steps - start['steps']}, pages {pages} vs "
+            f"{engine.allocator.used()}")
+    done = {t: stats[t].completed_count for t in PRIORITY_TIERS}
+    failed = {t: stats[t].failed_count for t in PRIORITY_TIERS}
+    log(f"[serve-plane] /metrics ({scrape_ms:.1f} ms, {len(s)} samples) "
+        f"equals the owners' counts: completed {done}, failed {failed}, "
+        f"restarts {restarts:.0f}, dead letters {depth:.0f}, preemptions "
+        f"{preempt:.0f}, decode steps {steps:.0f}, pages in use "
+        f"{pages:.0f}")
+    return {"completed": done, "failed": failed, "preemptions": preempt,
+            "decode_steps": steps, "pages_in_use": pages}
+
+
+def _learned_prefill(app, pairs) -> dict:
+    """The resource scheduler's learned prefill ETA for 1200 tokens is
+    positive and is the EWMA of the (tokens, seconds) pairs the engine
+    reported to ``on_prefill_observed``."""
+    if not pairs:
+        raise AssertionError("the engine reported no prefill")
+    tps = None
+    for tokens, secs in pairs:
+        rate = tokens / secs
+        tps = rate if tps is None else 0.8 * tps + 0.2 * rate
+    want = 1200 / tps * 1e3
+    got = app.resource_scheduler.prefill_eta_ms(1200)
+    if not got or got <= 0 or abs(got - want) > 1e-9 * want:
+        raise AssertionError(f"learned prefill: {got} vs {want}")
+    log(f"[serve-plane] learned prefill rate {tps:.1f} tok/s from "
+        f"{len(pairs)} prefills: ETA {got:.1f} ms for 1200 tokens "
+        f"({CARD})")
+    return {"prefill_tok_s": tps, "eta_ms_1200": got,
+            "observations": len(pairs)}
+
+
+def _drain_check(app, engine, base) -> dict:
+    """Four 128-token requests decoding, then ``app.drain()``: /health
+    reads "draining" while it runs, it returns idle, and each message
+    completes once."""
+    mids = [_post(base, {"content": f"{i} drain check: describe the "
+                                    f"queue in a few words.",
+                         "priority": "normal",
+                         "metadata": {"max_new_tokens": 128}})
+            for i in range(4)]
+    _until(lambda: _decoding_rows(engine) >= 4, 120, "four rows decoding")
+    ok0 = sum(w.stats.succeeded for w in app.workers)
+    result = []
+    t = threading.Thread(target=lambda: result.append(app.drain()))
+    t0 = time.perf_counter()
+    t.start()
+    draining = 0
+    while t.is_alive():
+        _, h = _http("GET", f"{base}/health")
+        draining += h["status"] == "draining"
+        time.sleep(0.01)
+    t.join()
+    drain_s = time.perf_counter() - t0
+    done = [_poll(base, m) for m in mids]
+    once = sum(w.stats.succeeded for w in app.workers) - ok0
+    if (result != [True] or not draining or once != 4
+            or any(m["status"] != "completed" or m["retry_count"]
+                   for m in done)):
+        raise AssertionError(f"drain: {result} draining={draining} "
+                             f"completions {once} {done}")
+    log(f"[serve-plane] drain with 4 requests decoding: idle after "
+        f"{drain_s:.2f} s, /health 'draining' on {draining} reads, each "
+        f"completed once ({CARD})")
+    return {"drain_s": drain_s}
+
+
+def _metrics_cost(engine, base) -> dict:
+    """Printed, not gated: B=1 and 8-concurrent decode tok/s with the
+    engine's metrics on and off (turns on, off, off, on), and the ms of a
+    scrape while 8 rows decode."""
+    from llmq_tpu_torch.engine.engine import GenRequest
+
+    m = engine._m
+    rates = {"on": [], "off": []}
+    try:
+        for turn, on in enumerate((True, False, False, True)):
+            engine._m = m if on else None
+            key = "on" if on else "off"
+            _ttft, r1, _n = _b1_rates(engine, f"serve-plane metrics {key}")
+            b8, _ = _b8_rate(engine, f"serve-plane-metrics-{turn}")
+            rates[key].append((r1, b8))
+    finally:
+        engine._m = m
+    prompt = "The quick brown fox jumps over the lazy dog. " * 2
+    hs = [engine.submit(GenRequest(id=f"scrape-{i}-{time.time()}",
+                                   prompt=f"{i}: {prompt}",
+                                   max_new_tokens=256)) for i in range(8)]
+    _until(lambda: _decoding_rows(engine) >= 8, 120, "eight rows decoding")
+    ms = []
+    for _ in range(5):
+        ms.append(_scrape(base)[1])
+    rows = _decoding_rows(engine)
+    for h in hs:
+        assert h.wait(300), "scrape-load request timed out"
+    ms.sort()
+    log(f"[serve-plane] /metrics scrape {ms[2]:.2f} ms (median of 5; "
+        f"{', '.join(f'{x:.2f}' for x in ms)}) while {rows} rows decode; "
+        f"metrics on: B=1 {[round(r, 1) for r, _ in rates['on']]} tok/s, "
+        f"8 concurrent {[round(b, 1) for _, b in rates['on']]} tok/s; "
+        f"off: B=1 {[round(r, 1) for r, _ in rates['off']]}, 8 concurrent "
+        f"{[round(b, 1) for _, b in rates['off']]} ({CARD})")
+    return {"scrape_ms_b8": ms[2], "rates_on": rates["on"],
+            "rates_off": rates["off"]}
+
+
 def phase_serve_plane(state) -> None:
     """The serving process (queue factory with delayed and dead-letter
     queues, workers with retry backoff, crash supervisor, conversation
-    service, preprocessor, overload shedder) around the serve phase's
-    bf16 default engine, through REST. No ``*_plain`` twin may be
+    service, preprocessor, overload shedder, load balancer, resource
+    scheduler) around the serve phase's bf16 default engine,
+    configured from a YAML file, through REST. No ``*_plain`` twin may be
     called; the pressure traffic must launch the bucket route's
     kernels."""
     import torch
@@ -3676,12 +3997,21 @@ def phase_serve_plane(state) -> None:
     if engine is None:
         raise AssertionError("serve-plane serves on the serve phase's "
                              "engine: run both phases")
-    cfg = _plane_cfg()
+    cfg, path = _plane_config_file()
     out = state.setdefault("serve_plane", {})
     counts, restore = _count_plain_calls()
     app = App(cfg, engine=engine)
+    pairs = []
+    observe = engine.on_prefill_observed
+
+    def observed(tokens, seconds):
+        pairs.append((tokens, seconds))
+        observe(tokens, seconds)
+
+    engine.on_prefill_observed = observed
     base = f"http://127.0.0.1:{app.start(host='127.0.0.1', port=0)}"
-    log(f"[serve-plane] serving process on the serve phase's engine: retry "
+    log(f"[serve-plane] serving process on the serve phase's engine, "
+        f"configured from {os.path.relpath(path)}: retry "
         f"backoff initial {cfg.queue.retry.initial_backoff} s x "
         f"{cfg.queue.retry.backoff_multiplier} (max_retries "
         f"{cfg.queue.retry.max_retries}), worker poll "
@@ -3689,6 +4019,9 @@ def phase_serve_plane(state) -> None:
         f"{cfg.executor.supervisor.check_interval} s, overload shedding "
         f"{'on' if app.api.shedder is not None else 'off'}")
     try:
+        before, _ms = _scrape(base)
+        start = {"preemptions": engine.preemptions, "steps": engine.steps}
+        topo = _topology_check(app, base)
         kernels.reset_launches()
         out["pressure"] = _pool_pressure(engine, base, "serve-plane")
         torch.cuda.synchronize()
@@ -3704,8 +4037,29 @@ def phase_serve_plane(state) -> None:
         out["conversation"] = _conversation_plane(app, engine, base)
         out["priority"] = _priority_inference(base)
         out["sse"] = _sse_check(engine, base)
+        out["metrics"] = _metrics_gates(app, engine, base, before, start,
+                                        out["sse"]["streamed_id"],
+                                        requeued=1)
+        _heartbeat_check(app, topo)
+        out["topology"] = {k: v for k, v in topo.items()
+                           if k != "registered_at"}
+        out["prefill"] = _learned_prefill(app, pairs)
+        out["drain"] = _drain_check(app, engine, base)
+        out["metrics_cost"] = _metrics_cost(engine, base)
         out["overload"] = _overload(app, engine, base)
+        shed, _ms = _scrape(base)
+        got = {r: _msum(shed, "llm_queue_requests_shed_total", reason=r)
+               - _msum(before, "llm_queue_requests_shed_total", reason=r)
+               for r in app.api.shedder.shed_counts}
+        if got != {r: float(n) for r, n in
+                   app.api.shedder.shed_counts.items()} or not any(
+                       got.values()):
+            raise AssertionError(f"/metrics sheds {got} vs "
+                                 f"{app.api.shedder.shed_counts}")
+        log(f"[serve-plane] /metrics requests_shed_total by reason {got} "
+            f"equals the shedder's counts")
     finally:
+        engine.on_prefill_observed = observe
         app.stop()
         restore()
         engine.executor.release_graphs()

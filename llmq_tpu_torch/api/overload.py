@@ -13,11 +13,14 @@ keeps latency is to reject at the edge, explicitly, with a
    queues reached ``overload.queue_depth_limit`` (default 90% of
    ``queue.max_queue_size``, so clients back off before the hard
    queue-full 503).
-3. **deadline headroom** → 429: the estimated wait already exceeds the
-   request's own ``timeout`` × ``deadline_headroom``.
+3. **deadline headroom** → 429: the estimated wait plus the prompt's
+   prefill ETA at the resource scheduler's learned rate already exceeds
+   the request's own ``timeout`` × ``deadline_headroom``.
 
-Every shed counts in ``shed_counts`` and carries ``Retry-After`` (header
-and body). ``overload.enabled: false`` builds no shedder at all.
+Every shed counts in ``shed_counts`` and in ``requests_shed_total`` (by
+reason and code, with ``queue.enable_metrics``) and carries
+``Retry-After`` (header and body). ``overload.enabled: false`` builds no
+shedder at all.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import threading
 from typing import Any, Optional
 
 from llmq_tpu_torch.core.types import Message
+from llmq_tpu_torch.metrics.registry import get_metrics
 
 log = logging.getLogger("llmq_tpu_torch.overload")
 
@@ -51,13 +55,15 @@ def estimate_prompt_tokens(msg: Any) -> int:
 
 class OverloadShedder:
     def __init__(self, config, queue_config=None, *, engine=None,
-                 resource_scheduler=None) -> None:
+                 resource_scheduler=None,
+                 enable_metrics: bool = True) -> None:
         #: An OverloadConfig (or anything with its fields).
         self.config = config
         self.engine = engine
-        #: Anything with ``prefill_eta_ms(tokens)``; None until the
-        #: resource scheduler is ported (the ETA is then 0).
+        #: Anything with ``prefill_eta_ms(tokens)`` (the resource
+        #: scheduler); None: the prefill ETA is 0.
         self.resource_scheduler = resource_scheduler
+        self._metrics = get_metrics() if enable_metrics else None
         limit = int(getattr(config, "queue_depth_limit", 0) or 0)
         if limit <= 0 and queue_config is not None:
             limit = int(0.9 * getattr(queue_config, "max_queue_size",
@@ -121,6 +127,8 @@ class OverloadShedder:
         from llmq_tpu_torch.api.server import ApiError
         with self._mu:
             self.shed_counts[reason] = self.shed_counts.get(reason, 0) + 1
+        if self._metrics is not None:
+            self._metrics.requests_shed.labels(reason, str(code)).inc()
         log.warning("shedding request (%s → %d, retry in %.1fs): %s",
                     reason, code, retry_after, detail)
         raise ApiError(code, f"overloaded ({reason}): {detail}",
@@ -139,6 +147,8 @@ def build_shedder(config, *, engine=None,
     ocfg = getattr(config, "overload", None)
     if ocfg is None or not getattr(ocfg, "enabled", False):
         return None
-    return OverloadShedder(ocfg, getattr(config, "queue", None),
-                           engine=engine,
-                           resource_scheduler=resource_scheduler)
+    qcfg = getattr(config, "queue", None)
+    return OverloadShedder(ocfg, qcfg, engine=engine,
+                           resource_scheduler=resource_scheduler,
+                           enable_metrics=getattr(qcfg, "enable_metrics",
+                                                  True))

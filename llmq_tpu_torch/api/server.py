@@ -2,7 +2,9 @@
 counterpart of ``llmq_tpu/api/server.py``, with the routes of the planes
 the port has):
 
-- ``GET  /health`` (engine liveness)
+- ``GET  /health`` (engine liveness; ``draining`` while the process
+  drains)
+- ``GET  /metrics`` (Prometheus text exposition, ``metrics/registry.py``)
 - ``POST /api/v1/messages`` → 202, or with ``"stream": true`` an SSE
   stream of tokens; ``GET /api/v1/messages`` (filters) and
   ``GET /api/v1/messages/:id``
@@ -11,15 +13,20 @@ the port has):
   ``PUT /api/v1/conversations/:id/state``,
   ``GET /api/v1/users/:user_id/conversations``
 - ``GET /api/v1/queues/stats``, ``GET /api/v1/engine/stats``
+- ``POST /api/v1/resources``, ``GET /api/v1/resources``,
+  ``GET /api/v1/resources/stats`` (the resource scheduler)
+- ``POST /api/v1/endpoints``, ``GET /api/v1/endpoints``,
+  ``GET /api/v1/endpoints/stats``, ``POST /api/v1/endpoints/:id/drain``,
+  ``DELETE /api/v1/endpoints/:id`` (the load balancer)
 - ``POST /api/v1/generate`` (synchronous generation)
-- admin: preprocessor rules and user priorities, removal of a pending
-  message, dead-letter requeue (one and all)
+- admin: the process drain, preprocessor rules and user priorities,
+  removal of a pending message, dead-letter requeue (one and all)
 
 Every submission runs through the preprocessor (priority inference),
 the overload shedder (429/503 with ``Retry-After``), the queue manager
 and the conversation service. The routes of planes the port does not
-have yet (metrics, resources, endpoints, cluster, usage, tenancy,
-tracing, profiling, control plane, drain) wait for them.
+have yet (cluster, usage, tenancy, tracing, profiling, control plane)
+wait for them.
 """
 
 from __future__ import annotations
@@ -41,6 +48,12 @@ from llmq_tpu_torch.core.config import Config
 from llmq_tpu_torch.core.errors import QueueFullError, QueueNotFoundError
 from llmq_tpu_torch.core.types import (ConversationState, Message,
                                        MessageStatus, Priority, new_id)
+from llmq_tpu_torch.loadbalancer.load_balancer import Endpoint, EndpointStatus
+from llmq_tpu_torch.metrics.registry import exposition
+from llmq_tpu_torch.scheduling.resource_scheduler import (Resource,
+                                                          ResourceStatus,
+                                                          ResourceType)
+from llmq_tpu_torch.utils.logging import bind_log_context, reset_log_context
 
 log = logging.getLogger("llmq_tpu_torch.api")
 
@@ -125,13 +138,22 @@ class ApiServer:
 
     def __init__(self, config: Optional[Config] = None, *,
                  queue_factory=None, preprocessor=None, state_manager=None,
-                 engine=None, message_store: Optional[MessageStore] = None,
+                 load_balancer=None, resource_scheduler=None,
+                 engine=None, drain_hook: Optional[Callable[[], None]] = None,
+                 message_store: Optional[MessageStore] = None,
                  manager_name: str = "standard") -> None:
         self.config = config or Config()
         self.factory = queue_factory
         self.preprocessor = preprocessor
         self.state_manager = state_manager
+        self.load_balancer = load_balancer
+        self.resource_scheduler = resource_scheduler
         self.engine = engine
+        #: The process drain (``App.drain``), run on a thread of its own
+        #: by the admin route.
+        self.drain_hook = drain_hook
+        #: While True, /health answers status "draining".
+        self.draining = False
         self.store = message_store or MessageStore()
         self.manager_name = manager_name
         self._httpd: Optional[ThreadingHTTPServer] = None
@@ -141,8 +163,10 @@ class ApiServer:
         # gate of their own (_acquire_stream_slot).
         self._stream_mu = threading.Lock()
         self._active_streams = 0
-        #: None when overload.enabled is false.
-        self.shedder = build_shedder(self.config, engine=engine)
+        #: None when overload.enabled is false. The resource scheduler's
+        #: learned prefill rate feeds its deadline check.
+        self.shedder = build_shedder(self.config, engine=engine,
+                                     resource_scheduler=resource_scheduler)
         self._setup_routes()
 
     # -- SSE admission -------------------------------------------------------
@@ -179,6 +203,7 @@ class ApiServer:
     def _setup_routes(self) -> None:
         r = self._route
         r("GET", "/health", self.health_check)
+        r("GET", "/metrics", self.metrics_exposition)
         v1 = "/api/v1"
         r("POST", f"{v1}/messages", self.submit_message)
         r("GET", f"{v1}/messages/:id", self.get_message)
@@ -192,9 +217,18 @@ class ApiServer:
         r("GET", f"{v1}/users/:user_id/conversations",
           self.list_user_conversations)
         r("GET", f"{v1}/queues/stats", self.get_queue_stats)
+        r("POST", f"{v1}/resources", self.register_resource)
+        r("GET", f"{v1}/resources", self.list_resources)
+        r("GET", f"{v1}/resources/stats", self.get_resource_stats)
+        r("POST", f"{v1}/endpoints", self.register_endpoint)
+        r("GET", f"{v1}/endpoints", self.list_endpoints)
+        r("GET", f"{v1}/endpoints/stats", self.get_endpoint_stats)
+        r("POST", f"{v1}/endpoints/:id/drain", self.drain_endpoint)
+        r("DELETE", f"{v1}/endpoints/:id", self.delete_endpoint)
         r("GET", f"{v1}/engine/stats", self.get_engine_stats)
         r("POST", f"{v1}/generate", self.generate_sync)
         adm = f"{v1}/admin"
+        r("POST", f"{adm}/drain", self.drain_self)
         r("POST", f"{adm}/preprocessor/rules", self.add_priority_rule)
         r("GET", f"{adm}/preprocessor/rules", self.list_priority_rules)
         r("POST", f"{adm}/preprocessor/user-priorities",
@@ -222,6 +256,7 @@ class ApiServer:
                 continue
             req = _Request(method, path, match.groupdict(), query, body,
                            headers)
+            ltoken = bind_log_context(endpoint=path)
             try:
                 status, payload = handler(req)
             except ApiError as e:
@@ -237,6 +272,10 @@ class ApiServer:
                 log.exception("handler error on %s %s", method, path)
                 return 500, {"error": f"internal error: {e}"}, \
                     "application/json"
+            finally:
+                reset_log_context(ltoken)
+            if isinstance(payload, bytes):
+                return status, payload, "text/plain; version=0.0.4"
             if isinstance(payload, _SSEStream):
                 return status, payload, "text/event-stream"
             return status, payload, "application/json"
@@ -338,11 +377,15 @@ class ApiServer:
     # -- handlers ------------------------------------------------------------
 
     def health_check(self, req: _Request) -> Tuple[int, Any]:
-        out: Dict[str, Any] = {"status": "ok", "version": __version__,
-                               "time": time.time()}
+        out: Dict[str, Any] = {
+            "status": "draining" if self.draining else "ok",
+            "version": __version__, "time": time.time()}
         if self.engine is not None:
             out["engine"] = "running" if self.engine.running else "stopped"
         return 200, out
+
+    def metrics_exposition(self, req: _Request) -> Tuple[int, Any]:
+        return 200, exposition()
 
     def submit_message(self, req: _Request) -> Tuple[int, Any]:
         data = req.json()
@@ -625,6 +668,104 @@ class ApiServer:
                 stats[name]["dead_letter_size"] = dlq.size()
         return 200, stats
 
+    def register_resource(self, req: _Request) -> Tuple[int, Any]:
+        if self.resource_scheduler is None:
+            raise ApiError(503, "resource scheduler not configured")
+        data = req.json()
+        try:
+            capacity = {ResourceType(k): float(v)
+                        for k, v in (data.get("capacity") or {}).items()}
+            res = Resource(
+                id=data.get("id") or new_id(),
+                model_type=data.get("model_type", "llm"),
+                capabilities=set(data.get("capabilities") or []),
+                capacity=capacity,
+                endpoint=data.get("endpoint", ""),
+                status=ResourceStatus(data.get("status", "online")),
+                metadata=data.get("metadata") or {},
+            )
+        except (ValueError, TypeError) as e:
+            raise ApiError(400, f"invalid resource: {e}") from None
+        self.resource_scheduler.register_resource(res)
+        return 201, {"resource_id": res.id, "status": res.status.value}
+
+    def list_resources(self, req: _Request) -> Tuple[int, Any]:
+        if self.resource_scheduler is None:
+            raise ApiError(503, "resource scheduler not configured")
+        return 200, {"resources": [
+            r.to_dict() for r in self.resource_scheduler.resources()]}
+
+    def get_resource_stats(self, req: _Request) -> Tuple[int, Any]:
+        if self.resource_scheduler is None:
+            raise ApiError(503, "resource scheduler not configured")
+        return 200, self.resource_scheduler.get_stats()
+
+    def register_endpoint(self, req: _Request) -> Tuple[int, Any]:
+        if self.load_balancer is None:
+            raise ApiError(503, "load balancer not configured")
+        data = req.json()
+        try:
+            ep = Endpoint(
+                id=data.get("id") or new_id(),
+                name=data.get("name", ""),
+                url=data.get("url", ""),
+                model_type=data.get("model_type", "llm"),
+                weight=float(data.get("weight", 1.0)),
+                max_connections=int(data.get("max_connections", 0)),
+                status=EndpointStatus(data.get("status", "healthy")),
+                metadata=data.get("metadata") or {},
+            )
+        except (ValueError, TypeError) as e:
+            raise ApiError(400, f"invalid endpoint: {e}") from None
+        self.load_balancer.add_endpoint(ep)
+        return 201, {"endpoint_id": ep.id, "status": ep.status.value}
+
+    def list_endpoints(self, req: _Request) -> Tuple[int, Any]:
+        if self.load_balancer is None:
+            raise ApiError(503, "load balancer not configured")
+        return 200, {"endpoints": [e.to_dict()
+                                   for e in self.load_balancer.endpoints()]}
+
+    def get_endpoint_stats(self, req: _Request) -> Tuple[int, Any]:
+        if self.load_balancer is None:
+            raise ApiError(503, "load balancer not configured")
+        return 200, self.load_balancer.get_stats()
+
+    def drain_endpoint(self, req: _Request) -> Tuple[int, Any]:
+        """Take an endpoint out of new dispatch (its in-flight work
+        finishes). Body ``{"drain": false}`` re-admits it through
+        DEGRADED, and the health probe restores full traffic."""
+        lb = self.load_balancer
+        if lb is None:
+            raise ApiError(503, "load balancer not configured")
+        eid = req.params["id"]
+        drain = True
+        if req._body:   # noqa: SLF001 — same module
+            drain = bool(req.json().get("drain", True))
+        if lb.get_endpoint_by_id(eid) is None:
+            return 404, {"error": f"no endpoint {eid!r}"}
+        lb.set_draining(eid, drain)
+        return 200, {"endpoint_id": eid,
+                     "status": "draining" if drain else "degraded"}
+
+    def delete_endpoint(self, req: _Request) -> Tuple[int, Any]:
+        if self.load_balancer is None:
+            raise ApiError(503, "load balancer not configured")
+        eid = req.params["id"]
+        if not self.load_balancer.remove_endpoint(eid):
+            return 404, {"error": f"no endpoint {eid!r}"}
+        return 200, {"status": "removed", "endpoint_id": eid}
+
+    def drain_self(self, req: _Request) -> Tuple[int, Any]:
+        """The process drain: /health reads "draining" at once; the
+        drain hook (stop taking new work, wait out what is in flight)
+        runs on a thread of its own, so the response does not wait."""
+        self.draining = True
+        if self.drain_hook is not None:
+            threading.Thread(target=self.drain_hook, name="api-drain",
+                             daemon=True).start()
+        return 202, {"status": "draining"}
+
     def get_engine_stats(self, req: _Request) -> Tuple[int, Any]:
         if self.engine is None:
             raise ApiError(503, "engine not configured")
@@ -740,7 +881,8 @@ class ApiServer:
                 if isinstance(payload, _SSEStream):
                     self._stream(status, payload, ctype)
                     return
-                data = json.dumps(payload).encode()
+                data = (payload if isinstance(payload, bytes)
+                        else json.dumps(payload).encode())
                 self.send_response(status)
                 self.send_header("Content-Type", ctype)
                 self.send_header("Content-Length", str(len(data)))

@@ -98,6 +98,22 @@ class StateManager:
             conv.metadata["prefix_kv"] = dict(handle)
         return True
 
+    def update_prefix_handle_tier(self, conversation_id: str,
+                                  tier: str) -> bool:
+        """Set a recorded prefix handle's ``tier`` ("hbm" or "dropped":
+        the engine reclaimed the pin and no radix block holds the
+        stream). The handle's length and pages stay. False when the
+        conversation or its handle is unknown."""
+        with self._mu:
+            conv = self._convs.get(conversation_id)
+            if conv is None:
+                return False
+            h = conv.metadata.get("prefix_kv")
+            if not isinstance(h, dict):
+                return False
+            h["tier"] = tier
+        return True
+
     def prefix_handle(self, conversation_id: str) -> Optional[Dict]:
         """The last handle recorded by :meth:`record_prefix_handle`, or
         None."""

@@ -1,9 +1,18 @@
-"""Typed configuration for the port: dataclass defaults, then ``LLMQ_*``
-environment overrides, then CLI flags.
+"""Typed configuration for the port: dataclass defaults, then a YAML
+file, then ``LLMQ_*`` environment overrides, then CLI flags.
 
-Trimmed copy of ``llmq_tpu/core/config.py`` holding only what the serving
-process reads (the WAL and spool directories wait for their slice). There is no config file, so the package needs nothing beyond
-``torch`` and ``numpy``.
+A copy of ``llmq_tpu/core/config.py`` holding what the port's planes
+read, with the JAX package's defaults. :func:`load_config` reads the same
+files as the JAX package's (``configs/config.yaml`` among them). A key of
+a plane the port does not have yet (the WAL and spool directories, the
+cluster, disaggregation, store, observability, chaos, control-plane,
+tenancy and scenario planes, KV tiering, speculation, the mesh, the TPU
+block), or one that nothing here reads (the autoscaler's and the resource
+scheduler's scale thresholds, endpoint selection and session affinity,
+the server's read and write timeouts, a tier's ``max_concurrent``, the
+metrics port and path) is accepted only at the JAX package's default, or inside a block
+whose ``enabled`` is false; any other value raises, naming the key. An
+unknown key raises too: nothing in a file is silently ignored.
 """
 
 from __future__ import annotations
@@ -11,9 +20,13 @@ from __future__ import annotations
 import dataclasses
 import os
 from dataclasses import dataclass, field
-from typing import Any, List, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 from llmq_tpu_torch.core.types import Priority
+
+#: The port's one executor backend (the JAX package's are "echo" and
+#: "jax").
+VALID_BACKENDS = ("torch",)
 
 
 @dataclass
@@ -62,6 +75,13 @@ def default_queue_levels() -> List[QueueLevelConfig]:
     ]
 
 
+#: A tier's ``max_concurrent``, which nothing reads: a level may give it
+#: only as the JAX package's default tiers do, or at its class default.
+_LEVEL_MAX_CONCURRENT = {int(Priority.REALTIME): 100, int(Priority.HIGH): 200,
+                         int(Priority.NORMAL): 500, int(Priority.LOW): 1000}
+_LEVEL_MAX_CONCURRENT_DEFAULT = 500
+
+
 @dataclass
 class WorkerConfig:
     count: int = 4
@@ -94,6 +114,10 @@ class QueueConfig:
         default_factory=default_queue_levels)
     worker: WorkerConfig = field(default_factory=WorkerConfig)
     retry: RetryConfig = field(default_factory=RetryConfig)
+    #: Prometheus families fed by the queue plane, the supervisor and
+    #: the shedder (``metrics/registry.py``; the engine's follow
+    #: ``metrics.enabled``); served at ``GET /metrics``.
+    enable_metrics: bool = True
     #: Messages whose retries are exhausted go to the dead-letter queue.
     dead_letter_enabled: bool = True
     dead_letter_max_size: int = 1000
@@ -104,9 +128,54 @@ class QueueConfig:
 
 @dataclass
 class SchedulerConfig:
-    """Only the queue monitor's period is read in the port (its scale
-    signals wait for the autoscaler)."""
+    """Only the queue monitor's period is read in the port: the
+    autoscaler's keys wait for the slice that gives it an actuator."""
     monitor_interval: float = 10.0
+
+
+@dataclass
+class ResourceSchedulerConfig:
+    """The resource scheduler over the card's topology
+    (``scheduling/resource_scheduler.py``); its scale thresholds wait
+    with the autoscaler."""
+    allocation_timeout: float = 300.0
+    heartbeat_timeout: float = 30.0
+    pending_process_interval: float = 1.0
+    monitor_interval: float = 5.0
+
+
+@dataclass
+class LoadBalancerConfig:
+    """The endpoint registry's health checks
+    (``loadbalancer/load_balancer.py``); endpoint selection and session
+    affinity wait for the router that calls them."""
+    health_check_interval: float = 30.0
+
+
+@dataclass
+class ClusterConfig:
+    """Of the JAX package's cluster block only the drain bound, which
+    ``App.drain`` reads; the replica-set plane itself is not ported."""
+    #: Graceful-drain bound for SIGTERM and the admin drain: stop new
+    #: work, then wait up to this many seconds for in-flight work.
+    drain_timeout: float = 30.0
+
+
+@dataclass
+class LoggingConfig:
+    """``utils/logging.py``: "json" or "console" lines on stdout or
+    stderr."""
+    level: str = "info"
+    format: str = "json"
+    output: str = "stdout"
+
+
+@dataclass
+class MetricsConfig:
+    """``enabled`` turns the engine's families on or off, as the JAX
+    package's builder reads it. ``GET /metrics`` on the API port serves
+    every family."""
+    enabled: bool = True
 
 
 @dataclass
@@ -273,6 +342,9 @@ class PrefixCacheConfig:
 
 @dataclass
 class ExecutorConfig:
+    #: "torch", the port's executor (the JAX package's "echo" and "jax"
+    #: raise).
+    backend: str = "torch"
     max_batch_size: int = 8             # decode slots
     page_size: int = 16                 # tokens per KV page
     kv_pages: int = 512
@@ -294,6 +366,12 @@ class ExecutorConfig:
         default_factory=PrefixCacheConfig)
     supervisor: SupervisorConfig = field(default_factory=SupervisorConfig)
 
+    def __post_init__(self) -> None:
+        if self.backend not in VALID_BACKENDS:
+            raise ValueError(
+                f"config key executor.backend={self.backend!r} is not ported "
+                f"yet: this package's executor is 'torch'")
+
 
 @dataclass
 class Config:
@@ -301,8 +379,15 @@ class Config:
     persistence: PersistenceConfig = field(default_factory=PersistenceConfig)
     queue: QueueConfig = field(default_factory=QueueConfig)
     scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
+    resource_scheduler: ResourceSchedulerConfig = field(
+        default_factory=ResourceSchedulerConfig)
+    loadbalancer: LoadBalancerConfig = field(
+        default_factory=LoadBalancerConfig)
+    cluster: ClusterConfig = field(default_factory=ClusterConfig)
     conversation: ConversationConfig = field(
         default_factory=ConversationConfig)
+    logging: LoggingConfig = field(default_factory=LoggingConfig)
+    metrics: MetricsConfig = field(default_factory=MetricsConfig)
     overload: OverloadConfig = field(default_factory=OverloadConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     executor: ExecutorConfig = field(default_factory=ExecutorConfig)
@@ -325,6 +410,192 @@ def resolve_device(device: str = "cuda"):
     return dev
 
 
+
+
+#: The JAX package's keys of the planes the port does not have yet, at
+#: the JAX package's defaults. A non-empty dict is a block; every other
+#: value (lists and the empty dicts too) is one key's default.
+#: A tuple holds every value accepted: the JAX package's default and its
+#: canonical file's, where the two differ.
+_UNPORTED: Dict[str, Any] = {
+    "server": {"read_timeout": 30.0, "write_timeout": 30.0},
+    "queue": {"wal_dir": "", "spool_dir": ""},
+    "scheduler": {"strategy": "dynamic", "scale_up_threshold": 100,
+                  "scale_down_threshold": 10, "min_endpoints": 1,
+                  "max_endpoints": 10, "cooldown": 60.0},
+    "resource_scheduler": {"scale_up_load": 0.8, "scale_down_load": 0.2,
+                           "scale_cooldown": 120.0},
+    "loadbalancer": {"strategy": ("round_robin", "adaptive_load"),
+                     "max_retries": 3, "session_affinity": True,
+                     "session_ttl": 1800.0},
+    "metrics": {"port": 9090, "path": "/metrics"},
+    "cluster": {
+        "peers": [], "include_local": True, "failover_retries": 2,
+        "spill_load": 0.9, "affinity": "prefix", "peer_timeout": 120.0,
+        "breaker": {"enabled": True, "failure_threshold": 3,
+                    "base_backoff": 1.0, "max_backoff": 30.0,
+                    "jitter": 0.2}},
+    "disagg": {
+        "enabled": False, "role": "unified", "long_prompt_tokens": 512,
+        "long_prompt_ms": 250.0, "claim_ttl_s": 120.0,
+        "publish_on_finish": True, "rehydrate_on_start": True,
+        "miss_ttl_s": 5.0},
+    "store": {"resilience": {
+        "enabled": False, "op_timeout_s": 0.25, "retries": 2,
+        "retry_base_backoff_s": 0.01, "retry_max_backoff_s": 0.2,
+        "retry_jitter": 0.2, "timeout_threshold": 3,
+        "probe_interval_s": 1.0, "replay_buffer": 256, "seed": 0,
+        "breaker": {"enabled": True, "failure_threshold": 3,
+                    "base_backoff": 1.0, "max_backoff": 30.0,
+                    "jitter": 0.2}}},
+    "observability": {
+        "enabled": True, "recorder_capacity": 1024, "slow_capacity": 256,
+        "sla_ms": 5000.0, "emit_metrics": True, "propagate_trace": True,
+        "slo": {"enabled": True, "ttft_p99_ms": 2000.0,
+                "realtime_p99_ms": 500.0, "objective": 0.99,
+                "windows_s": [300.0, 3600.0]},
+        "usage": {"enabled": True, "max_tenants": 64,
+                  "max_conversations": 1024, "goodput_window_s": 300.0},
+        "critical_path": {"enabled": True, "recent_capacity": 256,
+                          "boot_capacity": 64}},
+    "chaos": {"enabled": False, "seed": 0, "faults": []},
+    "controlplane": {
+        "enabled": False, "interval": 2.0, "min_replicas": 1,
+        "max_replicas": 8, "fast_burn_threshold": 14.4,
+        "slow_burn_threshold": 6.0, "backlog_per_replica": 64,
+        "cooldown": 10.0, "max_actions_per_minute": 6,
+        "recovery_budget_s": 30.0, "scale_down_headroom": 1.5,
+        "escalate_burn": 1.0, "relax_burn": 0.5, "relax_after_ticks": 3,
+        "rungs": [
+            {"name": "tighten", "headroom_factor": 0.7,
+             "backlog_factor": 0.7},
+            {"name": "shed_batch", "headroom_factor": 0.5,
+             "backlog_factor": 0.5, "shed_priorities": ["low"]},
+            {"name": "shed_low_weight", "headroom_factor": 0.4,
+             "backlog_factor": 0.4, "shed_priorities": ["low", "normal"],
+             "shed_tenant_weight_below": 1.0}],
+        "pool": {"kind": "none", "base_port": 8200, "args": [],
+                 "provision_cmd": "", "decommission_cmd": "",
+                 "url_template": "", "ready_timeout": 20.0}},
+    "tenancy": {
+        "enabled": False, "tenants": {},
+        "default": {"weight": 1.0, "token_rate": 0.0, "burst_tokens": 0.0,
+                    "max_inflight": 0, "max_queue_depth": 0},
+        "share_window_s": 60.0},
+    "scenarios": {
+        "enabled": False, "dir": "configs/scenarios", "run": [],
+        "scale": 1.0, "out_dir": ".", "emit_json": True,
+        "default_seed": 0},
+    "model": {"checkpoint_path": "", "tokenizer_path": "",
+              "meta_rope_layout": False, "dtype": "bfloat16"},
+    "executor": {
+        "kv_tiering": {"enabled": False, "host_capacity_mb": 256,
+                       "host_max_conversations": 4096,
+                       "store_spill": True, "promote_timeout_s": 5.0,
+                       "eviction_policy": "saved_rate"},
+        "speculation": {"enabled": False, "draft_k": 4, "ngram_max": 3,
+                        "device_sampling": True},
+        "mesh": {"enabled": False, "shape": {}}},
+    "tpu": {"mesh_shape": {}, "platform": "", "compilation_cache_dir": ""},
+}
+
+
+def _is_block(spec: Any) -> bool:
+    return isinstance(spec, dict) and bool(spec)
+
+
+def _accepts(spec: Any, value: Any) -> bool:
+    """Whether ``value`` is the unported key's default (or one of them)."""
+    return value in spec if isinstance(spec, tuple) else value == spec
+
+
+def _not_ported(path: str, value: Any, spec: Any) -> ValueError:
+    return ValueError(
+        f"config key {path}={value!r} is not ported yet: this package "
+        f"accepts only the JAX package's default "
+        f"{' or '.join(map(repr, spec)) if isinstance(spec, tuple) else repr(spec)}")
+
+
+def _check_unported(path: str, value: Any, spec: Any) -> None:
+    """Accept ``value`` for the unported key or block ``path`` only at
+    the JAX package's default, or anywhere inside a block whose
+    ``enabled`` is false; raise otherwise."""
+    if not _is_block(spec):
+        if not _accepts(spec, value):
+            raise _not_ported(path, value, spec)
+        return
+    if not isinstance(value, dict):
+        raise ValueError(f"config key {path} must be a mapping")
+    for key in value:
+        if key.replace("-", "_") not in spec:
+            raise ValueError(f"unknown config key: {path}.{key}")
+    off = value.get("enabled", spec.get("enabled")) is False
+    for key, v in value.items():
+        sub = spec[key.replace("-", "_")]
+        if off and not _is_block(sub):
+            continue
+        _check_unported(f"{path}.{key}", v, sub)
+
+
+def _merge(obj: Any, data: Any, path: str = "",
+           unported: Optional[Dict[str, Any]] = None) -> Any:
+    """Apply a mapping onto a dataclass tree, block by block, and
+    validate each block again after its keys are set."""
+    if not isinstance(data, dict):
+        raise ValueError(f"config block {path.rstrip('.') or '(root)'} "
+                         f"must be a mapping, got {data!r}")
+    unported = _UNPORTED if unported is None else unported
+    fields = {f.name for f in dataclasses.fields(obj)}
+    for key, value in data.items():
+        k = key.replace("-", "_")
+        if k not in fields:
+            if k not in unported:
+                raise ValueError(f"unknown config key: {path}{key}")
+            _check_unported(path + key, value, unported[k])
+            continue
+        current = getattr(obj, k)
+        if dataclasses.is_dataclass(current):
+            _merge(current, value, path + key + ".",
+                   unported.get(k) if _is_block(unported.get(k)) else {})
+        elif k == "levels" and isinstance(value, list):
+            obj.levels = [_merge_level(lv, path + "levels.") for lv in value]
+        else:
+            setattr(obj, k, value)
+    # __post_init__ does not rerun on setattr, and a file must not
+    # bypass it.
+    post = getattr(obj, "__post_init__", None)
+    if post is not None:
+        post()
+    return obj
+
+
+def _merge_level(data: Any, path: str) -> QueueLevelConfig:
+    """One tier of ``queue.levels``; its ``max_concurrent`` is accepted
+    only at the JAX package's default for that tier."""
+    if isinstance(data, dict) and "max_concurrent" in data:
+        data = dict(data)
+        got = data.pop("max_concurrent")
+        prio = int(data.get("priority", Priority.NORMAL))
+        spec = (_LEVEL_MAX_CONCURRENT_DEFAULT,
+                _LEVEL_MAX_CONCURRENT.get(prio, _LEVEL_MAX_CONCURRENT_DEFAULT))
+        if not _accepts(spec, got):
+            raise _not_ported(path + "max_concurrent", got, spec)
+    return _merge(QueueLevelConfig(), data, path, {})
+
+
+def _unported_env_keys(spec: Dict[str, Any], pre: str = ""
+                       ) -> Dict[str, Tuple[str, Any]]:
+    """``LLMQ_*`` suffix → (dotted key, default) of every unported key."""
+    out: Dict[str, Tuple[str, Any]] = {}
+    for k, v in spec.items():
+        path = pre + k
+        if _is_block(v):
+            out.update(_unported_env_keys(v, path + "."))
+        else:
+            out[path.replace(".", "_").upper()] = (path, v)
+    return out
+
+
 def _coerce(raw: str, current: Any) -> Any:
     if isinstance(current, bool):
         return raw.strip().lower() in ("1", "true", "yes", "on")
@@ -341,13 +612,28 @@ def apply_env(cfg: Config, environ: Optional[Mapping[str, str]] = None
               ) -> None:
     """``LLMQ_EXECUTOR_KV_PAGES=256`` overrides ``executor.kv_pages``:
     the name after ``LLMQ_`` is walked greedily, longest field name
-    first, and the block it lands in is validated again. Unknown keys
-    are ignored (they may belong to other tools)."""
+    first, and the block it lands in is validated again. A variable that
+    names an unported key raises unless it holds that key's default;
+    other unknown names are ignored (they may belong to other tools)."""
     env = os.environ if environ is None else environ
+    unported = _unported_env_keys(_UNPORTED)
     for key, raw in env.items():
         if not key.startswith("LLMQ_"):
             continue
-        parts = [p.lower() for p in key[len("LLMQ_"):].split("_")]
+        name = key[len("LLMQ_"):]
+        if name in unported:
+            path, default = unported[name]
+            if isinstance(default, (list, dict)):
+                # The unported list and mapping keys default to empty.
+                value = default if raw.strip() in ("", "[]", "{}") else raw
+            else:
+                value = _coerce(raw, default[0] if isinstance(default, tuple)
+                                else default)
+            if not _accepts(default, value):
+                raise ValueError(f"{key}={raw!r}: "
+                                 f"{_not_ported(path, value, default)}")
+            continue
+        parts = [p.lower() for p in name.split("_")]
         obj: Any = cfg
         i = 0
         while i < len(parts) and dataclasses.is_dataclass(obj):
@@ -370,10 +656,55 @@ def apply_env(cfg: Config, environ: Optional[Mapping[str, str]] = None
                 break
 
 
-def load_config(env: bool = True,
+def read_yaml(path: str) -> Any:
+    """The parsed YAML document at ``path`` (``yaml.safe_load``; PyYAML
+    is imported here, so only a file load needs it)."""
+    import yaml
+
+    with open(path, "r") as f:
+        return yaml.safe_load(f)
+
+
+def _refuse_a_jax_config(found: str, data: Any) -> None:
+    ex = data.get("executor") if isinstance(data, dict) else None
+    backend = ex.get("backend") if isinstance(ex, dict) else None
+    if backend is not None and backend not in VALID_BACKENDS:
+        raise ValueError(
+            f"{found}, found by the config search, configures the JAX "
+            f"package (executor.backend: {backend}); pass --config with a "
+            f"file for this package (executor.backend: torch), or set "
+            f"LLMQ_CONFIG to one")
+
+
+#: Files :func:`load_config` reads when neither ``path`` nor
+#: ``LLMQ_CONFIG`` names one: the first that exists.
+SEARCH_PATHS = ("config.yaml", os.path.join("configs", "config.yaml"))
+
+
+def load_config(path: Optional[str] = None, env: bool = True,
                 environ: Optional[Mapping[str, str]] = None) -> Config:
-    """Defaults, then ``LLMQ_*`` environment overrides."""
+    """Defaults, then a YAML file, then ``LLMQ_*`` environment overrides
+    (``environ`` in place of ``os.environ``). The file is ``path``, else
+    ``LLMQ_CONFIG``, else the first of :data:`SEARCH_PATHS` that exists
+    (none: defaults only). A file named by ``path`` or ``LLMQ_CONFIG``
+    that does not exist raises; so does a file found by the search that
+    configures one of the JAX package's backends (the JAX package's own
+    ``configs/config.yaml`` in the repository's root), with the remedy."""
     cfg = Config()
+    envmap = os.environ if environ is None else environ
+    if not path:
+        path = envmap.get("LLMQ_CONFIG") or None
+    candidates = [path] if path else list(SEARCH_PATHS)
+    for cand in candidates:
+        if os.path.exists(cand):
+            data = read_yaml(cand) or {}
+            if not path:
+                _refuse_a_jax_config(cand, data)
+            _merge(cfg, data)
+            break
+    else:
+        if path:
+            raise FileNotFoundError(f"config file not found: {path}")
     if env:
-        apply_env(cfg, environ)
+        apply_env(cfg, envmap)
     return cfg

@@ -1,6 +1,7 @@
 """Typed errors of the port (its copy of ``llmq_tpu/core/errors.py``,
-trimmed to the queue plane and the conversation service), so the REST
-layer maps failures to status codes without matching strings."""
+trimmed to the queue plane, the conversation service and the resource
+scheduler), so the REST layer maps failures to
+status codes without matching strings."""
 
 from __future__ import annotations
 
@@ -38,3 +39,13 @@ class ConversationNotFoundError(LLMQError, KeyError):
     def __init__(self, conversation_id: str) -> None:
         super().__init__(f"conversation not found: {conversation_id}")
         self.conversation_id = conversation_id
+
+
+class NoResourceError(LLMQError):
+    """No resource can satisfy the request."""
+
+
+class AllocationNotFoundError(LLMQError, KeyError):
+    def __init__(self, allocation_id: str) -> None:
+        super().__init__(f"allocation not found: {allocation_id}")
+        self.allocation_id = allocation_id

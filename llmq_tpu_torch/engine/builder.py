@@ -39,7 +39,8 @@ def build_engine(cfg: Config, *, name: str = "engine0",
     ``model_dtype`` overrides the model's bf16 (tests run f32).
     ``warmup`` runs :meth:`TorchExecutor.warmup` before the engine is
     made: every program once, the decode step's graph captured on the
-    card, ``step_ms`` calibrated."""
+    card, ``step_ms`` calibrated. The engine's metric families follow
+    ``metrics.enabled``, as in the JAX package's builder."""
     ex = cfg.executor
     dev = resolve_device(device or cfg.device)
     tokenizer = get_tokenizer()
@@ -104,7 +105,8 @@ def build_engine(cfg: Config, *, name: str = "engine0",
         tier_max_wait=tier_max_wait,
         mixed_batch=mixed,
         prefix_cache=prefix,
-        async_pipeline=pipe)
+        async_pipeline=pipe,
+        enable_metrics=cfg.metrics.enabled)
     log.info("built %s engine %s on %s in %.1fs (slots=%d pages=%d "
              "page_size=%d chunk=%d prefill_batch=%d quantization=%s "
              "kv_quantization=%s "

@@ -62,9 +62,16 @@ active sequence by a chunk of tokens per device program.
   the loop goes on; a ``BaseException`` kills the loop thread, and the
   supervisor fails every unfinished request over to the worker retry
   path before it starts a fresh loop.
+- **Cache-aware admission** (``prefill_estimate``): a waiting REALTIME
+  request whose context is expected mostly cached halves the decode
+  chunk cap; every completed prefill feeds a learned prefill rate
+  (``prefill_tps_ewma``) and ``on_prefill_observed`` (the resource
+  scheduler's estimator, bound by ``serve``).
+- **Metrics** (``enable_metrics``): preemptions, prefix-cache hits,
+  decode steps, generated tokens, mixed-step occupancy, prefill stalls
+  and the KV-pool gauges, in the families of ``metrics/registry.py``.
 
-Left to later work (``ROADMAP.md``): cache-aware scheduling, metrics,
-tenancy, tiering and speculation.
+Left to later work (``ROADMAP.md``): tenancy, tiering and speculation.
 """
 
 from __future__ import annotations
@@ -85,6 +92,7 @@ from llmq_tpu_torch.core.types import Message, Priority
 from llmq_tpu_torch.engine.executor import Executor
 from llmq_tpu_torch.engine.kv_allocator import PageAllocator
 from llmq_tpu_torch.engine.tokenizer import ByteTokenizer
+from llmq_tpu_torch.metrics.registry import get_metrics
 from llmq_tpu_torch.prefixcache import PrefixCache
 
 log = logging.getLogger("llmq_tpu_torch.engine")
@@ -112,12 +120,16 @@ def _pack_prefill_slices(cands, S: int, T: int,
     return pf_plan
 
 
+#: Step time assumed while the executor has timed no step (the JAX
+#: engine's).
+DEFAULT_STEP_MS = 4.0
+
+
 def realtime_admission_cap(step_ms: Optional[float]) -> int:
     """Decode steps a waiting REALTIME request may sit behind: about
-    ``REALTIME_ADMISSION_MS`` of steps, 2 to 16; 2 while no step has been
-    timed."""
-    if not step_ms:
-        return 2
+    ``REALTIME_ADMISSION_MS`` of steps, 2 to 16, at DEFAULT_STEP_MS a
+    step while no step has been timed."""
+    step_ms = step_ms or DEFAULT_STEP_MS
     return max(2, min(16, int(REALTIME_ADMISSION_MS / step_ms)))
 
 
@@ -211,7 +223,7 @@ class _Sequence:
                  "todo_ids", "todo_pos", "todo_rebuild", "todo_resume",
                  "eff_prio", "arrival", "first_handle",
                  "prefix_match", "reuse_counted", "mixed_pending",
-                 "pending_emit")
+                 "pending_emit", "pf_tokens_run")
 
     def __init__(self, req: GenRequest, handle: GenHandle, order: int,
                  max_pages: int) -> None:
@@ -261,6 +273,8 @@ class _Sequence:
         #: Committed tokens not yet handed to the stream callback (the
         #: completion pool gets one batch a chunk).
         self.pending_emit: List[int] = []
+        #: Prefill tokens run for this request (the learned-rate sample).
+        self.pf_tokens_run = 0
 
     def sort_key(self):
         return (self.eff_prio, self.order)
@@ -349,6 +363,31 @@ class _CompletionPool:
             t.join(timeout=5.0)
 
 
+class _EngineMetrics:
+    """The labelled children an engine updates, resolved once when it is
+    built (the chunk loop never looks a label set up)."""
+
+    def __init__(self, name: str) -> None:
+        m = get_metrics()
+        self.decode_steps = m.decode_steps.labels(name)
+        self.generated = {p: m.generated_tokens.labels(name, p.tier_name)
+                          for p in Priority}
+        self.preemptions = {p: m.preemptions.labels(name, p.tier_name)
+                            for p in Priority}
+        self.prefix_hits = m.prefix_cache_hits.labels(name)
+        self.prefix_misses = m.prefix_cache_misses.labels(name)
+        self.cached_tokens = m.cached_prefill_tokens.labels(name)
+        self.prefix_pages = m.prefix_cache_pages.labels(name)
+        self.kv_pages = m.kv_pages_in_use.labels(name)
+        self.pinned = m.kv_pinned_conversations.labels(name)
+        self.occupancy = m.batch_occupancy.labels(name)
+        self.mixed_rows = m.mixed_step_decode_rows.labels(name)
+        self.mixed_tokens = m.mixed_step_prefill_tokens.labels(name)
+        self.mixed_util = m.mixed_budget_utilization.labels(name)
+        self.stall = {path: m.prefill_stall_ms.labels(name, path)
+                      for path in ("mixed", "program")}
+
+
 class InferenceEngine:
     def __init__(self, executor: Executor,
                  tokenizer: Optional[ByteTokenizer] = None, *,
@@ -356,7 +395,7 @@ class InferenceEngine:
                  preemption: bool = True, kv_pin_ttl: float = 600.0,
                  tier_max_wait: Optional[Dict[Priority, float]] = None,
                  mixed_batch=None, prefix_cache=None,
-                 async_pipeline=None) -> None:
+                 async_pipeline=None, enable_metrics: bool = True) -> None:
         self.executor = executor
         self.spec = executor.spec
         self.tokenizer = tokenizer or ByteTokenizer()
@@ -383,6 +422,21 @@ class InferenceEngine:
         self.prefix_hits = 0
         self.prefix_misses = 0
         self.cached_prefill_tokens_total = 0
+        #: Step-boundary preemptions (slot handovers and page releases).
+        self.preemptions = 0
+        #: The families of ``metrics/registry.py`` (None: metrics off).
+        self._m: Optional[_EngineMetrics] = (
+            _EngineMetrics(name) if enable_metrics else None)
+        #: Decode-stall attribution: estimated ms the decode rows spent
+        #: behind prefill dispatched while they were active.
+        self.prefill_stall_events = 0
+        self.prefill_stall_ms_total = 0.0
+        #: Learned prefill throughput (tokens/s EWMA over completed
+        #: admissions).
+        self.prefill_tps_ewma: Optional[float] = None
+        #: ``fn(tokens, seconds)`` called once per completed prefill (the
+        #: resource scheduler's ``observe_prefill``, bound by ``serve``).
+        self.on_prefill_observed = None
         #: Token-budget mixed batching: a ``MixedBatchConfig`` (or
         #: anything with its fields). None or disabled keeps the unfused
         #: scheduling exactly.
@@ -434,6 +488,10 @@ class InferenceEngine:
         #: The conversation service (attach_conversation_manager): a
         #: finished turn records its prefix handle there.
         self._state_manager = None
+        #: Prefix-handle ``tier`` updates queued under ``self._mu`` and
+        #: written to the conversation service once it is released (its
+        #: lock sits above the engine's).
+        self._pending_tier_notes: List[Tuple[str, str]] = []
         self._mu = threading.Lock()
         self._wake = threading.Event()
         self._stop = threading.Event()
@@ -525,6 +583,7 @@ class InferenceEngine:
         prefix cache on, every stream it published to the radix tree."""
         with self._mu:
             self._drop_conversation_locked(conv_id)
+        self._flush_tier_notes()
 
     def _drop_conversation_locked(self, conv_id: str,
                                   invalidate: bool = True) -> None:
@@ -536,6 +595,13 @@ class InferenceEngine:
         kv = self._conv_cache.pop(conv_id, None)
         if kv is not None:
             self.allocator.unpin(conv_id)
+            if not invalidate and (
+                    self._prefix_cache is None
+                    or self._prefix_cache.cached_blocks(kv.tokens) == 0):
+                # The pin is reclaimed and no radix block holds its
+                # stream: the KV is gone, and the prefix handle must say
+                # so (``prefill_estimate`` then expects no reuse).
+                self._note_tier(conv_id, "dropped")
             self.allocator.free(kv.pages)
             streams.append(kv.tokens)
         if self._prefix_cache is not None and streams:
@@ -872,6 +938,9 @@ class InferenceEngine:
         if release_pages:
             self._release_sequence_pages(victim)
         heapq.heappush(self._pending, (victim.eff_prio, victim.order, victim))
+        self.preemptions += 1
+        if self._m is not None:
+            self._m.preemptions[victim.req.priority].inc()
         log.info("preempted %s (%s)%s", victim.req.id,
                  victim.req.priority.tier_name,
                  " releasing pages" if release_pages else "")
@@ -927,8 +996,27 @@ class InferenceEngine:
             cid = min(self._conv_cache,
                       key=lambda c: self._conv_cache[c].last_used)
             self._drop_conversation_locked(cid, invalidate=False)
+        self._flush_tier_notes()
         log.info("evicted conversation KV %s under pool pressure", cid)
         return True
+
+    def _note_tier(self, conv_id: str, tier: str) -> None:
+        """Queue a prefix-handle ``tier`` update (callers hold
+        ``self._mu``); :meth:`_flush_tier_notes` writes it."""
+        if self._state_manager is not None:
+            self._pending_tier_notes.append((conv_id, tier))
+
+    def _flush_tier_notes(self) -> None:
+        if not self._pending_tier_notes:
+            return
+        with self._mu:
+            notes, self._pending_tier_notes = self._pending_tier_notes, []
+        for cid, tier in notes:
+            try:
+                self._state_manager.update_prefix_handle_tier(cid, tier)
+            except Exception:  # noqa: BLE001 — bookkeeping, not a gate
+                log.exception("prefix-handle tier update failed for %s",
+                              cid)
 
     def _reclaim_pending_pages(self, requester: _Sequence) -> bool:
         """Release the pages of a *pending* sequence (slot-preempted
@@ -1118,6 +1206,12 @@ class InferenceEngine:
                 self.cached_prefill_tokens_total += seq.cached_len
             else:
                 self.prefix_misses += 1
+            if self._m is not None:
+                if seq.cached_len > 0:
+                    self._m.prefix_hits.inc()
+                    self._m.cached_tokens.inc(seq.cached_len)
+                else:
+                    self._m.prefix_misses.inc()
         seq.slot = slot
         self._slots[slot] = seq        # slot held; prefilled=False
         seq.handle.marks.setdefault("admitted", time.perf_counter())
@@ -1145,14 +1239,16 @@ class InferenceEngine:
                 reaped = True
         if not cands:
             return reaped
-        if self._mixed_on() and any(s is not None and s.prefilled
-                                    for s in self._slots):
+        decode_active = any(s is not None and s.prefilled
+                            for s in self._slots)
+        if self._mixed_on() and decode_active:
             # Mixed mode owns prefill while decode rows are hot: the next
             # mixed chunk runs these sequences' slices inside the decode
             # program (budget-bounded) instead of whole buckets first.
             return reaped
         cands.sort(key=lambda s: s.sort_key())
         ex = self.executor
+        t0 = time.perf_counter()
         chunk_len = ex.prefill_buckets[-1]
         work = []
         for seq in cands:
@@ -1173,9 +1269,13 @@ class InferenceEngine:
             else:
                 handles.extend(self._dispatch(
                     lambda: ex.prefill_multi_async(reqs), seqs))
+        self._note_prefill_dispatch(
+            sum(len(c) for _, c in work), time.perf_counter() - t0,
+            decode_active=decode_active, fused=False)
         for (seq, chunk), h in zip(work, handles):
             seq.todo_pos += len(chunk)
             seq.pos = seq.todo_pos
+            seq.pf_tokens_run += len(chunk)
             seq.written_ids.extend(chunk)
             if not seq.todo_ids:
                 seq.first_handle = h
@@ -1207,6 +1307,47 @@ class InferenceEngine:
             self._flush_emits(seq)   # the first token does not wait a chunk
         return True
 
+    def _note_prefill_dispatch(self, tokens: int, host_seconds: float,
+                               *, decode_active: bool,
+                               fused: bool) -> None:
+        """Account one round of prefill dispatches as decode stall while
+        decode rows were active: the larger of the host time spent here
+        and the learned rate's device time for ``tokens`` (an async
+        dispatch returns before the program, which the decode rows wait
+        behind or, fused, ride with)."""
+        if tokens <= 0:
+            return
+        est_ms = host_seconds * 1e3
+        if self.prefill_tps_ewma and self.prefill_tps_ewma > 0:
+            est_ms = max(est_ms, tokens / self.prefill_tps_ewma * 1e3)
+        if not decode_active:
+            return
+        self.prefill_stall_events += 1
+        self.prefill_stall_ms_total += est_ms
+        if self._m is not None:
+            self._m.stall["mixed" if fused else "program"].observe(est_ms)
+
+    def _observe_prefill_rate(self, seq: _Sequence) -> None:
+        """Feed the learned prefill rate (and ``on_prefill_observed``)
+        from a completed admission's prefill_start → prefill_done span."""
+        marks = seq.handle.marks
+        t0 = marks.get("prefill_start")
+        t1 = marks.get("prefill_done")
+        tokens = seq.pf_tokens_run
+        if t0 is None or t1 is None or t1 <= t0 or tokens <= 0:
+            return
+        dt = t1 - t0
+        rate = tokens / dt
+        if self.prefill_tps_ewma is None:
+            self.prefill_tps_ewma = rate
+        else:
+            self.prefill_tps_ewma = 0.8 * self.prefill_tps_ewma + 0.2 * rate
+        if self.on_prefill_observed is not None:
+            try:
+                self.on_prefill_observed(tokens, dt)
+            except Exception:  # noqa: BLE001 — accounting, not a gate
+                log.exception("on_prefill_observed hook failed")
+
     def _complete_prefill(self, seq: _Sequence, first: int) -> None:
         """Admission completes after the final prefill chunk: ``first``
         is the token sampled at its last position. A rebuild instead
@@ -1218,6 +1359,7 @@ class InferenceEngine:
                                  seq.prefill_start)
         seq.prefilled = True
         seq.handle.marks.setdefault("prefill_done", time.perf_counter())
+        self._observe_prefill_rate(seq)
         if seq.todo_resume is not None:
             seq.last_token = seq.todo_resume
             return
@@ -1287,6 +1429,7 @@ class InferenceEngine:
         pf_plan = _pack_prefill_slices(cands, S, T, budget)
         if not pf_plan:
             return self._decode_once()
+        packed = sum(len(sl) for _, sl in pf_plan)
         tokens, positions, block_tables, temps, budgets = \
             self._chunk_arrays(active, budgets_by_order)
         pf, infl_pf = [], []
@@ -1297,12 +1440,20 @@ class InferenceEngine:
             seq.todo_ids = seq.todo_ids[len(sl):]
             seq.todo_pos += len(sl)
             seq.pos = seq.todo_pos
+            seq.pf_tokens_run += len(sl)
             seq.written_ids.extend(sl)
             infl_pf.append((seq, len(sl), not seq.todo_ids))
+        if self._m is not None:
+            self._m.mixed_rows.set(len(active))
+            self._m.mixed_tokens.set(packed)
+            self._m.mixed_util.set(packed / budget if budget else 0.0)
+        t0 = time.perf_counter()
         handle = self._dispatch(
             lambda: self.executor.mixed_chunk_start(
                 tokens, positions, block_tables, temps, budgets, pf),
             active + [seq for seq, _ in pf_plan])
+        self._note_prefill_dispatch(packed, time.perf_counter() - t0,
+                                    decode_active=bool(active), fused=True)
         seqs: List[Optional[_Sequence]] = [None] * self.spec.batch_size
         for seq in active:
             seqs[seq.slot] = seq
@@ -1310,7 +1461,7 @@ class InferenceEngine:
             seq.mixed_pending = True
         self._push_chunk(_InflightChunk(handle, seqs, budgets, pf=infl_pf))
         self.mixed_steps += 1
-        self.mixed_prefill_tokens_total += sum(len(sl) for _, sl in pf_plan)
+        self.mixed_prefill_tokens_total += packed
         return True
 
     def _finish_mixed_prefills(self, pf, pf_first) -> None:
@@ -1353,13 +1504,54 @@ class InferenceEngine:
 
     def _admission_cap(self) -> int:
         """Decode-chunk cap while an urgent request waits: the chunk
-        length is its admission latency. No urgent waiter → no cap."""
+        length is its admission latency. No urgent waiter → no cap. With
+        the prefix cache on, a REALTIME waiter whose context is expected
+        mostly cached gets half the cap: its prefill is just the tail, so
+        its admission wait is its time to first token."""
         if not self._pending or self._pending[0][0] > int(Priority.HIGH):
             return 1 << 30
         if self._pending[0][0] > int(Priority.REALTIME):
             return 16
-        return realtime_admission_cap(getattr(self.executor, "step_ms",
-                                              None))
+        cap = realtime_admission_cap(getattr(self.executor, "step_ms",
+                                             None))
+        if self._prefix_cache is not None:
+            head = self._pending[0][2]
+            # Tokens estimated from the text: nothing is tokenized on
+            # this path.
+            cpt = getattr(self.tokenizer, "chars_per_token", 1.0) or 1.0
+            est_tokens = max(1, int(len(head.req.prompt) / cpt))
+            cached, new = self.prefill_estimate(head.req.conversation_id,
+                                                est_tokens)
+            if cached > new:
+                cap = max(2, cap // 2)
+        return cap
+
+    def prefill_estimate(self, conversation_id: str,
+                         prompt_tokens: int) -> Tuple[int, int]:
+        """(expected cached, expected new) prefill tokens of an arriving
+        request: the resident length of its conversation's pinned KV;
+        with the pin reclaimed, the prefix handle the conversation
+        service recorded (the radix tree usually still holds its full
+        pages; a sizing estimate, not an allocation); otherwise none
+        cached."""
+        cached = 0
+        if conversation_id:
+            with self._mu:
+                kv = self._conv_cache.get(conversation_id)
+                if kv is not None:
+                    cached = kv.length
+            if (cached == 0 and self._state_manager is not None
+                    and self._prefix_cache is not None):
+                # Outside self._mu: the state manager's lock sits above
+                # the engine's.
+                try:
+                    h = self._state_manager.prefix_handle(conversation_id)
+                except Exception:  # noqa: BLE001 — an estimate, not a gate
+                    h = None
+                if h and str(h.get("tier", "")) != "dropped":
+                    ps = self.spec.page_size
+                    cached = (int(h.get("length", 0)) // ps) * ps
+        return cached, max(0, int(prompt_tokens))
 
     def _budget_chunk_rows(self, chunk: int, rows) -> Dict[int, int]:
         """Eligibility and budgets of the rows of the next fresh chunk
@@ -1430,6 +1622,7 @@ class InferenceEngine:
                        and not s.handle.cancelled]
         active = [s for s in self._slots if s is not None and s.prefilled]
         if not active and not joining:
+            self._set_gauges()
             return False
         budgets_by_order = self._budget_chunk_rows(chunk, active + joining)
         active = [s for s in self._slots if s is not None and s.prefilled]
@@ -1437,6 +1630,7 @@ class InferenceEngine:
                    if s.slot is not None and s.first_handle is not None
                    and s.order in budgets_by_order]
         if not active and not joining:
+            self._set_gauges()
             return False
         rows = active + joining
         tokens, positions, block_tables, temps, budgets = \
@@ -1455,17 +1649,33 @@ class InferenceEngine:
         # One-step chunks: the blocking single step.
         out = self.executor.decode(tokens, positions, block_tables,
                                    temps)[:, None]
-        self.steps += 1
+        self._count_step()
         for seq in active:
             self._commit_row(seq, out[seq.slot], int(budgets[seq.slot]))
             self._flush_emits(seq)
+        self._set_gauges()
         return True
 
     def _push_chunk(self, infl: _InflightChunk) -> None:
         self._inflight.append(infl)
         self.pipeline_depth_hist[len(self._inflight)] += 1
         self._start_fetch(infl)
+        self._count_step()
+
+    def _count_step(self) -> None:
+        """One decode (or mixed) chunk dispatched."""
         self.steps += 1
+        if self._m is not None:
+            self._m.decode_steps.inc()
+
+    def _set_gauges(self) -> None:
+        if self._m is None:
+            return
+        self._m.kv_pages.set(self.allocator.used())
+        self._m.pinned.set(len(self._conv_cache))
+        self._m.occupancy.set(sum(1 for s in self._slots if s is not None))
+        if self._prefix_cache is not None:
+            self._m.prefix_pages.set(self._prefix_cache.pages)
 
     # -- the async pipeline ---------------------------------------------------
 
@@ -1564,7 +1774,7 @@ class InferenceEngine:
         nxt = _InflightChunk(handle, seqs, budgets)
         self.pipeline_depth_hist[len(self._inflight) + 1] += 1
         self._start_fetch(nxt)
-        self.steps += 1
+        self._count_step()
         return nxt
 
     def _process_chunk(self, infl: _InflightChunk) -> None:
@@ -1588,6 +1798,7 @@ class InferenceEngine:
             self._flush_emits(seq)
         if infl.pf is not None:
             self._finish_mixed_prefills(infl.pf, pf_first)
+        self._set_gauges()
 
     def _offload_fetch(self, fn, lane: str = "chunk") -> Dict:
         """Run a blocking fetch on a fetch lane (a thread that only waits
@@ -1739,6 +1950,8 @@ class InferenceEngine:
         seq.generated.append(nxt)
         seq.last_token = nxt
         self.tokens_generated_total += 1
+        if self._m is not None:
+            self._m.generated[seq.req.priority].inc()
         handle = seq.handle
         if len(seq.generated) == 1:
             handle.marks.setdefault("first_token", time.perf_counter())
@@ -1860,6 +2073,7 @@ class InferenceEngine:
                 # The pin TTL ends HBM residency only: the radix tree keeps
                 # the prefix for the next turn.
                 self._drop_conversation_locked(cid, invalidate=False)
+        self._flush_tier_notes()
 
     # -- stats ---------------------------------------------------------------
 
@@ -1879,6 +2093,10 @@ class InferenceEngine:
             "cached_conversations": cached,
             "stall_events": self.stall_events,
             "stall_ms_total": round(self.stall_ms_total, 1),
+            "prefill_stall_events": self.prefill_stall_events,
+            "prefill_stall_ms_total": round(self.prefill_stall_ms_total, 1),
+            "prefill_tps_ewma": (round(self.prefill_tps_ewma, 1)
+                                 if self.prefill_tps_ewma else None),
         }
         if self._pipe_cfg is not None:
             out["pipeline"] = {

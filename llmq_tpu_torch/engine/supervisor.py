@@ -28,13 +28,17 @@ import threading
 import time
 from typing import Dict, List, Optional
 
+from llmq_tpu_torch.metrics.registry import get_metrics
+
 log = logging.getLogger("llmq_tpu_torch.supervisor")
 
 
 class EngineSupervisor:
-    def __init__(self, engine, *, config=None) -> None:
+    def __init__(self, engine, *, config=None,
+                 enable_metrics: bool = True) -> None:
         #: A SupervisorConfig, or anything with its fields.
         self.engine = engine
+        self._metrics = get_metrics() if enable_metrics else None
         self.check_interval = float(getattr(config, "check_interval", 0.5))
         self.max_restarts = int(getattr(config, "max_restarts", 5))
         self.restart_window = float(getattr(config, "restart_window", 60.0))
@@ -119,6 +123,8 @@ class EngineSupervisor:
         eng.start()
         self._restart_times.append(now)
         self.restarts += 1
+        if self._metrics is not None:
+            self._metrics.engine_restarts.labels(eng.name).inc()
         log.warning("engine %s restarted (restart #%d; %d in-flight "
                     "requeued, %d deduped-as-done)", eng.name,
                     self.restarts, counts.get("recovered", 0),
@@ -138,6 +144,8 @@ class EngineSupervisor:
             log.exception("crash recovery failed for engine %s", eng.name)
         rec = int(counts.get("recovered", 0))
         self.recovered_total += rec
+        if self._metrics is not None and rec:
+            self._metrics.engine_recovered_requests.labels(eng.name).inc(rec)
         return counts
 
     def get_stats(self) -> Dict:

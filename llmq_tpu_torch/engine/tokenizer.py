@@ -14,6 +14,8 @@ class ByteTokenizer:
     eos_id = 2
     _OFFSET = 3
     vocab_size = 256 + _OFFSET
+    #: Characters per token of a text-length estimate (one byte, one id).
+    chars_per_token = 1.0
 
     def encode(self, text: str) -> List[int]:
         return [b + self._OFFSET for b in text.encode("utf-8")]

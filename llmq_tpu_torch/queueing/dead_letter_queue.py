@@ -5,7 +5,9 @@ A bounded store of ``DeadLetterItem{message, fail_reason, failed_at,
 source_queue, retry_count}``; ``push`` runs the registered handlers;
 ``requeue`` / ``batch_requeue`` reset the retry state and push the
 message back into its source queue. The worker's failure path pushes
-here once a message's retries are spent.
+here once a message's retries are spent. With metrics on, the depth is
+the ``dead_letter_depth`` gauge and a raising handler counts in
+``dlq_handler_errors_total``.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import TYPE_CHECKING, Callable, Dict, List, Optional
 from llmq_tpu_torch.core.clock import SYSTEM_CLOCK, Clock
 from llmq_tpu_torch.core.errors import MessageNotFoundError
 from llmq_tpu_torch.core.types import Message, MessageStatus
+from llmq_tpu_torch.metrics.registry import get_metrics
 
 if TYPE_CHECKING:
     from llmq_tpu_torch.queueing.queue_manager import QueueManager
@@ -49,13 +52,25 @@ Handler = Callable[[DeadLetterItem], None]
 
 class DeadLetterQueue:
     def __init__(self, max_size: int = 1000, clock: Optional[Clock] = None,
-                 name: str = "dead_letter") -> None:
+                 name: str = "dead_letter",
+                 enable_metrics: bool = True) -> None:
         self.name = name
         self.max_size = max_size
         self._clock = clock or SYSTEM_CLOCK
         self._items: "OrderedDict[str, DeadLetterItem]" = OrderedDict()
         self._handlers: List[Handler] = []
         self._lock = threading.Lock()
+        #: ``dead_letter_depth`` and ``dlq_handler_errors_total`` by
+        #: queue name (None: metrics off).
+        m = get_metrics() if enable_metrics else None
+        self._depth = m.dead_letter_depth.labels(name) if m else None
+        self._handler_errors = (m.dlq_handler_errors.labels(name) if m
+                                else None)
+
+    def _set_depth_gauge(self) -> None:
+        """The parked-message count (callers hold ``self._lock``)."""
+        if self._depth is not None:
+            self._depth.set(len(self._items))
 
     def add_handler(self, handler: Handler) -> None:
         with self._lock:
@@ -76,6 +91,7 @@ class DeadLetterQueue:
                 log.warning("DLQ %s full; evicted oldest item %s", self.name, evicted_id)
             self._items[message.id] = item
             handlers = list(self._handlers)
+            self._set_depth_gauge()
         # Handlers run outside the lock, each wrapped: a raising handler
         # must neither abort the push (the item is stored above) nor
         # starve the remaining handlers.
@@ -84,6 +100,8 @@ class DeadLetterQueue:
                 h(item)
             except Exception:  # noqa: BLE001
                 log.exception("DLQ handler failed for message %s", message.id)
+                if self._handler_errors is not None:
+                    self._handler_errors.inc()
         return item
 
     def get(self, message_id: str) -> DeadLetterItem:
@@ -105,12 +123,14 @@ class DeadLetterQueue:
     def remove(self, message_id: str) -> bool:
         with self._lock:
             removed = self._items.pop(message_id, None) is not None
+            self._set_depth_gauge()
             return removed
 
     def clear(self) -> int:
         with self._lock:
             n = len(self._items)
             self._items.clear()
+            self._set_depth_gauge()
             return n
 
     # -- requeue -------------------------------------------------------------
@@ -121,6 +141,7 @@ class DeadLetterQueue:
         before the error propagates — a message is never in neither place."""
         with self._lock:
             item = self._items.pop(message_id, None)
+            self._set_depth_gauge()
         if item is None:
             raise MessageNotFoundError(message_id)
         msg = item.message
@@ -135,6 +156,7 @@ class DeadLetterQueue:
             msg.retry_count, msg.status, msg.error, msg.scheduled_at = prev
             with self._lock:
                 self._items[message_id] = item
+                self._set_depth_gauge()
                 raise
         return msg
 

@@ -102,7 +102,8 @@ class QueueFactory:
             if self.config.queue.dead_letter_enabled or qtype == QueueType.DEAD_LETTER:
                 dlq = DeadLetterQueue(
                     max_size=self.config.queue.dead_letter_max_size,
-                    clock=self._clock, name=f"{name}-dlq")
+                    clock=self._clock, name=f"{name}-dlq",
+                    enable_metrics=self.config.queue.enable_metrics)
             # Undeliverable retries (target queue persistently full/missing)
             # land in the DLQ instead of being dropped.
             on_drop = (

@@ -1,6 +1,6 @@
 """Queue manager: tier queues, priority-adjust rules, monitoring (the
-port's copy of ``llmq_tpu/queueing/queue_manager.py``; no WAL, metrics,
-tenancy or scale signals yet).
+port's copy of ``llmq_tpu/queueing/queue_manager.py``; no WAL, tenancy
+or scale signals yet).
 
 - owns a :class:`MultiLevelQueue` and creates the four tier queues from
   config; ``push_message`` without an explicit queue routes a message to
@@ -12,6 +12,10 @@ tenancy or scale signals yet).
 - ``remove_message``: admin removal of a pending message
 - a background monitor expires messages older than
   ``queue.stale_message_age``
+- with ``queue.enable_metrics``, the pending and processing gauges, the
+  completed and failed counters, the wait and process histograms and
+  the operations counter of ``metrics/registry.py``, labelled by
+  manager, queue and priority
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from llmq_tpu_torch.core.clock import SYSTEM_CLOCK, Clock
 from llmq_tpu_torch.core.config import Config, QueueConfig
 from llmq_tpu_torch.core.types import (PRIORITY_TIERS, Message, Priority,
                                        QueueStats)
+from llmq_tpu_torch.metrics.registry import get_metrics
 from llmq_tpu_torch.queueing.priority_queue import MultiLevelQueue
 
 log = logging.getLogger("llmq_tpu_torch.queue_manager")
@@ -48,10 +53,14 @@ class PriorityAdjustRule:
 
 class QueueManager:
     def __init__(self, name: str, config: Optional[Config] = None,
-                 clock: Optional[Clock] = None) -> None:
+                 clock: Optional[Clock] = None,
+                 enable_metrics: Optional[bool] = None) -> None:
         self.name = name
         self.config: Config = config or Config()
         self.qconfig: QueueConfig = self.config.queue
+        if enable_metrics is None:
+            enable_metrics = self.qconfig.enable_metrics
+        self._metrics = get_metrics() if enable_metrics else None
         self._clock = clock or SYSTEM_CLOCK
         self.queue = MultiLevelQueue(clock=self._clock)
         self._rules: List[PriorityAdjustRule] = []
@@ -104,13 +113,23 @@ class QueueManager:
         """Apply rules, route, push. Returns the queue it landed in."""
         self._apply_rules(message)
         qname = queue_name or self.route_for(message)
-        self.queue.push(qname, message)
+        try:
+            self.queue.push(qname, message)
+        except Exception:
+            self._op_metric("push", "error")
+            raise
         with self._inflight_mu:
             self._inflight[message.id] = qname
+        if self._metrics is not None:
+            self._lbl(self._metrics.pending, qname, message).inc()
+            self._op_metric("push", "success")
         return qname
 
     def pop_message(self, queue_name: str) -> Message:
-        return self.queue.pop(queue_name)
+        msg = self.queue.pop(queue_name)
+        self._popped(queue_name, msg)
+        self._op_metric("pop", "success")
+        return msg
 
     def batch_pop(self, queue_name: str, max_count: int) -> List[Message]:
         out: List[Message] = []
@@ -118,8 +137,19 @@ class QueueManager:
             m = self.queue.try_pop(queue_name)
             if m is None:
                 break
+            self._popped(queue_name, m)
             out.append(m)
+        if out:
+            self._op_metric("batch_pop", "success")
         return out
+
+    def _popped(self, qname: str, msg: Message) -> None:
+        if self._metrics is not None:
+            m = self._metrics
+            self._lbl(m.pending, qname, msg).dec()
+            self._lbl(m.processing, qname, msg).inc()
+            self._lbl(m.wait_time, qname, msg).observe(
+                getattr(msg, "last_wait_time", 0.0))
 
     def drain_in_priority_order(self, max_count: int) -> List[Message]:
         """Pop up to ``max_count`` across the tier queues, most urgent
@@ -137,12 +167,24 @@ class QueueManager:
         qname = (queue_name or self._pop_inflight(message.id)
                  or self.route_for(message))
         self.queue.complete_message(qname, message, process_time)
+        self._finished(qname, message, process_time, "complete")
 
     def fail_message(self, message: Message, process_time: float = 0.0,
                      queue_name: Optional[str] = None) -> None:
         qname = (queue_name or self._pop_inflight(message.id)
                  or self.route_for(message))
         self.queue.fail_message(qname, message, process_time)
+        self._finished(qname, message, process_time, "fail")
+
+    def _finished(self, qname: str, msg: Message, process_time: float,
+                  op: str) -> None:
+        if self._metrics is not None:
+            m = self._metrics
+            self._lbl(m.processing, qname, msg).dec()
+            self._lbl(m.completed if op == "complete" else m.failed,
+                      qname, msg).inc()
+            self._lbl(m.process_time, qname, msg).observe(process_time)
+            self._op_metric(op, "success")
 
     def requeue_message(self, message: Message,
                         queue_name: Optional[str] = None) -> str:
@@ -152,6 +194,10 @@ class QueueManager:
         self.queue.requeue(qname, message)
         with self._inflight_mu:
             self._inflight[message.id] = qname
+        if self._metrics is not None:
+            self._lbl(self._metrics.processing, qname, message).dec()
+            self._lbl(self._metrics.pending, qname, message).inc()
+            self._op_metric("requeue", "success")
         return qname
 
     def stash_for_retry(self, message: Message,
@@ -162,6 +208,9 @@ class QueueManager:
         qname = (queue_name or self._pop_inflight(message.id)
                  or self.route_for(message))
         self.queue.requeue_accounting_for(qname)
+        if self._metrics is not None:
+            self._lbl(self._metrics.processing, qname, message).dec()
+            self._op_metric("retry_stash", "success")
         return qname
 
     def remove_message(self, message_id: str,
@@ -173,12 +222,22 @@ class QueueManager:
             msg = self.queue.remove_message(qname, message_id)
             if msg is not None:
                 self._pop_inflight(message_id)
+                if self._metrics is not None:
+                    self._lbl(self._metrics.pending, qname, msg).dec()
+                    self._op_metric("remove", "success")
                 return msg
         return None
 
     def _pop_inflight(self, message_id: str) -> Optional[str]:
         with self._inflight_mu:
             return self._inflight.pop(message_id, None)
+
+    def _lbl(self, family, qname: str, msg: Message):
+        return family.labels(self.name, qname, msg.priority.tier_name)
+
+    def _op_metric(self, op: str, status: str) -> None:
+        if self._metrics is not None:
+            self._metrics.operations.labels(self.name, op, status).inc()
 
     # -- stats / monitor -----------------------------------------------------
 
@@ -224,6 +283,9 @@ class QueueManager:
                     qname, self.qconfig.stale_message_age)
                 for msg in expired:
                     self._pop_inflight(msg.id)
+                    if self._metrics is not None:
+                        self._lbl(self._metrics.pending, qname, msg).dec()
+                        self._lbl(self._metrics.failed, qname, msg).inc()
                 if expired:
                     log.warning("expired %d stale messages from %s/%s",
                                 len(expired), self.name, qname)

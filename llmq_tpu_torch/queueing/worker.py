@@ -34,6 +34,7 @@ from llmq_tpu_torch.core.types import Message, MessageStatus
 from llmq_tpu_torch.queueing.dead_letter_queue import DeadLetterQueue
 from llmq_tpu_torch.queueing.delayed_queue import DelayedQueue
 from llmq_tpu_torch.queueing.queue_manager import QueueManager
+from llmq_tpu_torch.utils.logging import bind_log_context, reset_log_context
 
 log = logging.getLogger("llmq_tpu_torch.worker")
 
@@ -388,9 +389,14 @@ class Worker:
 
     def _run_one(self, msg: Message) -> None:
         release = True
+        # Log lines emitted while this message is processed, the
+        # engine's included, carry the request's identity.
+        token = bind_log_context(request_id=msg.id,
+                                 conversation_id=msg.conversation_id)
         try:
             release = self._process_message(msg)
         finally:
+            reset_log_context(token)
             if release:
                 # False → the watchdog already freed this slot when it
                 # abandoned the (then-wedged) call.
@@ -416,10 +422,13 @@ class Worker:
             token = next(self._inflight_seq)
             with self._inflight_mu:
                 self._inflight[token] = rec
-        err: Optional[Exception] = None
+        err: Optional[BaseException] = None
         try:
             self.process_fn(ctx, msg)
-        except Exception as e:  # noqa: BLE001 — any failure enters the retry path
+        except BaseException as e:  # noqa: BLE001 — any failure, a
+            # BaseException too, enters the retry path (the JAX package's
+            # worker does the same): re-raising it would kill the pool
+            # thread and leave the message to the watchdog.
             err = e
         if rec is not None:
             with self._inflight_mu:

@@ -5,7 +5,10 @@ to the port's ``App`` (the same weights through ``params_from_jax``, on
 the CPU). Route by route the two must answer with the same status codes
 and payload keys and the same greedy responses; priorities are the
 preprocessor's; the SSE framing matches; the shedder answers 429 and 503
-with ``Retry-After``; dead letters are requeued."""
+with ``Retry-After``; dead letters are requeued; the resources and
+endpoints routes, ``/metrics`` and the admin drain answer as JAX's (its
+process here wired with a load balancer and a resource scheduler as its
+``App`` wires them)."""
 
 import json
 import time
@@ -26,10 +29,14 @@ from llmq_tpu.conversation.state_manager import StateManager as JSM  # noqa: E40
 from llmq_tpu.engine.engine import InferenceEngine as JEngine  # noqa: E402
 from llmq_tpu.engine.executor import JaxExecutor  # noqa: E402
 from llmq_tpu.engine.tokenizer import ByteTokenizer as JTok  # noqa: E402
+from llmq_tpu.loadbalancer.load_balancer import LoadBalancer as JLB  # noqa: E402
 from llmq_tpu.models import llama as J  # noqa: E402
 from llmq_tpu.preprocessor.preprocessor import Preprocessor as JPre  # noqa: E402
 from llmq_tpu.queueing.factory import QueueFactory as JFactory  # noqa: E402
 from llmq_tpu.queueing.factory import QueueType as JQueueType  # noqa: E402
+from llmq_tpu.scheduling import resource_scheduler as jrs  # noqa: E402
+from llmq_tpu.scheduling.topology import TpuTopology  # noqa: E402
+from prometheus_client.parser import text_string_to_metric_families  # noqa: E402
 
 from llmq_tpu_torch.__main__ import App  # noqa: E402
 from llmq_tpu_torch.core.config import Config  # noqa: E402
@@ -46,16 +53,24 @@ GEOM = dict(batch_size=4, page_size=16, num_pages=128, prefill_buckets=[16, 32],
 
 
 def _tune(cfg):
-    """The same serving settings in both packages' configs."""
+    """The same serving settings in both packages' configs. No deadline
+    shedding: with a learned prefill rate both shedders refuse every
+    LOW message with the default 30 s timeout before a LOW wait is
+    measured (30 s table estimate + the prefill ETA), and the script
+    needs its LOW messages (``test_torch_scheduling.py`` holds that
+    check against JAX's)."""
     cfg.queue.retry.initial_backoff = 0.05
     cfg.queue.worker.process_interval = 0.01
     cfg.queue.worker.count = 2
+    cfg.overload.deadline_headroom = 0.0
     return cfg
 
 
 class _JaxProcess:
     """JAX's serving process around its ApiServer, wired as its App
-    wires these parts (no load balancer or scheduler)."""
+    wires these parts: the load balancer, the resource scheduler with
+    cache-aware admission and the engine's chip allocation (CPU
+    devices, one resource each; no heartbeat thread)."""
 
     def __init__(self, engine) -> None:
         cfg = _tune(JConfig())
@@ -66,12 +81,26 @@ class _JaxProcess:
         self.state_manager = JSM(cfg.conversation)
         self.engine = engine
         engine.attach_conversation_manager(self.state_manager)
+        self.load_balancer = JLB(cfg.loadbalancer)
+        rs = self.resource_scheduler = jrs.ResourceScheduler(
+            cfg.resource_scheduler)
+        rs.set_prefill_estimator(lambda md: engine.prefill_estimate(
+            str(md.get("conversation_id", "")),
+            int(md.get("prompt_tokens", 0) or 0)))
+        engine.on_prefill_observed = rs.observe_prefill
+        rs.register_topology_resources(TpuTopology.discover(),
+                                       chips_per_resource=1)
+        rs.request_resource_now(jrs.ResourceRequest(
+            capabilities={"tpu"}, amounts={jrs.ResourceType.CHIP: 1.0},
+            metadata={"engine": engine.name, "pinned": True}))
         self.workers = self.factory.create_workers(
             "standard", cfg.queue.worker.count, engine.process_fn,
             start=False)
         self.api = JApiServer(cfg, queue_factory=self.factory,
                               preprocessor=JPre(),
                               state_manager=self.state_manager,
+                              load_balancer=self.load_balancer,
+                              resource_scheduler=rs,
                               engine=engine, message_store=JMessageStore())
 
     def start(self) -> int:
@@ -96,6 +125,13 @@ def _http(base, method, path, body=None, raw=None):
             return resp.status, json.loads(resp.read()), dict(resp.headers)
     except urllib.error.HTTPError as e:
         return e.code, json.loads(e.read()), dict(e.headers)
+
+
+def _scrape(base):
+    """(status, content type, text) of ``GET /metrics``."""
+    with urllib.request.urlopen(base + "/metrics", timeout=30) as resp:
+        return resp.status, resp.headers["Content-Type"], \
+            resp.read().decode()
 
 
 def _sse(base, body):
@@ -265,6 +301,30 @@ def _script(base, proc, dlq, stop_workers):
     assert _wait(lambda: dlq().size() == 1)
     rec("queue_stats", "GET", "/api/v1/queues/stats")
     rec("engine_stats", "GET", "/api/v1/engine/stats")
+    # The resource scheduler and the load balancer. The endpoints are
+    # local:// ones: the health probe contacts nothing.
+    rec("res_register", "POST", "/api/v1/resources", {
+        "id": "ext-1", "capacity": {"chip": 2, "hbm_gb": 160.0},
+        "capabilities": ["cuda"], "endpoint": "local://ext-1"})
+    rec("res_register_bad", "POST", "/api/v1/resources",
+        {"capacity": {"warp": 1}})
+    rec("res_register_no_body", "POST", "/api/v1/resources", raw=b"")
+    rec("res_list", "GET", "/api/v1/resources")
+    rec("res_stats", "GET", "/api/v1/resources/stats")
+    rec("ep_register", "POST", "/api/v1/endpoints",
+        {"id": "ep-1", "url": "local://replica-1", "weight": 2})
+    rec("ep_register_bad", "POST", "/api/v1/endpoints", {"status": "sleepy"})
+    rec("ep_list", "GET", "/api/v1/endpoints")
+    rec("ep_stats", "GET", "/api/v1/endpoints/stats")
+    rec("ep_drain", "POST", "/api/v1/endpoints/ep-1/drain")
+    rec("ep_stats_draining", "GET", "/api/v1/endpoints/stats")
+    rec("ep_undrain", "POST", "/api/v1/endpoints/ep-1/drain",
+        {"drain": False})
+    rec("ep_drain_missing", "POST", "/api/v1/endpoints/nope/drain")
+    rec("ep_delete", "DELETE", "/api/v1/endpoints/ep-1")
+    rec("ep_delete_missing", "DELETE", "/api/v1/endpoints/ep-1")
+    rec("ep_method", "PUT", "/api/v1/endpoints/ep-1")
+    out["metrics"] = (200, _scrape(base), None)
     rec("bad_json", "POST", "/api/v1/messages", raw=b"{nope")
     rec("no_body", "POST", "/api/v1/messages", raw=b"")
     rec("bad_priority", "POST", "/api/v1/messages",
@@ -287,6 +347,8 @@ def _script(base, proc, dlq, stop_workers):
     rec("health_stopped", "GET", "/health")
     rec("shed_engine_down", "POST", "/api/v1/messages", {"content": "x"})
     rec("generate_down", "POST", "/api/v1/generate", {"content": "x"})
+    rec("drain", "POST", "/api/v1/admin/drain")
+    rec("health_draining", "GET", "/health")
     return out
 
 
@@ -337,7 +399,11 @@ STEPS_SAME_PAYLOAD_KEYS = [
     "queue_stats", "bad_json", "no_body", "bad_priority", "not_found",
     "method", "pending_submit", "remove", "remove_again",
     "remove_bad_manager", "fill", "shed_backlog", "health_stopped",
-    "shed_engine_down", "generate_down"]
+    "shed_engine_down", "generate_down", "res_register", "res_register_bad",
+    "res_register_no_body", "res_list", "res_stats", "ep_register",
+    "ep_register_bad", "ep_list", "ep_stats", "ep_drain",
+    "ep_stats_draining", "ep_undrain", "ep_drain_missing", "ep_delete",
+    "ep_delete_missing", "ep_method", "drain", "health_draining"]
 
 
 @pytest.mark.parametrize("step", STEPS_SAME_PAYLOAD_KEYS)
@@ -445,3 +511,48 @@ def test_engine_stats_keys_are_jaxs(runs):
     j, t = runs["jax"]["engine_stats"], runs["port"]["engine_stats"]
     assert t[0] == j[0] == 200
     assert set(t[1]) <= set(j[1]), set(t[1]) - set(j[1])
+
+
+def test_metrics_route_serves_jaxs_families(runs):
+    """``GET /metrics`` answers 200 in the text format; every family the
+    port serves is one of JAX's, of the same type; the queue plane's
+    counters moved in both."""
+    fams = {}
+    for side in ("jax", "port"):
+        status, ctype, text = runs[side]["metrics"][1]
+        assert status == 200 and ctype.startswith("text/plain"), side
+        fams[side] = {f.name: f for f in
+                      text_string_to_metric_families(text)}
+    assert set(fams["port"]) <= set(fams["jax"])
+    for name, fam in fams["port"].items():
+        assert fam.type == fams["jax"][name].type, name
+    done = fams["port"]["llm_queue_messages_completed"].samples
+    assert sum(s.value for s in done) > 0
+
+
+def test_resources_list_the_engines_allocated_chip(runs):
+    """The port's process registered its device (the CPU here) as a
+    chip resource and holds it for the engine; a posted resource joins
+    it, as in JAX's process."""
+    res = runs["port"]["res_list"][1]["resources"]
+    own = [r for r in res if r["id"] != "ext-1"]
+    assert len(own) == 1 and own[0]["capabilities"] == ["cpu"]
+    assert own[0]["capacity"] == {"chip": 1.0, "hbm_gb": 16.0}
+    assert own[0]["used"] == {"chip": 1.0}
+    assert any(r["id"] == "ext-1" for r in res)
+    for side in ("jax", "port"):
+        stats = runs[side]["res_stats"][1]
+        assert stats["allocations"] == 1, side
+        assert stats["prefill_observations"] > 0, side
+
+
+def test_endpoint_drain_and_admin_drain_like_jax(runs):
+    for side in ("jax", "port"):
+        r = runs[side]
+        assert r["ep_drain"][1] == {"endpoint_id": "ep-1",
+                                    "status": "draining"}
+        assert r["ep_stats_draining"][1]["draining"] == 1
+        assert r["ep_undrain"][1]["status"] == "degraded"
+        assert r["ep_delete_missing"][0] == 404
+        assert r["drain"][:2] == (202, {"status": "draining"})
+        assert r["health_draining"][1]["status"] == "draining", side

@@ -288,12 +288,12 @@ def test_decode_without_pages_fails_the_request_not_truncates():
         assert a.result.tokens == h.result.tokens, i
 
 
-@pytest.mark.parametrize("step_ms,cap", [(None, 2), (1.0, 16), (4.0, 12),
+@pytest.mark.parametrize("step_ms,cap", [(None, 12), (1.0, 16), (4.0, 12),
                                          (39.0, 2)])
 def test_realtime_admission_cap_follows_measured_step_time(step_ms, cap):
     """A waiting REALTIME request caps the decode chunk at about 50 ms of
     the executor's measured steps (at least 2, at most 16); before any
-    step is timed the cap is the shortest chunk."""
+    step is timed the JAX engine's 4 ms a step is assumed."""
     eng = _tiny_engine()
     eng.executor.step_ms = step_ms
     eng.submit(GenRequest(id="rt", prompt="urgent",
@@ -596,3 +596,117 @@ def test_int8_kv_has_no_split_decode_route():
     with pytest.raises(ValueError, match="no int8-KV route"):
         TorchExecutor(cfg, params, device="cpu", fused_decode=False,
                       cache_dtype=torch.int8, **GEOM)
+
+
+# -- cache-aware admission (the prefix cache's estimate) ------------------------
+
+def _cache_aware_run(eng, sm, make_req, prio_of):
+    """Two conversations (one of several pages, one shorter than a page)
+    served to their end; four LOW rows decoding in the four slots; then a
+    REALTIME second turn of the long conversation waits. Returns the
+    estimates and admission caps the engine reports along the way."""
+    out = {}
+    for conv in ("c", "d"):
+        sm.get_or_create(conv, "u")
+    eng.attach_conversation_manager(sm)
+    h = eng.submit(make_req("c1", "A conversation of several KV pages, "
+                                  "turn one.", prio_of("high"),
+                            conversation_id="c", max_new_tokens=6))
+    eng.run_until_idle()
+    eng.submit(make_req("d1", "tiny", prio_of("high"), conversation_id="d",
+                        max_new_tokens=4))
+    eng.run_until_idle()
+    out["turn1"] = list(h.result.tokens)
+    out["pinned"] = (eng.prefill_estimate("c", 7),
+                     eng.prefill_estimate("d", 7))
+    out["unknown"] = (eng.prefill_estimate("nobody", 7),
+                      eng.prefill_estimate("", 5))
+    lows = [eng.submit(make_req(f"low{i}", f"background job {i}",
+                                prio_of("low"), max_new_tokens=12))
+            for i in range(4)]
+    for _ in range(200):
+        if all("prefill_done" in x.marks for x in lows):
+            break
+        eng.step()
+    eng.submit(make_req("c2", " ok?", prio_of("realtime"),
+                        conversation_id="c", max_new_tokens=4))
+    eng._ingest()
+    caps = {}
+    for step_ms in (None, 2.0, 30.0):
+        eng.executor.step_ms = step_ms
+        caps[step_ms] = eng._admission_cap()
+    out["caps"] = caps
+    eng.executor.step_ms = None
+    eng.run_until_idle()
+    # The pins reclaimed (LRU, as under pool pressure): "c" keeps a
+    # handle the radix tree still covers, "d" (under a page) does not.
+    while eng._reclaim_idle_conversation():
+        pass
+    out["handle"] = (eng.prefill_estimate("c", 7),
+                     eng.prefill_estimate("d", 7))
+    return out
+
+
+@pytest.fixture(scope="module")
+def cache_aware_runs():
+    from llmq_tpu.conversation.state_manager import StateManager as JSM
+    from llmq_tpu.core.config import ConversationConfig as JConvCfg
+    from llmq_tpu.core.config import PrefixCacheConfig as JPrefixCfg
+
+    from llmq_tpu_torch.conversation.state_manager import StateManager
+    from llmq_tpu_torch.core.config import (ConversationConfig,
+                                            PrefixCacheConfig)
+
+    jcfg = J.get_config("llama3-tiny", dtype=jnp.float32, **KW)
+    jparams = J.init_params(jax.random.PRNGKey(0), jcfg)
+    tcfg = T.get_config("llama3-tiny", dtype=torch.float32, **KW)
+    tparams = T.params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
+    jeng = JEngine(JaxExecutor(jcfg, jparams, prefill_batch=1,
+                               mixed_prefill_slices=0, **GEOM), JTok(),
+                   enable_metrics=False, max_decode_steps=MAX_STEPS,
+                   prefix_cache=JPrefixCfg())
+    teng = InferenceEngine(TorchExecutor(tcfg, tparams, device="cpu",
+                                         **GEOM), ByteTokenizer(),
+                           max_decode_steps=MAX_STEPS,
+                           prefix_cache=PrefixCacheConfig(),
+                           enable_metrics=False)
+    return {
+        "jax": _cache_aware_run(
+            jeng, JSM(JConvCfg()),
+            lambda rid, text, prio, **kw: JGenRequest(
+                id=rid, prompt=text, priority=prio, **kw),
+            JPriority.from_name),
+        "port": _cache_aware_run(
+            teng, StateManager(ConversationConfig()),
+            lambda rid, text, prio, **kw: GenRequest(
+                id=rid, prompt=text, priority=prio, **kw),
+            Priority.from_name)}
+
+
+def test_realtime_turn_with_pinned_kv_gets_the_halved_cap_like_jax(
+        cache_aware_runs):
+    """Tolerance: none. A waiting REALTIME turn whose conversation's KV is
+    pinned (cached tokens > new) halves the admission cap in both
+    engines, with no measured step time (4 ms assumed) and with one."""
+    from llmq_tpu_torch.engine.engine import realtime_admission_cap
+
+    j, t = cache_aware_runs["jax"], cache_aware_runs["port"]
+    assert t["turn1"] == j["turn1"]
+    assert t["caps"] == j["caps"]
+    assert t["caps"] == {ms: max(2, realtime_admission_cap(ms) // 2)
+                         for ms in (None, 2.0, 30.0)}
+
+
+def test_prefill_estimate_matches_jax(cache_aware_runs):
+    """Tolerance: none. Pinned conversations report their resident
+    length; with the pin reclaimed, the recorded handle's full pages
+    while the radix tree covers them, else none; unknown ones none."""
+    j, t = cache_aware_runs["jax"], cache_aware_runs["port"]
+    for key in ("pinned", "unknown", "handle"):
+        assert t[key] == j[key], key
+    (c, _), (d, _) = t["pinned"]
+    assert c > 16 and 0 < d < 16
+    assert t["unknown"] == ((0, 7), (0, 5))
+    assert t["handle"][0][0] == (c // 16) * 16 > 0
+    assert t["handle"][1] == (0, 7)

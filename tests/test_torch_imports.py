@@ -1,6 +1,8 @@
 """The PyTorch/CUDA port stands alone: every module of ``llmq_tpu_torch``
-and ``chip_smoke.py`` imports with ``jax`` and ``llmq_tpu`` blocked, and
-its entry points refuse to fall back to the CPU without being asked."""
+and ``chip_smoke.py`` imports with ``jax``, ``llmq_tpu`` and
+``prometheus_client`` blocked (the port carries its own metrics
+registry), and its entry points refuse to fall back to the CPU without
+being asked."""
 
 import os
 import subprocess
@@ -15,7 +17,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BLOCKED_IMPORT_SCRIPT = textwrap.dedent("""
     import importlib, importlib.util, pkgutil, sys
 
-    BLOCKED = ("jax", "jaxlib", "llmq_tpu")
+    BLOCKED = ("jax", "jaxlib", "llmq_tpu", "prometheus_client")
 
     def blocked(name):
         return any(name == b or name.startswith(b + ".") for b in BLOCKED)
@@ -114,6 +116,26 @@ _BLOCKED_IMPORT_SCRIPT = textwrap.dedent("""
                                             SupervisorConfig)
     assert SupervisorConfig().enabled and OverloadConfig().enabled
     assert RetryConfig().max_retries == 3
+    # The config file, metrics, logging, the scheduling plane, the load
+    # balancer, and the entry points' subcommands.
+    import os
+    from llmq_tpu_torch.core.config import load_config
+    cfg = load_config(os.devnull)
+    assert cfg.queue.enable_metrics and cfg.executor.backend == "torch"
+    from llmq_tpu_torch.metrics.registry import (LABEL_CONTRACT,
+                                                 exposition, get_metrics)
+    assert b"llm_queue_messages_pending" in exposition()
+    from llmq_tpu_torch.utils.logging import (bind_log_context,
+                                              configure_logging)
+    from llmq_tpu_torch.scheduling.topology import GpuTopology
+    from llmq_tpu_torch.scheduling.resource_scheduler import (
+        ResourceScheduler, ResourceType)
+    from llmq_tpu_torch.loadbalancer.load_balancer import LoadBalancer
+    from llmq_tpu_torch.__main__ import App, cmd_check, cmd_serve
+    assert GpuTopology.discover("cpu").num_chips == 1
+    for fn in ("prefill_estimate", "_admission_cap",
+               "_observe_prefill_rate"):
+        assert callable(getattr(InferenceEngine, fn)), fn
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", sys.argv[1] + "/chip_smoke.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))

@@ -565,11 +565,14 @@ def test_a_failed_fetch_fails_its_requests(models):
 
 # -- configuration ------------------------------------------------------------
 
-def test_config_defaults_validation_and_switches_match_jax(monkeypatch):
+def test_config_defaults_validation_and_switches_match_jax(monkeypatch,
+                                                           tmp_path):
     """The two blocks take the JAX package's defaults and validation, are
     reached through the same ``LLMQ_EXECUTOR_*`` variables (an invalid
     value raises there too), and the builder hands them to the engine:
     on by default, off by their switches."""
+    # No config file in the working directory: defaults and env only.
+    monkeypatch.chdir(tmp_path)
     from llmq_tpu.core import config as JC
 
     from llmq_tpu_torch.core import config as TC

@@ -186,13 +186,15 @@ def test_init_params_quantized_equals_quantize_of_init():
     assert fa["layers__wq__q"].dtype == torch.int8
 
 
-def test_quantization_config_switches_and_validation():
+def test_quantization_config_switches_and_validation(monkeypatch, tmp_path):
     """LLMQ_MODEL_QUANTIZATION / LLMQ_MODEL_KV_QUANTIZATION reach the
     model block; any value but "" or "int8" raises in the builder with
     the JAX builder's message; the two switches are independent."""
     from llmq_tpu_torch.core.config import Config, load_config
     from llmq_tpu_torch.engine.builder import build_engine
 
+    # No config file in the working directory: defaults and env only.
+    monkeypatch.chdir(tmp_path)
     d = Config().model
     assert (d.quantization, d.kv_quantization) == ("", "")
     cfg = load_config(environ={"LLMQ_MODEL_QUANTIZATION": "int8",

@@ -530,3 +530,93 @@ def test_threaded_stress_completes_each_message_once():
                and s.failed_count == 0 for s in stats.values())
     retried = sum(w.stats.to_dict()["retried"] for w in workers)
     assert retried == 100 and not any(w.running for w in workers)
+
+
+# -- a process function raising a BaseException -----------------------------
+
+class _Crash(BaseException):
+    """Not an Exception: what a dying engine loop or an injected crash
+    raises through the process function."""
+
+
+def _base_exception_scenario(ns):
+    """The first attempt raises a BaseException subclass: the worker
+    schedules retry 1/N through the delayed queue, and the second attempt
+    completes the message."""
+    attempts = []
+
+    def process(ctx, m):
+        attempts.append(m.id)
+        if len(attempts) == 1:
+            raise _Crash("the loop died under this message")
+        m.response = "done"
+
+    cfg = ns.Config()
+    cfg.queue.retry.initial_backoff = 0.5
+    mgr = ns.QueueManager("crash", cfg)
+    dq = ns.DelayedQueue(lambda q, m: mgr.push_message(m, q or None))
+    w = ns.Worker("w0", mgr, process, delayed_queue=dq,
+                  dead_letter_queue=ns.DLQ())
+    m = _msg(ns, "m", "normal", max_retries=3)
+    mgr.push_message(m)
+    trace = []
+    for step in range(3):
+        n = w.process_batch()
+        trace.append((step, n, m.status.value, m.retry_count,
+                      m.scheduled_at and round(m.scheduled_at
+                                               - ns.clock.now(), 6),
+                      dq.size()))
+        ns.clock.advance(1.0)
+        dq.run_due_once()
+    stats = w.stats.to_dict()
+    stats.pop("avg_process_time")
+    trace.append((_state(m), stats, _stats(mgr), attempts))
+    return trace
+
+
+def test_base_exception_enters_the_retry_path_like_jax():
+    """Tolerance: none (fake clock, synchronous batches). Retry 1 of 3 is
+    scheduled after the backoff, and the message completes once."""
+    j, t = _both(_base_exception_scenario)
+    assert t == j
+    final = t[-1][0]
+    assert final["status"] == "completed" and final["retry_count"] == 1
+
+
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_base_exception_retried_by_the_threaded_worker(pkg):
+    """Real threads and clock: the pool thread survives the BaseException
+    and the message completes after one retry, long before the
+    watchdog's deadline."""
+    cfg = (JConfig if pkg == "jax" else TConfig)()
+    cfg.queue.retry.initial_backoff = 0.05
+    cfg.queue.worker.process_interval = 0.01
+    if pkg == "jax":
+        mgr = jqm.QueueManager("crash-loop", cfg, backend="python",
+                               enable_metrics=False)
+        Worker, Message = jworker.Worker, jtypes.Message
+    else:
+        mgr = tqm.QueueManager("crash-loop", cfg)
+        Worker, Message = tworker.Worker, ttypes.Message
+    done = threading.Event()
+    calls = []
+
+    def process(ctx, m):
+        calls.append(m.id)
+        if len(calls) == 1:
+            raise _Crash("the loop died under this message")
+        done.set()
+
+    w = Worker("w", mgr, process)
+    m = Message(content="x", timeout=30.0)
+    mgr.push_message(m)
+    w.start()
+    try:
+        assert done.wait(10.0), pkg
+    finally:
+        w.stop()
+    assert m.retry_count == 1 and len(calls) == 2
+    deadline = time.time() + 5.0
+    while m.status.value != "completed" and time.time() < deadline:
+        time.sleep(0.01)
+    assert m.status.value == "completed"

@@ -107,8 +107,13 @@ def test_conversation_second_turn_reports_cached_tokens(served):
 
 def test_all_priorities_complete(served):
     _, base = served
+    # A deadline the shedder can meet: with the resource scheduler's
+    # learned prefill rate, a LOW message at the 30 s default timeout is
+    # shed before any LOW wait is measured (the 30 s table estimate plus
+    # the prefill ETA exceeds it), in the JAX package's process too.
     mids = [_http("POST", f"{base}/api/v1/messages",
-                  {"content": f"tier {p}", "priority": p})[1]["message_id"]
+                  {"content": f"tier {p}", "priority": p,
+                   "timeout": 120.0})[1]["message_id"]
             for p in ("low", "normal", "high", "realtime", 3)]
     for mid in mids:
         assert _poll(base, mid)["status"] == "completed"
@@ -127,7 +132,10 @@ def test_unknown_id_404_bad_priority_400_bad_route(served):
     assert _http("POST", f"{base}/health")[0] == 405
 
 
-def test_check_command_runs_on_cpu(capsys):
+def test_check_command_runs_on_cpu(capsys, monkeypatch, tmp_path):
+    # Outside the repository root, whose configs/config.yaml names the
+    # JAX package's echo backend (which the port refuses).
+    monkeypatch.chdir(tmp_path)
     rc = main(["--model", "llama3-tiny", "--device", "cpu", "check",
                "--timeout", "60"])
     assert rc == 0
@@ -174,7 +182,9 @@ def test_worker_completes_and_fails_messages():
     assert (w.stats.succeeded, w.stats.failed) == (1, 1)
 
 
-def test_config_env_overrides_and_defaults():
+def test_config_env_overrides_and_defaults(monkeypatch, tmp_path):
+    # No config file in the working directory: defaults and env only.
+    monkeypatch.chdir(tmp_path)
     cfg = load_config(environ={"LLMQ_EXECUTOR_KV_PAGES": "64",
                                "LLMQ_SERVER_PORT": "9000",
                                "LLMQ_EXECUTOR_PREFILL_BUCKETS": "16,32",
@@ -192,12 +202,14 @@ def test_config_env_overrides_and_defaults():
         "realtime", "high", "normal", "low"]
 
 
-def test_mixed_and_ragged_config_blocks_from_env():
+def test_mixed_and_ragged_config_blocks_from_env(monkeypatch, tmp_path):
     """executor.mixed_batch (on by default) and executor.ragged_attention
     (off by default) are nested blocks that LLMQ_* variables reach."""
     from llmq_tpu_torch.core.config import (MixedBatchConfig,
                                             RaggedAttentionConfig)
 
+    # No config file in the working directory: defaults and env only.
+    monkeypatch.chdir(tmp_path)
     d = Config().executor
     assert (d.mixed_batch.enabled, d.mixed_batch.prefill_token_budget,
             d.mixed_batch.max_slices, d.mixed_batch.slice_tokens) == (
@@ -308,7 +320,8 @@ def test_int8_serving_over_rest():
         app.stop()
 
 
-def test_check_command_runs_int8_from_env(monkeypatch, capsys, caplog):
+def test_check_command_runs_int8_from_env(monkeypatch, capsys, caplog,
+                                          tmp_path):
     """Both switches through their LLMQ_* variables reach the entry
     point: ``check`` builds (boot log) and serves the int8 engine on the
     CPU."""
@@ -316,6 +329,7 @@ def test_check_command_runs_int8_from_env(monkeypatch, capsys, caplog):
 
     monkeypatch.setenv("LLMQ_MODEL_QUANTIZATION", "int8")
     monkeypatch.setenv("LLMQ_MODEL_KV_QUANTIZATION", "int8")
+    monkeypatch.chdir(tmp_path)    # no config file: defaults and env
     with caplog.at_level(logging.INFO, logger="llmq_tpu_torch.builder"):
         rc = main(["--model", "llama3-tiny", "--device", "cpu", "check",
                    "--timeout", "60"])
