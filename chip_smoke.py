@@ -129,7 +129,39 @@ shows where it happened):
                  idle, /health reading "draining" meanwhile, and each
                  completes once. Printed: a scrape's ms while 8 rows
                  decode, and B=1 and 8-concurrent tok/s with the engine's
-                 metrics on and off.
+                 metrics on and off. Then the observability plane, at the
+                 JAX package's defaults (on): a mix of four priorities,
+                 a two-turn conversation and an SSE stream, whose traces
+                 list their stages in the recorder's order and whose
+                 critical-path segments sum to their end to end (no
+                 conservation failure); the SSE ``traceparent`` carries
+                 the request's trace id; every request carries the ten
+                 usage fields, page-seconds and a goodput; the ledger's
+                 attributed device seconds stay within the summed
+                 ``step_device_ms``; the pool pressure once more with a
+                 REALTIME row decoding throughout, whose rebuilds
+                 re-prefill in mixed slices, billed as "preempt"
+                 waste; both SLO burn windows and the flight recorder
+                 answer; the serve boot's weights, compile, warmup and
+                 first-token stages are on ``/health`` and in
+                 ``replica_ready_seconds``. While 8 rows decode: one step
+                 sample per chunk fetched, overlap ratio > 0, the
+                 telemetry's tok/s within 10% of the phase's own count,
+                 MFU from the rate, HBM weight and pool bytes equal to
+                 the model's and the pools', free memory as
+                 ``torch.cuda.mem_get_info`` reads it, a 1 s on-demand
+                 profile (202, then 409, then done) whose trace holds
+                 kernels 1-3 by name, written after the engine's hold:
+                 the engine's longest wait for a chunk stays within the
+                 profiler's longest hold (its stop holds the interpreter
+                 ~8-10 s) plus 1 s, and the card's heartbeat gap under
+                 the serving default timeout (30 s); five carried
+                 chunks through the engine, each boundary idle under
+                 0.1 ms by the chunks' CUDA events. Decode at B=1 and 8
+                 concurrent with observability on and off in turns (on,
+                 off, off, on), after one uncounted 8-concurrent batch,
+                 each turn's rate the median of three: the "on" turns
+                 within 3% of the "off" ones.
 9. serve-int8 — llama3-8b with int8 weights and int8 KV at full width and
                  depth (``LLMQ_MODEL_QUANTIZATION=int8
                  LLMQ_MODEL_KV_QUANTIZATION=int8``), the same REST mix:
@@ -237,15 +269,17 @@ def scaled_err(out, ref) -> float:
 
 def _profiled(fn, activities, complete, what: str):
     """``fn()`` under torch.profiler, then a device synchronize, taken
-    again until ``complete(prof)`` holds, five times at most. The
-    profiler now and then drops the device events of a trace, all of
-    them or a few (runs of this script on the H100 saw 9 kernels
-    recorded for 10 calls, and 0 for 20), at no fixed place in the
+    again until ``complete(prof)`` holds, ten times at most, the n-th
+    retake after n x 50 ms. The profiler now and then drops the device
+    events of a trace, all of them or a few (runs of this script on the
+    H100 saw 9 kernels recorded for 10 calls, and 0 for 20, and once 19
+    for 20 in five traces taken within 0.2 s), at no fixed place in the
     script: an incomplete trace is taken again, not used."""
     import torch
     from torch.profiler import profile
 
-    for _attempt in range(5):
+    for attempt in range(10):
+        time.sleep(0.05 * attempt)
         with profile(activities=activities) as prof:
             fn()
             torch.cuda.synchronize()
@@ -254,7 +288,7 @@ def _profiled(fn, activities, complete, what: str):
         log(f"[trace] {what}: the profiler lost device events, tracing "
             f"again")
     raise AssertionError(f"the profiler lost device events of {what} in "
-                         f"five traces running")
+                         f"ten traces running")
 
 
 def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -2393,11 +2427,16 @@ def phase_graphs(state) -> None:
 
 
 def phase_serve(state) -> None:
+    import gc
+
     counts, restore = _count_plain_calls()
     try:
         _serve_ragged(state, _serve_default(state))
     finally:
         restore()
+    # The ragged engine is gone: collect it now, not inside a later
+    # phase's timed window.
+    gc.collect()
     if counts:
         raise AssertionError(f"serving called plain twins: {counts}")
     log("[serve] no *_plain twin was called while serving")
@@ -2425,8 +2464,13 @@ def _serve_default(state):
     from llmq_tpu_torch.engine.builder import build_engine
     from llmq_tpu_torch.ops import kernels
 
+    from llmq_tpu_torch.observability import critical_path as cp
+
     cfg = _serve_cfg()
     t0 = time.perf_counter()
+    # The serve boot, as ``python -m llmq_tpu_torch serve`` records it:
+    # the build stamps its stages here, the first token closes it.
+    cp.boot_begin(SERVE_BOOT_ID, "serve", process=True)
     engine = build_engine(cfg, warmup=True)
     torch.cuda.synchronize()
     mc = engine.executor.model_cfg
@@ -2438,12 +2482,22 @@ def _serve_default(state):
     _check_defaults(engine, "serve")
     app = App(cfg, engine=engine)
     port = app.start(host="127.0.0.1", port=0)
+    cp.boot_ready(SERVE_BOOT_ID, time.perf_counter() - t0)
     base = f"http://127.0.0.1:{port}"
     try:
         engine.generate("warm up the card", max_new_tokens=4)
         torch.cuda.synchronize()
         status, health = _http("GET", f"{base}/health")
         assert status == 200 and health["engine"] == "running", health
+        # The first token closed the serve boot (later builds in this
+        # process add their stages to the same record).
+        boot = health.get("boot") or {}
+        if boot.get("replica_id") != SERVE_BOOT_ID or "first_token" not in \
+                boot.get("stages_s", {}):
+            raise AssertionError(f"serve boot on /health: {health}")
+        state["serve_boot"] = boot
+        log(f"[serve] boot {boot['stages_s']} s, ready after "
+            f"{boot['total_s']} s ({CARD})")
 
         # -- the main path: REST → queue → worker → engine → kernels -----
         kernels.reset_launches()
@@ -3143,11 +3197,26 @@ PRESSURE_LOW_NEW = 128
 PRESSURE_RT_NEW = 32
 PRESSURE_FILLER = ("The queue serves four priority tiers, and every request "
                    "carries its own deadline and budget. ")
+#: The anchored pressure run (``_pool_pressure(anchor=True)``, read by
+#: the observability gates alone): a short REALTIME request admitted
+#: with the six LOWs keeps decoding through the traffic
+#: (PRESSURE_ANCHOR_NEW tokens). With a decode row live, a victim's
+#: rebuild re-prefills in mixed slices, whose device time the usage plane
+#: charges as "preempt" waste (a re-prefill by prefill programs alone is
+#: not charged, as in the JAX package).
+PRESSURE_ANCHOR_NEW = 800
 
 
 #: The resource scheduler's heartbeat timeout in the serve-plane phase
 #: (seconds): the card's resource must stay online past twice it.
 PLANE_HEARTBEAT_S = 3.0
+#: While a 1 s on-demand profile is taken, the engine may go without
+#: finishing a chunk no longer than the profiler's longest hold (its
+#: stop holds the interpreter 7.8-10.1 s over the ~186k kernels of that
+#: second, as fast as the host is) plus this (seconds; a chunk is
+#: ~150 ms). Writing the trace must not stall it: Kineto's own export
+#: held the interpreter ~4 s more.
+PROFILE_STALL_S = 1.0
 
 
 def _plane_cfg():
@@ -3339,7 +3408,7 @@ def _pool_accounting(engine):
     return engine.allocator.used(), len(tree | pins), len(tree), len(pins)
 
 
-def _pool_pressure(engine, base, tag: str) -> dict:
+def _pool_pressure(engine, base, tag: str, anchor: bool = False) -> dict:
     """Six LOW requests of PRESSURE_PROMPT tokens, arriving together;
     once all six have emitted a first token (none finished), two REALTIME ones of the same
     length. Every request must complete its tokens (none finishes
@@ -3350,7 +3419,10 @@ def _pool_pressure(engine, base, tag: str) -> dict:
     pins. Prints the REALTIME TTFT, each rebuild's tokens and ms, and
     (no gate: bf16 re-prefill logits are not decode logits) how many
     leading tokens of the decoded victim equal the same prompt served
-    alone."""
+    alone. ``anchor`` adds a short REALTIME row, admitted with the six,
+    that keeps decoding through the traffic: the rebuilds then
+    re-prefill in mixed slices (their device time is "preempt" waste)
+    instead of by prefill programs."""
     from llmq_tpu_torch.core.types import Priority
     from llmq_tpu_torch.engine.engine import GenRequest
 
@@ -3382,6 +3454,10 @@ def _pool_pressure(engine, base, tag: str) -> dict:
                                        "max_new_tokens": PRESSURE_LOW_NEW}})
                 prompts[mid] = text
                 lows.append(mid)
+            row = engine.submit(GenRequest(
+                id=f"{tag}-anchor-{time.time()}", prompt=f"{tag} anchor row",
+                priority=Priority.REALTIME,
+                max_new_tokens=PRESSURE_ANCHOR_NEW)) if anchor else None
             _until(lambda: all(m in tr.handles for m in lows), 30,
                    f"{tag}: six LOW requests submitted")
         finally:
@@ -3404,7 +3480,13 @@ def _pool_pressure(engine, base, tag: str) -> dict:
                                         "max_new_tokens": PRESSURE_RT_NEW}}))
         done = {m: _poll(base, m) for m in lows + rts}
         wall = time.perf_counter() - t0
+        if row is not None and row.result is not None:
+            raise AssertionError(f"{tag}: the anchor row finished before "
+                                 f"the traffic did: {row.result}")
         _until(lambda: _idle(engine), 120, f"{tag}: idle engine after")
+        if row is not None and (not row.wait(60) or row.result.finish_reason
+                                not in ("eos", "length")):
+            raise AssertionError(f"{tag}: anchor row {row.result}")
         for m, r in done.items():
             u = r["metadata"].get("usage", {})
             want = PRESSURE_LOW_NEW if m in lows else PRESSURE_RT_NEW
@@ -3466,8 +3548,12 @@ def _pool_pressure(engine, base, tag: str) -> dict:
         f"{', '.join(f'{n} tokens in {ms:.1f} ms' for n, ms in victim_rebuilds)}"
         f", resumed from its newest token; {lead} of {len(served)} leading "
         f"tokens equal to the same prompt served alone (not gated) ({CARD})")
+    waste = {m: (r["metadata"]["usage"].get("waste_seconds"),
+                 r["metadata"]["usage"].get("waste_reason"))
+             for m, r in done.items()}
     return {"wall_s": wall, "preemptions": tr.victims,
             "released": len(released), "realtime_ttft_ms": ttft,
+            "waste": waste,
             "rebuilds": [{"tokens": n, "ms": ms} for _, n, ms in rebuilds],
             "victim_generated": victim_generated,
             "idle_pages": used, "radix_pages": tree, "pin_pages": pins,
@@ -3806,6 +3892,7 @@ def _topology_check(app, base) -> dict:
 def _heartbeat_check(app, topo) -> None:
     """The card's resource is still online after twice the heartbeat
     timeout, and the heartbeat moved."""
+    from llmq_tpu_torch.core.config import ResourceSchedulerConfig
     from llmq_tpu_torch.scheduling.resource_scheduler import ResourceStatus
 
     left = topo["registered_at"] + 2 * PLANE_HEARTBEAT_S + 0.5 - time.time()
@@ -3980,6 +4067,535 @@ def _metrics_cost(engine, base) -> dict:
             "rates_off": rates["off"]}
 
 
+#: The serve phase's boot record (``python -m llmq_tpu_torch serve``
+#: names it by its address).
+SERVE_BOOT_ID = "serve:chip-smoke"
+#: The kernels of the bf16 default engine's path, as the card names them.
+PATH_KERNELS = {"fused_decode": "fused_decode_split_kernel",
+                "kv_prefill_write": "kv_prefill_write_kernel",
+                "prefill_attention": "prefill_attention_kernel"}
+#: The usage fields of a finished request (the JAX package's ten).
+USAGE_FIELDS = {"prompt_tokens", "cached_tokens", "completion_tokens",
+                "finish_reason", "tenant", "device_seconds", "waste_seconds",
+                "waste_reason", "kv_page_seconds",
+                "saved_prefill_device_seconds"}
+#: Stages every served request's trace holds (the queue path adds
+#: ``scheduled``, the SSE path ``dispatched``: a queued message goes from
+#: the worker straight to the engine, as in the JAX package's serve).
+ENGINE_STAGES = ("enqueued", "admitted", "prefill_start", "prefill_done",
+                 "first_token", "decode_done", "completed")
+
+
+def _obs_mix(engine, base) -> list:
+    """Four priorities, a two-turn conversation and one SSE stream over
+    REST; returns [(id, kind, usage)] once all completed."""
+    out = []
+    for prio in ("realtime", "high", "normal", "low"):
+        mid = _post(base, {"content": f"Observability check at {prio}: "
+                                      f"how busy is the queue?",
+                           "priority": prio,
+                           "metadata": {"max_new_tokens": 16}})
+        out.append([mid, "queued"])
+    status, c = _http("POST", f"{base}/api/v1/conversations",
+                      {"user_id": "obs-user"})
+    assert status == 201, (status, c)
+    for text in ("Trace this conversation, please.", " And its second turn."):
+        status, r = _http("POST", f"{base}/api/v1/conversations/"
+                                  f"{c['conversation_id']}/messages",
+                          {"content": text, "priority": "high",
+                           "timeout": MESSAGE_TIMEOUT_S,
+                           "metadata": {"max_new_tokens": 12}})
+        assert status == 202, (status, r)
+        out.append([r["message_id"], "queued"])
+        out[-1].append(_poll(base, r["message_id"])["metadata"].get("usage"))
+    for row in out[:4]:
+        row.append(_poll(base, row[0])["metadata"].get("usage"))
+    req = urllib.request.Request(
+        f"{base}/api/v1/messages", method="POST",
+        data=json.dumps({"content": "Stream the observability check.",
+                         "priority": "high", "stream": True,
+                         "metadata": {"max_new_tokens": 16}}).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        traceparent = resp.headers.get("traceparent")
+        events = [e for e in resp.read().decode().split("\n\n") if e]
+    start = json.loads(events[0].split("data: ", 1)[1])
+    done = json.loads(events[-1].split("data: ", 1)[1])
+    out.append([start["message_id"], "sse", done.get("usage"),
+                traceparent])
+    _until(lambda: _idle(engine), 120, "idle engine after the mix")
+    return out
+
+
+def _obs_traces(base, mix) -> dict:
+    """Each request's trace: its stages in the recorder's order, the
+    path's stages present, its critical-path segments summing to its end
+    to end (2 %, or 0.05 ms); the SSE ``traceparent`` parses to the
+    request's trace id; every queued request's usage has the ten fields
+    (the SSE one JAX's eight) and page-seconds. Then the rollup, the flight recorder and the routes'
+    view of the mix."""
+    from llmq_tpu_torch.observability import (parse_traceparent,
+                                              trace_id_for)
+    from llmq_tpu_torch.observability.recorder import STAGE_ORDER
+
+    rank = {s: i for i, s in enumerate(STAGE_ORDER)}
+    segs = {}
+    for row in mix:
+        mid, kind, usage = row[:3]
+        status, tr = _http("GET", f"{base}/api/v1/requests/{mid}/trace")
+        stages = [e["stage"] for e in tr["events"]]
+        need = ENGINE_STAGES + (("scheduled",) if kind == "queued"
+                                else ("dispatched",))
+        ranks = [rank[s] for s in stages]
+        cp = tr.get("critical_path") or {}
+        seg_ms = sum(cp.get("segments", {}).values()) * 1e3
+        if (status != 200 or ranks != sorted(ranks)
+                or not set(need) <= set(stages)
+                or abs(seg_ms - tr["duration_ms"])
+                > max(0.02 * tr["duration_ms"], 0.05)):
+            raise AssertionError(f"trace of {kind} {mid}: {status} stages "
+                                 f"{stages}, segments {seg_ms} ms vs "
+                                 f"{tr.get('duration_ms')} ms")
+        # The SSE ``done`` event's usage is JAX's: the token counts and
+        # the ledger's six fields (no cached_tokens or finish_reason).
+        want = USAGE_FIELDS if kind == "queued" else \
+            USAGE_FIELDS - {"cached_tokens", "finish_reason"}
+        if usage is None or set(usage) != want or \
+                usage["kv_page_seconds"] <= 0:
+            raise AssertionError(f"usage of {kind} {mid}: {usage}")
+        segs[mid] = {k: round(v * 1e3, 3)
+                     for k, v in cp["segments"].items()}
+        if kind == "sse":
+            tp = parse_traceparent(row[3])
+            if tp is None or tp.trace_id != trace_id_for(mid):
+                raise AssertionError(f"SSE traceparent {row[3]!r} for {mid}")
+    status, rollup = _http("GET", f"{base}/api/v1/analysis/critical-path"
+                                  f"?recent=256")
+    recent = {r["request_id"] for r in rollup["recent"]}
+    status2, fr = _http("GET", f"{base}/api/v1/admin/flightrecorder"
+                               f"?limit=1024")
+    held = {t["request_id"] for t in fr["recent"]}
+    ids = {row[0] for row in mix}
+    if (status != 200 or rollup["conservation_failures"] != 0
+            or not ids <= recent or status2 != 200 or not ids <= held):
+        raise AssertionError(f"critical path {rollup['conservation_failures']}"
+                             f" failures, mix in rollup "
+                             f"{len(ids & recent)}/{len(ids)}, in the "
+                             f"recorder {len(ids & held)}/{len(ids)}")
+    return {"segments_ms": segs, "dominant": rollup["dominant"],
+            "requests": rollup["requests"]}
+
+
+def _obs_boot(base, scrape) -> dict:
+    """The serve boot on /health and in ``replica_ready_seconds``."""
+    _, health = _http("GET", f"{base}/health")
+    boot = health.get("boot") or {}
+    stages = boot.get("stages_s", {})
+    need = ("weights", "compile", "warmup", "first_token")
+    observed = {s: _msum(scrape, "llm_queue_replica_ready_seconds_count",
+                         stage=s) for s in need}
+    if (boot.get("replica_id") != SERVE_BOOT_ID
+            or not set(need) <= set(stages)
+            or not all(v >= 1 for v in observed.values())):
+        raise AssertionError(f"boot: {boot}; replica_ready_seconds counts "
+                             f"{observed}")
+    return {"stages_s": stages, "total_s": boot.get("total_s")}
+
+
+def _event_chunk_gaps(engine, n: int):
+    """Device idle at the ``n`` boundaries between the next ``n + 1``
+    decode chunks the engine dispatches, in ms, from the chunks' own CUDA
+    events: from one chunk's completion event (recorded behind the copy
+    of its tokens) to the next one's start event (recorded behind the
+    copies of its inputs, before its first step). No profiler and no
+    device-wide wait: only the last chunk's own event is waited on."""
+    ex = engine.executor
+    handles = []
+    real = ex.decode_chunk_start
+
+    def recording(*args, **kwargs):
+        h = real(*args, **kwargs)
+        handles.append(h)
+        return h
+
+    ex.decode_chunk_start = recording
+    try:
+        _until(lambda: len(handles) > n, 60, f"{n + 1} chunks")
+    finally:
+        ex.__dict__.pop("decode_chunk_start", None)
+    hs = handles[:n + 1]
+    hs[-1].wait_ready()
+    return [a._done.elapsed_time(b._start) for a, b in zip(hs, hs[1:])]
+
+
+def _watch_heartbeat(app):
+    """Note the card's heartbeats from now on: a list of their times
+    (``time.perf_counter``), appended to as they happen. The monitor
+    takes the card offline once the newest is older than the heartbeat
+    timeout."""
+    sched = app.resource_scheduler
+    beats = []
+    beat = sched.heartbeat
+
+    def heartbeat(rid):
+        beats.append(time.perf_counter())
+        return beat(rid)
+
+    sched.heartbeat = heartbeat
+    return beats
+
+
+def _obs_b8(app, engine, base) -> dict:
+    """Eight long requests decoding: the telemetry's rate against the
+    phase's own count over the same seconds, MFU from the rate, the HBM
+    gauges against the model, the pools and ``torch.cuda.mem_get_info``,
+    each chunk's device ms (per step) for the bimodality question; the
+    device idle between five carried chunks through the engine; then the
+    on-demand profile, started while the 8 rows decode, two of which are
+    cancelled for two prompts whose prefill the capture must show."""
+    import torch
+
+    from llmq_tpu_torch.engine.engine import GenRequest
+    from llmq_tpu_torch.ops.quant import param_count, params_bytes
+    from llmq_tpu_torch.core.config import ResourceSchedulerConfig
+    from llmq_tpu_torch.scheduling.resource_scheduler import ResourceStatus
+
+    tel = engine._telemetry
+    chunks = []
+    noted_at = []
+    note = tel.note_step
+
+    def noting(dispatch_s, device_s, readback_s, tokens, overlapped_s=0.0):
+        chunks.append((dispatch_s, device_s, readback_s, overlapped_s,
+                       tokens))
+        noted_at.append(time.perf_counter())
+        return note(dispatch_s, device_s, readback_s, tokens,
+                    overlapped_s=overlapped_s)
+
+    def free_pool():
+        # The radix tree and the idle pins hold the pool after the
+        # earlier traffic; a carried dispatch takes only free pages (it
+        # never sheds), so the run starts from an empty pool.
+        pc = engine._prefix_cache
+        pc.evict_pages(pc.pages)
+        while engine._reclaim_idle_conversation():
+            pass
+
+    _until(lambda: _idle(engine), 120, "idle engine before 8 rows")
+    with engine.paused():
+        free_pool()
+    free0 = engine.allocator.available()
+    log(f"[serve-plane] pool emptied: {free0} free pages")
+    prompt = "The quick brown fox jumps over the lazy dog. " * 2
+    # 900 new tokens: eight rows of ~1000 positions fill 504 of the 511
+    # pages, so no row is shed while they decode.
+    hs = [engine.submit(GenRequest(id=f"obs-b8-{i}-{time.time()}",
+                                   prompt=f"{i}: {prompt}",
+                                   max_new_tokens=900)) for i in range(8)]
+    _until(lambda: _decoding_rows(engine) >= 8, 120, "eight rows decoding")
+    tel.note_step = noting
+    try:
+        time.sleep(0.3)
+        with tel._mu:
+            tel._tok_window.clear()     # the window holds this run only
+        t_a, n_a = time.time(), engine.tokens_generated_total
+        time.sleep(3.0)
+        rate_tel = tel.tokens_per_s()
+        t_b, n_b = time.time(), engine.tokens_generated_total
+        rate_me = (n_b - n_a) / (t_b - t_a)
+        scrape, scrape_ms = _scrape(base)
+        name = engine.name
+        rate_g = _msum(scrape, "llm_queue_decode_tokens_per_s", engine=name)
+        mfu_g = _msum(scrape, "llm_queue_mfu_pct", engine=name)
+        n_params = param_count(engine.executor.model.params)
+        free, total = torch.cuda.mem_get_info()
+        w = _msum(scrape, "llm_queue_hbm_weights_bytes", engine=name)
+        kv = _msum(scrape, "llm_queue_hbm_kv_pool_bytes", engine=name)
+        free_g = _msum(scrape, "llm_queue_hbm_free_bytes", engine=name)
+        limit_g = _msum(scrape, "llm_queue_hbm_limit_bytes", engine=name)
+        w_want = params_bytes(engine.executor.model.params)
+        kv_want = sum(x.numel() * x.element_size()
+                      for x in engine.executor.cache.values())
+        overlap = tel.overlap_ratio()
+        if (abs(rate_tel - rate_me) > 0.1 * rate_me
+                or tel.n_params != n_params
+                or abs(mfu_g - rate_g * 2 * n_params / BF16_FLOPS_PER_S
+                       * 100)
+                > 1e-9 * max(1.0, mfu_g)
+                or w != w_want or kv != kv_want or limit_g != total
+                or abs(free_g - free) > 256 * 2**20 or not overlap > 0):
+            raise AssertionError(
+                f"telemetry under 8 rows: rate {rate_tel} vs {rate_me}, "
+                f"mfu {mfu_g} from {rate_g} x {n_params}, weights {w} vs "
+                f"{w_want}, pools {kv} vs {kv_want}, free {free_g} vs "
+                f"{free}, limit {limit_g} vs {total}, overlap {overlap}")
+        # Four boundaries between five carried chunks through the engine,
+        # timed by the chunks' own CUDA events (a CUDA-only torch.profiler
+        # capture taken on this thread while the engine dispatched
+        # carried chunks never returned, twice on the H100).
+        log(f"[serve-plane] timing the engine's chunk boundaries, "
+            f"{_decoding_rows(engine)} rows decoding")
+        s0 = engine.steps
+        depth0 = dict(engine.pipeline_depth_hist)
+        gaps = _event_chunk_gaps(engine, 4)
+        depth = {d: n - depth0[d] for d, n in
+                 engine.pipeline_depth_hist.items() if n != depth0[d]}
+        if max(gaps) >= 0.1 or not depth.get(2):
+            raise AssertionError(f"engine chunk boundaries idle {gaps} ms "
+                                 f"(want each < 0.1 ms), dispatches by "
+                                 f"depth {depth}")
+        # The on-demand profile, started while the 8 rows decode; two of
+        # them are cancelled for two prompts arriving during the capture
+        # (their prefill launches kernels 2 and 3).
+        prof = None
+        beats = _watch_heartbeat(app)
+        for attempt in range(3):
+            if _decoding_rows(engine) < 8:
+                raise AssertionError("fewer than 8 rows decode at the "
+                                     "profile's start")
+            log(f"[serve-plane] on-demand profile {attempt} starting, "
+                f"{_decoding_rows(engine)} rows decoding")
+            t_post = time.perf_counter()
+            beats.append(t_post)
+            st, info, _ra = _http_status("POST", f"{base}/api/v1/admin/"
+                                                 f"profile",
+                                         {"duration_ms": 1000,
+                                          "label": f"serve-{attempt}"})
+            again = _http_status("POST", f"{base}/api/v1/admin/profile", {})
+            for h in hs[2 * attempt:2 * attempt + 2]:
+                h.cancel()
+            extra = [engine.submit(GenRequest(
+                id=f"obs-prof-{attempt}-{i}-{time.time()}",
+                prompt=f"{i} " + "profile this prefill " * (5 + 15 * i),
+                max_new_tokens=900)) for i in range(2)]
+            try:
+                _until(lambda: not _http("GET", f"{base}/api/v1/admin/"
+                                                f"profile")[1]["active"],
+                       90, "the profile to finish", poll=0.1)
+            except AssertionError:
+                import faulthandler
+
+                faulthandler.dump_traceback(all_threads=True)
+                raise
+            t_done = time.perf_counter()
+            _, status = _http("GET", f"{base}/api/v1/admin/profile")
+            hs += extra
+            if st != 202 or again[0] != 409 or \
+                    status["last"]["label"] != f"serve-{attempt}":
+                raise AssertionError(f"profile route: {st} {info}, then "
+                                     f"{again[0]}, status {status}")
+            last = status["last"]
+            # The engine's stall: the longest wait between two chunks it
+            # finished from the POST to the capture's end (the trace
+            # written), next to the chunk's own ~150 ms.
+            seen = [t_post] + [t for t in noted_at if t_post < t < t_done]
+            stall = max(b - a for a, b in zip(seen, seen[1:] + [t_done]))
+            path = os.path.join(last["path"], "trace.json")
+            names = []
+            with open(path) as f:          # one event a line
+                for line in f:
+                    if '"cat": "kernel"' in line:
+                        names.append(json.loads(line.lstrip(","))["name"])
+            beats.append(time.perf_counter())
+            hb_gap = max(b - a for a, b in zip(beats, beats[1:]))
+            found = {k: sum(1 for n in names if sym in n)
+                     for k, sym in PATH_KERNELS.items()}
+            held = {k: round(last[k], 3) for k in ("start_s", "stop_s",
+                                                   "write_s")}
+            serving_hb = ResourceSchedulerConfig().heartbeat_timeout
+            log(f"[serve-plane] on-demand profile {attempt}: {len(names)} "
+                f"card kernels of {last['events']} events in "
+                f"{os.path.getsize(path) / 2**20:.1f} MiB of trace; kernels "
+                f"1-3 {found}; engine held {held['start_s']} s at the start "
+                f"and {held['stop_s']} s at the stop, trace written in "
+                f"{held['write_s']} s (engine serving); from the POST to "
+                f"done {t_done - t_post:.3f} s, engine stall {stall:.3f} s, "
+                f"longest heartbeat gap {hb_gap:.3f} s (the phase's timeout "
+                f"{PLANE_HEARTBEAT_S} s, the serving default {serving_hb} s) "
+                f"({CARD})")
+            r = app.resource_scheduler.get_resource(
+                app._own_resource_ids[0])
+            bound = max(last["start_s"], last["stop_s"]) + PROFILE_STALL_S
+            if stall >= bound or hb_gap >= serving_hb \
+                    or r.status != ResourceStatus.ONLINE:
+                raise AssertionError(
+                    f"the on-demand profile stalled serving: engine "
+                    f"{stall} s (want < {bound}: the profiler's longest "
+                    f"hold + {PROFILE_STALL_S}), heartbeat gap {hb_gap} s "
+                    f"(want < {serving_hb}), card {r.to_dict()}")
+            if all(found.values()):
+                prof = {"path": path, "kernels": len(names), "found": found,
+                        "attempts": attempt + 1, "stall_s": stall,
+                        "heartbeat_gap_s": hb_gap, **held,
+                        "events": last["events"]}
+                break
+        if prof is None:
+            raise AssertionError("the on-demand profile never showed "
+                                 "kernels 1-3")
+    finally:
+        tel.note_step = note
+        app.resource_scheduler.__dict__.pop("heartbeat", None)
+    for h in hs:
+        h.cancel()
+    _until(lambda: _idle(engine), 120, "idle engine after the 8 rows")
+    full = [c for c in chunks if c[4] == 128]      # 8 rows x 16 steps
+    per_step = sorted(round(d * 1e3 / 16, 3) for _dp, d, _r, _o, _t in full)
+    legs = {name: round(sum(c[i] for c in full) * 1e3 / max(1, len(full)), 3)
+            for i, name in enumerate(("dispatch_ms", "device_ms",
+                                      "readback_ms", "overlapped_ms"))}
+    window_overlap = (legs["overlapped_ms"]
+                      / max(1e-9, legs["overlapped_ms"] + legs["device_ms"]))
+    log(f"[serve-plane] 8 rows decoding: telemetry {rate_tel:.1f} tok/s vs "
+        f"counted {rate_me:.1f} tok/s over the same {t_b - t_a:.2f} s; MFU "
+        f"{mfu_g:.3f}% ({rate_g:.1f} tok/s x 2 x {n_params} / 989e12); "
+        f"overlap ratio {overlap:.4f}; HBM weights {w / 1e9:.3f} GB, pools "
+        f"{kv / 1e9:.3f} GB, free {free_g / 2**30:.2f} GiB of "
+        f"{limit_g / 2**30:.2f} GiB; RTT {tel.rtt_ms:.3f} ms; scrape "
+        f"{scrape_ms:.2f} ms; over its {len(full)} full chunks (the "
+        f"profile's included) the legs a chunk: dispatch "
+        f"{legs['dispatch_ms']} ms, device {legs['device_ms']} ms, "
+        f"readback {legs['readback_ms']} ms, overlapped "
+        f"{legs['overlapped_ms']} ms (overlap {window_overlap:.4f}; the "
+        f"engine's whole life {overlap:.4f}) ({CARD})")
+    log(f"[serve-plane] per-chunk device ms / 16 steps, full B=8 chunks "
+        f"({len(per_step)}): {per_step} ({CARD})")
+    log(f"[serve-plane] engine chunk boundaries (observability on, 8 rows "
+        f"from a pool of {free0} free pages, {s0} steps before, chunks "
+        f"dispatched by pipeline depth {depth}): idle "
+        f"{', '.join(f'{g:.4f}' for g in gaps)} ms between five carried "
+        f"chunks, by their CUDA events ({CARD})")
+    return {"rate_telemetry": rate_tel, "rate_counted": rate_me,
+            "mfu_pct": mfu_g, "overlap_ratio": overlap,
+            "hbm_weights_bytes": w, "hbm_kv_pool_bytes": kv,
+            "hbm_free_bytes": free_g, "hbm_limit_bytes": limit_g,
+            "rtt_ms": tel.rtt_ms, "scrape_ms": scrape_ms,
+            "step_legs": legs, "window_overlap_ratio": window_overlap,
+            "per_step_device_ms": per_step,
+            "profile": prof, "chunk_gaps_ms": gaps, "depth": depth}
+
+
+def _obs_cost(cfg, engine) -> dict:
+    """B=1 and 8-concurrent decode tok/s with observability on and off in
+    turns (on, off, off, on); the "on" means within 3 % of the "off"
+    ones (the JAX package's step-path budget). One 8-concurrent batch
+    runs first and is not counted, so every counted batch meets the same
+    prefix cache; a turn's 8-concurrent rate is the median of three
+    batches, as its B=1 rate is the median of three requests (one batch
+    lasts ~0.3 s, so a single host stall of 0.1 s moves it by a third).
+    Every batch's rate is printed, with the collector's pauses in each
+    turn."""
+    import gc
+
+    from llmq_tpu_torch import observability
+    from llmq_tpu_torch.core.config import ObservabilityConfig, UsageConfig
+
+    off = ObservabilityConfig(enabled=False, usage=UsageConfig(enabled=False))
+    rates = {"on": [], "off": []}
+    batches = {"on": [], "off": []}
+    pauses, started = [], []
+
+    def on_gc(phase, _info):
+        if phase == "start":
+            started[:] = [time.perf_counter()]
+        elif started:
+            pauses.append(time.perf_counter() - started.pop())
+
+    gc_turns = []
+    gc.callbacks.append(on_gc)
+    try:
+        settle, _ = _b8_rate(engine, "serve-plane-obs-settle")
+        for turn, on in enumerate((True, False, False, True)):
+            observability.configure(cfg.observability if on else off)
+            key = "on" if on else "off"
+            del pauses[:]
+            _ttft, r1, _n = _b1_rates(engine, f"serve-plane observability "
+                                              f"{key}")
+            b8 = [_b8_rate(engine, f"serve-plane-obs-{turn}-{i}")[0]
+                  for i in range(3)]
+            rates[key].append((r1, sorted(b8)[1]))
+            batches[key].append([round(b, 1) for b in b8])
+            gc_turns.append((key, len(pauses),
+                             round(max(pauses, default=0.0) * 1e3, 3)))
+    finally:
+        gc.callbacks.remove(on_gc)
+        observability.configure(cfg.observability)
+
+    def mean(key, i):
+        return sum(r[i] for r in rates[key]) / len(rates[key])
+
+    ratio = [mean("on", i) / mean("off", i) for i in (0, 1)]
+    log(f"[serve-plane] observability on: B=1 "
+        f"{[round(r, 1) for r, _ in rates['on']]} tok/s, 8 concurrent "
+        f"{[round(b, 1) for _, b in rates['on']]} tok/s (batches "
+        f"{batches['on']}); off: B=1 "
+        f"{[round(r, 1) for r, _ in rates['off']]}, 8 concurrent "
+        f"{[round(b, 1) for _, b in rates['off']]} (batches "
+        f"{batches['off']}); uncounted first batch {settle:.1f} tok/s; "
+        f"collector pauses by turn (mode, count, longest ms) {gc_turns}; "
+        f"on/off B=1 {ratio[0]:.4f}, 8 concurrent {ratio[1]:.4f} ({CARD})")
+    if min(ratio) < 0.97:
+        raise AssertionError(f"observability costs more than 3%: on/off "
+                             f"{ratio}")
+    return {"rates_on": rates["on"], "rates_off": rates["off"],
+            "batches_on": batches["on"], "batches_off": batches["off"],
+            "gc_turns": gc_turns, "on_over_off": ratio}
+
+
+def _observability_gates(app, engine, base) -> dict:
+    """The observability plane on the serve engine (module doc, phase 8)."""
+    from llmq_tpu_torch.observability import get_usage_ledger
+
+    # The pool pressure again, anchored: its rebuilds re-prefill in mixed
+    # slices, which the usage plane bills as "preempt" waste.
+    pressure = _pool_pressure(engine, base, "serve-plane-waste", anchor=True)
+    _until(lambda: _idle(engine), 120, "idle engine before the mix")
+    before, _ms = _scrape(base)
+    led = get_usage_ledger()
+    a0 = led.attributed_device_s
+    n0 = engine._telemetry.snapshot()["steps"]["count"]
+    s0 = engine.steps
+    mix = _obs_mix(engine, base)
+    after, _ms = _scrape(base)
+    name = engine.name
+    a1 = led.attributed_device_s
+    n1 = engine._telemetry.snapshot()["steps"]["count"]
+    hist = {leg: _msum(after, f"llm_queue_step_{leg}_ms_count", engine=name)
+            - _msum(before, f"llm_queue_step_{leg}_ms_count", engine=name)
+            for leg in ("dispatch", "device", "readback")}
+    dev_s = (_msum(after, "llm_queue_step_device_ms_sum", engine=name)
+             - _msum(before, "llm_queue_step_device_ms_sum",
+                     engine=name)) / 1e3
+    attributed = a1 - a0
+    goodput = _msum(after, "llm_queue_goodput_tokens_per_device_second")
+    burn = {(s, w): (("llm_queue_slo_burn_rate",
+                      (("slo", s), ("window", w))) in after)
+            for s in ("ttft", "realtime") for w in ("5m", "1h")}
+    waste = pressure["waste"]
+    wasted = {m: r for m, (s, r) in waste.items() if s and s > 0}
+    if (set(hist.values()) != {n1 - n0} or n1 - n0 != engine.steps - s0
+            or n1 == n0 or attributed > dev_s + 1e-6 or not goodput > 0
+            or not all(burn.values()) or not wasted
+            or set(wasted.values()) != {"preempt"}):
+        raise AssertionError(
+            f"observability: step samples {hist} for {n1 - n0} chunks "
+            f"noted, {engine.steps - s0} dispatched; attributed "
+            f"{attributed} s vs {dev_s} s of step_device_ms; goodput "
+            f"{goodput}; burn gauges {burn}; pressure waste {waste}")
+    out = {"traces": _obs_traces(base, mix), "boot": _obs_boot(base, after),
+           "chunks": n1 - n0, "attributed_s": attributed,
+           "step_device_s": dev_s, "goodput": goodput,
+           "pressure_waste": wasted, "waste_run": pressure}
+    log(f"[serve-plane] observability: {len(mix)} requests (4 priorities, "
+        f"2 turns, SSE) traced in the recorder's stage order, segments "
+        f"conserved; {n1 - n0} chunks = {n1 - n0} samples per step leg; "
+        f"attributed {attributed:.6f} s of {dev_s:.6f} s step device "
+        f"time; goodput {goodput:.3f} tok/device-s; pressure waste "
+        f"{wasted}; serve boot {out['boot']} ({CARD})")
+    out["b8"] = _obs_b8(app, engine, base)
+    out["cost"] = _obs_cost(app.cfg, engine)
+    return out
+
+
 def phase_serve_plane(state) -> None:
     """The serving process (queue factory with delayed and dead-letter
     queues, workers with retry backoff, crash supervisor, conversation
@@ -4044,6 +4660,8 @@ def phase_serve_plane(state) -> None:
         out["topology"] = {k: v for k, v in topo.items()
                            if k != "registered_at"}
         out["prefill"] = _learned_prefill(app, pairs)
+        # The observability gates need the workers, which the drain stops.
+        out["observability"] = _observability_gates(app, engine, base)
         out["drain"] = _drain_check(app, engine, base)
         out["metrics_cost"] = _metrics_cost(engine, base)
         out["overload"] = _overload(app, engine, base)
@@ -4123,6 +4741,7 @@ def main(argv=()) -> int:
                       "serve": state.get("serve"),
                       "serve_int8": state.get("serve_int8"),
                       "serve_plane": state.get("serve_plane"),
+                      "serve_boot": state.get("serve_boot"),
                       "int_mm": state.get("int_mm"),
                       "launch_floor_ms": state.get("launch_floor_ms"),
                       "graphs": state.get("graphs")}, default=str))

@@ -37,6 +37,7 @@ from typing import List, Optional
 
 import torch
 
+from llmq_tpu_torch import observability
 from llmq_tpu_torch.api.message_store import MessageStore
 from llmq_tpu_torch.api.server import ApiServer
 from llmq_tpu_torch.conversation.persistence import make_store
@@ -276,12 +277,22 @@ def _load(args) -> Config:
         cfg.logging.format = args.log_format
     configure_logging(cfg.logging.level, cfg.logging.format,
                       cfg.logging.output)
+    # The trace plane (and through it the SLO, usage and critical-path
+    # planes) is sized and switched before any component records.
+    observability.configure(cfg.observability)
     return cfg
 
 
 def cmd_serve(cfg: Config, args) -> int:
+    # This process's boot record opens before the App builds the engine:
+    # the builder stamps weights, compile and warmup into it, the first
+    # committed token closes it, and /health shows it.
+    serve_id = f"serve:{cfg.server.host}:{cfg.server.port}"
+    t_boot0 = time.perf_counter()
+    observability.boot_begin(serve_id, "serve", process=True)
     app = App(cfg)
     port = app.start()
+    observability.boot_ready(serve_id, time.perf_counter() - t_boot0)
     print(f"serving {cfg.model.name} on {cfg.device} at "
           f"http://{cfg.server.host}:{port}", flush=True)
     app.wait()

@@ -36,16 +36,6 @@ log = logging.getLogger("llmq_tpu_torch.overload")
 
 #: Prompt characters per token of the admission-time estimate.
 _CHARS_PER_TOKEN = 4.0
-DEFAULT_TENANT = "default"
-
-
-def sanitize_tenant(raw: Any) -> str:
-    """A client-supplied tenant id, stripped and capped at 64
-    characters; ``"default"`` when empty."""
-    s = str(raw or "").strip()
-    if not s:
-        return DEFAULT_TENANT
-    return s[:64]
 
 
 def estimate_prompt_tokens(msg: Any) -> int:

@@ -19,13 +19,20 @@ the port has):
   ``GET /api/v1/endpoints/stats``, ``POST /api/v1/endpoints/:id/drain``,
   ``DELETE /api/v1/endpoints/:id`` (the load balancer)
 - ``POST /api/v1/generate`` (synchronous generation)
+- observability: ``GET /api/v1/requests/:id/trace`` (one request's
+  timeline, ``?format=chrome`` for Perfetto), ``GET /api/v1/usage``,
+  ``GET /api/v1/analysis/critical-path``,
+  ``GET /api/v1/admin/flightrecorder``, ``POST``/``GET
+  /api/v1/admin/profile`` (a bounded on-demand ``torch.profiler``
+  capture; 409 while one runs)
 - admin: the process drain, preprocessor rules and user priorities,
   removal of a pending message, dead-letter requeue (one and all)
 
 Every submission runs through the preprocessor (priority inference),
 the overload shedder (429/503 with ``Retry-After``), the queue manager
-and the conversation service. The routes of planes the port does not
-have yet (cluster, usage, tenancy, tracing, profiling, control plane)
+and the conversation service, and stamps its ``enqueued`` stage (the
+SSE path its ``dispatched`` too) into the flight recorder. The routes
+of planes the port does not have yet (cluster, tenancy, control plane)
 wait for them.
 """
 
@@ -34,6 +41,7 @@ from __future__ import annotations
 import json
 import logging
 import math
+import os
 import re
 import threading
 import time
@@ -41,9 +49,9 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, List, Optional, Tuple
 from urllib.parse import parse_qs, urlparse
 
-from llmq_tpu_torch import __version__
+from llmq_tpu_torch import __version__, observability
 from llmq_tpu_torch.api.message_store import MessageStore
-from llmq_tpu_torch.api.overload import build_shedder, sanitize_tenant
+from llmq_tpu_torch.api.overload import build_shedder
 from llmq_tpu_torch.core.config import Config
 from llmq_tpu_torch.core.errors import QueueFullError, QueueNotFoundError
 from llmq_tpu_torch.core.types import (ConversationState, Message,
@@ -226,8 +234,14 @@ class ApiServer:
         r("POST", f"{v1}/endpoints/:id/drain", self.drain_endpoint)
         r("DELETE", f"{v1}/endpoints/:id", self.delete_endpoint)
         r("GET", f"{v1}/engine/stats", self.get_engine_stats)
+        r("GET", f"{v1}/usage", self.get_usage)
+        r("GET", f"{v1}/analysis/critical-path", self.get_critical_path)
         r("POST", f"{v1}/generate", self.generate_sync)
+        r("GET", f"{v1}/requests/:id/trace", self.get_request_trace)
         adm = f"{v1}/admin"
+        r("GET", f"{adm}/flightrecorder", self.get_flight_recorder)
+        r("POST", f"{adm}/profile", self.start_profile)
+        r("GET", f"{adm}/profile", self.get_profile_status)
         r("POST", f"{adm}/drain", self.drain_self)
         r("POST", f"{adm}/preprocessor/rules", self.add_priority_rule)
         r("GET", f"{adm}/preprocessor/rules", self.list_priority_rules)
@@ -335,7 +349,8 @@ class ApiServer:
         except (ValueError, TypeError) as e:
             raise ApiError(400, f"invalid message: {e}") from None
         # The X-Tenant-Id header wins over the body field.
-        msg.tenant_id = sanitize_tenant(tenant_header or msg.tenant_id)
+        msg.tenant_id = observability.sanitize_tenant(
+            tenant_header or msg.tenant_id)
         return msg
 
     def _ingest_message(self, data: Dict[str, Any],
@@ -365,6 +380,12 @@ class ApiServer:
             # A shed request never entered the queue plane: its 429/503
             # and Retry-After are its whole outcome.
             self.shedder.admit(msg, mgr, self.estimate_wait(msg.priority))
+        # Stamped before the push: a near-idle worker can pop and stamp
+        # "scheduled" before this thread resumes.
+        observability.record(msg.id, "enqueued",
+                             priority=msg.priority.tier_name,
+                             conversation_id=msg.conversation_id,
+                             user_id=msg.user_id)
         mgr.push_message(msg)
         self.store.record(msg)
         if msg.conversation_id and self.state_manager is not None:
@@ -382,7 +403,20 @@ class ApiServer:
             "version": __version__, "time": time.time()}
         if self.engine is not None:
             out["engine"] = "running" if self.engine.running else "stopped"
+        self._add_boot(out)
         return 200, out
+
+    @staticmethod
+    def _add_boot(out: Dict[str, Any]) -> None:
+        """This process's boot decomposition (critical-path plane), when
+        the plane is on and an entry point or a build opened one."""
+        try:
+            if observability.cp_enabled():
+                boot = observability.process_boot_snapshot()
+                if boot is not None:
+                    out["boot"] = boot
+        except Exception:  # noqa: BLE001 — never fail a route on telemetry
+            log.exception("boot snapshot failed")
 
     def metrics_exposition(self, req: _Request) -> Tuple[int, Any]:
         return 200, exposition()
@@ -459,6 +493,18 @@ class ApiServer:
                 except Exception:  # noqa: BLE001 — log, don't fail
                     log.exception("conversation update failed for %s",
                                   msg.id)
+            observability.record(msg.id, "enqueued",
+                                 priority=msg.priority.tier_name,
+                                 conversation_id=msg.conversation_id,
+                                 user_id=msg.user_id, stream=True)
+            # The SSE path bypasses the queue: the submit is the dispatch,
+            # stamped before it so the engine's admission cannot come
+            # first.
+            observability.record(msg.id, "dispatched",
+                                 endpoint=getattr(self.engine, "name",
+                                                  "engine"),
+                                 reason="stream",
+                                 priority=msg.priority.tier_name)
             tokens: "Queue[int]" = Queue()
             handle = self.engine.submit(GenRequest.from_message(msg),
                                         on_token=tokens.put)
@@ -529,14 +575,18 @@ class ApiServer:
                               if res and res.finish_reason in
                               ("eos", "length") else MessageStatus.FAILED)
                 msg.updated_at = time.time()
+                usage = {
+                    "prompt_tokens": res.prompt_tokens if res else 0,
+                    "completion_tokens": len(res.tokens) if res else 0,
+                }
+                if handle.usage is not None:
+                    # What this request cost, from the usage ledger.
+                    usage.update(handle.usage)
                 done = {
                     "message_id": msg.id,
                     "finish_reason": res.finish_reason if res else "timeout",
                     "first_token_ms": first_ms,
-                    "usage": {
-                        "prompt_tokens": res.prompt_tokens if res else 0,
-                        "completion_tokens": len(res.tokens) if res else 0,
-                    },
+                    "usage": usage,
                 }
                 yield "event: done\ndata: " + json.dumps(done) + "\n\n"
             except BaseException:
@@ -570,8 +620,10 @@ class ApiServer:
             finally:
                 release_once()
 
-        return 200, _SSEStream(guarded(), on_close=release_once,
-                               headers={"X-Request-Id": msg.id})
+        return 200, _SSEStream(
+            guarded(), on_close=release_once,
+            headers={"traceparent": observability.make_traceparent(msg.id),
+                     "X-Request-Id": msg.id})
 
     def get_message(self, req: _Request) -> Tuple[int, Any]:
         msg = self.store.get(req.params["id"])
@@ -769,7 +821,69 @@ class ApiServer:
     def get_engine_stats(self, req: _Request) -> Tuple[int, Any]:
         if self.engine is None:
             raise ApiError(503, "engine not configured")
-        return 200, self.engine.get_stats()
+        out = self.engine.get_stats()
+        try:
+            # The process's SLO burn rates, after draining the recorder's
+            # deferred feed (this route must show real burn even when
+            # nothing scrapes /metrics).
+            observability.get_recorder().flush_metrics()
+            out["slo"] = observability.get_slo_tracker().snapshot()
+        except Exception:  # noqa: BLE001 — stats must not fail on SLO plane
+            log.exception("SLO snapshot failed")
+        try:
+            led = observability.get_usage_ledger()
+            if led.enabled:
+                out["usage"] = led.snapshot(top_conversations=0)
+        except Exception:  # noqa: BLE001 — stats must not fail on usage plane
+            log.exception("usage snapshot failed")
+        self._add_boot(out)
+        return 200, out
+
+    def get_critical_path(self, req: _Request) -> Tuple[int, Any]:
+        """Critical-path rollup: per-segment time totals and shares,
+        dominant-segment counts, recent decompositions and every known
+        boot decomposition. ``?recent=N`` sizes the recent list."""
+        ana = observability.get_critical_path()
+        if not ana.enabled:
+            raise ApiError(503, "critical-path plane disabled "
+                                "(set observability.critical_path"
+                                ".enabled)")
+        try:
+            # Drain the recorder's deferred feed first, so the rollup
+            # holds every finished request even with nothing scraping.
+            observability.get_recorder().flush_metrics()
+        except Exception:  # noqa: BLE001 — rollup must not fail on trace plane
+            log.exception("flight-recorder flush failed")
+        try:
+            recent = int(req.q("recent") or 20)
+        except ValueError:
+            raise ApiError(400, "recent must be an integer")
+        out = ana.snapshot(recent=max(0, min(recent, 256)))
+        out["boot"] = observability.get_boot_registry().snapshot()
+        return 200, out
+
+    def get_usage(self, req: _Request) -> Tuple[int, Any]:
+        """Usage-ledger rollups: per-tenant/priority/engine
+        device-seconds, KV page-seconds, waste by reason and the rolling
+        goodput. ``?tenant=`` narrows to one tenant's rollup."""
+        led = observability.get_usage_ledger()
+        if not led.enabled:
+            raise ApiError(503, "usage plane disabled "
+                                "(set observability.usage.enabled)")
+        try:
+            # The goodput join is fed by the recorder's flush.
+            observability.get_recorder().flush_metrics()
+        except Exception:  # noqa: BLE001 — usage must not fail on trace plane
+            log.exception("flight-recorder flush failed")
+        snap = led.snapshot()
+        tenant = req.q("tenant")
+        if tenant:
+            return 200, {
+                "tenant": tenant,
+                "usage": snap["tenants"].get(tenant),
+                "goodput": snap["goodput"],
+            }
+        return 200, snap
 
     def generate_sync(self, req: _Request) -> Tuple[int, Any]:
         """Synchronous generation: the message goes straight to the
@@ -788,14 +902,112 @@ class ApiServer:
             raise ApiError(400, f"invalid message: {e}") from None
         if not msg.id:
             msg.id = new_id()
+        # The caller's W3C trace context is recorded onto this host's
+        # timeline (the same trace id: both sides derive it from the
+        # message id), and the arrival is the request's "dispatched".
+        traceparent = req.headers.get(observability.TRACEPARENT_HEADER)
+        parsed_tp = observability.parse_traceparent(traceparent)
+        observability.record(
+            msg.id, "dispatched", reason="remote",
+            priority=msg.priority.tier_name,
+            traceparent=traceparent or "",
+            parent_span_id=parsed_tp.span_id if parsed_tp else "")
         try:
             self.engine.process_fn(_Deadline(timeout), msg)
         except TimeoutError as e:
             raise ApiError(504, str(e)) from None
         except RuntimeError as e:
             raise ApiError(500, f"generation failed: {e}") from None
-        return 200, {"message_id": msg.id, "response": msg.response,
-                     "usage": msg.metadata.get("usage", {})}
+        out = {"message_id": msg.id, "response": msg.response,
+               "usage": msg.metadata.get("usage", {})}
+        if self.config.observability.propagate_trace:
+            rec = observability.get_recorder()
+            if rec.enabled:
+                tl = rec.get(msg.id)
+                if tl is not None:
+                    # This host's events, for a caller to merge.
+                    out["trace"] = [e.to_dict()
+                                    for e in tl.sorted_events()]
+        return 200, out
+
+    # -- observability -------------------------------------------------------
+
+    def get_request_trace(self, req: _Request) -> Tuple[int, Any]:
+        """One request's lifecycle timeline. ``?format=chrome`` exports
+        a chrome://tracing / Perfetto document with the engine's host
+        spans stitched in (and a pointer to the ``torch.profiler``
+        capture directory when LLMQ_TRACE_DIR is set)."""
+        rec = observability.get_recorder()
+        if not rec.enabled:
+            raise ApiError(503, "observability disabled "
+                                "(set observability.enabled)")
+        tl = rec.get(req.params["id"])
+        if tl is None:
+            return 404, {"error": "no trace for that request id "
+                                  "(evicted or never recorded)"}
+        if req.q("format") == "chrome":
+            from llmq_tpu_torch.utils.profiling import trace_dir
+            spans = None
+            prof = getattr(self.engine, "_prof", None)
+            if prof is not None:
+                spans = prof.snapshot()
+            return 200, observability.chrome_trace(
+                [tl], spans=spans, jax_trace_dir=trace_dir())
+        out = tl.to_dict()
+        try:
+            # The finished request's critical-path decomposition.
+            if observability.cp_enabled():
+                d = observability.decompose(tl)
+                if d is not None:
+                    d["segments"] = {k: round(v, 6)
+                                     for k, v in d["segments"].items()}
+                    out["critical_path"] = d
+        except Exception:  # noqa: BLE001 — trace must not fail on cp plane
+            log.exception("critical-path decomposition failed")
+        return 200, out
+
+    def get_flight_recorder(self, req: _Request) -> Tuple[int, Any]:
+        """Flight-recorder state: ring stats, the most recent request
+        timelines, and the slow/failed retention buffer."""
+        rec = observability.get_recorder()
+        try:
+            limit = int(req.q("limit", "50"))
+        except ValueError:
+            raise ApiError(400, "limit must be an integer") from None
+        return 200, {
+            **rec.get_stats(),
+            "recent": [t.summary() for t in rec.recent(limit)],
+            "slow": [t.summary() for t in rec.slow()],
+        }
+
+    def start_profile(self, req: _Request) -> Tuple[int, Any]:
+        """A bounded on-demand ``torch.profiler`` capture on a background
+        thread (the card's activity too when the process serves on
+        ``cuda``; the engine is paused between two steps while the
+        profiler starts and stops); answers 202 with the trace path at
+        once. Single flight: a concurrent capture answers 409. The output directory
+        is the server's (LLMQ_TRACE_DIR, else a fresh temporary one),
+        never the request's."""
+        device = observability.device
+        data = req.json() if req._body else {}   # noqa: SLF001 — same module
+        try:
+            duration_s = float(data.get("duration_ms", 1000.0)) / 1e3
+        except (TypeError, ValueError):
+            raise ApiError(400, "duration_ms must be a number") from None
+        label = re.sub(r"[^\w.-]", "_",
+                       str(data.get("label") or "ondemand"))[:64]
+        try:
+            info = device.start_profile(
+                duration_s=duration_s, label=label,
+                base_dir=os.environ.get("LLMQ_TRACE_DIR") or None,
+                cuda=self.config.device.startswith("cuda"),
+                quiesce=getattr(self.engine, "paused", None))
+        except device.ProfileInProgress as e:
+            raise ApiError(409, str(e)) from None
+        return 202, info
+
+    def get_profile_status(self, req: _Request) -> Tuple[int, Any]:
+        return 200, observability.device.profile_status()
 
     # -- admin ---------------------------------------------------------------
 

@@ -5,8 +5,8 @@ A copy of ``llmq_tpu/core/config.py`` holding what the port's planes
 read, with the JAX package's defaults. :func:`load_config` reads the same
 files as the JAX package's (``configs/config.yaml`` among them). A key of
 a plane the port does not have yet (the WAL and spool directories, the
-cluster, disaggregation, store, observability, chaos, control-plane,
-tenancy and scenario planes, KV tiering, speculation, the mesh, the TPU
+cluster, disaggregation, store, chaos, control-plane, tenancy and
+scenario planes, KV tiering, speculation, the mesh, the TPU
 block), or one that nothing here reads (the autoscaler's and the resource
 scheduler's scale thresholds, endpoint selection and session affinity,
 the server's read and write timeouts, a tier's ``max_concurrent``, the
@@ -220,6 +220,84 @@ class SupervisorConfig:
 
 
 @dataclass
+class SloConfig:
+    """SLO targets + error-budget burn rates (``observability/slo.py``).
+    Burn rate 1.0 = spending exactly the allowed error budget. FED by the
+    flight recorder's metrics flush: with ``observability.enabled`` or
+    ``emit_metrics`` off the tracker is force-disabled (and a warning
+    logged) rather than reporting 0 burn with no feed."""
+    enabled: bool = True
+    #: TTFT target (ms) every request is held to; <= 0 disables.
+    ttft_p99_ms: float = 2000.0
+    #: End-to-end target (ms) for REALTIME-tier requests; <= 0 disables.
+    realtime_p99_ms: float = 500.0
+    #: Promised success fraction (0.99 → 1 % error budget).
+    objective: float = 0.99
+    #: Rolling burn-rate windows in seconds (short = fast burn,
+    #: long = slow burn).
+    windows_s: List[float] = field(default_factory=lambda: [300.0,
+                                                            3600.0])
+
+
+@dataclass
+class UsageConfig:
+    """Usage plane: per-request resource attribution, goodput and waste
+    decomposition (``observability/usage.py``). ``enabled: false`` is a
+    hard off-switch: the engine's charge points reduce to one attribute
+    check and the ledger records nothing."""
+    enabled: bool = True
+    #: Distinct tenant ids that get their own metric label before
+    #: overflow collapses to "other" (JSON rollups keep exact ids).
+    max_tenants: int = 64
+    #: Per-conversation rollups kept (LRU).
+    max_conversations: int = 1024
+    #: Rolling window for the goodput gauge (seconds).
+    goodput_window_s: float = 300.0
+
+
+@dataclass
+class CriticalPathConfig:
+    """Critical-path plane: per-request latency attribution and boot
+    decomposition (``observability/critical_path.py``). ``enabled:
+    false`` is a hard off-switch: no extra marks are stamped and the
+    scrape-time join is skipped. FED by the flight recorder's metrics
+    flush: force-disabled (with a warning) when the recorder or
+    ``emit_metrics`` is off."""
+    enabled: bool = True
+    #: Finished per-request decompositions kept for the
+    #: ``GET /api/v1/analysis/critical-path`` recent list.
+    recent_capacity: int = 256
+    #: Boot records kept in the boot registry (LRU by id).
+    boot_capacity: int = 64
+
+
+@dataclass
+class ObservabilityConfig:
+    """Request-lifecycle trace plane (``observability/``). ``enabled:
+    false`` is a hard off-switch: no events are recorded anywhere and
+    every ``record`` call returns after one attribute check."""
+    enabled: bool = True
+    #: Most recent request timelines kept in the flight-recorder ring.
+    recorder_capacity: int = 1024
+    #: Finished timelines retained separately because they breached the
+    #: SLA or failed (survive ring eviction).
+    slow_capacity: int = 256
+    #: End-to-end latency above which a finished request counts as an
+    #: SLA breach and is retained in the slow buffer; <= 0 disables
+    #: breach tracking (failures are still retained).
+    sla_ms: float = 5000.0
+    #: Feed the stage histograms on each terminal event.
+    emit_metrics: bool = True
+    #: Include this host's recorded events for the request in the
+    #: ``POST /api/v1/generate`` response.
+    propagate_trace: bool = True
+    slo: SloConfig = field(default_factory=SloConfig)
+    usage: UsageConfig = field(default_factory=UsageConfig)
+    critical_path: CriticalPathConfig = field(
+        default_factory=CriticalPathConfig)
+
+
+@dataclass
 class ModelConfig:
     name: str = "llama3-8b"      # llama3-tiny | llama3-1b | llama3-8b | llama3-70b
     max_seq_len: int = 2048
@@ -389,6 +467,8 @@ class Config:
     logging: LoggingConfig = field(default_factory=LoggingConfig)
     metrics: MetricsConfig = field(default_factory=MetricsConfig)
     overload: OverloadConfig = field(default_factory=OverloadConfig)
+    observability: ObservabilityConfig = field(
+        default_factory=ObservabilityConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     executor: ExecutorConfig = field(default_factory=ExecutorConfig)
     #: Where the model runs. "cuda" raises without a GPU; only an
@@ -448,16 +528,6 @@ _UNPORTED: Dict[str, Any] = {
         "breaker": {"enabled": True, "failure_threshold": 3,
                     "base_backoff": 1.0, "max_backoff": 30.0,
                     "jitter": 0.2}}},
-    "observability": {
-        "enabled": True, "recorder_capacity": 1024, "slow_capacity": 256,
-        "sla_ms": 5000.0, "emit_metrics": True, "propagate_trace": True,
-        "slo": {"enabled": True, "ttft_p99_ms": 2000.0,
-                "realtime_p99_ms": 500.0, "objective": 0.99,
-                "windows_s": [300.0, 3600.0]},
-        "usage": {"enabled": True, "max_tenants": 64,
-                  "max_conversations": 1024, "goodput_window_s": 300.0},
-        "critical_path": {"enabled": True, "recent_capacity": 256,
-                          "boot_capacity": 64}},
     "chaos": {"enabled": False, "seed": 0, "faults": []},
     "controlplane": {
         "enabled": False, "interval": 2.0, "min_replicas": 1,
@@ -604,7 +674,9 @@ def _coerce(raw: str, current: Any) -> Any:
     if isinstance(current, float):
         return float(raw)
     if isinstance(current, list):
-        return [int(x) for x in raw.replace(",", " ").split()]
+        conv = (float if current and all(isinstance(x, float)
+                                          for x in current) else int)
+        return [conv(x) for x in raw.replace(",", " ").split()]
     return raw
 
 

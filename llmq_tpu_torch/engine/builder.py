@@ -4,7 +4,11 @@ branch of ``llmq_tpu/engine/builder.py``), in bf16 or with int8 weights
 (``model.quantization``) and/or int8 KV pools (``model.kv_quantization``),
 the two switches independent as in the JAX package; the async decode
 pipeline (``executor.async_pipeline``) and the radix prefix cache
-(``executor.prefix_cache``) on by default, as in the JAX package."""
+(``executor.prefix_cache``) on by default, as in the JAX package. The
+build stamps its boot stages (``weights``, and with ``warmup`` the
+``artifact``, ``compile`` and ``warmup`` stages) onto this process's boot
+record (observability/critical_path.py), opened here when no entry point
+opened one first."""
 
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from llmq_tpu_torch.engine.executor import TorchExecutor
 from llmq_tpu_torch.engine.tokenizer import get_tokenizer
 from llmq_tpu_torch.models.llama import (get_config, init_params,
                                          init_params_quantized)
+from llmq_tpu_torch.observability import critical_path as _cp
 from llmq_tpu_torch.ops.quant import params_bytes, quantize_params
 
 log = logging.getLogger("llmq_tpu_torch.builder")
@@ -43,6 +48,10 @@ def build_engine(cfg: Config, *, name: str = "engine0",
     ``metrics.enabled``, as in the JAX package's builder."""
     ex = cfg.executor
     dev = resolve_device(device or cfg.device)
+    boot_id = _cp.current_boot_id()
+    if boot_id is None and _cp.cp_enabled():
+        _cp.boot_begin(name, "engine", process=True)
+        boot_id = _cp.current_boot_id()
     tokenizer = get_tokenizer()
     kw = {"max_seq_len": cfg.model.max_seq_len}
     if cfg.model.vocab_size:
@@ -73,6 +82,12 @@ def build_engine(cfg: Config, *, name: str = "engine0",
         params = init(mcfg, gen, dev)
     if quant == "int8":
         params = quantize_params(params)      # idempotent
+    if boot_id is not None:
+        # Random init (or the given tree) and quantization; on the card
+        # the stage ends when the queued init has run.
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        _cp.boot_stage(boot_id, "weights", time.perf_counter() - t0)
     executor = TorchExecutor(
         mcfg, params,
         batch_size=ex.max_batch_size,
@@ -92,9 +107,18 @@ def build_engine(cfg: Config, *, name: str = "engine0",
                                or mixed.prefill_token_budget),
         ragged_max_slices=ragged.max_slices,
         cache_dtype=torch.int8 if kv_quant == "int8" else None,
-        device=str(dev))
+        device=str(dev), telemetry_name=name,
+        # Warmup runs before the engine can set the flag.
+        telemetry_metrics=cfg.metrics.enabled)
     if warmup:
         executor.warmup()
+        if boot_id is not None:
+            # No export cache: the artifact stage is 0. compile = the
+            # nvcc builds; warmup = the eager runs and graph captures.
+            _cp.boot_stage(boot_id, "artifact", 0.0)
+            _cp.boot_stage(boot_id, "compile", executor.compile_s)
+            _cp.boot_stage(boot_id, "warmup", sum(
+                executor.warmup_split.values()) - executor.compile_s)
     tier_max_wait = {Priority(lvl.priority): lvl.max_wait_time
                      for lvl in cfg.queue.levels}
     engine = InferenceEngine(

@@ -70,6 +70,14 @@ active sequence by a chunk of tokens per device program.
 - **Metrics** (``enable_metrics``): preemptions, prefix-cache hits,
   decode steps, generated tokens, mixed-step occupancy, prefill stalls
   and the KV-pool gauges, in the families of ``metrics/registry.py``.
+- **Observability** (``observability/``, the process-wide planes):
+  host spans of every dispatch and fetch (``_prof``); each chunk's
+  dispatch / device / readback split (``timed_fetch`` on the fetch lane,
+  ``note_step``) and the HBM snapshot of the device telemetry; each
+  chunk's device time charged pro-rata to its rows (usage ledger) and to
+  their decode spans (critical path); KV page-seconds; waste on rebuild
+  re-prefill; each finished request's lifecycle marks into the flight
+  recorder, with its usage in ``handle.usage``.
 
 Left to later work (``ROADMAP.md``): tenancy, tiering and speculation.
 """
@@ -82,18 +90,28 @@ import logging
 import queue
 import threading
 import time
+import weakref
 from collections import deque
+from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from llmq_tpu_torch import observability
 from llmq_tpu_torch.core.types import Message, Priority
 from llmq_tpu_torch.engine.executor import Executor
 from llmq_tpu_torch.engine.kv_allocator import PageAllocator
 from llmq_tpu_torch.engine.tokenizer import ByteTokenizer
 from llmq_tpu_torch.metrics.registry import get_metrics
+from llmq_tpu_torch.observability.critical_path import (
+    get_critical_path, note_first_token as boot_note_first_token)
+from llmq_tpu_torch.observability.device import get_device_telemetry
+from llmq_tpu_torch.observability.usage import (DEFAULT_TENANT, RequestUsage,
+                                                get_usage_ledger,
+                                                sanitize_tenant)
 from llmq_tpu_torch.prefixcache import PrefixCache
+from llmq_tpu_torch.utils.profiling import SpanRecorder
 
 log = logging.getLogger("llmq_tpu_torch.engine")
 
@@ -144,6 +162,9 @@ class GenRequest:
     history_text: str = ""       # full-history fallback on conversation KV miss
     max_new_tokens: int = 0      # 0 → engine default
     temperature: float = 0.0
+    #: Billing identity for the usage plane: who this request's
+    #: hardware consumption is attributed to.
+    tenant_id: str = DEFAULT_TENANT
 
     @classmethod
     def from_message(cls, msg: Message) -> "GenRequest":
@@ -156,6 +177,7 @@ class GenRequest:
             history_text=str(md.get("history_text", "")),
             max_new_tokens=int(md.get("max_new_tokens", 0) or 0),
             temperature=float(md.get("temperature", 0.0) or 0.0),
+            tenant_id=sanitize_tenant(getattr(msg, "tenant_id", "")),
         )
 
 
@@ -178,8 +200,14 @@ class GenHandle:
         self.submitted_at = time.perf_counter()
         self.finished_at: Optional[float] = None
         #: perf_counter marks: ``admitted``, ``prefill_start``,
-        #: ``prefill_done``, ``first_token`` (first committed token).
+        #: ``prefill_done``, ``first_token`` (first committed token),
+        #: ``decode_done`` (with the critical-path plane on).
         self.marks: Dict[str, float] = {}
+        #: The usage plane's summary of this request (device_seconds,
+        #: waste_seconds and its reason, kv_page_seconds,
+        #: saved_prefill_device_seconds, tenant), filled at finish when
+        #: the plane is enabled.
+        self.usage: Optional[Dict] = None
         self._on_token = None
         self._done = threading.Event()
         self._cancelled = threading.Event()
@@ -223,7 +251,7 @@ class _Sequence:
                  "todo_ids", "todo_pos", "todo_rebuild", "todo_resume",
                  "eff_prio", "arrival", "first_handle",
                  "prefix_match", "reuse_counted", "mixed_pending",
-                 "pending_emit", "pf_tokens_run")
+                 "pending_emit", "pf_tokens_run", "usage", "cp_decode_s")
 
     def __init__(self, req: GenRequest, handle: GenHandle, order: int,
                  max_pages: int) -> None:
@@ -275,6 +303,13 @@ class _Sequence:
         self.pending_emit: List[int] = []
         #: Prefill tokens run for this request (the learned-rate sample).
         self.pf_tokens_run = 0
+        #: Usage-plane accumulator, charged by the engine thread with
+        #: this sequence's share of every measured chunk; None with the
+        #: plane off (every charge point is then one None check).
+        self.usage: Optional[RequestUsage] = None
+        #: Device+readback seconds attributed to this sequence's decode
+        #: rows: the critical path splits its decode span with it.
+        self.cp_decode_s = 0.0
 
     def sort_key(self):
         return (self.eff_prio, self.order)
@@ -301,16 +336,24 @@ class _InflightChunk:
     and the fetch lane's completion box (``{ev, out, err}``). Processing
     uses the snapshot: a slot re-assigned after dispatch belongs to a
     sequence that never rode the chunk. ``pf`` (mixed chunks): the
-    ``(seq, n_tokens, final)`` slices fused into step 0."""
+    ``(seq, n_tokens, final)`` slices fused into step 0. ``dispatch_s``:
+    the host's assembly and dispatch seconds (the step decomposition's
+    dispatch leg); ``dispatched_at``: perf_counter once the chunk was
+    queued, where its device span starts (overlap attribution)."""
 
-    __slots__ = ("handle", "seqs", "budgets", "fetch_box", "pf")
+    __slots__ = ("handle", "seqs", "budgets", "fetch_box", "pf",
+                 "dispatch_s", "dispatched_at")
 
-    def __init__(self, handle, seqs, budgets, pf=None) -> None:
+    def __init__(self, handle, seqs, budgets, pf=None,
+                 dispatch_s: float = 0.0,
+                 dispatched_at: float = 0.0) -> None:
         self.handle = handle
         self.seqs = seqs          # List[Optional[_Sequence]], len B
         self.budgets = budgets    # np.ndarray (B,) int32
         self.fetch_box: Optional[Dict] = None
         self.pf = pf
+        self.dispatch_s = dispatch_s
+        self.dispatched_at = dispatched_at
 
 
 class _CompletionPool:
@@ -427,6 +470,33 @@ class InferenceEngine:
         #: The families of ``metrics/registry.py`` (None: metrics off).
         self._m: Optional[_EngineMetrics] = (
             _EngineMetrics(name) if enable_metrics else None)
+        #: Host spans of this engine's dispatches and fetches.
+        self._prof = SpanRecorder()
+        #: Device telemetry (observability/device.py), shared by name
+        #: with the executor: step decomposition, live tok/s and MFU,
+        #: HBM. The HBM provider holds the engine weakly: the registry
+        #: lives as long as the process.
+        self._telemetry = get_device_telemetry(name,
+                                               metrics=enable_metrics)
+        eng_ref = weakref.ref(self)
+
+        def hbm_provider():
+            eng = eng_ref()
+            return eng._hbm_snapshot() if eng is not None else None
+
+        self._hbm_provider = hbm_provider
+        self._telemetry.set_hbm_provider(hbm_provider)
+        info_fn = getattr(executor, "telemetry_info", None)
+        if info_fn is not None and self._telemetry.n_params == 0:
+            try:
+                self._telemetry.configure_model(**info_fn())
+            except Exception:  # noqa: BLE001 — telemetry must not block init
+                log.exception("telemetry model info failed for %s", name)
+        #: The usage ledger this engine charges (with the plane off every
+        #: charge point is one attribute check) and the critical-path
+        #: analyzer (off: no extra marks).
+        self._usage = get_usage_ledger()
+        self._cp = get_critical_path()
         #: Decode-stall attribution: estimated ms the decode rows spent
         #: behind prefill dispatched while they were active.
         self.prefill_stall_events = 0
@@ -496,6 +566,11 @@ class InferenceEngine:
         self._wake = threading.Event()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        #: A hold on the loop between two steps (:meth:`paused`).
+        self._pause_lock = threading.Lock()
+        self._pause_req = threading.Event()
+        self._pause_parked = threading.Event()
+        self._pause_lift = threading.Event()
 
     # -- submission ----------------------------------------------------------
 
@@ -507,6 +582,8 @@ class InferenceEngine:
             handle.on_token(on_token)
         seq = _Sequence(req, handle, next(self._order),
                         self.spec.max_pages_per_seq)
+        if self._usage.enabled:
+            seq.usage = RequestUsage()
         with self._mu:
             self._inbox.append(seq)
         self._wake.set()
@@ -548,12 +625,16 @@ class InferenceEngine:
         if res.finish_reason == "cancelled":
             raise RuntimeError("request cancelled")
         msg.response = res.text
-        msg.metadata["usage"] = {
+        usage = {
             "prompt_tokens": res.prompt_tokens,
             "cached_tokens": res.cached_tokens,
             "completion_tokens": len(res.tokens),
             "finish_reason": res.finish_reason,
         }
+        if handle.usage is not None:
+            # The usage ledger's summary: what this request cost.
+            usage.update(handle.usage)
+        msg.metadata["usage"] = usage
 
     # -- conversation service hooks -------------------------------------------
 
@@ -595,6 +676,9 @@ class InferenceEngine:
         kv = self._conv_cache.pop(conv_id, None)
         if kv is not None:
             self.allocator.unpin(conv_id)
+            if self._usage.enabled:
+                # The pin's page-second meter closes with the pin.
+                self._usage.unpin_kv(conv_id)
             if not invalidate and (
                     self._prefix_cache is None
                     or self._prefix_cache.cached_blocks(kv.tokens) == 0):
@@ -633,6 +717,10 @@ class InferenceEngine:
     # -- lifecycle -----------------------------------------------------------
 
     def start(self) -> None:
+        # The engine that serves reports its name's HBM: an engine built
+        # later under the same name, and collected since, must not leave
+        # the telemetry without a provider.
+        self._telemetry.set_hbm_provider(self._hbm_provider)
         if self._thread is not None and self._thread.is_alive():
             return
         self._stop.clear()
@@ -713,7 +801,8 @@ class InferenceEngine:
                     seq.pages = []
                 continue
             self._finish(seq, "error",
-                         "engine crashed; request requeued by supervisor")
+                         "engine crashed; request requeued by supervisor",
+                         waste_reason="crash")
             recovered += 1
         self._wake.clear()
         log.warning(
@@ -722,9 +811,38 @@ class InferenceEngine:
             already_done)
         return {"recovered": recovered, "already_done": already_done}
 
+    @contextmanager
+    def paused(self, timeout: float = 30.0) -> Iterator[None]:
+        """Hold the engine loop between two steps while the body runs: the
+        engine launches nothing meanwhile, and what it queued on the card
+        runs on. For work that must not overlap the loop's launches: a
+        ``torch.profiler`` start or stop, whose device synchronize with
+        CUPTI tracing on deadlocked against a CUDA-graph launch on this
+        loop (an H100). A loop that is not running needs no hold."""
+        with self._pause_lock:
+            if not self.running:
+                yield
+                return
+            self._pause_lift.clear()
+            self._pause_parked.clear()
+            self._pause_req.set()
+            self._wake.set()
+            try:
+                if not self._pause_parked.wait(timeout):
+                    raise TimeoutError(f"engine {self.name} did not pause "
+                                       f"within {timeout} s")
+                yield
+            finally:
+                self._pause_req.clear()
+                self._pause_lift.set()
+
     def _loop(self) -> None:
         try:
             while not self._stop.is_set():
+                if self._pause_req.is_set():
+                    self._pause_parked.set()
+                    self._pause_lift.wait(0.05)
+                    continue
                 try:
                     did_work = self.step()
                 except Exception:  # noqa: BLE001 — the loop keeps serving
@@ -945,12 +1063,19 @@ class InferenceEngine:
                  victim.req.priority.tier_name,
                  " releasing pages" if release_pages else "")
 
-    def _release_sequence_pages(self, seq: _Sequence) -> None:
+    def _release_sequence_pages(self, seq: _Sequence,
+                                waste_reason: str = "preempt") -> None:
         """Take ``seq``'s KV pages back into the pool; the sequence
         rebuilds by re-prefilling ``written_ids`` when next admitted. The
         rebuild's prefill writes every position it reads again (over
         int8 pools its scale entries too) before any decode step reads
-        them."""
+        them. The usage plane bills that re-prefill as waste under
+        ``waste_reason`` ("preempt" for a preemption, "shed" for a
+        pending sequence's pages reclaimed)."""
+        if seq.usage is not None:
+            if not seq.usage.waste_reason:
+                seq.usage.waste_reason = waste_reason
+            self._usage.tracker.update(seq.req.id, 0)
         if seq.prefix_match is not None:
             # Matched shared pages: drop this sequence's node locks (the
             # free below drops its page refs; the tree's own refs keep
@@ -987,6 +1112,8 @@ class InferenceEngine:
         seq.block_table[:] = 0
         seq.pos = 0
         seq.cached_len = 0
+        if seq.usage is not None:
+            self._usage.tracker.update(seq.req.id, 0)
 
     def _reclaim_idle_conversation(self) -> bool:
         """LRU-evict one idle pinned conversation. True if pages freed."""
@@ -1032,7 +1159,7 @@ class InferenceEngine:
                 worst = seq
         if worst is None or worst.sort_key() <= requester.sort_key():
             return False
-        self._release_sequence_pages(worst)
+        self._release_sequence_pages(worst, waste_reason="shed")
         log.info("reclaimed pages of pending %s for %s", worst.req.id,
                  requester.req.id)
         return True
@@ -1093,6 +1220,9 @@ class InferenceEngine:
                     self.allocator.unpin(conv)
                 self._conv_busy[conv] = seq.order
             seq.adopted = True
+            if kv is not None and self._usage.enabled:
+                # The pin's meter ends; the pages go on this sequence's.
+                self._usage.unpin_kv(conv)
             if kv is not None:
                 seq.cached_len = kv.length
                 seq.pos = kv.length
@@ -1185,6 +1315,10 @@ class InferenceEngine:
                     # Give the matched pages back: a retry recomputes ids
                     # from scratch.
                     self._unmatch(seq)
+                elif seq.pages:
+                    # Pending with pages (adopted KV kept for the
+                    # retry): metered while it waits.
+                    self._usage_pages(seq)
                 return False
             seq.block_table[have:have + need] = pages
             seq.pages.extend(pages)
@@ -1215,6 +1349,7 @@ class InferenceEngine:
         seq.slot = slot
         self._slots[slot] = seq        # slot held; prefilled=False
         seq.handle.marks.setdefault("admitted", time.perf_counter())
+        self._usage_pages(seq)
         return True
 
     # -- prefill -------------------------------------------------------------
@@ -1264,11 +1399,16 @@ class InferenceEngine:
                      seq.req.temperature) for seq, chunk in grp]
             seqs = [seq for seq, _ in grp]
             if len(grp) == 1:
-                handles.append(self._dispatch(
-                    lambda: ex.prefill_async(*reqs[0]), seqs))
+                with self._prof.span("engine.prefill",
+                                     tokens=len(reqs[0][0])):
+                    handles.append(self._dispatch(
+                        lambda: ex.prefill_async(*reqs[0]), seqs))
             else:
-                handles.extend(self._dispatch(
-                    lambda: ex.prefill_multi_async(reqs), seqs))
+                with self._prof.span("engine.prefill_multi",
+                                     seqs=len(grp),
+                                     tokens=sum(len(r[0]) for r in reqs)):
+                    handles.extend(self._dispatch(
+                        lambda: ex.prefill_multi_async(reqs), seqs))
         self._note_prefill_dispatch(
             sum(len(c) for _, c in work), time.perf_counter() - t0,
             decode_active=decode_active, fused=False)
@@ -1291,8 +1431,10 @@ class InferenceEngine:
             return False
         handles = [s.first_handle for s in pending]
         gather = self.executor.gather_scalars
-        box = self._offload_fetch(lambda: gather(handles), lane="resolve")
-        self._service_while(box["ev"])
+        with self._prof.span("engine.resolve_fetch", n=len(pending)):
+            box = self._offload_fetch(lambda: gather(handles),
+                                      lane="resolve")
+            self._service_while(box["ev"])
         if box["err"] is not None:
             self._fail(pending, f"prefill fetch failed: {box['err']}")
             raise box["err"]
@@ -1430,6 +1572,7 @@ class InferenceEngine:
         if not pf_plan:
             return self._decode_once()
         packed = sum(len(sl) for _, sl in pf_plan)
+        t_asm = time.perf_counter()   # step decomposition: dispatch leg
         tokens, positions, block_tables, temps, budgets = \
             self._chunk_arrays(active, budgets_by_order)
         pf, infl_pf = [], []
@@ -1448,18 +1591,23 @@ class InferenceEngine:
             self._m.mixed_tokens.set(packed)
             self._m.mixed_util.set(packed / budget if budget else 0.0)
         t0 = time.perf_counter()
-        handle = self._dispatch(
-            lambda: self.executor.mixed_chunk_start(
-                tokens, positions, block_tables, temps, budgets, pf),
-            active + [seq for seq, _ in pf_plan])
-        self._note_prefill_dispatch(packed, time.perf_counter() - t0,
+        with self._prof.span("engine.mixed_chunk", active=len(active),
+                             chunk=chunk, slices=len(pf), pf_tokens=packed):
+            handle = self._dispatch(
+                lambda: self.executor.mixed_chunk_start(
+                    tokens, positions, block_tables, temps, budgets, pf),
+                active + [seq for seq, _ in pf_plan])
+        now = time.perf_counter()
+        self._note_prefill_dispatch(packed, now - t0,
                                     decode_active=bool(active), fused=True)
         seqs: List[Optional[_Sequence]] = [None] * self.spec.batch_size
         for seq in active:
             seqs[seq.slot] = seq
         for seq, _n, _final in infl_pf:
             seq.mixed_pending = True
-        self._push_chunk(_InflightChunk(handle, seqs, budgets, pf=infl_pf))
+        self._push_chunk(_InflightChunk(handle, seqs, budgets, pf=infl_pf,
+                                        dispatch_s=now - t_asm,
+                                        dispatched_at=now))
         self.mixed_steps += 1
         self.mixed_prefill_tokens_total += packed
         return True
@@ -1500,6 +1648,7 @@ class InferenceEngine:
             return False
         seq.block_table[len(seq.pages):len(seq.pages) + need] = pages
         seq.pages.extend(pages)
+        self._usage_pages(seq)
         return True
 
     def _admission_cap(self) -> int:
@@ -1633,26 +1782,53 @@ class InferenceEngine:
             self._set_gauges()
             return False
         rows = active + joining
+        t_asm = time.perf_counter()   # step decomposition: dispatch leg
         tokens, positions, block_tables, temps, budgets = \
             self._chunk_arrays(rows, budgets_by_order)
         if chunk > 1:
             overrides = [(s.slot, s.first_handle, s.pos) for s in joining]
-            handle = self._dispatch(
-                lambda: self.executor.decode_chunk_start(
-                    tokens, positions, block_tables, temps, budgets,
-                    overrides=overrides), rows)
+            with self._prof.span("engine.decode_dispatch",
+                                 active=len(active), chunk=chunk,
+                                 joined=len(joining)):
+                handle = self._dispatch(
+                    lambda: self.executor.decode_chunk_start(
+                        tokens, positions, block_tables, temps, budgets,
+                        overrides=overrides), rows)
+            now = time.perf_counter()
             seqs: List[Optional[_Sequence]] = [None] * self.spec.batch_size
             for seq in rows:
                 seqs[seq.slot] = seq
-            self._push_chunk(_InflightChunk(handle, seqs, budgets))
+            self._push_chunk(_InflightChunk(handle, seqs, budgets,
+                                            dispatch_s=now - t_asm,
+                                            dispatched_at=now))
             return True
-        # One-step chunks: the blocking single step.
-        out = self.executor.decode(tokens, positions, block_tables,
-                                   temps)[:, None]
+        # One-step chunks: the blocking single step (its host wait is
+        # the device leg; the tokens arrive with it).
+        t_call = time.perf_counter()
+        with self._prof.span("engine.decode_chunk", active=len(active),
+                             chunk=chunk):
+            out = self.executor.decode(tokens, positions, block_tables,
+                                       temps)[:, None]
+        t_done = time.perf_counter()
+        out = np.asarray(out)
+        t_rb = time.perf_counter()
         self._count_step()
+        if self._usage.enabled or self._cp.enabled:
+            parts = [(seq, max(1, int(budgets[seq.slot])), False)
+                     for seq in active if seq.slot is not None]
+            if self._usage.enabled:
+                self._charge_step(t_done - t_call, parts)
+            if self._cp.enabled:
+                self._cp_decode_share(
+                    (t_done - t_call) + (t_rb - t_done), parts,
+                    [(seq, w) for seq, w, _ in parts])
+        tok0 = self.tokens_generated_total
         for seq in active:
             self._commit_row(seq, out[seq.slot], int(budgets[seq.slot]))
             self._flush_emits(seq)
+        self._telemetry.note_step(t_call - t_asm, t_done - t_call,
+                                  t_rb - t_done,
+                                  self.tokens_generated_total - tok0)
         self._set_gauges()
         return True
 
@@ -1749,6 +1925,7 @@ class InferenceEngine:
             return None
         if sum(n for *_, n in plan + join_plan) > self.allocator.available():
             return None     # would need shedding: reconcile instead
+        t_asm = time.perf_counter()   # step decomposition: dispatch leg
         budgets = np.zeros(B, np.int32)
         block_tables = np.zeros((B, self.spec.max_pages_per_seq), np.int32)
         temps = np.zeros(B, np.float32)
@@ -1758,6 +1935,7 @@ class InferenceEngine:
                 assert pages is not None    # checked above
                 seq.block_table[len(seq.pages):len(seq.pages) + need] = pages
                 seq.pages.extend(pages)
+                self._usage_pages(seq)
             budgets[slot] = b
             block_tables[slot] = seq.block_table
             temps[slot] = seq.req.temperature
@@ -1766,12 +1944,17 @@ class InferenceEngine:
         seqs = list(infl.seqs)
         for seq, slot, _, _ in join_plan:
             seqs[slot] = seq
-        handle = self._dispatch(
-            lambda: self.executor.decode_chunk_start(
-                None, None, block_tables, temps, budgets,
-                carry=infl.handle, overrides=overrides),
-            [seq for seq, *_ in plan + join_plan])
-        nxt = _InflightChunk(handle, seqs, budgets)
+        with self._prof.span("engine.decode_chunk", active=len(plan),
+                             chunk=chunk, speculative=1,
+                             joined=len(join_plan)):
+            handle = self._dispatch(
+                lambda: self.executor.decode_chunk_start(
+                    None, None, block_tables, temps, budgets,
+                    carry=infl.handle, overrides=overrides),
+                [seq for seq, *_ in plan + join_plan])
+        now = time.perf_counter()
+        nxt = _InflightChunk(handle, seqs, budgets, dispatch_s=now - t_asm,
+                             dispatched_at=now)
         self.pipeline_depth_hist[len(self._inflight) + 1] += 1
         self._start_fetch(nxt)
         self._count_step()
@@ -1783,13 +1966,38 @@ class InferenceEngine:
         already run on rows a cancel would free). While the fetch lane
         waits for the transfer, this thread services arrivals."""
         box = infl.fetch_box
-        self._service_while(box["ev"])
+        with self._prof.span("engine.chunk_fetch"):
+            self._service_while(box["ev"])
         if box["err"] is not None:
             self._fail_inflight(f"chunk fetch failed: {box['err']}")
             raise box["err"]
-        out, pf_first = box["out"], None
+        out, device_s, readback_s, overlapped_s = box["out"]
+        pf_first = None
         if infl.pf is not None:
             out, pf_first = out
+        if self._usage.enabled or self._cp.enabled:
+            # Attribute before committing: a row that finishes in the
+            # commit loop finalizes its ledger record there and must
+            # already carry this chunk's share.
+            parts = []
+            decode_rows = []
+            for slot in range(self.spec.batch_size):
+                seq = infl.seqs[slot]
+                if seq is not None and seq.slot == slot:
+                    w = max(1, int(infl.budgets[slot]))
+                    parts.append((seq, w, False))
+                    decode_rows.append((seq, w))
+            if infl.pf is not None:
+                for seq, n_tok, _final in infl.pf:
+                    parts.append((seq, n_tok, seq.todo_rebuild))
+            if self._usage.enabled:
+                self._charge_step(device_s, parts)
+            if self._cp.enabled:
+                # Serial cost = novel device time + readback: overlapped
+                # spans are already excluded by timed_fetch.
+                self._cp_decode_share(device_s + readback_s, parts,
+                                      decode_rows)
+        tok0 = self.tokens_generated_total
         for slot in range(self.spec.batch_size):
             seq = infl.seqs[slot]
             if seq is None or seq.slot != slot:
@@ -1798,7 +2006,68 @@ class InferenceEngine:
             self._flush_emits(seq)
         if infl.pf is not None:
             self._finish_mixed_prefills(infl.pf, pf_first)
+        self._telemetry.note_step(infl.dispatch_s, device_s, readback_s,
+                                  self.tokens_generated_total - tok0,
+                                  overlapped_s=overlapped_s)
         self._set_gauges()
+
+    # -- usage attribution ------------------------------------------------------
+
+    def _cp_decode_share(self, chunk_s: float, parts, decode_rows) -> None:
+        """The decode rows' pro-rata share of one chunk's serial device
+        cost into ``cp_decode_s`` (the critical path's decode
+        compute/stall split). ``parts`` is every ``(seq, weight, waste)``
+        the chunk ran, prefill slices included; ``decode_rows`` the
+        ``(seq, weight)`` subset decoding."""
+        if chunk_s <= 0:
+            return
+        total_w = 0
+        for _, w, _ in parts:
+            total_w += w
+        if total_w <= 0:
+            return
+        for seq, w in decode_rows:
+            seq.cp_decode_s += chunk_s * (w / total_w)
+
+    def _charge_step(self, device_s: float, parts) -> None:
+        """Split one measured chunk's device seconds pro-rata across the
+        rows and slices that rode it: ``parts`` is ``[(seq, weight,
+        waste)]``, weight the decode budget or the slice's tokens,
+        ``waste`` a rebuild's re-prefill (work a preemption already paid
+        for once). Plain float adds; one conservation note a chunk."""
+        u = self._usage
+        if not u.enabled or device_s <= 0:
+            return
+        total_w = 0
+        for _, w, _ in parts:
+            total_w += w
+        attributed = 0.0
+        if total_w > 0:
+            for seq, w, waste in parts:
+                ru = seq.usage
+                if ru is None:
+                    continue
+                share = device_s * (w / total_w)
+                if waste:
+                    ru.waste_s += share
+                    if not ru.waste_reason:
+                        ru.waste_reason = "preempt"
+                else:
+                    ru.device_s += share
+                attributed += share
+        u.note_step(device_s, attributed)
+
+    def _usage_pages(self, seq: _Sequence) -> None:
+        """Refresh the page-seconds tracker with ``seq``'s holding: radix
+        matched pages are shared (charged fractionally across their
+        sharers), the rest exclusive. After every page-set change, never
+        per token."""
+        u = self._usage
+        if not u.enabled or seq.usage is None:
+            return
+        shared = (seq.prefix_match.pages
+                  if seq.prefix_match is not None else ())
+        u.tracker.update(seq.req.id, len(seq.pages) - len(shared), shared)
 
     def _offload_fetch(self, fn, lane: str = "chunk") -> Dict:
         """Run a blocking fetch on a fetch lane (a thread that only waits
@@ -1819,7 +2088,12 @@ class InferenceEngine:
         return box
 
     def _start_fetch(self, infl: _InflightChunk) -> None:
-        infl.fetch_box = self._offload_fetch(infl.handle.fetch)
+        """The chunk's fetch on the chunk lane, through the telemetry's
+        timed fetch: the box then holds ``(tokens, device_s, readback_s,
+        overlapped_s)``."""
+        infl.fetch_box = self._offload_fetch(
+            lambda: self._telemetry.timed_fetch(
+                infl.handle, dispatched_at=infl.dispatched_at))
 
     @staticmethod
     def _fetch_loop(q: queue.Queue) -> None:
@@ -1918,9 +2192,18 @@ class InferenceEngine:
 
     def _deliver_finish(self, seq: _Sequence, reason: str,
                         error: str) -> None:
-        """The request-facing tail of :meth:`_finish`: detokenization and
-        the handle's completion. Runs after the sequence's last token
-        batch (same request key, one FIFO thread): tokens, then done."""
+        """The request-facing tail of :meth:`_finish` on the completion
+        pool: the trace record, detokenization and the handle's
+        completion. Runs after the sequence's last token batch (same
+        request key, one FIFO thread): tokens, then done."""
+        try:
+            self._record_trace(seq, reason)
+        except Exception:  # noqa: BLE001 — tracing must not block delivery
+            log.exception("trace record failed for %s", seq.req.id)
+        self._finish_handle(seq, reason, error)
+
+    def _finish_handle(self, seq: _Sequence, reason: str,
+                       error: str) -> None:
         seq.handle._finish(GenResult(
             text=self.tokenizer.decode(seq.generated),
             tokens=list(seq.generated),
@@ -1955,6 +2238,10 @@ class InferenceEngine:
         handle = seq.handle
         if len(seq.generated) == 1:
             handle.marks.setdefault("first_token", time.perf_counter())
+            if self._cp.enabled:
+                # The process's first committed token closes its boot
+                # decomposition (one flag check after it fires).
+                boot_note_first_token()
         if handle._on_token is not None:
             if self._completion_workers > 0:
                 seq.pending_emit.append(nxt)
@@ -1973,6 +2260,11 @@ class InferenceEngine:
 
     def _finish_active(self, seq: _Sequence, reason: str,
                        error: str = "") -> None:
+        if self._cp.enabled and seq.generated:
+            # Decode ends here: what follows (page trim, prefix publish,
+            # pin, detokenization and the handle's finish on the
+            # completion pool) is the "completion" segment.
+            seq.handle.marks.setdefault("decode_done", time.perf_counter())
         if seq.slot is not None:
             self.executor.release_slot(seq.slot)
             self._slots[seq.slot] = None
@@ -2023,6 +2315,11 @@ class InferenceEngine:
                         pending=(seq.last_token if reason == "length"
                                  else None))
                     self.allocator.pin(conv, seq.pages)
+                    if self._usage.enabled:
+                        # Between turns the pin's meter bills the
+                        # conversation and tenant until adoption or drop.
+                        self._usage.pin_kv(conv, len(seq.pages),
+                                           seq.req.tenant_id)
                     if self._prefix_cache is not None:
                         handle_rec = {"length": seq.pos,
                                       "pages": len(seq.pages),
@@ -2040,7 +2337,8 @@ class InferenceEngine:
                 log.exception("prefix-handle record failed for %s", conv)
         self._finish(seq, reason, error)
 
-    def _finish(self, seq: _Sequence, reason: str, error: str = "") -> None:
+    def _finish(self, seq: _Sequence, reason: str, error: str = "",
+                waste_reason: str = "") -> None:
         if seq.prefix_match is not None:
             self._prefix_cache.unlock(seq.prefix_match)
             seq.prefix_match = None
@@ -2053,6 +2351,28 @@ class InferenceEngine:
                 if self._conv_busy.get(conv) == seq.order:
                     del self._conv_busy[conv]
                 self._conv_drop_pending.discard(conv)
+        if seq.usage is not None and self._usage.enabled:
+            # Close the attribution: page-seconds from the tracker, the
+            # prefix-reuse credit from the learned prefill rate, then one
+            # ledger finalize. A failed or cancelled request's device time
+            # all becomes waste (``waste_reason`` names the cause when the
+            # caller knows it: "crash" from the crash recovery).
+            ru = seq.usage
+            ru.kv_page_s += self._usage.tracker.close(seq.req.id)
+            if seq.cached_len > 0 and self.prefill_tps_ewma:
+                ru.saved_prefill_device_s = (
+                    seq.cached_len / self.prefill_tps_ewma)
+            seq.handle.usage = self._usage.finalize(
+                seq.req.id, ru,
+                tenant=seq.req.tenant_id,
+                priority=seq.req.priority.tier_name,
+                engine=self.name,
+                conversation=conv,
+                tokens=len(seq.generated),
+                prompt_tokens=len(seq.prompt_ids),
+                ok=reason in ("eos", "length"),
+                waste_reason=waste_reason or (
+                    "cancelled" if reason == "cancelled" else "error"))
         if self._completion_workers > 0:
             # Engine state is released above; the request-facing tail
             # leaves the dispatch path, after the sequence's tokens.
@@ -2060,7 +2380,44 @@ class InferenceEngine:
             self._completion_pool().submit(
                 seq.req.id, lambda: self._deliver_finish(seq, reason, error))
             return
-        self._deliver_finish(seq, reason, error)
+        self._record_trace(seq, reason)
+        self._finish_handle(seq, reason, error)
+
+    def _record_trace(self, seq: _Sequence, reason: str) -> None:
+        """Stamp the engine-side lifecycle events of a finished sequence
+        into the flight recorder, in one locked append. Handle marks are
+        perf_counter-based; the wall anchor shifts them onto the shared
+        clock. One call per request, never per token."""
+        rec = observability.get_recorder()
+        if not rec.enabled:
+            return
+        anchor = observability.perf_anchor()
+        prio = seq.req.priority.tier_name
+        marks = seq.handle.marks
+        events = [(stage, marks[stage] + anchor,
+                   {"engine": self.name, "priority": prio})
+                  for stage in ("admitted", "prefill_start", "prefill_done",
+                                "first_token", "decode_done")
+                  if stage in marks]
+        # A cancellation (the client closed the stream or gave up) is a
+        # terminal of its own: neither a success nor a failure.
+        terminal = ("completed" if reason in ("eos", "length")
+                    else "cancelled" if reason == "cancelled"
+                    else "failed")
+        meta = {"engine": self.name, "priority": prio,
+                "finish_reason": reason,
+                "completion_tokens": len(seq.generated),
+                "prompt_tokens": len(seq.prompt_ids),
+                "cached_tokens": seq.cached_len,
+                "tenant": seq.req.tenant_id}
+        if self._cp.enabled and seq.cp_decode_s > 0:
+            # The decode span's attribution, for the critical path's
+            # compute/stall split.
+            meta["decode_device_s"] = round(seq.cp_decode_s, 6)
+        if seq.handle.usage is not None:
+            meta["usage"] = seq.handle.usage
+        events.append((terminal, time.time(), meta))
+        rec.record_many(seq.req.id, events)
 
     def _expire_pins(self) -> None:
         if self.kv_pin_ttl <= 0:
@@ -2074,6 +2431,32 @@ class InferenceEngine:
                 # the prefix for the next turn.
                 self._drop_conversation_locked(cid, invalidate=False)
         self._flush_tier_notes()
+
+    def _hbm_snapshot(self) -> Dict:
+        """HBM accounting for the device telemetry: pool occupancy and
+        fragmentation, pinned and prefix-cache pages from the host
+        allocator, and the card's byte totals from the executor
+        (``hbm_info``). Called from scrapes and stats, never the step
+        path."""
+        alloc = self.allocator
+        used, total = alloc.used(), alloc.total
+        out: Dict = {
+            "kv_pages_used": used,
+            "kv_pages_total": total,
+            "kv_pool_occupancy": round(used / total, 4) if total else 0.0,
+            "kv_pool_fragmentation": alloc.fragmentation(),
+            "pinned_pages": alloc.pinned_pages(),
+            "prefix_cache_pages": (self._prefix_cache.pages
+                                   if self._prefix_cache is not None
+                                   else 0),
+        }
+        info_fn = getattr(self.executor, "hbm_info", None)
+        if info_fn is not None:
+            try:
+                out["chips"] = info_fn()
+            except Exception:  # noqa: BLE001 — accounting, not a gate
+                log.exception("hbm_info failed for %s", self.name)
+        return out
 
     # -- stats ---------------------------------------------------------------
 
@@ -2097,6 +2480,9 @@ class InferenceEngine:
             "prefill_stall_ms_total": round(self.prefill_stall_ms_total, 1),
             "prefill_tps_ewma": (round(self.prefill_tps_ewma, 1)
                                  if self.prefill_tps_ewma else None),
+            "profile": self._prof.summary(),
+            # Step decomposition, live tok/s and MFU, HBM, captures.
+            "device": self._telemetry.snapshot(),
         }
         if self._pipe_cfg is not None:
             out["pipeline"] = {
@@ -2105,6 +2491,7 @@ class InferenceEngine:
                 "depth_hist": {str(k): v for k, v in
                                sorted(self.pipeline_depth_hist.items())
                                if v},
+                "overlap_ratio": self._telemetry.overlap_ratio(),
             }
         if self._mixed_cfg is not None:
             out["mixed_batch"] = {

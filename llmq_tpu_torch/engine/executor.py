@@ -80,8 +80,11 @@ import torch
 
 from llmq_tpu_torch.core.config import resolve_device
 from llmq_tpu_torch.models.llama import Llama, LlamaConfig, init_kv_pages
+from llmq_tpu_torch.observability.device import (get_device_telemetry,
+                                                 measure_rtt)
 from llmq_tpu_torch.ops import kernels
 from llmq_tpu_torch.ops.attention import RAGGED_Q_BLOCK
+from llmq_tpu_torch.ops.quant import is_quantized, param_count, params_bytes
 from llmq_tpu_torch.ops.sampling import sample_token
 
 log = logging.getLogger("llmq_tpu_torch.executor")
@@ -287,6 +290,13 @@ class ChunkHandle:
     def ready(self) -> bool:
         return self._done is None or self._done.query()
 
+    def wait_ready(self) -> None:
+        """Wait on this chunk's own completion event, recorded behind the
+        copy of its tokens to host memory (no stream-wide wait); at once
+        on the CPU."""
+        if self._done is not None:
+            self._done.synchronize()
+
     def _wait(self) -> np.ndarray:
         if self._value is None:
             ms = self._host_ms
@@ -397,7 +407,8 @@ class TorchExecutor:
                  ragged_token_capacity: int = 0, ragged_max_slices: int = 0,
                  cache_dtype: Optional[torch.dtype] = None,
                  prefill_batch: int = 4,
-                 device: str = "cuda") -> None:
+                 device: str = "cuda", telemetry_name: str = "engine0",
+                 telemetry_metrics: bool = True) -> None:
         if cache_dtype == torch.int8 and not fused_decode:
             # The JAX package's int8-KV decode step has no split route.
             raise ValueError("fused_decode=False has no int8-KV route: the "
@@ -439,6 +450,14 @@ class TorchExecutor:
             self.ragged_buffer = -(-need // RAGGED_Q_BLOCK) * RAGGED_Q_BLOCK
         self.cache = init_kv_pages(model_cfg, num_pages, page_size,
                                    self.device, dtype=cache_dtype)
+        #: Device telemetry (observability/device.py), shared by name with
+        #: the engine built over this executor: graph captures land here
+        #: as compiles, warmup as progress, the RTT floor after warmup.
+        #: ``telemetry_metrics``: warmup runs before the engine exists to
+        #: set the metrics flag.
+        self._telemetry = get_device_telemetry(telemetry_name,
+                                               metrics=telemetry_metrics)
+        self._telemetry.configure_model(**self.telemetry_info())
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         #: Milliseconds per decode step: calibrated by :meth:`warmup`,
@@ -453,6 +472,10 @@ class TorchExecutor:
         #: Seconds of :meth:`warmup`: ``capture`` (every graph) and
         #: ``warmup`` (the rest). Empty until it runs.
         self.warmup_split: Dict[str, float] = {}
+        #: Seconds of ``nvcc`` builds in :meth:`warmup` (0 on the CPU, or
+        #: when the hashed libraries already exist): the "compile" boot
+        #: stage, inside ``warmup_split["warmup"]``.
+        self.compile_s = 0.0
         B, MP, K = batch_size, self.spec.max_pages_per_seq, self.chunk_size
 
         def zeros(shape, dtype):
@@ -528,6 +551,48 @@ class TorchExecutor:
         ev = torch.cuda.Event(enable_timing=timing)
         ev.record()
         return ev
+
+    def telemetry_info(self) -> Dict:
+        """Model identity for the MFU estimator."""
+        params = self.model.params
+        return {"n_params": param_count(params),
+                "device_kind": self._device_kind(),
+                "quant": ("int8" if is_quantized(params["layers"]["wq"])
+                          else ""),
+                "n_chips": 1}
+
+    def _device_kind(self) -> str:
+        if self.device.type == "cuda":
+            return torch.cuda.get_device_name(self.device)
+        return self.device.type
+
+    def hbm_info(self) -> List[Dict]:
+        """HBM accounting of the card this executor serves on: weight
+        bytes, KV-pool bytes (the K/V pools, and the scale pools of an
+        int8 cache), the CUDA-graph pools' bytes, and free and total
+        memory from ``torch.cuda.mem_get_info`` (None on the CPU). Called
+        from scrapes and stats only, never from the step path."""
+        entry = {"chip": str(self.device.index or 0),
+                 "kind": self._device_kind(),
+                 "weights_bytes": params_bytes(self.model.params),
+                 "kv_pool_bytes": sum(t.numel() * t.element_size()
+                                      for t in self.cache.values()),
+                 "graph_pool_bytes": sum(
+                     g.pool_bytes for g in list(self.step_graphs.values())
+                     + list(self.program_graphs.values())),
+                 "free_bytes": None, "limit_bytes": None}
+        if self.device.type == "cuda":
+            free, total = torch.cuda.mem_get_info(self.device)
+            entry["free_bytes"] = int(free)
+            entry["limit_bytes"] = int(total)
+            entry["reserved_bytes"] = int(torch.cuda.memory_stats(
+                self.device).get("reserved_bytes.all.current", 0))
+        return [entry]
+
+    def _note_capture(self, name: str, g: _StepGraph) -> None:
+        """A captured program counts as one compile in the telemetry (the
+        seconds of its eager run and capture; no program cache)."""
+        self._telemetry.note_compile(name, g.capture_s, False)
 
     @property
     def idle_steps(self) -> int:
@@ -784,8 +849,16 @@ class TorchExecutor:
         cache has the fused one). Then ``step_ms`` from three pairs of a
         1-step and a K-step chunk, as JAX: each pair's difference over
         the K-step chunk's effective steps, the median, clamped to
-        :data:`STEP_MS_RANGE`. Records ``warmup_split``."""
+        :data:`STEP_MS_RANGE`. Records ``warmup_split`` and ``compile_s``
+        (on the card every kernel library is built first, timed apart),
+        notes each captured graph as a compile in the device telemetry,
+        then measures the round-trip floor."""
         t_start = time.perf_counter()
+        self.compile_s = 0.0
+        if self.device.type == "cuda":
+            kernels.build()
+            self.compile_s = time.perf_counter() - t_start
+        graphs_before = len(self.step_graphs) + len(self.program_graphs)
         B, MP, K = (self.spec.batch_size, self.spec.max_pages_per_seq,
                     self.chunk_size)
         bt = np.zeros(MP, np.int32)
@@ -861,6 +934,15 @@ class TorchExecutor:
         self.warmup_split = {
             "capture": capture_s,
             "warmup": time.perf_counter() - t_start - capture_s}
+        captured = (len(self.step_graphs) + len(self.program_graphs)
+                    - graphs_before)
+        self._telemetry.note_warmup(captured, captured)
+        self._telemetry.note_warmup_complete(sum(self.warmup_split.values()))
+        try:
+            # The serving-path round-trip floor, on /metrics.
+            self._telemetry.set_rtt(measure_rtt(self.device))
+        except Exception:  # noqa: BLE001 — telemetry only
+            log.exception("rtt measurement failed")
         log.info("warmup: %.2f s (capture %.2f s: %d graphs, %.1f MiB of "
                  "shared program pool); decode step %s ms",
                  sum(self.warmup_split.values()), capture_s,
@@ -970,6 +1052,8 @@ class TorchExecutor:
         if g is None:
             g = self.step_graphs[self.fused_decode] = self._capture(
                 self._step, pool=None)
+            self._note_capture("decode_step_fused" if self.fused_decode
+                               else "decode_step_split", g)
             log.info("captured the decode step (%s route): %d kernel "
                      "launches a replay, pool %.1f MiB",
                      "fused" if self.fused_decode else "split",
@@ -1180,6 +1264,7 @@ class TorchExecutor:
             self._graph_pool = torch.cuda.graph_pool_handle()
         g = self.program_graphs[name] = self._capture(lambda: body(p),
                                                       self._graph_pool)
+        self._note_capture(name, g)
         for k, t in p.bufs.items():
             t.copy_(saved[k])
         self.program_replays.setdefault(name, 0)

@@ -110,6 +110,25 @@ class PageAllocator:
         with self._mu:
             return sum(1 for r in self._refs.values() if r > 1)
 
+    def fragmentation(self) -> float:
+        """External fragmentation of the free page-id space:
+        1 − (largest contiguous free run / free pages); 0 when the free
+        list is empty or one run. Paged attention needs no contiguity:
+        this is an observability signal of how interleaved the live
+        working set has become (read at scrapes; the sort runs outside
+        the lock so alloc/free never wait behind it)."""
+        with self._mu:
+            free = list(self._free)
+        free.sort()
+        if not free:
+            return 0.0
+        best = run = 1
+        for a, b in zip(free, free[1:]):
+            run = run + 1 if b == a + 1 else 1
+            if run > best:
+                best = run
+        return round(1.0 - best / len(free), 4)
+
     @staticmethod
     def pages_for(tokens: int, page_size: int) -> int:
         """Pages needed to hold ``tokens`` positions."""

@@ -18,9 +18,12 @@ once, when it is built.
 
 from __future__ import annotations
 
+import logging
 import math
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
+
+log = logging.getLogger("llmq_tpu_torch.metrics")
 
 _NAMESPACE = "llm_queue"
 
@@ -30,6 +33,20 @@ _PROC_BUCKETS = (0.001, 0.005, 0.01, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10,
                  30)
 _STALL_MS_BUCKETS = (0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10, 25, 50, 100, 250,
                      500, 1000, 2500)
+#: Sub-request stage latencies (admission waits, prefill, token gaps).
+_STAGE_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                  0.25, 0.5, 1, 2.5, 5, 10, 30)
+#: Per-chunk step-time components, in milliseconds.
+_STEP_MS_BUCKETS = (0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10,
+                    25, 50, 100, 250, 500, 1000, 2500)
+#: Per-program compile (on the card: graph capture) seconds.
+_COMPILE_BUCKETS = (0.1, 0.5, 1, 2.5, 5, 10, 30, 60, 120, 300, 600)
+#: Critical-path segments, in milliseconds.
+_CP_MS_BUCKETS = (0.1, 0.5, 1, 2.5, 5, 10, 25, 50, 100, 250, 500,
+                  1000, 2500, 5000, 10000, 30000, 60000, 300000)
+#: Boot stages, in seconds.
+_BOOT_BUCKETS = (0.01, 0.05, 0.1, 0.5, 1, 2.5, 5, 10, 30, 60, 120,
+                 300, 600)
 
 #: Metrics-cardinality contract (the JAX package's, label for label):
 #: every label a family uses must appear here. A frozenset is a closed
@@ -213,6 +230,12 @@ class _Family:
         return [f"{self.name}{self._lbl(k)} {_fmt(c.get())}"
                 for k, c in self._series()]
 
+    def _only(self):
+        """The one child of a family without labels."""
+        if self.labelnames:
+            raise ValueError(f"{self.name} takes labels {self.labelnames}")
+        return self._children[()]
+
 
 class Counter(_Family):
     type = "counter"
@@ -220,12 +243,18 @@ class Counter(_Family):
     def _new_child(self):
         return _CounterChild()
 
+    def inc(self, amount: float = 1.0) -> None:
+        self._only().inc(amount)
+
 
 class Gauge(_Family):
     type = "gauge"
 
     def _new_child(self):
         return _GaugeChild()
+
+    def set(self, value: float) -> None:
+        self._only().set(value)
 
 
 class Histogram(_Family):
@@ -381,6 +410,46 @@ class QueueMetrics:
             "DLQ handler/subscriber callbacks that raised (the push "
             "itself and the remaining handlers still ran)",
             ["queue"], registry=r)
+        # Request-lifecycle stage histograms (observability/recorder.py):
+        # observed once per request at the scrape after its terminal
+        # trace event. ``endpoint`` is the engine name, else "local".
+        stage_labels = ["priority", "endpoint"]
+        self.stage_queue_wait = Histogram(
+            f"{ns}_stage_queue_wait_seconds",
+            "enqueued → scheduled (time in the priority queues)",
+            stage_labels, buckets=_WAIT_BUCKETS, registry=r)
+        self.stage_dispatch = Histogram(
+            f"{ns}_stage_dispatch_seconds",
+            "scheduled → dispatched (worker pop to endpoint handoff)",
+            stage_labels, buckets=_STAGE_BUCKETS, registry=r)
+        self.stage_admission = Histogram(
+            f"{ns}_stage_admission_seconds",
+            "dispatched → admitted (engine admission wait)",
+            stage_labels, buckets=_STAGE_BUCKETS, registry=r)
+        self.stage_prefill = Histogram(
+            f"{ns}_stage_prefill_seconds",
+            "prefill_start → first_token",
+            stage_labels, buckets=_STAGE_BUCKETS, registry=r)
+        self.ttft = Histogram(
+            f"{ns}_ttft_seconds",
+            "enqueued → first_token (user-perceived time to first token)",
+            stage_labels, buckets=_WAIT_BUCKETS, registry=r)
+        self.decode_interarrival = Histogram(
+            f"{ns}_decode_interarrival_seconds",
+            "Mean inter-token gap over the request's decode phase",
+            stage_labels, buckets=_STAGE_BUCKETS, registry=r)
+        self.sla_breaches = Counter(
+            f"{ns}_sla_breaches_total",
+            "Requests whose end-to-end latency breached "
+            "observability.sla_ms", ["priority"], registry=r)
+        self.flightrecorder_timelines = Gauge(
+            f"{ns}_flightrecorder_timelines",
+            "Request timelines currently held in the flight-recorder "
+            "ring", registry=r)
+        self.flightrecorder_slow_retained = Gauge(
+            f"{ns}_flightrecorder_slow_retained",
+            "Finished timelines retained for SLA breach / failure",
+            registry=r)
         # Overload shedding (api/overload.py).
         self.requests_shed = Counter(
             f"{ns}_requests_shed_total",
@@ -396,6 +465,148 @@ class QueueMetrics:
             f"{ns}_engine_recovered_requests_total",
             "In-flight requests failed over to the retry path by an "
             "engine crash recovery", ["engine"], registry=r)
+        # Device telemetry plane (observability/device.py): per-chunk
+        # step decomposition, live decode rate + MFU, HBM accounting,
+        # graph-capture visibility.
+        self.step_dispatch_ms = Histogram(
+            f"{ns}_step_dispatch_ms",
+            "Host-side batch assembly + program dispatch per decode/"
+            "mixed chunk (ms)", ["engine"],
+            buckets=_STEP_MS_BUCKETS, registry=r)
+        self.step_device_ms = Histogram(
+            f"{ns}_step_device_ms",
+            "Device execution per chunk: dispatch until the output "
+            "array is ready (ms)", ["engine"],
+            buckets=_STEP_MS_BUCKETS, registry=r)
+        self.step_readback_ms = Histogram(
+            f"{ns}_step_readback_ms",
+            "Token readback per chunk: device→host transfer of the "
+            "sampled token matrix (ms)", ["engine"],
+            buckets=_STEP_MS_BUCKETS, registry=r)
+        self.step_overlapped_ms = Histogram(
+            f"{ns}_step_overlapped_ms",
+            "Part of a chunk's device span that overlapped other "
+            "in-flight work (async pipeline) — attributed explicitly "
+            "so step_device_ms stays truthful (ms)", ["engine"],
+            buckets=_STEP_MS_BUCKETS, registry=r)
+        self.pipeline_overlap_ratio = Gauge(
+            f"{ns}_pipeline_overlap_ratio",
+            "Fraction of in-flight device-span time hidden by the "
+            "async decode pipeline (0 = fully serial)", ["engine"],
+            registry=r)
+        self.decode_tokens_per_s = Gauge(
+            f"{ns}_decode_tokens_per_s",
+            "Decode tokens/s over the telemetry trailing window",
+            ["engine"], registry=r)
+        self.mfu_pct = Gauge(
+            f"{ns}_mfu_pct",
+            "Live decode MFU estimate (percent of device peak FLOPs; "
+            "0 for the echo backend)", ["engine"], registry=r)
+        self.host_device_rtt_ms = Gauge(
+            f"{ns}_host_device_rtt_ms",
+            "Measured host<->device round-trip floor (ms)", ["engine"],
+            registry=r)
+        self.hbm_weights_bytes = Gauge(
+            f"{ns}_hbm_weights_bytes",
+            "Model weight bytes resident per chip", ["engine", "chip"],
+            registry=r)
+        self.hbm_kv_pool_bytes = Gauge(
+            f"{ns}_hbm_kv_pool_bytes",
+            "Paged-KV pool bytes resident per chip", ["engine", "chip"],
+            registry=r)
+        self.hbm_free_bytes = Gauge(
+            f"{ns}_hbm_free_bytes",
+            "Free HBM per chip (runtime memory_stats; absent on "
+            "backends without it)", ["engine", "chip"], registry=r)
+        self.hbm_limit_bytes = Gauge(
+            f"{ns}_hbm_limit_bytes",
+            "Total HBM per chip (runtime memory_stats)",
+            ["engine", "chip"], registry=r)
+        self.kv_pool_occupancy = Gauge(
+            f"{ns}_kv_pool_occupancy",
+            "Fraction of allocatable KV pages in use", ["engine"],
+            registry=r)
+        self.kv_pool_fragmentation = Gauge(
+            f"{ns}_kv_pool_fragmentation",
+            "External fragmentation of the free page-id space "
+            "(1 - largest contiguous free run / free pages)",
+            ["engine"], registry=r)
+        self.compile_cache_hits = Counter(
+            f"{ns}_compile_cache_hits_total",
+            "Warmup programs served from the export disk cache",
+            ["engine"], registry=r)
+        self.compile_cache_misses = Counter(
+            f"{ns}_compile_cache_misses_total",
+            "Warmup programs that had to trace+lower+compile",
+            ["engine"], registry=r)
+        self.compile_seconds = Histogram(
+            f"{ns}_compile_seconds",
+            "Per-program warmup compile (or export-cache load) time",
+            ["engine", "program"], buckets=_COMPILE_BUCKETS, registry=r)
+        self.warmup_progress = Gauge(
+            f"{ns}_warmup_progress",
+            "Warmup completion fraction (0..1) — programs compiled / "
+            "programs planned", ["engine"], registry=r)
+        # Usage plane (observability/usage.py): who consumed the card.
+        # ``tenant`` is bounded by the ledger (max_tenants; overflow and
+        # id-shaped values collapse to "other").
+        self.usage_device_seconds = Counter(
+            f"{ns}_usage_device_seconds_total",
+            "Attributed device-execute seconds behind DELIVERED output "
+            "(useful work)", ["tenant", "priority"], registry=r)
+        self.usage_waste_seconds = Counter(
+            f"{ns}_usage_waste_seconds_total",
+            "Attributed device-execute seconds that bought no delivered "
+            "output, by cause (retry|failover|crash|preempt|shed|"
+            "cancelled|error)", ["reason"], registry=r)
+        self.usage_kv_page_seconds = Counter(
+            f"{ns}_usage_kv_page_seconds_total",
+            "KV page-seconds held (pages x wall time; shared prefix "
+            "pages charged fractionally to their sharers)", ["tenant"],
+            registry=r)
+        self.usage_saved_prefill_seconds = Counter(
+            f"{ns}_usage_saved_prefill_device_seconds_total",
+            "Estimated prefill device-seconds SAVED by prefix-cache / "
+            "conversation-KV hits", ["tenant"], registry=r)
+        self.goodput_tokens_per_device_s = Gauge(
+            f"{ns}_goodput_tokens_per_device_second",
+            "Rolling goodput: SLO-met completion tokens per attributed "
+            "device-second (waste counts in the denominator)",
+            registry=r)
+        self.usage_tenants_tracked = Gauge(
+            f"{ns}_usage_tenants_tracked",
+            "Distinct tenants with usage rollups this process",
+            registry=r)
+        # Critical-path plane (observability/critical_path.py): per-
+        # request latency attribution + boot decomposition, both fed at
+        # scrape time.
+        self.critical_path_ms = Histogram(
+            f"{ns}_critical_path_ms",
+            "Per-request end-to-end latency attributed to one "
+            "critical-path segment (segments conserve: they sum to "
+            "the recorded e2e per request)", ["segment", "priority"],
+            buckets=_CP_MS_BUCKETS, registry=r)
+        self.critical_path_dominant = Counter(
+            f"{ns}_critical_path_dominant_total",
+            "Requests whose largest critical-path segment was this "
+            "one — the fleet-wide 'where does time go' headline",
+            ["segment", "priority"], registry=r)
+        self.replica_ready_seconds = Histogram(
+            f"{ns}_replica_ready_seconds",
+            "Replica boot decomposition: seconds per boot stage "
+            "(provision → artifact → weights → compile → warmup → "
+            "first_token) across all ReplicaPool kinds + serve boot",
+            ["stage"], buckets=_BOOT_BUCKETS, registry=r)
+        # SLO layer (observability/slo.py): burn rate 1.0 = spending
+        # exactly the allowed error budget over the window.
+        self.slo_burn_rate = Gauge(
+            f"{ns}_slo_burn_rate",
+            "Error-budget burn rate per SLO and rolling window",
+            ["slo", "window"], registry=r)
+        self.slo_error_budget_remaining = Gauge(
+            f"{ns}_slo_error_budget_remaining",
+            "Remaining error-budget fraction over the longest window "
+            "(0 = exhausted)", ["slo"], registry=r)
 
 
 def get_metrics() -> QueueMetrics:
@@ -407,6 +618,35 @@ def get_metrics() -> QueueMetrics:
 
 
 def exposition() -> bytes:
-    """The text exposition ``GET /metrics`` serves."""
+    """The text exposition ``GET /metrics`` serves. The observability
+    planes defer their observations off the request and decode paths;
+    they land here, in the JAX package's order (the recorder's flush
+    feeds the SLO, usage and critical-path joins, so it runs first)."""
     get_metrics()   # the families exist before their first update
+    try:
+        from llmq_tpu_torch.observability.recorder import get_recorder
+        get_recorder().flush_metrics()
+    except Exception:  # noqa: BLE001 — scrape must not fail on trace plane
+        log.exception("flight-recorder flush failed")
+    try:
+        from llmq_tpu_torch.observability.device import flush_all
+        flush_all()
+    except Exception:  # noqa: BLE001
+        log.exception("device telemetry flush failed")
+    try:
+        from llmq_tpu_torch.observability.slo import get_slo_tracker
+        get_slo_tracker().flush()
+    except Exception:  # noqa: BLE001
+        log.exception("SLO flush failed")
+    try:
+        from llmq_tpu_torch.observability.usage import get_usage_ledger
+        get_usage_ledger().flush()
+    except Exception:  # noqa: BLE001
+        log.exception("usage flush failed")
+    try:
+        from llmq_tpu_torch.observability.critical_path import \
+            flush_boot_metrics
+        flush_boot_metrics()
+    except Exception:  # noqa: BLE001
+        log.exception("boot metrics flush failed")
     return REGISTRY.exposition()

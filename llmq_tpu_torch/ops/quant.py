@@ -198,6 +198,12 @@ def params_bytes(params: Params) -> int:
     return sum(t.numel() * t.element_size() for t in _leaves(params))
 
 
+def param_count(params: Params) -> int:
+    """Elements of every leaf of a (possibly quantized) parameter tree,
+    scales included (the JAX package's ``param_count``)."""
+    return sum(t.numel() for t in _leaves(params))
+
+
 # -- int8 KV cache ------------------------------------------------------------
 
 def quantize_kv_rows(x: torch.Tensor):

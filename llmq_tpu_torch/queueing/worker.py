@@ -17,6 +17,10 @@
   timeout/retry path (the call itself cannot be killed)
 - ``on_permanent_failure`` is called once for every message that fails
   for good
+- each message's ``scheduled``, ``completed``, ``retry_scheduled`` and
+  ``failed`` stages go to the flight recorder (``observability``), and a
+  retry reclassifies the failed attempt's device time as retry waste in
+  the usage ledger
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import threading
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional
 
+from llmq_tpu_torch import observability
 from llmq_tpu_torch.core.clock import SYSTEM_CLOCK, Clock
 from llmq_tpu_torch.core.config import RetryConfig, WorkerConfig
 from llmq_tpu_torch.core.types import Message, MessageStatus
@@ -406,6 +411,9 @@ class Worker:
         """Process one message. Returns True if the caller must release
         the concurrency slot (False when the watchdog already did)."""
         start = self._clock.now()
+        observability.record(msg.id, "scheduled", worker=self.name,
+                             priority=msg.priority.tier_name,
+                             retry_count=msg.retry_count)
         deadline = start + msg.timeout if msg.timeout and msg.timeout > 0 else None
         ctx = ProcessContext(deadline, self._clock)
         rec: Optional[_Inflight] = None
@@ -466,6 +474,13 @@ class Worker:
             self.manager.complete_message(msg, elapsed)
             with self.stats._mu:
                 self.stats.succeeded += 1
+            usage = (msg.metadata or {}).get("usage") or {}
+            observability.record(
+                msg.id, "completed", worker=self.name,
+                priority=msg.priority.tier_name,
+                endpoint=(msg.metadata or {}).get("endpoint_id", ""),
+                completion_tokens=usage.get("completion_tokens", 0),
+                process_seconds=round(elapsed, 6))
             return True
         reason = (f"timeout after {elapsed:.3f}s ({err!r})" if timed_out
                   else repr(err))
@@ -525,6 +540,12 @@ class Worker:
             qname = self.manager.stash_for_retry(msg)
             msg.status = MessageStatus.PENDING
             self.delayed_queue.schedule_after(msg, delay, qname)
+            # The failed attempt's device time was retried-away work.
+            observability.get_usage_ledger().note_retry(msg.id)
+            observability.record(msg.id, "retry_scheduled",
+                                 priority=msg.priority.tier_name,
+                                 retry=msg.retry_count,
+                                 delay_seconds=delay, reason=reason)
             log.info("message %s retry %d/%d in %.2fs (%s)",
                      msg.id, msg.retry_count, msg.max_retries, delay, reason)
             return
@@ -538,6 +559,11 @@ class Worker:
             self.dead_letter_queue.push(msg, reason, qname)
             with self.stats._mu:
                 self.stats.dead_lettered += 1
+        observability.record(msg.id, "failed",
+                             priority=msg.priority.tier_name,
+                             endpoint=(msg.metadata or {}).get(
+                                 "endpoint_id", ""),
+                             timed_out=timed_out, reason=reason)
         if self.on_permanent_failure is not None:
             try:
                 self.on_permanent_failure(msg, reason)

@@ -135,13 +135,15 @@ def _scrape(base):
 
 
 def _sse(base, body):
+    """(status, content type, body, traceparent header) of an SSE
+    request."""
     req = urllib.request.Request(base + "/api/v1/messages",
                                  data=json.dumps(body).encode(),
                                  method="POST",
                                  headers={"Content-Type": "application/json"})
     with urllib.request.urlopen(req, timeout=60) as resp:
         return resp.status, resp.headers["Content-Type"], \
-            resp.read().decode()
+            resp.read().decode(), resp.headers.get("traceparent")
 
 
 def _poll(base, mid, timeout=60.0):
@@ -161,17 +163,21 @@ def _wait(pred, timeout=30.0):
     return pred()
 
 
-#: Fields JAX's usage plane (its attribution ledger) adds to every
-#: ``usage`` block; that plane waits for its own slice of the port.
-USAGE_PLANE = {"tenant", "device_seconds", "waste_seconds", "waste_reason",
-               "kv_page_seconds", "saved_prefill_device_seconds"}
+#: The usage plane's measured fields in every ``usage`` block: seconds
+#: of two different engines' device time and page residency, compared
+#: by type; every other usage field (the token counts, the finish and
+#: waste reasons, the tenant) is compared by value.
+USAGE_MEASURED = {"device_seconds", "waste_seconds", "kv_page_seconds",
+                  "saved_prefill_device_seconds"}
 
 
 def _core(x):
-    """``x`` without the usage plane's fields."""
+    """``x`` with the usage plane's measured seconds replaced by their
+    type name (so a ``usage`` block compares whole: every key, every
+    other value)."""
     if isinstance(x, dict):
-        return {k: (_core({u: w for u, w in v.items()
-                           if u not in USAGE_PLANE})
+        return {k: ({u: (type(w).__name__ if u in USAGE_MEASURED
+                         else _core(w)) for u, w in v.items()}
                     if k == "usage" and isinstance(v, dict) else _core(v))
                 for k, v in x.items()}
     if isinstance(x, list):
@@ -242,7 +248,8 @@ def _script(base, proc, dlq, stop_workers):
     _, r = rec("submit_rule", "POST", "/api/v1/messages", {
         "content": "deploy the fix", "user_id": "u3",
         "metadata": {"max_new_tokens": 4}})
-    out["rule_done"] = (200, _poll(base, r["message_id"]), None)
+    rule_id = r["message_id"]
+    out["rule_done"] = (200, _poll(base, rule_id), None)
     rec("list_u1", "GET", "/api/v1/messages?user_id=u1&limit=5")
     rec("list_bad", "GET", "/api/v1/messages?limit=x")
     rec("get_missing", "GET", "/api/v1/messages/nope")
@@ -325,6 +332,31 @@ def _script(base, proc, dlq, stop_workers):
     rec("ep_delete_missing", "DELETE", "/api/v1/endpoints/ep-1")
     rec("ep_method", "PUT", "/api/v1/endpoints/ep-1")
     out["metrics"] = (200, _scrape(base), None)
+    # The observability routes: traces of a queued and a streamed
+    # request, the flight recorder, the usage ledger, the critical path
+    # and an on-demand profile (202, 409 while it runs, then done).
+    sse_id = json.loads(out["sse"][1][2].split("\n\n")[0]
+                        .split("data: ", 1)[1])["message_id"]
+    out["sse_id"] = (200, sse_id, None)
+    rec("trace_queued", "GET", f"/api/v1/requests/{rule_id}/trace")
+    rec("trace_sse", "GET", f"/api/v1/requests/{sse_id}/trace")
+    rec("trace_chrome", "GET",
+        f"/api/v1/requests/{rule_id}/trace?format=chrome")
+    rec("trace_missing", "GET", "/api/v1/requests/nope/trace")
+    rec("flightrecorder", "GET", "/api/v1/admin/flightrecorder?limit=5")
+    rec("flightrecorder_bad", "GET", "/api/v1/admin/flightrecorder?limit=x")
+    rec("usage", "GET", "/api/v1/usage")
+    rec("usage_tenant", "GET", "/api/v1/usage?tenant=default")
+    rec("critical_path", "GET", "/api/v1/analysis/critical-path")
+    rec("critical_path_bad", "GET",
+        "/api/v1/analysis/critical-path?recent=x")
+    rec("profile_start", "POST", "/api/v1/admin/profile",
+        {"duration_ms": 300, "label": "api test"})
+    rec("profile_again", "POST", "/api/v1/admin/profile",
+        {"duration_ms": 300})
+    assert _wait(lambda: not _http(base, "GET",
+                                   "/api/v1/admin/profile")[1]["active"])
+    rec("profile_done", "GET", "/api/v1/admin/profile")
     rec("bad_json", "POST", "/api/v1/messages", raw=b"{nope")
     rec("no_body", "POST", "/api/v1/messages", raw=b"")
     rec("bad_priority", "POST", "/api/v1/messages",
@@ -360,6 +392,23 @@ def runs():
     tparams = T.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
                                 device="cpu")
     results = {}
+    # A boot record an earlier test file opened in this worker process
+    # would show on /health in one package only.
+    from llmq_tpu.observability import critical_path as jcp
+
+    from llmq_tpu_torch.observability import critical_path as tcp
+    jcp._PROCESS_BOOT_ID = tcp._PROCESS_BOOT_ID = None
+    # Nor may the requests an earlier test file served count in one
+    # package's usage ledger or flight recorder only.
+    from llmq_tpu.observability import recorder as jrec
+    from llmq_tpu.observability import usage as jusage
+
+    from llmq_tpu_torch.observability import recorder as trec
+    from llmq_tpu_torch.observability import usage as tusage
+    for mod in (jusage, tusage):
+        mod.reset_usage()
+    for mod in (jrec, trec):
+        mod.get_recorder().clear()
     jproc = _JaxProcess(JEngine(JaxExecutor(jcfg, jparams, **GEOM), JTok(),
                                 enable_metrics=False, max_decode_steps=16))
     base = f"http://127.0.0.1:{jproc.start()}"
@@ -469,7 +518,7 @@ def test_sse_framing_and_text_match_the_queued_response(runs):
     greedy response; the framing matches JAX's."""
     shapes = {}
     for side in ("jax", "port"):
-        status, ctype, body = runs[side]["sse"][1]
+        status, ctype, body, _tp = runs[side]["sse"][1]
         assert status == 200 and ctype.startswith("text/event-stream")
         events = [e for e in body.split("\n\n") if e]
         assert events[0].startswith("event: start\ndata: ")
@@ -511,6 +560,58 @@ def test_engine_stats_keys_are_jaxs(runs):
     j, t = runs["jax"]["engine_stats"], runs["port"]["engine_stats"]
     assert t[0] == j[0] == 200
     assert set(t[1]) <= set(j[1]), set(t[1]) - set(j[1])
+
+
+def _stages(trace):
+    return [e["stage"] for e in trace["events"]]
+
+
+def test_observability_routes_answer_like_jax(runs):
+    """Tolerance: none. The trace, flight-recorder, usage, critical-path
+    and profile routes answer with JAX's status codes and payload keys;
+    a queued and a streamed request carry JAX's stage names in the same
+    order; the streamed response's ``traceparent`` carries the request's
+    derived trace id."""
+    from llmq_tpu_torch.observability import trace_id_for
+
+    for step in ("trace_queued", "trace_sse", "trace_chrome",
+                 "trace_missing", "flightrecorder", "flightrecorder_bad",
+                 "usage", "usage_tenant", "critical_path",
+                 "critical_path_bad", "profile_start", "profile_again",
+                 "profile_done"):
+        j, t = runs["jax"][step], runs["port"][step]
+        assert t[0] == j[0], (step, t, j)
+        assert set(t[1]) == set(j[1]), (step, t[1], j[1])
+    for side in ("jax", "port"):
+        r = runs[side]
+        assert [r[s][0] for s in ("trace_queued", "trace_missing",
+                                  "profile_start", "profile_again",
+                                  "profile_done", "flightrecorder_bad",
+                                  "critical_path_bad")] == \
+            [200, 404, 202, 409, 200, 400, 400], side
+        assert r["profile_done"][1]["last"]["label"] == "api_test"
+        assert r["critical_path"][1]["conservation_failures"] == 0
+        assert r["critical_path"][1]["requests"] > 0
+        sse_id = r["sse_id"][1]
+        tp = r["sse"][1][3]
+        assert tp.split("-")[1] == trace_id_for(sse_id), side
+    for step in ("trace_queued", "trace_sse"):
+        j, t = runs["jax"][step][1], runs["port"][step][1]
+        assert _stages(t) == _stages(j), step
+        assert _keys(t["tokens"]) == _keys(j["tokens"])
+        assert t["tokens"] == j["tokens"] and t["usage"] == j["usage"]
+        assert set(t["critical_path"]) == set(j["critical_path"])
+    assert "dispatched" in _stages(runs["port"]["trace_sse"][1])
+    j, t = runs["jax"]["usage"][1], runs["port"]["usage"][1]
+    for block in ("totals", "goodput"):
+        assert set(t[block]) == set(j[block]), block
+    for block in ("tenants", "priorities"):
+        assert _keys(t[block]) == _keys(j[block]), block
+        assert {k: v["requests"] for k, v in t[block].items()} == \
+            {k: v["requests"] for k, v in j[block].items()}, block
+    assert t["totals"]["requests"] == j["totals"]["requests"]
+    j, t = runs["jax"]["flightrecorder"][1], runs["port"]["flightrecorder"][1]
+    assert t["timelines"] == j["timelines"] and len(t["recent"]) == 5
 
 
 def test_metrics_route_serves_jaxs_families(runs):

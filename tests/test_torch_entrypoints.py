@@ -75,10 +75,14 @@ class _Proc:
             self._t.join(10)
 
 
-def test_serve_with_config_answers_and_drains_on_sigterm(tmp_path):
+def test_serve_with_config_answers_and_drains_on_sigterm(tmp_path,
+                                                         monkeypatch):
     """The file configures the process (its port, model, log format);
     one request is answered over REST; SIGTERM drains (the log says the
-    engine was idle at the end) before the process exits 0."""
+    engine was idle at the end) before the process exits 0. The test
+    process's ``LLMQ_CONFIG`` stays unset (another test file run earlier
+    in the same worker may have left one behind: cleared first)."""
+    monkeypatch.delenv("LLMQ_CONFIG", raising=False)
     cfg = tmp_path / "serve.yaml"
     cfg.write_text(SERVE_YAML)
     proc = _Proc(["--config", str(cfg), "--device", "cpu", "serve"],

@@ -101,8 +101,8 @@ _BLOCKED_IMPORT_SCRIPT = textwrap.dedent("""
     from llmq_tpu_torch.preprocessor.preprocessor import Preprocessor
     from llmq_tpu_torch.api.overload import (OverloadShedder,
                                              build_shedder,
-                                             estimate_prompt_tokens,
-                                             sanitize_tenant)
+                                             estimate_prompt_tokens)
+    from llmq_tpu_torch.observability.usage import sanitize_tenant
     from llmq_tpu_torch.api.message_store import MessageStore
     from llmq_tpu_torch.api.server import ApiServer
     from llmq_tpu_torch.engine.engine import InferenceEngine
@@ -133,6 +133,20 @@ _BLOCKED_IMPORT_SCRIPT = textwrap.dedent("""
     from llmq_tpu_torch.loadbalancer.load_balancer import LoadBalancer
     from llmq_tpu_torch.__main__ import App, cmd_check, cmd_serve
     assert GpuTopology.discover("cpu").num_chips == 1
+    # The observability plane: traces, flight recorder, SLO, usage,
+    # critical path, device telemetry and on-demand profiling.
+    from llmq_tpu_torch import observability
+    for fn in ("record", "configure", "get_recorder", "make_traceparent",
+               "parse_traceparent", "trace_id_for", "chrome_trace",
+               "configure_slo", "configure_usage", "configure_critical_path",
+               "decompose", "boot_begin", "get_device_telemetry",
+               "measure_rtt", "decode_mfu"):
+        assert callable(getattr(observability, fn)), fn
+    from llmq_tpu_torch.observability.device import (profile_status,
+                                                     start_profile)
+    from llmq_tpu_torch.utils.profiling import SpanRecorder, annotate, trace
+    from llmq_tpu_torch.core.config import ObservabilityConfig
+    assert ObservabilityConfig().enabled and cfg.observability.usage.enabled
     for fn in ("prefill_estimate", "_admission_cap",
                "_observe_prefill_rate"):
         assert callable(getattr(InferenceEngine, fn)), fn

@@ -90,7 +90,7 @@ def test_every_port_family_is_jaxs():
     """Tolerance: none. Name, type, help, label names and buckets."""
     port, jax_m = treg.get_metrics(), jreg.get_metrics()
     fams = vars(port)
-    assert len(fams) == 26
+    assert len(fams) == 64      # the observability planes' families too
     for attr, fam in fams.items():
         jf = getattr(jax_m, attr)
         name = jf._name + ("_total" if jf._type == "counter" else "")
@@ -105,7 +105,7 @@ def test_exposition_parses_like_jaxs():
     parser into the same families (name, type, help) as JAX's."""
     port, jax_fams = _by_name(_port_exposition()), _by_name(
         _jax_exposition())
-    assert len(port) == 26
+    assert len(port) == 64
     for name, fam in port.items():
         jf = jax_fams[name]
         assert (fam.type, fam.documentation) == (jf.type,
@@ -387,6 +387,27 @@ def test_engine_samples_match_jax(engine_runs, name):
     j, t = engine_runs["jax"][1], engine_runs["port"][1]
     assert _family(t, name) == _family(j, name)
     assert any(n == name for n, _ in t), name
+
+
+def test_device_telemetry_families_follow_the_engines_chunks(engine_runs):
+    """The step decomposition histograms hold one sample per chunk the
+    engine's telemetry noted (flushed at the scrape), the live gauges
+    exist for the engine, and the HBM gauges carry the executor's bytes."""
+    eng, s = engine_runs["port"]
+    chunks = eng._telemetry.snapshot()["steps"]["count"]
+    assert chunks > 0
+    for leg in ("dispatch", "device", "readback", "overlapped"):
+        got = _family(s, f"llm_queue_step_{leg}_ms_count")
+        assert list(got.values()) == [float(chunks)], leg
+    text = _port_exposition()
+    tag = eng.name
+    for fam in ("llm_queue_decode_tokens_per_s", "llm_queue_mfu_pct",
+                "llm_queue_pipeline_overlap_ratio",
+                "llm_queue_kv_pool_occupancy"):
+        assert f'{fam}{{engine="{tag}"}}' in text, fam
+    chip = eng.executor.hbm_info()[0]
+    assert f'llm_queue_hbm_weights_bytes{{engine="{tag}",chip="0"}} ' \
+        f'{float(chip["weights_bytes"])!r}' in text
 
 
 def test_engine_counters_equal_the_engines_own(engine_runs):
