@@ -162,7 +162,41 @@ shows where it happened):
                  off, off, on), after one uncounted 8-concurrent batch,
                  each turn's rate the median of three: the "on" turns
                  within 3% of the "off" ones.
-9. serve-int8 — llama3-8b with int8 weights and int8 KV at full width and
+9. serve-split — the durable queue plane and the split deployment. First,
+                 on the serve phases' bf16 engine, decode of 8 concurrent
+                 REST requests (64 new tokens) through the serving
+                 process with ``queue.wal_dir`` set and unset, in turns,
+                 and the journal's bytes a message (printed, not gated);
+                 then that engine is released. Push+pop operations per
+                 second of the native and the Python queue core at a
+                 backlog of 10,000 over the four tiers; the native
+                 library must be the one built from ``native/src/mlq.cpp``
+                 into ``llmq_tpu_torch/_build/``. Then ``python -m
+                 llmq_tpu_torch gateway`` and ``queue-manager`` (llama3-8b
+                 at full width and depth on the card, random weights from
+                 seed 0) as child processes, configured from
+                 ``configs/config.yaml`` with the phase's overrides and a
+                 shared ``queue.spool_dir``, each with its own
+                 ``queue.wal_dir``; a prelude counts the plain twins and
+                 writes ``kernels.LAUNCHES`` (zeroed when the engine
+                 starts serving) to a status file. Every queue in both
+                 runs the native core. 16 requests (four tiers, prompts of
+                 40-600 tokens, 64 new tokens) complete on the gateway's
+                 ``GET /api/v1/messages/:id`` with response and usage
+                 (spool publish-to-claim and end-to-end times by tier
+                 printed). 16 more (256 new tokens): with 8 rows decoding
+                 the queue-manager is SIGKILLed; one message published
+                 meanwhile is held as a dead consumer's claim older than
+                 the claim TTL; the queue-manager restarts on the same
+                 directories, its WAL redelivers what it had popped, the
+                 stale claim is reclaimed, every message completes
+                 (duplicates counted), none is left pending or
+                 processing, and the spool is empty. Then the gateway is
+                 stopped with 8 messages in flight and restarted on its
+                 WAL: they are relayed again and complete (traces from
+                 the spool). Kernels 1-3 launch in each queue-manager, no
+                 twin is called, and no gateway initialises CUDA.
+10. serve-int8 — llama3-8b with int8 weights and int8 KV at full width and
                  depth (``LLMQ_MODEL_QUANTIZATION=int8
                  LLMQ_MODEL_KV_QUANTIZATION=int8``), the same REST mix:
                  kernel 5 launches and no bf16-pool kernel does; then a
@@ -4680,14 +4714,751 @@ def phase_serve_plane(state) -> None:
         engine.on_prefill_observed = observe
         app.stop()
         restore()
-        engine.executor.release_graphs()
+        if "serve-split" in state.get("chosen", ()):
+            # The serve-split phase measures the WAL's cost on this
+            # engine: its graphs stay captured.
+            state["serve_engine"] = engine
+        else:
+            engine.executor.release_graphs()
     if counts:
         raise AssertionError(f"serve-plane called plain twins: {counts}")
+
+#: The serve-split phase: requests a batch, their new tokens, the
+#: range of their prompt lengths (tokens), and the queue cores' backlog
+#: (configs/config.yaml's max_queue_size over the four tiers).
+SPLIT_REQUESTS = 16
+SPLIT_NEW_TOKENS = 64
+#: New tokens of the requests in flight at a kill or a stop: long enough
+#: that eight rows decode at once and are still decoding then.
+SPLIT_HELD_NEW_TOKENS = 256
+SPLIT_PROMPT_RANGE = (40, 600)
+SPLIT_BACKLOG = 10_000
+SPLIT_PAIRS = 20_000
+#: Seconds a child may take to say it serves (the queue-manager builds and
+#: warms up an 8B engine).
+SPLIT_BOOT_S = 600.0
+#: The spool consumer's claim TTL (the JAX package's SpoolConsumer
+#: default, which its queue-manager uses).
+SPOOL_CLAIM_TTL_S = 120.0
+SPLIT_TIERS = ("realtime", "high", "normal", "low")
+
+#: Run before ``python -m llmq_tpu_torch`` in each serve-split child: it
+#: counts the plain twins' calls, zeroes ``kernels.LAUNCHES`` when the
+#: engine starts serving (warmup's launches left out), and writes the
+#: counts, the rows decoding and whether CUDA was initialised to a status
+#: file every 50 ms and at exit.
+SPLIT_PRELUDE = r'''
+import atexit, json, os, runpy, sys, threading, time
+status_path = sys.argv.pop(1)
+sys.path.insert(0, os.getcwd())
+import torch
+from llmq_tpu_torch.ops import kernels
+from llmq_tpu_torch.engine import engine as engine_mod
+plain = {}
+for name in [n for n in dir(kernels) if n.endswith("_plain")]:
+    def counted(*a, _name=name, _fn=getattr(kernels, name), **kw):
+        plain[_name] = plain.get(_name, 0) + 1
+        return _fn(*a, **kw)
+    setattr(kernels, name, counted)
+held = {}
+start = engine_mod.InferenceEngine.start
+def counting_start(self):
+    if "engine" not in held:
+        kernels.reset_launches()
+        held["engine"] = self
+    return start(self)
+engine_mod.InferenceEngine.start = counting_start
+def dump():
+    eng = held.get("engine")
+    rows = 0 if eng is None else sum(
+        1 for s in eng._slots if s is not None and s.prefilled)
+    rec = {"t": time.time(), "pid": os.getpid(),
+           "launches": dict(kernels.LAUNCHES), "plain": dict(plain),
+           "decoding": rows,
+           "cuda_initialized": torch.cuda.is_initialized()}
+    with open(status_path + ".tmp", "w") as f:
+        json.dump(rec, f)
+    os.replace(status_path + ".tmp", status_path)
+def loop():
+    while True:
+        try:
+            dump()
+        except Exception:
+            pass
+        time.sleep(0.05)
+threading.Thread(target=loop, daemon=True).start()
+atexit.register(dump)
+sys.argv[0] = "llmq_tpu_torch"
+runpy.run_module("llmq_tpu_torch", run_name="__main__", alter_sys=True)
+'''
+
+
+def _split_config_file(work: str):
+    """``configs/config.yaml`` with the serve-plane phase's overrides and
+    ``queue.spool_dir`` set, written into ``work``; each process's
+    ``queue.wal_dir`` comes from its own ``LLMQ_QUEUE_WAL_DIR``. Returns
+    the config and the file's path."""
+    import dataclasses
+
+    import yaml
+
+    from llmq_tpu_torch.core.config import load_config
+
+    cfg, plane_path = _plane_config_file()
+    with open(plane_path) as f:
+        data = yaml.safe_load(f)
+    spool = os.path.join(work, "spool")
+    data["queue"]["spool_dir"] = spool
+    path = os.path.join(work, "split_config.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(data, f, sort_keys=False)
+    cfg.queue.spool_dir = spool
+    got = load_config(path, env=False)
+    if dataclasses.asdict(got) != dataclasses.asdict(cfg):
+        raise AssertionError("the split config file did not load to the "
+                             "phase's settings")
+    return got, path
+
+
+class _Child:
+    """One ``python -m llmq_tpu_torch <role>`` process (after
+    SPLIT_PRELUDE), its log file and its status file."""
+
+    def __init__(self, work: str, role: str, n: int, args, env) -> None:
+        import subprocess
+
+        self.role = role
+        self.log_path = os.path.join(work, f"{role}-{n}.log")
+        self.status_path = os.path.join(work, f"status-{role}-{n}.json")
+        self._log = open(self.log_path, "w")
+        self.started = time.time()
+        self.p = subprocess.Popen(
+            [sys.executable, "-c", SPLIT_PRELUDE, self.status_path, *args,
+             role], cwd=os.path.dirname(os.path.abspath(__file__)),
+            env=env, stdout=self._log, stderr=subprocess.STDOUT)
+
+    def lines(self):
+        with open(self.log_path) as f:
+            return f.read().splitlines()
+
+    def records(self, prefix: str):
+        """The JSON log records whose message starts with ``prefix``."""
+        out = []
+        for line in self.lines():
+            if line.startswith("{"):
+                try:
+                    rec = json.loads(line)
+                except ValueError:
+                    continue
+                if str(rec.get("msg", "")).startswith(prefix):
+                    out.append(rec)
+        return out
+
+    def wait_record(self, prefix: str, timeout: float):
+        deadline = time.time() + timeout
+        while time.time() < deadline:
+            found = self.records(prefix)
+            if found:
+                return found[-1]
+            if self.p.poll() is not None:
+                break
+            time.sleep(0.05)
+        raise AssertionError(f"{self.role}: no {prefix!r} log line "
+                             f"(exit {self.p.poll()}):\n"
+                             + "\n".join(self.lines()[-40:]))
+
+    def status(self):
+        try:
+            with open(self.status_path) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return None
+
+    def stop(self, sig, timeout: float = 120.0) -> int:
+        import signal as _signal
+
+        if self.p.poll() is None:
+            self.p.send_signal(sig)
+        try:
+            rc = self.p.wait(timeout)
+        except Exception:  # noqa: BLE001 — never leave a child behind
+            self.p.kill()
+            rc = self.p.wait(30)
+        self._log.close()
+        if sig != _signal.SIGKILL and rc != 0:
+            raise AssertionError(f"{self.role} exited {rc}:\n"
+                                 + "\n".join(self.lines()[-40:]))
+        return rc
+
+
+class _SpoolWatch:
+    """Polls the spool directory every 2 ms on a thread: when each message
+    file appeared and when it left (its claim); the publish time is in
+    the file's name."""
+
+    def __init__(self, spool: str) -> None:
+        self.spool = spool
+        self.seen = {}        # name → (publish ts, first seen)
+        self.claimed = {}     # name → time it left
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, daemon=True)
+        self._t.start()
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            now = time.time()
+            try:
+                names = {n for n in os.listdir(self.spool)
+                         if n.endswith(".msg")}
+            except FileNotFoundError:
+                names = set()
+            for n in names - set(self.seen):
+                self.seen[n] = (float(n.split("-")[1]), now)
+            for n in set(self.seen) - names - set(self.claimed):
+                self.claimed[n] = now
+            time.sleep(0.002)
+
+    def publish_to_claim_ms(self, ids):
+        out = []
+        for n, t in self.claimed.items():
+            if any(n.endswith(f"-{mid}.msg") for mid in ids):
+                out.append((t - self.seen[n][0]) * 1e3)
+        return sorted(out)
+
+    def close(self) -> None:
+        self._stop.set()
+        self._t.join(5)
+
+
+def _split_prompts(rng, n: int):
+    """``n`` prompts of SPLIT_PROMPT_RANGE tokens (one token a byte), each
+    opening with its own index, with priorities cycling over the tiers."""
+    import numpy as np
+
+    lo, hi = SPLIT_PROMPT_RANGE
+    lengths = rng.permutation(np.linspace(lo, hi, n).astype(int))
+    filler = PRESSURE_FILLER * (hi // len(PRESSURE_FILLER) + 2)
+    return [(SPLIT_TIERS[i % 4], f"{i:03d} {filler}"[:int(L) - 1])
+            for i, L in enumerate(lengths)]
+
+
+def _split_post(base, prompts, new_tokens: int = SPLIT_NEW_TOKENS):
+    """POST each prompt to the gateway; returns [(id, tier, post time)]."""
+    out = []
+    for tier, text in prompts:
+        t = time.time()
+        mid = _post(base, {"content": text, "priority": tier,
+                           "user_id": "serve-split",
+                           "metadata": {"max_new_tokens": new_tokens}})
+        out.append((mid, tier, t))
+    return out
+
+
+def _split_wait(base, posted, timeout: float, what: str):
+    """Polls the gateway until every posted message completes; returns
+    {id: (message, time seen completed)}. A failed message fails."""
+    done = {}
+    deadline = time.time() + timeout
+    while len(done) < len(posted):
+        if time.time() > deadline:
+            raise AssertionError(f"{what}: {len(posted) - len(done)} of "
+                                 f"{len(posted)} messages unfinished")
+        for mid, _tier, _t in posted:
+            if mid in done:
+                continue
+            _, m = _http("GET", f"{base}/api/v1/messages/{mid}")
+            if m["status"] == "completed":
+                done[mid] = (m, time.time())
+            elif m["status"] in ("failed", "timeout"):
+                raise AssertionError(f"{what}: {mid} {m['status']}: "
+                                     f"{m.get('error')}")
+        time.sleep(0.02)
+    for mid, (m, _t) in done.items():
+        usage = m["metadata"].get("usage") or {}
+        if not m["response"] and usage.get("completion_tokens", 0) <= 0:
+            raise AssertionError(f"{what}: {mid} completed without tokens: "
+                                 f"{m}")
+        if not USAGE_FIELDS <= set(usage):
+            raise AssertionError(f"{what}: {mid} usage {sorted(usage)}")
+    return done
+
+
+def _tier_e2e(posted, done):
+    import numpy as np
+
+    by = {}
+    for mid, tier, t in posted:
+        by.setdefault(tier, []).append(done[mid][1] - t)
+    return {tier: {"median_s": float(np.median(v)), "max_s": max(v),
+                   "n": len(v)} for tier, v in by.items()}
+
+
+def _spool_completions(base, ids):
+    """{id: completed records from the spool} in the gateway's traces."""
+    out = {}
+    for mid in ids:
+        status, tl, _ = _http_status("GET",
+                                     f"{base}/api/v1/requests/{mid}/trace")
+        out[mid] = 0 if status != 200 else sum(
+            1 for e in tl["events"] if e["stage"] == "completed"
+            and (e.get("meta") or {}).get("source") == "spool")
+    return out
+
+
+def _backlog(base) -> int:
+    """Messages pending or processing in the gateway's standard manager."""
+    _, stats = _http("GET", f"{base}/api/v1/queues/stats")
+    return sum(stats["standard"][t]["processing_count"]
+               + stats["standard"][t]["pending_count"] for t in SPLIT_TIERS)
+
+
+def _quiet(dep) -> bool:
+    """Nothing left anywhere: no message pending or processing in the
+    gateway, none live in the queue-manager's WAL, no file in the spool
+    or its ``done/``."""
+    from llmq_tpu_torch.queueing.wal import QueueWAL
+
+    return (_backlog(dep.base) == 0
+            and not QueueWAL.replay(dep.wal("queue-manager"))
+            and os.listdir(dep.spool) == ["done"]
+            and not os.listdir(os.path.join(dep.spool, "done")))
+
+
+def _queue_core_rates() -> dict:
+    """Push+pop operations per second of the native and the Python queue
+    core at a backlog of SPLIT_BACKLOG messages over the four tiers, in
+    turns (native, python, python, native): through ``MultiLevelQueue``
+    (what a queue manager calls) and on the bare core (handles only)."""
+    import numpy as np
+
+    from llmq_tpu_torch.core.types import Message, Priority
+    from llmq_tpu_torch.native import loader
+    from llmq_tpu_torch.queueing.priority_queue import MultiLevelQueue
+
+    rates = {"NativeMLQ": {"queue": [], "core": []},
+             "_PyBackend": {"queue": [], "core": []}}
+    msgs = [Message(id=f"b{i}", content="x", priority=Priority(1 + i % 4))
+            for i in range(SPLIT_BACKLOG + SPLIT_PAIRS)]
+    for backend in ("native", "python", "python", "native"):
+        q = MultiLevelQueue(backend=backend)
+        for tier in SPLIT_TIERS:
+            q.create_queue(tier, SPLIT_BACKLOG)
+        for i in range(SPLIT_BACKLOG):
+            q.push(SPLIT_TIERS[i % 4], msgs[i])
+        t0 = time.perf_counter()
+        for i in range(SPLIT_PAIRS):
+            tier = SPLIT_TIERS[i % 4]
+            q.push(tier, msgs[SPLIT_BACKLOG + i])
+            q.pop(tier)
+        rates[q.backend_name]["queue"].append(
+            2 * SPLIT_PAIRS / (time.perf_counter() - t0))
+        core = type(q._core)()
+        for tier in SPLIT_TIERS:
+            core.create_queue(tier, 2 * SPLIT_BACKLOG)
+        for i in range(SPLIT_BACKLOG):
+            core.push(SPLIT_TIERS[i % 4], i, i % 4 + 1, float(i))
+        t0 = time.perf_counter()
+        for i in range(SPLIT_PAIRS):
+            tier = SPLIT_TIERS[i % 4]
+            core.push(tier, SPLIT_BACKLOG + i, i % 4 + 1, float(i))
+            core.pop(tier, float(i))
+        rates[q.backend_name]["core"].append(
+            2 * SPLIT_PAIRS / (time.perf_counter() - t0))
+    lib = loader.loaded_path()
+    if not lib or os.path.dirname(lib) != str(loader.BUILD_DIR) or \
+            os.path.basename(lib) != loader.library_path().name:
+        raise AssertionError(f"the native core loaded {lib}, not the "
+                             f"library built from {loader.SRC} into "
+                             f"{loader.BUILD_DIR}")
+    out = {k: {m: float(np.median(v)) for m, v in r.items()}
+           for k, r in rates.items()}
+    log(f"[serve-split] queue cores at a backlog of {SPLIT_BACKLOG} over "
+        f"4 tiers, push+pop ops/s (median of 2 turns): native "
+        f"{out['NativeMLQ']['queue']:.0f} through MultiLevelQueue, "
+        f"{out['NativeMLQ']['core']:.0f} on the bare core; Python "
+        f"{out['_PyBackend']['queue']:.0f} and "
+        f"{out['_PyBackend']['core']:.0f}; native library "
+        f"{os.path.relpath(lib)} built from {os.path.relpath(loader.SRC)} "
+        f"(host CPU; {CARD})")
+    out["native_lib"] = os.path.relpath(lib)
+    return out
+
+
+def _wal_cost(engine, work: str) -> dict:
+    """Printed, not gated: decode tok/s of 8 concurrent REST requests (90
+    prompt tokens, SPLIT_NEW_TOKENS new) through the serving process
+    (``App``) on the serve phase's engine with ``queue.wal_dir`` set and
+    without it, in turns (on, off, off, on), each turn one uncounted
+    batch and the median of three; and the journal's bytes per message
+    in the "on" turns."""
+    import numpy as np
+
+    from llmq_tpu_torch.__main__ import App
+
+    prompt = "The quick brown fox jumps over the lazy dog. " * 2
+    wal_dir = os.path.join(work, "wal-cost")
+    rates = {"on": [], "off": []}
+    wal_bytes = []
+
+    def journal_bytes():
+        if not os.path.isdir(wal_dir):
+            return 0
+        return sum(os.path.getsize(os.path.join(wal_dir, n))
+                   for n in os.listdir(wal_dir) if n.endswith(".wal"))
+
+    for turn, on in enumerate((True, False, False, True)):
+        cfg = _plane_cfg()
+        cfg.queue.wal_dir = wal_dir if on else ""
+        app = App(cfg, engine=engine)
+        base = f"http://127.0.0.1:{app.start(host='127.0.0.1', port=0)}"
+        try:
+            got = []
+            for batch in range(4):
+                b0 = journal_bytes()
+                posted = []
+                for i in range(8):
+                    posted.append((_post(base, {
+                        "content": f"{turn}{batch}{i} {prompt}",
+                        "metadata": {"max_new_tokens": SPLIT_NEW_TOKENS}}),
+                        "normal", time.time()))
+                done = _split_wait(base, posted, 300, "wal-cost")
+                toks = sum(m["metadata"]["usage"]["completion_tokens"]
+                           for m, _t in done.values())
+                span = (max(t for _m, t in done.values())
+                        - min(t for _i, _tier, t in posted))
+                if batch:
+                    got.append(toks / span)
+                if on:
+                    wal_bytes.append((journal_bytes() - b0) / len(posted))
+        finally:
+            app.stop()
+        rates["on" if on else "off"].append(float(np.median(got)))
+    per_msg = float(np.median(wal_bytes))
+    log(f"[serve-split] WAL cost: 8 concurrent x {SPLIT_NEW_TOKENS} new "
+        f"tokens through REST, tok/s with queue.wal_dir set "
+        f"{[round(r, 1) for r in rates['on']]} and unset "
+        f"{[round(r, 1) for r in rates['off']]} (turns on, off, off, on; "
+        f"medians of 3 batches); journal {per_msg:.0f} bytes a message "
+        f"(push, pop and complete records); {clocks()} ({CARD})")
+    return {"tok_s_wal_on": rates["on"], "tok_s_wal_off": rates["off"],
+            "wal_bytes_per_message": per_msg}
+
+
+class _Deployment:
+    """The split deployment's processes: a gateway on a fixed port and a
+    queue-manager on the card, each with its own WAL directory, sharing
+    the spool."""
+
+    def __init__(self, work: str, path: str, spool: str) -> None:
+        import socket
+
+        self.work, self.path, self.spool = work, path, spool
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        self.port = s.getsockname()[1]
+        s.close()
+        self.base = f"http://127.0.0.1:{self.port}"
+        self.children = []
+        self.n = 0
+
+    def start(self, role: str) -> _Child:
+        env = {k: v for k, v in os.environ.items() if k != "LLMQ_CONFIG"}
+        env["LLMQ_QUEUE_WAL_DIR"] = os.path.join(self.work, f"wal-{role}")
+        args = ["--config", self.path]
+        if role == "gateway":
+            args += ["--host", "127.0.0.1", "--port", str(self.port)]
+        self.n += 1
+        child = _Child(self.work, role, self.n, args, env)
+        self.children.append(child)
+        return child
+
+    def wal(self, role: str) -> str:
+        return os.path.join(self.work, f"wal-{role}", "standard.wal")
+
+    def close(self, failed: bool) -> None:
+        for child in self.children:
+            if child.p.poll() is None:
+                child.p.kill()
+                child.p.wait(30)
+            child._log.close()
+            if failed:
+                print(f"--- {child.role} log (last 40 lines) ---\n"
+                      + "\n".join(child.lines()[-40:]), file=sys.stderr)
+
+
+def _boot(child: _Child, what: str) -> dict:
+    if child.role == "gateway":
+        rec = child.wait_record("gateway serving at", 120)
+    else:
+        rec = child.wait_record("queue-manager consuming", SPLIT_BOOT_S)
+    cores = rec["queue_cores"]
+    if set(cores.values()) != {"NativeMLQ"} or len(cores) != 3:
+        raise AssertionError(f"{what}: queue cores {cores}")
+    return rec
+
+
+def _split_deploy(dep: _Deployment, lib: str, out: dict, rng) -> None:
+    """Start both processes, serve SPLIT_REQUESTS through the gateway,
+    then the queue-manager's crash and restart and the gateway's
+    restart."""
+    import signal
+
+    import numpy as np
+
+    from llmq_tpu_torch.queueing.wal import QueueWAL
+
+    watch = _SpoolWatch(dep.spool)
+    try:
+        gateway = dep.start("gateway")
+        qm = dep.start("queue-manager")
+        gw_rec, qm_rec = _boot(gateway, "gateway"), _boot(qm, "queue-manager")
+        for rec in (gw_rec, qm_rec):
+            if os.path.relpath(rec["native_lib"]) != lib:
+                raise AssertionError(f"a child loaded {rec['native_lib']}, "
+                                     f"not {lib}")
+        log(f"[serve-split] gateway up in {gw_rec['ts'] - gateway.started:.1f}"
+            f" s, queue-manager in {qm_rec['ts'] - qm.started:.1f} s (boot "
+            f"{qm_rec['boot_s']}); queue cores {gw_rec['queue_cores']} and "
+            f"{qm_rec['queue_cores']}, library {lib}")
+
+        # 1. The split deployment serves.
+        posted = _split_post(dep.base, _split_prompts(rng, SPLIT_REQUESTS))
+        done = _split_wait(dep.base, posted, 600, "split")
+        ids = [mid for mid, _t, _p in posted]
+        p2c = watch.publish_to_claim_ms(ids)
+        out["split"] = {"e2e_by_tier": _tier_e2e(posted, done),
+                        "publish_to_claim_ms": {
+                            "median": float(np.median(p2c)), "max": max(p2c),
+                            "seen": len(p2c)}}
+        log(f"[serve-split] {len(done)} requests (prompts "
+            f"{SPLIT_PROMPT_RANGE[0]}-{SPLIT_PROMPT_RANGE[1]} tokens, "
+            f"{SPLIT_NEW_TOKENS} new) completed through the gateway with "
+            f"responses and usage; spool publish-to-claim "
+            f"{out['split']['publish_to_claim_ms']['median']:.1f} ms median, "
+            f"{max(p2c):.1f} ms max ({len(p2c)} of {len(ids)} files seen "
+            f"between polls of 2 ms); end to end by tier "
+            f"{ {t: round(v['median_s'], 3) for t, v in out['split']['e2e_by_tier'].items()} }"
+            f" s median ({CARD})")
+
+        # 2. SIGKILL the queue-manager with 8 rows decoding; restart it.
+        posted = _split_post(dep.base, _split_prompts(rng, SPLIT_REQUESTS),
+                             new_tokens=SPLIT_HELD_NEW_TOKENS)
+        deadline = time.time() + 300
+        while (qm.status() or {}).get("decoding", 0) < 8:
+            if time.time() > deadline or qm.p.poll() is not None:
+                raise AssertionError(f"never 8 rows decoding: {qm.status()}")
+            time.sleep(0.01)
+        qm_status = qm.status()
+        qm.stop(signal.SIGKILL)
+        t_kill = time.time()
+        done_at_kill = {mid for mid, _t, _p in posted
+                        if _http("GET", f"{dep.base}/api/v1/messages/{mid}"
+                                 )[1]["status"] == "completed"}
+        in_spool = {mid for mid, _t, _p in posted
+                    if any(n.endswith(f"-{mid}.msg")
+                           for n in os.listdir(dep.spool))}
+        journaled = {m.id for _q, m in QueueWAL.replay(dep.wal(
+            "queue-manager"))}
+        left_claims = [n for n in os.listdir(dep.spool)
+                       if n.endswith(".claim")]
+        # One more message while no consumer runs; its file is then held
+        # as a consumer that died mid-delivery leaves it: renamed to a
+        # claim of the killed process, claimed more than the TTL ago.
+        extra = _split_post(dep.base, [("normal", "a message published "
+                                        "while the queue-manager is down")])
+        _until(lambda: any(n.endswith(f"-{extra[0][0]}.msg")
+                           for n in os.listdir(dep.spool)), 30,
+               "the extra message's spool file")
+        name = next(n for n in os.listdir(dep.spool)
+                    if n.endswith(f"-{extra[0][0]}.msg"))
+        claim = os.path.join(dep.spool, f"{name}.c{qm.p.pid}.claim")
+        os.rename(os.path.join(dep.spool, name), claim)
+        stale = time.time() - SPOOL_CLAIM_TTL_S - 1.0
+        os.utime(claim, (stale, stale))
+        t_restart = time.time()
+        qm2 = dep.start("queue-manager")
+        qm2_rec = _boot(qm2, "restarted queue-manager")
+        restored = qm2.records("wal: restored")
+        all_posted = posted + extra
+        done = _split_wait(dep.base, all_posted, 600, "crash")
+        last = max(t for _m, t in done.values())
+        reclaimed = qm2.records("reclaimed stale spool claim")
+        if not reclaimed or os.path.exists(claim):
+            raise AssertionError(f"the stale claim was not reclaimed: "
+                                 f"{reclaimed}")
+        # Unfinished and claimed before the kill: the queue-manager's WAL
+        # must redeliver them (the rest were still in the spool).
+        unfinished = {mid for mid, _t, _p in posted} - done_at_kill - in_spool
+        redelivered = sum(r.get("restored", 0) for r in restored
+                          if r.get("manager") == "standard")
+        if not unfinished <= journaled or redelivered < len(unfinished):
+            raise AssertionError(
+                f"the WAL held {len(journaled)} messages, "
+                f"{len(unfinished)} were unfinished at the kill, "
+                f"{redelivered} redelivered")
+        # None lost, none left pending or processing anywhere; then the
+        # duplicates (at-least-once) in the gateway's traces.
+        _until(lambda: _quiet(dep), 60, "the deployment idle", poll=0.05)
+        completions = _spool_completions(dep.base,
+                                         [m for m, _t, _p in all_posted])
+        dups = sum(max(0, n - 1) for n in completions.values())
+        if min(completions.values()) < 1:
+            raise AssertionError(f"a message completed without a spool "
+                                 f"record: {completions}")
+        out["crash"] = {
+            "decoding_at_kill": qm_status["decoding"],
+            "completed_before_kill": len(done_at_kill),
+            "in_spool_at_kill": len(in_spool),
+            "journaled_at_kill": len(journaled),
+            "redelivered": redelivered,
+            "claims_left_by_kill": len(left_claims),
+            "stale_claim_reclaimed": len(reclaimed),
+            "duplicate_completions": dups,
+            "restart_to_last_completion_s": last - t_restart,
+            "kill_to_restart_s": t_restart - t_kill,
+            "restart_boot_s": qm2_rec["boot_s"],
+            "restart_boot_total_s": qm2_rec["boot_total_s"]}
+        log(f"[serve-split] SIGKILL with {qm_status['decoding']} rows "
+            f"decoding: {len(done_at_kill)} of {len(posted)} done, the WAL "
+            f"held {len(journaled)}, the kill left {len(left_claims)} claims; "
+            f"the restart redelivered {redelivered} from its WAL and "
+            f"reclaimed the stale claim; all {len(all_posted)} completed "
+            f"{last - t_restart:.1f} s after the restart (boot "
+            f"{qm2_rec['boot_s']}, {qm2_rec['boot_total_s']} s); "
+            f"{dups} duplicate completions (at-least-once); none lost, "
+            f"none processing ({CARD})")
+
+        # 3. Stop the gateway with messages in flight (long ones, so they
+        # are still decoding when it stops); restart it.
+        posted = _split_post(dep.base, _split_prompts(rng, 8),
+                             new_tokens=SPLIT_HELD_NEW_TOKENS)
+        ids = {mid for mid, _t, _p in posted}
+        _until(lambda: ids <= {m.id for _q, m in QueueWAL.replay(
+            dep.wal("queue-manager"))}, 60, "the queue-manager holding them")
+        gateway.stop(signal.SIGTERM)
+        t_gw = time.time()
+        held = {m.id for _q, m in QueueWAL.replay(dep.wal("gateway"))}
+        gateway2 = dep.start("gateway")
+        _boot(gateway2, "restarted gateway")
+        restored = sum(r.get("restored", 0) for r in gateway2.records(
+            "wal: restored") if r.get("manager") == "standard")
+        if not (ids & held) or restored < len(ids & held):
+            raise AssertionError(f"the gateway's WAL held {len(held)} of "
+                                 f"the {len(ids)}, {restored} restored")
+
+        def all_completed():
+            c = _spool_completions(dep.base, sorted(ids & held))
+            return min(c.values()) >= 1
+
+        _until(all_completed, 600, "the restored messages' completions",
+               poll=0.05)
+        t_done = time.time()
+        # The relay published the restored messages again: wait until the
+        # queue-manager has finished that work too and the gateway has
+        # applied every acknowledgement, then count the duplicates.
+        _until(lambda: _quiet(dep), 600, "the deployment idle", poll=0.05)
+        completions = _spool_completions(dep.base, sorted(ids & held))
+        out["gateway_restart"] = {
+            "held_in_wal": len(ids & held), "restored": restored,
+            "duplicate_completions": sum(max(0, n - 1)
+                                         for n in completions.values()),
+            "restart_to_all_completed_s": t_done - t_gw}
+        log(f"[serve-split] gateway stopped with {len(ids & held)} of 8 "
+            f"messages in its WAL; the restart restored {restored}, relayed "
+            f"them again and each completed ("
+            f"{out['gateway_restart']['duplicate_completions']} duplicate "
+            f"completions) in {out['gateway_restart']['restart_to_all_completed_s']:.1f}"
+            f" s ({CARD})")
+        gateway2.stop(signal.SIGTERM)
+        qm2.stop(signal.SIGTERM)
+        out["kernels"] = _split_kernels(qm, qm2, gateway, gateway2)
+    finally:
+        watch.close()
+
+
+def _split_kernels(qm, qm2, gateway, gateway2) -> dict:
+    """The children's status files at exit: kernels 1-3 launched in each
+    queue-manager, no plain twin called anywhere, CUDA never initialised
+    in a gateway."""
+    launches = {}
+    for child in (qm, qm2, gateway, gateway2):
+        st = child.status()
+        if st is None:
+            raise AssertionError(f"{child.role}: no status file")
+        if st["plain"]:
+            raise AssertionError(f"{child.role} called plain twins: "
+                                 f"{st['plain']}")
+        if child.role == "gateway":
+            if st["cuda_initialized"] or any(st["launches"].values()):
+                raise AssertionError(f"a gateway touched the card: {st}")
+            continue
+        for name in ("fused_decode", "kv_prefill_write",
+                     "prefill_attention"):
+            if st["launches"].get(name, 0) <= 0:
+                raise AssertionError(f"{child.role} (pid {st['pid']}) never "
+                                     f"launched {name}: {st['launches']}")
+        launches[f"queue-manager pid {st['pid']}"] = {
+            k: v for k, v in st["launches"].items() if v}
+    log(f"[serve-split] launches in the queue-managers (serving only) "
+        f"{launches}; no plain twin called; the gateways never initialised "
+        f"CUDA")
+    return launches
+
+
+def phase_serve_split(state) -> None:
+    """The split deployment on the card: the WAL's cost on the serving
+    process first (the serve phases' engine), then that engine released
+    and the gateway and queue-manager started as processes."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from llmq_tpu_torch.native import loader
+    from llmq_tpu_torch.ops.kernels import BUILD_DIR
+
+    engine = state.pop("serve_engine", None)
+    if engine is None:
+        raise AssertionError("serve-split starts on the serve phases' engine:"
+                             " run serve and serve-plane before it")
+    work = str(BUILD_DIR / "serve_split")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    out = state.setdefault("serve_split", {})
+    counts, restore = _count_plain_calls()
+    try:
+        out["wal_cost"] = _wal_cost(engine, work)
+    finally:
+        restore()
+        engine.executor.release_graphs()
+    if counts:
+        raise AssertionError(f"serve-split called plain twins: {counts}")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"[serve-split] the parent's engines are released: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{free / 2**30:.1f} GiB free of {total / 2**30:.1f} GiB before the "
+        f"queue-manager builds its engine")
+    out["queue_cores"] = _queue_core_rates()
+    lib = os.path.relpath(loader.loaded_path())
+    cfg, path = _split_config_file(work)
+    dep = _Deployment(work, path, cfg.queue.spool_dir)
+    failed = True
+    try:
+        _split_deploy(dep, lib, out, np.random.default_rng(0))
+        failed = False
+    finally:
+        dep.close(failed)
+
 
 PHASES = [("env", phase_env), ("build", phase_build),
           ("kernels", phase_kernels), ("split", phase_split),
           ("model", phase_model), ("graphs", phase_graphs),
           ("serve", phase_serve), ("serve-plane", phase_serve_plane),
+          ("serve-split", phase_serve_split),
           ("serve-int8", phase_serve_int8)]
 
 
@@ -4741,6 +5512,7 @@ def main(argv=()) -> int:
                       "serve": state.get("serve"),
                       "serve_int8": state.get("serve_int8"),
                       "serve_plane": state.get("serve_plane"),
+                      "serve_split": state.get("serve_split"),
                       "serve_boot": state.get("serve_boot"),
                       "int_mm": state.get("int_mm"),
                       "launch_floor_ms": state.get("launch_floor_ms"),

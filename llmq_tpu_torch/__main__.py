@@ -1,4 +1,4 @@
-"""Command line: ``python -m llmq_tpu_torch serve|check``.
+"""Command line: ``python -m llmq_tpu_torch serve|queue-manager|gateway|check``.
 
 ``serve`` runs the monolith: the REST API (``/metrics`` included), the
 preprocessor, the queue factory's managers with their delayed and
@@ -11,9 +11,21 @@ drains (no new work, in-flight work
 finishes, up to ``cluster.drain_timeout`` seconds) before it stops;
 SIGINT stops at once. ``check`` builds the same monolith on an ephemeral
 port, sends one message through REST end to end and exits 0 when it
-completes. Both run on ``cuda`` unless ``--device cpu`` is given. (The
-JAX package's ``scheduler`` subcommand, its endpoint autoscaler, waits
-for the slice that gives it something to provision.)
+completes.
+
+The split deployment runs the same wiring in two processes that share
+``queue.spool_dir`` (``queueing/spool.py``): ``gateway`` is the API edge
+with the queues and no engine (it never touches the card); a relay
+thread drains its queues into the spool and a collector applies the
+acknowledgements, so a client polls the gateway for results.
+``queue-manager`` has the workers and the engine and no HTTP: it claims
+spooled messages into its queues and acknowledges each result (success
+or a retry-exhausted failure). With ``queue.wal_dir`` every queue
+manager journals its messages, so either process restarts without losing
+what it had accepted (at-least-once). ``serve``, ``queue-manager`` and
+``check`` run on ``cuda`` unless ``--device cpu`` is given. (The JAX
+package's ``scheduler`` subcommand, its endpoint autoscaler, waits for
+the slice that gives it something to provision.)
 
 Configuration: dataclass defaults, then a YAML file (``--config``, else
 ``LLMQ_CONFIG``, else ``./config.yaml`` or ``./configs/config.yaml``),
@@ -33,7 +45,7 @@ import sys
 import threading
 import time
 import urllib.request
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -48,7 +60,11 @@ from llmq_tpu_torch.engine.engine import InferenceEngine
 from llmq_tpu_torch.engine.supervisor import EngineSupervisor
 from llmq_tpu_torch.loadbalancer.load_balancer import LoadBalancer
 from llmq_tpu_torch.preprocessor.preprocessor import Preprocessor
+from llmq_tpu_torch.core.types import Message, MessageStatus
+from llmq_tpu_torch.native.loader import loaded_path
 from llmq_tpu_torch.queueing.factory import QueueFactory, QueueType
+from llmq_tpu_torch.queueing.spool import (SpoolCollector, SpoolConsumer,
+                                           SpoolProducer)
 from llmq_tpu_torch.scheduling.resource_scheduler import (ResourceRequest,
                                                           ResourceScheduler,
                                                           ResourceType)
@@ -59,11 +75,17 @@ log = logging.getLogger("llmq_tpu_torch")
 
 
 class App:
-    """One wired process, as the JAX package's monolith ``App`` wires the
-    parts the port has."""
+    """One wired process, as the JAX package's ``App`` wires the parts the
+    port has. The mode flags choose the parts: the API server
+    (``with_api``), the workers (``with_workers``, which need an engine)
+    and the engine (``with_engine``, or one given as ``engine``). With
+    ``queue.spool_dir`` set, workers without the API make the split
+    deployment's consumer and the API without workers its gateway."""
 
     def __init__(self, cfg: Config,
-                 engine: Optional[InferenceEngine] = None) -> None:
+                 engine: Optional[InferenceEngine] = None, *,
+                 with_api: bool = True, with_workers: bool = True,
+                 with_engine: bool = True) -> None:
         self.cfg = cfg
         self.factory = QueueFactory(cfg)
         self.factory.create_queue_manager("standard", QueueType.STANDARD)
@@ -78,42 +100,65 @@ class App:
         self.load_balancer = LoadBalancer(cfg.loadbalancer)
         self.resource_scheduler = ResourceScheduler(cfg.resource_scheduler)
 
-        # On the card the engine warms up before it serves: every
-        # program runs once and its CUDA graph is captured.
-        self.engine = engine if engine is not None else build_engine(
-            cfg, warmup=torch.device(cfg.device).type == "cuda")
-        # Conversation eviction frees the conversation's pinned KV.
-        self.engine.attach_conversation_manager(self.state_manager)
-        # Cache-aware admission: a token-sized resource request pays only
-        # for its expected new prefill tokens, and the scheduler learns
-        # the prefill rate the engine really sustains.
-        eng = self.engine
-        self.resource_scheduler.set_prefill_estimator(
-            lambda md: eng.prefill_estimate(
-                str(md.get("conversation_id", "")),
-                int(md.get("prompt_tokens", 0) or 0)))
-        self.engine.on_prefill_observed = (
-            self.resource_scheduler.observe_prefill)
+        if engine is None and with_engine:
+            # On the card the engine warms up before it serves: every
+            # program runs once and its CUDA graph is captured.
+            engine = build_engine(
+                cfg, warmup=torch.device(cfg.device).type == "cuda")
+        self.engine = engine
         self.engine_allocation = None
         self._own_resource_ids: List[str] = []
-        self._register_chip_resources()
-
         self.supervisor: Optional[EngineSupervisor] = None
-        if cfg.executor.supervisor.enabled:
-            self.supervisor = EngineSupervisor(
-                self.engine, config=cfg.executor.supervisor,
-                enable_metrics=cfg.queue.enable_metrics)
-        self.workers = self.factory.create_workers(
-            "standard", max(1, cfg.queue.worker.count),
-            self.engine.process_fn, start=False)
+        if engine is not None:
+            # Conversation eviction frees the conversation's pinned KV.
+            engine.attach_conversation_manager(self.state_manager)
+            # Cache-aware admission: a token-sized resource request pays
+            # only for its expected new prefill tokens, and the scheduler
+            # learns the prefill rate the engine really sustains.
+            self.resource_scheduler.set_prefill_estimator(
+                lambda md: engine.prefill_estimate(
+                    str(md.get("conversation_id", "")),
+                    int(md.get("prompt_tokens", 0) or 0)))
+            engine.on_prefill_observed = (
+                self.resource_scheduler.observe_prefill)
+            self._register_chip_resources()
+            if cfg.executor.supervisor.enabled:
+                self.supervisor = EngineSupervisor(
+                    engine, config=cfg.executor.supervisor,
+                    enable_metrics=cfg.queue.enable_metrics)
+
+        # The split deployment's transport: the consumer side claims
+        # spooled messages into the local queues and acknowledges the
+        # results; the gateway side relays drained messages out and
+        # applies the acknowledgements.
+        self.spool_consumer: Optional[SpoolConsumer] = None
+        self.spool_producer: Optional[SpoolProducer] = None
+        self.spool_collector: Optional[SpoolCollector] = None
+        self._spool_relay: Optional[threading.Thread] = None
+        self._spool_ack_failure = None
+        spool_dir = cfg.queue.spool_dir
+        self.workers: List = []
+        if with_workers:
+            if engine is None:
+                raise ValueError("workers need an engine")
+            process_fn = engine.process_fn
+            if spool_dir and not with_api:
+                process_fn = self._wire_spool_consumer(spool_dir)
+            self.workers = self.factory.create_workers(
+                "standard", max(1, cfg.queue.worker.count), process_fn,
+                start=False, on_permanent_failure=self._spool_ack_failure)
         self.message_store = MessageStore()
-        self.api = ApiServer(cfg, queue_factory=self.factory,
-                             preprocessor=self.preprocessor,
-                             state_manager=self.state_manager,
-                             load_balancer=self.load_balancer,
-                             resource_scheduler=self.resource_scheduler,
-                             engine=self.engine, drain_hook=self.drain,
-                             message_store=self.message_store)
+        self.api: Optional[ApiServer] = None
+        if with_api:
+            self.api = ApiServer(cfg, queue_factory=self.factory,
+                                 preprocessor=self.preprocessor,
+                                 state_manager=self.state_manager,
+                                 load_balancer=self.load_balancer,
+                                 resource_scheduler=self.resource_scheduler,
+                                 engine=engine, drain_hook=self.drain,
+                                 message_store=self.message_store)
+            if spool_dir and not with_workers:
+                self._wire_spool_gateway(spool_dir)
         self._stop = threading.Event()
         #: Set when the stop signal was SIGTERM: the process then drains
         #: before it stops (SIGINT stops at once).
@@ -124,6 +169,103 @@ class App:
         self._drain_started = False
         self._drain_done = threading.Event()
         self._drain_idle = False
+
+    def queue_cores(self) -> Dict[str, str]:
+        """The ordering core of each queue manager's queues."""
+        return {name: self.factory.get_queue_manager(name).queue.backend_name
+                for name in self.factory.manager_names()}
+
+    # -- the split deployment's spool ----------------------------------------
+
+    def _wire_spool_consumer(self, spool_dir: str):
+        """Queue-manager side: spooled messages land in the local queues,
+        and each result (success, or a failure once the retries are
+        spent) is acknowledged into ``done/`` for the gateway. Returns
+        the workers' process function."""
+        mgr = self.factory.get_queue_manager("standard")
+        consumer = SpoolConsumer(spool_dir,
+                                 lambda q, m: mgr.push_message(m, q))
+        self.spool_consumer = consumer
+        inner = self.engine.process_fn
+
+        def process(ctx, msg):
+            inner(ctx, msg)
+            ack = Message.from_dict(msg.to_dict())
+            ack.status = MessageStatus.COMPLETED
+            consumer.ack_done(ack)
+
+        def ack_failure(msg, reason):
+            # Every permanent failure (an error, a timeout, the watchdog
+            # giving up) sends the gateway a terminal record.
+            ack = Message.from_dict(msg.to_dict())
+            ack.status = MessageStatus.FAILED
+            ack.error = reason
+            consumer.ack_done(ack)
+
+        self._spool_ack_failure = ack_failure
+        return process
+
+    def _wire_spool_gateway(self, spool_dir: str) -> None:
+        """Gateway side: a relay thread drains the local queues into the
+        spool (the messages stay in flight locally, in the WAL across
+        restarts); the collector applies the ``done/`` records, so polling
+        clients see responses and the queue stats see completions."""
+        mgr = self.factory.get_queue_manager("standard")
+        self.spool_producer = SpoolProducer(spool_dir)
+
+        def on_done(done: Message) -> None:
+            orig = self.message_store.get(done.id)
+            if orig is not None:
+                orig.response = done.response
+                orig.error = done.error
+                orig.status = done.status
+                orig.metadata.update(done.metadata or {})
+                target = orig
+            else:
+                target = done
+            if done.status == MessageStatus.COMPLETED:
+                mgr.complete_message(target)
+                observability.record(done.id, "completed", source="spool")
+            else:
+                mgr.fail_message(target, 0.0)
+                observability.record(done.id, "failed", source="spool",
+                                     reason=done.error)
+
+        self.spool_collector = SpoolCollector(spool_dir, on_done)
+
+        def relay_loop() -> None:
+            while not self._stop.is_set():
+                try:
+                    batch = mgr.drain_in_priority_order(64)
+                except Exception:  # noqa: BLE001 — the relay must live
+                    log.exception("spool relay drain failed")
+                    self._stop.wait(1.0)
+                    continue
+                # On a failed publish the whole undelivered rest goes
+                # back to the queue: drained messages are out of it, and
+                # dropping them would strand their clients in PROCESSING.
+                undelivered: List[Message] = []
+                for i, m in enumerate(batch):
+                    try:
+                        self.spool_producer.push(m)
+                    except Exception:  # noqa: BLE001
+                        log.exception(
+                            "spool push failed; requeueing %d messages",
+                            len(batch) - i)
+                        undelivered = batch[i:]
+                        break
+                for m in undelivered:
+                    try:
+                        mgr.push_message(m)
+                    except Exception:  # noqa: BLE001
+                        log.exception("requeue of %s failed", m.id)
+                if undelivered:
+                    self._stop.wait(1.0)
+                elif not batch:
+                    self._stop.wait(0.05)
+
+        self._spool_relay = threading.Thread(
+            target=relay_loop, name="spool-relay", daemon=True)
 
     # -- the card as schedulable resources -----------------------------------
 
@@ -170,19 +312,25 @@ class App:
     # -- lifecycle -----------------------------------------------------------
 
     def start(self, host: Optional[str] = None,
-              port: Optional[int] = None) -> int:
-        """Start everything; returns the API's bound port."""
+              port: Optional[int] = None) -> Optional[int]:
+        """Start everything; returns the API's bound port (None without
+        the API)."""
         self.state_manager.start()
         self.resource_scheduler.start()
         if self.cfg.loadbalancer.health_check_interval > 0:
             self.load_balancer.start()
-        self.engine.start()
-        self._start_chip_heartbeat()
+        if self.engine is not None:
+            self.engine.start()
+            self._start_chip_heartbeat()
         if self.supervisor is not None:
             self.supervisor.start()
         for w in self.workers:
             w.start()
-        return self.api.start(host, port)
+        for part in (self.spool_consumer, self.spool_collector,
+                     self._spool_relay):
+            if part is not None:
+                part.start()
+        return None if self.api is None else self.api.start(host, port)
 
     def stop(self) -> None:
         """The shutdown cascade: the supervisor before the engine (else
@@ -195,13 +343,21 @@ class App:
         if self._hb_thread is not None:
             self._hb_thread.join(timeout=5.0)
             self._hb_thread = None
-        self.api.stop()
+        if self.api is not None:
+            self.api.stop()
+        self._stop.set()                # ends the spool relay's loop
+        for part in (self.spool_consumer, self.spool_collector):
+            if part is not None:
+                part.stop()
+        if self._spool_relay is not None:
+            self._spool_relay.join(timeout=5.0)
         self.factory.stop_all()
         if self.engine_allocation is not None:
             self.resource_scheduler.release_allocation(
                 self.engine_allocation.id, self.engine_allocation.token)
             self.engine_allocation = None
-        self.engine.stop()
+        if self.engine is not None:
+            self.engine.stop()
         self.load_balancer.stop()
         self.resource_scheduler.stop()
         self.state_manager.stop()
@@ -223,18 +379,20 @@ class App:
             self._drain_done.wait(max(0.0, timeout) + 10.0)
             return self._drain_idle
         log.info("draining (timeout %.0f s) ...", timeout)
-        self.api.draining = True
+        if self.api is not None:
+            self.api.draining = True
         for w in self.workers:
             w.stop(wait=True)      # finishes in-flight dispatches
         deadline = time.monotonic() + max(0.0, timeout)
         idle = True
-        while time.monotonic() < deadline:
-            s = self.engine.get_stats()
-            if s["active"] == 0 and s["pending"] == 0:
-                break
-            time.sleep(0.05)
-        else:
-            idle = False
+        if self.engine is not None:
+            while time.monotonic() < deadline:
+                s = self.engine.get_stats()
+                if s["active"] == 0 and s["pending"] == 0:
+                    break
+                time.sleep(0.05)
+            else:
+                idle = False
         log.info("drain complete (idle=%s)", idle)
         self._drain_idle = idle
         self._drain_done.set()
@@ -300,6 +458,46 @@ def cmd_serve(cfg: Config, args) -> int:
     return 0
 
 
+def cmd_queue_manager(cfg: Config, args) -> int:
+    """The split deployment's consumer: the queues, the workers and the
+    engine, no HTTP. It claims messages from ``queue.spool_dir``."""
+    boot_id = f"queue-manager:{os.getpid()}"
+    t_boot0 = time.perf_counter()
+    observability.boot_begin(boot_id, "queue-manager", process=True)
+    app = App(cfg, with_api=False, with_workers=True, with_engine=True)
+    app.start()
+    observability.boot_ready(boot_id, time.perf_counter() - t_boot0)
+    boot = observability.process_boot_snapshot() or {}
+    log.info("queue-manager consuming with %d workers (%s on %s)",
+             len(app.workers), cfg.model.name, cfg.device,
+             extra={"fields": {"queue_cores": app.queue_cores(),
+                               "native_lib": loaded_path(),
+                               "spool_dir": cfg.queue.spool_dir,
+                               "wal_dir": cfg.queue.wal_dir,
+                               "boot_s": boot.get("stages_s"),
+                               "boot_total_s": boot.get("total_s")}})
+    app.wait()
+    app.shutdown()
+    return 0
+
+
+def cmd_gateway(cfg: Config, args) -> int:
+    """The split deployment's API edge: the REST API and the queues, no
+    workers and no engine (the card is never touched). Its queues drain
+    into ``queue.spool_dir``."""
+    app = App(cfg, with_api=True, with_workers=False, with_engine=False)
+    port = app.start()
+    log.info("gateway serving at http://%s:%d", cfg.server.host, port,
+             extra={"fields": {"queue_cores": app.queue_cores(),
+                               "native_lib": loaded_path(),
+                               "spool_dir": cfg.queue.spool_dir,
+                               "wal_dir": cfg.queue.wal_dir}})
+    print(f"gateway at http://{cfg.server.host}:{port}", flush=True)
+    app.wait()
+    app.shutdown()
+    return 0
+
+
 def cmd_check(cfg: Config, args) -> int:
     """Run one message end to end through REST; exit 0 when it
     completes with usage metadata."""
@@ -348,6 +546,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                              "request's ids, or console lines)")
     sub = parser.add_subparsers(dest="command", required=True)
     sub.add_parser("serve", help="monolith: API + workers + engine")
+    sub.add_parser("queue-manager", help="consumer daemon (no HTTP)")
+    sub.add_parser("gateway", help="API edge (no workers/engine)")
     chk = sub.add_parser("check", help="one message end to end, then exit")
     chk.add_argument("--timeout", type=float, default=120.0,
                      help="seconds to wait for the message")
@@ -356,7 +556,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         cfg = _load(args)
     except (ValueError, FileNotFoundError) as e:
         parser.error(str(e))
-    return {"serve": cmd_serve, "check": cmd_check}[args.command](cfg, args)
+    return {"serve": cmd_serve, "queue-manager": cmd_queue_manager,
+            "gateway": cmd_gateway,
+            "check": cmd_check}[args.command](cfg, args)
 
 
 if __name__ == "__main__":

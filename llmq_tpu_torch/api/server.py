@@ -30,8 +30,12 @@ the port has):
 
 Every submission runs through the preprocessor (priority inference),
 the overload shedder (429/503 with ``Retry-After``), the queue manager
-and the conversation service, and stamps its ``enqueued`` stage (the
-SSE path its ``dispatched`` too) into the flight recorder. The routes
+(a push its write-ahead log cannot record answers 503 with
+``retry_after``) and the conversation service, and stamps its
+``enqueued`` stage (the SSE path its ``dispatched`` too) into the flight
+recorder. Without an engine (the ``gateway``), the routes that need one
+(``/api/v1/engine/stats``, ``/api/v1/generate``, SSE) answer 503 and
+``/health`` has no ``engine`` field, as in the JAX package. The routes
 of planes the port does not have yet (cluster, tenancy, control plane)
 wait for them.
 """
@@ -53,7 +57,8 @@ from llmq_tpu_torch import __version__, observability
 from llmq_tpu_torch.api.message_store import MessageStore
 from llmq_tpu_torch.api.overload import build_shedder
 from llmq_tpu_torch.core.config import Config
-from llmq_tpu_torch.core.errors import QueueFullError, QueueNotFoundError
+from llmq_tpu_torch.core.errors import (QueueFullError, QueueNotFoundError,
+                                        WALError)
 from llmq_tpu_torch.core.types import (ConversationState, Message,
                                        MessageStatus, Priority, new_id)
 from llmq_tpu_torch.loadbalancer.load_balancer import Endpoint, EndpointStatus
@@ -282,6 +287,12 @@ class ApiServer:
                 return 404, {"error": str(e)}, "application/json"
             except QueueFullError as e:
                 return 503, {"error": str(e)}, "application/json"
+            except WALError as e:
+                # The queue journal cannot record the op (disk full, IO
+                # fault): shed with 503 and Retry-After; the workers
+                # stay up.
+                return 503, {"error": str(e), "retry_after": 1.0}, \
+                    "application/json"
             except Exception as e:  # noqa: BLE001 — one bad request must not kill the server
                 log.exception("handler error on %s %s", method, path)
                 return 500, {"error": f"internal error: {e}"}, \

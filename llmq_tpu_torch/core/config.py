@@ -4,7 +4,7 @@ file, then ``LLMQ_*`` environment overrides, then CLI flags.
 A copy of ``llmq_tpu/core/config.py`` holding what the port's planes
 read, with the JAX package's defaults. :func:`load_config` reads the same
 files as the JAX package's (``configs/config.yaml`` among them). A key of
-a plane the port does not have yet (the WAL and spool directories, the
+a plane the port does not have yet (the
 cluster, disaggregation, store, chaos, control-plane, tenancy and
 scenario planes, KV tiering, speculation, the mesh, the TPU
 block), or one that nothing here reads (the autoscaler's and the resource
@@ -124,6 +124,14 @@ class QueueConfig:
     #: Pending messages older than this are expired by the manager's
     #: monitor (seconds; <= 0 disables).
     stale_message_age: float = 3600.0
+    #: Directory of the managers' write-ahead logs (``<name>.wal``); ""
+    #: keeps the queues in memory only. With it, pending and in-flight
+    #: messages survive a restart (at-least-once redelivery).
+    wal_dir: str = ""
+    #: Directory shared by a split deployment: the ``gateway`` relays its
+    #: drained messages into it, the ``queue-manager`` claims, processes
+    #: and acknowledges them (``queueing/spool.py``). "" = one process.
+    spool_dir: str = ""
 
 
 @dataclass
@@ -499,7 +507,6 @@ def resolve_device(device: str = "cuda"):
 #: canonical file's, where the two differ.
 _UNPORTED: Dict[str, Any] = {
     "server": {"read_timeout": 30.0, "write_timeout": 30.0},
-    "queue": {"wal_dir": "", "spool_dir": ""},
     "scheduler": {"strategy": "dynamic", "scale_up_threshold": 100,
                   "scale_down_threshold": 10, "min_endpoints": 1,
                   "max_endpoints": 10, "cooldown": 60.0},

@@ -1,7 +1,7 @@
 """Typed errors of the port (its copy of ``llmq_tpu/core/errors.py``,
-trimmed to the queue plane, the conversation service and the resource
-scheduler), so the REST layer maps failures to
-status codes without matching strings."""
+trimmed to the queue plane and its journal, the conversation service and
+the resource scheduler), so the REST layer maps failures to status codes
+without matching strings."""
 
 from __future__ import annotations
 
@@ -33,6 +33,18 @@ class MessageNotFoundError(LLMQError, KeyError):
     def __init__(self, message_id: str) -> None:
         super().__init__(f"message not found: {message_id}")
         self.message_id = message_id
+
+
+class WALError(LLMQError, OSError):
+    """The queue journal could not record an admission-path op (disk
+    full, IO fault). The REST layer sheds the request with a 503 and a
+    Retry-After instead of accepting work whose at-least-once promise it
+    cannot keep. An ``OSError``, so a caller that treats a failed push
+    as an IO fault keeps working."""
+
+    def __init__(self, op: str, cause: str) -> None:
+        super().__init__(f"WAL {op} failed: {cause}")
+        self.op = op
 
 
 class ConversationNotFoundError(LLMQError, KeyError):

@@ -456,6 +456,15 @@ class QueueMetrics:
             "Requests rejected by overload shedding; reason is "
             "backlog|sla|engine_down, code the HTTP status returned",
             ["reason", "code"], registry=r)
+        # The queue journal's faults (queueing/wal.py, queue_manager.py):
+        # a push the journal cannot record is shed with a 503; a
+        # worker-side op logs and the worker goes on.
+        self.wal_errors = Counter(
+            f"{ns}_wal_errors_total",
+            "WAL journal operations that failed with an OSError "
+            "(disk full / IO error); push failures shed 503, "
+            "worker-side ops degrade durability but keep serving",
+            ["op"], registry=r)
         # Crash supervisor (engine/supervisor.py).
         self.engine_restarts = Counter(
             f"{ns}_engine_restarts_total",

@@ -6,6 +6,8 @@ port's copy of ``llmq_tpu/queueing/factory.py``).
   manager gets a running :class:`DelayedQueue` for retry backoff and,
   with ``queue.dead_letter_enabled``, a :class:`DeadLetterQueue` that
   also takes retries that could not be delivered
+- with ``queue.wal_dir`` each manager journals to
+  ``<wal_dir>/<name>.wal`` and restores from it when built
 - the "priority" type installs two rules: ``metadata["vip"]`` → HIGH,
   content over 10,000 characters → LOW
 - ``create_workers(name, n, process_fn)``, ``get_worker_stats``,
@@ -16,6 +18,7 @@ from __future__ import annotations
 
 import enum
 import logging
+import os
 import threading
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
@@ -72,9 +75,10 @@ def long_content_rule(threshold: int = 10_000) -> PriorityAdjustRule:
 
 class QueueFactory:
     def __init__(self, config: Optional[Config] = None,
-                 clock: Optional[Clock] = None) -> None:
+                 clock: Optional[Clock] = None, backend: str = "auto") -> None:
         self.config = config or Config()
         self._clock = clock or SYSTEM_CLOCK
+        self._backend = backend
         self._entries: Dict[str, _Entry] = {}
         self._lock = threading.Lock()
 
@@ -96,8 +100,13 @@ class QueueFactory:
             entry = self._entries.get(name)
             if entry is not None:
                 return entry.manager
+            wal_path = None
+            if self.config.queue.wal_dir:
+                wal_path = os.path.join(self.config.queue.wal_dir,
+                                        f"{name}.wal")
             manager = QueueManager(name, config=self.config,
-                                   clock=self._clock)
+                                   clock=self._clock, backend=self._backend,
+                                   wal_path=wal_path)
             dlq: Optional[DeadLetterQueue] = None
             if self.config.queue.dead_letter_enabled or qtype == QueueType.DEAD_LETTER:
                 dlq = DeadLetterQueue(

@@ -1,5 +1,5 @@
 """Multi-level priority queue (the port's copy of
-``llmq_tpu/queueing/priority_queue.py`` over its pure-Python core).
+``llmq_tpu/queueing/priority_queue.py``).
 
 - named queues, each a min-heap ordered by (priority asc, FIFO within
   priority), with a capacity check
@@ -8,26 +8,37 @@
 - admin removal by id and stale-message expiry through tombstones:
   expired messages are marked TIMEOUT at once and discarded when the
   heap surfaces them
+- ``snapshot``: a queue's live pending messages in arrival order (WAL
+  compaction)
 
-The JAX package's C++ core (``native/``) and its tenancy fair-dequeue
-layer belong to that package and are not used here.
+The ordering heap runs in C++ (``native/src/mlq.cpp`` through
+``llmq_tpu_torch/native/loader.py``) when it builds, with a pure-Python
+core of the same semantics beside it: ``backend=`` "auto" (native if
+buildable, else Python with a log line), "native" (raise if it cannot be
+built) or "python". The JAX package's tenancy fair-dequeue layer is not
+ported.
 """
 
 from __future__ import annotations
 
 import heapq
 import itertools
+import logging
+import os
 import threading
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 from llmq_tpu_torch.core.clock import SYSTEM_CLOCK, Clock
 from llmq_tpu_torch.core.errors import (QueueEmptyError, QueueFullError,
                                         QueueNotFoundError)
 from llmq_tpu_torch.core.types import Message, MessageStatus, QueueStats
 
+log = logging.getLogger("llmq_tpu_torch.priorityqueue")
+
 
 class _PyBackend:
-    """Heap core keyed by integer handles, with lazy deletion."""
+    """Heap core keyed by integer handles, with lazy deletion; mirrors
+    the C ABI of ``native/src/mlq.cpp``."""
 
     ERR_NOT_FOUND = -1
     ERR_FULL = -2
@@ -36,10 +47,10 @@ class _PyBackend:
 
     def __init__(self) -> None:
         self._heaps: Dict[str, List[Tuple[int, int, int, float]]] = {}
-        # Liveness index, handle → enqueue_ts. ``discard`` removes items
-        # HERE in O(1) and leaves the heap entry behind as a stale record
-        # (lazy deletion); pop/peek skip entries absent from this map as
-        # they surface. Handles are never reused.
+        # Liveness index, handle → enqueue_ts. ``pop_handle``/``discard``
+        # remove items HERE in O(1) and leave the heap entry behind as a
+        # stale record (lazy deletion); pop/peek skip entries absent from
+        # this map as they surface. Handles are never reused.
         self._live: Dict[str, Dict[int, float]] = {}
         self._caps: Dict[str, int] = {}
         # [pend, proc, comp, fail, pops, wait, ptime] — pops counts the
@@ -56,6 +67,14 @@ class _PyBackend:
             self._live[name] = {}
             self._caps[name] = capacity
             self._stats[name] = [0, 0, 0, 0, 0, 0.0, 0.0]
+            return 0
+
+    def remove_queue(self, name: str) -> int:
+        with self._mu:
+            if name not in self._heaps:
+                return self.ERR_NOT_FOUND
+            del self._heaps[name], self._caps[name], self._stats[name]
+            del self._live[name]
             return 0
 
     def has_queue(self, name: str) -> bool:
@@ -95,11 +114,63 @@ class _PyBackend:
                 return 0, handle, wait
             return self.ERR_EMPTY, 0, 0.0
 
+    def pop_handle(self, name: str, handle: int,
+                   now: float) -> Tuple[int, float]:
+        """Pop one given pending handle with pop accounting (mirrors
+        ``mlq_pop_handle``): O(1), the heap entry is skipped as stale
+        when it surfaces. Returns (err, wait)."""
+        with self._mu:
+            live = self._live.get(name)
+            if live is None:
+                return self.ERR_NOT_FOUND, 0.0
+            ts = live.pop(handle, None)
+            if ts is None:
+                return self.ERR_EMPTY, 0.0
+            wait = max(0.0, now - ts)
+            s = self._stats[name]
+            s[0] -= 1
+            s[1] += 1
+            s[4] += 1
+            s[5] += wait
+            self._drain_stale_locked(name)
+            return 0, wait
+
     def _drain_stale_locked(self, name: str) -> None:
         heap = self._heaps[name]
         live = self._live[name]
         while heap and heap[0][2] not in live:
             heapq.heappop(heap)
+
+    def peek(self, name: str) -> Tuple[int, int]:
+        with self._mu:
+            heap = self._heaps.get(name)
+            if heap is None:
+                return self.ERR_NOT_FOUND, 0
+            self._drain_stale_locked(name)
+            if not heap:
+                return self.ERR_EMPTY, 0
+            return 0, heap[0][2]
+
+    def pop_if(self, name: str, expected_handle: int, now: float) -> int:
+        """Pop only if the top is still ``expected_handle``: 0, -5 (the
+        top changed) or an error code."""
+        with self._mu:
+            heap = self._heaps.get(name)
+            if heap is None:
+                return self.ERR_NOT_FOUND
+            self._drain_stale_locked(name)
+            if not heap:
+                return self.ERR_EMPTY
+            if heap[0][2] != expected_handle:
+                return -5
+            _, _, handle, ts = heapq.heappop(heap)
+            self._live[name].pop(handle, None)
+            s = self._stats[name]
+            s[0] -= 1
+            s[1] += 1
+            s[4] += 1
+            s[5] += max(0.0, now - ts)
+            return 0
 
     def size(self, name: str) -> int:
         with self._mu:
@@ -162,17 +233,36 @@ class _PyBackend:
             return sorted(self._heaps)
 
 
+def _make_backend(backend: str) -> Any:
+    if backend in ("auto", "native"):
+        try:
+            from llmq_tpu_torch.native.loader import NativeMLQ
+            return NativeMLQ()
+        except Exception as e:  # noqa: BLE001
+            # An explicit LLMQ_NATIVE_LIB never falls back: the caller
+            # asked for that library.
+            if backend == "native" or os.environ.get("LLMQ_NATIVE_LIB"):
+                raise
+            log.info("using Python queue backend (%s)", e)
+    return _PyBackend()
+
+
 class MultiLevelQueue:
-    """Named priority queues sharing one ordering core."""
+    """Named priority queues sharing one ordering core.
+
+    ``backend``: "auto" (native if buildable), "native", or "python".
+    """
 
     ERR_NOT_FOUND = -1
     ERR_FULL = -2
     ERR_EMPTY = -3
     ERR_EXISTS = -4
 
-    def __init__(self, clock: Optional[Clock] = None) -> None:
+    def __init__(self, clock: Optional[Clock] = None,
+                 backend: str = "auto") -> None:
         self._clock = clock or SYSTEM_CLOCK
-        self._core = _PyBackend()
+        self._core = _make_backend(backend)
+        self.backend_name = type(self._core).__name__
         # handle → (queue_name, Message, enqueue_ts); Python owns Message objects.
         self._messages: Dict[int, Tuple[str, Message, float]] = {}
         self._tombstones: set[int] = set()
@@ -319,6 +409,18 @@ class MultiLevelQueue:
         msg.status = MessageStatus.FAILED
         msg.error = "removed by admin"
         return msg
+
+    def snapshot(self, name: str) -> List[Message]:
+        """Live pending messages of a queue in arrival order (tombstoned
+        ones left out): WAL compaction rewrites the journal from it."""
+        if not self.has_queue(name):
+            raise QueueNotFoundError(name)
+        with self._mu:
+            rows = [(ts, h, msg) for h, (qn, msg, ts) in
+                    self._messages.items()
+                    if qn == name and h not in self._tombstones]
+        rows.sort(key=lambda r: (r[0], r[1]))
+        return [msg for _, _, msg in rows]
 
     # -- stale cleanup --------------------------------------------------------
 

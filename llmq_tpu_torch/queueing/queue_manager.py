@@ -1,6 +1,6 @@
-"""Queue manager: tier queues, priority-adjust rules, monitoring (the
-port's copy of ``llmq_tpu/queueing/queue_manager.py``; no WAL, tenancy
-or scale signals yet).
+"""Queue manager: tier queues, priority-adjust rules, the write-ahead
+log, monitoring (the port's copy of
+``llmq_tpu/queueing/queue_manager.py``; no tenancy or scale signals yet).
 
 - owns a :class:`MultiLevelQueue` and creates the four tier queues from
   config; ``push_message`` without an explicit queue routes a message to
@@ -10,8 +10,16 @@ or scale signals yet).
   ``stash_for_retry`` keep the per-tier :class:`QueueStats` right across
   the retry path
 - ``remove_message``: admin removal of a pending message
+- with ``wal_path`` every mutation is journaled (``queueing/wal.py``) and
+  the journal's live set is restored at construction: pending messages
+  re-enter in arrival order, popped-but-unfinished ones are redelivered,
+  and what no longer fits a full queue is dropped with an error log. A
+  push the journal cannot record raises :class:`WALError` (the REST
+  layer answers 503); a failed worker-side record is logged and counted
+  in ``wal_errors_total`` and the worker goes on
 - a background monitor expires messages older than
-  ``queue.stale_message_age``
+  ``queue.stale_message_age`` and compacts the journal once dead records
+  dominate (the slow rewrite outside the data-path lock)
 - with ``queue.enable_metrics``, the pending and processing gauges, the
   completed and failed counters, the wait and process histograms and
   the operations counter of ``metrics/registry.py``, labelled by
@@ -20,13 +28,15 @@ or scale signals yet).
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import threading
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional
+from typing import Callable, ContextManager, Dict, List, Optional, Tuple
 
 from llmq_tpu_torch.core.clock import SYSTEM_CLOCK, Clock
 from llmq_tpu_torch.core.config import Config, QueueConfig
+from llmq_tpu_torch.core.errors import WALError
 from llmq_tpu_torch.core.types import (PRIORITY_TIERS, Message, Priority,
                                        QueueStats)
 from llmq_tpu_torch.metrics.registry import get_metrics
@@ -53,8 +63,9 @@ class PriorityAdjustRule:
 
 class QueueManager:
     def __init__(self, name: str, config: Optional[Config] = None,
-                 clock: Optional[Clock] = None,
-                 enable_metrics: Optional[bool] = None) -> None:
+                 clock: Optional[Clock] = None, backend: str = "auto",
+                 enable_metrics: Optional[bool] = None,
+                 wal_path: Optional[str] = None) -> None:
         self.name = name
         self.config: Config = config or Config()
         self.qconfig: QueueConfig = self.config.queue
@@ -62,7 +73,7 @@ class QueueManager:
             enable_metrics = self.qconfig.enable_metrics
         self._metrics = get_metrics() if enable_metrics else None
         self._clock = clock or SYSTEM_CLOCK
-        self.queue = MultiLevelQueue(clock=self._clock)
+        self.queue = MultiLevelQueue(clock=self._clock, backend=backend)
         self._rules: List[PriorityAdjustRule] = []
         self._rules_mu = threading.Lock()
         self._stop = threading.Event()
@@ -73,6 +84,55 @@ class QueueManager:
         for lvl in self.qconfig.levels:
             self.queue.create_queue(Priority(lvl.priority).tier_name,
                                     capacity=self.qconfig.max_queue_size)
+
+        self._wal = None
+        # Pairs each queue mutation with its journal record against the
+        # monitor's live-set snapshot and compaction: without it a
+        # message journaled between snapshot and rewrite would vanish
+        # from the journal while still live. Free when there is no WAL.
+        self._wal_mu = threading.RLock()
+        #: id → (queue, Message) of popped or parked, unfinished
+        #: messages: live in the journal (redelivered on restart) but
+        #: absent from the queue snapshot, so compaction keeps them here.
+        self._wal_inflight: Dict[str, Tuple[str, Message]] = {}
+        if wal_path:
+            self._restore(wal_path)
+
+    def _restore(self, wal_path: str) -> None:
+        from llmq_tpu_torch.queueing.wal import QueueWAL
+
+        restored = QueueWAL.replay(wal_path)
+        self._wal = QueueWAL(wal_path)
+        if not restored:
+            return
+        kept: List[Tuple[str, Message]] = []
+        dropped = 0
+        for qname, msg in restored:
+            if not self.queue.has_queue(qname):
+                self.queue.create_queue(qname,
+                                        capacity=self.qconfig.max_queue_size)
+            try:
+                self.queue.push(qname, msg)
+            except Exception:  # noqa: BLE001 — e.g. over capacity
+                # Redelivered in-flight messages can overflow a full
+                # queue: dropping them (loudly) beats never starting.
+                dropped += 1
+                continue
+            kept.append((qname, msg))
+            with self._inflight_mu:
+                self._inflight[msg.id] = qname
+            if self._metrics is not None:
+                self._lbl(self._metrics.pending, qname, msg).inc()
+        # Compact, so the journal holds exactly what was kept.
+        self._wal.rewrite(kept)
+        fields = {"manager": self.name, "restored": len(kept),
+                  "dropped": dropped}
+        if dropped:
+            log.error("wal: DROPPED %d restored messages over queue "
+                      "capacity (%s)", dropped, self.name,
+                      extra={"fields": fields})
+        log.info("wal: restored %d pending messages into %s", len(kept),
+                 self.name, extra={"fields": fields})
 
     # -- queue management ----------------------------------------------------
 
@@ -113,11 +173,20 @@ class QueueManager:
         """Apply rules, route, push. Returns the queue it landed in."""
         self._apply_rules(message)
         qname = queue_name or self.route_for(message)
-        try:
-            self.queue.push(qname, message)
-        except Exception:
-            self._op_metric("push", "error")
-            raise
+        with self._wal_guard():
+            # Journaled BEFORE the push: a pop or complete by a worker can
+            # only follow the push, so the records stay in order. A
+            # journal that cannot record the message sheds it (WALError).
+            self._wal_append("push", qname, message.id, message,
+                             critical=True)
+            try:
+                self.queue.push(qname, message)
+            except Exception:
+                self._wal_append("remove", qname, message.id)
+                self._op_metric("push", "error")
+                raise
+            if self._wal:
+                self._wal_inflight.pop(message.id, None)  # a delayed re-push
         with self._inflight_mu:
             self._inflight[message.id] = qname
         if self._metrics is not None:
@@ -126,7 +195,9 @@ class QueueManager:
         return qname
 
     def pop_message(self, queue_name: str) -> Message:
-        msg = self.queue.pop(queue_name)
+        with self._wal_guard():
+            msg = self.queue.pop(queue_name)
+            self._journal_pop(queue_name, msg)
         self._popped(queue_name, msg)
         self._op_metric("pop", "success")
         return msg
@@ -134,14 +205,21 @@ class QueueManager:
     def batch_pop(self, queue_name: str, max_count: int) -> List[Message]:
         out: List[Message] = []
         for _ in range(max_count):
-            m = self.queue.try_pop(queue_name)
-            if m is None:
-                break
+            with self._wal_guard():
+                m = self.queue.try_pop(queue_name)
+                if m is None:
+                    break
+                self._journal_pop(queue_name, m)
             self._popped(queue_name, m)
             out.append(m)
         if out:
             self._op_metric("batch_pop", "success")
         return out
+
+    def _journal_pop(self, qname: str, msg: Message) -> None:
+        if self._wal:
+            self._wal_append("pop", qname, msg.id)
+            self._wal_inflight[msg.id] = (qname, msg)
 
     def _popped(self, qname: str, msg: Message) -> None:
         if self._metrics is not None:
@@ -166,15 +244,26 @@ class QueueManager:
                          queue_name: Optional[str] = None) -> None:
         qname = (queue_name or self._pop_inflight(message.id)
                  or self.route_for(message))
-        self.queue.complete_message(qname, message, process_time)
+        with self._wal_guard():
+            self.queue.complete_message(qname, message, process_time)
+            self._journal_done("complete", qname, message.id)
         self._finished(qname, message, process_time, "complete")
 
     def fail_message(self, message: Message, process_time: float = 0.0,
                      queue_name: Optional[str] = None) -> None:
         qname = (queue_name or self._pop_inflight(message.id)
                  or self.route_for(message))
-        self.queue.fail_message(qname, message, process_time)
+        with self._wal_guard():
+            self.queue.fail_message(qname, message, process_time)
+            self._journal_done("fail", qname, message.id)
         self._finished(qname, message, process_time, "fail")
+
+    def _journal_done(self, op: str, qname: str, message_id: str) -> None:
+        """Journal a record that takes the message out of the in-flight
+        set (complete, fail, requeue, remove)."""
+        if self._wal:
+            self._wal_append(op, qname, message_id)
+            self._wal_inflight.pop(message_id, None)
 
     def _finished(self, qname: str, msg: Message, process_time: float,
                   op: str) -> None:
@@ -191,7 +280,9 @@ class QueueManager:
         """Return a PROCESSING message to its queue."""
         qname = (queue_name or self._pop_inflight(message.id)
                  or self.route_for(message))
-        self.queue.requeue(qname, message)
+        with self._wal_guard():
+            self.queue.requeue(qname, message)
+            self._journal_done("requeue", qname, message.id)  # queued again
         with self._inflight_mu:
             self._inflight[message.id] = qname
         if self._metrics is not None:
@@ -207,7 +298,12 @@ class QueueManager:
         queue after its retry backoff."""
         qname = (queue_name or self._pop_inflight(message.id)
                  or self.route_for(message))
-        self.queue.requeue_accounting_for(qname)
+        with self._wal_guard():
+            self.queue.requeue_accounting_for(qname)
+            # Still live (parked in the delayed queue): it stays in the
+            # in-flight set that compaction keeps.
+            if self._wal:
+                self._wal_append("stash", qname, message.id)
         if self._metrics is not None:
             self._lbl(self._metrics.processing, qname, message).dec()
             self._op_metric("retry_stash", "success")
@@ -219,7 +315,10 @@ class QueueManager:
         all of this manager's queues."""
         names = [queue_name] if queue_name else self.queue_names()
         for qname in names:
-            msg = self.queue.remove_message(qname, message_id)
+            with self._wal_guard():
+                msg = self.queue.remove_message(qname, message_id)
+                if msg is not None:
+                    self._journal_done("remove", qname, message_id)
             if msg is not None:
                 self._pop_inflight(message_id)
                 if self._metrics is not None:
@@ -231,6 +330,38 @@ class QueueManager:
     def _pop_inflight(self, message_id: str) -> Optional[str]:
         with self._inflight_mu:
             return self._inflight.pop(message_id, None)
+
+    def _wal_guard(self) -> ContextManager[object]:
+        """The lock pairing a queue mutation with its journal record;
+        free when there is no WAL."""
+        return self._wal_mu if self._wal else contextlib.nullcontext()
+
+    def _wal_append(self, op: str, queue_name: str, message_id: str,
+                    message: Optional[Message] = None, *,
+                    critical: bool = False) -> None:
+        """Journal one op. An ``OSError`` (ENOSPC, an IO fault) counts
+        ``wal_errors_total{op}`` and logs. ``critical`` (the admission
+        path, before the queue mutation) raises it again as
+        :class:`WALError`, so the request is shed with a 503 and nothing
+        is accepted without its record. A worker-side op goes on: its
+        mutation already happened in memory, and a lost record only means
+        a restart may redeliver (at-least-once)."""
+        if not self._wal:
+            return
+        try:
+            self._wal.append(op, queue_name, message_id, message)
+        except OSError as e:
+            log.error("WAL %s append failed for %s (disk fault? %s) — %s",
+                      op, message_id, e,
+                      "shedding request with 503" if critical
+                      else "continuing WITHOUT a durability record")
+            if self._metrics is not None:
+                try:
+                    self._metrics.wal_errors.labels(op).inc()
+                except Exception:  # noqa: BLE001 — never couple the
+                    pass           # fault path to the metrics plane
+            if critical:
+                raise WALError(op, str(e)) from e
 
     def _lbl(self, family, qname: str, msg: Message):
         return family.labels(self.name, qname, msg.priority.tier_name)
@@ -265,6 +396,8 @@ class QueueManager:
         if self._monitor_thread is not None:
             self._monitor_thread.join(timeout=2.0)
             self._monitor_thread = None
+        if self._wal:
+            self._wal.close()
 
     def _monitor_loop(self, interval: float) -> None:
         while not self._stop.wait(interval):
@@ -275,12 +408,18 @@ class QueueManager:
 
     def run_monitor_once(self) -> int:
         """One monitor tick (callable from tests): expire stale pending
-        messages. Returns how many expired."""
+        messages, then compact the journal if dead records dominate.
+        Returns how many expired."""
         n = 0
         if self.qconfig.stale_message_age > 0:
             for qname in self.queue_names():
-                expired = self.queue.expire_older_than(
-                    qname, self.qconfig.stale_message_age)
+                with self._wal_guard():
+                    expired = self.queue.expire_older_than(
+                        qname, self.qconfig.stale_message_age)
+                    for msg in expired:
+                        # An expired message must not come back on
+                        # restart.
+                        self._journal_done("remove", qname, msg.id)
                 for msg in expired:
                     self._pop_inflight(msg.id)
                     if self._metrics is not None:
@@ -290,4 +429,30 @@ class QueueManager:
                     log.warning("expired %d stale messages from %s/%s",
                                 len(expired), self.name, qname)
                 n += len(expired)
+        if self._wal and self._wal.needs_compact():
+            self._compact()
         return n
+
+    def _compact(self) -> None:
+        """Rewrite the journal as the live set (the pending snapshot and
+        the unfinished pops). The lock is held only to take the snapshot
+        and to swap the file in; the serialization runs outside it, the
+        appends made meanwhile buffered into the new file, so the data
+        path never stalls for it and no push made meanwhile is erased."""
+        n_live, ok, started = 0, False, False
+        try:
+            with self._wal_mu:
+                started = self._wal.begin_compact()
+                if started:
+                    live = [(qname, m) for qname in self.queue_names()
+                            for m in self.queue.snapshot(qname)]
+                    live.extend(self._wal_inflight.values())
+            if started:
+                n_live = self._wal.write_compact_tmp(live)
+                ok = True
+        finally:
+            # Once begun, always finished: a failed snapshot or write
+            # aborts (buffer dropped, tmp removed), never wedges it open.
+            if started:
+                with self._wal_mu:
+                    self._wal.finish_compact(n_live, commit=ok)

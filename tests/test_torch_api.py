@@ -657,3 +657,51 @@ def test_endpoint_drain_and_admin_drain_like_jax(runs):
         assert r["ep_delete_missing"][0] == 404
         assert r["drain"][:2] == (202, {"status": "draining"})
         assert r["health_draining"][1]["status"] == "draining", side
+
+
+@pytest.mark.parametrize("ops", [("push",), ("push", "remove")])
+def test_a_journal_fault_sheds_the_post_with_503_like_jax(tmp_path, ops):
+    """Tolerance: none. A push the queue's WAL cannot record (a full
+    disk) answers 503 with ``retry_after`` 1.0 in both packages (also
+    when the compensating record fails too), nothing is queued, and the
+    next post, with the disk back, is accepted."""
+    import errno
+
+    from llmq_tpu_torch.api.server import ApiServer
+    from llmq_tpu_torch.preprocessor.preprocessor import Preprocessor
+    from llmq_tpu_torch.queueing.factory import QueueFactory
+
+    answers = {}
+    for pkg in ("jax", "port"):
+        cfg = _tune(JConfig() if pkg == "jax" else Config())
+        cfg.queue.wal_dir = str(tmp_path / pkg)
+        factory = (JFactory(cfg, backend="python") if pkg == "jax"
+                   else QueueFactory(cfg, backend="python"))
+        mgr = factory.create_queue_manager("standard",
+                                           start_background=False)
+        server = (JApiServer(cfg, queue_factory=factory, preprocessor=JPre())
+                  if pkg == "jax" else
+                  ApiServer(cfg, queue_factory=factory,
+                            preprocessor=Preprocessor()))
+        wal = mgr._wal
+        real = wal.append
+
+        def full(op, *a, _real=real, **kw):
+            if op in ops:
+                raise OSError(errno.ENOSPC, "No space left on device")
+            return _real(op, *a, **kw)
+
+        wal.append = full
+        body = json.dumps({"content": "durable or nothing"}).encode()
+        shed = server.dispatch("POST", "/api/v1/messages", body)
+        pending = mgr.total_pending()
+        wal.append = real
+        ok = server.dispatch("POST", "/api/v1/messages", body)
+        answers[pkg] = (shed, pending, ok[0], mgr.total_pending())
+        factory.stop_all()
+    assert answers["port"] == answers["jax"]
+    (status, payload, ctype), pending, ok, after = answers["port"]
+    assert (status, ctype, pending, ok, after) == (
+        503, "application/json", 0, 202, 1)
+    assert payload == {"error": "WAL push failed: [Errno 28] No space left "
+                                "on device", "retry_after": 1.0}

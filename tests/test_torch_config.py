@@ -137,7 +137,7 @@ def test_unported_table_is_jaxs_tree_at_its_defaults():
     ("executor: {backend: echo}\n", "executor.backend"),
     ("executor: {backend: jax}\n", "executor.backend"),
     ("cluster: {peers: [http://a:8080]}\n", "cluster.peers"),
-    ("queue: {wal_dir: /var/wal}\n", "queue.wal_dir"),
+    ("scheduler: {min_endpoints: 3}\n", "scheduler.min_endpoints"),
     ("chaos: {enabled: true, faults: [{point: engine.step, kind: crash}]}\n",
      "chaos.enabled"),
     ("tenancy: {enabled: true}\n", "tenancy.enabled"),
@@ -190,6 +190,30 @@ def test_unported_planes_off_or_at_default_are_accepted(tmp_path, snippet):
     cfg = TC.load_config(str(path), env=False)
     JC.load_config(str(path), env=False)      # JAX's loader takes it too
     assert cfg.executor.backend == "torch"
+
+
+@pytest.mark.parametrize("source", ["file", "env"])
+def test_wal_and_spool_dirs_load_like_jaxs(tmp_path, source):
+    """Tolerance: none. ``queue.wal_dir`` and ``queue.spool_dir`` are
+    real fields with the JAX package's defaults (""), and load to the
+    same values from a file and from ``LLMQ_QUEUE_WAL_DIR`` /
+    ``LLMQ_QUEUE_SPOOL_DIR`` in both packages."""
+    assert (TC.QueueConfig().wal_dir, TC.QueueConfig().spool_dir) == (
+        JC.QueueConfig().wal_dir, JC.QueueConfig().spool_dir) == ("", "")
+    assert "queue" not in TC._UNPORTED
+    wal, spool = str(tmp_path / "wal"), str(tmp_path / "spool")
+    if source == "file":
+        path = tmp_path / "c.yaml"
+        path.write_text(f"queue: {{wal_dir: {wal}, spool_dir: {spool}}}\n")
+        t = TC.load_config(str(path), env=False)
+        j = JC.load_config(str(path), env=False)
+    else:
+        env = {"LLMQ_QUEUE_WAL_DIR": wal, "LLMQ_QUEUE_SPOOL_DIR": spool}
+        t = TC.load_config(path=os.devnull, environ=env)
+        j = JC.Config()
+        JC._apply_env(j, env)
+    assert (t.queue.wal_dir, t.queue.spool_dir) == (
+        j.queue.wal_dir, j.queue.spool_dir) == (wal, spool)
 
 
 def test_search_order_env_and_missing_path(tmp_path, monkeypatch):

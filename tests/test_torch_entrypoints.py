@@ -10,8 +10,10 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
+import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -223,3 +225,332 @@ def test_app_drain_finishes_the_work_in_flight(monkeypatch, tmp_path):
         eng.__dict__.pop("step", None)
         gate.set()
         app.stop()
+
+
+# -- the split deployment ------------------------------------------------------
+
+KW = dict(dim=256, n_heads=4, n_kv_heads=2, vocab_size=512, max_seq_len=256)
+GEOM = dict(batch_size=4, page_size=16, num_pages=128, prefill_buckets=[16, 32],
+            eos_id=-1, chunk_size=4, mixed_prefill_slices=2,
+            mixed_slice_tokens=8)
+#: The usage plane's measured seconds (each engine's own clock): compared
+#: by type, every other usage field by value.
+USAGE_MEASURED = {"device_seconds", "waste_seconds", "kv_page_seconds",
+                  "saved_prefill_device_seconds"}
+SPLIT_MESSAGES = [("realtime", "a split deployment, realtime"),
+                  ("low", "a split deployment, low"),
+                  ("high", "a split deployment, high"),
+                  ("normal", "a split deployment, normal")]
+
+
+def _split_run(pkg, tmp_path, monkeypatch):
+    """A gateway App and a queue-manager App of one package in this
+    process, joined only by a spool directory (each with its own WAL
+    directory): the messages go in through the gateway's REST API and
+    their results come back on it. Returns the finished messages, the
+    gateway's queue stats and the gateway App's parts."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from llmq_tpu.models import llama as J
+
+    jcfg = J.get_config("llama3-tiny", dtype=jnp.float32, **KW)
+    jparams = J.init_params(jax.random.PRNGKey(0), jcfg)
+    spool = str(tmp_path / f"{pkg}-spool")
+    if pkg == "jax":
+        import llmq_tpu.engine as jengine_pkg
+        from llmq_tpu.__main__ import App
+        from llmq_tpu.core.config import default_config
+        from llmq_tpu.engine.engine import InferenceEngine as JEngine
+        from llmq_tpu.engine.executor import JaxExecutor
+        from llmq_tpu.engine.tokenizer import ByteTokenizer as JTok
+
+        engine = JEngine(JaxExecutor(jcfg, jparams, **GEOM), JTok(),
+                         enable_metrics=False, max_decode_steps=16)
+        monkeypatch.setattr(jengine_pkg, "build_engine",
+                            lambda cfg, warmup=False: engine)
+        new_cfg = default_config
+        qm_kw = {}
+    else:
+        from llmq_tpu_torch.__main__ import App
+        from llmq_tpu_torch.core.config import Config
+        from llmq_tpu_torch.engine.engine import InferenceEngine
+        from llmq_tpu_torch.engine.executor import TorchExecutor
+        from llmq_tpu_torch.engine.tokenizer import ByteTokenizer
+        from llmq_tpu_torch.models import llama as T
+
+        tcfg = T.get_config("llama3-tiny", dtype=torch.float32, **KW)
+        tparams = T.params_from_jax(
+            jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
+        engine = InferenceEngine(
+            TorchExecutor(tcfg, tparams, device="cpu", **GEOM),
+            ByteTokenizer(), max_decode_steps=16)
+        new_cfg = Config
+        qm_kw = {"engine": engine}
+    cfgs = {}
+    for role in ("gateway", "queue-manager"):
+        cfg = new_cfg()
+        cfg.queue.spool_dir = spool
+        cfg.queue.wal_dir = str(tmp_path / f"{pkg}-{role}-wal")
+        cfg.queue.worker.process_interval = 0.01
+        cfg.queue.worker.count = 2
+        cfg.server.host, cfg.server.port = "127.0.0.1", 0
+        cfg.loadbalancer.health_check_interval = 0
+        cfg.executor.supervisor.enabled = False
+        cfgs[role] = cfg
+    if pkg == "port":
+        # The gateway never touches the card: "cuda" here, where there is
+        # none, must not matter.
+        cfgs["gateway"].device = "cuda"
+        cfgs["queue-manager"].device = "cpu"
+    gateway = App(cfgs["gateway"], with_api=True, with_workers=False,
+                  with_engine=False)
+    consumer = App(cfgs["queue-manager"], with_api=False, with_workers=True,
+                   with_engine=True, **qm_kw)
+    consumer.start()
+    gateway.start()
+    base = f"http://127.0.0.1:{gateway.api._httpd.server_address[1]}"
+    try:
+        mids = [_http(base, "POST", "/api/v1/messages", {
+            "content": text, "priority": prio, "user_id": "split",
+            "metadata": {"max_new_tokens": 6}})[1]["message_id"]
+            for prio, text in SPLIT_MESSAGES]
+        deadline = time.time() + 60
+        done = {}
+        while len(done) < len(mids) and time.time() < deadline:
+            for mid in mids:
+                _, m = _http(base, "GET", f"/api/v1/messages/{mid}")
+                if m["status"] in ("completed", "failed"):
+                    done[mid] = m
+            time.sleep(0.02)
+        _, stats = _http(base, "GET", "/api/v1/queues/stats")
+        parts = {"health": _http(base, "GET", "/health")[1],
+                 "engine": gateway.engine, "workers": gateway.workers,
+                 "consumer_api": consumer.api,
+                 "spool_left": sorted(os.listdir(spool))}
+        if pkg == "port":
+            from llmq_tpu_torch import observability
+            parts["traces"] = [observability.get_recorder().get(mid).to_dict()
+                               for mid in mids]
+            parts["cores"] = (gateway.queue_cores(), consumer.queue_cores())
+            for path in ("/api/v1/engine/stats", "/api/v1/generate"):
+                req = urllib.request.Request(
+                    base + path, method="GET" if "stats" in path else "POST",
+                    data=None if "stats" in path else b'{"content": "x"}',
+                    headers={"Content-Type": "application/json"})
+                try:
+                    urllib.request.urlopen(req, timeout=10)
+                    parts[path] = 200
+                except urllib.error.HTTPError as e:
+                    parts[path] = e.code
+    finally:
+        gateway.stop()
+        consumer.stop()
+    return [done.get(mid) for mid in mids], stats, parts
+
+
+def _counts(stats):
+    """Queue stats without the measured wait and process times."""
+    if isinstance(stats, dict):
+        return {k: _counts(v) for k, v in stats.items()
+                if "wait" not in k and "time" not in k}
+    return stats
+
+
+def _usage_core(m):
+    usage = m["metadata"]["usage"]
+    return {k: (type(v).__name__ if k in USAGE_MEASURED else v)
+            for k, v in usage.items()}
+
+
+def test_split_apps_answer_like_jaxs(tmp_path, monkeypatch):
+    """Tolerance: none. A gateway App (no engine; configured for
+    ``cuda`` where there is none) and a queue-manager App (llama3-tiny in
+    float32 on the CPU, JAX's weights through ``params_from_jax``) joined
+    only by a spool directory: every message posted to the gateway
+    completes on it with the JAX package's greedy response, usage and
+    priority; the gateway's queue stats count the completions; the
+    spool is drained; the gateway's traces record the completion from
+    the spool; both processes run the native queue core."""
+    monkeypatch.chdir(tmp_path)
+    pytest.importorskip("jax")
+    jax_done, jax_stats, _ = _split_run("jax", tmp_path, monkeypatch)
+    port_done, port_stats, parts = _split_run("port", tmp_path, monkeypatch)
+    assert all(m is not None for m in jax_done + port_done)
+    for j, t in zip(jax_done, port_done):
+        assert t["status"] == j["status"] == "completed"
+        assert t["response"] == j["response"]
+        assert t["priority"] == j["priority"]
+        assert _usage_core(t) == _usage_core(j)
+    assert _counts(port_stats) == _counts(jax_stats)
+    completed = sum(port_stats["standard"][tier]["completed_count"]
+                    for tier in ("realtime", "high", "normal", "low"))
+    assert completed == len(SPLIT_MESSAGES)
+    assert parts["engine"] is None and parts["workers"] == []
+    assert parts["consumer_api"] is None and "engine" not in parts["health"]
+    assert parts["spool_left"] == ["done"]
+    assert parts["/api/v1/engine/stats"] == 503
+    assert parts["/api/v1/generate"] == 503
+    for tl in parts["traces"]:
+        spool_events = [e for e in tl["events"]
+                        if e.get("meta", {}).get("source") == "spool"]
+        assert [e["stage"] for e in spool_events] == ["completed"], tl
+    gw_cores, qm_cores = parts["cores"]
+    assert set(gw_cores.values()) == set(qm_cores.values()) == {"NativeMLQ"}
+
+
+SPLIT_YAML = """\
+# The split deployment's two processes on the CPU; each gets its own
+# LLMQ_QUEUE_WAL_DIR (both have managers of the same names).
+server: {host: 127.0.0.1, port: 0}
+model: {name: llama3-tiny, max_seq_len: 1024}
+logging: {level: info, format: json, output: stdout}
+queue:
+  worker: {count: 2, process_interval: 0.01}
+  spool_dir: SPOOL
+executor: {kv_pages: 256, max_decode_steps: 1024}
+"""
+
+
+def _json_lines(proc, msg_prefix):
+    out = []
+    for line in list(proc.lines):
+        if line.startswith("{"):
+            rec = json.loads(line)
+            if rec.get("msg", "").startswith(msg_prefix):
+                out.append(rec)
+    return out
+
+
+def _wait_json(proc, msg_prefix, timeout=120.0):
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        found = _json_lines(proc, msg_prefix)
+        if found:
+            return found[-1]
+        if proc.p.poll() is not None:
+            break
+        time.sleep(0.02)
+    raise AssertionError(f"no {msg_prefix!r} log line: {proc.lines[-30:]}")
+
+
+def _finished(base, mids, timeout):
+    deadline = time.time() + timeout
+    done = {}
+    while len(done) < len(mids) and time.time() < deadline:
+        for mid in mids:
+            if mid not in done:
+                _, m = _http(base, "GET", f"/api/v1/messages/{mid}")
+                if m["status"] in ("completed", "failed"):
+                    done[mid] = m
+        time.sleep(0.05)
+    return done
+
+
+def test_gateway_and_queue_manager_processes_survive_a_kill(tmp_path,
+                                                             monkeypatch):
+    """``gateway`` and ``queue-manager --device cpu`` as processes joined
+    by a spool: messages posted to the gateway complete on it; the
+    queue-manager is SIGKILLed while it holds messages, restarts on its
+    WAL and redelivers them, and every message completes; the gateway
+    stops with messages in flight, restarts on its WAL and relays them
+    again, and they complete; each stops on SIGTERM with exit code 0."""
+    from llmq_tpu_torch.queueing.wal import QueueWAL
+
+    monkeypatch.delenv("LLMQ_CONFIG", raising=False)
+    spool = tmp_path / "spool"
+    cfg = tmp_path / "split.yaml"
+    cfg.write_text(SPLIT_YAML.replace("SPOOL", str(spool)))
+
+    def start(role, *args):
+        monkeypatch.setenv("LLMQ_QUEUE_WAL_DIR", str(tmp_path / role))
+        return _Proc(["--config", str(cfg), *args, role], cwd=tmp_path)
+
+    gateway = start("gateway")
+    qm = start("queue-manager", "--device", "cpu")
+    qm2 = gateway2 = None
+    try:
+        base = gateway.wait_for("gateway at ").rsplit(" at ", 1)[1]
+        up = _wait_json(qm, "queue-manager consuming")
+        assert set(up["queue_cores"].values()) == {"NativeMLQ"}
+        assert up["native_lib"].endswith(".so") and "_build" in up["native_lib"]
+        gw_up = _wait_json(gateway, "gateway serving at")
+        assert set(gw_up["queue_cores"].values()) == {"NativeMLQ"}
+        first = [_http(base, "POST", "/api/v1/messages", {
+            "content": f"{i} through the spool", "priority": prio,
+            "metadata": {"max_new_tokens": 8}})[1]["message_id"]
+            for i, prio in enumerate(["high", "low", "realtime"])]
+        done = _finished(base, first, 120)
+        assert [done[m]["status"] for m in first] == ["completed"] * 3
+        assert all(done[m]["metadata"]["usage"]["completion_tokens"] == 8
+                   for m in first)
+        # Long requests; the kill comes once the queue-manager's journal
+        # holds them all (each append is flushed).
+        held = [_http(base, "POST", "/api/v1/messages", {
+            "content": f"{i} held across a kill",
+            "metadata": {"max_new_tokens": 600}})[1]["message_id"]
+            for i in range(4)]
+        journal = str(tmp_path / "queue-manager" / "standard.wal")
+        deadline = time.time() + 60
+        while time.time() < deadline and not set(held) <= {
+                m.id for _, m in QueueWAL.replay(journal)}:
+            time.sleep(0.01)
+        qm.p.kill()
+        qm.p.wait(30)
+        live = {m.id for _, m in QueueWAL.replay(journal)}
+        unfinished = {m for m in held
+                      if _http(base, "GET", f"/api/v1/messages/{m}")[1][
+                          "status"] != "completed"}
+        assert unfinished and unfinished <= live
+        qm2 = start("queue-manager", "--device", "cpu")
+        restored = _wait_json(qm2, "wal: restored")
+        assert restored["manager"] == "standard"
+        assert restored["restored"] >= len(unfinished)
+        done = _finished(base, held, 180)
+        assert [done.get(m, {}).get("status") for m in held] == \
+            ["completed"] * 4
+        _, stats = _http(base, "GET", "/api/v1/queues/stats")
+        assert sum(stats["standard"][t]["processing_count"]
+                   for t in ("realtime", "high", "normal", "low")) == 0
+        assert sorted(os.listdir(spool)) == ["done"]
+        # The gateway stops with messages in flight and restarts on its
+        # WAL: they are relayed again and complete (its message store
+        # starts empty, as JAX's; the completions show in the traces).
+        moved = [_http(base, "POST", "/api/v1/messages", {
+            "content": f"{i} across a gateway restart",
+            "metadata": {"max_new_tokens": 400}})[1]["message_id"]
+            for i in range(3)]
+        deadline = time.time() + 60
+        while time.time() < deadline and not set(moved) <= {
+                m.id for _, m in QueueWAL.replay(journal)}:
+            time.sleep(0.01)
+        assert gateway.finish(signal.SIGTERM) == 0
+        held = {m.id for _, m in QueueWAL.replay(
+            str(tmp_path / "gateway" / "standard.wal"))}
+        assert held == set(moved)
+        gateway2 = start("gateway")
+        base = gateway2.wait_for("gateway at ").rsplit(" at ", 1)[1]
+        assert _wait_json(gateway2, "wal: restored")["restored"] == 3
+
+        def spool_completions(mid):
+            _, tl = _http(base, "GET", f"/api/v1/requests/{mid}/trace")
+            return sum(1 for e in tl["events"] if e["stage"] == "completed"
+                       and (e.get("meta") or {}).get("source") == "spool")
+
+        deadline = time.time() + 120
+        while time.time() < deadline:
+            try:
+                if all(spool_completions(m) for m in moved):
+                    break
+            except urllib.error.HTTPError:
+                pass                      # no trace recorded yet
+            time.sleep(0.05)
+        assert all(spool_completions(m) >= 1 for m in moved)
+        assert qm2.finish(signal.SIGTERM) == 0
+        assert gateway2.finish(signal.SIGTERM) == 0
+    finally:
+        for proc in (gateway, qm, qm2, gateway2):
+            if proc is not None and proc.p.poll() is None:
+                proc.p.kill()
+                proc.p.wait(10)

@@ -150,6 +150,22 @@ _BLOCKED_IMPORT_SCRIPT = textwrap.dedent("""
     for fn in ("prefill_estimate", "_admission_cap",
                "_observe_prefill_rate"):
         assert callable(getattr(InferenceEngine, fn)), fn
+    # The durable queue plane and the split deployment: the WAL, the
+    # spool, the native core's binding (built at first use, never at
+    # import) and the queue-manager and gateway subcommands.
+    from llmq_tpu_torch.core.errors import WALError
+    assert issubclass(WALError, OSError)
+    from llmq_tpu_torch.queueing.wal import QueueWAL
+    from llmq_tpu_torch.queueing.spool import (SpoolCollector,
+                                               SpoolConsumer,
+                                               SpoolProducer)
+    from llmq_tpu_torch.native import loader
+    assert loader._lib is None and not loader._load_failed
+    assert loader.SRC.is_file()
+    from llmq_tpu_torch.queueing.priority_queue import _make_backend
+    from llmq_tpu_torch.__main__ import cmd_gateway, cmd_queue_manager
+    assert cfg.queue.wal_dir == cfg.queue.spool_dir == ""
+    assert hasattr(get_metrics(), "wal_errors")
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", sys.argv[1] + "/chip_smoke.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))

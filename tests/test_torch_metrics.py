@@ -90,7 +90,7 @@ def test_every_port_family_is_jaxs():
     """Tolerance: none. Name, type, help, label names and buckets."""
     port, jax_m = treg.get_metrics(), jreg.get_metrics()
     fams = vars(port)
-    assert len(fams) == 64      # the observability planes' families too
+    assert len(fams) == 65      # the observability planes and the WAL too
     for attr, fam in fams.items():
         jf = getattr(jax_m, attr)
         name = jf._name + ("_total" if jf._type == "counter" else "")
@@ -105,7 +105,7 @@ def test_exposition_parses_like_jaxs():
     parser into the same families (name, type, help) as JAX's."""
     port, jax_fams = _by_name(_port_exposition()), _by_name(
         _jax_exposition())
-    assert len(port) == 64
+    assert len(port) == 65
     for name, fam in port.items():
         jf = jax_fams[name]
         assert (fam.type, fam.documentation) == (jf.type,
@@ -471,3 +471,43 @@ def test_engine_metrics_follow_metrics_enabled_like_jaxs_builder(
     jeng = jbuild(jcfg)                                   # the echo engine
     teng = tbuild(tcfg, model_dtype=torch.float32)
     assert (jeng._metrics is not None) is (teng._m is not None) is metrics_on
+
+
+def test_wal_errors_count_by_op_like_jax(tmp_path):
+    """Tolerance: none. Journal faults (a full disk) on a push and on a
+    pop leave the same ``wal_errors_total{op}`` deltas in both registries:
+    the push is refused, the pop stands."""
+    import errno
+
+    deltas = {}
+    for pkg, expo, qm_mod, types in (
+            ("jax", _jax_exposition, jqm, jtypes),
+            ("port", _port_exposition, tqm, ttypes)):
+        def counts():
+            fam = _by_name(expo())["llm_queue_wal_errors"]
+            return {s.labels["op"]: s.value for s in fam.samples
+                    if s.name.endswith("_total")}
+
+        before = counts()
+        mgr = qm_mod.QueueManager(f"walerr-{pkg}", backend="python",
+                                  wal_path=str(tmp_path / f"{pkg}.wal"))
+        real = mgr._wal.append
+        failing = set()
+
+        def append(op, *a, **kw):
+            if op in failing:
+                raise OSError(errno.ENOSPC, "No space left on device")
+            return real(op, *a, **kw)
+
+        mgr._wal.append = append
+        mgr.push_message(types.Message(id="a", content="a"))
+        failing.update({"push", "pop"})
+        with pytest.raises(OSError):
+            mgr.push_message(types.Message(id="b", content="b"))
+        popped = mgr.pop_message("normal").id
+        mgr.stop()
+        after = counts()
+        deltas[pkg] = ({op: after[op] - before.get(op, 0.0) for op in after
+                        if after[op] != before.get(op, 0.0)}, popped)
+    assert deltas["port"] == deltas["jax"] == ({"push": 1.0, "pop": 1.0},
+                                               "a")
