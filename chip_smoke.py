@@ -89,7 +89,37 @@ shows where it happened):
                  with the prefill programs run eagerly). Four ~600-token
                  prompts with no decode row are admitted as one wave
                  (``prefill_multi_async``) and as four single programs.
-8. serve-plane — the serving process around the serve phase's bf16
+8. serve-spec — speculative decoding on the serve phase's weights
+                 (llama3-8b at full width and depth; the serve engine
+                 geometry: 8 slots, 512 pages of 16, buckets [128, 512,
+                 2048], pipeline depth 2) with ``executor.speculation:
+                 {enabled: true, draft_k: 4, ngram_max: 3}``. From a B=8
+                 cache state of rows of 1-480 positions, a plain decode
+                 chunk of W = 5 steps, the pools restored, then one
+                 verify window whose drafts are the chunk's first four
+                 tokens: every row commits 5, the window's tokens are the
+                 chunk's and every pool is bitwise the chunk's; so on the
+                 fused route (kernel 1) and the split route (kernels 4 +
+                 8) with device accept, with host accept, and over int8
+                 pools (kernel 5, full depth). Rollback: windows of
+                 garbage drafts commit 1 token each and give plain
+                 decode's stream and committed KV bitwise (host accept at
+                 the executor; device accept through the engine, where
+                 every reconcile leaves a row the pages of its committed
+                 positions). Then the engine serves over REST: B=1 and 8
+                 concurrent requests of 128 new tokens over repetitive
+                 prompts, a two-turn conversation (turn 2 cached), and
+                 eight LOW rows with a REALTIME arrival that preempts;
+                 every request completes through kernels 1-3, no page
+                 leaks, and ``get_stats()["speculation"]`` and the four
+                 ``spec_*`` families of ``/metrics`` equal the engine's
+                 counters. Printed, not gated: windows, acceptance and
+                 readback cadence, the device idle at window boundaries,
+                 a window's device ms at B=8 (all drafts accepted, all
+                 rejected) against W plain steps, B=1 and 8-concurrent
+                 tok/s with speculation off and on in turns on the same
+                 engine, and how many B=1 greedy tokens agree.
+9. serve-plane — the serving process around the serve phase's bf16
                  default engine (same weights, same pool: 8 slots, 512
                  pages of 16), over REST with retry backoff shortened to
                  0.05 s: pool pressure (six 1200-token LOW requests
@@ -162,7 +192,7 @@ shows where it happened):
                  off, off, on), after one uncounted 8-concurrent batch,
                  each turn's rate the median of three: the "on" turns
                  within 3% of the "off" ones.
-9. serve-split — the durable queue plane and the split deployment. First,
+10. serve-split — the durable queue plane and the split deployment. First,
                  on the serve phases' bf16 engine, decode of 8 concurrent
                  REST requests (64 new tokens) through the serving
                  process with ``queue.wal_dir`` set and unset, in turns,
@@ -196,7 +226,7 @@ shows where it happened):
                  WAL: they are relayed again and complete (traces from
                  the spool). Kernels 1-3 launch in each queue-manager, no
                  twin is called, and no gateway initialises CUDA.
-10. serve-int8 — llama3-8b with int8 weights and int8 KV at full width and
+11. serve-int8 — llama3-8b with int8 weights and int8 KV at full width and
                  depth (``LLMQ_MODEL_QUANTIZATION=int8
                  LLMQ_MODEL_KV_QUANTIZATION=int8``), the same REST mix:
                  kernel 5 launches and no bf16-pool kernel does; then a
@@ -219,6 +249,7 @@ table as JSON, the card's name and power limit, and
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import os
@@ -301,28 +332,95 @@ def scaled_err(out, ref) -> float:
     return (d[live] / rms[live]).max().item()
 
 
+#: Traces the profiler lost in every take, each as (what was traced,
+#: what stood in for it); in the summary JSON as ``profiler_lost``.
+PROFILER_LOST: list = []
+_PROFILER_DOWN = [False]
+
+
 def _profiled(fn, activities, complete, what: str):
     """``fn()`` under torch.profiler, then a device synchronize, taken
-    again until ``complete(prof)`` holds, ten times at most, the n-th
-    retake after n x 50 ms. The profiler now and then drops the device
-    events of a trace, all of them or a few (runs of this script on the
-    H100 saw 9 kernels recorded for 10 calls, and 0 for 20, and once 19
-    for 20 in five traces taken within 0.2 s), at no fixed place in the
-    script: an incomplete trace is taken again, not used."""
+    again until ``complete(prof)`` holds, ten times at most (three while
+    the last trace before was lost for good), the n-th retake after n x
+    50 ms. The profiler now and then drops the device events of a trace,
+    all of them or a few (runs of this script on the H100 saw 9 kernels
+    recorded for 10 calls, and 0 for 20, and once 19 for 20 in five
+    traces taken within 0.2 s, and once none in ten traces running), at
+    no fixed place in the script: an incomplete trace is taken again,
+    not used. Returns None when every take was incomplete; the caller
+    then times ``fn`` by CUDA events (it has run at least once) and
+    notes what stood in for the trace in :data:`PROFILER_LOST`."""
     import torch
     from torch.profiler import profile
 
-    for attempt in range(10):
+    for attempt in range(3 if _PROFILER_DOWN[0] else 10):
         time.sleep(0.05 * attempt)
         with profile(activities=activities) as prof:
             fn()
             torch.cuda.synchronize()
         if complete(prof):
+            _PROFILER_DOWN[0] = False
             return prof
         log(f"[trace] {what}: the profiler lost device events, tracing "
             f"again")
-    raise AssertionError(f"the profiler lost device events of {what} in "
-                         f"ten traces running")
+    _PROFILER_DOWN[0] = True
+    log(f"[trace] {what}: the profiler lost device events in every trace; "
+        f"CUDA events stand in")
+    return None
+
+
+def _lost(what: str, instead: str) -> None:
+    PROFILER_LOST.append((what, instead))
+    log(f"[trace] {what}: timed by {instead} (the profiler lost its trace)")
+
+
+def _event_ms(fn, iters: int, what: str) -> float:
+    """Device ms per call of ``fn(i)`` from CUDA events, where the
+    profiler lost every trace of the calls: the ``iters`` calls captured
+    into one CUDA graph and its replay timed (the kernels back to back,
+    as in the profiler's sum, launch gaps of a graph included), or,
+    where a call cannot be captured (it waits for the device: a read
+    from the host, a copy from pageable memory), the eager calls timed
+    (host launch gaps included). A call is tried once under
+    ``set_sync_debug_mode("error")`` before any capture: a capture that
+    fails part way keeps its memory pool for the rest of the process (a
+    run that tried the plain twins held ~50 GB so)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn(0)
+        capturable = True
+    except RuntimeError:
+        capturable = False
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+
+    def eager():
+        for i in range(iters):
+            fn(i)
+    run, how = eager, "CUDA events over eager calls"
+    if capturable:
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                eager()
+            run, how = graph.replay, "CUDA events over a graph replay"
+        except RuntimeError as e:
+            torch.cuda.synchronize()
+            how += f" (the capture failed: {str(e).splitlines()[0]})"
+    run()
+    torch.cuda.synchronize()
+    start.record()
+    run()
+    end.record()
+    end.synchronize()
+    _lost(what, how)
+    return start.elapsed_time(end) / iters
 
 
 def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -336,7 +434,8 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     launches as an earlier trace of this call (some calls launch more
     than the profiler shows kernels for, every time: the int8 prefill
     attention's 8 calls made 1064 launches and showed 1041 to 1046
-    kernels in every trace on the H100); else it is taken again."""
+    kernels in every trace on the H100); else it is taken again. Where
+    every take was lost, :func:`_event_ms` times the calls instead."""
     import torch
     from torch.profiler import ProfilerActivity
 
@@ -359,8 +458,13 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         log(f"[trace] {n} kernels recorded for {iters} calls and "
             f"{launched} host launches")
         return False
+    caller = sys._getframe(1)
+    what = (f"{iters} timed calls at chip_smoke.py:{caller.f_lineno} "
+            f"({caller.f_code.co_name})")
     prof = _profiled(calls, [ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     complete, f"{iters} timed calls")
+                     complete, what)
+    if prof is None:
+        return _event_ms(fn, iters, what)
     return _device_us(prof) / 1e3 / iters
 
 
@@ -388,15 +492,37 @@ def _kernel_events(prof) -> int:
                and not e.key.startswith(("Memcpy", "Memset")))
 
 
-def _device_trace(fn):
+def _device_trace(fn, what: str = "a device trace"):
     """Run ``fn()`` under torch.profiler recording device activity only
     (host-op events of whole served steps would cost the trace more
-    than the steps) and return the profile; ``fn`` runs again while the
-    trace holds no device time (:func:`_profiled`)."""
+    than the steps) and return ``(profile, span ms)``: the span from CUDA
+    events around the last run. ``fn`` runs again while the trace holds
+    no device time (:func:`_profiled`); the profile is None where every
+    take was lost."""
+    import torch
     from torch.profiler import ProfilerActivity
 
-    return _profiled(fn, [ProfilerActivity.CUDA],
-                     lambda p: _device_us(p) > 0, "a device trace")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def run():
+        start.record()
+        fn()
+        end.record()
+    prof = _profiled(run, [ProfilerActivity.CUDA],
+                     lambda p: _device_us(p) > 0, what)
+    return prof, start.elapsed_time(end)
+
+
+def _busy_ms(fn, what: str) -> float:
+    """Device busy ms of ``fn()``: its device events' summed time from a
+    device trace, or, where the profiler lost every take, the CUDA-event
+    span around the last run (idle gaps inside it included)."""
+    prof, span = _device_trace(fn, what)
+    if prof is None:
+        _lost(what, "the CUDA-event span")
+        return span
+    return _device_us(prof) / 1e3
 
 
 def _device_us(prof) -> float:
@@ -1979,6 +2105,11 @@ KERNEL_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
 GRAPH_LAUNCH_CALLS = ("cudaGraphLaunch", "cuGraphLaunch")
 
 
+def _count(x, digits: int = 0) -> str:
+    """A count from a trace, or "not measured" where the trace was lost."""
+    return "not measured" if x is None else f"{x:.{digits}f}"
+
+
 def _chunk_profile(fn, steps: int, host: bool) -> dict:
     """One chunk under torch.profiler: per step, the device busy ms
     (summed kernel time) and the device kernels; with ``host`` also the
@@ -1997,6 +2128,15 @@ def _chunk_profile(fn, steps: int, host: bool) -> dict:
         fn()
         end.record()
     prof = _profiled(run, acts, lambda p: _device_us(p) > 0, "a chunk")
+    span_ms = start.elapsed_time(end) / steps
+    if prof is None:
+        # Counts the trace alone gives are not measured (None).
+        _lost("a chunk", "the CUDA-event span")
+        out = {"busy_ms": span_ms, "device_kernels": None,
+               "span_ms": span_ms}
+        if host:
+            out.update(host_kernel_launches=None, host_graph_launches=None)
+        return out
     launches = graphs = 0
     for e in prof.key_averages():
         if e.key in KERNEL_LAUNCH_CALLS:
@@ -2005,7 +2145,7 @@ def _chunk_profile(fn, steps: int, host: bool) -> dict:
             graphs += e.count
     out = {"busy_ms": _device_us(prof) / 1e3 / steps,
            "device_kernels": _kernel_events(prof) / steps,
-           "span_ms": start.elapsed_time(end) / steps}
+           "span_ms": span_ms}
     if host:
         out.update(host_kernel_launches=launches / steps,
                    host_graph_launches=graphs / steps)
@@ -2066,7 +2206,9 @@ def _graph_vs_eager(engine, tag: str, state) -> None:
                              f"for a {K}-step chunk (one a step expected)")
     # Kernels inside a replay must show in the trace for its busy time to
     # hold; otherwise the device span from CUDA events stands in for it.
-    seen = graph["device_kernels"] >= 0.5 * eager["device_kernels"]
+    seen = (graph["device_kernels"] is not None
+            and eager["device_kernels"] is not None
+            and graph["device_kernels"] >= 0.5 * eager["device_kernels"])
     row = {"steps": K, "streams_equal": True, "step_ms": ex.step_ms,
            "profiler_sees_replayed_kernels": seen,
            "pool_bytes": sum(g.pool_bytes for g in ex.step_graphs.values()),
@@ -2078,14 +2220,14 @@ def _graph_vs_eager(engine, tag: str, state) -> None:
     state["graphs"][tag] = row
     busy = graph["busy_ms"] if seen else graph["span_ms"]
     log(f"[graphs] {tag}: per step eager {eager['wall_ms'][0]:.2f} ms wall, "
-        f"{eager['busy_ms']:.2f} ms busy, {eager['device_kernels']:.0f} "
+        f"{eager['busy_ms']:.2f} ms busy, {_count(eager['device_kernels'])} "
         f"device kernels (each a host launch); graph "
         f"{', '.join(f'{w:.2f}' for w in graph['wall_ms'])} ms wall, "
         f"{busy:.2f} ms busy{'' if seen else ' (CUDA-event span: the '
                                      'profiler shows no replayed kernels)'}, "
-        f"{graph['device_kernels']:.0f} device kernels, "
-        f"{graph['host_kernel_launches']:.2f} host kernel launches + "
-        f"{graph['host_graph_launches']:.2f} graph launches "
+        f"{_count(graph['device_kernels'])} device kernels, "
+        f"{_count(graph['host_kernel_launches'], 2)} host kernel launches + "
+        f"{_count(graph['host_graph_launches'], 2)} graph launches "
         f"({graph['replays']} replays for {K} steps); graph pool "
         f"{row['pool_bytes'] / 2**20:.1f} MiB; greedy streams equal "
         f"({CARD})")
@@ -2203,9 +2345,9 @@ def _programs_vs_eager(engine, tag: str, state, prefill: bool = True
         engine.allocator.free(pages)
         rows[name]["profiled"] = prof
         log(f"[graphs] {tag} {name} profiled: "
-            f"{prof['host_graph_launches']:.0f} graph launches, "
-            f"{prof['host_kernel_launches']:.0f} host kernel launches, "
-            f"{prof['device_kernels']:.0f} device kernels, "
+            f"{_count(prof['host_graph_launches'])} graph launches, "
+            f"{_count(prof['host_kernel_launches'])} host kernel launches, "
+            f"{_count(prof['device_kernels'])} device kernels, "
             f"{prof['busy_ms']:.2f} ms busy ({CARD})")
     # The mixed step 0: a mixed chunk eager against replayed.
     B, K, MPs = ex.spec.batch_size, ex.chunk_size, ex.spec.max_pages_per_seq
@@ -2382,7 +2524,12 @@ def _pipeline_vs_blocking(engine, tag: str, state) -> None:
         prof = _profiled(run, [ProfilerActivity.CUDA],
                          lambda p: _device_us(p) > 0, f"{name} chunks")
         outs2 = traced["outs"]
-        gaps, idle_ms = _chunk_gaps(_device_events(prof), N)
+        if prof is None:
+            # Not measured: the gaps need the trace's events.
+            _lost(f"{tag} {name} chunks", "nothing (gaps not measured)")
+            gaps, idle_ms = None, None
+        else:
+            gaps, idle_ms = _chunk_gaps(_device_events(prof), N)
         res[name] = {"outs": outs + outs2, "wall_ms_per_chunk": wall,
                      "gaps_ms": gaps, "idle_ms": idle_ms,
                      "no_live_row_steps": idle_steps}
@@ -2396,17 +2543,19 @@ def _pipeline_vs_blocking(engine, tag: str, state) -> None:
         "chunks": N, "steps": K, "rows": B, "tokens_equal": True, **res}
 
     def gaps(r):
+        if r["idle_ms"] is None:
+            return "not measured (the profiler lost the trace)"
         if r["gaps_ms"] is None:
-            return "chunk starts not found in the trace"
-        return ", ".join(f"{g:.3f}" for g in r["gaps_ms"]) + " ms"
+            text = "chunk starts not found in the trace"
+        else:
+            text = ", ".join(f"{g:.3f}" for g in r["gaps_ms"]) + " ms"
+        return f"{text} ({r['idle_ms']:.3f} ms idle in the profiled run)"
 
     blk, car = res["blocking"], res["carried"]
     log(f"[graphs] {tag} pipeline: {N} chunks of {K} steps, B={B}, tokens "
         f"equal; wall per chunk blocking {blk['wall_ms_per_chunk']:.2f} ms, "
         f"carried at depth 2 {car['wall_ms_per_chunk']:.2f} ms; device idle "
-        f"between chunks blocking {gaps(blk)} ({blk['idle_ms']:.3f} ms idle "
-        f"in the profiled run), carried {gaps(car)} ({car['idle_ms']:.3f} "
-        f"ms); "
+        f"between chunks blocking {gaps(blk)}, carried {gaps(car)}; "
         f"steps with no live row blocking {blk['no_live_row_steps']}, "
         f"carried {car['no_live_row_steps']} ({CARD})")
 
@@ -2465,7 +2614,11 @@ def phase_serve(state) -> None:
 
     counts, restore = _count_plain_calls()
     try:
-        _serve_ragged(state, _serve_default(state))
+        params = _serve_default(state)
+        if "serve-spec" in state.get("chosen", ()):
+            # The serve-spec phase builds its engines on these weights.
+            state["serve_params"] = params
+        _serve_ragged(state, params)
     finally:
         restore()
     # The ragged engine is gone: collect it now, not inside a later
@@ -2892,7 +3045,7 @@ def _mixed_timing(engine, out: dict, tag: str) -> None:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-        return wall, _device_us(_device_trace(fn)) / 1e3
+        return wall, _busy_ms(fn, f"{tag} mixed against unfused")
 
     mixed_wall, mixed_busy = timed(lambda: ex.mixed_chunk(*args, pf))
     unfused_wall, unfused_busy = timed(lambda: (
@@ -2943,7 +3096,7 @@ def _wave_timing(engine, out: dict, tag: str) -> None:
         raise AssertionError(f"[{tag}] wave first tokens {firsts['wave']} "
                              f"differ from single programs' "
                              f"{firsts['singles']}")
-    busy = {n: _device_us(_device_trace(f)) / 1e3
+    busy = {n: _busy_ms(f, f"{tag} {n} of four prompts")
             for n, f in (("wave", wave), ("singles", singles))}
     engine.allocator.free(pages)
     out.update({f"{tag}_wave4x600_wall_ms": walls["wave"],
@@ -2972,8 +3125,8 @@ def _q8_prefill_share(engine, out: dict, tag: str) -> None:
     ex = engine.executor
     T = ex.prefill_buckets[0]
     reqs, pages = _program_requests(engine, [90], np.random.default_rng(5))
-    prog_ms = _device_us(_device_trace(lambda: ex.gather_scalars(
-        ex._prefill_wave(reqs, 1)))) / 1e3
+    prog_ms = _busy_ms(lambda: ex.gather_scalars(ex._prefill_wave(reqs, 1)),
+                       f"{tag} int8 prefill_b{T}")
     mc = ex.model_cfg
     p = ex._programs[f"prefill_b{T}"].bufs
     q = torch.randn((1, T, mc.n_heads, mc.head_dim), device=ex.device).to(
@@ -3018,20 +3171,27 @@ def _decode_breakdown(engine, out: dict, tag: str = "serve") -> None:
     ex.decode_chunk(*args)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / K
-    prof = _device_trace(lambda: ex.decode_chunk(*args))
+    prof, span_ms = _device_trace(lambda: ex.decode_chunk(*args),
+                                  f"{tag} decode chunk")
     engine.allocator.free(pages)
-    rows = sorted(((e.self_device_time_total, e.key, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA),
-                  reverse=True)
-    busy_ms = _device_us(prof) / 1e3 / K
-    n_kernels = sum(count for _us, _key, count in rows) / K
+    if prof is None:
+        # The kernel breakdown is not measured; the span stands in for
+        # the busy time.
+        _lost(f"{tag} decode chunk", "the CUDA-event span")
+        rows, busy_ms, n_kernels = [], span_ms / K, None
+    else:
+        rows = sorted(((e.self_device_time_total, e.key, e.count)
+                       for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA),
+                      reverse=True)
+        busy_ms = _device_us(prof) / 1e3 / K
+        n_kernels = sum(count for _us, _key, count in rows) / K
     out.update({"decode_step_wall_ms_b8": wall_ms,
                 "decode_step_device_busy_ms_b8": busy_ms,
                 "decode_step_kernel_launches_b8": n_kernels})
     log(f"[{tag}] decode chunk B={B} K={K}: {wall_ms:.2f} ms/step wall, "
         f"{busy_ms:.2f} ms/step device busy "
-        f"({100 * busy_ms / wall_ms:.0f}% busy), {n_kernels:.0f} kernel "
+        f"({100 * busy_ms / wall_ms:.0f}% busy), {_count(n_kernels)} kernel "
         f"launches a step ({CARD})")
     for dev_us, key, count in rows[:10]:
         log(f"[{tag}]   {dev_us / 1e3 / K:8.3f} ms/step  {count // K:5d} "
@@ -5454,10 +5614,673 @@ def phase_serve_split(state) -> None:
         dep.close(failed)
 
 
+# -- serve-spec: speculative decoding ----------------------------------------
+
+#: The speculation plane's setting on the card: JAX's default drafter
+#: (draft_k 4, so a window of W = 5 steps; n-grams up to 3).
+SPEC_DRAFT_K = 4
+SPEC_NGRAM_MAX = 3
+#: New tokens of every served request of the phase.
+SPEC_NEW_TOKENS = 128
+#: Lengths of the B=8 cache state the program-identity gates start
+#: from (1 to 480 positions).
+SPEC_LENGTHS = (1, 17, 60, 128, 200, 333, 479, 480)
+
+
+def _spec_prompt(i: int) -> str:
+    """A repetitive prompt (its own first words, then one sentence over
+    and over), so that the drafter finds n-grams in it."""
+    return (f"{i:02d} spec. " + "The queue serves four priority tiers: "
+            "realtime, high, normal and low. " * 6)
+
+
+def _spec_cfg():
+    cfg = _serve_cfg()
+    sp = cfg.executor.speculation
+    sp.enabled, sp.draft_k, sp.ngram_max = True, SPEC_DRAFT_K, SPEC_NGRAM_MAX
+    return cfg
+
+
+def _spec_executor(params, *, device_sampling=True, cache_dtype=None):
+    """A bare executor of the serve geometry with speculation on, over
+    the given weights, its decode step and verify program captured (the
+    prefill programs are captured at first use)."""
+    import torch
+
+    from llmq_tpu_torch.engine.executor import TorchExecutor
+    from llmq_tpu_torch.models.llama import get_config
+
+    cfg = _serve_cfg()
+    ex = cfg.executor
+    out = TorchExecutor(
+        get_config(cfg.model.name, max_seq_len=cfg.model.max_seq_len), params,
+        batch_size=ex.max_batch_size, page_size=ex.page_size,
+        num_pages=ex.kv_pages, prefill_buckets=list(ex.prefill_buckets),
+        eos_id=-1, chunk_size=ex.decode_chunk, prefill_batch=ex.prefill_batch,
+        cache_dtype=cache_dtype, speculation_draft_k=SPEC_DRAFT_K,
+        speculation_device_sampling=device_sampling, device=cfg.device,
+        telemetry_name="spec-probe", telemetry_metrics=False)
+    if out._graphs_on:
+        # Captured now, so that a gate's launch counts hold replays
+        # only (a capture runs its body once eagerly first).
+        with torch.inference_mode():
+            out._step_graph()
+            out._verify_graph()
+    return out
+
+
+def _spec_rows(ex, rng):
+    """A B=8 cache state: rows of SPEC_LENGTHS positions of random tokens,
+    prefilled in waves through the executor's prefill programs, each row
+    with pages for 64 positions more. Returns (first tokens, positions,
+    block tables)."""
+    import numpy as np
+
+    from llmq_tpu_torch.engine.kv_allocator import PageAllocator
+
+    B, MP = ex.spec.batch_size, ex.spec.max_pages_per_seq
+    bt = np.zeros((B, MP), np.int32)
+    page = 1
+    reqs = []
+    for b, n in enumerate(SPEC_LENGTHS):
+        k = PageAllocator.pages_for(n + 64, ex.spec.page_size)
+        bt[b, :k] = np.arange(page, page + k)
+        page += k
+        reqs.append(([int(x) for x in rng.integers(
+            3, ex.model_cfg.vocab_size, n)], 0, bt[b], 0.0))
+    hs = []
+    for i in range(0, B, ex.prefill_batch):
+        hs += ex.prefill_multi_async(reqs[i:i + ex.prefill_batch])
+    tok = ex.gather_scalars(hs).astype(np.int32)
+    return tok, np.asarray(SPEC_LENGTHS, np.int32), bt
+
+
+def _kv_rows(cache, bt, starts, ends):
+    """Every pool's entries (K and V, and an int8 cache's scale pools) at
+    positions [starts[b], ends[b]) of each row b, gathered through its
+    block table: {pool: tensor}."""
+    import numpy as np
+    import torch
+
+    ps = cache["k"].shape[2]
+    pages, slots = [], []
+    for b in range(len(starts)):
+        p = np.arange(int(starts[b]), int(ends[b]))
+        pages.append(bt[b, p // ps])
+        slots.append(p % ps)
+    dev = cache["k"].device
+    pg = torch.as_tensor(np.concatenate(pages), device=dev).long()
+    sl = torch.as_tensor(np.concatenate(slots), device=dev).long()
+    return {name: (pool[:, pg, :, sl] if name.endswith("scale")
+                   else pool[:, pg, sl]) for name, pool in cache.items()}
+
+
+def _spec_identity(ex, rows, tag: str) -> dict:
+    """Gate 1 (and 2, 4 on other executors or routes): from the rows'
+    cache state, a plain decode chunk of W steps, then the pools restored
+    and one verify window whose drafts are the chunk's first W-1 tokens:
+    every row commits W tokens, the window's tokens are the chunk's, and
+    every pool is bitwise the chunk's (page 0 aside). Returns the
+    kernels each program launched and their replays."""
+    import numpy as np
+    import torch
+
+    from llmq_tpu_torch.ops import kernels
+
+    tok, pos, bt = rows
+    B, W = len(tok), ex.verify_draft_k + 1
+    temps = np.zeros(B, np.float32)
+    saved = {k: v.clone() for k, v in ex.cache.items()}
+    kernels.reset_launches()
+    chunk = ex.decode_chunk(tok, pos, bt, temps,
+                            np.full(B, W, np.int32))[:, :W]
+    torch.cuda.synchronize()
+    plain = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    after = {k: v.clone() for k, v in ex.cache.items()}
+    for k, v in ex.cache.items():
+        v.copy_(saved[k])
+    kernels.reset_launches()
+    replays = ex.verify_replays
+    out, nc = ex.verify_chunk(tok, pos, bt, temps, chunk[:, :W - 1],
+                              np.full(B, W, np.int32))
+    torch.cuda.synchronize()
+    window = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    replays = ex.verify_replays - replays
+    if not (nc == W).all():
+        raise AssertionError(f"[{tag}] n_commit {nc.tolist()}, want {W} "
+                             f"on every row")
+    if not (out == chunk).all():
+        raise AssertionError(f"[{tag}] window tokens differ from the plain "
+                             f"chunk's:\n{out}\n{chunk}")
+    same = {k: torch.equal(v[:, 1:], after[k][:, 1:])
+            for k, v in ex.cache.items()}
+    got = _kv_rows(ex.cache, bt, pos, pos + W)
+    want = _kv_rows(after, bt, pos, pos + W)
+    if not all(same.values()) or not all(torch.equal(got[k], want[k])
+                                         for k in got):
+        raise AssertionError(f"[{tag}] pools differ from the plain chunk's: "
+                             f"{same}")
+    want_replays = W if ex._spec_device_sampling else 1
+    if replays != want_replays:
+        raise AssertionError(f"[{tag}] {replays} verify replays, want "
+                             f"{want_replays}")
+    del saved, after
+    log(f"[serve-spec] {tag}: verify window (W={W}, B={B}, rows of "
+        f"{min(SPEC_LENGTHS)}-{max(SPEC_LENGTHS)} positions) commits "
+        f"{W} on every row, tokens equal the plain chunk's, pools bitwise "
+        f"equal ({', '.join(sorted(same))}); window launches {window} in "
+        f"{replays} replay(s), plain chunk {plain}")
+    return {"window_launches": window, "plain_launches": plain,
+            "replays": replays}
+
+
+def _spec_rollback(ex, rows) -> dict:
+    """Gate 3 at the executor (``TestJaxKVIntegrity`` on the card): from
+    the rows' cache state, 8 plain single steps, then the pools restored
+    and 8 windows a row of garbage drafts (an id the plain stream never
+    takes) re-dispatched from the committed position: every window
+    commits exactly 1 token, the stream is the plain one, and the
+    committed KV is bitwise the plain one's (host accept writes the
+    rejected tail too)."""
+    import numpy as np
+    import torch
+
+    tok, pos, bt = rows
+    B, K, n = len(tok), ex.verify_draft_k, 8
+    temps = np.zeros(B, np.float32)
+    saved = {k: v.clone() for k, v in ex.cache.items()}
+    ctl = ex.decode_chunk(tok, pos, bt, temps,
+                          np.full(B, n, np.int32))[:, :n]
+    after = {k: v.clone() for k, v in ex.cache.items()}
+    for k, v in ex.cache.items():
+        v.copy_(saved[k])
+    vocab = ex.model_cfg.vocab_size
+    garbage = next(g for g in range(vocab - 1, 0, -1) if g not in ctl)
+    t, p = tok.copy(), pos.copy()
+    stream = np.zeros((B, n), np.int32)
+    for i in range(n):
+        out, nc = ex.verify_chunk(t, p, bt, temps,
+                                  np.full((B, K), garbage, np.int32),
+                                  np.full(B, K + 1, np.int32))
+        if not (nc == 1).all():
+            raise AssertionError(f"[serve-spec] garbage drafts committed "
+                                 f"{nc.tolist()} tokens, want 1 a row")
+        stream[:, i] = out[:, 0]
+        t, p = out[:, 0].copy(), p + 1
+    torch.cuda.synchronize()
+    if not (stream == ctl).all():
+        raise AssertionError(f"[serve-spec] rollback stream differs:\n"
+                             f"{stream}\n{ctl}")
+    got = _kv_rows(ex.cache, bt, np.zeros(B, np.int32), pos + n)
+    want = _kv_rows(after, bt, np.zeros(B, np.int32), pos + n)
+    if not all(torch.equal(got[k], want[k]) for k in got):
+        raise AssertionError("[serve-spec] committed KV differs after "
+                             "rolled-back windows")
+    del saved, after
+    log(f"[serve-spec] rollback (host accept): {n} windows a row of "
+        f"garbage drafts (id {garbage}) committed 1 token each, the plain "
+        f"stream, and the committed KV of positions [0, pos + {n}) bitwise "
+        f"the plain one's")
+    return {"windows": n, "garbage_id": garbage}
+
+
+@contextlib.contextmanager
+def _spec_off(engine):
+    """The engine with speculation off while the block runs (it must be
+    idle): the same executor, pool and graphs on the plain decode path,
+    with mixed batching as configured."""
+    engine._spec_on = False
+    try:
+        yield
+    finally:
+        engine._spec_on = True
+
+
+def _spec_rollback_engine(spec) -> dict:
+    """Gate 3 through the engine: one request with a conversation id
+    with speculation off, then again with it on and a drafter that
+    proposes only garbage (an id the plain stream never takes). Every
+    window commits 1 token, after every reconcile the row holds exactly
+    the pages of its committed positions (``_spec_trim``), the stream is
+    the plain one, and the finished turns' pinned KV is bitwise equal."""
+    import torch
+
+    from llmq_tpu_torch.engine.engine import GenRequest
+    from llmq_tpu_torch.engine.kv_allocator import PageAllocator
+
+    conv, prompt = "spec-rollback", _spec_prompt(99)
+
+    def turn(rid):
+        h = spec.submit(GenRequest(id=rid, prompt=prompt,
+                                   conversation_id=conv, max_new_tokens=32))
+        spec.run_until_idle()
+        c = spec._conv_cache[conv]
+        kv = {k: v.clone() for k, v in _kv_rows(
+            spec.executor.cache, c.block_table[None], [0],
+            [c.length]).items()}
+        spec.drop_conversation(conv)
+        # The radix tree holds the turn's pages too: the next turn must
+        # compute its KV, not adopt it.
+        spec._prefix_cache.evict_pages(spec._prefix_cache.pages)
+        return h.result.tokens, kv
+
+    with _spec_off(spec):
+        stream, kv_off = turn("rb-off")
+    garbage = next(g for g in range(spec.executor.model_cfg.vocab_size - 1,
+                                    0, -1) if g not in stream)
+    drafter = spec._drafter
+    propose, trim = drafter.propose, spec._spec_trim
+    trims = []
+
+    def checked_trim(seq):
+        trim(seq)
+        if seq.slot is not None:
+            want = PageAllocator.pages_for(seq.pos, spec.spec.page_size)
+            trims.append(len(seq.pages) == want)
+
+    drafter.propose = lambda ctx, k=None: [garbage] * (
+        drafter.draft_k if k is None else min(k, drafter.draft_k))
+    spec._spec_trim = checked_trim
+    w0, c0 = spec.spec_windows, spec.spec_commits_total
+    a0 = spec.spec_tokens_accepted
+    try:
+        tokens, kv_on = turn("rb-spec")
+    finally:
+        drafter.__dict__.pop("propose", None)
+        spec.__dict__.pop("_spec_trim", None)
+    assert drafter.propose == propose
+    windows = spec.spec_windows - w0
+    commits = spec.spec_commits_total - c0
+    if tokens != stream:
+        raise AssertionError(f"[serve-spec] rollback stream {tokens} vs "
+                             f"speculation off {stream}")
+    if spec.spec_tokens_accepted != a0 or commits != windows or not trims \
+            or not all(trims):
+        raise AssertionError(f"[serve-spec] rollback: {windows} windows "
+                             f"committed {commits}; trims {trims}")
+    torch.cuda.synchronize()
+    if not all(torch.equal(kv_off[k], kv_on[k]) for k in kv_off):
+        raise AssertionError("[serve-spec] pinned KV after rolled-back "
+                             "windows differs from speculation off")
+    log(f"[serve-spec] rollback through the engine: {windows} windows of "
+        f"garbage drafts (id {garbage}) committed 1 token each, every "
+        f"reconcile left pages_for(pos) pages ({len(trims)} trims), the "
+        f"stream is speculation off's ({len(stream)} tokens), and the "
+        f"pinned KV of the turn ({kv_on['k'].shape[1]} positions) is "
+        f"bitwise speculation off's")
+    return {"windows": windows, "tokens": len(stream)}
+
+
+def _spec_window_ms(ex, rows) -> dict:
+    """The verify window's device time at B=8 against W plain steps, from
+    the dispatches' own CUDA events (start behind the inputs' copies,
+    done behind the tokens' copy to the host), five each in turns: a
+    window that accepts every draft, one that rejects every draft at
+    step 0 (early exit), and a W-step decode chunk."""
+    import numpy as np
+
+    tok, pos, bt = rows
+    B, W = len(tok), ex.verify_draft_k + 1
+    temps = np.zeros(B, np.float32)
+    full = np.full(B, W, np.int32)
+    chunk = ex.decode_chunk(tok, pos, bt, temps, full)
+    ms = {"accept_all": [], "reject_all": [], "plain": []}
+    for _ in range(5):
+        for kind in ms:
+            if kind == "plain":
+                h = ex.decode_chunk_start(tok, pos, bt, temps, full)
+            else:
+                d = (chunk[:, :W - 1] if kind == "accept_all"
+                     else np.full((B, W - 1), ex.model_cfg.vocab_size - 1,
+                                  np.int32))
+                h = ex.verify_chunk_start(tok, pos, bt, temps, d, full)
+            h.wait_ready()
+            ms[kind].append(h._start.elapsed_time(h._done))
+    med = {k: sorted(v)[len(v) // 2] for k, v in ms.items()}
+    log(f"[serve-spec] B={B} device ms (start to done events, median of 5; "
+        f"W={W}): verify window accepting all {med['accept_all']:.3f}, "
+        f"rejecting all at step 0 {med['reject_all']:.3f}, plain {W}-step "
+        f"chunk {med['plain']:.3f} ({ms}) ({CARD}; {clocks()})")
+    return med
+
+
+def _spec_rates(spec, tag: str) -> dict:
+    """B=1 and 8 concurrent requests of SPEC_NEW_TOKENS over repetitive
+    prompts through the engine directly, with speculation off and on in
+    turns (off, on, on, off; the same executor, pool and graphs): decode
+    tok/s after the first token at B=1 and end to end with 8; and how
+    many of the B=1 greedy tokens with speculation on equal those with it
+    off."""
+    from llmq_tpu_torch.engine.engine import GenRequest
+
+    def b1(i):
+        h = spec.submit(GenRequest(id=f"{tag}-b1-{i}-{time.time()}",
+                                   prompt=_spec_prompt(50),
+                                   max_new_tokens=SPEC_NEW_TOKENS))
+        assert h.wait(300), "B=1 request timed out"
+        rate = ((len(h.result.tokens) - 1)
+                / (h.finished_at - h.marks["first_token"]))
+        return rate, h.result.tokens
+
+    def b8(i):
+        hs = [spec.submit(GenRequest(id=f"{tag}-b8-{i}-{j}-{time.time()}",
+                                     prompt=_spec_prompt(60 + j),
+                                     max_new_tokens=SPEC_NEW_TOKENS))
+              for j in range(8)]
+        for h in hs:
+            assert h.wait(300), "8-concurrent request timed out"
+        return (sum(len(h.result.tokens) for h in hs)
+                / (max(h.finished_at for h in hs)
+                   - min(h.submitted_at for h in hs)))
+
+    res = {"off_b1": [], "on_b1": [], "off_b8": [], "on_b8": []}
+    streams = {}
+    pc = spec._prefix_cache
+    for i, side in enumerate(("off", "on", "on", "off")):
+        # Every turn prefills its prompts whole: a turn that found the
+        # last one's pages in the radix tree would prefill only a tail,
+        # in another program, and a near-tie could then flip.
+        pc.evict_pages(pc.pages)
+        with (_spec_off(spec) if side == "off" else contextlib.nullcontext()):
+            spec.start()
+            try:
+                rate, toks = b1(i)
+                res[f"{side}_b1"].append(rate)
+                streams.setdefault(side, toks)
+                res[f"{side}_b8"].append(b8(i))
+            finally:
+                spec.stop()
+    same = 0
+    for a, b in zip(streams["on"], streams["off"]):
+        if a != b:
+            break
+        same += 1
+    out = {k: sum(v) / len(v) for k, v in res.items()}
+    out["b1_greedy_tokens_equal"] = same
+    out["b1_greedy_tokens"] = len(streams["off"])
+    log(f"[serve-spec] {SPEC_NEW_TOKENS}-token requests over repetitive "
+        f"prompts, one engine with speculation off and on in turns "
+        f"(off/on/on/off): B=1 decode {res['off_b1']} / {res['on_b1']} "
+        f"tok/s (off / on), 8 concurrent end to end {res['off_b8']} / "
+        f"{res['on_b8']} tok/s; the B=1 greedy stream with speculation on "
+        f"equals off's for its first {same} of {len(streams['off'])} tokens "
+        f"({CARD}; {clocks()})")
+    return out
+
+
+def _spec_window_gaps(engine, n: int):
+    """Device idle at the boundaries of the next ``n + 1`` verify windows
+    the engine dispatches (while it serves), from the windows' own CUDA
+    events (``_event_chunk_gaps`` for verify windows)."""
+    ex = engine.executor
+    handles = []
+    real = ex.verify_chunk_start
+
+    def recording(*args, **kwargs):
+        h = real(*args, **kwargs)
+        handles.append(h)
+        return h
+
+    ex.verify_chunk_start = recording
+    try:
+        _until(lambda: len(handles) > n, 120, f"{n + 1} verify windows")
+    finally:
+        ex.__dict__.pop("verify_chunk_start", None)
+    hs = handles[:n + 1]
+    hs[-1].wait_ready()
+    return [a._done.elapsed_time(b._start) for a, b in zip(hs, hs[1:])]
+
+
+def _spec_rest(engine, base, tally) -> dict:
+    """Gate 5 over REST: B=1 and 8 concurrent requests of
+    SPEC_NEW_TOKENS (repetitive prompts), a two-turn conversation (turn 2
+    cached), and eight LOW requests filling the slots with one REALTIME
+    arrival that preempts. Every request completes, the pool holds only
+    the radix tree's pages and the pins once idle, and the window
+    boundaries' device idle is measured while the 8 decode; printed,
+    the steps a window ran and the tokens a row committed a window."""
+    ex = engine.executor
+    steps0, windows0 = ex.verify_replays, engine.spec_windows
+    rows0, commits0 = tally["row_windows"], engine.spec_commits_total
+    mids = [_post(base, {"content": _spec_prompt(0), "priority": "normal",
+                         "metadata": {"max_new_tokens": SPEC_NEW_TOKENS}})]
+    results = [_poll(base, mids[0])]
+    b8 = [_post(base, {"content": _spec_prompt(20 + i), "priority": "high",
+                       "metadata": {"max_new_tokens": SPEC_NEW_TOKENS}})
+          for i in range(8)]
+    gaps = _spec_window_gaps(engine, 10)
+    results += [_poll(base, m) for m in b8]
+    turns = []
+    for text in (_spec_prompt(30), " Now repeat the tiers, please."):
+        turns.append(_poll(base, _post(base, {
+            "content": text, "conversation_id": "spec-conv",
+            "priority": "high", "metadata": {"max_new_tokens": 32}})))
+    cached = turns[1]["metadata"]["usage"]["cached_tokens"]
+    if cached <= 0:
+        raise AssertionError(f"[serve-spec] turn 2 cached_tokens={cached}")
+    results += turns
+    pre0 = engine.preemptions
+    lows = [_post(base, {"content": _spec_prompt(40 + i), "priority": "low",
+                         "metadata": {"max_new_tokens": SPEC_NEW_TOKENS}})
+            for i in range(8)]
+    _until(lambda: _decoding_rows(engine) == 8, 120, "8 LOW rows decoding")
+    rt = _post(base, {"content": "Urgent: the realtime tier first.",
+                      "priority": "realtime",
+                      "metadata": {"max_new_tokens": 32}})
+    results += [_poll(base, rt)] + [_poll(base, m) for m in lows]
+    if engine.preemptions <= pre0:
+        raise AssertionError("[serve-spec] the REALTIME arrival preempted "
+                             "no LOW row")
+    tokens = _check_completed(results, "serve-spec REST")
+    _until(lambda: _idle(engine), 60, "the spec engine idle")
+    used, held, tree, pins = _pool_accounting(engine)
+    if used != held:
+        raise AssertionError(f"[serve-spec] {used} pages in use once idle, "
+                             f"the tree and pins hold {held}")
+    windows = engine.spec_windows - windows0
+    steps = (ex.verify_replays - steps0) / windows
+    per_row = ((engine.spec_commits_total - commits0)
+               / (tally["row_windows"] - rows0))
+    log(f"[serve-spec] {windows} windows ran {steps:.2f} steps each on "
+        f"average and committed {per_row:.2f} tokens a row each")
+    log(f"[serve-spec] {len(results)} REST requests completed ({tokens} "
+        f"tokens): B=1, 8 concurrent, a two-turn conversation (turn 2 "
+        f"cached_tokens {cached}), 8 LOW + a REALTIME that preempted "
+        f"({engine.preemptions - pre0} preemption(s)); pages in use once "
+        f"idle {used} = tree {tree} + pins {pins}; window boundaries while "
+        f"8 decode: idle {', '.join(f'{g:.3f}' for g in gaps)} ms "
+        f"({CARD})")
+    return {"requests": len(results), "tokens": tokens,
+            "turn2_cached_tokens": cached,
+            "preemptions": engine.preemptions - pre0,
+            "window_gap_ms": gaps, "windows": windows,
+            "steps_per_window": steps, "tokens_per_row_window": per_row}
+
+
+def _spec_tally(engine) -> dict:
+    """Count, from the engine's own reconciles on, the drafted rows that
+    each window observes into the acceptance histogram and the sum of
+    their acceptances, and every committed row of a window."""
+    tally = {"rows": 0, "sum": 0.0, "row_windows": 0}
+    note = engine._note_spec_window
+
+    def noting(pairs):
+        tally["row_windows"] += len(pairs)
+        for w, n in pairs:
+            if w > 1:
+                tally["rows"] += 1
+                tally["sum"] += max(0, n - 1) / (w - 1)
+        return note(pairs)
+
+    engine._note_spec_window = noting
+    return tally
+
+
+def _spec_metrics(engine, base, tally) -> dict:
+    """``get_stats()["speculation"]`` and the four ``/metrics`` families
+    against the engine's own counters (the acceptance histogram against
+    the drafted rows of every window since the engine was built)."""
+    st = engine.get_stats()["speculation"]
+    want = {"draft_k": SPEC_DRAFT_K, "windows": engine.spec_windows,
+            "tokens_proposed": engine.spec_tokens_proposed,
+            "tokens_accepted": engine.spec_tokens_accepted,
+            "tokens_committed": engine.spec_commits_total,
+            "fetches": engine.spec_fetches_total}
+    if {k: st[k] for k in want} != want:
+        raise AssertionError(f"[serve-spec] stats {st} vs counters {want}")
+    samples, _ms = _scrape(base)
+    name = engine.name
+    got = {
+        "proposed": _msum(samples, "llm_queue_spec_tokens_proposed_total",
+                          engine=name),
+        "accepted": _msum(samples, "llm_queue_spec_tokens_accepted_total",
+                          engine=name),
+        "cadence": _msum(samples, "llm_queue_spec_readback_cadence",
+                         engine=name),
+        "observed": _msum(samples, "llm_queue_spec_acceptance_rate_count",
+                          engine=name),
+        "observed_sum": _msum(samples, "llm_queue_spec_acceptance_rate_sum",
+                              engine=name)}
+    if (got["proposed"] != engine.spec_tokens_proposed
+            or got["accepted"] != engine.spec_tokens_accepted
+            or abs(got["cadence"] - engine.spec_commits_total
+                   / engine.spec_fetches_total) > 1e-9
+            or got["observed"] != tally["rows"] or not tally["rows"] > 0
+            or abs(got["observed_sum"] - tally["sum"]) > 1e-6):
+        raise AssertionError(f"[serve-spec] /metrics {got} vs the engine's "
+                             f"{want}, drafted rows {tally}")
+    log(f"[serve-spec] speculation stats {st}; /metrics spec families "
+        f"{got} equal the engine's counters ({CARD})")
+    return st
+
+
+def phase_serve_spec(state) -> None:
+    """Speculative decoding on the serve phase's weights (llama3-8b at
+    full width and depth; the serve phase's ragged engine is released,
+    its default engine kept for serve-plane when that phase runs):
+    program identity of the verify window against plain decode (device
+    accept on the fused and split routes, host accept, int8 KV), KV
+    rollback, then an engine with speculation on serving over REST, and
+    its rates with speculation off and on in turns."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from llmq_tpu_torch.__main__ import App
+    from llmq_tpu_torch.engine.builder import build_engine
+    from llmq_tpu_torch.ops import kernels
+
+    params = state.pop("serve_params", None)
+    if params is None:
+        raise AssertionError("serve-spec runs on the serve phase's weights: "
+                             "run serve before it")
+    out = state.setdefault("serve_spec", {})
+    launches = out.setdefault("launches", {})
+    counts, restore = _count_plain_calls()
+    spec = host = q8 = app = None
+    try:
+        cfg = _spec_cfg()
+        t0 = time.perf_counter()
+        spec = build_engine(cfg, params=params, name="engine-spec",
+                            warmup=True)
+        ex = spec.executor
+        tally = _spec_tally(spec)
+        _log_warmup(spec, "serve-spec")
+        log(f"[serve-spec] engine with speculation on (draft_k "
+            f"{SPEC_DRAFT_K}, ngram_max {SPEC_NGRAM_MAX}, device accept) on "
+            f"the serve phase's weights, built in "
+            f"{time.perf_counter() - t0:.1f} s; verify graphs "
+            f"{sorted(ex.verify_graphs)}; {_switches(spec)}")
+        rng = np.random.default_rng(0)
+        rows = _spec_rows(ex, rng)
+        # Gate 1: device accept, fused route (kernel 1).
+        out["fused"] = _spec_identity(ex, rows, "device accept, fused")
+        launches["fused_decode"] = out["fused"]["window_launches"].get(
+            "fused_decode", 0)
+        # Gate 2: the split route (kernels 4 + 8) and host accept.
+        ex.fused_decode = False
+        try:
+            out["split"] = _spec_identity(ex, rows, "device accept, split")
+        finally:
+            ex.fused_decode = True
+        w = out["split"]["window_launches"]
+        if w.get("fused_decode") or not w.get("kv_cache_write") \
+                or not w.get("paged_decode_attention"):
+            raise AssertionError(f"split verify window launched {w}")
+        for name in ("kv_cache_write", "paged_decode_attention"):
+            launches[name] = w[name]
+        out["window_ms"] = _spec_window_ms(ex, rows)
+        host = _spec_executor(params, device_sampling=False)
+        host_rows = _spec_rows(host, np.random.default_rng(0))
+        out["host"] = _spec_identity(host, host_rows, "host accept, fused")
+        # Gate 3: rollback at the executor (host accept) and through the
+        # engines.
+        out["rollback"] = _spec_rollback(host, host_rows)
+        host.release_graphs()
+        del host, host_rows
+        host = None
+        out["rollback_engine"] = _spec_rollback_engine(spec)
+        # Gate 4: int8 KV (kernel 5), full depth, the same bf16 weights.
+        q8 = _spec_executor(params, cache_dtype=torch.int8)
+        out["int8_kv"] = _spec_identity(q8, _spec_rows(
+            q8, np.random.default_rng(0)), f"device accept, int8 KV, full "
+            f"depth ({q8.model_cfg.n_layers} layers)")
+        w = out["int8_kv"]["window_launches"]
+        if not w.get("fused_decode_q8") or w.get("fused_decode"):
+            raise AssertionError(f"int8-KV verify window launched {w}")
+        launches["fused_decode_q8"] = w["fused_decode_q8"]
+        q8.release_graphs()
+        del q8
+        q8 = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        # Gate 5: serving over REST with speculation on.
+        app = App(cfg, engine=spec)
+        base = f"http://127.0.0.1:{app.start(host='127.0.0.1', port=0)}"
+        spec.generate("warm up the speculation path", max_new_tokens=4)
+        kernels.reset_launches()
+        out["rest"] = _spec_rest(spec, base, tally)
+        torch.cuda.synchronize()
+        served = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        for name in ("fused_decode", "kv_prefill_write", "prefill_attention"):
+            if not served.get(name):
+                raise AssertionError(f"serve-spec REST never launched {name}:"
+                                     f" {served}")
+        for name in ("kv_prefill_write", "prefill_attention"):
+            launches[name] = served[name]
+        launches["fused_decode"] += served["fused_decode"]
+        out["rest_launches"] = served
+        out["speculation"] = _spec_metrics(spec, base, tally)
+        app.stop()
+        app = None
+        out["rates"] = _spec_rates(spec, "serve-spec")
+        serve = state.get("serve") or {}
+        log(f"[serve-spec] for reference, the serve phase's engine "
+            f"(speculation off, 32-token requests): B=1 "
+            f"{serve.get('decode_tok_s_b1')} tok/s, 8 concurrent "
+            f"{serve.get('tok_s_b8_e2e')} tok/s ({CARD})")
+        log(f"[serve-spec] kernel launches in the phase {launches}; "
+            f"speculation {spec.get_stats()['speculation']} ({CARD})")
+    finally:
+        if app is not None:
+            app.stop()
+        restore()
+        for ex in (host, q8, spec.executor if spec is not None else None):
+            if ex is not None:
+                ex.release_graphs()
+        del spec, host, q8, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    if counts:
+        raise AssertionError(f"serve-spec called plain twins: {counts}")
+
+
 PHASES = [("env", phase_env), ("build", phase_build),
           ("kernels", phase_kernels), ("split", phase_split),
           ("model", phase_model), ("graphs", phase_graphs),
-          ("serve", phase_serve), ("serve-plane", phase_serve_plane),
+          ("serve", phase_serve), ("serve-spec", phase_serve_spec),
+          ("serve-plane", phase_serve_plane),
           ("serve-split", phase_serve_split),
           ("serve-int8", phase_serve_int8)]
 
@@ -5513,10 +6336,12 @@ def main(argv=()) -> int:
                       "serve_int8": state.get("serve_int8"),
                       "serve_plane": state.get("serve_plane"),
                       "serve_split": state.get("serve_split"),
+                      "serve_spec": state.get("serve_spec"),
                       "serve_boot": state.get("serve_boot"),
                       "int_mm": state.get("int_mm"),
                       "launch_floor_ms": state.get("launch_floor_ms"),
-                      "graphs": state.get("graphs")}, default=str))
+                      "graphs": state.get("graphs"),
+                      "profiler_lost": PROFILER_LOST}, default=str))
     print(CARD)
     if len(chosen) < len(PHASES):
         return 0

@@ -427,6 +427,40 @@ class PrefixCacheConfig:
 
 
 @dataclass
+class SpeculationConfig:
+    """Speculative decoding (``speculation/``, the JAX package's
+    ``SpeculationConfig``): the n-gram drafter proposes up to
+    ``draft_k`` tokens a row out of the request's own history, the
+    executor verifies the whole window in one device program
+    (teacher-forced decode steps), and the engine commits the accepted
+    run plus the correction per fetch. ``enabled: false`` (the default)
+    is a hard off-switch: no drafter, no verify program, and scheduling
+    and outputs exactly as without the plane."""
+    enabled: bool = False
+    #: Draft tokens a row a window at most; the verify window's static
+    #: width is draft_k + 1 (the drafts and the correction).
+    draft_k: int = 4
+    #: Longest suffix n-gram the drafter matches (it backs off to shorter
+    #: ones down to 1).
+    ngram_max: int = 3
+    #: Device accept: sampling, the draft comparison, the EOS freeze and
+    #: n_commit stay in the device program. ``false`` runs every window
+    #: step and computes the accept rule on the host from the fetched
+    #: tokens; the committed streams are the same either way.
+    device_sampling: bool = True
+
+    def __post_init__(self) -> None:
+        if not 1 <= self.draft_k <= 16:
+            raise ValueError(
+                f"executor.speculation.draft_k must be in [1, 16] "
+                f"(got {self.draft_k})")
+        if self.ngram_max < 1:
+            raise ValueError(
+                f"executor.speculation.ngram_max must be >= 1 "
+                f"(got {self.ngram_max})")
+
+
+@dataclass
 class ExecutorConfig:
     #: "torch", the port's executor (the JAX package's "echo" and "jax"
     #: raise).
@@ -450,6 +484,8 @@ class ExecutorConfig:
         default_factory=AsyncPipelineConfig)
     prefix_cache: PrefixCacheConfig = field(
         default_factory=PrefixCacheConfig)
+    speculation: SpeculationConfig = field(
+        default_factory=SpeculationConfig)
     supervisor: SupervisorConfig = field(default_factory=SupervisorConfig)
 
     def __post_init__(self) -> None:
@@ -570,8 +606,6 @@ _UNPORTED: Dict[str, Any] = {
                        "host_max_conversations": 4096,
                        "store_spill": True, "promote_timeout_s": 5.0,
                        "eviction_policy": "saved_rate"},
-        "speculation": {"enabled": False, "draft_k": 4, "ngram_max": 3,
-                        "device_sampling": True},
         "mesh": {"enabled": False, "shape": {}}},
     "tpu": {"mesh_shape": {}, "platform": "", "compilation_cache_dir": ""},
 }

@@ -4,7 +4,8 @@ branch of ``llmq_tpu/engine/builder.py``), in bf16 or with int8 weights
 (``model.quantization``) and/or int8 KV pools (``model.kv_quantization``),
 the two switches independent as in the JAX package; the async decode
 pipeline (``executor.async_pipeline``) and the radix prefix cache
-(``executor.prefix_cache``) on by default, as in the JAX package. The
+(``executor.prefix_cache``) on by default, as in the JAX package;
+speculative decoding (``executor.speculation``) off by default. The
 build stamps its boot stages (``weights``, and with ``warmup`` the
 ``artifact``, ``compile`` and ``warmup`` stages) onto this process's boot
 record (observability/critical_path.py), opened here when no entry point
@@ -73,7 +74,7 @@ def build_engine(cfg: Config, *, name: str = "engine0",
         raise ValueError(f"unknown model.kv_quantization {kv_quant!r} "
                          f"(supported: 'int8')")
     mixed, ragged = ex.mixed_batch, ex.ragged_attention
-    pipe, prefix = ex.async_pipeline, ex.prefix_cache
+    pipe, prefix, spec = ex.async_pipeline, ex.prefix_cache, ex.speculation
     t0 = time.perf_counter()
     if params is None:
         gen = torch.Generator(device=dev)
@@ -107,6 +108,10 @@ def build_engine(cfg: Config, *, name: str = "engine0",
                                or mixed.prefill_token_budget),
         ragged_max_slices=ragged.max_slices,
         cache_dtype=torch.int8 if kv_quant == "int8" else None,
+        # Speculation: draft_k > 0 builds the verify window; 0 hides
+        # verify_chunk, so the off-switch keeps the plain decode path.
+        speculation_draft_k=spec.draft_k if spec.enabled else 0,
+        speculation_device_sampling=spec.device_sampling,
         device=str(dev), telemetry_name=name,
         # Warmup runs before the engine can set the flag.
         telemetry_metrics=cfg.metrics.enabled)
@@ -130,12 +135,13 @@ def build_engine(cfg: Config, *, name: str = "engine0",
         mixed_batch=mixed,
         prefix_cache=prefix,
         async_pipeline=pipe,
+        speculation=spec,
         enable_metrics=cfg.metrics.enabled)
     log.info("built %s engine %s on %s in %.1fs (slots=%d pages=%d "
              "page_size=%d chunk=%d prefill_batch=%d quantization=%s "
              "kv_quantization=%s "
              "weights=%.2f GB mixed_batch=%s ragged_attention=%s "
-             "async_pipeline=%s prefix_cache=%s warmup=%s)",
+             "async_pipeline=%s prefix_cache=%s speculation=%s warmup=%s)",
              mcfg.name, name, dev, time.perf_counter() - t0,
              ex.max_batch_size, ex.kv_pages, ex.page_size, ex.decode_chunk,
              executor.prefill_batch, quant or "bf16", kv_quant or "bf16",
@@ -150,6 +156,8 @@ def build_engine(cfg: Config, *, name: str = "engine0",
               f"{pipe.completion_workers})" if pipe.enabled else "off"),
              (f"on({prefix.eviction} max_cached_pages="
               f"{prefix.max_cached_pages})" if prefix.enabled else "off"),
+             (f"on(k={spec.draft_k} device_sampling="
+              f"{spec.device_sampling})" if spec.enabled else "off"),
              (" ".join(f"{k}={v:.2f}s" for k, v in
                        executor.warmup_split.items()) if warmup else "off"))
     return engine

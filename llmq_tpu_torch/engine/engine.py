@@ -78,8 +78,18 @@ active sequence by a chunk of tokens per device program.
   their decode spans (critical path); KV page-seconds; waste on rebuild
   re-prefill; each finished request's lifecycle marks into the flight
   recorder, with its usage in ``handle.usage``.
+- **Speculative decoding** (``speculation``). The n-gram drafter proposes
+  up to ``draft_k`` tokens a row out of its own committed stream; every
+  decode advancement is then one verify window (executor
+  ``verify_chunk_start``, reconciled on the fetch lane) that commits the
+  accepted run plus the correction per fetch, trims the pages past the
+  committed position (``_spec_trim``), and charges usage and the
+  critical path by the accepted counts.
+  Windows never chain device to device, mixed steps are off (prefill
+  runs through the bucket programs between windows), and greedy streams
+  are those of plain decode.
 
-Left to later work (``ROADMAP.md``): tenancy, tiering and speculation.
+Left to later work (``ROADMAP.md``): tenancy and tiering.
 """
 
 from __future__ import annotations
@@ -111,6 +121,7 @@ from llmq_tpu_torch.observability.usage import (DEFAULT_TENANT, RequestUsage,
                                                 get_usage_ledger,
                                                 sanitize_tenant)
 from llmq_tpu_torch.prefixcache import PrefixCache
+from llmq_tpu_torch.speculation import NgramDrafter
 from llmq_tpu_torch.utils.profiling import SpanRecorder
 
 log = logging.getLogger("llmq_tpu_torch.engine")
@@ -339,12 +350,14 @@ class _InflightChunk:
     ``(seq, n_tokens, final)`` slices fused into step 0. ``dispatch_s``:
     the host's assembly and dispatch seconds (the step decomposition's
     dispatch leg); ``dispatched_at``: perf_counter once the chunk was
-    queued, where its device span starts (overlap attribution)."""
+    queued, where its device span starts (overlap attribution). ``spec``:
+    a verify window, whose ``budgets`` are the rows' window sizes and
+    whose fetch resolves to ``(out, n_commit)``."""
 
-    __slots__ = ("handle", "seqs", "budgets", "fetch_box", "pf",
+    __slots__ = ("handle", "seqs", "budgets", "fetch_box", "pf", "spec",
                  "dispatch_s", "dispatched_at")
 
-    def __init__(self, handle, seqs, budgets, pf=None,
+    def __init__(self, handle, seqs, budgets, pf=None, spec: bool = False,
                  dispatch_s: float = 0.0,
                  dispatched_at: float = 0.0) -> None:
         self.handle = handle
@@ -352,6 +365,7 @@ class _InflightChunk:
         self.budgets = budgets    # np.ndarray (B,) int32
         self.fetch_box: Optional[Dict] = None
         self.pf = pf
+        self.spec = spec
         self.dispatch_s = dispatch_s
         self.dispatched_at = dispatched_at
 
@@ -438,7 +452,8 @@ class InferenceEngine:
                  preemption: bool = True, kv_pin_ttl: float = 600.0,
                  tier_max_wait: Optional[Dict[Priority, float]] = None,
                  mixed_batch=None, prefix_cache=None,
-                 async_pipeline=None, enable_metrics: bool = True) -> None:
+                 async_pipeline=None, speculation=None,
+                 enable_metrics: bool = True) -> None:
         self.executor = executor
         self.spec = executor.spec
         self.tokenizer = tokenizer or ByteTokenizer()
@@ -571,6 +586,33 @@ class InferenceEngine:
         self._pause_req = threading.Event()
         self._pause_parked = threading.Event()
         self._pause_lift = threading.Event()
+        #: Speculative decoding: a ``SpeculationConfig`` (or anything with
+        #: its fields). None or disabled keeps the plain decode
+        #: scheduling exactly; on, it also needs an executor with a
+        #: verify entry point (built only with ``speculation_draft_k``).
+        self._spec_on = (speculation is not None
+                         and getattr(speculation, "enabled", False)
+                         and callable(getattr(executor, "verify_chunk",
+                                              None)))
+        self._drafter: Optional[NgramDrafter] = None
+        if self._spec_on:
+            dk = int(getattr(speculation, "draft_k", 4))
+            ex_k = getattr(executor, "verify_draft_k", None)
+            if ex_k:
+                # The verify window's width is static: the drafter never
+                # proposes past it.
+                dk = min(dk, int(ex_k))
+            self._drafter = NgramDrafter(
+                dk, int(getattr(speculation, "ngram_max", 3)))
+        #: Speculation counters (kept with the metrics off too): windows
+        #: reconciled, draft tokens proposed and accepted, tokens
+        #: committed through windows and the fetches that carried them
+        #: (committed / fetches is the readback cadence).
+        self.spec_windows = 0
+        self.spec_tokens_proposed = 0
+        self.spec_tokens_accepted = 0
+        self.spec_commits_total = 0
+        self.spec_fetches_total = 0
 
     # -- submission ----------------------------------------------------------
 
@@ -1376,10 +1418,13 @@ class InferenceEngine:
             return reaped
         decode_active = any(s is not None and s.prefilled
                             for s in self._slots)
-        if self._mixed_on() and decode_active:
+        if self._mixed_on() and decode_active and not self._spec_on:
             # Mixed mode owns prefill while decode rows are hot: the next
             # mixed chunk runs these sequences' slices inside the decode
             # program (budget-bounded) instead of whole buckets first.
+            # Speculation takes no mixed step, so prefill runs here then
+            # (the JAX package returns here under speculation too, and a
+            # prompt then waits until no row decodes).
             return reaped
         cands.sort(key=lambda s: s.sort_key())
         ex = self.executor
@@ -1529,8 +1574,10 @@ class InferenceEngine:
 
     def _mixed_applicable(self) -> bool:
         """Run a mixed chunk this round: mixed batching is on, decode rows
-        are active, and a mid-prefill slot has a slice to dispatch."""
-        if not self._mixed_on():
+        are active, and a mid-prefill slot has a slice to dispatch. Never
+        under speculation: every decode token moves through a verify
+        window, and prefill runs through the bucket programs."""
+        if self._spec_on or not self._mixed_on():
             return False
         if not any(s is not None and s.prefilled for s in self._slots):
             return False
@@ -1757,7 +1804,10 @@ class InferenceEngine:
         A sequence whose final prefill chunk is dispatched but unresolved
         joins it (same-step join): its first token goes in device to
         device, and its admission completes at the next resolve, which
-        always runs before this chunk is processed."""
+        always runs before this chunk is processed. Under speculation the
+        chunk is a verify window (:meth:`_spec_once`)."""
+        if self._spec_on:
+            return self._spec_once()
         chunk = min(max(1, self.executor.chunk_size), self._admission_cap())
         joining = []
         if chunk > 1:
@@ -1832,6 +1882,133 @@ class InferenceEngine:
         self._set_gauges()
         return True
 
+    # -- speculation -----------------------------------------------------------
+
+    def _spec_once(self) -> bool:
+        """Dispatch one verify window (``InferenceEngine._spec_once`` of the
+        JAX package): for each prefilled row the drafter proposes up to
+        ``draft_k`` tokens from the row's own committed stream, the
+        executor verifies the window in one program, and the reconcile
+        commits the accepted run plus the correction, so one fetch
+        advances a row by up to ``draft_k + 1`` tokens. A row with no
+        proposal (or a budget of 1) rides the window as a plain step.
+        Joining rows are not fused: their first token commits at the next
+        resolve, and they enter the following window.
+
+        Greedy streams equal plain decode's (the window's steps are the
+        decode step's forward, teacher-forced); at a temperature the
+        committed token depends on (row, position, prefix) only."""
+        B = self.spec.batch_size
+        drafter = self._drafter
+        K = drafter.draft_k
+        # Window length: the drafts plus the correction, not capped by the
+        # plain chunk size (that would forfeit the plane whenever
+        # draft_k + 1 > chunk_size); an urgent waiter's admission cap
+        # still binds.
+        win = max(1, min(K + 1, self._admission_cap()))
+        active = [s for s in self._slots if s is not None and s.prefilled]
+        if not active:
+            self._set_gauges()
+            return False
+        budgets_by_order = self._budget_chunk_rows(win, active)
+        active = [s for s in self._slots
+                  if s is not None and s.prefilled
+                  and s.order in budgets_by_order]
+        if not active:
+            self._set_gauges()
+            return False
+        t_asm = time.perf_counter()   # step decomposition: dispatch leg
+        tokens = np.zeros(B, np.int32)
+        positions = np.zeros(B, np.int32)
+        block_tables = np.zeros((B, self.spec.max_pages_per_seq), np.int32)
+        temps = np.zeros(B, np.float32)
+        drafts = np.zeros((B, K), np.int32)
+        qlens = np.zeros(B, np.int32)
+        for seq in active:
+            i = seq.slot
+            budget = budgets_by_order[seq.order]
+            # Context: the committed stream, the pending last token (the
+            # next input) included.
+            d = (drafter.propose(seq.written_ids + [seq.last_token],
+                                 budget - 1)
+                 if budget > 1 else [])
+            drafts[i, :len(d)] = d
+            tokens[i] = seq.last_token
+            positions[i] = seq.pos
+            block_tables[i] = seq.block_table
+            temps[i] = seq.req.temperature
+            # The window writes KV at [pos, pos + qlen); pages for the
+            # whole budget were ensured above, and the rejected tail's
+            # are trimmed at the reconcile.
+            qlens[i] = 1 + len(d)
+        # Dispatched without a wait, and reconciled on the fetch lane at
+        # the next step, with the async pipeline off too (as in the JAX
+        # package, whose off-switch keeps the dispatch-then-fetch path).
+        with self._prof.span("engine.verify_dispatch", active=len(active),
+                             chunk=int(qlens.max())):
+            handle = self._dispatch(
+                lambda: self.executor.verify_chunk_start(
+                    tokens, positions, block_tables, temps, drafts, qlens),
+                active)
+        now = time.perf_counter()
+        seqs: List[Optional[_Sequence]] = [None] * B
+        for seq in active:
+            seqs[seq.slot] = seq
+        self._push_chunk(_InflightChunk(handle, seqs, qlens, spec=True,
+                                        dispatch_s=now - t_asm,
+                                        dispatched_at=now))
+        return True
+
+    def _spec_trim(self, seq: _Sequence) -> None:
+        """KV rollback of a reconciled window: the pages past the
+        committed position hold only the rejected tail's KV; they go back
+        to the pool (a page allocated for this very window included), as
+        ``_finish_active`` trims before a pin. A finished sequence has
+        released its pages already."""
+        if seq.slot is None:
+            return
+        keep = PageAllocator.pages_for(seq.pos, self.spec.page_size)
+        if len(seq.pages) <= keep:
+            return
+        extra = seq.pages[keep:]
+        seq.pages = seq.pages[:keep]
+        seq.block_table[keep:keep + len(extra)] = 0
+        self.allocator.free(extra)
+        self._usage_pages(seq)
+
+    def _note_spec_window(self, pairs) -> None:
+        """The counters of one reconciled window. ``pairs``: (window size,
+        n_commit) of each committed row (rows that finished while the
+        window was in flight are left out, so the cadence stays true).
+        A drafted row (size > 1) observes its acceptance (n-1)/(size-1);
+        the cadence gauge is committed tokens per fetch so far."""
+        proposed = accepted = committed = 0
+        m = get_metrics() if self._m is not None else None
+        for w, n in pairs:
+            if w <= 0:
+                continue
+            n = max(0, n)
+            committed += n
+            if w > 1:
+                proposed += w - 1
+                acc = max(0, n - 1)
+                accepted += acc
+                if m is not None:
+                    m.spec_acceptance.labels(self.name).observe(acc / (w - 1))
+        self.spec_windows += 1
+        self.spec_tokens_proposed += proposed
+        self.spec_tokens_accepted += accepted
+        self.spec_commits_total += committed
+        self.spec_fetches_total += 1
+        if m is not None:
+            if proposed:
+                m.spec_tokens_proposed.labels(self.name).inc(proposed)
+            if accepted:
+                m.spec_tokens_accepted.labels(self.name).inc(accepted)
+            m.spec_readback_cadence.labels(self.name).set(
+                self.spec_commits_total / self.spec_fetches_total)
+        self._telemetry.note_spec(proposed, accepted, committed)
+
     def _push_chunk(self, infl: _InflightChunk) -> None:
         self._inflight.append(infl)
         self.pipeline_depth_hist[len(self._inflight)] += 1
@@ -1883,7 +2060,12 @@ class InferenceEngine:
         and stays latched, and pages must come without any shedding,
         which could touch rows still decoding. Sequences whose final
         prefill chunk is dispatched but unresolved join as overrides.
-        Returns None when no carried dispatch is possible."""
+        Returns None when no carried dispatch is possible, and always
+        under speculation: the next window's drafts come from tokens the
+        host has not fetched yet, so every window is reconciled before
+        the next dispatch."""
+        if self._spec_on:
+            return None
         B = self.spec.batch_size
         chunk = min(max(1, self.executor.chunk_size), self._admission_cap())
         capacity = self.spec.max_pages_per_seq * self.spec.page_size
@@ -1975,16 +2157,21 @@ class InferenceEngine:
         pf_first = None
         if infl.pf is not None:
             out, pf_first = out
+        ncommit = None
+        if infl.spec:
+            out, ncommit = out      # a verify window: (tokens, n_commit)
         if self._usage.enabled or self._cp.enabled:
             # Attribute before committing: a row that finishes in the
             # commit loop finalizes its ledger record there and must
-            # already carry this chunk's share.
+            # already carry this chunk's share. A verify window weighs
+            # its rows by the accepted counts, a chunk by its budgets.
             parts = []
             decode_rows = []
             for slot in range(self.spec.batch_size):
                 seq = infl.seqs[slot]
                 if seq is not None and seq.slot == slot:
-                    w = max(1, int(infl.budgets[slot]))
+                    w = max(1, int(ncommit[slot] if ncommit is not None
+                                   else infl.budgets[slot]))
                     parts.append((seq, w, False))
                     decode_rows.append((seq, w))
             if infl.pf is not None:
@@ -1998,12 +2185,20 @@ class InferenceEngine:
                 self._cp_decode_share(device_s + readback_s, parts,
                                       decode_rows)
         tok0 = self.tokens_generated_total
+        pairs = []
         for slot in range(self.spec.batch_size):
             seq = infl.seqs[slot]
             if seq is None or seq.slot != slot:
                 continue    # finished while the chunk was in flight
-            self._commit_row(seq, out[slot], int(infl.budgets[slot]))
+            if infl.spec:
+                self._commit_row(seq, out[slot], int(ncommit[slot]))
+                pairs.append((int(infl.budgets[slot]), int(ncommit[slot])))
+                self._spec_trim(seq)
+            else:
+                self._commit_row(seq, out[slot], int(infl.budgets[slot]))
             self._flush_emits(seq)
+        if infl.spec:
+            self._note_spec_window(pairs)
         if infl.pf is not None:
             self._finish_mixed_prefills(infl.pf, pf_first)
         self._telemetry.note_step(infl.dispatch_s, device_s, readback_s,
@@ -2499,6 +2694,23 @@ class InferenceEngine:
                 "prefill_tokens": self.mixed_prefill_tokens_total,
                 "prefill_token_budget":
                     int(self._mixed_cfg.prefill_token_budget),
+            }
+        if self._spec_on:
+            out["speculation"] = {
+                "draft_k": self._drafter.draft_k,
+                "windows": self.spec_windows,
+                "tokens_proposed": self.spec_tokens_proposed,
+                "tokens_accepted": self.spec_tokens_accepted,
+                "acceptance_rate": (
+                    round(self.spec_tokens_accepted
+                          / self.spec_tokens_proposed, 4)
+                    if self.spec_tokens_proposed else 0.0),
+                "tokens_committed": self.spec_commits_total,
+                "fetches": self.spec_fetches_total,
+                "readback_cadence": (
+                    round(self.spec_commits_total
+                          / self.spec_fetches_total, 4)
+                    if self.spec_fetches_total else 0.0),
             }
         if self._prefix_cache is not None:
             pc = self._prefix_cache.get_stats()

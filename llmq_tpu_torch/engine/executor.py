@@ -66,6 +66,23 @@ visits the host. Every host input goes through a ring of pinned staging
 slots (:class:`HostStaging`), each reused only once the event behind its
 last copy has completed, so chunks queued back to back never overwrite
 each other's inputs. The blocking ``decode_chunk`` keeps its early exit.
+
+Speculation (``speculation_draft_k`` > 0; ``JaxExecutor.verify_chunk``):
+``verify_chunk_start`` runs one verify window of up to W = draft_k + 1
+teacher-forced decode steps over the same static buffers. With device
+accept (the default) each step is the decode step's own forward with a
+verify carry (:meth:`TorchExecutor._advance_verify`: step j feeds draft
+j, a row freezes the step after its sample differs from its draft or is
+EOS, ``n_commit`` counts its active steps), replayed from a graph of its
+own per decode route and ended early as the blocking chunk is; with host
+accept one graph runs ``forward_verify`` over all W steps and samples
+every position after it, and the host computes ``n_commit``
+(:func:`verify_host_ncommit`). Both sample with the position-keyed
+sampler (``ops/sampling.py`` ``sample_token_keyed``), so a committed
+token depends on (seed, row, position) and its prefix only; the window's
+tokens (and ``n_commit``) come back in one transfer. With
+``speculation_draft_k`` 0 the executor has no ``verify_chunk`` and no
+``verify_chunk_start`` (None), and builds no verify program.
 """
 
 from __future__ import annotations
@@ -85,7 +102,7 @@ from llmq_tpu_torch.observability.device import (get_device_telemetry,
 from llmq_tpu_torch.ops import kernels
 from llmq_tpu_torch.ops.attention import RAGGED_Q_BLOCK
 from llmq_tpu_torch.ops.quant import is_quantized, param_count, params_bytes
-from llmq_tpu_torch.ops.sampling import sample_token
+from llmq_tpu_torch.ops.sampling import sample_token, sample_token_keyed
 
 log = logging.getLogger("llmq_tpu_torch.executor")
 
@@ -326,6 +343,74 @@ class MixedChunkHandle(ChunkHandle):
         return v[:n].reshape(self._shape), v[n:]
 
 
+def verify_host_ncommit(out: np.ndarray, drafts: np.ndarray,
+                        qlens: np.ndarray, eos: int) -> np.ndarray:
+    """The accept rule of a fetched verify window on the host (the JAX
+    package's ``verify_host_ncommit``): the mirror of the device-accept
+    step's freeze, used in host-accept mode. Per row: walk the window,
+    count a commit per step, stop after the step whose sample is EOS, is
+    the row's last window position, or differs from its draft (that
+    sample is the correction and is committed)."""
+    B, W = out.shape
+    nc = np.zeros(B, np.int32)
+    for i in range(B):
+        w = int(qlens[i])
+        n = 0
+        for j in range(min(w, W)):
+            n += 1
+            t = int(out[i, j])
+            if t == eos or j >= w - 1:
+                break
+            if int(drafts[i, j]) != t:
+                break
+        nc[i] = n
+    return nc
+
+
+@dataclass
+class _VerifyBuffers:
+    """A verify window's static device buffers beside the decode step's
+    (whose ``tok``, ``pos``, ``bt``, ``temps`` carry the rows' last
+    committed tokens, positions, tables and temperatures, and whose
+    ``budgets`` carry the window sizes ``qlens``)."""
+
+    drafts: torch.Tensor     # (B, W) int32: the drafts, column W-1 is -1
+    out: torch.Tensor        # (B, W) int32, EOS-padded
+    ncommit: torch.Tensor    # (B,) int32: committed steps (device accept)
+    rows: torch.Tensor       # (B,) int64: 0..B-1, the sampler's row keys
+
+    def tensors(self) -> List[torch.Tensor]:
+        return [getattr(self, f.name) for f in fields(self)]
+
+
+class VerifyHandle(ChunkHandle):
+    """A dispatched verify window (``JaxExecutor``'s ``VerifyHandle``):
+    ``fetch()`` resolves to ``(out (B, W), n_commit (B,))`` from one
+    transfer. With device accept ``n_commit`` came with the tokens; with
+    host accept (``drafts`` given) it is computed here from the fetched
+    tokens by :func:`verify_host_ncommit`. A window carries nothing to a
+    later dispatch."""
+
+    __slots__ = ("_drafts", "_qlens", "_eos")
+
+    def __init__(self, host, shape, steps, start, done, host_ms, note,
+                 drafts=None, qlens=None, eos: int = 2) -> None:
+        super().__init__(None, None, None, host, shape, steps, start, done,
+                         host_ms, note)
+        self._drafts = drafts
+        self._qlens = qlens
+        self._eos = eos
+
+    def fetch(self) -> tuple:
+        v = self._wait()
+        n = self._shape[0] * self._shape[1]
+        out = v[:n].reshape(self._shape)
+        if self._drafts is None:
+            return out, v[n:]
+        return out, verify_host_ncommit(out, self._drafts, self._qlens,
+                                        self._eos)
+
+
 @dataclass
 class _StepGraph:
     """One captured program: a decode route's step, a prefill program or
@@ -407,6 +492,8 @@ class TorchExecutor:
                  ragged_token_capacity: int = 0, ragged_max_slices: int = 0,
                  cache_dtype: Optional[torch.dtype] = None,
                  prefill_batch: int = 4,
+                 speculation_draft_k: int = 0,
+                 speculation_device_sampling: bool = True,
                  device: str = "cuda", telemetry_name: str = "engine0",
                  telemetry_metrics: bool = True) -> None:
         if cache_dtype == torch.int8 and not fused_decode:
@@ -460,6 +547,16 @@ class TorchExecutor:
         self._telemetry.configure_model(**self.telemetry_info())
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
+        #: Speculation: ``verify_draft_k`` > 0 builds the verify window
+        #: (static width W = draft_k + 1); its draws are keyed by (this
+        #: base seed, row, position), not taken from ``_gen``.
+        self.verify_draft_k = max(0, int(speculation_draft_k))
+        self._spec_device_sampling = bool(speculation_device_sampling)
+        self._spec_seed = (seed ^ 0x5BEC) & 0xFFFFFFFF
+        #: The verify program's body: one device-accept step, or the
+        #: whole host-accept window.
+        self._verify_body = (self._verify_step if self._spec_device_sampling
+                             else self._verify_window)
         #: Milliseconds per decode step: calibrated by :meth:`warmup`,
         #: else first measured at the second decode call (the first pays
         #: the kernels' build and the capture), then a moving average: of
@@ -495,13 +592,36 @@ class TorchExecutor:
         # behind them.
         pin = self._pin = self.device.type == "cuda"
         self._staging = HostStaging(STAGING_RING, pin)
-        self._left_host = torch.zeros(K, dtype=torch.bool, pin_memory=pin)
-        self._left_events = ([torch.cuda.Event() for _ in range(K)]
+        W = self.verify_draft_k + 1
+        self._vbuf: Optional[_VerifyBuffers] = None
+        if self.verify_draft_k:
+            self._vbuf = _VerifyBuffers(
+                drafts=torch.full((B, W), -1, dtype=torch.int32,
+                                  device=self.device),
+                out=zeros((B, W), torch.int32), ncommit=zeros(B, torch.int32),
+                rows=torch.arange(B, dtype=torch.int64, device=self.device))
+        else:
+            # The off-switch: no verify program, and the engine sees no
+            # verify entry point at all.
+            self.verify_chunk = None
+            self.verify_chunk_start = None
+        # One exit flag a step of the longest early-exit loop (a decode
+        # chunk or a device-accept verify window).
+        n_flags = max(K, W)
+        self._left_host = torch.zeros(n_flags, dtype=torch.bool,
+                                      pin_memory=pin)
+        self._left_events = ([torch.cuda.Event() for _ in range(n_flags)]
                              if pin else None)
         #: The captured decode step of each route (key: ``fused_decode``).
         self.step_graphs: Dict[bool, _StepGraph] = {}
         #: Graph replays so far: the host's launches of decode steps.
         self.graph_replays = 0
+        #: The verify window's captured programs by name
+        #: (``verify_step_fused|split`` with device accept,
+        #: ``verify_window_fused|split`` with host accept) and the host's
+        #: replays of them.
+        self.verify_graphs: Dict[str, _StepGraph] = {}
+        self.verify_replays = 0
         self._capture_stream: Optional[torch.cuda.Stream] = None
         #: Prefill programs and mixed step 0s by name (``prefill_b128``,
         #: ``prefill_multi_b128``, ``mixed_step0``, ``ragged_step0``),
@@ -579,7 +699,8 @@ class TorchExecutor:
                                       for t in self.cache.values()),
                  "graph_pool_bytes": sum(
                      g.pool_bytes for g in list(self.step_graphs.values())
-                     + list(self.program_graphs.values())),
+                     + list(self.program_graphs.values())
+                     + list(self.verify_graphs.values())),
                  "free_bytes": None, "limit_bytes": None}
         if self.device.type == "cuda":
             free, total = torch.cuda.mem_get_info(self.device)
@@ -756,7 +877,8 @@ class TorchExecutor:
         replaying its graph (warmup before capture, and comparisons)."""
         t0 = time.perf_counter()
         self._fill(tokens, positions, block_tables, temperatures, budgets)
-        ran = self._decode_steps(self._chunk_steps(budgets), eager)
+        ran = self._decode_steps(self._chunk_steps(budgets),
+                                 lambda: self._run_step(eager))
         result = self._out()
         self._time_steps(t0, ran)
         return result
@@ -831,6 +953,160 @@ class TorchExecutor:
         return self._handle(MixedChunkHandle, steps, t0, start,
                             first[:len(pf)])
 
+    # -- speculation: the verify window --------------------------------------
+
+    @torch.inference_mode()
+    def verify_chunk_start(self, tokens, positions, block_tables: np.ndarray,
+                           temperatures: np.ndarray, drafts: np.ndarray,
+                           qlens: np.ndarray) -> VerifyHandle:
+        """Dispatch one verify window (``JaxExecutor.verify_chunk_start``):
+        ``tokens`` (B,) are the rows' last committed tokens, ``drafts``
+        (B, k ≤ draft_k) the teacher-forced proposals (what lies past a
+        row's own drafts is never compared), ``qlens`` (B,) each row's
+        window size (its drafts + 1; 0 skips the row). One fetch of the
+        handle resolves ``(out, n_commit)`` for every row.
+
+        Device accept runs the window's steps as the blocking decode
+        chunk runs its own (on the card each a replay of the verify
+        step's graph, step ``j - 1``'s exit flag read once step ``j`` is
+        queued), so a window that every row rejects at step 0 costs two
+        steps and the call returns once the last step is queued; host
+        accept queues the whole window (one replay) without a wait."""
+        return self._verify_start(tokens, positions, block_tables,
+                                  temperatures, drafts, qlens, eager=False)
+
+    def verify_chunk(self, tokens, positions, block_tables, temperatures,
+                     drafts, qlens) -> tuple:
+        """:meth:`verify_chunk_start`, then its fetch: ``(out (B, W),
+        n_commit (B,))``."""
+        return self.verify_chunk_start(tokens, positions, block_tables,
+                                       temperatures, drafts, qlens).fetch()
+
+    @torch.inference_mode()
+    def _verify_start(self, tokens, positions, block_tables, temperatures,
+                      drafts, qlens, *, eager: bool) -> VerifyHandle:
+        """:meth:`verify_chunk_start`; ``eager`` runs the bodies instead
+        of replaying their graphs (warmup before capture, and
+        comparisons)."""
+        if not self.verify_draft_k:
+            raise RuntimeError("speculation disabled for this executor")
+        t0 = time.perf_counter()
+        v = self._vbuf
+        B, W = v.out.shape
+        qlens = np.asarray(qlens, np.int32)
+        self._fill(tokens, positions, block_tables, temperatures, qlens)
+        d = np.asarray(drafts, np.int32).reshape(B, -1)
+        if d.shape[1] > W - 1:
+            raise ValueError(f"{d.shape[1]} drafts a row for a window of {W}")
+        slot = self._staging.take("verify", {"drafts": ((B, W),
+                                                        torch.int32)})
+        view = slot.views["drafts"]
+        view[...] = -1      # never sampled: the last step always freezes
+        view[:, :d.shape[1]] = d
+        v.drafts.copy_(slot.bufs["drafts"], non_blocking=self._pin)
+        slot.record()
+        v.out.fill_(self.spec.eos_id)
+        v.ncommit.zero_()
+        start = self._event(timing=True)
+        if self._spec_device_sampling:
+            steps = min(W, int(qlens.max()) if len(qlens) else 0)
+            ran = self._decode_steps(steps, lambda: self._run_verify(eager))
+            dev = torch.cat([v.out.view(-1), v.ncommit])
+            extra = {}
+        else:
+            self._run_verify(eager)
+            ran = W
+            dev = v.out.view(-1)
+            extra = {"drafts": d, "qlens": qlens, "eos": self.spec.eos_id}
+        host = torch.empty(dev.shape, dtype=torch.int32,
+                           pin_memory=self._pin)
+        host.copy_(dev, non_blocking=self._pin)
+        done = self._event(timing=True)
+        host_ms = (None if done is not None or ran <= 0 else
+                   (time.perf_counter() - t0) * 1e3 / ran)
+        return VerifyHandle(host, (B, W), ran, start, done, host_ms,
+                            self._note_step_ms, **extra)
+
+    def _verify_step(self) -> None:
+        """One device-accept verify step: the decode step's forward
+        (:meth:`_forward_active`) with the verify carry."""
+        active, logits = self._forward_active()
+        self._advance_verify(active, logits)
+
+    def _advance_verify(self, active: torch.Tensor,
+                        logits: torch.Tensor) -> None:
+        """The device-accept carry (``JaxExecutor``'s ``_verify_chunk``
+        loop body): sample step ``j`` keyed by (row, position + 1), emit
+        it for active rows (EOS otherwise), count it into ``n_commit``,
+        feed draft ``j`` as the next input, and freeze a row whose sample
+        is EOS or differs from that draft. Then ``j += 1`` and ``left``
+        says whether a row has a step ``j``."""
+        b, v = self._buf, self._vbuf
+        eos = self.spec.eos_id
+        nxt = sample_token_keyed(logits, self._spec_seed, v.rows, b.pos + 1,
+                                 temperature=b.temps, top_k=self._top_k,
+                                 top_p=self._top_p)
+        v.out.index_copy_(1, b.j, torch.where(active, nxt, eos)[:, None])
+        v.ncommit.add_(active.to(torch.int32))
+        nd = v.drafts.index_select(1, b.j)[:, 0]
+        b.frozen.logical_or_(active & ((nxt == eos) | (nxt != nd)))
+        # A -1 (no draft) freezes its row and is never fed on.
+        b.tok.copy_(torch.where(active & (nd >= 0), nd, b.tok))
+        b.pos.add_(active.to(torch.int32))
+        b.j.add_(1)
+        b.left.copy_(((~b.frozen) & (b.j < b.budgets)).any())
+
+    def _verify_window(self) -> None:
+        """The host-accept window (``JaxExecutor``'s raw
+        ``_verify_chunk``): ``forward_verify`` over the window's inputs
+        (the last committed token, then the drafts) with real KV writes
+        for every step below a row's ``qlens``, then every position
+        sampled at once with the same keys as the device-accept step."""
+        b, v = self._buf, self._vbuf
+        B, W = v.out.shape
+        # Steps past a row's window run masked; a -1 there (no draft)
+        # must still be a token id.
+        toks = torch.cat([b.tok[:, None], v.drafts[:, :W - 1]],
+                         dim=1).clamp_(min=0)
+        logits = self.model.forward_verify(toks, b.pos, b.budgets,
+                                           self.cache, b.bt,
+                                           fused=self.fused_decode)
+        steps = torch.arange(1, W + 1, dtype=torch.int32, device=b.pos.device)
+        positions = (b.pos[:, None] + steps[None, :]).reshape(-1)
+        rows = v.rows[:, None].expand(B, W).reshape(-1)
+        temps = b.temps[:, None].expand(B, W).reshape(-1)
+        out = sample_token_keyed(logits.reshape(B * W, -1), self._spec_seed,
+                                 rows, positions, temperature=temps,
+                                 top_k=self._top_k, top_p=self._top_p)
+        v.out.copy_(out.view(B, W))
+
+    def _run_verify(self, eager: bool) -> None:
+        """One device-accept verify step, or the whole host-accept window:
+        on the card a replay of the current route's captured program
+        (captured first if it is not yet), on the CPU or with ``eager``
+        the body itself."""
+        if eager or not self._graphs_on:
+            self._verify_body()
+            return
+        self._replay(self._verify_graph())
+        self.verify_replays += 1
+
+    def _verify_graph(self) -> _StepGraph:
+        """The current route's captured verify program, captured at first
+        use into a pool of its own."""
+        kind = "step" if self._spec_device_sampling else "window"
+        name = (f"verify_{kind}_"
+                f"{'fused' if self.fused_decode else 'split'}")
+        g = self.verify_graphs.get(name)
+        if g is None:
+            g = self.verify_graphs[name] = self._capture(self._verify_body,
+                                                         pool=None)
+            self._note_capture(name, g)
+            log.info("captured %s: %d kernel launches a replay, pool "
+                     "%.1f MiB", name, sum(g.launches.values()),
+                     g.pool_bytes / 2**20)
+        return g
+
     # -- warmup ---------------------------------------------------------------
 
     @torch.inference_mode()
@@ -840,13 +1116,15 @@ class TorchExecutor:
         1620-1811). In order: each program once eagerly, every write
         through all-zero block tables to page 0: bucket mode one prefill
         per bucket with one row and with ``prefill_batch`` rows, ragged
-        mode one ragged prefill; one decode chunk; with a mixed geometry
+        mode one ragged prefill; one decode chunk; with speculation one
+        verify window; with a mixed geometry
         one mixed chunk (on the card these build every kernel library,
         set every kernel attribute, make every split workspace and warm
         cuBLAS, all outside capture). Then (card only) the graphs: each
-        prefill program's, largest first, then the decode step's and the
-        mixed step 0's of each decode route (fused and split; an int8
-        cache has the fused one). Then ``step_ms`` from three pairs of a
+        prefill program's, largest first, then the decode step's, the
+        verify program's (with speculation) and the mixed step 0's of
+        each decode route (fused and split; an int8 cache has the fused
+        one). Then ``step_ms`` from three pairs of a
         1-step and a K-step chunk, as JAX: each pair's difference over
         the K-step chunk's effective steps, the median, clamped to
         :data:`STEP_MS_RANGE`. Records ``warmup_split`` and ``compile_s``
@@ -858,7 +1136,7 @@ class TorchExecutor:
         if self.device.type == "cuda":
             kernels.build()
             self.compile_s = time.perf_counter() - t_start
-        graphs_before = len(self.step_graphs) + len(self.program_graphs)
+        graphs_before = self._n_graphs()
         B, MP, K = (self.spec.batch_size, self.spec.max_pages_per_seq,
                     self.chunk_size)
         bt = np.zeros(MP, np.int32)
@@ -890,6 +1168,12 @@ class TorchExecutor:
 
         programs(eager=True)
         self._decode_chunk(zeros, zeros, zbt, ztemp, ones, eager=True)
+        if self.verify_draft_k:
+            # The verify window once: one step a row, trash drafts,
+            # every write on page 0 through the all-zero block tables.
+            self._verify_start(zeros, zeros, zbt, ztemp,
+                               np.zeros((B, self.verify_draft_k), np.int32),
+                               ones, eager=True).fetch()
         t_capture = time.perf_counter()
         if self._graphs_on:
             # Every prefill program, then every decode route's step and
@@ -901,6 +1185,8 @@ class TorchExecutor:
                           else [True]):
                 self.fused_decode = fused
                 self._step_graph()
+                if self.verify_draft_k:
+                    self._verify_graph()
                 if self.mixed_prefill_slices:
                     self._mixed_chunk(zeros, zeros, zbt, ztemp, ones,
                                       [(0, [1], 0, bt, 0.0)], eager=False)
@@ -934,8 +1220,7 @@ class TorchExecutor:
         self.warmup_split = {
             "capture": capture_s,
             "warmup": time.perf_counter() - t_start - capture_s}
-        captured = (len(self.step_graphs) + len(self.program_graphs)
-                    - graphs_before)
+        captured = self._n_graphs() - graphs_before
         self._telemetry.note_warmup(captured, captured)
         self._telemetry.note_warmup_complete(sum(self.warmup_split.values()))
         try:
@@ -946,16 +1231,21 @@ class TorchExecutor:
         log.info("warmup: %.2f s (capture %.2f s: %d graphs, %.1f MiB of "
                  "shared program pool); decode step %s ms",
                  sum(self.warmup_split.values()), capture_s,
-                 len(self.step_graphs) + len(self.program_graphs),
+                 self._n_graphs(),
                  sum(g.pool_bytes for g in self.program_graphs.values())
                  / 2**20,
                  f"{self.step_ms:.2f}" if self.step_ms else "not measured")
+
+    def _n_graphs(self) -> int:
+        return (len(self.step_graphs) + len(self.program_graphs)
+                + len(self.verify_graphs))
 
     def release_graphs(self) -> None:
         """Drop every captured graph and program buffer (their memory
         returns to the allocator's cache); later calls capture again."""
         self.step_graphs.clear()
         self.program_graphs.clear()
+        self.verify_graphs.clear()
         self._programs.clear()
         self._graph_pool = None
 
@@ -1008,12 +1298,20 @@ class TorchExecutor:
         for the rows still active at step ``j`` (the others write to page
         0), sampling, the carry and the exit flag. It reads nothing back
         to the host, so it can be captured."""
+        active, logits = self._forward_active()
+        self._advance(active, logits)
+
+    def _forward_active(self):
+        """The forward of a decode step (shared by the verify step, whose
+        KV and logits are then those of plain decode): the rows still
+        active at step ``j`` run at their positions, the others write to
+        page 0. Returns ``(active (B,), logits (B, V))``."""
         b = self._buf
         active = (~b.frozen) & (b.j < b.budgets)
         logits = self.model.forward_decode(b.tok, b.pos, self.cache, b.bt,
                                            active, fused=self.fused_decode)
         b.idle.add_((~active.any()).to(torch.int64))
-        self._advance(active, logits)
+        return active, logits
 
     def _advance(self, active: torch.Tensor, logits: torch.Tensor) -> None:
         """Sample step ``j`` and update the carry in place: inactive rows
@@ -1067,7 +1365,8 @@ class TorchExecutor:
         frozen so that its writes land on page 0: the kernel libraries,
         their attributes, the split workspaces and that stream's cuBLAS
         workspace then all exist before capture. The decode step's
-        buffers are restored afterwards. ``pool``: a shared graph memory
+        buffers (and the verify window's) are restored afterwards, and
+        the step index is 0 meanwhile. ``pool``: a shared graph memory
         pool, or None for a private one. The private generator is
         registered with the graph, so each replay draws fresh numbers.
         The capture launches nothing: its launch counts are taken back
@@ -1075,9 +1374,11 @@ class TorchExecutor:
         failed capture raises."""
         dev, b = self.device, self._buf
         t0 = time.perf_counter()
-        saved = [t.clone() for t in b.tensors()]
+        kept = b.tensors() + (self._vbuf.tensors() if self._vbuf else [])
+        saved = [t.clone() for t in kept]
         b.frozen.fill_(True)
         b.bt.zero_()
+        b.j.zero_()
         if self._capture_stream is None:
             self._capture_stream = torch.cuda.Stream(dev)
         stream = self._capture_stream
@@ -1099,7 +1400,7 @@ class TorchExecutor:
                     if n != before[name]}
         kernels.LAUNCHES.update(before)
         pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        for t, v in zip(b.tensors(), saved):
+        for t, v in zip(kept, saved):
             t.copy_(v)
         return _StepGraph(graph, launches, pool_bytes,
                           time.perf_counter() - t0, out)
@@ -1117,15 +1418,16 @@ class TorchExecutor:
             self._left_events[j].synchronize()
         return bool(self._left_host[j])
 
-    def _decode_steps(self, steps: int, eager: bool) -> int:
-        """The blocking chunk's decode steps ``0..steps-1``; returns how
-        many ran. Step ``j - 1``'s exit flag is read only after step ``j``
-        is queued, so the device never waits for the host: the one extra
-        step that can run has every row inactive (its writes go to page 0
-        and its outputs stay EOS)."""
+    def _decode_steps(self, steps: int, run) -> int:
+        """The blocking chunk's decode steps ``0..steps-1`` (a verify
+        window's, with ``run`` its step); returns how many ran. Step
+        ``j - 1``'s exit flag is read only after step ``j`` is queued, so
+        the device never waits for the host: the one extra step that can
+        run has every row inactive (its writes go to page 0 and its
+        outputs stay EOS)."""
         ran = 0
         for j in range(steps):
-            self._run_step(eager)
+            run()
             self._flag(j)
             ran += 1
             if j > 0 and not self._left_after(j - 1):

@@ -540,6 +540,27 @@ class QueueMetrics:
             "External fragmentation of the free page-id space "
             "(1 - largest contiguous free run / free pages)",
             ["engine"], registry=r)
+        # Speculation (speculation/, engine ``_note_spec_window``):
+        # the drafter's and the verify windows' effect, and the readback
+        # cadence.
+        self.spec_acceptance = Histogram(
+            f"{ns}_spec_acceptance_rate",
+            "Per-row draft acceptance per verify window: accepted "
+            "drafts / proposed drafts (drafted rows only)", ["engine"],
+            buckets=(0.0, 0.25, 0.5, 0.75, 0.99, 1.0), registry=r)
+        self.spec_tokens_proposed = Counter(
+            f"{ns}_spec_tokens_proposed_total",
+            "Draft tokens proposed by the n-gram drafter", ["engine"],
+            registry=r)
+        self.spec_tokens_accepted = Counter(
+            f"{ns}_spec_tokens_accepted_total",
+            "Draft tokens accepted by verify windows", ["engine"],
+            registry=r)
+        self.spec_readback_cadence = Gauge(
+            f"{ns}_spec_readback_cadence",
+            "Tokens committed per host readback through the "
+            "speculation plane (> 1 = the per-token fetch floor is "
+            "broken)", ["engine"], registry=r)
         self.compile_cache_hits = Counter(
             f"{ns}_compile_cache_hits_total",
             "Warmup programs served from the export disk cache",

@@ -434,6 +434,27 @@ def forward_decode(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
     return _logits(params, h)
 
 
+def forward_verify(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
+                   positions: torch.Tensor, qlens: torch.Tensor,
+                   kv_cache: KVCache, block_tables: torch.Tensor, *,
+                   fused: bool = True) -> torch.Tensor:
+    """A speculation verify window (``llmq_tpu/models/llama.py``
+    ``forward_verify``): W teacher-forced :func:`forward_decode` steps,
+    step j feeding ``tokens[:, j]`` (B, W) at ``positions + j`` whatever
+    step j-1 produced, with rows whose ``qlens`` (B,) is j or less
+    inactive (their writes go to page 0 and their logits are garbage
+    for the caller to ignore). Decode-shaped on purpose: every step is
+    the decode step's own forward, so the KV and logits of a committed
+    position are those a plain decode step gives. Returns logits
+    (B, W, V) f32."""
+    outs = []
+    for j in range(tokens.shape[1]):
+        outs.append(forward_decode(params, cfg, tokens[:, j], positions + j,
+                                   kv_cache, block_tables, j < qlens,
+                                   fused=fused))
+    return torch.stack(outs, dim=1)
+
+
 def forward_mixed(params: Params, cfg: LlamaConfig,
                   dec_tokens: torch.Tensor, dec_positions: torch.Tensor,
                   kv_cache: KVCache, dec_block_tables: torch.Tensor,
@@ -588,6 +609,11 @@ class Llama(nn.Module):
                        active=None, *, fused: bool = True) -> torch.Tensor:
         return forward_decode(self.params, self.cfg, tokens, positions,
                               kv_cache, block_tables, active, fused=fused)
+
+    def forward_verify(self, tokens, positions, qlens, kv_cache,
+                       block_tables, *, fused: bool = True) -> torch.Tensor:
+        return forward_verify(self.params, self.cfg, tokens, positions, qlens,
+                              kv_cache, block_tables, fused=fused)
 
     def forward_mixed(self, dec_tokens, dec_positions, kv_cache,
                       dec_block_tables, pf_tokens, pf_positions, pf_lengths,

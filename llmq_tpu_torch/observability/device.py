@@ -222,6 +222,14 @@ class DeviceTelemetry:
         #: stay off the decode hot path entirely.
         #: Bounded; under scrape outage the newest observations win.
         self._pending_steps: deque = deque(maxlen=8192)
+        #: Speculation accumulators (``note_spec``, once a reconciled
+        #: verify window): draft tokens proposed and accepted, tokens
+        #: committed through windows, and the fetches that carried them
+        #: (committed / fetches is the readback cadence).
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+        self._spec_committed = 0
+        self._spec_fetches = 0
 
     # -- wiring ---------------------------------------------------------------
 
@@ -277,6 +285,17 @@ class DeviceTelemetry:
                 self._tok_window.popleft()
         if self.metrics_enabled:
             self._pending_steps.append((d_ms, x_ms, r_ms, o_ms))
+
+    def note_spec(self, proposed: int, accepted: int,
+                  committed: int) -> None:
+        """One reconciled verify window: its draft tokens proposed and
+        accepted and the tokens it committed; each call is one fetch.
+        Engine thread only; plain adds under the telemetry lock."""
+        with self._mu:
+            self._spec_proposed += int(proposed)
+            self._spec_accepted += int(accepted)
+            self._spec_committed += int(committed)
+            self._spec_fetches += 1
 
     def timed_fetch(self, handle, dispatched_at: Optional[float] = None):
         """Fetch a chunk handle's tokens with the device-execute /
@@ -498,6 +517,18 @@ class DeviceTelemetry:
                     "warmup_s": self.warmup_s,
                 },
             }
+            if self._spec_fetches:
+                out["speculation"] = {
+                    "proposed": self._spec_proposed,
+                    "accepted": self._spec_accepted,
+                    "acceptance_rate": round(
+                        self._spec_accepted
+                        / max(1, self._spec_proposed), 4),
+                    "committed": self._spec_committed,
+                    "fetches": self._spec_fetches,
+                    "readback_cadence": round(
+                        self._spec_committed / self._spec_fetches, 3),
+                }
         hbm = self._hbm()
         if hbm is not None:
             out["hbm"] = hbm

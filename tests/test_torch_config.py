@@ -128,8 +128,8 @@ def test_unported_table_is_jaxs_tree_at_its_defaults():
     ("nope: 1\n", "unknown config key: nope"),
     ("server: {nope: 1}\n", "unknown config key: server.nope"),
     ("disagg: {enabled: true}\n", "disagg.enabled"),
-    ("executor: {speculation: {enabled: true}}\n",
-     "executor.speculation.enabled"),
+    ("executor: {speculation: {enabled: true, draft_k: 17}}\n",
+     "executor.speculation.draft_k"),
     ("executor: {kv_tiering: {enabled: true}}\n",
      "executor.kv_tiering.enabled"),
     ("executor: {mesh: {enabled: true, shape: {tp: 2}}}\n",
@@ -214,6 +214,41 @@ def test_wal_and_spool_dirs_load_like_jaxs(tmp_path, source):
         JC._apply_env(j, env)
     assert (t.queue.wal_dir, t.queue.spool_dir) == (
         j.queue.wal_dir, j.queue.spool_dir) == (wal, spool)
+
+
+@pytest.mark.parametrize("source", ["file", "env"])
+def test_speculation_block_loads_like_jaxs(tmp_path, source):
+    """Tolerance: none. ``executor.speculation`` is a real block with the
+    JAX package's fields and defaults; the same file and the same
+    ``LLMQ_EXECUTOR_SPECULATION_*`` variables load to the same values in
+    both packages, and the same bad values raise the same errors."""
+    assert dataclasses.asdict(TC.SpeculationConfig()) == \
+        dataclasses.asdict(JC.SpeculationConfig())
+    assert "speculation" not in TC._UNPORTED["executor"]
+    if source == "file":
+        path = tmp_path / "c.yaml"
+        path.write_text("executor: {speculation: {enabled: true, draft_k: 6, "
+                        "ngram_max: 2, device_sampling: false}}\n")
+        t = TC.load_config(str(path), env=False)
+        j = JC.load_config(str(path), env=False)
+    else:
+        env = {"LLMQ_EXECUTOR_SPECULATION_ENABLED": "true",
+               "LLMQ_EXECUTOR_SPECULATION_DRAFT_K": "6",
+               "LLMQ_EXECUTOR_SPECULATION_NGRAM_MAX": "2",
+               "LLMQ_EXECUTOR_SPECULATION_DEVICE_SAMPLING": "false"}
+        t = TC.load_config(path=os.devnull, environ=env)
+        j = JC.Config()
+        JC._apply_env(j, env)
+    assert dataclasses.asdict(t.executor.speculation) == \
+        dataclasses.asdict(j.executor.speculation) == {
+            "enabled": True, "draft_k": 6, "ngram_max": 2,
+            "device_sampling": False}
+    for bad in ({"draft_k": 0}, {"draft_k": 17}, {"ngram_max": 0}):
+        with pytest.raises(ValueError) as te:
+            TC.SpeculationConfig(**bad)
+        with pytest.raises(ValueError) as je:
+            JC.SpeculationConfig(**bad)
+        assert str(te.value) == str(je.value)
 
 
 def test_search_order_env_and_missing_path(tmp_path, monkeypatch):

@@ -736,7 +736,7 @@ GRAPH_PROMPTS = [[5, 9, 13, 17, 21], [40, 41, 42], [7] * 9, [300, 200, 100]]
 GRAPH_ROUTES = ["fused", "split", "int8_kv", "int8_weights_int8_kv"]
 
 
-def _graph_executor(route, eos=-1, seed=0):
+def _graph_executor(route, eos=-1, seed=0, **extra):
     from llmq_tpu_torch.engine.executor import TorchExecutor
     from llmq_tpu_torch.models import llama as T
     from llmq_tpu_torch.ops.quant import quantize_params
@@ -747,7 +747,7 @@ def _graph_executor(route, eos=-1, seed=0):
                            "cuda")
     kw = dict(batch_size=len(GRAPH_PROMPTS), page_size=16, num_pages=64,
               prefill_buckets=[16, 32], chunk_size=GRAPH_K, eos_id=eos,
-              seed=seed, device="cuda")
+              seed=seed, device="cuda", **extra)
     if route == "split":
         kw["fused_decode"] = False
     if route.endswith("int8_kv"):
@@ -846,6 +846,41 @@ def test_each_replay_adds_its_captured_launches(route):
     delta = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
              if v != before[k]}
     assert delta == want
+
+
+@needs_cuda
+@pytest.mark.parametrize("device_sampling", [True, False],
+                         ids=["device_accept", "host_accept"])
+@pytest.mark.parametrize("route", GRAPH_ROUTES)
+def test_verify_window_is_plain_decode_on_the_card(route, device_sampling):
+    """Program identity of a speculation verify window (greedy): from
+    the same cache state, a window whose drafts are a plain chunk's own
+    first W-1 tokens commits W tokens on every row, emits the chunk's
+    tokens, and leaves the pools bitwise equal to the chunk's; the
+    window is replays of its own captured program (one a step with
+    device accept, one in all with host accept)."""
+    import numpy as np
+
+    W = GRAPH_K
+    ex = _graph_executor(route, speculation_draft_k=W - 1,
+                         speculation_device_sampling=device_sampling)
+    tok, pos, bt = _graph_prefill(ex)
+    B = len(tok)
+    temps = np.zeros(B, np.float32)
+    saved = {k: v.clone() for k, v in ex.cache.items()}
+    chunk = ex.decode_chunk(tok, pos, bt, temps, np.full(B, W, np.int32))
+    after = {k: v.clone() for k, v in ex.cache.items()}
+    for k, v in ex.cache.items():
+        v.copy_(saved[k])
+    replays = ex.verify_replays
+    out, nc = ex.verify_chunk(tok, pos, bt, temps, chunk[:, :W - 1],
+                              np.full(B, W, np.int32))
+    torch.cuda.synchronize()
+    assert (nc == W).all(), nc
+    assert (out == chunk).all(), (out, chunk)
+    for k, v in ex.cache.items():
+        assert torch.equal(v[:, 1:], after[k][:, 1:]), k
+    assert ex.verify_replays - replays == (W if device_sampling else 1)
 
 
 @needs_cuda

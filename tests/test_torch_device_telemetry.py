@@ -124,6 +124,31 @@ def test_note_step_snapshots_are_jaxs(clock, jax_h100):
     assert out["port"][1]["compile"]["warmup_s"] == 4.32
 
 
+def test_speculation_block_is_jaxs(clock, jax_h100):
+    """Tolerance: none. The same reconciled windows noted into both
+    packages' telemetry give the same snapshot ``speculation`` block
+    (none before the first window), the rest of the snapshot equal too."""
+    windows = [(3, 2, 3), (0, 0, 1), (6, 1, 4), (2, 2, 3), (0, 0, 2)]
+    out = {}
+    for side, mod in (("jax", jdev), ("port", tdev)):
+        clock.t = 1_700_000_000.0
+        t = mod.DeviceTelemetry(f"{side}-spec", metrics=False)
+        t.configure_model(n_params=8_030_261_248, device_kind=H100,
+                          quant="", n_chips=1)
+        shots = [t.snapshot()]
+        for proposed, accepted, committed in windows:
+            clock.advance(0.01)
+            t.note_step(0.0002, 0.009, 0.00001, committed)
+            t.note_spec(proposed, accepted, committed)
+            shots.append(t.snapshot())
+        out[side] = shots
+    assert out["port"] == out["jax"]
+    assert "speculation" not in out["port"][0]
+    assert out["port"][-1]["speculation"] == {
+        "proposed": 11, "accepted": 5, "acceptance_rate": 0.4545,
+        "committed": 13, "fetches": 5, "readback_cadence": 2.6}
+
+
 class _JaxHandle:
     """A chunk handle as JAX's ``timed_fetch`` reads it."""
 

@@ -166,6 +166,24 @@ _BLOCKED_IMPORT_SCRIPT = textwrap.dedent("""
     from llmq_tpu_torch.__main__ import cmd_gateway, cmd_queue_manager
     assert cfg.queue.wal_dir == cfg.queue.spool_dir == ""
     assert hasattr(get_metrics(), "wal_errors")
+    # Speculation: the drafter, the keyed sampler, the verify forward and
+    # programs, the config block and the metric families.
+    from llmq_tpu_torch.speculation import NgramDrafter, propose_ngram
+    from llmq_tpu_torch.ops.sampling import (keyed_uniform,
+                                             sample_token_keyed)
+    from llmq_tpu_torch.models.llama import forward_verify
+    from llmq_tpu_torch.engine.executor import (VerifyHandle,
+                                                verify_host_ncommit)
+    for fn in ("verify_chunk", "verify_chunk_start"):
+        assert callable(getattr(TorchExecutor, fn)), fn
+    for fn in ("_spec_once", "_spec_trim", "_note_spec_window"):
+        assert callable(getattr(InferenceEngine, fn)), fn
+    from llmq_tpu_torch.core.config import SpeculationConfig
+    assert not SpeculationConfig().enabled
+    assert not cfg.executor.speculation.enabled
+    for fam in ("spec_acceptance", "spec_tokens_proposed",
+                "spec_tokens_accepted", "spec_readback_cadence"):
+        assert hasattr(get_metrics(), fam), fam
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", sys.argv[1] + "/chip_smoke.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))

@@ -90,7 +90,8 @@ def test_every_port_family_is_jaxs():
     """Tolerance: none. Name, type, help, label names and buckets."""
     port, jax_m = treg.get_metrics(), jreg.get_metrics()
     fams = vars(port)
-    assert len(fams) == 65      # the observability planes and the WAL too
+    assert len(fams) == 69      # the observability planes, the WAL and
+    #                             the four speculation families
     for attr, fam in fams.items():
         jf = getattr(jax_m, attr)
         name = jf._name + ("_total" if jf._type == "counter" else "")
@@ -105,7 +106,7 @@ def test_exposition_parses_like_jaxs():
     parser into the same families (name, type, help) as JAX's."""
     port, jax_fams = _by_name(_port_exposition()), _by_name(
         _jax_exposition())
-    assert len(port) == 65
+    assert len(port) == 69
     for name, fam in port.items():
         jf = jax_fams[name]
         assert (fam.type, fam.documentation) == (jf.type,
@@ -511,3 +512,55 @@ def test_wal_errors_count_by_op_like_jax(tmp_path):
                         if after[op] != before.get(op, 0.0)}, popped)
     assert deltas["port"] == deltas["jax"] == ({"push": 1.0, "pop": 1.0},
                                                "a")
+
+
+SPEC_FAMILIES = ("llm_queue_spec_acceptance_rate_bucket",
+                 "llm_queue_spec_acceptance_rate_count",
+                 "llm_queue_spec_acceptance_rate_sum",
+                 "llm_queue_spec_tokens_proposed_total",
+                 "llm_queue_spec_tokens_accepted_total",
+                 "llm_queue_spec_readback_cadence")
+
+
+def test_spec_families_equal_jaxs_and_the_engines_counters():
+    """Tolerance: none (f32, greedy). The same repetitive requests
+    through a JAX engine and a port engine with speculation on (draft_k
+    3) leave the same samples in the four speculation families, and the
+    port's equal its engine's own counters."""
+    from llmq_tpu.core.config import SpeculationConfig as JSpec
+
+    jcfg = J.get_config("llama3-tiny", dtype=jnp.float32, **KW)
+    jparams = J.init_params(jax.random.PRNGKey(0), jcfg)
+    tcfg = T.get_config("llama3-tiny", dtype=torch.float32, **KW)
+    tparams = T.params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
+    tag = f"s{uuid.uuid4().hex[:8]}"
+    jeng = JEngine(JaxExecutor(jcfg, jparams, prefill_batch=1,
+                               mixed_prefill_slices=0, speculation_draft_k=3,
+                               **GEOM), JTok(),
+                   name=f"{tag}-jax", enable_metrics=True, max_decode_steps=16,
+                   speculation=JSpec(enabled=True, draft_k=3))
+    teng = InferenceEngine(TorchExecutor(tcfg, tparams, device="cpu",
+                                         speculation_draft_k=3, **GEOM),
+                           ByteTokenizer(), name=f"{tag}-port",
+                           max_decode_steps=16,
+                           speculation=TC.SpeculationConfig(enabled=True,
+                                                            draft_k=3))
+    for eng, make in ((jeng, JGenRequest), (teng, GenRequest)):
+        for i in range(3):
+            eng.submit(make(id=f"s{i}", prompt="usage usage usage usage " * 2,
+                            max_new_tokens=16))
+        eng.run_until_idle()
+        eng.stop()
+    j = _samples(_jax_exposition(), f"{tag}-jax")
+    t = _samples(_port_exposition(), f"{tag}-port")
+    for name in SPEC_FAMILIES:
+        assert _family(t, name) == _family(j, name), name
+    assert teng.spec_tokens_accepted > 0
+    assert sum(_family(t, "llm_queue_spec_tokens_proposed_total").values()) \
+        == teng.spec_tokens_proposed
+    assert sum(_family(t, "llm_queue_spec_tokens_accepted_total").values()) \
+        == teng.spec_tokens_accepted
+    assert list(_family(t, "llm_queue_spec_readback_cadence").values()) == [
+        teng.spec_commits_total / teng.spec_fetches_total]
+    assert teng.get_stats()["speculation"] == jeng.get_stats()["speculation"]
