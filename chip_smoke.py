@@ -119,7 +119,31 @@ shows where it happened):
                  rejected) against W plain steps, B=1 and 8-concurrent
                  tok/s with speculation off and on in turns on the same
                  engine, and how many B=1 greedy tokens agree.
-9. serve-plane — the serving process around the serve phase's bf16
+9. serve-tiering — the tiered KV plane on the serve phase's weights
+                 (llama3-8b bf16 at full width and depth): two engines
+                 with ``executor.kv_tiering`` enabled, bf16 KV then int8
+                 KV, each behind the full ``App`` with its conversation
+                 store in SQLite under the phase's directory and a host
+                 tier of 1.5 conversations (pinned). Conversations of a
+                 1536-token history over REST, turn 2 at B=1 on an idle
+                 engine: with the pin resident (the reference), demoted
+                 to the host tier, spilled to the store by a second
+                 conversation's demotion, and recomputed (no host room,
+                 no spill), twice. Gates: each turn 2 is served from its
+                 tier (``kv_tier``), every promoted page holds bit for bit
+                 the bytes of its pin before demotion (every leaf: int8
+                 values and bf16 scales too), host and store turns 2 give
+                 the resident pin's greedy tokens and the two recomputes
+                 each other's, hits are {hbm 1, host 2, store 1,
+                 recompute 2}, no inject, transfer or store failure, the
+                 host arena is pinned, the slice's kernels launch (bf16:
+                 1, 2, 3; int8 KV: 5 and no bf16-pool kernel) and no
+                 twin is called. Printed: turn-2 TTFT by tier, the export
+                 dispatch ms and the gather, D2H, H2D and inject device
+                 ms with their GB/s, and (bf16) the step ms and
+                 chunk-boundary idle of 8 decoding rows before and while
+                 a 1536-token history demotes.
+10. serve-plane — the serving process around the serve phase's bf16
                  default engine (same weights, same pool: 8 slots, 512
                  pages of 16), over REST with retry backoff shortened to
                  0.05 s: pool pressure (six 1200-token LOW requests
@@ -192,7 +216,7 @@ shows where it happened):
                  off, off, on), after one uncounted 8-concurrent batch,
                  each turn's rate the median of three: the "on" turns
                  within 3% of the "off" ones.
-10. serve-split — the durable queue plane and the split deployment. First,
+11. serve-split — the durable queue plane and the split deployment. First,
                  on the serve phases' bf16 engine, decode of 8 concurrent
                  REST requests (64 new tokens) through the serving
                  process with ``queue.wal_dir`` set and unset, in turns,
@@ -226,7 +250,7 @@ shows where it happened):
                  WAL: they are relayed again and complete (traces from
                  the spool). Kernels 1-3 launch in each queue-manager, no
                  twin is called, and no gateway initialises CUDA.
-11. serve-int8 — llama3-8b with int8 weights and int8 KV at full width and
+12. serve-int8 — llama3-8b with int8 weights and int8 KV at full width and
                  depth (``LLMQ_MODEL_QUANTIZATION=int8
                  LLMQ_MODEL_KV_QUANTIZATION=int8``), the same REST mix:
                  kernel 5 launches and no bf16-pool kernel does; then a
@@ -2615,8 +2639,9 @@ def phase_serve(state) -> None:
     counts, restore = _count_plain_calls()
     try:
         params = _serve_default(state)
-        if "serve-spec" in state.get("chosen", ()):
-            # The serve-spec phase builds its engines on these weights.
+        if {"serve-spec", "serve-tiering"} & set(state.get("chosen", ())):
+            # The serve-spec and serve-tiering phases build their engines
+            # on these weights (the last of them releases them).
             state["serve_params"] = params
         _serve_ragged(state, params)
     finally:
@@ -6171,7 +6196,8 @@ def phase_serve_spec(state) -> None:
     from llmq_tpu_torch.engine.builder import build_engine
     from llmq_tpu_torch.ops import kernels
 
-    params = state.pop("serve_params", None)
+    params = (state.get if "serve-tiering" in state.get("chosen", ())
+              else state.pop)("serve_params", None)
     if params is None:
         raise AssertionError("serve-spec runs on the serve phase's weights: "
                              "run serve before it")
@@ -6275,11 +6301,457 @@ def phase_serve_spec(state) -> None:
     if counts:
         raise AssertionError(f"serve-spec called plain twins: {counts}")
 
+# -- serve-tiering: the tiered KV plane -----------------------------------------
+
+#: Turn 1's prompt tokens (one byte each): a history of 1536 tokens, 97
+#: pages of 16 with turn 1's sampled tokens.
+TIER_HISTORY = 1536
+TIER_T1_NEW = 16
+TIER_T2_NEW = 32
+TIER_T2_PROMPT = " Now answer the question above in one short line, please."
+#: Host capacity in conversations of that history: one fits, two do not
+#: (the second demotion spills the first to the store).
+TIER_HOST_CONVS = 1.5
+#: Decode rows and their new tokens while a conversation demotes.
+TIER_DECODE_ROWS = 8
+TIER_DECODE_NEW = 160
+
+
+def _tier_history() -> str:
+    """The history every conversation of the phase starts with: TIER_HISTORY
+    bytes of words drawn from seed 0 (the same text for each, so turn 2's
+    tokens compare across tiers)."""
+    import numpy as np
+
+    words = ("queue tier page cache token prefill decode host store card "
+             "pinned memory conversation request latency budget").split()
+    rng = np.random.default_rng(0)
+    text = ""
+    while len(text) < TIER_HISTORY:
+        text += words[int(rng.integers(len(words)))] + " "
+    return text[:TIER_HISTORY]
+
+
+def _tier_page_bytes(mc, int8_kv: bool) -> int:
+    """Bytes of one page's payload over every cache leaf."""
+    gd = mc.n_kv_heads * mc.head_dim
+    if int8_kv:
+        return mc.n_layers * PS * gd * 2 + 2 * mc.n_layers * mc.n_kv_heads \
+            * PS * 2
+    return mc.n_layers * PS * gd * 2 * 2
+
+
+def _tier_cfg(work: str, tag: str, int8_kv: bool):
+    """The serve config with ``executor.kv_tiering`` on, a host tier of
+    TIER_HOST_CONVS conversations and the conversation store in SQLite
+    under the phase's directory."""
+    from llmq_tpu_torch.models.llama import get_config
+
+    cfg = _serve_cfg()
+    if int8_kv:
+        cfg.model.kv_quantization = "int8"
+    mc = get_config(cfg.model.name, max_seq_len=cfg.model.max_seq_len)
+    pages = -(-(TIER_HISTORY + TIER_T1_NEW) // PS)
+    kt = cfg.executor.kv_tiering
+    kt.enabled = True
+    kt.host_capacity_mb = int(-(-TIER_HOST_CONVS * pages
+                                 * _tier_page_bytes(mc, int8_kv) // 2**20))
+    cfg.persistence.backend = "sqlite"
+    cfg.persistence.sqlite_path = os.path.join(work, f"{tag}.db")
+    return cfg
+
+
+class _TierProbe:
+    """The phase's instrumentation of a tiered engine (removed by
+    ``close``): every handle the engine's submit made, by request id; the
+    pages each ``import_kv_pages`` wrote; the host seconds of each
+    ``export_kv_pages`` dispatch."""
+
+    def __init__(self, engine) -> None:
+        self.engine, self.ex = engine, engine.executor
+        self.handles, self.imports, self.export_s = {}, [], []
+        submit, imp, exp = (engine.submit, self.ex.import_kv_pages,
+                            engine._tiering._export)
+
+        def submitting(req, **kw):
+            h = submit(req, **kw)
+            self.handles[req.id] = h
+            return h
+
+        def importing(pages, leaves):
+            self.imports.append(list(pages))
+            return imp(pages, leaves)
+
+        def exporting(pages):
+            t0 = time.perf_counter()
+            out = exp(pages)
+            self.export_s.append(time.perf_counter() - t0)
+            return out
+
+        engine.submit = submitting
+        self.ex.import_kv_pages = importing
+        # The plane took the executor's export seam at construction.
+        self._plane_export = engine._tiering._export
+        engine._tiering._export = exporting
+
+    def close(self) -> None:
+        self.engine.__dict__.pop("submit", None)
+        self.ex.__dict__.pop("import_kv_pages", None)
+        self.engine._tiering._export = self._plane_export
+
+    def turn(self, base, conv: str, text: str, new: int):
+        """One REST turn of ``conv``; returns the engine's handle."""
+        eng = self.engine
+        if eng._prefix_cache is not None:
+            # Only the tier under test may serve the history: the radix
+            # tree would otherwise hand the same blocks over.
+            eng._prefix_cache.invalidate_all()
+        mid = _post(base, {"content": text, "conversation_id": conv,
+                           "priority": "high",
+                           "metadata": {"max_new_tokens": new}})
+        m = _poll(base, mid)
+        if m["status"] != "completed":
+            raise AssertionError(f"{conv}: turn not completed: {m}")
+        h = self.handles[mid]
+        if h.result.finish_reason not in ("eos", "length"):
+            raise AssertionError(f"{conv}: finished {h.result}")
+        return h
+
+    def pin(self, conv: str):
+        """The conversation's pinned pages, written length and a device
+        copy of those pages of every leaf (the bytes a demotion gathers)."""
+        import torch
+
+        with self.engine._mu:
+            kv = self.engine._conv_cache[conv]
+            pages, length = list(kv.pages), kv.length
+        idx = torch.tensor(pages, device=self.ex.device)
+        return pages, length, {k: t.index_select(1, idx)
+                               for k, t in self.ex.cache.items()}
+
+    def same_bytes(self, pages, length: int, snap) -> None:
+        """The history slots [0, length) of ``pages`` hold, bit for bit,
+        the bytes of ``snap`` (every leaf: values and scale pools)."""
+        import torch
+
+        idx = torch.tensor(pages, device=self.ex.device)
+        full, rem = divmod(length, PS)
+        for k, t in self.ex.cache.items():
+            now, ref = t.index_select(1, idx), snap[k]
+            if k.endswith("_scale"):   # (L, N, H_kv, page_size)
+                parts = [(now[:, :full], ref[:, :full]),
+                         (now[:, full, :, :rem], ref[:, full, :, :rem])]
+            else:                      # (L, N, page_size, H_kv * D)
+                parts = [(now[:, :full], ref[:, :full]),
+                         (now[:, full, :rem], ref[:, full, :rem])]
+            for a, b in parts:
+                if not torch.equal(a.contiguous().view(torch.uint8),
+                                   b.contiguous().view(torch.uint8)):
+                    raise AssertionError(f"promoted {k} pages differ from "
+                                         f"the demoted bytes")
+
+
+def _tier_settled(plane, conv: str, tier: str) -> bool:
+    with plane._mu:
+        e = plane._entries.get(conv)
+        return (e is not None and e.ready.is_set() and not e.spilling
+                and e.tier == tier)
+
+
+def _ttft_ms(h) -> float:
+    return (h.marks["first_token"] - h.submitted_at) * 1e3
+
+
+def _tier_transfer(probe, name: str):
+    """(device ms, bytes) of the executor's last ``name`` transfer."""
+    start, end, nbytes = probe.ex.kv_last_transfer[name]
+    end.synchronize()
+    return start.elapsed_time(end), nbytes
+
+
+def _tier_routes(probe, base, plane, tag: str) -> dict:
+    """Turn 2 of one history through each tier, at B=1 on an idle engine:
+    HBM (pin resident), host, store (spilled by a second conversation's
+    demotion into the SQLite store) and recompute (no host room, no
+    spill), each gated as the phase says."""
+    eng = probe.engine
+    hist = _tier_history()
+    out: dict = {"ttft_ms": {}}
+
+    def first(conv):
+        probe.turn(base, conv, hist, TIER_T1_NEW)
+        return probe.pin(conv)
+
+    def second(conv, tier):
+        n_imp = len(probe.imports)
+        h = probe.turn(base, conv, TIER_T2_PROMPT, TIER_T2_NEW)
+        if h.result.kv_tier != tier:
+            raise AssertionError(f"{tag} {conv}: served from "
+                                 f"{h.result.kv_tier!r}, not {tier!r}")
+        out["ttft_ms"].setdefault(tier, []).append(_ttft_ms(h))
+        return h, probe.imports[n_imp:]
+
+    def demote(conv, tier):
+        d0 = plane.stats()
+        eng.demote_conversation(conv)
+        _until(lambda: _tier_settled(plane, conv, tier), 120,
+               f"{conv} demoted to {tier}")
+        d1 = plane.stats()
+        return d1["d2h_ms"] - d0["d2h_ms"], d1["d2h_bytes"] - d0["d2h_bytes"]
+
+    # HBM: the pin stays resident; its turn 2 is every tier's reference.
+    first("tier-hbm")
+    ref, _ = second("tier-hbm", "hbm")
+    eng.drop_conversation("tier-hbm")
+    want = ref.result.tokens
+    # Host.
+    pages, length, snap = first("tier-host")
+    d2h_ms, d2h_bytes = demote("tier-host", "host")
+    gather_ms, gather_bytes = _tier_transfer(probe, "gather")
+    h, imps = second("tier-host", "host")
+    if len(imps) != 1:
+        raise AssertionError(f"{tag}: host promotion injected {imps}")
+    probe.same_bytes(imps[0], length, snap)
+    h2d_ms, h2d_bytes = _tier_transfer(probe, "h2d")
+    inject_ms, _ = _tier_transfer(probe, "inject")
+    if h.result.tokens != want:
+        raise AssertionError(f"{tag}: host-tier turn 2 {h.result.tokens} != "
+                             f"the resident pin's {want}")
+    eng.drop_conversation("tier-host")
+    out["transfer"] = {
+        "pages": len(pages), "bytes": d2h_bytes,
+        "export_dispatch_ms": probe.export_s[-1] * 1e3,
+        "gather_ms": gather_ms, "d2h_ms": d2h_ms, "h2d_ms": h2d_ms,
+        "inject_ms": inject_ms,
+        "d2h_gb_s": d2h_bytes / d2h_ms / 1e6 if d2h_ms else None,
+        "h2d_gb_s": h2d_bytes / h2d_ms / 1e6 if h2d_ms else None,
+        "gather_gb_s": 2 * gather_bytes / gather_ms / 1e6}
+    del snap
+    # Store: the second demotion spills the first (the colder) to SQLite.
+    pages_s, length_s, snap_s = first("tier-store")
+    demote("tier-store", "host")
+    pages_d, length_d, snap_d = first("tier-host2")
+    demote("tier-host2", "host")
+    _until(lambda: _tier_settled(plane, "tier-store", "store"), 120,
+           "the first conversation spilled to the store")
+    if plane.store.load_kv("tier-store") is None:
+        raise AssertionError(f"{tag}: no blob in the SQLite store")
+    h, imps = second("tier-store", "store")
+    probe.same_bytes(imps[-1], length_s, snap_s)
+    if h.result.tokens != want:
+        raise AssertionError(f"{tag}: store-tier turn 2 != the resident "
+                             f"pin's")
+    eng.drop_conversation("tier-store")
+    del snap_s
+    # Recompute: no spill, and the host tier full with tier-host2.
+    plane.store_spill = False
+    rec = []
+    try:
+        for conv in ("tier-recompute", "tier-recompute2"):
+            first(conv)
+            demote(conv, "recompute")
+            h, imps = second(conv, "recompute")
+            if imps:
+                raise AssertionError(f"{tag}: recompute injected {imps}")
+            rec.append(h.result.tokens)
+            eng.drop_conversation(conv)
+    finally:
+        plane.store_spill = True
+    if rec[0] != rec[1]:
+        raise AssertionError(f"{tag}: two recomputes of one history "
+                             f"differ: {rec}")
+    out["recompute_agrees"] = next(
+        (i for i, (a, b) in enumerate(zip(rec[0], want)) if a != b),
+        len(want))
+    # The second host entry, promoted after all that.
+    h, imps = second("tier-host2", "host")
+    probe.same_bytes(imps[-1], length_d, snap_d)
+    if h.result.tokens != want:
+        raise AssertionError(f"{tag}: second host-tier turn 2 != the "
+                             f"resident pin's")
+    eng.drop_conversation("tier-host2")
+    st = plane.stats()
+    want_hits = {"hbm": 1, "host": 2, "store": 1, "recompute": 2}
+    if st["hits"] != want_hits:
+        raise AssertionError(f"{tag}: hits {st['hits']} != {want_hits}")
+    for k in ("inject_failures", "transfer_errors", "store_errors"):
+        if st[k]:
+            raise AssertionError(f"{tag}: {k} = {st[k]}: {st}")
+    out["stats"] = st
+    return out
+
+
+def _tier_decode(probe, base, plane, tag: str) -> dict:
+    """Eight rows decoding TIER_DECODE_NEW tokens while a pinned history
+    demotes: each chunk's device ms a step and the device idle at each
+    chunk boundary (the chunks' own CUDA events), for the chunks before
+    the demotion and from it on."""
+    from llmq_tpu_torch.engine.engine import GenRequest
+
+    eng, ex = probe.engine, probe.ex
+    probe.turn(base, "tier-decode", _tier_history(), TIER_T1_NEW)
+    chunks, marks = [], {}
+    real = ex.decode_chunk_start
+
+    def recording(*args, **kwargs):
+        h = real(*args, **kwargs)
+        chunks.append(h)
+        return h
+
+    ex.decode_chunk_start = recording
+    try:
+        hs = [eng.submit(GenRequest(
+            id=f"tier-row-{i}-{time.time()}",
+            prompt=f"{i:02d} row. " + PRESSURE_FILLER,
+            max_new_tokens=TIER_DECODE_NEW)) for i in range(TIER_DECODE_ROWS)]
+        _until(lambda: _decoding_rows(eng) == TIER_DECODE_ROWS
+               and len(chunks) >= 4, 120, "8 rows decoding")
+        marks["demote"] = len(chunks)
+        eng.demote_conversation("tier-decode")
+        _until(lambda: _tier_settled(plane, "tier-decode", "host"), 120,
+               "the demotion while decoding")
+        marks["settled"] = len(chunks)
+        _until(lambda: len(chunks) >= marks["settled"] + 3, 120,
+               "chunks after the demotion")
+        for h in hs:
+            if not h.wait(300):
+                raise AssertionError("a decode row did not finish")
+    finally:
+        ex.__dict__.pop("decode_chunk_start", None)
+    eng.drop_conversation("tier-decode")
+    chunks[-1].wait_ready()
+    step = [c._start.elapsed_time(c._done) / c.steps for c in chunks]
+    gaps = [a._done.elapsed_time(b._start) for a, b in zip(chunks,
+                                                          chunks[1:])]
+    k0, k1 = marks["demote"], marks["settled"]
+    return {"chunks": len(chunks), "demote_at_chunk": k0,
+            "settled_at_chunk": k1,
+            "export_dispatch_ms": probe.export_s[-1] * 1e3,
+            "step_ms_before": step[1:k0 - 1],
+            "step_ms_during": step[k0 - 1:k1 + 1],
+            "gap_ms_before": gaps[1:k0 - 1],
+            "gap_ms_during": gaps[k0 - 1:k1 + 1]}
+
+
+def _tier_engine(params, work, tag: str, int8_kv: bool) -> dict:
+    """One tiered engine (bf16 weights; bf16 or int8 KV) through REST."""
+    import torch
+
+    from llmq_tpu_torch.__main__ import App
+    from llmq_tpu_torch.engine.builder import build_engine
+    from llmq_tpu_torch.ops import kernels
+
+    cfg = _tier_cfg(work, tag, int8_kv)
+    t0 = time.perf_counter()
+    engine = build_engine(cfg, params=params, name=f"engine-{tag}",
+                          warmup=True)
+    plane = engine._tiering
+    app = probe = None
+    try:
+        if plane is None or not plane.pool.pinned:
+            raise AssertionError(f"{tag}: no plane, or its host arena is not "
+                                 f"pinned")
+        log(f"[serve-tiering] {tag}: engine built in "
+            f"{time.perf_counter() - t0:.1f} s; host tier "
+            f"{cfg.executor.kv_tiering.host_capacity_mb} MiB pinned, "
+            f"{plane.pool.total_buffers} buffers of "
+            f"{plane.pool.page_nbytes} bytes; leaves "
+            f"{engine.executor.kv_page_spec()}")
+        app = App(cfg, engine=engine)
+        base = f"http://127.0.0.1:{app.start(host='127.0.0.1', port=0)}"
+        if plane.store is not app.state_manager.store:
+            raise AssertionError(f"{tag}: the plane spills elsewhere than "
+                                 f"the conversation store")
+        engine.generate("warm up the tiering engine", max_new_tokens=4)
+        probe = _TierProbe(engine)
+        kernels.reset_launches()
+        out = _tier_routes(probe, base, plane, tag)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        need = (("fused_decode_q8",) if int8_kv else
+                ("fused_decode", "kv_prefill_write", "prefill_attention"))
+        for name in need:
+            if not launches.get(name):
+                raise AssertionError(f"{tag}: the tiers never launched "
+                                     f"{name}: {launches}")
+        if int8_kv and launches.get("fused_decode"):
+            raise AssertionError(f"{tag}: a bf16-pool kernel launched")
+        out["launches"] = launches
+        t = out["transfer"]
+        tt = {k: [round(x, 3) for x in v] for k, v in out["ttft_ms"].items()}
+        log(f"[serve-tiering] {tag}: turn-2 TTFT from engine submit, ms: "
+            f"{tt}; recompute agrees with the resident pin for "
+            f"{out['recompute_agrees']} of {TIER_T2_NEW} tokens ({CARD})")
+        log(f"[serve-tiering] {tag}: {t['pages']} pages, {t['bytes']} "
+            f"bytes: export dispatch {t['export_dispatch_ms']:.3f} ms on "
+            f"the calling thread, gather {t['gather_ms']:.3f} ms on the "
+            f"device ({t['gather_gb_s']:.1f} GB/s read+write), D2H "
+            f"{t['d2h_ms']:.3f} ms ({_count(t['d2h_gb_s'], 1)} GB/s), H2D "
+            f"{t['h2d_ms']:.3f} ms ({_count(t['h2d_gb_s'], 1)} GB/s), inject "
+            f"{t['inject_ms']:.3f} ms ({CARD})")
+        log(f"[serve-tiering] {tag}: hits {out['stats']['hits']}, spills "
+            f"{out['stats']['spills']}, launches {launches}; no inject, "
+            f"transfer or store failure")
+        if not int8_kv:
+            dec = _tier_decode(probe, base, plane, tag)
+            out["decode_under_demotion"] = dec
+            log(f"[serve-tiering] {tag}: {TIER_DECODE_ROWS} rows decoding "
+                f"while a {TIER_HISTORY}-token history demotes: step ms "
+                f"before {[round(x, 3) for x in dec['step_ms_before']]}, "
+                f"during {[round(x, 3) for x in dec['step_ms_during']]}; "
+                f"chunk-boundary idle ms before "
+                f"{[round(x, 4) for x in dec['gap_ms_before']]}, during "
+                f"{[round(x, 4) for x in dec['gap_ms_during']]}; its export "
+                f"dispatched in {dec['export_dispatch_ms']:.3f} ms ({CARD})")
+        return out
+    finally:
+        if probe is not None:
+            probe.close()
+        if app is not None:
+            app.stop()
+        engine.executor.release_graphs()
+
+
+def phase_serve_tiering(state) -> None:
+    """The tiered KV plane on the serve phase's weights (llama3-8b bf16 at
+    full width and depth), two engines with ``executor.kv_tiering``
+    enabled, bf16 KV then int8 KV, driven over REST."""
+    import gc
+    import shutil
+
+    import torch
+
+    from llmq_tpu_torch.ops.kernels import BUILD_DIR
+
+    params = state.pop("serve_params", None)
+    if params is None:
+        raise AssertionError("serve-tiering runs on the serve phase's "
+                             "weights: run serve before it")
+    work = str(BUILD_DIR / "serve_tiering")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    out = state.setdefault("serve_tiering", {})
+    counts, restore = _count_plain_calls()
+    try:
+        for tag, int8_kv in (("tier-bf16", False), ("tier-int8kv", True)):
+            out[tag] = _tier_engine(params, work, tag, int8_kv)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        restore()
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(work, ignore_errors=True)
+    if counts:
+        raise AssertionError(f"serve-tiering called plain twins: {counts}")
+
 
 PHASES = [("env", phase_env), ("build", phase_build),
           ("kernels", phase_kernels), ("split", phase_split),
           ("model", phase_model), ("graphs", phase_graphs),
           ("serve", phase_serve), ("serve-spec", phase_serve_spec),
+          ("serve-tiering", phase_serve_tiering),
           ("serve-plane", phase_serve_plane),
           ("serve-split", phase_serve_split),
           ("serve-int8", phase_serve_int8)]
@@ -6337,6 +6809,7 @@ def main(argv=()) -> int:
                       "serve_plane": state.get("serve_plane"),
                       "serve_split": state.get("serve_split"),
                       "serve_spec": state.get("serve_spec"),
+                      "serve_tiering": state.get("serve_tiering"),
                       "serve_boot": state.get("serve_boot"),
                       "int_mm": state.get("int_mm"),
                       "launch_floor_ms": state.get("launch_floor_ms"),

@@ -9,8 +9,10 @@ backends.
   ``prefix+user:<id>`` set, with a TTL; constructing it without the
   ``redis`` client package raises a clear error.
 
-The KV-payload methods the JAX package's stores carry for its tiering
-plane wait for that plane.
+Every backend also carries the KV-payload seam (:class:`KVPayloadStore`)
+that the tiering plane (``llmq_tpu_torch/tiering/``) spills through:
+opaque page-payload blobs keyed by conversation id, deleted with their
+conversation.
 """
 
 from __future__ import annotations
@@ -18,13 +20,18 @@ from __future__ import annotations
 import json
 import logging
 import os
+import random
 import sqlite3
 import threading
-from typing import Dict, List, Optional, Protocol
+import time
+import zlib
+from typing import Callable, Dict, List, Optional, Protocol, TypeVar
 
 from llmq_tpu_torch.core.types import Conversation
 
 log = logging.getLogger("llmq_tpu_torch.persistence")
+
+_T = TypeVar("_T")
 
 
 class ConversationStore(Protocol):
@@ -37,9 +44,22 @@ class ConversationStore(Protocol):
     def close(self) -> None: ...
 
 
+class KVPayloadStore(Protocol):
+    """The spill tier's seam: opaque serialized KV page payloads keyed by
+    conversation id. The tiering plane feature-detects these methods (a
+    store without them disables the store tier); all three backends
+    below implement them."""
+
+    def save_kv(self, conversation_id: str, blob: bytes) -> None: ...
+    def load_kv(self, conversation_id: str) -> Optional[bytes]: ...
+    def delete_kv(self, conversation_id: str) -> None: ...
+    def list_kv(self) -> List[str]: ...
+
+
 class InMemoryStore:
     def __init__(self) -> None:
         self._data: Dict[str, dict] = {}
+        self._kv: Dict[str, bytes] = {}
         self._mu = threading.Lock()
 
     def save(self, conversation: Conversation) -> None:
@@ -59,6 +79,25 @@ class InMemoryStore:
     def delete(self, conversation_id: str) -> None:
         with self._mu:
             self._data.pop(conversation_id, None)
+            self._kv.pop(conversation_id, None)
+
+    # -- KV payload seam -----------------------------------------------------
+
+    def save_kv(self, conversation_id: str, blob: bytes) -> None:
+        with self._mu:
+            self._kv[conversation_id] = bytes(blob)
+
+    def load_kv(self, conversation_id: str) -> Optional[bytes]:
+        with self._mu:
+            return self._kv.get(conversation_id)
+
+    def delete_kv(self, conversation_id: str) -> None:
+        with self._mu:
+            self._kv.pop(conversation_id, None)
+
+    def list_kv(self) -> List[str]:
+        with self._mu:
+            return list(self._kv.keys())
 
     def close(self) -> None:
         pass
@@ -67,14 +106,48 @@ class InMemoryStore:
 class SqliteStore:
     """Durable store: one row per conversation with JSON messages and
     metadata columns; WAL journal mode and a busy timeout, so concurrent
-    writers queue instead of raising ``database is locked``."""
+    writers queue instead of raising ``database is locked``. KV payloads
+    live in a BLOB table, ``kv_payloads``, which opening a database made
+    before it existed creates in place (an idempotent migration)."""
 
     _BUSY_TIMEOUT_MS = 10_000
+    #: Bounded retry of the KV-payload operations on ``database is
+    #: locked``: ``busy_timeout`` queues only while a writer holds the
+    #: lock, and a writer that loses the race at COMMIT under WAL still
+    #: raises at once (the tiering worker and the state manager write
+    #: from different threads).
+    _LOCKED_RETRIES = 4
+    _LOCKED_BASE_BACKOFF_S = 0.005
+    _LOCKED_MAX_BACKOFF_S = 0.05
 
     def __init__(self, path: str = "llmq_state.db") -> None:
         self._path = path
         self._local = threading.local()
+        # Jitter seeded per path, so contention runs replay the same.
+        self._retry_rng = random.Random(zlib.crc32(path.encode("utf-8")))
+        self._retry_mu = threading.Lock()
         self._init_schema()
+
+    def _with_locked_retry(self, fn: Callable[[], _T]) -> _T:
+        attempt = 0
+        while True:
+            try:
+                return fn()
+            except sqlite3.OperationalError as e:
+                msg = str(e).lower()
+                if (attempt >= self._LOCKED_RETRIES
+                        or ("locked" not in msg and "busy" not in msg)):
+                    raise
+                attempt += 1
+                backoff = min(
+                    self._LOCKED_MAX_BACKOFF_S,
+                    self._LOCKED_BASE_BACKOFF_S * (2 ** (attempt - 1)))
+                with self._retry_mu:
+                    backoff *= 1.0 + 0.2 * (
+                        2.0 * self._retry_rng.random() - 1.0)
+                log.debug("sqlite locked (%s); retry %d/%d in %.1f ms",
+                          e, attempt, self._LOCKED_RETRIES, backoff * 1e3)
+                time.sleep(max(0.0, backoff))
 
     def _conn(self) -> sqlite3.Connection:
         conn = getattr(self._local, "conn", None)
@@ -106,6 +179,16 @@ class SqliteStore:
             conn.execute(
                 "CREATE INDEX IF NOT EXISTS idx_conv_user "
                 "ON conversations(user_id)")
+            # The spill tier's table (idempotent, so a database made
+            # before it upgrades on open). Payloads are opaque BLOBs,
+            # stored byte for byte.
+            conn.execute(
+                """CREATE TABLE IF NOT EXISTS kv_payloads (
+                    conversation_id TEXT PRIMARY KEY,
+                    payload BLOB NOT NULL,
+                    nbytes INTEGER NOT NULL,
+                    updated_at REAL NOT NULL
+                )""")
 
     def save(self, conversation: Conversation) -> None:
         d = conversation.to_dict()
@@ -152,6 +235,52 @@ class SqliteStore:
         with conn:
             conn.execute("DELETE FROM conversations WHERE id=?",
                          (conversation_id,))
+            conn.execute(
+                "DELETE FROM kv_payloads WHERE conversation_id=?",
+                (conversation_id,))
+
+    # -- KV payload seam -----------------------------------------------------
+
+    def save_kv(self, conversation_id: str, blob: bytes) -> None:
+        def _write() -> None:
+            conn = self._conn()
+            with conn:
+                conn.execute(
+                    """INSERT INTO kv_payloads
+                       (conversation_id, payload, nbytes, updated_at)
+                       VALUES (?,?,?,?)
+                       ON CONFLICT(conversation_id) DO UPDATE SET
+                         payload=excluded.payload, nbytes=excluded.nbytes,
+                         updated_at=excluded.updated_at""",
+                    (conversation_id, sqlite3.Binary(bytes(blob)),
+                     len(blob), time.time()))
+
+        self._with_locked_retry(_write)
+
+    def load_kv(self, conversation_id: str) -> Optional[bytes]:
+        def _read() -> Optional[bytes]:
+            cur = self._conn().execute(
+                "SELECT payload FROM kv_payloads WHERE conversation_id=?",
+                (conversation_id,))
+            row = cur.fetchone()
+            return bytes(row[0]) if row is not None else None
+
+        return self._with_locked_retry(_read)
+
+    def delete_kv(self, conversation_id: str) -> None:
+        def _drop() -> None:
+            conn = self._conn()
+            with conn:
+                conn.execute(
+                    "DELETE FROM kv_payloads WHERE conversation_id=?",
+                    (conversation_id,))
+
+        self._with_locked_retry(_drop)
+
+    def list_kv(self) -> List[str]:
+        cur = self._conn().execute(
+            "SELECT conversation_id FROM kv_payloads")
+        return [r[0] for r in cur.fetchall()]
 
     def close(self) -> None:
         conn = getattr(self._local, "conn", None)
@@ -211,9 +340,34 @@ class RedisStore:
         conv = self.load(conversation_id)
         pipe = self._r.pipeline()
         pipe.delete(self._key(conversation_id))
+        pipe.delete(self._kvkey(conversation_id))
         if conv is not None:
             pipe.srem(self._ukey(conv.user_id), conversation_id)
         pipe.execute()
+
+    # -- KV payload seam -----------------------------------------------------
+
+    def _kvkey(self, cid: str) -> str:
+        return f"{self._prefix}kv:{cid}"
+
+    def save_kv(self, conversation_id: str, blob: bytes) -> None:
+        self._r.set(self._kvkey(conversation_id), bytes(blob),
+                    ex=self._ttl)
+
+    def load_kv(self, conversation_id: str) -> Optional[bytes]:
+        blob = self._r.get(self._kvkey(conversation_id))
+        return bytes(blob) if blob is not None else None
+
+    def delete_kv(self, conversation_id: str) -> None:
+        self._r.delete(self._kvkey(conversation_id))
+
+    def list_kv(self) -> List[str]:
+        pat = f"{self._prefix}kv:"
+        out: List[str] = []
+        for key in self._r.keys(f"{pat}*"):
+            name = key.decode() if isinstance(key, bytes) else str(key)
+            out.append(name[len(pat):])
+        return sorted(out)
 
     def close(self) -> None:
         self._r.close()

@@ -14,8 +14,10 @@ KV-pin hooks: the engine registers ``on_touch`` / ``on_evict`` callbacks
 (``InferenceEngine.attach_conversation_manager``), so a conversation's
 paged KV stays pinned on the card while the conversation lives here and
 is freed exactly when it is evicted: one eviction policy for host and
-device state. The store-resilience replay buffer, tiering and cluster
-placement records wait for their planes.
+device state. The tiering plane spills KV payloads through the same
+``store`` (its KV-payload seam), and moves the prefix handle's ``tier``
+as a conversation's KV changes tier. The store-resilience replay buffer
+and cluster placement records wait for their planes.
 """
 
 from __future__ import annotations
@@ -58,6 +60,9 @@ class StateManager:
 
     @property
     def store(self) -> ConversationStore:
+        """The backing store: the tiering plane spills KV payloads through
+        its ``save_kv`` / ``load_kv`` methods when it has them
+        (``persistence.KVPayloadStore``)."""
         return self._store
 
     # -- KV pinning hooks ----------------------------------------------------
@@ -100,10 +105,12 @@ class StateManager:
 
     def update_prefix_handle_tier(self, conversation_id: str,
                                   tier: str) -> bool:
-        """Set a recorded prefix handle's ``tier`` ("hbm" or "dropped":
-        the engine reclaimed the pin and no radix block holds the
-        stream). The handle's length and pages stay. False when the
-        conversation or its handle is unknown."""
+        """Set a recorded prefix handle's ``tier``: "hbm", "host" or
+        "store" (the tiering plane's bookkeeping), or "dropped" (the
+        pin was reclaimed and nothing holds the KV any more). The
+        handle's length and pages, its content identity, stay: a handle
+        may outlive HBM residency by design. False when the conversation
+        or its handle is unknown."""
         with self._mu:
             conv = self._convs.get(conversation_id)
             if conv is None:

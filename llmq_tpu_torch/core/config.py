@@ -6,8 +6,7 @@ read, with the JAX package's defaults. :func:`load_config` reads the same
 files as the JAX package's (``configs/config.yaml`` among them). A key of
 a plane the port does not have yet (the
 cluster, disaggregation, store, chaos, control-plane, tenancy and
-scenario planes, KV tiering, speculation, the mesh, the TPU
-block), or one that nothing here reads (the autoscaler's and the resource
+scenario planes, the mesh, the TPU block), or one that nothing here reads (the autoscaler's and the resource
 scheduler's scale thresholds, endpoint selection and session affinity,
 the server's read and write timeouts, a tier's ``max_concurrent``, the
 metrics port and path) is accepted only at the JAX package's default, or inside a block
@@ -461,6 +460,50 @@ class SpeculationConfig:
 
 
 @dataclass
+class KVTieringConfig:
+    """Tiered KV plane (``tiering/``, the JAX package's
+    ``KVTieringConfig``): HBM → pinned host memory → conversation store
+    under the conversation pins. A reclaimed pin's pages are copied to
+    preallocated host buffers instead of dying with the pin, promoted
+    back at the conversation's re-arrival, and the coldest host entries
+    spill to the store; recompute from the remembered token stream is
+    the last fallback. ``enabled: false`` (the default) is a hard
+    off-switch: no plane, no worker thread, HBM-only behaviour."""
+    enabled: bool = False
+    #: Host-memory budget for demoted page payloads (MiB): one arena,
+    #: pinned on the card, cut into page-sized buffers once.
+    host_capacity_mb: int = 256
+    #: Cap on conversations resident in the host tier; the coldest
+    #: spill to the store past it.
+    host_max_conversations: int = 4096
+    #: Spill the coldest host entries to the conversation store (its
+    #: KV-payload seam). Off: past capacity an entry keeps its token
+    #: stream only, and its next turn recomputes.
+    store_spill: bool = True
+    #: Seconds a promotion may wait on an in-flight extract or store
+    #: load before admission falls back to recompute.
+    promote_timeout_s: float = 5.0
+    #: "saved_rate" ranks every eviction (pin reclaim, host→store spill)
+    #: by the usage ledger's saved-prefill rate of the conversation, with
+    #: recency as the tiebreak (and the whole key while the ledger has
+    #: no signal); "lru" is recency alone.
+    eviction_policy: str = "saved_rate"
+
+    def __post_init__(self) -> None:
+        if self.host_capacity_mb < 0:
+            raise ValueError("kv_tiering.host_capacity_mb must be >= 0")
+        if self.host_max_conversations < 1:
+            raise ValueError(
+                "kv_tiering.host_max_conversations must be >= 1")
+        if self.promote_timeout_s <= 0:
+            raise ValueError("kv_tiering.promote_timeout_s must be > 0")
+        if self.eviction_policy not in ("lru", "saved_rate"):
+            raise ValueError(
+                f"kv_tiering.eviction_policy must be 'lru' or "
+                f"'saved_rate' (got {self.eviction_policy!r})")
+
+
+@dataclass
 class ExecutorConfig:
     #: "torch", the port's executor (the JAX package's "echo" and "jax"
     #: raise).
@@ -486,6 +529,7 @@ class ExecutorConfig:
         default_factory=PrefixCacheConfig)
     speculation: SpeculationConfig = field(
         default_factory=SpeculationConfig)
+    kv_tiering: KVTieringConfig = field(default_factory=KVTieringConfig)
     supervisor: SupervisorConfig = field(default_factory=SupervisorConfig)
 
     def __post_init__(self) -> None:
@@ -602,10 +646,6 @@ _UNPORTED: Dict[str, Any] = {
     "model": {"checkpoint_path": "", "tokenizer_path": "",
               "meta_rope_layout": False, "dtype": "bfloat16"},
     "executor": {
-        "kv_tiering": {"enabled": False, "host_capacity_mb": 256,
-                       "host_max_conversations": 4096,
-                       "store_spill": True, "promote_timeout_s": 5.0,
-                       "eviction_policy": "saved_rate"},
         "mesh": {"enabled": False, "shape": {}}},
     "tpu": {"mesh_shape": {}, "platform": "", "compilation_cache_dir": ""},
 }

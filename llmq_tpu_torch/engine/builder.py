@@ -5,7 +5,8 @@ branch of ``llmq_tpu/engine/builder.py``), in bf16 or with int8 weights
 the two switches independent as in the JAX package; the async decode
 pipeline (``executor.async_pipeline``) and the radix prefix cache
 (``executor.prefix_cache``) on by default, as in the JAX package;
-speculative decoding (``executor.speculation``) off by default. The
+speculative decoding (``executor.speculation``) and the tiered KV plane
+(``executor.kv_tiering``) off by default. The
 build stamps its boot stages (``weights``, and with ``warmup`` the
 ``artifact``, ``compile`` and ``warmup`` stages) onto this process's boot
 record (observability/critical_path.py), opened here when no entry point
@@ -75,6 +76,7 @@ def build_engine(cfg: Config, *, name: str = "engine0",
                          f"(supported: 'int8')")
     mixed, ragged = ex.mixed_batch, ex.ragged_attention
     pipe, prefix, spec = ex.async_pipeline, ex.prefix_cache, ex.speculation
+    tier = ex.kv_tiering
     t0 = time.perf_counter()
     if params is None:
         gen = torch.Generator(device=dev)
@@ -136,12 +138,14 @@ def build_engine(cfg: Config, *, name: str = "engine0",
         prefix_cache=prefix,
         async_pipeline=pipe,
         speculation=spec,
+        kv_tiering=tier,
         enable_metrics=cfg.metrics.enabled)
     log.info("built %s engine %s on %s in %.1fs (slots=%d pages=%d "
              "page_size=%d chunk=%d prefill_batch=%d quantization=%s "
              "kv_quantization=%s "
              "weights=%.2f GB mixed_batch=%s ragged_attention=%s "
-             "async_pipeline=%s prefix_cache=%s speculation=%s warmup=%s)",
+             "async_pipeline=%s prefix_cache=%s speculation=%s "
+             "kv_tiering=%s warmup=%s)",
              mcfg.name, name, dev, time.perf_counter() - t0,
              ex.max_batch_size, ex.kv_pages, ex.page_size, ex.decode_chunk,
              executor.prefill_batch, quant or "bf16", kv_quant or "bf16",
@@ -158,6 +162,8 @@ def build_engine(cfg: Config, *, name: str = "engine0",
               f"{prefix.max_cached_pages})" if prefix.enabled else "off"),
              (f"on(k={spec.draft_k} device_sampling="
               f"{spec.device_sampling})" if spec.enabled else "off"),
+             (f"on(host={tier.host_capacity_mb}MiB)" if tier.enabled
+              else "off"),
              (" ".join(f"{k}={v:.2f}s" for k, v in
                        executor.warmup_split.items()) if warmup else "off"))
     return engine

@@ -88,8 +88,16 @@ active sequence by a chunk of tokens per device program.
   Windows never chain device to device, mixed steps are off (prefill
   runs through the bucket programs between windows), and greedy streams
   are those of plain decode.
+- **Tiered KV** (``kv_tiering``, ``tiering/``). A conversation pin
+  reclaimed by the pin TTL or pool pressure is demoted instead of freed:
+  its pages are gathered on the device (``export_kv_pages``) and copied
+  to pinned host memory on the plane's worker, the coldest host entries
+  spill to the conversation store, and the conversation's next turn
+  promotes them back into fresh pages (``import_kv_pages``) before its
+  continuation prefill, or recomputes from the remembered token stream.
+  Off (the default): no plane, no thread, the HBM-only paths.
 
-Left to later work (``ROADMAP.md``): tenancy and tiering.
+Left to later work (``ROADMAP.md``): tenancy.
 """
 
 from __future__ import annotations
@@ -200,6 +208,10 @@ class GenResult:
     cached_tokens: int = 0       # KV reused (conversation pin or radix match)
     finish_reason: str = ""      # eos | length | cancelled | error
     error: str = ""
+    #: The KV tier that served the conversation's re-arrival: "hbm",
+    #: "host", "store" or "recompute"; "" with the tiering plane off or
+    #: no cached state involved.
+    kv_tier: str = ""
 
 
 class GenHandle:
@@ -262,7 +274,8 @@ class _Sequence:
                  "todo_ids", "todo_pos", "todo_rebuild", "todo_resume",
                  "eff_prio", "arrival", "first_handle",
                  "prefix_match", "reuse_counted", "mixed_pending",
-                 "pending_emit", "pf_tokens_run", "usage", "cp_decode_s")
+                 "pending_emit", "pf_tokens_run", "usage", "cp_decode_s",
+                 "served_tier")
 
     def __init__(self, req: GenRequest, handle: GenHandle, order: int,
                  max_pages: int) -> None:
@@ -321,6 +334,9 @@ class _Sequence:
         #: Device+readback seconds attributed to this sequence's decode
         #: rows: the critical path splits its decode span with it.
         self.cp_decode_s = 0.0
+        #: The KV tier that served this re-arrival (tiering plane only;
+        #: "" otherwise): ``GenResult.kv_tier``.
+        self.served_tier = ""
 
     def sort_key(self):
         return (self.eff_prio, self.order)
@@ -452,8 +468,8 @@ class InferenceEngine:
                  preemption: bool = True, kv_pin_ttl: float = 600.0,
                  tier_max_wait: Optional[Dict[Priority, float]] = None,
                  mixed_batch=None, prefix_cache=None,
-                 async_pipeline=None, speculation=None,
-                 enable_metrics: bool = True) -> None:
+                 async_pipeline=None, speculation=None, kv_tiering=None,
+                 clock=None, enable_metrics: bool = True) -> None:
         self.executor = executor
         self.spec = executor.spec
         self.tokenizer = tokenizer or ByteTokenizer()
@@ -461,7 +477,10 @@ class InferenceEngine:
         self.max_decode_steps = max_decode_steps
         self.preemption_enabled = preemption
         self.kv_pin_ttl = kv_pin_ttl
-        self._now = time.monotonic
+        #: The clock of pin ages (and of the tiering plane's recency):
+        #: ``clock.now`` (a ``core/clock.py`` clock, injectable in tests),
+        #: else the monotonic clock.
+        self._now = clock.now if clock is not None else time.monotonic
         #: Per-tier SLA bound driving pending-request promotion.
         self.tier_max_wait = dict(tier_max_wait or {})
         self.allocator = PageAllocator(self.spec.num_pages,
@@ -613,6 +632,27 @@ class InferenceEngine:
         self.spec_tokens_accepted = 0
         self.spec_commits_total = 0
         self.spec_fetches_total = 0
+        #: Tiered KV plane (``tiering/``): a ``KVTieringConfig`` (or
+        #: anything with its fields). None or disabled keeps the HBM-only
+        #: behaviour: every tiering call site is one None check.
+        self._tiering = None
+        if kv_tiering is not None and getattr(kv_tiering, "enabled", False):
+            from llmq_tpu_torch.tiering import KVTieringPlane
+            self._tiering = KVTieringPlane(
+                kv_tiering, name, executor, clock=clock,
+                metrics=enable_metrics,
+                # A finished extract or load wakes the loop, so a pending
+                # promotion retries its admission at once.
+                on_ready=self._wake.set)
+
+            def hbm_tier():
+                eng = eng_ref()
+                if eng is None or eng._tiering is None:
+                    return None
+                n = eng.allocator.pinned_pages()
+                return n, n * eng._tiering.pool.page_nbytes
+
+            self._tiering.hbm_provider = hbm_tier
 
     # -- submission ----------------------------------------------------------
 
@@ -626,6 +666,11 @@ class InferenceEngine:
                         self.spec.max_pages_per_seq)
         if self._usage.enabled:
             seq.usage = RequestUsage()
+        if self._tiering is not None and req.conversation_id:
+            # Re-arrival prefetch: a store entry's blob starts loading
+            # now, overlapping the queue wait and admission. (JAX's remote
+            # branch asks the cluster exchange, which the port has not.)
+            self._tiering.prepare(req.conversation_id)
         with self._mu:
             self._inbox.append(seq)
         self._wake.set()
@@ -690,6 +735,30 @@ class InferenceEngine:
         #: its hooks under its own lock, so the lock order is strictly
         #: state manager → engine.
         self._state_manager = state_manager
+        if self._tiering is not None:
+            if self._tiering.store is None:
+                # The spill tier reuses the conversation store's
+                # KV-payload seam when the backend has it (memory, sqlite
+                # and redis do); without it there is no store tier.
+                store = getattr(state_manager, "store", None)
+                if store is not None and hasattr(store, "save_kv"):
+                    self._tiering.store = store
+            # Tier changes on the plane's worker (failed extract, spill
+            # or load; bound drops) move the prefix handle. Fired with no
+            # plane lock held; takes only the state manager's lock.
+            self._tiering.on_tier_change = self._tier_changed_cb
+
+    def _tier_changed_cb(self, conversation_id: str, tier: str) -> None:
+        """Tiering-plane callback (worker thread): forward a tier change
+        to the recorded prefix handle."""
+        sm = self._state_manager
+        if sm is None:
+            return
+        try:
+            sm.update_prefix_handle_tier(conversation_id, tier)
+        except Exception:  # noqa: BLE001 — bookkeeping, not a gate
+            log.exception("prefix-handle tier update failed for %s",
+                          conversation_id)
 
     def touch_conversation(self, conv_id: str) -> None:
         with self._mu:
@@ -719,9 +788,19 @@ class InferenceEngine:
         if kv is not None:
             self.allocator.unpin(conv_id)
             if self._usage.enabled:
-                # The pin's page-second meter closes with the pin.
+                # The pin's page-second meter closes with the pin, at a
+                # demotion too: host and store residency are not the
+                # priced HBM resource.
                 self._usage.unpin_kv(conv_id)
-            if not invalidate and (
+            if not invalidate and self._tiering is not None:
+                # Demote instead of dying: the plane queues the gather on
+                # the programs' stream (FIFO order makes the free below
+                # safe) and its worker makes the copy to host memory.
+                tier = self._tiering.demote(conv_id, kv.pages, kv.tokens,
+                                            kv.length, kv.pending)
+                self._note_tier(conv_id,
+                                "host" if tier == "host" else "dropped")
+            elif not invalidate and (
                     self._prefix_cache is None
                     or self._prefix_cache.cached_blocks(kv.tokens) == 0):
                 # The pin is reclaimed and no radix block holds its
@@ -730,6 +809,10 @@ class InferenceEngine:
                 self._note_tier(conv_id, "dropped")
             self.allocator.free(kv.pages)
             streams.append(kv.tokens)
+        if invalidate and self._tiering is not None:
+            # The conversation is deleted: no tier may keep serving its
+            # content (host buffers returned, the store blob deleted).
+            self._tiering.forget(conv_id)
         if self._prefix_cache is not None and streams:
             if invalidate:
                 # Prune every stream the conversation ever published (an
@@ -755,6 +838,40 @@ class InferenceEngine:
         if kv is None and conv_id in self._conv_busy:
             # An active sequence owns the pages; don't re-cache at finish.
             self._conv_drop_pending.add(conv_id)
+
+    def demote_conversation(self, conv_id: str) -> None:
+        """End a conversation's HBM pin through the tiering plane (any
+        thread). Unlike :meth:`drop_conversation` this never invalidates:
+        the token stream and the payload survive as a plane entry (with
+        the plane off, the pin is simply reclaimed)."""
+        with self._mu:
+            self._drop_conversation_locked(conv_id, invalidate=False)
+        self._flush_tier_notes()
+
+    def rehydrate_tiered_conversations(self) -> int:
+        """Restart recovery: adopt the spilled KV blobs this engine owns
+        in the store as ready store-tier entries, and record their prefix
+        handles at tier "store", so a re-arrival after a restart is a
+        store hit, not a recompute. Returns the conversations adopted."""
+        if self._tiering is None:
+            return 0
+        adopted = self._tiering.rehydrate(owner=self.name)
+        sm = self._state_manager
+        if sm is not None:
+            for cid, meta in adopted:
+                try:
+                    # record_prefix_handle never creates: the
+                    # conversation comes back from the same store first.
+                    sm.get_or_create(cid)
+                    sm.record_prefix_handle(cid, {
+                        "length": int(meta.get("length") or 0),
+                        "pages": int(meta.get("n_pages") or 0),
+                        "updated_at": time.time(),
+                        "tier": "store"})
+                except Exception:  # noqa: BLE001 — accounting only
+                    log.exception("prefix-handle rehydrate failed for %s",
+                                  cid)
+        return len(adopted)
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -788,6 +905,10 @@ class InferenceEngine:
         if comp is not None:
             comp.drain()
             comp.stop()
+        # The tiering worker after the loop: nothing can demote or promote
+        # any more. Made again at its next job if the engine restarts.
+        if self._tiering is not None:
+            self._tiering.stop()
 
     @property
     def running(self) -> bool:
@@ -1162,8 +1283,18 @@ class InferenceEngine:
         with self._mu:
             if not self._conv_cache:
                 return False
-            cid = min(self._conv_cache,
-                      key=lambda c: self._conv_cache[c].last_used)
+            if (self._tiering is not None
+                    and self._tiering.eviction_policy == "saved_rate"):
+                # Evict the pin with the lowest measured saved-prefill
+                # rate; recency breaks ties (and is the whole key while
+                # the ledger has no signal).
+                rate = self._usage.conversation_saved_rate
+                cid = min(self._conv_cache,
+                          key=lambda c: (rate(c),
+                                         self._conv_cache[c].last_used))
+            else:
+                cid = min(self._conv_cache,
+                          key=lambda c: self._conv_cache[c].last_used)
             self._drop_conversation_locked(cid, invalidate=False)
         self._flush_tier_notes()
         log.info("evicted conversation KV %s under pool pressure", cid)
@@ -1241,9 +1372,116 @@ class InferenceEngine:
                 continue
             return None
 
+    def _try_promote(self, seq: _Sequence, conv: str) -> str:
+        """Tiered-KV promotion at re-arrival: bring ``conv``'s demoted
+        entry back into the pool, so the ordinary adoption below runs on
+        a restored ``_ConvKV``. Returns "none" (the plane holds nothing),
+        "wait" (an extract, a store load or a contended pool: the
+        sequence stays pending while decode goes on) or "done": promoted
+        (a host or store hit), or degraded to recompute, with the exact
+        remembered token stream in ``seq.carry``."""
+        plane = self._tiering
+        cp = self._cp.enabled
+        t_claim = time.perf_counter() if cp else 0.0
+        status, entry = plane.claim(conv)
+        if status != "ready":
+            if cp and status == "wait":
+                # Private mark: the first admission attempt that waited
+                # opens the promote span (_stamp_promote closes it).
+                seq.handle.marks.setdefault("_promote_wait", t_claim)
+            return status
+        t0 = time.perf_counter()
+        restorable = (entry.length > 0
+                      and (entry.payload is not None
+                           or (plane.content_free
+                               and entry.tier == "host")))
+        pages: Optional[List[int]] = None
+        fence = None
+        if restorable:
+            need = PageAllocator.pages_for(entry.length, self.spec.page_size)
+            pages = self._alloc_pages(need, seq)
+            if pages is None:
+                if self._inflight:
+                    # Transient: shedding waits while chunks are in
+                    # flight. Put the entry back and retry at the next
+                    # reconcile rather than recompute.
+                    plane.restash(conv, entry)
+                    return "wait"
+                restorable = False
+        if restorable and entry.payload is not None:
+            try:
+                fence = self.executor.import_kv_pages(pages,
+                                                      plane.unpack(entry))
+            except Exception:  # noqa: BLE001 — degrade, never corrupt
+                log.exception("kv inject failed for %s; recomputing", conv)
+                plane.note_inject_failure()
+                self.allocator.free(pages)
+                pages = None
+                restorable = False
+        if restorable:
+            assert pages is not None
+            bt = np.zeros(self.spec.max_pages_per_seq, np.int32)
+            bt[:len(pages)] = pages
+            rec = _ConvKV(pages=list(pages), block_table=bt,
+                          length=entry.length, last_used=self._now(),
+                          tokens=list(entry.tokens), pending=entry.pending)
+            with self._mu:
+                self._conv_cache[conv] = rec
+            self.allocator.pin(conv, pages)
+            plane.note_promoted(entry, entry.source_tier,
+                                (time.perf_counter() - t0) * 1e3)
+            # The host buffers go back once the copy that reads them ran.
+            plane.release(entry, fence)
+            seq.served_tier = entry.source_tier
+            if cp:
+                self._stamp_promote(seq, entry, t_claim)
+            with self._mu:
+                self._note_tier(conv, "hbm")
+            self._flush_tier_notes()
+            return "done"
+        # Recompute: the remembered stream re-enters through ``carry``
+        # (the continuation-prefill path) and the prompt is encoded
+        # without the history_text fallback: the carry is the history,
+        # exact to the token.
+        plane.release(entry)
+        seq.carry = list(entry.tokens) + (
+            [entry.pending] if entry.pending is not None else [])
+        if not seq.prompt_ids:
+            text = seq.req.prompt
+            if not seq.carry and seq.req.history_text:
+                text = seq.req.history_text + seq.req.prompt
+            seq.prompt_ids = (self.tokenizer.encode(text)
+                              or [self.tokenizer.bos_id])
+        plane.note_promoted(entry, "recompute",
+                            (time.perf_counter() - t0) * 1e3)
+        seq.served_tier = "recompute"
+        if cp:
+            self._stamp_promote(seq, entry, t_claim)
+        with self._mu:
+            self._note_tier(conv, "dropped")
+        self._flush_tier_notes()
+        return "done"
+
+    @staticmethod
+    def _stamp_promote(seq: _Sequence, entry, t_claim: float) -> None:
+        """Close the promote span on the handle marks (``kv_promote``),
+        opened at the first admission attempt that waited or at this
+        claim. The store's share of the wait rides along as the private
+        ``_store_wait_ms`` mark, which the trace attaches to the span's
+        close, so the critical path can carve store waits out."""
+        marks = seq.handle.marks
+        marks.setdefault("kv_promote_start",
+                         marks.pop("_promote_wait", t_claim))
+        marks.setdefault("kv_promote_done", time.perf_counter())
+        store_ms = float(getattr(entry, "store_ms", 0.0) or 0.0)
+        if store_ms > 0.0:
+            marks["_store_wait_ms"] = (marks.get("_store_wait_ms", 0.0)
+                                       + store_ms)
+
     def _start_sequence(self, seq: _Sequence, slot: int) -> bool:
         """Admit ``seq`` into ``slot``. Returns False only when pages are
-        unavailable (seq stays pending)."""
+        unavailable, or a tiered promotion is still in flight (seq stays
+        pending)."""
         req = seq.req
         conv = req.conversation_id
         if seq.prefilled:
@@ -1256,6 +1494,15 @@ class InferenceEngine:
         if conv and not seq.adopted:
             # Adopt the conversation's cached KV exactly once (single
             # ownership: the cache entry moves into this sequence).
+            promoted = False
+            if self._tiering is not None:
+                with self._mu:
+                    resident = conv in self._conv_cache
+                if not resident:
+                    status = self._try_promote(seq, conv)
+                    if status == "wait":
+                        return False
+                    promoted = status == "done"
             with self._mu:
                 kv = self._conv_cache.pop(conv, None)
                 if kv is not None:
@@ -1265,6 +1512,11 @@ class InferenceEngine:
             if kv is not None and self._usage.enabled:
                 # The pin's meter ends; the pages go on this sequence's.
                 self._usage.unpin_kv(conv)
+            if kv is not None and self._tiering is not None \
+                    and not promoted:
+                # The pin was still resident: the hierarchy's top tier.
+                self._tiering.note_hit("hbm")
+                seq.served_tier = "hbm"
             if kv is not None:
                 seq.cached_len = kv.length
                 seq.pos = kv.length
@@ -1745,6 +1997,10 @@ class InferenceEngine:
                 except Exception:  # noqa: BLE001 — an estimate, not a gate
                     h = None
                 if h and str(h.get("tier", "")) != "dropped":
+                    # "hbm", "host", "store" or unset: the prefix is in
+                    # the radix tree or promotable from a lower tier, so
+                    # the prefill is mostly skipped; "dropped": the KV is
+                    # gone for good, all of it is new.
                     ps = self.spec.page_size
                     cached = (int(h.get("length", 0)) // ps) * ps
         return cached, max(0, int(prompt_tokens))
@@ -2405,7 +2661,8 @@ class InferenceEngine:
             prompt_tokens=len(seq.prompt_ids),
             cached_tokens=seq.cached_len,
             finish_reason=reason,
-            error=error))
+            error=error,
+            kv_tier=seq.served_tier))
 
     # -- commit ----------------------------------------------------------------
 
@@ -2591,9 +2848,17 @@ class InferenceEngine:
         marks = seq.handle.marks
         events = [(stage, marks[stage] + anchor,
                    {"engine": self.name, "priority": prio})
-                  for stage in ("admitted", "prefill_start", "prefill_done",
-                                "first_token", "decode_done")
+                  for stage in ("admitted", "kv_promote_start",
+                                "kv_promote_done", "prefill_start",
+                                "prefill_done", "first_token", "decode_done")
                   if stage in marks]
+        store_wait_ms = marks.get("_store_wait_ms", 0.0)
+        if store_wait_ms > 0.0:
+            # The store's share of the promote wait, on the span's close.
+            for i, (stage, ts, ev_meta) in enumerate(events):
+                if stage == "kv_promote_done":
+                    events[i] = (stage, ts, dict(
+                        ev_meta, store_wait_ms=round(store_wait_ms, 3)))
         # A cancellation (the client closed the stream or gave up) is a
         # terminal of its own: neither a success nor a failure.
         terminal = ("completed" if reason in ("eos", "length")
@@ -2712,6 +2977,9 @@ class InferenceEngine:
                           / self.spec_fetches_total, 4)
                     if self.spec_fetches_total else 0.0),
             }
+        if self._tiering is not None:
+            # Residency per tier, hits, spills, transfers and faults.
+            out["kv_tiering"] = self._tiering.stats()
         if self._prefix_cache is not None:
             pc = self._prefix_cache.get_stats()
             total = self.prefix_hits + self.prefix_misses

@@ -641,6 +641,12 @@ class TorchExecutor:
         self._ring_handles: List[List[PrefillHandle]] = [
             [] for _ in range(RESULT_RING)]
         self._ring_next = 0
+        #: Tiered KV transport: the stream that copies promoted pages to
+        #: the device (made at the first promotion on the card) and, on
+        #: the card, the timing events of the last gather, host → device
+        #: copy and inject (``name → (start event, end event, bytes)``).
+        self._h2d_stream = None
+        self.kv_last_transfer: Dict[str, tuple] = {}
 
     # -- helpers -------------------------------------------------------------
 
@@ -1677,3 +1683,161 @@ class TorchExecutor:
 
     def resume(self, slot: int, tokens: List[int], start_pos: int) -> None:
         pass
+
+    # -- tiered KV page transport (tiering/) ---------------------------------
+
+    def _kv_leaves(self) -> List[str]:
+        """The cache leaves in the JAX package's ``jax.tree.leaves`` order
+        (sorted keys: k, k_scale, v, v_scale), which the tiering payload
+        and its store blob follow."""
+        return sorted(self.cache)
+
+    def kv_page_spec(self) -> List[tuple]:
+        """Per-leaf payload ``(shape, dtype name)`` of ONE page, the page
+        axis (1) removed, leaves in :meth:`_kv_leaves` order: the tiering
+        plane's codec keys off it (the scale pools of an int8 cache ride
+        as ordinary leaves)."""
+        out = []
+        for name in self._kv_leaves():
+            t = self.cache[name]
+            out.append(((int(t.shape[0]),) + tuple(int(d)
+                                                   for d in t.shape[2:]),
+                        str(t.dtype).replace("torch.", "")))
+        return out
+
+    def _page_index(self, pages: List[int]) -> torch.Tensor:
+        """``pages`` as an int64 index on the device, copied from pinned
+        memory without a host wait on the card."""
+        idx = torch.tensor(list(pages), dtype=torch.int64)
+        if self.device.type == "cuda":
+            return idx.pin_memory().to(self.device, non_blocking=True)
+        return idx
+
+    def _leaf_views(self, packed: torch.Tensor):
+        """``(name, pool, view)`` per leaf: the leaf's ``(N, L, ...)``
+        slice of a page-major ``(N, page bytes)`` uint8 buffer (page j's
+        bytes are its leaves' ``[:, page]`` slices in leaf order, the
+        store blob's page layout)."""
+        n = packed.shape[0]
+        offs = 0
+        for name in self._kv_leaves():
+            pool = self.cache[name]
+            rest = tuple(pool.shape[2:])
+            per = pool.shape[0] * int(np.prod(rest)) * pool.element_size()
+            view = packed[:, offs:offs + per].view(pool.dtype).view(
+                (n, pool.shape[0]) + rest)
+            yield name, pool, view
+            offs += per
+
+    def export_kv_pages(self, pages: List[int]) -> "ExportedPages":
+        """Gather ``pages``' payloads out of the pool, without a host
+        wait: queued on the current stream (the one the programs replay
+        on), so FIFO order keeps the gather ahead of any later program
+        that rewrites the pages the caller frees next. The result holds
+        the page-major buffer (``packed``, what the tiering worker copies
+        to host memory after ``event``) and, as a list, each leaf's
+        ``(L, N, ...)`` view of it (the JAX package's per-leaf gathers).
+        Engine thread only."""
+        n = len(pages)
+        nbytes = sum(p.element_size() * p[:, 0].numel()
+                     for p in self.cache.values())
+        start = self._event(timing=True)
+        idx = self._page_index(pages)
+        packed = torch.empty((n, nbytes), dtype=torch.uint8,
+                             device=self.device)
+        leaves = []
+        with torch.inference_mode():
+            for _name, pool, view in self._leaf_views(packed):
+                view.copy_(pool.index_select(1, idx).transpose(0, 1))
+                leaves.append(view.transpose(0, 1))
+        event = self._event(timing=True)
+        if self._pin:
+            self.kv_last_transfer["gather"] = (start, event, n * nbytes)
+        return ExportedPages(leaves, packed, event)
+
+    def import_kv_pages(self, pages: List[int], leaves) -> Optional[object]:
+        """Scatter payloads back into the pool at fresh ``pages``
+        (promotion), in place (``index_copy_`` along the page axis): every
+        captured graph keeps reading the same pool tensors. ``leaves`` is
+        the tiering plane's :class:`~llmq_tpu_torch.tiering.PagePayload`
+        (per-page host buffers, pinned on the card) or per-leaf
+        ``(L, N, ...)`` arrays or tensors in :meth:`_kv_leaves` order.
+        On the card a payload's pages are copied to the device on a
+        stream of their own and the current stream waits for them before
+        the scatter, so a later program reads the injected pages. Returns
+        the event behind those copies (the fence before the host buffers
+        may be reused), or None when nothing reads host memory
+        asynchronously. Engine thread only."""
+        idx = self._page_index(pages)
+        done = None
+        with torch.inference_mode():
+            if hasattr(leaves, "tensors"):
+                host = leaves.tensors()
+                nbytes = host[0].numel() if host else 0
+                if self._pin:
+                    if self._h2d_stream is None:
+                        self._h2d_stream = torch.cuda.Stream(self.device)
+                    s = self._h2d_stream
+                    with torch.cuda.stream(s):
+                        h0 = self._event(timing=True)
+                        stage = torch.empty((len(host), nbytes),
+                                            dtype=torch.uint8,
+                                            device=self.device)
+                        for j, t in enumerate(host):
+                            stage[j].copy_(t, non_blocking=True)
+                        done = self._event(timing=True)
+                    cur = torch.cuda.current_stream(self.device)
+                    cur.wait_event(done)
+                    stage.record_stream(cur)
+                    self.kv_last_transfer["h2d"] = (h0, done,
+                                                    len(host) * nbytes)
+                else:
+                    stage = (torch.stack(host) if host else
+                             torch.empty((0, 0), dtype=torch.uint8))
+                i0 = self._event(timing=True)
+                for _name, pool, view in self._leaf_views(stage):
+                    pool.index_copy_(1, idx, view.transpose(0, 1))
+            else:
+                i0 = self._event(timing=True)
+                for name, leaf in zip(self._kv_leaves(), leaves):
+                    pool = self.cache[name]
+                    pool.index_copy_(1, idx, _as_pool_tensor(
+                        leaf, pool.dtype, self.device))
+            if self._pin:
+                self.kv_last_transfer["inject"] = (
+                    i0, self._event(timing=True), 0)
+        return done
+
+
+class ExportedPages(list):
+    """``export_kv_pages``' result: as a list, each cache leaf's gather
+    ``(L, N, ...)`` (views of ``packed``); ``packed``, the ``(N, page
+    bytes)`` uint8 page-major buffer; ``event``, recorded behind the
+    gather on the stream that made it (None on the CPU)."""
+
+    def __init__(self, leaves, packed: torch.Tensor, event) -> None:
+        super().__init__(leaves)
+        self.packed = packed
+        self.event = event
+
+
+#: Signed integer dtype of each itemsize: how a host array's bytes enter
+#: torch before they are viewed as the pool's dtype (bfloat16 arrays from
+#: numpy or ml_dtypes included).
+_INT_BY_SIZE = {1: np.int8, 2: np.int16, 4: np.int32, 8: np.int64}
+
+
+def _as_pool_tensor(leaf, dtype: torch.dtype,
+                    device: torch.device) -> torch.Tensor:
+    """A per-leaf payload (a tensor, or a numpy array of the pool's
+    element size: bfloat16 as 2-byte words) as a tensor of the pool's
+    dtype on ``device``, byte for byte."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf if leaf.dtype == dtype else leaf.view(dtype)
+    else:
+        a = np.ascontiguousarray(np.asarray(leaf))
+        if not a.flags.writeable:
+            a = a.copy()
+        t = torch.from_numpy(a.view(_INT_BY_SIZE[a.dtype.itemsize])
+                             ).view(dtype)
+    return t.to(device)

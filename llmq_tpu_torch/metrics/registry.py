@@ -384,6 +384,43 @@ class QueueMetrics:
             f"{ns}_prefix_cache_pages",
             "KV pages currently held by the radix prefix cache",
             ["engine"], registry=r)
+        # Tiered KV plane (tiering/): residency per tier, the re-arrival
+        # hits by serving tier (recompute included), and the host-side
+        # demote/promote latencies. Flushed at scrape
+        # (``tiering.flush_metrics``): demote and promote only buffer.
+        self.kv_tier_pages = Gauge(
+            f"{ns}_kv_tier_pages",
+            "KV pages resident per tier (hbm = pinned conversation "
+            "pages in the device pool; host/store = demoted entries)",
+            ["engine", "tier"], registry=r)
+        self.kv_tier_bytes = Gauge(
+            f"{ns}_kv_tier_bytes",
+            "Serialized KV payload bytes resident per tier",
+            ["engine", "tier"], registry=r)
+        self.kv_tier_hits = Counter(
+            f"{ns}_kv_tier_hits_total",
+            "Conversation re-arrivals by the tier that served their "
+            "cached prefix (recompute = re-prefilled from the "
+            "remembered token stream)", ["engine", "tier"],
+            registry=r)
+        self.kv_tier_round_trips = Counter(
+            f"{ns}_kv_tier_round_trips_total",
+            "Demote→promote round-trips within the thrash window "
+            "(a hot conversation bouncing between HBM and the host "
+            "tier — the KVTierThrashing alert watches this)",
+            ["engine"], registry=r)
+        self.kv_promote_ms = Histogram(
+            f"{ns}_kv_promote_ms",
+            "Host-side promotion work per re-arrival (page alloc + "
+            "payload unpack + inject dispatch; the device transfer "
+            "itself hides behind admission)", ["engine"],
+            buckets=_STEP_MS_BUCKETS, registry=r)
+        self.kv_demote_ms = Histogram(
+            f"{ns}_kv_demote_ms",
+            "Host-side demotion work per reclaimed pin (gather "
+            "dispatch + entry registration; the device→host transfer "
+            "runs on the tiering worker)", ["engine"],
+            buckets=_STEP_MS_BUCKETS, registry=r)
         self.mixed_step_decode_rows = Gauge(
             f"{ns}_mixed_step_decode_rows",
             "Decode rows in the most recent mixed iteration",
@@ -673,6 +710,13 @@ def exposition() -> bytes:
         get_usage_ledger().flush()
     except Exception:  # noqa: BLE001
         log.exception("usage flush failed")
+    try:
+        # Tiered KV plane: per-tier residency, hits and the buffered
+        # demote/promote observations.
+        from llmq_tpu_torch.tiering import flush_metrics as tiering_flush
+        tiering_flush()
+    except Exception:  # noqa: BLE001
+        log.exception("tiering flush failed")
     try:
         from llmq_tpu_torch.observability.critical_path import \
             flush_boot_metrics

@@ -195,7 +195,8 @@ class _Agg:
     """One rollup bucket (tenant / priority / engine / conversation)."""
 
     __slots__ = ("requests", "tokens", "prompt_tokens", "device_s",
-                 "waste_s", "kv_page_s", "saved_prefill_device_s")
+                 "waste_s", "kv_page_s", "saved_prefill_device_s",
+                 "first_s")
 
     def __init__(self) -> None:
         self.requests = 0
@@ -205,6 +206,8 @@ class _Agg:
         self.waste_s = 0.0
         self.kv_page_s = 0.0
         self.saved_prefill_device_s = 0.0
+        #: When the bucket was made: the saved-prefill rate's origin.
+        self.first_s = time.monotonic()
 
     def add(self, rec: "_FinalRecord") -> None:
         self.requests += 1
@@ -404,6 +407,21 @@ class UsageLedger:
             "saved_prefill_device_seconds":
                 round(usage.saved_prefill_device_s, 6),
         }
+
+    def conversation_saved_rate(self, conversation: str) -> float:
+        """The conversation's ``saved_prefill_device_seconds`` accrual
+        rate: device-seconds of prefill its cached KV saved per second
+        since the ledger first saw it. The tiering plane's "saved_rate"
+        policy evicts the lowest first; a conversation never credited
+        scores 0.0, which leaves the ranking to recency."""
+        if not self.enabled:
+            return 0.0
+        now = time.monotonic()
+        with self._mu:
+            agg = self._by_conversation.get(conversation)
+            if agg is None or agg.saved_prefill_device_s <= 0.0:
+                return 0.0
+            return agg.saved_prefill_device_s / max(now - agg.first_s, 1.0)
 
     def add_pinned_kv(self, tenant: str, conversation: str,
                       page_s: float) -> None:

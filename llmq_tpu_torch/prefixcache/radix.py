@@ -1,6 +1,5 @@
 """Radix-tree prefix KV cache over the paged allocator (the port's copy of
-``llmq_tpu/prefixcache/radix.py``, without the tiering plane's demotion
-callback).
+``llmq_tpu/prefixcache/radix.py``).
 
 Finished sequences publish their page-aligned KV prefix into a radix
 tree keyed on token-ID blocks, and new admissions that share a prefix —
@@ -37,6 +36,11 @@ Design:
   path and prunes its unlocked, childless tail — the conversation-delete
   hook. Shared ancestors (another conversation's live prefix, or any
   locked node) survive.
+- **Demotion seam** (``set_demotion_callback``): an evicted leaf whose
+  page is leaving the pool for good is shown to a callback as
+  ``(token path, page)`` before the free, where a lower tier may capture
+  it. Never for a shared page, never from ``invalidate``, and a failing
+  callback does not stop the eviction.
 
 The int8-KV path needs nothing special here: per-page quantization
 scales live in pools indexed by the same page id as the KV they scale
@@ -47,15 +51,17 @@ its scale rows by construction.
 from __future__ import annotations
 
 import heapq
+import logging
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 from llmq_tpu_torch.core.config import \
     VALID_PREFIX_EVICTION as EVICTION_POLICIES
 from llmq_tpu_torch.engine.kv_allocator import PageAllocator
 
+log = logging.getLogger("llmq_tpu_torch.prefixcache")
 
 
 class RadixNode:
@@ -111,6 +117,12 @@ class PrefixCache:
         self._pages = 0                  # nodes (== pages) in the tree
         self._seq = 0                    # insertion order for fifo
         self._mu = threading.RLock()
+        #: The demotion seam: ``cb(token_path, page)`` for an evicted
+        #: leaf whose page the tree holds the last reference of, fired
+        #: before the free. None (the default): evict is free, nothing
+        #: else. Never fired from :meth:`invalidate`: deleted content
+        #: must not linger in a lower tier.
+        self._on_demote: Optional[Callable[[List[int], int], None]] = None
         # Counters (read by engine metrics/stats):
         self.hits = 0
         self.misses = 0
@@ -223,6 +235,40 @@ class PrefixCache:
 
     # -- eviction ------------------------------------------------------------
 
+    def set_demotion_callback(
+            self, cb: Optional[Callable[[List[int], int], None]]) -> None:
+        """Install (or clear, with None) the demotion seam. The callback
+        runs under the cache lock: it must be cheap and must not call
+        back into the cache."""
+        with self._mu:
+            self._on_demote = cb
+
+    def _node_path(self, node: RadixNode) -> List[int]:
+        """The token ids of the path root → ``node``: the content
+        identity of the node's page."""
+        keys: List[Tuple[int, ...]] = []
+        cur: Optional[RadixNode] = node
+        while cur is not None and cur.key is not None:
+            keys.append(cur.key)
+            cur = cur.parent
+        out: List[int] = []
+        for k in reversed(keys):
+            out.extend(k)
+        return out
+
+    def _demote_hook(self, victim: RadixNode) -> None:
+        """Fire the demotion seam for an evicted leaf whose page the tree
+        holds the last reference of (a shared page is not leaving the
+        pool)."""
+        if self._on_demote is None:
+            return
+        if self.allocator.refcount(victim.page) != 1:
+            return
+        try:
+            self._on_demote(self._node_path(victim), victim.page)
+        except Exception:  # noqa: BLE001 — the seam must not break eviction
+            log.exception("prefix-cache demotion callback failed")
+
     def _evictable(self) -> List[RadixNode]:
         out: List[RadixNode] = []
         stack = list(self._root.children.values())
@@ -267,6 +313,7 @@ class PrefixCache:
                 continue
             last_holder = self.allocator.refcount(victim.page) == 1
             assert victim.parent is not None
+            self._demote_hook(victim)
             del victim.parent.children[victim.key]
             self.allocator.free([victim.page])
             self._pages -= 1

@@ -130,8 +130,13 @@ def test_unported_table_is_jaxs_tree_at_its_defaults():
     ("disagg: {enabled: true}\n", "disagg.enabled"),
     ("executor: {speculation: {enabled: true, draft_k: 17}}\n",
      "executor.speculation.draft_k"),
-    ("executor: {kv_tiering: {enabled: true}}\n",
-     "executor.kv_tiering.enabled"),
+    # kv_tiering is ported: the case now holds its validation (the id
+    # stays the case's own).
+    pytest.param("executor: {kv_tiering: {enabled: true, "
+                 "eviction_policy: fifo}}\n",
+                 "kv_tiering.eviction_policy",
+                 id="executor: {kv_tiering: {enabled: true}}\n-"
+                    "executor.kv_tiering.enabled"),
     ("executor: {mesh: {enabled: true, shape: {tp: 2}}}\n",
      "executor.mesh.enabled"),
     ("executor: {backend: echo}\n", "executor.backend"),
@@ -248,6 +253,47 @@ def test_speculation_block_loads_like_jaxs(tmp_path, source):
             TC.SpeculationConfig(**bad)
         with pytest.raises(ValueError) as je:
             JC.SpeculationConfig(**bad)
+        assert str(te.value) == str(je.value)
+
+
+@pytest.mark.parametrize("source", ["file", "env"])
+def test_kv_tiering_block_loads_like_jaxs(tmp_path, source):
+    """Tolerance: none. ``executor.kv_tiering`` is a real block with the
+    JAX package's fields and defaults; the same file and the same
+    ``LLMQ_EXECUTOR_KV_TIERING_*`` variables load to the same values in
+    both packages, and the same bad values raise the same errors."""
+    assert dataclasses.asdict(TC.KVTieringConfig()) == \
+        dataclasses.asdict(JC.KVTieringConfig())
+    assert "kv_tiering" not in TC._UNPORTED["executor"]
+    if source == "file":
+        path = tmp_path / "c.yaml"
+        path.write_text("executor: {kv_tiering: {enabled: true, "
+                        "host_capacity_mb: 64, host_max_conversations: 9, "
+                        "store_spill: false, promote_timeout_s: 2.5, "
+                        "eviction_policy: lru}}\n")
+        t = TC.load_config(str(path), env=False)
+        j = JC.load_config(str(path), env=False)
+    else:
+        env = {"LLMQ_EXECUTOR_KV_TIERING_ENABLED": "true",
+               "LLMQ_EXECUTOR_KV_TIERING_HOST_CAPACITY_MB": "64",
+               "LLMQ_EXECUTOR_KV_TIERING_HOST_MAX_CONVERSATIONS": "9",
+               "LLMQ_EXECUTOR_KV_TIERING_STORE_SPILL": "false",
+               "LLMQ_EXECUTOR_KV_TIERING_PROMOTE_TIMEOUT_S": "2.5",
+               "LLMQ_EXECUTOR_KV_TIERING_EVICTION_POLICY": "lru"}
+        t = TC.load_config(path=os.devnull, environ=env)
+        j = JC.Config()
+        JC._apply_env(j, env)
+    assert dataclasses.asdict(t.executor.kv_tiering) == \
+        dataclasses.asdict(j.executor.kv_tiering) == {
+            "enabled": True, "host_capacity_mb": 64,
+            "host_max_conversations": 9, "store_spill": False,
+            "promote_timeout_s": 2.5, "eviction_policy": "lru"}
+    for bad in ({"host_capacity_mb": -1}, {"host_max_conversations": 0},
+                {"promote_timeout_s": 0.0}, {"eviction_policy": "fifo"}):
+        with pytest.raises(ValueError) as te:
+            TC.KVTieringConfig(**bad)
+        with pytest.raises(ValueError) as je:
+            JC.KVTieringConfig(**bad)
         assert str(te.value) == str(je.value)
 
 

@@ -1227,3 +1227,95 @@ def test_shared_pages_unchanged_by_a_prefix_hit_wave(kv):
     for k, v in ex.cache.items():
         assert torch.equal(v[:, shared], before[k]), k
     eng.stop()
+
+
+# -- the tiered KV transport ---------------------------------------------------
+#
+# The executor's page seam and the tiering plane on the card: the gather
+# on the programs' stream, the copy into the pinned host arena on the
+# plane's stream, the copy back on the executor's own stream and the
+# in-place scatter. Bit-exact: the bytes only move.
+
+
+@needs_cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_tier_export_import_roundtrip_is_bit_exact(kv):
+    """Random pool bytes on pages 3, 9, 4 go to pinned host buffers and
+    back into pages 20, 21, 30 of every leaf (int8 values and bf16
+    scales included), byte for byte; the host buffers come back to the
+    freelist only behind the inject's fence."""
+    from llmq_tpu_torch.core.config import KVTieringConfig
+    from llmq_tpu_torch.tiering import KVTieringPlane, TierEntry
+
+    ex = _graph_executor("int8_kv" if kv == "int8" else "fused")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for pool in ex.cache.values():
+        if pool.dtype == torch.int8:
+            pool.copy_(torch.randint(-128, 128, pool.shape, generator=gen,
+                                     device="cuda", dtype=torch.int8))
+        else:
+            pool.copy_(torch.randn(pool.shape, generator=gen,
+                                   device="cuda").to(pool.dtype))
+    plane = KVTieringPlane(KVTieringConfig(enabled=True, host_capacity_mb=8),
+                           "cuda-seam", ex)
+    assert plane.pool.pinned
+    src, dst = [3, 9, 4], [20, 21, 30]
+    before = {k: v[:, src].clone() for k, v in ex.cache.items()}
+    dev = ex.export_kv_pages(src)
+    for k in ex.cache:
+        ex.cache[k][:, src] = 0           # the pages are reused at once
+    entry = TierEntry("c", [1] * 24, 24, None, len(src), 0.0)
+    bufs = plane.pool.take(len(src))
+    assert plane._copy_out(dev, bufs)
+    entry.payload, entry.pooled = bufs, True
+    fence = ex.import_kv_pages(dst, plane.unpack(entry))
+    assert fence is not None
+    plane.release(entry, fence)
+    torch.cuda.synchronize()
+    assert plane.pool.free_buffers() == plane.pool.total_buffers
+    for k, v in ex.cache.items():
+        assert torch.equal(v[:, dst], before[k]), k
+    assert plane.stats()["d2h_copies"] == 1
+    plane.stop()
+
+
+@needs_cuda
+@pytest.mark.parametrize("route", ["fused", "int8_kv"])
+def test_inject_under_a_captured_graph_is_read_by_its_replay(route):
+    """With the decode step captured, the rows' pages are exported,
+    overwritten, and injected into other pages; a replay over block
+    tables naming the new pages decodes exactly what an identical
+    executor decodes over the original pages (the graph reads the same
+    pool tensors: the inject wrote in place)."""
+    import numpy as np
+
+    from llmq_tpu_torch.tiering import HostTierPool, PagePayload
+
+    g_ex, ref = _graph_executor(route), _graph_executor(route)
+    g_ex.warmup()
+    tok, pos, bt = _graph_prefill(g_ex)
+    tok_r, _, bt_r = _graph_prefill(ref)
+    assert (tok == tok_r).all()
+    B = len(tok)
+    src = sorted({int(p) for p in bt[:, :2].ravel()})
+    dst = [p + 32 for p in src]
+    dev = g_ex.export_kv_pages(src)
+    torch.cuda.synchronize()
+    nbytes = dev.packed.shape[1]
+    pool = HostTierPool(nbytes * len(src), nbytes, pin=True)
+    bufs = pool.take(len(src))
+    for j, b in enumerate(bufs):
+        pool.tensor(b).copy_(dev.packed[j])
+    for k in g_ex.cache:
+        g_ex.cache[k][:, src] = 0
+    g_ex.import_kv_pages(dst, PagePayload(bufs, g_ex.kv_page_spec(), pool))
+    remap = dict(zip(src, dst))
+    bt2 = np.vectorize(lambda p: remap.get(int(p), int(p)))(bt).astype(
+        np.int32)
+    temps = np.zeros(B, np.float32)
+    budgets = np.full(B, GRAPH_K, np.int32)
+    replays = g_ex.graph_replays
+    got = g_ex.decode_chunk(tok, pos, bt2, temps, budgets)
+    want = ref.decode_chunk(tok_r, pos, bt_r, temps, budgets)
+    assert g_ex.graph_replays > replays
+    assert (got == want).all(), (got, want)

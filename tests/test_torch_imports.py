@@ -184,6 +184,28 @@ _BLOCKED_IMPORT_SCRIPT = textwrap.dedent("""
     for fam in ("spec_acceptance", "spec_tokens_proposed",
                 "spec_tokens_accepted", "spec_readback_cadence"):
         assert hasattr(get_metrics(), fam), fam
+    # The tiered KV plane: the plane and its codec, the executor's page
+    # seam, the engine's branches, the radix demotion seam, the stores'
+    # KV-payload seam, the config block and the metric families.
+    from llmq_tpu_torch.tiering import (HostTierPool, KVTieringPlane,
+                                        PagePayload, blob_meta,
+                                        decode_blob, encode_blob)
+    for fn in ("kv_page_spec", "export_kv_pages", "import_kv_pages"):
+        assert callable(getattr(TorchExecutor, fn)), fn
+    for fn in ("demote_conversation", "rehydrate_tiered_conversations",
+               "_try_promote", "_stamp_promote"):
+        assert callable(getattr(InferenceEngine, fn)), fn
+    assert callable(PrefixCache.set_demotion_callback)
+    for store_cls in (InMemoryStore, SqliteStore, RedisStore):
+        for fn in ("save_kv", "load_kv", "delete_kv", "list_kv"):
+            assert callable(getattr(store_cls, fn)), (store_cls, fn)
+    from llmq_tpu_torch.core.config import KVTieringConfig
+    assert not KVTieringConfig().enabled
+    assert not cfg.executor.kv_tiering.enabled
+    for fam in ("kv_tier_pages", "kv_tier_bytes", "kv_tier_hits",
+                "kv_tier_round_trips", "kv_promote_ms", "kv_demote_ms"):
+        assert hasattr(get_metrics(), fam), fam
+    assert "llmq_tpu_torch.tiering.plane" in sys.modules
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", sys.argv[1] + "/chip_smoke.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))

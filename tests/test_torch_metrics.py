@@ -90,8 +90,9 @@ def test_every_port_family_is_jaxs():
     """Tolerance: none. Name, type, help, label names and buckets."""
     port, jax_m = treg.get_metrics(), jreg.get_metrics()
     fams = vars(port)
-    assert len(fams) == 69      # the observability planes, the WAL and
-    #                             the four speculation families
+    assert len(fams) == 75      # the observability planes, the WAL, the
+    #                             four speculation families and the six
+    #                             tiering families
     for attr, fam in fams.items():
         jf = getattr(jax_m, attr)
         name = jf._name + ("_total" if jf._type == "counter" else "")
@@ -106,7 +107,7 @@ def test_exposition_parses_like_jaxs():
     parser into the same families (name, type, help) as JAX's."""
     port, jax_fams = _by_name(_port_exposition()), _by_name(
         _jax_exposition())
-    assert len(port) == 69
+    assert len(port) == 75
     for name, fam in port.items():
         jf = jax_fams[name]
         assert (fam.type, fam.documentation) == (jf.type,
