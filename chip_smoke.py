@@ -118,7 +118,13 @@ shows where it happened):
                  a window's device ms at B=8 (all drafts accepted, all
                  rejected) against W plain steps, B=1 and 8-concurrent
                  tok/s with speculation off and on in turns on the same
-                 engine, and how many B=1 greedy tokens agree.
+                 engine, and how many B=1 greedy tokens agree. Last, the
+                 chaos plane's ``engine.step`` crash lands while a verify
+                 window is in flight: the supervisor restarts the loop
+                 and drops the window, the failed request's stream is a
+                 prefix of its committed tokens (no token of the dead
+                 window), and its retry completes (the invariant checker
+                 holds both streams).
 9. serve-tiering — the tiered KV plane on the serve phase's weights
                  (llama3-8b bf16 at full width and depth): two engines
                  with ``executor.kv_tiering`` enabled, bf16 KV then int8
@@ -142,7 +148,15 @@ shows where it happened):
                  dispatch ms and the gather, D2H, H2D and inject device
                  ms with their GB/s, and (bf16) the step ms and
                  chunk-boundary idle of 8 decoding rows before and while
-                 a 1536-token history demotes.
+                 a 1536-token history demotes. Then (bf16) the store fault
+                 domain: the conversation store behind
+                 ``wrap_store(..., op_timeout_s=0.25)``, turn 2 of a
+                 240-token history by recompute, from the healthy store,
+                 and from the store while a chaos ``store.kv`` rule stalls
+                 it 2 s: that turn completes by recompute (kernels 2 and
+                 3) within the recompute turn's TTFT + 0.25 x 3 + 1 s,
+                 ``/health``'s ``store`` block counts the deadline miss,
+                 and after the rule the replay buffer drains to 0.
 10. serve-plane — the serving process around the serve phase's bf16
                  default engine (same weights, same pool: 8 slots, 512
                  pages of 16), over REST with retry backoff shortened to
@@ -154,11 +168,16 @@ shows where it happened):
                  before the LOWs they preempted, and once idle the pool
                  holds only the radix tree's pages and the pins);
                  at-least-once delivery through an
-                 engine loop killed by a BaseException with four
-                 requests decoding (the supervisor restarts it once,
-                 each message retries through the delayed queue and
-                 completes once, the graphs are replayed and none is
-                 captured again); a message that fails on every attempt
+                 engine loop killed by the chaos plane's ``engine.step``
+                 crash with eight requests decoding at depth 2 (the
+                 supervisor restarts it once, each message retries
+                 through the delayed queue and completes once, the
+                 graphs are replayed and none is captured again, and the
+                 invariant checker finds none lost, none duplicated and
+                 every attempt's stream a prefix of its result), then
+                 eight under an ``engine.hbm_alloc`` fault of probability
+                 0.3 (all complete; ``chaos_injected_total`` counts the
+                 faults); a message that fails on every attempt
                  in the process function and one the engine finishes
                  "error" reach the dead-letter queue, and the second is
                  requeued by the admin route; a conversation of three turns (turns 2
@@ -2478,8 +2497,8 @@ def _chunk_gaps(events, n_chunks: int):
 
 def _pipeline_vs_blocking(engine, tag: str, state) -> None:
     """The async pipeline's dispatch against the blocking chunk, on an
-    idle engine: four 16-step chunks of B=8 rows from 64 positions over
-    fresh pages, every budget K. Blocking: ``decode_chunk`` four times,
+    idle engine: three 16-step chunks of B=8 rows from 64 positions over
+    fresh pages, every budget K. Blocking: ``decode_chunk`` three times,
     each next chunk assembled on the host from the last one's tokens.
     Carried at depth 2: ``decode_chunk_start`` from the previous handle's
     device-carried end state, the next chunk dispatched before the
@@ -2495,7 +2514,7 @@ def _pipeline_vs_blocking(engine, tag: str, state) -> None:
     from torch.profiler import ProfilerActivity
 
     ex = engine.executor
-    B, K, N = ex.spec.batch_size, ex.chunk_size, 4
+    B, K, N = ex.spec.batch_size, ex.chunk_size, 3
     eos = ex.spec.eos_id
     pages = engine.allocator.alloc(B * 8)
     bt = np.zeros((B, ex.spec.max_pages_per_seq), np.int32)
@@ -2593,8 +2612,8 @@ def phase_graphs(state) -> None:
     the two engines of a type). Each: eager against graph (wall and
     device busy per step, host launches against device kernels per
     step), the graph pool's bytes, greedy streams equal. The bf16
-    default engine also runs four chunks carried at depth 2 against the
-    same four blocking (the async pipeline's dispatch)."""
+    default engine also runs three chunks carried at depth 2 against the
+    same three blocking (the async pipeline's dispatch)."""
     import gc
 
     import torch
@@ -3780,12 +3799,21 @@ def _pool_pressure(engine, base, tag: str, anchor: bool = False) -> dict:
 
 
 def _crash_recovery(app, engine, base) -> dict:
-    """Four REST requests decoding, then the engine loop dies once (its
-    next ``step`` raises a BaseException). The supervisor must restart
-    it once; each message must fail over, retry through the delayed
-    queue and complete exactly once; the dead-letter queue stays as it
-    was; the restarted loop replays the captured graphs (replays grow)
-    and captures none."""
+    """Eight REST requests decoding at async depth 2, then the chaos
+    plane's ``engine.step`` rule (kind crash, times 1), armed once a chunk
+    is in flight, kills the engine loop with that chunk unreconciled (the
+    recovery must find at least one). The supervisor must restart it once; each message must fail
+    over, retry through the delayed queue and complete exactly once; the
+    dead-letter queue stays as it was; the restarted loop replays the
+    captured graphs (replays grow) and captures none. The invariant
+    checker watches the eight messages (none lost, none completed twice)
+    and every attempt's token stream (a prefix of that attempt's result:
+    no token of the dead chunks reaches a stream). Then a batch of eight
+    under an ``engine.hbm_alloc`` rule (kind error, probability 0.3):
+    every message completes and the chaos counter shows the faults."""
+    from llmq_tpu_torch import chaos
+    from llmq_tpu_torch.core.config import ChaosConfig
+
     ex = engine.executor
     captures = []
     orig_capture = ex._capture
@@ -3796,46 +3824,112 @@ def _crash_recovery(app, engine, base) -> dict:
     restarts0 = sup.restarts
     dlq = app.factory.get_dead_letter_queue("standard")
     dlq0 = dlq.size()
+    mgr = app.factory.get_queue_manager("standard")
+    checker = chaos.InvariantChecker()
+    attempts = {}       # message id -> [(stream key, handle)]
+    submit = engine.submit
+
+    def watched_submit(req, *, on_token=None):
+        runs = attempts.get(req.id)
+        if runs is None or on_token is not None:
+            return submit(req, on_token=on_token)
+        key = f"{req.id}#{len(runs)}"
+        h = submit(req, on_token=checker.on_token(key))
+        runs.append((key, h))
+        return h
+
+    complete = mgr.complete_message
+    at_crash = []          # chunks in flight when the loop died
+    recover = engine.recover_after_crash
+
+    def watched_recover():
+        at_crash.append(len(engine._inflight))
+        return recover()
+
+    def watched_complete(m, *a, **kw):
+        if m.id in attempts:
+            checker.completed(m.id)
+        return complete(m, *a, **kw)
 
     def worker_sum(key):
         return sum(w.stats.to_dict()[key] for w in app.workers)
 
+    def batch(tag, new_tokens):
+        # The ids are the smoke's own, registered before the posts: a
+        # worker may submit a message before its post returns.
+        ids = [f"{tag.split()[0]}-{i}-{time.time_ns()}" for i in range(8)]
+        for m in ids:
+            attempts[m] = []
+            checker.submitted(m)
+        mids = [_post(base, {"id": m, "content": f"{i} {tag}: describe a "
+                                                f"queue in a few words.",
+                             "priority": "normal",
+                             "metadata": {"max_new_tokens": new_tokens}})
+                for i, m in enumerate(ids)]
+        if mids != ids:
+            raise AssertionError(f"posted ids {mids} != {ids}")
+        return mids
+
     ok0, retried0 = worker_sum("succeeded"), worker_sum("retried")
+    engine.submit = watched_submit
+    engine.recover_after_crash = watched_recover
+    mgr.complete_message = watched_complete
     try:
         _until(lambda: _idle(engine), 120, "idle engine before the crash")
-        # 128 tokens each: the four decode together long enough for the
+        # 128 tokens each: the eight decode together long enough for the
         # crash to land while all of them are in flight.
-        mids = [_post(base, {"content": f"{i} crash check: describe a "
-                                        f"queue in a few words.",
-                             "priority": "normal",
-                             "metadata": {"max_new_tokens": 128}})
-                for i in range(4)]
-        _until(lambda: _decoding_rows(engine) >= 4, 120,
-               "four requests decoding")
+        mids = batch("crash check", 128)
+        # Armed once a chunk is in flight: every step of a decoding batch
+        # ends with one dispatched, so the crash at the next step's top
+        # lands with it unreconciled (gated below).
+        _until(lambda: _decoding_rows(engine) >= 8
+               and len(engine._inflight) >= 1, 120,
+               "eight requests decoding with a chunk in flight")
         replays0 = ex.graph_replays
-
-        def crashing():
-            engine.__dict__.pop("step", None)
-            raise _LoopCrash("injected by chip_smoke")
-
+        inj = chaos.configure(ChaosConfig(enabled=True, seed=16))
         t_crash = time.perf_counter()
-        engine.step = crashing
+        inj.add_rule("engine.step", kind="crash", times=1)
         done = [_poll(base, m) for m in mids]
         recover_s = time.perf_counter() - t_crash
-        _until(lambda: worker_sum("succeeded") - ok0 >= 4, 60,
+        _until(lambda: worker_sum("succeeded") - ok0 >= 8, 60,
                "the workers' completions")
         time.sleep(0.2)        # a duplicate completion would land here
+        fired = dict(inj.get_stats()["injected"])
+        # The allocation faults: a batch of eight while each page
+        # allocation fails with probability 0.3, as an exhausted pool
+        # would.
+        before, _ms = _scrape(base)
+        inj = chaos.configure(ChaosConfig(enabled=True, seed=17))
+        inj.add_rule("engine.hbm_alloc", kind="error", probability=0.3)
+        t_alloc = time.perf_counter()
+        alloc_mids = batch("allocation check", 64)
+        alloc_done = [_poll(base, m) for m in alloc_mids]
+        alloc_s = time.perf_counter() - t_alloc
+        alloc_fired = dict(inj.get_stats()["injected"])
+        chaos.configure(None)
+        after, _ms = _scrape(base)
+        _until(lambda: worker_sum("succeeded") - ok0 >= 16, 60,
+               "the allocation batch's completions")
+        time.sleep(0.2)
     finally:
-        engine.__dict__.pop("step", None)
+        chaos.configure(None)
+        engine.__dict__.pop("submit", None)
+        engine.__dict__.pop("recover_after_crash", None)
+        mgr.__dict__.pop("complete_message", None)
         ex.__dict__.pop("_capture", None)
     bad = [m for m in done if m["status"] != "completed"
            or m["retry_count"] < 1]
-    if sup.restarts != restarts0 + 1 or bad:
+    if (sup.restarts != restarts0 + 1 or bad
+            or fired != {"engine.step:crash": 1}):
         raise AssertionError(f"crash: restarts {sup.restarts - restarts0}, "
-                             f"messages {bad or done}")
-    if worker_sum("succeeded") - ok0 != 4 or dlq.size() != dlq0:
+                             f"injected {fired}, messages {bad or done}")
+    if len(at_crash) != 1 or at_crash[0] < 1:
+        raise AssertionError(f"crash: chunks in flight when the loop died "
+                             f"{at_crash}, want one recovery with at least "
+                             f"one")
+    if worker_sum("succeeded") - ok0 != 16 or dlq.size() != dlq0:
         raise AssertionError(f"crash: {worker_sum('succeeded') - ok0} "
-                             f"completions for 4 messages, dead letters "
+                             f"completions for 16 messages, dead letters "
                              f"{dlq0} -> {dlq.size()}")
     now = {**{("step", k): id(g) for k, g in ex.step_graphs.items()},
            **{k: id(g) for k, g in ex.program_graphs.items()}}
@@ -3843,22 +3937,57 @@ def _crash_recovery(app, engine, base) -> dict:
         raise AssertionError(f"crash: {len(captures)} captures after the "
                              f"restart, graphs {len(graphs)} -> {len(now)}, "
                              f"replays {replays0} -> {ex.graph_replays}")
-    log(f"[serve-plane] engine loop killed with 4 requests decoding: "
-        f"supervisor restarts {sup.restarts - restarts0}, recovered "
-        f"{sup.recovered_total}; all 4 completed once after "
-        f"{[m['retry_count'] for m in done]} retries, crash to all "
-        f"completed {recover_s:.2f} s; graph replays {replays0} -> "
+    streamed = 0
+    for runs in attempts.values():
+        for key, h in runs:
+            h.wait(60)
+            checker.completed(key, tokens=h.result.tokens)
+            streamed += len(checker._streams.get(key, ()))
+    failed_runs = sum(1 for m in mids for _k, h in attempts[m]
+                      if h.result.finish_reason == "error")
+    # The attempts' records (keys "<id>#<n>") carry their results for
+    # the stream check only: loss and duplicates are checked on the
+    # submitted message ids, whose terminals are the manager's.
+    violations = checker.violations()
+    if violations or failed_runs != 8 or streamed <= 0:
+        raise AssertionError(f"crash invariants: {violations}, "
+                             f"{failed_runs} failed first attempts, "
+                             f"{streamed} tokens streamed")
+    bad = [m for m in alloc_done if m["status"] != "completed"]
+    inc = (_msum(after, "llm_queue_chaos_injected_total",
+                 point="engine.hbm_alloc", kind="error")
+           - _msum(before, "llm_queue_chaos_injected_total",
+                   point="engine.hbm_alloc", kind="error"))
+    n_alloc = alloc_fired.get("engine.hbm_alloc:error", 0)
+    if bad or n_alloc <= 0 or inc != n_alloc:
+        raise AssertionError(f"hbm_alloc: {len(bad)} not completed, "
+                             f"{n_alloc} faults, /metrics +{inc}")
+    samples = {dict(lb)["point"] + ":" + dict(lb)["kind"]: v
+               for (n, lb), v in after.items()
+               if n == "llm_queue_chaos_injected_total"}
+    log(f"[serve-plane] chaos engine.step crash with 8 requests decoding "
+        f"({at_crash} chunks in flight when the loop died): supervisor "
+        f"restarts "
+        f"{sup.restarts - restarts0}, recovered {sup.recovered_total}; all "
+        f"8 completed once after {[m['retry_count'] for m in done]} "
+        f"retries, crash to all completed {recover_s:.2f} s; invariants: 0 "
+        f"lost, 0 duplicated, {streamed} streamed tokens over "
+        f"{sum(len(r) for r in attempts.values())} attempts all prefixes "
+        f"of their results; graph replays {replays0} -> "
         f"{ex.graph_replays}, captures 0 ({len(now)} graphs kept); retries "
         f"{worker_sum('retried') - retried0}; dead letters {dlq.size()} "
         f"({CARD})")
+    log(f"[serve-plane] chaos engine.hbm_alloc p=0.3: {n_alloc} faults, 8 "
+        f"of 8 completed in {alloc_s:.2f} s; chaos_injected_total "
+        f"samples {samples}")
     return {"crash_to_completed_s": recover_s,
             "restarts": sup.restarts - restarts0,
             "retry_counts": [m["retry_count"] for m in done],
-            "graph_replays_after": ex.graph_replays - replays0}
-
-
-class _LoopCrash(BaseException):
-    """Kills the engine loop (an Exception from a step is only logged)."""
+            "chunks_in_flight_at_crash": at_crash,
+            "streamed_tokens": streamed,
+            "graph_replays_after": ex.graph_replays - replays0,
+            "hbm_alloc_faults": n_alloc, "hbm_alloc_batch_s": alloc_s,
+            "chaos_injected_total": samples}
 
 
 #: Prompt prefix of the serve-plane message the engine refuses at
@@ -4953,6 +5082,9 @@ def counting_start(self):
         held["engine"] = self
     return start(self)
 engine_mod.InferenceEngine.start = counting_start
+# The loop below and the exit hook both dump: one at a time, or two
+# writers share the temporary file and leave a torn status file.
+dump_mu = threading.Lock()
 def dump():
     eng = held.get("engine")
     rows = 0 if eng is None else sum(
@@ -4961,9 +5093,10 @@ def dump():
            "launches": dict(kernels.LAUNCHES), "plain": dict(plain),
            "decoding": rows,
            "cuda_initialized": torch.cuda.is_initialized()}
-    with open(status_path + ".tmp", "w") as f:
-        json.dump(rec, f)
-    os.replace(status_path + ".tmp", status_path)
+    with dump_mu:
+        with open(status_path + ".tmp", "w") as f:
+            json.dump(rec, f)
+        os.replace(status_path + ".tmp", status_path)
 def loop():
     while True:
         try:
@@ -6033,6 +6166,89 @@ def _spec_rates(spec, tag: str) -> dict:
     return out
 
 
+def _spec_chaos(spec) -> dict:
+    """The chaos plane's ``engine.step`` crash lands while a verify window
+    is in flight (the fused route, device accept): the supervisor
+    restarts the loop and drops the window; the request fails with what
+    it had streamed, a prefix of its committed tokens (no token of the
+    dead window leaks), and its retry completes on the restarted engine.
+    The invariant checker holds both streams."""
+    from llmq_tpu_torch import chaos
+    from llmq_tpu_torch.core.config import ChaosConfig, SupervisorConfig
+    from llmq_tpu_torch.engine.engine import GenRequest
+    from llmq_tpu_torch.engine.supervisor import EngineSupervisor
+
+    checker = chaos.InvariantChecker()
+    prompt = _spec_prompt(70)
+    pc = spec._prefix_cache
+    pc.evict_pages(pc.pages)
+    h = spec.submit(GenRequest(id="spec-chaos-0", prompt=prompt,
+                               max_new_tokens=SPEC_NEW_TOKENS),
+                    on_token=checker.on_token("spec-chaos-0"))
+    checker.submitted("spec-chaos-0")
+    for _ in range(2000):
+        spec.step()
+        if (spec._inflight
+                and len(checker._streams.get("spec-chaos-0", ())) >= 8):
+            break
+    if not spec._inflight or not spec._inflight[0].spec:
+        raise AssertionError("serve-spec chaos: no verify window in flight")
+    windows0 = spec.spec_windows
+    inj = chaos.configure(ChaosConfig(enabled=True, seed=16))
+    sup = EngineSupervisor(spec, config=SupervisorConfig(),
+                           enable_metrics=False)
+    try:
+        inj.add_rule("engine.step", kind="crash", times=1)
+        t0 = time.perf_counter()
+        spec.start()
+        _until(lambda: not spec.running, 30, "the crashed engine loop",
+               poll=0.01)
+        if not sup.check_once():
+            raise AssertionError("serve-spec chaos: no restart")
+        fired = dict(inj.get_stats()["injected"])
+    finally:
+        chaos.configure(None)
+    if spec._inflight or not h.wait(10) \
+            or h.result.finish_reason != "error":
+        raise AssertionError(f"serve-spec chaos: in flight "
+                             f"{len(spec._inflight)}, first attempt "
+                             f"{h.result and h.result.finish_reason}")
+    checker.failed("spec-chaos-0")
+    checker.completed("spec-chaos-0", tokens=h.result.tokens)
+    checker._terminal["spec-chaos-0"].remove("completed")  # streams only
+    pc.evict_pages(pc.pages)
+    h2 = spec.submit(GenRequest(id="spec-chaos-1", prompt=prompt,
+                                max_new_tokens=SPEC_NEW_TOKENS),
+                     on_token=checker.on_token("spec-chaos-1"))
+    checker.submitted("spec-chaos-1")
+    if not h2.wait(300) or h2.result.finish_reason not in ("eos", "length"):
+        raise AssertionError(f"serve-spec chaos: retry "
+                             f"{h2.result and h2.result.finish_reason}")
+    retry_s = time.perf_counter() - t0
+    spec._drain_completions()
+    checker.completed("spec-chaos-1", tokens=h2.result.tokens)
+    spec.stop()
+    sup.stop()
+    checker.check()
+    streamed = checker._streams.get("spec-chaos-0", [])
+    same = streamed == h2.result.tokens[:len(streamed)]
+    if fired != {"engine.step:crash": 1} or sup.restarts != 1:
+        raise AssertionError(f"serve-spec chaos: injected {fired}, "
+                             f"restarts {sup.restarts}")
+    log(f"[serve-spec] chaos engine.step crash with a verify window in "
+        f"flight (after {windows0} windows): restarts {sup.restarts}, "
+        f"recovered {sup.recovered_total}; the failed request streamed "
+        f"{len(streamed)} tokens, a prefix of its {len(h.result.tokens)} "
+        f"committed; its retry completed {len(h2.result.tokens)} tokens "
+        f"({h2.result.finish_reason}) {retry_s:.2f} s after the crash; the "
+        f"failed stream {'is' if same else 'is NOT'} a prefix of the "
+        f"retry's greedy stream; invariants hold ({CARD})")
+    return {"streamed_before_crash": len(streamed),
+            "committed_before_crash": len(h.result.tokens),
+            "restarts": sup.restarts, "crash_to_retry_done_s": retry_s,
+            "failed_stream_prefix_of_retry": same}
+
+
 def _spec_window_gaps(engine, n: int):
     """Device idle at the boundaries of the next ``n + 1`` verify windows
     the engine dispatches (while it serves), from the windows' own CUDA
@@ -6281,6 +6497,17 @@ def phase_serve_spec(state) -> None:
         app.stop()
         app = None
         out["rates"] = _spec_rates(spec, "serve-spec")
+        # Gate 6: a chaos crash with a verify window in flight.
+        kernels.reset_launches()
+        out["chaos"] = _spec_chaos(spec)
+        torch.cuda.synchronize()
+        out["chaos_launches"] = {k: v for k, v in kernels.LAUNCHES.items()
+                                 if v}
+        if not out["chaos_launches"].get("fused_decode"):
+            raise AssertionError(f"serve-spec chaos launched "
+                                 f"{out['chaos_launches']}")
+        log(f"[serve-spec] kernel launches of the chaos gate "
+            f"{out['chaos_launches']}")
         serve = state.get("serve") or {}
         log(f"[serve-spec] for reference, the serve phase's engine "
             f"(speculation off, 32-token requests): B=1 "
@@ -6633,6 +6860,247 @@ def _tier_decode(probe, base, plane, tag: str) -> dict:
             "gap_ms_during": gaps[k0 - 1:k1 + 1]}
 
 
+#: The fault-domain conversations' history (bytes = tokens) with turn 1's
+#: tokens: 16 pages, a 32 MiB blob in bf16, which SQLite writes and reads
+#: well inside the store's 0.25 s deadline.
+TIER_FAULT_HISTORY = 240
+#: The store fault domain of the phase: the deadline, the store.kv stall
+#: (past the deadline) and the breaker's quick backoff.
+TIER_OP_TIMEOUT_S = 0.25
+TIER_STALL_MS = 2000.0
+
+
+def _tier_fault_domain(probe, base, app, plane, tag: str) -> dict:
+    """The store tier's promotions behind ``wrap_store(...,
+    op_timeout_s=0.25)`` over the phase's SQLite store (the state manager
+    and the plane re-wired to it, as ``App`` wires ``store.resilience``):
+    turn 2 of a 240-token history by recompute (demoted without its
+    payload), from the healthy store, and from the store while a chaos
+    ``store.kv`` rule stalls it 2 s. The two store conversations spill
+    (no host room) before the wrap: a 32 MiB SQLite write with its sync
+    can outlast the deadline (it did on the H100 machine), and what the
+    deadline guards here is the promotion path.
+    Gates: the stalled turn completes by recompute on kernels 2 and 3
+    within the recompute turn's TTFT + op_timeout_s x (retries + 1) +
+    1 s; ``/health``'s ``store`` block counts the stall's deadline
+    misses; once the rule is gone and a probe succeeds, the replay
+    buffer drains to 0. The stall is armed on a healthy store: the
+    healthy turn's clean-up (the delete of its 32 MiB blob, through the
+    wrapper) can itself miss the deadline, and then the probe recovers
+    the store first; those misses are printed apart. Then, with no
+    chaos, one more conversation spills through the wrapper itself at
+    op_timeout_s: its SQLite write is timed, and a deadline miss must
+    show as one timeout in ``/health``, one store error in the plane and
+    turn 2 by recompute (a write within the deadline, as the store
+    tier)."""
+    import torch
+
+    from llmq_tpu_torch import chaos
+    from llmq_tpu_torch.conversation.resilience import wrap_store
+    from llmq_tpu_torch.conversation.state_manager import StateManager
+    from llmq_tpu_torch.core.config import (BreakerConfig, ChaosConfig,
+                                            StoreResilienceConfig)
+    from llmq_tpu_torch.ops import kernels
+
+    eng = probe.engine
+    rcfg = StoreResilienceConfig(
+        enabled=True, op_timeout_s=TIER_OP_TIMEOUT_S, timeout_threshold=1,
+        probe_interval_s=0.05, seed=16,
+        breaker=BreakerConfig(base_backoff=0.15, max_backoff=0.6,
+                              jitter=0.0))
+    hist = _tier_history()[:TIER_FAULT_HISTORY]
+    host_max = plane.host_max_conversations
+    export = plane._export
+    ttft, tiers, spill_ms = {}, {}, []
+    inner_ms = {"save_kv": [], "delete_kv": []}
+    store = None
+
+    def demoted(conv, tier):
+        probe.turn(base, conv, hist, TIER_T1_NEW)
+        t0 = time.perf_counter()
+        eng.demote_conversation(conv)
+        _until(lambda: _tier_settled(plane, conv, tier), 120,
+               f"{conv} demoted to {tier}")
+        return (time.perf_counter() - t0) * 1e3
+
+    def turn2(conv, case):
+        h = probe.turn(base, conv, TIER_T2_PROMPT, TIER_T2_NEW)
+        ttft[case] = _ttft_ms(h)
+        tiers[case] = h.result.kv_tier
+        eng.drop_conversation(conv)
+        return h
+
+    def timed(name):
+        """The inner SQLite op ``name``, timed on the wrapper's worker."""
+        real = getattr(store.inner, name)
+
+        def op(*args):
+            t = time.perf_counter()
+            try:
+                return real(*args)
+            finally:
+                inner_ms[name].append((time.perf_counter() - t) * 1e3)
+        setattr(store.inner, name, op)
+
+    def recovered(what):
+        """Every plane job queued so far has run (a blob delete among
+        them); then probe until the store is healthy and the state
+        manager's journal has drained."""
+        if not plane.flush_jobs(30):
+            raise AssertionError(f"{tag}: the plane's jobs did not run "
+                                 f"({what})")
+
+        def healthy():
+            if store.degraded:
+                try:
+                    store.list_kv()      # the probe: its success recovers
+                except Exception:  # noqa: BLE001 — shed until it is due
+                    pass
+            return not store.degraded and sm.replay_pending() == 0
+        _until(healthy, 10, f"the store recovered ({what})", poll=0.01)
+
+    try:
+        # Recompute: a demotion without its payload (no export) keeps the
+        # token stream only.
+        plane._export = None
+        try:
+            demoted("fault-recompute", "recompute")
+        finally:
+            plane._export = export
+        want = turn2("fault-recompute", "recompute").result.tokens
+        # With no host room each demotion spills at once, to the raw
+        # store.
+        plane.host_max_conversations = 0
+        for conv in ("fault-healthy", "fault-stall"):
+            spill_ms.append(demoted(conv, "store"))
+        store = wrap_store(app.state_manager.store, rcfg)
+        for name in inner_ms:
+            timed(name)
+        sm = StateManager(app.cfg.conversation, store=store)
+        eng.attach_conversation_manager(sm)
+        app.state_manager = app.api.state_manager = sm
+        plane.store = store
+        turn2("fault-healthy", "healthy store")
+        if tiers != {"recompute": "recompute", "healthy store": "store"}:
+            raise AssertionError(f"{tag}: turn 2 tiers {tiers}")
+        recovered("before the stall")
+        timeouts0 = store.resilience_stats()["timeouts"]
+        # The stalled store: every store.kv op sleeps past the deadline.
+        inj = chaos.configure(ChaosConfig(enabled=True, seed=16))
+        inj.add_rule("store.kv", kind="latency", latency_ms=TIER_STALL_MS)
+        kernels.reset_launches()
+        h = turn2("fault-stall", "stalled store")
+        torch.cuda.synchronize()
+        stall_launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        # A write while the store is degraded journals.
+        probe.turn(base, "fault-journal", "One more line.", 4)
+        status, health, _ra = _http_status("GET", f"{base}/health")
+        fired = dict(inj.get_stats()["injected"])
+        chaos.configure(None)
+        journaled = sm.replay_pending()
+        recovered("after the stall")
+        after = store.resilience_stats()
+        # A spill behind the deadline, with no chaos: the SQLite write
+        # itself against op_timeout_s, timed on the wrapper's worker.
+        n_saves = len(inner_ms["save_kv"])
+        spill = {"timeouts0": after["timeouts"],
+                 "errors0": plane.store_errors}
+        probe.turn(base, "fault-spill", hist, TIER_T1_NEW)
+        t0 = time.perf_counter()
+        eng.demote_conversation("fault-spill")
+        _until(lambda: _tier_settled(plane, "fault-spill", "store")
+               or _tier_settled(plane, "fault-spill", "recompute"), 120,
+               "fault-spill demoted")
+        spill["settled_ms"] = (time.perf_counter() - t0) * 1e3
+        _until(lambda: len(inner_ms["save_kv"]) > n_saves, 30,
+               "the inner SQLite write")
+        spill["inner_ms"] = inner_ms["save_kv"][n_saves:]
+        spill["timeouts"] = (store.resilience_stats()["timeouts"]
+                             - spill["timeouts0"])
+        spill["store_errors"] = plane.store_errors - spill["errors0"]
+        _st, spill["health"], _ra = _http_status("GET", f"{base}/health")
+        spill_h = turn2("fault-spill", "spill behind the deadline")
+        recovered("after the spill")
+    finally:
+        chaos.configure(None)
+        plane.host_max_conversations = host_max
+        plane._export = export
+        if store is not None:
+            for name in inner_ms:
+                store.inner.__dict__.pop(name, None)
+    bound = (ttft["recompute"]
+             + rcfg.op_timeout_s * (rcfg.retries + 1) * 1e3 + 1e3)
+    blk = health.get("store") or {}
+    if (tiers["stalled store"] != "recompute"
+            or ttft["stalled store"] > bound
+            or h.result.tokens != want):
+        raise AssertionError(f"{tag}: stalled store turn 2 from "
+                             f"{tiers['stalled store']} in "
+                             f"{ttft['stalled store']:.1f} ms (bound "
+                             f"{bound:.1f})")
+    for name in ("kv_prefill_write", "prefill_attention"):
+        if not stall_launches.get(name):
+            raise AssertionError(f"{tag}: the stalled turn never launched "
+                                 f"{name}: {stall_launches}")
+    if (status != 200 or blk.get("timeouts", 0) - timeouts0 < 1
+            or not fired or journaled < 1 or after["degraded"]):
+        raise AssertionError(f"{tag}: /health store block {blk} (timeouts "
+                             f"before the stall {timeouts0}), fired "
+                             f"{fired}, journaled {journaled}, after "
+                             f"{after}")
+    # The spill's outcome must follow the wrapper's deadline: a miss is
+    # one timeout in /health, one store error in the plane and turn 2 by
+    # recompute; a write within it (under op_timeout_s by its own clock)
+    # leaves turn 2 to the store tier.
+    sblk = spill["health"].get("store") or {}
+    spill_tier = tiers["spill behind the deadline"]
+    if spill["timeouts"]:
+        ok = (spill["timeouts"] == 1 and spill["store_errors"] == 1
+              and sblk.get("timeouts") == spill["timeouts0"] + 1
+              and spill_tier == "recompute")
+    else:
+        ok = (spill["store_errors"] == 0 and spill_tier == "store"
+              and spill["inner_ms"][0] <= rcfg.op_timeout_s * 1e3)
+    ok = ok and spill_h.result.tokens == want
+    if not ok:
+        raise AssertionError(f"{tag}: spill behind the deadline: write "
+                             f"{spill['inner_ms']} ms, timeouts "
+                             f"{spill['timeouts']}, store_errors "
+                             f"{spill['store_errors']}, /health store "
+                             f"{sblk}, turn 2 from {spill_tier}")
+    log(f"[serve-tiering] {tag}: store fault domain (op_timeout_s "
+        f"{rcfg.op_timeout_s}, a {TIER_FAULT_HISTORY}-token history): "
+        f"turn-2 TTFT ms healthy store {ttft['healthy store']:.2f}, "
+        f"stalled store ({TIER_STALL_MS:.0f} ms store.kv latency) "
+        f"{ttft['stalled store']:.2f} by recompute (bound {bound:.1f}), "
+        f"recompute {ttft['recompute']:.2f}; /health store block "
+        f"timeouts {blk.get('timeouts')}, timeout_degraded "
+        f"{blk.get('timeout_degraded')}, replay_pending "
+        f"{blk.get('replay_pending')}; {journaled} journaled write(s) "
+        f"drained after the probe; chaos {fired}; the stalled turn's "
+        f"launches {stall_launches}; the two spills to the raw store "
+        f"settled in {', '.join(f'{x:.1f}' for x in spill_ms)} ms; before "
+        f"the stall the store missed the deadline {timeouts0} time(s) and "
+        f"recovered; the blob deletes through the wrapper took "
+        f"{[round(x, 1) for x in inner_ms['delete_kv']]} ms in SQLite "
+        f"({CARD})")
+    log(f"[serve-tiering] {tag}: a spill behind the wrapper at op_timeout_s "
+        f"{rcfg.op_timeout_s}: the SQLite write took "
+        f"{spill['inner_ms'][0]:.1f} ms, the demotion settled in "
+        f"{spill['settled_ms']:.1f} ms as {spill_tier}; deadline misses "
+        f"+{spill['timeouts']}, plane store_errors +{spill['store_errors']}, "
+        f"/health store timeouts {sblk.get('timeouts')}; turn 2 TTFT "
+        f"{ttft['spill behind the deadline']:.2f} ms from {spill_tier} "
+        f"({CARD})")
+    return {"ttft_ms": ttft, "bound_ms": bound, "health_store": blk,
+            "spill_settled_ms": spill_ms,
+            "spill_behind_deadline": {k: v for k, v in spill.items()
+                                      if k != "health"},
+            "journaled": journaled, "injected": fired,
+            "timeouts_before_stall": timeouts0, "sqlite_ms": inner_ms,
+            "stall_launches": stall_launches}
+
+
 def _tier_engine(params, work, tag: str, int8_kv: bool) -> dict:
     """One tiered engine (bf16 weights; bf16 or int8 KV) through REST."""
     import torch
@@ -6703,6 +7171,8 @@ def _tier_engine(params, work, tag: str, int8_kv: bool) -> dict:
                 f"{[round(x, 4) for x in dec['gap_ms_before']]}, during "
                 f"{[round(x, 4) for x in dec['gap_ms_during']]}; its export "
                 f"dispatched in {dec['export_dispatch_ms']:.3f} ms ({CARD})")
+            out["fault_domain"] = _tier_fault_domain(probe, base, app,
+                                                     plane, tag)
         return out
     finally:
         if probe is not None:

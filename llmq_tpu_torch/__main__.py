@@ -32,6 +32,12 @@ Configuration: dataclass defaults, then a YAML file (``--config``, else
 then ``LLMQ_*`` environment overrides, then these flags. A file that
 does not load (a key not ported, the JAX package's own config found by
 the search) ends the command with the reason and exit code 2.
+``executor.backend: echo`` (a named file, or
+``LLMQ_EXECUTOR_BACKEND=echo``) serves the host-only echo executor. The
+``chaos`` block arms the chaos plane at start; ``store.resilience``
+wraps the conversation store in the fault domain
+(``conversation/resilience.py``) and adds a ``store`` block to
+``/health``.
 """
 
 from __future__ import annotations
@@ -49,10 +55,11 @@ from typing import Dict, List, Optional
 
 import torch
 
-from llmq_tpu_torch import observability
+from llmq_tpu_torch import chaos, observability
 from llmq_tpu_torch.api.message_store import MessageStore
 from llmq_tpu_torch.api.server import ApiServer
 from llmq_tpu_torch.conversation.persistence import make_store
+from llmq_tpu_torch.conversation.resilience import wrap_store
 from llmq_tpu_torch.conversation.state_manager import StateManager
 from llmq_tpu_torch.core.config import Config, load_config
 from llmq_tpu_torch.engine.builder import build_engine
@@ -96,6 +103,11 @@ class App:
         store = make_store(p.backend, sqlite_path=p.sqlite_path,
                            redis_url=p.redis_url, key_prefix=p.key_prefix,
                            cache_ttl=p.cache_ttl)
+        # The store fault domain: deadlines, retry and a breaker around
+        # the one store the state manager and the tiering plane share.
+        # Off (the default), the raw backend serves as it is.
+        if cfg.store.resilience.enabled:
+            store = wrap_store(store, cfg.store.resilience)
         self.state_manager = StateManager(cfg.conversation, store=store)
         self.load_balancer = LoadBalancer(cfg.loadbalancer)
         self.resource_scheduler = ResourceScheduler(cfg.resource_scheduler)
@@ -438,6 +450,9 @@ def _load(args) -> Config:
     # The trace plane (and through it the SLO, usage and critical-path
     # planes) is sized and switched before any component records.
     observability.configure(cfg.observability)
+    # The chaos plane is armed only with chaos.enabled: otherwise every
+    # fault point is one attribute check.
+    chaos.configure(cfg.chaos)
     return cfg
 
 

@@ -3,7 +3,7 @@ counterpart of ``llmq_tpu/api/server.py``, with the routes of the planes
 the port has):
 
 - ``GET  /health`` (engine liveness; ``draining`` while the process
-  drains)
+  drains; the ``store`` block with the store fault domain on)
 - ``GET  /metrics`` (Prometheus text exposition, ``metrics/registry.py``)
 - ``POST /api/v1/messages`` → 202, or with ``"stream": true`` an SSE
   stream of tokens; ``GET /api/v1/messages`` (filters) and
@@ -37,7 +37,10 @@ recorder. Without an engine (the ``gateway``), the routes that need one
 (``/api/v1/engine/stats``, ``/api/v1/generate``, SSE) answer 503 and
 ``/health`` has no ``engine`` field, as in the JAX package. The routes
 of planes the port does not have yet (cluster, tenancy, control plane)
-wait for them.
+wait for them. Every response carries the CORS headers for a request's
+``Origin`` that ``allowed_origins`` admits (default ``["*"]``, which
+never sends ``Access-Control-Allow-Credentials``), and an ``OPTIONS``
+preflight answers 204.
 """
 
 from __future__ import annotations
@@ -154,7 +157,8 @@ class ApiServer:
                  load_balancer=None, resource_scheduler=None,
                  engine=None, drain_hook: Optional[Callable[[], None]] = None,
                  message_store: Optional[MessageStore] = None,
-                 manager_name: str = "standard") -> None:
+                 manager_name: str = "standard",
+                 allowed_origins: Optional[List[str]] = None) -> None:
         self.config = config or Config()
         self.factory = queue_factory
         self.preprocessor = preprocessor
@@ -169,6 +173,9 @@ class ApiServer:
         self.draining = False
         self.store = message_store or MessageStore()
         self.manager_name = manager_name
+        #: CORS: origins answered with Access-Control-Allow-Origin ("*":
+        #: any, without credentials).
+        self.allowed_origins = allowed_origins or ["*"]
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
         self._routes: List[Tuple[str, re.Pattern, Handler]] = []
@@ -415,7 +422,31 @@ class ApiServer:
         if self.engine is not None:
             out["engine"] = "running" if self.engine.running else "stopped"
         self._add_boot(out)
+        store_block = self._store_block()
+        if store_block is not None:
+            # Only with the store fault domain on: a raw backend's health
+            # body is as it was.
+            out["store"] = store_block
         return 200, out
+
+    def _store_block(self) -> Optional[Dict[str, Any]]:
+        """The resilience wrapper's ``store`` block, or None when the
+        plane is off (a raw backend, or no state manager)."""
+        sm = self.state_manager
+        if sm is None:
+            return None
+        stats_fn = getattr(getattr(sm, "store", None),
+                           "resilience_stats", None)
+        if not callable(stats_fn):
+            return None
+        try:
+            block = dict(stats_fn())
+            pending = getattr(sm, "replay_pending", None)
+            if callable(pending):
+                block["replay_pending"] = pending()
+            return block
+        except Exception:  # noqa: BLE001 — health never fails on the
+            return None    # store plane
 
     @staticmethod
     def _add_boot(out: Dict[str, Any]) -> None:
@@ -1113,6 +1144,7 @@ class ApiServer:
                     # Whole seconds, rounded up.
                     self.send_header("Retry-After", str(max(1, math.ceil(
                         float(payload["retry_after"])))))
+                self._cors_headers()
                 self.end_headers()
                 self.wfile.write(data)
 
@@ -1128,6 +1160,7 @@ class ApiServer:
                     self.send_header("Connection", "close")
                     for hk, hv in payload.headers.items():
                         self.send_header(hk, hv)
+                    self._cors_headers()
                     self.end_headers()
                     for event in payload:
                         self.wfile.write(event.encode("utf-8"))
@@ -1144,6 +1177,32 @@ class ApiServer:
                     if payload.on_close is not None:
                         payload.on_close()
                 self.close_connection = True
+
+            def _cors_headers(self) -> None:
+                origin = self.headers.get("Origin", "")
+                if not origin:
+                    return
+                exact = origin in server.allowed_origins
+                if exact or "*" in server.allowed_origins:
+                    self.send_header("Access-Control-Allow-Origin", origin)
+                    # The value varies per request: caches key on Origin.
+                    self.send_header("Vary", "Origin")
+                    self.send_header("Access-Control-Allow-Methods",
+                                     "GET, POST, PUT, DELETE, OPTIONS")
+                    self.send_header("Access-Control-Allow-Headers",
+                                     "Content-Type, Authorization")
+                    # Credentials only for an origin listed by name,
+                    # never for the wildcard: with it any site could ride
+                    # a browser's session.
+                    if exact:
+                        self.send_header("Access-Control-Allow-Credentials",
+                                         "true")
+
+            def do_OPTIONS(self) -> None:  # noqa: N802 — preflight → 204
+                self.send_response(204)
+                self._cors_headers()
+                self.send_header("Content-Length", "0")
+                self.end_headers()
 
             do_GET = do_POST = do_PUT = do_DELETE = _respond  # noqa: N815
 

@@ -16,15 +16,22 @@ paged KV stays pinned on the card while the conversation lives here and
 is freed exactly when it is evicted: one eviction policy for host and
 device state. The tiering plane spills KV payloads through the same
 ``store`` (its KV-payload seam), and moves the prefix handle's ``tier``
-as a conversation's KV changes tier. The store-resilience replay buffer
-and cluster placement records wait for their planes.
+as a conversation's KV changes tier.
+
+Store fault domain (``conversation/resilience.py``): over a wrapped store
+that reports itself degraded, the manager serves history from its
+in-memory cache and journals conversation writes into a bounded replay
+buffer, which the store's recovery callback drains. A raw backend (the
+default) leaves every path as it was. Cluster placement records wait for
+their plane.
 """
 
 from __future__ import annotations
 
 import logging
 import threading
-from typing import Callable, Dict, List, Optional
+from collections import deque
+from typing import Callable, Deque, Dict, List, Optional
 
 from llmq_tpu_torch.core.clock import SYSTEM_CLOCK, Clock
 from llmq_tpu_torch.core.config import ConversationConfig
@@ -57,6 +64,20 @@ class StateManager:
         self._on_evict: List[Callable[[Conversation], None]] = []
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        # The store fault domain, found by duck typing: a degraded store
+        # serves the cache and journals writes, drained on recovery.
+        cap = 256
+        rcfg = getattr(self._store, "config", None)
+        if rcfg is not None:
+            cap = max(1, int(getattr(rcfg, "replay_buffer", cap)))
+        self._replay: Deque[str] = deque(maxlen=cap)
+        self._replay_mu = threading.Lock()
+        reg = getattr(self._store, "register_consumer", None)
+        if callable(reg):
+            reg("state")
+        rec = getattr(self._store, "on_recovery", None)
+        if callable(rec):
+            rec(self.drain_replay)
 
     @property
     def store(self) -> ConversationStore:
@@ -64,6 +85,43 @@ class StateManager:
         its ``save_kv`` / ``load_kv`` methods when it has them
         (``persistence.KVPayloadStore``)."""
         return self._store
+
+    def _store_degraded(self) -> bool:
+        """The degraded rung (False for a raw backend): while True, reads
+        serve the in-memory cache and writes journal into the replay
+        buffer, so nothing pays a store call known to shed."""
+        return bool(getattr(self._store, "degraded", False))
+
+    def replay_pending(self) -> int:
+        with self._replay_mu:
+            return len(self._replay)
+
+    def drain_replay(self) -> int:
+        """Write the journaled conversations back to the recovered store
+        (the resilience wrapper's recovery callback; safe at any time).
+        A conversation evicted from memory since is skipped; a new failure
+        journals it again and stops (the store may bounce)."""
+        drained = 0
+        while True:
+            with self._replay_mu:
+                if not self._replay:
+                    break
+                cid = self._replay.popleft()
+            with self._mu:
+                conv = self._convs.get(cid)
+            if conv is None:
+                continue
+            try:
+                self._store.save(conv)
+                drained += 1
+            except Exception:  # noqa: BLE001 — the store bounced: re-park
+                with self._replay_mu:
+                    self._replay.append(cid)
+                break
+        if drained:
+            log.info("store replay buffer drained: %d conversations "
+                     "re-persisted", drained)
+        return drained
 
     # -- KV pinning hooks ----------------------------------------------------
 
@@ -142,7 +200,7 @@ class StateManager:
                 self._fire(self._on_touch, conv)
                 return conv
         loaded: Optional[Conversation] = None
-        if self._persist:
+        if self._persist and not self._store_degraded():
             try:
                 loaded = self._store.load(conversation_id)
             except Exception:  # noqa: BLE001
@@ -163,7 +221,7 @@ class StateManager:
     def get(self, conversation_id: str) -> Conversation:
         with self._mu:
             conv = self._convs.get(conversation_id)
-        if conv is None and self._persist:
+        if conv is None and self._persist and not self._store_degraded():
             try:
                 conv = self._store.load(conversation_id)
             except Exception:  # noqa: BLE001 — serve from memory only
@@ -283,7 +341,7 @@ class StateManager:
             local = [self._convs[cid]
                      for cid in self._user_convs.get(user_id, [])
                      if cid in self._convs]
-        if self._persist:
+        if self._persist and not self._store_degraded():
             try:
                 for cid in self._store.list_user(user_id):
                     if all(c.id != cid for c in local):
@@ -342,10 +400,31 @@ class StateManager:
     def _save(self, conv: Conversation) -> None:
         if not self._persist:
             return
+        if self._store_degraded():
+            # Write-behind: journal, and spend no probe slot on every
+            # save. Drained by drain_replay on recovery.
+            with self._replay_mu:
+                if conv.id in self._replay:
+                    return
+                if (self._replay.maxlen is not None
+                        and len(self._replay) >= self._replay.maxlen):
+                    log.warning(
+                        "store replay buffer full (%d); dropping oldest "
+                        "journaled write", self._replay.maxlen)
+                self._replay.append(conv.id)
+            return
         try:
             self._store.save(conv)
         except Exception:  # noqa: BLE001 — a store fault must not fail
             log.exception("store save failed for %s", conv.id)  # a turn
+            with self._replay_mu:
+                if conv.id not in self._replay:
+                    self._replay.append(conv.id)
+            return
+        # A raw backend has no recovery callback: what it journaled on a
+        # passing failure drains as soon as writes work again.
+        if self.replay_pending():
+            self.drain_replay()
 
     # -- lifecycle -----------------------------------------------------------
 

@@ -5,7 +5,7 @@ A copy of ``llmq_tpu/core/config.py`` holding what the port's planes
 read, with the JAX package's defaults. :func:`load_config` reads the same
 files as the JAX package's (``configs/config.yaml`` among them). A key of
 a plane the port does not have yet (the
-cluster, disaggregation, store, chaos, control-plane, tenancy and
+cluster, disaggregation, control-plane, tenancy and
 scenario planes, the mesh, the TPU block), or one that nothing here reads (the autoscaler's and the resource
 scheduler's scale thresholds, endpoint selection and session affinity,
 the server's read and write timeouts, a tier's ``max_concurrent``, the
@@ -23,9 +23,11 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 from llmq_tpu_torch.core.types import Priority
 
-#: The port's one executor backend (the JAX package's are "echo" and
-#: "jax").
-VALID_BACKENDS = ("torch",)
+#: The port's executor backends: "torch" serves the model; "echo" (host
+#: only, no model) echoes the prompt. The JAX package's default is
+#: "echo"; the port's is "torch", and a file found by the config search
+#: may not select "echo" (:func:`load_config`).
+VALID_BACKENDS = ("torch", "echo")
 
 
 @dataclass
@@ -157,6 +159,81 @@ class LoadBalancerConfig:
     (``loadbalancer/load_balancer.py``); endpoint selection and session
     affinity wait for the router that calls them."""
     health_check_interval: float = 30.0
+
+
+@dataclass
+class BreakerConfig:
+    """A circuit breaker (``loadbalancer/circuit_breaker.py``): trips on
+    consecutive faults (deadline misses never count), holds the guarded
+    resource out for a jittered exponential backoff, then admits one
+    half-open probe."""
+    enabled: bool = True
+    #: Consecutive failures that trip CLOSED → OPEN.
+    failure_threshold: int = 3
+    #: First OPEN window in seconds; doubles per consecutive trip.
+    base_backoff: float = 1.0
+    max_backoff: float = 30.0
+    #: ± fraction of the backoff randomized (seeded, so scenarios replay).
+    jitter: float = 0.2
+
+
+@dataclass
+class StoreResilienceConfig:
+    """The store fault domain (``conversation/resilience.py``): bounded
+    deadlines, seeded retry and a store-scoped breaker around the
+    conversation store that the state manager and the tiering plane
+    share. Off by default: the raw backend is used as it is."""
+    enabled: bool = False
+    #: Wall deadline of one store operation, in seconds.
+    op_timeout_s: float = 0.25
+    #: Bounded retries of retryable errors only (sqlite ``database is
+    #: locked``, connection resets).
+    retries: int = 2
+    #: Jittered exponential retry backoff, in seconds, seeded.
+    retry_base_backoff_s: float = 0.01
+    retry_max_backoff_s: float = 0.2
+    retry_jitter: float = 0.2
+    #: Consecutive deadline misses that make the store timeout-degraded
+    #: (the breaker ignores timeouts, so a slow store needs its own rung).
+    timeout_threshold: int = 3
+    #: While timeout-degraded, one probe operation per interval; the rest
+    #: shed at once.
+    probe_interval_s: float = 1.0
+    #: Conversation writes the state manager journals while the store is
+    #: degraded, replayed on recovery.
+    replay_buffer: int = 256
+    #: Seed of the retry jitter and of the breaker's backoff jitter.
+    seed: int = 0
+    breaker: BreakerConfig = field(default_factory=BreakerConfig)
+
+
+@dataclass
+class StoreConfig:
+    """The store tier's fault domain."""
+    resilience: StoreResilienceConfig = field(
+        default_factory=StoreResilienceConfig)
+
+    @property
+    def enabled(self) -> bool:
+        """The plane is the resilience wrapper."""
+        return self.resilience.enabled
+
+
+@dataclass
+class ChaosConfig:
+    """Deterministic fault injection (``llmq_tpu_torch/chaos/``).
+    ``enabled: false`` (the default) builds no injector: every fault
+    point is one attribute check."""
+    enabled: bool = False
+    #: Seeds every rule's random stream: the same seed, rules and call
+    #: sequence fire the same faults.
+    seed: int = 0
+    #: Rules ``{point, kind, probability, times, after, latency_ms,
+    #: match}`` (``chaos/injector.py`` ``FaultRule``). The port's points:
+    #: engine.step, engine.hbm_alloc, wal.append, wal.fsync and, with
+    #: ``store.resilience`` on, store.get, store.put, store.delete and
+    #: store.kv (fnmatch patterns accepted).
+    faults: List[Dict[str, Any]] = field(default_factory=list)
 
 
 @dataclass
@@ -505,8 +582,9 @@ class KVTieringConfig:
 
 @dataclass
 class ExecutorConfig:
-    #: "torch", the port's executor (the JAX package's "echo" and "jax"
-    #: raise).
+    #: "torch", the port's executor, or "echo", the host-only executor
+    #: that echoes the prompt (no model, no tensor); the JAX package's
+    #: "jax" raises.
     backend: str = "torch"
     max_batch_size: int = 8             # decode slots
     page_size: int = 16                 # tokens per KV page
@@ -536,7 +614,7 @@ class ExecutorConfig:
         if self.backend not in VALID_BACKENDS:
             raise ValueError(
                 f"config key executor.backend={self.backend!r} is not ported "
-                f"yet: this package's executor is 'torch'")
+                f"yet: this package's executors are 'torch' and 'echo'")
 
 
 @dataclass
@@ -558,6 +636,8 @@ class Config:
     observability: ObservabilityConfig = field(
         default_factory=ObservabilityConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
+    store: StoreConfig = field(default_factory=StoreConfig)
+    chaos: ChaosConfig = field(default_factory=ChaosConfig)
     executor: ExecutorConfig = field(default_factory=ExecutorConfig)
     #: Where the model runs. "cuda" raises without a GPU; only an
     #: explicit "cpu" runs on the host (tests).
@@ -607,15 +687,6 @@ _UNPORTED: Dict[str, Any] = {
         "long_prompt_ms": 250.0, "claim_ttl_s": 120.0,
         "publish_on_finish": True, "rehydrate_on_start": True,
         "miss_ttl_s": 5.0},
-    "store": {"resilience": {
-        "enabled": False, "op_timeout_s": 0.25, "retries": 2,
-        "retry_base_backoff_s": 0.01, "retry_max_backoff_s": 0.2,
-        "retry_jitter": 0.2, "timeout_threshold": 3,
-        "probe_interval_s": 1.0, "replay_buffer": 256, "seed": 0,
-        "breaker": {"enabled": True, "failure_threshold": 3,
-                    "base_backoff": 1.0, "max_backoff": 30.0,
-                    "jitter": 0.2}}},
-    "chaos": {"enabled": False, "seed": 0, "faults": []},
     "controlplane": {
         "enabled": False, "interval": 2.0, "min_replicas": 1,
         "max_replicas": 8, "fast_burn_threshold": 14.4,
@@ -819,14 +890,20 @@ def read_yaml(path: str) -> Any:
 
 
 def _refuse_a_jax_config(found: str, data: Any) -> None:
+    """A file the search found may not choose a backend other than
+    "torch": "echo" would serve no model on a machine with a card (the
+    JAX package's own ``configs/config.yaml`` selects it), so it runs only
+    when the caller names it (``--config``, ``LLMQ_CONFIG``,
+    ``LLMQ_EXECUTOR_BACKEND``, or the dataclass)."""
     ex = data.get("executor") if isinstance(data, dict) else None
     backend = ex.get("backend") if isinstance(ex, dict) else None
-    if backend is not None and backend not in VALID_BACKENDS:
+    if backend is not None and backend != "torch":
         raise ValueError(
             f"{found}, found by the config search, configures the JAX "
             f"package (executor.backend: {backend}); pass --config with a "
             f"file for this package (executor.backend: torch), or set "
-            f"LLMQ_CONFIG to one")
+            f"LLMQ_CONFIG to one (a named file, or "
+            f"LLMQ_EXECUTOR_BACKEND=echo, selects the echo backend)")
 
 
 #: Files :func:`load_config` reads when neither ``path`` nor
@@ -841,8 +918,9 @@ def load_config(path: Optional[str] = None, env: bool = True,
     ``LLMQ_CONFIG``, else the first of :data:`SEARCH_PATHS` that exists
     (none: defaults only). A file named by ``path`` or ``LLMQ_CONFIG``
     that does not exist raises; so does a file found by the search that
-    configures one of the JAX package's backends (the JAX package's own
-    ``configs/config.yaml`` in the repository's root), with the remedy."""
+    selects a backend other than "torch" (the JAX package's own
+    ``configs/config.yaml`` in the repository's root selects "echo"),
+    with the remedy. A named file may select "echo"."""
     cfg = Config()
     envmap = os.environ if environ is None else environ
     if not path:

@@ -1,6 +1,8 @@
 """Build an engine from the config: model, parameters, tokenizer,
 ``TorchExecutor`` and ``InferenceEngine`` (counterpart of the ``jax``
-branch of ``llmq_tpu/engine/builder.py``), in bf16 or with int8 weights
+branch of ``llmq_tpu/engine/builder.py``; ``executor.backend: echo``
+builds the host-only ``EchoExecutor`` instead, as its ``echo`` branch
+does), in bf16 or with int8 weights
 (``model.quantization``) and/or int8 KV pools (``model.kv_quantization``),
 the two switches independent as in the JAX package; the async decode
 pipeline (``executor.async_pipeline``) and the radix prefix cache
@@ -23,7 +25,7 @@ import torch
 from llmq_tpu_torch.core.config import Config, resolve_device
 from llmq_tpu_torch.core.types import Priority
 from llmq_tpu_torch.engine.engine import InferenceEngine
-from llmq_tpu_torch.engine.executor import TorchExecutor
+from llmq_tpu_torch.engine.executor import EchoExecutor, TorchExecutor
 from llmq_tpu_torch.engine.tokenizer import get_tokenizer
 from llmq_tpu_torch.models.llama import (get_config, init_params,
                                          init_params_quantized)
@@ -49,6 +51,8 @@ def build_engine(cfg: Config, *, name: str = "engine0",
     card, ``step_ms`` calibrated. The engine's metric families follow
     ``metrics.enabled``, as in the JAX package's builder."""
     ex = cfg.executor
+    if ex.backend == "echo":
+        return _build_echo(cfg, name)
     dev = resolve_device(device or cfg.device)
     boot_id = _cp.current_boot_id()
     if boot_id is None and _cp.cp_enabled():
@@ -166,4 +170,67 @@ def build_engine(cfg: Config, *, name: str = "engine0",
               else "off"),
              (" ".join(f"{k}={v:.2f}s" for k, v in
                        executor.warmup_split.items()) if warmup else "off"))
+    return engine
+
+
+def _build_echo(cfg: Config, name: str) -> InferenceEngine:
+    """The ``echo`` backend's engine (``llmq_tpu/engine/builder.py``'s
+    echo branch, same geometry): no model, no device, no tensor; the
+    futures API only with the async pipeline on. ``device`` plays no
+    part."""
+    ex = cfg.executor
+    tokenizer = get_tokenizer()
+    mixed, ragged = ex.mixed_batch, ex.ragged_attention
+    pipe, spec, tier = ex.async_pipeline, ex.speculation, ex.kv_tiering
+    # The engine-visible mixed geometry, as the JAX builder computes it:
+    # S slices of T tokens, or with ragged attention S slices sharing
+    # one packed capacity.
+    slices = int(mixed.max_slices) if mixed.enabled else 0
+    slice_tokens = int(mixed.slice_tokens) if mixed.enabled else 0
+    if ragged.enabled:
+        slices = int(ragged.max_slices) or (slices or 2)
+        slice_tokens = (int(ragged.prefill_token_capacity)
+                        or int(mixed.prefill_token_budget or 0) or 128)
+    executor = EchoExecutor(
+        batch_size=ex.max_batch_size,
+        page_size=ex.page_size,
+        num_pages=ex.kv_pages,
+        max_pages_per_seq=max(1, cfg.model.max_seq_len // ex.page_size),
+        eos_id=tokenizer.eos_id,
+        chunk_size=ex.decode_chunk,
+        mixed_prefill_slices=slices,
+        mixed_slice_tokens=slice_tokens,
+        async_chunks=pipe.enabled)
+    # The engine's ragged budget clamp reads this: the echo packs the
+    # shapes the ragged step accepts.
+    executor.ragged_attention = ragged.enabled
+    tier_max_wait = {Priority(lvl.priority): lvl.max_wait_time
+                     for lvl in cfg.queue.levels}
+    engine = InferenceEngine(
+        executor, tokenizer, name=name,
+        max_decode_steps=ex.max_decode_steps,
+        preemption=ex.preemption,
+        kv_pin_ttl=ex.kv_pin_ttl,
+        tier_max_wait=tier_max_wait,
+        mixed_batch=mixed,
+        prefix_cache=ex.prefix_cache,
+        async_pipeline=pipe,
+        speculation=spec,
+        kv_tiering=tier,
+        enable_metrics=cfg.metrics.enabled)
+    log.info("built echo engine %s (backend=echo slots=%d pages=%d "
+             "page_size=%d chunk=%d mixed_batch=%s ragged_attention=%s "
+             "async_pipeline=%s prefix_cache=%s speculation=%s "
+             "kv_tiering=%s)",
+             name, ex.max_batch_size, ex.kv_pages, ex.page_size,
+             ex.decode_chunk,
+             (f"on(budget={mixed.prefill_token_budget}x{slices})"
+              if mixed.enabled else "off"),
+             (f"on(cap={slice_tokens}x{slices})" if ragged.enabled
+              else "off"),
+             f"on(depth={pipe.depth})" if pipe.enabled else "off",
+             "on" if ex.prefix_cache.enabled else "off",
+             (f"on(k={spec.draft_k})" if spec.enabled else "off"),
+             (f"on(host={tier.host_capacity_mb}MiB)" if tier.enabled
+              else "off"))
     return engine

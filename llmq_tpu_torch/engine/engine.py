@@ -97,6 +97,18 @@ active sequence by a chunk of tokens per device program.
   continuation prefill, or recomputes from the remembered token stream.
   Off (the default): no plane, no thread, the HBM-only paths.
 
+- **Blocking executors** (the echo): without ``prefill_async`` the most
+  urgent prompt prefills through ``prefill`` and completes inline; with
+  ``decode_chunk_start`` / ``mixed_chunk_start`` / ``verify_chunk_start``
+  None, chunks and windows run through the blocking calls and commit at
+  once, through the fetched chunk's reconcile (``_commit_chunk``). These
+  are the JAX engine's branches for a synchronous executor, kept so that
+  the echo steps in lockstep with JAX's.
+- **Chaos points** (``chaos/``): ``engine.step`` at the top of
+  :meth:`InferenceEngine.step`, ``engine.hbm_alloc`` at the top of
+  ``_alloc_pages`` (a fault there is an exhausted pool: the requester
+  stays pending). One attribute check each while chaos is off.
+
 Left to later work (``ROADMAP.md``): tenancy.
 """
 
@@ -116,7 +128,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from llmq_tpu_torch import observability
+from llmq_tpu_torch import chaos, observability
 from llmq_tpu_torch.core.types import Message, Priority
 from llmq_tpu_torch.engine.executor import Executor
 from llmq_tpu_torch.engine.kv_allocator import PageAllocator
@@ -909,6 +921,14 @@ class InferenceEngine:
         # any more. Made again at its next job if the engine restarts.
         if self._tiering is not None:
             self._tiering.stop()
+        # An executor's own worker (the echo's device-queue thread), made
+        # again if the executor is driven again.
+        close = getattr(self.executor, "close", None)
+        if close is not None:
+            try:
+                close()
+            except Exception:  # noqa: BLE001 — teardown must not raise
+                log.exception("executor close failed for %s", self.name)
 
     @property
     def running(self) -> bool:
@@ -1042,6 +1062,10 @@ class InferenceEngine:
         With none in flight: one fresh chunk (mixed when decode rows and
         pending prefill coexist), joined by every sequence whose final
         prefill chunk was just dispatched; then the resolve."""
+        # Chaos point: kind "error" is absorbed by the loop's except (one
+        # lost round); kind "crash" is a BaseException that kills the
+        # loop thread, and the supervisor restarts it.
+        chaos.fault("engine.step", engine=self.name)
         self._ingest()
         self._expire_pins()
         admitted = self._admit()
@@ -1346,7 +1370,15 @@ class InferenceEngine:
         chunk is in flight — preempt-with-release of a strictly less
         urgent runner. A victim is always less urgent than
         ``requester``: a low-tier request never strips a realtime
-        sequence's KV."""
+        sequence's KV.
+
+        A chaos ``engine.hbm_alloc`` fault is a failed allocation: it
+        returns None as an exhausted pool does, and the requester stays
+        pending."""
+        try:
+            chaos.fault("engine.hbm_alloc", engine=self.name)
+        except chaos.ChaosFault:
+            return None
         while True:
             pages = self.allocator.alloc(n)
             if pages is not None:
@@ -1657,7 +1689,10 @@ class InferenceEngine:
         ``prefill_batch`` 1) takes ``prefill_async``. Nothing waits for
         the device: a sequence whose final chunk went out keeps its
         handle in ``first_handle`` for :meth:`_resolve_prefills` (and a
-        decode join)."""
+        decode join). A blocking executor (no ``prefill_async``: the
+        echo) prefills the most urgent sequence only, through
+        ``prefill``, and completes its admission here (the JAX package's
+        branch of a synchronous executor)."""
         cands = [s for s in self._slots if s is not None and not s.prefilled
                  and s.first_handle is None and not s.mixed_pending]
         reaped = False
@@ -1680,32 +1715,47 @@ class InferenceEngine:
             return reaped
         cands.sort(key=lambda s: s.sort_key())
         ex = self.executor
+        blocking = getattr(ex, "prefill_async", None) is None
+        if blocking:
+            cands = cands[:1]
         t0 = time.perf_counter()
-        chunk_len = ex.prefill_buckets[-1]
+        buckets = getattr(ex, "prefill_buckets", None)
         work = []
         for seq in cands:
             seq.handle.marks.setdefault("prefill_start", time.perf_counter())
+            chunk_len = buckets[-1] if buckets else len(seq.todo_ids)
             chunk = seq.todo_ids[:chunk_len]
             seq.todo_ids = seq.todo_ids[chunk_len:]
             work.append((seq, chunk))
-        npf = ex.prefill_batch
         handles: List = []
-        for i0 in range(0, len(work), npf):
-            grp = work[i0:i0 + npf]
-            reqs = [(chunk, seq.todo_pos, seq.block_table,
-                     seq.req.temperature) for seq, chunk in grp]
-            seqs = [seq for seq, _ in grp]
-            if len(grp) == 1:
-                with self._prof.span("engine.prefill",
-                                     tokens=len(reqs[0][0])):
-                    handles.append(self._dispatch(
-                        lambda: ex.prefill_async(*reqs[0]), seqs))
-            else:
-                with self._prof.span("engine.prefill_multi",
-                                     seqs=len(grp),
-                                     tokens=sum(len(r[0]) for r in reqs)):
-                    handles.extend(self._dispatch(
-                        lambda: ex.prefill_multi_async(reqs), seqs))
+        first = None
+        if blocking:
+            seq0, chunk0 = work[0]
+            with self._prof.span("engine.prefill", tokens=len(chunk0)):
+                first = self._dispatch(
+                    lambda: ex.prefill(chunk0, seq0.todo_pos,
+                                       seq0.block_table,
+                                       seq0.req.temperature, seq0.slot),
+                    [seq0])
+            handles.append(None)
+        else:
+            npf = ex.prefill_batch
+            for i0 in range(0, len(work), npf):
+                grp = work[i0:i0 + npf]
+                reqs = [(chunk, seq.todo_pos, seq.block_table,
+                         seq.req.temperature) for seq, chunk in grp]
+                seqs = [seq for seq, _ in grp]
+                if len(grp) == 1:
+                    with self._prof.span("engine.prefill",
+                                         tokens=len(reqs[0][0])):
+                        handles.append(self._dispatch(
+                            lambda: ex.prefill_async(*reqs[0]), seqs))
+                else:
+                    with self._prof.span("engine.prefill_multi",
+                                         seqs=len(grp),
+                                         tokens=sum(len(r[0]) for r in reqs)):
+                        handles.extend(self._dispatch(
+                            lambda: ex.prefill_multi_async(reqs), seqs))
         self._note_prefill_dispatch(
             sum(len(c) for _, c in work), time.perf_counter() - t0,
             decode_active=decode_active, fused=False)
@@ -1714,8 +1764,13 @@ class InferenceEngine:
             seq.pos = seq.todo_pos
             seq.pf_tokens_run += len(chunk)
             seq.written_ids.extend(chunk)
-            if not seq.todo_ids:
+            if seq.todo_ids:
+                continue
+            if h is not None:
                 seq.first_handle = h
+            else:
+                self._complete_prefill(seq, int(first))
+                self._flush_emits(seq)
         return True
 
     def _resolve_prefills(self) -> bool:
@@ -1808,12 +1863,13 @@ class InferenceEngine:
 
     def _mixed_on(self) -> bool:
         """Mixed batching configured AND the executor has a mixed
-        geometry."""
+        geometry and a mixed entry point (dispatched or blocking)."""
+        ex = self.executor
         return (self._mixed_cfg is not None
-                and int(getattr(self.executor, "mixed_prefill_slices", 0)) > 0
-                and int(getattr(self.executor, "mixed_slice_tokens", 0)) > 0
-                and getattr(self.executor, "mixed_chunk_start", None)
-                is not None)
+                and int(getattr(ex, "mixed_prefill_slices", 0)) > 0
+                and int(getattr(ex, "mixed_slice_tokens", 0)) > 0
+                and (getattr(ex, "mixed_chunk_start", None) is not None
+                     or getattr(ex, "mixed_chunk", None) is not None))
 
     def _mixed_work_waiting(self) -> bool:
         """A mid-prefill slot has slices left (whether or not one rides
@@ -1890,25 +1946,32 @@ class InferenceEngine:
             self._m.mixed_tokens.set(packed)
             self._m.mixed_util.set(packed / budget if budget else 0.0)
         t0 = time.perf_counter()
+        ex = self.executor
+        # A blocking executor (no mixed_chunk_start: the echo) runs the
+        # chunk inline and commits it at once.
+        start_fn = getattr(ex, "mixed_chunk_start", None)
+        call = start_fn if start_fn is not None else ex.mixed_chunk
         with self._prof.span("engine.mixed_chunk", active=len(active),
                              chunk=chunk, slices=len(pf), pf_tokens=packed):
-            handle = self._dispatch(
-                lambda: self.executor.mixed_chunk_start(
-                    tokens, positions, block_tables, temps, budgets, pf),
+            result = self._dispatch(
+                lambda: call(tokens, positions, block_tables, temps,
+                             budgets, pf),
                 active + [seq for seq, _ in pf_plan])
         now = time.perf_counter()
         self._note_prefill_dispatch(packed, now - t0,
                                     decode_active=bool(active), fused=True)
-        seqs: List[Optional[_Sequence]] = [None] * self.spec.batch_size
-        for seq in active:
-            seqs[seq.slot] = seq
+        seqs = self._slot_snapshot(active)
         for seq, _n, _final in infl_pf:
             seq.mixed_pending = True
-        self._push_chunk(_InflightChunk(handle, seqs, budgets, pf=infl_pf,
-                                        dispatch_s=now - t_asm,
-                                        dispatched_at=now))
         self.mixed_steps += 1
         self.mixed_prefill_tokens_total += packed
+        if start_fn is None:
+            self._commit_inline(result, seqs, budgets, t_asm, t0,
+                                pf=infl_pf)
+            return True
+        self._push_chunk(_InflightChunk(result, seqs, budgets, pf=infl_pf,
+                                        dispatch_s=now - t_asm,
+                                        dispatched_at=now))
         return True
 
     def _finish_mixed_prefills(self, pf, pf_first) -> None:
@@ -2065,8 +2128,12 @@ class InferenceEngine:
         if self._spec_on:
             return self._spec_once()
         chunk = min(max(1, self.executor.chunk_size), self._admission_cap())
+        # A blocking executor (no decode_chunk_start: the echo) runs its
+        # chunk inline, as a one-step chunk does.
+        start_fn = (getattr(self.executor, "decode_chunk_start", None)
+                    if chunk > 1 else None)
         joining = []
-        if chunk > 1:
+        if start_fn is not None:
             # A rebuild never joins: its re-prefill's sample is discarded
             # (it resumes from its newest generated token), so the device
             # must not feed that sample on.
@@ -2091,51 +2158,34 @@ class InferenceEngine:
         t_asm = time.perf_counter()   # step decomposition: dispatch leg
         tokens, positions, block_tables, temps, budgets = \
             self._chunk_arrays(rows, budgets_by_order)
-        if chunk > 1:
+        if start_fn is not None:
             overrides = [(s.slot, s.first_handle, s.pos) for s in joining]
             with self._prof.span("engine.decode_dispatch",
                                  active=len(active), chunk=chunk,
                                  joined=len(joining)):
                 handle = self._dispatch(
-                    lambda: self.executor.decode_chunk_start(
+                    lambda: start_fn(
                         tokens, positions, block_tables, temps, budgets,
                         overrides=overrides), rows)
             now = time.perf_counter()
-            seqs: List[Optional[_Sequence]] = [None] * self.spec.batch_size
-            for seq in rows:
-                seqs[seq.slot] = seq
-            self._push_chunk(_InflightChunk(handle, seqs, budgets,
-                                            dispatch_s=now - t_asm,
+            self._push_chunk(_InflightChunk(handle, self._slot_snapshot(rows),
+                                            budgets, dispatch_s=now - t_asm,
                                             dispatched_at=now))
             return True
-        # One-step chunks: the blocking single step (its host wait is
-        # the device leg; the tokens arrive with it).
+        # One-step chunks, and a blocking executor's chunks: the call's
+        # host wait is the device leg; the tokens arrive with it.
         t_call = time.perf_counter()
         with self._prof.span("engine.decode_chunk", active=len(active),
                              chunk=chunk):
-            out = self.executor.decode(tokens, positions, block_tables,
-                                       temps)[:, None]
-        t_done = time.perf_counter()
-        out = np.asarray(out)
-        t_rb = time.perf_counter()
-        self._count_step()
-        if self._usage.enabled or self._cp.enabled:
-            parts = [(seq, max(1, int(budgets[seq.slot])), False)
-                     for seq in active if seq.slot is not None]
-            if self._usage.enabled:
-                self._charge_step(t_done - t_call, parts)
-            if self._cp.enabled:
-                self._cp_decode_share(
-                    (t_done - t_call) + (t_rb - t_done), parts,
-                    [(seq, w) for seq, w, _ in parts])
-        tok0 = self.tokens_generated_total
-        for seq in active:
-            self._commit_row(seq, out[seq.slot], int(budgets[seq.slot]))
-            self._flush_emits(seq)
-        self._telemetry.note_step(t_call - t_asm, t_done - t_call,
-                                  t_rb - t_done,
-                                  self.tokens_generated_total - tok0)
-        self._set_gauges()
+            if chunk > 1:
+                out = self.executor.decode_chunk(tokens, positions,
+                                                 block_tables, temps,
+                                                 budgets)
+            else:
+                out = self.executor.decode(tokens, positions, block_tables,
+                                           temps)[:, None]
+        self._commit_inline(out, self._slot_snapshot(active), budgets,
+                            t_asm, t_call)
         return True
 
     # -- speculation -----------------------------------------------------------
@@ -2197,6 +2247,19 @@ class InferenceEngine:
             # whole budget were ensured above, and the rejected tail's
             # are trimmed at the reconcile.
             qlens[i] = 1 + len(d)
+        if getattr(self.executor, "verify_chunk_start", None) is None:
+            # A blocking executor (the echo): the window runs inline and
+            # commits at once.
+            t_call = time.perf_counter()
+            with self._prof.span("engine.verify_chunk", active=len(active),
+                                 chunk=int(qlens.max())):
+                result = self._dispatch(
+                    lambda: self.executor.verify_chunk(
+                        tokens, positions, block_tables, temps, drafts,
+                        qlens), active)
+            self._commit_inline(result, self._slot_snapshot(active), qlens,
+                                t_asm, t_call, spec=True)
+            return True
         # Dispatched without a wait, and reconciled on the fetch lane at
         # the next step, with the async pipeline off too (as in the JAX
         # package, whose off-switch keeps the dispatch-then-fetch path).
@@ -2207,10 +2270,8 @@ class InferenceEngine:
                     tokens, positions, block_tables, temps, drafts, qlens),
                 active)
         now = time.perf_counter()
-        seqs: List[Optional[_Sequence]] = [None] * B
-        for seq in active:
-            seqs[seq.slot] = seq
-        self._push_chunk(_InflightChunk(handle, seqs, qlens, spec=True,
+        self._push_chunk(_InflightChunk(handle, self._slot_snapshot(active),
+                                        qlens, spec=True,
                                         dispatch_s=now - t_asm,
                                         dispatched_at=now))
         return True
@@ -2264,6 +2325,29 @@ class InferenceEngine:
             m.spec_readback_cadence.labels(self.name).set(
                 self.spec_commits_total / self.spec_fetches_total)
         self._telemetry.note_spec(proposed, accepted, committed)
+
+    def _slot_snapshot(self, rows) -> List[Optional[_Sequence]]:
+        """The per-slot sequence snapshot a chunk is committed against."""
+        seqs: List[Optional[_Sequence]] = [None] * self.spec.batch_size
+        for seq in rows:
+            seqs[seq.slot] = seq
+        return seqs
+
+    def _commit_inline(self, out, seqs, budgets, t_asm: float,
+                       t_call: float, pf=None, spec: bool = False) -> None:
+        """Commit a blocking call's result (a one-step decode; a blocking
+        executor's chunk, mixed chunk or verify window) through the
+        reconcile of a fetched chunk, :meth:`_commit_chunk`: the call's
+        host wait is the device leg."""
+        t_done = time.perf_counter()
+        out = (tuple(np.asarray(x) for x in out) if pf is not None or spec
+               else np.asarray(out))
+        t_rb = time.perf_counter()
+        self._count_step()
+        self._commit_chunk(_InflightChunk(None, seqs, budgets, pf=pf,
+                                          spec=spec,
+                                          dispatch_s=t_call - t_asm),
+                           out, t_done - t_call, t_rb - t_done, 0.0)
 
     def _push_chunk(self, infl: _InflightChunk) -> None:
         self._inflight.append(infl)
@@ -2409,7 +2493,13 @@ class InferenceEngine:
         if box["err"] is not None:
             self._fail_inflight(f"chunk fetch failed: {box['err']}")
             raise box["err"]
-        out, device_s, readback_s, overlapped_s = box["out"]
+        self._commit_chunk(infl, *box["out"])
+
+    def _commit_chunk(self, infl: _InflightChunk, out, device_s: float,
+                      readback_s: float, overlapped_s: float) -> None:
+        """Commit a chunk's fetched result: the usage and critical-path
+        shares, the rows' tokens, a verify window's rollback, a mixed
+        chunk's admissions, and the step decomposition."""
         pf_first = None
         if infl.pf is not None:
             out, pf_first = out

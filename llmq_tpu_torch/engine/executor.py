@@ -83,14 +83,22 @@ token depends on (seed, row, position) and its prefix only; the window's
 tokens (and ``n_commit``) come back in one transfer. With
 ``speculation_draft_k`` 0 the executor has no ``verify_chunk`` and no
 ``verify_chunk_start`` (None), and builds no verify program.
+
+:class:`EchoExecutor` (JAX's, for ``executor.backend: echo``) echoes the
+prompt on the host with numpy, no model and no tensor, through the same
+entry points: blocking by default (its futures API None, so the engine
+takes its blocking branches), or dispatching to a FIFO device-queue
+thread with ``async_chunks``.
 """
 
 from __future__ import annotations
 
 import logging
+import queue
+import threading
 import time
 from dataclasses import dataclass, fields
-from typing import Dict, List, Optional, Protocol
+from typing import Callable, Dict, List, Optional, Protocol, Tuple
 
 import numpy as np
 import torch
@@ -1841,3 +1849,399 @@ def _as_pool_tensor(leaf, dtype: torch.dtype,
         t = torch.from_numpy(a.view(_INT_BY_SIZE[a.dtype.itemsize])
                              ).view(dtype)
     return t.to(device)
+
+
+# -- echo ----------------------------------------------------------------------
+
+
+class _EchoOutProbe:
+    """Stands in for a chunk's device output on the echo async path, so
+    that the fetch lane's timed fetch can time the simulated device's
+    run: ``block_until_ready`` waits until the device-queue thread ran
+    the program."""
+
+    __slots__ = ("_ev",)
+
+    def __init__(self, ev: threading.Event) -> None:
+        self._ev = ev
+
+    def block_until_ready(self) -> None:
+        self._ev.wait()
+
+
+class EchoChunkHandle:
+    """An echo chunk in flight (``async_chunks``): its results appear when
+    the executor's device-queue thread runs the program. ``_tok``,
+    ``_pos`` and ``_done`` are the end state a carried dispatch reads; the
+    device queue is FIFO, so by the time the next program runs this one
+    has set them."""
+
+    __slots__ = ("out", "_ev", "_out", "_tok", "_pos", "_done",
+                 "pf_first", "_err", "_mixed", "_ncommit", "_verify")
+
+    def __init__(self, mixed: bool = False, verify: bool = False) -> None:
+        self._ev = threading.Event()
+        self.out = _EchoOutProbe(self._ev)
+        self._out = None
+        self._tok = None
+        self._pos = None
+        self._done = None
+        self.pf_first = None
+        self._err: Optional[BaseException] = None
+        self._mixed = mixed
+        #: A verify window: fetch() returns (out, n_commit).
+        self._verify = verify
+        self._ncommit = None
+
+    def _set(self, out, tok, pos, done, pf_first=None, ncommit=None) -> None:
+        self._out, self._tok, self._pos, self._done = out, tok, pos, done
+        self.pf_first = pf_first
+        self._ncommit = ncommit
+        self._ev.set()
+
+    def _fail(self, err: BaseException) -> None:
+        self._err = err
+        self._ev.set()
+
+    def wait_ready(self) -> None:
+        """The device leg of the timed fetch: the program has run."""
+        self.out.block_until_ready()
+
+    def fetch(self):
+        self._ev.wait()
+        if self._err is not None:
+            raise self._err
+        if self._verify:
+            return self._out, self._ncommit
+        if self._mixed:
+            return self._out, self.pf_first
+        return self._out
+
+
+class EchoExecutor:
+    """Echoes the prompt: token i of the response is prompt token i, then
+    EOS. No model, no device and no tensor (host numpy only), but the
+    engine drives its whole slot and page machinery against it: the
+    queue plane, chaos and store-resilience scenarios run on it, and
+    ``executor.backend: echo`` serves it (only when named: see
+    ``core/config.py``). The port's copy of JAX's ``EchoExecutor``.
+
+    Synchronous (the default): ``prefill``, ``decode``, ``decode_chunk``,
+    ``mixed_chunk`` and ``verify_chunk`` run inline, and the futures API
+    is hidden (None), so the engine takes its blocking branches. With
+    ``async_chunks`` the ``*_chunk_start`` entry points return
+    :class:`EchoChunkHandle` s run by one FIFO device-queue thread, as
+    ``TorchExecutor``'s dispatches run on the card's stream."""
+
+    #: The tiered KV plane may demote and promote this backend's
+    #: conversations as metadata-only entries: its "KV" is fully given by
+    #: the token stream the engine registers at prefill.
+    kv_content_free = True
+
+    def __init__(self, batch_size: int = 8, page_size: int = 16,
+                 num_pages: int = 512, max_pages_per_seq: int = 32,
+                 eos_id: int = 2, chunk_size: int = 1,
+                 mixed_prefill_slices: int = 2,
+                 mixed_slice_tokens: int = 64,
+                 async_chunks: bool = False) -> None:
+        self.spec = ExecutorSpec(batch_size, page_size, num_pages,
+                                 max_pages_per_seq, eos_id)
+        self.chunk_size = chunk_size
+        #: Mixed-batch geometry: caps for the engine's packing (there is
+        #: no program behind them).
+        self.mixed_prefill_slices = max(0, mixed_prefill_slices)
+        self.mixed_slice_tokens = max(0, mixed_slice_tokens)
+        self._slot_prompt: Dict[int, List[int]] = {}
+        self._slot_end: Dict[int, int] = {}   # absolute pos after prompt
+        self._mu = threading.Lock()
+        self._async_chunks = bool(async_chunks)
+        self._devq: Optional[queue.Queue] = None
+        self._dev_thread: Optional[threading.Thread] = None
+        #: The deterministic verify seam: ``fn(slot, n_drafts) -> int``
+        #: caps the drafts a window may accept for that slot. The echoed
+        #: correction is the true next token, so a cap changes acceptance
+        #: counts (windows, pages, rollbacks) and never the stream.
+        self.verify_accept_cap: Optional[Callable[[int, int], int]] = None
+        #: The drafter's width cap (None: the echo has no compiled width).
+        self.verify_draft_k: Optional[int] = None
+        if not self._async_chunks:
+            # The engine finds the futures API with getattr: None keeps
+            # it on the blocking path.
+            self.decode_chunk_start = None    # type: ignore[assignment]
+            self.mixed_chunk_start = None     # type: ignore[assignment]
+            self.verify_chunk_start = None    # type: ignore[assignment]
+
+    def _register_prefill(self, slot: int, tokens: List[int],
+                          start_pos: int) -> List[int]:
+        """Register a prefill chunk for ``slot`` and return the slot's
+        accumulated prompt: a chunk contiguous with what the slot holds
+        extends it (mixed slices, a prefill finished across paths);
+        anything else replaces it (an admission, a resume)."""
+        cur_end = self._slot_end.get(slot)
+        if cur_end is not None and cur_end == start_pos:
+            self._slot_prompt[slot].extend(tokens)
+        else:
+            self._slot_prompt[slot] = list(tokens)
+        self._slot_end[slot] = start_pos + len(tokens)
+        return self._slot_prompt[slot]
+
+    def prefill(self, tokens: List[int], start_pos: int,
+                block_table: np.ndarray, temperature: float,
+                slot: int) -> int:
+        with self._mu:
+            stream = self._register_prefill(slot, list(tokens), start_pos)
+        return stream[0] if stream else self.spec.eos_id
+
+    def decode(self, tokens: np.ndarray, positions: np.ndarray,
+               block_tables: np.ndarray,
+               temperatures: np.ndarray) -> np.ndarray:
+        out = np.full(self.spec.batch_size, self.spec.eos_id, np.int32)
+        with self._mu:
+            for slot, prompt in self._slot_prompt.items():
+                # positions[slot] is the absolute position of the last
+                # emitted token; k is its index in the echo stream.
+                k = int(positions[slot]) - self._slot_end[slot]
+                nxt = k + 1
+                if 0 <= nxt < len(prompt):
+                    out[slot] = prompt[nxt]
+        return out
+
+    def decode_chunk(self, tokens: np.ndarray, positions: np.ndarray,
+                     block_tables: np.ndarray, temperatures: np.ndarray,
+                     budgets: np.ndarray) -> np.ndarray:
+        K = self.chunk_size
+        B = self.spec.batch_size
+        out = np.full((B, K), self.spec.eos_id, np.int32)
+        tok = np.asarray(tokens, np.int32).copy()
+        pos = np.asarray(positions, np.int32).copy()
+        done = np.asarray(budgets, np.int32) <= 0
+        for j in range(K):
+            active = ~done
+            nxt = self.decode(tok, pos, block_tables, temperatures)
+            nxt = np.where(active, nxt, self.spec.eos_id).astype(np.int32)
+            out[:, j] = nxt
+            pos = pos + active.astype(np.int32)
+            done = done | (nxt == self.spec.eos_id) | (j + 1 >= budgets)
+            tok = nxt
+        return out
+
+    def mixed_chunk(self, tokens: np.ndarray, positions: np.ndarray,
+                    block_tables: np.ndarray, temperatures: np.ndarray,
+                    budgets: np.ndarray, pf) -> tuple:
+        """The mixed chunk: ``pf`` holds one ``(slot, tokens, start_pos,
+        block_table, temperature)`` per prefill slice; the slices register
+        before the decode steps, as the fused step writes their KV first.
+        Returns ``(out (B, K), pf_first (S,))``, ``pf_first[i]`` the next
+        token as of slice i's end (meaningful for a prompt's final
+        slice)."""
+        pf_first = np.full(len(pf), self.spec.eos_id, np.int32)
+        with self._mu:
+            for i, (slot, toks, start_pos, _bt, _temp) in enumerate(pf):
+                stream = self._register_prefill(slot, list(toks),
+                                                start_pos)
+                if stream:
+                    pf_first[i] = stream[0]
+        out = self.decode_chunk(tokens, positions, block_tables,
+                                temperatures, budgets)
+        return out, pf_first
+
+    # -- the speculation verify window ---------------------------------------
+
+    def _verify_rows(self, positions: np.ndarray, drafts: np.ndarray,
+                     qlens: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """One verify window per row against the echo stream, with the
+        verify program's semantics: step j emits the true token at
+        ``positions[slot] + j + 1``; the row stops at the first draft
+        mismatch (that emission is the correction), at EOS, or at the
+        window's end; ``n_commit`` counts the steps run.
+        ``verify_accept_cap`` injects rejections without changing the
+        stream."""
+        B = self.spec.batch_size
+        n_drafts = int(drafts.shape[1]) if drafts.ndim == 2 else 0
+        eos = self.spec.eos_id
+        out = np.full((B, n_drafts + 1), eos, np.int32)
+        ncommit = np.zeros(B, np.int32)
+        with self._mu:
+            for slot in range(B):
+                w = int(qlens[slot])
+                if w <= 0:
+                    continue
+                prompt = self._slot_prompt.get(slot)
+                end = self._slot_end.get(slot, 0)
+                cap = w - 1
+                if self.verify_accept_cap is not None:
+                    cap = max(0, min(cap, int(self.verify_accept_cap(
+                        slot, w - 1))))
+                n = 0
+                for j in range(w):
+                    k = int(positions[slot]) + j - end
+                    nxt = eos
+                    if prompt is not None and 0 <= k + 1 < len(prompt):
+                        nxt = int(prompt[k + 1])
+                    out[slot, j] = nxt
+                    n += 1
+                    if nxt == eos or j >= w - 1:
+                        break
+                    if j >= cap or int(drafts[slot, j]) != nxt:
+                        break
+                ncommit[slot] = n
+        return out, ncommit
+
+    def verify_chunk(self, tokens: np.ndarray, positions: np.ndarray,
+                     block_tables: np.ndarray, temperatures: np.ndarray,
+                     drafts: np.ndarray, qlens: np.ndarray
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """A blocking verify window. Returns ``(out (B, n_drafts + 1),
+        n_commit (B,))``."""
+        return self._verify_rows(np.asarray(positions, np.int32),
+                                 np.asarray(drafts, np.int32),
+                                 np.asarray(qlens, np.int32))
+
+    # -- the futures API (async_chunks) ----------------------------------------
+
+    def _device_submit(self, fn, mixed: bool = False,
+                       verify: bool = False) -> EchoChunkHandle:
+        """Queue one simulated program on the FIFO device-queue thread
+        (in order, as a stream: a carried dispatch reads the previous
+        handle's end state, set by then)."""
+        if self._devq is None:
+            self._devq = queue.Queue()
+            self._dev_thread = threading.Thread(
+                target=self._device_loop, args=(self._devq,),
+                name="echo-device", daemon=True)
+            self._dev_thread.start()
+        h = EchoChunkHandle(mixed=mixed, verify=verify)
+        self._devq.put((fn, h))
+        return h
+
+    @staticmethod
+    def _device_loop(q: queue.Queue) -> None:
+        # The queue comes in as an argument: close() drops the attribute
+        # before it posts the sentinel, and the loop drains its own queue.
+        while True:
+            item = q.get()
+            if item is None:
+                return
+            fn, h = item
+            try:
+                fn(h)
+            except BaseException as e:  # noqa: BLE001 — raised at fetch
+                h._fail(e)
+
+    def close(self) -> None:
+        """Stop the device-queue thread (made again at the next
+        dispatch)."""
+        q, self._devq = self._devq, None
+        t, self._dev_thread = self._dev_thread, None
+        if q is not None:
+            q.put(None)
+        if t is not None:
+            t.join(timeout=5.0)
+
+    def _run_chunk_async(self, tok, pos, frozen, budgets):
+        """A chunk with the decode program's carry semantics: ``frozen``
+        (the EOS latch) persists into the carry; a spent budget only
+        pauses the row for this chunk."""
+        K, B = self.chunk_size, self.spec.batch_size
+        eos = self.spec.eos_id
+        out = np.full((B, K), eos, np.int32)
+        tok = np.asarray(tok, np.int32).copy()
+        pos = np.asarray(pos, np.int32).copy()
+        frozen = np.asarray(frozen, bool).copy()
+        budgets = np.asarray(budgets, np.int32)
+        for j in range(K):
+            active = (~frozen) & (j < budgets)
+            if not active.any():
+                break           # the loop's early exit
+            nxt = self.decode(tok, pos, None, None)
+            out[:, j] = np.where(active, nxt, eos).astype(np.int32)
+            tok = np.where(active, nxt, tok).astype(np.int32)
+            pos = pos + active.astype(np.int32)
+            frozen = frozen | (active & (nxt == eos))
+        return out, tok, pos, frozen
+
+    def decode_chunk_start(self, tokens, positions, block_tables,
+                           temperatures, budgets,
+                           carry: Optional[EchoChunkHandle] = None,
+                           overrides: Optional[List] = None
+                           ) -> EchoChunkHandle:
+        """Dispatch a decode chunk (``TorchExecutor.decode_chunk_start``):
+        with ``carry``, the rows' tokens, positions and latches come from
+        the previous chunk's end state; ``overrides`` ``(slot, first
+        token, pos)`` seed a joining lane. The inputs are copied at
+        dispatch (the engine may rewrite its arrays before the program
+        runs)."""
+        B = self.spec.batch_size
+        toks = (None if tokens is None
+                else np.asarray(tokens, np.int32).copy())
+        poss = (None if positions is None
+                else np.asarray(positions, np.int32).copy())
+        buds = np.asarray(budgets, np.int32).copy()
+        ovr = [(int(s), sc, int(p)) for s, sc, p in (overrides or ())]
+
+        def run(h: EchoChunkHandle) -> None:
+            if carry is not None:
+                tok, pos, done = carry._tok, carry._pos, carry._done
+            else:
+                tok, pos = toks, poss
+                done = np.zeros(B, bool)
+            tok = np.asarray(tok, np.int32).copy()
+            pos = np.asarray(pos, np.int32).copy()
+            done = np.asarray(done, bool).copy()
+            for slot, sc, p in ovr:
+                tok[slot] = int(np.asarray(sc))
+                pos[slot] = p
+                done[slot] = False
+            h._set(*self._run_chunk_async(tok, pos, done, buds))
+
+        return self._device_submit(run)
+
+    def mixed_chunk_start(self, tokens, positions, block_tables,
+                          temperatures, budgets,
+                          pf: List) -> EchoChunkHandle:
+        """Dispatch a mixed chunk: its slices register on the device-queue
+        thread, ahead of any later carried chunk."""
+        toks = np.asarray(tokens, np.int32).copy()
+        poss = np.asarray(positions, np.int32).copy()
+        buds = np.asarray(budgets, np.int32).copy()
+        pf_snap = [(int(slot), list(t), int(sp))
+                   for slot, t, sp, _bt, _temp in pf]
+
+        def run(h: EchoChunkHandle) -> None:
+            pf_first = np.full(len(pf_snap), self.spec.eos_id, np.int32)
+            with self._mu:
+                for i, (slot, t, sp) in enumerate(pf_snap):
+                    stream = self._register_prefill(slot, t, sp)
+                    if stream:
+                        pf_first[i] = stream[0]
+            done = np.zeros(self.spec.batch_size, bool)
+            out, tok, pos, done = self._run_chunk_async(
+                toks, poss, done, buds)
+            h._set(out, tok, pos, done, pf_first=pf_first)
+
+        return self._device_submit(run, mixed=True)
+
+    def verify_chunk_start(self, tokens, positions, block_tables,
+                           temperatures, drafts, qlens
+                           ) -> EchoChunkHandle:
+        """Dispatch a verify window; the handle's fetch returns ``(out,
+        n_commit)``."""
+        poss = np.asarray(positions, np.int32).copy()
+        drfs = np.asarray(drafts, np.int32).copy()
+        qls = np.asarray(qlens, np.int32).copy()
+
+        def run(h: EchoChunkHandle) -> None:
+            out, ncommit = self._verify_rows(poss, drfs, qls)
+            h._set(out, None, None, None, ncommit=ncommit)
+
+        return self._device_submit(run, verify=True)
+
+    def release_slot(self, slot: int) -> None:
+        with self._mu:
+            self._slot_prompt.pop(slot, None)
+            self._slot_end.pop(slot, None)
+
+    def resume(self, slot: int, tokens: List[int], start_pos: int) -> None:
+        with self._mu:
+            self._slot_prompt[slot] = list(tokens)
+            self._slot_end[slot] = start_pos + len(tokens)

@@ -1,1 +1,2 @@
-"""The endpoint load balancer (``load_balancer.py``)."""
+"""The endpoint load balancer (``load_balancer.py``) and the circuit
+breaker (``circuit_breaker.py``)."""

@@ -502,6 +502,33 @@ class QueueMetrics:
             "(disk full / IO error); push failures shed 503, "
             "worker-side ops degrade durability but keep serving",
             ["op"], registry=r)
+        # The chaos plane (chaos/).
+        self.chaos_injected = Counter(
+            f"{ns}_chaos_injected_total",
+            "Faults injected by the chaos plane", ["point", "kind"],
+            registry=r)
+        # The store fault domain (conversation/resilience.py): every op on
+        # the wrapped store, its bounded retries, the store's breaker and
+        # the consumers on their degraded rung. Flushed at the scrape.
+        self.store_op_ms = Histogram(
+            f"{ns}_store_op_ms",
+            "Store operation latency by op and outcome (ok|error|"
+            "timeout|shed; shed = refused fast while degraded)",
+            ["op", "outcome"], buckets=_STEP_MS_BUCKETS, registry=r)
+        self.store_retries = Counter(
+            f"{ns}_store_retries_total",
+            "Bounded retries of retryable store errors (sqlite locked, "
+            "redis connection resets)", registry=r)
+        self.store_breaker_state = Gauge(
+            f"{ns}_store_breaker_state",
+            "Store-scoped breaker state (0=closed, 1=half_open, 2=open)",
+            registry=r)
+        self.store_degraded = Gauge(
+            f"{ns}_store_degraded",
+            "1 while the named consumer is running its degraded ladder "
+            "rung (tiering parks in host, exchange recomputes, state "
+            "serves cache + journals, placement routes role/load-only)",
+            ["consumer"], registry=r)
         # Crash supervisor (engine/supervisor.py).
         self.engine_restarts = Counter(
             f"{ns}_engine_restarts_total",
@@ -717,6 +744,14 @@ def exposition() -> bytes:
         tiering_flush()
     except Exception:  # noqa: BLE001
         log.exception("tiering flush failed")
+    try:
+        # The store fault domain: buffered op latencies, retries, the
+        # breaker state and the consumers' degraded gauges.
+        from llmq_tpu_torch.conversation.resilience import \
+            flush_metrics as store_flush
+        store_flush()
+    except Exception:  # noqa: BLE001
+        log.exception("store resilience flush failed")
     try:
         from llmq_tpu_torch.observability.critical_path import \
             flush_boot_metrics

@@ -30,6 +30,7 @@ import os
 import threading
 from typing import Dict, List, Optional, Tuple
 
+from llmq_tpu_torch import chaos
 from llmq_tpu_torch.core.types import Message
 
 log = logging.getLogger("llmq_tpu_torch.wal")
@@ -91,8 +92,9 @@ class QueueWAL:
 
     def append(self, op: str, queue: str, message_id: str,
                message: Optional[Message] = None) -> None:
-        # The JAX package's chaos point ``wal.append`` sits here; it
-        # comes with the port's chaos plane.
+        # Chaos point: an injected fault (a full disk) reaches the caller
+        # before the queue changes, so nothing is half recorded.
+        chaos.fault("wal.append", op=op, queue=queue)
         if op == "push" and message is not None:
             line = _push_line(queue, message)
         else:
@@ -112,9 +114,10 @@ class QueueWAL:
             elif op in _TERMINAL:
                 self._live = max(0, self._live - 1)
             if self._since_sync >= self.fsync_every:
-                # The JAX package's chaos point ``wal.fsync`` sits here.
-                # A failing fsync propagates; the record is already
-                # written and flushed, so a replay still sees it.
+                # A failing fsync (the chaos point too) propagates; the
+                # record is already written and flushed, so a replay
+                # still sees it.
+                chaos.fault("wal.fsync")
                 os.fsync(self._f.fileno())
                 self._since_sync = 0
 

@@ -812,6 +812,11 @@ class KVTieringPlane:
     @store.setter
     def store(self, value: Any) -> None:
         self._store = value
+        # A resilience-wrapped store names this plane in its
+        # store_degraded{consumer} gauge.
+        reg = getattr(value, "register_consumer", None)
+        if callable(reg):
+            reg("tiering")
 
     def _store_ok(self) -> bool:
         """The store tier is usable: a store with the KV-payload seam that

@@ -705,3 +705,102 @@ def test_a_journal_fault_sheds_the_post_with_503_like_jax(tmp_path, ops):
         503, "application/json", 0, 202, 1)
     assert payload == {"error": "WAL push failed: [Errno 28] No space left "
                                 "on device", "retry_after": 1.0}
+
+
+# -- CORS ------------------------------------------------------------------------
+
+CORS_ORIGIN = "http://example.com"
+
+
+def _cors_pair(allowed):
+    """JAX's and the port's ApiServer side by side over echo engines, with
+    the same ``allowed_origins``."""
+    from llmq_tpu.engine.executor import EchoExecutor as JEcho
+    from llmq_tpu_torch.api.server import ApiServer as TApiServer
+    from llmq_tpu_torch.engine.executor import EchoExecutor as TEcho
+    from llmq_tpu_torch.queueing.factory import QueueFactory as TFactory
+    from llmq_tpu_torch.queueing.factory import QueueType as TQueueType
+
+    out = []
+    for Api, Eng, Echo, Tok, Cfg, Fac, QT, name in (
+            (JApiServer, JEngine, JEcho, JTok, JConfig, JFactory,
+             JQueueType, "jax"),
+            (TApiServer, InferenceEngine, TEcho, ByteTokenizer, Config,
+             TFactory, TQueueType, "port")):
+        cfg = _tune(Cfg())
+        cfg.queue.enable_metrics = False
+        tok = Tok()
+        eng = Eng(Echo(batch_size=2, eos_id=tok.eos_id), tok,
+                  name=f"cors-{name}", enable_metrics=False,
+                  max_decode_steps=8)
+        eng.start()
+        factory = Fac(cfg)
+        factory.create_queue_manager("standard", QT("standard"))
+        api = Api(cfg, queue_factory=factory, engine=eng,
+                  allowed_origins=allowed)
+        out.append((api, factory, eng, api.start(host="127.0.0.1", port=0)))
+    return out
+
+
+def _cors_request(port, method, path, origin, body=None):
+    """(status, content type, the CORS headers) of one request."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    headers = {"Content-Type": "application/json"}
+    if origin:
+        headers["Origin"] = origin
+    conn.request(method, path, body=None if body is None
+                 else json.dumps(body).encode(), headers=headers)
+    resp = conn.getresponse()
+    resp.read()
+    conn.close()
+    cors = {k.lower(): v for k, v in resp.getheaders()
+            if k.lower().startswith("access-control-") or k.lower() == "vary"}
+    return resp.status, resp.getheader("Content-Type"), cors
+
+
+@pytest.mark.parametrize("case", [
+    "preflight_wildcard", "preflight_listed", "preflight_unlisted",
+    "json_wildcard", "json_listed", "sse_wildcard", "sse_listed",
+    "no_origin"])
+def test_cors_answers_like_jax(case):
+    """Tolerance: none. With ``Origin: http://example.com``, both servers
+    answer a preflight ``OPTIONS /api/v1/messages`` with 204 and the same
+    headers; the wildcard never sends ``Allow-Credentials``, an origin
+    listed by name does; an unlisted origin or no Origin gets none; JSON
+    and SSE responses carry the same headers as JAX's."""
+    listed = "listed" in case or "unlisted" in case
+    allowed = (["http://other.example"] if case == "preflight_unlisted"
+               else [CORS_ORIGIN] if listed else None)
+    origin = None if case == "no_origin" else CORS_ORIGIN
+    if case.startswith("preflight"):
+        method, path, body = "OPTIONS", "/api/v1/messages", None
+    elif case.startswith("sse"):
+        method, path, body = "POST", "/api/v1/messages", {
+            "content": "cors stream", "user_id": "u", "stream": True,
+            "metadata": {"max_new_tokens": 4}}
+    else:
+        method, path, body = "GET", "/health", None
+    got = []
+    pair = _cors_pair(allowed)
+    try:
+        for _api, _f, _e, port in pair:
+            got.append(_cors_request(port, method, path, origin, body))
+    finally:
+        for api, factory, eng, _port in pair:
+            api.stop()
+            factory.stop_all()
+            eng.stop()
+    assert got[1] == got[0]
+    status, ctype, cors = got[1]
+    if case.startswith("preflight"):
+        assert status == 204
+    if case.startswith("sse"):
+        assert ctype.startswith("text/event-stream")
+    if case in ("preflight_unlisted", "no_origin"):
+        assert cors == {}
+        return
+    assert cors["access-control-allow-origin"] == CORS_ORIGIN
+    assert cors["vary"] == "Origin"
+    assert ("access-control-allow-credentials" in cors) == listed

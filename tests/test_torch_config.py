@@ -16,8 +16,8 @@ CANONICAL = os.path.join(REPO, "configs", "config.yaml")
 
 
 def _canonical_for_port(tmp_path, extra=""):
-    """configs/config.yaml with only executor.backend changed (the JAX
-    package's echo backend is not ported), plus ``extra``."""
+    """configs/config.yaml with only executor.backend changed (the file
+    selects echo, which only a named file may), plus ``extra``."""
     text = open(CANONICAL).read()
     assert text.count("  backend: echo ") == 1
     path = tmp_path / "config.yaml"
@@ -139,17 +139,29 @@ def test_unported_table_is_jaxs_tree_at_its_defaults():
                     "executor.kv_tiering.enabled"),
     ("executor: {mesh: {enabled: true, shape: {tp: 2}}}\n",
      "executor.mesh.enabled"),
-    ("executor: {backend: echo}\n", "executor.backend"),
+    # The echo backend is ported: the case now holds that a backend the
+    # port has not ported still raises (the id stays the case's own).
+    pytest.param("executor: {backend: tpu}\n", "executor.backend",
+                 id="executor: {backend: echo}\n-executor.backend"),
     ("executor: {backend: jax}\n", "executor.backend"),
     ("cluster: {peers: [http://a:8080]}\n", "cluster.peers"),
     ("scheduler: {min_endpoints: 3}\n", "scheduler.min_endpoints"),
-    ("chaos: {enabled: true, faults: [{point: engine.step, kind: crash}]}\n",
-     "chaos.enabled"),
+    # The chaos and store blocks are ported: their cases now hold that
+    # an unknown key inside them raises (the ids stay the cases' own).
+    pytest.param("chaos: {enabled: true, faults: [{point: engine.step, "
+                 "kind: crash}], nope: 1}\n", "unknown config key: chaos.nope",
+                 id="chaos: {enabled: true, faults: [{point: engine.step, "
+                    "kind: crash}]}\n-chaos.enabled"),
     ("tenancy: {enabled: true}\n", "tenancy.enabled"),
     ("tpu: {mesh_shape: {tp: 8}}\n", "tpu.mesh_shape"),
     ("model: {checkpoint_path: /ckpt}\n", "model.checkpoint_path"),
-    ("chaos: {enabled: true, faults: []}\n", "chaos.enabled"),
-    ("store: {resilience: {enabled: true}}\n", "store.resilience.enabled"),
+    pytest.param("chaos: {enabled: true, faults: [], seeds: 3}\n",
+                 "unknown config key: chaos.seeds",
+                 id="chaos: {enabled: true, faults: []}\n-chaos.enabled"),
+    pytest.param("store: {resilience: {enabled: true, retry: 1}}\n",
+                 "unknown config key: store.resilience.retry",
+                 id="store: {resilience: {enabled: true}}\n-"
+                    "store.resilience.enabled"),
     ("controlplane: {enabled: true}\n", "controlplane.enabled"),
     ("disagg: {enabled: false, nope: 1}\n", "unknown config key: disagg.nope"),
     ("loadbalancer: {strategy: fastest}\n", "loadbalancer.strategy"),
@@ -368,8 +380,9 @@ def test_the_jax_packages_own_file_found_by_the_search_says_what_to_do(
         tmp_path, monkeypatch, capsys):
     """The repository's ``configs/config.yaml`` configures the JAX
     package's echo backend. Found by the search, it raises with the
-    remedy; named, it raises at the key; the command line turns either
-    into exit code 2 and the message, before anything is built."""
+    remedy; named, it selects the echo backend; the command line turns
+    the refusal into exit code 2 and the message, before anything is
+    built."""
     from llmq_tpu_torch.__main__ import main
 
     monkeypatch.chdir(tmp_path)
@@ -379,9 +392,10 @@ def test_the_jax_packages_own_file_found_by_the_search_says_what_to_do(
     with pytest.raises(ValueError, match="found by the config search.*"
                        "pass --config"):
         TC.load_config(environ={})
-    with pytest.raises(ValueError, match="executor.backend='echo' is not "
-                       "ported"):
-        TC.load_config(os.path.join("configs", "config.yaml"))
+    # Named, it selects the echo backend (ported since), which only a
+    # named file may select.
+    assert TC.load_config(os.path.join("configs", "config.yaml")) \
+        .executor.backend == "echo"
     with pytest.raises(SystemExit) as e:
         main(["--device", "cpu", "check"])
     assert e.value.code == 2
@@ -390,3 +404,69 @@ def test_the_jax_packages_own_file_found_by_the_search_says_what_to_do(
     port.write_text("executor: {backend: torch}\n")
     assert TC.load_config(environ={"LLMQ_CONFIG": str(port)}).executor \
         .backend == "torch"
+
+
+@pytest.mark.parametrize("snippet", [
+    "chaos: {enabled: true, seed: 9, faults: [{point: engine.step, "
+    "kind: crash, times: 1, after: 6}, {point: 'store.*', kind: latency, "
+    "latency_ms: 300, probability: 0.5, match: {op: kv_get}}]}\n",
+    "store: {resilience: {enabled: true, op_timeout_s: 0.5, retries: 0, "
+    "timeout_threshold: 2, probe_interval_s: 0.05, replay_buffer: 8, "
+    "seed: 4, breaker: {failure_threshold: 5, base_backoff: 0.15, "
+    "jitter: 0.0}}}\n",
+    "chaos: {enabled: false, faults: [{point: x, kind: bogus}]}\n"
+    "store: {resilience: {enabled: false, op_timeout_s: 9.0}}\n",
+])
+def test_chaos_and_store_blocks_load_like_jaxs(tmp_path, snippet):
+    """Tolerance: none. The ported ``chaos`` and ``store.resilience``
+    blocks take the same values from the same file as JAX's; a rule's
+    kind is checked when the plane is armed, in both."""
+    from llmq_tpu import chaos as jchaos
+
+    from llmq_tpu_torch import chaos as tchaos
+
+    path = tmp_path / "c.yaml"
+    path.write_text(snippet)
+    t = TC.load_config(str(path), env=False)
+    j = JC.load_config(str(path), env=False)
+    assert dataclasses.asdict(t.chaos) == dataclasses.asdict(j.chaos)
+    assert dataclasses.asdict(t.store.resilience) == \
+        dataclasses.asdict(j.store.resilience)
+    assert t.store.enabled == j.store.enabled
+    try:
+        for mod, cfg in ((jchaos, j), (tchaos, t)):
+            inj = mod.configure(cfg.chaos)
+            assert (inj is None) == (not cfg.chaos.enabled)
+            if inj is not None:
+                assert len(inj.get_stats()["rules"]) == 2
+        bad = TC.ChaosConfig(enabled=True, faults=[{"point": "p",
+                                                    "kind": "bogus"}])
+        for mod in (jchaos, tchaos):
+            with pytest.raises(ValueError, match="unknown chaos fault kind"):
+                mod.configure(bad)
+    finally:
+        jchaos.configure(None)
+        tchaos.configure(None)
+
+
+def test_chaos_and_store_env_overrides_like_jaxs(tmp_path, monkeypatch):
+    """``LLMQ_*`` variables reach the two blocks, nested breaker included,
+    as in JAX's loader; ``LLMQ_EXECUTOR_BACKEND=echo`` names the echo
+    backend."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv("LLMQ_CONFIG", raising=False)
+    env = {"LLMQ_CHAOS_ENABLED": "true", "LLMQ_CHAOS_SEED": "17",
+           "LLMQ_STORE_RESILIENCE_ENABLED": "true",
+           "LLMQ_STORE_RESILIENCE_OP_TIMEOUT_S": "0.4",
+           "LLMQ_STORE_RESILIENCE_BREAKER_FAILURE_THRESHOLD": "6",
+           "LLMQ_EXECUTOR_BACKEND": "echo"}
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    t = TC.load_config()
+    j = JC.load_config()
+    assert dataclasses.asdict(t.chaos) == dataclasses.asdict(j.chaos)
+    assert dataclasses.asdict(t.store.resilience) == \
+        dataclasses.asdict(j.store.resilience)
+    assert (t.chaos.seed, t.store.resilience.op_timeout_s,
+            t.store.resilience.breaker.failure_threshold) == (17, 0.4, 6)
+    assert t.executor.backend == j.executor.backend == "echo"

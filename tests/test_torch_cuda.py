@@ -1319,3 +1319,83 @@ def test_inject_under_a_captured_graph_is_read_by_its_replay(route):
     want = ref.decode_chunk(tok_r, pos, bt_r, temps, budgets)
     assert g_ex.graph_replays > replays
     assert (got == want).all(), (got, want)
+
+
+# -- the fault domain on the card ------------------------------------------------
+
+
+@needs_cuda
+def test_chaos_crash_with_a_graph_chunk_in_flight_then_replays_alike():
+    """A chaos ``engine.step`` crash while a carried chunk of replayed
+    graphs is in flight: the supervisor fails the rows over and restarts
+    the loop; the restarted engine captures nothing new, replays its
+    graphs, and gives the same greedy streams on the same batch as a run
+    without the crash."""
+    import time
+
+    from llmq_tpu_torch import chaos
+    from llmq_tpu_torch.core.config import (AsyncPipelineConfig,
+                                            ChaosConfig, SupervisorConfig)
+    from llmq_tpu_torch.engine.engine import GenRequest, InferenceEngine
+    from llmq_tpu_torch.engine.executor import TorchExecutor
+    from llmq_tpu_torch.engine.supervisor import EngineSupervisor
+    from llmq_tpu_torch.engine.tokenizer import ByteTokenizer
+    from llmq_tpu_torch.models import llama as T
+
+    cfg = T.get_config("llama3-tiny", dim=512, n_heads=8, n_kv_heads=2,
+                       n_layers=2, vocab_size=512, max_seq_len=256)
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    ex = TorchExecutor(cfg, params, batch_size=4, page_size=16, num_pages=96,
+                       prefill_buckets=[16, 64], chunk_size=GRAPH_K,
+                       eos_id=-1, device="cuda")
+    eng = InferenceEngine(ex, ByteTokenizer(), max_decode_steps=24,
+                          async_pipeline=AsyncPipelineConfig())
+    prompts = ["chaos on the card", "a graph chunk in flight",
+               "the supervisor restarts", "same streams after"]
+
+    def batch(tag):
+        return [eng.submit(GenRequest(id=f"{tag}{i}", prompt=p,
+                                      max_new_tokens=24))
+                for i, p in enumerate(prompts)]
+
+    hs = batch("base")
+    eng.run_until_idle()
+    base = [h.result.tokens for h in hs]
+    assert all(len(t) == 24 for t in base)
+    graphs = ex._n_graphs()
+    try:
+        hs = batch("crash")
+        tok0 = eng.tokens_generated_total
+        for _ in range(200):
+            eng.step()
+            if eng._inflight and eng.tokens_generated_total - tok0 >= 8:
+                break
+        assert eng._inflight
+        inj = chaos.configure(ChaosConfig(enabled=True, seed=5))
+        inj.add_rule("engine.step", kind="crash", times=1)
+        eng.start()
+        deadline = time.time() + 10.0
+        while eng.running and time.time() < deadline:
+            time.sleep(0.01)
+        assert not eng.running
+        sup = EngineSupervisor(eng, config=SupervisorConfig(),
+                               enable_metrics=False)
+        assert sup.check_once()
+        assert not eng._inflight
+        for h in hs:
+            assert h.wait(10.0)
+            assert h.result.finish_reason == "error"
+        assert inj.get_stats()["injected"] == {"engine.step:crash": 1}
+        replays = ex.graph_replays
+        hs = batch("after")
+        for h in hs:
+            assert h.wait(60.0)
+        assert [h.result.tokens for h in hs] == base
+        assert ex._n_graphs() == graphs
+        assert ex.graph_replays > replays
+        sup.stop()
+    finally:
+        chaos.configure(None)
+        eng.stop()
+        ex.release_graphs()

@@ -206,6 +206,26 @@ _BLOCKED_IMPORT_SCRIPT = textwrap.dedent("""
                 "kv_tier_round_trips", "kv_promote_ms", "kv_demote_ms"):
         assert hasattr(get_metrics(), fam), fam
     assert "llmq_tpu_torch.tiering.plane" in sys.modules
+    # The fault domain: the echo executor, the chaos plane, the circuit
+    # breaker, the resilient store, their config blocks and families.
+    from llmq_tpu_torch.engine.executor import (EchoChunkHandle,
+                                                EchoExecutor, _EchoOutProbe)
+    assert EchoExecutor.kv_content_free
+    from llmq_tpu_torch import chaos
+    from llmq_tpu_torch.chaos import (ChaosFault, EngineCrash,
+                                      FaultInjector, InvariantChecker)
+    assert chaos.get_injector() is None
+    from llmq_tpu_torch.loadbalancer.circuit_breaker import (
+        BreakerState, CircuitBreaker, CircuitOpenError)
+    from llmq_tpu_torch.conversation.resilience import (
+        CONSUMERS, ResilientKVStore, ResilientStore, StoreDegradedError,
+        StoreOpTimeout, wrap_store)
+    from llmq_tpu_torch.core.config import (BreakerConfig, ChaosConfig,
+                                            StoreResilienceConfig)
+    assert not cfg.chaos.enabled and not cfg.store.resilience.enabled
+    for fam in ("chaos_injected", "store_op_ms", "store_retries",
+                "store_breaker_state", "store_degraded"):
+        assert hasattr(get_metrics(), fam), fam
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", sys.argv[1] + "/chip_smoke.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))

@@ -90,9 +90,10 @@ def test_every_port_family_is_jaxs():
     """Tolerance: none. Name, type, help, label names and buckets."""
     port, jax_m = treg.get_metrics(), jreg.get_metrics()
     fams = vars(port)
-    assert len(fams) == 75      # the observability planes, the WAL, the
-    #                             four speculation families and the six
-    #                             tiering families
+    assert len(fams) == 80      # the observability planes, the WAL, the
+    #                             four speculation families, the six
+    #                             tiering families and the five of the
+    #                             fault domain
     for attr, fam in fams.items():
         jf = getattr(jax_m, attr)
         name = jf._name + ("_total" if jf._type == "counter" else "")
@@ -107,7 +108,7 @@ def test_exposition_parses_like_jaxs():
     parser into the same families (name, type, help) as JAX's."""
     port, jax_fams = _by_name(_port_exposition()), _by_name(
         _jax_exposition())
-    assert len(port) == 75
+    assert len(port) == 80
     for name, fam in port.items():
         jf = jax_fams[name]
         assert (fam.type, fam.documentation) == (jf.type,
@@ -565,3 +566,50 @@ def test_spec_families_equal_jaxs_and_the_engines_counters():
     assert list(_family(t, "llm_queue_spec_readback_cadence").values()) == [
         teng.spec_commits_total / teng.spec_fetches_total]
     assert teng.get_stats()["speculation"] == jeng.get_stats()["speculation"]
+
+
+def test_fault_domain_samples_equal_jaxs():
+    """Tolerance: none. The same seeded chaos rules fired the same way,
+    and the same ops on a wrapped store, leave the same
+    ``chaos_injected_total`` and ``store_*`` samples in both registries
+    (the point names carry a run tag)."""
+    from llmq_tpu import chaos as jchaos
+    from llmq_tpu.conversation import persistence as jpers
+    from llmq_tpu.conversation import resilience as jres
+
+    from llmq_tpu_torch import chaos as tchaos
+    from llmq_tpu_torch.conversation import persistence as tpers
+    from llmq_tpu_torch.conversation import resilience as tres
+
+    tag = f"f{uuid.uuid4().hex[:8]}"
+    runs = {}
+    for name, chaos, C, res, pers, expo in (
+            ("jax", jchaos, JC, jres, jpers, _jax_exposition),
+            ("port", tchaos, TC, tres, tpers, _port_exposition)):
+        inj = chaos.configure(C.ChaosConfig(enabled=True, seed=3))
+        inj.add_rule(f"{tag}.p", kind="error", probability=0.5)
+        inj.add_rule(f"{tag}.q", kind="latency", latency_ms=0, times=2)
+        for _ in range(20):
+            for point in (f"{tag}.p", f"{tag}.q"):
+                try:
+                    chaos.fault(point)
+                except chaos.ChaosFault:
+                    pass
+        chaos.configure(None)
+        store = res.wrap_store(pers.InMemoryStore(), C.StoreResilienceConfig(
+            enabled=True, retries=0))
+        store.register_consumer("tiering")
+        store.save_kv("c", b"x")
+        store.load_kv("c")
+        res.flush_metrics()
+        text = expo()
+        store.close()
+        runs[name] = (_samples(text, tag), {
+            k: v for k, v in (
+                (s.name, s.value) for f in text_string_to_metric_families(
+                    text) if f.name.startswith("llm_queue_store")
+                for s in f.samples)
+            if "store_op_ms" not in k and not k.endswith("_created")})
+    assert runs["port"][0] == runs["jax"][0]
+    assert _family(runs["port"][0], "llm_queue_chaos_injected_total")
+    assert set(runs["port"][1]) == set(runs["jax"][1])
