@@ -157,7 +157,42 @@ shows where it happened):
                  3) within the recompute turn's TTFT + 0.25 x 3 + 1 s,
                  ``/health``'s ``store`` block counts the deadline miss,
                  and after the rule the replay buffer drains to 0.
-10. serve-plane — the serving process around the serve phase's bf16
+10. serve-tenancy — the tenancy plane (gold at weight 4, bronze at 1, a
+                 metered tenant at 200 tok/s with a 400-token burst, a
+                 capped one at 1 in flight and 2 queued) around the serve
+                 phase's bf16 engine, through the full ``App`` with
+                 ``X-Tenant-Id``: a. 4 gold and 4 bronze requests of 128
+                 tokens, every contended chunk's budgets equal to the
+                 rule's (``weighted_token_caps`` and JAX's scaling), no
+                 row below 1, every request complete; b. 40 + 40 messages
+                 queued before the workers start, the first half's
+                 served tokens gold:bronze in [2.4, 6.4]; d. the metered
+                 tenant's 429 ``tenant_quota`` with Retry-After, gold
+                 admitted meanwhile, the count equal to ``/metrics``; the
+                 capped tenant's 429 ``queue_depth`` and deferred
+                 completions; e. one tenant's 8 requests: budgets
+                 unchanged, tok/s on and off in turns (printed); f.
+                 ``/api/v1/tenancy`` with JAX's keys and the five
+                 families. c'. a bucket-mode plan (64 + 64, printed); c.
+                 on a ragged engine on the same weights, two 1500-token
+                 prompts admitted together while six rows decode: a step
+                 packs 102 + 26 tokens, both ending mid-page, a later one
+                 continues them mid-page, and each prompt's final-slice
+                 logits replayed with that schedule through
+                 ``forward_mixed_ragged`` lie within ``MODEL_ATOL`` of the
+                 prompt in uncapped 128-token pieces. No twin is called.
+11. serve-weights — llama3-1b at full width and depth (16 layers, D=64,
+                 n_rep 4, tied head), random weights on the card written
+                 as a two-shard bf16 Hugging Face directory by the port's
+                 own writer, then served from ``model.checkpoint_path``:
+                 every leaf bitwise the written one, a greedy B=1 REST
+                 stream equal to an engine's on the in-memory tree; the
+                 same directory into int8 weights, served; their
+                 checkpoint saved and loaded bitwise; an orbax-shaped
+                 directory refused; with ``transformers`` importable, one
+                 request through an ``HFTokenizer`` written there. Write
+                 and load seconds, GB/s and host RSS peaks printed.
+12. serve-plane — the serving process around the serve phase's bf16
                  default engine (same weights, same pool: 8 slots, 512
                  pages of 16), over REST with retry backoff shortened to
                  0.05 s: pool pressure (six 1200-token LOW requests
@@ -235,7 +270,7 @@ shows where it happened):
                  off, off, on), after one uncounted 8-concurrent batch,
                  each turn's rate the median of three: the "on" turns
                  within 3% of the "off" ones.
-11. serve-split — the durable queue plane and the split deployment. First,
+13. serve-split — the durable queue plane and the split deployment. First,
                  on the serve phases' bf16 engine, decode of 8 concurrent
                  REST requests (64 new tokens) through the serving
                  process with ``queue.wal_dir`` set and unset, in turns,
@@ -269,7 +304,7 @@ shows where it happened):
                  WAL: they are relayed again and complete (traces from
                  the spool). Kernels 1-3 launch in each queue-manager, no
                  twin is called, and no gateway initialises CUDA.
-12. serve-int8 — llama3-8b with int8 weights and int8 KV at full width and
+14. serve-int8 — llama3-8b with int8 weights and int8 KV at full width and
                  depth (``LLMQ_MODEL_QUANTIZATION=int8
                  LLMQ_MODEL_KV_QUANTIZATION=int8``), the same REST mix:
                  kernel 5 launches and no bf16-pool kernel does; then a
@@ -599,6 +634,13 @@ def phase_env(state) -> None:
         log(f"[env] yaml {yaml.__version__} (the config file's reader)")
     except ImportError as e:
         log(f"[env] yaml does not import: {e}")
+    try:
+        import transformers
+        log(f"[env] transformers {transformers.__version__} imports: "
+            f"serve-weights serves one request through an HFTokenizer")
+    except ImportError as e:
+        log(f"[env] transformers does not import ({e}): no phase uses "
+            f"HFTokenizer")
     CARD = nvidia_smi_line()
     log(f"[env] card {CARD}")
 
@@ -2796,9 +2838,9 @@ def _serve_default(state):
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({CARD})")
     finally:
         app.stop()
-        if "serve-plane" in state.get("chosen", ()):
-            # The serve-plane phase serves on this engine: its graphs
-            # stay captured.
+        if {"serve-tenancy", "serve-plane"} & set(state.get("chosen", ())):
+            # The serve-tenancy and serve-plane phases serve on this
+            # engine: its graphs stay captured.
             state["serve_engine"] = engine
         else:
             engine.executor.release_graphs()
@@ -4556,13 +4598,18 @@ def _event_chunk_gaps(engine, n: int):
     events: from one chunk's completion event (recorded behind the copy
     of its tokens) to the next one's start event (recorded behind the
     copies of its inputs, before its first step). No profiler and no
-    device-wide wait: only the last chunk's own event is waited on."""
+    device-wide wait: only the last chunk's own event is waited on.
+    Returns ``(gaps, late)``: ``late[i]`` is whether the chunk before
+    boundary ``i`` had already ended on the card when the host finished
+    dispatching the next one (the host, not the card, left it idle)."""
     ex = engine.executor
-    handles = []
+    handles, late = [], []
     real = ex.decode_chunk_start
 
     def recording(*args, **kwargs):
         h = real(*args, **kwargs)
+        if handles:
+            late.append(handles[-1]._done.query())
         handles.append(h)
         return h
 
@@ -4573,7 +4620,8 @@ def _event_chunk_gaps(engine, n: int):
         ex.__dict__.pop("decode_chunk_start", None)
     hs = handles[:n + 1]
     hs[-1].wait_ready()
-    return [a._done.elapsed_time(b._start) for a, b in zip(hs, hs[1:])]
+    return ([a._done.elapsed_time(b._start) for a, b in zip(hs, hs[1:])],
+            late[:n])
 
 
 def _watch_heartbeat(app):
@@ -4685,13 +4733,14 @@ def _obs_b8(app, engine, base) -> dict:
             f"{_decoding_rows(engine)} rows decoding")
         s0 = engine.steps
         depth0 = dict(engine.pipeline_depth_hist)
-        gaps = _event_chunk_gaps(engine, 4)
+        gaps, late = _event_chunk_gaps(engine, 4)
         depth = {d: n - depth0[d] for d, n in
                  engine.pipeline_depth_hist.items() if n != depth0[d]}
         if max(gaps) >= 0.1 or not depth.get(2):
             raise AssertionError(f"engine chunk boundaries idle {gaps} ms "
                                  f"(want each < 0.1 ms), dispatches by "
-                                 f"depth {depth}")
+                                 f"depth {depth}, the chunk before already "
+                                 f"ended at the dispatch's end {late}")
         # The on-demand profile, started while the 8 rows decode; two of
         # them are cancelled for two prompts arriving during the capture
         # (their prefill launches kernels 2 and 3).
@@ -4811,7 +4860,8 @@ def _obs_b8(app, engine, base) -> dict:
         f"from a pool of {free0} free pages, {s0} steps before, chunks "
         f"dispatched by pipeline depth {depth}): idle "
         f"{', '.join(f'{g:.4f}' for g in gaps)} ms between five carried "
-        f"chunks, by their CUDA events ({CARD})")
+        f"chunks, by their CUDA events; dispatched after the chunk before "
+        f"had ended: {sum(late)} of {len(late)} ({CARD})")
     return {"rate_telemetry": rate_tel, "rate_counted": rate_me,
             "mfu_pct": mfu_g, "overlap_ratio": overlap,
             "hbm_weights_bytes": w, "hbm_kv_pool_bytes": kv,
@@ -4819,7 +4869,8 @@ def _obs_b8(app, engine, base) -> dict:
             "rtt_ms": tel.rtt_ms, "scrape_ms": scrape_ms,
             "step_legs": legs, "window_overlap_ratio": window_overlap,
             "per_step_device_ms": per_step,
-            "profile": prof, "chunk_gaps_ms": gaps, "depth": depth}
+            "profile": prof, "chunk_gaps_ms": gaps, "chunk_gaps_late": late,
+            "depth": depth}
 
 
 def _obs_cost(cfg, engine) -> dict:
@@ -7217,11 +7268,1038 @@ def phase_serve_tiering(state) -> None:
         raise AssertionError(f"serve-tiering called plain twins: {counts}")
 
 
+
+# -- serve-tenancy: the tenancy plane on the card ------------------------------
+
+#: The phase's tenant classes: gold and bronze at 4:1, metered by a token
+#: bucket, capped at one message in flight and two queued.
+TENANTS = {"gold": {"weight": 4.0}, "bronze": {"weight": 1.0},
+           "metered": {"token_rate": 200.0, "burst_tokens": 400.0},
+           "capped": {"max_inflight": 1, "max_queue_depth": 2}}
+TENANT_DECODE_NEW = 128         # a. four gold and four bronze rows
+TENANT_BACKLOG = 40             # b. messages per tenant, queued first
+TENANT_BACKLOG_NEW = 32
+TENANT_BAND = (4 * 0.6, 4 * 1.6)  # b. JAX's convergence band
+TENANT_PROMPT = 1500            # c. the capped prompts' tokens
+TENANT_RAGGED_ROWS = 6          # c. rows decoding meanwhile
+TENANT_RAGGED_NEW = 384
+#: The keys of JAX's ``GET /api/v1/tenancy`` (llmq_tpu/api/server.py
+#: get_tenancy, registry.snapshot, FairScheduler.snapshot).
+TENANCY_KEYS = {"enabled", "tenants", "rejections", "fair"}
+TENANCY_TENANT_KEYS = {"weight", "queued", "inflight"}
+TENANCY_FAIR_KEYS = {"virtual_times", "virtual_floor", "backlog",
+                     "served_tokens", "share_ratios"}
+TENANCY_FAMILIES = ("llm_queue_tenant_virtual_time",
+                    "llm_queue_tenant_share_ratio",
+                    "llm_queue_tenant_quota_rejections_total",
+                    "llm_queue_tenant_inflight",
+                    "llm_queue_tenant_registry_evictions_total")
+
+
+def _tenancy_cfg(ragged: bool = False):
+    from llmq_tpu_torch.core.config import TenancyConfig
+
+    cfg = _serve_cfg()
+    cfg.executor.ragged_attention.enabled = ragged
+    cfg.tenancy = TenancyConfig(enabled=True, tenants={
+        k: dict(v) for k, v in TENANTS.items()})
+    return cfg
+
+
+def _post_tenant(base, tenant, body):
+    """POST one message as ``tenant`` (``X-Tenant-Id``): (status,
+    payload, Retry-After header)."""
+    req = urllib.request.Request(
+        f"{base}/api/v1/messages", method="POST",
+        data=json.dumps({**body, "timeout": MESSAGE_TIMEOUT_S}).encode(),
+        headers={"Content-Type": "application/json", "X-Tenant-Id": tenant})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return resp.status, json.loads(resp.read()), None
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), e.headers.get("Retry-After")
+
+
+def _tenant_prompt(tenant: str, i: int, n: int) -> str:
+    """A prompt of ``n`` bytes that starts with its own tenant and number,
+    so no two share a cached page."""
+    head = f"{i:03d} {tenant}: "
+    body = ("The queue serves tenants by weight; summarise its state, "
+            "then list each tier with its backlog and deadline. ")
+    return (head + body * (n // len(body) + 1))[:n]
+
+
+def _fair_expect(budgets, tenant_of, weights):
+    """Per-tenant budget sums the fairness rule gives for ``budgets``
+    (order → budget): the port's ``weighted_token_caps`` and the JAX
+    engine's scaling (a tenant over its cap scaled by cap / sum, floor,
+    every row of budget > 1 kept at least 1)."""
+    from llmq_tpu_torch.tenancy import weighted_token_caps
+
+    by = {}
+    for o, b in budgets.items():
+        by.setdefault(tenant_of[o], []).append(b)
+    if len(by) < 2 or sum(budgets.values()) <= 0:
+        return {t: sum(bs) for t, bs in by.items()}
+    caps = weighted_token_caps({t: weights[t] for t in by},
+                               sum(budgets.values()))
+    out = {}
+    for t, bs in by.items():
+        s = sum(bs)
+        if s <= caps[t]:
+            out[t] = s
+        else:
+            out[t] = sum(max(1, int(b * caps[t] / s)) if b > 1 else b
+                         for b in bs)
+    return out
+
+
+class _FairnessProbe:
+    """Records every call of the engine's ``_apply_decode_fairness``: the
+    budgets before and after, and each row's tenant."""
+
+    def __init__(self, engine) -> None:
+        self.engine = engine
+        self.calls = []
+        orig = engine._apply_decode_fairness
+
+        def record(rows, budgets):
+            before = dict(budgets)
+            tenant_of = {s.order: s.req.tenant_id for s in rows}
+            orig(rows, budgets)
+            self.calls.append((before, dict(budgets), tenant_of))
+        engine._apply_decode_fairness = record
+
+    def close(self) -> None:
+        self.engine.__dict__.pop("_apply_decode_fairness", None)
+
+
+class _PackProbe:
+    """Records every prefill pack of the engine module: the tenant caps
+    and each slice's (request id, tenant, first position, token ids), and
+    each packed prompt's whole remaining ids the first time it is seen."""
+
+    def __init__(self) -> None:
+        from llmq_tpu_torch.engine import engine as engmod
+
+        self.mod = engmod
+        self.orig = engmod._pack_prefill_slices
+        self.plans = []
+        self.prompts = {}
+
+        def pack(cands, S, T, budget, caps):
+            for s in cands:
+                self.prompts.setdefault(s.req.id, (s.todo_pos,
+                                                   list(s.todo_ids)))
+            plan = self.orig(cands, S, T, budget, caps)
+            self.plans.append((caps, [(s.req.id, s.req.tenant_id,
+                                       s.todo_pos, list(sl))
+                                      for s, sl in plan]))
+            return plan
+        engmod._pack_prefill_slices = pack
+
+    def close(self) -> None:
+        self.mod._pack_prefill_slices = self.orig
+
+
+def _decode_fairness(engine, base) -> dict:
+    """a. Four gold and four bronze requests admitted together: every
+    contended chunk's budgets follow the rule, every request completes;
+    each tenant's tok/s while both decode (sampled every 5 ms)."""
+    weights = {t: v.get("weight", 1.0) for t, v in TENANTS.items()}
+    probe = _FairnessProbe(engine)
+    seen = {}
+    both = []               # (t, {tenant: tokens}) while both decode
+    stop = threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            now, rows = time.perf_counter(), {}
+            for s in list(engine._slots):
+                if s is not None and s.prefilled:
+                    rows.setdefault(s.req.tenant_id, 0)
+                    seen[s.req.id] = (s.req.tenant_id, len(s.generated))
+                    rows[s.req.tenant_id] += 1
+            if len(rows) >= 2:
+                tot = {}
+                for t, n in seen.values():
+                    tot[t] = tot.get(t, 0) + n
+                both.append((now, tot))
+            time.sleep(0.005)
+
+    th = threading.Thread(target=sample, daemon=True)
+    th.start()
+    try:
+        mids = []
+        # Admitted together, so every run decodes the same batch.
+        with engine.paused():
+            for i in range(4):
+                for t in ("gold", "bronze"):
+                    s, r, _ = _post_tenant(base, t, {
+                        "content": _tenant_prompt(t, i, 200),
+                        "metadata": {"max_new_tokens": TENANT_DECODE_NEW}})
+                    if s != 202:
+                        raise AssertionError(f"a: {t} request refused: "
+                                             f"{s} {r}")
+                    mids.append(r["message_id"])
+            _until(lambda: len(engine._inbox) >= 8, 60, "8 admissions")
+        results = [_poll(base, m) for m in mids]
+    finally:
+        stop.set()
+        th.join()
+        probe.close()
+    for m in results:
+        u = m["metadata"].get("usage", {})
+        n = u.get("completion_tokens")
+        if m["status"] != "completed" or not (
+                (u.get("finish_reason") == "length"
+                 and n == TENANT_DECODE_NEW)
+                or (u.get("finish_reason") == "eos"
+                    and n < TENANT_DECODE_NEW)):
+            raise AssertionError(f"a: request lost or duplicated tokens: "
+                                 f"{m}")
+    contended = [c for c in probe.calls if len(set(c[2].values())) >= 2]
+    if not contended:
+        raise AssertionError("a: no chunk held rows of both tenants")
+    bound = 0
+    for before, after, tenant_of in contended:
+        got = {}
+        for o, b in after.items():
+            got[tenant_of[o]] = got.get(tenant_of[o], 0) + b
+        want = _fair_expect(before, tenant_of, weights)
+        if got != want:
+            raise AssertionError(f"a: chunk budgets {after} from {before} "
+                                 f"sum to {got}, the rule gives {want}")
+        if any(after[o] < 1 for o in after if before[o] >= 1):
+            raise AssertionError(f"a: a row's budget fell to 0: {after}")
+        bound += after != before
+    rates = {}
+    if len(both) >= 2:
+        (t0, a), (t1, b) = both[0], both[-1]
+        rates = {t: (b.get(t, 0) - a.get(t, 0)) / max(t1 - t0, 1e-9)
+                 for t in ("gold", "bronze")}
+    sample_chunk = next(c for c in contended if c[1] != c[0]) \
+        if bound else contended[0]
+    log(f"[serve-tenancy] a. decode fairness: {len(contended)} contended "
+        f"chunks of {len(probe.calls)} held both tenants, the caps bound in "
+        f"{bound}; e.g. budgets {sorted(sample_chunk[0].values())} -> "
+        f"{sorted(sample_chunk[1].values())} by tenant "
+        f"{sorted(set(sample_chunk[2].values()))}; while both decoded: "
+        + ", ".join(f"{t} {r:.1f} tok/s" for t, r in rates.items())
+        + f"; all 8 complete ({CARD})")
+    if not bound:
+        raise AssertionError("a: the caps never bound in a contended chunk")
+    return {"contended_chunks": len(contended), "caps_bound": bound,
+            "tok_s_while_both": rates}
+
+
+def _queue_backlog(app, tag: str):
+    """b. A backlog pushed into the serving process's queue before its
+    workers start. Returns the messages and the list their completions
+    append (tenant, served tokens) to, in order, and its restore."""
+    from llmq_tpu_torch.core.types import Message, Priority
+
+    mgr = app.factory.get_queue_manager("standard")
+    order = []
+    orig = mgr.complete_message
+
+    def complete(message, *a, **kw):
+        orig(message, *a, **kw)
+        u = message.metadata.get("usage") or {}
+        order.append((message.tenant_id,
+                      int(u.get("prompt_tokens", 0))
+                      + int(u.get("completion_tokens", 0))))
+    mgr.complete_message = complete
+    msgs = []
+    for i in range(TENANT_BACKLOG):
+        for t in ("gold", "bronze"):
+            m = Message(id=f"{tag}-{t}-{i}", tenant_id=t,
+                        content=_tenant_prompt(t, 100 + i, 120),
+                        priority=Priority.NORMAL, timeout=MESSAGE_TIMEOUT_S)
+            m.metadata["max_new_tokens"] = TENANT_BACKLOG_NEW
+            mgr.push_message(m)
+            msgs.append(m)
+    return msgs, order, lambda: mgr.__dict__.pop("complete_message", None)
+
+
+def _fair_dequeue(msgs, order, elapsed_s: float) -> dict:
+    """b. Over the first half of the backlog's completions, gold's served
+    tokens to bronze's lie in JAX's convergence band."""
+    half = order[:len(msgs) // 2]
+    served = {}
+    for t, n in half:
+        served[t] = served.get(t, 0) + n
+    ratio = served.get("gold", 0) / max(1, served.get("bronze", 0))
+    log(f"[serve-tenancy] b. fair dequeue: {len(msgs)} messages queued "
+        f"before the workers started; first {len(half)} completions served "
+        f"{served} tokens, gold:bronze {ratio:.3f} (band "
+        f"{TENANT_BAND[0]:.1f}-{TENANT_BAND[1]:.1f}); all served in "
+        f"{elapsed_s:.2f} s ({CARD})")
+    if not TENANT_BAND[0] <= ratio <= TENANT_BAND[1]:
+        raise AssertionError(f"b: gold:bronze served {ratio:.3f} outside "
+                             f"{TENANT_BAND}")
+    return {"served_first_half": served, "ratio": ratio,
+            "seconds": elapsed_s}
+
+
+def _quotas(app, engine, base) -> dict:
+    """d. The token bucket, the queue-depth cap and the in-flight cap over
+    REST, against ``/metrics``."""
+    from llmq_tpu_torch.tenancy import get_tenant_registry
+
+    reg = get_tenant_registry()
+    before, _ = _scrape(base)
+    got = {"metered": [], "gold": []}
+    for i in range(8):
+        for t in ("metered", "gold"):
+            s, r, retry = _post_tenant(base, t, {
+                "content": _tenant_prompt(t, 200 + i, 200),
+                "metadata": {"max_new_tokens": 8}})
+            got[t].append((s, r, retry))
+    n429 = sum(1 for s, *_ in got["metered"] if s == 429)
+    for s, r, retry in got["metered"]:
+        if s == 429 and ("tenant_quota" not in r.get("error", "")
+                         or retry is None):
+            raise AssertionError(f"d: a metered 429 without tenant_quota "
+                                 f"or Retry-After: {r}")
+    if n429 == 0 or any(s != 202 for s, *_ in got["gold"]):
+        raise AssertionError(f"d: metered {[s for s, *_ in got['metered']]}"
+                             f", gold {[s for s, *_ in got['gold']]}")
+    # The in-flight cap defers, the depth cap refuses: one message in
+    # flight, two queued behind it, the fourth refused.
+    s, r, _ = _post_tenant(base, "capped", {
+        "content": _tenant_prompt("capped", 0, 100),
+        "metadata": {"max_new_tokens": 96}})
+    capped = [r["message_id"]]
+    _until(lambda: reg.inflight("capped") == 1, 60, "capped's first "
+           "message in flight", poll=0.002)
+    for i in (1, 2):
+        s, r, _ = _post_tenant(base, "capped", {
+            "content": _tenant_prompt("capped", i, 100),
+            "metadata": {"max_new_tokens": 8}})
+        if s != 202:
+            raise AssertionError(f"d: capped message {i} refused: {r}")
+        capped.append(r["message_id"])
+    depth = reg.queue_depth("capped")
+    s4, r4, retry4 = _post_tenant(base, "capped", {
+        "content": _tenant_prompt("capped", 3, 100),
+        "metadata": {"max_new_tokens": 8}})
+    if s4 != 429 or "queue depth" not in r4.get("error", "") \
+            or retry4 is None:
+        raise AssertionError(f"d: the depth cap did not refuse: {s4} {r4}")
+    peak = [0]
+    stop = threading.Event()
+
+    def watch():
+        while not stop.is_set():
+            peak[0] = max(peak[0], reg.inflight("capped"))
+            time.sleep(0.001)
+    th = threading.Thread(target=watch, daemon=True)
+    th.start()
+    try:
+        done = [_poll(base, m) for m in capped]
+    finally:
+        stop.set()
+        th.join()
+    if any(m["status"] != "completed" for m in done) or peak[0] > 1:
+        raise AssertionError(f"d: capped messages {[m['status'] for m in done]}"
+                             f", in flight at most {peak[0]}")
+    for _, r, _ in got["metered"] + got["gold"]:
+        if "message_id" in r:
+            _poll(base, r["message_id"])
+    after, _ = _scrape(base)
+    rej = {why: _msum(after, "llm_queue_tenant_quota_rejections_total",
+                      reason=why)
+           - _msum(before, "llm_queue_tenant_quota_rejections_total",
+                   reason=why) for why in ("rate", "queue_depth", "inflight")}
+    if rej["rate"] != n429 or rej["queue_depth"] != 1 or rej["inflight"] < 1:
+        raise AssertionError(f"d: /metrics rejections {rej}, metered 429s "
+                             f"{n429}")
+    log(f"[serve-tenancy] d. quotas: metered {[s for s, *_ in got['metered']]}"
+        f" with Retry-After {[x for *_, x in got['metered'] if x]}, gold "
+        f"all 202; capped: depth {depth} then 429 queue_depth, the two "
+        f"deferred complete one at a time (in flight at most {peak[0]}); "
+        f"/metrics rejections {rej}")
+    return {"metered_429": n429, "rejections": rej}
+
+
+def _single_tenant(engine, base) -> dict:
+    """e. One tenant, 8 concurrent requests admitted together, with
+    tenancy on and off in turns (on, off, off, on): with it on, the
+    fairness pass leaves every chunk's budgets as they were; tok/s from
+    the admission to the last completion (printed, not gated)."""
+    from llmq_tpu_torch.tenancy import get_tenant_registry
+
+    reg = get_tenant_registry()
+    out = {"on": [], "off": [], "fairness_calls": 0}
+    for turn, on in enumerate((True, False, False, True)):
+        reg.enabled = on
+        probe = _FairnessProbe(engine)
+        try:
+            mids = []
+            with engine.paused():
+                for i in range(8):
+                    s, r, _ = _post_tenant(base, "gold", {
+                        "content": _tenant_prompt("solo", 300 + 10 * turn + i,
+                                                  90),
+                        "metadata": {"max_new_tokens": 64}})
+                    if s != 202:
+                        raise AssertionError(f"e: refused: {s} {r}")
+                    mids.append(r["message_id"])
+                _until(lambda: len(engine._inbox) >= 8, 60, "8 admissions")
+                t0 = time.perf_counter()
+            res = [_poll(base, m) for m in mids]
+            dt = time.perf_counter() - t0
+        finally:
+            probe.close()
+            reg.enabled = True
+        out["on" if on else "off"].append(_check_completed(res, "e") / dt)
+        if on:
+            if not probe.calls or any(a != b for b, a, _ in probe.calls):
+                raise AssertionError(f"e: one tenant's budgets changed "
+                                     f"({len(probe.calls)} calls)")
+            out["fairness_calls"] += len(probe.calls)
+        elif probe.calls:
+            raise AssertionError("e: the fairness pass ran with tenancy off")
+    log(f"[serve-tenancy] e. one tenant, 8 concurrent admitted together: "
+        f"the fairness pass ran on {out['fairness_calls']} chunks and "
+        f"changed no budget; tok/s in turns on, off, off, on: "
+        f"{out['on'][0]:.1f}, {out['off'][0]:.1f}, {out['off'][1]:.1f}, "
+        f"{out['on'][1]:.1f} (not gated) ({CARD})")
+    return out
+
+
+def _tenancy_surfaces(base) -> dict:
+    """f. ``/api/v1/tenancy`` has JAX's keys; ``/metrics`` the five
+    families with live values."""
+    s, snap = _http("GET", f"{base}/api/v1/tenancy")
+    if s != 200 or set(snap) != TENANCY_KEYS:
+        raise AssertionError(f"f: /api/v1/tenancy {s} {sorted(snap)}")
+    for t, v in snap["tenants"].items():
+        if set(v) != TENANCY_TENANT_KEYS:
+            raise AssertionError(f"f: tenant {t} keys {sorted(v)}")
+    fair = snap["fair"].get("standard")
+    if fair is None or set(fair) != TENANCY_FAIR_KEYS:
+        raise AssertionError(f"f: fair block {snap['fair']}")
+    samples, _ = _scrape(base)
+    fams = {n for n, _ in samples}
+    missing = [f for f in TENANCY_FAMILIES if f not in fams]
+    live = {f: _msum(samples, f) for f in TENANCY_FAMILIES}
+    if missing or live["llm_queue_tenant_virtual_time"] <= 0 or \
+            live["llm_queue_tenant_quota_rejections_total"] <= 0 or \
+            not any(n == "llm_queue_tenant_share_ratio" and v > 0
+                    for (n, _), v in samples.items()):
+        raise AssertionError(f"f: families missing {missing}, values {live}")
+    log(f"[serve-tenancy] f. /api/v1/tenancy keys {sorted(snap)} (fair "
+        f"{sorted(fair)}); rejections {snap['rejections']}; /metrics "
+        f"families summed {live}")
+    return {"rejections": snap["rejections"],
+            "virtual_times": fair["virtual_times"],
+            "share_ratios": fair["share_ratios"]}
+
+
+def _bucket_plan(engine, base) -> dict:
+    """c'. The bucket engine (S=2, T=64): a gold and a bronze prompt
+    admitted together while two rows decode. Pass 1 cuts them at their
+    caps (102, 26), pass 2 widens both to 64."""
+    probe = _PackProbe()
+    try:
+        mids = [_post_tenant(base, "gold", {
+            "content": _tenant_prompt("rows", i, 60),
+            "metadata": {"max_new_tokens": 96}})[1]["message_id"]
+            for i in range(2)]
+        _until(lambda: _decoding_rows(engine) >= 2, 120, "two rows decoding")
+        with engine.paused():
+            for t in ("gold", "bronze"):
+                mids.append(_post_tenant(base, t, {
+                    "content": _tenant_prompt(t, 400, 300),
+                    "metadata": {"max_new_tokens": 4}})[1]["message_id"])
+            _until(lambda: len(engine._inbox) >= 2, 60, "both prompts")
+        res = [_poll(base, m) for m in mids]
+    finally:
+        probe.close()
+    _check_completed(res, "c'")
+    capped = [p for p in probe.plans if p[0] is not None]
+    if not capped:
+        raise AssertionError(f"c': no capped bucket pack: {probe.plans}")
+    caps, plan = capped[0]
+    shown = [(t, st, len(ids)) for _, t, st, ids in plan]
+    log(f"[serve-tenancy] c'. bucket mode (S=2, T=64): caps {caps}, plan "
+        f"(tenant, start, tokens) {shown}: pass 2 widens both slices to "
+        f"the slice width, so the caps seldom bind here (JAX's behaviour)")
+    return {"caps": caps, "plan": shown}
+
+
+def _ragged_replay(params, mc, schedule, prompts) -> dict:
+    """The final-slice logits of each prompt through
+    ``forward_mixed_ragged`` on the card (kernels 2 and 6) with
+    ``schedule`` (steps of (prompt, start, ids)), beside six decode rows.
+    Returns {prompt: (S-row logits of its final slice)}."""
+    import numpy as np
+    import torch
+
+    from llmq_tpu_torch.models.llama import forward_mixed_ragged, init_kv_pages
+
+    N, MP = 144, mc.max_seq_len // PS
+    names = sorted(prompts)
+    need = {p: -(-len(prompts[p]) // PS) for p in names}
+    n_pages = 1 + sum(need.values()) + TENANT_RAGGED_ROWS * 8
+    cache = init_kv_pages(mc, n_pages, PS, "cuda")
+    nxt = 1
+    bt = {}
+    for p in names:
+        bt[p] = np.zeros(MP, np.int32)
+        bt[p][:need[p]] = np.arange(nxt, nxt + need[p])
+        nxt += need[p]
+    dec_bt = np.zeros((TENANT_RAGGED_ROWS, MP), np.int32)
+    for r in range(TENANT_RAGGED_ROWS):
+        dec_bt[r, :8] = np.arange(nxt, nxt + 8)
+        nxt += 8
+    rng = np.random.default_rng(0)
+    dec_tok = rng.integers(3, 250, TENANT_RAGGED_ROWS).astype(np.int32)
+    dev = lambda a: torch.as_tensor(np.asarray(a), device="cuda")  # noqa: E731
+    last = {}
+    for i, step in enumerate(schedule):
+        toks = np.zeros(N, np.int32)
+        poss = np.zeros(N, np.int32)
+        qoff, qlen, pbt = [], [], []
+        off = 0
+        for p, st, ids in step:
+            toks[off:off + len(ids)] = ids
+            poss[off:off + len(ids)] = st + np.arange(len(ids))
+            qoff.append(off)
+            qlen.append(len(ids))
+            pbt.append(bt[p])
+            off += -(-len(ids) // 8) * 8
+        while len(qoff) < 2:
+            qoff.append(0)
+            qlen.append(0)
+            pbt.append(np.zeros(MP, np.int32))
+        if off > N:
+            raise AssertionError(f"replay step packs {off} > {N} rows")
+        _, pf = forward_mixed_ragged(
+            params, mc, dev(dec_tok), dev(np.full(TENANT_RAGGED_ROWS, 40 + i,
+                                                  np.int32)),
+            cache, dev(dec_bt), dev(toks), dev(poss), dev(np.int32(qoff)),
+            dev(np.int32(qlen)), dev(np.stack(pbt)))
+        for s, (p, st, ids) in enumerate(step):
+            if st + len(ids) == len(prompts[p]):
+                last[p] = pf[s].float().cpu()
+    torch.cuda.synchronize()
+    del cache
+    return last
+
+
+def _capped_prefill(params) -> dict:
+    """c. A ragged engine on the same weights: two 1500-token prompts, gold
+    and bronze, admitted together while six rows decode. A step packs 102
+    + 26 tokens (both ending mid-page), the next continues them mid-page;
+    each prompt's final-slice logits, replayed with the engine's schedule,
+    against the prompt in uncapped 128-token pieces."""
+    from llmq_tpu_torch.engine.builder import build_engine
+
+    cfg = _tenancy_cfg(ragged=True)
+    t0 = time.perf_counter()
+    eng = build_engine(cfg, params=params, name="engine-tenancy-ragged")
+    try:
+        return _capped_on(eng, cfg, params, t0)
+    finally:
+        eng.executor.release_graphs()
+
+
+def _capped_on(eng, cfg, params, t0) -> dict:
+    import math
+
+    import torch
+
+    from llmq_tpu_torch.__main__ import App
+    from llmq_tpu_torch.ops import kernels
+
+    app = App(cfg, engine=eng)
+    base = f"http://127.0.0.1:{app.start(host='127.0.0.1', port=0)}"
+    probe = _PackProbe()
+    try:
+        eng.generate("warm up the ragged tenancy engine", max_new_tokens=4)
+        kernels.reset_launches()
+        rows = [_post_tenant(base, ("gold", "bronze")[i % 2], {
+            "content": _tenant_prompt("row", 500 + i, 40),
+            "metadata": {"max_new_tokens": TENANT_RAGGED_NEW}})[1][
+                "message_id"] for i in range(TENANT_RAGGED_ROWS)]
+        _until(lambda: _decoding_rows(eng) >= TENANT_RAGGED_ROWS, 120,
+               "six rows decoding")
+        with eng.paused():
+            longs = {}
+            for t in ("gold", "bronze"):
+                s, r, _ = _post_tenant(base, t, {
+                    "content": _tenant_prompt(t, 600, TENANT_PROMPT),
+                    "metadata": {"max_new_tokens": 8}})
+                if s != 202:
+                    raise AssertionError(f"c: {t} prompt refused: {r}")
+                longs[t] = r["message_id"]
+            _until(lambda: len(eng._inbox) >= 2, 60, "both long prompts")
+        res = [_poll(base, m) for m in list(longs.values()) + rows]
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        wall = time.perf_counter() - t0
+    finally:
+        probe.close()
+        app.stop()
+    _check_completed(res, "c")
+    if launches["ragged_mixed_attention"] <= 0 or \
+            launches["kv_prefill_write"] <= 0 or \
+            launches["prefill_attention"]:
+        raise AssertionError(f"c: ragged launches {launches}")
+    ids_of = {}
+    for rid, (st, ids) in probe.prompts.items():
+        ids_of[rid] = (st, ids)
+    long_ids = {t: next(r for r in ids_of if r.startswith(m))
+                for t, m in longs.items()
+                if any(r.startswith(m) for r in ids_of)}
+    if set(long_ids) != {"gold", "bronze"} or \
+            any(ids_of[r][0] != 0 for r in long_ids.values()):
+        raise AssertionError(f"c: the long prompts were not packed from 0: "
+                             f"{ {r: ids_of[r][0] for r in long_ids.values()} }")
+    rid_t = {r: t for t, r in long_ids.items()}
+    steps = []
+    for caps, plan in probe.plans:
+        step = [(rid_t[r], st, ids) for r, _, st, ids in plan if r in rid_t]
+        if step:
+            steps.append((caps, step))
+    capped = [(c, s) for c, s in steps
+              if c is not None and sorted(len(x[2]) for x in s) == [26, 102]
+              and all((st + len(ids)) % PS for _, st, ids in s)]
+    if not capped:
+        raise AssertionError(f"c: no step packed 102 + 26 ending mid-page: "
+                             f"{[(c, [(t, st, len(i)) for t, st, i in s]) for c, s in steps[:6]]}")
+    i0 = steps.index(capped[0])
+    cont = [s for _, s in steps[i0 + 1:] if any(st % PS for _, st, _ in s)]
+    if not cont:
+        raise AssertionError("c: no step continued a slice mid-page")
+    prompts = {t: ids_of[r][1] for t, r in long_ids.items()}
+    schedule = [s for _, s in steps]
+    done = {t: 0 for t in prompts}
+    for s in schedule:
+        for t, st, ids in s:
+            if st != done[t]:
+                raise AssertionError(f"c: {t} slice at {st}, expected "
+                                     f"{done[t]}")
+            done[t] = st + len(ids)
+    for t in prompts:
+        while done[t] < len(prompts[t]):
+            n = min(128, len(prompts[t]) - done[t])
+            schedule.append([(t, done[t], prompts[t][done[t]:done[t] + n])])
+            done[t] += n
+    alone = [[(t, st, prompts[t][st:st + 128])]
+             for t in sorted(prompts)
+             for st in range(0, len(prompts[t]), 128)]
+    mc = eng.executor.model_cfg
+    sliced = _ragged_replay(params, mc, schedule, prompts)
+    ref = _ragged_replay(params, mc, alone, prompts)
+    err = {t: (sliced[t] - ref[t]).abs().max().item() for t in prompts}
+    shown = [(t, st, len(ids)) for t, st, ids in capped[0][1]]
+    log(f"[serve-tenancy] c. ragged engine (capacity "
+        f"{eng.executor.mixed_slice_tokens} x "
+        f"{eng.executor.mixed_prefill_slices}): {len(steps)} steps packed "
+        f"the two {TENANT_PROMPT}-token prompts; caps {capped[0][0]}, plan "
+        f"(tenant, start, tokens) {shown}, then {len(cont)} steps continue "
+        f"mid-page, e.g. {[(t, st, len(i)) for t, st, i in cont[0]]}; "
+        f"final-slice logits vs the prompt alone in 128-token pieces: "
+        f"max abs diff {err} (tolerance {MODEL_ATOL}); launches "
+        f"{ {k: v for k, v in launches.items() if v} }; {wall:.1f} s "
+        f"({CARD})")
+    if any(not math.isfinite(e) or e > MODEL_ATOL for e in err.values()):
+        raise AssertionError(f"c: final-slice logits differ by {err}")
+    return {"capped_plan": shown, "mid_page_continuations": len(cont),
+            "logits_max_abs_diff": err, "launches": {
+                k: v for k, v in launches.items() if v}}
+
+
+def phase_serve_tenancy(state) -> None:
+    """The tenancy plane (llama3-8b bf16 at full width and depth, the serve
+    phase's default engine and a ragged engine on its weights) behind the
+    full ``App``, tenants named by ``X-Tenant-Id``."""
+    import torch
+
+    from llmq_tpu_torch.__main__ import App
+    from llmq_tpu_torch.core.types import MessageStatus
+    from llmq_tpu_torch.ops import kernels
+    from llmq_tpu_torch.tenancy import reset_tenancy
+
+    engine = state.get("serve_engine")
+    if engine is None:
+        raise AssertionError("serve-tenancy serves on the serve phase's "
+                             "engine: run serve before it")
+    out = state.setdefault("serve_tenancy", {})
+    counts, restore = _count_plain_calls()
+    cfg = _tenancy_cfg()
+    t0 = time.perf_counter()
+    app = App(cfg, engine=engine)
+    msgs, order, unwrap = _queue_backlog(app, "b")
+    try:
+        kernels.reset_launches()
+        tb = time.perf_counter()
+        base = f"http://127.0.0.1:{app.start(host='127.0.0.1', port=0)}"
+        try:
+            _until(lambda: all(m.status == MessageStatus.COMPLETED
+                               for m in msgs), 600,
+                   "the backlog to complete", poll=0.02)
+        finally:
+            unwrap()
+        out["fair_dequeue"] = _fair_dequeue(msgs, order,
+                                            time.perf_counter() - tb)
+        out["decode_fairness"] = _decode_fairness(engine, base)
+        out["quotas"] = _quotas(app, engine, base)
+        out["single_tenant"] = _single_tenant(engine, base)
+        out["surfaces"] = _tenancy_surfaces(base)
+        out["bucket_plan"] = _bucket_plan(engine, base)
+        torch.cuda.synchronize()
+        out["launches"] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        for name in ("fused_decode", "kv_prefill_write", "prefill_attention"):
+            if not out["launches"].get(name):
+                raise AssertionError(f"serve-tenancy never launched {name}")
+        app.stop()
+        app = None
+        out["capped_prefill"] = _capped_prefill(engine.executor.model.params)
+        for k, v in out["capped_prefill"]["launches"].items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+    finally:
+        restore()
+        if app is not None:
+            app.stop()
+        reset_tenancy()
+        if "serve-plane" not in state.get("chosen", ()):
+            # The serve-plane phase serves on this engine after this one.
+            state.pop("serve_engine", None)
+            engine.executor.release_graphs()
+    if counts:
+        raise AssertionError(f"serve-tenancy called plain twins: {counts}")
+    log(f"[serve-tenancy] launches {out['launches']}; no twin called; "
+        f"{time.perf_counter() - t0:.1f} s ({CARD})")
+
+
+# -- serve-weights: real weights from disk on the card --------------------------
+
+#: Hugging Face names of the stacked leaves (the layout ``import_hf_llama``
+#: reads).
+HF_LAYER = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj",
+            "wv": "self_attn.v_proj", "wo": "self_attn.o_proj",
+            "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
+            "w_down": "mlp.down_proj"}
+WEIGHTS_PROMPT = "Real weights from disk: describe the queue's four tiers."
+WEIGHTS_NEW = 32
+
+
+def _tokenizer_dir(path: str) -> str:
+    """A local Hugging Face tokenizer (a word-level vocabulary of the
+    prompt's words), written with ``tokenizers`` alone: tokenizer.json
+    and tokenizer_config.json, as ``save_pretrained`` writes them."""
+    from tokenizers import Tokenizer, models, pre_tokenizers
+
+    vocab = {"<pad>": 0, "<s>": 1, "</s>": 2, "<unk>": 3}
+    pre = pre_tokenizers.Whitespace()
+    for w, _ in pre.pre_tokenize_str(WEIGHTS_PROMPT):
+        vocab.setdefault(w, len(vocab))
+    tok = Tokenizer(models.WordLevel(vocab, unk_token="<unk>"))
+    tok.pre_tokenizer = pre
+    os.makedirs(path)
+    tok.save(os.path.join(path, "tokenizer.json"))
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "PreTrainedTokenizerFast",
+                   "bos_token": "<s>", "eos_token": "</s>",
+                   "pad_token": "<pad>", "unk_token": "<unk>"}, f)
+    return path
+
+
+def _hf_tokenizer_leg(hf_dir: str, work: str, engines) -> str:
+    """With ``transformers`` importable, an engine on the same checkpoint
+    with ``model.tokenizer_path`` serves one REST request; its prompt's
+    tokens are the tokenizer's. Without it, nothing here uses one."""
+    import importlib.util
+
+    from llmq_tpu_torch.engine.builder import build_engine
+    from llmq_tpu_torch.engine.tokenizer import HFTokenizer
+
+    if importlib.util.find_spec("transformers") is None:
+        return "transformers does not import: no HFTokenizer on the card"
+    cfg = _weights_cfg(hf_dir)
+    cfg.model.tokenizer_path = _tokenizer_dir(os.path.join(work, "tok"))
+    eng = build_engine(cfg, name="engine-weights-tok")
+    engines.append(eng)
+    tok = eng.tokenizer
+    ids = tok.encode(WEIGHTS_PROMPT)
+    if not isinstance(tok, HFTokenizer) or 3 in ids or \
+            (tok.bos_id, tok.eos_id, tok.pad_id) != (1, 2, 0):
+        raise AssertionError(f"weights: tokenizer {type(tok).__name__} "
+                             f"ids {ids}")
+    from llmq_tpu_torch.__main__ import App
+    app = App(cfg, engine=eng)
+    base = f"http://127.0.0.1:{app.start(host='127.0.0.1', port=0)}"
+    try:
+        m = _poll(base, _post(base, {
+            "content": WEIGHTS_PROMPT,
+            "metadata": {"max_new_tokens": WEIGHTS_NEW}}))
+    finally:
+        app.stop()
+        eng.executor.release_graphs()
+    _check_completed([m], "weights (HF tokenizer)")
+    n = m["metadata"]["usage"]["prompt_tokens"]
+    if n != len(ids):
+        raise AssertionError(f"weights: {n} prompt tokens, the tokenizer "
+                             f"gives {len(ids)}")
+    return (f"HFTokenizer (vocab {tok.vocab_size}) served a REST request: "
+            f"{n} prompt tokens, {m['metadata']['usage']['completion_tokens']}"
+            f" new")
+
+
+def _hf_layout(params, mc) -> dict:
+    """The parameter tree as Hugging Face names and (out, in) views, on
+    the card (the writer copies one at a time to the host)."""
+    lp = params["layers"]
+    out = {"model.embed_tokens.weight": params["embed"],
+           "model.norm.weight": params["final_norm"]}
+    for i in range(mc.n_layers):
+        p = f"model.layers.{i}."
+        for k, n in HF_LAYER.items():
+            out[f"{p}{n}.weight"] = lp[k][i].T
+        out[p + "input_layernorm.weight"] = lp["attn_norm"][i]
+        out[p + "post_attention_layernorm.weight"] = lp["mlp_norm"][i]
+    if "lm_head" in params:
+        out["lm_head.weight"] = params["lm_head"].T
+    return out
+
+
+def _leaves(tree, pre=""):
+    for k, v in sorted(tree.items()):
+        if isinstance(v, dict):
+            yield from _leaves(v, pre + k + ".")
+        else:
+            yield pre + k, v
+
+
+def _rss_kib() -> int:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1])
+    return 0
+
+
+def _peak_rss(fn):
+    """``fn()``'s result, its seconds and the peak host RSS above the
+    start (MiB), sampled every 2 ms."""
+    base, peak = _rss_kib(), [0]
+    stop = threading.Event()
+
+    def watch():
+        while not stop.is_set():
+            peak[0] = max(peak[0], _rss_kib())
+            time.sleep(0.002)
+    th = threading.Thread(target=watch, daemon=True)
+    th.start()
+    t0 = time.perf_counter()
+    try:
+        res = fn()
+        import torch
+        torch.cuda.synchronize()
+    finally:
+        dt = time.perf_counter() - t0
+        stop.set()
+        th.join()
+    return res, dt, max(0, peak[0] - base) / 1024
+
+
+def _weights_cfg(path: str = "", quant: str = ""):
+    from llmq_tpu_torch.core.config import Config
+
+    cfg = Config()
+    cfg.model.name = "llama3-1b"
+    cfg.model.max_seq_len = 2048
+    cfg.model.checkpoint_path = path
+    cfg.model.quantization = quant
+    cfg.executor.max_decode_steps = 32
+    cfg.device = "cuda"
+    return cfg
+
+
+def _weights_stream(engine, cfg, tag: str) -> list:
+    """One greedy B=1 request over REST; returns its token ids."""
+    from llmq_tpu_torch.__main__ import App
+
+    seen = []
+    orig = engine._finish_active
+
+    def finish(seq, *a, **kw):
+        seen.append(list(seq.generated))
+        return orig(seq, *a, **kw)
+    engine._finish_active = finish
+    app = App(cfg, engine=engine)
+    base = f"http://127.0.0.1:{app.start(host='127.0.0.1', port=0)}"
+    try:
+        m = _poll(base, _post(base, {
+            "content": WEIGHTS_PROMPT,
+            "metadata": {"max_new_tokens": WEIGHTS_NEW}}))
+    finally:
+        app.stop()
+        engine.__dict__.pop("_finish_active", None)
+    _check_completed([m], tag)
+    if len(seen) != 1:
+        raise AssertionError(f"{tag}: {len(seen)} finished rows")
+    return seen[0]
+
+
+def phase_serve_weights(state) -> None:
+    """llama3-1b at full width and depth (16 layers, D=64, n_rep 4): random
+    weights written as a two-shard bf16 Hugging Face directory with a tied
+    head, served through ``model.checkpoint_path`` (bf16 and int8
+    weights), the port's own checkpoint of the int8 tree, an orbax
+    directory refused."""
+    import gc
+    import shutil
+
+    import torch
+
+    from llmq_tpu_torch.engine.builder import build_engine
+    from llmq_tpu_torch.models import checkpoint as ck
+    from llmq_tpu_torch.models.llama import get_config, init_params
+    from llmq_tpu_torch.ops import kernels
+    from llmq_tpu_torch.ops.kernels import BUILD_DIR
+
+    work = str(BUILD_DIR / "serve_weights")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    out = state.setdefault("serve_weights", {})
+    counts, restore = _count_plain_calls()
+    engines = []
+    t_phase = time.perf_counter()
+    try:
+        mc = get_config("llama3-1b", max_seq_len=2048)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(1)
+        tree = init_params(mc, gen, "cuda")
+        nbytes = sum(t.numel() * t.element_size() for _, t in _leaves(tree))
+        hf_dir = os.path.join(work, "llama3-1b.safetensors.d")
+        os.makedirs(hf_dir)
+        hf = _hf_layout(tree, mc)
+        names = sorted(hf)
+        half = len(names) // 2
+
+        def write():
+            for i, part in enumerate((names[:half], names[half:])):
+                ck.write_safetensors(
+                    os.path.join(hf_dir,
+                                 f"model-{i + 1:05d}-of-00002.safetensors"),
+                    {n: hf[n] for n in part}, {"format": "pt"})
+        _, w_s, w_rss = _peak_rss(write)
+        del hf
+        if "lm_head.weight" in names or not mc.tie_embeddings:
+            raise AssertionError("weights: llama3-1b's head is not tied")
+        # The load the builder runs, timed alone, then through the builder.
+        loaded, l_s, l_rss = _peak_rss(
+            lambda: ck.import_hf_llama(hf_dir, mc, device="cuda"))
+        for (k, a), (k2, b) in zip(_leaves(loaded), _leaves(tree)):
+            if k != k2 or a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"weights: leaf {k} differs from the "
+                                     f"written one")
+        del loaded
+        kernels.reset_launches()
+        cfg = _weights_cfg(hf_dir)
+        t0 = time.perf_counter()
+        eng = build_engine(cfg, name="engine-weights")
+        engines.append(eng)
+        b_s = time.perf_counter() - t0
+        for (k, a), (_, b) in zip(_leaves(eng.executor.model.params),
+                                  _leaves(tree)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"weights: engine leaf {k} differs")
+        from_disk = _weights_stream(eng, cfg, "weights (disk)")
+        eng.executor.release_graphs()
+        ref_eng = build_engine(_weights_cfg(), params=tree,
+                               name="engine-weights-ref")
+        engines.append(ref_eng)
+        from_mem = _weights_stream(ref_eng, _weights_cfg(), "weights (tree)")
+        ref_eng.executor.release_graphs()
+        if from_disk != from_mem:
+            raise AssertionError(f"weights: streams differ: {from_disk} vs "
+                                 f"{from_mem}")
+        # The same directory into int8 weights; their checkpoint round trip.
+        q8_cfg = _weights_cfg(hf_dir, "int8")
+        q8 = build_engine(q8_cfg, name="engine-weights-int8")
+        engines.append(q8)
+        q8_stream = _weights_stream(q8, q8_cfg, "weights (int8)")
+        q8.executor.release_graphs()
+        q8_path = os.path.join(work, "llama3-1b-int8.ckpt")
+        q8_tree = q8.executor.model.params
+        _, s_s, _ = _peak_rss(lambda: ck.save_checkpoint(q8_path, q8_tree))
+        back, r_s, r_rss = _peak_rss(
+            lambda: ck.load_checkpoint(q8_path, device="cuda"))
+        q8_bytes = os.path.getsize(q8_path)
+        for (k, a), (k2, b) in zip(_leaves(back), _leaves(q8_tree)):
+            if k != k2 or a.dtype != b.dtype or not torch.equal(a, b) or \
+                    a.stride() != b.stride():
+                raise AssertionError(f"weights: int8 leaf {k} did not round "
+                                     f"trip bitwise")
+        del back
+        orbax = os.path.join(work, "orbax-step-0")
+        os.makedirs(os.path.join(orbax, "d"))
+        for f in ("_CHECKPOINT_METADATA", "_METADATA", "manifest.ocdbt"):
+            open(os.path.join(orbax, f), "w").close()
+        try:
+            build_engine(_weights_cfg(orbax), name="engine-orbax")
+        except ValueError as e:
+            if "orbax" not in str(e):
+                raise
+            refused = str(e).split(":")[0]
+        else:
+            raise AssertionError("weights: an orbax directory was served")
+        tok_line = _hf_tokenizer_leg(hf_dir, work, engines)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        for name in ("fused_decode", "kv_prefill_write", "prefill_attention"):
+            if not launches.get(name):
+                raise AssertionError(f"weights: {name} never launched: "
+                                     f"{launches}")
+        out.update({
+            "bytes": nbytes, "write_s": w_s, "write_gb_s": nbytes / w_s / 1e9,
+            "load_s": l_s, "load_gb_s": nbytes / l_s / 1e9,
+            "load_peak_rss_mib": l_rss, "write_peak_rss_mib": w_rss,
+            "build_s": b_s, "int8_bytes": q8_bytes, "int8_save_s": s_s,
+            "int8_load_s": r_s, "int8_load_gb_s": q8_bytes / r_s / 1e9,
+            "int8_load_peak_rss_mib": r_rss, "stream": from_disk,
+            "int8_stream_len": len(q8_stream), "tokenizer": tok_line,
+            "launches": launches})
+        log(f"[serve-weights] llama3-1b L={mc.n_layers} D={mc.head_dim} "
+            f"n_rep={mc.n_heads // mc.n_kv_heads}, tied head: "
+            f"{nbytes / 1e9:.3f} GB bf16 written as two shards in "
+            f"{w_s:.2f} s ({nbytes / w_s / 1e9:.2f} GB/s); imported onto the "
+            f"card in {l_s:.2f} s ({nbytes / l_s / 1e9:.2f} GB/s, page cache "
+            f"warm), host RSS peak +{l_rss:.0f} MiB; every leaf bitwise the "
+            f"written one; the engine built from it in {b_s:.2f} s ({CARD})")
+        log(f"[serve-weights] greedy B=1 over REST: {len(from_disk)} tokens, "
+            f"equal to the in-memory tree's engine; int8 weights from the "
+            f"same directory served {len(q8_stream)} tokens; their "
+            f"checkpoint ({q8_bytes / 1e9:.3f} GB) saved in {s_s:.2f} s and "
+            f"loaded in {r_s:.2f} s ({q8_bytes / r_s / 1e9:.2f} GB/s, RSS "
+            f"+{r_rss:.0f} MiB), bitwise, int8 leaves column major; an "
+            f"orbax directory refused ({refused!r}); {tok_line}; launches "
+            f"{launches}; {time.perf_counter() - t_phase:.1f} s ({CARD})")
+    finally:
+        restore()
+        for e in engines:
+            e.executor.release_graphs()
+        del engines
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(work, ignore_errors=True)
+    if counts:
+        raise AssertionError(f"serve-weights called plain twins: {counts}")
+
 PHASES = [("env", phase_env), ("build", phase_build),
           ("kernels", phase_kernels), ("split", phase_split),
           ("model", phase_model), ("graphs", phase_graphs),
           ("serve", phase_serve), ("serve-spec", phase_serve_spec),
           ("serve-tiering", phase_serve_tiering),
+          ("serve-tenancy", phase_serve_tenancy),
+          ("serve-weights", phase_serve_weights),
           ("serve-plane", phase_serve_plane),
           ("serve-split", phase_serve_split),
           ("serve-int8", phase_serve_int8)]
@@ -7280,6 +8358,8 @@ def main(argv=()) -> int:
                       "serve_split": state.get("serve_split"),
                       "serve_spec": state.get("serve_spec"),
                       "serve_tiering": state.get("serve_tiering"),
+                      "serve_tenancy": state.get("serve_tenancy"),
+                      "serve_weights": state.get("serve_weights"),
                       "serve_boot": state.get("serve_boot"),
                       "int_mm": state.get("int_mm"),
                       "launch_floor_ms": state.get("launch_floor_ms"),

@@ -34,7 +34,10 @@ does not load (a key not ported, the JAX package's own config found by
 the search) ends the command with the reason and exit code 2.
 ``executor.backend: echo`` (a named file, or
 ``LLMQ_EXECUTOR_BACKEND=echo``) serves the host-only echo executor. The
-``chaos`` block arms the chaos plane at start; ``store.resilience``
+``chaos`` block arms the chaos plane at start, and the ``tenancy`` block
+configures the tenant registry before any queue manager is built (weighted
+fair dequeue, per-tenant quotas, decode fairness; ``X-Tenant-Id`` names a
+request's tenant); ``store.resilience``
 wraps the conversation store in the fault domain
 (``conversation/resilience.py``) and adds a ``store`` block to
 ``/health``.
@@ -55,7 +58,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-from llmq_tpu_torch import chaos, observability
+from llmq_tpu_torch import chaos, observability, tenancy
 from llmq_tpu_torch.api.message_store import MessageStore
 from llmq_tpu_torch.api.server import ApiServer
 from llmq_tpu_torch.conversation.persistence import make_store
@@ -453,6 +456,9 @@ def _load(args) -> Config:
     # The chaos plane is armed only with chaos.enabled: otherwise every
     # fault point is one attribute check.
     chaos.configure(cfg.chaos)
+    # The tenancy registry (weights, quotas, in-flight counters) is
+    # configured before any queue manager builds its fair scheduler.
+    tenancy.configure_tenancy(cfg.tenancy)
     return cfg
 
 

@@ -1,12 +1,19 @@
 """Overload shedding at the API admission edge (the port's copy of
-``llmq_tpu/api/overload.py``, without the tenancy quotas and the
-degradation ladder, which wait for the tenancy and control planes).
+``llmq_tpu/api/overload.py``, without the degradation ladder, which
+waits for the control plane).
 
 Once the backlog exceeds what the engine can serve within the SLA,
 accepting more work makes every queued request later; the move that
 keeps latency is to reject at the edge, explicitly, with a
-``Retry-After`` the client can act on. Three checks, in cost order:
+``Retry-After`` the client can act on. With ``tenancy.enabled`` a
+per-tenant quota gate runs first (0. below); then three global checks,
+in cost order:
 
+0. **tenant quota** → 429 ``tenant_quota``: the tenant's queue-depth cap
+   is reached, or its token bucket (``token_rate``, ``burst_tokens``)
+   cannot cover the request's estimate (peeked, not consumed; the
+   bucket is charged only once every global check has passed, so a
+   request shed by a global check never drains its tenant's quota).
 1. **engine down** → 503: the engine loop is restarting (the crash
    supervisor) or gone.
 2. **queue backlog** → 429: pending messages across the manager's
@@ -20,7 +27,8 @@ keeps latency is to reject at the edge, explicitly, with a
 Every shed counts in ``shed_counts`` and in ``requests_shed_total`` (by
 reason and code, with ``queue.enable_metrics``) and carries
 ``Retry-After`` (header and body). ``overload.enabled: false`` builds no
-shedder at all.
+shedder at all, unless tenancy is on: then the shedder runs the quota
+gate alone, every global check neutralized.
 """
 
 from __future__ import annotations
@@ -31,21 +39,16 @@ from typing import Any, Optional
 
 from llmq_tpu_torch.core.types import Message
 from llmq_tpu_torch.metrics.registry import get_metrics
+from llmq_tpu_torch.observability.usage import sanitize_tenant
+from llmq_tpu_torch.tenancy.registry import (estimate_prompt_tokens,
+                                             estimate_tokens)
 
 log = logging.getLogger("llmq_tpu_torch.overload")
-
-#: Prompt characters per token of the admission-time estimate.
-_CHARS_PER_TOKEN = 4.0
-
-
-def estimate_prompt_tokens(msg: Any) -> int:
-    """Prompt-only token estimate (characters / 4)."""
-    return int(len(getattr(msg, "content", "") or "") / _CHARS_PER_TOKEN)
 
 
 class OverloadShedder:
     def __init__(self, config, queue_config=None, *, engine=None,
-                 resource_scheduler=None,
+                 resource_scheduler=None, tenant_registry=None,
                  enable_metrics: bool = True) -> None:
         #: An OverloadConfig (or anything with its fields).
         self.config = config
@@ -53,6 +56,9 @@ class OverloadShedder:
         #: Anything with ``prefill_eta_ms(tokens)`` (the resource
         #: scheduler); None: the prefill ETA is 0.
         self.resource_scheduler = resource_scheduler
+        #: The tenancy plane's registry (None, or disabled: no quota
+        #: gate).
+        self.tenant_registry = tenant_registry
         self._metrics = get_metrics() if enable_metrics else None
         limit = int(getattr(config, "queue_depth_limit", 0) or 0)
         if limit <= 0 and queue_config is not None:
@@ -60,7 +66,8 @@ class OverloadShedder:
                                       10000))
         self.queue_depth_limit = limit
         self._mu = threading.Lock()
-        self.shed_counts = {"backlog": 0, "sla": 0, "engine_down": 0}
+        self.shed_counts = {"backlog": 0, "sla": 0, "engine_down": 0,
+                            "tenant_quota": 0}
 
     def admit(self, msg: Message, manager=None,
               estimated_wait: float = 0.0) -> None:
@@ -69,6 +76,10 @@ class OverloadShedder:
         the backlog check (the SSE path has its own stream gates)."""
         retry_base = max(0.5, float(getattr(self.config, "retry_after",
                                             1.0)))
+        # One estimate per request: the quota peek and the charge after
+        # the global checks see the same figure.
+        est_tokens = estimate_tokens(msg)
+        self._reject_over_quota(msg, est_tokens, retry_base)
         eng = self.engine
         if eng is not None and not getattr(eng, "running", True):
             self._shed("engine_down", 503, retry_base,
@@ -96,6 +107,46 @@ class OverloadShedder:
                     f"cannot meet deadline: estimated {eta:.1f}s to "
                     f"first service exceeds the request's "
                     f"{msg.timeout:.1f}s budget")
+        self._charge_tenant(msg, est_tokens)
+
+    def _reject_over_quota(self, msg: Message, est_tokens: int,
+                           retry_base: float) -> None:
+        """The per-tenant quota gate, cheapest check first: the
+        queue-depth cap, then the token bucket, peeked. It runs before
+        the global checks, so a tenant over its quota gets its own 429
+        with a Retry-After from its bucket."""
+        reg = self.tenant_registry
+        if reg is None or not reg.enabled:
+            return
+        # The key the fair scheduler counts depth and in-flight under.
+        tenant = sanitize_tenant(getattr(msg, "tenant_id", ""))
+        if reg.over_queue_depth(tenant):
+            reg.note_rejection("queue_depth")
+            self._shed(
+                "tenant_quota", 429, retry_base,
+                f"tenant {tenant!r} queue depth cap reached "
+                f"({reg.queue_depth(tenant)} pending >= "
+                f"{reg.spec_for(tenant).max_queue_depth})")
+        ok, retry_after = reg.admit_tokens(tenant, est_tokens,
+                                           consume=False)
+        if not ok:
+            reg.note_rejection("rate")
+            self._shed(
+                "tenant_quota", 429, max(retry_base, retry_after),
+                f"tenant {tenant!r} token-rate limit exceeded "
+                f"(sustained {reg.spec_for(tenant).token_rate:.0f} "
+                f"tok/s)")
+
+    def _charge_tenant(self, msg: Message, est_tokens: int) -> None:
+        """The request passed every gate: its tokens leave the tenant's
+        bucket, unconditionally (a concurrent admit may have drained the
+        bucket since the peek; admitted work is charged as debt, not
+        refused again)."""
+        reg = self.tenant_registry
+        if reg is None or not reg.enabled:
+            return
+        tenant = sanitize_tenant(getattr(msg, "tenant_id", ""))
+        reg.admit_tokens(tenant, est_tokens, consume=True, force=True)
 
     def _prefill_eta_s(self, msg: Message) -> float:
         """Learned prefill cost of this prompt (seconds); 0 without a
@@ -133,12 +184,30 @@ class OverloadShedder:
 def build_shedder(config, *, engine=None,
                   resource_scheduler=None) -> Optional[OverloadShedder]:
     """An :class:`OverloadShedder` from a full ``Config``, or None when
-    ``overload.enabled`` is false."""
+    both ``overload.enabled`` and ``tenancy.enabled`` are false. With
+    tenancy on the shedder holds the process's tenant registry (the one
+    the queue managers' fair dequeue feeds); with overload off as well,
+    its global checks are neutralized and only the quota gate runs."""
     ocfg = getattr(config, "overload", None)
-    if ocfg is None or not getattr(ocfg, "enabled", False):
+    overload_on = ocfg is not None and getattr(ocfg, "enabled", False)
+    tcfg = getattr(config, "tenancy", None)
+    tenancy_on = tcfg is not None and getattr(tcfg, "enabled", False)
+    if not overload_on and not tenancy_on:
         return None
+    tenant_registry = None
+    if tenancy_on:
+        from llmq_tpu_torch.tenancy import configure_tenancy
+        tenant_registry = configure_tenancy(tcfg)
     qcfg = getattr(config, "queue", None)
+    metrics_on = getattr(qcfg, "enable_metrics", True)
+    if not overload_on:
+        from llmq_tpu_torch.core.config import OverloadConfig
+        neutral = OverloadConfig(enabled=False, queue_depth_limit=0,
+                                 deadline_headroom=0.0)
+        return OverloadShedder(neutral, None,
+                               tenant_registry=tenant_registry,
+                               enable_metrics=metrics_on)
     return OverloadShedder(ocfg, qcfg, engine=engine,
                            resource_scheduler=resource_scheduler,
-                           enable_metrics=getattr(qcfg, "enable_metrics",
-                                                  True))
+                           tenant_registry=tenant_registry,
+                           enable_metrics=metrics_on)

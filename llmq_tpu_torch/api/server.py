@@ -21,7 +21,9 @@ the port has):
 - ``POST /api/v1/generate`` (synchronous generation)
 - observability: ``GET /api/v1/requests/:id/trace`` (one request's
   timeline, ``?format=chrome`` for Perfetto), ``GET /api/v1/usage``,
-  ``GET /api/v1/analysis/critical-path``,
+  ``GET /api/v1/analysis/critical-path``, ``GET /api/v1/tenancy`` (the
+  tenancy plane's classes, counters and each manager's fair state; 503
+  while tenancy is off),
   ``GET /api/v1/admin/flightrecorder``, ``POST``/``GET
   /api/v1/admin/profile`` (a bounded on-demand ``torch.profiler``
   capture; 409 while one runs)
@@ -36,8 +38,8 @@ the overload shedder (429/503 with ``Retry-After``), the queue manager
 recorder. Without an engine (the ``gateway``), the routes that need one
 (``/api/v1/engine/stats``, ``/api/v1/generate``, SSE) answer 503 and
 ``/health`` has no ``engine`` field, as in the JAX package. The routes
-of planes the port does not have yet (cluster, tenancy, control plane)
-wait for them. Every response carries the CORS headers for a request's
+of planes the port does not have yet (cluster, control plane) wait for
+them. Every response carries the CORS headers for a request's
 ``Origin`` that ``allowed_origins`` admits (default ``["*"]``, which
 never sends ``Access-Control-Allow-Credentials``), and an ``OPTIONS``
 preflight answers 204.
@@ -248,6 +250,7 @@ class ApiServer:
         r("GET", f"{v1}/engine/stats", self.get_engine_stats)
         r("GET", f"{v1}/usage", self.get_usage)
         r("GET", f"{v1}/analysis/critical-path", self.get_critical_path)
+        r("GET", f"{v1}/tenancy", self.get_tenancy)
         r("POST", f"{v1}/generate", self.generate_sync)
         r("GET", f"{v1}/requests/:id/trace", self.get_request_trace)
         adm = f"{v1}/admin"
@@ -926,6 +929,27 @@ class ApiServer:
                 "goodput": snap["goodput"],
             }
         return 200, snap
+
+    def get_tenancy(self, req: _Request) -> Tuple[int, Any]:
+        """The tenancy plane's state: configured classes, live queue
+        depth and in-flight counters, quota-rejection totals and, per
+        queue manager, the fair dequeue's virtual times, served tokens
+        and achieved-share ratios."""
+        from llmq_tpu_torch.tenancy import get_tenant_registry
+        reg = get_tenant_registry()
+        if not reg.enabled:
+            raise ApiError(503, "tenancy plane disabled "
+                                "(set tenancy.enabled)")
+        out: Dict[str, Any] = reg.snapshot()
+        if self.factory is not None:
+            fair = {}
+            for name in self.factory.manager_names():
+                mgr = self.factory.get_queue_manager(name)
+                snap = mgr.fair_snapshot() if mgr is not None else None
+                if snap is not None:
+                    fair[name] = snap
+            out["fair"] = fair
+        return 200, out
 
     def generate_sync(self, req: _Request) -> Tuple[int, Any]:
         """Synchronous generation: the message goes straight to the

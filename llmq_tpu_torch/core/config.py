@@ -5,10 +5,10 @@ A copy of ``llmq_tpu/core/config.py`` holding what the port's planes
 read, with the JAX package's defaults. :func:`load_config` reads the same
 files as the JAX package's (``configs/config.yaml`` among them). A key of
 a plane the port does not have yet (the
-cluster, disaggregation, control-plane, tenancy and
+cluster, disaggregation, control-plane and
 scenario planes, the mesh, the TPU block), or one that nothing here reads (the autoscaler's and the resource
 scheduler's scale thresholds, endpoint selection and session affinity,
-the server's read and write timeouts, a tier's ``max_concurrent``, the
+the server's read and write timeouts, the model's dtype, a tier's ``max_concurrent``, the
 metrics port and path) is accepted only at the JAX package's default, or inside a block
 whose ``enabled`` is false; any other value raises, naming the key. An
 unknown key raises too: nothing in a file is silently ignored.
@@ -382,8 +382,80 @@ class ObservabilityConfig:
 
 
 @dataclass
+class TenantClassConfig:
+    """One tenant class: fairness weight and quota envelope (the
+    ``tenancy`` plane). Used for the named entries of ``tenancy.tenants``
+    and as the default class of every unlisted tenant."""
+    #: Weighted-fair-queueing weight: under contention a tenant's token
+    #: share within each priority level converges to
+    #: ``weight / sum(weights of active tenants)``.
+    weight: float = 1.0
+    #: Sustained token admission rate (prompt + expected completion
+    #: tokens per second) at the API edge; <= 0: unlimited.
+    token_rate: float = 0.0
+    #: Token-bucket burst capacity; <= 0: one second of ``token_rate``.
+    burst_tokens: float = 0.0
+    #: Concurrent dispatched (popped, unfinished) messages; <= 0:
+    #: unlimited. The fair dequeue defers a capped tenant's queued work
+    #: rather than rejecting it.
+    max_inflight: int = 0
+    #: Queued messages across the manager's tier queues; <= 0:
+    #: unlimited. Past it the overload seam answers 429.
+    max_queue_depth: int = 0
+
+    def __post_init__(self) -> None:
+        if self.weight <= 0:
+            raise ValueError(
+                f"tenancy weight must be > 0 (got {self.weight})")
+
+
+@dataclass
+class TenancyConfig:
+    """Tenancy plane (``llmq_tpu_torch/tenancy/``): weighted fair
+    dequeue, per-tenant quotas and burst isolation over
+    ``Message.tenant_id``. ``enabled: false`` (the default) builds no
+    fair scheduler, and the dequeue order is FIFO within priority."""
+    enabled: bool = False
+    #: tenant id → TenantClassConfig fields; unlisted tenants use
+    #: ``default``. Each entry is validated as those fields.
+    tenants: Dict[str, Any] = field(default_factory=dict)
+    #: The class of every tenant not listed in ``tenants``.
+    default: TenantClassConfig = field(default_factory=TenantClassConfig)
+    #: Rolling window (seconds) of the achieved-share gauge.
+    share_window_s: float = 60.0
+
+    def __post_init__(self) -> None:
+        if not isinstance(self.tenants, dict):
+            raise ValueError("config key tenancy.tenants must be a mapping")
+        for tid, raw in self.tenants.items():
+            if isinstance(raw, TenantClassConfig):
+                continue
+            if not isinstance(raw, dict):
+                raise ValueError(
+                    f"config key tenancy.tenants.{tid} must be a mapping")
+            names = {f.name for f in dataclasses.fields(TenantClassConfig)}
+            for key in raw:
+                if str(key).replace("-", "_") not in names:
+                    raise ValueError(
+                        f"unknown config key: tenancy.tenants.{tid}.{key}")
+            TenantClassConfig(**{str(k).replace("-", "_"): v
+                                 for k, v in raw.items()})
+
+
+@dataclass
 class ModelConfig:
     name: str = "llama3-8b"      # llama3-tiny | llama3-1b | llama3-8b | llama3-70b
+    #: "": random weights from seed 0. A directory ending in
+    #: ``.safetensors.d``: a Hugging Face Llama checkpoint (its
+    #: ``*.safetensors`` files), imported by ``models/checkpoint.py``.
+    #: Any other path: a checkpoint written by ``save_checkpoint``.
+    checkpoint_path: str = ""
+    #: "": the byte tokenizer. A local Hugging Face tokenizer directory
+    #: needs the ``transformers`` package.
+    tokenizer_path: str = ""
+    #: Safetensors re-exports of Meta-original (interleaved rotary)
+    #: checkpoints need the q/k permutation; HF-native ones must not.
+    meta_rope_layout: bool = False
     max_seq_len: int = 2048
     vocab_size: int = 0          # 0 → model default
     #: "" | "int8": w8a8 weights (per-channel int8, per-row activations).
@@ -638,6 +710,7 @@ class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     store: StoreConfig = field(default_factory=StoreConfig)
     chaos: ChaosConfig = field(default_factory=ChaosConfig)
+    tenancy: TenancyConfig = field(default_factory=TenancyConfig)
     executor: ExecutorConfig = field(default_factory=ExecutorConfig)
     #: Where the model runs. "cuda" raises without a GPU; only an
     #: explicit "cpu" runs on the host (tests).
@@ -705,17 +778,12 @@ _UNPORTED: Dict[str, Any] = {
         "pool": {"kind": "none", "base_port": 8200, "args": [],
                  "provision_cmd": "", "decommission_cmd": "",
                  "url_template": "", "ready_timeout": 20.0}},
-    "tenancy": {
-        "enabled": False, "tenants": {},
-        "default": {"weight": 1.0, "token_rate": 0.0, "burst_tokens": 0.0,
-                    "max_inflight": 0, "max_queue_depth": 0},
-        "share_window_s": 60.0},
     "scenarios": {
         "enabled": False, "dir": "configs/scenarios", "run": [],
         "scale": 1.0, "out_dir": ".", "emit_json": True,
         "default_seed": 0},
-    "model": {"checkpoint_path": "", "tokenizer_path": "",
-              "meta_rope_layout": False, "dtype": "bfloat16"},
+    # Neither package's builder reads it: the model serves bf16.
+    "model": {"dtype": "bfloat16"},
     "executor": {
         "mesh": {"enabled": False, "shape": {}}},
     "tpu": {"mesh_shape": {}, "platform": "", "compilation_cache_dir": ""},

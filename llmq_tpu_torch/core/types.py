@@ -98,8 +98,9 @@ class Message:
     id: str = field(default_factory=new_id)
     conversation_id: str = ""
     user_id: str = ""
-    #: The request's billing identity on the wire (``"default"`` when
-    #: unset); the port has no tenancy plane that reads it yet.
+    #: The request's tenant (``"default"`` when unset): its usage
+    #: ledger's attribution and, with ``tenancy.enabled``, the key of its
+    #: weight and quotas.
     tenant_id: str = "default"
     content: str = ""
     priority: Priority = Priority.NORMAL

@@ -8,7 +8,14 @@ the two switches independent as in the JAX package; the async decode
 pipeline (``executor.async_pipeline``) and the radix prefix cache
 (``executor.prefix_cache``) on by default, as in the JAX package;
 speculative decoding (``executor.speculation``) and the tiered KV plane
-(``executor.kv_tiering``) off by default. The
+(``executor.kv_tiering``) off by default. Weights come from
+``model.checkpoint_path`` when it is set (a directory ending in
+``.safetensors.d``: a Hugging Face Llama checkpoint; any other path: the
+port's own checkpoint file, ``models/checkpoint.py``), else random from
+seed 0; a configured checkpoint that fails to load aborts the build, and
+nothing serves random weights in its place. ``model.tokenizer_path``
+selects a local Hugging Face tokenizer (``transformers`` needed), else
+the byte tokenizer. The
 build stamps its boot stages (``weights``, and with ``warmup`` the
 ``artifact``, ``compile`` and ``warmup`` stages) onto this process's boot
 record (observability/critical_path.py), opened here when no entry point
@@ -27,10 +34,12 @@ from llmq_tpu_torch.core.types import Priority
 from llmq_tpu_torch.engine.engine import InferenceEngine
 from llmq_tpu_torch.engine.executor import EchoExecutor, TorchExecutor
 from llmq_tpu_torch.engine.tokenizer import get_tokenizer
-from llmq_tpu_torch.models.llama import (get_config, init_params,
-                                         init_params_quantized)
+from llmq_tpu_torch.models.checkpoint import import_hf_llama, load_checkpoint
+from llmq_tpu_torch.models.llama import (LlamaConfig, Params, get_config,
+                                         init_params, init_params_quantized)
 from llmq_tpu_torch.observability import critical_path as _cp
-from llmq_tpu_torch.ops.quant import params_bytes, quantize_params
+from llmq_tpu_torch.ops.quant import (is_quantized, params_bytes,
+                                     quantize_params)
 
 log = logging.getLogger("llmq_tpu_torch.builder")
 
@@ -42,7 +51,8 @@ def build_engine(cfg: Config, *, name: str = "engine0",
     """Engine for ``cfg.model`` / ``cfg.executor`` on ``device`` (default
     ``cfg.device``). ``params`` (a parameter tree in the JAX layout) is
     used as given (quantized first if ``model.quantization`` asks for it
-    and it is not already); otherwise weights are random-initialised on
+    and it is not already); otherwise ``model.checkpoint_path`` is loaded
+    onto the device, or without one weights are random-initialised on
     the device from seed 0 (the JAX package's ``PRNGKey(0)``
     counterpart), leaf by leaf straight into int8 when quantized.
     ``model_dtype`` overrides the model's bf16 (tests run f32).
@@ -58,7 +68,7 @@ def build_engine(cfg: Config, *, name: str = "engine0",
     if boot_id is None and _cp.cp_enabled():
         _cp.boot_begin(name, "engine", process=True)
         boot_id = _cp.current_boot_id()
-    tokenizer = get_tokenizer()
+    tokenizer = get_tokenizer(cfg.model.tokenizer_path)
     kw = {"max_seq_len": cfg.model.max_seq_len}
     if cfg.model.vocab_size:
         kw["vocab_size"] = cfg.model.vocab_size
@@ -82,6 +92,8 @@ def build_engine(cfg: Config, *, name: str = "engine0",
     pipe, prefix, spec = ex.async_pipeline, ex.prefix_cache, ex.speculation
     tier = ex.kv_tiering
     t0 = time.perf_counter()
+    if params is None and cfg.model.checkpoint_path:
+        params = _load_weights(cfg, mcfg, dev)
     if params is None:
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
@@ -90,8 +102,8 @@ def build_engine(cfg: Config, *, name: str = "engine0",
     if quant == "int8":
         params = quantize_params(params)      # idempotent
     if boot_id is not None:
-        # Random init (or the given tree) and quantization; on the card
-        # the stage ends when the queued init has run.
+        # The load, random init (or the given tree) and quantization; on
+        # the card the stage ends when the queued work has run.
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         _cp.boot_stage(boot_id, "weights", time.perf_counter() - t0)
@@ -173,13 +185,69 @@ def build_engine(cfg: Config, *, name: str = "engine0",
     return engine
 
 
+def _check_shapes(params: Params, mcfg: LlamaConfig, path: str,
+                  quant: str) -> None:
+    """A loaded tree must have every leaf of ``mcfg`` (its random-init
+    tree's, made on the meta device) at its shape and the model's dtype.
+    A quantized leaf (int8 values, f32 scales) is taken only when
+    ``model.quantization`` is ``int8``. An ``lm_head`` may be absent:
+    the head is tied."""
+    def bad(name, what, need):
+        return ValueError(f"checkpoint {path}: leaf {name} {what}, model "
+                          f"{mcfg.name} needs {need}")
+
+    def walk(node, want, pre):
+        for k, ref in want.items():
+            got = node.get(k) if isinstance(node, dict) else None
+            if got is None and k == "lm_head":
+                continue
+            if isinstance(ref, dict):
+                walk(got, ref, pre + k + ".")
+                continue
+            name = pre + k
+            if is_quantized(got):
+                if quant != "int8":
+                    raise bad(name, "is quantized (int8)",
+                              f"{mcfg.dtype} with model.quantization "
+                              f"{quant!r}")
+                leaf, dtypes = got["q"], (got["q"].dtype, got["s"].dtype)
+                if dtypes != (torch.int8, torch.float32):
+                    raise bad(name, f"has values and scales of {dtypes}",
+                              "(torch.int8, torch.float32)")
+            else:
+                leaf = got
+            if not isinstance(leaf, torch.Tensor) or leaf.shape != ref.shape:
+                raise bad(name, "has shape "
+                          f"{None if leaf is None else tuple(leaf.shape)}",
+                          tuple(ref.shape))
+            if leaf is got and leaf.dtype != ref.dtype:
+                raise bad(name, f"is {leaf.dtype}", ref.dtype)
+    walk(params, init_params(mcfg, None, "meta"), "")
+
+
+def _load_weights(cfg: Config, mcfg: LlamaConfig, dev) -> Params:
+    """``model.checkpoint_path`` onto ``dev``; any failure raises."""
+    path = cfg.model.checkpoint_path
+    t0 = time.perf_counter()
+    if path.rstrip("/").endswith(".safetensors.d"):
+        params = import_hf_llama(path, mcfg,
+                                 meta_rope_layout=cfg.model.meta_rope_layout,
+                                 device=dev)
+    else:
+        params = load_checkpoint(path, device=dev)
+    _check_shapes(params, mcfg, path, cfg.model.quantization)
+    log.info("loaded weights of %s from %s in %.2fs", mcfg.name, path,
+             time.perf_counter() - t0)
+    return params
+
+
 def _build_echo(cfg: Config, name: str) -> InferenceEngine:
     """The ``echo`` backend's engine (``llmq_tpu/engine/builder.py``'s
     echo branch, same geometry): no model, no device, no tensor; the
     futures API only with the async pipeline on. ``device`` plays no
     part."""
     ex = cfg.executor
-    tokenizer = get_tokenizer()
+    tokenizer = get_tokenizer(cfg.model.tokenizer_path)
     mixed, ragged = ex.mixed_batch, ex.ragged_attention
     pipe, spec, tier = ex.async_pipeline, ex.speculation, ex.kv_tiering
     # The engine-visible mixed geometry, as the JAX builder computes it:

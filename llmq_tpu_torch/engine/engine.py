@@ -108,8 +108,13 @@ active sequence by a chunk of tokens per device program.
   :meth:`InferenceEngine.step`, ``engine.hbm_alloc`` at the top of
   ``_alloc_pages`` (a fault there is an exhausted pool: the requester
   stays pending). One attribute check each while chaos is off.
-
-Left to later work (``ROADMAP.md``): tenancy.
+- **Tenancy** (``tenancy/``): with ``tenancy.enabled`` and rows of more
+  than one tenant in a chunk (plain, mixed or verify window), each
+  tenant's share of the chunk's decode-token budget is capped at its
+  weight's share (``_apply_decode_fairness``), and the mixed step packs
+  prefill slices in two passes, tenant caps first, then the leftover
+  (``_pack_prefill_slices``). Off, or one tenant: one attribute check,
+  and the chunks are the untenanted ones.
 """
 
 from __future__ import annotations
@@ -142,6 +147,7 @@ from llmq_tpu_torch.observability.usage import (DEFAULT_TENANT, RequestUsage,
                                                 sanitize_tenant)
 from llmq_tpu_torch.prefixcache import PrefixCache
 from llmq_tpu_torch.speculation import NgramDrafter
+from llmq_tpu_torch.tenancy import get_tenant_registry, weighted_token_caps
 from llmq_tpu_torch.utils.profiling import SpanRecorder
 
 log = logging.getLogger("llmq_tpu_torch.engine")
@@ -152,20 +158,47 @@ log = logging.getLogger("llmq_tpu_torch.engine")
 REALTIME_ADMISSION_MS = 50.0
 
 
-def _pack_prefill_slices(cands, S: int, T: int,
-                         budget: int) -> List[Tuple["_Sequence", List[int]]]:
+def _pack_prefill_slices(cands, S: int, T: int, budget: int,
+                         tenant_caps: Optional[Dict[str, int]]
+                         ) -> List[Tuple["_Sequence", List[int]]]:
     """Pack prefill candidates (most urgent first) into at most S slices
-    of at most T tokens each, at most ``budget`` tokens in all. Returns
-    ``[(seq, token_ids)]``."""
-    pf_plan = []
+    of at most T tokens each, at most ``budget`` tokens in all. With
+    ``tenant_caps`` (several tenants contending) pass 1 packs each
+    tenant only up to its weight's share; pass 2 hands the leftover out
+    in urgency order, widening a slice pass 1 cut at its tenant's cap,
+    so the caps bind only when the budget is really contended and no
+    share is stranded. Returns ``[(seq, token_ids)]``."""
+    pf_plan: List[Tuple["_Sequence", List[int]]] = []
+    plan_idx: Dict[int, int] = {}    # seq.order → index into pf_plan
     packed = 0
-    for seq in cands:
-        if packed >= budget or len(pf_plan) >= S:
-            break
-        sl = seq.todo_ids[:min(T, budget - packed)]
-        if sl:
-            pf_plan.append((seq, sl))
-            packed += len(sl)
+    packed_by_tenant: Dict[str, int] = {}
+    passes = (True, False) if tenant_caps is not None else (False,)
+    for capped in passes:
+        for seq in cands:
+            if packed >= budget:
+                break
+            idx = plan_idx.get(seq.order)
+            if idx is None and len(pf_plan) >= S:
+                continue             # no slice slot left; widen only
+            have = len(pf_plan[idx][1]) if idx is not None else 0
+            width = min(T - have, budget - packed)
+            tid = seq.req.tenant_id
+            if capped:
+                width = min(width, tenant_caps.get(tid, budget)
+                            - packed_by_tenant.get(tid, 0))
+            if width <= 0:
+                continue
+            sl = seq.todo_ids[:have + width]
+            added = len(sl) - have   # the prompt may be shorter
+            if added <= 0:
+                continue
+            if idx is None:
+                plan_idx[seq.order] = len(pf_plan)
+                pf_plan.append((seq, sl))
+            else:
+                pf_plan[idx] = (seq, sl)
+            packed += added
+            packed_by_tenant[tid] = packed_by_tenant.get(tid, 0) + added
     return pf_plan
 
 
@@ -543,6 +576,9 @@ class InferenceEngine:
         #: analyzer (off: no extra marks).
         self._usage = get_usage_ledger()
         self._cp = get_critical_path()
+        #: The tenancy plane's registry (disabled: one attribute check a
+        #: chunk).
+        self._tenancy = get_tenant_registry()
         #: Decode-stall attribution: estimated ms the decode rows spent
         #: behind prefill dispatched while they were active.
         self.prefill_stall_events = 0
@@ -1923,7 +1959,17 @@ class InferenceEngine:
                 self._finish_active(s, "cancelled")
                 cands.remove(s)
         cands.sort(key=lambda s: s.sort_key())
-        pf_plan = _pack_prefill_slices(cands, S, T, budget)
+        # Several tenants contending for the prefill budget: pack with
+        # their weight-proportional caps; off, or one tenant, the single
+        # uncapped pass.
+        tenant_caps = None
+        if self._tenancy.enabled:
+            cand_tenants = {s.req.tenant_id for s in cands}
+            if len(cand_tenants) > 1:
+                tenant_caps = weighted_token_caps(
+                    {t: self._tenancy.weight_for(t)
+                     for t in cand_tenants}, budget)
+        pf_plan = _pack_prefill_slices(cands, S, T, budget, tenant_caps)
         if not pf_plan:
             return self._decode_once()
         packed = sum(len(sl) for _, sl in pf_plan)
@@ -2094,7 +2140,40 @@ class InferenceEngine:
                     self._preempt(seq, release_pages=True)
                 continue
             budgets_by_order[seq.order] = budget
+        if self._tenancy.enabled:
+            self._apply_decode_fairness(rows, budgets_by_order)
         return budgets_by_order
+
+    def _apply_decode_fairness(self, rows, budgets_by_order) -> None:
+        """With rows of more than one tenant in a chunk, cap each tenant's
+        slice of the chunk's decode-token budget at its weight's share,
+        so queue-level fairness holds inside the chunk. Uncontended (one
+        tenant, or everyone under their share) the caps never bind. A
+        row's budget never drops below 1 (0 would latch the row); a
+        shrunk budget only moves tokens to the next chunk (its pages
+        were ensured for the larger one, and stay)."""
+        by_tenant: Dict[str, List[_Sequence]] = {}
+        for seq in rows:
+            if seq.slot is not None and seq.order in budgets_by_order:
+                by_tenant.setdefault(seq.req.tenant_id, []).append(seq)
+        if len(by_tenant) < 2:
+            return
+        total = sum(budgets_by_order[s.order]
+                    for ss in by_tenant.values() for s in ss)
+        if total <= 0:
+            return
+        caps = weighted_token_caps(
+            {t: self._tenancy.weight_for(t) for t in by_tenant}, total)
+        for tenant, seqs in by_tenant.items():
+            t_sum = sum(budgets_by_order[s.order] for s in seqs)
+            cap = caps.get(tenant, t_sum)
+            if t_sum <= cap:
+                continue
+            scale = cap / t_sum
+            for s in seqs:
+                b = budgets_by_order[s.order]
+                if b > 1:
+                    budgets_by_order[s.order] = max(1, int(b * scale))
 
     def _chunk_arrays(self, rows: List[_Sequence],
                       budgets_by_order: Dict[int, int]):

@@ -215,6 +215,13 @@ class _Family:
                 child = self._children.setdefault(key, self._new_child())
         return child
 
+    def remove(self, *values) -> None:
+        """Drop one labelled series (``KeyError`` if it is absent), as
+        ``prometheus_client`` does."""
+        key = tuple(str(v) for v in values)
+        with self._mu:
+            del self._children[key]
+
     def _series(self):
         with self._mu:
             return list(self._children.items())
@@ -671,6 +678,35 @@ class QueueMetrics:
             f"{ns}_usage_tenants_tracked",
             "Distinct tenants with usage rollups this process",
             registry=r)
+        # Tenancy plane (tenancy/): fairness and quota visibility. The
+        # ``tenant`` label shares the usage ledger's first-come
+        # max_tenants bound; the gauges are set at scrape time
+        # (tenancy.flush_metrics).
+        self.tenant_virtual_time = Gauge(
+            f"{ns}_tenant_virtual_time",
+            "Weighted-fair-queueing virtual time per tenant (tokens / "
+            "weight served; higher = further over its share)",
+            ["tenant"], registry=r)
+        self.tenant_share_ratio = Gauge(
+            f"{ns}_tenant_share_ratio",
+            "Achieved token share / configured weight share over the "
+            "tenancy.share_window_s rolling window (1.0 = exactly the "
+            "configured share)", ["tenant"], registry=r)
+        self.tenant_quota_rejections = Counter(
+            f"{ns}_tenant_quota_rejections_total",
+            "Per-tenant quota enforcement events: rate and queue_depth "
+            "are admission 429s, inflight counts dispatch-time "
+            "deferrals by the in-flight cap", ["reason"], registry=r)
+        self.tenant_inflight = Gauge(
+            f"{ns}_tenant_inflight",
+            "Dispatched (popped, unfinished) messages per tenant",
+            ["tenant"], registry=r)
+        # Unlabelled: the evicted ids are the ones an id spray mints.
+        self.tenant_registry_evictions = Counter(
+            f"{ns}_tenant_registry_evictions_total",
+            "Unconfigured-tenant runtime state evicted by the tenant "
+            "registry's LRU bound (MAX_TRACKED) — nonzero means an id "
+            "spray is churning bucket/counter state", registry=r)
         # Critical-path plane (observability/critical_path.py): per-
         # request latency attribution + boot decomposition, both fed at
         # scrape time.
@@ -737,6 +773,14 @@ def exposition() -> bytes:
         get_usage_ledger().flush()
     except Exception:  # noqa: BLE001
         log.exception("usage flush failed")
+    try:
+        # Tenancy plane: buffered quota-rejection counts and the
+        # per-tenant virtual-time, share and in-flight gauges (after the
+        # usage flush, whose tenant-label bound they share).
+        from llmq_tpu_torch.tenancy import flush_metrics as tenancy_flush
+        tenancy_flush()
+    except Exception:  # noqa: BLE001
+        log.exception("tenancy flush failed")
     try:
         # Tiered KV plane: per-tier residency, hits and the buffered
         # demote/promote observations.

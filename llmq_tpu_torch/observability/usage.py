@@ -571,6 +571,13 @@ class UsageLedger:
         self._tenant_labels.add(tenant)
         return tenant
 
+    def bounded_label(self, tenant: str) -> str:
+        """The self-locking form of :meth:`tenant_label`: the tenancy
+        plane's metric flush shares the same first-come bound, so the
+        usage and fairness families agree on which ids own a series."""
+        with self._mu:
+            return self.tenant_label(tenant)
+
     # -- scrape-time flush ----------------------------------------------------
 
     def flush(self) -> int:

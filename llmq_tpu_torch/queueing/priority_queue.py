@@ -15,8 +15,14 @@ The ordering heap runs in C++ (``native/src/mlq.cpp`` through
 ``llmq_tpu_torch/native/loader.py``) when it builds, with a pure-Python
 core of the same semantics beside it: ``backend=`` "auto" (native if
 buildable, else Python with a log line), "native" (raise if it cannot be
-built) or "python". The JAX package's tenancy fair-dequeue layer is not
-ported.
+built) or "python".
+
+With a tenancy fair scheduler attached (``set_fair``, done by the queue
+manager when ``tenancy.enabled``), ``pop`` serves the handle the
+scheduler selects (weighted fair queueing across tenants within a level)
+through the core's ``pop_handle``, and every other way a pending message
+leaves (admin removal, expiry) takes it out of the fair index. Without one (the default) ``pop`` is the heap's FIFO-within-
+priority, at the cost of one attribute check.
 """
 
 from __future__ import annotations
@@ -104,7 +110,7 @@ class _PyBackend:
             while heap:
                 _, _, handle, ts = heapq.heappop(heap)
                 if live.pop(handle, None) is None:
-                    continue   # stale: discarded earlier
+                    continue   # stale: fair-popped or discarded earlier
                 wait = max(0.0, now - ts)
                 s = self._stats[name]
                 s[0] -= 1
@@ -132,6 +138,8 @@ class _PyBackend:
             s[1] += 1
             s[4] += 1
             s[5] += wait
+            # Fair pops never go through pop/peek: reclaim the stale heap
+            # entries here, or the heap grows by one a message.
             self._drain_stale_locked(name)
             return 0, wait
 
@@ -269,6 +277,14 @@ class MultiLevelQueue:
         self._caps: Dict[str, int] = {}
         self._next_handle = itertools.count(1)
         self._mu = threading.Lock()
+        #: The tenancy fair scheduler (None: FIFO within priority).
+        self._fair: Any = None
+
+    def set_fair(self, fair: Any) -> None:
+        """Attach a tenancy fair scheduler (``on_push``, ``select``,
+        ``discard``). Attach it before the first push:
+        the fair index knows only the handles it saw arrive."""
+        self._fair = fair
 
     # -- queue management ----------------------------------------------------
 
@@ -299,6 +315,8 @@ class MultiLevelQueue:
             self._messages[handle] = (name, message, now)
         err = self._core.push(name, handle, int(message.priority), now)
         if err == 0:
+            if self._fair is not None:
+                self._fair.on_push(name, message, handle)
             return
         with self._mu:
             self._messages.pop(handle, None)
@@ -311,9 +329,31 @@ class MultiLevelQueue:
     def pop(self, name: str) -> Message:
         """Most urgent message; moves it to PROCESSING. Tombstoned
         (expired) entries surfacing here are counted failed and skipped.
-        The measured queue wait is attached as ``last_wait_time``."""
+        The measured queue wait is attached as ``last_wait_time``.
+
+        With a fair scheduler attached the served handle is its pick
+        (the lowest weighted virtual time within this level); a queue
+        whose pending work all belongs to tenants at their in-flight cap
+        reads as empty: the work is deferred, not lost."""
         while True:
-            err, handle, wait = self._core.pop(name, self._clock.now())
+            if self._fair is not None:
+                handle = self._fair.select(name)
+                if handle is None:
+                    if not self._core.has_queue(name):
+                        raise QueueNotFoundError(name)
+                    raise QueueEmptyError(name)
+                err, wait = self._core.pop_handle(name, handle,
+                                                  self._clock.now())
+                if err == self.ERR_EMPTY:
+                    # The fair index was ahead of the core (a concurrent
+                    # admin removal won this handle): drop any local
+                    # record and select again.
+                    with self._mu:
+                        self._tombstones.discard(handle)
+                        self._messages.pop(handle, None)
+                    continue
+            else:
+                err, handle, wait = self._core.pop(name, self._clock.now())
             if err == self.ERR_NOT_FOUND:
                 raise QueueNotFoundError(name)
             if err == self.ERR_EMPTY:
@@ -404,6 +444,8 @@ class MultiLevelQueue:
         h, msg = target
         if self._core.discard(name, h) != 0:
             return None  # already popped by a concurrent consumer
+        if self._fair is not None:
+            self._fair.discard(name, h)
         with self._mu:
             self._messages.pop(h, None)
         msg.status = MessageStatus.FAILED
@@ -425,19 +467,41 @@ class MultiLevelQueue:
     # -- stale cleanup --------------------------------------------------------
 
     def expire_older_than(self, name: str, max_age: float) -> List[Message]:
-        """Mark pending messages older than ``max_age`` as TIMEOUT: they
-        are tombstoned and discarded (with failed accounting) when the
-        heap surfaces them; reported sizes exclude them at once."""
+        """Mark pending messages older than ``max_age`` as TIMEOUT.
+
+        Without a fair scheduler they are tombstoned and discarded (with
+        failed accounting) when the heap surfaces them; reported sizes
+        exclude them at once. With one they leave at once: a tombstone in
+        a fair deque would go on counting against its tenant's
+        ``max_queue_depth`` (and might never surface while the tenant is
+        deferred at its in-flight cap)."""
         if not self.has_queue(name):
             raise QueueNotFoundError(name)
         cutoff = self._clock.now() - max_age
         expired: List[Message] = []
         with self._mu:
-            for h, (qn, msg, ts) in self._messages.items():
-                if qn == name and ts < cutoff and h not in self._tombstones:
+            stale = [(h, msg) for h, (qn, msg, ts) in self._messages.items()
+                     if qn == name and ts < cutoff
+                     and h not in self._tombstones]
+            if self._fair is None:
+                for h, msg in stale:
                     self._tombstones.add(h)
                     msg.status = MessageStatus.TIMEOUT
                     expired.append(msg)
+                return expired
+        for h, msg in stale:
+            # The accounting of a tombstone drained by pop: pending →
+            # processing (a wait sample) → failed. ERR_EMPTY: a concurrent
+            # pop won the race, and the message is live work now.
+            err, _ = self._core.pop_handle(name, h, self._clock.now())
+            if err != 0:
+                continue
+            self._core.fail(name, 0.0)
+            self._fair.discard(name, h)
+            with self._mu:
+                self._messages.pop(h, None)
+            msg.status = MessageStatus.TIMEOUT
+            expired.append(msg)
         return expired
 
     # -- stats ---------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Queue manager: tier queues, priority-adjust rules, the write-ahead
 log, monitoring (the port's copy of
-``llmq_tpu/queueing/queue_manager.py``; no tenancy or scale signals yet).
+``llmq_tpu/queueing/queue_manager.py``; no scale signals yet).
 
 - owns a :class:`MultiLevelQueue` and creates the four tier queues from
   config; ``push_message`` without an explicit queue routes a message to
@@ -10,6 +10,12 @@ log, monitoring (the port's copy of
   ``stash_for_retry`` keep the per-tier :class:`QueueStats` right across
   the retry path
 - ``remove_message``: admin removal of a pending message
+- with ``tenancy.enabled`` a :class:`FairScheduler` (``tenancy/``)
+  reorders pops within each tier by tenant virtual time: delivery
+  charges the tenant (``note_pop``), complete and fail true the charge
+  up from measured tokens (``note_finish``), a requeue or retry stash
+  frees the tenant's in-flight slot (``note_requeue``). Off (the
+  default), every hook is one attribute check
 - with ``wal_path`` every mutation is journaled (``queueing/wal.py``) and
   the journal's live set is restored at construction: pending messages
   re-enter in arrival order, popped-but-unfinished ones are redelivered,
@@ -36,7 +42,7 @@ from typing import Callable, ContextManager, Dict, List, Optional, Tuple
 
 from llmq_tpu_torch.core.clock import SYSTEM_CLOCK, Clock
 from llmq_tpu_torch.core.config import Config, QueueConfig
-from llmq_tpu_torch.core.errors import WALError
+from llmq_tpu_torch.core.errors import QueueEmptyError, WALError
 from llmq_tpu_torch.core.types import (PRIORITY_TIERS, Message, Priority,
                                        QueueStats)
 from llmq_tpu_torch.metrics.registry import get_metrics
@@ -84,6 +90,16 @@ class QueueManager:
         for lvl in self.qconfig.levels:
             self.queue.create_queue(Priority(lvl.priority).tier_name,
                                     capacity=self.qconfig.max_queue_size)
+        # The fair scheduler is attached before the journal's restore,
+        # so restored messages enter the fair index as live pushes do.
+        self._fair = None
+        tcfg = self.config.tenancy
+        if tcfg.enabled:
+            from llmq_tpu_torch import tenancy
+            registry = tenancy.configure_tenancy(tcfg)
+            self._fair = tenancy.FairScheduler(registry, clock=self._clock)
+            tenancy.register_scheduler(self._fair)
+            self.queue.set_fair(self._fair)
 
         self._wal = None
         # Pairs each queue mutation with its journal record against the
@@ -222,6 +238,10 @@ class QueueManager:
             self._wal_inflight[msg.id] = (qname, msg)
 
     def _popped(self, qname: str, msg: Message) -> None:
+        if self._fair is not None:
+            # Delivery: charge the tenant's virtual time (estimated
+            # tokens, trued up at finish) and take an in-flight slot.
+            self._fair.note_pop(msg)
         if self._metrics is not None:
             m = self._metrics
             self._lbl(m.pending, qname, msg).dec()
@@ -267,6 +287,10 @@ class QueueManager:
 
     def _finished(self, qname: str, msg: Message, process_time: float,
                   op: str) -> None:
+        if self._fair is not None:
+            # True-up from measured tokens (metadata.usage) and release
+            # of the tenant's in-flight slot.
+            self._fair.note_finish(msg, ok=op == "complete")
         if self._metrics is not None:
             m = self._metrics
             self._lbl(m.processing, qname, msg).dec()
@@ -280,6 +304,10 @@ class QueueManager:
         """Return a PROCESSING message to its queue."""
         qname = (queue_name or self._pop_inflight(message.id)
                  or self.route_for(message))
+        if self._fair is not None:
+            # The slot is freed before the push, which enters the fair
+            # index as fresh pending work.
+            self._fair.note_requeue(message)
         with self._wal_guard():
             self.queue.requeue(qname, message)
             self._journal_done("requeue", qname, message.id)  # queued again
@@ -298,6 +326,10 @@ class QueueManager:
         queue after its retry backoff."""
         qname = (queue_name or self._pop_inflight(message.id)
                  or self.route_for(message))
+        if self._fair is not None:
+            # Parked for its backoff: the tenant's in-flight slot is
+            # freed (the delayed re-push enters the fair index again).
+            self._fair.note_requeue(message)
         with self._wal_guard():
             self.queue.requeue_accounting_for(qname)
             # Still live (parked in the delayed queue): it stays in the
@@ -380,6 +412,11 @@ class QueueManager:
 
     def total_pending(self) -> int:
         return self.queue.total_size()
+
+    def fair_snapshot(self) -> Optional[Dict]:
+        """The fair dequeue's state (virtual times, backlog, served
+        tokens, share ratios); None with tenancy off."""
+        return self._fair.snapshot() if self._fair is not None else None
 
     def start(self, monitor_interval: float = 5.0) -> None:
         """Start the background monitor."""

@@ -804,3 +804,92 @@ def test_cors_answers_like_jax(case):
     assert cors["access-control-allow-origin"] == CORS_ORIGIN
     assert cors["vary"] == "Origin"
     assert ("access-control-allow-credentials" in cors) == listed
+
+
+def _tenancy_pair(enabled):
+    """JAX's and the port's ApiServer side by side over echo engines with
+    the same ``tenancy`` block (gold 4, bronze 1, metered at 10 tok/s)."""
+    from llmq_tpu.core.config import TenancyConfig as JTen
+    from llmq_tpu_torch.core.config import TenancyConfig as TTen
+
+    pair = []
+    for (api, factory, eng, port), Ten in zip(_cors_pair(None),
+                                              (JTen, TTen)):
+        api.stop()
+        cfg = api.config
+        cfg.tenancy = Ten(enabled=enabled, tenants={
+            "gold": {"weight": 4.0}, "bronze": {"weight": 1.0},
+            "metered": {"token_rate": 10.0, "burst_tokens": 80.0}})
+        factory.stop_all()
+        pair.append((cfg, eng))
+    return pair
+
+
+@pytest.mark.parametrize("enabled", [False, True], ids=["off", "on"])
+def test_tenancy_route_answers_like_jax(enabled):
+    """Tolerance: none on statuses, payload keys and counts. Off, both
+    answer ``GET /api/v1/tenancy`` with 503; on, after posts with
+    ``X-Tenant-Id`` (one over its token rate: 429 ``tenant_quota`` with
+    ``Retry-After``), both return JAX's payload keys (``fair`` per
+    manager included), the same tenants' counters and rejections."""
+    from llmq_tpu import tenancy as jten
+    from llmq_tpu.api import ApiServer as JApi
+    from llmq_tpu_torch import tenancy as tten
+    from llmq_tpu_torch.api.server import ApiServer as TApi
+    from llmq_tpu_torch.queueing.factory import QueueFactory as TFactory
+    from llmq_tpu_torch.queueing.factory import QueueType as TQueueType
+
+    got = []
+    try:
+        for (cfg, eng), Api, Fac, QT, ten in zip(
+                _tenancy_pair(enabled), (JApi, TApi), (JFactory, TFactory),
+                (JQueueType, TQueueType), (jten, tten)):
+            ten.reset_tenancy()
+            factory = Fac(cfg)
+            factory.create_queue_manager("standard", QT("standard"),
+                                         start_background=False)
+            api = Api(cfg, queue_factory=factory, engine=eng)
+            base = f"http://127.0.0.1:{api.start(host='127.0.0.1', port=0)}"
+            out = []
+            try:
+                for tenant, n in (("gold", 2), ("bronze", 1),
+                                  ("metered", 2)):
+                    for i in range(n):
+                        req = urllib.request.Request(
+                            base + "/api/v1/messages", method="POST",
+                            data=json.dumps({"content": "t" * 200,
+                                             "metadata": {
+                                                 "max_new_tokens": 4}}
+                                            ).encode(),
+                            headers={"Content-Type": "application/json",
+                                     "X-Tenant-Id": tenant})
+                        try:
+                            with urllib.request.urlopen(req,
+                                                        timeout=30) as r:
+                                out.append((tenant, r.status, None))
+                        except urllib.error.HTTPError as e:
+                            body = json.loads(e.read())
+                            out.append((tenant, e.code,
+                                        "tenant_quota" in body["error"]
+                                        and e.headers["Retry-After"]
+                                        is not None))
+                status, snap, _ = _http(base, "GET", "/api/v1/tenancy")
+                out.append((status, _keys(snap)))
+                if status == 200:
+                    out.append((snap["tenants"], snap["rejections"],
+                                sorted(snap["fair"]),
+                                snap["fair"]["standard"]["backlog"]))
+            finally:
+                api.stop()
+                factory.stop_all()
+                eng.stop()
+            got.append(out)
+    finally:
+        jten.reset_tenancy()
+        tten.reset_tenancy()
+    assert got[1] == got[0]
+    if enabled:
+        assert ("metered", 429, True) in got[1]
+        assert got[1][-2][0] == 200
+    else:
+        assert got[1][-1][0] == 503

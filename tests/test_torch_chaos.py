@@ -653,6 +653,10 @@ class TestEchoChaosRecovery:
             checker.submitted("s0")
             for _ in range(200):
                 eng.step()
+                # The committed tokens reach the stream on the completion
+                # thread: wait for it, so a loaded host cannot finish the
+                # request before three have streamed.
+                eng._drain_completions()
                 if eng._inflight and len(checker._streams.get("s0",
                                                               [])) >= 3:
                     break

@@ -152,9 +152,17 @@ def test_unported_table_is_jaxs_tree_at_its_defaults():
                  "kind: crash}], nope: 1}\n", "unknown config key: chaos.nope",
                  id="chaos: {enabled: true, faults: [{point: engine.step, "
                     "kind: crash}]}\n-chaos.enabled"),
-    ("tenancy: {enabled: true}\n", "tenancy.enabled"),
+    # tenancy is ported: the case now holds that an unknown key of a
+    # tenant class raises (the id stays the case's own).
+    pytest.param("tenancy: {enabled: true, tenants: {a: {weight: 2.0, "
+                 "nope: 1}}}\n", "unknown config key: tenancy.tenants.a.nope",
+                 id="tenancy: {enabled: true}\n-tenancy.enabled"),
     ("tpu: {mesh_shape: {tp: 8}}\n", "tpu.mesh_shape"),
-    ("model: {checkpoint_path: /ckpt}\n", "model.checkpoint_path"),
+    # The model's weight keys are ported: the case now holds that an
+    # unknown key beside them raises (the id stays the case's own).
+    pytest.param("model: {checkpoint_path: /ckpt, nope: 1}\n",
+                 "unknown config key: model.nope",
+                 id="model: {checkpoint_path: /ckpt}\n-model.checkpoint_path"),
     pytest.param("chaos: {enabled: true, faults: [], seeds: 3}\n",
                  "unknown config key: chaos.seeds",
                  id="chaos: {enabled: true, faults: []}\n-chaos.enabled"),
@@ -470,3 +478,75 @@ def test_chaos_and_store_env_overrides_like_jaxs(tmp_path, monkeypatch):
     assert (t.chaos.seed, t.store.resilience.op_timeout_s,
             t.store.resilience.breaker.failure_threshold) == (17, 0.4, 6)
     assert t.executor.backend == j.executor.backend == "echo"
+
+
+@pytest.mark.parametrize("source", ["file", "env"])
+def test_tenancy_block_loads_like_jaxs(tmp_path, source):
+    """Tolerance: none. ``tenancy`` is a real block with the JAX package's
+    fields and defaults: the same file (or ``LLMQ_TENANCY_*`` variables)
+    loads to the same values in both packages; a tenant class is checked
+    field by field at load (JAX's checks the weight when the registry is
+    configured)."""
+    assert dataclasses.asdict(TC.TenancyConfig()) == \
+        dataclasses.asdict(JC.TenancyConfig())
+    assert "tenancy" not in TC._UNPORTED
+    if source == "file":
+        path = tmp_path / "c.yaml"
+        path.write_text(
+            "tenancy: {enabled: true, share_window_s: 30.0, "
+            "default: {weight: 0.5, max_inflight: 3}, tenants: {gold: "
+            "{weight: 4.0, token_rate: 200.0, burst-tokens: 400.0}, "
+            "bronze: {max_queue_depth: 8}}}\n")
+        t = TC.load_config(str(path), env=False)
+        j = JC.load_config(str(path), env=False)
+    else:
+        env = {"LLMQ_TENANCY_ENABLED": "true",
+               "LLMQ_TENANCY_SHARE_WINDOW_S": "30",
+               "LLMQ_TENANCY_DEFAULT_WEIGHT": "0.5"}
+        t = TC.load_config(path=os.devnull, environ=env)
+        j = JC.Config()
+        JC._apply_env(j, env)
+    assert dataclasses.asdict(t.tenancy) == dataclasses.asdict(j.tenancy)
+    assert t.tenancy.enabled and t.tenancy.share_window_s == 30.0
+    for bad, match in (
+            ("tenancy: {default: {weight: 0.0}}\n", "weight must be > 0"),
+            ("tenancy: {tenants: {a: {weight: -1}}}\n", "weight must be > 0"),
+            ("tenancy: {tenants: {a: 3}}\n", "tenancy.tenants.a must be"),
+            ("tenancy: {default: {nope: 1}}\n",
+             "unknown config key: tenancy.default.nope")):
+        path = tmp_path / "bad.yaml"
+        path.write_text(bad)
+        with pytest.raises(ValueError, match=match):
+            TC.load_config(str(path), env=False)
+
+
+def test_model_weight_keys_load_like_jaxs(tmp_path):
+    """``model.checkpoint_path``, ``tokenizer_path`` and
+    ``meta_rope_layout`` are real fields at the JAX package's defaults
+    and load to its values. ``dtype`` is read by neither package's
+    builder: the port accepts it only at the JAX package's default, and
+    another value raises, naming the key."""
+    t0, j0 = TC.ModelConfig(), JC.ModelConfig()
+    for k in ("checkpoint_path", "tokenizer_path", "meta_rope_layout"):
+        assert getattr(t0, k) == getattr(j0, k), k
+    assert TC._UNPORTED["model"] == {"dtype": j0.dtype}
+    path = tmp_path / "c.yaml"
+    path.write_text("model: {name: llama3-1b, checkpoint_path: "
+                    "/w/llama3-1b.safetensors.d, tokenizer_path: /w/tok, "
+                    "meta_rope_layout: true, dtype: bfloat16}\n")
+    t = TC.load_config(str(path), env=False).model
+    j = JC.load_config(str(path), env=False).model
+    for k in ("name", "checkpoint_path", "tokenizer_path",
+              "meta_rope_layout"):
+        assert getattr(t, k) == getattr(j, k), k
+    path.write_text("model: {name: llama3-1b, dtype: float32}\n")
+    with pytest.raises(ValueError, match="model.dtype"):
+        TC.load_config(str(path), env=False)
+    with pytest.raises(ValueError, match="model.dtype"):
+        TC.load_config(path=os.devnull,
+                       environ={"LLMQ_MODEL_DTYPE": "float32"})
+    env = {"LLMQ_MODEL_CHECKPOINT_PATH": "/x.ckpt",
+           "LLMQ_MODEL_META_ROPE_LAYOUT": "true",
+           "LLMQ_MODEL_DTYPE": "bfloat16"}
+    t = TC.load_config(path=os.devnull, environ=env).model
+    assert (t.checkpoint_path, t.meta_rope_layout) == ("/x.ckpt", True)

@@ -1399,3 +1399,130 @@ def test_chaos_crash_with_a_graph_chunk_in_flight_then_replays_alike():
         chaos.configure(None)
         eng.stop()
         ex.release_graphs()
+
+
+@needs_cuda
+def test_tenant_capped_ragged_slices_end_mid_page_match_twins():
+    """The tenancy plane's capped pack on the ragged path: a 4:1 split of
+    a 128-token budget gives slices of 102 and 26 tokens, both ending
+    mid-page (page size 16), and the next step continues each from its
+    mid-page position. Two steps of kernel 2 (the slices' writes) and
+    kernel 6 (six decode rows and the two slices) against their twins:
+    pools bit-exact, attention within ATOL and REL_TOL, rows outside the
+    slices zero."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    kp, vp = _pools(gen)
+    dec_lens = [40, 17, 129, 64, 5, 200]
+    B, N = len(dec_lens), 144
+    prompt = (1500, 1500)
+    bt = torch.zeros((B + 2, MP), dtype=torch.int32)
+    nxt = 1
+    for b, n in enumerate(dec_lens):
+        pages = -(-(n + 8) // PS)
+        bt[b, :pages] = torch.arange(nxt, nxt + pages, dtype=torch.int32)
+        nxt += pages
+    for s in range(2):
+        pages = -(-208 // PS)
+        bt[B + s, :pages] = torch.arange(nxt, nxt + pages, dtype=torch.int32)
+        nxt += pages
+    assert nxt <= P
+    bt = bt.cuda()
+    ka, va, kb, vb = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    done = [0, 0]
+    for step in range(2):
+        qlen = [102, 26]
+        qstart = list(done)
+        assert all((st + n) % PS for st, n in zip(qstart, qlen))  # mid-page
+        qoff = [0, 104]
+        lens = [n + step + 1 for n in dec_lens]
+        sl = torch.tensor(lens + [st + n for st, n in zip(qstart, qlen)],
+                          dtype=torch.int32, device="cuda")
+        wp = torch.tensor([int(bt[b, (lens[b] - 1) // PS])
+                           for b in range(B)], dtype=torch.int32,
+                          device="cuda")
+        meta = [torch.tensor(c, dtype=torch.int32, device="cuda")
+                for c in (qoff, qlen, qstart)]
+        k_pf, v_pf = _rand((N, GD), gen), _rand((N, GD), gen)
+        q_dec, q_pf = _rand((B, H, D), gen), _rand((N, H, D), gen)
+        kn, vn = _rand((B, HKV, D), gen), _rand((B, HKV, D), gen)
+        before = dict(kernels.LAUNCHES)
+        kernels.kv_prefill_write(ka, va, k_pf, v_pf, bt[B:], *meta, N, 1)
+        a_d, a_p = kernels.ragged_mixed_attention(
+            q_dec, kn, vn, q_pf, ka, va, bt, sl, wp, *meta, 1)
+        kernels.kv_prefill_write_plain(kb, vb, k_pf, v_pf, bt[B:], *meta,
+                                       N, 1)
+        b_d, b_p = kernels.ragged_mixed_attention_plain(
+            q_dec, kn, vn, q_pf, kb, vb, bt, sl, wp, *meta, 1)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["kv_prefill_write"] == \
+            before["kv_prefill_write"] + 1
+        assert kernels.LAUNCHES["ragged_mixed_attention"] == \
+            before["ragged_mixed_attention"] + 1
+        assert torch.equal(ka, kb) and torch.equal(va, vb), step
+        assert (a_d.float() - b_d.float()).abs().max().item() <= ATOL
+        assert _scaled_err(a_d, b_d) <= REL_TOL
+        live = torch.zeros(N, dtype=torch.bool, device="cuda")
+        live[0:102] = True
+        live[104:130] = True
+        assert (a_p[live].float() - b_p[live].float()).abs().max().item() \
+            <= ATOL
+        assert _scaled_err(a_p[live], b_p[live]) <= REL_TOL
+        assert torch.all(a_p[~live] == 0)
+        done = [st + n for st, n in zip(qstart, qlen)]
+    assert done == [204, 52] and all(d < p for d, p in zip(done, prompt))
+
+
+@needs_cuda
+def test_bf16_checkpoints_load_onto_the_card(tmp_path):
+    """A bf16 Hugging Face directory written by the port's own writer (two
+    shards, tied head) imports onto the card bitwise equal to the CPU
+    import; the port's checkpoint of an int8 tree loads onto the card
+    bitwise, its int8 leaves column major."""
+    from llmq_tpu_torch.models import checkpoint as ck
+    from llmq_tpu_torch.models import llama as TL
+    from llmq_tpu_torch.ops import quant
+
+    cfg = TL.get_config("llama3-tiny", dim=256, n_heads=2, n_kv_heads=1,
+                        tie_embeddings=True)
+    params = TL.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        3), "cuda")
+    names = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj",
+             "wv": "self_attn.v_proj", "wo": "self_attn.o_proj",
+             "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
+             "w_down": "mlp.down_proj"}
+    hf = {"model.embed_tokens.weight": params["embed"],
+          "model.norm.weight": params["final_norm"]}
+    for i in range(cfg.n_layers):
+        lp = params["layers"]
+        for k, n in names.items():
+            hf[f"model.layers.{i}.{n}.weight"] = lp[k][i].T
+        hf[f"model.layers.{i}.input_layernorm.weight"] = lp["attn_norm"][i]
+        hf[f"model.layers.{i}.post_attention_layernorm.weight"] = \
+            lp["mlp_norm"][i]
+    d = tmp_path / "tiny.safetensors.d"
+    d.mkdir()
+    keys = sorted(hf)
+    for s in range(2):
+        ck.write_safetensors(str(d / f"model-{s}.safetensors"),
+                             {k: hf[k] for k in keys[s::2]})
+    card = ck.import_hf_llama(str(d), cfg, device="cuda")
+    host = ck.import_hf_llama(str(d), cfg, device="cpu")
+
+    def leaves(t, pre=""):
+        for k, v in sorted(t.items()):
+            if isinstance(v, dict):
+                yield from leaves(v, pre + k + ".")
+            else:
+                yield pre + k, v
+    for (k, a), (_, b), (_, c) in zip(leaves(card), leaves(host),
+                                      leaves(params)):
+        assert a.is_cuda and a.dtype == torch.bfloat16, k
+        assert torch.equal(a.cpu().view(torch.int16),
+                           b.view(torch.int16)), k
+        assert torch.equal(a, c), k
+    q8 = quant.quantize_params(params)
+    path = str(tmp_path / "q8.ckpt")
+    ck.save_checkpoint(path, q8)
+    back = ck.load_checkpoint(path, device="cuda")
+    for (k, a), (_, b) in zip(leaves(back), leaves(q8)):
+        assert a.is_cuda and torch.equal(a, b) and a.stride() == b.stride(), k

@@ -226,6 +226,41 @@ _BLOCKED_IMPORT_SCRIPT = textwrap.dedent("""
     for fam in ("chaos_injected", "store_op_ms", "store_retries",
                 "store_breaker_state", "store_degraded"):
         assert hasattr(get_metrics(), fam), fam
+    # The tenancy plane: the registry, the fair scheduler, the quota
+    # gate, the engine's fairness, the config block, the route and the
+    # metric families; real weights: the safetensors reader, the HF
+    # import, the port's checkpoints and the HF tokenizer (transformers
+    # imported only when a path is configured).
+    from llmq_tpu_torch import tenancy
+    from llmq_tpu_torch.tenancy import (FairScheduler, TenantRegistry,
+                                        configure_tenancy, flush_metrics,
+                                        register_scheduler, reset_tenancy,
+                                        share_ratios_from_window,
+                                        weighted_token_caps)
+    from llmq_tpu_torch.tenancy import registry
+    assert estimate_prompt_tokens is registry.estimate_prompt_tokens
+    assert registry.QUOTA_REASONS == ("rate", "queue_depth", "inflight")
+    from llmq_tpu_torch.core.config import TenancyConfig, TenantClassConfig
+    assert not cfg.tenancy.enabled
+    assert callable(QueueManager.fair_snapshot)
+    for fn in ("_apply_decode_fairness", "_budget_chunk_rows"):
+        assert callable(getattr(InferenceEngine, fn)), fn
+    from llmq_tpu_torch.engine.engine import _pack_prefill_slices
+    assert callable(ApiServer.get_tenancy)
+    for fam in ("tenant_virtual_time", "tenant_share_ratio",
+                "tenant_quota_rejections", "tenant_inflight",
+                "tenant_registry_evictions"):
+        assert hasattr(get_metrics(), fam), fam
+    from llmq_tpu_torch.models.checkpoint import (SafetensorsFile,
+                                                  import_hf_llama,
+                                                  load_checkpoint,
+                                                  save_checkpoint,
+                                                  write_safetensors)
+    from llmq_tpu_torch.engine.tokenizer import (ByteTokenizer, HFTokenizer,
+                                                 get_tokenizer)
+    assert isinstance(get_tokenizer(""), ByteTokenizer)
+    for mod in ("transformers", "safetensors", "ml_dtypes"):
+        assert mod not in sys.modules, mod
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", sys.argv[1] + "/chip_smoke.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))

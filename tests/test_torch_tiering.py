@@ -90,11 +90,15 @@ KV_DTYPES = {"bf16": (jnp.bfloat16, torch.bfloat16),
 
 @pytest.fixture(autouse=True)
 def _usage_off():
+    """The port's usage ledger off for each test, and put back as it was
+    after: a later file in the same process (the split deployment's
+    usage parity) reads it on."""
     led = get_usage_ledger()
+    was = led.enabled
     led.reconfigure(enabled=False)
     led.clear()
     yield
-    led.reconfigure(enabled=False)
+    led.reconfigure(enabled=was)
     led.clear()
 
 
