@@ -54,8 +54,9 @@ shows where it happened):
                  continuation chunk), decode, ``forward_mixed`` and
                  ``forward_mixed_ragged`` on the card against the same
                  model on the CPU (plain twins).
-6. graphs     — the decode step as a CUDA graph on five llama3-8b
-                 engines built with ``warmup=True`` (bf16 default, the
+6. graphs     — the decode step as a CUDA graph on five engines of
+                 llama3-8b's widths at GRAPHS_LAYERS (24) of its 32
+                 layers, built with ``warmup=True`` (bf16 default, the
                  same on the split route, bf16 ragged, int8 weights +
                  int8 KV default and ragged): a B=8, 16-step chunk run
                  eagerly and replayed, per step wall and device busy,
@@ -270,7 +271,43 @@ shows where it happened):
                  off, off, on), after one uncounted 8-concurrent batch,
                  each turn's rate the median of three: the "on" turns
                  within 3% of the "off" ones.
-13. serve-split — the durable queue plane and the split deployment. First,
+13. serve-cluster — the replica set: the serve phase's bf16 engine behind
+                 the full ``App`` in serve mode (the autoscaler running)
+                 with ``cluster.peers: [peer]`` and ``include_local``,
+                 the peer a ``python -m llmq_tpu_torch serve`` child on
+                 the same card (llama3-8b at full width and depth,
+                 random weights from seed 0, SPLIT_PRELUDE's counts).
+                 Config: ``configs/config.yaml`` with serve-plane's
+                 overrides, ``scheduler.min_endpoints: 2`` (at the
+                 default 1 the autoscaler drops one of the two endpoints
+                 at its first tick, as the JAX package's does) and
+                 ``loadbalancer.strategy: round_robin``. a. 16 requests
+                 over four tiers complete, dispatched to both replicas;
+                 f. a peer-served request's local trace holds the peer's
+                 engine stages under its trace id; b. a conversation's
+                 turn 2 returns to turn 1's replica with cached tokens,
+                 then that replica is drained through ``POST
+                 /api/v1/endpoints/:id/drain``, turn 3 spills and
+                 completes, and an undrain readmits it; g. a ``gateway
+                 --peers`` child in front of both completes 8 requests
+                 without initialising CUDA; d. the cluster overview
+                 lists both replicas with device blocks; c. with the
+                 local replica drained, 8 requests decode on the peer,
+                 the local one is readmitted and the peer SIGKILLed:
+                 all 8 complete locally (failover within the dispatch or
+                 the worker's retry), the invariant checker finds none
+                 lost or duplicated, the peer's breaker is open; d. the
+                 overview then lists it as an error entry within the
+                 probe timeout + 1 s; e. ``/metrics``' five
+                 ``cluster_*`` and two ``circuit_breaker_*`` families
+                 equal the router's counts; h. kernels 1-3 launch in
+                 both serving processes and no twin is called in
+                 either. Printed: the peer's boot seconds, turn-2 TTFT
+                 on the affine replica against the spilled turn 3's, a
+                 generate hop's added ms, 8 concurrent requests' tok/s
+                 on two replicas against one, and the kill to the last
+                 completion.
+14. serve-split — the durable queue plane and the split deployment. First,
                  on the serve phases' bf16 engine, decode of 8 concurrent
                  REST requests (64 new tokens) through the serving
                  process with ``queue.wal_dir`` set and unset, in turns,
@@ -304,7 +341,7 @@ shows where it happened):
                  WAL: they are relayed again and complete (traces from
                  the spool). Kernels 1-3 launch in each queue-manager, no
                  twin is called, and no gateway initialises CUDA.
-14. serve-int8 — llama3-8b with int8 weights and int8 KV at full width and
+15. serve-int8 — llama3-8b with int8 weights and int8 KV at full width and
                  depth (``LLMQ_MODEL_QUANTIZATION=int8
                  LLMQ_MODEL_KV_QUANTIZATION=int8``), the same REST mix:
                  kernel 5 launches and no bf16-pool kernel does; then a
@@ -2645,30 +2682,40 @@ def _pipeline_vs_blocking(engine, tag: str, state) -> None:
         f"carried {car['no_live_row_steps']} ({CARD})")
 
 
+#: The graphs phase's depth: llama3-8b's widths with 24 of its 32
+#: layers. The checks are the same at any depth (each layer is the same
+#: kernels); the cut keeps the whole script inside its time while the
+#: serve phases, which serve full depth, grow.
+GRAPHS_LAYERS = 24
+
+
 def phase_graphs(state) -> None:
     """The decode step captured into a CUDA graph on the five engines of
     the serve phases, each built with ``warmup=True`` (the step captured
-    at build): llama3-8b bf16 default (fused route), the same engine on
-    the split route (captured at its first replay), bf16 ragged, int8
-    weights + int8 KV default and ragged (weights from seed 0, shared by
-    the two engines of a type). Each: eager against graph (wall and
+    at build), at llama3-8b's widths and GRAPHS_LAYERS layers (the
+    builder's ``n_layers``): llama3-8b bf16 default (fused route), the
+    same engine on the split route (captured at its first replay), bf16
+    ragged, int8 weights + int8 KV default and ragged (weights from seed
+    0, shared by the two engines of a type). Each: eager against graph (wall and
     device busy per step, host launches against device kernels per
     step), the graph pool's bytes, greedy streams equal. The bf16
     default engine also runs three chunks carried at depth 2 against the
     same three blocking (the async pipeline's dispatch)."""
+    import functools
     import gc
 
     import torch
 
     from llmq_tpu_torch.engine.builder import build_engine
 
-    state["graphs"] = {}
+    build = functools.partial(build_engine, n_layers=GRAPHS_LAYERS)
+    state["graphs"] = {"layers": GRAPHS_LAYERS}
     for q8 in (False, True):
         cfg = _serve_cfg()
         if q8:
             cfg.model.quantization = cfg.model.kv_quantization = "int8"
         kind = "int8" if q8 else "bf16"
-        engine = build_engine(cfg, warmup=True)
+        engine = build(cfg, warmup=True)
         ex = engine.executor
         _log_warmup(engine, f"graphs {kind} default")
         _graph_vs_eager(engine, f"{kind} default", state)
@@ -2684,7 +2731,7 @@ def phase_graphs(state) -> None:
         ex.release_graphs()
         del engine, ex
         cfg.executor.ragged_attention.enabled = True
-        engine = build_engine(cfg, params=params, warmup=True)
+        engine = build(cfg, params=params, warmup=True)
         _log_warmup(engine, f"graphs {kind} ragged")
         _graph_vs_eager(engine, f"{kind} ragged", state)
         _programs_vs_eager(engine, f"{kind} ragged", state)
@@ -2838,9 +2885,10 @@ def _serve_default(state):
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({CARD})")
     finally:
         app.stop()
-        if {"serve-tenancy", "serve-plane"} & set(state.get("chosen", ())):
-            # The serve-tenancy and serve-plane phases serve on this
-            # engine: its graphs stay captured.
+        if {"serve-tenancy", "serve-plane", "serve-cluster"} & set(
+                state.get("chosen", ())):
+            # The serve-tenancy, serve-plane and serve-cluster phases
+            # serve on this engine: its graphs stay captured.
             state["serve_engine"] = engine
         else:
             engine.executor.release_graphs()
@@ -3502,8 +3550,11 @@ PROFILE_STALL_S = 1.0
 def _plane_cfg():
     """The serve config with the phase's settings: retry backoff
     PLANE_BACKOFF_S, a 5 ms worker poll, a 50 ms supervisor check, and a
-    PLANE_HEARTBEAT_S heartbeat timeout checked every 0.5 s."""
+    PLANE_HEARTBEAT_S heartbeat timeout checked every 0.5 s; and
+    ``configs/config.yaml``'s load-balancer strategy (``adaptive_load``,
+    not the dataclass's ``round_robin``)."""
     cfg = _serve_cfg()
+    cfg.loadbalancer.strategy = "adaptive_load"
     cfg.queue.retry.initial_backoff = PLANE_BACKOFF_S
     cfg.queue.worker.process_interval = 0.005
     cfg.executor.supervisor.check_interval = 0.05
@@ -5079,14 +5130,539 @@ def phase_serve_plane(state) -> None:
         engine.on_prefill_observed = observe
         app.stop()
         restore()
-        if "serve-split" in state.get("chosen", ()):
-            # The serve-split phase measures the WAL's cost on this
-            # engine: its graphs stay captured.
+        if {"serve-cluster", "serve-split"} & set(state.get("chosen", ())):
+            # The serve-cluster phase serves on this engine, and the
+            # serve-split phase measures the WAL's cost on it: its graphs
+            # stay captured.
             state["serve_engine"] = engine
         else:
             engine.executor.release_graphs()
     if counts:
         raise AssertionError(f"serve-plane called plain twins: {counts}")
+
+# -- serve-cluster: the replica set -------------------------------------------
+
+#: The serve-cluster phase: requests of gate a, their new tokens; the
+#: requests held on the peer at its kill and theirs (long enough that all
+#: eight decode there when it dies); requests through the gateway child.
+CLUSTER_REQUESTS = 16
+CLUSTER_NEW_TOKENS = 32
+CLUSTER_KILL_ROWS = 8
+CLUSTER_KILL_NEW = 256
+CLUSTER_GATEWAY_REQUESTS = 8
+#: The rate lines' batch: 8 concurrent requests of 64 new tokens.
+CLUSTER_RATE_ROWS = 8
+CLUSTER_RATE_NEW = 64
+#: Seconds the peer may take to answer /health with its engine running.
+CLUSTER_BOOT_S = 600.0
+#: The transport's probe timeout (``HttpEngineClient``'s default): the
+#: overview with a dead replica must answer within it plus this margin.
+CLUSTER_PROBE_S = 2.0
+CLUSTER_OVERVIEW_MARGIN_S = 1.0
+
+
+def _cluster_config_files(work: str, peer_url: str):
+    """Two files: the peer's (``configs/config.yaml`` with serve-plane's
+    overrides) and the parent's (the same with ``cluster.peers: [peer]``).
+    Both carry the phase's own overrides: ``scheduler.min_endpoints: 2``,
+    since at the JAX package's defaults the autoscaler removes one of two
+    endpoints on its first tick (about 10 s after start), and
+    ``loadbalancer.strategy: round_robin``, since the file's
+    ``adaptive_load`` scores the in-process replica's response time
+    against the HTTP hop's and sends the peer only its exploration share
+    (one pick in ten), which a 16-request gate could miss. Returns the
+    parent's config (as ``load_config`` reads it) and both paths."""
+    import yaml
+
+    from llmq_tpu_torch.core.config import load_config
+
+    cfg0, plane_path = _plane_config_file()
+    with open(plane_path) as f:
+        data = yaml.safe_load(f)
+    data["scheduler"]["min_endpoints"] = 2
+    data["loadbalancer"]["strategy"] = "round_robin"
+    data["cluster"]["peers"] = []
+    peer_path = os.path.join(work, "cluster_peer.yaml")
+    with open(peer_path, "w") as f:
+        yaml.safe_dump(data, f, sort_keys=False)
+    data["cluster"]["peers"] = [peer_url]
+    data["cluster"]["include_local"] = True
+    path = os.path.join(work, "cluster_parent.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(data, f, sort_keys=False)
+    cfg = load_config(path, env=False)
+    if (cfg.cluster.peers != [peer_url] or cfg.scheduler.min_endpoints != 2
+            or cfg.loadbalancer.strategy != "round_robin"
+            or cfg.model != cfg0.model or cfg.executor != cfg0.executor):
+        raise AssertionError("the cluster config file did not load to the "
+                             "phase's settings")
+    return cfg, path, peer_path
+
+
+def _free_tcp_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _cluster_child(work: str, role: str, args, port: int) -> _Child:
+    """``python -m llmq_tpu_torch <role>`` after SPLIT_PRELUDE, on
+    127.0.0.1:``port``."""
+    env = {k: v for k, v in os.environ.items() if k != "LLMQ_CONFIG"}
+    return _Child(work, role, 1, [*args, "--host", "127.0.0.1", "--port",
+                                  str(port)], env)
+
+
+def _wait_engine(url: str, child: _Child, timeout: float) -> float:
+    """Seconds from the child's start until its /health reads its engine
+    running (a gateway: until /health answers)."""
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        if child.p.poll() is not None:
+            break
+        try:
+            _, h = _http("GET", f"{url}/health")
+            if child.role == "gateway" or h.get("engine") == "running":
+                return time.time() - child.started
+        except OSError:
+            pass
+        time.sleep(0.1)
+    raise AssertionError(f"{child.role} never came up (exit "
+                         f"{child.p.poll()}):\n" + "\n".join(
+                             child.lines()[-40:]))
+
+
+def _cluster_post(base, n: int, new: int, tag: str, tiers=None):
+    """POST ``n`` messages (the four tiers in turn, or ``tiers``), each
+    with an id known before its POST; returns the ids."""
+    tiers = tiers or SPLIT_TIERS
+    ids = []
+    for i in range(n):
+        mid = f"{tag}-{i}"
+        _post(base, {"id": mid, "content": f"{tag} {i}: route this message "
+                     f"to a replica and answer it.",
+                     "priority": tiers[i % len(tiers)],
+                     "metadata": {"max_new_tokens": new}})
+        ids.append(mid)
+    return ids
+
+
+def _ttft(base, mid):
+    """A request's TTFT by its trace (enqueued → first_token), ms, or
+    "not measured"."""
+    _, tl = _http("GET", f"{base}/api/v1/requests/{mid}/trace")
+    return tl["stage_latencies_ms"].get("ttft", "not measured")
+
+
+def _cluster_rate(base, tag: str) -> float:
+    """Tokens per second of CLUSTER_RATE_ROWS concurrent requests through
+    the router, first post to last completion."""
+    t0 = time.perf_counter()
+    ids = _cluster_post(base, CLUSTER_RATE_ROWS, CLUSTER_RATE_NEW, tag,
+                        tiers=("high",))
+    done = [_poll(base, mid) for mid in ids]
+    wall = time.perf_counter() - t0
+    return _check_completed(done, tag) / wall
+
+
+def _cluster_traffic(app, engine, base, peer_id, local_id, out) -> None:
+    """Gates a, f and b; the hop and the rate lines."""
+    from llmq_tpu_torch.core.types import Message
+    from llmq_tpu_torch.loadbalancer.transport import HttpEngineClient
+    from llmq_tpu_torch.observability import trace_id_for
+
+    # a. 16 requests across the four tiers complete, on both replicas.
+    ids = _cluster_post(base, CLUSTER_REQUESTS, CLUSTER_NEW_TOKENS, "ca")
+    done = [_poll(base, mid) for mid in ids]
+    _check_completed(done, "serve-cluster a")
+    by_ep = {}
+    for m in done:
+        eid = m["metadata"].get("endpoint_id")
+        by_ep[eid] = by_ep.get(eid, 0) + 1
+    if set(by_ep) != {local_id, peer_id}:
+        raise AssertionError(f"a. dispatches by endpoint {by_ep}")
+    out["a_dispatch_by_endpoint"] = by_ep
+    log(f"[serve-cluster] a. {CLUSTER_REQUESTS} requests over four tiers "
+        f"completed; dispatched by endpoint {by_ep}")
+
+    # f. A peer-served request's trace here holds the peer's engine
+    # stages under the same trace id.
+    mid = next(m["id"] for m in done
+               if m["metadata"]["endpoint_id"] == peer_id)
+    _, tl = _http("GET", f"{base}/api/v1/requests/{mid}/trace")
+    here = next(e["host"] for e in tl["events"] if e["stage"] == "enqueued")
+    remote = {e["stage"] for e in tl["events"] if e["host"] != here}
+    tp = [e["meta"].get("traceparent", "") for e in tl["events"]
+          if e["host"] != here and e["stage"] == "dispatched"]
+    if (not {"admitted", "prefill_start", "first_token"} <= remote
+            or tl["trace_id"] != trace_id_for(mid) or len(tl["hosts"]) < 2
+            or not tp or not tp[0].startswith(f"00-{tl['trace_id']}-")):
+        raise AssertionError(f"f. the peer's stages were not stitched in: "
+                             f"{tl}")
+    out["f_remote_stages"] = sorted(remote)
+    log(f"[serve-cluster] f. {mid} (served by the peer): the local trace "
+        f"{tl['trace_id']} holds the peer's stages {sorted(remote)} from "
+        f"{len(tl['hosts'])} hosts")
+
+    # b. Affinity, drain and spill.
+    status, c = _http("POST", f"{base}/api/v1/conversations",
+                      {"user_id": "cluster"})
+    cid = c["conversation_id"]
+    turns = []
+    for i, text in enumerate(("Tell me how a replica set routes turns.",
+                              " And when the replica drains?",
+                              " And after it comes back?")):
+        if i == 2:
+            home = turns[0]["metadata"]["endpoint_id"]
+            status, r = _http("POST", f"{base}/api/v1/endpoints/{home}/drain")
+            if status != 200 or r["status"] != "draining":
+                raise AssertionError(f"b. drain of {home}: {status} {r}")
+        status, r = _http("POST", f"{base}/api/v1/conversations/{cid}/"
+                                  f"messages",
+                          {"content": text, "priority": "high",
+                           "timeout": MESSAGE_TIMEOUT_S,
+                           "metadata": {"max_new_tokens": 16}})
+        turns.append(_poll(base, r["message_id"]))
+    _check_completed(turns, "serve-cluster b")
+    eps = [t["metadata"]["endpoint_id"] for t in turns]
+    cached = [t["metadata"]["usage"]["cached_tokens"] for t in turns]
+    stats = app.cluster_router.get_stats()
+    if eps[1] != eps[0] or cached[1] <= 0 or eps[2] == eps[0] \
+            or stats["affinity_hit_rate"] <= 0 or stats["spills"] < 1:
+        raise AssertionError(f"b. turns on {eps}, cached {cached}, stats "
+                             f"{stats}")
+    status, r = _http("POST", f"{base}/api/v1/endpoints/{eps[0]}/drain",
+                      {"drain": False})
+    readmitted = app.load_balancer.get_endpoint_by_id(eps[0]).status.value
+    if status != 200 or readmitted not in ("degraded", "healthy"):
+        raise AssertionError(f"b. undrain: {status} {r} {readmitted}")
+    ttfts = [_ttft(base, t["id"]) for t in turns]
+    out["b"] = {"endpoints": eps, "cached_tokens": cached,
+                "ttft_ms": ttfts, "affinity_hit_rate":
+                stats["affinity_hit_rate"], "spills": stats["spills"]}
+    log(f"[serve-cluster] b. turns on {eps} (cached {cached}); affinity "
+        f"hit rate {stats['affinity_hit_rate']}; turn 3 spilled from the "
+        f"drained {eps[0]}; undrain readmits it ({readmitted}). Turn-2 TTFT "
+        f"on the affine replica {ttfts[1]} ms, the spilled turn 3's "
+        f"{ttfts[2]} ms ({CARD})")
+
+    # Printed: a generate hop's added ms, in turns (local, peer, ...).
+    peer_client = HttpEngineClient(app.load_balancer.get_endpoint_by_id(
+        peer_id).url)
+    local_ms, peer_ms = [], []
+    for i in range(3):
+        for where, fn, acc in (("local", engine.process_fn, local_ms),
+                               ("peer", peer_client.process_fn, peer_ms)):
+            msg = Message(id=f"hop-{where}-{i}", content="Route this: one "
+                          "hop or none?", metadata={"max_new_tokens": 8})
+            t0 = time.perf_counter()
+            fn(None, msg)
+            acc.append((time.perf_counter() - t0) * 1e3)
+    hop = {"local_ms": sorted(local_ms)[1], "peer_ms": sorted(peer_ms)[1]}
+    hop["added_ms"] = hop["peer_ms"] - hop["local_ms"]
+    out["hop"] = hop
+    log(f"[serve-cluster] a generate of 8 tokens in process "
+        f"{hop['local_ms']:.2f} ms, through the peer over HTTP "
+        f"{hop['peer_ms']:.2f} ms (median of 3): the hop adds "
+        f"{hop['added_ms']:.2f} ms ({CARD})")
+
+    # Printed: 8 concurrent requests' tok/s on two replicas, then one
+    # (the peer drained), then two again.
+    two = _cluster_rate(base, "rate2")
+    app.cluster_router.drain_endpoint(peer_id)
+    one = _cluster_rate(base, "rate1")
+    app.cluster_router.undrain_endpoint(peer_id)
+    two_b = _cluster_rate(base, "rate2b")
+    out["rate_tok_s"] = {"two": [two, two_b], "one": one}
+    log(f"[serve-cluster] {CLUSTER_RATE_ROWS} concurrent requests of "
+        f"{CLUSTER_RATE_NEW} tokens through the router: {two:.1f} and "
+        f"{two_b:.1f} tok/s on two replicas, {one:.1f} on one (the two "
+        f"replicas share the card's SMs) ({CARD})")
+
+
+def _cluster_gateway(work, base, peer_url, out) -> _Child:
+    """g. A ``gateway --peers <parent>,<peer>`` child completes
+    CLUSTER_GATEWAY_REQUESTS; returned for its status at the end."""
+    port = _free_tcp_port()
+    gw = _cluster_child(work, "gateway", [
+        "--config", os.path.join(work, "cluster_peer.yaml"),
+        "--peers", f"{base},{peer_url}"], port)
+    gw_url = f"http://127.0.0.1:{port}"
+    boot = _wait_engine(gw_url, gw, 120)
+    ids = _cluster_post(gw_url, CLUSTER_GATEWAY_REQUESTS,
+                        CLUSTER_NEW_TOKENS, "cg")
+    done = [_poll(gw_url, mid) for mid in ids]
+    _check_completed(done, "serve-cluster g")
+    eps = sorted({m["metadata"]["endpoint_id"] for m in done})
+    _, st = _http("GET", f"{gw_url}/api/v1/cluster/stats")
+    if len(eps) != 2 or st["dispatches"] != CLUSTER_GATEWAY_REQUESTS:
+        raise AssertionError(f"g. the gateway dispatched to {eps}: {st}")
+    out["g"] = {"endpoints": eps, "boot_s": boot}
+    log(f"[serve-cluster] g. a gateway --peers (up in {boot:.1f} s) "
+        f"completed {CLUSTER_GATEWAY_REQUESTS} requests on {eps}")
+    return gw
+
+
+def _cluster_kill(app, engine, base, peer, peer_id, local_id, out):
+    """c. and d.: the overview, then the peer SIGKILLed with
+    CLUSTER_KILL_ROWS requests decoding there."""
+    import signal
+
+    from llmq_tpu_torch.chaos import InvariantChecker
+
+    # d. The overview lists both replicas with a device block.
+    _, ov = _http("GET", f"{base}/api/v1/cluster/overview")
+    if ov["aggregate"]["reporting"] != 2 or {r["id"] for r in
+                                            ov["replicas"]} != {local_id,
+                                                                peer_id}:
+        raise AssertionError(f"d. the overview before the kill: {ov}")
+    checker = InvariantChecker()
+    mgr = app.factory.get_queue_manager("standard")
+    orig = mgr.complete_message
+
+    def complete(m, *a, **kw):
+        checker.completed(m.id)
+        return orig(m, *a, **kw)
+
+    mgr.complete_message = complete
+    try:
+        # The local replica drains, so every new dispatch goes to the peer.
+        status, _r = _http("POST", f"{base}/api/v1/endpoints/{local_id}/"
+                                   f"drain")
+        ids = []
+        for i in range(CLUSTER_KILL_ROWS):
+            mid = f"ck-{i}"
+            checker.submitted(mid)
+            _post(base, {"id": mid, "content": f"kill {i}: decode on the "
+                         f"peer until it dies.",
+                         "metadata": {"max_new_tokens": CLUSTER_KILL_NEW}})
+            ids.append(mid)
+        _until(lambda: (peer.status() or {}).get("decoding", 0)
+               >= CLUSTER_KILL_ROWS, 300,
+               f"{CLUSTER_KILL_ROWS} rows decoding on the peer", poll=0.01)
+        _http("POST", f"{base}/api/v1/endpoints/{local_id}/drain",
+              {"drain": False})
+        peer_status = peer.status()
+        t_kill = time.perf_counter()
+        peer.stop(signal.SIGKILL)
+        done = [_poll(base, mid) for mid in ids]
+        kill_to_last = time.perf_counter() - t_kill
+    finally:
+        mgr.complete_message = orig
+    _check_completed(done, "serve-cluster c")
+    on = {m["metadata"]["endpoint_id"] for m in done}
+    checker.check()
+    s = checker.summary()
+    stats = app.cluster_router.get_stats()
+    breaker = stats["breakers"].get(peer_id, {})
+    if on != {local_id} or s["terminal"].get("completed") != \
+            CLUSTER_KILL_ROWS or breaker.get("state") != "open" \
+            or stats["failovers"] < 1:
+        raise AssertionError(f"c. after the kill: on {on}, {s}, {stats}")
+    out["c"] = {"kill_to_last_s": kill_to_last,
+                "failovers": stats["failovers"],
+                "breaker": breaker}
+    log(f"[serve-cluster] c. the peer SIGKILLed with "
+        f"{peer_status['decoding']} rows decoding: all "
+        f"{CLUSTER_KILL_ROWS} completed on {local_id} "
+        f"{kill_to_last:.2f} s after the kill, none lost or duplicated; "
+        f"{stats['failovers']} failovers; the peer's breaker "
+        f"{breaker.get('state')} after {breaker.get('trips')} trip(s) "
+        f"({CARD})")
+
+    # d. After the kill: the dead replica is an error entry, in time.
+    t0 = time.perf_counter()
+    _, ov = _http("GET", f"{base}/api/v1/cluster/overview")
+    took = time.perf_counter() - t0
+    dead = next(r for r in ov["replicas"] if r["id"] == peer_id)
+    if "error" not in dead or took > CLUSTER_PROBE_S + \
+            CLUSTER_OVERVIEW_MARGIN_S or ov["aggregate"]["reporting"] != 1:
+        raise AssertionError(f"d. the overview after the kill ({took:.2f} "
+                             f"s): {ov}")
+    out["d"] = {"overview_after_kill_s": took, "error": dead["error"]}
+    log(f"[serve-cluster] d. the overview listed both replicas with a "
+        f"device block before the kill; after it the dead one is "
+        f"{dead['error']!r}, answered in {took:.3f} s")
+    return peer_status
+
+
+def _cluster_metrics(app, base, before, out) -> None:
+    """e. ``/metrics``' cluster and breaker families against the router's
+    counts (deltas over the phase: the registry is the process's)."""
+    def scrape_deltas():
+        now, _ms = _scrape(base)
+        return {k: v - before.get(k, 0.0) for k, v in now.items()}, now
+
+    stats = app.cluster_router.get_stats()
+    d, now = scrape_deltas()
+    lb_counts = {}
+    for e in app.load_balancer.endpoints():
+        lb_counts[e.status.value] = lb_counts.get(e.status.value, 0) + 1
+    ends = {s: _msum(now, "llm_queue_cluster_endpoints", status=s)
+            for s in ("healthy", "degraded", "unhealthy", "draining")}
+    if {k: v for k, v in ends.items() if v} != {
+            k: float(v) for k, v in lb_counts.items()}:
+        # A health tick may have moved a status after the last dispatch,
+        # which is when the gauge is set: one more dispatch sets it.
+        _check_completed([_poll(base, mid) for mid in _cluster_post(
+            base, 1, 4, "ce")], "serve-cluster e")
+        stats = app.cluster_router.get_stats()
+        d, now = scrape_deltas()
+        lb_counts = {}
+        for e in app.load_balancer.endpoints():
+            lb_counts[e.status.value] = lb_counts.get(e.status.value, 0) + 1
+        ends = {s: _msum(now, "llm_queue_cluster_endpoints", status=s)
+                for s in ("healthy", "degraded", "unhealthy", "draining")}
+    got = {
+        "dispatch": _msum(d, "llm_queue_cluster_dispatch_total"),
+        "failovers": _msum(d, "llm_queue_cluster_failovers_total"),
+        "hit_rate": _msum(now, "llm_queue_cluster_affinity_hit_rate"),
+        "endpoints": {k: v for k, v in ends.items() if v}}
+    want = {"dispatch": float(stats["dispatches"]),
+            "failovers": float(stats["failovers"]),
+            "hit_rate": stats["affinity_hit_rate"],
+            "endpoints": {k: float(v) for k, v in lb_counts.items()}}
+    if abs(got["hit_rate"] - want["hit_rate"]) < 1e-4:
+        got["hit_rate"] = want["hit_rate"]      # get_stats rounds to 4
+    drains = _msum(d, "llm_queue_cluster_drains_total")
+    for eid, br in stats["breakers"].items():
+        from llmq_tpu_torch.loadbalancer.circuit_breaker import (
+            STATE_VALUE, BreakerState)
+        got[f"state {eid}"] = _msum(now, "llm_queue_circuit_breaker_state",
+                                    endpoint=eid)
+        want[f"state {eid}"] = float(STATE_VALUE[BreakerState(br["state"])])
+        got[f"trips {eid}"] = _msum(d, "llm_queue_circuit_breaker_trips_total",
+                                    endpoint=eid)
+        want[f"trips {eid}"] = float(br["trips"])
+    if got != want or drains != out["drains"]:
+        raise AssertionError(f"e. /metrics {got} (drains {drains}) vs the "
+                             f"router's {want} (drains {out['drains']})")
+    out["e"] = got
+    log(f"[serve-cluster] e. /metrics cluster_* and circuit_breaker_* equal "
+        f"the router's counts: {got}, drains {drains:.0f}")
+
+
+def _cluster_kernels(engine_launches, peer_status, gw) -> dict:
+    """h. Kernels 1-3 launched in both serving processes, no twin in
+    either; the gateway never initialised CUDA."""
+    import signal
+
+    launches = {"parent": {k: v for k, v in engine_launches.items() if v},
+                "peer": {k: v for k, v in peer_status["launches"].items()
+                         if v}}
+    for who, got in launches.items():
+        for name in ("fused_decode", "kv_prefill_write", "prefill_attention"):
+            if got.get(name, 0) <= 0:
+                raise AssertionError(f"h. the {who} never launched {name}: "
+                                     f"{got}")
+    if peer_status["plain"]:
+        raise AssertionError(f"h. the peer called plain twins: "
+                             f"{peer_status['plain']}")
+    gw.stop(signal.SIGTERM)
+    st = gw.status()
+    if st is None or st["plain"] or st["cuda_initialized"] or any(
+            st["launches"].values()):
+        raise AssertionError(f"g. the gateway touched the card: {st}")
+    log(f"[serve-cluster] h. launches while serving: parent "
+        f"{launches['parent']}, peer {launches['peer']}; no twin called in "
+        f"either; g. the gateway never initialised CUDA")
+    return launches
+
+
+def phase_serve_cluster(state) -> None:
+    """The replica set on the card: the serve phase's bf16 engine behind
+    the full ``App`` in serve mode with ``cluster.peers: [peer]``, the
+    peer a ``python -m llmq_tpu_torch serve`` child on the same card
+    (llama3-8b at full width and depth, random weights from seed 0)."""
+    import gc
+    import shutil
+
+    import torch
+
+    from llmq_tpu_torch.__main__ import App
+    from llmq_tpu_torch.ops import kernels
+    from llmq_tpu_torch.ops.kernels import BUILD_DIR
+
+    engine = state.pop("serve_engine", None)
+    if engine is None:
+        raise AssertionError("serve-cluster serves on the serve phase's "
+                             "engine: run serve before it")
+
+    work = str(BUILD_DIR / "serve_cluster")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    out = state.setdefault("serve_cluster", {"drains": 0.0})
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"[serve-cluster] {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated here, {free / 2**30:.1f} GiB free of "
+        f"{total / 2**30:.1f} GiB before the peer builds its engine")
+    peer_port = _free_tcp_port()
+    peer_url = f"http://127.0.0.1:{peer_port}"
+    cfg, path, peer_path = _cluster_config_files(work, peer_url)
+    peer = _cluster_child(work, "serve", ["--config", peer_path], peer_port)
+    counts, restore = _count_plain_calls()
+    app = gw = None
+    failed = True
+    try:
+        boot = _wait_engine(peer_url, peer, CLUSTER_BOOT_S)
+        _, h = _http("GET", f"{peer_url}/health")
+        out["peer_boot_s"] = boot
+        log(f"[serve-cluster] the peer serve process is up in {boot:.1f} s "
+            f"(boot stages {(h.get('boot') or {}).get('stages_s')}) "
+            f"({CARD})")
+        app = App(cfg, engine=engine, with_scheduler=True)
+        router = app.cluster_router
+        local_id = router.get_stats()["local_endpoint_id"]
+        peer_id = f"127.0.0.1:{peer_port}"
+        if {e.id for e in app.load_balancer.endpoints()} != {local_id,
+                                                            peer_id}:
+            raise AssertionError(f"the router holds "
+                                 f"{app.load_balancer.get_stats()}")
+        base = f"http://127.0.0.1:{app.start(host='127.0.0.1', port=0)}"
+        before, _ms = _scrape(base)
+        kernels.reset_launches()
+        _cluster_traffic(app, engine, base, peer_id, local_id, out)
+        # Drains so far: b's drain and undrain (the route), the rate
+        # lines' (the router): each drain counts one.
+        out["drains"] = 2.0
+        gw = _cluster_gateway(work, base, peer_url, out)
+        peer_status = _cluster_kill(app, engine, base, peer, peer_id,
+                                    local_id, out)
+        out["drains"] += 1.0
+        torch.cuda.synchronize()
+        engine_launches = dict(kernels.LAUNCHES)
+        _cluster_metrics(app, base, before, out)
+        out["launches"] = _cluster_kernels(engine_launches, peer_status, gw)
+        gw = None
+        if counts:
+            raise AssertionError(f"h. the parent called plain twins: "
+                                 f"{counts}")
+        failed = False
+    finally:
+        restore()
+        if app is not None:
+            app.stop()
+        for child in (peer, gw):
+            if child is not None and child.p.poll() is None:
+                child.p.kill()
+                child.p.wait(30)
+        if failed:
+            for child in (peer, gw):
+                if child is not None:
+                    print(f"--- {child.role} log (last 40 lines) ---\n"
+                          + "\n".join(child.lines()[-40:]), file=sys.stderr)
+        if "serve-split" in state.get("chosen", ()):
+            # serve-split measures the WAL's cost on this engine.
+            state["serve_engine"] = engine
+        else:
+            engine.executor.release_graphs()
+    log(f"[serve-cluster] {time.perf_counter() - t0:.1f} s ({CARD})")
+
 
 #: The serve-split phase: requests a batch, their new tokens, the
 #: range of their prompt lengths (tokens), and the queue cores' backlog
@@ -5519,13 +6095,8 @@ class _Deployment:
     the spool."""
 
     def __init__(self, work: str, path: str, spool: str) -> None:
-        import socket
-
         self.work, self.path, self.spool = work, path, spool
-        s = socket.socket()
-        s.bind(("127.0.0.1", 0))
-        self.port = s.getsockname()[1]
-        s.close()
+        self.port = _free_tcp_port()
         self.base = f"http://127.0.0.1:{self.port}"
         self.children = []
         self.n = 0
@@ -7967,8 +8538,10 @@ def phase_serve_tenancy(state) -> None:
         if app is not None:
             app.stop()
         reset_tenancy()
-        if "serve-plane" not in state.get("chosen", ()):
-            # The serve-plane phase serves on this engine after this one.
+        if not {"serve-plane", "serve-cluster"} & set(
+                state.get("chosen", ())):
+            # The serve-plane and serve-cluster phases serve on this
+            # engine after this one.
             state.pop("serve_engine", None)
             engine.executor.release_graphs()
     if counts:
@@ -8301,6 +8874,7 @@ PHASES = [("env", phase_env), ("build", phase_build),
           ("serve-tenancy", phase_serve_tenancy),
           ("serve-weights", phase_serve_weights),
           ("serve-plane", phase_serve_plane),
+          ("serve-cluster", phase_serve_cluster),
           ("serve-split", phase_serve_split),
           ("serve-int8", phase_serve_int8)]
 
@@ -8356,6 +8930,7 @@ def main(argv=()) -> int:
                       "serve_int8": state.get("serve_int8"),
                       "serve_plane": state.get("serve_plane"),
                       "serve_split": state.get("serve_split"),
+                      "serve_cluster": state.get("serve_cluster"),
                       "serve_spec": state.get("serve_spec"),
                       "serve_tiering": state.get("serve_tiering"),
                       "serve_tenancy": state.get("serve_tenancy"),

@@ -1,4 +1,4 @@
-"""Command line: ``python -m llmq_tpu_torch serve|queue-manager|gateway|check``.
+"""Command line: ``python -m llmq_tpu_torch serve|queue-manager|gateway|scheduler|check``.
 
 ``serve`` runs the monolith: the REST API (``/metrics`` included), the
 preprocessor, the queue factory's managers with their delayed and
@@ -23,9 +23,20 @@ spooled messages into its queues and acknowledges each result (success
 or a retry-exhausted failure). With ``queue.wal_dir`` every queue
 manager journals its messages, so either process restarts without losing
 what it had accepted (at-least-once). ``serve``, ``queue-manager`` and
-``check`` run on ``cuda`` unless ``--device cpu`` is given. (The JAX
-package's ``scheduler`` subcommand, its endpoint autoscaler, waits for
-the slice that gives it something to provision.)
+``check`` run on ``cuda`` unless ``--device cpu`` is given.
+
+A replica set: ``--peers URL[,URL...]`` (or ``cluster.peers``) makes
+``serve`` route its workers' messages through a cluster router over the
+local engine and the peer serve processes (conversation affinity, spill,
+failover, drain; ``cluster/``), and makes ``gateway`` grow workers that
+route to the peers over HTTP, without an engine of its own (it never
+touches the card). ``serve`` runs the endpoint autoscaler
+(``scheduling/autoscaler.py``) over its load balancer, as the JAX
+package's does; at the default ``scheduler`` block it removes one
+endpoint of a two-replica set on its first tick, about
+``scheduler.monitor_interval`` seconds after start, unless
+``scheduler.min_endpoints`` keeps it. ``scheduler`` runs that monitor
+loop alone, with no API, workers or engine.
 
 Configuration: dataclass defaults, then a YAML file (``--config``, else
 ``LLMQ_CONFIG``, else ``./config.yaml`` or ``./configs/config.yaml``),
@@ -61,6 +72,7 @@ import torch
 from llmq_tpu_torch import chaos, observability, tenancy
 from llmq_tpu_torch.api.message_store import MessageStore
 from llmq_tpu_torch.api.server import ApiServer
+from llmq_tpu_torch.cluster import ClusterRouter, build_cluster_router
 from llmq_tpu_torch.conversation.persistence import make_store
 from llmq_tpu_torch.conversation.resilience import wrap_store
 from llmq_tpu_torch.conversation.state_manager import StateManager
@@ -75,6 +87,7 @@ from llmq_tpu_torch.native.loader import loaded_path
 from llmq_tpu_torch.queueing.factory import QueueFactory, QueueType
 from llmq_tpu_torch.queueing.spool import (SpoolCollector, SpoolConsumer,
                                            SpoolProducer)
+from llmq_tpu_torch.scheduling.autoscaler import Autoscaler
 from llmq_tpu_torch.scheduling.resource_scheduler import (ResourceRequest,
                                                           ResourceScheduler,
                                                           ResourceType)
@@ -87,15 +100,19 @@ log = logging.getLogger("llmq_tpu_torch")
 class App:
     """One wired process, as the JAX package's ``App`` wires the parts the
     port has. The mode flags choose the parts: the API server
-    (``with_api``), the workers (``with_workers``, which need an engine)
-    and the engine (``with_engine``, or one given as ``engine``). With
+    (``with_api``), the workers (``with_workers``, which need an engine
+    or cluster peers), the engine (``with_engine``, or one given as
+    ``engine``) and the endpoint autoscaler (``with_scheduler``). With
     ``queue.spool_dir`` set, workers without the API make the split
-    deployment's consumer and the API without workers its gateway."""
+    deployment's consumer and the API without workers its gateway. With
+    ``cluster.peers`` the workers dispatch through the cluster router,
+    and a process without workers (the gateway) gets them."""
 
     def __init__(self, cfg: Config,
                  engine: Optional[InferenceEngine] = None, *,
                  with_api: bool = True, with_workers: bool = True,
-                 with_engine: bool = True) -> None:
+                 with_engine: bool = True,
+                 with_scheduler: bool = False) -> None:
         self.cfg = cfg
         self.factory = QueueFactory(cfg)
         self.factory.create_queue_manager("standard", QueueType.STANDARD)
@@ -142,6 +159,19 @@ class App:
                     engine, config=cfg.executor.supervisor,
                     enable_metrics=cfg.queue.enable_metrics)
 
+        # The replica-set plane: cluster.peers builds the router over this
+        # process's load balancer, the one POST /api/v1/endpoints feeds,
+        # so hosts added at run time take traffic from the live router.
+        self.cluster_router: Optional[ClusterRouter] = build_cluster_router(
+            cfg, self.load_balancer, state_manager=self.state_manager,
+            engine=engine)
+        if self.cluster_router is not None:
+            log.info("cluster plane up: %d peer(s)%s",
+                     len(cfg.cluster.peers),
+                     " + local engine" if (engine is not None
+                                           and cfg.cluster.include_local)
+                     else "")
+
         # The split deployment's transport: the consumer side claims
         # spooled messages into the local queues and acknowledges the
         # results; the gateway side relays drained messages out and
@@ -152,12 +182,20 @@ class App:
         self._spool_relay: Optional[threading.Thread] = None
         self._spool_ack_failure = None
         spool_dir = cfg.queue.spool_dir
+        # A gateway with peers gets workers: its queues drain through the
+        # router to the replicas over HTTP.
+        if self.cluster_router is not None:
+            with_workers = True
         self.workers: List = []
         if with_workers:
-            if engine is None:
-                raise ValueError("workers need an engine")
-            process_fn = engine.process_fn
-            if spool_dir and not with_api:
+            if engine is None and self.cluster_router is None:
+                raise ValueError("workers need an engine or cluster peers")
+            process_fn = (self.cluster_router.process_fn
+                          if self.cluster_router is not None
+                          else engine.process_fn)
+            # Spool and cluster are two transports; with peers the
+            # router owns the dispatch.
+            if spool_dir and not with_api and self.cluster_router is None:
                 process_fn = self._wire_spool_consumer(spool_dir)
             self.workers = self.factory.create_workers(
                 "standard", max(1, cfg.queue.worker.count), process_fn,
@@ -170,10 +208,17 @@ class App:
                                  state_manager=self.state_manager,
                                  load_balancer=self.load_balancer,
                                  resource_scheduler=self.resource_scheduler,
-                                 engine=engine, drain_hook=self.drain,
+                                 engine=engine,
+                                 cluster_router=self.cluster_router,
+                                 drain_hook=self.drain,
                                  message_store=self.message_store)
             if spool_dir and not with_workers:
                 self._wire_spool_gateway(spool_dir)
+        self.autoscaler: Optional[Autoscaler] = None
+        if with_scheduler:
+            self.autoscaler = Autoscaler(
+                self.factory.get_queue_manager("standard"),
+                self.load_balancer, cfg.scheduler)
         self._stop = threading.Event()
         #: Set when the stop signal was SIGTERM: the process then drains
         #: before it stops (SIGINT stops at once).
@@ -341,6 +386,8 @@ class App:
             self.supervisor.start()
         for w in self.workers:
             w.start()
+        if self.autoscaler is not None:
+            self.autoscaler.start()
         for part in (self.spool_consumer, self.spool_collector,
                      self._spool_relay):
             if part is not None:
@@ -366,6 +413,8 @@ class App:
                 part.stop()
         if self._spool_relay is not None:
             self._spool_relay.join(timeout=5.0)
+        if self.autoscaler is not None:
+            self.autoscaler.stop()
         self.factory.stop_all()
         if self.engine_allocation is not None:
             self.resource_scheduler.release_allocation(
@@ -396,6 +445,10 @@ class App:
         log.info("draining (timeout %.0f s) ...", timeout)
         if self.api is not None:
             self.api.draining = True
+        router = self.cluster_router
+        if router is not None and router._local_endpoint_id:  # noqa: SLF001
+            # The local replica leaves this process's router too.
+            router.drain_endpoint(router._local_endpoint_id)  # noqa: SLF001
         for w in self.workers:
             w.stop(wait=True)      # finishes in-flight dispatches
         deadline = time.monotonic() + max(0.0, timeout)
@@ -448,6 +501,10 @@ def _load(args) -> Config:
         cfg.device = args.device
     if args.log_format is not None:
         cfg.logging.format = args.log_format
+    if args.peers:
+        # Comma-separated replica URLs, normalised as the file's are.
+        cfg.cluster.peers = args.peers
+        cfg.cluster.__post_init__()
     configure_logging(cfg.logging.level, cfg.logging.format,
                       cfg.logging.output)
     # The trace plane (and through it the SLO, usage and critical-path
@@ -469,7 +526,7 @@ def cmd_serve(cfg: Config, args) -> int:
     serve_id = f"serve:{cfg.server.host}:{cfg.server.port}"
     t_boot0 = time.perf_counter()
     observability.boot_begin(serve_id, "serve", process=True)
-    app = App(cfg)
+    app = App(cfg, with_scheduler=True)
     port = app.start()
     observability.boot_ready(serve_id, time.perf_counter() - t_boot0)
     print(f"serving {cfg.model.name} on {cfg.device} at "
@@ -503,11 +560,15 @@ def cmd_queue_manager(cfg: Config, args) -> int:
 
 
 def cmd_gateway(cfg: Config, args) -> int:
-    """The split deployment's API edge: the REST API and the queues, no
-    workers and no engine (the card is never touched). Its queues drain
-    into ``queue.spool_dir``."""
+    """The API edge: the REST API and the queues, no engine (the card is
+    never touched). Its queues drain into ``queue.spool_dir`` (the split
+    deployment) or, with ``cluster.peers``, through the cluster router's
+    workers to the replicas."""
     app = App(cfg, with_api=True, with_workers=False, with_engine=False)
     port = app.start()
+    if app.cluster_router is not None:
+        log.info("gateway routing to %d endpoint(s)",
+                 len(app.load_balancer.endpoints()))
     log.info("gateway serving at http://%s:%d", cfg.server.host, port,
              extra={"fields": {"queue_cores": app.queue_cores(),
                                "native_lib": loaded_path(),
@@ -516,6 +577,20 @@ def cmd_gateway(cfg: Config, args) -> int:
     print(f"gateway at http://{cfg.server.host}:{port}", flush=True)
     app.wait()
     app.shutdown()
+    return 0
+
+
+def cmd_scheduler(cfg: Config, args) -> int:
+    """The endpoint autoscaler's monitor loop over the load balancer: no
+    API, no workers, no engine."""
+    app = App(cfg, with_api=False, with_workers=False, with_engine=False,
+              with_scheduler=True)
+    app.start()
+    log.info("scheduler monitoring (strategy=%s)", cfg.scheduler.strategy)
+    print(f"scheduler monitoring (strategy={cfg.scheduler.strategy})",
+          flush=True)
+    app.wait()
+    app.stop()
     return 0
 
 
@@ -565,10 +640,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("--log-format", choices=["json", "console"],
                         help="override logging.format (JSON lines with the "
                              "request's ids, or console lines)")
+    parser.add_argument("--peers",
+                        help="comma-separated replica base URLs (override "
+                             "cluster.peers): serve and gateway route "
+                             "through the cluster plane")
     sub = parser.add_subparsers(dest="command", required=True)
     sub.add_parser("serve", help="monolith: API + workers + engine")
     sub.add_parser("queue-manager", help="consumer daemon (no HTTP)")
     sub.add_parser("gateway", help="API edge (no workers/engine)")
+    sub.add_parser("scheduler", help="autoscaler monitor loop")
     chk = sub.add_parser("check", help="one message end to end, then exit")
     chk.add_argument("--timeout", type=float, default=120.0,
                      help="seconds to wait for the message")
@@ -578,7 +658,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     except (ValueError, FileNotFoundError) as e:
         parser.error(str(e))
     return {"serve": cmd_serve, "queue-manager": cmd_queue_manager,
-            "gateway": cmd_gateway,
+            "gateway": cmd_gateway, "scheduler": cmd_scheduler,
             "check": cmd_check}[args.command](cfg, args)
 
 

@@ -16,8 +16,12 @@ the port has):
 - ``POST /api/v1/resources``, ``GET /api/v1/resources``,
   ``GET /api/v1/resources/stats`` (the resource scheduler)
 - ``POST /api/v1/endpoints``, ``GET /api/v1/endpoints``,
-  ``GET /api/v1/endpoints/stats``, ``POST /api/v1/endpoints/:id/drain``,
-  ``DELETE /api/v1/endpoints/:id`` (the load balancer)
+  ``GET /api/v1/endpoints/stats``, ``POST /api/v1/endpoints/:id/drain``
+  (through the live cluster router when there is one, so its drain
+  counters move), ``DELETE /api/v1/endpoints/:id`` (the load balancer)
+- ``GET /api/v1/cluster/stats`` and ``GET /api/v1/cluster/overview``
+  (the cluster router's counters, and every replica's engine and device
+  blocks; 503 without a router)
 - ``POST /api/v1/generate`` (synchronous generation)
 - observability: ``GET /api/v1/requests/:id/trace`` (one request's
   timeline, ``?format=chrome`` for Perfetto), ``GET /api/v1/usage``,
@@ -37,9 +41,8 @@ the overload shedder (429/503 with ``Retry-After``), the queue manager
 ``enqueued`` stage (the SSE path its ``dispatched`` too) into the flight
 recorder. Without an engine (the ``gateway``), the routes that need one
 (``/api/v1/engine/stats``, ``/api/v1/generate``, SSE) answer 503 and
-``/health`` has no ``engine`` field, as in the JAX package. The routes
-of planes the port does not have yet (cluster, control plane) wait for
-them. Every response carries the CORS headers for a request's
+``/health`` has no ``engine`` field, as in the JAX package. The control
+plane's routes wait for that plane. Every response carries the CORS headers for a request's
 ``Origin`` that ``allowed_origins`` admits (default ``["*"]``, which
 never sends ``Access-Control-Allow-Credentials``), and an ``OPTIONS``
 preflight answers 204.
@@ -157,7 +160,8 @@ class ApiServer:
     def __init__(self, config: Optional[Config] = None, *,
                  queue_factory=None, preprocessor=None, state_manager=None,
                  load_balancer=None, resource_scheduler=None,
-                 engine=None, drain_hook: Optional[Callable[[], None]] = None,
+                 engine=None, cluster_router=None,
+                 drain_hook: Optional[Callable[[], None]] = None,
                  message_store: Optional[MessageStore] = None,
                  manager_name: str = "standard",
                  allowed_origins: Optional[List[str]] = None) -> None:
@@ -168,6 +172,8 @@ class ApiServer:
         self.load_balancer = load_balancer
         self.resource_scheduler = resource_scheduler
         self.engine = engine
+        #: The replica-set router (``cluster/router.py``), or None.
+        self.cluster_router = cluster_router
         #: The process drain (``App.drain``), run on a thread of its own
         #: by the admin route.
         self.drain_hook = drain_hook
@@ -247,6 +253,8 @@ class ApiServer:
         r("GET", f"{v1}/endpoints/stats", self.get_endpoint_stats)
         r("POST", f"{v1}/endpoints/:id/drain", self.drain_endpoint)
         r("DELETE", f"{v1}/endpoints/:id", self.delete_endpoint)
+        r("GET", f"{v1}/cluster/stats", self.get_cluster_stats)
+        r("GET", f"{v1}/cluster/overview", self.get_cluster_overview)
         r("GET", f"{v1}/engine/stats", self.get_engine_stats)
         r("GET", f"{v1}/usage", self.get_usage)
         r("GET", f"{v1}/analysis/critical-path", self.get_critical_path)
@@ -831,17 +839,29 @@ class ApiServer:
     def drain_endpoint(self, req: _Request) -> Tuple[int, Any]:
         """Take an endpoint out of new dispatch (its in-flight work
         finishes). Body ``{"drain": false}`` re-admits it through
-        DEGRADED, and the health probe restores full traffic."""
-        lb = self.load_balancer
-        if lb is None:
-            raise ApiError(503, "load balancer not configured")
+        DEGRADED, and the health probe restores full traffic. Goes
+        through the live cluster router when there is one (its drain
+        counters move); a bare load balancer works too."""
         eid = req.params["id"]
         drain = True
         if req._body:   # noqa: SLF001 — same module
             drain = bool(req.json().get("drain", True))
+        lb = self.load_balancer
+        if lb is None and self.cluster_router is not None:
+            lb = self.cluster_router.lb
+        if lb is None:
+            raise ApiError(503, "load balancer not configured")
         if lb.get_endpoint_by_id(eid) is None:
             return 404, {"error": f"no endpoint {eid!r}"}
-        lb.set_draining(eid, drain)
+        # 404 only for an unknown endpoint: drain_endpoint's bool says
+        # whether it is idle yet, and one still serving is draining.
+        if self.cluster_router is not None:
+            if drain:
+                self.cluster_router.drain_endpoint(eid)
+            else:
+                self.cluster_router.undrain_endpoint(eid)
+        else:
+            lb.set_draining(eid, drain)
         return 200, {"endpoint_id": eid,
                      "status": "draining" if drain else "degraded"}
 
@@ -852,6 +872,27 @@ class ApiServer:
         if not self.load_balancer.remove_endpoint(eid):
             return 404, {"error": f"no endpoint {eid!r}"}
         return 200, {"status": "removed", "endpoint_id": eid}
+
+    def get_cluster_stats(self, req: _Request) -> Tuple[int, Any]:
+        if self.cluster_router is None:
+            raise ApiError(503, "cluster router not configured "
+                                "(set cluster.peers / --peers)")
+        out = self.cluster_router.get_stats()
+        out["draining"] = self.draining
+        return 200, out
+
+    def get_cluster_overview(self, req: _Request) -> Tuple[int, Any]:
+        """The cluster's device-telemetry rollup: each replica's engine
+        and device blocks, over the transport for the peers, and the
+        store block with the store fault domain on."""
+        if self.cluster_router is None:
+            raise ApiError(503, "cluster router not configured "
+                                "(set cluster.peers / --peers)")
+        out = self.cluster_router.overview()
+        store_block = self._store_block()
+        if store_block is not None:
+            out["store"] = store_block
+        return 200, out
 
     def drain_self(self, req: _Request) -> Tuple[int, Any]:
         """The process drain: /health reads "draining" at once; the

@@ -19,13 +19,17 @@ fault point            seam
 ``store.delete``       ``ResilientStore`` delete
 ``store.kv``           ``ResilientKVStore`` save_kv / load_kv /
                        delete_kv / list_kv (the tiering spill)
+``transport.request``  ``HttpEngineClient.process_fn``, before dispatch
+``transport.probe``    ``HttpEngineClient.probe`` (``healthy()``)
 =====================  ================================================
 
 The ``store.*`` points fire inside the resilience wrapper's worker
 (``conversation/resilience.py``), so an injected ``latency`` longer than
 ``store.resilience.op_timeout_s`` surfaces as a deadline miss, like a
-slow backend. The JAX package's ``transport.*`` points come with the
-cluster plane.
+slow backend. At ``transport.request`` an ``error`` is an endpoint
+fault (it feeds the endpoint's breaker) and a ``timeout`` a deadline
+miss (it does not); at ``transport.probe`` an ``error`` reads as a
+refused connection and a ``timeout`` as a slow probe.
 
 A seam is one line, ``chaos.fault(point, **ctx)``, which returns after
 one module-attribute check while chaos is disabled (the default).

@@ -63,9 +63,10 @@ log = logging.getLogger("llmq_tpu_torch.store.resilience")
 _STORES: "weakref.WeakSet[ResilientStore]" = weakref.WeakSet()
 
 #: Consumers that may register for the ``store_degraded`` gauge (the
-#: label contract's ``consumer`` values). The port's state manager and
-#: tiering plane register; ``exchange`` and ``placement`` come with the
-#: disaggregation and cluster planes.
+#: label contract's ``consumer`` values). The port's state manager
+#: registers ``state`` and ``placement`` (the cluster router's placement
+#: records), the tiering plane ``tiering``; ``exchange`` comes with the
+#: disaggregation plane.
 CONSUMERS = ("tiering", "exchange", "state", "placement")
 
 

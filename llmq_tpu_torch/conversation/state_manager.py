@@ -22,8 +22,13 @@ Store fault domain (``conversation/resilience.py``): over a wrapped store
 that reports itself degraded, the manager serves history from its
 in-memory cache and journals conversation writes into a bounded replay
 buffer, which the store's recovery callback drains. A raw backend (the
-default) leaves every path as it was. Cluster placement records wait for
-their plane.
+default) leaves every path as it was.
+
+Placement records: the cluster router records which replica last served
+a conversation (``record_placement``) next to the engine's prefix
+handle, and its affinity pass reads it back (``placement``), so a
+conversation returns to the replica that holds its cached prefix, across
+router restarts too.
 """
 
 from __future__ import annotations
@@ -75,6 +80,7 @@ class StateManager:
         reg = getattr(self._store, "register_consumer", None)
         if callable(reg):
             reg("state")
+            reg("placement")
         rec = getattr(self._store, "on_recovery", None)
         if callable(rec):
             rec(self.drain_replay)
@@ -178,6 +184,35 @@ class StateManager:
                 return False
             h["tier"] = tier
         return True
+
+    def record_placement(self, conversation_id: str, endpoint_id: str,
+                         cached_tokens: int = 0) -> bool:
+        """Record which replica last served this conversation (and so
+        holds its cached prefix), under
+        ``conversation.metadata["placement"]``. Like the prefix handle it
+        creates nothing and does not write the store inline: it rides
+        along the next regular save. False if the conversation is
+        unknown here."""
+        with self._mu:
+            conv = self._convs.get(conversation_id)
+            if conv is None:
+                return False
+            conv.metadata["placement"] = {
+                "endpoint_id": endpoint_id,
+                "cached_tokens": int(cached_tokens),
+                "recorded_at": self._clock.now(),
+            }
+        return True
+
+    def placement(self, conversation_id: str) -> Optional[Dict]:
+        """The last placement recorded by :meth:`record_placement`, or
+        None."""
+        with self._mu:
+            conv = self._convs.get(conversation_id)
+            if conv is None:
+                return None
+            h = conv.metadata.get("placement")
+            return dict(h) if isinstance(h, dict) else None
 
     def prefix_handle(self, conversation_id: str) -> Optional[Dict]:
         """The last handle recorded by :meth:`record_prefix_handle`, or

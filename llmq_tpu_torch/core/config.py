@@ -4,20 +4,21 @@ file, then ``LLMQ_*`` environment overrides, then CLI flags.
 A copy of ``llmq_tpu/core/config.py`` holding what the port's planes
 read, with the JAX package's defaults. :func:`load_config` reads the same
 files as the JAX package's (``configs/config.yaml`` among them). A key of
-a plane the port does not have yet (the
-cluster, disaggregation, control-plane and
-scenario planes, the mesh, the TPU block), or one that nothing here reads (the autoscaler's and the resource
-scheduler's scale thresholds, endpoint selection and session affinity,
-the server's read and write timeouts, the model's dtype, a tier's ``max_concurrent``, the
-metrics port and path) is accepted only at the JAX package's default, or inside a block
-whose ``enabled`` is false; any other value raises, naming the key. An
-unknown key raises too: nothing in a file is silently ignored.
+a plane the port does not have yet (the disaggregation, control-plane
+and scenario planes, the mesh, the TPU block), or one that nothing here
+reads (the server's read and write timeouts, the model's dtype, a tier's
+``max_concurrent``, the metrics port and path, the load balancer's
+``max_retries``, the resource scheduler's ``scale_*`` thresholds) is
+accepted only at the JAX package's default, or inside a block whose
+``enabled`` is false; any other value raises, naming the key. An unknown key raises too: nothing
+in a file is silently ignored.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import typing
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
@@ -28,6 +29,9 @@ from llmq_tpu_torch.core.types import Priority
 #: "echo"; the port's is "torch", and a file found by the config search
 #: may not select "echo" (:func:`load_config`).
 VALID_BACKENDS = ("torch", "echo")
+VALID_LB_STRATEGIES = ("round_robin", "least_connections", "weighted_random",
+                       "adaptive_load")
+VALID_SCHEDULER_STRATEGIES = ("static", "dynamic", "adaptive", "hybrid")
 
 
 @dataclass
@@ -137,16 +141,29 @@ class QueueConfig:
 
 @dataclass
 class SchedulerConfig:
-    """Only the queue monitor's period is read in the port: the
-    autoscaler's keys wait for the slice that gives it an actuator."""
+    """The endpoint autoscaler (``scheduling/autoscaler.py``); the queue
+    managers' monitor reads ``monitor_interval`` too."""
+    strategy: str = "dynamic"
     monitor_interval: float = 10.0
+    scale_up_threshold: int = 100
+    scale_down_threshold: int = 10
+    min_endpoints: int = 1
+    max_endpoints: int = 10
+    cooldown: float = 60.0
+
+    def __post_init__(self) -> None:
+        if self.strategy not in VALID_SCHEDULER_STRATEGIES:
+            raise ValueError(
+                f"scheduler.strategy: unknown scheduler strategy "
+                f"{self.strategy!r}; valid: {VALID_SCHEDULER_STRATEGIES}")
 
 
 @dataclass
 class ResourceSchedulerConfig:
     """The resource scheduler over the card's topology
-    (``scheduling/resource_scheduler.py``); its scale thresholds wait
-    with the autoscaler."""
+    (``scheduling/resource_scheduler.py``). The JAX package's scale
+    thresholds stay in ``_UNPORTED``: its scale check calls actuators
+    that no caller passes."""
     allocation_timeout: float = 300.0
     heartbeat_timeout: float = 30.0
     pending_process_interval: float = 1.0
@@ -155,10 +172,21 @@ class ResourceSchedulerConfig:
 
 @dataclass
 class LoadBalancerConfig:
-    """The endpoint registry's health checks
-    (``loadbalancer/load_balancer.py``); endpoint selection and session
-    affinity wait for the router that calls them."""
+    """Endpoint selection, session affinity and the health checks
+    (``loadbalancer/load_balancer.py``)."""
+    strategy: str = "round_robin"
     health_check_interval: float = 30.0
+    session_affinity: bool = True
+    session_ttl: float = 1800.0
+
+    def __post_init__(self) -> None:
+        if self.strategy not in VALID_LB_STRATEGIES:
+            raise ValueError(
+                f"loadbalancer.strategy: unknown load balancer strategy "
+                f"{self.strategy!r}; valid: {VALID_LB_STRATEGIES}")
+
+
+VALID_CLUSTER_AFFINITY = ("prefix", "session", "none")
 
 
 @dataclass
@@ -238,11 +266,45 @@ class ChaosConfig:
 
 @dataclass
 class ClusterConfig:
-    """Of the JAX package's cluster block only the drain bound, which
-    ``App.drain`` reads; the replica-set plane itself is not ported."""
+    """The replica-set plane (``llmq_tpu_torch/cluster/``): a non-empty
+    ``peers`` makes ``serve`` and ``gateway`` route through a
+    :class:`~llmq_tpu_torch.cluster.ClusterRouter` over the listed
+    replicas (and, in ``serve``, the local engine)."""
+    #: Replica base URLs (``http://host:port``): a YAML list, or a
+    #: comma-separated string (``LLMQ_CLUSTER_PEERS=http://a:8080,http://b:8080``).
+    peers: List[str] = field(default_factory=list)
+    #: ``serve``: register this process's engine as an endpoint too.
+    include_local: bool = True
+    #: Other replicas tried within one dispatch after a replica error
+    #: (a deadline miss never fails over: the work may have run).
+    failover_retries: int = 2
+    #: Endpoint load above which conversation affinity spills.
+    spill_load: float = 0.9
+    #: "prefix" (placement records, spill by the LB's strategy),
+    #: "session" (the LB's session map), or "none".
+    affinity: str = "prefix"
     #: Graceful-drain bound for SIGTERM and the admin drain: stop new
     #: work, then wait up to this many seconds for in-flight work.
     drain_timeout: float = 30.0
+    #: The HTTP transport's budget for one dispatch to a peer, seconds.
+    peer_timeout: float = 120.0
+    #: The per-endpoint circuit breaker of the dispatch path.
+    breaker: BreakerConfig = field(default_factory=BreakerConfig)
+
+    def __post_init__(self) -> None:
+        if isinstance(self.peers, str):
+            self.peers = [p for p in
+                          (s.strip() for s in self.peers.split(","))
+                          if p]
+        self.peers = [p.rstrip("/") for p in self.peers]
+        if self.affinity not in VALID_CLUSTER_AFFINITY:
+            raise ValueError(
+                f"cluster.affinity: unknown cluster affinity "
+                f"{self.affinity!r}; valid: {VALID_CLUSTER_AFFINITY}")
+
+    @property
+    def enabled(self) -> bool:
+        return bool(self.peers)
 
 
 @dataclass
@@ -740,21 +802,13 @@ def resolve_device(device: str = "cuda"):
 #: canonical file's, where the two differ.
 _UNPORTED: Dict[str, Any] = {
     "server": {"read_timeout": 30.0, "write_timeout": 30.0},
-    "scheduler": {"strategy": "dynamic", "scale_up_threshold": 100,
-                  "scale_down_threshold": 10, "min_endpoints": 1,
-                  "max_endpoints": 10, "cooldown": 60.0},
+    "metrics": {"port": 9090, "path": "/metrics"},
+    # Nothing reads it, in either package.
+    "loadbalancer": {"max_retries": 3},
+    # Read only by the JAX resource scheduler's scale check, whose
+    # actuators no caller passes.
     "resource_scheduler": {"scale_up_load": 0.8, "scale_down_load": 0.2,
                            "scale_cooldown": 120.0},
-    "loadbalancer": {"strategy": ("round_robin", "adaptive_load"),
-                     "max_retries": 3, "session_affinity": True,
-                     "session_ttl": 1800.0},
-    "metrics": {"port": 9090, "path": "/metrics"},
-    "cluster": {
-        "peers": [], "include_local": True, "failover_retries": 2,
-        "spill_load": 0.9, "affinity": "prefix", "peer_timeout": 120.0,
-        "breaker": {"enabled": True, "failure_threshold": 3,
-                    "base_backoff": 1.0, "max_backoff": 30.0,
-                    "jitter": 0.2}},
     "disagg": {
         "enabled": False, "role": "unified", "long_prompt_tokens": 512,
         "long_prompt_ms": 250.0, "claim_ttl_s": 120.0,
@@ -886,7 +940,7 @@ def _unported_env_keys(spec: Dict[str, Any], pre: str = ""
     return out
 
 
-def _coerce(raw: str, current: Any) -> Any:
+def _coerce(raw: str, current: Any, strings: bool = False) -> Any:
     if isinstance(current, bool):
         return raw.strip().lower() in ("1", "true", "yes", "on")
     if isinstance(current, int):
@@ -894,6 +948,10 @@ def _coerce(raw: str, current: Any) -> Any:
     if isinstance(current, float):
         return float(raw)
     if isinstance(current, list):
+        if strings:
+            # A list of strings (``LLMQ_CLUSTER_PEERS``): its block's
+            # __post_init__ splits the comma-separated form.
+            return raw
         conv = (float if current and all(isinstance(x, float)
                                           for x in current) else int)
         return [conv(x) for x in raw.replace(",", " ").split()]
@@ -934,7 +992,10 @@ def apply_env(cfg: Config, environ: Optional[Mapping[str, str]] = None
                 cand = "_".join(parts[i:j])
                 if cand in names:
                     if j == len(parts):
-                        setattr(obj, cand, _coerce(raw, getattr(obj, cand)))
+                        strings = typing.get_type_hints(
+                            type(obj)).get(cand) == List[str]
+                        setattr(obj, cand,
+                                _coerce(raw, getattr(obj, cand), strings))
                         # Re-validate: __post_init__ does not rerun on
                         # setattr, and an override must not bypass it.
                         post = getattr(obj, "__post_init__", None)

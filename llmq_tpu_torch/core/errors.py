@@ -57,6 +57,10 @@ class NoResourceError(LLMQError):
     """No resource can satisfy the request."""
 
 
+class NoEndpointError(LLMQError):
+    """No healthy endpoint can take the message."""
+
+
 class AllocationNotFoundError(LLMQError, KeyError):
     def __init__(self, allocation_id: str) -> None:
         super().__init__(f"allocation not found: {allocation_id}")

@@ -47,7 +47,8 @@ log = logging.getLogger("llmq_tpu_torch.builder")
 def build_engine(cfg: Config, *, name: str = "engine0",
                  params=None, device: Optional[str] = None,
                  model_dtype: Optional[torch.dtype] = None,
-                 warmup: bool = False) -> InferenceEngine:
+                 warmup: bool = False,
+                 n_layers: Optional[int] = None) -> InferenceEngine:
     """Engine for ``cfg.model`` / ``cfg.executor`` on ``device`` (default
     ``cfg.device``). ``params`` (a parameter tree in the JAX layout) is
     used as given (quantized first if ``model.quantization`` asks for it
@@ -55,7 +56,8 @@ def build_engine(cfg: Config, *, name: str = "engine0",
     onto the device, or without one weights are random-initialised on
     the device from seed 0 (the JAX package's ``PRNGKey(0)``
     counterpart), leaf by leaf straight into int8 when quantized.
-    ``model_dtype`` overrides the model's bf16 (tests run f32).
+    ``model_dtype`` overrides the model's bf16 (tests run f32);
+    ``n_layers`` the model's depth (a shallower model at its widths).
     ``warmup`` runs :meth:`TorchExecutor.warmup` before the engine is
     made: every program once, the decode step's graph captured on the
     card, ``step_ms`` calibrated. The engine's metric families follow
@@ -74,6 +76,8 @@ def build_engine(cfg: Config, *, name: str = "engine0",
         kw["vocab_size"] = cfg.model.vocab_size
     if model_dtype is not None:
         kw["dtype"] = model_dtype
+    if n_layers is not None:
+        kw["n_layers"] = n_layers
     mcfg = get_config(cfg.model.name, **kw)
     if tokenizer.vocab_size > mcfg.vocab_size:
         raise ValueError(

@@ -796,6 +796,14 @@ class InferenceEngine:
             # plane lock held; takes only the state manager's lock.
             self._tiering.on_tier_change = self._tier_changed_cb
 
+    def hint_arrival(self, conversation_id: str) -> None:
+        """A prefetch hint from outside the engine (any thread): the
+        cluster router calls it once placement resolves to this replica,
+        so a store-tier conversation starts loading its blob before the
+        request has finished its dispatch."""
+        if self._tiering is not None and conversation_id:
+            self._tiering.prepare(conversation_id)
+
     def _tier_changed_cb(self, conversation_id: str, tier: str) -> None:
         """Tiering-plane callback (worker thread): forward a tier change
         to the recorded prefix handle."""

@@ -1,2 +1,3 @@
-"""The endpoint load balancer (``load_balancer.py``) and the circuit
-breaker (``circuit_breaker.py``)."""
+"""The endpoint load balancer (``load_balancer.py``), the circuit breaker
+(``circuit_breaker.py``), the HTTP transport to peer serve processes
+(``transport.py``) and the message router over them (``router.py``)."""

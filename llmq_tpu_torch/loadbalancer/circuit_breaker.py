@@ -17,10 +17,12 @@ scenarios replay exactly.
 States: CLOSED → (``failure_threshold`` consecutive failures) → OPEN →
 (backoff elapses) → HALF_OPEN → success → CLOSED | failure → OPEN.
 
-In the port, the store fault domain (``conversation/resilience.py``)
-holds one, for the conversation store, and sets its own
-``store_breaker_state`` gauge. The per-endpoint board and its metric
-families come with the endpoint transport (``ROADMAP.md``).
+The cluster router holds one breaker per endpoint (:class:`BreakerBoard`),
+shared with each endpoint's HTTP transport, and their state and trips
+feed ``circuit_breaker_state{endpoint}`` and
+``circuit_breaker_trips_total{endpoint}``. The store fault domain
+(``conversation/resilience.py``) holds one for the conversation store,
+without metrics of its own here: it sets ``store_breaker_state``.
 """
 
 from __future__ import annotations
@@ -66,8 +68,13 @@ class CircuitBreaker:
                  max_backoff: float = 30.0,
                  jitter: float = 0.2,
                  clock: Optional[Clock] = None,
-                 seed: Optional[int] = None) -> None:
+                 seed: Optional[int] = None,
+                 metrics=None) -> None:
         self.endpoint_id = endpoint_id
+        #: The metric families (or None). They ride the breaker, since
+        #: whoever holds it records the outcomes (the HTTP transport for
+        #: a remote endpoint, the router for a local engine).
+        self._metrics = metrics
         self.failure_threshold = max(1, int(failure_threshold))
         self.base_backoff = float(base_backoff)
         self.max_backoff = float(max_backoff)
@@ -101,6 +108,7 @@ class CircuitBreaker:
             if self.state == BreakerState.OPEN and now >= self._open_until:
                 self.state = BreakerState.HALF_OPEN
                 self._probe_inflight = False
+                self._set_gauge()
             if self.state == BreakerState.HALF_OPEN:
                 if self._probe_inflight:
                     return False
@@ -140,6 +148,8 @@ class CircuitBreaker:
                 log.info("breaker %s closed (probe succeeded)",
                          self.endpoint_id)
                 self.state = BreakerState.CLOSED
+                # Only on a transition: this runs on every success.
+                self._set_gauge()
 
     def record_probe_success(self) -> None:
         """A passing health probe: weaker evidence than a call. It clears a
@@ -176,11 +186,27 @@ class CircuitBreaker:
         self.state = BreakerState.OPEN
         self._probe_inflight = False
         self._open_until = self._clock.now() + backoff
+        if self._metrics is not None:
+            try:
+                self._metrics.circuit_breaker_trips.labels(
+                    self.endpoint_id).inc()
+            except Exception:  # noqa: BLE001 — metrics never fail a call
+                log.exception("breaker trip counter failed")
+        self._set_gauge()
         log.warning("breaker %s OPEN for %.2fs (%s, trip #%d)",
                     self.endpoint_id, backoff,
                     "half-open probe failed" if probe_failed
                     else f"{self.consecutive_failures} consecutive failures",
                     self.trips)
+
+    def _set_gauge(self) -> None:
+        """Caller holds self._mu."""
+        if self._metrics is not None:
+            try:
+                self._metrics.circuit_breaker_state.labels(
+                    self.endpoint_id).set(STATE_VALUE[self.state])
+            except Exception:  # noqa: BLE001
+                log.exception("breaker state gauge failed")
 
     def get_stats(self) -> Dict:
         with self._mu:
@@ -193,3 +219,77 @@ class CircuitBreaker:
                              if self.state == BreakerState.OPEN else 0.0),
             }
 
+
+
+class BreakerBoard:
+    """A router's breakers, one per endpoint id, each made on first use
+    from one config (``cluster.breaker``; None → the defaults)."""
+
+    def __init__(self, config=None, *, clock: Optional[Clock] = None,
+                 enable_metrics: bool = True) -> None:
+        self.config = config
+        self._clock = clock
+        self._mu = threading.Lock()
+        self._breakers: Dict[str, CircuitBreaker] = {}
+        self._metrics = None
+        if enable_metrics:
+            from llmq_tpu_torch.metrics.registry import get_metrics
+            self._metrics = get_metrics()
+
+    @property
+    def enabled(self) -> bool:
+        return self.config is None or getattr(self.config, "enabled", True)
+
+    def breaker(self, endpoint_id: str) -> CircuitBreaker:
+        with self._mu:
+            br = self._breakers.get(endpoint_id)
+            if br is None:
+                cfg = self.config
+                br = CircuitBreaker(
+                    endpoint_id,
+                    failure_threshold=getattr(cfg, "failure_threshold", 3),
+                    base_backoff=getattr(cfg, "base_backoff", 1.0),
+                    max_backoff=getattr(cfg, "max_backoff", 30.0),
+                    jitter=getattr(cfg, "jitter", 0.2),
+                    clock=self._clock,
+                    metrics=self._metrics)
+                self._breakers[endpoint_id] = br
+            return br
+
+    def allow(self, endpoint_id: str) -> bool:
+        if not self.enabled:
+            return True
+        return self.breaker(endpoint_id).allow()
+
+    def blocked(self, endpoint_id: str) -> bool:
+        """Selection's check (never takes the half-open probe slot). An
+        endpoint without a breaker yet is not blocked."""
+        if not self.enabled:
+            return False
+        with self._mu:
+            br = self._breakers.get(endpoint_id)
+        return br.blocked() if br is not None else False
+
+    def record(self, endpoint_id: str, ok: bool) -> None:
+        """An outcome of an engine without a breaker of its own (the HTTP
+        transport records on the shared breaker itself)."""
+        if not self.enabled:
+            return
+        br = self.breaker(endpoint_id)
+        if ok:
+            br.record_success()
+        else:
+            br.record_failure()
+
+    def record_timeout(self, endpoint_id: str) -> None:
+        if not self.enabled:
+            return
+        with self._mu:
+            br = self._breakers.get(endpoint_id)
+        if br is not None:
+            br.record_timeout()
+
+    def get_stats(self) -> Dict:
+        with self._mu:
+            return {eid: br.get_stats()
+                    for eid, br in self._breakers.items()}

@@ -3,6 +3,16 @@
 
 - an endpoint registry grouped by model type, which the REST endpoints
   routes add to, list, drain and delete
+- selection (``get_endpoint``, by ``metadata["model_type"]``, default
+  "llm"): ``round_robin`` (a cursor per model type),
+  ``least_connections``, ``weighted_random`` and ``adaptive_load``
+  (score = 0.4·load + 0.4·normalised response time + 0.2·error rate,
+  lowest wins, the runner-up one time in ten), over the healthy and
+  degraded endpoints with connection headroom; ``acquire_endpoint``
+  books one endpoint the caller chose (the cluster router's affinity)
+- session affinity with a TTL, and the sessions' cleanup
+- ``release_endpoint`` keeps a response-time EWMA (9:1) and a decaying
+  error rate, which ``adaptive_load`` scores
 - health: healthy → degraded → unhealthy, recovering through degraded,
   driven by a pluggable probe (default: the attached engine's
   ``healthy()`` when the endpoint's metadata holds one, a TCP connect
@@ -11,15 +21,16 @@
   neither end nor change
 
 An endpoint is typically a host running an engine in process
-(``url="local://engine0"``) or behind HTTP. Selection among endpoints
-(the JAX package's strategies, session affinity and the connection
-books) waits for the router slice that calls it.
+(``url="local://engine0"``) or behind HTTP (``loadbalancer/transport.py``).
+Selection consumes the random stream as the JAX package's does, so a
+seeded ``weighted_random`` or ``adaptive_load`` picks the same endpoints.
 """
 
 from __future__ import annotations
 
 import enum
 import logging
+import random
 import socket
 import threading
 import urllib.parse
@@ -28,6 +39,8 @@ from typing import Callable, Dict, List, Optional
 
 from llmq_tpu_torch.core.clock import SYSTEM_CLOCK, Clock
 from llmq_tpu_torch.core.config import LoadBalancerConfig
+from llmq_tpu_torch.core.errors import NoEndpointError
+from llmq_tpu_torch.core.types import Message
 
 log = logging.getLogger("llmq_tpu_torch.loadbalancer")
 
@@ -135,12 +148,16 @@ class LoadBalancer:
         config: Optional[LoadBalancerConfig] = None,
         clock: Optional[Clock] = None,
         probe: Optional[ProbeFn] = None,
+        rng: Optional[random.Random] = None,
     ) -> None:
         self.config = config or LoadBalancerConfig()
         self._clock = clock or SYSTEM_CLOCK
         self._probe = probe or default_probe
+        self._rng = rng or random.Random()
         self._endpoints: Dict[str, Endpoint] = {}
         self._by_type: Dict[str, List[str]] = {}
+        self._rr_cursor: Dict[str, int] = {}
+        self._sessions: Dict[str, tuple] = {}  # session_id → (endpoint_id, expires_at)
         self._mu = threading.RLock()
         self._stop = threading.Event()
         self._health_thread: Optional[threading.Thread] = None
@@ -164,6 +181,9 @@ class LoadBalancer:
             ids = self._by_type.get(ep.model_type, [])
             if endpoint_id in ids:
                 ids.remove(endpoint_id)
+            self._sessions = {
+                sid: (eid, exp) for sid, (eid, exp) in self._sessions.items()
+                if eid != endpoint_id}
             return True
 
     def get_endpoint_by_id(self, endpoint_id: str) -> Optional[Endpoint]:
@@ -197,6 +217,160 @@ class LoadBalancer:
                 ep.status = EndpointStatus.DEGRADED
                 ep.consecutive_successes = 0
             return True
+
+    # -- selection -----------------------------------------------------------
+
+    def acquire_endpoint(self, endpoint_id: str,
+                         session_id: Optional[str] = None
+                         ) -> Optional[Endpoint]:
+        """Book an endpoint the caller chose (the cluster router's
+        affinity). None, and the caller selects another way, when the
+        endpoint is gone, UNHEALTHY or DRAINING, or has no headroom."""
+        with self._mu:
+            ep = self._endpoints.get(endpoint_id)
+            if (ep is None
+                    or ep.status in (EndpointStatus.UNHEALTHY,
+                                     EndpointStatus.DRAINING)
+                    or (ep.max_connections > 0
+                        and ep.connections >= ep.max_connections)):
+                return None
+            ep.connections += 1
+            ep.total_requests += 1
+            if session_id and self.config.session_affinity:
+                self._sessions[session_id] = (
+                    ep.id, self._clock.now() + self.config.session_ttl)
+            return ep
+
+    def get_endpoint(self, message: Optional[Message] = None,
+                     session_id: Optional[str] = None,
+                     exclude: Optional[set] = None) -> Endpoint:
+        """Select and book one endpoint for ``message``'s model type.
+        ``exclude``: endpoint ids to skip (a failover re-picks among the
+        replicas not yet tried). Raises :class:`NoEndpointError` when
+        none is selectable."""
+        model_type = DEFAULT_MODEL_TYPE
+        if message is not None:
+            model_type = message.metadata.get("model_type", DEFAULT_MODEL_TYPE)
+        with self._mu:
+            # The session's endpoint first, while it is selectable.
+            if session_id and self.config.session_affinity:
+                hit = self._sessions.get(session_id)
+                if hit is not None:
+                    eid, expires = hit
+                    ep = self._endpoints.get(eid)
+                    if (ep is not None and expires > self._clock.now()
+                            and ep.status not in (EndpointStatus.UNHEALTHY,
+                                                  EndpointStatus.DRAINING)
+                            and eid not in (exclude or ())
+                            and ep.model_type == model_type
+                            and (ep.max_connections <= 0
+                                 or ep.connections < ep.max_connections)):
+                        ep.connections += 1
+                        ep.total_requests += 1
+                        self._sessions[session_id] = (
+                            eid, self._clock.now() + self.config.session_ttl)
+                        return ep
+                    self._sessions.pop(session_id, None)
+            candidates = self._healthy_endpoints(model_type, exclude)
+            if not candidates:
+                raise NoEndpointError(
+                    f"no healthy endpoint for model type {model_type!r}")
+            ep = self._select(candidates, model_type)
+            ep.connections += 1
+            ep.total_requests += 1
+            if session_id and self.config.session_affinity:
+                self._sessions[session_id] = (
+                    ep.id, self._clock.now() + self.config.session_ttl)
+            return ep
+
+    def _healthy_endpoints(self, model_type: str,
+                           exclude: Optional[set] = None) -> List[Endpoint]:
+        """Healthy and degraded endpoints with connection headroom;
+        DRAINING ones take no new dispatch."""
+        out = []
+        for eid in self._by_type.get(model_type, []):
+            if eid in (exclude or ()):
+                continue
+            ep = self._endpoints[eid]
+            if ep.status in (EndpointStatus.UNHEALTHY,
+                             EndpointStatus.DRAINING):
+                continue
+            if ep.max_connections > 0 and ep.connections >= ep.max_connections:
+                continue
+            out.append(ep)
+        return out
+
+    def _select(self, candidates: List[Endpoint], model_type: str) -> Endpoint:
+        strategy = self.config.strategy
+        if strategy == "round_robin":
+            return self._round_robin(candidates, model_type)
+        if strategy == "least_connections":
+            return min(candidates, key=lambda e: e.connections)
+        if strategy == "weighted_random":
+            return self._weighted_random(candidates)
+        return self._adaptive(candidates)
+
+    def _round_robin(self, candidates: List[Endpoint], model_type: str) -> Endpoint:
+        """One cursor per model type."""
+        cur = self._rr_cursor.get(model_type, 0)
+        self._rr_cursor[model_type] = cur + 1
+        return candidates[cur % len(candidates)]
+
+    def _weighted_random(self, candidates: List[Endpoint]) -> Endpoint:
+        total = sum(max(0.0, e.weight) for e in candidates)
+        if total <= 0:
+            return self._rng.choice(candidates)
+        r = self._rng.uniform(0, total)
+        acc = 0.0
+        for e in candidates:
+            acc += max(0.0, e.weight)
+            if r <= acc:
+                return e
+        return candidates[-1]
+
+    def _adaptive(self, candidates: List[Endpoint]) -> Endpoint:
+        """Score = 0.4·load + 0.4·normalised response time + 0.2·error
+        rate; the lowest wins, the runner-up one time in ten."""
+        max_rt = max((e.response_time for e in candidates), default=0.0) or 1.0
+        scored = sorted(
+            candidates,
+            key=lambda e: 0.4 * e.load + 0.4 * (e.response_time / max_rt)
+            + 0.2 * e.error_rate)
+        if len(scored) > 1 and self._rng.random() < 0.1:
+            return scored[1]
+        return scored[0]
+
+    def release_endpoint(self, endpoint_id: str, response_time: float = 0.0,
+                         is_error: bool = False) -> None:
+        """Give back one booking: the response time feeds a 9:1 EWMA, an
+        error raises the error rate by a tenth of what is left, a success
+        decays it by 5%."""
+        with self._mu:
+            ep = self._endpoints.get(endpoint_id)
+            if ep is None:
+                return
+            ep.connections = max(0, ep.connections - 1)
+            if response_time > 0:
+                if ep.response_time == 0:
+                    ep.response_time = response_time
+                else:
+                    ep.response_time = 0.9 * ep.response_time + 0.1 * response_time
+            if is_error:
+                ep.total_errors += 1
+                ep.error_rate = min(1.0, 0.9 * ep.error_rate + 0.1)
+            else:
+                ep.error_rate *= 0.95
+
+    # -- sessions ------------------------------------------------------------
+
+    def cleanup_sessions(self) -> int:
+        """Drop the expired sessions; returns how many."""
+        now = self._clock.now()
+        with self._mu:
+            dead = [sid for sid, (_, exp) in self._sessions.items() if exp <= now]
+            for sid in dead:
+                del self._sessions[sid]
+            return len(dead)
 
     # -- health --------------------------------------------------------------
 
@@ -245,7 +419,8 @@ class LoadBalancer:
         return results
 
     def start(self) -> None:
-        """Start the health-check loop (suppressed when interval <= 0)."""
+        """Start the health-check and session-cleanup loop (suppressed
+        when the interval is <= 0)."""
         if self.config.health_check_interval <= 0 or self._health_thread:
             return
         self._stop.clear()
@@ -263,17 +438,16 @@ class LoadBalancer:
         while not self._stop.wait(self.config.health_check_interval):
             try:
                 self.check_health_once()
+                self.cleanup_sessions()
             except Exception:  # noqa: BLE001
                 log.exception("health check tick failed")
 
     # -- stats ---------------------------------------------------------------
 
     def get_stats(self) -> Dict:
-        """The JAX package's keys and value types; no strategy selects
-        (``"none"``) and no session is held here."""
         with self._mu:
             return {
-                "strategy": "none",
+                "strategy": self.config.strategy,
                 "endpoint_count": len(self._endpoints),
                 "healthy": sum(1 for e in self._endpoints.values()
                                if e.status == EndpointStatus.HEALTHY),
@@ -283,6 +457,6 @@ class LoadBalancer:
                                  if e.status == EndpointStatus.UNHEALTHY),
                 "draining": sum(1 for e in self._endpoints.values()
                                 if e.status == EndpointStatus.DRAINING),
-                "active_sessions": 0,
+                "active_sessions": len(self._sessions),
                 "endpoints": [e.to_dict() for e in self._endpoints.values()],
             }

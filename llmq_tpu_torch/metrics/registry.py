@@ -445,6 +445,30 @@ class QueueMetrics:
             "Estimated milliseconds active decode rows stalled behind "
             "one round of prefill dispatches",
             ["engine", "path"], buckets=_STALL_MS_BUCKETS, registry=r)
+        # The replica-set plane (cluster/router.py). ``reason`` is why
+        # the endpoint was chosen: "affinity" (the conversation's
+        # replica), "spill" (it was saturated, draining or blocked),
+        # "select" (the LB's strategy), "failover" (after another
+        # replica failed within the dispatch).
+        self.cluster_dispatch = Counter(
+            f"{ns}_cluster_dispatch_total",
+            "Messages dispatched to a cluster endpoint",
+            ["endpoint", "reason"], registry=r)
+        self.cluster_affinity_hit_rate = Gauge(
+            f"{ns}_cluster_affinity_hit_rate",
+            "Fraction of affinity-eligible dispatches routed to the "
+            "conversation's prefix-holding replica (lifetime)",
+            registry=r)
+        self.cluster_failovers = Counter(
+            f"{ns}_cluster_failovers_total",
+            "In-dispatch failovers away from a failed endpoint",
+            ["endpoint"], registry=r)
+        self.cluster_drains = Counter(
+            f"{ns}_cluster_drains_total",
+            "Drain transitions per endpoint", ["endpoint"], registry=r)
+        self.cluster_endpoints = Gauge(
+            f"{ns}_cluster_endpoints", "Registered endpoints by status",
+            ["status"], registry=r)
         self.dead_letter_depth = Gauge(
             f"{ns}_dead_letter_depth",
             "Messages currently parked in a dead-letter queue",
@@ -500,6 +524,15 @@ class QueueMetrics:
             "Requests rejected by overload shedding; reason is "
             "backlog|sla|engine_down, code the HTTP status returned",
             ["reason", "code"], registry=r)
+        # The endpoints' circuit breakers (loadbalancer/circuit_breaker.py).
+        self.circuit_breaker_state = Gauge(
+            f"{ns}_circuit_breaker_state",
+            "Per-endpoint breaker state (0=closed, 1=half_open, 2=open)",
+            ["endpoint"], registry=r)
+        self.circuit_breaker_trips = Counter(
+            f"{ns}_circuit_breaker_trips_total",
+            "Breaker transitions into OPEN per endpoint", ["endpoint"],
+            registry=r)
         # The queue journal's faults (queueing/wal.py, queue_manager.py):
         # a push the journal cannot record is shed with a 503; a
         # worker-side op logs and the worker goes on.

@@ -95,6 +95,11 @@ class TraceEvent:
         return {"stage": self.stage, "ts": self.ts, "host": self.host,
                 "meta": dict(self.meta)}
 
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "TraceEvent":
+        return cls(str(d.get("stage", "")), float(d.get("ts", 0.0)),
+                   str(d.get("host", "")), dict(d.get("meta") or {}))
+
 
 class Timeline:
     """All recorded events of one request, across hosts."""
@@ -378,6 +383,40 @@ class FlightRecorder:
                             evt.ts,
                             keep,
                             retained))
+
+    def merge(self, request_id: str,
+              events: List[Dict[str, Any]]) -> None:
+        """Fold another host's events (their wire dicts) into this
+        request's timeline: the HTTP transport stitches a replica's
+        engine stages in under the same trace id. A terminal stage that
+        arrives so does not finalize the timeline again (the replica
+        observed its own histograms; the local terminal stamp owns this
+        process's)."""
+        if not self.enabled or not request_id or not events:
+            return
+        parsed = []
+        for d in events:
+            try:
+                e = TraceEvent.from_dict(d)
+            except (TypeError, ValueError):
+                continue
+            if e.stage:
+                parsed.append(e)
+        if not parsed:
+            return
+        with self._mu:
+            tl = self._ring.get(request_id)
+            if tl is None:
+                tl = Timeline(request_id)
+                self._ring[request_id] = tl
+                if len(self._ring) > self.capacity:
+                    self._ring.popitem(last=False)
+                    self.dropped += 1
+            # Dedup on (stage, ts, host): a process routing to itself
+            # shares this recorder, so its "remote" events came from here.
+            seen = {(e.stage, e.ts, e.host) for e in tl.events}
+            tl.events.extend(e for e in parsed
+                             if (e.stage, e.ts, e.host) not in seen)
 
     # -- metrics -------------------------------------------------------------
 

@@ -19,11 +19,12 @@ the two into *who consumed the hardware*:
   between turns) is billed to the conversation/tenant, not to any
   single request.
 - **Waste decomposition** — device-seconds that bought no delivered
-  output, by reason: ``retry`` (worker retried the message), ``crash``
-  (engine crash recovery failed the in-flight work), ``preempt`` /
-  ``shed`` (KV pages reclaimed → the rebuild re-prefill repeats work),
-  ``cancelled``, ``error`` (``failover`` stays in the closed enum, as
-  in the JAX package). ``usage_waste_seconds_total{reason}``.
+  output, by reason: ``retry`` (worker retried the message),
+  ``failover`` (the cluster router re-dispatched after a local
+  replica's fault), ``crash`` (engine crash recovery failed the
+  in-flight work), ``preempt`` / ``shed`` (KV pages reclaimed → the
+  rebuild re-prefill repeats work), ``cancelled``, ``error``.
+  ``usage_waste_seconds_total{reason}``.
 - **Goodput** — useful, SLO-met tokens per attributed device-second,
   over a rolling window, joined from the SLO tracker's met/missed
   verdicts at the flight recorder's flush.
@@ -368,8 +369,8 @@ class UsageLedger:
             waste = usage.device_s + usage.waste_s
             reason = waste_reason or usage.waste_reason or "error"
             if announced and reason in ("error", "cancelled"):
-                # The worker already named the cause (retry) before
-                # the engine thread got here.
+                # The worker or the router already named the cause
+                # (retry, failover) before the engine thread got here.
                 reason = announced
         if reason not in WASTE_REASONS:
             reason = "error"
@@ -459,7 +460,7 @@ class UsageLedger:
             tenant = self._pin_tenants.pop(conversation, DEFAULT_TENANT)
         self.add_pinned_kv(tenant, conversation, page_s)
 
-    # -- waste-cause annotation (worker) --------------------------------------
+    # -- waste-cause annotation (worker / router) -----------------------------
 
     def _reclassify(self, request_id: str, reason: str) -> bool:
         """Move a just-finalized request's waste to a more specific
@@ -496,6 +497,12 @@ class UsageLedger:
         attempt's device time was retried-away work."""
         if self.enabled:
             self._reclassify(request_id, "retry")
+
+    def note_failover(self, request_id: str) -> None:
+        """The router is dispatching again after a local replica's
+        fault: that attempt's partial work was failover waste."""
+        if self.enabled:
+            self._reclassify(request_id, "failover")
 
     # -- goodput (fed from the recorder's flush) ------------------------------
 

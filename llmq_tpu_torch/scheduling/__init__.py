@@ -1,2 +1,2 @@
-"""The card's topology and the resource scheduler over it (the port's
-copy of ``llmq_tpu/scheduling/``, without the endpoint autoscaler)."""
+"""The card's topology, the resource scheduler over it and the endpoint
+autoscaler (the port's copy of ``llmq_tpu/scheduling/``)."""

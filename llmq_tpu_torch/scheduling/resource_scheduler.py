@@ -16,7 +16,9 @@ of ``llmq_tpu/scheduling/resource_scheduler.py``).
   run) and their kind.
 - Background loops: heartbeat timeout → offline, allocation expiry, and
   the pending-request processor. (The JAX package's scale-up/down
-  callbacks wait for the slice that passes one.)
+  callbacks and their ``scale_*`` thresholds are left out: no caller in
+  either package passes one. The endpoint autoscaler is
+  ``scheduling/autoscaler.py``.)
 - Cache-aware admission: ``set_prefill_estimator`` (the engine's
   ``prefill_estimate``) makes a TOKENS request pay only for its expected
   new prefill tokens; ``observe_prefill`` (fed by the engine's

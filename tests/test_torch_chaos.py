@@ -10,9 +10,10 @@ supervisor (its give-up case too), WAL faults, the overload burst, the
 off-switch equivalence (the default serve's streams with the ``chaos``
 and ``store.resilience`` blocks at their defaults equal those without
 them; no injector, no wrapped store, no ``store`` key in ``/health``),
-the supervisor's edge cases, and ``tests/test_speculation.py``'s crash
-with a verify window in flight. The JAX package's flapping-transport
-scenario waits for the port's cluster plane."""
+the supervisor's edge cases, ``tests/test_speculation.py``'s crash
+with a verify window in flight, and the flapping transport (a seeded
+``transport.request`` fault with p=0.4 across two replicas behind the
+cluster router)."""
 
 from __future__ import annotations
 
@@ -26,6 +27,8 @@ import pytest
 
 from llmq_tpu import chaos as jchaos
 from llmq_tpu.api.server import ApiServer as JApiServer
+from llmq_tpu.cluster.router import ClusterRouter as JClusterRouter
+from llmq_tpu.loadbalancer.load_balancer import LoadBalancer as JLB
 from llmq_tpu.core import config as JC
 from llmq_tpu.core import types as jtypes
 from llmq_tpu.engine.engine import GenRequest as JGenRequest
@@ -41,6 +44,8 @@ from llmq_tpu.queueing import worker as jworker
 
 from llmq_tpu_torch import chaos as tchaos
 from llmq_tpu_torch.api.server import ApiServer as TApiServer
+from llmq_tpu_torch.cluster.router import ClusterRouter as TClusterRouter
+from llmq_tpu_torch.loadbalancer.load_balancer import LoadBalancer as TLB
 from llmq_tpu_torch.core import config as TC
 from llmq_tpu_torch.core import types as ttypes
 from llmq_tpu_torch.engine.engine import GenRequest as TGenRequest
@@ -67,7 +72,7 @@ JAX = types.SimpleNamespace(
     Priority=jtypes.Priority, QueueManager=jqm.QueueManager,
     DLQ=jdlq.DeadLetterQueue, Worker=jworker.Worker, WAL=jwal.QueueWAL,
     ApiServer=JApiServer, QueueFactory=jfactory.QueueFactory,
-    QueueType=jfactory.QueueType)
+    QueueType=jfactory.QueueType, ClusterRouter=JClusterRouter, LB=JLB)
 PORT = types.SimpleNamespace(
     name="port", chaos=tchaos, C=TC, config=TC.Config,
     Engine=TEngine, Echo=TEcho, Tok=TTok, GenRequest=TGenRequest,
@@ -75,7 +80,7 @@ PORT = types.SimpleNamespace(
     Priority=ttypes.Priority, QueueManager=tqm.QueueManager,
     DLQ=tdlq.DeadLetterQueue, Worker=tworker.Worker, WAL=twal.QueueWAL,
     ApiServer=TApiServer, QueueFactory=tfactory.QueueFactory,
-    QueueType=tfactory.QueueType)
+    QueueType=tfactory.QueueType, ClusterRouter=TClusterRouter, LB=TLB)
 PKGS = (JAX, PORT)
 
 
@@ -338,6 +343,64 @@ class TestEngineCrashRecovery:
         assert restarts == 2
         assert not engine.running
         assert not engine.healthy()
+
+
+# -- a flapping transport ------------------------------------------------------
+
+
+class TestFlappingTransport:
+    def test_flapping_replicas_zero_loss(self):
+        """Dispatch over HTTP fails at random (p=0.4, seeded) across two
+        replicas: failover, the worker's retries and the dead-letter
+        backstop leave every message completed or parked, none lost and
+        none delivered twice, in both packages."""
+        got = {}
+        for P in PKGS:
+            _arm(P, 21, {"point": "transport.request", "kind": "error",
+                         "probability": 0.4})
+            checker = P.chaos.InvariantChecker()
+            engines, servers = [], []
+            router = P.ClusterRouter(
+                P.LB(P.C.LoadBalancerConfig(strategy="round_robin",
+                                            health_check_interval=0.0)),
+                config=P.C.ClusterConfig(
+                    failover_retries=3,
+                    breaker=P.C.BreakerConfig(failure_threshold=3,
+                                              base_backoff=0.05,
+                                              jitter=0.2)),
+                enable_metrics=False)
+            for i in range(2):
+                eng = _engine(P, f"flap{i}")
+                eng.start()
+                api = P.ApiServer(P.config(), engine=eng)
+                port = api.start(host="127.0.0.1", port=0)
+                engines.append(eng)
+                servers.append(api)
+                router.register_remote(f"http://127.0.0.1:{port}",
+                                       endpoint_id=f"127.0.0.1:{port}")
+            mgr, worker, _dlq = _stack(P, router, checker, "flap")
+            worker.start()
+            try:
+                for i in range(16):
+                    m = P.Message(id=f"f{i}", content=f"flap {i}",
+                                  user_id="u", timeout=15.0)
+                    checker.submitted(m.id)
+                    mgr.push_message(m)
+                s = _await_terminal(checker, 16, timeout=40.0)
+            finally:
+                worker.stop()
+                mgr.stop()
+                for api in servers:
+                    api.stop()
+                for eng in engines:
+                    eng.stop()
+            checker.check()
+            got[P.name] = (s["terminal"].get("completed", 0)
+                           + s["terminal"].get("dead_lettered", 0),
+                           P.chaos.get_injector().get_stats()["injected"].get(
+                               "transport.request:error", 0) > 0)
+            P.chaos.configure(None)
+        assert got["port"] == got["jax"] == (16, True)
 
 
 # -- the journal ---------------------------------------------------------------

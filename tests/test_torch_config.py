@@ -95,7 +95,7 @@ def test_defaults_equal_jaxs_where_the_blocks_are_new():
         TC._LEVEL_MAX_CONCURRENT_DEFAULT
 
 
-def test_unported_table_is_jaxs_tree_at_its_defaults():
+def test_unported_table_is_jaxs_tree_at_its_defaults(tmp_path):
     """Tolerance: none. The port's fields and its table of unported keys
     together are the JAX package's key tree, and the table holds the JAX
     package's defaults; ``device`` and ``executor.backend`` aside."""
@@ -118,10 +118,14 @@ def test_unported_table_is_jaxs_tree_at_its_defaults():
                 assert TC._accepts(table[key], jv), path
 
     walk(jd, TC.Config(), TC._UNPORTED)
-    # A tuple adds the canonical file's value where it differs.
+    # Endpoint selection is ported: the canonical file's strategy, which
+    # differs from the default, loads to JAX's in both packages; only
+    # the load balancer's max_retries, which nothing reads, stays.
     j = JC.load_config(CANONICAL, env=False)
-    assert TC._UNPORTED["loadbalancer"]["strategy"] == (
-        JC.Config().loadbalancer.strategy, j.loadbalancer.strategy)
+    assert TC._UNPORTED["loadbalancer"] == {"max_retries": 3}
+    assert TC.load_config(_canonical_for_port(tmp_path), env=False
+                          ).loadbalancer.strategy == \
+        j.loadbalancer.strategy != JC.Config().loadbalancer.strategy
 
 
 @pytest.mark.parametrize("snippet,match", [
@@ -144,8 +148,14 @@ def test_unported_table_is_jaxs_tree_at_its_defaults():
     pytest.param("executor: {backend: tpu}\n", "executor.backend",
                  id="executor: {backend: echo}\n-executor.backend"),
     ("executor: {backend: jax}\n", "executor.backend"),
-    ("cluster: {peers: [http://a:8080]}\n", "cluster.peers"),
-    ("scheduler: {min_endpoints: 3}\n", "scheduler.min_endpoints"),
+    # The cluster and scheduler blocks are ported: the cases now hold
+    # that an unknown key inside them raises (the ids stay the cases' own).
+    pytest.param("cluster: {peers: [http://a:8080], nope: 1}\n",
+                 "unknown config key: cluster.nope",
+                 id="cluster: {peers: [http://a:8080]}\n-cluster.peers"),
+    pytest.param("scheduler: {min_endpoints: 3, nope: 1}\n",
+                 "unknown config key: scheduler.nope",
+                 id="scheduler: {min_endpoints: 3}\n-scheduler.min_endpoints"),
     # The chaos and store blocks are ported: their cases now hold that
     # an unknown key inside them raises (the ids stay the cases' own).
     pytest.param("chaos: {enabled: true, faults: [{point: engine.step, "
@@ -173,13 +183,22 @@ def test_unported_table_is_jaxs_tree_at_its_defaults():
     ("controlplane: {enabled: true}\n", "controlplane.enabled"),
     ("disagg: {enabled: false, nope: 1}\n", "unknown config key: disagg.nope"),
     ("loadbalancer: {strategy: fastest}\n", "loadbalancer.strategy"),
-    ("loadbalancer: {strategy: least_connections}\n",
-     "loadbalancer.strategy"),
-    ("loadbalancer: {session_affinity: false}\n",
-     "loadbalancer.session_affinity"),
+    # Endpoint selection and the autoscaler are ported: these cases now
+    # hold that an unknown key beside a ported one raises (the ids stay
+    # the cases' own).
+    pytest.param("loadbalancer: {strategy: least_connections, nope: 1}\n",
+                 "unknown config key: loadbalancer.nope",
+                 id="loadbalancer: {strategy: least_connections}\n-"
+                    "loadbalancer.strategy"),
+    pytest.param("loadbalancer: {session_affinity: false, nope: 1}\n",
+                 "unknown config key: loadbalancer.nope",
+                 id="loadbalancer: {session_affinity: false}\n-"
+                    "loadbalancer.session_affinity"),
     ("loadbalancer: {max_retries: 5}\n", "loadbalancer.max_retries"),
     ("scheduler: {strategy: priority_weighted}\n", "scheduler.strategy"),
-    ("scheduler: {cooldown: 5.0}\n", "scheduler.cooldown"),
+    pytest.param("scheduler: {cooldown: 5.0, nope: 1}\n",
+                 "unknown config key: scheduler.nope",
+                 id="scheduler: {cooldown: 5.0}\n-scheduler.cooldown"),
     ("resource_scheduler: {scale_up_load: 0.5}\n",
      "resource_scheduler.scale_up_load"),
     ("server: {read_timeout: 5.0}\n", "server.read_timeout"),
@@ -350,9 +369,17 @@ def test_env_naming_an_unported_key_raises_unless_default():
     with pytest.raises(ValueError, match="disagg.enabled"):
         TC.load_config(path=os.devnull,
                        environ={"LLMQ_DISAGG_ENABLED": "true"})
-    with pytest.raises(ValueError, match="cluster.peers"):
+    # The cluster block is ported: LLMQ_CLUSTER_PEERS now loads, its
+    # comma-separated form as JAX's does; the case's raise moves to a
+    # block still unported.
+    with pytest.raises(ValueError, match="controlplane.enabled"):
         TC.load_config(path=os.devnull,
-                       environ={"LLMQ_CLUSTER_PEERS": "http://a:8080"})
+                       environ={"LLMQ_CONTROLPLANE_ENABLED": "true"})
+    env = {"LLMQ_CLUSTER_PEERS": "http://a:8080, http://b:8080/"}
+    j = JC.Config()
+    JC._apply_env(j, env)
+    assert TC.load_config(path=os.devnull, environ=env).cluster.peers == \
+        j.cluster.peers == ["http://a:8080", "http://b:8080"]
     cfg = TC.load_config(path=os.devnull,
                          environ={"LLMQ_DISAGG_ENABLED": "false",
                                   "LLMQ_CLUSTER_PEERS": "",
@@ -360,11 +387,23 @@ def test_env_naming_an_unported_key_raises_unless_default():
                                   "LLMQ_LOADBALANCER_STRATEGY": "adaptive_load",
                                   "LLMQ_SCHEDULER_MONITOR_INTERVAL": "5"})
     assert cfg.scheduler.monitor_interval == 5.0
+    assert (cfg.cluster.peers, cfg.scheduler.cooldown,
+            cfg.loadbalancer.strategy) == ([], 60.0, "adaptive_load")
     for var, key in (("LLMQ_LOADBALANCER_STRATEGY", "loadbalancer.strategy"),
-                     ("LLMQ_SCHEDULER_COOLDOWN", "scheduler.cooldown"),
-                     ("LLMQ_METRICS_PORT", "metrics.port")):
+                     ("LLMQ_SERVER_READ_TIMEOUT", "server.read_timeout"),
+                     ("LLMQ_METRICS_PORT", "metrics.port"),
+                     ("LLMQ_LOADBALANCER_MAX_RETRIES",
+                      "loadbalancer.max_retries"),
+                     ("LLMQ_RESOURCE_SCHEDULER_SCALE_UP_LOAD",
+                      "resource_scheduler.scale_up_load")):
         with pytest.raises(ValueError, match=key):
             TC.load_config(path=os.devnull, environ={var: "7"})
+    # A malformed numeric list still raises; only the string list
+    # (the peers) keeps its raw comma-separated form for its block.
+    for var in ("LLMQ_EXECUTOR_PREFILL_BUCKETS",
+                "LLMQ_OBSERVABILITY_SLO_WINDOWS_S"):
+        with pytest.raises(ValueError):
+            TC.load_config(path=os.devnull, environ={var: "128,x"})
 
 
 def test_levels_merge_and_validation_after_merge(tmp_path):

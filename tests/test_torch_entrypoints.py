@@ -554,3 +554,57 @@ def test_gateway_and_queue_manager_processes_survive_a_kill(tmp_path,
             if proc is not None and proc.p.poll() is None:
                 proc.p.kill()
                 proc.p.wait(10)
+
+
+def test_serve_with_peers_and_the_scheduler_subcommand(tmp_path):
+    """``--peers`` makes ``serve`` route through the cluster plane over its
+    own engine and the peer (echo backend on the CPU, the peer an
+    in-process port server): both serve, the cluster routes answer, and
+    ``scheduler.min_endpoints: 2`` keeps both routable past the
+    autoscaler's first tick. ``scheduler`` starts its monitor loop with
+    no API, workers or engine and exits 0 on SIGTERM."""
+    from llmq_tpu_torch.api.server import ApiServer
+    from llmq_tpu_torch.core.config import Config
+    from llmq_tpu_torch.engine.engine import InferenceEngine
+    from llmq_tpu_torch.engine.executor import EchoExecutor
+    from llmq_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    peer_engine = InferenceEngine(EchoExecutor(batch_size=4),
+                                  ByteTokenizer(), name="peer",
+                                  enable_metrics=False)
+    peer_engine.start()
+    peer = ApiServer(Config(), engine=peer_engine)
+    peer_url = f"http://127.0.0.1:{peer.start(host='127.0.0.1', port=0)}"
+    cfg = tmp_path / "cluster.yaml"
+    cfg.write_text("server: {host: 127.0.0.1, port: 0}\n"
+                   "executor: {backend: echo}\n"
+                   "loadbalancer: {strategy: round_robin}\n"
+                   "queue: {worker: {count: 2, process_interval: 0.01}}\n"
+                   "scheduler: {monitor_interval: 0.2, min_endpoints: 2}\n")
+    proc = _Proc(["-c", str(cfg), "--device", "cpu", "--peers", peer_url,
+                  "serve"], cwd=tmp_path)
+    try:
+        base = proc.wait_for("serving ").rsplit(" at ", 1)[1]
+        time.sleep(0.5)          # past two autoscaler ticks
+        mids = [_http(base, "POST", "/api/v1/messages",
+                      {"content": f"c{i}"})[1]["message_id"]
+                for i in range(4)]
+        served = _finished(base, mids, 60)
+        _, stats = _http(base, "GET", "/api/v1/cluster/stats")
+        _, ov = _http(base, "GET", "/api/v1/cluster/overview")
+        rc = proc.finish(signal.SIGINT)
+    finally:
+        if proc.p.poll() is None:
+            proc.p.kill()
+        peer.stop()
+        peer_engine.stop()
+    assert rc == 0
+    peer_id = peer_url.split("//")[1]
+    assert {e["id"] for e in stats["endpoints"]["endpoints"]} == {
+        stats["local_endpoint_id"], peer_id}
+    assert {m["metadata"]["endpoint_id"] for m in served.values()} == {
+        stats["local_endpoint_id"], peer_id}
+    assert ov["aggregate"]["endpoints"] == 2
+    sched = _Proc(["-c", str(cfg), "scheduler"], cwd=tmp_path)
+    sched.wait_for("scheduler monitoring (strategy=dynamic)")
+    assert sched.finish(signal.SIGTERM) == 0

@@ -261,6 +261,33 @@ _BLOCKED_IMPORT_SCRIPT = textwrap.dedent("""
     assert isinstance(get_tokenizer(""), ByteTokenizer)
     for mod in ("transformers", "safetensors", "ml_dtypes"):
         assert mod not in sys.modules, mod
+    # The replica set: endpoint selection, the breaker board, the HTTP
+    # transport, the routers, the cluster plane, the autoscaler, their
+    # config blocks, routes and metric families.
+    from llmq_tpu_torch.core.errors import NoEndpointError
+    from llmq_tpu_torch.loadbalancer.circuit_breaker import BreakerBoard
+    from llmq_tpu_torch.loadbalancer.transport import HttpEngineClient
+    from llmq_tpu_torch.loadbalancer.router import EngineRouter
+    from llmq_tpu_torch.cluster import ClusterRouter, build_cluster_router
+    from llmq_tpu_torch.scheduling.autoscaler import (Autoscaler,
+                                                      ScalingStrategy)
+    from llmq_tpu_torch.core.config import ClusterConfig, SchedulerConfig
+    assert not ClusterConfig().enabled and not cfg.cluster.enabled
+    for fn in ("get_endpoint", "acquire_endpoint", "release_endpoint",
+               "cleanup_sessions"):
+        assert callable(getattr(LoadBalancer, fn)), fn
+    for fn in ("get_cluster_stats", "get_cluster_overview"):
+        assert callable(getattr(ApiServer, fn)), fn
+    assert callable(InferenceEngine.hint_arrival)
+    for fam in ("cluster_dispatch", "cluster_affinity_hit_rate",
+                "cluster_failovers", "cluster_drains", "cluster_endpoints",
+                "circuit_breaker_state", "circuit_breaker_trips"):
+        assert hasattr(get_metrics(), fam), fam
+    for mod in ("llmq_tpu_torch.loadbalancer.transport",
+                "llmq_tpu_torch.loadbalancer.router",
+                "llmq_tpu_torch.cluster",
+                "llmq_tpu_torch.scheduling.autoscaler"):
+        assert mod in sys.modules, mod
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", sys.argv[1] + "/chip_smoke.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))

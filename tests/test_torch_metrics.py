@@ -90,10 +90,11 @@ def test_every_port_family_is_jaxs():
     """Tolerance: none. Name, type, help, label names and buckets."""
     port, jax_m = treg.get_metrics(), jreg.get_metrics()
     fams = vars(port)
-    assert len(fams) == 85      # the observability planes, the WAL, the
+    assert len(fams) == 92      # the observability planes, the WAL, the
     #                             four speculation families, the six
     #                             tiering families, the five of the
-    #                             fault domain and the five of tenancy
+    #                             fault domain, the five of tenancy and
+    #                             the seven of the replica set
     for attr, fam in fams.items():
         jf = getattr(jax_m, attr)
         name = jf._name + ("_total" if jf._type == "counter" else "")
@@ -108,7 +109,7 @@ def test_exposition_parses_like_jaxs():
     parser into the same families (name, type, help) as JAX's."""
     port, jax_fams = _by_name(_port_exposition()), _by_name(
         _jax_exposition())
-    assert len(port) == 85
+    assert len(port) == 92
     for name, fam in port.items():
         jf = jax_fams[name]
         assert (fam.type, fam.documentation) == (jf.type,

@@ -3,9 +3,12 @@ endpoint registry, its health checks and draining) against the JAX
 package's, side by side on fake clocks: each scenario runs over a
 namespace of either package's classes and the two traces must be equal.
 It mirrors tests/test_scheduling.py and tests/test_load_balancer.py for
-what the port has, and adds the cache-aware admission seam: the prefill
-estimator, the learned prefill rate and the overload shedder's deadline
-check."""
+what the port has (the endpoint autoscaler's four strategies included),
+and adds the cache-aware admission seam: the prefill estimator, the
+learned prefill rate and the overload shedder's deadline check. The
+autoscaler's first
+tick removes an endpoint at the JAX package's defaults: both packages'
+``App`` in serve mode with one peer do it alike."""
 
 import time
 import types
@@ -20,6 +23,8 @@ from llmq_tpu.core import errors as jerrors
 from llmq_tpu.core import types as jtypes
 from llmq_tpu.core.clock import FakeClock
 from llmq_tpu.loadbalancer import load_balancer as jlb
+from llmq_tpu.queueing import queue_manager as jqm
+from llmq_tpu.scheduling import autoscaler as jas
 from llmq_tpu.scheduling import resource_scheduler as jrs
 from llmq_tpu.scheduling.topology import TpuTopology
 
@@ -29,6 +34,8 @@ from llmq_tpu_torch.core import config as TC
 from llmq_tpu_torch.core import errors as terrors
 from llmq_tpu_torch.core import types as ttypes
 from llmq_tpu_torch.loadbalancer import load_balancer as tlb
+from llmq_tpu_torch.queueing import queue_manager as tqm
+from llmq_tpu_torch.scheduling import autoscaler as tas
 from llmq_tpu_torch.scheduling import resource_scheduler as trs
 from llmq_tpu_torch.scheduling.topology import GpuTopology
 
@@ -36,13 +43,13 @@ from llmq_tpu_torch.scheduling.topology import GpuTopology
 def _ns(pkg, clock):
     if pkg == "jax":
         return types.SimpleNamespace(
-            name="jax", clock=clock, rs=jrs, lb=jlb, C=JC,
+            name="jax", clock=clock, rs=jrs, lb=jlb, C=JC, qm=jqm, auto=jas,
             errors=jerrors, Message=jtypes.Message, Priority=jtypes.Priority,
             Shedder=joverload.OverloadShedder, ApiError=JApiError,
             declare=lambda n, hosts=1: TpuTopology.declare(
                 n, num_hosts=hosts, kind="v5e"))
     return types.SimpleNamespace(
-        name="port", clock=clock, rs=trs, lb=tlb, C=TC,
+        name="port", clock=clock, rs=trs, lb=tlb, C=TC, qm=tqm, auto=tas,
         errors=terrors, Message=ttypes.Message, Priority=ttypes.Priority,
         Shedder=toverload.OverloadShedder, ApiError=TApiError,
         declare=lambda n, hosts=1: GpuTopology.declare(
@@ -293,6 +300,186 @@ def test_shedder_adds_the_learned_prefill_eta_like_jax():
         {k: v for k, v in t[2].items() if v} == {"sla": 1}
 
 
+# -- the endpoint autoscaler ---------------------------------------------------
+
+def _autoscaler(ns, strategy="dynamic", pending=0):
+    qm = ns.qm.QueueManager("as", clock=ns.clock, enable_metrics=False)
+    for _ in range(pending):
+        qm.push_message(ns.Message())
+    lb = ns.lb.LoadBalancer(ns.C.LoadBalancerConfig(health_check_interval=0),
+                            clock=ns.clock)
+    cfg = ns.C.SchedulerConfig(strategy=strategy, scale_up_threshold=10,
+                               scale_down_threshold=1, min_endpoints=1,
+                               max_endpoints=3, cooldown=0.0)
+    prov, deco = [], []
+
+    def provision(seq):
+        ep = ns.lb.Endpoint(id=f"auto-{seq}", url=f"local://auto-{seq}")
+        prov.append(ep.id)
+        return ep
+
+    a = ns.auto.Autoscaler(qm, lb, cfg, provision_fn=provision,
+                           decommission_fn=lambda ep: deco.append(ep.id),
+                           clock=ns.clock)
+    return qm, lb, a, prov, deco
+
+
+def _ids(lb):
+    return sorted(e.id for e in lb.endpoints())
+
+
+def _dynamic_scenario(ns):
+    trace = []
+    qm, lb, a, prov, _ = _autoscaler(ns, pending=20)
+    lb.add_endpoint(ns.lb.Endpoint(id="seed"))
+    trace.append((a.run_once(), _ids(lb), list(prov)))
+    qm.stop()
+    qm, lb, a, _, deco = _autoscaler(ns, pending=0)
+    lb.add_endpoint(ns.lb.Endpoint(id="seed-0"))
+    lb.add_endpoint(ns.lb.Endpoint(id="seed-1"))
+    lb.get_endpoint_by_id("seed-0").connections = 2
+    trace.append((a.run_once(), _ids(lb), list(deco)))
+    trace.append(a.run_once())              # at min_endpoints
+    qm.stop()
+    qm, lb, a, _, _ = _autoscaler(ns, pending=20)
+    a.config.cooldown = 60.0
+    lb.add_endpoint(ns.lb.Endpoint(id="seed"))
+    trace += [a.run_once()["action"], a.run_once()["action"]]
+    ns.clock.advance(61.0)
+    trace += [a.run_once()["action"], a.run_once()["action"]]
+    ns.clock.advance(61.0)
+    trace.append(a.run_once())              # at max_endpoints
+    qm.stop()
+    qm, lb, a, _, _ = _autoscaler(ns, strategy="static", pending=50)
+    trace.append(a.run_once())
+    a2 = ns.auto.Autoscaler(qm, lb, ns.C.SchedulerConfig(cooldown=0.0),
+                            clock=ns.clock)
+    trace.append(a2.run_once())             # no provision_fn: logged only
+    qm.stop()
+    return trace
+
+
+def test_dynamic_scaling_matches_jax():
+    """Tolerance: none. Up with a backlog (provisioned), down without one
+    (the least busy endpoint, decommissioned), min and max held, the
+    cooldown, ``static`` idle, and a scale-up without an actuator."""
+    j, t = _both(_dynamic_scenario)
+    assert t == j
+    assert t[0][0]["action"] == "up" and t[0][1] == ["auto-1", "seed"]
+    assert t[1][0]["action"] == "down" and t[1][2] == ["seed-1"]
+    assert t[2]["action"] == "none"
+    assert t[3:7] == ["up", "cooldown", "up", "cooldown"]
+    assert t[7] == {"pending": 20, "endpoints": 3, "action": "none"}
+    assert t[8]["action"] == "none" and t[9]["action"] == "none"
+
+
+def _adaptive_scenario(ns):
+    out = []
+    for lt in ((2026, 7, 29, 11, 0, 0, 2, 210, 0),    # Wednesday 11:00
+               (2026, 8, 1, 11, 0, 0, 5, 213, 0)):    # Saturday 11:00
+        qm, lb, a, prov, deco = _autoscaler(ns, strategy="adaptive")
+        lb.add_endpoint(ns.lb.Endpoint(id="seed"))
+        lb.add_endpoint(ns.lb.Endpoint(id="seed-2"))
+        a._localtime = lambda lt=lt: time.struct_time(lt)
+        out.append((a.run_once(), _ids(lb), prov, deco))
+        qm.stop()
+    # The clock drives local time when none is pinned.
+    qm, lb, a, _, _ = _autoscaler(ns, strategy="adaptive")
+    out.append(tuple(a._localtime())[:6] == tuple(
+        time.localtime(ns.clock.now()))[:6])
+    qm.stop()
+    return out
+
+
+def test_adaptive_business_hours_match_jax():
+    j, t = _both(_adaptive_scenario)
+    assert t == j
+    assert t[0][0]["action"] == "none"       # max-1 = 2 already
+    assert t[1][0]["action"] == "down" and len(t[1][1]) == 1
+    assert t[2] is True
+
+
+def _hybrid_scenario(ns):
+    qm, lb, a, _, _ = _autoscaler(ns, strategy="hybrid", pending=5)
+    fast = ns.lb.Endpoint(id="fast", response_time=0.1)
+    slow = ns.lb.Endpoint(id="slow", response_time=1.0)
+    glacial = ns.lb.Endpoint(id="glacial", response_time=50.0)
+    for e in (fast, slow, glacial):
+        lb.add_endpoint(e)
+    out = (a.run_once(), fast.weight, slow.weight, glacial.weight)
+    qm.stop()
+    return out
+
+
+def test_hybrid_applies_weights_like_jax():
+    j, t = _both(_hybrid_scenario)
+    assert t == j
+    assert t[1:] == (1.0, 0.1, 0.1)
+
+
+def test_autoscaler_loop_starts_and_stops():
+    """The monitor loop ticks every ``monitor_interval`` on its thread
+    and stops within its join bound."""
+    for ns in (_ns("jax", FakeClock()), _ns("port", FakeClock())):
+        qm, lb, a, _, _ = _autoscaler(ns, pending=20)
+        a.config.monitor_interval = 0.02
+        lb.add_endpoint(ns.lb.Endpoint(id="seed"))
+        a.start()
+        deadline = time.time() + 5
+        while len(lb.endpoints()) < 3 and time.time() < deadline:
+            time.sleep(0.01)
+        a.stop()
+        qm.stop()
+        assert len(lb.endpoints()) == 3, ns.name
+
+
+def test_serve_apps_first_tick_removes_an_endpoint_like_jax(tmp_path,
+                                                           monkeypatch):
+    """Tolerance: none. Both packages' ``App`` in serve mode (echo
+    backend, one peer, the default ``scheduler`` block, the autoscaler
+    on a fake clock): the first tick scales down and the local endpoint
+    leaves the load balancer, which keeps only the peer. With
+    ``scheduler.min_endpoints: 2`` nothing leaves."""
+    from llmq_tpu.__main__ import App as JApp
+    from llmq_tpu_torch.__main__ import App as TApp
+
+    monkeypatch.chdir(tmp_path)
+    peer = "http://127.0.0.1:9"
+    out = {}
+    for name, App, cfg in (("jax", JApp, JC.default_config()),
+                           ("port", TApp, TC.Config())):
+        cfg.executor.backend = "echo"
+        cfg.queue.enable_metrics = False
+        cfg.cluster.peers = [peer]
+        if name == "port":
+            cfg.device = "cpu"
+            app = App(cfg, with_scheduler=True)
+        else:
+            app = App(cfg, with_api=True, with_workers=True,
+                      with_engine=True, with_scheduler=True)
+        try:
+            before = sorted(e.url.split("://")[0]
+                            for e in app.load_balancer.endpoints())
+            app.autoscaler._clock = FakeClock()
+            first = app.autoscaler.run_once()
+            left = [e.url for e in app.load_balancer.endpoints()]
+            app.autoscaler.config.min_endpoints = 2
+            app.load_balancer.add_endpoint(
+                app.load_balancer.endpoints()[0].__class__(
+                    id="back", url="local://back"))
+            app.autoscaler._last_scale_at = -1e9
+            kept = app.autoscaler.run_once()
+        finally:
+            app.stop()
+        out[name] = (before, first, left, kept["action"],
+                     app.cluster_router.get_stats()["local_endpoint_id"]
+                     is not None)
+    assert out["port"] == out["jax"]
+    assert out["port"] == (["http", "local"],
+                           {"pending": 0, "endpoints": 2, "action": "down"},
+                           [peer], "none", True)
+
+
 # -- load balancer ------------------------------------------------------------
 
 def _lb(ns, probe=None):
@@ -323,19 +510,22 @@ def _registry_scenario(ns):
     trace.append({k: v for k, v in stats.items()
                   if k not in ("strategy", "active_sessions")})
     trace.append(sorted(stats))
+    trace.append((stats["strategy"], stats["active_sessions"]))
     return trace
 
 
 def test_registry_and_stats_match_jax():
     """Tolerance: none. Add, list by model type, status, draining,
-    removal and re-adding, the endpoints' payloads and the stats, whose
-    keys are the JAX package's (the port selects by no strategy and
-    holds no session: ``strategy`` "none", ``active_sessions`` 0)."""
+    removal and re-adding, the endpoints' payloads and the stats, the
+    JAX package's keys and values (the strategy selects now, and the
+    sessions are held: ``tests/test_torch_loadbalancer.py``)."""
     j, t = _both(_registry_scenario)
     assert t == j
     assert t[1] == ["b0"] and t[5] == ["e1", "e2"]
+    assert t[-1] == ("round_robin", 0)
     stats = tlb.LoadBalancer().get_stats()
-    assert (stats["strategy"], stats["active_sessions"]) == ("none", 0)
+    assert (stats["strategy"], stats["active_sessions"]) == (
+        jlb.LoadBalancer().get_stats()["strategy"], 0)
 
 
 def _health_scenario(ns):

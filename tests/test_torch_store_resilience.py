@@ -14,8 +14,8 @@ state manager over one wrapped store, the async pipeline on; on the echo
 engine, and on the port's engine over a tiny f32 model whose turn in the
 store tier recomputes token for token as JAX's). The breaker's own unit
 cases are here too. The KV exchange's cases wait for the disaggregation
-plane: the port's state manager registers ``state`` only (JAX's also
-``placement``, which comes with the cluster plane)."""
+plane. The state manager registers ``state`` and ``placement`` in both
+packages."""
 
 from __future__ import annotations
 
@@ -603,14 +603,14 @@ class TestStateManagerDegraded:
         assert _same(run) == (True, 4)
 
     def test_consumers_registered(self):
-        """The port's state manager registers ``state``; JAX's also
-        ``placement``, whose records come with the cluster plane."""
+        """The state manager registers ``state`` and ``placement`` (the
+        cluster router's placement records), as JAX's does."""
         got = {}
         for P in PKGS:
             _, _, store, sm = self._stack(P)
             got[P.name] = set(store.resilience_stats()["consumers"])
             store.close()
-        assert got["port"] == got["jax"] - {"placement"} == {"state"}
+        assert got["port"] == got["jax"] == {"state", "placement"}
 
     def test_raw_backend_keeps_every_path(self):
         """A raw backend is never degraded and journals only a failed
@@ -864,11 +864,8 @@ class TestHealthAndMetrics:
                 store.close()
         t, j = blocks["port"], blocks["jax"]
         assert t.keys() == j.keys()
-        assert t["consumers"] == ["state"]
-        assert set(j["consumers"]) - {"placement"} == {"state"}
-        for k in t:
-            if k != "consumers":
-                assert t[k] == j[k], k
+        assert t == j
+        assert t["consumers"] == ["placement", "state"]
         assert t["resilience"] is True and t["replay_pending"] == 0
         assert t["breaker"]["state"] == "closed"
 
