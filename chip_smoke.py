@@ -55,7 +55,7 @@ shows where it happened):
                  ``forward_mixed_ragged`` on the card against the same
                  model on the CPU (plain twins).
 6. graphs     — the decode step as a CUDA graph on five engines of
-                 llama3-8b's widths at GRAPHS_LAYERS (24) of its 32
+                 llama3-8b's widths at GRAPHS_LAYERS (16) of its 32
                  layers, built with ``warmup=True`` (bf16 default, the
                  same on the split route, bf16 ragged, int8 weights +
                  int8 KV default and ragged): a B=8, 16-step chunk run
@@ -158,7 +158,30 @@ shows where it happened):
                  3) within the recompute turn's TTFT + 0.25 x 3 + 1 s,
                  ``/health``'s ``store`` block counts the deadline miss,
                  and after the rule the replay buffer drains to 0.
-10. serve-tenancy — the tenancy plane (gold at weight 4, bronze at 1, a
+10. serve-disagg — prefill/decode disaggregation on the serve phase's
+                 weights: two engines with ``executor.kv_tiering`` on, a
+                 prefill one and a decode one, each behind its ``App``
+                 (the disaggregation plane built from ``disagg``) over one
+                 SQLite conversation store, as in-process endpoints of
+                 one cluster router steering by role with the prefill
+                 engine's learned prefill ETA (``long_prompt_ms``
+                 DISAGG_LONG_PROMPT_MS: JAX's 250 ms would call no
+                 prompt on this card long). a. a 1536-token first turn
+                 runs on the prefill engine and is published; b. turn 2
+                 leaves that affinity (reason ``handoff``) for the
+                 decode engine, which claims the KV from the exchange:
+                 its cached tokens are the whole published stream, 0
+                 recomputed (store hit), ``handoff_claim`` in its trace,
+                 the imported pages bit for bit the exported ones, and
+                 its tokens equal those of the same two turns with the
+                 pin resident; c. turn-2 TTFT by claim, by recompute
+                 after the claim's TTL (``kv_exchange_expired``), and
+                 resident (printed); d. the decode engine's
+                 conversations demote (one spills to the store), and a
+                 fresh decode engine on the same store adopts exactly
+                 its owned blobs at start (``rehydrate_on_start``); e.
+                 kernels 1-3 launch on both engines; no twin is called.
+11. serve-tenancy — the tenancy plane (gold at weight 4, bronze at 1, a
                  metered tenant at 200 tok/s with a 400-token burst, a
                  capped one at 1 in flight and 2 queued) around the serve
                  phase's bf16 engine, through the full ``App`` with
@@ -182,7 +205,7 @@ shows where it happened):
                  logits replayed with that schedule through
                  ``forward_mixed_ragged`` lie within ``MODEL_ATOL`` of the
                  prompt in uncapped 128-token pieces. No twin is called.
-11. serve-weights — llama3-1b at full width and depth (16 layers, D=64,
+12. serve-weights — llama3-1b at full width and depth (16 layers, D=64,
                  n_rep 4, tied head), random weights on the card written
                  as a two-shard bf16 Hugging Face directory by the port's
                  own writer, then served from ``model.checkpoint_path``:
@@ -193,7 +216,7 @@ shows where it happened):
                  directory refused; with ``transformers`` importable, one
                  request through an ``HFTokenizer`` written there. Write
                  and load seconds, GB/s and host RSS peaks printed.
-12. serve-plane — the serving process around the serve phase's bf16
+13. serve-plane — the serving process around the serve phase's bf16
                  default engine (same weights, same pool: 8 slots, 512
                  pages of 16), over REST with retry backoff shortened to
                  0.05 s: pool pressure (six 1200-token LOW requests
@@ -271,7 +294,34 @@ shows where it happened):
                  off, off, on), after one uncounted 8-concurrent batch,
                  each turn's rate the median of three: the "on" turns
                  within 3% of the "off" ones.
-13. serve-cluster — the replica set: the serve phase's bf16 engine behind
+14. serve-control — the control plane: the serve phase's bf16 engine
+                 behind the full ``App`` in serve mode with
+                 ``controlplane.enabled`` (tick 0.5 s, 1-2 replicas,
+                 backlog 4 a replica, a subprocess pool whose children
+                 are ``python -m llmq_tpu_torch serve`` on the same card,
+                 llama3-8b at full width and depth, SPLIT_PRELUDE's
+                 counts), the breakers off and the workers queueing a
+                 burst. a. a queued burst drives ``scale_up`` (reason
+                 ``backlog``); the child serves the parent's model
+                 (same parameter count and pool), its boot stages are
+                 adopted (printed), and it takes dispatches; b. with 8
+                 rows decoding on it the child is SIGKILLed: the
+                 controller replaces it (``replace``, ``replica_dead``),
+                 every message completes once (the invariant checker;
+                 kill to completed and ``controller_recovery_seconds``
+                 printed, the recovery observed in ``/metrics``); c. with a
+                 TTFT objective of 1 ms the ladder climbs one rung per
+                 hot tick; at ``shed_batch`` a LOW submission is shed
+                 429 ``degraded`` with Retry-After (``/metrics`` +1)
+                 while a HIGH one completes; ``POST
+                 /api/v1/admin/controller`` pauses (``/health`` says
+                 paused, the tick holds the rung) and resumes; loosened,
+                 the ladder relaxes to 0; d. idle, ``scale_down`` drains
+                 and decommissions the replica, whose process exits,
+                 and the local endpoint stays; e. kernels 1-3 launch in
+                 the parent and in the child, and no twin runs in any of
+                 the three processes.
+15. serve-cluster — the replica set: the serve phase's bf16 engine behind
                  the full ``App`` in serve mode (the autoscaler running)
                  with ``cluster.peers: [peer]`` and ``include_local``,
                  the peer a ``python -m llmq_tpu_torch serve`` child on
@@ -307,7 +357,7 @@ shows where it happened):
                  generate hop's added ms, 8 concurrent requests' tok/s
                  on two replicas against one, and the kill to the last
                  completion.
-14. serve-split — the durable queue plane and the split deployment. First,
+16. serve-split — the durable queue plane and the split deployment. First,
                  on the serve phases' bf16 engine, decode of 8 concurrent
                  REST requests (64 new tokens) through the serving
                  process with ``queue.wal_dir`` set and unset, in turns,
@@ -341,7 +391,7 @@ shows where it happened):
                  WAL: they are relayed again and complete (traces from
                  the spool). Kernels 1-3 launch in each queue-manager, no
                  twin is called, and no gateway initialises CUDA.
-15. serve-int8 — llama3-8b with int8 weights and int8 KV at full width and
+17. serve-int8 — llama3-8b with int8 weights and int8 KV at full width and
                  depth (``LLMQ_MODEL_QUANTIZATION=int8
                  LLMQ_MODEL_KV_QUANTIZATION=int8``), the same REST mix:
                  kernel 5 launches and no bf16-pool kernel does; then a
@@ -2682,11 +2732,13 @@ def _pipeline_vs_blocking(engine, tag: str, state) -> None:
         f"carried {car['no_live_row_steps']} ({CARD})")
 
 
-#: The graphs phase's depth: llama3-8b's widths with 24 of its 32
+#: The graphs phase's depth: llama3-8b's widths with 16 of its 32
 #: layers. The checks are the same at any depth (each layer is the same
 #: kernels); the cut keeps the whole script inside its time while the
-#: serve phases, which serve full depth, grow.
-GRAPHS_LAYERS = 24
+#: serve phases, which serve full depth, grow (24 until the control and
+#: disaggregation phases came: a whole run then took 1027 s on a slow
+#: host).
+GRAPHS_LAYERS = 16
 
 
 def phase_graphs(state) -> None:
@@ -2747,9 +2799,11 @@ def phase_serve(state) -> None:
     counts, restore = _count_plain_calls()
     try:
         params = _serve_default(state)
-        if {"serve-spec", "serve-tiering"} & set(state.get("chosen", ())):
-            # The serve-spec and serve-tiering phases build their engines
-            # on these weights (the last of them releases them).
+        if {"serve-spec", "serve-tiering", "serve-disagg"} & set(
+                state.get("chosen", ())):
+            # The serve-spec, serve-tiering and serve-disagg phases build
+            # their engines on these weights (the last of them releases
+            # them).
             state["serve_params"] = params
         _serve_ragged(state, params)
     finally:
@@ -2885,10 +2939,11 @@ def _serve_default(state):
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({CARD})")
     finally:
         app.stop()
-        if {"serve-tenancy", "serve-plane", "serve-cluster"} & set(
-                state.get("chosen", ())):
-            # The serve-tenancy, serve-plane and serve-cluster phases
-            # serve on this engine: its graphs stay captured.
+        if {"serve-tenancy", "serve-plane", "serve-control",
+                "serve-cluster"} & set(state.get("chosen", ())):
+            # The serve-tenancy, serve-plane, serve-control and
+            # serve-cluster phases serve on this engine: its graphs stay
+            # captured.
             state["serve_engine"] = engine
         else:
             engine.executor.release_graphs()
@@ -5130,10 +5185,11 @@ def phase_serve_plane(state) -> None:
         engine.on_prefill_observed = observe
         app.stop()
         restore()
-        if {"serve-cluster", "serve-split"} & set(state.get("chosen", ())):
-            # The serve-cluster phase serves on this engine, and the
-            # serve-split phase measures the WAL's cost on it: its graphs
-            # stay captured.
+        if {"serve-control", "serve-cluster", "serve-split"} & set(
+                state.get("chosen", ())):
+            # The serve-control and serve-cluster phases serve on this
+            # engine, and the serve-split phase measures the WAL's cost on
+            # it: its graphs stay captured.
             state["serve_engine"] = engine
         else:
             engine.executor.release_graphs()
@@ -7034,8 +7090,8 @@ def phase_serve_spec(state) -> None:
     from llmq_tpu_torch.engine.builder import build_engine
     from llmq_tpu_torch.ops import kernels
 
-    params = (state.get if "serve-tiering" in state.get("chosen", ())
-              else state.pop)("serve_params", None)
+    params = (state.get if {"serve-tiering", "serve-disagg"} & set(
+        state.get("chosen", ())) else state.pop)("serve_params", None)
     if params is None:
         raise AssertionError("serve-spec runs on the serve phase's weights: "
                              "run serve before it")
@@ -7815,7 +7871,8 @@ def phase_serve_tiering(state) -> None:
 
     from llmq_tpu_torch.ops.kernels import BUILD_DIR
 
-    params = state.pop("serve_params", None)
+    params = (state.get if "serve-disagg" in state.get("chosen", ())
+              else state.pop)("serve_params", None)
     if params is None:
         raise AssertionError("serve-tiering runs on the serve phase's "
                              "weights: run serve before it")
@@ -8538,10 +8595,10 @@ def phase_serve_tenancy(state) -> None:
         if app is not None:
             app.stop()
         reset_tenancy()
-        if not {"serve-plane", "serve-cluster"} & set(
+        if not {"serve-plane", "serve-control", "serve-cluster"} & set(
                 state.get("chosen", ())):
-            # The serve-plane and serve-cluster phases serve on this
-            # engine after this one.
+            # The serve-plane, serve-control and serve-cluster phases
+            # serve on this engine after this one.
             state.pop("serve_engine", None)
             engine.executor.release_graphs()
     if counts:
@@ -8866,14 +8923,972 @@ def phase_serve_weights(state) -> None:
     if counts:
         raise AssertionError(f"serve-weights called plain twins: {counts}")
 
+# -- serve-control: the control plane on the card --------------------------------
+
+#: The serve-control phase. The controller's tick and its scale-up
+#: trigger (backlog per healthy replica); the scale cooldown, which runs
+#: from the tick that raised the target (the child's boot included) and
+#: must outlast gates a and b: an idle tick past it drains a replica; and
+#: how long a provisioned child may take to answer /health.
+CONTROL_TICK_S = 0.5
+CONTROL_BACKLOG_PER_REPLICA = 4
+CONTROL_COOLDOWN_S = 60.0
+CONTROL_READY_S = 600.0
+#: The workers dispatch at most CONTROL_WORKERS x CONTROL_CONCURRENT
+#: messages at once, one popped at a time, so a burst queues (the
+#: default 4 x 50 would drain any burst into the workers at once). A
+#: worker at its limit still holds the one message it popped next, so
+#: gate b's CONTROL_KILL_ROWS concurrent dispatches need room to spare
+#: (at 4 x 2, 7 of 8 ran at once).
+CONTROL_WORKERS = 4
+CONTROL_CONCURRENT = 3
+#: a. the burst that queues, and the batch that follows the scale-up.
+CONTROL_BURST = 40
+CONTROL_BURST_NEW = 16
+CONTROL_SPREAD = 8
+#: b. rows held on the child at its kill, and their new tokens (long
+#: enough that dispatches trickling in from a busy parent still overlap:
+#: at 256 all 8 were once never seen together; 8 x 43 pages fit the pool);
+#: past CONTROL_KILL_WAIT_S the kill waits for one row only.
+CONTROL_KILL_ROWS = 8
+CONTROL_KILL_NEW = 640
+CONTROL_KILL_WAIT_S = 4.0
+#: c. TTFT objectives (ms): one nothing breaches, one the card cannot
+#: meet; the requests that feed the burn.
+CONTROL_LOOSE_TTFT_MS = 600000.0
+CONTROL_TIGHT_TTFT_MS = 1.0
+CONTROL_BURN_REQUESTS = 2
+
+
+def _control_ports() -> int:
+    """A base port whose next three ports are free (the pool's replica
+    N listens on base + N)."""
+    import socket
+
+    for _ in range(50):
+        base = _free_tcp_port()
+        socks = []
+        try:
+            for n in (1, 2, 3):
+                s = socket.socket()
+                socks.append(s)
+                s.bind(("127.0.0.1", base + n))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise AssertionError("no free port range for the replica pool")
+
+
+def _control_config_files(work: str):
+    """The child's file (serve-plane's ``configs/config.yaml`` with its
+    overrides) and the parent's: the same with the control plane on (a
+    subprocess pool of 1-2 replicas whose children get ``--config`` of
+    the child's file), the load balancer's probe left to the controller
+    (interval 0) and round robin, the breakers off (a replica's death is
+    found by the probes), the burst-queueing workers, and a TTFT
+    objective nothing breaches (the realtime one off)."""
+    import yaml
+
+    from llmq_tpu_torch.core.config import load_config
+
+    _cfg0, plane_path = _plane_config_file()
+    with open(plane_path) as f:
+        data = yaml.safe_load(f)
+    child_path = os.path.join(work, "control_child.yaml")
+    with open(child_path, "w") as f:
+        yaml.safe_dump(data, f, sort_keys=False)
+    base_port = _control_ports()
+    data["loadbalancer"].update(strategy="round_robin",
+                                health_check_interval=0.0)
+    data["cluster"]["breaker"] = {"enabled": False}
+    data["queue"]["worker"].update(count=CONTROL_WORKERS,
+                                   max_concurrent=CONTROL_CONCURRENT,
+                                   max_batch_size=1)
+    data["observability"]["slo"].update(
+        ttft_p99_ms=CONTROL_LOOSE_TTFT_MS, realtime_p99_ms=0.0)
+    data["controlplane"].update(
+        enabled=True, interval=CONTROL_TICK_S, min_replicas=1,
+        max_replicas=2, backlog_per_replica=CONTROL_BACKLOG_PER_REPLICA,
+        cooldown=CONTROL_COOLDOWN_S, scale_down_headroom=1.0,
+        pool={"kind": "subprocess", "base_port": base_port,
+              "args": ["--config", child_path],
+              "ready_timeout": CONTROL_READY_S})
+    path = os.path.join(work, "control_parent.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(data, f, sort_keys=False)
+    cfg = load_config(path, env=False)
+    cp = cfg.controlplane
+    if (not cp.enabled or cp.pool.kind != "subprocess"
+            or cp.pool.args != ["--config", child_path]
+            or cfg.cluster.breaker.enabled
+            or cfg.queue.worker.max_concurrent != CONTROL_CONCURRENT):
+        raise AssertionError("the control config file did not load to the "
+                             "phase's settings")
+    return cfg, path, child_path
+
+
+def _hold_loop(ctl) -> None:
+    """Stop the controller's loop thread (its pool and replicas stay):
+    the ladder's ticks of gate c are taken by hand."""
+    ctl._stop.set()
+    if ctl._thread is not None:
+        ctl._thread.join(timeout=CONTROL_READY_S)
+        ctl._thread = None
+    ctl._stop.clear()
+
+
+def _child_status(work: str, seq: int):
+    try:
+        with open(os.path.join(work, f"status-replica-{seq}.json")) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
+def _pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True
+    return True
+
+
+def _control_scale_up(app, engine, ctl, base, work, out) -> str:
+    """a. A queued burst drives ``scale_up`` (reason ``backlog``); the
+    child serves the parent's model and takes dispatches."""
+    from llmq_tpu_torch.observability.critical_path import get_boot_registry
+
+    t0 = time.perf_counter()
+    ids = _cluster_post(base, CONTROL_BURST, CONTROL_BURST_NEW, "xa",
+                        tiers=("high",))
+    _until(lambda: ctl.action_counts.get("scale_up:backlog"),
+           CONTROL_READY_S, "scale_up for the backlog", poll=0.01)
+    took = time.perf_counter() - t0
+    kids = [e for e in app.load_balancer.endpoints()
+            if e.metadata.get("pool")]
+    if len(kids) != 1 or ctl.target != 2:
+        raise AssertionError(f"a. after the scale-up: {kids}, target "
+                             f"{ctl.target}")
+    child = kids[0]
+    _check_completed([_poll(base, mid) for mid in ids], "serve-control a")
+    _, h = _http("GET", f"{child.url}/health")
+    _, st = _http("GET", f"{child.url}/api/v1/engine/stats")
+    mine = engine.get_stats()
+    if (h.get("engine") != "running"
+            or st["device"]["model"] != mine["device"]["model"]
+            or st["kv_pages_total"] != mine["kv_pages_total"]
+            or st["slots"] != mine["slots"]):
+        raise AssertionError(f"a. the child serves another model: {h}, "
+                             f"{st['device']['model']} vs "
+                             f"{mine['device']['model']}")
+    log_path = os.path.join(work, f"replica-{child.url.rsplit(':', 1)[1]}"
+                                  f".log")
+    with open(log_path) as f:
+        served = [ln for ln in f if ln.startswith("serving ")]
+    boot = get_boot_registry().get(child.id) or {}
+    spread = _cluster_post(base, CONTROL_SPREAD, CONTROL_BURST_NEW, "xs",
+                           tiers=("high",))
+    done = [_poll(base, mid) for mid in spread]
+    _check_completed(done, "serve-control a (spread)")
+    on = {}
+    for m in done:
+        eid = m["metadata"]["endpoint_id"]
+        on[eid] = on.get(eid, 0) + 1
+    if (not on.get(child.id) or not served
+            or f"serving {app.cfg.model.name} on " not in served[0]):
+        raise AssertionError(f"a. the child took {on}; its log says "
+                             f"{served}")
+    out["a"] = {"scale_up_after_s": took, "child": child.id,
+                "child_boot_s": boot.get("total_s"),
+                "child_stages_s": boot.get("stages_s"),
+                "dispatch_by_endpoint": on}
+    log(f"[serve-control] a. a burst of {CONTROL_BURST} queued messages: "
+        f"scale_up (backlog) {took:.1f} s after the first post; the child "
+        f"{child.id} ({served[0].strip()}) booted in "
+        f"{boot.get('total_s')} s, stages adopted {boot.get('stages_s')}; "
+        f"{_params_b(st)} params like the parent's; the next "
+        f"{CONTROL_SPREAD} dispatched {on} ({CARD})")
+    return child.id
+
+
+def _params_b(stats) -> str:
+    return f"{stats['device']['model']['n_params'] / 1e9:.2f} B"
+
+
+def _kill_moment(app, router, base, work, seq, child_id, ids) -> dict:
+    """Wait until the child decodes all the kill rows, or, past
+    CONTROL_KILL_WAIT_S, until it decodes at least one of them (the
+    card has shown 7 of 8 at most, and with 256-token rows none of the
+    8 together), and return its status then. A timeout raises with what the wait saw."""
+    seen = []
+    t0 = time.time()
+
+    def ready():
+        st = _child_status(work, seq) or {}
+        n = st.get("decoding", 0)
+        seen.append(n)
+        return n >= CONTROL_KILL_ROWS or (
+            n >= 1 and time.time() - t0 > CONTROL_KILL_WAIT_S)
+
+    try:
+        _until(ready, 120, "kill rows decoding on the child", poll=0.01)
+    except AssertionError:
+        msgs = {mid: _http("GET", f"{base}/api/v1/messages/{mid}")[1].get(
+            "status") for mid in ids}
+        eps = [(e.id, e.status.value, e.connections)
+               for e in app.load_balancer.endpoints()]
+        raise AssertionError(
+            f"b. no kill row decoded on the child {child_id}: most at once "
+            f"{max(seen or [0])}; its status {_child_status(work, seq)}; "
+            f"endpoints {eps}; router {router.get_stats()['dispatches']} "
+            f"dispatches; messages {msgs}") from None
+    return _child_status(work, seq)
+
+
+def _control_kill(app, ctl, router, base, work, child_id, out) -> dict:
+    """b. The child SIGKILLed with CONTROL_KILL_ROWS rows decoding on it:
+    the controller replaces it (``replace``, ``replica_dead``), every
+    message completes once."""
+    import signal
+
+    from llmq_tpu_torch.chaos import InvariantChecker
+
+    pool = ctl.pool
+    pid = pool.pids()[child_id]
+    seq = int(child_id.rsplit(":", 1)[1]) - int(
+        app.cfg.controlplane.pool.base_port)
+    local_id = router.get_stats()["local_endpoint_id"]
+    checker = InvariantChecker()
+    mgr = app.factory.get_queue_manager("standard")
+    orig = mgr.complete_message
+
+    def complete(m, *a, **kw):
+        checker.completed(m.id)
+        return orig(m, *a, **kw)
+
+    mgr.complete_message = complete
+    replaced0 = ctl.action_counts.get("replace:replica_dead", 0)
+    try:
+        # The loop holds while the local replica drains: a tick would read
+        # the drain as a missing replica and provision one.
+        _hold_loop(ctl)
+        router.drain_endpoint(local_id)
+        ids = []
+        for i in range(CONTROL_KILL_ROWS):
+            mid = f"xk-{i}"
+            checker.submitted(mid)
+            _post(base, {"id": mid, "priority": "high",
+                         "content": f"kill {i}: decode on the child until "
+                                    f"it dies.",
+                         "metadata": {"max_new_tokens": CONTROL_KILL_NEW}})
+            ids.append(mid)
+        child_status = _kill_moment(app, router, base, work, seq, child_id,
+                                    ids)
+        router.undrain_endpoint(local_id)
+        ctl.start()
+        t_kill = time.perf_counter()
+        os.kill(pid, signal.SIGKILL)
+        done = [_poll(base, mid) for mid in ids]
+        kill_to_last = time.perf_counter() - t_kill
+        _until(lambda: ctl.action_counts.get("replace:replica_dead", 0)
+               > replaced0 and ctl.last_recovery_s is not None,
+               CONTROL_READY_S, "the replacement and its recovery",
+               poll=0.05)
+        kill_to_recovered = time.perf_counter() - t_kill
+    finally:
+        mgr.complete_message = orig
+    _check_completed(done, "serve-control b")
+    checker.check()
+    s = checker.summary()
+    # The replacement may already be draining: the cooldown counts from
+    # the scale-up's tick.
+    kids = [e.id for e in app.load_balancer.endpoints()
+            if e.metadata.get("pool")]
+    if (s["terminal"].get("completed") != CONTROL_KILL_ROWS
+            or ctl.pool.get_stats()["provisioned"] != 2
+            or child_id in kids or _pid_alive(pid)):
+        raise AssertionError(f"b. after the kill: {s}, pool endpoints "
+                             f"{kids}, pool {ctl.pool.get_stats()}")
+    # Service goes on over the set as it is now (the cooldown may have
+    # passed: an idle tick can already be draining the replacement).
+    after = _cluster_post(base, CONTROL_SPREAD, CONTROL_BURST_NEW, "xr",
+                          tiers=("high",))
+    done2 = [_poll(base, mid) for mid in after]
+    _check_completed(done2, "serve-control b (after)")
+    on = {}
+    for m in done2:
+        eid = m["metadata"]["endpoint_id"]
+        on[eid] = on.get(eid, 0) + 1
+    out["b"] = {"kill_to_all_completed_s": kill_to_last,
+                "kill_to_recovered_s": kill_to_recovered,
+                "rows_decoding_at_kill": child_status["decoding"],
+                "controller_recovery_seconds": ctl.last_recovery_s,
+                "replacement": kids, "after_by_endpoint": on,
+                "actions": dict(ctl.action_counts)}
+    log(f"[serve-control] b. the child SIGKILLed with "
+        f"{child_status['decoding']} of {CONTROL_KILL_ROWS} rows decoding "
+        f"there: all "
+        f"{CONTROL_KILL_ROWS} completed once (none lost or duplicated) "
+        f"{kill_to_last:.2f} s after the kill; replace (replica_dead) -> "
+        f"{kids}, controller_recovery_seconds {ctl.last_recovery_s} "
+        f"(kill to recovered {kill_to_recovered:.1f} s); the next "
+        f"{CONTROL_SPREAD} dispatched {on} ({CARD})")
+    return child_status
+
+
+def _control_ladder(app, ctl, base, out) -> None:
+    """c. A TTFT objective the card cannot meet: one rung per hot tick;
+    at ``shed_batch`` a LOW submission is shed 429 ``degraded`` with
+    Retry-After and a HIGH one completes; the REST pause and resume show
+    on /health. Then the objective is loosened and the ladder relaxes."""
+    from llmq_tpu_torch.observability.slo import get_slo_tracker
+
+    tracker = get_slo_tracker()
+    shedder = app.api.shedder
+    _until(lambda: ctl.ladder.level == 0, 60, "the ladder back at rung 0",
+           poll=0.05)
+    _hold_loop(ctl)
+    before, _ms = _scrape(base)
+    tracker.reconfigure(targets={"ttft": CONTROL_TIGHT_TTFT_MS})
+    burn_ids = _cluster_post(base, CONTROL_BURN_REQUESTS, 8, "xb",
+                             tiers=("high",))
+    _check_completed([_poll(base, mid) for mid in burn_ids],
+                     "serve-control c (burn)")
+    climbs = []
+    for want in (1, 2):
+        rec = ctl.run_once()
+        climbs.append((rec["rung"], rec["actions"],
+                       rec["obs"]["fast_burn"]))
+        if rec["rung"] != want or ("escalate", "burn_fast") not in \
+                rec["actions"]:
+            raise AssertionError(f"c. tick {want}: {rec}")
+    if ctl.ladder.rung_name() != "shed_batch":
+        raise AssertionError(f"c. at {ctl.ladder.rung_name()}")
+    low = _http_status("POST", f"{base}/api/v1/messages",
+                       {"content": "a batch job", "priority": "low",
+                        "timeout": MESSAGE_TIMEOUT_S,
+                        "metadata": {"max_new_tokens": 8}})
+    high_id = _post(base, {"content": "an interactive question",
+                           "priority": "high",
+                           "metadata": {"max_new_tokens": 8}})
+    high = _poll(base, high_id)
+    after, _ms = _scrape(base)
+    shed = _msum(after, "llm_queue_requests_shed_total", reason="degraded",
+                 code="429") - _msum(before, "llm_queue_requests_shed_total",
+                                     reason="degraded", code="429")
+    if (low[0] != 429 or not low[2] or "degraded" not in low[1]["error"]
+            or high["status"] != "completed" or shed != 1.0
+            or shedder.shed_counts["degraded"] < 1):
+        raise AssertionError(f"c. LOW {low}, HIGH {high['status']}, "
+                             f"/metrics degraded {shed}")
+    pause = _http_status("POST", f"{base}/api/v1/admin/controller",
+                         {"action": "pause"})
+    _, h_paused = _http("GET", f"{base}/health")
+    held = rec = ctl.run_once()
+    resume = _http_status("POST", f"{base}/api/v1/admin/controller",
+                          {"action": "resume"})
+    _, h_running = _http("GET", f"{base}/health")
+    if (pause[:2] != (200, {"status": "paused"})
+            or h_paused.get("controller") != "paused"
+            or not rec["paused"] or rec["rung"] != 2
+            or resume[:2] != (200, {"status": "running"})
+            or h_running.get("controller") != "running"):
+        raise AssertionError(f"c. pause {pause}, /health {h_paused}, tick "
+                             f"{rec}, resume {resume}, /health {h_running}")
+    tracker.reconfigure(targets={})
+    tracker.reconfigure(targets={"ttft": CONTROL_LOOSE_TTFT_MS})
+    relax = []
+    for _ in range(3 * 2 + 2):
+        rec = ctl.run_once()
+        relax.append(rec["rung"])
+        if rec["rung"] == 0:
+            break
+    if relax[-1] != 0 or ctl.action_counts.get("relax:recovered", 0) < 2:
+        raise AssertionError(f"c. the ladder relaxed {relax}: "
+                             f"{ctl.action_counts}")
+    ctl.start()
+    out["c"] = {"climb": climbs, "low": [low[0], low[2]],
+                "high": high["status"], "relax_rungs": relax}
+    log(f"[serve-control] c. TTFT objective {CONTROL_TIGHT_TTFT_MS} ms: "
+        f"rungs {[c[0] for c in climbs]} in two hot ticks (fast burn "
+        f"{climbs[-1][2]}); at shed_batch LOW -> {low[0]} degraded with "
+        f"Retry-After {low[2]}, HIGH completed; /metrics degraded +1; "
+        f"pause -> /health paused, the tick held rung {held['rung']}; "
+        f"resume -> running; relaxed through {relax}")
+
+
+def _control_scale_down(app, ctl, pid: int, out) -> None:
+    """d. Idle: ``scale_down`` drains, then decommissions the pool replica
+    (``pid``), whose process exits; the local endpoint stays. (The idle
+    conditions may already hold during gate c's relaxing ticks.)"""
+    local = app.cluster_router.get_stats()["local_endpoint_id"]
+    t0 = time.perf_counter()
+    _until(lambda: ctl.action_counts.get("scale_down:idle", 0) >= 1
+           and [e.id for e in app.load_balancer.endpoints()] == [local]
+           and not _pid_alive(pid), 180,
+           "the idle scale-down and the child's exit", poll=0.05)
+    took = time.perf_counter() - t0
+    if ctl.pool.get_stats()["live"] != 0 or ctl.target != 1:
+        raise AssertionError(f"d. {ctl.pool.get_stats()}, target "
+                             f"{ctl.target}")
+    out["d"] = {"idle_to_gone_s": took}
+    log(f"[serve-control] d. idle: scale_down drained and decommissioned "
+        f"the replacement (pid {pid}) {took:.1f} s after gate c (its "
+        f"process exited); {local} stays")
+
+
+def phase_serve_control(state) -> None:
+    """The control plane on the card: the serve phase's bf16 engine behind
+    the full ``App`` in serve mode with ``controlplane.enabled`` and a
+    subprocess pool of real ``python -m llmq_tpu_torch serve`` replicas
+    (llama3-8b at full width and depth, random weights from seed 0, on
+    the same card, SPLIT_PRELUDE's counts)."""
+    import shutil
+
+    import torch
+
+    from llmq_tpu_torch.__main__ import App
+    from llmq_tpu_torch.controlplane import SubprocessReplicaPool
+    from llmq_tpu_torch.core.config import Config
+    from llmq_tpu_torch.observability.slo import configure_slo
+    from llmq_tpu_torch.ops import kernels
+    from llmq_tpu_torch.ops.kernels import BUILD_DIR
+
+    engine = state.pop("serve_engine", None)
+    if engine is None:
+        raise AssertionError("serve-control serves on the serve phase's "
+                             "engine: run serve before it")
+    work = str(BUILD_DIR / "serve_control")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    out = state.setdefault("serve_control", {})
+    t0 = time.perf_counter()
+    cfg, path, child_path = _control_config_files(work)
+    root = os.path.dirname(os.path.abspath(__file__))
+    old_pp = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = root + (os.pathsep + old_pp if old_pp else "")
+    # Earlier phases' requests, judged by the default objective, leave the
+    # tracker's window: the phase starts from no burn.
+    tracker = configure_slo(cfg.observability.slo)
+    tracker.reconfigure(targets={})
+    configure_slo(cfg.observability.slo)
+    counts, restore = _count_plain_calls()
+    app = None
+    procs = {}
+    failed = True
+    try:
+        app = App(cfg, engine=engine, with_scheduler=True)
+        ctl = app.controller
+        pool = ctl.pool
+        if (not isinstance(pool, SubprocessReplicaPool)
+                or app.autoscaler is not None
+                or app.api.controller is not ctl
+                or ctl.ladder.shedder is not app.api.shedder
+                or len(app.load_balancer.endpoints()) != 1):
+            raise AssertionError("the App did not wire the control plane")
+        pool.log_dir = work
+        pool.launcher = lambda seq: [
+            sys.executable, "-c", SPLIT_PRELUDE,
+            os.path.join(work, f"status-replica-{seq}.json")]
+        _track = pool.provision
+
+        def provision(seq):
+            ep = _track(seq)
+            if ep is not None:
+                procs[seq] = ep.metadata["pid"]
+            return ep
+
+        pool.provision = provision
+        base = f"http://127.0.0.1:{app.start(host='127.0.0.1', port=0)}"
+        _, h = _http("GET", f"{base}/health")
+        if h.get("controller") != "running" or "role" in h:
+            raise AssertionError(f"/health {h}")
+        kernels.reset_launches()
+        child_id = _control_scale_up(app, engine, ctl, base, work, out)
+        first = _control_kill(app, ctl, app.cluster_router, base, work,
+                              child_id, out)
+        _control_ladder(app, ctl, base, out)
+        replacement = max(procs)
+        second = _child_status(work, replacement)
+        _control_scale_down(app, ctl, procs[replacement], out)
+        second = (_child_status(work, replacement) or second
+                  or {"launches": {}, "plain": {}})
+        torch.cuda.synchronize()
+        launches = {"parent": {k: v for k, v in kernels.LAUNCHES.items()
+                               if v},
+                    "child": {k: v for k, v in first["launches"].items()
+                              if v},
+                    "replacement": {k: v for k, v in
+                                    second["launches"].items() if v}}
+        for who in ("parent", "child"):
+            got = launches[who]
+            for name in ("fused_decode", "kv_prefill_write",
+                         "prefill_attention"):
+                if not got.get(name):
+                    raise AssertionError(f"e. the {who} never launched "
+                                         f"{name}: {got}")
+        if first["plain"] or second["plain"] or counts:
+            raise AssertionError(f"e. twins called: parent {counts}, "
+                                 f"children {first['plain']} "
+                                 f"{second['plain']}")
+        out["launches"] = launches
+        scrape, _ms = _scrape(base)
+        out["recovery_seconds_count"] = _msum(
+            scrape, "llm_queue_controller_recovery_seconds_count")
+        out["actions"] = dict(ctl.action_counts)
+        if out["recovery_seconds_count"] < 1:
+            raise AssertionError("b. /metrics has no recovery observation")
+        log(f"[serve-control] e. launches while serving: {launches}; no "
+            f"twin called; controller actions {ctl.action_counts}; "
+            f"/metrics controller_recovery_seconds_count "
+            f"{out['recovery_seconds_count']:.0f}")
+        failed = False
+    finally:
+        restore()
+        if app is not None:
+            app.stop()
+        for pid in procs.values():
+            if _pid_alive(pid):
+                import signal
+                os.kill(pid, signal.SIGKILL)
+        if failed:
+            for name in sorted(os.listdir(work)):
+                if name.endswith(".log"):
+                    with open(os.path.join(work, name)) as f:
+                        lines = f.read().splitlines()
+                    print(f"--- {name} (last 40 lines) ---\n"
+                          + "\n".join(lines[-40:]), file=sys.stderr)
+        if old_pp is None:
+            os.environ.pop("PYTHONPATH", None)
+        else:
+            os.environ["PYTHONPATH"] = old_pp
+        tracker.reconfigure(targets={})
+        configure_slo(Config().observability.slo)
+        if {"serve-cluster", "serve-split"} & set(state.get("chosen", ())):
+            state["serve_engine"] = engine
+        else:
+            engine.executor.release_graphs()
+    log(f"[serve-control] {time.perf_counter() - t0:.1f} s ({CARD})")
+
+
+# -- serve-disagg: prefill/decode disaggregation on the card ---------------------
+
+#: The serve-disagg phase: the first turn's history (TIER_HISTORY bytes:
+#: as many tokens) and its new tokens, turn 2's; the routing thresholds
+#: (the phase's own: JAX's 250 ms would call no prompt on this card
+#: long), and the promote timeout (a claim's store seconds).
+DISAGG_T1_NEW = 16
+DISAGG_T2_NEW = 32
+DISAGG_LONG_PROMPT_MS = 4.0
+DISAGG_LONG_PROMPT_TOKENS = 256
+DISAGG_PROMOTE_TIMEOUT_S = 60.0
+
+
+def _disagg_cfg(work: str, role: str):
+    """The serve config with ``executor.kv_tiering`` on (a host tier of
+    TIER_HOST_CONVS conversations of the phase's history), the
+    conversation store in one SQLite file of the phase, and the
+    disaggregation plane on in ``role``."""
+    from llmq_tpu_torch.models.llama import get_config
+
+    cfg = _serve_cfg()
+    mc = get_config(cfg.model.name, max_seq_len=cfg.model.max_seq_len)
+    pages = -(-(TIER_HISTORY + DISAGG_T1_NEW + DISAGG_T2_NEW + 64) // PS)
+    kt = cfg.executor.kv_tiering
+    kt.enabled = True
+    kt.host_capacity_mb = int(-(-TIER_HOST_CONVS * pages
+                                 * _tier_page_bytes(mc, False) // 2**20))
+    # A claim reads and deletes a 203 MB SQLite entry: 3.7 s and more on
+    # the card's hosts, past the default 5 s promote timeout in some runs
+    # (the admission then gives up the placeholder, and its history).
+    kt.promote_timeout_s = DISAGG_PROMOTE_TIMEOUT_S
+    cfg.persistence.backend = "sqlite"
+    cfg.persistence.sqlite_path = os.path.join(work, "disagg.db")
+    d = cfg.disagg
+    d.enabled, d.role = True, role
+    d.long_prompt_ms = DISAGG_LONG_PROMPT_MS
+    d.long_prompt_tokens = DISAGG_LONG_PROMPT_TOKENS
+    return cfg
+
+
+class _Exported:
+    """Records, at each ``export_kv_pages`` of a plane, the pages and a
+    device copy of their bytes (every leaf), before the engine frees
+    them; and each exchange publication's meta."""
+
+    def __init__(self, engine, exchange) -> None:
+        import torch
+
+        self.plane, self.ex = engine._tiering, engine.executor
+        self.exchange = exchange
+        self.snaps, self.metas = [], []
+        exp, pub = self.plane._export, exchange.publish
+
+        def exporting(pages):
+            idx = torch.tensor(pages, device=self.ex.device)
+            self.snaps.append((list(pages), {
+                k: t.index_select(1, idx) for k, t in self.ex.cache.items()}))
+            return exp(pages)
+
+        def publishing(conv_id, bufs, specs, meta=None):
+            self.metas.append((conv_id, dict(meta or {})))
+            return pub(conv_id, bufs, specs, meta)
+
+        self._exp = exp
+        self.plane._export = exporting
+        exchange.publish = publishing
+
+    def close(self) -> None:
+        self.plane._export = self._exp
+        self.exchange.__dict__.pop("publish", None)
+
+
+def _disagg_turn(router, engine_ids, conv, text, new, tag, history=""):
+    """One turn through the router (its first pick steered by role);
+    returns (endpoint id, message)."""
+    from llmq_tpu_torch.core.types import Message
+
+    md = {"max_new_tokens": new}
+    if history:
+        md["history_text"] = history
+    msg = Message(id=tag, content=text, user_id="u", conversation_id=conv,
+                  timeout=MESSAGE_TIMEOUT_S, metadata=md)
+    router.process_fn(None, msg)
+    eid = msg.metadata.get("endpoint_id")
+    if eid not in engine_ids:
+        raise AssertionError(f"{tag}: dispatched to {eid}")
+    return eid, msg
+
+
+def _launch_delta(before) -> dict:
+    from llmq_tpu_torch.ops import kernels
+
+    return {k: v - before.get(k, 0) for k, v in kernels.LAUNCHES.items()
+            if v - before.get(k, 0)}
+
+
+def _owned_blobs(store, owner: str) -> list:
+    from llmq_tpu_torch.tiering import blob_meta
+
+    out = []
+    for cid in store.list_kv():
+        if cid.startswith("xchg:"):
+            continue
+        meta = blob_meta(store.load_kv(cid) or b"")
+        if meta is not None and meta.get("owner") == owner:
+            out.append(cid)
+    return sorted(out)
+
+
+def _disagg_handoff(apps, router, probes, out) -> None:
+    """a. b. c. and e. over the two engines."""
+    import torch
+
+    from llmq_tpu_torch import observability
+    from llmq_tpu_torch.engine.engine import GenRequest
+    from llmq_tpu_torch.ops import kernels
+
+    ap, ad = apps
+    pe, de = ap.engine, ad.engine
+    pprobe, dprobe = probes
+    exported = _Exported(pe, ap.disagg.exchange)
+    ids = {pe.name, de.name}
+    history = _tier_history()
+    try:
+        for eng in (pe, de):
+            eng.generate("warm up the disaggregated engine",
+                         max_new_tokens=4)
+        eta = router.prefill_eta(len(history) // 4)
+        for eng in (pe, de):
+            eng._prefix_cache.invalidate_all()
+        # a. The long first turn goes to the prefill engine and is
+        # published.
+        ap.state_manager.get_or_create("dg-1", "u")
+        before = dict(kernels.LAUNCHES)
+        eid1, m1 = _disagg_turn(router, ids, "dg-1", history, DISAGG_T1_NEW,
+                                "dg-1.t1")
+        torch.cuda.synchronize()
+        launches_p = _launch_delta(before)
+        px = ap.disagg.exchange
+        # The count moves after the store's write: wait on it, not on the
+        # key.
+        _until(lambda: px.totals["published"] >= 1, 60,
+               "dg-1's publication", poll=0.005)
+        meta = dict(exported.metas[-1][1])
+        pages, snap = exported.snaps[-1]
+        stats = router.get_stats()["disagg"]
+        if (eid1 != pe.name or stats["role_routes"] < 1
+                or px.totals["published"] != 1
+                or "xchg:dg-1" not in ap.state_manager.store.list_kv()
+                or pe.cached_conversations()):
+            raise AssertionError(f"a. turn 1 on {eid1}, {stats}, "
+                                 f"{ap.disagg.exchange.stats()}")
+        h1 = pprobe.handles["dg-1.t1"]
+        # b. Turn 2 hands off to the decode engine and claims the KV.
+        for eng in (pe, de):
+            eng._prefix_cache.invalidate_all()
+        before = dict(kernels.LAUNCHES)
+        eid2, m2 = _disagg_turn(router, ids, "dg-1", TIER_T2_PROMPT,
+                                DISAGG_T2_NEW, "dg-1.t2")
+        torch.cuda.synchronize()
+        launches_d = _launch_delta(before)
+        h2 = dprobe.handles["dg-1.t2"]
+        tl = observability.get_recorder().get("dg-1.t2")
+        stages = [e.stage for e in tl.events] if tl else []
+        st = de.get_stats()["kv_tiering"]
+        stats = router.get_stats()["disagg"]
+        if (eid2 != de.name or stats["handoffs"] != 1
+                or h2.result.kv_tier != "store"
+                or h2.result.cached_tokens != meta["length"]
+                or meta["length"] != len(meta["tokens"])
+                or st["hits"].get("store") != 1
+                or st["hits"].get("recompute", 0) != 0
+                or ad.disagg.exchange.totals["claimed"] != 1
+                or "handoff_claim_done" not in stages
+                or "kv_promote_done" in stages):
+            raise AssertionError(f"b. turn 2 on {eid2}: {h2.result}, "
+                                 f"{st['hits']}, {stats}, stages {stages}")
+        dprobe.same_bytes(dprobe.imports[-1], meta["length"], snap)
+        # The resident reference: the same two turns on the prefill
+        # engine with its pin kept (no publication).
+        hook, pe.on_conversation_cached = pe.on_conversation_cached, None
+        try:
+            for eng in (pe, de):
+                eng._prefix_cache.invalidate_all()
+            r1 = pe.submit(GenRequest(id="dg-ref.t1", prompt=history,
+                                      conversation_id="dg-ref",
+                                      max_new_tokens=DISAGG_T1_NEW))
+            r1.wait(MESSAGE_TIMEOUT_S)
+            pe._prefix_cache.invalidate_all()
+            r2 = pe.submit(GenRequest(id="dg-ref.t2", prompt=TIER_T2_PROMPT,
+                                      conversation_id="dg-ref",
+                                      max_new_tokens=DISAGG_T2_NEW))
+            r2.wait(MESSAGE_TIMEOUT_S)
+        finally:
+            pe.on_conversation_cached = hook
+        if (r1.result.tokens != h1.result.tokens
+                or r2.result.tokens != h2.result.tokens
+                or r2.result.cached_tokens != h2.result.cached_tokens):
+            raise AssertionError(
+                f"b. the handoff's tokens differ from the resident pin's: "
+                f"t1 {r1.result.tokens[:8]} vs {h1.result.tokens[:8]}, t2 "
+                f"{r2.result.tokens[:8]} vs {h2.result.tokens[:8]}")
+        # c. By recompute: the claim finds the entry past its TTL.
+        for eng in (pe, de):
+            eng._prefix_cache.invalidate_all()
+        ap.state_manager.get_or_create("dg-2", "u")
+        _disagg_turn(router, ids, "dg-2", history, DISAGG_T1_NEW, "dg-2.t1")
+        _until(lambda: px.totals["published"] >= 2, 60,
+               "dg-2's publication", poll=0.005)
+        dx = ad.disagg.exchange
+        # The decode side's clock reads past the entry's TTL (a shorter
+        # TTL would be overtaken by the claim's own seconds in the store,
+        # which the exchange counts as a fallback, not an expiry).
+        now0 = dx._now
+        dx._now = lambda: now0() + dx.claim_ttl_s + 1.0
+        try:
+            de._prefix_cache.invalidate_all()
+            eid3, _m3 = _disagg_turn(router, ids, "dg-2", TIER_T2_PROMPT,
+                                     DISAGG_T2_NEW, "dg-2.t2",
+                                     history=history)
+        finally:
+            dx._now = now0
+        h3 = dprobe.handles["dg-2.t2"]
+        if (eid3 != de.name or dx.totals["expired"] != 1
+                or h3.result.cached_tokens != 0
+                or h3.result.prompt_tokens < len(history)):
+            raise AssertionError(f"c. the expired claim: {eid3}, "
+                                 f"{dx.stats()}, {h3.result}")
+        need = ("fused_decode", "kv_prefill_write", "prefill_attention")
+        for who, got in (("prefill", launches_p), ("decode", launches_d)):
+            for name in need:
+                if not got.get(name):
+                    raise AssertionError(f"e. the {who} engine never "
+                                         f"launched {name}: {got}")
+        ttft = {"claim": _ttft_ms(h2), "recompute": _ttft_ms(h3),
+                "resident": _ttft_ms(r2)}
+        out.update(
+            eta_ms_for_history=eta, ttft_ms=ttft,
+            history_tokens=meta["length"], pages=len(pages),
+            claim_store_ms=h2.marks.get("_store_wait_ms"),
+            launches={"prefill": launches_p, "decode": launches_d},
+            exchange={"prefill": ap.disagg.exchange.stats(),
+                      "decode": dx.stats()},
+            router=router.get_stats()["disagg"])
+        log(f"[serve-disagg] a. a {len(history)}-token first turn (learned "
+            f"ETA {eta} ms for its {len(history) // 4} estimated tokens, "
+            f"long from {DISAGG_LONG_PROMPT_MS} ms) ran on {eid1} and was "
+            f"published ({len(pages)} pages)")
+        log(f"[serve-disagg] b. turn 2 handed off to {eid2} (reason "
+            f"handoff) and claimed {h2.result.cached_tokens} cached tokens "
+            f"from the exchange, 0 recomputed; the imported pages are the "
+            f"exported bytes; its {len(h2.result.tokens)} tokens equal the "
+            f"resident pin's; handoff_claim recorded")
+        log(f"[serve-disagg] c. turn-2 TTFT, ms: by claim "
+            f"{ttft['claim']:.1f} (store wait "
+            f"{h2.marks.get('_store_wait_ms')} ms), by recompute after the "
+            f"claim's TTL {ttft['recompute']:.1f} (kv_exchange_expired "
+            f"{dx.totals['expired']}), resident {ttft['resident']:.1f} "
+            f"({CARD})")
+        log(f"[serve-disagg] e. launches: prefill engine {launches_p}, "
+            f"decode engine {launches_d}")
+    finally:
+        exported.close()
+
+
+def _disagg_rehydrate(params, work, ad, out):
+    """d. The decode engine's conversations demote (the second spills the
+    first to the store); a fresh decode engine on the same store adopts
+    its owned blobs at start and nothing else."""
+    import gc
+
+    import torch
+
+    from llmq_tpu_torch.__main__ import App
+    from llmq_tpu_torch.engine.builder import build_engine
+
+    de = ad.engine
+    plane = de._tiering
+    for cid in ("dg-1", "dg-2"):
+        de.demote_conversation(cid)
+        _until(lambda: _tier_settled(plane, cid, "host")
+               or _tier_settled(plane, cid, "store"), 120,
+               f"{cid} demoted", poll=0.005)
+    _until(lambda: plane.counts()["store"] >= 1, 120,
+           "a spill to the store", poll=0.005)
+    store = ad.state_manager.store
+    owned = _owned_blobs(store, de.name)
+    if not owned or any(k.startswith("xchg:") for k in owned):
+        raise AssertionError(f"d. owned blobs {owned}")
+    name = de.name
+    ad.stop()
+    de.executor.release_graphs()
+    del de, plane
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = _disagg_cfg(work, "decode")
+    fresh = build_engine(cfg, params=params, name=name, warmup=False)
+    app = App(cfg, engine=fresh, with_api=False, with_workers=False)
+    try:
+        counts = fresh._tiering.counts()
+        with fresh._tiering._mu:
+            held = sorted(fresh._tiering._entries)
+        handles = {cid: (app.state_manager.prefix_handle(cid) or {}).get(
+            "tier") for cid in owned}
+        cached = {cid: fresh.prefill_estimate(cid, 8)[0] for cid in owned}
+        if (held != owned or counts["store"] != len(owned)
+                or set(handles.values()) != {"store"}
+                or min(cached.values()) <= 0
+                or fresh.disagg_role != "decode"):
+            raise AssertionError(f"d. the fresh engine holds {held} "
+                                 f"({counts}), handles {handles}, cached "
+                                 f"{cached}; owned {owned}")
+        out["rehydrated"] = owned
+        log(f"[serve-disagg] d. a fresh decode engine on the same store "
+            f"adopted its owned spilled blobs {owned} at start (store tier, "
+            f"prefix handles at 'store', {cached} tokens promotable); no "
+            f"exchange entry or other owner's blob")
+    finally:
+        app.stop()
+        fresh.executor.release_graphs()
+
+
+def phase_serve_disagg(state) -> None:
+    """Prefill/decode disaggregation on the card: two bf16 engines over the
+    serve phase's weights (llama3-8b at full width and depth) with
+    ``executor.kv_tiering`` on, a prefill one and a decode one over one
+    SQLite conversation store, each behind its ``App`` (the
+    disaggregation plane built from the config), as in-process endpoints
+    of one cluster router that steers by role with the prefill engine's
+    learned prefill ETA."""
+    import gc
+    import shutil
+
+    import torch
+
+    from llmq_tpu_torch.__main__ import App
+    from llmq_tpu_torch.cluster.router import ClusterRouter
+    from llmq_tpu_torch.core.config import ClusterConfig, LoadBalancerConfig
+    from llmq_tpu_torch.engine.builder import build_engine
+    from llmq_tpu_torch.loadbalancer.load_balancer import LoadBalancer
+    from llmq_tpu_torch.ops.kernels import BUILD_DIR
+
+    params = state.pop("serve_params", None)
+    if params is None:
+        raise AssertionError("serve-disagg runs on the serve phase's "
+                             "weights: run serve before it")
+    work = str(BUILD_DIR / "serve_disagg")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    out = state.setdefault("serve_disagg", {})
+    t0 = time.perf_counter()
+    counts, restore = _count_plain_calls()
+    apps, probes = [], []
+    try:
+        for role in ("prefill", "decode"):
+            cfg = _disagg_cfg(work, role)
+            t_b = time.perf_counter()
+            eng = build_engine(cfg, params=params, name=f"disagg-{role}",
+                               warmup=True)
+            app = App(cfg, engine=eng, with_api=False, with_workers=False)
+            app.start()
+            apps.append(app)
+            if (app.disagg is None or app.disagg.exchange is None
+                    or eng._tiering.exchange is not app.disagg.exchange
+                    or eng.disagg_role != role
+                    or not eng._tiering.pool.pinned):
+                raise AssertionError(f"{role}: the App did not wire the "
+                                     f"disaggregation plane")
+            log(f"[serve-disagg] the {role} engine built and wired in "
+                f"{time.perf_counter() - t_b:.1f} s")
+        ap, ad = apps
+        lb = LoadBalancer(LoadBalancerConfig(strategy="round_robin",
+                                             health_check_interval=0.0))
+        router = ClusterRouter(lb, config=ClusterConfig(),
+                               state_manager=ap.state_manager)
+        for app in apps:
+            router.register_engine(app.engine)
+        router.disagg = ap.cfg.disagg
+        router.prefill_eta = ap.resource_scheduler.prefill_eta_ms
+        probes = [_TierProbe(app.engine) for app in apps]
+        _disagg_handoff(apps, router, probes, out)
+        for p in probes:
+            p.close()
+        probes = []
+        _disagg_rehydrate(params, work, ad, out)
+        if counts:
+            raise AssertionError(f"serve-disagg called plain twins: {counts}")
+    finally:
+        restore()
+        for p in probes:
+            p.close()
+        for app in apps:
+            app.stop()
+            app.engine.executor.release_graphs()
+        apps = None
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"[serve-disagg] no twin called; {time.perf_counter() - t0:.1f} s "
+        f"({CARD})")
+
+
 PHASES = [("env", phase_env), ("build", phase_build),
           ("kernels", phase_kernels), ("split", phase_split),
           ("model", phase_model), ("graphs", phase_graphs),
           ("serve", phase_serve), ("serve-spec", phase_serve_spec),
           ("serve-tiering", phase_serve_tiering),
+          ("serve-disagg", phase_serve_disagg),
           ("serve-tenancy", phase_serve_tenancy),
           ("serve-weights", phase_serve_weights),
           ("serve-plane", phase_serve_plane),
+          ("serve-control", phase_serve_control),
           ("serve-cluster", phase_serve_cluster),
           ("serve-split", phase_serve_split),
           ("serve-int8", phase_serve_int8)]
@@ -8931,6 +9946,8 @@ def main(argv=()) -> int:
                       "serve_plane": state.get("serve_plane"),
                       "serve_split": state.get("serve_split"),
                       "serve_cluster": state.get("serve_cluster"),
+                      "serve_control": state.get("serve_control"),
+                      "serve_disagg": state.get("serve_disagg"),
                       "serve_spec": state.get("serve_spec"),
                       "serve_tiering": state.get("serve_tiering"),
                       "serve_tenancy": state.get("serve_tenancy"),

@@ -38,6 +38,17 @@ endpoint of a two-replica set on its first tick, about
 ``scheduler.min_endpoints`` keeps it. ``scheduler`` runs that monitor
 loop alone, with no API, workers or engine.
 
+The control plane (``controlplane.enabled``, ``controlplane/``) takes
+the autoscaler's place in ``serve``: a reconcile controller over the
+cluster router (built over the local engine when there are no peers)
+that provisions and replaces replicas through its pool (``pool.kind:
+subprocess`` spawns ``python -m llmq_tpu_torch serve`` children) and
+climbs the degradation ladder at the overload shedder. The
+disaggregation plane (``disagg.enabled``, ``disagg/``) gives the engine
+its ``role``, wires the KV exchange over the conversation store into the
+tiering plane, steers the router by role, and on drain publishes every
+warm conversation to the exchange.
+
 Configuration: dataclass defaults, then a YAML file (``--config``, else
 ``LLMQ_CONFIG``, else ``./config.yaml`` or ``./configs/config.yaml``),
 then ``LLMQ_*`` environment overrides, then these flags. A file that
@@ -76,7 +87,9 @@ from llmq_tpu_torch.cluster import ClusterRouter, build_cluster_router
 from llmq_tpu_torch.conversation.persistence import make_store
 from llmq_tpu_torch.conversation.resilience import wrap_store
 from llmq_tpu_torch.conversation.state_manager import StateManager
+from llmq_tpu_torch.controlplane import ReplicaController, build_controller
 from llmq_tpu_torch.core.config import Config, load_config
+from llmq_tpu_torch.disagg import DisaggCoordinator, build_disagg
 from llmq_tpu_torch.engine.builder import build_engine
 from llmq_tpu_torch.engine.engine import InferenceEngine
 from llmq_tpu_torch.engine.supervisor import EngineSupervisor
@@ -172,6 +185,36 @@ class App:
                                            and cfg.cluster.include_local)
                      else "")
 
+        # The disaggregation plane: the role and the KV exchange over the
+        # store the state manager persists to. Off, nothing is built.
+        self.disagg: Optional[DisaggCoordinator] = None
+        if cfg.disagg.enabled and engine is not None:
+            self.disagg = build_disagg(cfg, engine, store,
+                                       enable_metrics=cfg.queue.enable_metrics)
+            if self.disagg is not None:
+                log.info("disagg plane up: role=%s exchange=%s",
+                         self.disagg.role, self.disagg.exchange is not None)
+        # The control plane needs the replica set's routing: a serve
+        # process without peers gets a router over its own engine, so
+        # provisioned replicas take traffic. The controller itself is
+        # built after the API server (the ladder acts at its shedder).
+        self.controller: Optional[ReplicaController] = None
+        if (cfg.controlplane.enabled and self.cluster_router is None
+                and engine is not None):
+            self.cluster_router = ClusterRouter(
+                self.load_balancer, config=cfg.cluster,
+                state_manager=self.state_manager,
+                enable_metrics=cfg.queue.enable_metrics)
+            self.cluster_router.register_engine(engine)
+            log.info("control plane: cluster router built over the "
+                     "local engine")
+        if cfg.disagg.enabled and self.cluster_router is not None:
+            # Role steering on either router: the learned prefill rate
+            # decides which first turns are long.
+            self.cluster_router.disagg = cfg.disagg
+            self.cluster_router.prefill_eta = (
+                self.resource_scheduler.prefill_eta_ms)
+
         # The split deployment's transport: the consumer side claims
         # spooled messages into the local queues and acknowledges the
         # results; the gateway side relays drained messages out and
@@ -214,8 +257,24 @@ class App:
                                  message_store=self.message_store)
             if spool_dir and not with_workers:
                 self._wire_spool_gateway(spool_dir)
+        if cfg.controlplane.enabled and self.cluster_router is not None:
+            self.controller = build_controller(
+                cfg, self.cluster_router,
+                queue_manager=self.factory.get_queue_manager("standard"),
+                shedder=self.api.shedder if self.api is not None else None,
+                supervisor=self.supervisor)
+            if self.api is not None:
+                self.api.controller = self.controller
+            if self.controller is not None:
+                log.info("control plane up: %d..%d replicas, %d ladder "
+                         "rung(s), pool=%s", cfg.controlplane.min_replicas,
+                         cfg.controlplane.max_replicas,
+                         len(cfg.controlplane.rungs),
+                         cfg.controlplane.pool.kind)
         self.autoscaler: Optional[Autoscaler] = None
-        if with_scheduler:
+        # The controller supersedes the autoscaler: two reconcilers on
+        # one load balancer would fight over its endpoints.
+        if with_scheduler and self.controller is None:
             self.autoscaler = Autoscaler(
                 self.factory.get_queue_manager("standard"),
                 self.load_balancer, cfg.scheduler)
@@ -388,6 +447,8 @@ class App:
             w.start()
         if self.autoscaler is not None:
             self.autoscaler.start()
+        if self.controller is not None:
+            self.controller.start()
         for part in (self.spool_consumer, self.spool_collector,
                      self._spool_relay):
             if part is not None:
@@ -399,6 +460,10 @@ class App:
         it would take the deliberate stop for a crash), the engine's
         chip allocation released before the engine stops."""
         log.info("shutting down ...")
+        if self.controller is not None:
+            # First: a live controller would replace the replicas this
+            # teardown stops. Its pool stops its replicas.
+            self.controller.stop()
         if self.supervisor is not None:
             self.supervisor.stop()
         self._hb_stop.set()
@@ -461,6 +526,17 @@ class App:
                 time.sleep(0.05)
             else:
                 idle = False
+        if self.disagg is not None:
+            # Every warm conversation goes to the exchange, so peers
+            # resume it from the store tier; the publishes land before
+            # the stop cascade stops the plane.
+            try:
+                if (self.disagg.publish_warm()
+                        and self.disagg.plane is not None):
+                    self.disagg.plane.flush_jobs(
+                        timeout=max(1.0, timeout / 2))
+            except Exception:  # noqa: BLE001 — the drain must end
+                log.exception("drain-time kv migration failed")
         log.info("drain complete (idle=%s)", idle)
         self._drain_idle = idle
         self._drain_done.set()
@@ -499,6 +575,8 @@ def _load(args) -> Config:
         cfg.model.name = args.model
     if args.device is not None:
         cfg.device = args.device
+    if args.backend is not None:
+        cfg.executor.backend = args.backend
     if args.log_format is not None:
         cfg.logging.format = args.log_format
     if args.peers:
@@ -637,6 +715,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("--model", help="override model.name "
                         "(llama3-tiny | llama3-1b | llama3-8b | llama3-70b)")
     parser.add_argument("--device", help="override device (cuda | cpu)")
+    parser.add_argument("--backend", choices=["torch", "echo"],
+                        help="override executor.backend")
     parser.add_argument("--log-format", choices=["json", "console"],
                         help="override logging.format (JSON lines with the "
                              "request's ids, or console lines)")

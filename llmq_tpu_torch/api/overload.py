@@ -1,6 +1,5 @@
 """Overload shedding at the API admission edge (the port's copy of
-``llmq_tpu/api/overload.py``, without the degradation ladder, which
-waits for the control plane).
+``llmq_tpu/api/overload.py``).
 
 Once the backlog exceeds what the engine can serve within the SLA,
 accepting more work makes every queued request later; the move that
@@ -23,6 +22,12 @@ in cost order:
 3. **deadline headroom** → 429: the estimated wait plus the prompt's
    prefill ETA at the resource scheduler's learned rate already exceeds
    the request's own ``timeout`` × ``deadline_headroom``.
+
+While the control plane's degradation ladder holds a rung
+(``set_degradation``), the rung first sheds whole priority tiers and
+tenants under a fairness-weight bound (429 ``degraded``), and scales the
+backlog limit by its ``backlog_factor`` and the deadline headroom by its
+``headroom_factor``.
 
 Every shed counts in ``shed_counts`` and in ``requests_shed_total`` (by
 reason and code, with ``queue.enable_metrics``) and carries
@@ -65,9 +70,12 @@ class OverloadShedder:
             limit = int(0.9 * getattr(queue_config, "max_queue_size",
                                       10000))
         self.queue_depth_limit = limit
+        #: The degradation ladder's active rung; None: no rung, and the
+        #: admit path is the plain one.
+        self._degradation: Optional[dict] = None
         self._mu = threading.Lock()
         self.shed_counts = {"backlog": 0, "sla": 0, "engine_down": 0,
-                            "tenant_quota": 0}
+                            "tenant_quota": 0, "degraded": 0}
 
     def admit(self, msg: Message, manager=None,
               estimated_wait: float = 0.0) -> None:
@@ -80,12 +88,19 @@ class OverloadShedder:
         # the global checks see the same figure.
         est_tokens = estimate_tokens(msg)
         self._reject_over_quota(msg, est_tokens, retry_base)
+        deg = self._degradation
+        if deg is not None:
+            self._reject_degraded(msg, deg, retry_base)
         eng = self.engine
         if eng is not None and not getattr(eng, "running", True):
             self._shed("engine_down", 503, retry_base,
                        "engine not running on this host (restarting or "
                        "failed) — retry or use another replica")
         depth_limit = self.queue_depth_limit
+        if deg is not None and depth_limit > 0:
+            depth_limit = max(1, int(depth_limit
+                                     * float(deg.get("backlog_factor",
+                                                     1.0))))
         if manager is not None and depth_limit > 0:
             try:
                 depth = manager.total_pending()
@@ -98,6 +113,8 @@ class OverloadShedder:
                     f"queue backlog too deep ({depth} pending >= "
                     f"{depth_limit})")
         headroom = float(getattr(self.config, "deadline_headroom", 0.0))
+        if deg is not None and headroom > 0:
+            headroom *= float(deg.get("headroom_factor", 1.0))
         if headroom > 0 and msg.timeout and msg.timeout > 0:
             eta = float(estimated_wait) + self._prefill_eta_s(msg)
             if eta > msg.timeout * headroom:
@@ -136,6 +153,38 @@ class OverloadShedder:
                 f"tenant {tenant!r} token-rate limit exceeded "
                 f"(sustained {reg.spec_for(tenant).token_rate:.0f} "
                 f"tok/s)")
+
+    def set_degradation(self, spec: Optional[dict]) -> None:
+        """Apply the control plane's active rung, or clear it with None.
+        The admit path reads the attribute once a request."""
+        self._degradation = dict(spec) if spec else None
+        if spec:
+            log.warning("degradation rung active: %s",
+                        spec.get("name", "?"))
+        else:
+            log.info("degradation cleared (admission back to normal)")
+
+    def _reject_degraded(self, msg: Message, deg: dict,
+                         retry_base: float) -> None:
+        """The rung's outright sheds: its priority tiers (batch first),
+        then tenants whose configured weight is under its bound."""
+        tier = msg.priority.tier_name
+        if tier in (deg.get("shed_priorities") or ()):
+            self._shed(
+                "degraded", 429, retry_base,
+                f"degradation rung {deg.get('name', '?')!r} is "
+                f"shedding the {tier!r} tier — retry later")
+        weight_bound = float(deg.get("shed_tenant_weight_below", 0.0)
+                             or 0.0)
+        reg = self.tenant_registry
+        if weight_bound > 0 and reg is not None and reg.enabled:
+            tenant = sanitize_tenant(getattr(msg, "tenant_id", ""))
+            if reg.spec_for(tenant).weight < weight_bound:
+                self._shed(
+                    "degraded", 429, retry_base,
+                    f"degradation rung {deg.get('name', '?')!r} is "
+                    f"shedding tenants under weight {weight_bound} "
+                    f"(tenant {tenant!r})")
 
     def _charge_tenant(self, msg: Message, est_tokens: int) -> None:
         """The request passed every gate: its tokens leave the tenant's
@@ -176,9 +225,12 @@ class OverloadShedder:
                        retry_after=retry_after)
 
     def get_stats(self) -> dict:
+        deg = self._degradation
         with self._mu:
             return {"queue_depth_limit": self.queue_depth_limit,
-                    "shed": dict(self.shed_counts)}
+                    "shed": dict(self.shed_counts),
+                    "degradation": (deg.get("name", "?") if deg
+                                    else None)}
 
 
 def build_shedder(config, *, engine=None,

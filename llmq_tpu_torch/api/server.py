@@ -3,7 +3,9 @@ counterpart of ``llmq_tpu/api/server.py``, with the routes of the planes
 the port has):
 
 - ``GET  /health`` (engine liveness; ``draining`` while the process
-  drains; the ``store`` block with the store fault domain on)
+  drains; the engine's disaggregation ``role`` unless it is unified;
+  ``controller``: ``running`` or ``paused`` with the control plane on;
+  the ``store`` block with the store fault domain on)
 - ``GET  /metrics`` (Prometheus text exposition, ``metrics/registry.py``)
 - ``POST /api/v1/messages`` → 202, or with ``"stream": true`` an SSE
   stream of tokens; ``GET /api/v1/messages`` (filters) and
@@ -21,7 +23,8 @@ the port has):
   counters move), ``DELETE /api/v1/endpoints/:id`` (the load balancer)
 - ``GET /api/v1/cluster/stats`` and ``GET /api/v1/cluster/overview``
   (the cluster router's counters, and every replica's engine and device
-  blocks; 503 without a router)
+  blocks, with the controller's snapshot when there is one; 503 without
+  a router)
 - ``POST /api/v1/generate`` (synchronous generation)
 - observability: ``GET /api/v1/requests/:id/trace`` (one request's
   timeline, ``?format=chrome`` for Perfetto), ``GET /api/v1/usage``,
@@ -31,6 +34,8 @@ the port has):
   ``GET /api/v1/admin/flightrecorder``, ``POST``/``GET
   /api/v1/admin/profile`` (a bounded on-demand ``torch.profiler``
   capture; 409 while one runs)
+- ``GET``/``POST /api/v1/admin/controller`` (the control plane's
+  snapshot; ``{"action": "pause"|"resume"}``; 503 with the plane off)
 - admin: the process drain, preprocessor rules and user priorities,
   removal of a pending message, dead-letter requeue (one and all)
 
@@ -41,8 +46,7 @@ the overload shedder (429/503 with ``Retry-After``), the queue manager
 ``enqueued`` stage (the SSE path its ``dispatched`` too) into the flight
 recorder. Without an engine (the ``gateway``), the routes that need one
 (``/api/v1/engine/stats``, ``/api/v1/generate``, SSE) answer 503 and
-``/health`` has no ``engine`` field, as in the JAX package. The control
-plane's routes wait for that plane. Every response carries the CORS headers for a request's
+``/health`` has no ``engine`` field, as in the JAX package. Every response carries the CORS headers for a request's
 ``Origin`` that ``allowed_origins`` admits (default ``["*"]``, which
 never sends ``Access-Control-Allow-Credentials``), and an ``OPTIONS``
 preflight answers 204.
@@ -160,7 +164,7 @@ class ApiServer:
     def __init__(self, config: Optional[Config] = None, *,
                  queue_factory=None, preprocessor=None, state_manager=None,
                  load_balancer=None, resource_scheduler=None,
-                 engine=None, cluster_router=None,
+                 engine=None, cluster_router=None, controller=None,
                  drain_hook: Optional[Callable[[], None]] = None,
                  message_store: Optional[MessageStore] = None,
                  manager_name: str = "standard",
@@ -174,6 +178,9 @@ class ApiServer:
         self.engine = engine
         #: The replica-set router (``cluster/router.py``), or None.
         self.cluster_router = cluster_router
+        #: The control plane's ``ReplicaController``, or None (disabled:
+        #: no /health field, the admin route 503).
+        self.controller = controller
         #: The process drain (``App.drain``), run on a thread of its own
         #: by the admin route.
         self.drain_hook = drain_hook
@@ -265,6 +272,8 @@ class ApiServer:
         r("GET", f"{adm}/flightrecorder", self.get_flight_recorder)
         r("POST", f"{adm}/profile", self.start_profile)
         r("GET", f"{adm}/profile", self.get_profile_status)
+        r("POST", f"{adm}/controller", self.set_controller_state)
+        r("GET", f"{adm}/controller", self.get_controller_state)
         r("POST", f"{adm}/drain", self.drain_self)
         r("POST", f"{adm}/preprocessor/rules", self.add_priority_rule)
         r("GET", f"{adm}/preprocessor/rules", self.list_priority_rules)
@@ -432,6 +441,16 @@ class ApiServer:
             "version": __version__, "time": time.time()}
         if self.engine is not None:
             out["engine"] = "running" if self.engine.running else "stopped"
+            role = getattr(self.engine, "disagg_role", "unified")
+            if role != "unified":
+                # Peers' routers learn the role from the probes that
+                # learn liveness; a unified replica's body is as it was.
+                out["role"] = role
+        if self.controller is not None:
+            # Paused is an operator state; a disabled control plane has
+            # no controller and no field.
+            out["controller"] = ("paused" if self.controller.paused
+                                 else "running")
         self._add_boot(out)
         store_block = self._store_block()
         if store_block is not None:
@@ -889,6 +908,8 @@ class ApiServer:
             raise ApiError(503, "cluster router not configured "
                                 "(set cluster.peers / --peers)")
         out = self.cluster_router.overview()
+        if self.controller is not None:
+            out["controller"] = self.controller.snapshot()
         store_block = self._store_block()
         if store_block is not None:
             out["store"] = store_block
@@ -1115,6 +1136,33 @@ class ApiServer:
 
     def get_profile_status(self, req: _Request) -> Tuple[int, Any]:
         return 200, observability.device.profile_status()
+
+    def _require_controller(self):
+        if self.controller is None:
+            raise ApiError(503, "control plane disabled "
+                                "(set controlplane.enabled)")
+        return self.controller
+
+    def get_controller_state(self, req: _Request) -> Tuple[int, Any]:
+        """The controller's snapshot: rung, target and live replicas,
+        burn inputs, recovery, action counts."""
+        return 200, self._require_controller().snapshot()
+
+    def set_controller_state(self, req: _Request) -> Tuple[int, Any]:
+        """``{"action": "pause"|"resume"}``. A paused controller keeps
+        observing (its snapshot stays fresh, /health says "paused") and
+        takes no action."""
+        ctl = self._require_controller()
+        action = str(req.json().get("action", "")).strip().lower()
+        if action == "pause":
+            ctl.pause()
+        elif action == "resume":
+            ctl.resume()
+        else:
+            raise ApiError(400,
+                           f"action must be 'pause' or 'resume' "
+                           f"(got {action!r})")
+        return 200, {"status": "paused" if ctl.paused else "running"}
 
     # -- admin ---------------------------------------------------------------
 

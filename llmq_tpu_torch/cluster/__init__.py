@@ -29,6 +29,10 @@ def build_cluster_router(cfg: Config, load_balancer, *,
     router = ClusterRouter(load_balancer, config=ccfg,
                            state_manager=state_manager,
                            enable_metrics=cfg.queue.enable_metrics)
+    if cfg.disagg.enabled:
+        # Role-aware placement: long first turns to prefill replicas,
+        # follow-ups to decode replicas.
+        router.disagg = cfg.disagg
     if engine is not None and ccfg.include_local:
         router.register_engine(engine)
     router.register_peers(ccfg.peers)

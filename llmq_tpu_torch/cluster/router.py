@@ -30,8 +30,17 @@ engines. Metrics: ``cluster_dispatch_total{endpoint,reason}``,
 the breakers' ``circuit_breaker_state`` and
 ``circuit_breaker_trips_total``.
 
-The JAX package's role steering for prefill/decode disaggregation is
-not here: every decision is its unified route.
+With ``disagg`` set (the disaggregation plane on), the first pick of a
+dispatch steers by role: a follow-up turn (``history_text`` on the
+message, or a recorded placement) prefers decode replicas, a first turn
+prefers prefill replicas when its learned prefill ETA
+(``prefill_eta``, the resource scheduler's) reaches
+``disagg.long_prompt_ms``, or, before any observation, its estimated
+tokens reach ``long_prompt_tokens``. Replicas of the other role are
+excluded while one of the preferred role (or a unified one) remains; a
+conversation whose birth replica has the wrong role leaves its affinity
+(reason ``handoff``), and the KV exchange carries the KV across.
+Failover re-picks are never steered.
 """
 
 from __future__ import annotations
@@ -84,6 +93,17 @@ class ClusterRouter(EngineRouter):
         self.affinity_eligible = 0
         self.spills = 0
         self.failovers = 0
+        #: The DisaggConfig when the disaggregation plane is on; None
+        #: keeps every decision the unified route.
+        self.disagg = None
+        #: ``fn(est_tokens) -> Optional[float]``: the learned prefill ETA
+        #: in ms (None before the first observation).
+        self.prefill_eta = None
+        #: endpoint id → role pinned by an operator or the controller;
+        #: probes and local engines fill the rest.
+        self._roles: Dict[str, str] = {}
+        self.role_routes = 0
+        self.handoffs = 0
 
     # -- registration --------------------------------------------------------
 
@@ -116,6 +136,78 @@ class ClusterRouter(EngineRouter):
             eid = url.split("://", 1)[-1].rstrip("/") or url
             self.register_remote(url, endpoint_id=eid,
                                  timeout=self.config.peer_timeout)
+
+    # -- disaggregation roles -------------------------------------------------
+
+    def set_endpoint_role(self, endpoint_id: str, role: str) -> None:
+        """Pin an endpoint's role (the operator's and the controller's
+        seam; no probe overrides it)."""
+        with self._mu:
+            self._roles[endpoint_id] = role
+
+    def _role_of(self, ep: Endpoint) -> str:
+        """An endpoint's role: the pinned one, else the local engine's
+        ``disagg_role``, else the role its last /health probe advertised.
+        Anything unknown reads "unified" (routable for every preference)."""
+        with self._mu:
+            r = self._roles.get(ep.id)
+        if not r:
+            engine = self.engine_for(ep)
+            r = getattr(engine, "disagg_role", None)
+            if not r:
+                health = getattr(engine, "last_health", None)
+                if isinstance(health, dict):
+                    r = health.get("role")
+        return r if r in ("prefill", "decode") else "unified"
+
+    def _role_pref(self, msg: Message,
+                   session: Optional[str]) -> Optional[str]:
+        """The role that should serve this turn, or None with the plane
+        off. Tokens are estimated as ``len(content) // 4``, as JAX's
+        router does."""
+        dcfg = self.disagg
+        if dcfg is None or not getattr(dcfg, "enabled", False):
+            return None
+        followup = bool(msg.metadata.get("history_text"))
+        if not followup and session and self.state_manager is not None:
+            try:
+                followup = (self.state_manager.placement(session)
+                            is not None)
+            except Exception:  # noqa: BLE001 — a hint, not a gate
+                followup = False
+        if followup:
+            return "decode"
+        est_tokens = max(1, len(msg.content) // 4)
+        eta = None
+        if self.prefill_eta is not None:
+            try:
+                eta = self.prefill_eta(est_tokens)
+            except Exception:  # noqa: BLE001 — the estimator is advisory
+                eta = None
+        if eta is not None:
+            return ("prefill" if eta >= float(dcfg.long_prompt_ms)
+                    else "decode")
+        return ("prefill" if est_tokens >= int(dcfg.long_prompt_tokens)
+                else "decode")
+
+    def _role_exclusions(self, pref: Optional[str], avoid: set) -> set:
+        """The endpoints specialised for the other role; empty unless an
+        endpoint of the preferred role (or a unified one) stays
+        selectable: a preference never raises a NoEndpointError that the
+        unified route would not."""
+        if pref is None:
+            return set()
+        eps = self.lb.endpoints()
+        mismatched = {ep.id for ep in eps
+                      if self._role_of(ep) not in (pref, "unified")}
+        if not mismatched:
+            return set()
+        if not any(ep.id not in avoid and ep.id not in mismatched
+                   for ep in eps):
+            return set()
+        with self._mu:
+            self.role_routes += 1
+        return mismatched
 
     # -- affinity ------------------------------------------------------------
 
@@ -161,12 +253,36 @@ class ClusterRouter(EngineRouter):
         """Pick and book one endpoint: (endpoint, reason)."""
         aff = self.config.affinity
         avoid = self._avoid(tried)
+        # Role steering shapes the first pick only: a failover re-pick
+        # goes wide open.
+        pref = self._role_pref(msg, session) if not tried else None
+        role_avoid = self._role_exclusions(pref, avoid)
+
+        def pick(sid: Optional[str], reason: str) -> Tuple[Endpoint, str]:
+            if role_avoid:
+                try:
+                    return (self.lb.get_endpoint(
+                        msg, session_id=sid,
+                        exclude=avoid | role_avoid), reason)
+                except NoEndpointError:
+                    # The preferred role left meanwhile: the unified
+                    # route, never an error it would not raise.
+                    pass
+            return (self.lb.get_endpoint(msg, session_id=sid,
+                                         exclude=avoid), reason)
+
         if aff == "prefix" and session and not tried:
             eid = self._affine_endpoint(session)
             if eid is not None:
                 with self._mu:
                     self.affinity_eligible += 1
                 ep = self.lb.get_endpoint_by_id(eid)
+                if role_avoid and eid in role_avoid:
+                    # The birth replica has the wrong role for this turn:
+                    # the prefill → decode handoff leaves the affinity.
+                    with self._mu:
+                        self.handoffs += 1
+                    return pick(None, "handoff")
                 if (ep is not None and ep.load < self.config.spill_load
                         and eid not in avoid):
                     got = self.lb.acquire_endpoint(eid)
@@ -178,14 +294,13 @@ class ClusterRouter(EngineRouter):
                 # strategy.
                 with self._mu:
                     self.spills += 1
-                return self.lb.get_endpoint(msg, exclude=avoid), "spill"
-            return self.lb.get_endpoint(msg, exclude=avoid), "select"
+                return pick(None, "spill")
+            return pick(None, "select")
         # "session" keeps the LB's session map; "none" and the failover
         # re-picks go by the strategy alone.
         sid = session if (aff == "session" and not tried) else None
         reason = "failover" if tried else "select"
-        return self.lb.get_endpoint(msg, session_id=sid,
-                                    exclude=avoid), reason
+        return pick(sid, reason)
 
     # -- dispatch ------------------------------------------------------------
 
@@ -489,7 +604,8 @@ class ClusterRouter(EngineRouter):
             hits, eligible = self.affinity_hits, self.affinity_eligible
             dispatches, spills = self.dispatches, self.spills
             failovers = self.failovers
-        return {
+            role_routes, handoffs = self.role_routes, self.handoffs
+        out = {
             "dispatches": dispatches,
             "affinity_hits": hits,
             "affinity_eligible": eligible,
@@ -501,3 +617,12 @@ class ClusterRouter(EngineRouter):
             "endpoints": self.lb.get_stats(),
             "breakers": self.breakers.get_stats(),
         }
+        if self.disagg is not None and getattr(self.disagg, "enabled",
+                                               False):
+            out["disagg"] = {
+                "role_routes": role_routes,
+                "handoffs": handoffs,
+                "roles": {ep.id: self._role_of(ep)
+                          for ep in self.lb.endpoints()},
+            }
+        return out

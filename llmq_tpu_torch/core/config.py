@@ -4,8 +4,8 @@ file, then ``LLMQ_*`` environment overrides, then CLI flags.
 A copy of ``llmq_tpu/core/config.py`` holding what the port's planes
 read, with the JAX package's defaults. :func:`load_config` reads the same
 files as the JAX package's (``configs/config.yaml`` among them). A key of
-a plane the port does not have yet (the disaggregation, control-plane
-and scenario planes, the mesh, the TPU block), or one that nothing here
+a plane the port does not have yet (the scenario plane, the mesh, the
+TPU block), or one that nothing here
 reads (the server's read and write timeouts, the model's dtype, a tier's
 ``max_concurrent``, the metrics port and path, the load balancer's
 ``max_retries``, the resource scheduler's ``scale_*`` thresholds) is
@@ -32,6 +32,8 @@ VALID_BACKENDS = ("torch", "echo")
 VALID_LB_STRATEGIES = ("round_robin", "least_connections", "weighted_random",
                        "adaptive_load")
 VALID_SCHEDULER_STRATEGIES = ("static", "dynamic", "adaptive", "hybrid")
+VALID_DISAGG_ROLES = ("prefill", "decode", "unified")
+VALID_POOL_KINDS = ("none", "subprocess", "exec")
 
 
 @dataclass
@@ -308,6 +310,42 @@ class ClusterConfig:
 
 
 @dataclass
+class DisaggConfig:
+    """Prefill/decode disaggregation (``llmq_tpu_torch/disagg/``): replicas
+    specialise by role and hand conversation KV over through the
+    conversation store, used as a cluster-wide KV exchange. ``enabled:
+    false`` (the default) builds nothing."""
+    enabled: bool = False
+    #: "prefill" serves long first turns and publishes each finished
+    #: turn's KV; "decode" claims published KV and serves follow-ups;
+    #: "unified" does both (and uses the exchange for drain migration).
+    role: str = "unified"
+    #: A first turn of at least this many (estimated) prompt tokens
+    #: routes to a prefill replica, until the resource scheduler has
+    #: learned a prefill rate.
+    long_prompt_tokens: int = 512
+    #: With a learned rate: a first turn whose expected prefill takes at
+    #: least this many milliseconds is "long".
+    long_prompt_ms: float = 250.0
+    #: An exchange entry older than this at claim time is deleted and
+    #: the claimer recomputes.
+    claim_ttl_s: float = 120.0
+    #: Prefill replicas publish each finished turn's KV and release the
+    #: local pin.
+    publish_on_finish: bool = True
+    #: At start, adopt the spilled blobs this replica owns in the store.
+    rehydrate_on_start: bool = True
+    #: A missed exchange lookup is not repeated for this many seconds.
+    miss_ttl_s: float = 5.0
+
+    def __post_init__(self) -> None:
+        if self.role not in VALID_DISAGG_ROLES:
+            raise ValueError(
+                f"unknown disagg role {self.role!r}; "
+                f"valid: {VALID_DISAGG_ROLES}")
+
+
+@dataclass
 class LoggingConfig:
     """``utils/logging.py``: "json" or "console" lines on stdout or
     stderr."""
@@ -363,6 +401,98 @@ class SupervisorConfig:
     check_interval: float = 0.5
     max_restarts: int = 5
     restart_window: float = 60.0
+
+
+@dataclass
+class ReplicaPoolConfig:
+    """The control plane's provision seam (``controlplane/pool.py``):
+    where new replicas come from and how they are torn down."""
+    #: "none" (never provisions: healing and the ladder only),
+    #: "subprocess" (``python -m llmq_tpu_torch serve`` replicas on this
+    #: host), "exec" (``provision_cmd`` / ``decommission_cmd``).
+    kind: str = "none"
+    #: subprocess: replica N listens on ``base_port + N``.
+    base_port: int = 8200
+    #: subprocess: extra CLI arguments of the replica (a YAML list, or
+    #: ``LLMQ_CONTROLPLANE_POOL_ARGS='[--device, cpu]'``).
+    args: List[str] = field(default_factory=list)
+    #: exec: brings replica N up (``LLMQ_REPLICA_SEQ`` set); its last
+    #: stdout line is the replica's URL unless ``url_template`` is set.
+    provision_cmd: str = ""
+    #: exec: tears replica N down (``LLMQ_REPLICA_SEQ``,
+    #: ``LLMQ_REPLICA_ID``, ``LLMQ_REPLICA_URL`` set).
+    decommission_cmd: str = ""
+    #: exec: the replica URL pattern, e.g. ``http://replica-{seq}:8080``.
+    url_template: str = ""
+    #: Seconds a provisioned replica's /health has to answer.
+    ready_timeout: float = 20.0
+
+    def __post_init__(self) -> None:
+        if isinstance(self.args, str):
+            self.args = self.args.split()
+        if self.kind not in VALID_POOL_KINDS:
+            raise ValueError(
+                f"unknown replica pool kind {self.kind!r}; "
+                f"valid: {VALID_POOL_KINDS}")
+
+
+def default_rungs() -> List[Dict[str, Any]]:
+    """The degradation ladder, mildest rung first. ``headroom_factor``
+    scales ``overload.deadline_headroom``, ``backlog_factor`` the backlog
+    limit; ``shed_priorities`` rejects those tiers outright,
+    ``shed_tenant_weight_below`` tenants whose weight is under it."""
+    return [
+        {"name": "tighten", "headroom_factor": 0.7,
+         "backlog_factor": 0.7},
+        {"name": "shed_batch", "headroom_factor": 0.5,
+         "backlog_factor": 0.5, "shed_priorities": ["low"]},
+        {"name": "shed_low_weight", "headroom_factor": 0.4,
+         "backlog_factor": 0.4, "shed_priorities": ["low", "normal"],
+         "shed_tenant_weight_below": 1.0},
+    ]
+
+
+@dataclass
+class ControlPlaneConfig:
+    """The self-healing control plane (``llmq_tpu_torch/controlplane/``):
+    a reconcile controller that scales replicas through the pool on SLO
+    burn and backlog, replaces dead replicas, and climbs a degradation
+    ladder. ``enabled: false`` (the default) builds no controller."""
+    enabled: bool = False
+    #: Tick period, seconds; <= 0 starts no loop (ticks driven by hand).
+    interval: float = 2.0
+    min_replicas: int = 1
+    max_replicas: int = 8
+    #: Scale up when the fast-window burn rate reaches this.
+    fast_burn_threshold: float = 14.4
+    #: Scale up when the slow-window burn rate reaches this.
+    slow_burn_threshold: float = 6.0
+    #: Scale up when the backlog exceeds this × the healthy replicas.
+    backlog_per_replica: int = 64
+    #: Seconds between deliberate scale decisions (healing is exempt).
+    cooldown: float = 10.0
+    #: Scale and replace actions allowed in any 60 s; <= 0: no limit.
+    max_actions_per_minute: int = 6
+    #: A recovery slower than this logs an error.
+    recovery_budget_s: float = 30.0
+    #: Scale down only while (replicas - 1) × the per-replica peak
+    #: tokens/s covers the measured load × this.
+    scale_down_headroom: float = 1.5
+    #: The ladder climbs a rung when the fast burn reaches this, ...
+    escalate_burn: float = 1.0
+    #: ... and relaxes one after ``relax_after_ticks`` ticks at or below
+    #: this.
+    relax_burn: float = 0.5
+    relax_after_ticks: int = 3
+    rungs: List[Dict[str, Any]] = field(default_factory=default_rungs)
+    pool: ReplicaPoolConfig = field(default_factory=ReplicaPoolConfig)
+
+    def __post_init__(self) -> None:
+        if self.min_replicas < 1:
+            raise ValueError("controlplane.min_replicas must be >= 1")
+        if self.max_replicas < self.min_replicas:
+            raise ValueError(
+                "controlplane.max_replicas must be >= min_replicas")
 
 
 @dataclass
@@ -762,6 +892,7 @@ class Config:
     loadbalancer: LoadBalancerConfig = field(
         default_factory=LoadBalancerConfig)
     cluster: ClusterConfig = field(default_factory=ClusterConfig)
+    disagg: DisaggConfig = field(default_factory=DisaggConfig)
     conversation: ConversationConfig = field(
         default_factory=ConversationConfig)
     logging: LoggingConfig = field(default_factory=LoggingConfig)
@@ -773,6 +904,8 @@ class Config:
     store: StoreConfig = field(default_factory=StoreConfig)
     chaos: ChaosConfig = field(default_factory=ChaosConfig)
     tenancy: TenancyConfig = field(default_factory=TenancyConfig)
+    controlplane: ControlPlaneConfig = field(
+        default_factory=ControlPlaneConfig)
     executor: ExecutorConfig = field(default_factory=ExecutorConfig)
     #: Where the model runs. "cuda" raises without a GPU; only an
     #: explicit "cpu" runs on the host (tests).
@@ -809,29 +942,6 @@ _UNPORTED: Dict[str, Any] = {
     # actuators no caller passes.
     "resource_scheduler": {"scale_up_load": 0.8, "scale_down_load": 0.2,
                            "scale_cooldown": 120.0},
-    "disagg": {
-        "enabled": False, "role": "unified", "long_prompt_tokens": 512,
-        "long_prompt_ms": 250.0, "claim_ttl_s": 120.0,
-        "publish_on_finish": True, "rehydrate_on_start": True,
-        "miss_ttl_s": 5.0},
-    "controlplane": {
-        "enabled": False, "interval": 2.0, "min_replicas": 1,
-        "max_replicas": 8, "fast_burn_threshold": 14.4,
-        "slow_burn_threshold": 6.0, "backlog_per_replica": 64,
-        "cooldown": 10.0, "max_actions_per_minute": 6,
-        "recovery_budget_s": 30.0, "scale_down_headroom": 1.5,
-        "escalate_burn": 1.0, "relax_burn": 0.5, "relax_after_ticks": 3,
-        "rungs": [
-            {"name": "tighten", "headroom_factor": 0.7,
-             "backlog_factor": 0.7},
-            {"name": "shed_batch", "headroom_factor": 0.5,
-             "backlog_factor": 0.5, "shed_priorities": ["low"]},
-            {"name": "shed_low_weight", "headroom_factor": 0.4,
-             "backlog_factor": 0.4, "shed_priorities": ["low", "normal"],
-             "shed_tenant_weight_below": 1.0}],
-        "pool": {"kind": "none", "base_port": 8200, "args": [],
-                 "provision_cmd": "", "decommission_cmd": "",
-                 "url_template": "", "ready_timeout": 20.0}},
     "scenarios": {
         "enabled": False, "dir": "configs/scenarios", "run": [],
         "scale": 1.0, "out_dir": ".", "emit_json": True,
@@ -940,7 +1050,8 @@ def _unported_env_keys(spec: Dict[str, Any], pre: str = ""
     return out
 
 
-def _coerce(raw: str, current: Any, strings: bool = False) -> Any:
+def _coerce(raw: str, current: Any, strings: bool = False,
+            structured: bool = False) -> Any:
     if isinstance(current, bool):
         return raw.strip().lower() in ("1", "true", "yes", "on")
     if isinstance(current, int):
@@ -948,6 +1059,9 @@ def _coerce(raw: str, current: Any, strings: bool = False) -> Any:
     if isinstance(current, float):
         return float(raw)
     if isinstance(current, list):
+        if structured or (strings and raw.strip().startswith("[")):
+            # A YAML list: ``[--device, cpu]``, or rungs as mappings.
+            return read_yaml_text(raw)
         if strings:
             # A list of strings (``LLMQ_CLUSTER_PEERS``): its block's
             # __post_init__ splits the comma-separated form.
@@ -992,10 +1106,11 @@ def apply_env(cfg: Config, environ: Optional[Mapping[str, str]] = None
                 cand = "_".join(parts[i:j])
                 if cand in names:
                     if j == len(parts):
-                        strings = typing.get_type_hints(
-                            type(obj)).get(cand) == List[str]
+                        hint = typing.get_type_hints(type(obj)).get(cand)
                         setattr(obj, cand,
-                                _coerce(raw, getattr(obj, cand), strings))
+                                _coerce(raw, getattr(obj, cand),
+                                        hint == List[str],
+                                        hint == List[Dict[str, Any]]))
                         # Re-validate: __post_init__ does not rerun on
                         # setattr, and an override must not bypass it.
                         post = getattr(obj, "__post_init__", None)
@@ -1007,6 +1122,13 @@ def apply_env(cfg: Config, environ: Optional[Mapping[str, str]] = None
                     break
             else:
                 break
+
+
+def read_yaml_text(text: str) -> Any:
+    """``yaml.safe_load`` of a string (PyYAML imported here)."""
+    import yaml
+
+    return yaml.safe_load(text)
 
 
 def read_yaml(path: str) -> Any:

@@ -96,6 +96,12 @@ active sequence by a chunk of tokens per device program.
   promotes them back into fresh pages (``import_kv_pages``) before its
   continuation prefill, or recomputes from the remembered token stream.
   Off (the default): no plane, no thread, the HBM-only paths.
+- **Disaggregation** (``disagg/``): ``disagg_role`` is what the replica
+  advertises; a turn of a conversation this engine holds nothing of asks
+  the plane's exchange (``prepare(remote=True)``), and its promotion
+  span is ``handoff_claim``; ``on_conversation_cached`` fires after a
+  finished turn pinned its KV (a prefill replica publishes it from there).
+  Inert by default.
 
 - **Blocking executors** (the echo): without ``prefill_async`` the most
   urgent prompt prefills through ``prefill`` and completes inline; with
@@ -589,6 +595,14 @@ class InferenceEngine:
         #: ``fn(tokens, seconds)`` called once per completed prefill (the
         #: resource scheduler's ``observe_prefill``, bound by ``serve``).
         self.on_prefill_observed = None
+        #: Disaggregation plane (``disagg/``): the role this replica
+        #: advertises on /health and to the cluster router, and
+        #: ``fn(conv_id)``, called on the engine thread outside the lock
+        #: right after a finished turn pinned its KV (a prefill replica's
+        #: coordinator demotes and publishes it from there). Both inert
+        #: by default.
+        self.disagg_role = "unified"
+        self.on_conversation_cached = None
         #: Token-budget mixed batching: a ``MixedBatchConfig`` (or
         #: anything with its fields). None or disabled keeps the unfused
         #: scheduling exactly.
@@ -716,9 +730,15 @@ class InferenceEngine:
             seq.usage = RequestUsage()
         if self._tiering is not None and req.conversation_id:
             # Re-arrival prefetch: a store entry's blob starts loading
-            # now, overlapping the queue wait and admission. (JAX's remote
-            # branch asks the cluster exchange, which the port has not.)
-            self._tiering.prepare(req.conversation_id)
+            # now, overlapping the queue wait and admission. A turn of a
+            # conversation this replica holds nothing of may be on the
+            # cluster exchange: ``remote`` asks it (the plane ignores it
+            # without an exchange, and caches misses).
+            remote = False
+            if req.history_text or self._tiering.exchange is not None:
+                with self._mu:
+                    remote = req.conversation_id not in self._conv_cache
+            self._tiering.prepare(req.conversation_id, remote=remote)
         with self._mu:
             self._inbox.append(seq)
         self._wake.set()
@@ -1540,15 +1560,19 @@ class InferenceEngine:
 
     @staticmethod
     def _stamp_promote(seq: _Sequence, entry, t_claim: float) -> None:
-        """Close the promote span on the handle marks (``kv_promote``),
-        opened at the first admission attempt that waited or at this
-        claim. The store's share of the wait rides along as the private
-        ``_store_wait_ms`` mark, which the trace attaches to the span's
-        close, so the critical path can carve store waits out."""
+        """Close the promote span on the handle marks, opened at the
+        first admission attempt that waited or at this claim: named
+        ``handoff_claim`` when the entry came from the cluster exchange,
+        else ``kv_promote``. The store's share of the wait rides along
+        as the private ``_store_wait_ms`` mark, which the trace attaches
+        to the span's close, so the critical path can carve store waits
+        out."""
         marks = seq.handle.marks
-        marks.setdefault("kv_promote_start",
+        name = ("handoff_claim" if getattr(entry, "from_exchange", False)
+                else "kv_promote")
+        marks.setdefault(f"{name}_start",
                          marks.pop("_promote_wait", t_claim))
-        marks.setdefault("kv_promote_done", time.perf_counter())
+        marks.setdefault(f"{name}_done", time.perf_counter())
         store_ms = float(getattr(entry, "store_ms", 0.0) or 0.0)
         if store_ms > 0.0:
             marks["_store_wait_ms"] = (marks.get("_store_wait_ms", 0.0)
@@ -2907,6 +2931,7 @@ class InferenceEngine:
                    and reason in ("eos", "length")
                    and len(seq.written_ids) == seq.pos)
         handle_rec = None
+        pinned = False
         if conv and reason in ("eos", "length"):
             # Trim pages past the written length before pinning: decode
             # budgets allocate ahead.
@@ -2944,6 +2969,7 @@ class InferenceEngine:
                         pending=(seq.last_token if reason == "length"
                                  else None))
                     self.allocator.pin(conv, seq.pages)
+                    pinned = True
                     if self._usage.enabled:
                         # Between turns the pin's meter bills the
                         # conversation and tenant until adoption or drop.
@@ -2964,6 +2990,22 @@ class InferenceEngine:
                 self._state_manager.record_prefix_handle(conv, handle_rec)
             except Exception:  # noqa: BLE001 — accounting, not a gate
                 log.exception("prefix-handle record failed for %s", conv)
+        if pinned and self.on_conversation_cached is not None:
+            # The disaggregation publish hook: the turn's KV is pinned
+            # and adoptable. Outside self._mu (the hook demotes, which
+            # takes the lock itself).
+            try:
+                self.on_conversation_cached(conv)
+                if self._cp.enabled:
+                    # A stage event (wall time now): the trace shows
+                    # where the handoff left this replica.
+                    observability.record(
+                        seq.req.id, "kv_publish", engine=self.name,
+                        priority=seq.req.priority.tier_name,
+                        conversation=conv, role=self.disagg_role)
+            except Exception:  # noqa: BLE001 — publish is best-effort
+                log.exception("on_conversation_cached failed for %s",
+                              conv)
         self._finish(seq, reason, error)
 
     def _finish(self, seq: _Sequence, reason: str, error: str = "",
@@ -3026,14 +3068,15 @@ class InferenceEngine:
         events = [(stage, marks[stage] + anchor,
                    {"engine": self.name, "priority": prio})
                   for stage in ("admitted", "kv_promote_start",
-                                "kv_promote_done", "prefill_start",
+                                "kv_promote_done", "handoff_claim_start",
+                                "handoff_claim_done", "prefill_start",
                                 "prefill_done", "first_token", "decode_done")
                   if stage in marks]
         store_wait_ms = marks.get("_store_wait_ms", 0.0)
         if store_wait_ms > 0.0:
             # The store's share of the promote wait, on the span's close.
             for i, (stage, ts, ev_meta) in enumerate(events):
-                if stage == "kv_promote_done":
+                if stage in ("kv_promote_done", "handoff_claim_done"):
                     events[i] = (stage, ts, dict(
                         ev_meta, store_wait_ms=round(store_wait_ms, 3)))
         # A cancellation (the client closed the stream or gave up) is a

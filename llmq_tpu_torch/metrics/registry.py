@@ -280,6 +280,9 @@ class Histogram(_Family):
     def _new_child(self):
         return _HistogramChild(self.buckets)
 
+    def observe(self, value: float) -> None:
+        self._only().observe(value)
+
     def samples(self) -> List[str]:
         out = []
         for k, c in self._series():
@@ -428,6 +431,35 @@ class QueueMetrics:
             "dispatch + entry registration; the device→host transfer "
             "runs on the tiering worker)", ["engine"],
             buckets=_STEP_MS_BUCKETS, registry=r)
+        # Disaggregation plane (disagg/): the KV exchange's lifecycle
+        # and the publish→claim latency. ``role`` is the publishing
+        # side's for published and expired, the claimer's own for
+        # claimed and fallback. Flushed at scrape
+        # (``disagg.flush_metrics``): publish and claim only buffer.
+        self.kv_exchange_published = Counter(
+            f"{ns}_kv_exchange_published_total",
+            "Conversation KV entries published to the cluster-wide "
+            "exchange (store tier under claimable keys)", ["role"],
+            registry=r)
+        self.kv_exchange_claimed = Counter(
+            f"{ns}_kv_exchange_claimed_total",
+            "Exchange entries claimed (consumed) by a replica",
+            ["role"], registry=r)
+        self.kv_exchange_expired = Counter(
+            f"{ns}_kv_exchange_expired_total",
+            "Exchange entries found past claim_ttl_s at claim time "
+            "(publisher likely died mid-handoff; claimer recomputed)",
+            ["role"], registry=r)
+        self.kv_exchange_fallback = Counter(
+            f"{ns}_kv_exchange_fallback_total",
+            "Handoffs that degraded to recompute (torn blob, store "
+            "error, or no published entry for a routed conversation)",
+            ["role"], registry=r)
+        self.kv_handoff_ms = Histogram(
+            f"{ns}_kv_handoff_ms",
+            "Publish→claim latency for exchange entries (wall clock "
+            "across processes — how long KV waited in the exchange)",
+            ["role"], buckets=_STEP_MS_BUCKETS, registry=r)
         self.mixed_step_decode_rows = Gauge(
             f"{ns}_mixed_step_decode_rows",
             "Decode rows in the most recent mixed iteration",
@@ -740,6 +772,37 @@ class QueueMetrics:
             "Unconfigured-tenant runtime state evicted by the tenant "
             "registry's LRU bound (MAX_TRACKED) — nonzero means an id "
             "spray is churning bucket/counter state", registry=r)
+        # Control plane (controlplane/): the reconcile loop's actions
+        # and state, set on the controller's tick.
+        self.controller_actions = Counter(
+            f"{ns}_controller_actions_total",
+            "Control-plane reconcile actions (scale_up/scale_down/"
+            "replace/escalate/relax/pause/resume; skip = an action the "
+            "rate limit or cooldown suppressed)", ["action", "reason"],
+            registry=r)
+        self.controller_rung = Gauge(
+            f"{ns}_controller_rung",
+            "Active degradation-ladder rung (0 = no degradation)",
+            registry=r)
+        self.controller_target_replicas = Gauge(
+            f"{ns}_controller_target_replicas",
+            "Replica count the controller is reconciling toward",
+            registry=r)
+        self.controller_live_replicas = Gauge(
+            f"{ns}_controller_live_replicas",
+            "Healthy/degraded replicas the controller observes",
+            registry=r)
+        self.controller_recovery_seconds = Histogram(
+            f"{ns}_controller_recovery_seconds",
+            "Replica-loss recovery time: first replacement action "
+            "until the cluster is back at target with SLO burn < 1",
+            buckets=(0.5, 1, 2.5, 5, 10, 20, 30, 60, 120, 300),
+            registry=r)
+        self.controller_paused = Gauge(
+            f"{ns}_controller_paused",
+            "1 while an operator has paused the controller "
+            "(distinct from controlplane.enabled=false)",
+            registry=r)
         # Critical-path plane (observability/critical_path.py): per-
         # request latency attribution + boot decomposition, both fed at
         # scrape time.
@@ -821,6 +884,13 @@ def exposition() -> bytes:
         tiering_flush()
     except Exception:  # noqa: BLE001
         log.exception("tiering flush failed")
+    try:
+        # Disaggregation plane: the exchanges' buffered lifecycle counts
+        # and handoff latencies.
+        from llmq_tpu_torch.disagg import flush_metrics as disagg_flush
+        disagg_flush()
+    except Exception:  # noqa: BLE001
+        log.exception("kv exchange flush failed")
     try:
         # The store fault domain: buffered op latencies, retries, the
         # breaker state and the consumers' degraded gauges.

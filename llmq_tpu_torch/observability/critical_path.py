@@ -398,6 +398,34 @@ class BootRegistry:
             rec.stages[stage] = rec.stages.get(stage, 0.0) + seconds
             self._pending.append((stage, seconds))
 
+    def adopt(self, replica_id: str, kind: str,
+              stages: Dict[str, Any], *,
+              total_s: Optional[float] = None) -> None:
+        """Fold a child replica's boot stages (its /health ``boot``
+        block) into this process's record of it: the control plane's
+        pools call it. The child's stages are taken as they are; the
+        pool's wall time beyond them becomes "provision" (spawn and
+        health polling), so the stages still sum to the ready wall."""
+        rec = self.begin(replica_id, kind)
+        known = 0.0
+        for stg in BOOT_STAGES:
+            try:
+                v = float(stages.get(stg, 0.0) or 0.0)
+            except (TypeError, ValueError):
+                continue
+            if v > 0 and stg != "provision":
+                known += v
+                with self._mu:
+                    rec.stages[stg] = v
+                    self._pending.append((stg, v))
+        if total_s is not None and total_s > 0:
+            rec.total_s = total_s
+            rec.ready = True
+            provision = max(0.0, total_s - known)
+            with self._mu:
+                rec.stages["provision"] = provision
+                self._pending.append(("provision", provision))
+
     def ready(self, replica_id: str,
               total_s: Optional[float] = None) -> None:
         with self._mu:

@@ -45,10 +45,14 @@ sidecar, then the per-page payloads), so a blob either package spills
 decodes in the other. bfloat16 leaves travel as their raw 2-byte words
 (numpy has no bfloat16); the header still names them ``bfloat16``.
 
-The cluster exchange of the JAX plane (``exchange``, ``prepare(remote=
-True)``'s claim, ``export_to_exchange``) waits for the disaggregation
-plane: ``exchange`` stays None, and ``prepare(remote=True)`` behaves as
-the JAX plane's does with no exchange.
+**The cluster exchange** (disaggregation plane, ``disagg/``): with
+``exchange`` set, ``prepare(remote=True)`` turns a local miss into a claim
+from the exchange on the worker, which lands as an ordinary store entry
+(``from_exchange``) that admission claims and injects; a miss is
+negative-cached for the exchange's ``miss_ttl_s``. ``export_to_exchange``
+publishes a held entry's payload (a prefill replica after each finished
+turn, any replica at drain). A claimed blob with another page spec keeps
+its token stream and drops its bytes.
 
 Hard off-switch: ``executor.kv_tiering.enabled: false`` (the default)
 builds no plane, and every engine path is the HBM-only one.
@@ -373,7 +377,7 @@ class TierEntry:
     __slots__ = ("conv_id", "tokens", "length", "pending", "n_pages",
                  "tier", "payload", "pooled", "ready", "demoted_at",
                  "last_used", "wait_since", "loading", "source_tier",
-                 "abandoned", "spilling", "store_ms")
+                 "abandoned", "spilling", "from_exchange", "store_ms")
 
     def __init__(self, conv_id: str, tokens: List[int], length: int,
                  pending: Optional[int], n_pages: int,
@@ -410,6 +414,10 @@ class TierEntry:
         #: Claimed by a spill job: already leaving the host tier, so the
         #: bound does not spill everything while the first spill runs.
         self.spilling = False
+        #: Claimed from the cluster exchange (a prefill → decode
+        #: handoff), not this replica's own tiers: the critical path
+        #: names its admission wait ``handoff_claim``.
+        self.from_exchange = False
         #: Milliseconds this entry's claim waited on the store (the
         #: critical path's store-wait attribution).
         self.store_ms = 0.0
@@ -463,9 +471,13 @@ class KVTieringPlane:
         #: (``save_kv`` / ``load_kv`` / ``delete_kv``), feature-detected:
         #: a store without it disables the store tier.
         self._store: Any = None
-        #: The cluster KV exchange of the disaggregation plane, which the
-        #: port does not have yet: always None here.
+        #: The cluster KV exchange of the disaggregation plane (a
+        #: ``disagg.KVExchange``), set by its coordinator; None: local
+        #: tiers only.
         self.exchange: Any = None
+        #: Exchange misses (conv id → time): not asked again for the
+        #: exchange's ``miss_ttl_s``.
+        self._xchg_miss: Dict[str, float] = {}
         self._entries: Dict[str, TierEntry] = {}
         self._store_ids: set = set()   # conv ids with a spilled blob
         self._mu = threading.Lock()
@@ -869,21 +881,165 @@ class KVTieringPlane:
         """Re-arrival hint (any thread): start loading a store entry's
         blob back now, so the load overlaps the queue wait and admission.
         True when the plane holds (or is loading) an entry for
-        ``conv_id``. ``remote`` asks the cluster exchange on a local miss;
-        with no exchange (the port has none yet) a miss is just False."""
+        ``conv_id``. ``remote`` (a decode replica seeing a follow-up turn
+        it never served) makes a local miss a claim from the exchange on
+        the worker, behind a placeholder store entry that admission waits
+        on; a miss deletes the placeholder (recompute) and is not asked
+        again for the exchange's ``miss_ttl_s``."""
         start_load = False
+        fetch: Optional[TierEntry] = None
         with self._mu:
             entry = self._entries.get(conv_id)
             if entry is None:
-                return False
-            entry.last_used = self._now()
-            if self._needs_load_locked(entry):
+                xchg = self.exchange
+                if not remote or xchg is None:
+                    return False
+                now = self._now()
+                miss = self._xchg_miss.get(conv_id)
+                if (miss is not None
+                        and now - miss < float(getattr(xchg, "miss_ttl_s",
+                                                       5.0))):
+                    return False
+                self._xchg_miss.pop(conv_id, None)
+                if len(self._xchg_miss) > 4096:
+                    self._xchg_miss.clear()
+                entry = TierEntry(conv_id, [], 0, None, 0, now)
+                entry.tier = "store"
+                entry.source_tier = "store"
+                entry.from_exchange = True
                 entry.loading = True
-                entry.ready.clear()
-                start_load = True
+                self._entries[conv_id] = entry
+                fetch = entry
+            else:
+                entry.last_used = self._now()
+                if self._needs_load_locked(entry):
+                    entry.loading = True
+                    entry.ready.clear()
+                    start_load = True
+        if fetch is not None:
+            self._submit(lambda: self._exchange_fetch(fetch))
+            return True
         if start_load:
             self._submit(lambda: self._load(entry))
         return True
+
+    def _same_spec(self, specs: List[Spec]) -> bool:
+        """``specs`` (a claimed blob's) cut pages as this pool does."""
+        mine = self._specs
+        return (mine is not None and len(specs) == len(mine)
+                and all(tuple(a[0]) == tuple(b[0])
+                        and dtype_name(a[1]) == dtype_name(b[1])
+                        for a, b in zip(specs, mine)))
+
+    def _exchange_fetch(self, entry: TierEntry) -> None:
+        """Worker: claim a peer's published KV and publish it here as a
+        ready store entry (the promote path is the receive path). A miss
+        (nothing published, expired, torn) deletes the placeholder, so
+        admission recomputes; a foreign page spec keeps the token stream
+        and drops the payload: foreign bytes are never injected."""
+        xchg = self.exchange
+        res = None
+        t0 = time.perf_counter()
+        if xchg is not None and not entry.abandoned:
+            try:
+                res = xchg.claim(entry.conv_id)
+            except Exception:  # noqa: BLE001 — the claim is best-effort
+                log.exception("kv exchange claim failed for %s",
+                              entry.conv_id)
+        entry.store_ms += (time.perf_counter() - t0) * 1e3
+        if res is None:
+            with self._mu:
+                if self._entries.get(entry.conv_id) is entry:
+                    del self._entries[entry.conv_id]
+                self._xchg_miss[entry.conv_id] = self._now()
+                entry.abandoned = True
+                entry.ready.set()
+            self._notify()
+            return
+        bufs, specs, meta = res
+        entry.tokens = list(meta.get("tokens") or [])
+        entry.length = int(meta.get("length") or len(entry.tokens))
+        pending = meta.get("pending")
+        entry.pending = int(pending) if pending is not None else None
+        entry.n_pages = int(meta.get("n_pages") or len(bufs))
+        if self._content_free:
+            # The token stream is the state: a metadata entry is exact.
+            self._publish(entry, "host", None, pooled=False)
+            return
+        if bufs and self._same_spec(specs):
+            bufs2 = self.pool.take(len(bufs))
+            if bufs2 is not None:
+                for dst, src in zip(bufs2, bufs):
+                    dst[:len(src)] = src
+                payload, pooled = bufs2, True
+            else:
+                payload, pooled = bufs, False   # transient arrays
+            entry.source_tier = "store"
+            self._publish(entry, "store", payload, pooled=pooled)
+            return
+        if bufs:
+            log.warning("exchange KV for %s has a foreign page spec; "
+                        "recompute", entry.conv_id)
+        self._publish(entry, "recompute", None, pooled=False)
+
+    def export_to_exchange(self, conv_id: str) -> bool:
+        """Queue the publication of a held entry to the exchange. It runs
+        on the FIFO worker behind any extract in flight, so the payload
+        is complete when the job reads it. True when a job was queued."""
+        if self.exchange is None:
+            return False
+        with self._mu:
+            if conv_id not in self._entries:
+                return False
+        self._submit(lambda: self._exchange_publish(conv_id))
+        return True
+
+    def _exchange_publish(self, conv_id: str) -> None:
+        """Worker: serialize a ready entry to the exchange. A host payload
+        is held exclusively meanwhile (as a spill holds it) and put back
+        after; a store entry republishes its blob; an entry without a
+        payload ships its metadata alone."""
+        xchg = self.exchange
+        if xchg is None:
+            return
+        with self._mu:
+            entry = self._entries.get(conv_id)
+            if (entry is None or not entry.ready.is_set()
+                    or entry.abandoned or entry.spilling):
+                return
+            tier = entry.tier
+            if entry.payload is not None:
+                bufs, pooled = self._claim_for_spill_locked(entry)
+            else:
+                bufs, pooled = [], False
+        meta = self._entry_meta(entry)
+        try:
+            if bufs:
+                xchg.publish(conv_id, bufs, self._specs or [], meta)
+            elif tier == "store" and self._store_ok():
+                blob = None
+                try:
+                    blob = self.store.load_kv(conv_id)
+                except Exception:  # noqa: BLE001 — metadata only then
+                    log.exception("kv store load for exchange publish "
+                                  "failed for %s", conv_id)
+                sbufs: List[np.ndarray] = []
+                sspecs: List[Spec] = []
+                if blob is not None:
+                    try:
+                        sbufs, sspecs = decode_blob(blob)
+                    except ValueError:
+                        log.warning("corrupt KV blob for %s; publishing "
+                                    "metadata only", conv_id)
+                xchg.publish(conv_id, sbufs, sspecs, meta)
+            else:
+                xchg.publish(conv_id, [], [], meta)
+        except Exception:  # noqa: BLE001 — publish is best-effort; the
+            log.exception(         # claimer recomputes
+                "kv exchange publish failed for %s", conv_id)
+        finally:
+            if bufs:
+                self._publish(entry, tier, bufs, pooled)
 
     def rehydrate(self, owner: Optional[str] = None
                   ) -> List[Tuple[str, Dict[str, Any]]]:
@@ -904,7 +1060,7 @@ class KVTieringPlane:
         now = self._now()
         for cid in ids:
             if cid.startswith("xchg:"):
-                continue
+                continue   # exchange entries are claimable, not owned
             with self._mu:
                 if cid in self._entries:
                     continue

@@ -893,3 +893,67 @@ def test_tenancy_route_answers_like_jax(enabled):
         assert got[1][-2][0] == 200
     else:
         assert got[1][-1][0] == 503
+
+
+@pytest.mark.parametrize("planes", ["off", "on"])
+def test_health_role_controller_and_admin_route_like_jax(planes):
+    """Tolerance: none. Over echo ``App`` s of both packages: off,
+    ``/health`` has neither ``role`` nor ``controller`` and ``GET`` /
+    ``POST /api/v1/admin/controller`` answer 503; on (a decode role, the
+    control plane), ``/health`` says ``role: decode`` and
+    ``controller: running``, a pause reads ``paused`` there and in the
+    snapshot, the overview carries the controller block, and a resume
+    reads ``running`` again."""
+    from llmq_tpu.__main__ import App as JApp
+    from llmq_tpu.core import config as JC
+    from llmq_tpu_torch.__main__ import App as TApp
+    from llmq_tpu_torch.core import config as TC
+
+    got = {}
+    for name, App, C in (("jax", JApp, JC), ("port", TApp, TC)):
+        cfg = C.default_config() if name == "jax" else C.Config()
+        cfg.executor.backend = "echo"
+        cfg.queue.enable_metrics = False
+        cfg.loadbalancer.health_check_interval = 0.0
+        if name == "port":
+            cfg.device = "cpu"
+        if planes == "on":
+            cfg.disagg.enabled = True
+            cfg.disagg.role = "decode"
+            cfg.controlplane.enabled = True
+            cfg.controlplane.interval = 0.0
+        app = App(cfg, with_api=True, with_workers=True, with_engine=True)
+        api = app.api
+        try:
+            def call(method, path, body=None):
+                st, payload, _ = api.dispatch(
+                    method, path, json.dumps(body).encode() if body else b"")
+                return st, payload
+
+            h = call("GET", "/health")[1]
+            out = [{k: h.get(k) for k in ("role", "controller")},
+                   call("GET", "/api/v1/admin/controller")[0]]
+            st, p = call("POST", "/api/v1/admin/controller",
+                         {"action": "pause"})
+            out.append((st, p if st == 200 else None))
+            if planes == "on":
+                out.append(call("GET", "/health")[1]["controller"])
+                snap = call("GET", "/api/v1/admin/controller")[1]
+                out.append((snap["paused"], snap["enabled"]))
+                ov = call("GET", "/api/v1/cluster/overview")[1]
+                out.append(sorted(ov["controller"]))
+                out.append(call("POST", "/api/v1/admin/controller",
+                                {"action": "resume"}))
+                out.append(call("GET", "/health")[1]["controller"])
+            got[name] = out
+        finally:
+            app.stop()
+    assert got["port"] == got["jax"]
+    if planes == "off":
+        assert got["port"] == [{"role": None, "controller": None}, 503,
+                               (503, None)]
+    else:
+        assert got["port"][0] == {"role": "decode", "controller": "running"}
+        assert got["port"][2:5] == [(200, {"status": "paused"}), "paused",
+                                    (True, True)]
+        assert got["port"][6:] == [(200, {"status": "running"}), "running"]

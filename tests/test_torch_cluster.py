@@ -527,6 +527,85 @@ class TestAppWiring:
                               "via cluster", True, "draining")
 
 
+class TestDisaggSteering:
+    def test_build_sets_role_steering_and_its_stats(self):
+        """``disagg.enabled`` makes the built router steer by role in both
+        packages: local engines report their ``disagg_role``, a long first
+        turn goes to the prefill engine and a short one to decode, and
+        ``get_stats`` gains the ``disagg`` block; off, no block."""
+        def run(P, pair):
+            out = []
+            for enabled in (False, True):
+                cfg = P.config()
+                cfg.queue.enable_metrics = False
+                cfg.cluster.peers = []
+                cfg.disagg.enabled = enabled
+                cfg.disagg.long_prompt_tokens = 32
+                lb = P.lb.LoadBalancer(P.C.LoadBalancerConfig(
+                    strategy="round_robin", health_check_interval=0.0))
+                router = P.ClusterRouter(lb, config=cfg.cluster,
+                                         enable_metrics=False)
+                if enabled:
+                    router.disagg = cfg.disagg
+                for eng, role in zip(pair.engines, ("prefill", "decode")):
+                    eng.disagg_role = role
+                    router.register_engine(eng, endpoint_id=eng.name)
+                picks = []
+                for mid, content in (("l", "x" * 200), ("s", "hi")):
+                    m = _msg(P, f"{mid}{enabled}", content)
+                    m.timeout = 30.0
+                    router.process_fn(None, m)
+                    picks.append(m.metadata["endpoint_id"])
+                out.append((picks, router.get_stats().get("disagg")))
+                for eng in pair.engines:
+                    eng.disagg_role = "unified"
+            return out
+
+        off, on = _both(run)
+        assert off[1] is None
+        assert on == (["replica0", "replica1"],
+                      {"role_routes": 2, "handoffs": 0,
+                       "roles": {"replica0": "prefill",
+                                 "replica1": "decode"}})
+
+    def test_app_wires_prefill_eta_and_the_role(self):
+        """An echo ``App`` with the control plane and the disaggregation
+        plane on: the router built over the local engine steers by role
+        with the resource scheduler's learned prefill ETA, the engine
+        carries the configured role, and ``/health`` advertises it."""
+        def run(P):
+            cfg = P.config()
+            cfg.executor.backend = "echo"
+            cfg.queue.enable_metrics = False
+            cfg.loadbalancer.health_check_interval = 0.0
+            cfg.controlplane.enabled = True
+            cfg.controlplane.interval = 0.0
+            cfg.disagg.enabled = True
+            cfg.disagg.role = "decode"
+            cfg.executor.kv_tiering.enabled = True
+            if P is PORT:
+                cfg.device = "cpu"
+            app = P.App(cfg, with_api=True, with_workers=True,
+                        with_engine=True)
+            try:
+                r = app.cluster_router
+                health = app.api.dispatch("GET", "/health", b"")[1]
+                return (r.disagg is cfg.disagg,
+                        r.prefill_eta == app.resource_scheduler.prefill_eta_ms,
+                        app.disagg.role, app.engine.disagg_role,
+                        app.disagg.exchange is not None,
+                        app.engine._tiering.exchange is app.disagg.exchange,
+                        health["role"], health["controller"],
+                        app.controller.disagg is cfg.disagg)
+            finally:
+                app.stop()
+
+        got = {P.name: run(P) for P in PKGS}
+        assert got["port"] == got["jax"] == (
+            True, True, "decode", "decode", True, True, "decode", "running",
+            True)
+
+
 class _FakeEngine:
     """An in-process engine double for the router's policies."""
 

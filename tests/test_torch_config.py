@@ -131,7 +131,11 @@ def test_unported_table_is_jaxs_tree_at_its_defaults(tmp_path):
 @pytest.mark.parametrize("snippet,match", [
     ("nope: 1\n", "unknown config key: nope"),
     ("server: {nope: 1}\n", "unknown config key: server.nope"),
-    ("disagg: {enabled: true}\n", "disagg.enabled"),
+    # The disaggregation and control-plane blocks are ported: their cases
+    # now hold JAX's validation of each (the ids stay the cases' own).
+    pytest.param("disagg: {enabled: true, role: mixed}\n",
+                 "unknown disagg role", id="disagg: {enabled: true}\n-"
+                                            "disagg.enabled"),
     ("executor: {speculation: {enabled: true, draft_k: 17}}\n",
      "executor.speculation.draft_k"),
     # kv_tiering is ported: the case now holds its validation (the id
@@ -180,7 +184,9 @@ def test_unported_table_is_jaxs_tree_at_its_defaults(tmp_path):
                  "unknown config key: store.resilience.retry",
                  id="store: {resilience: {enabled: true}}\n-"
                     "store.resilience.enabled"),
-    ("controlplane: {enabled: true}\n", "controlplane.enabled"),
+    pytest.param("controlplane: {enabled: true, min_replicas: 2, "
+                 "max_replicas: 1}\n", "max_replicas must be >= min_replicas",
+                 id="controlplane: {enabled: true}\n-controlplane.enabled"),
     ("disagg: {enabled: false, nope: 1}\n", "unknown config key: disagg.nope"),
     ("loadbalancer: {strategy: fastest}\n", "loadbalancer.strategy"),
     # Endpoint selection and the autoscaler are ported: these cases now
@@ -366,15 +372,20 @@ def test_search_order_env_and_missing_path(tmp_path, monkeypatch):
 
 
 def test_env_naming_an_unported_key_raises_unless_default():
-    with pytest.raises(ValueError, match="disagg.enabled"):
+    # The disaggregation and control-plane blocks are ported: their
+    # switches now load from the environment as JAX's do, and the case's
+    # raises move to the scenario block, still unported.
+    with pytest.raises(ValueError, match="scenarios.enabled"):
         TC.load_config(path=os.devnull,
-                       environ={"LLMQ_DISAGG_ENABLED": "true"})
-    # The cluster block is ported: LLMQ_CLUSTER_PEERS now loads, its
-    # comma-separated form as JAX's does; the case's raise moves to a
-    # block still unported.
-    with pytest.raises(ValueError, match="controlplane.enabled"):
-        TC.load_config(path=os.devnull,
-                       environ={"LLMQ_CONTROLPLANE_ENABLED": "true"})
+                       environ={"LLMQ_SCENARIOS_ENABLED": "true"})
+    env = {"LLMQ_DISAGG_ENABLED": "true", "LLMQ_DISAGG_ROLE": "decode",
+           "LLMQ_CONTROLPLANE_ENABLED": "true"}
+    j = JC.Config()
+    JC._apply_env(j, env)
+    t = TC.load_config(path=os.devnull, environ=env)
+    assert (t.disagg.enabled, t.disagg.role, t.controlplane.enabled) == \
+        (j.disagg.enabled, j.disagg.role, j.controlplane.enabled) == \
+        (True, "decode", True)
     env = {"LLMQ_CLUSTER_PEERS": "http://a:8080, http://b:8080/"}
     j = JC.Config()
     JC._apply_env(j, env)
@@ -589,3 +600,76 @@ def test_model_weight_keys_load_like_jaxs(tmp_path):
            "LLMQ_MODEL_DTYPE": "bfloat16"}
     t = TC.load_config(path=os.devnull, environ=env).model
     assert (t.checkpoint_path, t.meta_rope_layout) == ("/x.ckpt", True)
+
+
+@pytest.mark.parametrize("source", ["file", "env"])
+def test_disagg_and_controlplane_blocks_load_like_jaxs(tmp_path, source):
+    """Tolerance: none. ``disagg`` and ``controlplane`` (its ``pool`` and
+    ``rungs`` too) are real blocks with the JAX package's fields and
+    defaults; the same file and the same ``LLMQ_DISAGG_*`` /
+    ``LLMQ_CONTROLPLANE_*`` variables load to the same values in both
+    packages, and the same bad values raise the same errors."""
+    for block in ("DisaggConfig", "ReplicaPoolConfig", "ControlPlaneConfig"):
+        assert dataclasses.asdict(getattr(TC, block)()) == \
+            dataclasses.asdict(getattr(JC, block)()), block
+    assert "disagg" not in TC._UNPORTED and "controlplane" not in TC._UNPORTED
+    rungs = [{"name": "only", "backlog_factor": 0.5,
+              "shed_priorities": ["low"]}]
+    if source == "file":
+        path = tmp_path / "c.yaml"
+        path.write_text(
+            "disagg: {enabled: true, role: prefill, long_prompt_tokens: 96,"
+            " long_prompt_ms: 40.0, claim_ttl_s: 3.0, miss_ttl_s: 1.0,"
+            " publish_on_finish: false, rehydrate_on_start: false}\n"
+            "controlplane: {enabled: true, interval: 0.5, min_replicas: 1,"
+            " max_replicas: 2, backlog_per_replica: 3, cooldown: 1.0,"
+            " rungs: [{name: only, backlog_factor: 0.5,"
+            " shed_priorities: [low]}],"
+            " pool: {kind: subprocess, base_port: 18300,"
+            " args: [--backend, echo], ready_timeout: 90.0}}\n")
+        t = TC.load_config(str(path), env=False)
+        j = JC.load_config(str(path), env=False)
+    else:
+        env = {"LLMQ_DISAGG_ENABLED": "true", "LLMQ_DISAGG_ROLE": "prefill",
+               "LLMQ_DISAGG_LONG_PROMPT_TOKENS": "96",
+               "LLMQ_DISAGG_LONG_PROMPT_MS": "40.0",
+               "LLMQ_DISAGG_CLAIM_TTL_S": "3.0",
+               "LLMQ_DISAGG_MISS_TTL_S": "1.0",
+               "LLMQ_DISAGG_PUBLISH_ON_FINISH": "false",
+               "LLMQ_DISAGG_REHYDRATE_ON_START": "false",
+               "LLMQ_CONTROLPLANE_ENABLED": "true",
+               "LLMQ_CONTROLPLANE_INTERVAL": "0.5",
+               "LLMQ_CONTROLPLANE_MAX_REPLICAS": "2",
+               "LLMQ_CONTROLPLANE_BACKLOG_PER_REPLICA": "3",
+               "LLMQ_CONTROLPLANE_COOLDOWN": "1.0",
+               "LLMQ_CONTROLPLANE_RUNGS":
+                   "[{name: only, backlog_factor: 0.5, "
+                   "shed_priorities: [low]}]",
+               "LLMQ_CONTROLPLANE_POOL_KIND": "subprocess",
+               "LLMQ_CONTROLPLANE_POOL_BASE_PORT": "18300",
+               "LLMQ_CONTROLPLANE_POOL_ARGS": "[--backend, echo]",
+               "LLMQ_CONTROLPLANE_POOL_READY_TIMEOUT": "90.0"}
+        t = TC.load_config(path=os.devnull, environ=env)
+        j = JC.Config()
+        JC._apply_env(j, env)
+    assert dataclasses.asdict(t.disagg) == dataclasses.asdict(j.disagg) == {
+        "enabled": True, "role": "prefill", "long_prompt_tokens": 96,
+        "long_prompt_ms": 40.0, "claim_ttl_s": 3.0,
+        "publish_on_finish": False, "rehydrate_on_start": False,
+        "miss_ttl_s": 1.0}
+    tcp, jcp = (dataclasses.asdict(t.controlplane),
+                dataclasses.asdict(j.controlplane))
+    assert tcp == jcp
+    assert (tcp["interval"], tcp["max_replicas"], tcp["rungs"],
+            tcp["pool"]["args"], tcp["pool"]["ready_timeout"]) == (
+        0.5, 2, rungs, ["--backend", "echo"], 90.0)
+    for cls, bad in (("DisaggConfig", {"role": "both"}),
+                     ("ReplicaPoolConfig", {"kind": "k8s"}),
+                     ("ControlPlaneConfig", {"min_replicas": 0}),
+                     ("ControlPlaneConfig", {"min_replicas": 3,
+                                             "max_replicas": 2})):
+        with pytest.raises(ValueError) as te:
+            getattr(TC, cls)(**bad)
+        with pytest.raises(ValueError) as je:
+            getattr(JC, cls)(**bad)
+        assert str(te.value) == str(je.value), cls

@@ -1526,3 +1526,121 @@ def test_bf16_checkpoints_load_onto_the_card(tmp_path):
     back = ck.load_checkpoint(path, device="cuda")
     for (k, a), (_, b) in zip(leaves(back), leaves(q8)):
         assert a.is_cuda and torch.equal(a, b) and a.stride() == b.stride(), k
+
+
+# -- the disaggregation and control planes on the card ---------------------------
+
+
+@needs_cuda
+def test_exchange_handoff_between_two_executors_is_bit_exact():
+    """Pages 3, 9, 4 of one bf16 executor's pools go through its tiering
+    plane into the KV exchange (a demote, then a publish), and another
+    executor's plane claims them (``prepare(remote=True)``) and injects
+    them into pages 20, 21, 30 of its own pools, byte for byte."""
+    import time
+
+    from llmq_tpu_torch.conversation.persistence import InMemoryStore
+    from llmq_tpu_torch.core.config import KVTieringConfig
+    from llmq_tpu_torch.disagg import KVExchange
+    from llmq_tpu_torch.tiering import KVTieringPlane
+
+    src_ex, dst_ex = _graph_executor("fused"), _graph_executor("fused")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for pool in src_ex.cache.values():
+        pool.copy_(torch.randn(pool.shape, generator=gen,
+                               device="cuda").to(pool.dtype))
+    store = InMemoryStore()
+    planes = []
+    for ex, name, role in ((src_ex, "prefill-card", "prefill"),
+                           (dst_ex, "decode-card", "decode")):
+        plane = KVTieringPlane(KVTieringConfig(enabled=True,
+                                               host_capacity_mb=8),
+                               name, ex)
+        plane.store = store
+        plane.exchange = KVExchange(store, role=role, metrics=False)
+        planes.append(plane)
+    pub, sub = planes
+    src, dst = [3, 9, 4], [20, 21, 30]
+    before = {k: v[:, src].clone() for k, v in src_ex.cache.items()}
+    try:
+        assert pub.demote("c", src, [1] * 40, 40, None) == "host"
+        assert pub.flush_jobs(30.0)
+        assert pub.export_to_exchange("c")
+        assert pub.flush_jobs(30.0)
+        assert sub.prepare("c", remote=True)
+        deadline = time.time() + 30.0
+        status, entry = "wait", None
+        while status != "ready" and time.time() < deadline:
+            status, entry = sub.claim("c")
+        assert status == "ready" and entry.from_exchange
+        assert entry.source_tier == "store" and entry.tokens == [1] * 40
+        fence = dst_ex.import_kv_pages(dst, sub.unpack(entry))
+        sub.release(entry, fence)
+        torch.cuda.synchronize()
+        for k, v in dst_ex.cache.items():
+            assert torch.equal(v[:, dst], before[k]), k
+        assert (pub.exchange.totals["published"],
+                sub.exchange.totals["claimed"]) == (1, 1)
+    finally:
+        for p in planes:
+            p.stop()
+
+
+@needs_cuda
+def test_local_pool_replica_on_the_card_launches_kernels_1_to_3():
+    """A ``LocalEnginePool`` replica whose factory builds a bf16 engine
+    on the card: provisioned, supervised and served through the cluster
+    router, its prefill writes (kernel 2), prefill attention (kernel 3)
+    and fused decode (kernel 1) launch; decommission stops it."""
+    import time as _time
+
+    from llmq_tpu_torch.cluster.router import ClusterRouter
+    from llmq_tpu_torch.controlplane import LocalEnginePool
+    from llmq_tpu_torch.core.config import (ClusterConfig,
+                                            LoadBalancerConfig,
+                                            SupervisorConfig)
+    from llmq_tpu_torch.core.types import Message
+    from llmq_tpu_torch.engine.engine import InferenceEngine
+    from llmq_tpu_torch.engine.executor import TorchExecutor
+    from llmq_tpu_torch.engine.tokenizer import ByteTokenizer
+    from llmq_tpu_torch.loadbalancer.load_balancer import LoadBalancer
+    from llmq_tpu_torch.models import llama as T
+
+    cfg = T.get_config("llama3-tiny", dim=512, n_heads=8, n_kv_heads=2,
+                       n_layers=2, vocab_size=512, max_seq_len=256)
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+
+    def factory(seq):
+        ex = TorchExecutor(cfg, params, batch_size=2, page_size=16,
+                           num_pages=64, prefill_buckets=[16, 64],
+                           chunk_size=4, eos_id=-1, device="cuda")
+        return InferenceEngine(ex, ByteTokenizer(), name=f"card-{seq}",
+                               enable_metrics=False, max_decode_steps=8)
+
+    pool = LocalEnginePool(factory, supervisor_config=SupervisorConfig(
+        check_interval=0.05))
+    router = ClusterRouter(LoadBalancer(LoadBalancerConfig(
+        health_check_interval=0.0)), config=ClusterConfig(),
+        enable_metrics=False)
+    names = ("kv_prefill_write", "prefill_attention", "fused_decode")
+    before = {n: kernels.LAUNCHES[n] for n in names}
+    ep = pool.provision(1)
+    eng = ep.metadata["engine"]
+    try:
+        router.lb.add_endpoint(ep)
+        msg = Message(id="card0", content="a replica on the card",
+                      user_id="u", timeout=120.0,
+                      metadata={"max_new_tokens": 8})
+        t0 = _time.time()
+        router.process_fn(None, msg)
+        assert msg.metadata["endpoint_id"] == "card-1"
+        assert msg.metadata["usage"]["completion_tokens"] == 8
+        assert _time.time() - t0 < 120.0
+        for n in names:
+            assert kernels.LAUNCHES[n] > before[n], n
+    finally:
+        pool.decommission(ep)
+        eng.executor.release_graphs()
+    assert not eng.running
+    assert pool.get_stats()["live"] == 0

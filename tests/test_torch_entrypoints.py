@@ -138,13 +138,15 @@ def test_serve_sigint_stops_without_draining(tmp_path):
 
 def test_serve_refuses_an_unported_plane_in_the_file(tmp_path):
     cfg = tmp_path / "serve.yaml"
-    cfg.write_text(SERVE_YAML + "disagg: {enabled: true}\n")
+    # The disaggregation plane is ported: the case now holds the scenario
+    # plane, still unported.
+    cfg.write_text(SERVE_YAML + "scenarios: {enabled: true}\n")
     res = subprocess.run(
         [sys.executable, "-m", "llmq_tpu_torch", "--config", str(cfg),
          "--device", "cpu", "serve"], cwd=tmp_path, capture_output=True,
         text=True, timeout=120, env=dict(os.environ, PYTHONPATH=REPO))
     assert res.returncode != 0
-    assert "disagg.enabled=True is not ported yet" in res.stderr
+    assert "scenarios.enabled=True is not ported yet" in res.stderr
 
 
 def test_serve_in_the_repository_root_names_the_remedy():
@@ -364,7 +366,25 @@ def _usage_core(m):
             for k, v in usage.items()}
 
 
-def test_split_apps_answer_like_jaxs(tmp_path, monkeypatch):
+@pytest.fixture
+def usage_ledgers_on():
+    """Both packages' usage ledgers at their default (on) for the case,
+    and put back after: another file's fixture may leave one off (JAX's
+    ``tests/test_disagg.py`` turns its own off at teardown, and xdist may
+    run it first in the same worker)."""
+    from llmq_tpu.observability.usage import get_usage_ledger as jled
+    from llmq_tpu_torch.observability.usage import get_usage_ledger as tled
+
+    leds = [jled(), tled()]
+    was = [led.enabled for led in leds]
+    for led in leds:
+        led.reconfigure(enabled=True)
+    yield
+    for led, w in zip(leds, was):
+        led.reconfigure(enabled=w)
+
+
+def test_split_apps_answer_like_jaxs(tmp_path, monkeypatch, usage_ledgers_on):
     """Tolerance: none. A gateway App (no engine; configured for
     ``cuda`` where there is none) and a queue-manager App (llama3-tiny in
     float32 on the CPU, JAX's weights through ``params_from_jax``) joined

@@ -288,6 +288,35 @@ _BLOCKED_IMPORT_SCRIPT = textwrap.dedent("""
                 "llmq_tpu_torch.cluster",
                 "llmq_tpu_torch.scheduling.autoscaler"):
         assert mod in sys.modules, mod
+    # The control plane and the disaggregation plane: the controller, the
+    # ladder, the pools, the exchange and the coordinator, their config
+    # blocks (off by default), the shedder's ladder seam, the plane's and
+    # engine's hooks, the REST routes and the metric families.
+    from llmq_tpu_torch.controlplane import (DegradationLadder,
+                                             ExecReplicaPool,
+                                             LocalEnginePool,
+                                             ReplicaController,
+                                             SubprocessReplicaPool,
+                                             build_controller, build_pool)
+    from llmq_tpu_torch.disagg import (EXCHANGE_PREFIX, DisaggCoordinator,
+                                       KVExchange, build_disagg)
+    from llmq_tpu_torch.core.config import (ControlPlaneConfig,
+                                            DisaggConfig,
+                                            ReplicaPoolConfig)
+    assert not cfg.controlplane.enabled and not cfg.disagg.enabled
+    assert build_controller(cfg, object()) is None
+    assert callable(OverloadShedder.set_degradation)
+    for fn in ("export_to_exchange", "_exchange_fetch", "_exchange_publish"):
+        assert callable(getattr(KVTieringPlane, fn)), fn
+    for fn in ("get_controller_state", "set_controller_state"):
+        assert callable(getattr(ApiServer, fn)), fn
+    for fam in ("controller_actions", "controller_rung",
+                "controller_target_replicas", "controller_live_replicas",
+                "controller_recovery_seconds", "controller_paused",
+                "kv_exchange_published", "kv_exchange_claimed",
+                "kv_exchange_expired", "kv_exchange_fallback",
+                "kv_handoff_ms"):
+        assert hasattr(get_metrics(), fam), fam
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", sys.argv[1] + "/chip_smoke.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))

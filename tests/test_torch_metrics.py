@@ -90,11 +90,13 @@ def test_every_port_family_is_jaxs():
     """Tolerance: none. Name, type, help, label names and buckets."""
     port, jax_m = treg.get_metrics(), jreg.get_metrics()
     fams = vars(port)
-    assert len(fams) == 92      # the observability planes, the WAL, the
+    assert len(fams) == 103     # the observability planes, the WAL, the
     #                             four speculation families, the six
     #                             tiering families, the five of the
-    #                             fault domain, the five of tenancy and
-    #                             the seven of the replica set
+    #                             fault domain, the five of tenancy, the
+    #                             seven of the replica set, the five of
+    #                             the KV exchange and the six of the
+    #                             control plane
     for attr, fam in fams.items():
         jf = getattr(jax_m, attr)
         name = jf._name + ("_total" if jf._type == "counter" else "")
@@ -109,7 +111,7 @@ def test_exposition_parses_like_jaxs():
     parser into the same families (name, type, help) as JAX's."""
     port, jax_fams = _by_name(_port_exposition()), _by_name(
         _jax_exposition())
-    assert len(port) == 92
+    assert len(port) == 103
     for name, fam in port.items():
         jf = jax_fams[name]
         assert (fam.type, fam.documentation) == (jf.type,
@@ -614,3 +616,184 @@ def test_fault_domain_samples_equal_jaxs():
     assert runs["port"][0] == runs["jax"][0]
     assert _family(runs["port"][0], "llm_queue_chaos_injected_total")
     assert set(runs["port"][1]) == set(runs["jax"][1])
+
+
+def _family_values(text: str, prefix: str):
+    """{(sample name, labels): value} of the families named ``prefix*``
+    (``_created`` samples aside)."""
+    return {(s.name, tuple(sorted(s.labels.items()))): s.value
+            for f in text_string_to_metric_families(text)
+            if f.name.startswith(prefix)
+            for s in f.samples if not s.name.endswith("_created")}
+
+
+def _put_back(fam, snap):
+    """A prometheus_client family's children as ``snap`` held them."""
+    if fam._labelnames:
+        with fam._lock:
+            for k in list(fam._metrics):
+                if k not in snap:
+                    del fam._metrics[k]
+    for k, v in snap.items():
+        c = fam.labels(*k) if fam._labelnames else fam
+        if isinstance(v, tuple):
+            for b, x in zip(c._buckets, v[0]):
+                b.set(x)
+            c._sum.set(v[1])
+        else:
+            c._value.set(v)
+
+
+def _take(fam):
+    kids = (fam._metrics.items() if fam._labelnames else [((), fam)])
+    return {k: ((tuple(b.get() for b in c._buckets), c._sum.get())
+                if hasattr(c, "_buckets") else c._value.get())
+            for k, c in list(kids)}
+
+
+def test_control_plane_families_move_like_jaxs():
+    """Tolerance: none. One controller scenario per package (a fake burn
+    and backlog, a pause and a resume, the ladder's degraded shed at
+    ``shed_batch``) moves ``controller_*`` and
+    ``requests_shed_total{reason="degraded"}`` by the same deltas and
+    leaves the same gauges. JAX's families are put back after."""
+    from llmq_tpu import controlplane as jcp
+    from llmq_tpu.cluster.router import ClusterRouter as JRouter
+    from llmq_tpu.loadbalancer.load_balancer import LoadBalancer as JLB
+
+    from llmq_tpu_torch import controlplane as tcp
+    from llmq_tpu_torch.cluster.router import ClusterRouter as TRouter
+    from llmq_tpu_torch.loadbalancer.load_balancer import LoadBalancer as TLB
+
+    jm = jreg.get_metrics()
+    jfams = [jm.controller_actions, jm.controller_rung,
+             jm.controller_target_replicas, jm.controller_live_replicas,
+             jm.controller_recovery_seconds, jm.controller_paused,
+             jm.requests_shed]
+    snaps = [_take(f) for f in jfams]
+
+    class Burn:
+        fast = 0.0
+
+        def burn_rates(self):
+            return {"ttft": {"5m": {"burn_rate": self.fast},
+                             "1h": {"burn_rate": 0.0}}}
+
+    class Manager:
+        pending = 0
+
+        def total_pending(self):
+            return self.pending
+
+    runs = {}
+    try:
+        for name, cp, C, Router, LB, ov, Err, types_, expo in (
+                ("jax", jcp, JC, JRouter, JLB, joverload, JApiError,
+                 jtypes, _jax_exposition),
+                ("port", tcp, TC, TRouter, TLB, toverload, TApiError,
+                 ttypes, _port_exposition)):
+            before = _family_values(expo(), "llm_queue_controller")
+            shed0 = _family_values(expo(), "llm_queue_requests_shed")
+            shedder = ov.OverloadShedder(C.OverloadConfig(
+                queue_depth_limit=100), None, enable_metrics=True)
+            router = Router(LB(C.LoadBalancerConfig(
+                strategy="round_robin", health_check_interval=0.0)),
+                config=C.ClusterConfig(), enable_metrics=False)
+            burn, mgr = Burn(), Manager()
+            ctl = cp.ReplicaController(
+                config=C.ControlPlaneConfig(enabled=True, interval=0.0,
+                                            cooldown=0.0, relax_after_ticks=1),
+                router=router, pool=None, queue_manager=mgr, shedder=shedder,
+                slo_tracker=burn, enable_metrics=True)
+            burn.fast = 2.0
+            ctl.run_once()
+            mgr.pending = 500
+            ctl.run_once()
+            low = types_.Message(id="m", content="x", user_id="u",
+                                 priority=types_.Priority.LOW)
+            with pytest.raises(Err) as ei:
+                shedder.admit(low, None, 0.0)
+            ctl.pause()
+            ctl.run_once()
+            paused = _family_values(expo(), "llm_queue_controller_paused")
+            ctl.resume()
+            burn.fast, mgr.pending = 0.0, 0
+            ctl.run_once()
+            after = _family_values(expo(), "llm_queue_controller")
+            shed1 = _family_values(expo(), "llm_queue_requests_shed")
+            runs[name] = (
+                {k: v - before.get(k, 0.0) for k, v in after.items()
+                 if k[0].endswith("_total")},
+                {k: v for k, v in after.items()
+                 if not k[0].endswith("_total")
+                 and "recovery" not in k[0]},
+                paused,
+                {k: v - shed0.get(k, 0.0) for k, v in shed1.items()
+                 if v != shed0.get(k, 0.0)},
+                ei.value.status)
+    finally:
+        for f, s in zip(jfams, snaps):
+            _put_back(f, s)
+    assert runs["port"] == runs["jax"]
+    deltas, gauges, paused, shed, status = runs["port"]
+    assert deltas[("llm_queue_controller_actions_total",
+                   (("action", "escalate"), ("reason", "burn_fast")))] == 2
+    assert deltas[("llm_queue_controller_actions_total",
+                   (("action", "pause"), ("reason", "operator")))] == 1
+    assert paused == {("llm_queue_controller_paused", ()): 1.0}
+    assert shed == {("llm_queue_requests_shed_total",
+                     (("code", "429"), ("reason", "degraded"))): 1.0}
+    assert status == 429
+
+
+def test_controller_recovery_histogram_observes_like_jaxs():
+    """Tolerance: none. A recovery the controller tracks (replacement
+    done, back at target, burn under 1) lands one observation of its
+    seconds, on each package's fake clock, in the unlabelled
+    ``controller_recovery_seconds``; JAX's family is put back after."""
+    from llmq_tpu import controlplane as jcp
+    from llmq_tpu.cluster.router import ClusterRouter as JRouter
+    from llmq_tpu.loadbalancer import load_balancer as jlb
+
+    from llmq_tpu_torch import controlplane as tcp
+    from llmq_tpu_torch.cluster.router import ClusterRouter as TRouter
+    from llmq_tpu_torch.core import clock as tclock
+    from llmq_tpu_torch.loadbalancer import load_balancer as tlb
+
+    class Burn:
+        def burn_rates(self):
+            return {}
+
+    fam = jreg.get_metrics().controller_recovery_seconds
+    snap = _take(fam)
+    runs = {}
+    try:
+        for name, cp, C, Router, lb, clock, expo in (
+                ("jax", jcp, JC, JRouter, jlb, jclock.FakeClock(),
+                 _jax_exposition),
+                ("port", tcp, TC, TRouter, tlb, tclock.FakeClock(),
+                 _port_exposition)):
+            before = _family_values(expo(),
+                                    "llm_queue_controller_recovery")
+            router = Router(lb.LoadBalancer(C.LoadBalancerConfig(
+                health_check_interval=0.0)), config=C.ClusterConfig(),
+                enable_metrics=False)
+            router.lb.add_endpoint(lb.Endpoint(id="e0", url="local://e0"))
+            ctl = cp.ReplicaController(
+                config=C.ControlPlaneConfig(enabled=True, interval=0.0),
+                router=router, pool=None, slo_tracker=Burn(), clock=clock,
+                enable_metrics=True)
+            ctl.run_once()
+            ctl._recovering_since = clock.now()
+            clock.advance(4.0)
+            ctl.run_once()
+            after = _family_values(expo(), "llm_queue_controller_recovery")
+            runs[name] = ({k: v - before.get(k, 0.0)
+                           for k, v in after.items()}, ctl.last_recovery_s)
+    finally:
+        _put_back(fam, snap)
+    assert runs["port"] == runs["jax"]
+    deltas, took = runs["port"]
+    assert took == 4.0
+    assert deltas[("llm_queue_controller_recovery_seconds_count", ())] == 1
+    assert deltas[("llm_queue_controller_recovery_seconds_sum", ())] == 4.0

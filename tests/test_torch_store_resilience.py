@@ -13,9 +13,11 @@ metric families, and the store blackout acceptance (tiering and the
 state manager over one wrapped store, the async pipeline on; on the echo
 engine, and on the port's engine over a tiny f32 model whose turn in the
 store tier recomputes token for token as JAX's). The breaker's own unit
-cases are here too. The KV exchange's cases wait for the disaggregation
-plane. The state manager registers ``state`` and ``placement`` in both
-packages."""
+cases are here too. The KV exchange's degraded rung (a publish skipped
+while the store is degraded, a claim bounded by the deadline or its
+TTL, each a recompute) is ``TestExchangeDegraded``, and the echo
+acceptance carries the exchange leg. The state manager registers
+``state`` and ``placement`` in both packages."""
 
 from __future__ import annotations
 
@@ -54,6 +56,7 @@ from llmq_tpu.models import llama as J  # noqa: E402
 from llmq_tpu.queueing import factory as jfactory  # noqa: E402
 from llmq_tpu.queueing import queue_manager as jqm  # noqa: E402
 from llmq_tpu.tiering import KVTieringPlane as JPlane  # noqa: E402
+from llmq_tpu.disagg import KVExchange as JExchange  # noqa: E402
 
 from llmq_tpu_torch import chaos as tchaos  # noqa: E402
 from llmq_tpu_torch.api.server import ApiServer as TApiServer  # noqa: E402
@@ -75,6 +78,7 @@ from llmq_tpu_torch.models import llama as T  # noqa: E402
 from llmq_tpu_torch.queueing import factory as tfactory  # noqa: E402
 from llmq_tpu_torch.queueing import queue_manager as tqm  # noqa: E402
 from llmq_tpu_torch.tiering import KVTieringPlane as TPlane  # noqa: E402
+from llmq_tpu_torch.disagg import KVExchange as TExchange  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -89,14 +93,14 @@ JAX = types.SimpleNamespace(
     types=jtypes, Engine=JEngine, Echo=JEcho, Tok=JTok,
     GenRequest=JGenRequest, cb=jcb, Plane=JPlane, ApiServer=JApiServer,
     QueueFactory=jfactory.QueueFactory, QueueType=jfactory.QueueType,
-    QueueManager=jqm.QueueManager)
+    QueueManager=jqm.QueueManager, Exchange=JExchange)
 PORT = types.SimpleNamespace(
     name="port", chaos=tchaos, C=TC, config=TC.Config, res=tres,
     pers=tpers, SM=TSM, FakeClock=tclock.FakeClock, errors=terrors,
     types=ttypes, Engine=TEngine, Echo=TEcho, Tok=TTok,
     GenRequest=TGenRequest, cb=tcb, Plane=TPlane, ApiServer=TApiServer,
     QueueFactory=tfactory.QueueFactory, QueueType=tfactory.QueueType,
-    QueueManager=tqm.QueueManager)
+    QueueManager=tqm.QueueManager, Exchange=TExchange)
 PKGS = (JAX, PORT)
 BOTH = pytest.mark.parametrize("P", PKGS, ids=lambda P: P.name)
 
@@ -654,6 +658,61 @@ class TestTieringDegraded:
 # -- sqlite's locked retry -----------------------------------------------------
 
 
+class TestExchangeDegraded:
+    def test_publish_skips_while_degraded(self):
+        def run(P):
+            fk = P.FakeClock()
+            inner = ScriptedStore(P)
+            store = P.res.wrap_store(inner, _rcfg(P, retries=0), clock=fk)
+            x = P.Exchange(store, role="prefill", metrics=False)
+            consumers = store.resilience_stats()["consumers"]
+            _trip(store, inner)
+            x.publish("c1", [], [], meta={"tokens": [1, 2, 3]})
+            out = ("exchange" in consumers, inner.raw.list_kv(),
+                   dict(x.totals))
+            store.close()
+            return out
+
+        registered, kv, totals = _same(run)
+        assert registered and kv == []
+        assert (totals["fallback"], totals["published"]) == (1, 0)
+
+    def test_claim_under_injected_latency_degrades_to_recompute(self):
+        def run(P):
+            store = P.res.wrap_store(P.pers.InMemoryStore(),
+                                     _rcfg(P, op_timeout_s=0.05))
+            x = P.Exchange(store, role="decode", claim_ttl_s=2.0,
+                           metrics=False)
+            x.publish("c1", [], [], meta={"tokens": [1, 2]})
+            _arm(P, 51, {"point": "store.kv", "kind": "latency",
+                         "latency_ms": 400, "times": 1,
+                         "match": {"op": "kv_get"}})
+            t0 = time.perf_counter()
+            first = x.claim("c1")
+            bounded = time.perf_counter() - t0 < 0.35
+            fallback = x.totals["fallback"]
+            got = x.claim("c1")
+            store.close()
+            return first, bounded, fallback, got[2]["tokens"]
+
+        assert _same(run) == (None, True, 1, [1, 2])
+
+    def test_claim_wall_budget_on_a_raw_slow_store(self):
+        def run(P):
+            class SlowLoad(P.pers.InMemoryStore):
+                def load_kv(self, cid):
+                    time.sleep(0.08)
+                    return super().load_kv(cid)
+
+            raw = SlowLoad()
+            x = P.Exchange(raw, role="decode", claim_ttl_s=0.05,
+                           metrics=False)
+            x.publish("c1", [], [], meta={"tokens": [9]})
+            return x.claim("c1"), x.totals["fallback"], raw.list_kv()
+
+        assert _same(run) == (None, 1, [])
+
+
 class TestSqliteLockedRetry:
     @BOTH
     def test_locked_retry_unit(self, P, tmp_path):
@@ -978,6 +1037,8 @@ class TestStoreBlackoutAcceptance:
                 async_pipeline=P.C.AsyncPipelineConfig(enabled=True,
                                                        depth=2))
             eng.attach_conversation_manager(sm)
+            x = P.Exchange(store, role="unified", metrics=False)
+            eng._tiering.exchange = x
             checker = P.chaos.InvariantChecker()
             convs = [f"bc{i}" for i in range(4)]
             toks = []
@@ -1006,8 +1067,9 @@ class TestStoreBlackoutAcceptance:
                 st = store.resilience_stats()
                 assert st["breaker"]["trips"] >= 1
                 assert store.totals["errors"] >= 3
-                # Without the exchange leg nothing calls the store once it
-                # is degraded: the state manager journals its writes.
+                # The fresh arrivals' exchange claims meet the degraded
+                # store and shed fast; the state manager journals.
+                assert store.totals["shed"] > 0
                 assert sm.replay_pending() > 0
 
                 P.chaos.configure(None)
@@ -1018,6 +1080,11 @@ class TestStoreBlackoutAcceptance:
                                   timeout=5.0)
                 for c in convs:
                     assert store.inner.load(c) is not None
+                # A publish → claim handoff lands through the recovered
+                # store.
+                x.publish("hand", [], [], meta={"tokens": [1, 2]})
+                got = x.claim("hand")
+                assert got is not None and got[2]["tokens"] == [1, 2]
                 fclock.advance(6.0)
                 eng.step()
                 assert wait_until(
