@@ -402,6 +402,40 @@ shows where it happened):
                  peak memory; and serve-plane's pool-pressure traffic
                  once more over the int8 pool and its scale pools.
 
+18. serve-scenarios — (run after serve-disagg) the scenario engine: a bf16
+                 llama3-8b engine over the serve phase's weights (full
+                 width and depth) at the JAX package's defaults, warmed,
+                 plays three shipped scenarios (``configs/scenarios/``)
+                 through the port's ``run_scenario`` on an
+                 ``EngineTarget``, each at scale 0.05 on the compressed
+                 ``FakeClock``: a. ``agentic_tool_loops`` (13
+                 conversations, 78 turns whose histories grow): every
+                 turn completes, none fails or is shed, later turns are
+                 admitted from cached KV; b.
+                 ``diurnal_tenant_mix_with_flash_crowd`` (30
+                 conversations, 65 turns, tenants gold:silver:bronze at
+                 3:2:1, one ``engine.step`` crash with no match, so only
+                 this engine runs): the crash fires once, the target's
+                 supervisor recovers the engine, every failed attempt is
+                 retried and every turn completes; c.
+                 ``rag_long_prompt_flood`` (8 conversations, 14 turns,
+                 prompts of up to 4656 bytes, past the 2048-token window:
+                 the engine keeps their tail): every turn completes. In
+                 each, the schedule digest is the JAX package's, the
+                 invariant checker finds nothing lost or duplicated and
+                 saw every submission, kernels 1-3 launch and no twin
+                 is called. Printed: goodput by the usage ledger and by
+                 the driver, SLO attainment, wall seconds and
+                 compression, TTFT p50 and max, each tenant's share
+                 error, graph replays against captures, the turns cut.
+                 Afterwards chaos is disarmed and tenancy reset.
+
+With ``LLMQ_LOCKDEP=1`` the port's lockdep (``analysis/lockdep.py``) is
+installed after ``torch`` is imported and before the port's modules are;
+at the end its counts are printed on a line of their own
+(``{"lockdep": {...}}``), and any violation fails the run. Without the
+variable nothing is patched.
+
 No ``*_plain`` twin may be called while serving. On the card every
 decode step, prefill program and mixed step 0 is a replay of one of the
 executor's captured graphs; the launch counts add each replay's
@@ -2799,11 +2833,11 @@ def phase_serve(state) -> None:
     counts, restore = _count_plain_calls()
     try:
         params = _serve_default(state)
-        if {"serve-spec", "serve-tiering", "serve-disagg"} & set(
-                state.get("chosen", ())):
-            # The serve-spec, serve-tiering and serve-disagg phases build
-            # their engines on these weights (the last of them releases
-            # them).
+        if {"serve-spec", "serve-tiering", "serve-disagg",
+                "serve-scenarios"} & set(state.get("chosen", ())):
+            # The serve-spec, serve-tiering, serve-disagg and
+            # serve-scenarios phases build their engines on these weights
+            # (the last of them releases them).
             state["serve_params"] = params
         _serve_ragged(state, params)
     finally:
@@ -7090,7 +7124,8 @@ def phase_serve_spec(state) -> None:
     from llmq_tpu_torch.engine.builder import build_engine
     from llmq_tpu_torch.ops import kernels
 
-    params = (state.get if {"serve-tiering", "serve-disagg"} & set(
+    params = (state.get if {"serve-tiering", "serve-disagg",
+                            "serve-scenarios"} & set(
         state.get("chosen", ())) else state.pop)("serve_params", None)
     if params is None:
         raise AssertionError("serve-spec runs on the serve phase's weights: "
@@ -7871,8 +7906,8 @@ def phase_serve_tiering(state) -> None:
 
     from llmq_tpu_torch.ops.kernels import BUILD_DIR
 
-    params = (state.get if "serve-disagg" in state.get("chosen", ())
-              else state.pop)("serve_params", None)
+    params = (state.get if {"serve-disagg", "serve-scenarios"} & set(
+        state.get("chosen", ())) else state.pop)("serve_params", None)
     if params is None:
         raise AssertionError("serve-tiering runs on the serve phase's "
                              "weights: run serve before it")
@@ -9818,7 +9853,8 @@ def phase_serve_disagg(state) -> None:
     from llmq_tpu_torch.loadbalancer.load_balancer import LoadBalancer
     from llmq_tpu_torch.ops.kernels import BUILD_DIR
 
-    params = state.pop("serve_params", None)
+    params = (state.get if "serve-scenarios" in state.get("chosen", ())
+              else state.pop)("serve_params", None)
     if params is None:
         raise AssertionError("serve-disagg runs on the serve phase's "
                              "weights: run serve before it")
@@ -9879,12 +9915,230 @@ def phase_serve_disagg(state) -> None:
         f"({CARD})")
 
 
+# -- serve-scenarios: the scenario engine's shipped workloads on the card -------
+
+#: The shipped scenarios the phase plays (``configs/scenarios/``), each at
+#: its scale, with the schedule digest the JAX package's compiler gives it
+#: there (``tests/test_torch_scenarios.py`` holds these equal to it).
+SCENARIO_RUNS = (
+    ("agentic_tool_loops", 0.05,
+     "8c8d941cbb05e4fc367bac500b3902435e009f6e6f1d03cbcc8a08c303ca1df7"),
+    ("diurnal_tenant_mix_with_flash_crowd", 0.05,
+     "7eaa686acd1a85bb1980a40929d11f7339e5589705bf18d14f4e14769371819c"),
+    ("rag_long_prompt_flood", 0.05,
+     "c1033c3c5090be5306422e1a1cad9042ed0b19204a4e4fff954bed0204a7cf58"),
+)
+
+#: The kernels every scenario run must launch.
+SCENARIO_KERNELS = ("fused_decode", "kv_prefill_write", "prefill_attention")
+
+
+def _scenario_run(engine, name: str, scale: float, digest: str) -> dict:
+    """One shipped scenario through the port's ``run_scenario`` on an
+    ``EngineTarget`` over ``engine`` (a compressed ``FakeClock``): the
+    schedule is JAX's, every turn completes, the invariant checker finds
+    nothing and saw every submission, and kernels 1-3 launch. Returns the
+    run's numbers: goodput (the usage ledger's and the driver's), SLO
+    attainment, wall and compression, each attempt's TTFT, the turns
+    whose prompt with its history passed the engine's window (their tail
+    kept), cached-prefix admissions, graph replays against captures."""
+    import statistics
+
+    import torch
+
+    from llmq_tpu_torch.ops import kernels
+    from llmq_tpu_torch.scenarios import (EngineTarget, load_named,
+                                          run_scenario)
+
+    ex = engine.executor
+    # An engine.step rule with no match lands on any engine that steps:
+    # only this one may run while a scenario plays.
+    others = sorted(t.name for t in threading.enumerate()
+                    if t.name.startswith("engine-")
+                    and t.name != f"engine-{engine.name}")
+    if others:
+        raise AssertionError(f"{name}: other engines run in this process "
+                             f"({others})")
+    target = EngineTarget(engine)
+    sent, done = {}, {}
+    submit, poll = target.submit, target.poll
+
+    def watched_submit(req, on_token):
+        sent[req.id] = len(engine.tokenizer.encode(req.history_text
+                                                   + req.prompt))
+        return submit(req, on_token)
+
+    def watched_poll(handle):
+        res = poll(handle)
+        if res is not None:
+            done[handle.request.id] = res
+        return res
+
+    target.submit, target.poll = watched_submit, watched_poll
+    captures = []
+    capture = ex._capture
+    ex._capture = lambda *a, **k: (captures.append(a), capture(*a, **k))[1]
+    n_graphs = len(ex.step_graphs) + len(ex.program_graphs)
+    replays0 = ex.graph_replays + sum(ex.program_replays.values())
+    hits0 = engine.prefix_hits
+    cached0 = engine.cached_prefill_tokens_total
+    kernels.reset_launches()
+    try:
+        rep = run_scenario(load_named(name), target=target, scale=scale)
+        torch.cuda.synchronize()
+    finally:
+        ex.__dict__.pop("_capture", None)
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    req, inv = rep["requests"], rep["invariants"]
+    if rep["schedule_digest"] != digest:
+        raise AssertionError(f"{name}: schedule {rep['schedule_digest']} "
+                             f"is not JAX's {digest}")
+    if inv["violations"] or inv["submitted"] != req["submitted"]:
+        raise AssertionError(f"{name}: invariants {inv}, requests {req}")
+    if req["completed"] != req["turns_planned"]:
+        raise AssertionError(f"{name}: {req['completed']} of "
+                             f"{req['turns_planned']} turns completed: {req}")
+    missing = [k for k in SCENARIO_KERNELS if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"{name}: never launched {missing}: {launches}")
+    window = ex.spec.max_pages_per_seq * ex.spec.page_size
+    ttft = [r["ttft_ms"] for r in done.values() if r["ttft_ms"] is not None]
+    dur = rep["duration"]
+    return {"schedule_digest": rep["schedule_digest"], "requests": req,
+            "tokens": rep["tokens"],
+            "goodput_tps": rep["goodput"].get("tokens_per_device_second"),
+            "driver_goodput_tps": rep["driver_goodput_tps"],
+            "slo_attainment": rep["slo"]["attainment"],
+            "wall_s": dur["wall_s"], "virtual_s": dur["virtual_s"],
+            "compression": dur["compression"],
+            "tier_hits": rep["tier_hits"]["requests_by_tier"],
+            "prefix_hits": engine.prefix_hits - hits0,
+            "cached_tokens": engine.cached_prefill_tokens_total - cached0,
+            "share_error": rep["share_error"],
+            "longest_prompt_tokens": max(sent.values()),
+            "cut_turns": sum(1 for n in sent.values() if n + 1 > window),
+            "window": window,
+            "ttft_ms_p50": statistics.median(ttft),
+            "ttft_ms_max": max(ttft) if ttft else None,
+            "graph_replays": (ex.graph_replays
+                              + sum(ex.program_replays.values()) - replays0),
+            "captures": len(captures), "graphs": n_graphs,
+            "launches": launches}
+
+
+def phase_serve_scenarios(state) -> None:
+    """The scenario engine on the card: a bf16 llama3-8b engine over the
+    serve phase's weights at JAX's defaults (mixed batching, the async
+    pipeline at depth 2, the radix prefix cache, CUDA graphs), warmed
+    before any scenario starts, plays three shipped scenarios through
+    the port's ``run_scenario``: a. ``agentic_tool_loops`` (histories
+    growing turn by turn: later turns admitted from cached KV), b.
+    ``diurnal_tenant_mix_with_flash_crowd`` (three tenants and one
+    ``engine.step`` crash: the target's supervisor recovers the engine
+    and the driver retries), c. ``rag_long_prompt_flood`` (prompts past
+    the engine's 2048-token window, whose tail it keeps)."""
+    import gc
+
+    import torch
+
+    from llmq_tpu_torch import chaos, tenancy
+    from llmq_tpu_torch.engine.builder import build_engine
+    from llmq_tpu_torch.observability.recorder import get_recorder
+    from llmq_tpu_torch.observability.usage import get_usage_ledger
+
+    params = state.pop("serve_params", None)
+    if params is None:
+        raise AssertionError("serve-scenarios runs on the serve phase's "
+                             "weights: run serve before it")
+    out = state.setdefault("serve_scenarios", {})
+    t0 = time.perf_counter()
+    ledger = get_usage_ledger()
+    ledger_was = ledger.enabled
+    counts, restore = _count_plain_calls()
+    engine = None
+    try:
+        engine = build_engine(_serve_cfg(), params=params, name="scenarios",
+                              warmup=True)
+        _log_warmup(engine, "serve-scenarios")
+        _check_defaults(engine, "serve-scenarios")
+        engine.start()
+        engine.generate("warm up the scenario engine", max_new_tokens=4)
+        torch.cuda.synchronize()
+        out["build_s"] = time.perf_counter() - t0
+        log(f"[serve-scenarios] engine built, warmed and started in "
+            f"{out['build_s']:.1f} s ({CARD})")
+        for name, scale, digest in SCENARIO_RUNS:
+            out[name] = r = _scenario_run(engine, name, scale, digest)
+            req = r["requests"]
+            log(f"[serve-scenarios] {name} x{scale}: "
+                f"{req['conversations']} conversations, {req['completed']} "
+                f"of {req['turns_planned']} turns, submitted "
+                f"{req['submitted']}, failed {req['failed']}, retried "
+                f"{req['retried']}, shed {req['shed']}; tokens "
+                f"{r['tokens']}; goodput {r['goodput_tps']} tok per device-s "
+                f"(usage ledger), driver {r['driver_goodput_tps']}; SLO "
+                f"attainment {r['slo_attainment']}; wall {r['wall_s']} s "
+                f"for {r['virtual_s']} virtual s (compression "
+                f"{r['compression']}); TTFT p50 {r['ttft_ms_p50']:.1f} ms, "
+                f"max {r['ttft_ms_max']:.1f} ms; cached-prefix admissions "
+                f"{r['prefix_hits']} ({r['cached_tokens']} tokens); "
+                f"launches {r['launches']}; schedule {r['schedule_digest']} "
+                f"({CARD})")
+        a, b, c = (out[n] for n, _s, _d in SCENARIO_RUNS)
+        ra, rb, rc = a["requests"], b["requests"], c["requests"]
+        if ra["failed"] or ra["shed"] or a["prefix_hits"] <= 0 \
+                or a["cached_tokens"] <= 0:
+            raise AssertionError(f"agentic_tool_loops: {ra}, later turns "
+                                 f"from cached KV {a['prefix_hits']}")
+        if (rb["chaos_events_fired"] != 1 or rb["engine_recoveries"] < 1
+                or rb["submitted"] != rb["completed"] + rb["failed"]
+                or rb["retried"] != rb["failed"]):
+            raise AssertionError(f"diurnal_tenant_mix_with_flash_crowd: {rb}")
+        shares = {t: v["error"] for t, v in b["share_error"]["tenants"].items()}
+        log(f"[serve-scenarios] flash crowd: engine.step crash fired "
+            f"{rb['chaos_events_fired']}, recoveries "
+            f"{rb['engine_recoveries']}, {rb['failed']} attempts failed "
+            f"and retried; tenant share errors {shares}; graph replays "
+            f"{b['graph_replays']}, captures {b['captures']} ({b['graphs']} "
+            f"graphs kept) ({CARD})")
+        log(f"[serve-scenarios] rag flood: {rc['completed']} of "
+            f"{rc['turns_planned']} turns; {c['cut_turns']} turns past the "
+            f"{c['window']}-token window (longest {c['longest_prompt_tokens']}"
+            f" tokens, its tail kept); TTFT p50 {c['ttft_ms_p50']:.1f} ms, "
+            f"max {c['ttft_ms_max']:.1f} ms ({CARD})")
+        if counts:
+            raise AssertionError(f"serve-scenarios called plain twins: "
+                                 f"{counts}")
+    finally:
+        restore()
+        # Later phases find the process as before: chaos disarmed, no
+        # tenancy, the ledger as it was and empty.
+        chaos.configure(None)
+        tenancy.reset_tenancy()
+        ledger.reconfigure(enabled=ledger_was)
+        ledger.clear()
+        get_recorder().clear()
+        if engine is not None:
+            engine.stop()
+            engine.executor.release_graphs()
+        engine = None
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    if chaos.get_injector() is not None or \
+            tenancy.get_tenant_registry().enabled:
+        raise AssertionError("serve-scenarios left chaos or tenancy on")
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[serve-scenarios] no twin called; {out['phase_s']:.1f} s ({CARD})")
+
+
 PHASES = [("env", phase_env), ("build", phase_build),
           ("kernels", phase_kernels), ("split", phase_split),
           ("model", phase_model), ("graphs", phase_graphs),
           ("serve", phase_serve), ("serve-spec", phase_serve_spec),
           ("serve-tiering", phase_serve_tiering),
           ("serve-disagg", phase_serve_disagg),
+          ("serve-scenarios", phase_serve_scenarios),
           ("serve-tenancy", phase_serve_tenancy),
           ("serve-weights", phase_serve_weights),
           ("serve-plane", phase_serve_plane),
@@ -9919,6 +10173,17 @@ def main(argv=()) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    lockdep = None
+    if os.environ.get("LLMQ_LOCKDEP") == "1":
+        # The port's lock-order instrument, installed after torch and
+        # before the port's modules create their module-level locks.
+        try:
+            from llmq_tpu_torch.analysis import lockdep
+        except ImportError as e:
+            print(f"chip_smoke: the port is not importable here: {e}",
+                  file=sys.stderr)
+            return 2
+        lockdep.install()
     try:
         import llmq_tpu_torch  # noqa: F401
     except ImportError as e:
@@ -9940,6 +10205,16 @@ def main(argv=()) -> int:
             return 1
         log(f"[{name}] done in {time.perf_counter() - t0:.1f} s")
     log(f"[all] {time.perf_counter() - t_all:.1f} s")
+    if lockdep is not None:
+        rep = lockdep.report()
+        print(json.dumps({"lockdep": {
+            "sites": rep["sites"], "edges": rep["edges"],
+            "self_sites": len(rep["self_sites"]),
+            "violations": len(rep["violations"])}}))
+        if rep["violations"]:
+            print("chip_smoke: lockdep violations:\n\n"
+                  + "\n\n".join(rep["violations"]), file=sys.stderr)
+            return 1
     print(json.dumps({"kernels": list(state["kernels"].values()),
                       "serve": state.get("serve"),
                       "serve_int8": state.get("serve_int8"),
@@ -9948,6 +10223,7 @@ def main(argv=()) -> int:
                       "serve_cluster": state.get("serve_cluster"),
                       "serve_control": state.get("serve_control"),
                       "serve_disagg": state.get("serve_disagg"),
+                      "serve_scenarios": state.get("serve_scenarios"),
                       "serve_spec": state.get("serve_spec"),
                       "serve_tiering": state.get("serve_tiering"),
                       "serve_tenancy": state.get("serve_tenancy"),

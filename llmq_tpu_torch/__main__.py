@@ -1,4 +1,4 @@
-"""Command line: ``python -m llmq_tpu_torch serve|queue-manager|gateway|scheduler|check``.
+"""Command line: ``python -m llmq_tpu_torch serve|queue-manager|gateway|scheduler|check|scenarios``.
 
 ``serve`` runs the monolith: the REST API (``/metrics`` included), the
 preprocessor, the queue factory's managers with their delayed and
@@ -48,6 +48,12 @@ disaggregation plane (``disagg.enabled``, ``disagg/``) gives the engine
 its ``role``, wires the KV exchange over the conversation store into the
 tiering plane, steers the router by role, and on drain publishes every
 warm conversation to the exchange.
+
+``scenarios`` plays named workload specs (``configs/scenarios/``)
+closed-loop into an engine built as ``serve`` builds its own (on ``cuda``
+unless ``--device cpu``; the echo executor only when named,
+``--backend echo``), or into a remote gateway with ``--gateway URL``,
+and prints one summary line a run (``scenarios/``).
 
 Configuration: dataclass defaults, then a YAML file (``--config``, else
 ``LLMQ_CONFIG``, else ``./config.yaml`` or ``./configs/config.yaml``),
@@ -705,6 +711,95 @@ def cmd_check(cfg: Config, args) -> int:
     return 0 if ok else 1
 
 
+def _scenario_target(cfg: Config, spec):
+    """The target of one scenario run: an engine from the builder (a
+    ``store.*`` scenario's with the tiering plane JAX's store target
+    runs, unless the config enables one, behind the resilient store)."""
+    import copy
+
+    from llmq_tpu_torch.scenarios import EngineTarget
+    from llmq_tpu_torch.scenarios.library import _store_target, store_tiering
+
+    name = f"scn-{spec.name}"
+    warm = torch.device(cfg.device).type == "cuda"
+    if any(str(ev.point).startswith("store.") for ev in spec.chaos_events):
+        c = copy.deepcopy(cfg)
+        if not c.executor.kv_tiering.enabled:
+            c.executor.kv_tiering = store_tiering()
+        return _store_target(spec, engine=build_engine(c, name=name,
+                                                       warmup=warm))
+    return EngineTarget(build_engine(cfg, name=name, warmup=warm), own=True)
+
+
+def cmd_scenarios(cfg: Config, args) -> int:
+    """The scenario engine: compile the named (or ``scenarios.run``)
+    workload specs and drive them closed-loop into an engine from the
+    builder (or a remote gateway with ``--gateway``), one summary JSON
+    line a run, plus ``SCENARIO_<name>.json`` with
+    ``scenarios.emit_json``. Exit 2 when scenarios are disabled and no
+    name is given, 1 if a run fails or breaks an invariant."""
+    from llmq_tpu_torch.scenarios import (SHIPPED, GatewayTarget, load_named,
+                                          run_scenario)
+
+    scn = cfg.scenarios
+    names = list(args.names or scn.run)
+    if not names:
+        if not scn.enabled:
+            log.error("scenarios.enabled is false and no scenario names "
+                      "were given: pass names on the command line or set "
+                      "scenarios.run")
+            return 2
+        names = list(SHIPPED)
+    # Scenario runs narrate each preemption and eviction at INFO;
+    # warnings and errors still surface.
+    for noisy in ("engine", "supervisor", "tiering"):
+        logging.getLogger(f"llmq_tpu_torch.{noisy}").setLevel(logging.WARNING)
+    scale = args.scale if args.scale is not None else scn.scale
+    rc = 0
+    for name in names:
+        spec = load_named(name, directory=scn.dir)
+        if spec.seed == 0 and scn.default_seed:
+            spec.seed = scn.default_seed
+        target = None
+        try:
+            target = (GatewayTarget(args.gateway) if args.gateway
+                      else _scenario_target(cfg, spec))
+            rep = run_scenario(spec, target=target, scale=scale,
+                               out_dir=scn.out_dir,
+                               emit_json=scn.emit_json,
+                               directory=scn.dir)
+        except Exception as e:  # noqa: BLE001 — one failed scenario
+            log.error("scenario %s failed: %s: %s",  # must not eat the rest
+                      name, type(e).__name__, e)
+            rc = 1
+            continue
+        finally:
+            if target is not None:
+                target.stop()
+                for eng in target.engines():
+                    # The next scenario's engine needs the card's memory.
+                    getattr(eng.executor, "release_graphs", lambda: None)()
+        req = rep["requests"]
+        violations = rep["invariants"]["violations"]
+        if violations:
+            rc = 1
+        sys.stdout.write(json.dumps({
+            "scenario": name,
+            "scale": scale,
+            "goodput_tps": rep["goodput"].get("tokens_per_device_second"),
+            "slo_attainment": rep["slo"]["attainment"],
+            "completed": req["completed"],
+            "failed": req["failed"],
+            "shed": req["shed"],
+            "chaos_events_fired": req["chaos_events_fired"],
+            "engine_recoveries": req["engine_recoveries"],
+            "invariant_violations": violations,
+            "report_path": rep.get("report_path"),
+        }) + "\n")
+        sys.stdout.flush()
+    return rc
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         prog="llmq_tpu_torch",
@@ -732,6 +827,17 @@ def main(argv: Optional[List[str]] = None) -> int:
     chk = sub.add_parser("check", help="one message end to end, then exit")
     chk.add_argument("--timeout", type=float, default=120.0,
                      help="seconds to wait for the message")
+    scn = sub.add_parser("scenarios",
+                         help="run workload scenarios closed-loop")
+    scn.add_argument("names", nargs="*",
+                     help="scenario names (default: scenarios.run, or all "
+                          "shipped when scenarios.enabled)")
+    scn.add_argument("--scale", type=float, default=None,
+                     help="arrival/population scale factor (default: "
+                          "scenarios.scale)")
+    scn.add_argument("--gateway", default="",
+                     help="drive a remote gateway URL instead of an "
+                          "engine built here")
     args = parser.parse_args(argv)
     try:
         cfg = _load(args)
@@ -739,7 +845,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         parser.error(str(e))
     return {"serve": cmd_serve, "queue-manager": cmd_queue_manager,
             "gateway": cmd_gateway, "scheduler": cmd_scheduler,
-            "check": cmd_check}[args.command](cfg, args)
+            "check": cmd_check,
+            "scenarios": cmd_scenarios}[args.command](cfg, args)
 
 
 if __name__ == "__main__":

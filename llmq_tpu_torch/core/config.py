@@ -635,6 +635,39 @@ class TenancyConfig:
 
 
 @dataclass
+class ScenariosConfig:
+    """The scenario engine (``llmq_tpu_torch/scenarios/``): compiles the
+    declarative workload specs (YAML files under ``dir``) into
+    closed-loop traffic against the engine and scores each run with the
+    usage plane's goodput. ``enabled: false`` (the default) is the
+    off-switch of a bare ``scenarios`` command; the package is a tool,
+    never imported by the serving path."""
+    enabled: bool = False
+    #: Directory of the named scenario specs (the shipped seven live in
+    #: configs/scenarios/); a relative one missing from the working
+    #: directory anchors at the repository root.
+    dir: str = "configs/scenarios"
+    #: Scenario names a ``scenarios`` command runs when it is given none
+    #: ([] with ``enabled``: every shipped one).
+    run: List[str] = field(default_factory=list)
+    #: Multiplier of arrival rates and conversation caps: the same named
+    #: spec serves as a smoke run (0.05) and a full soak (1.0).
+    scale: float = 1.0
+    #: Where ``SCENARIO_<name>.json`` reports are written.
+    out_dir: str = "."
+    #: Write the per-run JSON report (the report dict is returned
+    #: either way).
+    emit_json: bool = True
+    #: Seed of the specs that do not pin one.
+    default_seed: int = 0
+
+    def __post_init__(self) -> None:
+        if isinstance(self.run, str):
+            # ``LLMQ_SCENARIOS_RUN=a,b``: the comma-separated form.
+            self.run = [n.strip() for n in self.run.split(",") if n.strip()]
+
+
+@dataclass
 class ModelConfig:
     name: str = "llama3-8b"      # llama3-tiny | llama3-1b | llama3-8b | llama3-70b
     #: "": random weights from seed 0. A directory ending in
@@ -904,6 +937,7 @@ class Config:
     store: StoreConfig = field(default_factory=StoreConfig)
     chaos: ChaosConfig = field(default_factory=ChaosConfig)
     tenancy: TenancyConfig = field(default_factory=TenancyConfig)
+    scenarios: ScenariosConfig = field(default_factory=ScenariosConfig)
     controlplane: ControlPlaneConfig = field(
         default_factory=ControlPlaneConfig)
     executor: ExecutorConfig = field(default_factory=ExecutorConfig)
@@ -942,10 +976,6 @@ _UNPORTED: Dict[str, Any] = {
     # actuators no caller passes.
     "resource_scheduler": {"scale_up_load": 0.8, "scale_down_load": 0.2,
                            "scale_cooldown": 120.0},
-    "scenarios": {
-        "enabled": False, "dir": "configs/scenarios", "run": [],
-        "scale": 1.0, "out_dir": ".", "emit_json": True,
-        "default_seed": 0},
     # Neither package's builder reads it: the model serves bf16.
     "model": {"dtype": "bfloat16"},
     "executor": {

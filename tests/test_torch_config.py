@@ -372,12 +372,17 @@ def test_search_order_env_and_missing_path(tmp_path, monkeypatch):
 
 
 def test_env_naming_an_unported_key_raises_unless_default():
-    # The disaggregation and control-plane blocks are ported: their
-    # switches now load from the environment as JAX's do, and the case's
-    # raises move to the scenario block, still unported.
-    with pytest.raises(ValueError, match="scenarios.enabled"):
+    # The disaggregation, control-plane and scenario blocks are ported:
+    # their switches now load from the environment as JAX's do, and the
+    # case's raise moves to a key still unported.
+    with pytest.raises(ValueError, match="server.read_timeout"):
         TC.load_config(path=os.devnull,
-                       environ={"LLMQ_SCENARIOS_ENABLED": "true"})
+                       environ={"LLMQ_SERVER_READ_TIMEOUT": "5.0"})
+    env = {"LLMQ_SCENARIOS_ENABLED": "true"}
+    j = JC.Config()
+    JC._apply_env(j, env)
+    assert TC.load_config(path=os.devnull, environ=env).scenarios.enabled \
+        == j.scenarios.enabled is True
     env = {"LLMQ_DISAGG_ENABLED": "true", "LLMQ_DISAGG_ROLE": "decode",
            "LLMQ_CONTROLPLANE_ENABLED": "true"}
     j = JC.Config()
@@ -673,3 +678,35 @@ def test_disagg_and_controlplane_blocks_load_like_jaxs(tmp_path, source):
         with pytest.raises(ValueError) as je:
             getattr(JC, cls)(**bad)
         assert str(te.value) == str(je.value), cls
+
+
+@pytest.mark.parametrize("source", ["file", "env"])
+def test_scenarios_block_loads_like_jaxs(tmp_path, source):
+    """Tolerance: none. ``scenarios`` is a real block with the JAX
+    package's fields and defaults, and the same file and the same
+    ``LLMQ_SCENARIOS_*`` variables load to the same values in both
+    packages; an unknown key in it raises."""
+    assert dataclasses.asdict(TC.ScenariosConfig()) == \
+        dataclasses.asdict(JC.ScenariosConfig())
+    assert "scenarios" not in TC._UNPORTED
+    if source == "file":
+        path = tmp_path / "c.yaml"
+        path.write_text("scenarios: {enabled: true, dir: /specs, run: [a, b],"
+                        " scale: 0.05, out_dir: /out, emit_json: false,"
+                        " default_seed: 7}\n")
+        t = TC.load_config(str(path), env=False)
+        j = JC.load_config(str(path), env=False)
+        path.write_text("scenarios: {enabled: true, nope: 1}\n")
+        with pytest.raises(ValueError, match="scenarios.nope"):
+            TC.load_config(str(path), env=False)
+    else:
+        env = {"LLMQ_SCENARIOS_ENABLED": "true", "LLMQ_SCENARIOS_DIR": "/specs",
+               "LLMQ_SCENARIOS_RUN": "[a, b]", "LLMQ_SCENARIOS_SCALE": "0.05",
+               "LLMQ_SCENARIOS_OUT_DIR": "/out",
+               "LLMQ_SCENARIOS_EMIT_JSON": "false",
+               "LLMQ_SCENARIOS_DEFAULT_SEED": "7"}
+        t = TC.load_config(path=os.devnull, environ=env)
+        j = JC.Config()
+        JC._apply_env(j, env)
+    assert dataclasses.asdict(t.scenarios) == dataclasses.asdict(j.scenarios)
+    assert t.scenarios.run == ["a", "b"] and t.scenarios.scale == 0.05

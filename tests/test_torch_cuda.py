@@ -1644,3 +1644,123 @@ def test_local_pool_replica_on_the_card_launches_kernels_1_to_3():
         eng.executor.release_graphs()
     assert not eng.running
     assert pool.get_stats()["live"] == 0
+
+
+# -- the scenario engine and lockdep on the card ---------------------------------
+
+#: An inline scenario: 3 conversations of 3 turns, an ``engine.step`` crash
+#: armed before the first turn lands (no match: it takes the one engine).
+CRASH_SPEC = {
+    "name": "card_crash", "seed": 21, "tick_s": 0.25, "retries": 2,
+    "max_conversations": 3,
+    "phases": [{"name": "p", "duration_s": 2.0,
+                "arrival": {"kind": "poisson", "rate": 200.0}}],
+    "populations": [{"name": "chat", "tenants": {"a": 2.0, "b": 1.0},
+                     "turns_min": 3, "turns_max": 3, "think_time_s": 0.2,
+                     "prompt_tokens_min": 8, "prompt_tokens_max": 24,
+                     "followup_tokens_min": 4, "followup_tokens_max": 8,
+                     "output_tokens_min": 6, "output_tokens_max": 12}],
+    "chaos_events": [{"at_s": 0.0, "point": "engine.step", "kind": "crash",
+                      "times": 1}],
+}
+
+
+def _card_engine(name, device="cuda"):
+    """A bf16 two-layer engine at head_dim 64 with the JAX defaults'
+    pipeline and prefix cache, random weights from seed 0."""
+    from llmq_tpu_torch.core.config import (AsyncPipelineConfig,
+                                            PrefixCacheConfig)
+    from llmq_tpu_torch.engine.engine import InferenceEngine
+    from llmq_tpu_torch.engine.executor import TorchExecutor
+    from llmq_tpu_torch.engine.tokenizer import ByteTokenizer
+    from llmq_tpu_torch.models import llama as T
+
+    cfg = T.get_config("llama3-tiny", dim=512, n_heads=8, n_kv_heads=2,
+                       n_layers=2, vocab_size=512, max_seq_len=256)
+    params = T.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                           device)
+    ex = TorchExecutor(cfg, params, batch_size=4, page_size=16, num_pages=96,
+                       prefill_buckets=[16, 64, 256], chunk_size=4,
+                       eos_id=-1, device=device)
+    return InferenceEngine(ex, ByteTokenizer(), name=name,
+                           enable_metrics=False, max_decode_steps=16,
+                           async_pipeline=AsyncPipelineConfig(),
+                           prefix_cache=PrefixCacheConfig())
+
+
+def _crash_scenario(device="cuda"):
+    """CRASH_SPEC through the port's ``run_scenario`` on an
+    ``EngineTarget`` over a card engine: (report, launches, replays)."""
+    from llmq_tpu_torch import chaos
+    from llmq_tpu_torch.observability.usage import get_usage_ledger
+    from llmq_tpu_torch.scenarios import EngineTarget, run_scenario
+
+    eng = _card_engine("card-scenario", device)
+    led = get_usage_ledger()
+    was = led.enabled
+    names = ("kv_prefill_write", "prefill_attention", "fused_decode")
+    before = {n: kernels.LAUNCHES[n] for n in names}
+    target = EngineTarget(eng, own=True)
+    try:
+        rep = run_scenario(CRASH_SPEC, target=target)
+    finally:
+        target.stop()
+        chaos.configure(None)
+        led.reconfigure(enabled=was)
+        led.clear()
+        if device == "cuda":
+            eng.executor.release_graphs()
+    return rep, {n: kernels.LAUNCHES[n] - before[n] for n in names}
+
+
+@needs_cuda
+@pytest.mark.filterwarnings(
+    "ignore::pytest.PytestUnhandledThreadExceptionWarning")
+def test_engine_target_plays_a_crash_scenario_on_the_card():
+    """An inline 3-conversation spec with one ``engine.step`` crash on a
+    bf16 card engine: the crash fires once, the target's supervisor
+    recovers the engine, every turn completes, the invariant checker
+    finds nothing, and kernels 1-3 launch."""
+    rep, launches = _crash_scenario()
+    req = rep["requests"]
+    assert req["chaos_events_fired"] == 1 and req["engine_recoveries"] >= 1
+    assert req["completed"] == req["turns_planned"] == 9
+    assert req["submitted"] == req["completed"] + req["failed"]
+    assert req["retried"] == req["failed"]
+    assert rep["invariants"]["violations"] == 0
+    assert all(v > 0 for v in launches.values()), launches
+
+
+@needs_cuda
+def test_lockdep_around_a_card_engine_reports_counts():
+    """The port's lockdep installed around a card engine's build and a
+    short run of four requests: it tracks the engine's locks (sites and
+    edges counted) and records no violation."""
+    from llmq_tpu_torch.analysis import lockdep
+    from llmq_tpu_torch.engine.engine import GenRequest
+
+    was = lockdep.is_installed()
+    lockdep.install()
+    lockdep.reset()
+    try:
+        eng = _card_engine("card-lockdep")
+        eng.start()
+        try:
+            hs = [eng.submit(GenRequest(id=f"l{i}", prompt=f"lockdep {i}",
+                                        max_new_tokens=12))
+                  for i in range(4)]
+            for h in hs:
+                assert h.wait(120.0)
+                assert len(h.result.tokens) == 12
+        finally:
+            eng.stop()
+            eng.executor.release_graphs()
+        rep = lockdep.report()
+    finally:
+        lockdep.reset()
+        if not was:
+            lockdep.uninstall()
+    print(f"lockdep: {rep['sites']} sites, {rep['edges']} edges, "
+          f"{len(rep['self_sites'])} self sites, "
+          f"{len(rep['violations'])} violations", flush=True)
+    assert rep["sites"] > 0 and rep["violations"] == [], rep

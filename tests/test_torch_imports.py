@@ -317,6 +317,30 @@ _BLOCKED_IMPORT_SCRIPT = textwrap.dedent("""
                 "kv_exchange_expired", "kv_exchange_fallback",
                 "kv_handoff_ms"):
         assert hasattr(get_metrics(), fam), fam
+    # The scenario engine (the shipped specs read from the repository's
+    # configs/scenarios/), its config block and subcommand, and the
+    # lockdep instrument, which patches nothing until install().
+    from llmq_tpu_torch.scenarios import (SHIPPED, EngineTarget,
+                                          GatewayTarget, PoolTarget,
+                                          RunStats, ScenarioDriver,
+                                          build_report, compile_scenario,
+                                          list_scenarios, load_named,
+                                          make_echo_engine, run_scenario,
+                                          scenario_dir,
+                                          steady_state_deviation,
+                                          spec_from_dict, write_report)
+    from llmq_tpu_torch.scenarios.library import _store_target, store_tiering
+    assert set(SHIPPED) <= set(list_scenarios())
+    from llmq_tpu_torch.core.config import ScenariosConfig
+    assert not cfg.scenarios.enabled and cfg.scenarios.scale == 1.0
+    from llmq_tpu_torch.__main__ import cmd_scenarios
+    import threading
+    from llmq_tpu_torch.analysis import lockdep
+    assert not lockdep.is_installed()
+    assert not isinstance(threading.Lock(), lockdep._TrackedLock)
+    for fn in ("install", "uninstall", "check", "report", "reset",
+               "violations", "enabled_by_env"):
+        assert callable(getattr(lockdep, fn)), fn
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", sys.argv[1] + "/chip_smoke.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -337,6 +361,29 @@ def test_port_imports_without_jax_or_reference_package():
     # core, engine, ops, models, queueing, api, conversation,
     # preprocessor and their modules.
     assert n >= 30, res.stdout
+
+
+def test_serving_path_imports_no_scenario_or_lockdep_module():
+    """The scenario engine is a tool and lockdep an instrument: the
+    serving process's modules (the CLI's ``App`` and its subcommands
+    included) import neither, as in the JAX package."""
+    script = textwrap.dedent("""
+        import sys
+        sys.path.insert(0, sys.argv[1])
+        import llmq_tpu_torch.__main__
+        import llmq_tpu_torch.engine.engine
+        import llmq_tpu_torch.api.server
+        import llmq_tpu_torch.controlplane
+        loaded = sorted(m for m in sys.modules if m.startswith(
+            ("llmq_tpu_torch.scenarios", "llmq_tpu_torch.analysis")))
+        assert not loaded, loaded
+        print("CLEAN")
+    """)
+    res = subprocess.run([sys.executable, "-c", script, REPO],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=REPO)
+    assert res.returncode == 0 and "CLEAN" in res.stdout, \
+        res.stdout + res.stderr
 
 
 def test_block_really_blocks():
