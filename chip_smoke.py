@@ -55,7 +55,7 @@ shows where it happened):
                  ``forward_mixed_ragged`` on the card against the same
                  model on the CPU (plain twins).
 6. graphs     — the decode step as a CUDA graph on five engines of
-                 llama3-8b's widths at GRAPHS_LAYERS (16) of its 32
+                 llama3-8b's widths at GRAPHS_LAYERS (12) of its 32
                  layers, built with ``warmup=True`` (bf16 default, the
                  same on the split route, bf16 ragged, int8 weights +
                  int8 KV default and ragged): a B=8, 16-step chunk run
@@ -429,6 +429,31 @@ shows where it happened):
                  compression, TTFT p50 and max, each tenant's share
                  error, graph replays against captures, the turns cut.
                  Afterwards chaos is disarmed and tenancy reset.
+
+19. serve-mesh — (run after serve-scenarios) the mesh executor. a. A
+                 ``python -m llmq_tpu_torch serve`` child with
+                 ``LLMQ_COORDINATOR`` at world size 1 and
+                 ``executor.mesh: {enabled: true, shape: {tp: 1}}``
+                 (llama3-8b bf16, random weights from seed 0) joins its
+                 NCCL group, captures its graphs (the collectives inside
+                 them) and answers four REST requests, one at a time;
+                 then a child without the mesh answers the same. Gates:
+                 the NCCL join in the child's log, graph replays > 0,
+                 every request's tokens equal to the no-mesh child's,
+                 kernels 1-3 launched as many times, ``n_chips`` 1 and
+                 one ``hbm_info`` entry. b. Two ranks on the one card
+                 over gloo (NCCL refuses two ranks on one device),
+                 ``tp = 2`` of llama3-8b at full width and depth: each
+                 rank holds 16 query heads, 4 KV heads, half the SwiGLU
+                 and half the vocab, and runs ``forward_prefill`` over 8
+                 rows x 512 tokens, a decode step on the fused route
+                 (kernel 1), one on the split route (kernels 4 and 8),
+                 then an int8-KV prefill and decode step (kernel 5);
+                 rank 0 first runs the same on the whole model. Gate:
+                 every logit within 0.05 x max |logit| of the one-rank
+                 forward's, and argmax equal on every row whose top-2
+                 margin exceeds that bound; the launches of each rank
+                 are counted, its peak memory printed.
 
 With ``LLMQ_LOCKDEP=1`` the port's lockdep (``analysis/lockdep.py``) is
 installed after ``torch`` is imported and before the port's modules are;
@@ -2766,13 +2791,13 @@ def _pipeline_vs_blocking(engine, tag: str, state) -> None:
         f"carried {car['no_live_row_steps']} ({CARD})")
 
 
-#: The graphs phase's depth: llama3-8b's widths with 16 of its 32
+#: The graphs phase's depth: llama3-8b's widths with 12 of its 32
 #: layers. The checks are the same at any depth (each layer is the same
 #: kernels); the cut keeps the whole script inside its time while the
 #: serve phases, which serve full depth, grow (24 until the control and
 #: disaggregation phases came: a whole run then took 1027 s on a slow
-#: host).
-GRAPHS_LAYERS = 16
+#: host; 16 until serve-mesh came).
+GRAPHS_LAYERS = 12
 
 
 def phase_graphs(state) -> None:
@@ -5799,6 +5824,14 @@ def counting_start(self):
         held["engine"] = self
     return start(self)
 engine_mod.InferenceEngine.start = counting_start
+submit = engine_mod.InferenceEngine.submit
+def recording_submit(self, req, **kw):
+    h = submit(self, req, **kw)
+    hs = held.setdefault("handles", [])
+    hs.append(h)
+    del hs[:-256]
+    return h
+engine_mod.InferenceEngine.submit = recording_submit
 # The loop below and the exit hook both dump: one at a time, or two
 # writers share the temporary file and leave a torn status file.
 dump_mu = threading.Lock()
@@ -5806,10 +5839,18 @@ def dump():
     eng = held.get("engine")
     rows = 0 if eng is None else sum(
         1 for s in eng._slots if s is not None and s.prefilled)
+    ex = None if eng is None else eng.executor
     rec = {"t": time.time(), "pid": os.getpid(),
            "launches": dict(kernels.LAUNCHES), "plain": dict(plain),
            "decoding": rows,
-           "cuda_initialized": torch.cuda.is_initialized()}
+           "cuda_initialized": torch.cuda.is_initialized(),
+           "results": {h.request.id: list(h.result.tokens)
+                       for h in list(held.get("handles", ()))
+                       if h.result is not None},
+           "graphs": sum(len(getattr(ex, n, ())) for n in (
+               "step_graphs", "program_graphs", "verify_graphs")),
+           "replays": (getattr(ex, "graph_replays", 0) + sum(
+               getattr(ex, "program_replays", {}).values()))}
     with dump_mu:
         with open(status_path + ".tmp", "w") as f:
             json.dump(rec, f)
@@ -10132,6 +10173,342 @@ def phase_serve_scenarios(state) -> None:
     log(f"[serve-scenarios] no twin called; {out['phase_s']:.1f} s ({CARD})")
 
 
+#: serve-mesh a: new tokens of each request, and its prompts (posted one
+#: at a time to each child).
+MESH_NEW_TOKENS = 24
+MESH_PROMPTS = ("Mesh serving: rank zero drives, the others follow.",
+                "Two all-reduces a layer, after wo and after w_down.",
+                "The embedding is vocab-sharded; the head gathers its "
+                "columns into full logits. " * 8,
+                "short")
+MESH_BOOT_S = 600.0
+#: The process group a CUDA executor's mesh must join.
+MESH_BACKEND = "nccl"
+#: serve-mesh b: rows x tokens of the prefill, and the bf16 gate: every
+#: logit within this share of the largest |logit| of the one-rank forward.
+MESH_ROWS, MESH_T = 8, 512
+MESH_BOUND = 0.05
+MESH_TP = 2
+MESH_RANK_S = 600.0
+
+#: One rank of serve-mesh b (``python -c MESH_RANK spec.json``, from the
+#: repository's root): joins a gloo world of MESH_TP ranks on the one
+#: card, takes its tp shard of llama3-8b (random weights from seed 0,
+#: made whole on this rank and cut, one rank after the other), runs the
+#: forwards and writes its launches, peak memory and (rank 0, which ran
+#: the one-rank forward first) the comparison to ``spec["out"]``.
+MESH_RANK = r"""
+import json, os, sys, time
+spec = json.load(open(sys.argv[1]))
+sys.path.insert(0, os.getcwd())
+import torch
+import torch.distributed as dist
+from llmq_tpu_torch.models import llama as M
+from llmq_tpu_torch.ops import kernels
+from llmq_tpu_torch.parallel import (distributed_init, make_mesh,
+                                     kv_cache_shardings, param_shardings,
+                                     shard_params, tensor_parallel)
+rank, world = spec["rank"], spec["world"]
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+t0 = time.perf_counter()
+distributed_init(spec["coord"], world, rank, 600, device="cpu")
+mesh = make_mesh({"tp": world})
+cfg = M.llama3_8b(max_seq_len=2048)
+B, T, ps = spec["rows"], spec["t"], 16
+MP = T // ps + 1
+npages = B * MP + 1
+g = torch.Generator(device=dev)
+g.manual_seed(1234)
+tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=g, device=dev)
+positions = torch.arange(T, device=dev).expand(B, T).contiguous()
+lengths = torch.full((B,), T, dtype=torch.int32, device=dev)
+bt = (1 + torch.arange(B, device=dev)[:, None] * MP
+      + torch.arange(MP, device=dev)[None, :]).to(torch.int32)
+dec_tok = torch.randint(0, cfg.vocab_size, (B,), generator=g, device=dev)
+dec_pos = torch.full((B,), T, dtype=torch.int32, device=dev)
+
+def forwards(params, tp, kv_heads):
+    out = {}
+    cache = M.init_kv_pages(cfg, npages, ps, dev, kv_heads=kv_heads)
+    out["prefill"] = M.forward_prefill(params, cfg, tokens, positions,
+                                       lengths, cache, bt, tp=tp)
+    out["decode_fused"] = M.forward_decode(params, cfg, dec_tok, dec_pos,
+                                           cache, bt, fused=True, tp=tp)
+    out["decode_split"] = M.forward_decode(params, cfg, dec_tok, dec_pos,
+                                           cache, bt, fused=False, tp=tp)
+    del cache
+    q8 = M.init_kv_pages(cfg, npages, ps, dev, dtype=torch.int8,
+                         kv_heads=kv_heads)
+    out["prefill_q8_last"] = M.forward_prefill_last(
+        params, cfg, tokens, positions, lengths, q8, bt, tp=tp)
+    out["decode_q8"] = M.forward_decode(params, cfg, dec_tok, dec_pos, q8,
+                                        bt, tp=tp)
+    del q8
+    torch.cuda.synchronize()
+    return out
+
+def whole():
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    return M.init_params(cfg, gen, dev)
+
+res = {"rank": rank}
+ref = None
+sh = param_shardings(cfg, mesh)
+kv_heads = cfg.n_kv_heads // (world if kv_cache_shardings(cfg, mesh)["k"][3]
+                              else 1)
+for turn in range(world):
+    if turn == rank:
+        full = whole()
+        if rank == 0:
+            kernels.reset_launches()
+            t1 = time.perf_counter()
+            ref = forwards(full, None, None)
+            res["reference_s"] = time.perf_counter() - t1
+            res["reference_launches"] = dict(kernels.LAUNCHES)
+        local = shard_params(full, sh, mesh)
+        del full
+        torch.cuda.empty_cache()
+    dist.barrier()
+tp = tensor_parallel(mesh, sh)
+res["weights_bytes"] = sum(t.numel() * t.element_size() for t in
+                           [x for v in local.values() for x in
+                            (v.values() if isinstance(v, dict) else [v])])
+res["kv_heads"] = kv_heads
+res["heads"] = local["layers"]["wq"].shape[-1] // cfg.head_dim
+res["ffn"] = local["layers"]["w_up"].shape[-1]
+res["vocab"] = local["embed"].shape[0]
+dist.barrier()
+kernels.reset_launches()
+t1 = time.perf_counter()
+got = forwards(local, tp, kv_heads)
+res["tp_s"] = time.perf_counter() - t1
+res["launches"] = dict(kernels.LAUNCHES)
+res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+if rank == 0:
+    cmp = {}
+    for k, r in ref.items():
+        o = got[k]
+        err = float((o - r).abs().max())
+        scale = float(r.abs().max())
+        lim = spec["bound"] * scale
+        top2 = r.reshape(-1, r.shape[-1]).topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > lim
+        same = (o.reshape(-1, o.shape[-1]).argmax(-1)
+                == r.reshape(-1, r.shape[-1]).argmax(-1))
+        cmp[k] = {"max_abs_err": err, "max_abs_logit": scale,
+                  "bound": lim, "rows": int(sure.numel()),
+                  "confident_rows": int(sure.sum()),
+                  "confident_argmax_equal": int((same & sure).sum()),
+                  "argmax_equal": int(same.sum())}
+    res["compare"] = cmp
+res["wall_s"] = time.perf_counter() - t0
+with open(spec["out"] + f".{rank}", "w") as f:
+    json.dump(res, f)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def _mesh_config(work: str, mesh: bool) -> str:
+    """A serve config file for serve-mesh a: llama3-8b bf16 at the serve
+    phase's window, with or without ``executor.mesh: {tp: 1}``."""
+    import yaml
+
+    data = {"model": {"name": "llama3-8b", "max_seq_len": 2048},
+            "executor": {"max_decode_steps": 32,
+                         "mesh": {"enabled": mesh,
+                                  "shape": {"tp": 1} if mesh else {}}}}
+    path = os.path.join(work, f"mesh_{'tp1' if mesh else 'off'}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(data, f, sort_keys=False)
+    return path
+
+
+def _mesh_child(work: str, mesh: bool) -> dict:
+    """One serve child of serve-mesh a: boot, the prompts one at a time,
+    its status (tokens, launches, replays), engine stats and the hbm
+    series of its ``/metrics``; stopped before returning."""
+    import signal as _signal
+
+    port = _free_tcp_port()
+    env = {k: v for k, v in os.environ.items() if k != "LLMQ_CONFIG"}
+    if mesh:
+        env.update(LLMQ_COORDINATOR=f"127.0.0.1:{_free_tcp_port()}",
+                   LLMQ_NUM_PROCESSES="1", LLMQ_PROCESS_ID="0",
+                   LLMQ_CLUSTER_TIMEOUT="300")
+    tag = "tp1" if mesh else "off"
+    child = _Child(work, "serve", 0 if mesh else 1,
+                   ["--config", _mesh_config(work, mesh), "--host",
+                    "127.0.0.1", "--port", str(port)], env)
+    base = f"http://127.0.0.1:{port}"
+    out = {"tag": tag}
+    try:
+        out["boot_s"] = _wait_engine(base, child, MESH_BOOT_S)
+        if mesh:
+            joined = child.records("torch.distributed initialised")
+            if not joined or f"({MESH_BACKEND})" not in joined[-1]["msg"]:
+                raise AssertionError(f"serve-mesh a: the child did not join "
+                                     f"a {MESH_BACKEND} group: {joined}")
+            out["joined"] = joined[-1]["msg"]
+        before = child.status() or {}
+        ids, walls = [], []
+        for i, prompt in enumerate(MESH_PROMPTS):
+            mid = f"mesh-{tag}-{i}"
+            t0 = time.perf_counter()
+            _post(base, {"id": mid, "content": prompt, "priority": "normal",
+                         "metadata": {"max_new_tokens": MESH_NEW_TOKENS}})
+            m = _poll(base, mid)
+            walls.append(time.perf_counter() - t0)
+            if m["status"] != "completed":
+                raise AssertionError(f"serve-mesh a: {mid} {m['status']}")
+            ids.append(mid)
+        _until(lambda: all(i in (child.status() or {}).get("results", {})
+                           for i in ids), 30.0, "the child's status file",
+               poll=0.05)
+        st = child.status()
+        out["tokens"] = [st["results"][i] for i in ids]
+        out["walls_s"] = walls
+        out["launches"] = {k: st["launches"].get(k, 0)
+                           - before.get("launches", {}).get(k, 0)
+                           for k in st["launches"]}
+        out["replays"] = st["replays"] - before.get("replays", 0)
+        out["graphs"] = st["graphs"]
+        out["plain"] = st["plain"]
+        _, stats = _http("GET", f"{base}/api/v1/engine/stats")
+        dev = stats.get("device", {})
+        out["n_chips"] = dev.get("model", {}).get("n_chips")
+        out["hbm_chips"] = [c.get("chip") for c in
+                            dev.get("hbm", {}).get("chips", [])]
+        out["step_ms"] = dev.get("steps", {}).get("device_ms", {})
+    finally:
+        out["rc"] = child.stop(_signal.SIGTERM)
+    return out
+
+
+def _mesh_ranks(work: str) -> list:
+    """serve-mesh b: MESH_TP rank processes on the one card; their
+    results."""
+    import subprocess as _sp
+
+    coord = f"127.0.0.1:{_free_tcp_port()}"
+    out_path = os.path.join(work, "mesh_ranks.json")
+    procs, logs = [], []
+    for r in range(MESH_TP):
+        spec = {"coord": coord, "world": MESH_TP, "rank": r,
+                "rows": MESH_ROWS, "t": MESH_T, "bound": MESH_BOUND,
+                "out": out_path}
+        path = os.path.join(work, f"mesh_rank{r}.json")
+        with open(path, "w") as f:
+            json.dump(spec, f)
+        logs.append(open(os.path.join(work, f"mesh_rank{r}.log"), "w"))
+        procs.append(_sp.Popen(
+            [sys.executable, "-c", MESH_RANK, path],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=logs[-1], stderr=_sp.STDOUT))
+    try:
+        rcs = [p.wait(MESH_RANK_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    if any(rcs):
+        tails = []
+        for r in range(MESH_TP):
+            with open(os.path.join(work, f"mesh_rank{r}.log")) as f:
+                tails.append(f"rank {r}:\n" + "".join(f.readlines()[-30:]))
+        raise AssertionError(f"serve-mesh b: ranks exited {rcs}\n"
+                             + "\n".join(tails))
+    res = []
+    for r in range(MESH_TP):
+        with open(f"{out_path}.{r}") as f:
+            res.append(json.load(f))
+    return res
+
+
+def phase_serve_mesh(state) -> None:
+    """The mesh executor on the card (see the module docstring, 19)."""
+    import torch
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "llmq_tpu_torch", "_build", "serve_mesh")
+    os.makedirs(work, exist_ok=True)
+    out = state.setdefault("serve_mesh", {})
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    a_mesh = _mesh_child(work, mesh=True)
+    a_off = _mesh_child(work, mesh=False)
+    out["a"] = {"tp1": a_mesh, "off": a_off}
+    path_kernels = ("fused_decode", "kv_prefill_write", "prefill_attention")
+    log(f"[serve-mesh] a. {a_mesh.get('joined')}; tp=1 child up in "
+        f"{a_mesh['boot_s']:.1f} s, no-mesh child in {a_off['boot_s']:.1f} "
+        f"s; graphs {a_mesh['graphs']} vs {a_off['graphs']}, replays over "
+        f"the traffic {a_mesh['replays']} vs {a_off['replays']}; launches "
+        f"{ {k: a_mesh['launches'][k] for k in path_kernels} } vs "
+        f"{ {k: a_off['launches'][k] for k in path_kernels} }; n_chips "
+        f"{a_mesh['n_chips']}, hbm chips {a_mesh['hbm_chips']}; request "
+        f"walls tp=1 {[round(w, 3) for w in a_mesh['walls_s']]} s, no mesh "
+        f"{[round(w, 3) for w in a_off['walls_s']]} s; device ms a step "
+        f"tp=1 {a_mesh['step_ms']}, no mesh {a_off['step_ms']}; exits "
+        f"{a_mesh['rc']}, {a_off['rc']} ({CARD})")
+    if a_mesh["tokens"] != a_off["tokens"]:
+        raise AssertionError(f"serve-mesh a: tp=1 tokens "
+                             f"{a_mesh['tokens']} != no mesh "
+                             f"{a_off['tokens']}")
+    if a_mesh["graphs"] <= 0 or a_mesh["replays"] <= 0:
+        raise AssertionError(f"serve-mesh a: graphs {a_mesh['graphs']}, "
+                             f"replays {a_mesh['replays']}")
+    for k in path_kernels:
+        if a_mesh["launches"][k] != a_off["launches"][k] or \
+                a_mesh["launches"][k] <= 0:
+            raise AssertionError(f"serve-mesh a: {k} launched "
+                                 f"{a_mesh['launches'][k]} times on tp=1, "
+                                 f"{a_off['launches'][k]} without the mesh")
+    if a_mesh["n_chips"] != 1 or len(a_mesh["hbm_chips"]) != 1:
+        raise AssertionError(f"serve-mesh a: n_chips {a_mesh['n_chips']}, "
+                             f"hbm entries {a_mesh['hbm_chips']}")
+    if a_mesh["plain"] or a_off["plain"]:
+        raise AssertionError(f"serve-mesh a: twins called "
+                             f"{a_mesh['plain']} {a_off['plain']}")
+    ranks = _mesh_ranks(work)
+    out["b"] = ranks
+    cmp = ranks[0]["compare"]
+    for r in ranks:
+        log(f"[serve-mesh] b. rank {r['rank']}: {r['heads']} query heads, "
+            f"{r['kv_heads']} KV heads, ffn {r['ffn']}, vocab rows "
+            f"{r['vocab']}, weights {r['weights_bytes'] / 1e9:.2f} GB, peak "
+            f"{r['peak_gb']:.2f} GB; tp forwards {r['tp_s']:.1f} s, wall "
+            f"{r['wall_s']:.1f} s; launches {r['launches']} ({CARD})")
+    log(f"[serve-mesh] b. one-rank reference {ranks[0]['reference_s']:.1f} "
+        f"s, launches {ranks[0]['reference_launches']}; comparison {cmp} "
+        f"({CARD})")
+    for k, c in cmp.items():
+        if c["max_abs_err"] > c["bound"] or \
+                c["confident_argmax_equal"] != c["confident_rows"]:
+            raise AssertionError(f"serve-mesh b: {k} {c}")
+    for r in ranks:
+        if (r["kv_heads"], r["heads"]) != (4, 16):
+            raise AssertionError(f"serve-mesh b: rank {r['rank']} holds "
+                                 f"{r['heads']} / {r['kv_heads']} heads")
+        for k in ("fused_decode", "kv_prefill_write", "prefill_attention",
+                  "kv_cache_write", "fused_decode_q8",
+                  "paged_decode_attention"):
+            if r["launches"].get(k, 0) <= 0:
+                raise AssertionError(f"serve-mesh b: rank {r['rank']} did "
+                                     f"not launch {k}: {r['launches']}")
+    for name, rec in state["kernels"].items():
+        rec["mesh_launches"] = {
+            "a_tp1": a_mesh["launches"].get(name, 0),
+            **{f"b_rank{r['rank']}": r["launches"].get(name, 0)
+               for r in ranks}}
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[serve-mesh] {out['phase_s']:.1f} s ({CARD})")
+
+
 PHASES = [("env", phase_env), ("build", phase_build),
           ("kernels", phase_kernels), ("split", phase_split),
           ("model", phase_model), ("graphs", phase_graphs),
@@ -10139,6 +10516,7 @@ PHASES = [("env", phase_env), ("build", phase_build),
           ("serve-tiering", phase_serve_tiering),
           ("serve-disagg", phase_serve_disagg),
           ("serve-scenarios", phase_serve_scenarios),
+          ("serve-mesh", phase_serve_mesh),
           ("serve-tenancy", phase_serve_tenancy),
           ("serve-weights", phase_serve_weights),
           ("serve-plane", phase_serve_plane),
@@ -10224,6 +10602,7 @@ def main(argv=()) -> int:
                       "serve_control": state.get("serve_control"),
                       "serve_disagg": state.get("serve_disagg"),
                       "serve_scenarios": state.get("serve_scenarios"),
+                      "serve_mesh": state.get("serve_mesh"),
                       "serve_spec": state.get("serve_spec"),
                       "serve_tiering": state.get("serve_tiering"),
                       "serve_tenancy": state.get("serve_tenancy"),

@@ -69,11 +69,25 @@ request's tenant); ``store.resilience``
 wraps the conversation store in the fault domain
 (``conversation/resilience.py``) and adds a ``store`` block to
 ``/health``.
+
+Multi-process bring-up (JAX's ``_maybe_join_cluster``): with
+``LLMQ_COORDINATOR`` (``host:port``), ``LLMQ_NUM_PROCESSES`` and
+``LLMQ_PROCESS_ID`` set (all three, or the command refuses to start), every
+entry point joins the ``torch.distributed`` world before any backend
+work: NCCL on ``cuda`` (this rank's card, ``cuda:{rank % device_count}``),
+gloo under ``--device cpu``; ``LLMQ_CLUSTER_TIMEOUT`` (seconds, default
+300) bounds the rendezvous and a follower's wait. With a mesh configured
+(``executor.mesh`` or ``tpu.mesh_shape``) rank 0 runs the command and
+drives; a rank above 0 of ``serve``, ``queue-manager``, ``check`` or
+``scenarios`` builds only its executor shard and follows rank 0's
+(``TorchExecutor.follow``), exiting 0 at the driver's stop and non-zero
+when the driver is lost.
 """
 
 from __future__ import annotations
 
 import argparse
+import atexit
 import json
 import logging
 import os
@@ -493,6 +507,10 @@ class App:
             self.engine_allocation = None
         if self.engine is not None:
             self.engine.stop()
+            # A mesh driver's followers stop with it.
+            release = getattr(self.engine.executor, "release_mesh", None)
+            if release is not None:
+                release()
         self.load_balancer.stop()
         self.resource_scheduler.stop()
         self.state_manager.stop()
@@ -600,7 +618,74 @@ def _load(args) -> Config:
     # The tenancy registry (weights, quotas, in-flight counters) is
     # configured before any queue manager builds its fair scheduler.
     tenancy.configure_tenancy(cfg.tenancy)
+    _maybe_join_cluster(cfg)
     return cfg
+
+
+def _maybe_join_cluster(cfg: Config) -> None:
+    """Join the ``torch.distributed`` world from the ``LLMQ_COORDINATOR``
+    variables before any backend work (``llmq_tpu/__main__.py``'s
+    ``_maybe_join_cluster``). A partial set refuses to start; a broken
+    rendezvous raises (``distributed_init`` propagates it). On ``cuda``
+    the rank takes ``cuda:{rank % device_count}``."""
+    coordinator = os.environ.get("LLMQ_COORDINATOR")
+    if not coordinator:
+        return
+    missing = [k for k in ("LLMQ_NUM_PROCESSES", "LLMQ_PROCESS_ID")
+               if k not in os.environ]
+    if missing:
+        raise SystemExit(
+            f"LLMQ_COORDINATOR is set but {', '.join(missing)} is not: "
+            f"multi-process bring-up needs all three")
+    from llmq_tpu_torch.parallel.mesh import (DEFAULT_TIMEOUT_S,
+                                              distributed_init)
+
+    rank = int(os.environ["LLMQ_PROCESS_ID"])
+    if torch.device(cfg.device).type == "cuda" and torch.cuda.is_available():
+        if torch.device(cfg.device).index is None:
+            cfg.device = f"cuda:{rank % torch.cuda.device_count()}"
+    distributed_init(
+        coordinator=coordinator,
+        num_processes=int(os.environ["LLMQ_NUM_PROCESSES"]),
+        process_id=rank,
+        initialization_timeout=float(os.environ.get(
+            "LLMQ_CLUSTER_TIMEOUT", DEFAULT_TIMEOUT_S)),
+        device=cfg.device)
+    # Registered after the executor's hooks would be, so it runs last.
+    atexit.register(_leave_cluster)
+
+
+def _leave_cluster() -> None:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _mesh_follower(cfg: Config) -> bool:
+    """Whether this process is a mesh rank other than 0: it follows."""
+    import torch.distributed as dist
+
+    from llmq_tpu_torch.engine.builder import mesh_shape
+
+    return (mesh_shape(cfg) is not None and dist.is_available()
+            and dist.is_initialized() and dist.get_rank() != 0)
+
+
+def cmd_follow(cfg: Config, args) -> int:
+    """A follower rank: this rank's executor shard, then the driver's
+    calls until its stop (0) or its loss (1)."""
+    from llmq_tpu_torch.engine.builder import build_executor
+
+    ex = build_executor(cfg)
+    print(f"rank {ex.mesh.rank} of mesh {ex.mesh.shape} following on "
+          f"{cfg.device}", flush=True)
+    try:
+        ex.follow()
+    except Exception as e:  # noqa: BLE001 — the mesh is broken
+        log.error("mesh follower left the mesh: %s", e)
+        return 1
+    return 0
 
 
 def cmd_serve(cfg: Config, args) -> int:
@@ -711,24 +796,35 @@ def cmd_check(cfg: Config, args) -> int:
     return 0 if ok else 1
 
 
-def _scenario_target(cfg: Config, spec):
+def _scenario_target(cfg: Config, spec, mesh_executor: Dict):
     """The target of one scenario run: an engine from the builder (a
     ``store.*`` scenario's with the tiering plane JAX's store target
-    runs, unless the config enables one, behind the resilient store)."""
+    runs, unless the config enables one, behind the resilient store).
+    On a mesh the first run's executor serves every later run's engine:
+    the followers serve the one executor they built
+    (``mesh_executor["ex"]``)."""
     import copy
 
+    from llmq_tpu_torch.engine.builder import mesh_shape
     from llmq_tpu_torch.scenarios import EngineTarget
     from llmq_tpu_torch.scenarios.library import _store_target, store_tiering
 
     name = f"scn-{spec.name}"
     warm = torch.device(cfg.device).type == "cuda"
-    if any(str(ev.point).startswith("store.") for ev in spec.chaos_events):
+    shared = mesh_executor.get("ex")
+    store = any(str(ev.point).startswith("store.")
+                for ev in spec.chaos_events)
+    c = cfg
+    if store and not cfg.executor.kv_tiering.enabled:
         c = copy.deepcopy(cfg)
-        if not c.executor.kv_tiering.enabled:
-            c.executor.kv_tiering = store_tiering()
-        return _store_target(spec, engine=build_engine(c, name=name,
-                                                       warmup=warm))
-    return EngineTarget(build_engine(cfg, name=name, warmup=warm), own=True)
+        c.executor.kv_tiering = store_tiering()
+    engine = build_engine(c, name=name, warmup=warm and shared is None,
+                          executor=shared)
+    if mesh_shape(cfg) is not None:
+        mesh_executor["ex"] = engine.executor
+    if store:
+        return _store_target(spec, engine=engine)
+    return EngineTarget(engine, own=True)
 
 
 def cmd_scenarios(cfg: Config, args) -> int:
@@ -738,8 +834,7 @@ def cmd_scenarios(cfg: Config, args) -> int:
     line a run, plus ``SCENARIO_<name>.json`` with
     ``scenarios.emit_json``. Exit 2 when scenarios are disabled and no
     name is given, 1 if a run fails or breaks an invariant."""
-    from llmq_tpu_torch.scenarios import (SHIPPED, GatewayTarget, load_named,
-                                          run_scenario)
+    from llmq_tpu_torch.scenarios import SHIPPED
 
     scn = cfg.scenarios
     names = list(args.names or scn.run)
@@ -755,6 +850,23 @@ def cmd_scenarios(cfg: Config, args) -> int:
     for noisy in ("engine", "supervisor", "tiering"):
         logging.getLogger(f"llmq_tpu_torch.{noisy}").setLevel(logging.WARNING)
     scale = args.scale if args.scale is not None else scn.scale
+    mesh_executor: Dict = {}
+    try:
+        rc = _run_scenarios(cfg, args, names, scale, mesh_executor)
+    finally:
+        # A mesh driver's followers stop with the last run.
+        if "ex" in mesh_executor:
+            mesh_executor["ex"].release_mesh()
+    return rc
+
+
+def _run_scenarios(cfg: Config, args, names: List[str], scale: float,
+                   mesh_executor: Dict) -> int:
+    """:func:`cmd_scenarios`'s runs, one summary line each."""
+    from llmq_tpu_torch.scenarios import (GatewayTarget, load_named,
+                                          run_scenario)
+
+    scn = cfg.scenarios
     rc = 0
     for name in names:
         spec = load_named(name, directory=scn.dir)
@@ -763,7 +875,7 @@ def cmd_scenarios(cfg: Config, args) -> int:
         target = None
         try:
             target = (GatewayTarget(args.gateway) if args.gateway
-                      else _scenario_target(cfg, spec))
+                      else _scenario_target(cfg, spec, mesh_executor))
             rep = run_scenario(spec, target=target, scale=scale,
                                out_dir=scn.out_dir,
                                emit_json=scn.emit_json,
@@ -777,8 +889,11 @@ def cmd_scenarios(cfg: Config, args) -> int:
             if target is not None:
                 target.stop()
                 for eng in target.engines():
-                    # The next scenario's engine needs the card's memory.
-                    getattr(eng.executor, "release_graphs", lambda: None)()
+                    # The next scenario's engine needs the card's memory
+                    # (a mesh's next engine serves the same executor).
+                    if eng.executor is not mesh_executor.get("ex"):
+                        getattr(eng.executor, "release_graphs",
+                                lambda: None)()
         req = rep["requests"]
         violations = rep["invariants"]["violations"]
         if violations:
@@ -843,6 +958,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         cfg = _load(args)
     except (ValueError, FileNotFoundError) as e:
         parser.error(str(e))
+    if (args.command in ("serve", "queue-manager", "check", "scenarios")
+            and _mesh_follower(cfg)):
+        return cmd_follow(cfg, args)
     return {"serve": cmd_serve, "queue-manager": cmd_queue_manager,
             "gateway": cmd_gateway, "scheduler": cmd_scheduler,
             "check": cmd_check,

@@ -4,11 +4,11 @@ file, then ``LLMQ_*`` environment overrides, then CLI flags.
 A copy of ``llmq_tpu/core/config.py`` holding what the port's planes
 read, with the JAX package's defaults. :func:`load_config` reads the same
 files as the JAX package's (``configs/config.yaml`` among them). A key of
-a plane the port does not have yet (the scenario plane, the mesh, the
-TPU block), or one that nothing here
-reads (the server's read and write timeouts, the model's dtype, a tier's
+a plane the port does not have yet, or one that nothing here reads (the
+server's read and write timeouts, the model's dtype, a tier's
 ``max_concurrent``, the metrics port and path, the load balancer's
-``max_retries``, the resource scheduler's ``scale_*`` thresholds) is
+``max_retries``, the resource scheduler's ``scale_*`` thresholds, XLA's
+``tpu.platform`` and ``tpu.compilation_cache_dir``) is
 accepted only at the JAX package's default, or inside a block whose
 ``enabled`` is false; any other value raises, naming the key. An unknown key raises too: nothing
 in a file is silently ignored.
@@ -878,6 +878,42 @@ class KVTieringConfig:
 
 
 @dataclass
+class MeshConfig:
+    """Intra-replica mesh serving (``llmq_tpu/core/config.py``
+    ``MeshConfig``): one replica serves the model over ``dp × tp`` ranks,
+    one process per rank (``parallel/``, ``TorchExecutor(mesh=...)``).
+    ``enabled: false`` (the default) is the hard off-switch: no process
+    group is read and the executor is the single-card one. The legacy
+    ``tpu.mesh_shape`` builds a mesh when this block is off."""
+    enabled: bool = False
+    #: Named axis sizes, e.g. {"tp": 2}. They multiply to the world size;
+    #: one axis may be -1 (inferred).
+    shape: Dict[str, int] = field(default_factory=dict)
+
+    def __post_init__(self) -> None:
+        for ax, n in (self.shape or {}).items():
+            if ax not in ("dp", "tp"):
+                raise ValueError(
+                    f"executor.mesh.shape axis must be 'dp' or 'tp' "
+                    f"(got {ax!r})")
+            if not isinstance(n, int) or (n < 1 and n != -1):
+                raise ValueError(
+                    f"executor.mesh.shape[{ax!r}] must be a positive "
+                    f"int or -1 (got {n!r})")
+        if self.enabled and not self.shape:
+            raise ValueError("executor.mesh.enabled requires a shape")
+
+
+@dataclass
+class TPUConfig:
+    """The JAX package's topology block: ``mesh_shape`` is the legacy
+    alias of ``executor.mesh`` (read when that block is off). Its
+    ``platform`` and ``compilation_cache_dir`` (XLA's cache: the port
+    captures its CUDA graphs in each process) stay at their defaults."""
+    mesh_shape: Dict[str, int] = field(default_factory=dict)
+
+
+@dataclass
 class ExecutorConfig:
     #: "torch", the port's executor, or "echo", the host-only executor
     #: that echoes the prompt (no model, no tensor); the JAX package's
@@ -906,6 +942,7 @@ class ExecutorConfig:
         default_factory=SpeculationConfig)
     kv_tiering: KVTieringConfig = field(default_factory=KVTieringConfig)
     supervisor: SupervisorConfig = field(default_factory=SupervisorConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
     def __post_init__(self) -> None:
         if self.backend not in VALID_BACKENDS:
@@ -941,6 +978,7 @@ class Config:
     controlplane: ControlPlaneConfig = field(
         default_factory=ControlPlaneConfig)
     executor: ExecutorConfig = field(default_factory=ExecutorConfig)
+    tpu: TPUConfig = field(default_factory=TPUConfig)
     #: Where the model runs. "cuda" raises without a GPU; only an
     #: explicit "cpu" runs on the host (tests).
     device: str = "cuda"
@@ -978,9 +1016,10 @@ _UNPORTED: Dict[str, Any] = {
                            "scale_cooldown": 120.0},
     # Neither package's builder reads it: the model serves bf16.
     "model": {"dtype": "bfloat16"},
-    "executor": {
-        "mesh": {"enabled": False, "shape": {}}},
-    "tpu": {"mesh_shape": {}, "platform": "", "compilation_cache_dir": ""},
+    # Every executor key is ported (the mesh since the mesh executor).
+    "executor": {},
+    # XLA's: the port has no compilation cache and no platform choice.
+    "tpu": {"platform": "", "compilation_cache_dir": ""},
 }
 
 
@@ -1073,6 +1112,8 @@ def _unported_env_keys(spec: Dict[str, Any], pre: str = ""
     out: Dict[str, Tuple[str, Any]] = {}
     for k, v in spec.items():
         path = pre + k
+        if v == {} and not pre:
+            continue        # a block with no unported key left
         if _is_block(v):
             out.update(_unported_env_keys(v, path + "."))
         else:
@@ -1088,6 +1129,9 @@ def _coerce(raw: str, current: Any, strings: bool = False,
         return int(raw)
     if isinstance(current, float):
         return float(raw)
+    if isinstance(current, dict):
+        # A YAML mapping: ``LLMQ_EXECUTOR_MESH_SHAPE='{tp: 2}'``.
+        return read_yaml_text(raw) or {}
     if isinstance(current, list):
         if structured or (strings and raw.strip().startswith("[")):
             # A YAML list: ``[--device, cpu]``, or rungs as mappings.
@@ -1111,6 +1155,7 @@ def apply_env(cfg: Config, environ: Optional[Mapping[str, str]] = None
     other unknown names are ignored (they may belong to other tools)."""
     env = os.environ if environ is None else environ
     unported = _unported_env_keys(_UNPORTED)
+    touched: List[Any] = []
     for key, raw in env.items():
         if not key.startswith("LLMQ_"):
             continue
@@ -1141,17 +1186,22 @@ def apply_env(cfg: Config, environ: Optional[Mapping[str, str]] = None
                                 _coerce(raw, getattr(obj, cand),
                                         hint == List[str],
                                         hint == List[Dict[str, Any]]))
-                        # Re-validate: __post_init__ does not rerun on
-                        # setattr, and an override must not bypass it.
-                        post = getattr(obj, "__post_init__", None)
-                        if post is not None:
-                            post()
+                        # Re-validate once every variable is applied
+                        # (a block may take two: a switch and its shape):
+                        # __post_init__ does not rerun on setattr, and an
+                        # override must not bypass it.
+                        if all(o is not obj for o in touched):
+                            touched.append(obj)
                     else:
                         obj = getattr(obj, cand)
                     i = j
                     break
             else:
                 break
+    for obj in touched:
+        post = getattr(obj, "__post_init__", None)
+        if post is not None:
+            post()
 
 
 def read_yaml_text(text: str) -> Any:

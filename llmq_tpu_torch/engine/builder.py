@@ -15,7 +15,13 @@ port's own checkpoint file, ``models/checkpoint.py``), else random from
 seed 0; a configured checkpoint that fails to load aborts the build, and
 nothing serves random weights in its place. ``model.tokenizer_path``
 selects a local Hugging Face tokenizer (``transformers`` needed), else
-the byte tokenizer. The
+the byte tokenizer. With ``executor.mesh`` enabled (or, when that block
+is off, the legacy ``tpu.mesh_shape``) the engine serves over a rank mesh
+(``parallel/``): the builder makes the mesh over the world this process
+joined (``LLMQ_COORDINATOR``) and the executor takes this rank's shard
+(it turns ragged attention off with JAX's warning; speculation, the
+tiered KV plane and ``dp > 1`` are refused, ``refuse_on_mesh``); a follower rank builds only the
+executor (:func:`build_executor`) and follows rank 0's. The
 build stamps its boot stages (``weights``, and with ``warmup`` the
 ``artifact``, ``compile`` and ``warmup`` stages) onto this process's boot
 record (observability/critical_path.py), opened here when no entry point
@@ -25,14 +31,15 @@ from __future__ import annotations
 
 import logging
 import time
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from llmq_tpu_torch.core.config import Config, resolve_device
 from llmq_tpu_torch.core.types import Priority
 from llmq_tpu_torch.engine.engine import InferenceEngine
-from llmq_tpu_torch.engine.executor import EchoExecutor, TorchExecutor
+from llmq_tpu_torch.engine.executor import (EchoExecutor, TorchExecutor,
+                                            refuse_on_mesh)
 from llmq_tpu_torch.engine.tokenizer import get_tokenizer
 from llmq_tpu_torch.models.checkpoint import import_hf_llama, load_checkpoint
 from llmq_tpu_torch.models.llama import (LlamaConfig, Params, get_config,
@@ -44,11 +51,26 @@ from llmq_tpu_torch.ops.quant import (is_quantized, params_bytes,
 log = logging.getLogger("llmq_tpu_torch.builder")
 
 
+def mesh_shape(cfg: Config) -> Optional[Dict[str, int]]:
+    """The configured mesh: ``executor.mesh.shape`` when its block is on,
+    else the legacy ``tpu.mesh_shape`` when set, else None. The echo
+    backend has none."""
+    if cfg.executor.backend != "torch":
+        return None
+    if cfg.executor.mesh.enabled:
+        return dict(cfg.executor.mesh.shape)
+    if cfg.tpu.mesh_shape:
+        return dict(cfg.tpu.mesh_shape)
+    return None
+
+
 def build_engine(cfg: Config, *, name: str = "engine0",
                  params=None, device: Optional[str] = None,
                  model_dtype: Optional[torch.dtype] = None,
                  warmup: bool = False,
-                 n_layers: Optional[int] = None) -> InferenceEngine:
+                 n_layers: Optional[int] = None,
+                 executor: Optional[TorchExecutor] = None
+                 ) -> InferenceEngine:
     """Engine for ``cfg.model`` / ``cfg.executor`` on ``device`` (default
     ``cfg.device``). ``params`` (a parameter tree in the JAX layout) is
     used as given (quantized first if ``model.quantization`` asks for it
@@ -60,11 +82,103 @@ def build_engine(cfg: Config, *, name: str = "engine0",
     ``n_layers`` the model's depth (a shallower model at its widths).
     ``warmup`` runs :meth:`TorchExecutor.warmup` before the engine is
     made: every program once, the decode step's graph captured on the
-    card, ``step_ms`` calibrated. The engine's metric families follow
-    ``metrics.enabled``, as in the JAX package's builder."""
+    card, ``step_ms`` calibrated (on a mesh, on every rank). The engine's
+    metric families follow ``metrics.enabled``, as in the JAX package's
+    builder. ``executor``, one this builder made before, serves the new
+    engine in place of a new one: a mesh's, made once over its world
+    (the model and device arguments are then its own)."""
     ex = cfg.executor
     if ex.backend == "echo":
         return _build_echo(cfg, name)
+    if executor is None:
+        executor, tokenizer, mcfg, t0 = _build_torch(
+            cfg, name=name, params=params, device=device,
+            model_dtype=model_dtype, n_layers=n_layers)
+    else:
+        if executor.mesh is not None:
+            refuse_on_mesh(executor.mesh.shape,
+                           speculation=ex.speculation.enabled,
+                           tiering=ex.kv_tiering.enabled)
+        tokenizer = get_tokenizer(cfg.model.tokenizer_path)
+        mcfg, t0 = executor.model_cfg, time.perf_counter()
+    boot_id = _cp.current_boot_id()
+    quant, kv_quant = cfg.model.quantization, cfg.model.kv_quantization
+    mixed, ragged = ex.mixed_batch, ex.ragged_attention
+    pipe, prefix, spec = ex.async_pipeline, ex.prefix_cache, ex.speculation
+    tier = ex.kv_tiering
+    dev = executor.device
+    if warmup:
+        executor.warmup()
+        if boot_id is not None:
+            # No export cache: the artifact stage is 0. compile = the
+            # nvcc builds; warmup = the eager runs and graph captures.
+            _cp.boot_stage(boot_id, "artifact", 0.0)
+            _cp.boot_stage(boot_id, "compile", executor.compile_s)
+            _cp.boot_stage(boot_id, "warmup", sum(
+                executor.warmup_split.values()) - executor.compile_s)
+    tier_max_wait = {Priority(lvl.priority): lvl.max_wait_time
+                     for lvl in cfg.queue.levels}
+    engine = InferenceEngine(
+        executor, tokenizer, name=name,
+        max_decode_steps=ex.max_decode_steps,
+        preemption=ex.preemption,
+        kv_pin_ttl=ex.kv_pin_ttl,
+        tier_max_wait=tier_max_wait,
+        mixed_batch=mixed,
+        prefix_cache=prefix,
+        async_pipeline=pipe,
+        speculation=spec,
+        kv_tiering=tier,
+        enable_metrics=cfg.metrics.enabled)
+    log.info("built %s engine %s on %s in %.1fs (slots=%d pages=%d "
+             "page_size=%d chunk=%d prefill_batch=%d quantization=%s "
+             "kv_quantization=%s "
+             "weights=%.2f GB mixed_batch=%s ragged_attention=%s "
+             "async_pipeline=%s prefix_cache=%s speculation=%s "
+             "kv_tiering=%s mesh=%s warmup=%s)",
+             mcfg.name, name, dev, time.perf_counter() - t0,
+             ex.max_batch_size, ex.kv_pages, ex.page_size, ex.decode_chunk,
+             executor.prefill_batch, quant or "bf16", kv_quant or "bf16",
+             params_bytes(executor.model.params) / 1e9,
+             (f"on(budget={mixed.prefill_token_budget}"
+              f"x{executor.mixed_prefill_slices})" if mixed.enabled
+              else "off"),
+             (f"on(cap={executor.mixed_slice_tokens}"
+              f"x{executor.mixed_prefill_slices})"
+              if executor.ragged_attention else "off"),
+             (f"on(depth={pipe.depth} completion_workers="
+              f"{pipe.completion_workers})" if pipe.enabled else "off"),
+             (f"on({prefix.eviction} max_cached_pages="
+              f"{prefix.max_cached_pages})" if prefix.enabled else "off"),
+             (f"on(k={spec.draft_k} device_sampling="
+              f"{spec.device_sampling})" if spec.enabled else "off"),
+             (f"on(host={tier.host_capacity_mb}MiB)" if tier.enabled
+              else "off"),
+             (f"{executor.mesh.shape}@{executor.mesh.backend or 'none'}"
+              if executor.mesh is not None else "off"),
+             (" ".join(f"{k}={v:.2f}s" for k, v in
+                       executor.warmup_split.items()) if warmup else "off"))
+    return engine
+
+
+def build_executor(cfg: Config, *, name: str = "engine0", params=None,
+                   device: Optional[str] = None,
+                   model_dtype: Optional[torch.dtype] = None,
+                   n_layers: Optional[int] = None) -> TorchExecutor:
+    """The ``TorchExecutor`` :func:`build_engine` would build, alone and
+    without warmup: what a follower rank of a mesh serves (its driver's
+    warmup reaches it as a call)."""
+    return _build_torch(cfg, name=name, params=params, device=device,
+                        model_dtype=model_dtype, n_layers=n_layers)[0]
+
+
+def _build_torch(cfg: Config, *, name: str, params, device: Optional[str],
+                 model_dtype: Optional[torch.dtype],
+                 n_layers: Optional[int]
+                 ) -> Tuple[TorchExecutor, object, LlamaConfig, float]:
+    """(executor, tokenizer, model config, start time) of the torch
+    backend, the mesh made and the weights loaded or drawn."""
+    ex = cfg.executor
     dev = resolve_device(device or cfg.device)
     boot_id = _cp.current_boot_id()
     if boot_id is None and _cp.cp_enabled():
@@ -93,8 +207,15 @@ def build_engine(cfg: Config, *, name: str = "engine0",
         raise ValueError(f"unknown model.kv_quantization {kv_quant!r} "
                          f"(supported: 'int8')")
     mixed, ragged = ex.mixed_batch, ex.ragged_attention
-    pipe, prefix, spec = ex.async_pipeline, ex.prefix_cache, ex.speculation
-    tier = ex.kv_tiering
+    spec, tier = ex.speculation, ex.kv_tiering
+    mesh = None
+    shape = mesh_shape(cfg)
+    if shape:
+        # Before make_mesh, whose rank count a dp axis would fail first.
+        refuse_on_mesh(shape, speculation=spec.enabled,
+                       tiering=tier.enabled)
+        from llmq_tpu_torch.parallel import make_mesh
+        mesh = make_mesh(shape)
     t0 = time.perf_counter()
     if params is None and cfg.model.checkpoint_path:
         params = _load_weights(cfg, mcfg, dev)
@@ -136,57 +257,9 @@ def build_engine(cfg: Config, *, name: str = "engine0",
         speculation_device_sampling=spec.device_sampling,
         device=str(dev), telemetry_name=name,
         # Warmup runs before the engine can set the flag.
-        telemetry_metrics=cfg.metrics.enabled)
-    if warmup:
-        executor.warmup()
-        if boot_id is not None:
-            # No export cache: the artifact stage is 0. compile = the
-            # nvcc builds; warmup = the eager runs and graph captures.
-            _cp.boot_stage(boot_id, "artifact", 0.0)
-            _cp.boot_stage(boot_id, "compile", executor.compile_s)
-            _cp.boot_stage(boot_id, "warmup", sum(
-                executor.warmup_split.values()) - executor.compile_s)
-    tier_max_wait = {Priority(lvl.priority): lvl.max_wait_time
-                     for lvl in cfg.queue.levels}
-    engine = InferenceEngine(
-        executor, tokenizer, name=name,
-        max_decode_steps=ex.max_decode_steps,
-        preemption=ex.preemption,
-        kv_pin_ttl=ex.kv_pin_ttl,
-        tier_max_wait=tier_max_wait,
-        mixed_batch=mixed,
-        prefix_cache=prefix,
-        async_pipeline=pipe,
-        speculation=spec,
-        kv_tiering=tier,
-        enable_metrics=cfg.metrics.enabled)
-    log.info("built %s engine %s on %s in %.1fs (slots=%d pages=%d "
-             "page_size=%d chunk=%d prefill_batch=%d quantization=%s "
-             "kv_quantization=%s "
-             "weights=%.2f GB mixed_batch=%s ragged_attention=%s "
-             "async_pipeline=%s prefix_cache=%s speculation=%s "
-             "kv_tiering=%s warmup=%s)",
-             mcfg.name, name, dev, time.perf_counter() - t0,
-             ex.max_batch_size, ex.kv_pages, ex.page_size, ex.decode_chunk,
-             executor.prefill_batch, quant or "bf16", kv_quant or "bf16",
-             params_bytes(params) / 1e9,
-             (f"on(budget={mixed.prefill_token_budget}"
-              f"x{executor.mixed_prefill_slices})" if mixed.enabled
-              else "off"),
-             (f"on(cap={executor.mixed_slice_tokens}"
-              f"x{executor.mixed_prefill_slices})" if ragged.enabled
-              else "off"),
-             (f"on(depth={pipe.depth} completion_workers="
-              f"{pipe.completion_workers})" if pipe.enabled else "off"),
-             (f"on({prefix.eviction} max_cached_pages="
-              f"{prefix.max_cached_pages})" if prefix.enabled else "off"),
-             (f"on(k={spec.draft_k} device_sampling="
-              f"{spec.device_sampling})" if spec.enabled else "off"),
-             (f"on(host={tier.host_capacity_mb}MiB)" if tier.enabled
-              else "off"),
-             (" ".join(f"{k}={v:.2f}s" for k, v in
-                       executor.warmup_split.items()) if warmup else "off"))
-    return engine
+        telemetry_metrics=cfg.metrics.enabled,
+        mesh=mesh)
+    return executor, tokenizer, mcfg, t0
 
 
 def _check_shapes(params: Params, mcfg: LlamaConfig, path: str,

@@ -534,8 +534,16 @@ class InferenceEngine:
         self._now = clock.now if clock is not None else time.monotonic
         #: Per-tier SLA bound driving pending-request promotion.
         self.tier_max_wait = dict(tier_max_wait or {})
+        #: dp page universes (``JaxExecutor.dp_shards``): with a ``dp``
+        #: split, batch rows shard over dp in contiguous blocks of B/dp
+        #: and the allocator hands a sequence pages from its rows'
+        #: universe. 1, every executor of the port today, is one free
+        #: list.
+        self.dp_shards = max(1, int(getattr(executor, "dp_shards", 1)))
+        self._rows_per_shard = max(1, self.spec.batch_size // self.dp_shards)
         self.allocator = PageAllocator(self.spec.num_pages,
-                                       self.spec.page_size)
+                                       self.spec.page_size,
+                                       dp_shards=self.dp_shards)
         #: Radix prefix cache: a ``PrefixCacheConfig`` (or anything with
         #: its fields). None or disabled: no tree, no shared pages.
         self._prefix_cache: Optional[PrefixCache] = None
@@ -1215,11 +1223,27 @@ class InferenceEngine:
             self._pending = [(s.eff_prio, o, s) for (_, o, s) in self._pending]
             heapq.heapify(self._pending)
 
-    def _free_slot(self) -> Optional[int]:
+    def _slot_shard(self, slot: int) -> int:
+        """The dp universe of a batch row: rows [d·B/dp, (d+1)·B/dp)
+        belong to replica d."""
+        if self.dp_shards <= 1:
+            return 0
+        return min(slot // self._rows_per_shard, self.dp_shards - 1)
+
+    def _free_slot(self, prefer_shard: Optional[int] = None
+                   ) -> Optional[int]:
+        """First free slot; with ``prefer_shard`` (a sequence adopting
+        pages of one dp universe) a free slot of that universe wins, else
+        any free slot."""
+        fallback = None
         for i, s in enumerate(self._slots):
             if s is None:
-                return i
-        return None
+                if (prefer_shard is None or self.dp_shards <= 1
+                        or self._slot_shard(i) == prefer_shard):
+                    return i
+                if fallback is None:
+                    fallback = i
+        return fallback
 
     def _least_urgent_active(
             self, exclude: Optional[_Sequence] = None, *,
@@ -1271,7 +1295,19 @@ class InferenceEngine:
                 heapq.heappop(self._pending)
                 deferred.append((prio, order, seq))
                 continue
-            slot = self._free_slot()
+            prefer = None
+            if self.dp_shards > 1:
+                # Keep adoptions replica-local: a sequence resuming onto
+                # its own pages, or adopting its conversation's pinned
+                # KV, prefers a row in those pages' universe.
+                if seq.pages:
+                    prefer = self.allocator.shard_of(seq.pages[0])
+                elif conv:
+                    with self._mu:
+                        kv = self._conv_cache.get(conv)
+                        if kv is not None and kv.pages:
+                            prefer = self.allocator.shard_of(kv.pages[0])
+            slot = self._free_slot(prefer)
             if (slot is None and self.preemption_enabled
                     and not self._inflight):
                 # No preemption while a chunk is in flight: the victim's
@@ -1425,8 +1461,8 @@ class InferenceEngine:
                  requester.req.id)
         return True
 
-    def _alloc_pages(self, n: int,
-                     requester: _Sequence) -> Optional[List[int]]:
+    def _alloc_pages(self, n: int, requester: _Sequence,
+                     shard: Optional[int] = None) -> Optional[List[int]]:
         """Allocate ``n`` pages, shedding while the pool is short, in
         increasing order of damage: zero-ref radix leaves (no running
         sequence reads them), idle pinned conversations (LRU), pages
@@ -1436,6 +1472,11 @@ class InferenceEngine:
         ``requester``: a low-tier request never strips a realtime
         sequence's KV.
 
+        ``shard`` pins the allocation to the requester's row's dp
+        universe; a full universe falls back to any universe with room
+        before anything is shed (bounded non-locality is cheaper than
+        destroying cached KV).
+
         A chaos ``engine.hbm_alloc`` fault is a failed allocation: it
         returns None as an exhausted pool does, and the requester stays
         pending."""
@@ -1444,10 +1485,16 @@ class InferenceEngine:
         except chaos.ChaosFault:
             return None
         while True:
-            pages = self.allocator.alloc(n)
+            pages = self.allocator.alloc(n, shard=shard)
             if pages is not None:
                 return pages
-            deficit = n - self.allocator.available()
+            if shard is not None:
+                pages = self.allocator.alloc(n)
+                if pages is not None:
+                    return pages
+            # Every universe is short now: shedding helps once the
+            # fullest one can hold all n (one universe: n - available).
+            deficit = n - max(self.allocator.available_by_shard())
             if (self._prefix_cache is not None
                     and self._prefix_cache.evict_pages(deficit) > 0):
                 continue
@@ -1468,7 +1515,8 @@ class InferenceEngine:
                 continue
             return None
 
-    def _try_promote(self, seq: _Sequence, conv: str) -> str:
+    def _try_promote(self, seq: _Sequence, conv: str,
+                     shard: Optional[int] = None) -> str:
         """Tiered-KV promotion at re-arrival: bring ``conv``'s demoted
         entry back into the pool, so the ordinary adoption below runs on
         a restored ``_ConvKV``. Returns "none" (the plane holds nothing),
@@ -1495,7 +1543,7 @@ class InferenceEngine:
         fence = None
         if restorable:
             need = PageAllocator.pages_for(entry.length, self.spec.page_size)
-            pages = self._alloc_pages(need, seq)
+            pages = self._alloc_pages(need, seq, shard)
             if pages is None:
                 if self._inflight:
                     # Transient: shedding waits while chunks are in
@@ -1599,7 +1647,8 @@ class InferenceEngine:
                 with self._mu:
                     resident = conv in self._conv_cache
                 if not resident:
-                    status = self._try_promote(seq, conv)
+                    status = self._try_promote(seq, conv,
+                                               self._slot_shard(slot))
                     if status == "wait":
                         return False
                     promoted = status == "done"
@@ -1703,7 +1752,7 @@ class InferenceEngine:
                          f"{self.allocator.total}")
             return True
         if need > 0:
-            pages = self._alloc_pages(need, seq)
+            pages = self._alloc_pages(need, seq, self._slot_shard(slot))
             if pages is None:
                 if match_seed is not None:
                     # Give the matched pages back: a retry recomputes ids
@@ -2083,7 +2132,9 @@ class InferenceEngine:
             seq.pos + budget, self.spec.page_size) - len(seq.pages)
         if need <= 0:
             return True
-        pages = self._alloc_pages(need, seq)
+        pages = self._alloc_pages(
+            need, seq,
+            None if seq.slot is None else self._slot_shard(seq.slot))
         if pages is None:
             return False
         seq.block_table[len(seq.pages):len(seq.pages) + need] = pages
@@ -2556,7 +2607,14 @@ class InferenceEngine:
             join_plan.append((seq, slot, b, max(0, need)))
         if not plan and not join_plan:
             return None
-        if sum(n for *_, n in plan + join_plan) > self.allocator.available():
+        # Carried growth must not shed: every universe the plan draws from
+        # needs its headroom up front.
+        need_by_shard: Dict[int, int] = {}
+        for _seq, slot, _b, n in plan + join_plan:
+            d = self._slot_shard(slot)
+            need_by_shard[d] = need_by_shard.get(d, 0) + n
+        if any(n > self.allocator.available(shard=d)
+               for d, n in need_by_shard.items()):
             return None     # would need shedding: reconcile instead
         t_asm = time.perf_counter()   # step decomposition: dispatch leg
         budgets = np.zeros(B, np.int32)
@@ -2564,7 +2622,8 @@ class InferenceEngine:
         temps = np.zeros(B, np.float32)
         for seq, slot, b, need in plan + join_plan:
             if need > 0:
-                pages = self.allocator.alloc(need)
+                pages = self.allocator.alloc(need,
+                                             shard=self._slot_shard(slot))
                 assert pages is not None    # checked above
                 seq.block_table[len(seq.pages):len(seq.pages) + need] = pages
                 seq.pages.extend(pages)
@@ -3130,6 +3189,10 @@ class InferenceEngine:
                                    if self._prefix_cache is not None
                                    else 0),
         }
+        if alloc.dp_shards > 1:
+            # Free pages per dp universe: one replica can be page-starved
+            # while the total looks healthy.
+            out["kv_pages_free_by_dp_shard"] = alloc.available_by_shard()
         info_fn = getattr(self.executor, "hbm_info", None)
         if info_fn is not None:
             try:

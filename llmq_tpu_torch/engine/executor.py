@@ -84,6 +84,36 @@ tokens (and ``n_commit``) come back in one transfer. With
 ``speculation_draft_k`` 0 the executor has no ``verify_chunk`` and no
 ``verify_chunk_start`` (None), and builds no verify program.
 
+Mesh serving (``mesh=``, a ``parallel.Mesh`` with a ``tp`` axis; JAX's
+mesh branch): one process per rank. Each rank's executor holds its ``tp``
+shard of the weights (``parallel.shard_params``) and of the pool (``H_kv
+/ tp`` KV heads) and launches the port's kernels on it; the model's
+collectives stitch the shards (one all-reduce after ``wo``, one after
+``w_down``, the vocab-sharded embedding and LM head). Rank 0 (the driver)
+serves; before each entry point that dispatches device work (a prefill
+program or wave, a decode or mixed chunk, warmup, a graph release) it
+broadcasts a descriptor over the mesh's gloo control group (the entry
+point's name and its host arguments: tokens, positions, block tables,
+lengths, budgets, temperatures; a handle argument as its number), and
+every other rank (a follower, :meth:`TorchExecutor.follow`) makes the
+same call on its own executor. Every rank samples the same gathered
+logits with its generator seeded alike and drawn in the same order, so
+the carry of a K-step chunk (``tok``, ``pos``, ``frozen``) is the same
+on every rank and each rank's host logic (early exits, ring fetches)
+takes the same turns. Only the engine's entry points are mirrored, never
+a call one of them makes. A call whose arguments are refused
+(:class:`MeshArgumentError`, raised before any device work) fails alike on
+every rank and the mesh goes on; any other failure leaves the mesh: a
+follower whose call failed exits its loop at once, so the driver's next
+collective fails on the closed peer, and a driver whose call failed
+broadcasts an abort that makes its followers leave. The driver sends a
+heartbeat while idle and a stop at :meth:`TorchExecutor.release_mesh`; a
+follower whose driver is gone raises out of its loop within the mesh's
+timeout. On the card the mesh
+group must be NCCL (its collectives are captured in the CUDA graphs);
+``dp > 1``, speculation and the tiered KV plane on a mesh are refused;
+ragged attention is turned off, as in JAX.
+
 :class:`EchoExecutor` (JAX's, for ``executor.backend: echo``) echoes the
 prompt on the host with numpy, no model and no tensor, through the same
 entry points: blocking by default (its futures API None, so the engine
@@ -93,10 +123,13 @@ thread with ``async_chunks``.
 
 from __future__ import annotations
 
+import atexit
+import functools
 import logging
 import queue
 import threading
 import time
+from collections import OrderedDict
 from dataclasses import dataclass, fields
 from typing import Callable, Dict, List, Optional, Protocol, Tuple
 
@@ -296,7 +329,7 @@ class ChunkHandle:
     (CUDA events on the card, the dispatch's host wall on the CPU)."""
 
     __slots__ = ("tok", "pos", "frozen", "steps", "_host", "_shape",
-                 "_start", "_done", "_host_ms", "_note", "_value")
+                 "_start", "_done", "_host_ms", "_note", "_value", "mid")
 
     def __init__(self, tok, pos, frozen, host, shape, steps, start, done,
                  host_ms, note) -> None:
@@ -311,6 +344,8 @@ class ChunkHandle:
         self._host_ms = host_ms
         self._note = note
         self._value: Optional[np.ndarray] = None
+        #: Its number on a mesh (the same on every rank), else None.
+        self.mid: Optional[int] = None
 
     def ready(self) -> bool:
         return self._done is None or self._done.query()
@@ -472,13 +507,204 @@ class PrefillHandle:
     join reads it) and of that slot's host copy, until fetched, then
     ``value``."""
 
-    __slots__ = ("slot", "row", "value", "copy")
+    __slots__ = ("slot", "row", "value", "copy", "mid")
 
     def __init__(self, slot: int, row: int, copy: _HostCopy) -> None:
         self.slot = slot
         self.row = row
         self.copy = copy
         self.value: Optional[int] = None
+        #: Its number on a mesh (the same on every rank), else None.
+        self.mid: Optional[int] = None
+
+
+class _Ref:
+    """A handle in a mesh descriptor: its number, and a prefill handle's
+    token when the driver has read it."""
+
+    __slots__ = ("mid", "value")
+
+    def __init__(self, mid: int, value: Optional[int]) -> None:
+        self.mid = mid
+        self.value = value
+
+    def __reduce__(self):
+        return (_Ref, (self.mid, self.value))
+
+
+#: Handles a follower keeps by number: more than the result ring and the
+#: pipeline ever hold unresolved.
+MESH_HANDLES = 256
+
+
+class MeshArgumentError(ValueError):
+    """An entry point's arguments refused before any device work: a check
+    of the arguments alone, which every rank of a mesh makes alike on the
+    same descriptor, so the mesh goes on after it."""
+
+
+class _MeshRelay:
+    """The driver/follower protocol of a mesh executor: the descriptor of
+    each entry point the engine calls, the handles numbered alike on
+    every rank, the driver's abort after a failed call, its heartbeat and
+    its stop. Descriptors go over the mesh's gloo ``control`` group from
+    rank ``src``, the mesh's first rank."""
+
+    def __init__(self, mesh) -> None:
+        self.mesh = mesh
+        self.src = mesh.ranks[0]
+        self.driver = mesh.is_driver
+        self.lock = threading.RLock()
+        self.next_mid = 0
+        self.handles: "OrderedDict[int, object]" = OrderedDict()
+        self.stopped = False
+        self.sent_at = time.monotonic()
+        self._beat: Optional[threading.Thread] = None
+        #: The mesh's timeout (``LLMQ_CLUSTER_TIMEOUT``): an idle driver
+        #: sends a heartbeat within half of it.
+        self.heartbeat_s = mesh.timeout_s
+        if self.driver and mesh.size > 1:
+            self._beat = threading.Thread(target=self._heartbeat,
+                                          name="mesh-heartbeat", daemon=True)
+            self._beat.start()
+            # A driver that exits without releasing still stops its
+            # followers.
+            atexit.register(self.release)
+
+    def release(self) -> None:
+        """The driver's stop to its followers, once; later calls raise."""
+        with self.lock:
+            if self.stopped or not self.driver:
+                return
+            self.stopped = True
+            if self.mesh.size > 1:
+                try:
+                    self.send(("stop",))
+                except Exception:  # noqa: BLE001 — the group is gone
+                    log.exception("mesh stop failed")
+
+    def send(self, msg) -> None:
+        import torch.distributed as dist
+
+        dist.broadcast_object_list([msg], src=self.src,
+                                   group=self.mesh.control)
+        self.sent_at = time.monotonic()
+
+    def recv(self):
+        import torch.distributed as dist
+
+        box = [None]
+        dist.broadcast_object_list(box, src=self.src,
+                                   group=self.mesh.control)
+        return box[0]
+
+    def _heartbeat(self) -> None:
+        """Keep an idle driver's followers inside the group's timeout."""
+        while True:
+            time.sleep(self.heartbeat_s / 4)
+            with self.lock:
+                if self.stopped:
+                    return
+                if time.monotonic() - self.sent_at >= self.heartbeat_s / 2:
+                    try:
+                        self.send(("ping",))
+                    except Exception:  # noqa: BLE001 — the group is gone
+                        log.exception("mesh heartbeat failed")
+                        self.stopped = True
+                        return
+
+    def encode(self, x):
+        if isinstance(x, (ChunkHandle, PrefillHandle)):
+            if x.mid is None:
+                raise RuntimeError("a handle made inside another call "
+                                   "cannot cross the mesh")
+            return _Ref(x.mid, x.value if isinstance(x, PrefillHandle)
+                        else None)
+        if isinstance(x, (list, tuple)):
+            return type(x)(self.encode(v) for v in x)
+        if isinstance(x, dict):
+            return {k: self.encode(v) for k, v in x.items()}
+        return x
+
+    def decode(self, x):
+        if isinstance(x, _Ref):
+            h = self.handles.get(x.mid)
+            if h is None:
+                raise RuntimeError(f"mesh handle {x.mid} is not held here")
+            if x.value is not None and isinstance(h, PrefillHandle):
+                h.value = x.value
+            return h
+        if isinstance(x, (list, tuple)):
+            return type(x)(self.decode(v) for v in x)
+        if isinstance(x, dict):
+            return {k: self.decode(v) for k, v in x.items()}
+        return x
+
+    def number(self, out) -> None:
+        """Number the handles a mirrored call returned (one per handle,
+        in order, alike on every rank); a follower keeps them."""
+        for h in (out if isinstance(out, list) else [out]):
+            if isinstance(h, (ChunkHandle, PrefillHandle)):
+                h.mid = self.next_mid
+                self.next_mid += 1
+                if not self.driver:
+                    self.handles[h.mid] = h
+                    while len(self.handles) > MESH_HANDLES:
+                        self.handles.popitem(last=False)
+
+
+def _mirrored(fn):
+    """An entry point the engine calls on :class:`TorchExecutor` (never
+    one the executor calls itself): on a mesh driver it first broadcasts
+    its descriptor, then runs, and broadcasts an abort if it failed past
+    its argument checks; on every rank the handles it returns are
+    numbered."""
+    name = fn.__name__
+
+    @functools.wraps(fn)
+    def call(self, *args, **kwargs):
+        relay = self._relay
+        if relay is None:
+            return fn(self, *args, **kwargs)
+        with relay.lock:
+            sends = relay.driver and relay.mesh.size > 1
+            if sends:
+                if relay.stopped:
+                    raise RuntimeError("the mesh was released")
+                relay.send(("call", name, relay.encode(args),
+                            relay.encode(kwargs)))
+            try:
+                out = fn(self, *args, **kwargs)
+            except MeshArgumentError:
+                raise
+            except Exception:
+                if sends:
+                    try:
+                        relay.send(("abort", name))
+                    except Exception:  # noqa: BLE001 — a follower left
+                        log.exception("mesh abort of %s failed", name)
+                raise
+            relay.number(out)
+            return out
+
+    return call
+
+
+def refuse_on_mesh(shape: Dict[str, int], *, speculation: bool = False,
+                   tiering: bool = False) -> None:
+    """Raise, naming the remedy, for what a mesh of ``shape`` does not
+    serve yet: ``dp > 1`` on the device, speculation, the tiered KV
+    plane."""
+    if int(shape.get("dp", 1)) > 1:
+        raise ValueError(
+            f"executor.mesh {shape}: dp > 1 on the device is not ported "
+            f"yet (ROADMAP.md A11's next step: a page universe per dp "
+            f"rank); serve dp as replicas (cluster.peers) meanwhile")
+    for on, block in ((speculation, "speculation"), (tiering, "kv_tiering")):
+        if on:
+            raise ValueError(f"executor.{block} on a mesh is not ported "
+                             f"yet (ROADMAP.md A11's next step); set "
+                             f"executor.{block}.enabled false")
 
 
 class TorchExecutor:
@@ -503,14 +729,31 @@ class TorchExecutor:
                  speculation_draft_k: int = 0,
                  speculation_device_sampling: bool = True,
                  device: str = "cuda", telemetry_name: str = "engine0",
-                 telemetry_metrics: bool = True) -> None:
+                 telemetry_metrics: bool = True, mesh=None) -> None:
         if cache_dtype == torch.int8 and not fused_decode:
             # The JAX package's int8-KV decode step has no split route.
             raise ValueError("fused_decode=False has no int8-KV route: the "
                              "int8 decode step is the fused kernel only")
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
-        self.model = Llama(model_cfg, params)
+        #: The rank mesh this executor serves over (None: one device).
+        self.mesh = mesh
+        #: dp page universes of the pool: 1 (``dp > 1`` on the device is
+        #: refused below).
+        self.dp_shards = 1
+        self._relay: Optional[_MeshRelay] = None
+        kv_heads = None
+        tp = None
+        if mesh is not None:
+            if ragged_attention:
+                log.warning("ragged_attention requested but mesh sharding "
+                            "is configured; keeping the bucket path (the "
+                            "ragged kernel is single-chip)")
+                ragged_attention = False
+            params, tp, kv_heads = self._shard(model_cfg, params, mesh,
+                                               speculation_draft_k)
+            self._relay = _MeshRelay(mesh)
+        self.model = Llama(model_cfg, params, tp=tp)
         self.spec = ExecutorSpec(batch_size, page_size, num_pages,
                                  max(1, model_cfg.max_seq_len // page_size),
                                  eos_id)
@@ -544,7 +787,8 @@ class TorchExecutor:
             need = cap + S * (RAGGED_Q_BLOCK - 1)
             self.ragged_buffer = -(-need // RAGGED_Q_BLOCK) * RAGGED_Q_BLOCK
         self.cache = init_kv_pages(model_cfg, num_pages, page_size,
-                                   self.device, dtype=cache_dtype)
+                                   self.device, dtype=cache_dtype,
+                                   kv_heads=kv_heads)
         #: Device telemetry (observability/device.py), shared by name with
         #: the engine built over this executor: graph captures land here
         #: as compiles, warmup as progress, the RTT floor after warmup.
@@ -693,20 +937,124 @@ class TorchExecutor:
                 "device_kind": self._device_kind(),
                 "quant": ("int8" if is_quantized(params["layers"]["wq"])
                           else ""),
-                "n_chips": 1}
+                # MFU over every card of the mesh.
+                "n_chips": self.mesh.size if self.mesh is not None else 1}
 
     def _device_kind(self) -> str:
         if self.device.type == "cuda":
             return torch.cuda.get_device_name(self.device)
         return self.device.type
 
+    def _shard(self, cfg: LlamaConfig, params, mesh, draft_k: int):
+        """This rank's shard of ``params`` under the partition rules, its
+        :class:`~llmq_tpu_torch.models.llama.TensorParallel`, and the KV
+        heads its pool holds. Refuses what a mesh does not serve yet."""
+        from llmq_tpu_torch.parallel.sharding import (kv_cache_shardings,
+                                                      param_shardings,
+                                                      shard_params,
+                                                      tensor_parallel)
+
+        refuse_on_mesh(mesh.shape, speculation=bool(draft_k))
+        if self.device.type == "cuda" and mesh.group is None:
+            raise ValueError(
+                "a CUDA executor's mesh needs its NCCL process group: join "
+                "the world first (parallel.distributed_init, or the "
+                "LLMQ_COORDINATOR variables)")
+        if (self.device.type == "cuda" and mesh.group is not None
+                and mesh.backend != "nccl"):
+            raise ValueError(
+                f"a CUDA executor's mesh group must be NCCL (got "
+                f"{mesh.backend}): its collectives are captured in the "
+                f"CUDA graphs; join with device cuda")
+        quantized = is_quantized(params["layers"]["wq"])
+        shardings = param_shardings(cfg, mesh, quantized=quantized,
+                                    params=params)
+        local = shard_params(params, shardings, mesh)
+        kv = kv_cache_shardings(cfg, mesh)["k"]
+        kv_heads = cfg.n_kv_heads // (mesh.tp if kv[3] == "tp" else 1)
+        return local, tensor_parallel(mesh, shardings), kv_heads
+
+    def follow(self) -> None:
+        """A follower rank's loop: receive each descriptor the driver
+        broadcasts and make the same call on this executor, until the
+        driver's stop. A call whose arguments were refused
+        (:class:`MeshArgumentError`) failed alike on the driver and the
+        loop goes on. Any other failure raises out of the loop at once:
+        this rank's own (the driver may wait in a collective it skipped,
+        and fails on the closed peer once this rank leaves) and the
+        driver's abort (its call failed where this rank's ran). A lost
+        driver raises within the mesh's timeout."""
+        relay = self._relay
+        if relay is None or relay.driver:
+            raise RuntimeError("follow() runs on a mesh rank other than 0")
+        log.info("rank %d following the mesh driver (rank %d)",
+                 self.mesh.rank, relay.src)
+        while True:
+            msg = relay.recv()
+            kind = msg[0]
+            if kind == "stop":
+                log.info("rank %d: the driver released the mesh",
+                         self.mesh.rank)
+                return
+            if kind == "ping":
+                continue
+            if kind == "hbm":
+                import torch.distributed as dist
+
+                dist.gather_object(self._hbm_entry(), None, dst=relay.src,
+                                   group=self.mesh.control)
+                continue
+            if kind == "abort":
+                raise RuntimeError(f"the driver's {msg[1]} failed where "
+                                   f"rank {self.mesh.rank}'s ran")
+            _kind, name, args, kwargs = msg
+            try:
+                getattr(self, name)(*relay.decode(args),
+                                    **relay.decode(kwargs))
+            except MeshArgumentError as e:
+                log.warning("rank %d: mirrored %s refused its arguments, "
+                            "as the driver's did: %s", self.mesh.rank,
+                            name, e)
+            except Exception as e:
+                raise RuntimeError(f"mirrored {name} failed on rank "
+                                   f"{self.mesh.rank}: {e}") from e
+
+    def release_mesh(self) -> None:
+        """On the driver, send the followers their stop (once); later
+        device calls raise. No-op elsewhere."""
+        if self._relay is not None:
+            self._relay.release()
+
     def hbm_info(self) -> List[Dict]:
         """HBM accounting of the card this executor serves on: weight
         bytes, KV-pool bytes (the K/V pools, and the scale pools of an
         int8 cache), the CUDA-graph pools' bytes, and free and total
-        memory from ``torch.cuda.mem_get_info`` (None on the CPU). Called
-        from scrapes and stats only, never from the step path."""
-        entry = {"chip": str(self.device.index or 0),
+        memory from ``torch.cuda.mem_get_info`` (None on the CPU). On a
+        mesh one entry per rank, ``chip`` its rank: the driver gathers the
+        followers' (a host collective over the control group, between
+        dispatches). Called from scrapes and stats only, never from the
+        step path."""
+        relay = self._relay
+        if relay is None or relay.mesh.size == 1:
+            return [self._hbm_entry()]
+        if not relay.driver:
+            return [self._hbm_entry()]
+        import torch.distributed as dist
+
+        with relay.lock:
+            if relay.stopped:
+                return [self._hbm_entry()]
+            relay.send(("hbm",))
+            entries: List = [None] * relay.mesh.size
+            dist.gather_object(self._hbm_entry(), entries, dst=relay.src,
+                               group=self.mesh.control)
+        return entries
+
+    def _hbm_entry(self) -> Dict:
+        """This rank's entry of :meth:`hbm_info`."""
+        chip = (self.mesh.rank if self.mesh is not None
+                else self.device.index or 0)
+        entry = {"chip": str(chip),
                  "kind": self._device_kind(),
                  "weights_bytes": params_bytes(self.model.params),
                  "kv_pool_bytes": sum(t.numel() * t.element_size()
@@ -722,7 +1070,7 @@ class TorchExecutor:
             entry["limit_bytes"] = int(total)
             entry["reserved_bytes"] = int(torch.cuda.memory_stats(
                 self.device).get("reserved_bytes.all.current", 0))
-        return [entry]
+        return entry
 
     def _note_capture(self, name: str, g: _StepGraph) -> None:
         """A captured program counts as one compile in the telemetry (the
@@ -738,6 +1086,7 @@ class TorchExecutor:
 
     # -- Executor API --------------------------------------------------------
 
+    @_mirrored
     def prefill(self, tokens: List[int], start_pos: int,
                 block_table: np.ndarray, temperature: float,
                 slot: int) -> int:
@@ -754,10 +1103,12 @@ class TorchExecutor:
         largest = self.prefill_buckets[-1]
         for o in range(0, len(tokens), largest):
             chunk = list(tokens[o:o + largest])
-            h = self.prefill_async(chunk, pos, block_table, temperature)
+            h = self._prefill_wave([(chunk, pos, block_table, temperature)],
+                                   rows=1)[0]
             pos += len(chunk)
         return int(self.gather_scalars([h])[0])
 
+    @_mirrored
     def prefill_async(self, tokens: List[int], start_pos: int,
                       block_table: np.ndarray,
                       temperature: float) -> PrefillHandle:
@@ -768,9 +1119,11 @@ class TorchExecutor:
         if self.ragged_attention:
             return self._ragged_prefill_start([req])[0]
         if len(tokens) > self.prefill_buckets[-1]:
-            raise ValueError("prefill_async takes one bucket-sized chunk")
+            raise MeshArgumentError("prefill_async takes one bucket-sized "
+                                    "chunk")
         return self._prefill_wave([req], rows=1)[0]
 
+    @_mirrored
     def prefill_multi_async(self, reqs: List) -> List[PrefillHandle]:
         """Up to ``prefill_batch`` prompts' chunks in ONE program,
         dispatched without a host wait (``JaxExecutor.prefill_multi_async``):
@@ -779,14 +1132,14 @@ class TorchExecutor:
         the largest bucket. Ragged mode packs the requests into ragged
         steps instead. Returns one handle per request."""
         if not 0 < len(reqs) <= self.prefill_batch:
-            raise ValueError(f"{len(reqs)} requests for a wave of "
-                             f"{self.prefill_batch}")
+            raise MeshArgumentError(f"{len(reqs)} requests for a wave of "
+                                    f"{self.prefill_batch}")
         reqs = [(list(t), sp, bt, temp) for t, sp, bt, temp in reqs]
         if self.ragged_attention:
             return self._ragged_prefill_start(reqs)
         if any(not 0 < len(r[0]) <= self.prefill_buckets[-1] for r in reqs):
-            raise ValueError("a wave's chunk is empty or exceeds the "
-                             "largest bucket")
+            raise MeshArgumentError("a wave's chunk is empty or exceeds "
+                                    "the largest bucket")
         return self._prefill_wave(reqs, rows=self.prefill_batch)
 
     def gather_scalars(self, handles: List[PrefillHandle]) -> np.ndarray:
@@ -799,6 +1152,7 @@ class TorchExecutor:
                 h.value = h.copy.read(h.row)
         return np.array([h.value for h in handles], dtype=np.int64)
 
+    @_mirrored
     @torch.inference_mode()
     def decode(self, tokens: np.ndarray, positions: np.ndarray,
                block_tables: np.ndarray,
@@ -812,6 +1166,7 @@ class TorchExecutor:
         self._time_steps(t0, 1)
         return out
 
+    @_mirrored
     @torch.inference_mode()
     def decode_chunk(self, tokens: np.ndarray, positions: np.ndarray,
                      block_tables: np.ndarray, temperatures: np.ndarray,
@@ -824,6 +1179,7 @@ class TorchExecutor:
         return self._decode_chunk(tokens, positions, block_tables,
                                   temperatures, budgets, eager=False)
 
+    @_mirrored
     @torch.inference_mode()
     def decode_chunk_start(self, tokens, positions, block_tables: np.ndarray,
                            temperatures: np.ndarray, budgets: np.ndarray,
@@ -897,6 +1253,7 @@ class TorchExecutor:
         self._time_steps(t0, ran)
         return result
 
+    @_mirrored
     def mixed_chunk_start(self, tokens: np.ndarray, positions: np.ndarray,
                           block_tables: np.ndarray, temperatures: np.ndarray,
                           budgets: np.ndarray,
@@ -911,6 +1268,7 @@ class TorchExecutor:
                                        temperatures, budgets, pf,
                                        eager=False)
 
+    @_mirrored
     def mixed_chunk(self, tokens: np.ndarray, positions: np.ndarray,
                     block_tables: np.ndarray, temperatures: np.ndarray,
                     budgets: np.ndarray, pf: List) -> tuple:
@@ -945,16 +1303,19 @@ class TorchExecutor:
                            temperatures, budgets, pf: List, *,
                            eager: bool) -> MixedChunkHandle:
         if self.mixed_prefill_slices <= 0:
-            raise RuntimeError("mixed batching disabled for this executor")
+            raise MeshArgumentError("mixed batching disabled for this "
+                                    "executor")
         S, T = self.mixed_prefill_slices, self.mixed_slice_tokens
         if not 0 < len(pf) <= S:
-            raise ValueError(f"{len(pf)} slices for a geometry of {S}")
+            raise MeshArgumentError(f"{len(pf)} slices for a geometry of "
+                                    f"{S}")
         reqs = [(list(t), sp, bt, temp) for _slot, t, sp, bt, temp in pf]
         if self.ragged_attention:
             if sum(len(r[0]) for r in reqs) > T:
-                raise ValueError(f"ragged pack exceeds the capacity {T}")
+                raise MeshArgumentError(f"ragged pack exceeds the capacity "
+                                        f"{T}")
         elif any(not 0 < len(r[0]) <= T for r in reqs):
-            raise ValueError(f"a slice is empty or wider than {T}")
+            raise MeshArgumentError(f"a slice is empty or wider than {T}")
         t0 = time.perf_counter()
         name, p = self._step0_program()
         self._fill(tokens, positions, block_tables, temperatures, budgets)
@@ -1123,6 +1484,7 @@ class TorchExecutor:
 
     # -- warmup ---------------------------------------------------------------
 
+    @_mirrored
     @torch.inference_mode()
     def warmup(self) -> None:
         """Run every program once, capture the graphs, calibrate
@@ -1214,9 +1576,11 @@ class TorchExecutor:
             samples = []
             for _ in range(3):
                 t0 = time.perf_counter()
-                self.decode_chunk(zeros, zeros, zbt, ztemp, ones)
+                self._decode_chunk(zeros, zeros, zbt, ztemp, ones,
+                                   eager=False)
                 t1 = time.perf_counter()
-                out = self.decode_chunk(zeros, zeros, zbt, ztemp, full)
+                out = self._decode_chunk(zeros, zeros, zbt, ztemp, full,
+                                         eager=False)
                 t2 = time.perf_counter()
                 # The loop runs while any row lives: the steps it took are
                 # the columns in which some row has not yet hit EOS.
@@ -1254,6 +1618,7 @@ class TorchExecutor:
         return (len(self.step_graphs) + len(self.program_graphs)
                 + len(self.verify_graphs))
 
+    @_mirrored
     def release_graphs(self) -> None:
         """Drop every captured graph and program buffer (their memory
         returns to the allocator's cache); later calls capture again."""
@@ -1737,6 +2102,11 @@ class TorchExecutor:
             yield name, pool, view
             offs += per
 
+    def _no_mesh(self, what: str) -> None:
+        if self.mesh is not None:
+            raise RuntimeError(f"{what} on a mesh is not ported yet "
+                               f"(ROADMAP.md A11's next step)")
+
     def export_kv_pages(self, pages: List[int]) -> "ExportedPages":
         """Gather ``pages``' payloads out of the pool, without a host
         wait: queued on the current stream (the one the programs replay
@@ -1746,6 +2116,7 @@ class TorchExecutor:
         to host memory after ``event``) and, as a list, each leaf's
         ``(L, N, ...)`` view of it (the JAX package's per-leaf gathers).
         Engine thread only."""
+        self._no_mesh("the tiered KV plane")
         n = len(pages)
         nbytes = sum(p.element_size() * p[:, 0].numel()
                      for p in self.cache.values())
@@ -1776,6 +2147,7 @@ class TorchExecutor:
         the event behind those copies (the fence before the host buffers
         may be reused), or None when nothing reads host memory
         asynchronously. Engine thread only."""
+        self._no_mesh("the tiered KV plane")
         idx = self._page_index(pages)
         done = None
         with torch.inference_mode():

@@ -1,5 +1,5 @@
 """Host-side allocator for the paged KV pool (the port's copy of
-``llmq_tpu/engine/kv_allocator.py`` at one page universe).
+``llmq_tpu/engine/kv_allocator.py``).
 
 - **page 0 is reserved** as the null/padding page: inactive decode rows
   and padded block-table entries point at it; it is never handed out.
@@ -15,6 +15,14 @@
   exclusive ownership.
 - conversations pin their pages between turns under a name; the engine
   unpins on adoption, pin TTL or pool-pressure reclaim.
+- **dp page universes** (``dp_shards`` > 1): the page-id space splits
+  into ``dp_shards`` universes ``[d·P/dp, (d+1)·P/dp)`` with a free list
+  each, the host half of a ``dp × tp`` mesh whose pool splits its page
+  axis over ``dp``. ``alloc(n, shard=d)`` takes all ``n`` pages from
+  universe ``d``; ``free`` returns each page to the universe that owns
+  it; page 0 is reserved in universe 0 only. At ``dp_shards=1`` (and
+  with ``shard=None``) the allocator hands out the same sequence as one
+  free list.
 """
 
 from __future__ import annotations
@@ -24,25 +32,52 @@ from typing import Dict, List, Optional
 
 
 class PageAllocator:
-    def __init__(self, num_pages: int, page_size: int) -> None:
+    def __init__(self, num_pages: int, page_size: int,
+                 dp_shards: int = 1) -> None:
         if num_pages < 2:
             raise ValueError("need at least 2 pages (page 0 is reserved)")
+        dp_shards = max(1, int(dp_shards))
+        if dp_shards > 1 and num_pages % dp_shards != 0:
+            raise ValueError(
+                f"num_pages ({num_pages}) must divide evenly into "
+                f"{dp_shards} dp shards")
         self.num_pages = num_pages
         self.page_size = page_size
-        self._free: List[int] = list(range(num_pages - 1, 0, -1))
+        self.dp_shards = dp_shards
+        #: Pages per dp universe.
+        self.pages_per_shard = num_pages // dp_shards
+        # One LIFO free list per universe, universe 0 without page 0; at
+        # one universe this is the single list in the same order.
+        self._free_by_shard: List[List[int]] = []
+        for d in range(dp_shards):
+            lo = d * self.pages_per_shard + (1 if d == 0 else 0)
+            hi = (d + 1) * self.pages_per_shard
+            self._free_by_shard.append(list(range(hi - 1, lo - 1, -1)))
         self._refs: Dict[int, int] = {}        # page id → holder count
         self._pins: Dict[str, List[int]] = {}
         self._mu = threading.Lock()
 
-    def alloc(self, n: int) -> Optional[List[int]]:
-        """Allocate ``n`` pages (each at refcount 1), or None if the pool
-        can't supply all."""
+    def shard_of(self, page: int) -> int:
+        """The dp universe a page id belongs to (0 with one universe)."""
+        return page // self.pages_per_shard
+
+    def alloc(self, n: int,
+              shard: Optional[int] = None) -> Optional[List[int]]:
+        """Allocate ``n`` pages (each at refcount 1) from one universe, or
+        None if it can't supply all: universe ``shard``, or with None the
+        one with the most free pages."""
         if n <= 0:
             return []
         with self._mu:
-            if len(self._free) < n:
+            if shard is None:
+                free = max(self._free_by_shard, key=len)
+            else:
+                if not 0 <= shard < self.dp_shards:
+                    raise ValueError(f"bad dp shard {shard}")
+                free = self._free_by_shard[shard]
+            if len(free) < n:
                 return None
-            pages = [self._free.pop() for _ in range(n)]
+            pages = [free.pop() for _ in range(n)]
             for p in pages:
                 self._refs[p] = 1
         return pages
@@ -72,7 +107,7 @@ class PageAllocator:
                     self._refs[p] = refs - 1
                 else:
                     del self._refs[p]
-                    self._free.append(p)
+                    self._free_by_shard[p // self.pages_per_shard].append(p)
 
     def refcount(self, page: int) -> int:
         """Current holder count (0 = free)."""
@@ -98,9 +133,16 @@ class PageAllocator:
         """Allocatable pages (excludes reserved page 0)."""
         return self.num_pages - 1
 
-    def available(self) -> int:
+    def available(self, shard: Optional[int] = None) -> int:
         with self._mu:
-            return len(self._free)
+            if shard is not None:
+                return len(self._free_by_shard[shard])
+            return sum(len(f) for f in self._free_by_shard)
+
+    def available_by_shard(self) -> List[int]:
+        """Free pages per dp universe (one entry with one universe)."""
+        with self._mu:
+            return [len(f) for f in self._free_by_shard]
 
     def used(self) -> int:
         return self.total - self.available()
@@ -118,7 +160,7 @@ class PageAllocator:
         working set has become (read at scrapes; the sort runs outside
         the lock so alloc/free never wait behind it)."""
         with self._mu:
-            free = list(self._free)
+            free = [p for f in self._free_by_shard for p in f]
         free.sort()
         if not free:
             return 0.0

@@ -14,6 +14,17 @@ int8 serving: weights may be w8a8 leaves ``{"q", "s"}`` (``ops/quant.py``;
 every matmul goes through ``linear``), and a cache made with
 ``dtype=torch.int8`` carries ``k_scale`` / ``v_scale`` pools, which send
 every forward through the int8 attention routes.
+
+Tensor parallelism (``tp=`` a :class:`TensorParallel`): the tree is one
+rank's shard (``parallel/sharding.py``) and so is the pool. Each rank
+computes its ``H/tp`` query and ``H_kv/tp`` KV heads with the same
+kernels and its ``ffn_dim/tp`` SwiGLU columns; one all-reduce follows
+``wo`` and one ``w_down``, the vocab-row-sharded embedding is a lookup
+of the rows a rank owns (the rest zeroed) and an all-reduce, and the
+LM head's vocab columns are all-gathered into full logits. With int8
+weights a row-sharded product reduces its activation scale (max) and
+its int32 partial sums, so it computes what one device computes. With
+``tp=None`` the forwards run as on one device.
 """
 
 from __future__ import annotations
@@ -38,8 +49,8 @@ from llmq_tpu_torch.ops.attention import (dispatch_prefill_attention,
 from llmq_tpu_torch.ops.norms import rms_norm
 from llmq_tpu_torch.ops.quant import (embed_lookup, is_quantized,
                                       layer_slice, linear, linears,
-                                      quantize_embedding, quantize_weight,
-                                      tied_head_logits)
+                                      qdot, quantize_act, quantize_embedding,
+                                      quantize_weight, tied_head_logits)
 from llmq_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 
 Params = Dict[str, Any]
@@ -194,18 +205,21 @@ def params_from_jax(tree: Any, device: torch.device | str = "cuda") -> Params:
 
 def init_kv_pages(cfg: LlamaConfig, num_pages: int, page_size: int,
                   device: torch.device | str,
-                  dtype: Optional[torch.dtype] = None) -> KVCache:
+                  dtype: Optional[torch.dtype] = None,
+                  kv_heads: Optional[int] = None) -> KVCache:
     """Paged KV pool: flat ``(L, P, page_size, H_kv·head_dim)`` per K/V.
     Page 0 is reserved as the null/padding page. ``dtype=torch.int8``
     adds per-(token, KV head) bf16 scale pools ``k_scale`` / ``v_scale``
-    shaped ``(L, P, H_kv, page_size)``, the JAX package's layout."""
-    shape = (cfg.n_layers, num_pages, page_size,
-             cfg.n_kv_heads * cfg.head_dim)
+    shaped ``(L, P, H_kv, page_size)``, the JAX package's layout.
+    ``kv_heads``: the KV heads this pool holds (a tp rank's ``H_kv/tp``;
+    default all)."""
+    hkv = cfg.n_kv_heads if kv_heads is None else kv_heads
+    shape = (cfg.n_layers, num_pages, page_size, hkv * cfg.head_dim)
     dt = dtype or cfg.dtype
     cache = {"k": torch.zeros(shape, dtype=dt, device=device),
              "v": torch.zeros(shape, dtype=dt, device=device)}
     if dt == torch.int8:
-        sshape = (cfg.n_layers, num_pages, cfg.n_kv_heads, page_size)
+        sshape = (cfg.n_layers, num_pages, hkv, page_size)
         cache["k_scale"] = torch.zeros(sshape, dtype=torch.bfloat16,
                                        device=device)
         cache["v_scale"] = torch.zeros(sshape, dtype=torch.bfloat16,
@@ -221,50 +235,139 @@ def _q8_pools(kv_cache: KVCache):
             kv_cache["v_scale"])
 
 
+# -- tensor parallelism ---------------------------------------------------------
+
+@dataclass(frozen=True)
+class TensorParallel:
+    """One rank's place in a ``tp`` split: its process ``group`` (NCCL on
+    the card, gloo on the CPU), ``size`` and ``rank`` on the axis, and
+    which parts of the tree it holds a shard of (``parallel/sharding.py``
+    replicates a part the axis cannot divide): ``attention`` (whole
+    heads of ``wq``/``wk``/``wv``/``wo`` and the pool), ``mlp``
+    (``ffn_dim`` columns) and ``vocab`` (embedding rows and the LM
+    head's columns). With ``size`` 1 on the CPU no collective runs; on
+    the card they run at any size, so that a captured graph holds
+    them."""
+
+    group: Any
+    size: int
+    rank: int
+    attention: bool = True
+    mlp: bool = True
+    vocab: bool = True
+
+    def live(self, t: torch.Tensor) -> bool:
+        return self.size > 1 or t.is_cuda
+
+    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """``t`` summed (or its max taken) over the ranks, in place."""
+        if self.live(t):
+            import torch.distributed as dist
+
+            dist.all_reduce(t, op=(dist.ReduceOp.MAX if op == "max"
+                                   else dist.ReduceOp.SUM),
+                            group=self.group)
+        return t
+
+    def gather_last(self, t: torch.Tensor) -> torch.Tensor:
+        """Each rank's ``(..., n)`` block joined along the last axis in
+        rank order: ``(..., size·n)``."""
+        if not self.live(t):
+            return t
+        import torch.distributed as dist
+
+        lead, n = t.shape[:-1], t.shape[-1]
+        flat = t.reshape(-1, n).contiguous()
+        out = torch.empty((self.size * flat.shape[0], n), dtype=t.dtype,
+                          device=t.device)
+        dist.all_gather_into_tensor(out, flat, group=self.group)
+        return out.view(self.size, -1, n).permute(1, 0, 2).reshape(
+            *lead, self.size * n)
+
+
+def _row_linear(x: torch.Tensor, w, tp: Optional[TensorParallel],
+                sharded: bool) -> torch.Tensor:
+    """``x @ w`` for a weight whose contraction axis is split over ``tp``
+    (``wo``, ``w_down``): the local product, then the sum over ranks. An
+    int8 weight's activation scale is the max over ranks and its int32
+    partials are summed before the scales apply, as one device
+    computes them."""
+    if tp is None or not sharded:
+        return linear(x, w)
+    if is_quantized(w):
+        xq = quantize_act(x, lambda a: tp.all_reduce(a, op="max"))
+        return qdot(x, w, xq, tp.all_reduce)
+    return tp.all_reduce(x @ w)
+
+
+def _embed(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+           tp: Optional[TensorParallel]) -> torch.Tensor:
+    """The embedding rows of ``tokens``; over a vocab-sharded table each
+    rank looks up the rows it owns, zeroes the rest, then all-reduces."""
+    embed = params["embed"]
+    if tp is None or not tp.vocab:
+        return embed_lookup(embed, tokens, cfg.dtype)
+    rows = (embed["q"] if is_quantized(embed) else embed).shape[0]
+    local = tokens.long() - tp.rank * rows
+    own = (local >= 0) & (local < rows)
+    h = embed_lookup(embed, local.clamp(0, rows - 1), cfg.dtype)
+    h = torch.where(own[..., None], h, torch.zeros_like(h))
+    return tp.all_reduce(h)
+
+
 # -- forward ------------------------------------------------------------------
 
-def _mlp(h: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
+def _mlp(h: torch.Tensor, w_gate, w_up, w_down,
+         tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """SwiGLU, the activation in f32; bf16 or int8 weights."""
     g, u = linears(h, w_gate, w_up)
-    return linear(F.silu(g.float()).to(h.dtype) * u, w_down)
+    return _row_linear(F.silu(g.float()).to(h.dtype) * u, w_down, tp,
+                       tp is not None and tp.mlp)
 
 
-def _logits(params: Params, h: torch.Tensor) -> torch.Tensor:
+def _logits(params: Params, h: torch.Tensor,
+            tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """Final projection → f32 logits (tied head: ``h @ embed.T``), for
-    bf16 or int8 heads."""
+    bf16 or int8 heads; a vocab-sharded head's columns are gathered."""
     head = params.get("lm_head")
     if head is not None:
-        return linear(h, head).float()
-    embed = params["embed"]
-    if is_quantized(embed):
-        return tied_head_logits(embed, h)
-    return (h @ embed.T).float()
+        out = linear(h, head).float()
+    else:
+        embed = params["embed"]
+        out = (tied_head_logits(embed, h) if is_quantized(embed)
+               else (h @ embed.T).float())
+    if tp is not None and tp.vocab:
+        out = tp.gather_last(out)
+    return out
 
 
 def _qkv(h: torch.Tensor, lp: Params, layer: int, cfg: LlamaConfig,
          cos: torch.Tensor, sin: torch.Tensor):
     """Attention inputs of (B, T) token rows h (B, T, dim): q (B, T, H,
-    D) and k (B, T, H_kv, D) with rope applied, v (B, T, H_kv, D)."""
+    D) and k (B, T, H_kv, D) with rope applied, v (B, T, H_kv, D); H and
+    H_kv are the heads the weights hold (a tp rank's share)."""
     B, T = h.shape[0], h.shape[1]
     hn = rms_norm(h, lp["attn_norm"][layer], cfg.norm_eps)
     q, k, v = linears(hn, *(layer_slice(lp[n], layer)
                             for n in ("wq", "wk", "wv")))
-    q = q.reshape(B, T, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    q = q.reshape(B, T, -1, cfg.head_dim)
+    k = k.reshape(B, T, -1, cfg.head_dim)
+    v = v.reshape(B, T, -1, cfg.head_dim)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
 def _attn_out_mlp(h: torch.Tensor, attn: torch.Tensor, lp: Params,
-                  layer: int, cfg: LlamaConfig) -> torch.Tensor:
+                  layer: int, cfg: LlamaConfig,
+                  tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """Residual after attention (``attn`` flattened to h's shape) and
     after the MLP."""
-    h = h + linear(attn.reshape(*h.shape[:-1], -1),
-                   layer_slice(lp["wo"], layer))
+    h = h + _row_linear(attn.reshape(*h.shape[:-1], -1),
+                        layer_slice(lp["wo"], layer), tp,
+                        tp is not None and tp.attention)
     hn2 = rms_norm(h, lp["mlp_norm"][layer], cfg.norm_eps)
     return h + _mlp(hn2, layer_slice(lp["w_gate"], layer),
                     layer_slice(lp["w_up"], layer),
-                    layer_slice(lp["w_down"], layer))
+                    layer_slice(lp["w_down"], layer), tp)
 
 
 @dataclass(frozen=True)
@@ -297,7 +400,8 @@ def _chunk(positions: torch.Tensor, lengths: torch.Tensor) -> _Chunk:
 
 def _prefill_layer(h: torch.Tensor, lp: Params, layer: int,
                    cfg: LlamaConfig, cos, sin, kv_cache: KVCache,
-                   block_tables: torch.Tensor, chunk: _Chunk) -> torch.Tensor:
+                   block_tables: torch.Tensor, chunk: _Chunk,
+                   tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """One layer for right-padded chunk rows h (B, T, dim): write their
     K/V, attend over each row's pages, MLP. Over the bf16 pools the
     write and the attention are one kernel launch each for all rows."""
@@ -309,13 +413,13 @@ def _prefill_layer(h: torch.Tensor, lp: Params, layer: int,
         attn = dispatch_prefill_attention_q8(q, pools, block_tables,
                                              chunk.positions, chunk.seq_lens,
                                              layer)
-        return _attn_out_mlp(h, attn, lp, layer, cfg)
+        return _attn_out_mlp(h, attn, lp, layer, cfg, tp)
     k_pool, v_pool = kv_cache["k"], kv_cache["v"]
     paged_kv_write_prefill(k_pool, v_pool, k, v, block_tables, chunk.offsets,
                            chunk.starts, chunk.lengths, layer)
     attn = dispatch_prefill_attention(q, k_pool, v_pool, block_tables,
                                       chunk.starts, chunk.lengths, layer)
-    return _attn_out_mlp(h, attn, lp, layer, cfg)
+    return _attn_out_mlp(h, attn, lp, layer, cfg, tp)
 
 
 def _decode_rows(positions: torch.Tensor, block_tables: torch.Tensor,
@@ -335,7 +439,8 @@ def _decode_rows(positions: torch.Tensor, block_tables: torch.Tensor,
 
 def _decode_layer(h: torch.Tensor, lp: Params, layer: int, cfg: LlamaConfig,
                   cos, sin, kv_cache: KVCache, block_tables: torch.Tensor,
-                  seq_lens, page_of, slot_of, fused: bool) -> torch.Tensor:
+                  seq_lens, page_of, slot_of, fused: bool,
+                  tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """One decode layer for rows h (B, dim). The int8 cache has only the
     fused route, as in the JAX package."""
     q, k, v = _qkv(h[:, None], lp, layer, cfg, cos, sin)
@@ -350,13 +455,14 @@ def _decode_layer(h: torch.Tensor, lp: Params, layer: int, cfg: LlamaConfig,
                                  kv_cache["k"], kv_cache["v"], block_tables,
                                  seq_lens, page_of, slot_of, layer,
                                  fused=fused)
-    return _attn_out_mlp(h, attn, lp, layer, cfg)
+    return _attn_out_mlp(h, attn, lp, layer, cfg, tp)
 
 
 def forward_prefill(params: Params, cfg: LlamaConfig,
                     tokens: torch.Tensor, positions: torch.Tensor,
                     lengths: torch.Tensor, kv_cache: KVCache,
-                    block_tables: torch.Tensor) -> torch.Tensor:
+                    block_tables: torch.Tensor, *,
+                    tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """Prefill up to T tokens per row, writing their K/V into the pool
     in place. tokens/positions (B, T) right-padded, lengths (B,),
     block_tables (B, max_pages) padded with page 0. Returns logits
@@ -368,22 +474,24 @@ def forward_prefill(params: Params, cfg: LlamaConfig,
     meaningless. Continuation chunks (turn 2+) attend to earlier pages
     through the same block tables."""
     h = _prefill_hidden(params, cfg, tokens, positions, lengths, kv_cache,
-                        block_tables)
-    return _logits(params, rms_norm(h, params["final_norm"], cfg.norm_eps))
+                        block_tables, tp)
+    return _logits(params, rms_norm(h, params["final_norm"], cfg.norm_eps),
+                   tp)
 
 
 def forward_prefill_last(params: Params, cfg: LlamaConfig,
                          tokens: torch.Tensor, positions: torch.Tensor,
                          lengths: torch.Tensor, kv_cache: KVCache,
-                         block_tables: torch.Tensor) -> torch.Tensor:
+                         block_tables: torch.Tensor, *,
+                         tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """:func:`forward_prefill` with the LM head applied to each row's
     last live token only (the hidden state at ``lengths - 1``, taken on
     the device): logits (B, V) f32, the row the sampler reads, as the
     JAX package's prefill programs read it. A batch's (B, T, V) logits
     are never made."""
     h = _prefill_hidden(params, cfg, tokens, positions, lengths, kv_cache,
-                        block_tables)
-    return _logits(params, _last_rows(params, cfg, h, lengths))
+                        block_tables, tp)
+    return _logits(params, _last_rows(params, cfg, h, lengths), tp)
 
 
 def _last_rows(params: Params, cfg: LlamaConfig, h: torch.Tensor,
@@ -398,17 +506,17 @@ def _last_rows(params: Params, cfg: LlamaConfig, h: torch.Tensor,
 
 def _prefill_hidden(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
                     positions: torch.Tensor, lengths: torch.Tensor,
-                    kv_cache: KVCache,
-                    block_tables: torch.Tensor) -> torch.Tensor:
+                    kv_cache: KVCache, block_tables: torch.Tensor,
+                    tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """The layers of :func:`forward_prefill`: hidden states (B, T, D)
     before the final norm."""
     lp = params["layers"]
-    h = embed_lookup(params["embed"], tokens, cfg.dtype)       # (B, T, D)
+    h = _embed(params, tokens, cfg, tp)       # (B, T, D)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     chunk = _chunk(positions, lengths)
     for layer in range(cfg.n_layers):
         h = _prefill_layer(h, lp, layer, cfg, cos, sin, kv_cache,
-                           block_tables, chunk)
+                           block_tables, chunk, tp)
     return h
 
 
@@ -416,28 +524,31 @@ def forward_decode(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
                    positions: torch.Tensor, kv_cache: KVCache,
                    block_tables: torch.Tensor,
                    active: Optional[torch.Tensor] = None, *,
-                   fused: bool = True) -> torch.Tensor:
+                   fused: bool = True,
+                   tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """One decode step for every row: tokens/positions (B,), the token's
     K/V written at its position in place. Rows with ``active == False``
     write to reserved page 0 instead; their logits are discarded by the
     caller. ``fused`` picks the decode route (ops/attention.py
     ``paged_decode_step``). Returns logits (B, V) f32."""
     lp = params["layers"]
-    h = embed_lookup(params["embed"], tokens, cfg.dtype)       # (B, D)
+    h = _embed(params, tokens, cfg, tp)       # (B, D)
     cos, sin = rope_cos_sin(positions[:, None], cfg.head_dim, cfg.rope_theta)
     page_of, slot_of, seq_lens = _decode_rows(
         positions, block_tables, kv_cache["k"].shape[2], active)
     for layer in range(cfg.n_layers):
         h = _decode_layer(h, lp, layer, cfg, cos, sin, kv_cache,
-                          block_tables, seq_lens, page_of, slot_of, fused)
+                          block_tables, seq_lens, page_of, slot_of, fused,
+                          tp)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return _logits(params, h)
+    return _logits(params, h, tp)
 
 
 def forward_verify(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
                    positions: torch.Tensor, qlens: torch.Tensor,
                    kv_cache: KVCache, block_tables: torch.Tensor, *,
-                   fused: bool = True) -> torch.Tensor:
+                   fused: bool = True,
+                   tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """A speculation verify window (``llmq_tpu/models/llama.py``
     ``forward_verify``): W teacher-forced :func:`forward_decode` steps,
     step j feeding ``tokens[:, j]`` (B, W) at ``positions + j`` whatever
@@ -451,7 +562,7 @@ def forward_verify(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
     for j in range(tokens.shape[1]):
         outs.append(forward_decode(params, cfg, tokens[:, j], positions + j,
                                    kv_cache, block_tables, j < qlens,
-                                   fused=fused))
+                                   fused=fused, tp=tp))
     return torch.stack(outs, dim=1)
 
 
@@ -461,7 +572,8 @@ def forward_mixed(params: Params, cfg: LlamaConfig,
                   pf_tokens: torch.Tensor, pf_positions: torch.Tensor,
                   pf_lengths: torch.Tensor, pf_block_tables: torch.Tensor,
                   dec_active: Optional[torch.Tensor] = None, *,
-                  fused: bool = True, last_only: bool = False):
+                  fused: bool = True, last_only: bool = False,
+                  tp: Optional[TensorParallel] = None):
     """Mixed step (token-budget mixed batching): advance B decode rows
     one token AND write S prefill slices (up to T tokens each, (S, T)
     right-padded, contiguous positions per row) into the shared pool,
@@ -473,26 +585,26 @@ def forward_mixed(params: Params, cfg: LlamaConfig,
     ``(dec_logits (B, V), pf_logits (S, T, V))`` f32; with ``last_only``
     the slice logits are each slice's last live token's, (S, V)."""
     lp = params["layers"]
-    h_d = embed_lookup(params["embed"], dec_tokens, cfg.dtype)  # (B, D)
+    h_d = _embed(params, dec_tokens, cfg, tp)  # (B, D)
     cos_d, sin_d = rope_cos_sin(dec_positions[:, None], cfg.head_dim,
                                 cfg.rope_theta)
     page_of, slot_of, seq_lens = _decode_rows(
         dec_positions, dec_block_tables, kv_cache["k"].shape[2], dec_active)
-    h_p = embed_lookup(params["embed"], pf_tokens, cfg.dtype)  # (S, T, D)
+    h_p = _embed(params, pf_tokens, cfg, tp)  # (S, T, D)
     cos_p, sin_p = rope_cos_sin(pf_positions, cfg.head_dim, cfg.rope_theta)
     chunk = _chunk(pf_positions, pf_lengths)
     for layer in range(cfg.n_layers):
         h_p = _prefill_layer(h_p, lp, layer, cfg, cos_p, sin_p, kv_cache,
-                             pf_block_tables, chunk)
+                             pf_block_tables, chunk, tp)
         h_d = _decode_layer(h_d, lp, layer, cfg, cos_d, sin_d, kv_cache,
                             dec_block_tables, seq_lens, page_of, slot_of,
-                            fused)
+                            fused, tp)
     h_d = rms_norm(h_d, params["final_norm"], cfg.norm_eps)
     if last_only:
         h_p = _last_rows(params, cfg, h_p, pf_lengths)
     else:
         h_p = rms_norm(h_p, params["final_norm"], cfg.norm_eps)
-    return _logits(params, h_d), _logits(params, h_p)
+    return _logits(params, h_d, tp), _logits(params, h_p, tp)
 
 
 def forward_mixed_ragged(params: Params, cfg: LlamaConfig,
@@ -502,7 +614,8 @@ def forward_mixed_ragged(params: Params, cfg: LlamaConfig,
                          pf_tokens: torch.Tensor, pf_positions: torch.Tensor,
                          pf_qoff: torch.Tensor, pf_qlen: torch.Tensor,
                          pf_block_tables: torch.Tensor,
-                         dec_active: Optional[torch.Tensor] = None):
+                         dec_active: Optional[torch.Tensor] = None, *,
+                         tp: Optional[TensorParallel] = None):
     """:func:`forward_mixed` with the slices PACKED: pf_tokens /
     pf_positions (N,) hold slice s at rows ``[pf_qoff[s], pf_qoff[s] +
     pf_qlen[s])`` (offsets multiples of ``RAGGED_Q_BLOCK``; rows between
@@ -518,7 +631,7 @@ def forward_mixed_ragged(params: Params, cfg: LlamaConfig,
     lp = params["layers"]
     N = pf_tokens.shape[0]
     pools = _q8_pools(kv_cache)
-    h_d = embed_lookup(params["embed"], dec_tokens, cfg.dtype)  # (B, D)
+    h_d = _embed(params, dec_tokens, cfg, tp)  # (B, D)
     cos_d, sin_d = rope_cos_sin(dec_positions[:, None], cfg.head_dim,
                                 cfg.rope_theta)
     page_of, _slot_of, seq_lens = _decode_rows(
@@ -528,7 +641,7 @@ def forward_mixed_ragged(params: Params, cfg: LlamaConfig,
                            pf_qoff, pf_qlen, pf_positions[first])
     if pools is not None:
         rows = ragged_slice_rows(slices, N, kv_cache["k"].shape[2])
-    h_p = embed_lookup(params["embed"], pf_tokens, cfg.dtype)[None]  # (1,N,D)
+    h_p = _embed(params, pf_tokens, cfg, tp)[None]  # (1,N,D)
     cos_p, sin_p = rope_cos_sin(pf_positions[None], cfg.head_dim,
                                 cfg.rope_theta)
     for layer in range(cfg.n_layers):
@@ -543,12 +656,12 @@ def forward_mixed_ragged(params: Params, cfg: LlamaConfig,
                 q_d[:, 0], k_d[:, 0], v_d[:, 0].contiguous(), q_p[0],
                 k_p[0], v_p[0], kv_cache["k"], kv_cache["v"], page_of,
                 slices, layer)
-        h_p = _attn_out_mlp(h_p, attn_p, lp, layer, cfg)
-        h_d = _attn_out_mlp(h_d, attn_d, lp, layer, cfg)
+        h_p = _attn_out_mlp(h_p, attn_p, lp, layer, cfg, tp)
+        h_d = _attn_out_mlp(h_d, attn_d, lp, layer, cfg, tp)
     last = (pf_qoff.long() + pf_qlen.long().clamp(min=1) - 1).clamp(0, N - 1)
     h_d = rms_norm(h_d, params["final_norm"], cfg.norm_eps)
     h_last = rms_norm(h_p[0, last], params["final_norm"], cfg.norm_eps)
-    return _logits(params, h_d), _logits(params, h_last)
+    return _logits(params, h_d, tp), _logits(params, h_last, tp)
 
 
 #: Joins a leaf's path in the parameter tree into one parameter name
@@ -581,11 +694,14 @@ class Llama(nn.Module):
     """The model as a module: holds every leaf of the parameter tree (JAX
     layout; int8 weights and their scales as leaves of their own) as a
     non-trainable parameter named by its path, and exposes the
-    forwards."""
+    forwards. ``tp``: the rank's place in a tensor-parallel split, whose
+    shard ``params`` is (None: the whole model)."""
 
-    def __init__(self, cfg: LlamaConfig, params: Params) -> None:
+    def __init__(self, cfg: LlamaConfig, params: Params,
+                 tp: Optional[TensorParallel] = None) -> None:
         super().__init__()
         self.cfg = cfg
+        self.tp = tp
         self.weights = nn.ParameterDict({
             name: nn.Parameter(t, requires_grad=False)
             for name, t in _flatten(params).items()})
@@ -598,22 +714,24 @@ class Llama(nn.Module):
     def forward_prefill(self, tokens, positions, lengths, kv_cache,
                         block_tables) -> torch.Tensor:
         return forward_prefill(self.params, self.cfg, tokens, positions,
-                               lengths, kv_cache, block_tables)
+                               lengths, kv_cache, block_tables, tp=self.tp)
 
     def forward_prefill_last(self, tokens, positions, lengths, kv_cache,
                              block_tables) -> torch.Tensor:
         return forward_prefill_last(self.params, self.cfg, tokens, positions,
-                                    lengths, kv_cache, block_tables)
+                                    lengths, kv_cache, block_tables,
+                                    tp=self.tp)
 
     def forward_decode(self, tokens, positions, kv_cache, block_tables,
                        active=None, *, fused: bool = True) -> torch.Tensor:
         return forward_decode(self.params, self.cfg, tokens, positions,
-                              kv_cache, block_tables, active, fused=fused)
+                              kv_cache, block_tables, active, fused=fused,
+                              tp=self.tp)
 
     def forward_verify(self, tokens, positions, qlens, kv_cache,
                        block_tables, *, fused: bool = True) -> torch.Tensor:
         return forward_verify(self.params, self.cfg, tokens, positions, qlens,
-                              kv_cache, block_tables, fused=fused)
+                              kv_cache, block_tables, fused=fused, tp=self.tp)
 
     def forward_mixed(self, dec_tokens, dec_positions, kv_cache,
                       dec_block_tables, pf_tokens, pf_positions, pf_lengths,
@@ -623,7 +741,7 @@ class Llama(nn.Module):
                              dec_positions, kv_cache, dec_block_tables,
                              pf_tokens, pf_positions, pf_lengths,
                              pf_block_tables, dec_active, fused=fused,
-                             last_only=last_only)
+                             last_only=last_only, tp=self.tp)
 
     def forward_mixed_ragged(self, dec_tokens, dec_positions, kv_cache,
                              dec_block_tables, pf_tokens, pf_positions,
@@ -633,7 +751,7 @@ class Llama(nn.Module):
                                     dec_positions, kv_cache,
                                     dec_block_tables, pf_tokens,
                                     pf_positions, pf_qoff, pf_qlen,
-                                    pf_block_tables, dec_active)
+                                    pf_block_tables, dec_active, tp=self.tp)
 
     def forward(self, tokens, positions, kv_cache, block_tables,
                 active=None) -> torch.Tensor:

@@ -77,11 +77,15 @@ def dequantize_weight(w: QuantW, dtype=torch.bfloat16) -> torch.Tensor:
     return (w["q"].float() * w["s"]).to(dtype)
 
 
-def quantize_act(x: torch.Tensor):
+def quantize_act(x: torch.Tensor, reduce_max=None):
     """Dynamic symmetric per-row activation quantization: (x_q int8,
-    scale f32 with trailing dim 1), f32 math."""
+    scale f32 with trailing dim 1), f32 math. ``reduce_max`` (in place)
+    makes each row's amax the max over the ranks that hold the row's
+    other slices (a tensor-parallel contraction)."""
     xf = x.float()
     amax = xf.abs().amax(dim=-1, keepdim=True)
+    if reduce_max is not None:
+        reduce_max(amax)
     scale = torch.clamp(amax, min=1e-8) / 127.0
     return _to_int8(xf, scale), scale
 
@@ -97,14 +101,20 @@ def _int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a, b)
 
 
-def qdot(x: torch.Tensor, w: QuantW, xq=None) -> torch.Tensor:
+def qdot(x: torch.Tensor, w: QuantW, xq=None,
+         reduce_sum=None) -> torch.Tensor:
     """``x @ W`` with int8 weights and dynamically quantized activations:
     int8 x int8 -> int32, then the per-row and per-channel scales in f32;
     the output returns in ``x.dtype``. Layers are sliced away first.
-    ``xq`` is ``quantize_act(x)`` when the caller has it already."""
+    ``xq`` is ``quantize_act(x)`` when the caller has it already.
+    ``reduce_sum`` (in place) sums the int32 products over the ranks that
+    hold the contraction's other slices, before the scales apply, so a
+    split product equals the whole one."""
     xq, sx = quantize_act(x) if xq is None else xq
     wq, sw = w["q"], w["s"]
     y = _int_mm(xq.reshape(-1, xq.shape[-1]), wq)
+    if reduce_sum is not None:
+        reduce_sum(y)
     y = y.reshape(*x.shape[:-1], wq.shape[-1])
     # int32 * f32 promotes to f32 in one kernel; (y * sx) * sw as in JAX.
     return (y * sx * sw.reshape(sw.shape[-1])).to(x.dtype)

@@ -145,8 +145,12 @@ def test_unported_table_is_jaxs_tree_at_its_defaults(tmp_path):
                  "kv_tiering.eviction_policy",
                  id="executor: {kv_tiering: {enabled: true}}\n-"
                     "executor.kv_tiering.enabled"),
-    ("executor: {mesh: {enabled: true, shape: {tp: 2}}}\n",
-     "executor.mesh.enabled"),
+    # The mesh is ported: the case now holds JAX's validation of its
+    # shape (the id stays the case's own).
+    pytest.param("executor: {mesh: {enabled: true, shape: {zz: 2}}}\n",
+                 "executor.mesh.shape axis must be 'dp' or 'tp'",
+                 id="executor: {mesh: {enabled: true, shape: {tp: 2}}}\n-"
+                    "executor.mesh.enabled"),
     # The echo backend is ported: the case now holds that a backend the
     # port has not ported still raises (the id stays the case's own).
     pytest.param("executor: {backend: tpu}\n", "executor.backend",
@@ -171,7 +175,12 @@ def test_unported_table_is_jaxs_tree_at_its_defaults(tmp_path):
     pytest.param("tenancy: {enabled: true, tenants: {a: {weight: 2.0, "
                  "nope: 1}}}\n", "unknown config key: tenancy.tenants.a.nope",
                  id="tenancy: {enabled: true}\n-tenancy.enabled"),
-    ("tpu: {mesh_shape: {tp: 8}}\n", "tpu.mesh_shape"),
+    # tpu.mesh_shape is ported (the legacy alias of executor.mesh): the
+    # case now holds that an unknown key beside it raises (the id stays
+    # the case's own).
+    pytest.param("tpu: {mesh_shape: {tp: 8}, nope: 1}\n",
+                 "unknown config key: tpu.nope",
+                 id="tpu: {mesh_shape: {tp: 8}}\n-tpu.mesh_shape"),
     # The model's weight keys are ported: the case now holds that an
     # unknown key beside them raises (the id stays the case's own).
     pytest.param("model: {checkpoint_path: /ckpt, nope: 1}\n",

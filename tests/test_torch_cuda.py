@@ -1764,3 +1764,169 @@ def test_lockdep_around_a_card_engine_reports_counts():
           f"{len(rep['self_sites'])} self sites, "
           f"{len(rep['violations'])} violations", flush=True)
     assert rep["sites"] > 0 and rep["violations"] == [], rep
+
+
+# -- the mesh executor (serve-mesh's checks at small shapes) --------------------
+
+#: A kernel-eligible model (D=128; at tp=2 a rank holds 4 query heads over
+#: 1 KV head, n_rep 4) and serve-mesh b's bf16 gate.
+MESH_CFG = dict(dim=1024, n_heads=8, n_kv_heads=2, ffn_dim=512,
+                vocab_size=512, n_layers=2, max_seq_len=256)
+MESH_BOUND = 0.05
+
+_TP1_SCRIPT = r"""
+import json, socket, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from llmq_tpu_torch.engine.engine import GenRequest, InferenceEngine
+from llmq_tpu_torch.engine.executor import TorchExecutor
+from llmq_tpu_torch.engine.tokenizer import ByteTokenizer
+from llmq_tpu_torch.models.llama import init_params, llama3_tiny
+from llmq_tpu_torch.parallel import distributed_init, make_mesh
+s = socket.socket(); s.bind(("127.0.0.1", 0)); port = s.getsockname()[1]
+s.close()
+distributed_init(f"127.0.0.1:{port}", 1, 0, 120, device="cuda")
+cfg = llama3_tiny(**json.loads(sys.argv[2]))
+out = {}
+for name, mesh in (("tp1", make_mesh({"tp": 1})), ("off", None)):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ex = TorchExecutor(cfg, init_params(cfg, gen, "cuda"), batch_size=2,
+                       page_size=16, num_pages=33, prefill_buckets=[32],
+                       chunk_size=4, eos_id=2, device="cuda", mesh=mesh)
+    ex.warmup()
+    eng = InferenceEngine(ex, ByteTokenizer(), name=name,
+                          enable_metrics=False, max_decode_steps=12)
+    hs = [eng.submit(GenRequest(id=f"r{i}", prompt=p)) for i, p in
+          enumerate(["mesh of one rank", "a second prompt", "third"])]
+    eng.run_until_idle()
+    out[name] = {"tokens": [h.result.tokens for h in hs],
+                 "replays": ex.graph_replays
+                 + sum(ex.program_replays.values()),
+                 "collectives": ex.model.tp is not None,
+                 "backend": None if mesh is None else mesh.backend,
+                 "chips": [c["chip"] for c in ex.hbm_info()],
+                 "n_chips": ex.telemetry_info()["n_chips"]}
+    eng.stop()
+    ex.release_graphs()
+print("RESULT", json.dumps(out))
+import torch.distributed as dist
+dist.destroy_process_group()
+"""
+
+
+@needs_cuda
+def test_tp1_nccl_mesh_executor_serves_like_no_mesh():
+    """serve-mesh a at small shapes: a ``{tp: 1}`` mesh over an NCCL
+    world of one captures its collectives in its graphs and serves the
+    same greedy tokens as the executor without a mesh."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    p = subprocess.run([sys.executable, "-c", _TP1_SCRIPT, repo,
+                        json.dumps(MESH_CFG)], capture_output=True,
+                       text=True, timeout=300)
+    assert p.returncode == 0, p.stdout + p.stderr
+    out = json.loads(p.stdout.split("RESULT", 1)[1])
+    tp1, off = out["tp1"], out["off"]
+    assert tp1["backend"] == "nccl" and tp1["collectives"]
+    assert tp1["replays"] > 0 and off["replays"] > 0
+    assert tp1["tokens"] == off["tokens"]
+    assert tp1["chips"] == ["0"] and tp1["n_chips"] == 1
+
+
+@needs_cuda
+def test_two_rank_gloo_tp2_forward_on_the_card_matches_one_rank(tmp_path):
+    """serve-mesh b at small shapes: two gloo ranks on the one card, each
+    with half the heads, run the forwards through the kernels; their
+    logits are the one-rank forward's within MESH_BOUND x max |logit|."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    import numpy as np
+
+    from llmq_tpu_torch.models import llama as M
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg32 = M.llama3_tiny(dtype=torch.float32, **MESH_CFG)
+    params = M.init_params(cfg32, torch.Generator().manual_seed(0), "cpu")
+    flat = {}
+
+    def walk(t, pre=""):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                walk(v, pre + k + "/")
+            else:
+                flat[pre + k] = v.numpy()
+    walk(params)
+    weights = str(tmp_path / "w.npz")
+    np.savez(weights, **flat)
+    rng = np.random.default_rng(3)
+    i32 = np.int32
+    inputs = {"tokens": rng.integers(0, 512, (2, 32)).astype(i32),
+              "positions": np.broadcast_to(np.arange(32, dtype=i32),
+                                           (2, 32)).copy(),
+              "lengths": np.array([32, 20], i32),
+              "bt": np.array([[1, 2, 3], [4, 5, 6]], i32),
+              "dec_tokens": np.array([7, 9], i32),
+              "dec_positions": np.array([32, 20], i32),
+              "mix_tokens": np.array([11, 13], i32),
+              "mix_positions": np.array([33, 21], i32),
+              "pf_tokens": rng.integers(0, 512, (1, 16)).astype(i32),
+              "pf_positions": np.arange(16, dtype=i32)[None],
+              "pf_lengths": np.array([16], i32),
+              "pf_bt": np.array([[7, 0, 0]], i32)}
+    variant = {"kind": "forward", "cfg": MESH_CFG, "weights": weights,
+               "inputs": {k: v.tolist() for k, v in inputs.items()},
+               "pages": 9, "page_size": 16, "device": "cuda",
+               "dtype": "bfloat16"}
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{s.getsockname()[1]}"
+    out = str(tmp_path / "out.json")
+    procs = []
+    for r in range(2):
+        spec = tmp_path / f"rank{r}.json"
+        spec.write_text(json.dumps({"coord": coord, "world": 2, "rank": r,
+                                    "out": out, "timeout": 120,
+                                    "variants": [variant]}))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(repo, "tests",
+                                          "torch_mesh_rank.py"), str(spec)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = [p.communicate(timeout=300)[0] for p in procs]
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log
+    with open(out) as f:
+        got = json.load(f)[0]
+    assert got["kv_heads"] == 1
+    for k in ("fused_decode", "kv_prefill_write", "prefill_attention"):
+        assert got["launches"][k] > 0, got["launches"]
+    cfg = M.llama3_tiny(dtype=torch.bfloat16, **MESH_CFG)
+    whole = {k: (v.to("cuda", torch.bfloat16) if not isinstance(v, dict)
+                 else {n: x.to("cuda", torch.bfloat16)
+                       for n, x in v.items()}) for k, v in params.items()}
+    t = {k: torch.from_numpy(v).cuda() for k, v in inputs.items()}
+    cache = M.init_kv_pages(cfg, 9, 16, "cuda")
+    ref = {"prefill": M.forward_prefill(whole, cfg, t["tokens"],
+                                        t["positions"], t["lengths"], cache,
+                                        t["bt"])}
+    ref["decode"] = M.forward_decode(whole, cfg, t["dec_tokens"],
+                                     t["dec_positions"], cache, t["bt"])
+    ref["mixed_dec"], ref["mixed_pf"] = M.forward_mixed(
+        whole, cfg, t["mix_tokens"], t["mix_positions"], cache, t["bt"],
+        t["pf_tokens"], t["pf_positions"], t["pf_lengths"], t["pf_bt"])
+    live = (torch.arange(32, device="cuda")[None, :]
+            < t["lengths"][:, None])
+    for k, r in ref.items():
+        g = torch.tensor(got[k], device="cuda")
+        r = r.float()
+        if k == "prefill":
+            g, r = g[live], r[live]
+        err = (g - r).abs().max().item()
+        assert err <= MESH_BOUND * r.abs().max().item(), (k, err)

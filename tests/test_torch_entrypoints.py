@@ -138,15 +138,16 @@ def test_serve_sigint_stops_without_draining(tmp_path):
 
 def test_serve_refuses_an_unported_plane_in_the_file(tmp_path):
     cfg = tmp_path / "serve.yaml"
-    # The disaggregation and scenario planes are ported: the case now
-    # holds the mesh plane, still unported.
-    cfg.write_text(SERVE_YAML + "tpu: {mesh_shape: {tp: 2}}\n")
+    # The disaggregation, scenario and mesh planes are ported: the case
+    # now holds XLA's compilation cache, which the port does not read.
+    cfg.write_text(SERVE_YAML + "tpu: {compilation_cache_dir: /tmp/xla}\n")
     res = subprocess.run(
         [sys.executable, "-m", "llmq_tpu_torch", "--config", str(cfg),
          "--device", "cpu", "serve"], cwd=tmp_path, capture_output=True,
         text=True, timeout=120, env=dict(os.environ, PYTHONPATH=REPO))
     assert res.returncode != 0
-    assert "tpu.mesh_shape={'tp': 2} is not ported yet" in res.stderr
+    assert ("tpu.compilation_cache_dir='/tmp/xla' is not ported yet"
+            in res.stderr)
 
 
 def test_serve_in_the_repository_root_names_the_remedy():

@@ -341,6 +341,27 @@ _BLOCKED_IMPORT_SCRIPT = textwrap.dedent("""
     for fn in ("install", "uninstall", "check", "report", "reset",
                "violations", "enabled_by_env"):
         assert callable(getattr(lockdep, fn)), fn
+    # The parallel layer (JAX's exports but XLA's compilation cache), the
+    # mesh config blocks, the mesh executor's follower side and the
+    # cluster bring-up of the entry points.
+    import llmq_tpu_torch.parallel as par
+    for fn in ("make_mesh", "single_device_mesh", "distributed_init",
+               "batch_sharding", "kv_cache_shardings",
+               "match_partition_rules", "param_shardings", "replicated",
+               "resolve_rules", "shard_params"):
+        assert callable(getattr(par, fn)), fn
+    assert len(par.LLAMA_PARTITION_RULES) == 8
+    assert not hasattr(par, "enable_compilation_cache")
+    from llmq_tpu_torch.core.config import Config, MeshConfig, TPUConfig
+    assert not Config().executor.mesh.enabled
+    assert Config().tpu.mesh_shape == {}
+    from llmq_tpu_torch.models.llama import TensorParallel
+    assert callable(TorchExecutor.follow)
+    assert callable(TorchExecutor.release_mesh)
+    from llmq_tpu_torch.engine.builder import build_executor, mesh_shape
+    from llmq_tpu_torch.__main__ import _maybe_join_cluster, cmd_follow
+    from llmq_tpu_torch.engine.kv_allocator import PageAllocator
+    assert PageAllocator(8, 16, dp_shards=2).available_by_shard() == [3, 4]
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", sys.argv[1] + "/chip_smoke.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
