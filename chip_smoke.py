@@ -430,7 +430,10 @@ shows where it happened):
                  error, graph replays against captures, the turns cut.
                  Afterwards chaos is disarmed and tenancy reset.
 
-19. serve-mesh — (run after serve-scenarios) the mesh executor. a. A
+19. serve-mesh — (runs last) the mesh executor. What earlier phases
+                 kept on the card (the serve phase's engine and weights)
+                 is dropped first: c. holds two whole llama3-8b ranks
+                 beside this process. a. A
                  ``python -m llmq_tpu_torch serve`` child with
                  ``LLMQ_COORDINATOR`` at world size 1 and
                  ``executor.mesh: {enabled: true, shape: {tp: 1}}``
@@ -453,7 +456,30 @@ shows where it happened):
                  every logit within 0.05 x max |logit| of the one-rank
                  forward's, and argmax equal on every row whose top-2
                  margin exceeds that bound; the launches of each rank
-                 are counted, its peak memory printed.
+                 are counted, its peak memory printed. c. ``executor.mesh:
+                 {dp: 2}`` over two gloo ranks on the one card, llama3-8b
+                 bf16 at full width and depth at the serve phase's
+                 geometry, speculation and the tiered KV plane on: rank 1
+                 is ``python -m llmq_tpu_torch serve`` (the CLI's
+                 follower), rank 0 the CLI's bring-up and the ``App`` that
+                 ``serve`` runs (MESH_DP_DRIVER), each with its graphs.
+                 Gates: 8 concurrent REST requests complete through
+                 kernels 1-3 on both ranks and no twin; every live row's
+                 pages in its replica's universe; with universe 0 held
+                 full a slot-0 row takes universe 1's pages (moved in as
+                 guests, the pages it writes home) and completes; on the
+                 executor itself a prompt in universe 1's pages decoded
+                 by slot 0 (guests) gives the stream of the same prompt
+                 in universe 0's pages, and that row's first-step logits
+                 (rank 0's eager forward on its pool) lie within 0.05 x
+                 max |logit| of one device's forward of the same weights
+                 over a pool of the prompt's pages; one verify window commits
+                 plain decode's tokens; a conversation demoted to the
+                 host tier is promoted bit-exact and its turn 2
+                 completes; two ``hbm_info`` entries. Printed beside the
+                 card: each rank's boot, the step ms at 4 rows against one
+                 device's at 8, the page moves' seconds and bytes, each
+                 rank's ``hbm_info``.
 
 With ``LLMQ_LOCKDEP=1`` the port's lockdep (``analysis/lockdep.py``) is
 installed after ``torch`` is imported and before the port's modules are;
@@ -474,6 +500,7 @@ table as JSON, the card's name and power limit, and
 from __future__ import annotations
 
 import contextlib
+import gc
 import itertools
 import json
 import os
@@ -5817,6 +5844,14 @@ for name in [n for n in dir(kernels) if n.endswith("_plain")]:
         return _fn(*a, **kw)
     setattr(kernels, name, counted)
 held = {}
+from llmq_tpu_torch.engine import executor as executor_mod
+follow = executor_mod.TorchExecutor.follow
+def holding_follow(self):
+    held["executor"] = self
+    held["follow_t"] = time.time()
+    return follow(self)
+executor_mod.TorchExecutor.follow = holding_follow
+marks = {}
 start = engine_mod.InferenceEngine.start
 def counting_start(self):
     if "engine" not in held:
@@ -5839,8 +5874,15 @@ def dump():
     eng = held.get("engine")
     rows = 0 if eng is None else sum(
         1 for s in eng._slots if s is not None and s.prefilled)
-    ex = None if eng is None else eng.executor
-    rec = {"t": time.time(), "pid": os.getpid(),
+    ex = held.get("executor") if eng is None else eng.executor
+    for name in ("start", "end"):
+        if name not in marks and os.path.exists(status_path + "." + name):
+            marks[name] = dict(kernels.LAUNCHES)
+    dp = getattr(ex, "_dp", None)
+    rec = {"t": time.time(), "pid": os.getpid(), "marks": marks,
+           "engine_held": eng is not None,
+           "follow_t": held.get("follow_t"),
+           "dp_moves": None if dp is None else dict(dp.moves),
            "launches": dict(kernels.LAUNCHES), "plain": dict(plain),
            "decoding": rows,
            "cuda_initialized": torch.cuda.is_initialized(),
@@ -10352,6 +10394,10 @@ def _mesh_child(work: str, mesh: bool) -> dict:
                 raise AssertionError(f"serve-mesh a: the child did not join "
                                      f"a {MESH_BACKEND} group: {joined}")
             out["joined"] = joined[-1]["msg"]
+        # The launch counters restart when the engine starts, which can
+        # come a moment after /health answers: count from there.
+        _until(lambda: (child.status() or {}).get("engine_held"), 60.0,
+               "the child's engine start", poll=0.05)
         before = child.status() or {}
         ids, walls = [], []
         for i, prompt in enumerate(MESH_PROMPTS):
@@ -10430,6 +10476,453 @@ def _mesh_ranks(work: str) -> list:
     return res
 
 
+#: serve-mesh c: the dp mesh (two gloo ranks on the one card), its
+#: prompts (8 concurrent REST requests), new tokens each, and the gates'
+#: shapes: the forced-fallback prompt, the tiered history's length, the
+#: logit bound against one device.
+MESH_DP = 2
+MESH_C_PROMPTS = tuple(
+    f"Replica {i % MESH_DP} of the dp mesh serves row {i}: "
+    + "every page of a row lies in its replica's universe. " * (1 + i % 4)
+    for i in range(8))
+MESH_C_NEW = 32
+MESH_C_FALLBACK = ("A row seated in replica zero whose pages all lie in "
+                   "universe one reads them as guests. " * 4)
+MESH_C_HISTORY = 320
+MESH_C_S = 900.0
+
+#: serve-mesh c's rank 0 (``python -c MESH_DP_DRIVER spec.json``, from
+#: the repository's root): the CLI's bring-up (``_load``, which joins the
+#: world) and the ``App`` that ``serve`` runs, over ``executor.mesh: {dp:
+#: 2}``; then REST traffic, and the forced fallback, first-step logits,
+#: the speculation window and the tiering round trip on a second engine
+#: over the same executor. Rank 1 is ``python -m llmq_tpu_torch serve``
+#: (the CLI's follower). Writes its record to ``spec["out"]``.
+MESH_DP_DRIVER = r"""
+import argparse, json, os, sys, threading, time, urllib.request
+spec = json.load(open(sys.argv[1]))
+sys.path.insert(0, os.getcwd())
+t_start = time.perf_counter()
+import numpy as np
+import torch
+from llmq_tpu_torch.ops import kernels
+plain = {}
+for name in [n for n in dir(kernels) if n.endswith("_plain")]:
+    def counted(*a, _name=name, _fn=getattr(kernels, name), **kw):
+        plain[_name] = plain.get(_name, 0) + 1
+        return _fn(*a, **kw)
+    setattr(kernels, name, counted)
+from llmq_tpu_torch import __main__ as cli
+from llmq_tpu_torch.engine.builder import build_engine
+from llmq_tpu_torch.engine.engine import GenRequest
+from llmq_tpu_torch.engine.tokenizer import get_tokenizer
+
+cfg = cli._load(argparse.Namespace(
+    config=spec["config"], host="127.0.0.1", port=spec["port"], model=None,
+    device=None, backend=None, log_format=None, peers=None))
+app = cli.App(cfg)
+port = app.start()
+eng, ex = app.engine, app.engine.executor
+dp = ex._dp
+res = {"boot_s": time.perf_counter() - t_start, "mesh": ex.mesh.shape,
+       "backend": ex.mesh.backend, "dp_shards": ex.dp_shards,
+       "rows": ex._rows, "pool_pages": int(ex.cache["k"].shape[1]),
+       "guests": dp.guests, "warmup_s": dict(ex.warmup_split),
+       "mesh_step_ms": ex.step_ms, "graphs": sum(len(getattr(ex, n)) for n
+                                                in ("step_graphs",
+                                                    "program_graphs",
+                                                    "verify_graphs"))}
+base = f"http://127.0.0.1:{port}"
+sync = lambda: torch.cuda.synchronize() if ex.device.type == "cuda" else None
+
+
+def http(method, url, body=None):
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def mark(name):
+    open(spec["mark"] + "." + name, "w").close()
+    time.sleep(0.3)
+
+
+# 1. Load: 8 concurrent REST requests; every live row's pages checked
+# against its slot's universe meanwhile.
+bad, sampled, stop = [], [0], threading.Event()
+
+
+def watch():
+    while not stop.is_set():
+        for slot, s in enumerate(list(eng._slots)):
+            if s is None or not s.pages:
+                continue
+            pages = list(s.pages)
+            sampled[0] += 1
+            if {eng.allocator.shard_of(p) for p in pages} != {
+                    eng._slot_shard(slot)}:
+                bad.append((slot, pages))
+        time.sleep(0.001)
+
+
+watcher = threading.Thread(target=watch, daemon=True)
+mark("start")
+kernels.reset_launches()
+def replays():
+    return (ex.graph_replays + ex.verify_replays
+            + sum(ex.program_replays.values()))
+
+
+replays0 = replays()
+watcher.start()
+walls, done = {}, {}
+
+
+def one(i, prompt):
+    t0 = time.perf_counter()
+    mid = http("POST", f"{base}/api/v1/messages",
+               {"id": f"dp-{i}", "content": prompt, "priority": "normal",
+                "timeout": 600.0,
+                "metadata": {"max_new_tokens": spec["new"]}})["message_id"]
+    while True:
+        m = http("GET", f"{base}/api/v1/messages/{mid}")
+        if m["status"] in ("completed", "failed", "timeout"):
+            break
+        time.sleep(0.01)
+    walls[i], done[i] = time.perf_counter() - t0, m["status"]
+
+
+t_load = time.perf_counter()
+threads = [threading.Thread(target=one, args=(i, p))
+           for i, p in enumerate(spec["prompts"])]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+res["load_s"] = time.perf_counter() - t_load
+stop.set()
+watcher.join()
+sync()
+mark("end")
+res["load"] = {"status": done, "walls_s": walls,
+               "launches": dict(kernels.LAUNCHES),
+               "replays": replays() - replays0, "plain": dict(plain),
+               "locality_samples": sampled[0], "locality_bad": bad[:8],
+               "spec": eng.get_stats().get("speculation", {})}
+eng.stop()
+
+# 2. A second engine over the same executor (speculation and tiering as
+# configured); the checks below drive it directly.
+e2 = build_engine(cfg, executor=ex, name="meshdp")
+alloc, tok = e2.allocator, get_tokenizer(cfg.model.tokenizer_path)
+B, MP, ps = ex.spec.batch_size, ex.spec.max_pages_per_seq, ex.spec.page_size
+
+
+def seat(rid, limit=2000):
+    for _ in range(limit):
+        for slot, s in enumerate(e2._slots):
+            if s is not None and s.req.id == rid and s.pages:
+                return slot, list(s.pages)
+        e2.step()
+    raise AssertionError(f"{rid} never seated")
+
+
+# Forced fallback: universe 0 held full, a slot-0 row takes universe 1.
+held = alloc.alloc(alloc.available(shard=0), shard=0)
+m0 = dict(dp.moves)
+h = e2.submit(GenRequest(id="fallback", prompt=spec["fallback"],
+                         max_new_tokens=16))
+slot, pages = seat("fallback")
+e2.run_until_idle()
+alloc.free(held)
+m1 = dict(dp.moves)
+res["fallback"] = {
+    "slot": slot, "slot_universe": e2._slot_shard(slot),
+    "page_universes": sorted({alloc.shard_of(p) for p in pages}),
+    "finish": h.result.finish_reason, "tokens": len(h.result.tokens),
+    "moves": {k: m1[k] - m0[k] for k in m1}}
+
+# The guest path against the home path on this executor: the prompt
+# prefilled into universe 1's pages (replica 1 runs it) and decoded by
+# slot 0 (replica 0, which reads them as guests), then the same prompt in
+# universe 0's pages. Both decode through the same programs on the same
+# values, so the streams are equal.
+ids = tok.encode(spec["fallback"])
+n, steps = len(ids), ex.chunk_size
+zeros = np.zeros(B, np.int32)
+budgets = zeros.copy()
+budgets[0] = steps
+streams, m0 = {}, dict(dp.moves)
+res["logits"] = None
+for u in (1, 0):
+    upages = alloc.alloc(-(-(n + steps) // ps), shard=u)
+    bt = np.zeros((B, MP), np.int32)
+    bt[0, :len(upages)] = upages
+    first = ex.prefill(ids, 0, bt[0], 0.0, 0)
+    toks, pos = zeros.copy(), zeros.copy()
+    toks[0], pos[0] = first, n
+    if u == 0 and ex.mesh.tp == 1:
+        # First-step logits of the home row, on this rank's pool (its
+        # universe), against one device's forward of the same weights
+        # over a pool of the prompt's own pages: the model's eager
+        # forwards (tp is 1: no collective), no second executor.
+        from llmq_tpu_torch.models.llama import init_kv_pages
+        dev = ex.device
+        t1 = lambda a: torch.as_tensor(np.asarray(a, np.int32),
+                                       device=dev)[None]
+        home = t1([dp.home_slot(p) for p in bt[0]])
+        mesh_lg = ex.model.forward_decode(t1([first])[0], t1([n])[0],
+                                          ex.cache, home)[0].float()
+        one = init_kv_pages(ex.model_cfg, 1 + len(upages), ps, dev)
+        obt = t1(np.arange(1, MP + 1) * (np.arange(MP) < len(upages)))
+        tpad = -(-n // 128) * 128     # padded to a bucket, as served
+        pf = ex.model.forward_prefill(t1(ids + [0] * (tpad - n)),
+                                      t1(np.arange(tpad)), t1([n])[0], one,
+                                      obt)
+        one_first = int(pf[0, n - 1].argmax())
+        one_lg = ex.model.forward_decode(t1([first])[0], t1([n])[0], one,
+                                         obt)[0].float()
+        res["logits"] = {
+            "first": [int(first), one_first],
+            "max_abs_err": float((mesh_lg - one_lg).abs().max()),
+            "max_abs_logit": float(one_lg.abs().max()),
+            "argmax": [int(mesh_lg.argmax()), int(one_lg.argmax())]}
+        del one, pf, mesh_lg, one_lg
+    out = ex.decode_chunk(toks, pos, bt, np.zeros(B, np.float32), budgets)
+    streams[u] = [int(first)] + out[0].tolist()
+    alloc.free(upages)
+m1 = dict(dp.moves)
+res["guest_vs_home"] = {"guest": streams[1], "home": streams[0],
+                        "equal": streams[1] == streams[0],
+                        "moves": {k: m1[k] - m0[k] for k in m1}}
+
+# Speculation: one verify window commits what plain decode gives.
+W = ex.verify_draft_k + 1
+rows = [alloc.alloc(8, shard=r * 2 // B) for r in range(B)]
+bts = np.zeros((B, MP), np.int32)
+for r, pg in enumerate(rows):
+    bts[r, :8] = pg
+prompts = [tok.encode(f"speculation row {r}: " + "verify " * (3 + r))
+           for r in range(B)]
+
+
+def prefill_all():
+    hs = []
+    for i in range(0, B, ex.prefill_batch):
+        hs += ex.prefill_multi_async([(prompts[r], 0, bts[r], 0.0) for r in
+                                      range(i, min(B, i + ex.prefill_batch))])
+    return np.array(ex.gather_scalars(hs), np.int32)
+
+
+first = prefill_all()
+pos = np.array([len(p) for p in prompts], np.int32)
+plainout = ex.decode_chunk(first, pos, bts, np.zeros(B, np.float32),
+                           np.full(B, W, np.int32))
+prefill_all()
+out, nc = ex.verify_chunk(first, pos, bts, np.zeros(B, np.float32),
+                          plainout[:, :W - 1], np.full(B, W, np.int32))
+for pg in rows:
+    alloc.free(pg)
+res["spec"] = {"W": W, "n_commit": nc.tolist(),
+               "equal": all(out[r, :k].tolist() == plainout[r, :k].tolist()
+                            for r in range(B)
+                            for k in [min(int(nc[r]), plainout.shape[1])]),
+               "eos_in_window": [int(ex.spec.eos_id in plainout[r, :W - 1])
+                                 for r in range(B)]}
+
+# Tiering: a conversation demoted to the host tier and promoted back.
+plane = e2._tiering
+hist = ("tiered history of the dp mesh " * 40)[:spec["history"]]
+h1 = e2.submit(GenRequest(id="tier1", prompt=hist, conversation_id="tier",
+                          max_new_tokens=8))
+e2.run_until_idle()
+kv = e2._conv_cache["tier"]
+t0 = time.perf_counter()
+snap = ex.export_kv_pages(list(kv.pages)).packed.numpy().copy()
+export_s = time.perf_counter() - t0
+imports = []
+orig_import = ex.import_kv_pages
+
+
+def spy(pages, leaves):
+    t0 = time.perf_counter()
+    payload = ex._full_pages(leaves).numpy().copy()
+    r = orig_import(pages, leaves)
+    back = ex.export_kv_pages(list(pages)).packed.numpy().copy()
+    imports.append((time.perf_counter() - t0, payload, back))
+    return r
+
+
+ex.import_kv_pages = spy
+e2.demote_conversation("tier")
+deadline = time.time() + 120
+while True:
+    with plane._mu:
+        e = plane._entries.get("tier")
+        if e is not None and e.ready.is_set() and e.tier == "host":
+            break
+    if time.time() > deadline:
+        raise AssertionError("the conversation never reached the host tier")
+    time.sleep(0.01)
+h2 = e2.submit(GenRequest(id="tier2", prompt=" and then", conversation_id="tier",
+                          max_new_tokens=8))
+e2.run_until_idle()
+ex.import_kv_pages = orig_import
+npg = snap.shape[0]
+res["tiering"] = {
+    "pages": npg, "bytes": int(snap.nbytes), "export_s": export_s,
+    "imports": len(imports),
+    "import_s": imports[0][0] if imports else None,
+    "payload_exact": bool(imports) and np.array_equal(imports[0][1][:npg],
+                                                       snap),
+    "pool_exact": bool(imports) and np.array_equal(imports[0][2][:npg], snap),
+    "turn2": h2.result.finish_reason, "cached": h2.result.cached_tokens,
+    "tier": h2.result.kv_tier, "hits": plane.stats()["hits"]}
+res["hbm"] = ex.hbm_info()
+res["moves"] = dict(dp.moves)
+res["plain_total"] = dict(plain)
+e2.stop()
+app.stop()
+res["wall_s"] = time.perf_counter() - t_start
+if ex.device.type == "cuda":
+    res["peak_reserved_gb"] = torch.cuda.max_memory_reserved() / 1e9
+with open(spec["out"], "w") as f:
+    json.dump(res, f, default=str)
+"""
+
+
+def _mesh_dp_config(work: str, shape: dict) -> str:
+    """serve-mesh c's config: llama3-8b bf16 at the serve phase's
+    geometry over ``executor.mesh`` of ``shape``, speculation and the
+    tiered KV plane on."""
+    import yaml
+
+    data = {"model": {"name": "llama3-8b", "max_seq_len": 2048},
+            "executor": {"max_decode_steps": 32,
+                         "mesh": {"enabled": True, "shape": shape},
+                         "speculation": {"enabled": True},
+                         "kv_tiering": {"enabled": True}}}
+    path = os.path.join(work, "mesh_dp.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(data, f, sort_keys=False)
+    return path
+
+
+def _mesh_dp(work: str, shape=None) -> dict:
+    """serve-mesh c: the followers (``serve`` children, ranks 1..) and
+    the driver (rank 0, MESH_DP_DRIVER) over a mesh of ``shape`` (default
+    ``{dp: MESH_DP}``: gloo ranks on one card; with ``tp`` > 1 an NCCL
+    world, a card a rank); the driver's record with rank 1's launches
+    over the REST load, its dp moves and every follower's exit."""
+    import signal as _signal
+    import subprocess as _sp
+
+    shape = shape or {"dp": MESH_DP}
+    world = 1
+    for n in shape.values():
+        world *= n
+    config = _mesh_dp_config(work, shape)
+    env = {k: v for k, v in os.environ.items() if k != "LLMQ_CONFIG"}
+    env.update(LLMQ_COORDINATOR=f"127.0.0.1:{_free_tcp_port()}",
+               LLMQ_NUM_PROCESSES=str(world), LLMQ_CLUSTER_TIMEOUT="600")
+    followers = [_Child(work, "serve", 6 + r, ["--config", config],
+                        dict(env, LLMQ_PROCESS_ID=str(r)))
+                 for r in range(1, world)]
+    follower = followers[0]
+    out_path = os.path.join(work, "mesh_dp.json")
+    spec = {"config": config, "port": _free_tcp_port(), "out": out_path,
+            "mark": follower.status_path, "prompts": list(MESH_C_PROMPTS),
+            "new": MESH_C_NEW, "fallback": MESH_C_FALLBACK,
+            "history": MESH_C_HISTORY}
+    path = os.path.join(work, "mesh_dp_spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    log_path = os.path.join(work, "mesh_dp_driver.log")
+    with open(log_path, "w") as logf:
+        driver = _sp.Popen([sys.executable, "-c", MESH_DP_DRIVER, path],
+                           cwd=os.path.dirname(os.path.abspath(__file__)),
+                           env=dict(env, LLMQ_PROCESS_ID="0"), stdout=logf,
+                           stderr=_sp.STDOUT)
+        try:
+            rc = driver.wait(MESH_C_S)
+        finally:
+            if driver.poll() is None:
+                driver.kill()
+                driver.wait()
+    rcs = []
+    for f in followers:
+        if not rc:
+            try:
+                # The driver's stop ends a follower's loop: it exits by
+                # itself.
+                f.p.wait(120.0)
+            except _sp.TimeoutExpired:
+                pass
+        try:
+            rcs.append(f.stop(_signal.SIGTERM, timeout=60.0 if not rc
+                              else 10.0))
+        except AssertionError as e:
+            rcs.append(f.p.poll())
+            if not rc:
+                raise
+            log(f"[serve-mesh] c. {e}")
+    frc = max(rcs, key=abs)
+    if rc:
+        with open(log_path) as f:
+            tail = "".join(f.readlines()[-40:])
+        raise AssertionError(f"serve-mesh c: the driver exited {rc}:\n{tail}"
+                             f"\nfollower:\n"
+                             + "\n".join(follower.lines()[-20:]))
+    with open(out_path) as f:
+        res = json.load(f)
+    st = follower.status() or {}
+    marks = st.get("marks", {})
+    res["world"] = world
+    res["follower"] = {
+        "rc": frc, "boot_s": (st["follow_t"] - follower.started
+                              if st.get("follow_t") else None),
+        "moves": st.get("dp_moves"),
+        "plain": st.get("plain"),
+        "launches": {k: marks.get("end", {}).get(k, 0)
+                     - marks.get("start", {}).get(k, 0)
+                     for k in marks.get("end", {})}}
+    return res
+
+
+def _cuda_holders(limit: int = 4, depth: int = 8) -> dict:
+    """A diagnostic of what keeps this process's device memory: the bytes
+    of the CUDA tensors the garbage collector can reach, and for the
+    largest ``limit`` of them the chain of their first referrers (type,
+    and a dict's first keys), ``depth`` links up."""
+    import types
+
+    import torch
+
+    found = [o for o in gc.get_objects()
+             if isinstance(o, torch.Tensor) and o.is_cuda]
+    found.sort(key=lambda t: -t.untyped_storage().nbytes())
+    skip = {id(found)}
+    out = {"tensors_gb": sum(t.untyped_storage().nbytes()
+                             for t in found) / 1e9, "chains": []}
+    for t in found[:limit]:
+        chain, cur, refs = [], t, None
+        for _ in range(depth):
+            refs = [r for r in gc.get_referrers(cur)
+                    if id(r) not in skip and r is not chain
+                    and r is not refs and not isinstance(r, types.FrameType)]
+            if not refs:
+                break
+            cur = refs[0]
+            skip.add(id(cur))
+            chain.append(type(cur).__name__ + (
+                str(list(cur)[:6]) if isinstance(cur, dict) else ""))
+        out["chains"].append([f"{tuple(t.shape)} {t.dtype}"] + chain)
+    del found
+    return out
+
+
 def phase_serve_mesh(state) -> None:
     """The mesh executor on the card (see the module docstring, 19)."""
     import torch
@@ -10439,7 +10932,22 @@ def phase_serve_mesh(state) -> None:
     os.makedirs(work, exist_ok=True)
     out = state.setdefault("serve_mesh", {})
     t0 = time.perf_counter()
+    engine = state.pop("serve_engine", None)
+    if engine is not None:
+        engine.executor.release_graphs()
+    del engine
+    state.pop("serve_params", None)
+    gc.collect()
     torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    out["parent_gb"] = torch.cuda.memory_allocated() / 1e9
+    out["parent_reserved_gb"] = torch.cuda.memory_reserved() / 1e9
+    log(f"[serve-mesh] this process holds {out['parent_gb']:.2f} GB "
+        f"({out['parent_reserved_gb']:.2f} GB reserved); "
+        f"{free / 1e9:.2f} of {total / 1e9:.2f} GB free ({CARD})")
+    if out["parent_gb"] > 1.0:
+        out["parent_holders"] = _cuda_holders()
+        log(f"[serve-mesh] what holds it: {out['parent_holders']}")
     a_mesh = _mesh_child(work, mesh=True)
     a_off = _mesh_child(work, mesh=False)
     out["a"] = {"tp1": a_mesh, "off": a_off}
@@ -10500,13 +11008,94 @@ def phase_serve_mesh(state) -> None:
             if r["launches"].get(k, 0) <= 0:
                 raise AssertionError(f"serve-mesh b: rank {r['rank']} did "
                                      f"not launch {k}: {r['launches']}")
+    t_c = time.perf_counter()
+    c = _mesh_dp(work)
+    # One device's step at 8 rows, the serve phase's (this call's card).
+    c["ref_step_ms"] = (state.get("serve") or {}).get("executor_step_ms")
+    out["c"] = c
+    _mesh_dp_gates(c)
+    out["c_s"] = time.perf_counter() - t_c
     for name, rec in state["kernels"].items():
         rec["mesh_launches"] = {
             "a_tp1": a_mesh["launches"].get(name, 0),
             **{f"b_rank{r['rank']}": r["launches"].get(name, 0)
-               for r in ranks}}
+               for r in ranks},
+            "c_rank0": c["load"]["launches"].get(name, 0),
+            "c_rank1": c["follower"]["launches"].get(name, 0)}
     out["phase_s"] = time.perf_counter() - t0
-    log(f"[serve-mesh] {out['phase_s']:.1f} s ({CARD})")
+    log(f"[serve-mesh] c. {out['c_s']:.1f} s; the phase {out['phase_s']:.1f}"
+        f" s ({CARD})")
+
+
+def _mesh_dp_gates(c: dict) -> None:
+    """serve-mesh c's report and gates (see the module docstring, 19)."""
+    load, fol = c["load"], c["follower"]
+    path_kernels = ("fused_decode", "kv_prefill_write", "prefill_attention")
+    log(f"[serve-mesh] c. mesh {c['mesh']} over {c['backend']}, dp_shards "
+        f"{c['dp_shards']}, {c['rows']} rows and {c['pool_pages']} local "
+        f"pages ({c['guests']} guests) a replica, {c['graphs']} graphs on "
+        f"rank 0; boot rank 0 {c['boot_s']:.1f} s (warmup {c['warmup_s']}), "
+        f"rank 1 {fol['boot_s']} s; step ms at {c['rows']} rows "
+        f"{c['mesh_step_ms']} against one device at 8 rows "
+        f"{c['ref_step_ms']} ({CARD})")
+    log(f"[serve-mesh] c. load: 8 concurrent REST requests in "
+        f"{c['load_s']:.2f} s, {load['status']}, walls "
+        f"{ {k: round(v, 3) for k, v in load['walls_s'].items()} } s; "
+        f"replays {load['replays']}; launches rank 0 "
+        f"{ {k: load['launches'].get(k, 0) for k in path_kernels} }, rank 1 "
+        f"{ {k: fol['launches'].get(k, 0) for k in path_kernels} }; "
+        f"locality samples {load['locality_samples']}, off-universe "
+        f"{load['locality_bad']}; speculation {load['spec']} ({CARD})")
+    log(f"[serve-mesh] c. fallback {c['fallback']}; guest vs home "
+        f"{c['guest_vs_home']}; first-step logits against one device "
+        f"{c['logits']}; speculation {c['spec']}; tiering {c['tiering']}; "
+        f"dp moves rank 0 {c['moves']}, rank 1 {fol['moves']}; follower "
+        f"exit {fol['rc']} ({CARD})")
+    for chip in c["hbm"]:
+        log(f"[serve-mesh] c. hbm {chip} ({CARD})")
+    log(f"[serve-mesh] c. rank 0 peak reserved "
+        f"{c.get('peak_reserved_gb')} GB ({CARD})")
+    if set(load["status"].values()) != {"completed"} or \
+            len(load["status"]) != len(MESH_C_PROMPTS):
+        raise AssertionError(f"serve-mesh c: load {load['status']}")
+    if load["plain"] or fol["plain"] or c["plain_total"]:
+        raise AssertionError(f"serve-mesh c: twins called {load['plain']} "
+                             f"{fol['plain']} {c['plain_total']}")
+    for k in path_kernels:
+        if load["launches"].get(k, 0) <= 0 or fol["launches"].get(k, 0) <= 0:
+            raise AssertionError(f"serve-mesh c: {k} launched "
+                                 f"{load['launches'].get(k, 0)} / "
+                                 f"{fol['launches'].get(k, 0)} times")
+    if c["dp_shards"] != c["mesh"].get("dp") or load["replays"] <= 0:
+        raise AssertionError(f"serve-mesh c: dp_shards {c['dp_shards']}, "
+                             f"replays {load['replays']}")
+    if load["locality_bad"] or load["locality_samples"] <= 0:
+        raise AssertionError(f"serve-mesh c: rows off their universe "
+                             f"{load['locality_bad']} "
+                             f"({load['locality_samples']} samples)")
+    fb = c["fallback"]
+    if (fb["slot_universe"], fb["page_universes"]) != (0, [1]) or \
+            fb["finish"] not in ("eos", "length") or \
+            fb["moves"]["pages_in"] <= 0 or fb["moves"]["pages_out"] <= 0:
+        raise AssertionError(f"serve-mesh c: fallback {fb}")
+    gh = c["guest_vs_home"]
+    if not gh["equal"] or gh["moves"]["pages_in"] <= 0:
+        raise AssertionError(f"serve-mesh c: guest vs home {gh}")
+    lg = c["logits"]
+    if c["mesh"].get("tp", 1) == 1 and (
+            lg is None or lg["max_abs_err"] > MESH_BOUND * lg["max_abs_logit"]):
+        raise AssertionError(f"serve-mesh c: first-step logits {lg}")
+    sp = c["spec"]
+    if not sp["equal"] or any(n != sp["W"] and not e for n, e in zip(
+            sp["n_commit"], sp["eos_in_window"])):
+        raise AssertionError(f"serve-mesh c: speculation {sp}")
+    tr = c["tiering"]
+    if not (tr["imports"] == 1 and tr["payload_exact"] and tr["pool_exact"]
+            and tr["turn2"] in ("eos", "length") and tr["tier"] == "host"):
+        raise AssertionError(f"serve-mesh c: tiering {tr}")
+    if len(c["hbm"]) != c["world"] or fol["rc"] != 0:
+        raise AssertionError(f"serve-mesh c: hbm entries {len(c['hbm'])}, "
+                             f"follower exit {fol['rc']}")
 
 
 PHASES = [("env", phase_env), ("build", phase_build),
@@ -10516,14 +11105,14 @@ PHASES = [("env", phase_env), ("build", phase_build),
           ("serve-tiering", phase_serve_tiering),
           ("serve-disagg", phase_serve_disagg),
           ("serve-scenarios", phase_serve_scenarios),
-          ("serve-mesh", phase_serve_mesh),
           ("serve-tenancy", phase_serve_tenancy),
           ("serve-weights", phase_serve_weights),
           ("serve-plane", phase_serve_plane),
           ("serve-control", phase_serve_control),
           ("serve-cluster", phase_serve_cluster),
           ("serve-split", phase_serve_split),
-          ("serve-int8", phase_serve_int8)]
+          ("serve-int8", phase_serve_int8),
+          ("serve-mesh", phase_serve_mesh)]
 
 
 def main(argv=()) -> int:

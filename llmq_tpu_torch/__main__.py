@@ -75,7 +75,9 @@ Multi-process bring-up (JAX's ``_maybe_join_cluster``): with
 ``LLMQ_PROCESS_ID`` set (all three, or the command refuses to start), every
 entry point joins the ``torch.distributed`` world before any backend
 work: NCCL on ``cuda`` (this rank's card, ``cuda:{rank % device_count}``),
-gloo under ``--device cpu``; ``LLMQ_CLUSTER_TIMEOUT`` (seconds, default
+gloo under ``--device cpu`` and on ``cuda`` for a mesh whose ``tp`` is 1
+(a ``dp`` mesh moves only host traffic between its ranks, and gloo lets
+its ranks share one card); ``LLMQ_CLUSTER_TIMEOUT`` (seconds, default
 300) bounds the rendezvous and a follower's wait. With a mesh configured
 (``executor.mesh`` or ``tpu.mesh_shape``) rank 0 runs the command and
 drives; a rank above 0 of ``serve``, ``queue-manager``, ``check`` or
@@ -627,7 +629,8 @@ def _maybe_join_cluster(cfg: Config) -> None:
     variables before any backend work (``llmq_tpu/__main__.py``'s
     ``_maybe_join_cluster``). A partial set refuses to start; a broken
     rendezvous raises (``distributed_init`` propagates it). On ``cuda``
-    the rank takes ``cuda:{rank % device_count}``."""
+    the rank takes ``cuda:{rank % device_count}``, and a mesh of several
+    ranks whose ``tp`` is 1 joins over gloo."""
     coordinator = os.environ.get("LLMQ_COORDINATOR")
     if not coordinator:
         return
@@ -640,26 +643,45 @@ def _maybe_join_cluster(cfg: Config) -> None:
     from llmq_tpu_torch.parallel.mesh import (DEFAULT_TIMEOUT_S,
                                               distributed_init)
 
+    from llmq_tpu_torch.engine.builder import mesh_shape
+
     rank = int(os.environ["LLMQ_PROCESS_ID"])
+    world = int(os.environ["LLMQ_NUM_PROCESSES"])
     if torch.device(cfg.device).type == "cuda" and torch.cuda.is_available():
         if torch.device(cfg.device).index is None:
             cfg.device = f"cuda:{rank % torch.cuda.device_count()}"
+    shape = mesh_shape(cfg) or {}
+    others = 1
+    for ax, n in shape.items():
+        if ax != "tp" and n > 0:
+            others *= n
+    tp = shape.get("tp", 1)
+    if tp == -1:
+        tp = world // max(1, others)
     distributed_init(
         coordinator=coordinator,
-        num_processes=int(os.environ["LLMQ_NUM_PROCESSES"]),
+        num_processes=world,
         process_id=rank,
         initialization_timeout=float(os.environ.get(
             "LLMQ_CLUSTER_TIMEOUT", DEFAULT_TIMEOUT_S)),
-        device=cfg.device)
+        device=cfg.device,
+        backend="gloo" if shape and tp == 1 and world > 1 else None)
     # Registered after the executor's hooks would be, so it runs last.
     atexit.register(_leave_cluster)
 
 
 def _leave_cluster() -> None:
+    """Leave the world at exit. An NCCL world of several ranks is left to
+    the process's exit: its ``destroy_process_group`` waits on the peers'
+    communicators and can hang there (seen on four cards with dp=2 ×
+    tp=2)."""
     import torch.distributed as dist
 
-    if dist.is_available() and dist.is_initialized():
-        dist.destroy_process_group()
+    if not (dist.is_available() and dist.is_initialized()):
+        return
+    if dist.get_backend() == "nccl" and dist.get_world_size() > 1:
+        return
+    dist.destroy_process_group()
 
 
 def _mesh_follower(cfg: Config) -> bool:

@@ -19,8 +19,9 @@ the byte tokenizer. With ``executor.mesh`` enabled (or, when that block
 is off, the legacy ``tpu.mesh_shape``) the engine serves over a rank mesh
 (``parallel/``): the builder makes the mesh over the world this process
 joined (``LLMQ_COORDINATOR``) and the executor takes this rank's shard
-(it turns ragged attention off with JAX's warning; speculation, the
-tiered KV plane and ``dp > 1`` are refused, ``refuse_on_mesh``); a follower rank builds only the
+(it turns ragged attention off with JAX's warning; a ``dp`` axis splits
+the batch and the pool into replicas, and speculation and the tiered KV
+plane run on it as on one device); a follower rank builds only the
 executor (:func:`build_executor`) and follows rank 0's. The
 build stamps its boot stages (``weights``, and with ``warmup`` the
 ``artifact``, ``compile`` and ``warmup`` stages) onto this process's boot
@@ -38,8 +39,7 @@ import torch
 from llmq_tpu_torch.core.config import Config, resolve_device
 from llmq_tpu_torch.core.types import Priority
 from llmq_tpu_torch.engine.engine import InferenceEngine
-from llmq_tpu_torch.engine.executor import (EchoExecutor, TorchExecutor,
-                                            refuse_on_mesh)
+from llmq_tpu_torch.engine.executor import EchoExecutor, TorchExecutor
 from llmq_tpu_torch.engine.tokenizer import get_tokenizer
 from llmq_tpu_torch.models.checkpoint import import_hf_llama, load_checkpoint
 from llmq_tpu_torch.models.llama import (LlamaConfig, Params, get_config,
@@ -95,10 +95,6 @@ def build_engine(cfg: Config, *, name: str = "engine0",
             cfg, name=name, params=params, device=device,
             model_dtype=model_dtype, n_layers=n_layers)
     else:
-        if executor.mesh is not None:
-            refuse_on_mesh(executor.mesh.shape,
-                           speculation=ex.speculation.enabled,
-                           tiering=ex.kv_tiering.enabled)
         tokenizer = get_tokenizer(cfg.model.tokenizer_path)
         mcfg, t0 = executor.model_cfg, time.perf_counter()
     boot_id = _cp.current_boot_id()
@@ -211,9 +207,6 @@ def _build_torch(cfg: Config, *, name: str, params, device: Optional[str],
     mesh = None
     shape = mesh_shape(cfg)
     if shape:
-        # Before make_mesh, whose rank count a dp axis would fail first.
-        refuse_on_mesh(shape, speculation=spec.enabled,
-                       tiering=tier.enabled)
         from llmq_tpu_torch.parallel import make_mesh
         mesh = make_mesh(shape)
     t0 = time.perf_counter()
@@ -226,6 +219,10 @@ def _build_torch(cfg: Config, *, name: str, params, device: Optional[str],
         params = init(mcfg, gen, dev)
     if quant == "int8":
         params = quantize_params(params)      # idempotent
+    if dev.type == "cuda":
+        # The draw's and the load's transients go back to the card, which
+        # the other ranks of a mesh may share.
+        torch.cuda.empty_cache()
     if boot_id is not None:
         # The load, random init (or the given tree) and quantization; on
         # the card the stage ends when the queued work has run.

@@ -109,10 +109,53 @@ collective fails on the closed peer, and a driver whose call failed
 broadcasts an abort that makes its followers leave. The driver sends a
 heartbeat while idle and a stop at :meth:`TorchExecutor.release_mesh`; a
 follower whose driver is gone raises out of its loop within the mesh's
-timeout. On the card the mesh
-group must be NCCL (its collectives are captured in the CUDA graphs);
-``dp > 1``, speculation and the tiered KV plane on a mesh are refused;
-ragged attention is turned off, as in JAX.
+timeout. On the card a ``tp > 1`` group
+must be NCCL (its collectives are captured in the CUDA graphs); at ``tp``
+1 there is no collective, so a gloo world of several ranks may share one
+card. Ragged attention is turned off, as in JAX.
+
+A ``dp`` axis that divides both the batch and the pool (JAX's
+``dp_shards`` rule; otherwise dp degrades to replication with JAX's
+warning) splits them into replicas (``parallel/dp.py``). Replica d runs
+rows ``[d·B/dp, (d+1)·B/dp)`` on programs captured at B/dp rows over a
+pool of its universe's P/dp pages, its own null slot and its guest slots;
+every rank slices its rows out of the broadcast full-batch arguments and
+translates their block tables to local slots before a launch (a host
+map: no kernel changes). The two design answers of the port:
+
+- *The null page per universe.* The allocator stays JAX's (page 0
+  reserved in universe 0 only). Every replica's local slot 0 is its null
+  page, and page 0 maps there on every rank, so inactive rows, unused
+  wave rows and padding write there as they write page 0 on one device.
+- *Cross-universe pages are served.* Before a program every rank plans,
+  from the same descriptor, the pages outside its universe that its rows
+  and prefills touch; their home replicas send them into its guest
+  slots, shard to shard over the gloo dp group, and after the program
+  every guest page it can write goes home, so the home copy is always
+  current (a row writes from its position on, a prefill over its range;
+  a shared prefix before them stays read only). The guest region holds
+  the most foreign pages one program can touch, so nothing JAX serves is
+  refused (``hbm_info`` states it).
+
+Each prefill (a wave's member, a ``prefill_async`` chunk, a mixed
+chunk's slice) runs on the replica whose universe holds the page of its
+first written position: its slot's universe unless the allocator fell
+back, and then no page needs to move. A decode join whose prefill ran on
+another replica has the token moved to it first. Every other replica's
+first tp rank sends its rows' results (tokens, ``n_commit``, first
+tokens) to the driver after each program, from a thread that waits for
+the program's copy while the rank dispatches on; a receiver thread on
+the driver files them and the driver's handles join them in the engine's
+order (a replica that ran nothing for a call sends nothing); the K-step
+carry stays on each replica's device. A blocking chunk's and a verify
+window's early exit is decided on the flags of every replica (a max over
+the dp group), so every rank's host logic takes the same turns.
+
+The tiered KV plane's transport runs on any mesh with JAX's full page
+(every KV head, :meth:`TorchExecutor.kv_page_spec`): an export is
+mirrored, the ranks of each page's home replica send their head shards
+to the driver, which assembles the pages; an import sends each of those
+ranks its slice of the payload.
 
 :class:`EchoExecutor` (JAX's, for ``executor.backend: echo``) echoes the
 prompt on the host with numpy, no model and no tensor, through the same
@@ -144,6 +187,7 @@ from llmq_tpu_torch.ops import kernels
 from llmq_tpu_torch.ops.attention import RAGGED_Q_BLOCK
 from llmq_tpu_torch.ops.quant import is_quantized, param_count, params_bytes
 from llmq_tpu_torch.ops.sampling import sample_token, sample_token_keyed
+from llmq_tpu_torch.parallel.dp import leaf_views, page_bytes
 
 log = logging.getLogger("llmq_tpu_torch.executor")
 
@@ -329,7 +373,8 @@ class ChunkHandle:
     (CUDA events on the card, the dispatch's host wall on the CPU)."""
 
     __slots__ = ("tok", "pos", "frozen", "steps", "_host", "_shape",
-                 "_start", "_done", "_host_ms", "_note", "_value", "mid")
+                 "_start", "_done", "_host_ms", "_note", "_value", "mid",
+                 "_merge", "__weakref__")
 
     def __init__(self, tok, pos, frozen, host, shape, steps, start, done,
                  host_ms, note) -> None:
@@ -346,16 +391,26 @@ class ChunkHandle:
         self._value: Optional[np.ndarray] = None
         #: Its number on a mesh (the same on every rank), else None.
         self.mid: Optional[int] = None
+        #: On a dp mesh's driver: ``(ready, merge)``, whether the other
+        #: replicas' rows have arrived and the function that joins them
+        #: with this replica's values (:meth:`TorchExecutor._dp_merge`).
+        self._merge = None
 
     def ready(self) -> bool:
-        return self._done is None or self._done.query()
+        if self._value is not None:
+            return True
+        return ((self._done is None or self._done.query())
+                and (self._merge is None or self._merge[0]()))
 
     def wait_ready(self) -> None:
         """Wait on this chunk's own completion event, recorded behind the
-        copy of its tokens to host memory (no stream-wide wait); at once
-        on the CPU."""
+        copy of its tokens to host memory (no stream-wide wait), and on a
+        dp mesh's driver for the other replicas' rows; at once on the
+        CPU."""
         if self._done is not None:
             self._done.synchronize()
+        if self._merge is not None:
+            self._wait()
 
     def _wait(self) -> np.ndarray:
         if self._value is None:
@@ -364,7 +419,10 @@ class ChunkHandle:
                 self._done.synchronize()
                 ms = (self._start.elapsed_time(self._done) / self.steps
                       if self.steps else None)
-            self._value = self._host.numpy()
+            value = self._host.numpy()
+            if self._merge is not None:
+                value = self._merge[1](value)
+            self._value = value
             self._note(ms)
         return self._value
 
@@ -507,15 +565,39 @@ class PrefillHandle:
     join reads it) and of that slot's host copy, until fetched, then
     ``value``."""
 
-    __slots__ = ("slot", "row", "value", "copy", "mid")
+    __slots__ = ("slot", "row", "value", "copy", "mid", "replica")
 
-    def __init__(self, slot: int, row: int, copy: _HostCopy) -> None:
+    def __init__(self, slot: int, row: int, copy,
+                 replica: int = 0) -> None:
         self.slot = slot
         self.row = row
         self.copy = copy
         self.value: Optional[int] = None
         #: Its number on a mesh (the same on every rank), else None.
         self.mid: Optional[int] = None
+        #: The dp replica whose program sampled it (0 without dp); on
+        #: the other replicas the handle holds no ring row.
+        self.replica = replica
+
+
+class _DpCopy:
+    """Another replica's prefill tokens of one call, on a dp mesh's
+    driver: ``read(row)`` waits for that replica's results
+    (:meth:`~llmq_tpu_torch.parallel.dp.DpPlane.take`) once for every
+    handle of the call. On a follower it is never read: a replica that
+    needs another's token has it moved (``TorchExecutor._dp_tokens``)."""
+
+    __slots__ = ("_take", "_replica", "_values")
+
+    def __init__(self, take, replica: int) -> None:
+        self._take = take
+        self._replica = replica
+        self._values = None
+
+    def read(self, row: int) -> int:
+        if self._values is None:
+            self._values = self._take()[self._replica]
+        return int(self._values[row])
 
 
 class _Ref:
@@ -558,6 +640,9 @@ class _MeshRelay:
         self.next_mid = 0
         self.handles: "OrderedDict[int, object]" = OrderedDict()
         self.stopped = False
+        #: Called after the driver's stop went out: the dp results
+        #: receiver's wait for its followers' last messages.
+        self.on_release: Optional[Callable[[], None]] = None
         self.sent_at = time.monotonic()
         self._beat: Optional[threading.Thread] = None
         #: The mesh's timeout (``LLMQ_CLUSTER_TIMEOUT``): an idle driver
@@ -582,6 +667,8 @@ class _MeshRelay:
                     self.send(("stop",))
                 except Exception:  # noqa: BLE001 — the group is gone
                     log.exception("mesh stop failed")
+            if self.on_release is not None:
+                self.on_release()
 
     def send(self, msg) -> None:
         import torch.distributed as dist
@@ -690,23 +777,6 @@ def _mirrored(fn):
     return call
 
 
-def refuse_on_mesh(shape: Dict[str, int], *, speculation: bool = False,
-                   tiering: bool = False) -> None:
-    """Raise, naming the remedy, for what a mesh of ``shape`` does not
-    serve yet: ``dp > 1`` on the device, speculation, the tiered KV
-    plane."""
-    if int(shape.get("dp", 1)) > 1:
-        raise ValueError(
-            f"executor.mesh {shape}: dp > 1 on the device is not ported "
-            f"yet (ROADMAP.md A11's next step: a page universe per dp "
-            f"rank); serve dp as replicas (cluster.peers) meanwhile")
-    for on, block in ((speculation, "speculation"), (tiering, "kv_tiering")):
-        if on:
-            raise ValueError(f"executor.{block} on a mesh is not ported "
-                             f"yet (ROADMAP.md A11's next step); set "
-                             f"executor.{block}.enabled false")
-
-
 class TorchExecutor:
     """Serves ``model_cfg`` with ``params`` (the JAX tree layout, see
     ``models/llama.py``, already on ``device``) on ``device``. One prefill program per length
@@ -738,10 +808,12 @@ class TorchExecutor:
         self.model_cfg = model_cfg
         #: The rank mesh this executor serves over (None: one device).
         self.mesh = mesh
-        #: dp page universes of the pool: 1 (``dp > 1`` on the device is
-        #: refused below).
+        #: dp page universes of the pool (``JaxExecutor.dp_shards``): the
+        #: mesh's dp where it divides both the batch and the pool, else 1.
         self.dp_shards = 1
         self._relay: Optional[_MeshRelay] = None
+        #: This replica's plane of the dp universes (None without them).
+        self._dp = None
         kv_heads = None
         tp = None
         if mesh is not None:
@@ -750,8 +822,15 @@ class TorchExecutor:
                             "is configured; keeping the bucket path (the "
                             "ragged kernel is single-chip)")
                 ragged_attention = False
-            params, tp, kv_heads = self._shard(model_cfg, params, mesh,
-                                               speculation_draft_k)
+            params, tp, kv_heads = self._shard(model_cfg, params, mesh)
+            if mesh.dp > 1:
+                if num_pages % mesh.dp == 0 and batch_size % mesh.dp == 0:
+                    self.dp_shards = mesh.dp
+                else:
+                    log.warning(
+                        "mesh dp=%d does not divide num_pages=%d / "
+                        "batch_size=%d; dp degrades to replication",
+                        mesh.dp, num_pages, batch_size)
             self._relay = _MeshRelay(mesh)
         self.model = Llama(model_cfg, params, tp=tp)
         self.spec = ExecutorSpec(batch_size, page_size, num_pages,
@@ -786,9 +865,34 @@ class TorchExecutor:
             self.mixed_slice_tokens = cap
             need = cap + S * (RAGGED_Q_BLOCK - 1)
             self.ragged_buffer = -(-need // RAGGED_Q_BLOCK) * RAGGED_Q_BLOCK
-        self.cache = init_kv_pages(model_cfg, num_pages, page_size,
+        #: This replica's rows (B/dp on a dp mesh, else B): the size of
+        #: every program's batch.
+        self._rows = batch_size
+        local_pages = num_pages
+        if self.dp_shards > 1:
+            from llmq_tpu_torch.parallel.dp import DpPlane
+
+            rows = batch_size // self.dp_shards
+            self._dp = DpPlane(
+                mesh, num_pages, batch_size, self.spec.max_pages_per_seq,
+                guest_rows=max(rows + self.mixed_prefill_slices,
+                               self.prefill_batch))
+            self._rows = rows
+            local_pages = self._dp.local_pages
+            #: Per row, a position at or before the one its next program
+            #: writes first (0: unknown), alike on every rank: the pages
+            #: before it are a read-only prefix that need not go home.
+            self._dp_floor = np.zeros(batch_size, np.int64)
+            self._relay.on_release = self._dp.close
+        self.cache = init_kv_pages(model_cfg, local_pages, page_size,
                                    self.device, dtype=cache_dtype,
                                    kv_heads=kv_heads)
+        #: The pool's KV-head shards (1 unless tp splits whole heads): a
+        #: transported page holds every head.
+        self._kv_shards = model_cfg.n_kv_heads // (kv_heads
+                                                    or model_cfg.n_kv_heads)
+        #: The driver's full-page payload of a mesh import in progress.
+        self._import_stage: Optional[torch.Tensor] = None
         #: Device telemetry (observability/device.py), shared by name with
         #: the engine built over this executor: graph captures land here
         #: as compiles, warmup as progress, the RTT floor after warmup.
@@ -825,7 +929,7 @@ class TorchExecutor:
         #: when the hashed libraries already exist): the "compile" boot
         #: stage, inside ``warmup_split["warmup"]``.
         self.compile_s = 0.0
-        B, MP, K = batch_size, self.spec.max_pages_per_seq, self.chunk_size
+        B, MP, K = self._rows, self.spec.max_pages_per_seq, self.chunk_size
 
         def zeros(shape, dtype):
             return torch.zeros(shape, dtype=dtype, device=self.device)
@@ -851,7 +955,10 @@ class TorchExecutor:
                 drafts=torch.full((B, W), -1, dtype=torch.int32,
                                   device=self.device),
                 out=zeros((B, W), torch.int32), ncommit=zeros(B, torch.int32),
-                rows=torch.arange(B, dtype=torch.int64, device=self.device))
+                # The global rows: a replica keys its draws as one
+                # device keys those rows.
+                rows=torch.arange(B, dtype=torch.int64, device=self.device)
+                + (self._dp.row0 if self._dp is not None else 0))
         else:
             # The off-switch: no verify program, and the engine sees no
             # verify entry point at all.
@@ -945,27 +1052,33 @@ class TorchExecutor:
             return torch.cuda.get_device_name(self.device)
         return self.device.type
 
-    def _shard(self, cfg: LlamaConfig, params, mesh, draft_k: int):
+    def _shard(self, cfg: LlamaConfig, params, mesh):
         """This rank's shard of ``params`` under the partition rules, its
         :class:`~llmq_tpu_torch.models.llama.TensorParallel`, and the KV
-        heads its pool holds. Refuses what a mesh does not serve yet."""
+        heads its pool holds. Refuses a mesh it cannot serve over: one of
+        several ranks without its world, and on the card one without a
+        process group or whose ``tp > 1`` group is not NCCL."""
         from llmq_tpu_torch.parallel.sharding import (kv_cache_shardings,
                                                       param_shardings,
                                                       shard_params,
                                                       tensor_parallel)
 
-        refuse_on_mesh(mesh.shape, speculation=bool(draft_k))
         if self.device.type == "cuda" and mesh.group is None:
             raise ValueError(
                 "a CUDA executor's mesh needs its NCCL process group: join "
                 "the world first (parallel.distributed_init, or the "
                 "LLMQ_COORDINATOR variables)")
-        if (self.device.type == "cuda" and mesh.group is not None
+        if (self.device.type == "cuda" and mesh.tp > 1
                 and mesh.backend != "nccl"):
             raise ValueError(
-                f"a CUDA executor's mesh group must be NCCL (got "
+                f"a CUDA executor's tp group must be NCCL (got "
                 f"{mesh.backend}): its collectives are captured in the "
                 f"CUDA graphs; join with device cuda")
+        if mesh.size > 1 and mesh.control is None:
+            raise ValueError(
+                f"a mesh of {mesh.size} ranks needs its world: join it "
+                f"first (parallel.distributed_init, or the "
+                f"LLMQ_COORDINATOR variables)")
         quantized = is_quantized(params["layers"]["wq"])
         shardings = param_shardings(cfg, mesh, quantized=quantized,
                                     params=params)
@@ -995,6 +1108,8 @@ class TorchExecutor:
             if kind == "stop":
                 log.info("rank %d: the driver released the mesh",
                          self.mesh.rank)
+                if self._dp is not None:
+                    self._dp.bye()
                 return
             if kind == "ping":
                 continue
@@ -1054,16 +1169,26 @@ class TorchExecutor:
         """This rank's entry of :meth:`hbm_info`."""
         chip = (self.mesh.rank if self.mesh is not None
                 else self.device.index or 0)
+        pool = sum(t.numel() * t.element_size() for t in self.cache.values())
+        guests = 0
+        if self._dp is not None:
+            # The universe is this rank's share of the pool; the null and
+            # guest slots are stated apart.
+            per_page = pool // self._dp.local_pages
+            guests = per_page * (1 + self._dp.guests)
+            pool = per_page * self._dp.per
         entry = {"chip": str(chip),
                  "kind": self._device_kind(),
                  "weights_bytes": params_bytes(self.model.params),
-                 "kv_pool_bytes": sum(t.numel() * t.element_size()
-                                      for t in self.cache.values()),
+                 "kv_pool_bytes": pool,
                  "graph_pool_bytes": sum(
                      g.pool_bytes for g in list(self.step_graphs.values())
                      + list(self.program_graphs.values())
                      + list(self.verify_graphs.values())),
                  "free_bytes": None, "limit_bytes": None}
+        if self._dp is not None:
+            entry["guest_pages"] = self._dp.guests
+            entry["guest_pool_bytes"] = guests
         if self.device.type == "cuda":
             free, total = torch.cuda.mem_get_info(self.device)
             entry["free_bytes"] = int(free)
@@ -1095,10 +1220,20 @@ class TorchExecutor:
         one fetch of the last chunk's token."""
         if not len(tokens):
             return self.spec.eos_id
+        if self._dp is not None:
+            return self._dp_prefill(list(tokens), start_pos, block_table,
+                                    temperature)
         if self.ragged_attention:
             h = self._ragged_prefill_start(
                 [(tokens, start_pos, block_table, temperature)])[0]
             return int(self.gather_scalars([h])[0])
+        return int(self.gather_scalars([self._prefill_chunks(
+            tokens, start_pos, block_table, temperature)])[0])
+
+    def _prefill_chunks(self, tokens, start_pos: int, block_table,
+                        temperature: float) -> PrefillHandle:
+        """A prompt through the one-row programs in chunks of the largest
+        bucket; the handle of the last chunk's token."""
         pos, h = start_pos, None
         largest = self.prefill_buckets[-1]
         for o in range(0, len(tokens), largest):
@@ -1106,7 +1241,7 @@ class TorchExecutor:
             h = self._prefill_wave([(chunk, pos, block_table, temperature)],
                                    rows=1)[0]
             pos += len(chunk)
-        return int(self.gather_scalars([h])[0])
+        return h
 
     @_mirrored
     def prefill_async(self, tokens: List[int], start_pos: int,
@@ -1121,6 +1256,8 @@ class TorchExecutor:
         if len(tokens) > self.prefill_buckets[-1]:
             raise MeshArgumentError("prefill_async takes one bucket-sized "
                                     "chunk")
+        if self._dp is not None:
+            return self._dp_prefill_wave([req], rows=1)[0]
         return self._prefill_wave([req], rows=1)[0]
 
     @_mirrored
@@ -1140,6 +1277,8 @@ class TorchExecutor:
         if any(not 0 < len(r[0]) <= self.prefill_buckets[-1] for r in reqs):
             raise MeshArgumentError("a wave's chunk is empty or exceeds "
                                     "the largest bucket")
+        if self._dp is not None:
+            return self._dp_prefill_wave(reqs, rows=self.prefill_batch)
         return self._prefill_wave(reqs, rows=self.prefill_batch)
 
     def gather_scalars(self, handles: List[PrefillHandle]) -> np.ndarray:
@@ -1158,9 +1297,18 @@ class TorchExecutor:
                block_tables: np.ndarray,
                temperatures: np.ndarray) -> np.ndarray:
         """One step for every row: the decode step with a budget of 1."""
+        if self._dp is not None:
+            return self._dp_rows("decode", tokens, positions, block_tables,
+                                 temperatures,
+                                 np.ones(self.spec.batch_size, np.int32))
+        return self._decode_one(tokens, positions, block_tables,
+                                temperatures)
+
+    def _decode_one(self, tokens, positions, block_tables,
+                    temperatures) -> np.ndarray:
         t0 = time.perf_counter()
         self._fill(tokens, positions, block_tables, temperatures,
-                   np.ones(self.spec.batch_size, np.int32))
+                   np.ones(self._rows, np.int32))
         self._run_step(eager=False)
         out = self._out()[:, 0]
         self._time_steps(t0, 1)
@@ -1176,6 +1324,9 @@ class TorchExecutor:
         pause is this chunk's only; a paused row keeps its last real
         token; the loop ends once every row is latched or out of budget.
         On the card each step is one replay of the captured step."""
+        if self._dp is not None:
+            return self._dp_rows("decode_chunk", tokens, positions,
+                                 block_tables, temperatures, budgets)
         return self._decode_chunk(tokens, positions, block_tables,
                                   temperatures, budgets, eager=False)
 
@@ -1197,12 +1348,23 @@ class TorchExecutor:
         visits the host); the slot's position and latch are overridden
         too, so a join may land on a lane whose previous owner finished.
         Block tables, temperatures and budgets come from the host."""
+        if self._dp is not None:
+            return self._dp_rows("decode_chunk_start", tokens, positions,
+                                 block_tables, temperatures, budgets,
+                                 carry=carry, overrides=overrides)
+        return self._chunk_start(tokens, positions, block_tables,
+                                 temperatures, budgets, carry, overrides)
+
+    def _chunk_start(self, tokens, positions, block_tables, temperatures,
+                     budgets, carry=None, overrides=None,
+                     steps: Optional[int] = None) -> ChunkHandle:
         t0 = time.perf_counter()
         self._fill(tokens, positions, block_tables, temperatures, budgets,
                    carry=carry)
         self._join(overrides or ())
         start = self._event(timing=True)
-        steps = self._chunk_steps(budgets)
+        if steps is None:
+            steps = self._chunk_steps(budgets)
         for _ in range(steps):
             self._run_step(eager=False)
         return self._handle(ChunkHandle, steps, t0, start)
@@ -1242,13 +1404,16 @@ class TorchExecutor:
 
     @torch.inference_mode()
     def _decode_chunk(self, tokens, positions, block_tables, temperatures,
-                      budgets, *, eager: bool) -> np.ndarray:
+                      budgets, *, eager: bool,
+                      steps: Optional[int] = None) -> np.ndarray:
         """:meth:`decode_chunk`; ``eager`` runs the step body instead of
-        replaying its graph (warmup before capture, and comparisons)."""
+        replaying its graph (warmup before capture, and comparisons).
+        ``steps``: the loop's bound (default the budgets')."""
         t0 = time.perf_counter()
         self._fill(tokens, positions, block_tables, temperatures, budgets)
-        ran = self._decode_steps(self._chunk_steps(budgets),
-                                 lambda: self._run_step(eager))
+        ran = self._decode_steps(
+            self._chunk_steps(budgets) if steps is None else steps,
+            lambda: self._run_step(eager))
         result = self._out()
         self._time_steps(t0, ran)
         return result
@@ -1264,6 +1429,9 @@ class TorchExecutor:
         decode steps with no exit test. A fresh dispatch: no row starts
         latched. ``fetch()`` returns ``(out, pf_first)`` in one
         transfer."""
+        if self._dp is not None:
+            return self._dp_mixed_start(tokens, positions, block_tables,
+                                        temperatures, budgets, pf)
         return self._mixed_chunk_start(tokens, positions, block_tables,
                                        temperatures, budgets, pf,
                                        eager=False)
@@ -1287,6 +1455,9 @@ class TorchExecutor:
         Returns ``(out (B, K), pf_first (len(pf),))``; ``pf_first[i]``
         is sampled at slice i's last token, the first generated token
         when the slice ends its prompt."""
+        if self._dp is not None:
+            return self._dp_mixed_start(tokens, positions, block_tables,
+                                        temperatures, budgets, pf).fetch()
         return self._mixed_chunk(tokens, positions, block_tables,
                                  temperatures, budgets, pf, eager=False)
 
@@ -1298,10 +1469,9 @@ class TorchExecutor:
                                        temperatures, budgets, pf,
                                        eager=eager).fetch()
 
-    @torch.inference_mode()
-    def _mixed_chunk_start(self, tokens, positions, block_tables,
-                           temperatures, budgets, pf: List, *,
-                           eager: bool) -> MixedChunkHandle:
+    def _check_slices(self, pf: List) -> None:
+        """Refuse a mixed chunk's slices that its geometry cannot take
+        (before any device work)."""
         if self.mixed_prefill_slices <= 0:
             raise MeshArgumentError("mixed batching disabled for this "
                                     "executor")
@@ -1309,20 +1479,33 @@ class TorchExecutor:
         if not 0 < len(pf) <= S:
             raise MeshArgumentError(f"{len(pf)} slices for a geometry of "
                                     f"{S}")
-        reqs = [(list(t), sp, bt, temp) for _slot, t, sp, bt, temp in pf]
+        lens = [len(t) for _slot, t, _sp, _bt, _temp in pf]
         if self.ragged_attention:
-            if sum(len(r[0]) for r in reqs) > T:
+            if sum(lens) > T:
                 raise MeshArgumentError(f"ragged pack exceeds the capacity "
                                         f"{T}")
-        elif any(not 0 < len(r[0]) <= T for r in reqs):
+        elif any(not 0 < n <= T for n in lens):
             raise MeshArgumentError(f"a slice is empty or wider than {T}")
+
+    @torch.inference_mode()
+    def _mixed_chunk_start(self, tokens, positions, block_tables,
+                           temperatures, budgets, pf: List, *,
+                           eager: bool, steps: Optional[int] = None
+                           ) -> MixedChunkHandle:
+        """The mixed chunk; ``steps`` (a dp replica's: the global bound,
+        its slices already checked and possibly none) else the budgets'
+        bound after the slices' checks."""
+        if steps is None:
+            self._check_slices(pf)
+            steps = self._chunk_steps(budgets)
+        reqs = [(list(t), sp, bt, temp) for _slot, t, sp, bt, temp in pf]
         t0 = time.perf_counter()
         name, p = self._step0_program()
         self._fill(tokens, positions, block_tables, temperatures, budgets)
         self._stage_step0(p, reqs)
         start = self._event(timing=True)
         first = self._launch(name, p, self._step0_body, eager)
-        steps = max(1, self._chunk_steps(budgets))
+        steps = max(1, steps)
         for _ in range(1, steps):
             self._run_step(eager)
         return self._handle(MixedChunkHandle, steps, t0, start,
@@ -1330,6 +1513,7 @@ class TorchExecutor:
 
     # -- speculation: the verify window --------------------------------------
 
+    @_mirrored
     @torch.inference_mode()
     def verify_chunk_start(self, tokens, positions, block_tables: np.ndarray,
                            temperatures: np.ndarray, drafts: np.ndarray,
@@ -1346,7 +1530,13 @@ class TorchExecutor:
         step's graph, step ``j - 1``'s exit flag read once step ``j`` is
         queued), so a window that every row rejects at step 0 costs two
         steps and the call returns once the last step is queued; host
-        accept queues the whole window (one replay) without a wait."""
+        accept queues the whole window (one replay) without a wait.
+        On a dp mesh each replica verifies its rows; the driver's handle
+        joins every row's tokens and ``n_commit``."""
+        if self._dp is not None:
+            return self._dp_rows("verify_chunk_start", tokens, positions,
+                                 block_tables, temperatures, qlens,
+                                 drafts=drafts)
         return self._verify_start(tokens, positions, block_tables,
                                   temperatures, drafts, qlens, eager=False)
 
@@ -1359,10 +1549,12 @@ class TorchExecutor:
 
     @torch.inference_mode()
     def _verify_start(self, tokens, positions, block_tables, temperatures,
-                      drafts, qlens, *, eager: bool) -> VerifyHandle:
+                      drafts, qlens, *, eager: bool,
+                      steps: Optional[int] = None) -> VerifyHandle:
         """:meth:`verify_chunk_start`; ``eager`` runs the bodies instead
         of replaying their graphs (warmup before capture, and
-        comparisons)."""
+        comparisons); ``steps`` bounds a device-accept window (default
+        its rows' largest)."""
         if not self.verify_draft_k:
             raise RuntimeError("speculation disabled for this executor")
         t0 = time.perf_counter()
@@ -1384,7 +1576,8 @@ class TorchExecutor:
         v.ncommit.zero_()
         start = self._event(timing=True)
         if self._spec_device_sampling:
-            steps = min(W, int(qlens.max()) if len(qlens) else 0)
+            if steps is None:
+                steps = min(W, int(qlens.max()) if len(qlens) else 0)
             ran = self._decode_steps(steps, lambda: self._run_verify(eager))
             dev = torch.cat([v.out.view(-1), v.ncommit])
             extra = {}
@@ -1513,7 +1706,7 @@ class TorchExecutor:
             kernels.build()
             self.compile_s = time.perf_counter() - t_start
         graphs_before = self._n_graphs()
-        B, MP, K = (self.spec.batch_size, self.spec.max_pages_per_seq,
+        B, MP, K = (self._rows, self.spec.max_pages_per_seq,
                     self.chunk_size)
         bt = np.zeros(MP, np.int32)
         zeros = np.zeros(B, np.int32)
@@ -1599,6 +1792,10 @@ class TorchExecutor:
             "capture": capture_s,
             "warmup": time.perf_counter() - t_start - capture_s}
         captured = self._n_graphs() - graphs_before
+        if self.device.type == "cuda":
+            # The eager runs' transients leave the allocator's cache (the
+            # graphs keep their own pools): ranks may share the card.
+            torch.cuda.empty_cache()
         self._telemetry.note_warmup(captured, captured)
         self._telemetry.note_warmup_complete(sum(self.warmup_split.values()))
         try:
@@ -1809,8 +2006,12 @@ class TorchExecutor:
             run()
             self._flag(j)
             ran += 1
-            if j > 0 and not self._left_after(j - 1):
-                break
+            if j > 0:
+                left = self._left_after(j - 1)
+                if self._dp is not None:
+                    left = self._dp.any(left)
+                if not left:
+                    break
         return ran
 
     # -- prefill programs and the mixed step 0 --------------------------------
@@ -2057,6 +2258,283 @@ class TorchExecutor:
     def resume(self, slot: int, tokens: List[int], start_pos: int) -> None:
         pass
 
+    # -- dp replicas (parallel/dp.py) ----------------------------------------
+
+    def _dp_local(self, a):
+        """This replica's rows of a full-batch host array (None stays)."""
+        if a is None:
+            return None
+        r0 = self._dp.row0
+        return np.asarray(a)[r0:r0 + self._rows]
+
+    def _dp_assign(self, reqs: List) -> List[int]:
+        """The replica each prefill request ``(tokens, start_pos,
+        block_table, temperature)`` runs on: the universe of the page its
+        first position is written to (replica 0 for the null page)."""
+        ps, dp = self.spec.page_size, self._dp
+        out = []
+        for _t, sp, bt, _temp in reqs:
+            bt = np.asarray(bt).ravel()
+            page = int(bt[min(int(sp) // ps, len(bt) - 1)])
+            out.append(dp.universe(page) if page else 0)
+        return out
+
+    def _dp_writes(self, block_tables, live, reqs: List = ()) -> set:
+        """The pages a program can write: a ``live`` row's from the page
+        of its position floor on, a prefill request's over its written
+        range. Only these of its guests go home after it."""
+        ps, out = self.spec.page_size, set()
+        if block_tables is not None:
+            bt = np.asarray(block_tables)
+            for r in np.nonzero(np.asarray(live))[0]:
+                first = int(self._dp_floor[r]) // ps
+                out.update(int(p) for p in bt[r, first:])
+        for t, sp, rbt, _temp in reqs:
+            rbt = np.asarray(rbt).ravel()
+            out.update(int(p) for p in rbt[int(sp) // ps:
+                                           -(-(int(sp) + len(t)) // ps)])
+        out.discard(0)
+        return out
+
+    def _dp_floor_update(self, positions, live, overrides=None) -> None:
+        """The rows' position floors at a row program: the host's
+        positions when given (a carried chunk's continuing rows keep
+        theirs: positions only grow), a join's own, 0 for a row that is
+        not live (its next occupant is unknown)."""
+        f = self._dp_floor
+        if positions is not None:
+            f[:] = np.asarray(positions)
+        f[~np.asarray(live)] = 0
+        for slot, _h, pos in overrides or ():
+            f[slot] = int(pos)
+
+    def _dp_plan(self, block_tables, live, reqs: List = (),
+                 assign: List[int] = ()) -> List[Dict[int, int]]:
+        """Plan a program's guests (the ``live`` rows' tables on their
+        replicas, each request's table on its replica) and pull them."""
+        dp = self._dp
+        tables: List[List] = [[] for _ in range(dp.dp)]
+        if block_tables is not None:
+            bt = np.asarray(block_tables)
+            for row in np.nonzero(np.asarray(live))[0]:
+                tables[dp.replica_of_row(row)].append(bt[row])
+        for (_t, _sp, rbt, _temp), a in zip(reqs, assign):
+            tables[a].append(rbt)
+        plan = dp.plan(tables)
+        dp.pull(self.cache, plan)
+        return plan
+
+    def _dp_tokens(self, overrides) -> List:
+        """The decode joins of this replica's rows, in local rows; a join
+        whose prefill ran on another replica has the token moved here
+        first (every rank makes the same moves)."""
+        dp, out = self._dp, []
+        for slot, h, pos in overrides:
+            d = dp.replica_of_row(slot)
+            if h.replica != d:
+                v = dp.move_token(
+                    lambda h=h: (h.value if h.value is not None
+                                 else h.copy.read(h.row)),
+                    src=h.replica, dst=d)
+                if v is not None:
+                    h.value = v
+            if d == dp.d:
+                out.append((slot - dp.row0, h, pos))
+        return out
+
+    def _dp_rows(self, kind: str, tokens, positions, block_tables,
+                 temperatures, budgets, carry=None, overrides=None,
+                 drafts=None):
+        """A row program on a dp mesh (``kind``: the entry point):
+        guests in, this replica's rows through the one-device body at
+        the global step bound, guests home, results to the driver."""
+        dp = self._dp
+        B = self.spec.batch_size
+        budgets = np.asarray(budgets, np.int32)
+        d = None
+        if kind == "verify_chunk_start":
+            W = self.verify_draft_k + 1
+            d = np.asarray(drafts, np.int32).reshape(B, -1)
+            if d.shape[1] > W - 1:
+                raise MeshArgumentError(f"{d.shape[1]} drafts a row for a "
+                                        f"window of {W}")
+        bt = np.asarray(block_tables)
+        self._dp_floor_update(positions, budgets > 0, overrides)
+        plan = self._dp_plan(bt, budgets > 0)
+        ovr = self._dp_tokens(overrides) if overrides else None
+        loc = self._dp_local
+        args = (loc(tokens), loc(positions),
+                dp.translate(loc(bt), plan[dp.d]), loc(temperatures),
+                loc(budgets))
+        steps = self._chunk_steps(budgets)
+        if kind == "decode":
+            out = self._decode_one(*args[:4])
+        elif kind == "decode_chunk":
+            out = self._decode_chunk(*args, eager=False, steps=steps)
+        elif kind == "decode_chunk_start":
+            out = self._chunk_start(*args, carry=carry, overrides=ovr,
+                                    steps=steps)
+        else:
+            vsteps = (min(W, int(budgets.max()) if B else 0)
+                      if self._spec_device_sampling else None)
+            out = self._verify_start(*args[:4], loc(d), args[4],
+                                     eager=False, steps=vsteps)
+        dp.push(self.cache, plan, self._dp_writes(bt, budgets > 0))
+        extra = None
+        if kind == "verify_chunk_start":
+            if self._spec_device_sampling:
+                R = self._rows
+                extra = [list(range(e * R, (e + 1) * R))
+                         for e in range(dp.dp)]
+            elif self.mesh.is_driver:
+                # Host accept: the driver's handle computes n_commit over
+                # every row.
+                out._drafts, out._qlens = d, budgets
+        return self._dp_finish(out, extra)
+
+    def _dp_mixed_start(self, tokens, positions, block_tables, temperatures,
+                        budgets, pf: List) -> MixedChunkHandle:
+        """A mixed chunk on a dp mesh: each replica runs its decode rows
+        and the slices assigned to it (:meth:`_dp_assign`, possibly
+        none); the driver's handle returns the slices' first tokens in
+        ``pf``'s order."""
+        self._check_slices(pf)
+        dp = self._dp
+        reqs = [(t, sp, pbt, temp) for _s, t, sp, pbt, temp in pf]
+        assign = self._dp_assign(reqs)
+        budgets = np.asarray(budgets, np.int32)
+        bt = np.asarray(block_tables)
+        self._dp_floor_update(positions, budgets > 0)
+        plan = self._dp_plan(bt, budgets > 0, reqs, assign)
+        mine = [(slot, t, sp, dp.translate(pbt, plan[dp.d]), temp)
+                for (slot, t, sp, pbt, temp), a in zip(pf, assign)
+                if a == dp.d]
+        loc = self._dp_local
+        h = self._mixed_chunk_start(
+            loc(tokens), loc(positions), dp.translate(loc(bt), plan[dp.d]),
+            loc(temperatures), loc(budgets), mine, eager=False,
+            steps=self._chunk_steps(budgets))
+        dp.push(self.cache, plan, self._dp_writes(bt, budgets > 0, reqs))
+        return self._dp_finish(h, [[i for i, a in enumerate(assign) if a == e]
+                                   for e in range(dp.dp)])
+
+    def _dp_prefill_wave(self, reqs: List, rows: int) -> List[PrefillHandle]:
+        """A prefill wave (or one chunk) on a dp mesh: each replica runs
+        its requests in its ``rows``-row program; one handle per request
+        on every rank, the other replicas' as placeholders (on the driver
+        they read the replica's results)."""
+        dp = self._dp
+        assign = self._dp_assign(reqs)
+        plan = self._dp_plan(None, (), reqs, assign)
+        mine = [(t, sp, dp.translate(bt, plan[dp.d]), temp)
+                for (t, sp, bt, temp), a in zip(reqs, assign) if a == dp.d]
+        local = self._prefill_wave(mine, rows=rows) if mine else []
+        for h in local:
+            h.replica = dp.d
+        dp.push(self.cache, plan, self._dp_writes(None, (), reqs))
+        seq = dp.next_seq()
+        if dp.publisher and local:
+            dp.publish(seq, lambda: np.array([h.copy.read(h.row)
+                                              for h in local], np.int64))
+        take = None
+        if self.mesh.is_driver:
+            take = self._dp_taker(seq, sorted(set(assign) - {0}))
+        out, mine_it, count = [], iter(local), [0] * dp.dp
+        for a in assign:
+            if a == dp.d:
+                out.append(next(mine_it))
+                continue
+            out.append(PrefillHandle(-1, count[a], _DpCopy(take, a)
+                                     if take is not None else None,
+                                     replica=a))
+            count[a] += 1
+        return out
+
+    def _dp_prefill(self, tokens, start_pos: int, block_table,
+                    temperature: float) -> int:
+        """The blocking prefill on a dp mesh: the request's replica runs
+        it; the driver returns its token."""
+        dp = self._dp
+        req = (tokens, start_pos, block_table, temperature)
+        (e,) = self._dp_assign([req])
+        plan = self._dp_plan(None, (), [req], [e])
+        value = -1
+        if e == dp.d:
+            value = int(self.gather_scalars([self._prefill_chunks(
+                tokens, start_pos, dp.translate(block_table, plan[dp.d]),
+                temperature)])[0])
+        dp.push(self.cache, plan, self._dp_writes(None, (), [req]))
+        seq = dp.next_seq()
+        if dp.publisher and e == dp.d:
+            dp.publish(seq, np.array([value], np.int64))
+        if self.mesh.is_driver and e != dp.d:
+            return int(dp.take(seq, [e])[e][0])
+        return value
+
+    def _dp_taker(self, seq: int, replicas: List[int]):
+        """A function that takes call ``seq``'s results from ``replicas``
+        once (dropped with the call's handles, it discards them)."""
+        box: Dict[str, Dict] = {}
+        dp = self._dp
+
+        def take() -> Dict:
+            if "v" not in box:
+                box["v"] = dp.take(seq, replicas)
+            return box["v"]
+        if replicas:
+            dp.expect(seq, replicas, take)
+        return take
+
+    def _dp_finish(self, out, extra: Optional[List[List[int]]] = None):
+        """Close a row program on a dp mesh: a publisher sends its rows'
+        results (a handle's once its copy ran, or a blocking call's
+        array); the driver's result joins them with its own
+        (:meth:`_dp_merge`): a handle at its fetch, an array now.
+        ``extra``: per replica, the global indices of the values that
+        follow its rows' tokens (the slices' first tokens, or
+        ``n_commit``)."""
+        dp = self._dp
+        seq = dp.next_seq()
+        B = self.spec.batch_size
+        driver = self.mesh.is_driver
+        if isinstance(out, ChunkHandle):
+            if dp.publisher:
+                def rows(out=out):
+                    out.wait_ready()
+                    return out._host.numpy().copy()
+                dp.publish(seq, rows)
+            if driver:
+                X = out._shape[1]
+                out._shape = (B, X)
+                out._merge = (functools.partial(dp.ready, seq),
+                              functools.partial(self._dp_merge, seq, X,
+                                                extra))
+                dp.expect(seq, range(1, dp.dp), out)
+            return out
+        local = np.asarray(out)
+        if dp.publisher:
+            dp.publish(seq, local.copy())
+        if not driver:
+            return local
+        X = int(np.prod(local.shape[1:])) if local.ndim > 1 else 1
+        return self._dp_merge(seq, X, None, local.reshape(-1)).reshape(
+            (B,) + local.shape[1:]).astype(local.dtype)
+
+    def _dp_merge(self, seq: int, X: int, extra, local) -> np.ndarray:
+        """Every replica's flat results of call ``seq`` as one device's:
+        the rows' ``X`` values each in row order, then the ``extra``
+        values at their global indices."""
+        dp, R = self._dp, self._rows
+        parts = {e: np.asarray(v).reshape(-1) for e, v in
+                 {0: local, **dp.take(seq)}.items()}
+        outs = [parts[e][:R * X] for e in range(dp.dp)]
+        if not extra:
+            return np.concatenate(outs)
+        vals = np.zeros(sum(len(i) for i in extra), outs[0].dtype)
+        for e in range(dp.dp):
+            vals[extra[e]] = parts[e][R * X:]
+        return np.concatenate(outs + [vals])
+
     # -- tiered KV page transport (tiering/) ---------------------------------
 
     def _kv_leaves(self) -> List[str]:
@@ -2069,13 +2547,56 @@ class TorchExecutor:
         """Per-leaf payload ``(shape, dtype name)`` of ONE page, the page
         axis (1) removed, leaves in :meth:`_kv_leaves` order: the tiering
         plane's codec keys off it (the scale pools of an int8 cache ride
-        as ordinary leaves)."""
+        as ordinary leaves). On a mesh too it is JAX's full page, every
+        KV head, so the host tier, the store blob and the exchange keep
+        one format."""
+        return [(shape, str(dt).replace("torch.", ""))
+                for _name, dt, shape, _axis in self._page_leaves()]
+
+    def _page_leaves(self):
+        """``(name, dtype, one page's full shape, its head axis)`` per
+        leaf in :meth:`_kv_leaves` order: ``(L, page_size, H_kv·D)`` with
+        the heads on axis 2, scales ``(L, H_kv, page_size)`` on axis 1."""
         out = []
         for name in self._kv_leaves():
             t = self.cache[name]
-            out.append(((int(t.shape[0]),) + tuple(int(d)
-                                                   for d in t.shape[2:]),
-                        str(t.dtype).replace("torch.", "")))
+            shape = [int(t.shape[0])] + [int(d) for d in t.shape[2:]]
+            axis = 1 if name.endswith("_scale") else 2
+            shape[axis] *= self._kv_shards
+            out.append((name, t.dtype, tuple(shape), axis))
+        return out
+
+    def _full_page_bytes(self) -> int:
+        return sum(int(np.prod(shape)) * torch.empty((), dtype=dt
+                                                     ).element_size()
+                   for _n, dt, shape, _a in self._page_leaves())
+
+    def _page_views(self, packed: torch.Tensor, shard: Optional[int] = None):
+        """Per leaf, the ``(N, L, ...)`` view of a page-major uint8
+        buffer of full pages, or with ``shard`` the view of head shard
+        ``shard`` inside it."""
+        n, offs, out = packed.shape[0], 0, []
+        for _name, dt, shape, axis in self._page_leaves():
+            per = int(np.prod(shape)) * torch.empty((), dtype=dt
+                                                    ).element_size()
+            v = packed[:, offs:offs + per].view(dt).view((n,) + shape)
+            if shard is not None:
+                w = shape[axis] // self._kv_shards
+                v = v.narrow(axis + 1, shard * w, w)
+            out.append(v)
+            offs += per
+        return out
+
+    def _home_slot(self, page: int) -> int:
+        return self._dp.home_slot(page) if self._dp is not None else page
+
+    def _homes(self, pages: List[int]) -> Dict[int, List[int]]:
+        """Replica → the indices of ``pages`` in its universe (without dp
+        universes every page is replica 0's, and every replica's)."""
+        out: Dict[int, List[int]] = {}
+        for i, p in enumerate(pages):
+            e = self._dp.universe(p) if self._dp is not None else 0
+            out.setdefault(e, []).append(i)
         return out
 
     def _page_index(self, pages: List[int]) -> torch.Tensor:
@@ -2086,27 +2607,6 @@ class TorchExecutor:
             return idx.pin_memory().to(self.device, non_blocking=True)
         return idx
 
-    def _leaf_views(self, packed: torch.Tensor):
-        """``(name, pool, view)`` per leaf: the leaf's ``(N, L, ...)``
-        slice of a page-major ``(N, page bytes)`` uint8 buffer (page j's
-        bytes are its leaves' ``[:, page]`` slices in leaf order, the
-        store blob's page layout)."""
-        n = packed.shape[0]
-        offs = 0
-        for name in self._kv_leaves():
-            pool = self.cache[name]
-            rest = tuple(pool.shape[2:])
-            per = pool.shape[0] * int(np.prod(rest)) * pool.element_size()
-            view = packed[:, offs:offs + per].view(pool.dtype).view(
-                (n, pool.shape[0]) + rest)
-            yield name, pool, view
-            offs += per
-
-    def _no_mesh(self, what: str) -> None:
-        if self.mesh is not None:
-            raise RuntimeError(f"{what} on a mesh is not ported yet "
-                               f"(ROADMAP.md A11's next step)")
-
     def export_kv_pages(self, pages: List[int]) -> "ExportedPages":
         """Gather ``pages``' payloads out of the pool, without a host
         wait: queued on the current stream (the one the programs replay
@@ -2115,18 +2615,19 @@ class TorchExecutor:
         the page-major buffer (``packed``, what the tiering worker copies
         to host memory after ``event``) and, as a list, each leaf's
         ``(L, N, ...)`` view of it (the JAX package's per-leaf gathers).
-        Engine thread only."""
-        self._no_mesh("the tiered KV plane")
+        On a mesh of several ranks see :meth:`_mesh_export`. Engine
+        thread only."""
+        if self.mesh is not None and self.mesh.size > 1:
+            return self._mesh_export(list(pages))
         n = len(pages)
-        nbytes = sum(p.element_size() * p[:, 0].numel()
-                     for p in self.cache.values())
+        nbytes = page_bytes(self.cache)
         start = self._event(timing=True)
         idx = self._page_index(pages)
         packed = torch.empty((n, nbytes), dtype=torch.uint8,
                              device=self.device)
         leaves = []
         with torch.inference_mode():
-            for _name, pool, view in self._leaf_views(packed):
+            for _name, pool, view in leaf_views(self.cache, packed):
                 view.copy_(pool.index_select(1, idx).transpose(0, 1))
                 leaves.append(view.transpose(0, 1))
         event = self._event(timing=True)
@@ -2146,8 +2647,15 @@ class TorchExecutor:
         the scatter, so a later program reads the injected pages. Returns
         the event behind those copies (the fence before the host buffers
         may be reused), or None when nothing reads host memory
-        asynchronously. Engine thread only."""
-        self._no_mesh("the tiered KV plane")
+        asynchronously. On a mesh of several ranks see
+        :meth:`_mesh_import`. Engine thread only."""
+        if self.mesh is not None and self.mesh.size > 1:
+            self._import_stage = self._full_pages(leaves)
+            try:
+                self._mesh_import(list(pages))
+            finally:
+                self._import_stage = None
+            return None
         idx = self._page_index(pages)
         done = None
         with torch.inference_mode():
@@ -2175,7 +2683,7 @@ class TorchExecutor:
                     stage = (torch.stack(host) if host else
                              torch.empty((0, 0), dtype=torch.uint8))
                 i0 = self._event(timing=True)
-                for _name, pool, view in self._leaf_views(stage):
+                for _name, pool, view in leaf_views(self.cache, stage):
                     pool.index_copy_(1, idx, view.transpose(0, 1))
             else:
                 i0 = self._event(timing=True)
@@ -2187,6 +2695,102 @@ class TorchExecutor:
                 self.kv_last_transfer["inject"] = (
                     i0, self._event(timing=True), 0)
         return done
+
+
+    @_mirrored
+    def _mesh_export(self, pages: List[int]) -> Optional["ExportedPages"]:
+        """:meth:`export_kv_pages` on a mesh (mirrored): the ranks of each
+        page's home replica gather their head shards and send them to the
+        driver over the control group; the driver assembles JAX's full
+        pages in host memory (``packed`` on the CPU, no event). A
+        follower returns None."""
+        import torch.distributed as dist
+
+        from llmq_tpu_torch.parallel.dp import gather
+
+        mesh = self.mesh
+        me, driver = mesh.ranks[mesh.rank], mesh.ranks[0]
+        full = self._full_page_bytes()
+        packed = (torch.zeros((len(pages), full), dtype=torch.uint8)
+                  if me == driver else None)
+        for e, idx in sorted(self._homes(pages).items()):
+            slots = [self._home_slot(pages[i]) for i in idx]
+            for t in range(self._kv_shards):
+                src = mesh.rank_of(dp=e, tp=t)
+                if src == me:
+                    buf = gather(self.cache, slots)
+                    if me != driver:
+                        dist.send(buf, dst=driver, group=mesh.control)
+                        continue
+                elif me == driver:
+                    buf = torch.empty((len(idx), full // self._kv_shards),
+                                      dtype=torch.uint8)
+                    dist.recv(buf, src=src, group=mesh.control)
+                else:
+                    continue
+                rows = torch.tensor(idx, dtype=torch.int64)
+                for g, (_n, _p, v) in zip(self._page_views(packed, t),
+                                          leaf_views(self.cache, buf)):
+                    g.index_copy_(0, rows, v)
+        if packed is None:
+            return None
+        leaves = [v.transpose(0, 1) for v in self._page_views(packed)]
+        return ExportedPages(leaves, packed, None)
+
+    def _full_pages(self, leaves) -> torch.Tensor:
+        """An import payload (the tiering plane's per-page host buffers,
+        or per-leaf ``(L, N, ...)`` arrays) as JAX's full pages, one
+        page-major uint8 host buffer."""
+        if hasattr(leaves, "tensors"):
+            host = leaves.tensors()
+            return (torch.stack([t.cpu() for t in host]) if host else
+                    torch.empty((0, 0), dtype=torch.uint8))
+        arrays = list(leaves)
+        n = int(np.asarray(arrays[0]).shape[1]) if arrays else 0
+        packed = torch.empty((n, self._full_page_bytes()), dtype=torch.uint8)
+        for v, leaf, (_n, dt, _s, _a) in zip(self._page_views(packed),
+                                             arrays, self._page_leaves()):
+            v.copy_(_as_pool_tensor(leaf, dt, torch.device("cpu")
+                                    ).transpose(0, 1))
+        return packed
+
+    @_mirrored
+    def _mesh_import(self, pages: List[int]) -> None:
+        """:meth:`import_kv_pages` on a mesh (mirrored): the driver sends
+        every rank of each page's home replica its head shard of the
+        payload (:attr:`_import_stage`, set by the driver's caller) over
+        the control group, and each scatters it into its pool; without
+        dp universes every replica holds the page."""
+        import torch.distributed as dist
+
+        from llmq_tpu_torch.parallel.dp import scatter
+
+        mesh = self.mesh
+        me, driver = mesh.ranks[mesh.rank], mesh.ranks[0]
+        local = page_bytes(self.cache)
+        homes = self._homes(pages)
+        if self._dp is None:
+            homes = {e: homes.get(0, []) for e in range(mesh.dp)}
+        for e, idx in sorted(homes.items()):
+            slots = [self._home_slot(pages[i]) for i in idx]
+            rows = torch.tensor(idx, dtype=torch.int64)
+            for t in range(mesh.tp):
+                dst = mesh.rank_of(dp=e, tp=t)
+                buf = torch.empty((len(idx), local), dtype=torch.uint8)
+                if me == driver:
+                    shard = t if self._kv_shards > 1 else 0
+                    for (_n, _p, v), g in zip(
+                            leaf_views(self.cache, buf),
+                            self._page_views(self._import_stage, shard)):
+                        v.copy_(g.index_select(0, rows))
+                    if dst != me:
+                        dist.send(buf, dst=dst, group=mesh.control)
+                        continue
+                elif dst == me:
+                    dist.recv(buf, src=driver, group=mesh.control)
+                else:
+                    continue
+                scatter(self.cache, slots, buf)
 
 
 class ExportedPages(list):

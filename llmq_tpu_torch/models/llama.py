@@ -136,7 +136,17 @@ def _init_tree(cfg: LlamaConfig, generator: torch.Generator,
     def norm_init(shape, fan_in):
         w = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=device)
-        return (w * fan_in ** -0.5).to(cfg.dtype)
+        # In place: one f32 transient a leaf (7.5 GB for llama3-8b's
+        # w_gate), which several ranks drawing at once on one card share.
+        out = w.mul_(fan_in ** -0.5).to(cfg.dtype)
+        del w
+        if out.is_cuda:
+            # The transient's memory goes back before the next leaf: a
+            # leaf carved out of an earlier transient's cached block would
+            # pin the rest of that block, which no later empty_cache can
+            # return (GBs at llama3-8b's leaves).
+            torch.cuda.empty_cache()
+        return out
 
     def ones(shape):
         return torch.ones(shape, dtype=cfg.dtype, device=device)

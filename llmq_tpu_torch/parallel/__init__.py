@@ -8,7 +8,9 @@ other ranks follow its executor (``engine/executor.py``), each holding
 its ``tp`` shard of the weights and of the paged pool
 (:func:`shard_params`, :func:`kv_cache_shardings`) and launching the
 port's kernels on it; the model's collectives stitch the shards
-(``models/llama.py``).
+(``models/llama.py``). A ``dp`` axis splits the batch and the pool's
+page axis into replicas, each with its page universe and guest pages
+(:class:`~llmq_tpu_torch.parallel.dp.DpPlane`).
 """
 
 from llmq_tpu_torch.parallel.mesh import (  # noqa: F401

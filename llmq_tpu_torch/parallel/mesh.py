@@ -5,10 +5,14 @@ JAX's mesh is a named array of the devices one controller drives. The
 port runs one process per rank (``torch.distributed``), so its mesh is a
 named ``(dp, tp)`` view over the world's ranks: the axis sizes, this
 process's coordinates on them, and the process groups that stitch the
-ranks together. ``group`` carries the model's collectives (NCCL on the
-card, gloo on the CPU); ``control`` is a gloo group over the same ranks
-that carries the executor's host descriptors (the same group where the
-data plane is already gloo).
+ranks together. ``group`` carries the model's tp collectives, which the
+CUDA graphs capture (NCCL on the card wherever ``tp > 1``, gloo on the
+CPU); ``dp_group`` (gloo) joins the ranks of one tp coordinate across the
+dp replicas and carries the pages and tokens that move between
+replicas, between programs; ``results`` (gloo) joins each replica's
+first tp rank and carries the rows' results to the driver; ``control``
+is a gloo group over every rank that carries the executor's host
+descriptors (the same group where the data plane is already gloo).
 
 ``distributed_init`` joins the world from a ``host:port`` coordinator
 (JAX's ``jax.distributed.initialize``); a second call is a no-op and any
@@ -52,7 +56,8 @@ class Mesh:
     def __init__(self, shape: Dict[str, int], rank: int = 0,
                  group=None, control=None, backend: str = "",
                  ranks: Optional[Sequence[int]] = None,
-                 timeout_s: float = DEFAULT_TIMEOUT_S) -> None:
+                 timeout_s: float = DEFAULT_TIMEOUT_S, dp_group=None,
+                 results=None) -> None:
         self.shape = dict(shape)
         self.axis_names = tuple(shape)
         self.size = 1
@@ -64,6 +69,8 @@ class Mesh:
             range(self.size))
         self.group = group
         self.control = control
+        self.dp_group = dp_group
+        self.results = results
         self.backend = backend
         self.timeout_s = float(timeout_s)
         coords, rest = {}, rank
@@ -83,6 +90,15 @@ class Mesh:
     @property
     def tp_rank(self) -> int:
         return int(self.coords.get("tp", 0))
+
+    @property
+    def dp_rank(self) -> int:
+        """This rank's dp replica (its universe of pages)."""
+        return int(self.coords.get("dp", 0))
+
+    def rank_of(self, **coords: int) -> int:
+        """The global rank at ``coords`` (axes left out: 0)."""
+        return _rank_of(self.shape, self.ranks, coords)
 
     @property
     def is_driver(self) -> bool:
@@ -140,13 +156,15 @@ def make_mesh(shape: Dict[str, int],
     resolved = dict(zip(names, sizes))
     if explicit and world == 1:
         return Mesh(resolved)
-    group = control = None
+    group = control = dp_group = results = None
     backend = ""
     if world > 1 or _initialized():
-        group, control, backend = _groups(resolved, rs, rank)
+        group, control, backend, dp_group, results = _groups(resolved, rs,
+                                                             rank)
     mesh = Mesh(resolved, rank=rs.index(rank) if rank in rs else 0,
                 group=group, control=control, backend=backend, ranks=rs,
-                timeout_s=_world_timeout_s)
+                timeout_s=_world_timeout_s, dp_group=dp_group,
+                results=results)
     log.info("mesh: %s over %d rank(s), this rank %d (%s)", resolved, n,
              mesh.rank, backend or "no process group")
     return mesh
@@ -158,39 +176,75 @@ def _initialized() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
+def _rank_of(shape: Dict[str, int], ranks: Sequence[int],
+             coords: Dict[str, int]) -> int:
+    """The rank at ``coords`` of the row-major rank array over
+    ``shape``."""
+    i = 0
+    for name, n in shape.items():
+        i = i * n + int(coords.get(name, 0))
+    return ranks[i]
+
+
+def _lines(shape: Dict[str, int], ranks: Sequence[int], axis: str):
+    """The ranks along ``axis`` at every coordinate of the other axes:
+    one list per line, in row-major order of those coordinates."""
+    others = [(k, n) for k, n in shape.items() if k != axis]
+    count = 1
+    for _k, n in others:
+        count *= n
+    out = []
+    for i in range(count):
+        coords, rest = {}, i
+        for k, n in reversed(others):
+            coords[k] = rest % n
+            rest //= n
+        out.append([_rank_of(shape, ranks, {**coords, axis: j})
+                    for j in range(shape.get(axis, 1))])
+    return out
+
+
 def _groups(shape: Dict[str, int], ranks: Sequence[int], rank: int):
-    """(this rank's tp group, the control group, the world's backend).
-    Every rank creates every group, in one order (``new_group`` is a
-    collective call)."""
+    """(this rank's tp group, the control group, the world's backend,
+    its dp group, the results group). Every rank creates every group, in
+    one order (``new_group`` is a collective call): the tp lines (the
+    world's backend), the dp lines and the results group (gloo, where
+    ``dp > 1``), then the control group."""
     import torch.distributed as dist
 
     backend = str(dist.get_backend())
     timeout = datetime.timedelta(seconds=_world_timeout_s)
-    names = list(shape)
-    tp = shape.get("tp", 1)
-    # Rows of the row-major rank array along its last axis (tp last, as
-    # in {"dp": .., "tp": ..}); with tp first, its ranks are strided.
-    tp_axis = names.index("tp") if "tp" in names else None
-    rows = []
-    if tp_axis is None:
-        rows = [[r] for r in ranks]
-    elif tp_axis == len(names) - 1:
-        rows = [list(ranks[i:i + tp]) for i in range(0, len(ranks), tp)]
-    else:
-        stride = len(ranks) // tp
-        rows = [list(ranks[i::stride]) for i in range(stride)]
-    mine = None
-    for row in rows:
-        g = (dist.group.WORLD if len(row) == dist.get_world_size()
-             else dist.new_group(row, timeout=timeout))
+    world = dist.get_world_size()
+
+    def make(row, gloo: bool):
+        # The gloo groups are always groups of their own: the driver's
+        # results receiver waits on its group from a thread of its own.
+        if len(row) == world and not gloo:
+            return dist.group.WORLD
+        return dist.new_group(row, timeout=timeout,
+                              backend="gloo" if gloo else None)
+
+    mine = dp_group = results = None
+    for row in _lines(shape, ranks, "tp"):
+        g = make(row, gloo=False)
         if rank in row:
             mine = g
+    if shape.get("dp", 1) > 1:
+        for row in _lines(shape, ranks, "dp"):
+            g = make(row, gloo=True)
+            if rank in row:
+                dp_group = g
+        firsts = [_rank_of(shape, ranks, {"dp": d})
+                  for d in range(shape["dp"])]
+        g = make(firsts, gloo=True)
+        if rank in firsts:
+            results = g
     if backend == "gloo":
         control = dist.group.WORLD
     else:
         control = dist.new_group(list(ranks), backend="gloo",
                                  timeout=timeout)
-    return mine, control, backend
+    return mine, control, backend, dp_group, results
 
 
 def single_device_mesh(axis_names: Sequence[str] = AXES) -> Mesh:
@@ -203,11 +257,15 @@ def distributed_init(coordinator: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None,
                      initialization_timeout: Optional[int] = None,
-                     device: str = "cuda") -> None:
+                     device: str = "cuda",
+                     backend: Optional[str] = None) -> None:
     """Join the world: ``torch.distributed.init_process_group`` from the
     ``host:port`` coordinator (rank 0 hosts the store there), NCCL when
     ``device`` is a CUDA device (this rank's card, ``cuda:{rank %
-    device_count}``, made current), gloo on the CPU.
+    device_count}``, made current), gloo on the CPU. ``backend="gloo"``
+    keeps a CUDA world on gloo: a mesh without tp collectives (``tp`` 1)
+    moves only host traffic between its ranks, and gloo lets several
+    ranks share one card, which NCCL refuses.
     ``initialization_timeout`` (seconds, default
     :data:`DEFAULT_TIMEOUT_S`) bounds the rendezvous and every later
     collective, and is every later mesh's ``timeout_s``. Idempotent: a second call is a no-op. Any other
@@ -234,8 +292,13 @@ def distributed_init(coordinator: Optional[str] = None,
         index = (dev.index if dev.index is not None
                  else int(process_id) % torch.cuda.device_count())
         torch.cuda.set_device(index)
-        backend = "nccl"
-        kwargs["device_id"] = torch.device("cuda", index)
+        # No ``device_id``: an NCCL world bound to its device splits every
+        # later group from its communicator, and then a rank outside a
+        # gloo group (the dp lines, the results group) waits in a split
+        # that the members never join. Each NCCL communicator starts at
+        # its first collective instead (warmup's eager runs, before any
+        # capture).
+        backend = backend or "nccl"
     else:
         backend = "gloo"
     dist.init_process_group(backend, init_method=f"tcp://{coordinator}",

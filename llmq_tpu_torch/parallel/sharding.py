@@ -248,8 +248,12 @@ def tensor_parallel(mesh: Optional[Mesh],
                     shardings: Params) -> Optional[TensorParallel]:
     """The model's :class:`~llmq_tpu_torch.models.llama.TensorParallel`
     for this rank of ``mesh`` under ``shardings`` (which parts of the tree
-    its ``tp`` axis splits); None without a ``tp`` process group."""
+    its ``tp`` axis splits); None without a ``tp`` process group, and at
+    ``tp`` 1 off NCCL (its collectives are the identity, and a gloo world
+    launches none)."""
     if mesh is None or mesh.group is None or "tp" not in mesh.shape:
+        return None
+    if mesh.tp == 1 and mesh.backend != "nccl":
         return None
 
     def split(tree) -> bool:

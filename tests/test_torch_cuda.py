@@ -1930,3 +1930,124 @@ def test_two_rank_gloo_tp2_forward_on_the_card_matches_one_rank(tmp_path):
             g, r = g[live], r[live]
         err = (g - r).abs().max().item()
         assert err <= MESH_BOUND * r.abs().max().item(), (k, err)
+
+
+# -- dp replicas: a replica's local pool and its guest pages -------------------
+
+
+def _dp_local(plane, pools, guests):
+    """A replica's local pool made from the one-device ``pools`` (every
+    leaf ``(L, P, ...)``): its null slot zero, its universe's pages at
+    their home slots, ``guests`` (page → slot) copied in."""
+    out = []
+    for pool in pools:
+        loc = torch.zeros((pool.shape[0], plane.local_pages)
+                          + tuple(pool.shape[2:]), dtype=pool.dtype,
+                          device=pool.device)
+        u0 = plane.d * plane.per
+        loc[:, 1:1 + plane.per] = pool[:, u0:u0 + plane.per]
+        for page, slot in guests.items():
+            loc[:, slot] = pool[:, page]
+        out.append(loc)
+    return out
+
+
+@needs_cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_dp_local_pool_kernels_match_one_device_twins(kv):
+    """Replica 1 of a dp=2 mesh: its rows' block tables translated to its
+    local pool (its universe, a guest page of universe 0, the null slot)
+    drive kernels 1, 2 and 3 (bf16) or 5 (int8 KV) on that pool; the
+    twins run on the one-device pool with the global tables. Outputs
+    within the kernels' tolerances, every written page bit-exact at its
+    home."""
+    from llmq_tpu_torch.parallel.dp import DpPlane
+    from llmq_tpu_torch.parallel.mesh import Mesh
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    plane = DpPlane(Mesh({"dp": 2, "tp": 1}, rank=1), num_pages=P,
+                    batch_size=4, max_pages_per_seq=MP, guest_rows=2)
+    per = plane.per
+    # Row 2 lives in universe 1; row 3 reads two pages of universe 0.
+    bt = torch.zeros((2, MP), dtype=torch.int32)
+    bt[0, :3] = torch.tensor([per + 3, per + 9, per + 4])
+    bt[1, :4] = torch.tensor([per + 20, 5, per + 21, 7])
+    lens = torch.tensor([40, 60], dtype=torch.int32)
+    guests = plane.plan([[], [bt.numpy()]])[1]
+    assert sorted(guests) == [5, 7]
+    lbt = torch.from_numpy(plane.translate(bt.numpy(), guests)).cuda()
+    gbt = bt.cuda()
+    sl = lens.cuda()
+    wp_g = gbt[torch.arange(2), ((sl - 1) // PS).long()]
+    wp_l = lbt[torch.arange(2), ((sl - 1) // PS).long()]
+    kp, vp = _pools(gen)
+    kn, vn = _rand((2, HKV, D), gen), _rand((2, HKV, D), gen)
+    q = _rand((2, H, D), gen)
+
+    def home(loc, pool):
+        """Every page of ``loc`` back at its global id."""
+        out = pool.clone()
+        u0 = plane.d * plane.per
+        out[:, u0:u0 + plane.per] = loc[:, 1:1 + plane.per]
+        for page, slot in guests.items():
+            out[:, page] = loc[:, slot]
+        return out
+
+    if kv == "int8":
+        pools = list(_q8_pools(kp, vp))
+        local = _dp_local(plane, pools, guests)
+        (kq, ks), (vq, vs) = _q8(kn.reshape(2, -1)), _q8(vn.reshape(2, -1))
+        a = kernels.fused_decode_q8(q, kq, ks, vq, vs, *local, lbt, sl, wp_l,
+                                    1)
+        b = kernels.fused_decode_q8_plain(q, kq, ks, vq, vs, *pools, gbt, sl,
+                                          wp_g, 1)
+        torch.cuda.synchronize()
+        assert (a.float() - b.float()).abs().max().item() <= Q8_ATOL
+        for x, y in zip(local, pools):
+            assert torch.equal(home(x, y), y)
+        return
+    lk, lv = _dp_local(plane, [kp, vp], guests)
+    a = kernels.fused_decode(q, kn, vn, lk, lv, lbt, sl, wp_l, 1)
+    b = kernels.fused_decode_plain(q, kn, vn, kp, vp, gbt, sl, wp_g, 1)
+    torch.cuda.synchronize()
+    assert (a.float() - b.float()).abs().max().item() <= ATOL
+    assert torch.equal(home(lk, kp), kp) and torch.equal(home(lv, vp), vp)
+    # Kernels 2 and 3: row 3's chunk of 30 tokens from position 30, over
+    # its own and its guest pages.
+    T, start = 32, 30
+    rk, rv = _rand((T, GD), gen), _rand((T, GD), gen)
+    desc = _desc([0], [T], [start])
+    kernels.kv_prefill_write(lk, lv, rk, rv, lbt[1:], *desc, T, 0)
+    kernels.kv_prefill_write_plain(kp, vp, rk, rv, gbt[1:], *desc, T, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(home(lk, kp), kp) and torch.equal(home(lv, vp), vp)
+    qc = _rand((T, H, D), gen)
+    a = _attn1(kernels.prefill_attention, qc, lk, lv, lbt[1], start, 0)
+    b = _attn1(kernels.prefill_attention_plain, qc, kp, vp, gbt[1], start, 0)
+    torch.cuda.synchronize()
+    assert (a.float() - b.float()).abs().max().item() <= ATOL
+
+
+@needs_cuda
+def test_dp_guest_page_round_trip_is_bit_exact():
+    """A page of every leaf (int8 values, bf16 scales) gathered from its
+    home slot to host memory, scattered into a guest slot of another
+    pool, and back home again: byte for byte."""
+    from llmq_tpu_torch.parallel.dp import gather, scatter
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    kp, vp = _pools(gen)
+    home = dict(zip(("k", "v", "k_scale", "v_scale"), _q8_pools(kp, vp)))
+    other = {k: torch.zeros_like(v) for k, v in home.items()}
+    src, guest = [3, 17, 40], [60, 61, 62]
+    before = {k: v[:, src].clone() for k, v in home.items()}
+    buf = gather(home, src)
+    assert buf.device.type == "cpu"
+    scatter(other, guest, buf)
+    for k in home:
+        home[k][:, src] = 0
+    scatter(home, src, gather(other, guest))
+    torch.cuda.synchronize()
+    for k, v in home.items():
+        assert torch.equal(v[:, src], before[k]), k
+        assert torch.equal(other[k][:, guest], before[k]), k

@@ -595,23 +595,28 @@ class TestBuilderMesh:
                    "configured" in r.getMessage() for r in caplog.records)
         eng.stop()
 
-    @pytest.mark.parametrize("plane,match", [
-        ("speculation", "executor.speculation on a mesh"),
-        ("kv_tiering", "executor.kv_tiering on a mesh"),
-        ("dp", "dp > 1 on the device")])
-    def test_builder_refusals_name_the_remedy(self, plane, match):
+    @pytest.mark.parametrize("plane", ["speculation", "kv_tiering"])
+    def test_builder_mesh_serves_with_the_plane_on(self, plane):
+        """Speculation and the tiered KV plane build and serve on a mesh
+        (one rank, no world), as without it."""
         from llmq_tpu_torch.engine.builder import build_engine
 
         cfg = _tiny_cfg()
         cfg.executor.mesh.enabled = True
         cfg.executor.mesh.shape = {"tp": 1}
-        if plane == "dp":
-            cfg.executor.mesh.shape = {"dp": 2, "tp": 1}
+        getattr(cfg.executor, plane).enabled = True
+        eng = build_engine(cfg, model_dtype=torch.float32)
+        plain = build_engine(_tiny_cfg(), model_dtype=torch.float32)
+        if plane == "speculation":
+            assert eng.executor.verify_draft_k == cfg.executor.speculation.\
+                draft_k
         else:
-            getattr(cfg.executor, plane).enabled = True
-        with pytest.raises(ValueError, match=match) as e:
-            build_engine(cfg, model_dtype=torch.float32)
-        assert "ROADMAP.md A11" in str(e.value)
+            assert eng._tiering is not None
+            assert eng.executor.kv_page_spec() == \
+                plain.executor.kv_page_spec()
+        assert _serve_one(eng).tokens == _serve_one(plain).tokens
+        eng.stop()
+        plain.stop()
 
 
 def _tiny_params():
@@ -620,49 +625,75 @@ def _tiny_params():
 
 
 class TestExecutorRefusals:
-    def test_dp_on_the_device_refused(self):
+    def test_a_mesh_of_several_ranks_needs_its_world(self):
+        """A dp mesh described without a joined world has no groups to
+        serve over: refused with the remedy."""
         from llmq_tpu_torch.engine.executor import TorchExecutor
 
         cfg, params = _tiny_params()
-        with pytest.raises(ValueError, match="ROADMAP.md A11"):
+        with pytest.raises(ValueError, match="needs its world"):
             TorchExecutor(cfg, params, device="cpu",
                           mesh=Mesh({"dp": 2, "tp": 1}))
 
-    def test_speculation_on_a_mesh_refused(self):
-        from llmq_tpu_torch.engine.executor import TorchExecutor
-
-        cfg, params = _tiny_params()
-        with pytest.raises(ValueError, match="speculation on a mesh"):
-            TorchExecutor(cfg, params, device="cpu", mesh=Mesh({"tp": 1}),
-                          speculation_draft_k=4)
-
-    @pytest.mark.parametrize("backend,group,match", [
-        ("gloo", object(), "must be NCCL"),
-        ("", None, "needs its NCCL process group")])
+    @pytest.mark.parametrize("backend,group,shape,match", [
+        ("gloo", object(), {"tp": 2}, "must be NCCL"),
+        ("", None, {"tp": 1}, "needs its NCCL process group")])
     def test_cuda_executor_needs_an_nccl_group(self, monkeypatch, backend,
-                                               group, match):
+                                               group, shape, match):
         """The check runs before anything touches the card, so the CPU
-        can hold it: a CUDA executor over a gloo group, or over no group
-        at all, raises (no quiet fall to eager or to one device)."""
+        can hold it: a CUDA executor whose tp group (tp > 1) is gloo, or
+        with no group at all, raises (no quiet fall to eager or to one
+        device)."""
         from llmq_tpu_torch.engine import executor as E
 
         monkeypatch.setattr(E, "resolve_device",
                             lambda d: torch.device("cuda"))
         cfg, params = _tiny_params()
-        mesh = Mesh({"tp": 1}, group=group, backend=backend)
+        mesh = Mesh(shape, group=group, backend=backend)
         with pytest.raises(ValueError, match=match):
             E.TorchExecutor(cfg, params, device="cuda", mesh=mesh)
 
-    def test_tiering_transport_refused_on_a_mesh(self):
+    def test_cuda_dp_mesh_on_a_gloo_world_is_accepted(self, monkeypatch):
+        """``{dp: 2}`` on a gloo world: tp is 1, so no collective is
+        captured and gloo (which lets two ranks share one card) passes
+        the checks; the executor gets past them to its device work."""
+        from llmq_tpu_torch.engine import executor as E
+
+        monkeypatch.setattr(E, "resolve_device",
+                            lambda d: torch.device("cuda"))
+        cfg, params = _tiny_params()
+        mesh = Mesh({"dp": 2}, group=object(), control=object(),
+                    backend="gloo")
+        reached = []
+
+        def shard(*a, **kw):
+            reached.append(True)
+            raise RuntimeError("past the checks")
+        from llmq_tpu_torch.parallel import sharding
+
+        monkeypatch.setattr(sharding, "shard_params", shard)
+        with pytest.raises(RuntimeError, match="past the checks"):
+            E.TorchExecutor(cfg, params, device="cuda", mesh=mesh)
+        assert reached
+
+    def test_tiering_transport_on_a_mesh_of_one_is_the_pool(self):
+        """A mesh of one rank exports and imports through its own pool,
+        in the one-device format, byte for byte."""
         from llmq_tpu_torch.engine.executor import TorchExecutor
 
         cfg, params = _tiny_params()
         ex = TorchExecutor(cfg, params, device="cpu", mesh=Mesh({"tp": 1}),
                            batch_size=2, num_pages=9, prefill_buckets=[16])
-        with pytest.raises(RuntimeError, match="tiered KV plane on a mesh"):
-            ex.export_kv_pages([1])
-        with pytest.raises(RuntimeError, match="tiered KV plane on a mesh"):
-            ex.import_kv_pages([1], [])
+        one = TorchExecutor(cfg, params, device="cpu", batch_size=2,
+                            num_pages=9, prefill_buckets=[16])
+        assert ex.kv_page_spec() == one.kv_page_spec()
+        gen = torch.Generator().manual_seed(3)
+        for pool in ex.cache.values():
+            pool.copy_(torch.randn(pool.shape, generator=gen))
+        out = ex.export_kv_pages([1, 4])
+        ex.import_kv_pages([6, 7], [t.clone() for t in out])
+        for name, pool in ex.cache.items():
+            assert torch.equal(pool[:, [6, 7]], pool[:, [1, 4]]), name
 
     def test_follow_only_on_a_follower(self):
         from llmq_tpu_torch.engine.executor import TorchExecutor
